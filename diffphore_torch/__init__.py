@@ -1,0 +1,12 @@
+"""DiffPhore in PyTorch: pose sampling of ligands against pharmacophores on
+an NVIDIA Hopper GPU.
+
+A port of ``diffphore_tpu`` (JAX) that keeps its data layout, parameter
+names and numerics, so checkpoints and cached complexes carry over and every
+module can be held against the JAX package on the same inputs.  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,181 @@
+"""Model layers: Gaussian smearing, MLPs, categorical encoders, equivariant
+batch norm (inference: running statistics) and the channelwise dense-edge
+tensor-product convolution.
+
+Attribute names mirror the JAX package's flax scope names (``Dense_0``,
+``Embed_k``, ``fc_w1``, ``mix_k``, ``bn``), so a checkpoint converts by a
+mechanical tree walk (:mod:`diffphore_torch.utils.checkpoints`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Union
+
+import torch
+import torch.nn.functional as Fn
+from torch import nn
+
+from ..ops import tp_fused
+from ..ops.irreps import parse
+from ..ops.tensor_product import channelwise_tp
+
+
+class GaussianSmearing(nn.Module):
+    """Distance -> RBF embedding."""
+
+    def __init__(self, start: float = 0.0, stop: float = 5.0, num_gaussians: int = 50):
+        super().__init__()
+        self.start, self.stop, self.num_gaussians = start, stop, num_gaussians
+
+    def forward(self, dist: torch.Tensor) -> torch.Tensor:
+        offset = torch.linspace(self.start, self.stop, self.num_gaussians,
+                                dtype=torch.float32, device=dist.device)
+        coeff = -0.5 / (offset[1] - offset[0]) ** 2
+        d = dist[..., None] - offset
+        return torch.exp(coeff * d * d)
+
+
+class MLP(nn.Module):
+    """Linear - activation - Linear (dropout is a no-op at inference)."""
+
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 activation: Callable = torch.relu):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, hidden)
+        self.Dense_1 = nn.Linear(hidden, out)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(self.activation(self.Dense_0(x)))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return Fn.leaky_relu(x, 0.01)
+
+
+class CategoricalEncoder(nn.Module):
+    """Sum of per-column embeddings + linear on trailing scalars."""
+
+    def __init__(self, emb_dim: int, feature_dims: Sequence[int], num_scalars: int = 0):
+        super().__init__()
+        self.n_cols = len(feature_dims)
+        for k, vocab in enumerate(feature_dims):
+            setattr(self, f"Embed_{k}", nn.Embedding(vocab, emb_dim))
+        self.num_scalars = num_scalars
+        if num_scalars:
+            self.Dense_0 = nn.Linear(num_scalars, emb_dim)
+
+    def forward(self, cat: torch.Tensor, scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = 0.0
+        for k in range(self.n_cols):
+            out = out + getattr(self, f"Embed_{k}")(cat[..., k])
+        if self.num_scalars:
+            out = out + self.Dense_0(scalars)
+        return out
+
+
+class EquivariantBatchNorm(nn.Module):
+    """Irreps-aware batch norm with running statistics: scalar fields get
+    mean/var normalization with scale and bias, higher-l fields are divided
+    by the root of their running component power and scaled."""
+
+    def __init__(self, irreps: str, eps: float = 1e-5):
+        super().__init__()
+        self.irreps = parse(irreps)
+        self.eps = eps
+        num_scalar_ch = sum(mul for mul, ir in self.irreps if ir.l == 0)
+        num_ch = sum(mul for mul, _ in self.irreps)
+        self.weight = nn.Parameter(torch.ones(num_ch))
+        self.bias = nn.Parameter(torch.zeros(num_scalar_ch))
+        self.register_buffer("mean", torch.zeros(num_scalar_ch))
+        self.register_buffer("var", torch.ones(num_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = []
+        ch_off, sc_off = 0, 0
+        for (mul, ir), sl in zip(self.irreps, self.irreps.slices()):
+            field = x[..., sl].reshape(x.shape[:-1] + (mul, ir.dim))
+            w = self.weight[ch_off:ch_off + mul]
+            var = self.var[ch_off:ch_off + mul]
+            if ir.l == 0:
+                centered = field[..., 0] - self.mean[sc_off:sc_off + mul]
+                out = centered * torch.rsqrt(var + self.eps) * w + self.bias[sc_off:sc_off + mul]
+                outs.append(out)
+                sc_off += mul
+            else:
+                out = field * (torch.rsqrt(var + self.eps) * w)[..., None]
+                outs.append(out.reshape(out.shape[:-2] + (-1,)))
+            ch_off += mul
+        return torch.cat(outs, dim=-1)
+
+
+class DenseTPConv(nn.Module):
+    """Channelwise tensor-product message passing over a dense (receiver,
+    sender) grid with a masked mean over senders.
+
+    The edge MLP and the sum over senders are one call of K1
+    (:func:`diffphore_torch.ops.tp_fused.tp_aggregate_fused`): the CUDA
+    kernel for CUDA tensors, its plain version for CPU tensors.  Setting
+    ``use_kernel = False`` runs the plain version on any device (a
+    comparison run; the main path leaves it on).  Several edge channels
+    between the same pairs (ligand bond and radius edges) share the
+    harmonics and pass lists of attrs and masks; the masked mean counts
+    every channel's edges.  All arithmetic is f32, as in the JAX package's
+    fused path.
+    """
+
+    def __init__(self, in_irreps: str, out_irreps: str, sh_irreps: str = "1x0e + 1x1o + 1x2e",
+                 n_edge_features: int = 48, hidden_features: Optional[int] = None,
+                 batch_norm: bool = True):
+        super().__init__()
+        self.tp = channelwise_tp(in_irreps, sh_irreps, out_irreps)
+        hidden = hidden_features or n_edge_features
+        F = self.tp.weight_numel
+        self.fc_w1 = nn.Parameter(torch.zeros(n_edge_features, hidden))
+        self.fc_b1 = nn.Parameter(torch.zeros(hidden))
+        self.fc_w2 = nn.Parameter(torch.zeros(hidden, F))
+        self.fc_b2 = nn.Parameter(torch.zeros(F))
+        for k, fan_in, mul_out in self.tp.mix_specs:
+            if any(p.i_out == k for p in self.tp.paths):
+                setattr(self, f"mix_{k}", nn.Parameter(torch.zeros(fan_in, mul_out)))
+        self.bn = EquivariantBatchNorm(out_irreps) if batch_norm else None
+        self.use_kernel = True
+
+    def forward(
+        self,
+        sender_feat: torch.Tensor,                                   # (B, M, dim_in)
+        edge_attr: Union[torch.Tensor, List[torch.Tensor]],          # (B, N, M, E) or C of them
+        edge_sh: torch.Tensor,                                       # (B, N, M, sh_dim)
+        edge_mask: Union[torch.Tensor, List[torch.Tensor]],          # (B, N, M) or C of them
+    ) -> torch.Tensor:
+        tp = self.tp
+        attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
+        masks = edge_mask if isinstance(edge_mask, (list, tuple)) else [edge_mask]
+        f32 = torch.float32
+        counts = 0.0
+        for m in masks:
+            counts = counts + m.to(f32).sum(dim=-1)
+        denom = torch.clamp(counts, min=1.0)                         # (B, N)
+
+        aggregate = (tp_fused.tp_aggregate_fused if self.use_kernel
+                     else tp_fused.tp_aggregate_fused_plain)
+        padded = aggregate(
+            tp, sender_feat.to(f32).contiguous(), edge_sh.to(f32).contiguous(),
+            [a.to(f32).contiguous() for a in attrs], [m.contiguous() for m in masks],
+            self.fc_w1, self.fc_b1, self.fc_w2, self.fc_b2)
+        blocks = tp_fused.blocks_from_padded(tp, padded)
+
+        B, N = padded.shape[:2]
+        parts = []
+        for (k, _, _), block in zip(tp.mix_specs, blocks):
+            mul, ir = tp.irreps_out.items[k]
+            if block is None:
+                parts.append(torch.zeros((B, N, mul * ir.dim), dtype=f32, device=padded.device))
+                continue
+            agg = block / denom[..., None, None]
+            mixed = torch.einsum("...fd,fv->...vd", agg, getattr(self, f"mix_{k}"))
+            parts.append(mixed.reshape(mixed.shape[:-2] + (mul * ir.dim,)))
+        out = torch.cat(parts, dim=-1)
+        if self.bn is not None:
+            out = self.bn(out)
+        return out

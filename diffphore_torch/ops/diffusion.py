@@ -1,0 +1,67 @@
+"""Diffusion schedule, sigma interpolation and timestep embeddings."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SigmaSchedule:
+    """Geometric interpolation sigma(t) = min^(1-t) * max^t per group."""
+
+    tr_sigma_min: float = 0.1
+    tr_sigma_max: float = 5.0
+    rot_sigma_min: float = 0.1
+    rot_sigma_max: float = 1.5
+    tor_sigma_min: float = 0.0314
+    tor_sigma_max: float = 3.14
+
+    def __call__(self, t_tr, t_rot=None, t_tor=None):
+        t_rot = t_tr if t_rot is None else t_rot
+        t_tor = t_tr if t_tor is None else t_tor
+        tr = self.tr_sigma_min ** (1 - t_tr) * self.tr_sigma_max**t_tr
+        rot = self.rot_sigma_min ** (1 - t_rot) * self.rot_sigma_max**t_rot
+        tor = self.tor_sigma_min ** (1 - t_tor) * self.tor_sigma_max**t_tor
+        return tr, rot, tor
+
+    # SDE diffusion coefficients g(t)
+    def g_tr(self, tr_sigma):
+        return tr_sigma * math.sqrt(2.0 * math.log(self.tr_sigma_max / self.tr_sigma_min))
+
+    def g_rot(self, rot_sigma):
+        return 2.0 * rot_sigma * math.sqrt(math.log(self.rot_sigma_max / self.rot_sigma_min))
+
+    def g_tor(self, tor_sigma):
+        return tor_sigma * math.sqrt(2.0 * math.log(self.tor_sigma_max / self.tor_sigma_min))
+
+
+def t_schedule(inference_steps: int) -> np.ndarray:
+    """linspace(1 -> 0), endpoint dropped."""
+    return np.linspace(1.0, 0.0, inference_steps + 1)[:-1]
+
+
+def sinusoidal_embedding(t: torch.Tensor, embedding_dim: int,
+                         max_positions: int = 10000) -> torch.Tensor:
+    """Transformer-style sinusoidal embedding of (fractional) steps."""
+    half = embedding_dim // 2
+    freq = torch.exp(
+        torch.arange(half, dtype=torch.float32, device=t.device)
+        * (-math.log(max_positions) / (half - 1)))
+    emb = t[..., None].to(torch.float32) * freq
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if embedding_dim % 2 == 1:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb
+
+
+def timestep_embedding(embedding_type: str, embedding_dim: int, embedding_scale: float = 10000):
+    """Only 'sinusoidal' is ported: the JAX package's 'fourier' embedding
+    draws its frozen projection from jax.random, whose bits the port cannot
+    reproduce."""
+    if embedding_type == "sinusoidal":
+        return lambda t: sinusoidal_embedding(embedding_scale * t, embedding_dim)
+    raise NotImplementedError(embedding_type)

@@ -1,0 +1,140 @@
+"""Channelwise tensor products of irreps features.
+
+The path tables are static numpy/Python metadata, identical to the JAX
+package's; the contractions are torch.  A channelwise ("uvu") product has
+one edge weight per input channel per path and a static per-irrep linear
+mix to the output multiplicities, applied after the sum over senders.
+
+Normalization: each path is scaled by sqrt(2*l_out + 1) (component
+normalization); the 1/sqrt(fan_in) factor lives in the mix weights.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import List, Optional, Tuple
+
+import torch
+
+from .irreps import Irrep, Irreps, parse
+from .wigner import wigner_3j
+
+
+@dataclasses.dataclass(frozen=True)
+class _Path:
+    i_in: int
+    i_sh: int
+    i_out: int
+    mul_in: int
+    mul_out: int
+    l_in: int
+    l_sh: int
+    l_out: int
+    w_slice: Tuple[int, int]  # [start, stop) into the flat weight vector
+    alpha: float
+
+
+def _cg(l1: int, l2: int, l3: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(wigner_3j(l1, l2, l3), dtype=like.dtype, device=like.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelwiseTP:
+    irreps_in: Irreps
+    irreps_sh: Irreps
+    irreps_out: Irreps
+    paths: Tuple[_Path, ...]
+    weight_numel: int
+    #: per output irrep block: (block_index, fan_in_channels, mul_out)
+    mix_specs: Tuple[Tuple[int, int, int], ...]
+
+    def aggregate(self, x: torch.Tensor, sh: torch.Tensor,
+                  weights: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """Edge-summed TP, one einsum per path with the sender sum folded in.
+
+        Args:
+          x:  (B, M, dim_in) sender features.
+          sh: (B, N, M, sh_dim);  weights: (B, N, M, weight_numel), pre-masked.
+        Returns:
+          list aligned with irreps_out of (B, N, fan_in, 2l+1) sums over M
+          (None where no path feeds the irrep).
+        """
+        in_slices = self.irreps_in.slices()
+        sh_slices = self.irreps_sh.slices()
+        blocks: List[List[torch.Tensor]] = [[] for _ in self.irreps_out.items]
+        for p in self.paths:
+            xb = x[..., in_slices[p.i_in]]
+            xb = xb.reshape(xb.shape[:-1] + (p.mul_in, 2 * p.l_in + 1))
+            shb = sh[..., sh_slices[p.i_sh]]
+            wb = weights[..., p.w_slice[0]:p.w_slice[1]]
+            z = torch.einsum("bmui,ijk->bmujk", xb, _cg(p.l_in, p.l_sh, p.l_out, xb))
+            contrib = p.alpha * torch.einsum("bnmj,bnmu,bmujk->bnuk", shb, wb, z)
+            blocks[p.i_out].append(contrib)
+        return [torch.cat(parts, dim=-2) if parts else None for parts in blocks]
+
+
+@functools.lru_cache(maxsize=None)
+def channelwise_tp(irreps_in: str, irreps_sh: str, irreps_out: str) -> ChannelwiseTP:
+    """Build (and cache) the channel-wise path table."""
+    irr_in, irr_sh, irr_out = parse(str(irreps_in)), parse(str(irreps_sh)), parse(str(irreps_out))
+    raw_paths: List[List] = []
+    fan_in = [0] * len(irr_out)
+    for i, (mul_in, ir_in) in enumerate(irr_in):
+        for j, (mul_sh, ir_sh) in enumerate(irr_sh):
+            if mul_sh != 1:
+                raise ValueError("sh inputs must be multiplicity-1")
+            for k, (mul_out, ir_out) in enumerate(irr_out):
+                if ir_out in ir_in * ir_sh:
+                    raw_paths.append([i, j, k, mul_in, mul_out, ir_in.l, ir_sh.l, ir_out.l])
+                    fan_in[k] += mul_in
+    paths: List[_Path] = []
+    offset = 0
+    for i, j, k, mul_in, mul_out, l_in, l_sh, l_out in raw_paths:
+        alpha = math.sqrt(2 * l_out + 1)
+        paths.append(_Path(i, j, k, mul_in, mul_out, l_in, l_sh, l_out,
+                           (offset, offset + mul_in), alpha))
+        offset += mul_in
+    mix_specs = tuple(
+        (k, fan_in[k], mul_out) for k, (mul_out, _) in enumerate(irr_out.items)
+    )
+    return ChannelwiseTP(irr_in, irr_sh, irr_out, tuple(paths), offset, mix_specs)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_tp_paths(irreps_1: str, irreps_2: str, filter_out: Optional[Tuple[str, ...]]):
+    """Path table of an unweighted full tensor product of two
+    multiplicity-1 irreps; ``filter_out`` keeps only the listed output
+    irreps (the torsion head consumes l <= 1)."""
+    irr1, irr2 = parse(str(irreps_1)), parse(str(irreps_2))
+    keep = None if filter_out is None else {repr(Irreps.parse(s).items[0][1]) for s in filter_out}
+    paths = []
+    out_items: List[Tuple[int, Irrep]] = []
+    for i, (mul1, ir1) in enumerate(irr1):
+        for j, (mul2, ir2) in enumerate(irr2):
+            for ir3 in ir1 * ir2:
+                if keep is not None and repr(ir3) not in keep:
+                    continue
+                k = len(out_items)
+                out_items.append((mul1 * mul2, ir3))
+                paths.append((i, j, k, ir1.l, ir2.l, ir3.l))
+    return irr1, irr2, Irreps(tuple(out_items)), tuple(paths)
+
+
+def full_tensor_product(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    irreps_1: str,
+    irreps_2: str,
+    filter_out: Optional[Tuple[str, ...]] = None,
+) -> Tuple[torch.Tensor, Irreps]:
+    """Unweighted tensor product of two multiplicity-1 irreps features."""
+    irr1, irr2, irr_out, paths = _full_tp_paths(str(irreps_1), str(irreps_2), filter_out)
+    s1, s2 = irr1.slices(), irr2.slices()
+    parts = []
+    for i, j, k, l1, l2, l3 in paths:
+        xb, yb = x[..., s1[i]], y[..., s2[j]]
+        parts.append(math.sqrt(2 * l3 + 1)
+                     * torch.einsum("...i,...j,ijk->...k", xb, yb, _cg(l1, l2, l3, xb)))
+    return torch.cat(parts, dim=-1), irr_out

@@ -1,0 +1,212 @@
+"""K1: fused edge MLP + channelwise tensor-product aggregate.
+
+The port of ``diffphore_tpu/ops/pallas/tp_fused.py::tp_aggregate_fused``
+(the TPU kernel) as a CUDA kernel for Hopper, ``csrc/tp_fused.cu``.  Per
+(batch row, receiver) it computes the edge weights
+
+    w = (sum_c relu(attr_c W1 + b1) * mask_c) W2 + (sum_c mask_c) b2
+
+on chip and sums the channelwise tensor product of the sender features and
+edge harmonics, weighted by w, over all senders.  Output (B, N, F, 4) f32:
+channel f's l_out components in lanes [:2*l_out+1], which
+:func:`blocks_from_padded` splits into the per-irrep blocks of
+``ChannelwiseTP.aggregate``.
+
+:func:`tp_aggregate_fused` launches the kernel for CUDA tensors and runs
+:func:`tp_aggregate_fused_plain`, the same function in plain PyTorch, for
+CPU tensors.  ``KERNEL.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import build
+from .tensor_product import ChannelwiseTP
+from .wigner import wigner_3j
+
+K_PAD = 4         # output lanes per channel (l_out <= 1)
+_J_MAX = 5        # harmonic components of one path in the kernel's tables
+_SH_STRIDE = 12   # the kernel's padded harmonics row
+
+
+class _Kernel:
+    """Launch count of a kernel: one per accepted launch, nowhere else."""
+
+    launches = 0
+
+
+KERNEL = _Kernel()
+
+
+def _check_tp(tp: ChannelwiseTP) -> None:
+    if any(ir.l > 1 for _, ir in tp.irreps_in.items) or any(
+            ir.l > 1 for _, ir in tp.irreps_out.items):
+        raise ValueError("tp_fused supports l_in, l_out <= 1")
+
+
+def tp_aggregate_fused_plain(
+    tp: ChannelwiseTP,
+    x: torch.Tensor,
+    sh: torch.Tensor,
+    attrs: Sequence[torch.Tensor],
+    masks: Sequence[torch.Tensor],
+    w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, all arithmetic in f32.
+
+    x (B, M, D_in); sh (B, N, M, S); attrs C x (B, N, M, E);
+    masks C x (B, N, M); w1 (E, H), b1 (H,), w2 (H, F), b2 (F,).
+    Returns (B, N, F, 4) f32.
+    """
+    _check_tp(tp)
+    f32 = torch.float32
+    x, sh = x.to(f32), sh.to(f32)
+    hsum, msum = 0.0, 0.0
+    for a, m in zip(attrs, masks):
+        m = m.to(f32)
+        h = torch.relu(a.to(f32) @ w1.to(f32) + b1.to(f32))
+        hsum = hsum + h * m[..., None]
+        msum = msum + m
+    w = hsum @ w2.to(f32) + msum[..., None] * b2.to(f32)      # (B, N, M, F)
+
+    B, N = sh.shape[:2]
+    out = torch.zeros((B, N, tp.weight_numel, K_PAD), dtype=f32, device=x.device)
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    for p in tp.paths:
+        d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
+        xb = x[..., in_slices[p.i_in]].reshape(x.shape[:2] + (p.mul_in, d1))
+        cg = torch.as_tensor(p.alpha * wigner_3j(p.l_in, p.l_sh, p.l_out), dtype=f32,
+                             device=x.device)
+        z = torch.einsum("bmui,ijk->bmujk", xb, cg)          # node-level
+        wb = w[..., p.w_slice[0]:p.w_slice[1]]               # (B, N, M, u)
+        acc = 0.0
+        for j in range(d2):
+            ws = wb * sh[..., sh_slices[p.i_sh].start + j, None]
+            acc = acc + torch.einsum("bnmu,bmuk->bnuk", ws, z[:, :, :, j, :])
+        out[:, :, p.w_slice[0]:p.w_slice[1], :d3] = acc
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray]:
+    """Per channel (x_base, d_in, sh_off, path) int32 (F, 4), and per path
+    alpha * cg zero-padded to (3, 5, 3) f32."""
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    chan = np.zeros((tp.weight_numel, 4), np.int32)
+    gtab = np.zeros((len(tp.paths), 3, _J_MAX, 3), np.float32)
+    for q, p in enumerate(tp.paths):
+        d1 = 2 * p.l_in + 1
+        sh_off = sh_slices[p.i_sh].start
+        if sh_off + _J_MAX > _SH_STRIDE or 2 * p.l_sh + 1 > _J_MAX:
+            raise ValueError("harmonics layout outside the kernel's table")
+        cg = wigner_3j(p.l_in, p.l_sh, p.l_out)
+        gtab[q, :cg.shape[0], :cg.shape[1], :cg.shape[2]] = p.alpha * cg
+        for u in range(p.mul_in):
+            chan[p.w_slice[0] + u] = (in_slices[p.i_in].start + u * d1, d1, sh_off, q)
+    return chan, gtab
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(tp: ChannelwiseTP, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    chan, gtab = _tables(tp)
+    return torch.as_tensor(chan, device=device), torch.as_tensor(gtab, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("tp_fused")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dp_tp_fused.argtypes = [p] * 12 + [i] * 11 + [p]
+    lib.dp_tp_fused.restype = i
+    lib.dp_cuda_error_string.argtypes = [i]
+    lib.dp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def tp_aggregate_fused(
+    tp: ChannelwiseTP,
+    x: torch.Tensor,
+    sh: torch.Tensor,
+    attrs: Sequence[torch.Tensor],
+    masks: Sequence[torch.Tensor],
+    w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+) -> torch.Tensor:
+    """Fused edge MLP + aggregate -> (B, N, F, 4) f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  x, sh and attrs share one dtype, f32 or bf16; the MLP
+    parameters are f32; masks are bool or float.
+    """
+    if x.device.type == "cpu":
+        return tp_aggregate_fused_plain(tp, x, sh, attrs, masks, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"tp_aggregate_fused: unsupported device {x.device}")
+    _check_tp(tp)
+    dev = x.device
+    B, N, M, S = sh.shape
+    D = x.shape[-1]
+    C = len(attrs)
+    E, H = w1.shape
+    F = tp.weight_numel
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tp_aggregate_fused: inputs must be f32 or bf16, got {dt}")
+    if C not in (1, 2) or len(masks) != C:
+        raise ValueError("tp_aggregate_fused: one or two edge channels")
+    if tuple(x.shape) != (B, M, tp.irreps_in.dim) or S != tp.irreps_sh.dim:
+        raise ValueError(f"tp_aggregate_fused: x {tuple(x.shape)} / sh {tuple(sh.shape)} "
+                         f"do not match {tp.irreps_in!r} x {tp.irreps_sh!r}")
+    for t in list(attrs) + list(masks) + [x, sh, w1, b1, w2, b2]:
+        if t.device != dev:
+            raise ValueError("tp_aggregate_fused: all tensors must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("tp_aggregate_fused: tensors must be contiguous")
+    for a in attrs:
+        if tuple(a.shape) != (B, N, M, E) or a.dtype != dt:
+            raise ValueError(f"tp_aggregate_fused: attr {tuple(a.shape)} {a.dtype}, "
+                             f"expected {(B, N, M, E)} {dt}")
+    if sh.dtype != dt:
+        raise TypeError("tp_aggregate_fused: x and sh dtypes differ")
+    for m in masks:
+        if tuple(m.shape) != (B, N, M):
+            raise ValueError(f"tp_aggregate_fused: mask {tuple(m.shape)}, expected {(B, N, M)}")
+    if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)) != ((H,), (H, F), (F,)):
+        raise ValueError("tp_aggregate_fused: edge-MLP parameter shapes")
+    if any(t.dtype != torch.float32 for t in (w1, b1, w2, b2)):
+        raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
+
+    mask = torch.stack([m.to(torch.float32) for m in masks], 0)   # (C, B, N, M)
+    chan, gtab = _device_tables(tp, str(dev))
+    out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=dev)
+    lib = _library()
+    attr1 = attrs[1] if C == 2 else attrs[0]
+    rc = lib.dp_tp_fused(
+        x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attr1.data_ptr(), mask.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
+        gtab.data_ptr(), out.data_ptr(),
+        B, N, M, D, S, C, E, H, F, gtab.shape[0], int(dt == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tp_fused launch failed: {lib.dp_cuda_error_string(rc).decode()}")
+    KERNEL.launches += 1
+    return out
+
+
+def blocks_from_padded(tp: ChannelwiseTP, padded: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """Split the (B, N, F, 4) output into per-irrep blocks aligned with
+    ``ChannelwiseTP.aggregate``'s return value."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tp.irreps_out.items)
+    for k_blk, (mul, ir) in enumerate(tp.irreps_out.items):
+        parts = [padded[..., p.w_slice[0]:p.w_slice[1], :ir.dim]
+                 for p in tp.paths if p.i_out == k_blk]
+        if parts:
+            out[k_blk] = torch.cat(parts, dim=-2)
+    return out

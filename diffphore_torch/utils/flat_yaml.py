@@ -1,0 +1,69 @@
+"""A reader for the flat ``model_parameters.yml`` files: ``key: scalar``
+lines and block lists (``key:`` followed by ``- item`` lines).  Scalars
+resolve as YAML 1.1's safe loader resolves them (null, bools, ints, floats,
+plain or quoted strings), so the result equals ``yaml.safe_load`` on these
+files without needing PyYAML."""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^[-+]?(\.[0-9]+|[0-9][0-9_]*(\.[0-9_]*)?)([eE][-+][0-9]+)?$")
+_BOOLS = {"true": True, "True": True, "TRUE": True, "yes": True, "Yes": True, "on": True,
+          "false": False, "False": False, "FALSE": False, "no": False, "No": False,
+          "off": False}
+
+
+def scalar(text: str) -> Any:
+    s = text.strip()
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    if s in ("", "~", "null", "Null", "NULL"):
+        return None
+    if s in _BOOLS:
+        return _BOOLS[s]
+    if _INT.match(s):
+        return int(s.replace("_", ""))
+    if s.lower() in (".inf", "+.inf"):
+        return float("inf")
+    if s.lower() == "-.inf":
+        return float("-inf")
+    if s.lower() == ".nan":
+        return float("nan")
+    # YAML 1.1 floats need a dot ("1e-3" stays a string)
+    if _FLOAT.match(s) and "." in s:
+        return float(s.replace("_", ""))
+    return s
+
+
+def loads(text: str) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    current = None
+    for raw in text.splitlines():
+        line = raw.split(" #")[0].rstrip()
+        if not line.strip() or line.lstrip().startswith("#"):
+            continue
+        if line.lstrip().startswith("- "):
+            if current is None:
+                raise ValueError(f"list item outside a key: {raw!r}")
+            if out[current] is None:
+                out[current] = []
+            out[current].append(scalar(line.lstrip()[2:]))
+            continue
+        if line[0].isspace() or ":" not in line:
+            raise ValueError(f"unsupported YAML line: {raw!r}")
+        key, _, value = line.partition(":")
+        if value.strip():
+            out[key.strip()] = scalar(value)
+            current = None
+        else:
+            current = key.strip()
+            out[current] = None  # a bare key is null until list items follow
+    return out
+
+
+def load(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return loads(f.read())

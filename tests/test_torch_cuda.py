@@ -1,0 +1,87 @@
+"""The port's CUDA kernels on the card, held against their plain PyTorch
+versions.  Needs an NVIDIA GPU and nvcc; every test skips without a card
+(a CUDA kernel has no CPU mode).  Imports only torch and the port, so it
+runs on a machine without JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from diffphore_torch.ops import tp_fused
+from diffphore_torch.ops.tensor_product import channelwise_tp
+
+SEQ = ["20x0e", "20x0e + 10x1o", "20x0e + 10x1o + 10x1e", "20x0e + 10x1o + 10x1e + 20x0o"]
+SH = "1x0e + 1x1o + 1x2e"
+#: (in irreps, out irreps, sh irreps, E = H) of the corpus2 conv signatures
+SIGNATURES = {
+    "layer0": (SEQ[0], SEQ[1], SH, 60),
+    "layer1": (SEQ[1], SEQ[2], SH, 60),
+    "layer2": (SEQ[2], SEQ[3], SH, 60),
+    "layer3": (SEQ[3], SEQ[3], SH, 60),
+    "final_conv": (SEQ[3], "2x1o + 2x1e", SH, 40),
+    "tor_bond_conv": (SEQ[3], "20x0o + 20x0e", "1x1o + 1x0e + 1x1e", 60),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+@pytest.mark.parametrize("n_chan", [1, 2])
+def test_tp_fused_kernel_matches_plain(cuda, sig, n_chan):
+    """f32 inputs differ from the plain version by summation order only
+    (1e-4 of the output scale); bf16 inputs by their rounding (3e-2).
+    N = 37 and M = 29 leave ragged receiver tiles and sender chunks."""
+    irr_in, irr_out, irr_sh, E = SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    rng = np.random.default_rng(0)
+    B, N, M, H, F = 3, 37, 29, E, tp.weight_numel
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, M, tp.irreps_in.dim)))
+    sh = t(rng.normal(size=(B, N, M, tp.irreps_sh.dim)))
+    attrs = [t(rng.normal(size=(B, N, M, E))) for _ in range(n_chan)]
+    masks = [torch.from_numpy(rng.random((B, N, M)) > 0.3).to(cuda) for _ in range(n_chan)]
+    w1, b1 = t(rng.normal(size=(E, H)) * 0.2), t(rng.normal(size=(H,)) * 0.1)
+    w2, b2 = t(rng.normal(size=(H, F)) * 0.2), t(rng.normal(size=(F,)) * 0.1)
+
+    ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, w1, b1, w2, b2)
+    before = tp_fused.KERNEL.launches
+    got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, w1, b1, w2, b2)
+    bf = torch.bfloat16
+    got_bf = tp_fused.tp_aggregate_fused(tp, x.to(bf), sh.to(bf), [a.to(bf) for a in attrs],
+                                         masks, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert tp_fused.KERNEL.launches == before + 2
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+    assert float((got_bf - ref).abs().max()) <= 3e-2 * scale
+    assert float(got[..., 3].abs().max()) == 0.0  # the pad lane
+
+
+@pytest.mark.cuda
+def test_tp_fused_rejects_bad_inputs(cuda):
+    tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+    B, N, M, E = 1, 4, 5, 60
+    x = torch.zeros(B, M, tp.irreps_in.dim, device=cuda)
+    sh = torch.zeros(B, N, M, 9, device=cuda)
+    attr = torch.zeros(B, N, M, E, device=cuda)
+    mask = torch.ones(B, N, M, dtype=torch.bool, device=cuda)
+    w1, b1 = torch.zeros(E, E, device=cuda), torch.zeros(E, device=cuda)
+    w2, b2 = torch.zeros(E, 40, device=cuda), torch.zeros(40, device=cuda)
+    with pytest.raises(ValueError):  # non-contiguous attrs
+        tp_fused.tp_aggregate_fused(tp, x, sh, [attr.transpose(1, 2)], [mask.transpose(1, 2)],
+                                    w1, b1, w2, b2)
+    with pytest.raises(ValueError):  # attrs on the CPU
+        tp_fused.tp_aggregate_fused(tp, x, sh, [attr.cpu()], [mask], w1, b1, w2, b2)
+    with pytest.raises(TypeError):  # f64 inputs
+        tp_fused.tp_aggregate_fused(tp, x.double(), sh.double(), [attr.double()], [mask],
+                                    w1, b1, w2, b2)

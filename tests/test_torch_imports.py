@@ -1,0 +1,58 @@
+"""The port stands alone: no module of ``diffphore_torch`` and not
+``chip_smoke.py`` imports jax, flax or the JAX package (checked on the
+source, so nothing is imported to find out)."""
+
+import ast
+import glob
+import os
+
+import pytest
+
+from torch_port_helpers import REPO
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffphore_tpu")
+SOURCES = sorted(glob.glob(os.path.join(REPO, "diffphore_torch", "**", "*.py"), recursive=True)
+                 + [os.path.join(REPO, "chip_smoke.py")])
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_sources_found():
+    assert len(SOURCES) > 20
+    assert any(p.endswith(os.path.join("ops", "tp_fused.py")) for p in SOURCES)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """Without CUDA, and outside a checkout, chip_smoke.py exits non-zero
+    and prints no result line."""
+    import shutil
+    import subprocess
+    import sys
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    script = os.path.join(REPO, "chip_smoke.py")
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(script, lone)
+    for path in (script, str(lone)):
+        proc = subprocess.run([sys.executable, path], capture_output=True, text=True,
+                              timeout=300, cwd=os.path.dirname(path))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

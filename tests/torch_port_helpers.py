@@ -1,0 +1,138 @@
+"""Shared fixtures-in-functions for the tests that hold the PyTorch port
+(``diffphore_torch``) against the JAX package on the same inputs.
+
+Inputs pass between the two as numpy arrays.  The port cannot replay
+``jax.random``, so the helpers here draw the JAX sampler's noise from a key
+exactly as the JAX code does and hand the same numbers to the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os
+from typing import List, Tuple
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from flax import serialization
+
+from diffphore_torch.data import graphs as tgraphs
+from diffphore_torch.models.score_model import ScoreModel as TScoreModel
+from diffphore_torch.models.score_model import ScoreModelConfig as TConfig
+from diffphore_torch.sampler.sampling import PriorNoise, StepNoise
+from diffphore_torch.utils.checkpoints import convert_variables
+from diffphore_tpu.data.dataset import load_complex
+from diffphore_tpu.models.score_model import ScoreModelConfig as JConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CACHE = os.path.join(REPO, "data", "cache", "val_f1112e7d33")
+CORPUS2 = os.path.join(REPO, "runs", "corpus2", "main")
+
+#: a small model: 2 conv layers, narrow widths, f32 convs
+SMALL = dict(ns=8, nv=4, num_conv_layers=2, dropout=0.0, compute_dtype="float32")
+
+
+def cached_files(bucket: Tuple[int, int, int] = (24, 96, 8), n: int = 2) -> List[str]:
+    """The first n cached complexes of one (A, P, T) bucket."""
+    out = []
+    for f in sorted(glob.glob(os.path.join(CACHE, "*.npz"))):
+        with np.load(f) as z:
+            shape = (z["lig_pos"].shape[1], z["phore_pos"].shape[1], z["tor_edges"].shape[1])
+        if shape == bucket:
+            out.append(f)
+        if len(out) == n:
+            break
+    return out
+
+
+def load_pair(path: str, rows: int = 1, t=None):
+    """(JAX batch, port batch) of one cached complex repeated over rows."""
+    from diffphore_tpu.data.graphs import repeat_batch
+
+    jb = repeat_batch(load_complex(path), rows).replace(names=(), meta=())
+    tb = tgraphs.repeat_batch(tgraphs.load_cached(path), rows)
+    if t is not None:
+        t = np.asarray(t, np.float32)
+        jb = jb.replace(t=t)
+        tb = tb.replace(t=torch.from_numpy(t.copy()))
+    return jax.tree_util.tree_map(jnp.asarray, jb), tb
+
+
+def to_port(jb):
+    """A JAX ComplexBatch (any array type) as a port batch."""
+    return tgraphs.from_numpy({f: np.asarray(getattr(jb, f)) for f in tgraphs.ARRAY_FIELDS})
+
+
+def configs(**overrides):
+    """(JAX config, port config) with the same fields."""
+    jcfg = JConfig(**overrides)
+    return jcfg, TConfig(**dataclasses.asdict(jcfg))
+
+
+def corpus2():
+    """(JAX config at f32, JAX variables, port config, port model) of the
+    shipped corpus2 checkpoint."""
+    from diffphore_tpu.utils.checkpoints import load_config_yaml
+
+    jcfg = dataclasses.replace(load_config_yaml(CORPUS2), compute_dtype="float32")
+    with open(os.path.join(CORPUS2, "best_ema_inference_epoch_model.msgpack"), "rb") as f:
+        variables = serialization.msgpack_restore(f.read())
+    tcfg = TConfig(**dataclasses.asdict(jcfg))
+    return jcfg, variables, tcfg, port_model(tcfg, variables)
+
+
+def port_model(tcfg, variables) -> TScoreModel:
+    model = TScoreModel(tcfg)
+    model.load_state_dict(convert_variables(jax.tree_util.tree_map(np.asarray, dict(variables))),
+                          strict=True)
+    return model.eval()
+
+
+def randomize_stats(variables, seed: int = 0):
+    """Replace identity batch-norm running stats with random, well-scaled
+    ones (an untrained model's identity stats let activations compound)."""
+    rng = np.random.default_rng(seed)
+
+    def one(path, x):
+        name = path[-1].key
+        if name == "mean":
+            return jnp.asarray(rng.normal(0.0, 0.3, x.shape), jnp.float32)
+        return jnp.asarray(rng.uniform(0.5, 4.0, x.shape), jnp.float32)
+
+    stats = jax.tree_util.tree_map_with_path(one, variables["batch_stats"])
+    return {**variables, "batch_stats": stats}
+
+
+def prior_noise(key, B: int, T: int) -> PriorNoise:
+    """The draws of diffphore_tpu.sampler.randomize_position(batch, key)."""
+    k_tor, k_rot, k_tr = jax.random.split(key, 3)
+    tor = jax.random.uniform(k_tor, (B, T), minval=-jnp.pi, maxval=jnp.pi)
+    quat = jax.random.normal(k_rot, (B, 4))
+    tr = jax.random.normal(k_tr, (B, 3))
+    t = lambda x: torch.from_numpy(np.asarray(x).copy())
+    return PriorNoise(tor=t(tor), quat=t(quat), tr=t(tr))
+
+
+def step_noise(key, steps: int, B: int, T: int) -> StepNoise:
+    """The per-step draws of diffphore_tpu reverse_diffusion(..., key, ...)."""
+    zs = {"tr": [], "rot": [], "tor": []}
+    for k in jax.random.split(key, steps):
+        k_tr, k_rot, k_tor = jax.random.split(k, 3)
+        zs["tr"].append(np.asarray(jax.random.normal(k_tr, (1, B, 3)))[0])
+        zs["rot"].append(np.asarray(jax.random.normal(k_rot, (1, B, 3)))[0])
+        zs["tor"].append(np.asarray(jax.random.normal(k_tor, (1, B, T)))[0])
+    t = lambda v: torch.from_numpy(np.stack(v))
+    return StepNoise(z_tr=t(zs["tr"]), z_rot=t(zs["rot"]), z_tor=t(zs["tor"]))
+
+
+def assert_close(port, ref, rtol: float, what: str = ""):
+    """|port - ref| <= rtol * max(|ref|, 1) elementwise-max."""
+    port = port.detach().cpu().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape, (what, port.shape, ref.shape)
+    scale = max(float(np.abs(ref).max()) if ref.size else 0.0, 1.0)
+    err = float(np.abs(port - ref).max()) if ref.size else 0.0
+    assert err <= rtol * scale, f"{what}: max |port - ref| {err:.3e} > {rtol} * {scale:.3e}"
