@@ -17,7 +17,21 @@ Phases, each fatal on failure:
      fitness; K1 must launch exactly 23 x 20 times per dispatch; poses and
      scores must be finite; one complex is sampled again with the plain
      convs and the same noise, and one forward is compared.
-  5. report: the kernels' JSON line, the card line, and the result line.
+  5. K2 check: capture (tp, x, sh, w) of the 23 unfused conv calls of one
+     training-mode forward (corpus2 weights, 24 complexes of the 24x96x8
+     bucket, noised); hold K2's forward kernel and both backward kernels
+     (``tp_aggregate``: dw + dsh per edge, dx per sender) against the plain
+     version and autograd through it, require two runs to agree to the bit,
+     and time kernels and plain with CUDA events.
+  6. training path: (c) one train step with the kernels against the same
+     step with the plain convs, same noise and dropout masks: loss and every
+     parameter gradient; (b) 30 steps on one fixed batch with fixed noise and
+     dropout on: the loss falls, K2 launches 23 forward + 23 + 23 backward
+     per step and K1 none; (a) ``diffphore_torch.cli.train.main``: fresh
+     corpus2-width model, batch 24, one epoch over 240 cached complexes (10
+     steps), one validation-loss epoch over 20 (K1, 23 launches), finite
+     metrics, a checkpoint that reloads.
+  7. report: the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -28,8 +42,10 @@ from __future__ import annotations
 import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -41,6 +57,11 @@ POSES = 40
 STEPS = 20
 CONVS_PER_FORWARD = 23
 SEED = 0
+TRAIN_CACHE_DIR = os.path.join(HERE, "data", "cache", "train_f1112e7d33")
+TRAIN_BATCH = 24            # corpus2's batch size
+TRAIN_COMPLEXES = 240       # one epoch of the CLI run: 10 steps
+VAL_COMPLEXES = 20          # one validation batch (repeat-padded to 24)
+FIXED_BATCH_STEPS = 30
 
 # K1 against its plain version: |kernel - plain| <= TOL * max|plain|.
 # f32 inputs: both compute in f32 and differ only in summation order.
@@ -54,6 +75,18 @@ TOL_FORWARD = 1e-3
 # pose RMSD (A).  Rounding differences may flip a step function of the cross
 # graph for a pose, so the median, not the max, is held.
 TOL_RERUN_RMSD = 0.1
+
+# K2's kernels against the plain version and autograd through it, f32 on both
+# sides: |kernel - plain| <= TOL * max|plain| for the output and each gradient.
+TOL_K2 = 1e-4
+# One train step, kernels against plain convs, same draws: per parameter leaf
+# |grad - plain grad| <= TOL_STEP_GRAD * max|plain grad of the leaf|
+# + TOL_STEP_FLOOR * max|plain grad over all leaves|.  The floor is for the
+# two transition MLPs that only rescale the cross-graph edge vector, which
+# the harmonics normalize away: their true gradient is zero and both sides
+# hold rounding noise there.
+TOL_STEP_GRAD = 1e-3
+TOL_STEP_FLOOR = 5e-6
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32 (non
 # tensor-core) operations/s.
@@ -133,7 +166,7 @@ def phase_kernel_check(model, batch, tp_fused):
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
-    for name, mod, (sender, edge_attr, edge_sh, edge_mask) in calls:
+    for name, mod, (sender, edge_attr, edge_sh, edge_mask, *_) in calls:
         attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
         masks = edge_mask if isinstance(edge_mask, (list, tuple)) else [edge_mask]
         x = sender.to(f32).contiguous()
@@ -175,6 +208,335 @@ def phase_kernel_check(model, batch, tp_fused):
     return cases
 
 
+def bucket_complexes(cache_dir, n):
+    """The first n cached complexes of BUCKET in a cache directory."""
+    from diffphore_torch.data.graphs import load_cached
+
+    out = []
+    for f in sorted(glob.glob(os.path.join(cache_dir, "*.npz"))):
+        b = load_cached(f)
+        if (b.num_atoms, b.num_phore, b.num_torsions) == BUCKET:
+            out.append((f, b))
+        if len(out) == n:
+            return out
+    raise RuntimeError(f"found {len(out)} of {n} complexes of bucket {BUCKET} in {cache_dir}")
+
+
+def k2_work(tp, x, sh, w, with_dsh):
+    """{kernel: (bytes, f32 operations)} that K2's three kernels need on
+    these inputs: each operand read once, each result written once; products
+    with an edge weight counted on edges whose weights are not all zero, dw
+    on every edge (it is defined where w is masked too)."""
+    B, N, M, S = sh.shape
+    F = tp.weight_numel
+    edges = B * N * M
+    live = int((w != 0).any(-1).sum())
+    node = contract = dw_ops = dsh_ops = dx_ops = 0
+    for p in tp.paths:
+        d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
+        node += p.mul_in * 2 * d1 * d2 * d3          # cg with x (or with g), per node
+        contract += p.mul_in * 2 * (d2 * d3 + d3)    # forward, per edge
+        dw_ops += p.mul_in * 2 * (d2 * d3 + d2)
+        dsh_ops += p.mul_in * 2 * d2
+        dx_ops += p.mul_in * 2 * (d1 * d2 + d1)
+    f4 = 4
+    out_b, g_b = f4 * B * N * F * 4, f4 * B * N * F * 4
+    x_b, sh_b, w_b = f4 * x.numel(), f4 * sh.numel(), f4 * w.numel()
+    dx_b, dsh_b, dw_b = x_b, sh_b, w_b               # gradients, written once
+    return {
+        "fwd": (x_b + sh_b + w_b + out_b, live * contract + B * M * node),
+        "bwd_edge": (x_b + sh_b + g_b + dw_b + (w_b + dsh_b if with_dsh else 0),
+                     edges * dw_ops + B * M * node + (live * dsh_ops if with_dsh else 0)),
+        "bwd_x": (sh_b + w_b + g_b + dx_b, live * dx_ops + B * N * node),
+    }
+
+
+def capture_training_convs(model, batch):
+    """(name, tp, x, sh, w, sh needs grad) of every K2 call of one
+    training-mode forward."""
+    import torch
+
+    from diffphore_torch.models.layers import DenseTPConv
+    from diffphore_torch.ops import tp_aggregate
+
+    names, calls = [], []
+    hooks = [mod.register_forward_pre_hook(lambda m, args, name=name: names.append(name))
+             for name, mod in model.named_modules() if isinstance(mod, DenseTPConv)]
+    original = tp_aggregate.tp_aggregate
+
+    def recorder(tp, x, sh, w):
+        calls.append((names[-1], tp, x.detach(), sh.detach(), w.detach(), sh.requires_grad))
+        return original(tp, x, sh, w)
+
+    tp_aggregate.tp_aggregate = recorder
+    try:
+        model.train()
+        out = model(batch)
+    finally:
+        tp_aggregate.tp_aggregate = original
+        for h in hooks:
+            h.remove()
+        model.eval()
+    if not all(bool(torch.isfinite(o).all()) for o in out):
+        raise AssertionError("training-mode forward is not finite")
+    if len(calls) != CONVS_PER_FORWARD:
+        raise RuntimeError(f"captured {len(calls)} K2 calls, expected {CONVS_PER_FORWARD}")
+    return calls
+
+
+def phase_k2_check(calls):
+    """Hold K2's kernels against the plain version on the captured inputs."""
+    import torch
+
+    from diffphore_torch.ops import tp_aggregate as k2
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    cases = []
+    for name, tp, x, sh, w, sh_grad in calls:
+        B, N, M, _ = sh.shape
+        F = tp.weight_numel
+        g = torch.randn((B, N, F, 4), generator=gen, device="cuda")
+
+        leaves = [t.clone().requires_grad_(True) for t in (x, sh, w)]
+        ref = k2.tp_aggregate_plain(tp, *leaves)
+        ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
+        runs = []
+        for _ in range(2):
+            out = k2.launch_forward(tp, x, sh, w)
+            dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, True)
+            dx = k2.launch_backward_x(tp, x, sh, w, g)
+            runs.append((out, dx, dsh, dw))
+        torch.cuda.synchronize()
+        errs = {}
+        for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
+                                           (ref.detach(), ref_dx, ref_dsh, ref_dw)):
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two runs of {label} differ")
+            scale, err = float(want.abs().max()), float((got - want).abs().max())
+            if not err <= TOL_K2 * max(scale, 1e-30):
+                raise AssertionError(f"{name}: {label} |kernel - plain| {err} > {TOL_K2} * {scale}")
+            errs[label] = (err, scale)
+
+        # times: the backward in the form the train step runs it (dsh only
+        # where the harmonics carry gradient); the plain backward is autograd
+        # through the plain version for the same gradients
+        ms = {
+            "fwd": cuda_ms(lambda: k2.launch_forward(tp, x, sh, w), 10),
+            "bwd_edge": cuda_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10),
+            "bwd_x": cuda_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
+        }
+        edge_leaves = [leaves[2], leaves[1]] if sh_grad else [leaves[2]]
+        with torch.no_grad():
+            plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w), 3)
+        plain = {
+            "fwd": plain_fwd,
+            "bwd_edge": cuda_ms(lambda: torch.autograd.grad(ref, edge_leaves, g,
+                                                            retain_graph=True), 3),
+            "bwd_x": cuda_ms(lambda: torch.autograd.grad(ref, [leaves[0]], g,
+                                                         retain_graph=True), 3),
+        }
+        work = k2_work(tp, x, sh, w, sh_grad)
+        bound = {}
+        for k, (nbytes, ops) in work.items():
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+            bound[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        cases.append({"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad, "errs": errs,
+                      "ms": ms, "plain_ms": plain, "bound": bound})
+        print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F:3d} dsh={int(sh_grad)} "
+              f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
+              f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
+              f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}) | ms kernel/plain/bound: "
+              + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{bound[k][0]:.4f}({bound[k][1][0]})"
+                         for k in ("fwd", "bwd_edge", "bwd_x")), flush=True)
+        del ref, leaves, runs
+    return cases
+
+
+def k2_kernel_entries(cases, launches):
+    """The report entries of K2's three kernels, summed over one step's convs."""
+    labels = {"fwd": ("out",), "bwd_edge": ("dw", "dsh"), "bwd_x": ("dx",)}
+    entries = []
+    for k, outputs in labels.items():
+        by = {"bytes": 0.0, "operations": 0.0}
+        for c in cases:
+            by[c["bound"][k][1]] += c["bound"][k][0]
+        entries.append({
+            "name": f"tp_aggregate_{k}",
+            "route": "cuda",
+            "source": "diffphore_torch/csrc/tp_aggregate.cu",
+            "replaces": "diffphore_tpu/ops/pallas/tp_aggregate.py:88",
+            "launches": launches[k],
+            "max_abs_err": max(c["errs"][o][0] for c in cases for o in outputs),
+            "max_rel_err": max(c["errs"][o][0] / max(c["errs"][o][1], 1e-30)
+                               for c in cases for o in outputs),
+            "ms": sum(c["ms"][k] for c in cases),
+            "plain_ms": sum(c["plain_ms"][k] for c in cases),
+            "bound_ms": sum(c["bound"][k][0] for c in cases),
+            "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
+            "library_ms": None,
+            "unit": "one train step: the 23 conv calls, each timed alone",
+        })
+    return entries
+
+
+def kernel_counts():
+    from diffphore_torch.ops import tp_aggregate, tp_fused
+
+    return {"k1": tp_fused.KERNEL.launches, "fwd": tp_aggregate.FWD.launches,
+            "bwd_edge": tp_aggregate.BWD_EDGE.launches, "bwd_x": tp_aggregate.BWD_X.launches}
+
+
+def reset_kernel_counts():
+    from diffphore_torch.ops import tp_aggregate, tp_fused
+
+    for k in (tp_fused.KERNEL, tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X):
+        k.launches = 0
+
+
+def expect_counts(what, steps=0, eval_batches=0):
+    got = kernel_counts()
+    want = {"k1": CONVS_PER_FORWARD * eval_batches, "fwd": CONVS_PER_FORWARD * steps,
+            "bwd_edge": CONVS_PER_FORWARD * steps, "bwd_x": CONVS_PER_FORWARD * steps}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+    return got
+
+
+def phase_training(cfg, train_batch, card):
+    """(c), (b) and (a) of the training path; returns K2's launch counts of
+    the CLI run and K1's of its validation batch."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.data.transforms import draw_noise
+    from diffphore_torch.models.layers import DenseTPConv
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils import checkpoints
+
+    B, T = train_batch.batch_size, train_batch.num_torsions
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    draws = draw_noise(B, T, gen, "cuda")
+    step = make_train_step(cfg)
+
+    # ---- (c) one step, kernels against plain convs, same noise and dropout masks
+    results = []
+    for use_kernel in (True, False):
+        state = create_train_state(cfg, seed=SEED, device="cuda")
+        for m in state.model.modules():
+            if isinstance(m, DenseTPConv):
+                m.use_kernel = use_kernel
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(SEED + 1)
+        reset_kernel_counts()
+        state, metrics = step(state, train_batch, drop, draws=draws)
+        torch.cuda.synchronize()
+        expect_counts(f"step with use_kernel={use_kernel}", steps=1 if use_kernel else 0)
+        results.append((float(metrics["loss"]),
+                        {k: p.grad.clone() for k, p in state.model.named_parameters()}))
+        del state
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    floor = TOL_STEP_FLOOR * max(float(g.abs().max()) for g in grads_p.values() if g.numel())
+    worst = 0.0          # over the leaves whose gradient stands clear of the floor
+    for name, gp in grads_p.items():
+        if not gp.numel():
+            continue
+        scale, err = float(gp.abs().max()), float((grads_k[name] - gp).abs().max())
+        if not err <= TOL_STEP_GRAD * scale + floor:
+            raise AssertionError(f"step gradient of {name}: |kernel - plain| {err} > "
+                                 f"{TOL_STEP_GRAD} * {scale} + {floor}")
+        if scale >= 100 * floor:
+            worst = max(worst, err / scale)
+    if not abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p):
+        raise AssertionError(f"step loss: kernel {loss_k} vs plain {loss_p}")
+    print(f"train step, kernels vs plain convs, same draws: loss {loss_k:.6f} vs {loss_p:.6f}; "
+          f"{len(grads_p)} gradient leaves within {TOL_STEP_GRAD} of their scale "
+          f"(worst |kernel - plain| / max|plain| of a leaf clear of the noise floor: "
+          f"{worst:.2e})", flush=True)
+
+    # ---- (b) one fixed batch, fixed noise, dropout on
+    state = create_train_state(cfg, seed=SEED, device="cuda")
+    drop = torch.Generator(device="cuda")
+    drop.manual_seed(SEED + 2)
+    state, _ = step(state, train_batch, drop, draws=draws)          # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, finite = [], []
+    t0 = time.perf_counter()
+    for _ in range(FIXED_BATCH_STEPS):
+        state, metrics = step(state, train_batch, drop, draws=draws)
+        losses.append(metrics["loss"])
+        finite.append(metrics["grad_finite"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    expect_counts("fixed-batch steps", steps=FIXED_BATCH_STEPS)
+    losses = torch.stack(losses).cpu().numpy()
+    if not (np.isfinite(losses).all() and float(torch.stack(finite).min()) == 1.0):
+        raise AssertionError(f"fixed-batch losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"fixed-batch loss did not fall: {losses[0]} -> {losses[-1]}")
+    peak_fixed = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fixed batch of {B}, fixed noise, dropout {cfg.dropout}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {FIXED_BATCH_STEPS} steps; {FIXED_BATCH_STEPS / elapsed:.2f} "
+          f"steps/s, {B * FIXED_BATCH_STEPS / elapsed:.1f} complexes/s, peak memory "
+          f"{peak_fixed:.2f} GiB; per step K2 launches {CONVS_PER_FORWARD} forward + "
+          f"{CONVS_PER_FORWARD} edge backward + {CONVS_PER_FORWARD} sender backward, K1 0 "
+          f"({card})", flush=True)
+    del state
+
+    # ---- (a) the training CLI: one epoch over cached complexes + a val-loss epoch
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub, src, n in (("train_smoke", TRAIN_CACHE_DIR, TRAIN_COMPLEXES),
+                            ("val_smoke", CACHE_DIR, VAL_COMPLEXES)):
+            os.makedirs(os.path.join(tmp, sub))
+            for f, _ in bucket_complexes(src, n):
+                shutil.copy(f, os.path.join(tmp, sub))
+        run_dir = os.path.join(tmp, "run")
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        train_cli.main([
+            "--cache_path", tmp, "--run_dir", run_dir, "--n_epochs", "1",
+            "--batch_size", str(TRAIN_BATCH), "--seed", str(SEED), "--val_inference_freq", "0",
+            "--test_sigma_intervals", "5", "--ns", str(cfg.ns), "--nv", str(cfg.nv),
+            "--num_conv_layers", str(cfg.num_conv_layers), "--dropout", str(cfg.dropout),
+            "--lr", "0.001"])
+        torch.cuda.synchronize()
+        steps = TRAIN_COMPLEXES // TRAIN_BATCH
+        counts = expect_counts("cli.train.main", steps=steps, eval_batches=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train_rec = [r for r in records if r.get("mode") != "val"]
+        val_rec = [r for r in records if r.get("mode") == "val"]
+        if len(train_rec) != 1 or len(val_rec) != 1:
+            raise AssertionError(f"metrics.jsonl holds {len(records)} records")
+        rec = train_rec[0]
+        keys = ("loss", "tr_loss", "rot_loss", "tor_loss")
+        if rec["steps"] != steps or rec["grad_finite"] != 1.0 \
+                or not all(np.isfinite(rec[k]) for k in keys) \
+                or not all(np.isfinite(v) for v in val_rec[0].values() if isinstance(v, float)):
+            raise AssertionError(f"training metrics not as expected: {rec} {val_rec[0]}")
+        run_cfg, reloaded = checkpoints.load_model_dir(
+            run_dir, device="cuda", checkpoint=checkpoints.LAST_MODEL, use_ema=True)
+        widths = ("ns", "nv", "num_conv_layers", "dropout", "tp_mode", "consider_norm")
+        if any(getattr(run_cfg, k) != getattr(cfg, k) for k in widths):
+            raise AssertionError("the run directory's config is not at corpus2's width")
+        with torch.no_grad():
+            out = reloaded(train_batch.replace(t=torch.full((B,), 0.5, device="cuda")))
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            raise AssertionError("the reloaded checkpoint's forward is not finite")
+    rate = rec["steps"] / rec["epoch_time"]
+    print(f"cli.train.main: {rec['steps']} steps of batch {TRAIN_BATCH} in {rec['epoch_time']:.3f} s "
+          f"= {rate:.2f} steps/s, {rate * TRAIN_BATCH:.1f} complexes/s (data loading included), "
+          f"train loss {rec['loss']:.4f}, val loss {val_rec[0]['loss']:.4f} over "
+          f"{VAL_COMPLEXES} complexes, peak memory {peak:.2f} GiB; launches {counts} ({card})",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -186,7 +548,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from diffphore_torch.cli.pipeline import FitEngine, job_from_cached
-    from diffphore_torch.data.graphs import load_cached, repeat_batch
+    from diffphore_torch.data.graphs import repeat_batch
     from diffphore_torch.models.layers import DenseTPConv
     from diffphore_torch.ops import build, tp_fused
     from diffphore_torch.ops.fitscore import batch_phore_arrays
@@ -203,7 +565,7 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    built = build.build(["tp_fused"])
+    built = build.build(["tp_fused", "tp_aggregate"])
     build_s = time.perf_counter() - t0
     for name, (path, log) in built.items():
         print(f"build: {name} -> {os.path.relpath(path, HERE)} in {build_s:.1f} s")
@@ -213,11 +575,7 @@ def main() -> int:
 
     # ---- 3. kernel check on the main path's conv inputs
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
-    files = sorted(glob.glob(os.path.join(CACHE_DIR, "*.npz")))
-    complexes = [b for b in (load_cached(f) for f in files)
-                 if (b.num_atoms, b.num_phore, b.num_torsions) == BUCKET][:N_COMPLEXES]
-    if len(complexes) != N_COMPLEXES:
-        raise RuntimeError(f"found {len(complexes)} cached complexes in bucket {BUCKET}")
+    complexes = [b for _, b in bucket_complexes(CACHE_DIR, N_COMPLEXES)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     batch = repeat_batch(complexes[0].to("cuda"), POSES)
@@ -290,13 +648,35 @@ def main() -> int:
     if not np.median(rmsd) <= TOL_RERUN_RMSD:
         raise AssertionError(f"kernel and plain runs diverge: median RMSD {np.median(rmsd)} A")
 
-    # ---- 5. report
+    # ---- 5. K2 on the conv inputs of one training-mode forward
+    from diffphore_torch.data.graphs import concat_batches
+    from diffphore_torch.data.transforms import apply_noise, draw_noise
+
+    train_batch = concat_batches(
+        [b for _, b in bucket_complexes(TRAIN_CACHE_DIR, TRAIN_BATCH)]
+    ).replace(names=(), meta=()).to("cuda")
+    draws = draw_noise(TRAIN_BATCH, BUCKET[2], gen, "cuda")
+    draws.t = torch.linspace(0.02, 0.98, TRAIN_BATCH, device="cuda")   # every noise level
+    with torch.no_grad():
+        noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
+    _, train_model = load_model_dir(MODEL_DIR, device="cuda")
+    print("kernel check: tp_aggregate forward and backward on the 23 conv calls of one "
+          "training-mode forward", flush=True)
+    k2_cases = phase_k2_check(capture_training_convs(train_model, noised))
+    del train_model, noised
+    torch.cuda.empty_cache()
+
+    # ---- 6. training path
+    train_counts = phase_training(cfg, train_batch, card)
+
+    # ---- 7. report
     kernel = {
         "name": "tp_fused",
         "route": "cuda",
         "source": "diffphore_torch/csrc/tp_fused.cu",
-        "replaces": "diffphore_tpu/ops/pallas/tp_fused.py:113",
+        "replaces": "diffphore_tpu/ops/pallas/tp_fused.py:115",
         "launches": launches,
+        "launches_training_path": train_counts["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
         "ms": sum(c["ms"] for c in cases),
@@ -308,7 +688,7 @@ def main() -> int:
         "library_ms": None,
         "unit": "one forward: the 23 conv calls, each timed alone",
     }
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel] + k2_kernel_entries(k2_cases, train_counts)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,111 @@
+"""Where the time of one training step goes on the GPU.
+
+    python -m diffphore_torch.cli.profile_train_step
+
+Runs the train step (fresh corpus2-width model, dropout on, batch 24 of
+the 24 x 96 x 8 bucket of the training cache) on one fixed batch after
+warm-up steps, once timed by the host clock around a synchronized window
+and once under ``torch.profiler``.  Prints one JSON object: wall time per
+step, device-busy time and share (sum of kernel times over wall time), the
+time and launches of K2's three kernels, the number of kernel launches per
+step, peak memory, and the top kernels and host ops.  It needs a GPU and
+fails without one.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from ..data.graphs import concat_batches, load_cached
+from ..ops import tp_aggregate
+from ..train.state import create_train_state, make_train_step
+from ..utils.checkpoints import load_config_yaml
+from .profile_main_path import MODEL_DIR, _ROOT, _device_us
+
+CACHE_DIR = os.path.join(_ROOT, "data", "cache", "train_f1112e7d33")
+BUCKET = (24, 96, 8)
+BATCH, WARMUP, TIMED, PROFILED = 24, 3, 10, 5
+K2_KERNELS = ("tp_aggregate_fwd_kernel", "tp_aggregate_bwd_edge_kernel",
+              "tp_aggregate_bwd_x_kernel")
+
+
+def main() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train_step needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+    cfg = load_config_yaml(MODEL_DIR)
+    rows = []
+    for f in sorted(glob.glob(os.path.join(CACHE_DIR, "*.npz"))):
+        b = load_cached(f)
+        if (b.num_atoms, b.num_phore, b.num_torsions) == BUCKET:
+            rows.append(b)
+        if len(rows) == BATCH:
+            break
+    batch = concat_batches(rows).replace(names=(), meta=()).to("cuda")
+    state = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for _ in range(WARMUP):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    counters = (tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X)
+    before = [k.launches for k in counters]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PROFILED):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    profiled_wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
+    events = prof.key_averages()
+    # the optimizer's annotation range carries its kernels' device time a second time
+    kernels = [e for e in events
+               if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Optimizer.")]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / PROFILED
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    out = {
+        "card": card,
+        "batch": BATCH, "atoms_phore_torsions": list(BUCKET), "dropout": cfg.dropout,
+        "wall_ms_per_step": wall_ms,
+        "steps_per_s": 1e3 / wall_ms,
+        "complexes_per_s": BATCH * 1e3 / wall_ms,
+        "peak_memory_gib": peak_gib,
+        "profiled_wall_ms_per_step": profiled_wall_ms,
+        "device_busy_ms_per_step": busy_ms or None,
+        "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+        "k2_ms_per_step": {name: sum(_device_us(e) for e in kernels if name in e.key)
+                           / 1e3 / PROFILED for name in K2_KERNELS},
+        "k2_launches_per_step": [(k.launches - b) / PROFILED for k, b in zip(counters, before)],
+        "kernel_launches_per_step": sum(e.count for e in kernels) / PROFILED,
+        "top_kernels": [[e.key[:80], _device_us(e) / 1e3 / PROFILED, e.count / PROFILED]
+                        for e in sorted(kernels, key=_device_us, reverse=True)[:12]],
+        "top_host_ops": [[e.key, e.self_cpu_time_total / 1e3 / PROFILED, e.count / PROFILED]
+                         for e in host[:12]],
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,10 @@ the knowledge-guided bipartite cross graph on (A, P) with phore-type
 agreement weights, learned direction flips, per-atom softmax weights and the
 norm-angle alignment channel.
 
-Inference only (eval-mode batch norm, no dropout), with a dense phore grid
-(``phore_knn = 0``) and no geometric attention (``use_att = False``).
+A dense phore grid (``phore_knn = 0``) and no geometric attention
+(``use_att = False``).  In training mode the MLPs and convs apply dropout,
+the convs' batch norms take masked batch statistics, and the pose-group
+factoring is off.
 """
 
 from __future__ import annotations
@@ -62,26 +64,27 @@ class LigPhoreEncoder(nn.Module):
         if cfg.boarder:
             n_flags = 1 if cfg.by_radius else len(cfg.clash_cutoff)
             self.boarder_embedding = CategoricalEncoder(ns, [2] * n_flags, num_scalars=1)
-        self.lig_edge_embedding = MLP(4 + sd + cfg.distance_embed_dim, ns, ns)
+        self.lig_edge_embedding = MLP(4 + sd + cfg.distance_embed_dim, ns, ns, dropout=cfg.dropout)
         self.phore_node_embedding = CategoricalEncoder(
             ns, PHORE_FEATURE_DIMS[0], num_scalars=PHORE_FEATURE_DIMS[1] + sd)
-        self.phore_edge_embedding = MLP(sd + cfg.distance_embed_dim, ns, ns)
+        self.phore_edge_embedding = MLP(sd + cfg.distance_embed_dim, ns, ns, dropout=cfg.dropout)
 
         cross_in = sd + cfg.cross_distance_embed_dim
         if cfg.phoretype_match or cfg.angle_match:
             if cfg.phoretype_match:
                 if cfg.cross_distance_transition:
                     self.cross_distance_transition = MLP(
-                        cfg.cross_distance_embed_dim, cfg.cross_distance_embed_dim // 2, 1)
+                        cfg.cross_distance_embed_dim, cfg.cross_distance_embed_dim // 2, 1,
+                        dropout=cfg.dropout)
                 if cfg.phoretype_match_transition:
                     self.phoretype_match_transition = MLP(
-                        3 * NUM_PHORETYPE, NUM_PHORETYPE, 1)
+                        3 * NUM_PHORETYPE, NUM_PHORETYPE, 1, dropout=cfg.dropout)
                 if cfg.phore_direction_transition:
                     self.phore_direction_transition = MLP(
-                        1, NUM_PHORETYPE, 1, activation=leaky_relu)
+                        1, NUM_PHORETYPE, 1, activation=leaky_relu, dropout=cfg.dropout)
                 if cfg.use_phore_match_feat:
                     cross_in += 3 * NUM_PHORETYPE
-        self.cross_edge_embedding = MLP(cross_in, ns, ns)
+        self.cross_edge_embedding = MLP(cross_in, ns, ns, dropout=cfg.dropout)
 
         seq = irrep_seq(ns, cfg.nv)
         self.out_irreps = seq[min(cfg.num_conv_layers, len(seq) - 1)]
@@ -89,7 +92,7 @@ class LigPhoreEncoder(nn.Module):
         def conv(i):
             return DenseTPConv(seq[min(i, len(seq) - 1)], seq[min(i + 1, len(seq) - 1)],
                                n_edge_features=3 * ns, hidden_features=3 * ns,
-                               batch_norm=not cfg.no_batch_norm)
+                               batch_norm=not cfg.no_batch_norm, dropout=cfg.dropout)
 
         for l in range(cfg.num_conv_layers):
             setattr(self, f"lig_conv_{l}", conv(l))
@@ -111,7 +114,8 @@ class LigPhoreEncoder(nn.Module):
             complex-major.  The phore-side tensors and the whole layer-0
             phore conv depend only on (phore, sigma), so they are computed
             on one representative row per complex and repeated: exact, not
-            an approximation.  Ignored (1) when B is not divisible.
+            an approximation.  Ignored (1) when B is not divisible, and in
+            training mode (dropout and batch statistics differ per row).
         Returns:
           (lig_node_attr (B, A, D_out), phore_node_attr (B, P, D_phore)).
         """
@@ -120,7 +124,7 @@ class LigPhoreEncoder(nn.Module):
         P = batch.phore_pos.shape[1]
         lig_mask, phore_mask = batch.lig_mask, batch.phore_mask
         pg = int(pose_group) if pose_group else 1
-        if pg > 1 and B % pg:
+        if pg > 1 and (B % pg or self.training):
             pg = 1
 
         def rep_b(x):
@@ -186,16 +190,16 @@ class LigPhoreEncoder(nn.Module):
             # ligand <- ligand (bond and radius channels)
             lig_intra = getattr(self, f"lig_conv_{l}")(
                 lig_node_attr, [_pair_attr(e, lig_sc, lig_sc) for e in lig_edge_attr],
-                lig_edge_sh, [bond_mask, radius_mask])
+                lig_edge_sh, [bond_mask, radius_mask], lig_mask)
 
             # ligand <- phore (and the norm channel)
             cross_attr_l = _pair_attr(cross_attr, lig_sc, phore_sc)
             lig_inter = getattr(self, f"phore_to_lig_conv_{l}")(
-                phore_node_attr, cross_attr_l, cross_sh, cross_mask)
+                phore_node_attr, cross_attr_l, cross_sh, cross_mask, lig_mask)
             lig_inter_norm = 0.0
             if cfg.consider_norm:
                 lig_inter_norm = getattr(self, f"phore_to_lig_norm_conv_{l}")(
-                    phore_node_attr, cross_attr_l, cross_norm_sh, cross_mask)
+                    phore_node_attr, cross_attr_l, cross_norm_sh, cross_mask, lig_mask)
 
             if not last:
                 phore_conv = getattr(self, f"phore_conv_{l}")
@@ -205,11 +209,11 @@ class LigPhoreEncoder(nn.Module):
                     phore_sc_c = phore_node_attr_c[..., :ns]
                     phore_intra = rep_b(phore_conv(
                         phore_node_attr_c, _pair_attr(phore_edge_attr_c, phore_sc_c, phore_sc_c),
-                        phore_edge_sh_c, p_pair_mask_c))
+                        phore_edge_sh_c, p_pair_mask_c, phore_mask_c))
                 else:
                     phore_intra = phore_conv(
                         phore_node_attr, _pair_attr(phore_edge_attr, phore_sc, phore_sc),
-                        phore_edge_sh, p_pair_mask)
+                        phore_edge_sh, p_pair_mask, phore_mask)
                 # phore <- ligand: the transposed cross grid, with the
                 # receiver (phore) and sender (ligand) scalars in the
                 # reference's part order [edge, lig_sc, phore_sc]
@@ -218,11 +222,11 @@ class LigPhoreEncoder(nn.Module):
                      lig_sc[:, None, :, :].expand(B, P, A, ns),
                      phore_sc[:, :, None, :].expand(B, P, A, ns)], dim=-1)
                 phore_inter = getattr(self, f"lig_to_phore_conv_{l}")(
-                    lig_node_attr, cross_attr_T, cross_sh_T, cross_mask_T)
+                    lig_node_attr, cross_attr_T, cross_sh_T, cross_mask_T, phore_mask)
                 phore_inter_norm = 0.0
                 if cfg.consider_norm:
                     phore_inter_norm = getattr(self, f"lig_to_phore_norm_conv_{l}")(
-                        lig_node_attr, cross_attr_T, cross_norm_sh_T, cross_mask_T)
+                        lig_node_attr, cross_attr_T, cross_norm_sh_T, cross_mask_T, phore_mask)
 
             pad = lig_intra.shape[-1] - lig_node_attr.shape[-1]
             lig_node_attr = Fn.pad(lig_node_attr, (0, pad))

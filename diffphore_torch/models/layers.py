@@ -1,6 +1,10 @@
-"""Model layers: Gaussian smearing, MLPs, categorical encoders, equivariant
-batch norm (inference: running statistics) and the channelwise dense-edge
-tensor-product convolution.
+"""Model layers: Gaussian smearing, MLPs, categorical encoders, dropout from
+an explicit generator, equivariant batch norm (running statistics in eval
+mode, masked batch statistics in training mode) and the channelwise
+dense-edge tensor-product convolution.
+
+``nn.Module.training`` stands for the JAX package's ``deterministic=False``
+and ``use_running_average=False``, which its trainer always sets together.
 
 Attribute names mirror the JAX package's flax scope names (``Dense_0``,
 ``Embed_k``, ``fc_w1``, ``mix_k``, ``bn``), so a checkpoint converts by a
@@ -15,7 +19,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
-from ..ops import tp_fused
+from ..ops import tp_aggregate, tp_fused
 from ..ops.irreps import parse
 from ..ops.tensor_product import channelwise_tp
 
@@ -35,18 +39,37 @@ class GaussianSmearing(nn.Module):
         return torch.exp(coeff * d * d)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose masks come from ``self.generator`` (the global
+    generator of the tensor's device when None).  Identity in eval mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} outside [0, 1)")
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        return x * keep.to(x.dtype) / (1.0 - self.rate)
+
+
 class MLP(nn.Module):
-    """Linear - activation - Linear (dropout is a no-op at inference)."""
+    """Linear - activation - dropout - Linear."""
 
     def __init__(self, in_features: int, hidden: int, out: int,
-                 activation: Callable = torch.relu):
+                 activation: Callable = torch.relu, dropout: float = 0.0):
         super().__init__()
         self.Dense_0 = nn.Linear(in_features, hidden)
         self.Dense_1 = nn.Linear(hidden, out)
         self.activation = activation
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_1(self.activation(self.Dense_0(x)))
+        return self.Dense_1(self.drop(self.activation(self.Dense_0(x))))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -75,14 +98,22 @@ class CategoricalEncoder(nn.Module):
 
 
 class EquivariantBatchNorm(nn.Module):
-    """Irreps-aware batch norm with running statistics: scalar fields get
-    mean/var normalization with scale and bias, higher-l fields are divided
-    by the root of their running component power and scaled."""
+    """Irreps-aware batch norm: scalar fields get mean/var normalization with
+    scale and bias, higher-l fields are divided by the root of their mean
+    component power and scaled.
 
-    def __init__(self, irreps: str, eps: float = 1e-5):
+    Eval mode reads the running statistics.  Training mode normalizes by the
+    statistics of the batch over the nodes ``mask`` marks valid (all of them
+    when None): the mean and the biased variance around it for scalars, the
+    mean component power for l > 0; and moves the running statistics toward
+    them by ``momentum``.
+    """
+
+    def __init__(self, irreps: str, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.irreps = parse(irreps)
         self.eps = eps
+        self.momentum = momentum
         num_scalar_ch = sum(mul for mul, ir in self.irreps if ir.l == 0)
         num_ch = sum(mul for mul, _ in self.irreps)
         self.weight = nn.Parameter(torch.ones(num_ch))
@@ -90,22 +121,51 @@ class EquivariantBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_scalar_ch))
         self.register_buffer("var", torch.ones(num_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        outs = []
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        batch_stats = self.training
+        if batch_stats:
+            m = (torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if mask is None
+                 else mask.to(x.dtype))
+            denom = torch.clamp(m.sum(), min=1.0)
+            node_axes = tuple(range(m.dim()))
+
+            def masked_mean(v):                       # (..., mul) -> (mul,)
+                return (v * m[..., None]).sum(dim=node_axes) / denom
+
+        outs, new_means, new_vars = [], [], []
         ch_off, sc_off = 0, 0
         for (mul, ir), sl in zip(self.irreps, self.irreps.slices()):
             field = x[..., sl].reshape(x.shape[:-1] + (mul, ir.dim))
             w = self.weight[ch_off:ch_off + mul]
-            var = self.var[ch_off:ch_off + mul]
             if ir.l == 0:
-                centered = field[..., 0] - self.mean[sc_off:sc_off + mul]
+                if batch_stats:
+                    mean = masked_mean(field[..., 0])
+                    new_means.append(mean)
+                else:
+                    mean = self.mean[sc_off:sc_off + mul]
+                centered = field[..., 0] - mean
+                if batch_stats:
+                    var = masked_mean(centered ** 2)
+                    new_vars.append(var)
+                else:
+                    var = self.var[ch_off:ch_off + mul]
                 out = centered * torch.rsqrt(var + self.eps) * w + self.bias[sc_off:sc_off + mul]
                 outs.append(out)
                 sc_off += mul
             else:
+                if batch_stats:
+                    var = masked_mean((field ** 2).mean(dim=-1))
+                    new_vars.append(var)
+                else:
+                    var = self.var[ch_off:ch_off + mul]
                 out = field * (torch.rsqrt(var + self.eps) * w)[..., None]
                 outs.append(out.reshape(out.shape[:-2] + (-1,)))
             ch_off += mul
+        if batch_stats:
+            with torch.no_grad():   # the running statistics are updated in place
+                if new_means:
+                    self.mean.mul_(1 - self.momentum).add_(self.momentum * torch.cat(new_means))
+                self.var.mul_(1 - self.momentum).add_(self.momentum * torch.cat(new_vars))
         return torch.cat(outs, dim=-1)
 
 
@@ -113,20 +173,25 @@ class DenseTPConv(nn.Module):
     """Channelwise tensor-product message passing over a dense (receiver,
     sender) grid with a masked mean over senders.
 
-    The edge MLP and the sum over senders are one call of K1
-    (:func:`diffphore_torch.ops.tp_fused.tp_aggregate_fused`): the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors.  Setting
-    ``use_kernel = False`` runs the plain version on any device (a
-    comparison run; the main path leaves it on).  Several edge channels
+    Eval mode: the edge MLP and the sum over senders are one call of K1
+    (:func:`diffphore_torch.ops.tp_fused.tp_aggregate_fused`), which has no
+    dropout and no backward.  Training mode: the edge MLP runs in PyTorch
+    (relu - dropout between its layers, under autograd) and the sum over
+    senders is K2 (:func:`diffphore_torch.ops.tp_aggregate.tp_aggregate`),
+    whose backward is a kernel too.  Either is the CUDA kernel for CUDA
+    tensors and its plain version for CPU tensors.  Setting
+    ``use_kernel = False`` runs the plain versions on any device (a
+    comparison run; the main paths leave it on).  Several edge channels
     between the same pairs (ligand bond and radius edges) share the
     harmonics and pass lists of attrs and masks; the masked mean counts
     every channel's edges.  All arithmetic is f32, as in the JAX package's
-    fused path.
+    fused path.  ``receiver_mask`` marks the receivers that enter the batch
+    norm's training statistics.
     """
 
     def __init__(self, in_irreps: str, out_irreps: str, sh_irreps: str = "1x0e + 1x1o + 1x2e",
                  n_edge_features: int = 48, hidden_features: Optional[int] = None,
-                 batch_norm: bool = True):
+                 batch_norm: bool = True, dropout: float = 0.0):
         super().__init__()
         self.tp = channelwise_tp(in_irreps, sh_irreps, out_irreps)
         hidden = hidden_features or n_edge_features
@@ -139,6 +204,7 @@ class DenseTPConv(nn.Module):
             if any(p.i_out == k for p in self.tp.paths):
                 setattr(self, f"mix_{k}", nn.Parameter(torch.zeros(fan_in, mul_out)))
         self.bn = EquivariantBatchNorm(out_irreps) if batch_norm else None
+        self.drop = Dropout(dropout)
         self.use_kernel = True
 
     def forward(
@@ -147,6 +213,7 @@ class DenseTPConv(nn.Module):
         edge_attr: Union[torch.Tensor, List[torch.Tensor]],          # (B, N, M, E) or C of them
         edge_sh: torch.Tensor,                                       # (B, N, M, sh_dim)
         edge_mask: Union[torch.Tensor, List[torch.Tensor]],          # (B, N, M) or C of them
+        receiver_mask: Optional[torch.Tensor] = None,                # (B, N)
     ) -> torch.Tensor:
         tp = self.tp
         attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
@@ -157,12 +224,22 @@ class DenseTPConv(nn.Module):
             counts = counts + m.to(f32).sum(dim=-1)
         denom = torch.clamp(counts, min=1.0)                         # (B, N)
 
-        aggregate = (tp_fused.tp_aggregate_fused if self.use_kernel
-                     else tp_fused.tp_aggregate_fused_plain)
-        padded = aggregate(
-            tp, sender_feat.to(f32).contiguous(), edge_sh.to(f32).contiguous(),
-            [a.to(f32).contiguous() for a in attrs], [m.contiguous() for m in masks],
-            self.fc_w1, self.fc_b1, self.fc_w2, self.fc_b2)
+        x, sh = sender_feat.to(f32).contiguous(), edge_sh.to(f32).contiguous()
+        if self.training:
+            w = 0.0
+            for a, m in zip(attrs, masks):
+                h = self.drop(torch.relu(a.to(f32) @ self.fc_w1 + self.fc_b1))
+                w = w + (h @ self.fc_w2 + self.fc_b2) * m.to(f32)[..., None]
+            aggregate = (tp_aggregate.tp_aggregate if self.use_kernel
+                         else tp_aggregate.tp_aggregate_plain)
+            padded = aggregate(tp, x, sh, w.contiguous())
+        else:
+            aggregate = (tp_fused.tp_aggregate_fused if self.use_kernel
+                         else tp_fused.tp_aggregate_fused_plain)
+            padded = aggregate(
+                tp, x, sh, [a.to(f32).contiguous() for a in attrs],
+                [m.contiguous() for m in masks],
+                self.fc_w1, self.fc_b1, self.fc_w2, self.fc_b2)
         blocks = tp_fused.blocks_from_padded(tp, padded)
 
         B, N = padded.shape[:2]
@@ -177,5 +254,5 @@ class DenseTPConv(nn.Module):
             parts.append(mixed.reshape(mixed.shape[:-2] + (mul * ir.dim,)))
         out = torch.cat(parts, dim=-1)
         if self.bn is not None:
-            out = self.bn(out)
+            out = self.bn(out, receiver_mask)
         return out

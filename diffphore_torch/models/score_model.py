@@ -5,7 +5,8 @@ torsion scores (B, T) with ``tor_mask`` marking real bonds."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
@@ -16,7 +17,7 @@ from ..ops.diffusion import SigmaSchedule, timestep_embedding
 from ..ops.sh import irrep1_to_cartesian, normalize_vec, sh_l2, spherical_harmonics_lmax2
 from ..ops.tensor_product import _full_tp_paths, full_tensor_product
 from .encoder import LigPhoreEncoder
-from .layers import MLP, DenseTPConv, GaussianSmearing
+from .layers import MLP, DenseTPConv, Dropout, EquivariantBatchNorm, GaussianSmearing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,19 +108,21 @@ class ScoreModel(nn.Module):
         self.encoder = LigPhoreEncoder(cfg)
         lig_irreps = self.encoder.out_irreps
         self.center_distance_expansion = GaussianSmearing(0.0, cfg.center_max_distance, dd)
-        self.center_edge_embedding = MLP(dd + sd, ns, ns)
+        self.center_edge_embedding = MLP(dd + sd, ns, ns, dropout=cfg.dropout)
         self.final_conv = DenseTPConv(lig_irreps, "2x1o + 2x1e", n_edge_features=2 * ns,
-                                      batch_norm=bn)
+                                      batch_norm=bn, dropout=cfg.dropout)
+        self.head_drop = Dropout(cfg.dropout)
         for name in ("tr_final_layer", "rot_final_layer"):
             setattr(self, f"{name}_dense1", nn.Linear(1 + sd, ns))
             setattr(self, f"{name}_dense2", nn.Linear(ns, 1))
         if not cfg.no_torsion:
             self.tor_distance_expansion = GaussianSmearing(0.0, cfg.max_radius, dd)
-            self.final_edge_embedding = MLP(dd, ns, ns)
+            self.final_edge_embedding = MLP(dd, ns, ns, dropout=cfg.dropout)
             tor_sh_irreps = _full_tp_paths(*_TOR_SH_ARGS)[2]
             self.tor_bond_conv = DenseTPConv(lig_irreps, f"{ns}x0o + {ns}x0e",
                                              sh_irreps=repr(tor_sh_irreps),
-                                             n_edge_features=3 * ns, batch_norm=bn)
+                                             n_edge_features=3 * ns, batch_norm=bn,
+                                             dropout=cfg.dropout)
             self.tor_final_dense1 = nn.Linear(2 * ns, ns, bias=False)
             self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
 
@@ -153,7 +156,8 @@ class ScoreModel(nn.Module):
         center_attr = torch.cat([center_attr, lig_attr[..., :ns]], -1)
         center_sh = spherical_harmonics_lmax2(center_vec)
         global_pred = self.final_conv(
-            lig_attr, center_attr[:, None], center_sh[:, None], batch.lig_mask[:, None, :])[:, 0]
+            lig_attr, center_attr[:, None], center_sh[:, None], batch.lig_mask[:, None, :],
+            torch.ones((B, 1), dtype=torch.bool, device=lig_attr.device))[:, 0]
 
         # 1o/1e blocks live in the real-SH basis (y, z, x)
         tr_pred = irrep1_to_cartesian(global_pred[:, 0:3] + global_pred[:, 6:9])
@@ -161,7 +165,8 @@ class ScoreModel(nn.Module):
 
         def magnitude_head(vec, name):
             norm = torch.linalg.norm(vec, dim=-1, keepdim=True)
-            h = torch.relu(getattr(self, f"{name}_dense1")(torch.cat([norm, sigma_emb], -1)))
+            h = getattr(self, f"{name}_dense1")(torch.cat([norm, sigma_emb], -1))
+            h = torch.relu(self.head_drop(h))
             mag = getattr(self, f"{name}_dense2")(h)
             if cfg.magnitude_head == "linear":
                 return vec * (1.0 + Fn.softplus(mag))
@@ -198,11 +203,68 @@ class ScoreModel(nn.Module):
         bond_sh = sh_l2(normalize_vec(bond_vec))               # (B, T, 5)
         tor_sh, _ = full_tensor_product(
             edge_sh, bond_sh[:, :, None, :].expand(B, T, A, 5), *_TOR_SH_ARGS)
-        tor_pred = self.tor_bond_conv(lig_attr, t_attr, tor_sh, tmask)   # (B, T, 2ns)
-        h = torch.tanh(self.tor_final_dense1(tor_pred))
+        tor_pred = self.tor_bond_conv(lig_attr, t_attr, tor_sh, tmask,
+                                      batch.tor_mask)                     # (B, T, 2ns)
+        h = self.head_drop(torch.tanh(self.tor_final_dense1(tor_pred)))
         tor_pred = self.tor_final_dense2(h)[..., 0]
 
         if cfg.scale_by_sigma:
             tor_pred = tor_pred * torch.sqrt(torus.score_norm(tor_sigma))[:, None]
         return tr_pred, rot_pred, tor_pred * batch.tor_mask
 
+
+# ---------------------------------------------------------------- fresh weights
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to [-2, 2]
+
+
+def _lecun_normal(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
+    """Truncated normal on [-2, 2] std, variance 1 / fan_in, by inverse CDF."""
+    lo, hi = 0.5 * (1 + math.erf(-2 / math.sqrt(2))), 0.5 * (1 + math.erf(2 / math.sqrt(2)))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
+    z = math.sqrt(2.0) * torch.erfinv(2 * u - 1)
+    return (z * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).to(torch.float32)
+
+
+def _glorot_uniform(shape, gen: torch.Generator) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return ((torch.rand(shape, generator=gen, dtype=torch.float64) * 2 - 1) * limit).to(
+        torch.float32)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fresh weights with the JAX package's distributions, from a seed: LeCun
+    normal for Linear weights and the convs' edge MLPs (``fc_w*``), Glorot
+    uniform for embeddings and the convs' mixes (``mix_k``), zero biases,
+    identity batch norms.  Drawn on the CPU in module order, so a seed gives
+    the same model on any device."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            mod.weight.copy_(_lecun_normal(mod.weight.shape, mod.in_features, gen))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.copy_(_glorot_uniform(mod.weight.shape, gen))
+        elif isinstance(mod, DenseTPConv):
+            for name, p in mod.named_parameters(recurse=False):
+                if name in ("fc_w1", "fc_w2"):
+                    p.copy_(_lecun_normal(p.shape, p.shape[0], gen))
+                elif name.startswith("mix_"):
+                    p.copy_(_glorot_uniform(p.shape, gen))
+                else:
+                    p.zero_()
+        elif isinstance(mod, EquivariantBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.mean.zero_()
+            mod.var.fill_(1.0)
+    return model
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Make every dropout of ``model`` draw its masks from ``generator``."""
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.generator = generator

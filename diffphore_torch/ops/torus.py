@@ -1,4 +1,6 @@
-"""Wrapped-normal (torus) score-norm table: the torsion-score scaling.
+"""Wrapped-normal (torus) tables: the torsion-score scaling
+(``score_norm``), and the density and score on the (sigma, x) grid for the
+training targets.
 
 Same grid and series as the JAX package (1024 x 1024 log-spaced grid, 16
 wrapped images, trapezoid quadrature of E[score^2]).
@@ -8,6 +10,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,17 +47,27 @@ def _build_tables() -> dict:
 
     num = np.trapezoid(p * score**2, x, axis=1)
     den = np.trapezoid(p, x, axis=1)
-    return {"score_norm": (num / den).astype(np.float32)}
+    return {
+        "p": p.astype(np.float32),
+        "score": score.astype(np.float32),
+        "score_norm": (num / den).astype(np.float32),
+    }
 
 
 @functools.lru_cache(maxsize=1)
 def _tables() -> dict:
-    return cached_tables(f"torus_score_norm_{SIGMA_N}x{X_N}", _build_tables)
+    return cached_tables(f"torus_tables_{SIGMA_N}x{X_N}", _build_tables)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_table(device: str) -> torch.Tensor:
-    return torch.as_tensor(_tables()["score_norm"], device=device)
+def _device_table(device: str, name: str = "score_norm") -> torch.Tensor:
+    return torch.as_tensor(_tables()[name], device=device)
+
+
+def _x_idx(x: torch.Tensor) -> torch.Tensor:
+    xx = torch.log(torch.clamp(torch.abs(x), min=1e-30) / math.pi)
+    xx = (xx - np.log(X_MIN)) / (0.0 - np.log(X_MIN)) * X_N
+    return torch.clamp(torch.round(xx), 0, X_N).long()
 
 
 def _sigma_idx(sigma: torch.Tensor) -> torch.Tensor:
@@ -67,3 +80,31 @@ def score_norm(sigma: torch.Tensor) -> torch.Tensor:
     """E[score^2] per sigma."""
     table = _device_table(str(sigma.device))
     return table[_sigma_idx(sigma)]
+
+
+def wrap(x: torch.Tensor) -> torch.Tensor:
+    """Wrap angles to [-pi, pi)."""
+    return torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi
+
+
+def score(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """d/dx log p_wrapped-normal(x; sigma); x broadcasts against sigma."""
+    x = wrap(x)
+    x, sigma = torch.broadcast_tensors(x, sigma)
+    table = _device_table(str(x.device), "score")
+    return -torch.sign(x) * table[_sigma_idx(sigma), _x_idx(x)]
+
+
+def p(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Unnormalized wrapped-normal density at x."""
+    x, sigma = torch.broadcast_tensors(wrap(x), sigma)
+    return _device_table(str(x.device), "p")[_sigma_idx(sigma), _x_idx(x)]
+
+
+def sample(sigma: torch.Tensor, generator: Optional[torch.Generator] = None,
+           z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """wrap(sigma * N(0, 1)); ``z``: the standard normals, drawn from
+    ``generator`` when not handed in."""
+    if z is None:
+        z = torch.randn(sigma.shape, generator=generator, device=sigma.device)
+    return wrap(sigma * z)

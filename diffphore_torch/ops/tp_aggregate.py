@@ -1,0 +1,217 @@
+"""K2: channelwise tensor-product aggregate over pre-masked edge weights,
+with its backward.
+
+The port of ``diffphore_tpu/ops/pallas/tp_aggregate.py::tp_aggregate_pallas``
+(the TPU kernel) as CUDA kernels for Hopper, ``csrc/tp_aggregate.cu``.  It is
+``ChannelwiseTP.aggregate`` with every path in one launch:
+
+    out[b,n,f,k] = alpha_p sum_{m,i,j} x[b,m,u_p(f),i] sh[b,n,m,j] C_p[i,j,k] w[b,n,m,f]
+
+Output (B, N, F, 4) f32: channel f's l_out components in lanes
+[:2*l_out+1], the rest zero; :func:`tp_fused.blocks_from_padded` splits it
+into the per-irrep blocks.  The training branch of ``DenseTPConv`` runs it
+(the fused kernel K1 has no dropout and no backward).
+
+:func:`tp_aggregate` launches the kernels for CUDA tensors, forward and,
+through :class:`TPAggregate`, backward (``dw`` and ``dsh`` per edge in one
+kernel, ``dx`` per sender in another), and runs :func:`tp_aggregate_plain`,
+the same function in plain PyTorch under autograd, for CPU tensors.
+``FWD``, ``BWD_EDGE`` and ``BWD_X`` count the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from . import build
+from .tensor_product import ChannelwiseTP
+from .tp_fused import K_PAD, _check_tp, _device_tables, _Kernel
+
+FWD = _Kernel()        # tp_aggregate_fwd_kernel
+BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
+BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx)
+
+
+def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: ``tp.aggregate`` packed into
+    (B, N, F, 4).  Differentiable by autograd in x, sh and w."""
+    _check_tp(tp)
+    blocks = tp.aggregate(x, sh, w)
+    taken = [0] * len(blocks)
+    pieces = []
+    for p in tp.paths:                      # channel order = path order
+        start = taken[p.i_out]
+        taken[p.i_out] = start + p.mul_in
+        part = blocks[p.i_out][..., start:start + p.mul_in, :]
+        pieces.append(Fn.pad(part, (0, K_PAD - part.shape[-1])))
+    return torch.cat(pieces, dim=-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per path (f_start, f_count, d_sh, d_out) int32 (n_paths, 4); and, per
+    input element d, the (channel, component) pairs that read it: extents
+    ``d_ptr`` (D + 1) into ``d_item`` (entries f * 4 + i, ascending)."""
+    in_slices = tp.irreps_in.slices()
+    ptab = np.zeros((len(tp.paths), 4), np.int32)
+    readers = [[] for _ in range(tp.irreps_in.dim)]
+    for q, p in enumerate(tp.paths):
+        d1 = 2 * p.l_in + 1
+        ptab[q] = (p.w_slice[0], p.mul_in, 2 * p.l_sh + 1, 2 * p.l_out + 1)
+        for u in range(p.mul_in):
+            for i in range(d1):
+                readers[in_slices[p.i_in].start + u * d1 + i].append((p.w_slice[0] + u) * 4 + i)
+    d_ptr = np.zeros(len(readers) + 1, np.int32)
+    d_ptr[1:] = np.cumsum([len(r) for r in readers])
+    d_item = np.array([it for r in readers for it in sorted(r)] or [0], np.int32)
+    return ptab, d_ptr, d_item
+
+
+@functools.lru_cache(maxsize=None)
+def _device_backward_tables(tp: ChannelwiseTP, device: str):
+    return tuple(torch.as_tensor(t, device=device) for t in _backward_tables(tp))
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("tp_aggregate")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dp_tp_aggregate_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 9 + [i] * 7 + [p]
+    for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x):
+        fn.restype = i
+    lib.dp_cuda_error_string.argtypes = [i]
+    lib.dp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_library().dp_cuda_error_string(rc).decode()}")
+
+
+def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                  g: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
+    """Shapes (B, N, M, D, S, F) of a launch; raises on what the kernels do
+    not take."""
+    _check_tp(tp)
+    if sh.dim() != 4:
+        raise ValueError(f"tp_aggregate: sh must be (B, N, M, S), got {tuple(sh.shape)}")
+    B, N, M, S = sh.shape
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    expected = {"x": (x, (B, M, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
+                "w": (w, (B, N, M, F))}
+    if g is not None:
+        expected["grad"] = (g, (B, N, F, K_PAD))
+    for name, (t, shape) in expected.items():
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"tp_aggregate: {name} on {t.device}; all tensors must be on one "
+                             f"CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"tp_aggregate: {name} must be f32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"tp_aggregate: {name} {tuple(t.shape)}, expected {shape} for "
+                             f"{tp.irreps_in!r} x {tp.irreps_sh!r}")
+        if not t.is_contiguous():
+            raise ValueError(f"tp_aggregate: {name} must be contiguous")
+    return B, N, M, D, S, F
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors -> (B, N, F, 4) f32."""
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
+    chan, gtab = _device_tables(tp, str(x.device))
+    out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
+    rc = _library().dp_tp_aggregate_fwd(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), gtab.data_ptr(),
+        out.data_ptr(), B, N, M, D, S, F, gtab.shape[0], _stream(x.device))
+    _raise_on(rc, "tp_aggregate_fwd")
+    FWD.launches += 1
+    return out
+
+
+def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                         g: torch.Tensor, need_dsh: bool
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dw, dsh or None) from the per-edge backward kernel."""
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
+    dev = str(x.device)
+    chan, gtab = _device_tables(tp, dev)
+    ptab, _, _ = _device_backward_tables(tp, dev)
+    dw = torch.empty_like(w)
+    dsh = torch.empty_like(sh) if need_dsh else None
+    rc = _library().dp_tp_aggregate_bwd_edge(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
+        ptab.data_ptr(), gtab.data_ptr(), dw.data_ptr(), dsh.data_ptr() if need_dsh else None,
+        B, N, M, D, S, F, gtab.shape[0], _stream(x.device))
+    _raise_on(rc, "tp_aggregate_bwd_edge")
+    BWD_EDGE.launches += 1
+    return dw, dsh
+
+
+def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """dx from the per-sender backward kernel (x gives only its shape)."""
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
+    dev = str(x.device)
+    chan, gtab = _device_tables(tp, dev)
+    ptab, d_ptr, d_item = _device_backward_tables(tp, dev)
+    dx = torch.empty_like(x)
+    rc = _library().dp_tp_aggregate_bwd_x(
+        sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
+        gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
+        B, N, M, D, S, F, gtab.shape[0], _stream(x.device))
+    _raise_on(rc, "tp_aggregate_bwd_x")
+    BWD_X.launches += 1
+    return dx
+
+
+class TPAggregate(torch.autograd.Function):
+    """The kernels under autograd.  ``dsh`` is computed only when sh requires
+    grad (the cross-graph convs, whose edge vectors carry learned weights),
+    ``dx`` only when x does."""
+
+    @staticmethod
+    def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor):
+        ctx.tp = tp
+        ctx.save_for_backward(x, sh, w)
+        return launch_forward(tp, x, sh, w)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        x, sh, w = ctx.saved_tensors
+        _, need_dx, need_dsh, need_dw = ctx.needs_input_grad
+        g = grad_out.to(torch.float32).contiguous()
+        dx = dw = dsh = None
+        if need_dw or need_dsh:
+            dw, dsh = launch_backward_edge(ctx.tp, x, sh, w, g, need_dsh)
+        if need_dx:
+            dx = launch_backward_x(ctx.tp, x, sh, w, g)
+        return None, dx, dsh, dw if need_dw else None
+
+
+def tp_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """All-path aggregate -> (B, N, F, 4) f32, differentiable in x, sh, w.
+
+    x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked; all f32 and
+    contiguous.  CPU tensors take the plain version; CUDA tensors launch the
+    kernels or raise.
+    """
+    if x.device.type == "cpu":
+        return tp_aggregate_plain(tp, x, sh, w)
+    return TPAggregate.apply(tp, x, sh, w)

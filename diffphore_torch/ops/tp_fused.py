@@ -143,12 +143,20 @@ def tp_aggregate_fused(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.  x, sh and attrs share one dtype, f32 or bf16; the MLP
-    parameters are f32; masks are bool or float.
+    parameters are f32; masks are bool or float.  The kernel has no
+    backward: with grad mode on and an input that requires grad it raises
+    (training goes through ``ops.tp_aggregate``); the plain version on CPU
+    tensors stays differentiable.
     """
     if x.device.type == "cpu":
         return tp_aggregate_fused_plain(tp, x, sh, attrs, masks, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"tp_aggregate_fused: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, sh, *attrs, w1, b1, w2, b2]):
+        raise RuntimeError(
+            "tp_aggregate_fused has no backward: call it under torch.no_grad(), or put the "
+            "model in training mode so the convolution runs ops.tp_aggregate")
     _check_tp(tp)
     dev = x.device
     B, N, M, S = sh.shape

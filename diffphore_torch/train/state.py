@@ -1,0 +1,142 @@
+"""Train state and the train / validation steps.
+
+The state owns the model (parameters and batch-norm running statistics),
+the Adam or AdamW optimizer, the EMA shadow of the parameters (decay 0.999
+by default) and the step count.  The steps run eagerly on the state's
+device and update it in place; the plateau controller of the training loop
+writes the learning rate through :func:`set_learning_rate`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..data.transforms import NoiseDraws, apply_noise
+from ..device import resolve_device
+from ..models.score_model import (ScoreModel, ScoreModelConfig, init_parameters,
+                                  set_dropout_generator)
+from .losses import score_matching_loss
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: ScoreModel
+    optimizer: torch.optim.Optimizer
+    ema_params: Dict[str, torch.Tensor]   # by parameter name
+    step: int = 0
+
+    @property
+    def learning_rate(self) -> float:
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+def make_optimizer(params, lr: float = 1e-3, weight_decay: float = 0.0) -> torch.optim.Optimizer:
+    if weight_decay > 0:
+        return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+    return torch.optim.Adam(params, lr=lr)
+
+
+def create_train_state(cfg: ScoreModelConfig, seed: int = 0, lr: float = 1e-3,
+                       weight_decay: float = 0.0, device: Optional[str] = None,
+                       model: Optional[ScoreModel] = None) -> TrainState:
+    """A fresh state on ``device`` (the GPU unless the caller asks for the
+    CPU): weights drawn from ``seed``, or those of ``model`` when given."""
+    dev = resolve_device(device)
+    if model is None:
+        model = init_parameters(ScoreModel(cfg), seed)
+    model = model.to(dev)
+    ema = {name: p.detach().clone() for name, p in model.named_parameters()}
+    return TrainState(model=model, optimizer=make_optimizer(model.parameters(), lr, weight_decay),
+                      ema_params=ema)
+
+
+def set_learning_rate(state: TrainState, lr: float) -> TrainState:
+    for group in state.optimizer.param_groups:
+        group["lr"] = float(lr)
+    return state
+
+
+def make_train_step(
+    cfg: ScoreModelConfig,
+    ema_decay: float = 0.999,
+    tr_weight: float = 0.33,
+    rot_weight: float = 0.33,
+    tor_weight: float = 0.33,
+    reject: bool = False,
+) -> Callable:
+    """Build ``step(state, batch, generator=None, reject_prob=0.0, draws=None)
+    -> (state, metrics)``: noise the clean batch, run the forward in training
+    mode (dropout, batch statistics), the loss, the backward, the NaN guard
+    (a non-finite loss zeroes the gradients and keeps the step count
+    aligned), the optimizer update and the EMA blend.  ``generator`` feeds
+    the noise and the dropout masks; ``draws`` replays given noise.
+    ``metrics`` are 0-d tensors on the device, ``grad_finite`` among them.
+    """
+    schedule = cfg.sigma_schedule
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
+             reject_prob: float = 0.0, draws: Optional[NoiseDraws] = None):
+        model = state.model
+        with torch.no_grad():
+            noised, targets = apply_noise(
+                batch, schedule, generator, draws, no_torsion=cfg.no_torsion,
+                reject_prob=reject_prob if reject else 0.0)
+        model.train()
+        set_dropout_generator(model, generator)
+        state.optimizer.zero_grad(set_to_none=True)
+        preds = model(noised)
+        metrics = score_matching_loss(
+            preds, targets, noised.t, batch.tor_mask, schedule,
+            tr_weight, rot_weight, tor_weight, cfg.no_torsion, valid=batch.valid)
+        loss = metrics["loss"]
+        loss.backward()
+        with torch.no_grad():
+            ok = torch.isfinite(loss)
+            for p in model.parameters():
+                p.grad = (torch.zeros_like(p) if p.grad is None
+                          else torch.nan_to_num(p.grad) * ok)
+            state.optimizer.step()
+            for name, p in model.named_parameters():
+                state.ema_params[name].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_finite"] = ok.to(torch.float32)
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(
+    cfg: ScoreModelConfig,
+    tr_weight: float = 0.33,
+    rot_weight: float = 0.33,
+    tor_weight: float = 0.33,
+) -> Callable:
+    """Build the validation-loss step ``step(model, batch, generator=None,
+    draws=None) -> metrics``: noise the clean batch, run the eval-mode
+    forward (running batch-norm statistics, no dropout, no gradients) and
+    return per-graph (B,) loss components plus ``t``, so the caller can
+    bucket by sigma interval and drop repeat-padded rows."""
+    schedule = cfg.sigma_schedule
+
+    @torch.no_grad()
+    def step(model: ScoreModel, batch, generator: Optional[torch.Generator] = None,
+             draws: Optional[NoiseDraws] = None):
+        noised, targets = apply_noise(batch, schedule, generator, draws,
+                                      no_torsion=cfg.no_torsion)
+        model.eval()
+        preds = model(noised)
+        metrics = score_matching_loss(
+            preds, targets, noised.t, batch.tor_mask, schedule,
+            tr_weight, rot_weight, tor_weight, cfg.no_torsion, apply_mean=False)
+        metrics["t"] = noised.t
+        return metrics
+
+    return step

@@ -1,4 +1,4 @@
-"""Checkpoints of the JAX package, read into the port.
+"""Checkpoints in the JAX package's format, read and written by the port.
 
 A model directory holds ``model_parameters.yml`` and flax msgpack files of
 ``{"params": ..., "batch_stats": ...}``.  :func:`convert_variables` maps that
@@ -7,11 +7,16 @@ attribute names mirror the flax scopes), flax ``Dense.kernel`` (in, out) is
 transposed to ``Linear.weight`` (out, in), ``Embed.embedding`` becomes
 ``Embedding.weight``, and raw parameter matrices (``fc_w1``, ``mix_k``, batch
 norm ``weight``/``bias``) and batch statistics (``mean``/``var``, buffers)
-map as they are.
+map as they are.  :func:`variables_from_tensors` is the inverse, so a run
+directory the port writes (``model_parameters.yml`` + ``last_model.msgpack``
+holding ``step``, ``params``, ``batch_stats``, ``ema_params`` and the
+optimizer moments) loads with :func:`load_model_dir`, here and in the JAX
+package's tree layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
@@ -70,12 +75,105 @@ def load_config_yaml(model_dir: str) -> ScoreModelConfig:
 
 
 def load_model_dir(model_dir: str, device: Optional[str] = None,
-                   checkpoint: str = BEST_EMA_MODEL) -> Tuple[ScoreModelConfig, ScoreModel]:
+                   checkpoint: str = BEST_EMA_MODEL, use_ema: bool = False
+                   ) -> Tuple[ScoreModelConfig, ScoreModel]:
     """The config and the eval-mode model of a model directory, on
-    ``device`` (the GPU unless the caller asks for the CPU)."""
+    ``device`` (the GPU unless the caller asks for the CPU).  ``use_ema``
+    takes a train-state checkpoint's EMA shadow instead of its raw
+    parameters."""
     dev = resolve_device(device)
     cfg = load_config_yaml(model_dir)
     model = ScoreModel(cfg)
-    state = convert_variables(flax_msgpack.load(os.path.join(model_dir, checkpoint)))
-    model.load_state_dict(state, strict=True)
+    variables = flax_msgpack.load(os.path.join(model_dir, checkpoint))
+    if use_ema:
+        variables = {**variables, "params": variables["ema_params"]}
+    model.load_state_dict(convert_variables(variables), strict=True)
     return cfg, model.to(dev).eval()
+
+
+def save_config_yaml(cfg: ScoreModelConfig, model_dir: str, extra: Optional[Dict] = None) -> str:
+    """Write the resolved config, plus ``extra`` training settings, under the
+    field names ``load_config_yaml`` reads."""
+    os.makedirs(model_dir, exist_ok=True)
+    d = dataclasses.asdict(cfg)
+    d["clash_cutoff"] = list(d["clash_cutoff"])
+    d.update(extra or {})
+    path = os.path.join(model_dir, MODEL_PARAMS_YAML)
+    with open(path, "w") as f:
+        f.write(flat_yaml.dumps(d))
+    return path
+
+
+def variables_from_tensors(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict:
+    """Tensors keyed like ``model.state_dict()`` (parameters, buffers, or
+    anything of their shapes such as optimizer moments) -> the flax tree of
+    numpy leaves: the inverse of :func:`convert_variables` for one
+    collection."""
+    kinds = {name: type(mod) for name, mod in model.named_modules()}
+    tree: Dict[str, Any] = {}
+    for key, value in tensors.items():
+        *mods, name = key.split(".")
+        arr = value.detach().cpu().numpy()
+        kind = kinds[".".join(mods)]
+        if kind is torch.nn.Linear and name == "weight":
+            name, arr = "kernel", arr.T
+        elif kind is torch.nn.Embedding:
+            name = "embedding"
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
+
+
+def save_train_state(state, path: str) -> None:
+    """Model, EMA shadow, optimizer moments, step and learning rate of a
+    ``train.state.TrainState`` as one msgpack file."""
+    model = state.model
+    names = {p: name for name, p in model.named_parameters()}
+    moments = {"mu": {}, "nu": {}}
+    for p, st in state.optimizer.state.items():
+        moments["mu"][names[p]] = st["exp_avg"]
+        moments["nu"][names[p]] = st["exp_avg_sq"]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    flax_msgpack.dump({
+        "step": int(state.step),
+        "params": variables_from_tensors(model, dict(model.named_parameters())),
+        "batch_stats": variables_from_tensors(model, dict(model.named_buffers())),
+        "ema_params": variables_from_tensors(model, state.ema_params),
+        "opt_state": {
+            "learning_rate": state.learning_rate,
+            "mu": variables_from_tensors(model, moments["mu"]),
+            "nu": variables_from_tensors(model, moments["nu"]),
+        },
+    }, path)
+
+
+def load_train_state(state, path: str, weights_only: bool = False):
+    """Restore ``state`` in place from a checkpoint.  ``weights_only`` takes
+    the parameters, batch statistics and EMA shadow (the parameters where
+    the file has no shadow) and leaves optimizer and step fresh: a
+    fine-tune, not a resume.  A file of ``{"params", "batch_stats"}`` alone,
+    as the JAX package ships, loads that way."""
+    raw = flax_msgpack.load(path)
+    model, dev = state.model, state.device
+    model.load_state_dict(convert_variables(raw), strict=True)
+    ema = convert_variables({"params": raw.get("ema_params") or raw["params"]})
+    for name in state.ema_params:
+        state.ema_params[name] = ema[name].to(dev)
+    if weights_only:
+        return state
+    if "opt_state" not in raw or "mu" not in raw["opt_state"]:
+        raise ValueError(f"`{path}` holds no optimizer state of the port: it cannot be resumed "
+                         f"from (use it as --pretrain_model_pt)")
+    state.step = int(raw["step"])
+    mu = convert_variables({"params": raw["opt_state"]["mu"]})
+    nu = convert_variables({"params": raw["opt_state"]["nu"]})
+    for name, p in model.named_parameters():
+        if name in mu:
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(state.step)),
+                "exp_avg": mu[name].to(dev), "exp_avg_sq": nu[name].to(dev)}
+    for group in state.optimizer.param_groups:
+        group["lr"] = float(raw["opt_state"]["learning_rate"])
+    return state

@@ -1,8 +1,9 @@
-"""A reader for the flat ``model_parameters.yml`` files: ``key: scalar``
-lines and block lists (``key:`` followed by ``- item`` lines).  Scalars
-resolve as YAML 1.1's safe loader resolves them (null, bools, ints, floats,
-plain or quoted strings), so the result equals ``yaml.safe_load`` on these
-files without needing PyYAML."""
+"""A reader and writer for the flat ``model_parameters.yml`` files:
+``key: scalar`` lines and block lists (``key:`` followed by ``- item``
+lines).  Scalars resolve as YAML 1.1's safe loader resolves them (null,
+bools, ints, floats, plain or quoted strings), so the result equals
+``yaml.safe_load`` on these files without needing PyYAML, and what
+:func:`dumps` writes, both read back unchanged."""
 
 from __future__ import annotations
 
@@ -67,3 +68,41 @@ def loads(text: str) -> Dict[str, Any]:
 def load(path: str) -> Dict[str, Any]:
     with open(path) as f:
         return loads(f.read())
+
+
+def _format(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "e" in text and "." not in text:       # 1e-05 -> 1.0e-05 (YAML 1.1 float)
+            mantissa, _, exponent = text.partition("e")
+            text = f"{mantissa}.0e{exponent}"
+        return text
+    text = str(value)
+    if scalar(text) != text or text != text.strip() or " #" in text or ":" in text:
+        return "'" + text.replace("'", "''") + "'"
+    return text
+
+
+def dumps(data: Dict[str, Any]) -> str:
+    """Flat mapping of scalars and lists of scalars -> YAML, keys sorted."""
+    lines = []
+    for key in sorted(data):
+        value = data[key]
+        if isinstance(value, (list, tuple)):
+            if not value:
+                raise ValueError(f"cannot write the empty list `{key}`")
+            lines.append(f"{key}:")
+            lines.extend(f"- {_format(v)}" for v in value)
+        else:
+            lines.append(f"{key}: {_format(value)}")
+    return "\n".join(lines) + "\n"

@@ -1,13 +1,16 @@
-"""A msgpack decoder for the subset that flax's ``serialization.to_bytes``
-writes: maps, arrays, str/bin, nil/bool, ints and floats, and the ext types
-flax uses for numpy values (code 1 = ndarray, 3 = numpy scalar, each the
-msgpack of ``(shape, dtype name, raw C-order bytes)``).
+"""A msgpack decoder and encoder for the subset that flax's
+``serialization.to_bytes`` writes: maps, arrays, str/bin, nil/bool, ints and
+floats, and the ext types flax uses for numpy values (code 1 = ndarray,
+3 = numpy scalar, each the msgpack of ``(shape, dtype name, raw C-order
+bytes)``).
 
-The port reads checkpoints with this and needs no msgpack package.
+The port reads and writes checkpoints with this and needs no msgpack
+package; what :func:`dumps` writes, flax's ``msgpack_restore`` reads.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Tuple
 
@@ -116,3 +119,58 @@ def flatten(tree: Any, prefix: Tuple[str, ...] = ()):
             yield from flatten(v, prefix + (str(k),))
     else:
         yield prefix, tree
+
+
+def _head(n: int, fix: int, fix_max: int, m16: int, m32: int) -> bytes:
+    """Length header of a str (no 8-bit form used), array or map."""
+    if n <= fix_max:
+        return bytes([fix | n])
+    if n < 1 << 16:
+        return bytes([m16]) + struct.pack(">H", n)
+    return bytes([m32]) + struct.pack(">I", n)
+
+
+def _encode(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, (bool, np.bool_)):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, (int, np.integer)):
+        out += b"\xd3" + struct.pack(">q", int(obj))
+    elif isinstance(obj, (float, np.floating)):
+        out += b"\xcb" + struct.pack(">d", float(obj))
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        out += _head(len(raw), 0xA0, 31, 0xDA, 0xDB) + raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        out += b"\xc6" + struct.pack(">I", len(obj)) + bytes(obj)
+    elif isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        payload = dumps([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        out += b"\xc9" + struct.pack(">Ib", len(payload), _EXT_NDARRAY) + payload
+    elif isinstance(obj, dict):
+        out += _head(len(obj), 0x80, 15, 0xDE, 0xDF)
+        for k, v in obj.items():
+            _encode(str(k), out)
+            _encode(v, out)
+    elif isinstance(obj, (list, tuple)):
+        out += _head(len(obj), 0x90, 15, 0xDC, 0xDD)
+        for v in obj:
+            _encode(v, out)
+    else:
+        raise TypeError(f"msgpack: cannot encode {type(obj).__name__}")
+
+
+def dumps(obj: Any) -> bytes:
+    """Encode a tree of dicts (str keys), lists, numpy arrays and scalars."""
+    out = bytearray()
+    _encode(obj, out)
+    return bytes(out)
+
+
+def dump(obj: Any, path: str) -> None:
+    """Write-to-temp and rename, so that the visible file is always whole."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(dumps(obj))
+    os.replace(tmp, path)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffphore_torch.ops import tp_fused
+from diffphore_torch.ops import tp_aggregate, tp_fused
 from diffphore_torch.ops.tensor_product import channelwise_tp
 
 SEQ = ["20x0e", "20x0e + 10x1o", "20x0e + 10x1o + 10x1e", "20x0e + 10x1o + 10x1e + 20x0o"]
@@ -85,3 +85,96 @@ def test_tp_fused_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):  # f64 inputs
         tp_fused.tp_aggregate_fused(tp, x.double(), sh.double(), [attr.double()], [mask],
                                     w1, b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_tp_fused_raises_under_grad(cuda):
+    """K1 has no backward: a CUDA call with grad-requiring inputs under grad
+    mode raises instead of returning a tensor without a grad_fn."""
+    tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+    B, N, M, E = 1, 4, 5, 60
+    x = torch.zeros(B, M, tp.irreps_in.dim, device=cuda)
+    sh = torch.zeros(B, N, M, 9, device=cuda)
+    attr = torch.zeros(B, N, M, E, device=cuda)
+    mask = torch.ones(B, N, M, dtype=torch.bool, device=cuda)
+    w1 = torch.zeros(E, E, device=cuda, requires_grad=True)
+    b1 = torch.zeros(E, device=cuda)
+    w2, b2 = torch.zeros(E, 40, device=cuda), torch.zeros(40, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tp_fused.tp_aggregate_fused(tp, x, sh, [attr], [mask], w1, b1, w2, b2)
+    with torch.no_grad():
+        tp_fused.tp_aggregate_fused(tp, x, sh, [attr], [mask], w1, b1, w2, b2)
+
+
+def _k2_inputs(sig, cuda, B=3, N=37, M=29, seed=0):
+    irr_in, irr_out, irr_sh, _ = SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, M, tp.irreps_in.dim)))
+    sh = t(rng.normal(size=(B, N, M, tp.irreps_sh.dim)))
+    w = t(rng.normal(size=(B, N, M, tp.weight_numel)) * (rng.random((B, N, M, 1)) > 0.3))
+    g = t(rng.normal(size=(B, N, tp.weight_numel, 4)))
+    return tp, x, sh, w, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+def test_tp_aggregate_kernels_match_plain(cuda, sig):
+    """K2 forward and its three gradients against autograd through the plain
+    version: f32 on both sides, they differ by summation order only (1e-4
+    of each result's scale).  N = 37 and M = 29 leave ragged tiles; the
+    upstream gradient's padding lanes hold noise, which must be ignored."""
+    tp, x, sh, w, g = _k2_inputs(sig, cuda)
+    leaves = [v.clone().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, *leaves)
+    lanes = torch.zeros_like(g)
+    for p in tp.paths:
+        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    ref_grads = torch.autograd.grad(ref, leaves, g * lanes)
+
+    counts = [k.launches for k in (tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X)]
+    mine = [v.clone().requires_grad_(True) for v in (x, sh, w)]
+    out = tp_aggregate.tp_aggregate(tp, *mine)
+    grads = torch.autograd.grad(out, mine, g)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X)] \
+        == [c + 1 for c in counts]
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float(out[..., 3].abs().max()) == 0.0  # the pad lane
+    for name, got, want in zip(("dx", "dsh", "dw"), grads, ref_grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_tp_aggregate_is_deterministic_and_skips_unneeded_grads(cuda):
+    """No atomics: two runs agree to the bit.  Without a gradient into sh the
+    edge kernel skips dsh; without one into x the dx kernel is not launched."""
+    tp, x, sh, w, g = _k2_inputs("layer2", cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [v.clone().requires_grad_(True) for v in (x, sh, w)]
+        out = tp_aggregate.tp_aggregate(tp, *leaves)
+        runs.append((out,) + torch.autograd.grad(out, leaves, g))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+    w_only = w.clone().requires_grad_(True)
+    before = tp_aggregate.BWD_X.launches
+    out = tp_aggregate.tp_aggregate(tp, x, sh, w_only)
+    (dw,) = torch.autograd.grad(out, [w_only], g)
+    assert tp_aggregate.BWD_X.launches == before
+    assert torch.equal(dw, runs[0][3])
+
+
+@pytest.mark.cuda
+def test_tp_aggregate_rejects_bad_inputs(cuda):
+    tp, x, sh, w, _ = _k2_inputs("layer0", cuda, B=1, N=4, M=5)
+    with pytest.raises(ValueError):  # non-contiguous weights
+        tp_aggregate.tp_aggregate(tp, x, sh, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):  # sh on the CPU
+        tp_aggregate.tp_aggregate(tp, x, sh.cpu(), w)
+    with pytest.raises(TypeError):  # bf16 inputs: the kernels read f32 only
+        tp_aggregate.tp_aggregate(tp, x.bfloat16(), sh.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError):  # wrong channel count
+        tp_aggregate.tp_aggregate(tp, x, sh, w[..., :-1].contiguous())

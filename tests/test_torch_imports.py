@@ -26,9 +26,37 @@ def _imports(path):
             yield node.module
 
 
+#: the modules of the training slice, all under the no-JAX rule above
+TRAINING_MODULES = [
+    "ops/tp_aggregate.py", "data/transforms.py", "data/dataset.py", "data/loaders.py",
+    "train/losses.py", "train/state.py", "utils/logging.py", "cli/train.py",
+    "cli/profile_train_step.py",
+]
+
+
 def test_sources_found():
     assert len(SOURCES) > 20
     assert any(p.endswith(os.path.join("ops", "tp_fused.py")) for p in SOURCES)
+    rel = {os.path.relpath(p, os.path.join(REPO, "diffphore_torch")) for p in SOURCES}
+    assert set(TRAINING_MODULES) <= rel
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_import_without_a_gpu(module):
+    """Importing builds no kernel and needs neither nvcc nor a card."""
+    import importlib
+
+    name = "diffphore_torch." + module[:-3].replace("/", ".")
+    assert importlib.import_module(name).__name__ == name
+
+
+def test_kernel_sources_use_no_float_atomics():
+    """Every output element is written once by one thread, so that reruns
+    agree to the bit: no atomic adds in the CUDA sources."""
+    for path in sorted(glob.glob(os.path.join(REPO, "diffphore_torch", "csrc", "*.cu"))):
+        with open(path) as f:
+            code = "\n".join(line.split("//")[0] for line in f)
+        assert "atomic" not in code, path
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))

@@ -1,0 +1,134 @@
+"""K2's plain version (``diffphore_torch.ops.tp_aggregate``) against the JAX
+package: the Pallas kernel ``tp_aggregate_pallas`` in interpret mode, the
+einsum form ``ChannelwiseTP.aggregate``, and ``jax.grad`` of the latter for
+the gradients that the CUDA backward kernels are held against on the card.
+Everything is f32; tolerances are relative to each result's scale and cover
+summation order only."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from diffphore_torch.ops import tp_aggregate, tp_fused
+from diffphore_torch.ops.tensor_product import channelwise_tp as t_channelwise_tp
+from diffphore_tpu.ops.pallas.tp_aggregate import tp_aggregate_pallas
+from diffphore_tpu.ops.tensor_product import channelwise_tp as j_channelwise_tp
+
+from torch_port_helpers import assert_close
+
+torch.set_num_threads(1)
+
+SH = "1x0e + 1x1o + 1x2e"
+SEQ = ["8x0e", "8x0e + 4x1o", "8x0e + 4x1o + 4x1e", "8x0e + 4x1o + 4x1e + 8x0o"]
+SIGNATURES = {
+    "layer0": (SEQ[0], SH, SEQ[1]),
+    "layer2": (SEQ[2], SH, SEQ[3]),
+    "layer3": (SEQ[3], SH, SEQ[3]),
+    "final_conv": (SEQ[3], SH, "2x1o + 2x1e"),
+    "tor_bond_conv": (SEQ[3], "1x1o + 1x0e + 1x1e", "8x0o + 8x0e"),
+}
+T = lambda a: torch.from_numpy(np.asarray(a).copy())
+
+
+def _inputs(sig, B, N, M, seed=0):
+    irr_in, irr_sh, irr_out = SIGNATURES[sig]
+    jtp = j_channelwise_tp(irr_in, irr_sh, irr_out)
+    ttp = t_channelwise_tp(irr_in, irr_sh, irr_out)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, M, jtp.irreps_in.dim)).astype(np.float32)
+    sh = rng.normal(size=(B, N, M, jtp.irreps_sh.dim)).astype(np.float32)
+    w = rng.normal(size=(B, N, M, jtp.weight_numel)).astype(np.float32)
+    w *= rng.random((B, N, M, 1)) > 0.3          # pre-masked edge weights
+    return jtp, ttp, x, sh, w
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+@pytest.mark.parametrize("N", [12, 13])        # 13: not a multiple of tile_n = 4
+def test_plain_matches_pallas_kernel_in_interpret_mode(sig, N):
+    """1e-5 of the output scale: both sum M = 24 f32 products per element."""
+    jtp, ttp, x, sh, w = _inputs(sig, 2, N, 24)
+    ref = tp_aggregate_pallas(jtp, jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w),
+                              tile_n=4, interpret=True)
+    got = tp_aggregate.tp_aggregate(ttp, T(x), T(sh), T(w))      # CPU tensors: plain version
+    assert got.shape == (2, N, ttp.weight_numel, tp_fused.K_PAD)
+    assert_close(got, ref, 1e-5, f"{sig} N={N}")
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+def test_plain_matches_aggregate_blocks(sig):
+    """Split back into irrep blocks it is ChannelwiseTP.aggregate (1e-5),
+    and the lanes beyond 2*l_out+1 are zero."""
+    jtp, ttp, x, sh, w = _inputs(sig, 3, 7, 9, seed=1)
+    want = jtp.aggregate(jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w))
+    padded = tp_aggregate.tp_aggregate_plain(ttp, T(x), T(sh), T(w))
+    got = tp_fused.blocks_from_padded(ttp, padded)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert (g is None) == (wv is None)
+        if g is not None:
+            assert_close(g, wv, 1e-5, sig)
+    for p in ttp.paths:
+        assert float(padded[:, :, p.w_slice[0]:p.w_slice[1], 2 * p.l_out + 1:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+def test_plain_gradients_match_jax_grad(sig):
+    """d/dx, d/dsh, d/dw of <aggregate, g> for a seeded upstream gradient g:
+    autograd through the plain version against jax.grad of
+    ChannelwiseTP.aggregate, 2e-5 of each gradient's scale."""
+    jtp, ttp, x, sh, w = _inputs(sig, 2, 6, 10, seed=2)
+    rng = np.random.default_rng(3)
+    want_blocks = jtp.aggregate(jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w))
+    gs = [None if b is None else rng.normal(size=b.shape).astype(np.float32) for b in want_blocks]
+
+    def jloss(x_, sh_, w_):
+        blocks = jtp.aggregate(x_, sh_, w_)
+        return sum((b * g).sum() for b, g in zip(blocks, gs) if b is not None)
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w))
+
+    leaves = [T(v).requires_grad_(True) for v in (x, sh, w)]
+    blocks = tp_fused.blocks_from_padded(ttp, tp_aggregate.tp_aggregate(ttp, *leaves))
+    loss = sum((b * T(g)).sum() for b, g in zip(blocks, gs) if b is not None)
+    got = torch.autograd.grad(loss, leaves)
+    for name, g, r in zip(("dx", "dsh", "dw"), got, ref):
+        assert_close(g, r, 2e-5, f"{sig} {name}")
+
+
+def test_backward_tables_cover_every_input_element():
+    """The dx kernel's reader lists: every (channel, component) appears once,
+    under the input element it reads."""
+    ttp = t_channelwise_tp(*SIGNATURES["layer3"])
+    chan, _ = tp_fused._tables(ttp)
+    ptab, d_ptr, d_item = tp_aggregate._backward_tables(ttp)
+    assert d_ptr[0] == 0 and d_ptr[-1] == len(d_item) == int(chan[:, 1].sum())
+    seen = set()
+    for d in range(ttp.irreps_in.dim):
+        for it in d_item[d_ptr[d]:d_ptr[d + 1]]:
+            f, i = divmod(int(it), 4)
+            assert chan[f, 0] + i == d and i < chan[f, 1]
+            seen.add((f, i))
+    assert len(seen) == len(d_item)
+    for q, p in enumerate(ttp.paths):
+        assert tuple(ptab[q]) == (p.w_slice[0], p.mul_in, 2 * p.l_sh + 1, 2 * p.l_out + 1)
+
+
+def test_fused_plain_stays_differentiable_on_cpu():
+    """K1's CUDA launch refuses grad-requiring inputs; its plain version on
+    CPU tensors keeps working under autograd."""
+    ttp = t_channelwise_tp(*SIGNATURES["layer0"])
+    rng = np.random.default_rng(4)
+    B, N, M, E, H = 1, 3, 4, 6, 5
+    x = T(rng.normal(size=(B, M, ttp.irreps_in.dim)).astype(np.float32))
+    sh = T(rng.normal(size=(B, N, M, 9)).astype(np.float32))
+    attr = T(rng.normal(size=(B, N, M, E)).astype(np.float32))
+    mask = torch.ones(B, N, M, dtype=torch.bool)
+    w1 = T(rng.normal(size=(E, H)).astype(np.float32)).requires_grad_(True)
+    b1, b2 = torch.zeros(H), torch.zeros(ttp.weight_numel)
+    w2 = T(rng.normal(size=(H, ttp.weight_numel)).astype(np.float32))
+    out = tp_fused.tp_aggregate_fused(ttp, x, sh, [attr], [mask], w1, b1, w2, b2)
+    (grad,) = torch.autograd.grad(out.sum(), [w1])
+    assert grad.shape == w1.shape and float(grad.abs().max()) > 0

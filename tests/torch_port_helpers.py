@@ -136,3 +136,51 @@ def assert_close(port, ref, rtol: float, what: str = ""):
     scale = max(float(np.abs(ref).max()) if ref.size else 0.0, 1.0)
     err = float(np.abs(port - ref).max()) if ref.size else 0.0
     assert err <= rtol * scale, f"{what}: max |port - ref| {err:.3e} > {rtol} * {scale:.3e}"
+
+
+def noise_draws(key, B: int, T: int, reject: bool = False):
+    """The draws of diffphore_tpu.data.transforms.apply_noise(batch, key, ...),
+    raw (before the sigmas scale them), as the port's NoiseDraws."""
+    from diffphore_torch.data.transforms import MAX_REJECT_TRIES, NoiseDraws
+
+    K = MAX_REJECT_TRIES if reject else 1
+    k_t, k_tr, k_rot, k_tor, k_rej = jax.random.split(key, 5)
+    k_axis, k_angle = jax.random.split(k_rot)          # so3.sample_vec's split
+    t = lambda x: torch.from_numpy(np.asarray(x).copy())
+    return NoiseDraws(
+        t=t(jax.random.uniform(k_t, (B,))),
+        z_tr=t(jax.random.normal(k_tr, (K, B, 3))),
+        rot_axis=t(jax.random.normal(k_axis, (K, B, 3))),
+        rot_u=t(jax.random.uniform(k_angle, (K, B))),
+        z_tor=t(jax.random.normal(k_tor, (K, B, T))),
+        reject_u=t(jax.random.uniform(k_rej, (2, K, B))) if reject else None)
+
+
+def train_step_draws(key, B: int, T: int, reject: bool = False):
+    """The noise of one diffphore_tpu.train.state train step called with
+    ``key`` (it splits off the dropout key first)."""
+    k_noise, _ = jax.random.split(key)
+    return noise_draws(k_noise, B, T, reject)
+
+
+def port_leaves(tree) -> dict:
+    """A flax params (or gradient, or EMA) tree as {port parameter name:
+    tensor}, in the port's orientation."""
+    return convert_variables({"params": jax.tree_util.tree_map(np.asarray, dict(tree))})
+
+
+def port_train_state(jstate, tcfg, lr: float = 1e-3, weight_decay: float = 0.0):
+    """A JAX TrainState's params and batch stats as a port TrainState (CPU)."""
+    from diffphore_torch.train.state import create_train_state
+
+    model = port_model(tcfg, {"params": jstate.params, "batch_stats": jstate.batch_stats})
+    return create_train_state(tcfg, lr=lr, weight_decay=weight_decay, device="cpu", model=model)
+
+
+def load_pair_batch(paths):
+    """(JAX batch, port batch) of several cached complexes of one bucket."""
+    from diffphore_tpu.data.graphs import concat_batches
+
+    jb = concat_batches([load_complex(p) for p in paths]).replace(names=(), meta=())
+    tb = tgraphs.concat_batches([tgraphs.load_cached(p) for p in paths])
+    return jax.tree_util.tree_map(jnp.asarray, jb), tb.replace(names=(), meta=())
