@@ -17,21 +17,35 @@ Phases, each fatal on failure:
      fitness; K1 must launch exactly 23 x 20 times per dispatch; poses and
      scores must be finite; one complex is sampled again with the plain
      convs and the same noise, and one forward is compared.
-  5. K2 check: capture (tp, x, sh, w) of the 23 unfused conv calls of one
+     Then the other sampler modes on one complex: the ODE, and
+     ``random_samples = 4`` with the fitness as selector.
+  5. K2 and K3 check: capture the aggregate calls of the 23 convs of one
      training-mode forward (corpus2 weights, 24 complexes of the 24x96x8
-     bucket, noised); hold K2's forward kernel and both backward kernels
-     (``tp_aggregate``: dw + dsh per edge, dx per sender) against the plain
-     version and autograd through it, require two runs to agree to the bit,
-     and time kernels and plain with CUDA events.
+     bucket, noised): 17 convs on K2 (``tp_aggregate``), the 6 layer-0 convs
+     on K3 (``tp_scalar``), two paths each.  Hold every forward and backward
+     kernel (K2: dw + dsh per edge, dx per sender; K3: dw, dsh, dx) against
+     the plain version and autograd through it, require two runs to agree to
+     the bit, and time kernels, plain and, for K3, the one einsum call with
+     CUDA events.
   6. training path: (c) one train step with the kernels against the same
      step with the plain convs, same noise and dropout masks: loss and every
      parameter gradient; (b) 30 steps on one fixed batch with fixed noise and
-     dropout on: the loss falls, K2 launches 23 forward + 23 + 23 backward
-     per step and K1 none; (a) ``diffphore_torch.cli.train.main``: fresh
-     corpus2-width model, batch 24, one epoch over 240 cached complexes (10
-     steps), one validation-loss epoch over 20 (K1, 23 launches), finite
-     metrics, a checkpoint that reloads.
-  7. report: the kernels' JSON line, the card line, and the result line.
+     dropout on: the loss falls; per step K2 launches 17 forward + 17 + 17
+     backward, K3 12 forward + 12 dw + 4 dsh + 12 dx, and K1 none; (a)
+     ``diffphore_torch.cli.train.main``: fresh corpus2-width model, batch 24,
+     one epoch over 240 cached complexes (10 steps), one validation-loss
+     epoch over 20 (K1, 23 launches), finite metrics, a checkpoint that
+     reloads.
+  7. calibrated-sampler path: (c) one step of the calibrated-conformation
+     sampler's train step with the kernels against the same step with the
+     plain convs, same draws: from fresh weights the loss and every gradient
+     leaf, from the shipped weights the frozen stage and the loss; (a) a
+     fine-tune through
+     ``cli.train.main`` with ``--rate_from_infer 0.6 --epoch_from_infer 0``:
+     one epoch over the same 240 complexes; per step K1 launches 23 times
+     (the frozen reverse step), K2 and K3 as in 6; finite losses, the share
+     of graphs on the calibrated branch near 0.6 P(t > 0.05).
+  8. report: the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -87,6 +101,31 @@ TOL_K2 = 1e-4
 # hold rounding noise there.
 TOL_STEP_GRAD = 1e-3
 TOL_STEP_FLOOR = 5e-6
+# K3's kernels against the einsum and autograd through it, f32 on both sides,
+# as K2: they differ by summation order only.
+TOL_K3 = 1e-4
+
+# Per train step: 17 convs run K2 (forward, edge backward, sender backward),
+# the 6 layer-0 convs run K3 with two paths each: 12 forward, 12 dw, 12 dx,
+# and dsh for the 2 paths of the 2 cross-graph convs whose edge vectors carry
+# learned weights (phore_to_lig_conv_0, lig_to_phore_conv_0).
+K2_CONVS = 17
+K3_CALLS = 12
+K3_DSH_CALLS = 4
+CC_RATE = 0.6               # --rate_from_infer of the shipped recipe
+CC_DELTA_T = 0.05
+# The frozen stage of a calibrated step from the shipped weights, K1 against
+# the plain convs: the stepped and rebuilt poses (A) and the targets (relative
+# to their scale) differ by f32 rounding carried through one pose update and
+# two Kabsch alignments.
+TOL_CC_POS = 1e-4
+TOL_CC_TARGET = 1e-4
+# Share of graphs on the calibrated branch over one epoch of 240: binomial
+# around CC_RATE * P(t > delta_t) = 0.57 with sigma 0.032; four sigma.
+CC_SHARE_BAND = 0.13
+# random_samples = 4 against 1 on 40 poses of one complex: the median fitness
+# of 40 poses spreads by a few hundredths between noise draws.
+TOL_CANDIDATE_MEDIAN = 0.1
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32 (non
 # tensor-core) operations/s.
@@ -252,36 +291,46 @@ def k2_work(tp, x, sh, w, with_dsh):
 
 
 def capture_training_convs(model, batch):
-    """(name, tp, x, sh, w, sh needs grad) of every K2 call of one
-    training-mode forward."""
+    """The aggregate calls of one training-mode forward: (name, tp, x, sh, w,
+    sh needs grad) of every K2 call and of every K3 (conv-level) call."""
     import torch
 
     from diffphore_torch.models.layers import DenseTPConv
-    from diffphore_torch.ops import tp_aggregate
+    from diffphore_torch.ops import tp_aggregate, tp_scalar
 
-    names, calls = [], []
+    names, k2_calls, k3_calls = [], [], []
     hooks = [mod.register_forward_pre_hook(lambda m, args, name=name: names.append(name))
              for name, mod in model.named_modules() if isinstance(mod, DenseTPConv)]
-    original = tp_aggregate.tp_aggregate
+    originals = (tp_aggregate.tp_aggregate, tp_scalar.scalar_paths_aggregate)
 
-    def recorder(tp, x, sh, w):
-        calls.append((names[-1], tp, x.detach(), sh.detach(), w.detach(), sh.requires_grad))
-        return original(tp, x, sh, w)
+    def recorder(calls, original):
+        def record(tp, x, sh, w):
+            calls.append((names[-1], tp, x.detach(), sh.detach(), w.detach(), sh.requires_grad))
+            return original(tp, x, sh, w)
+        return record
 
-    tp_aggregate.tp_aggregate = recorder
+    tp_aggregate.tp_aggregate = recorder(k2_calls, originals[0])
+    tp_scalar.scalar_paths_aggregate = recorder(k3_calls, originals[1])
     try:
         model.train()
         out = model(batch)
     finally:
-        tp_aggregate.tp_aggregate = original
+        tp_aggregate.tp_aggregate, tp_scalar.scalar_paths_aggregate = originals
         for h in hooks:
             h.remove()
         model.eval()
     if not all(bool(torch.isfinite(o).all()) for o in out):
         raise AssertionError("training-mode forward is not finite")
-    if len(calls) != CONVS_PER_FORWARD:
-        raise RuntimeError(f"captured {len(calls)} K2 calls, expected {CONVS_PER_FORWARD}")
-    return calls
+    k3_paths = sum(len(c[1].paths) for c in k3_calls)
+    if (len(k2_calls), k3_paths) != (K2_CONVS, K3_CALLS) \
+            or len(k2_calls) + len(k3_calls) != CONVS_PER_FORWARD:
+        raise RuntimeError(f"captured {len(k2_calls)} K2 calls and {k3_paths} K3 path calls of "
+                           f"{len(k3_calls)} convs, expected {K2_CONVS} and {K3_CALLS} of "
+                           f"{CONVS_PER_FORWARD - K2_CONVS}")
+    if sum(len(c[1].paths) for c in k3_calls if c[5]) != K3_DSH_CALLS:
+        raise RuntimeError("the layer-0 convs whose harmonics need a gradient are not the "
+                           f"{K3_DSH_CALLS // 2} expected")
+    return k2_calls, k3_calls
 
 
 def phase_k2_check(calls):
@@ -375,43 +424,207 @@ def k2_kernel_entries(cases, launches):
             "bound_ms": sum(c["bound"][k][0] for c in cases),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
             "library_ms": None,
-            "unit": "one train step: the 23 conv calls, each timed alone",
+            "unit": "one train step: the 17 conv calls, each timed alone",
         })
     return entries
 
 
-def kernel_counts():
-    from diffphore_torch.ops import tp_aggregate, tp_fused
+K3_KERNELS = ("fwd", "bwd_w", "bwd_sh", "bwd_x")
+# The one PyTorch call that computes each K3 kernel's function (operands in
+# the order x, sh, w, g); timed beside the kernel, used nowhere in the port.
+K3_EINSUM = {"fwd": ("bmu,bnmk,bnmu->bnuk", "x sh w"), "bwd_w": ("bmu,bnmk,bnuk->bnmu", "x sh g"),
+             "bwd_sh": ("bmu,bnmu,bnuk->bnmk", "x w g"), "bwd_x": ("bnmk,bnmu,bnuk->bmu", "sh w g")}
 
-    return {"k1": tp_fused.KERNEL.launches, "fwd": tp_aggregate.FWD.launches,
-            "bwd_edge": tp_aggregate.BWD_EDGE.launches, "bwd_x": tp_aggregate.BWD_X.launches}
+
+def k3_work(x, sh, w):
+    """{kernel: (bytes, f32 operations)} that K3's four kernels need on one
+    path's views: each operand read once, each result written once; products
+    with an edge weight counted on edges whose weights are not all zero, dw
+    on every edge (it is defined where w is masked too)."""
+    B, N, M, K = sh.shape
+    U = x.shape[-1]
+    edges = B * N * M
+    live = int((w != 0).any(-1).sum())
+    x_b, sh_b, w_b, out_b = 4 * B * M * U, 4 * edges * K, 4 * edges * U, 4 * B * N * U * K
+    per_edge = U * (2 * K + 1)           # one product x * w (or x * t), K multiply-adds
+    return {
+        "fwd": (x_b + sh_b + w_b + out_b, live * per_edge),
+        "bwd_w": (x_b + sh_b + out_b + w_b, edges * per_edge),
+        "bwd_sh": (x_b + w_b + out_b + sh_b, live * per_edge),
+        "bwd_x": (sh_b + w_b + out_b + x_b, live * (per_edge + U)),
+    }
+
+
+def phase_k3_check(calls):
+    """Hold K3's kernels against the plain version on every (conv, path) call
+    of the captured layer-0 convs, on the views the conv hands over."""
+    import torch
+
+    from diffphore_torch.ops import tp_scalar as k3
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    cases = []
+    for name, tp, x_full, sh_full, w_full, sh_grad in calls:
+        B, N, M, _ = sh_full.shape
+        g_full = torch.randn((B, N, tp.weight_numel, 4), generator=gen, device="cuda")
+        for p, (x, sh, w) in zip(tp.paths, k3.path_views(tp, x_full, sh_full, w_full)):
+            K, U = sh.shape[-1], x.shape[-1]
+            g = g_full[:, :, p.w_slice[0]:p.w_slice[1], :K]
+            if w.is_contiguous() or (K > 1 and sh.is_contiguous()):
+                raise AssertionError(f"{name}: the path's operands are copies, not views")
+            leaves = [t.clone().requires_grad_(True) for t in (x, sh, w)]
+            ref = k3.scalar_path_aggregate_plain(*leaves)
+            ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
+            runs = []
+            for _ in range(2):
+                runs.append((k3.launch_forward(x, sh, w), k3.launch_backward_x(sh, w, g),
+                             k3.launch_backward_sh(x, w, g), k3.launch_backward_w(x, sh, g)))
+            torch.cuda.synchronize()
+            errs = {}
+            for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
+                                               (ref.detach(), ref_dx, ref_dsh, ref_dw)):
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} path {p.l_sh}: two runs of {label} differ")
+                scale, err = float(want.abs().max()), float((got - want).abs().max())
+                if not err <= TOL_K3 * max(scale, 1e-30):
+                    raise AssertionError(
+                        f"{name} path l={p.l_sh}: {label} |kernel - plain| {err} > {TOL_K3} * {scale}")
+                errs[label] = (err, scale)
+
+            ops = {"x": x, "sh": sh, "w": w, "g": g}
+            ms = {
+                "fwd": cuda_ms(lambda: k3.launch_forward(x, sh, w), 20),
+                "bwd_w": cuda_ms(lambda: k3.launch_backward_w(x, sh, g), 20),
+                "bwd_sh": cuda_ms(lambda: k3.launch_backward_sh(x, w, g), 20),
+                "bwd_x": cuda_ms(lambda: k3.launch_backward_x(sh, w, g), 20),
+            }
+            with torch.no_grad():
+                plain_fwd = cuda_ms(lambda: k3.scalar_path_aggregate_plain(x, sh, w), 5)
+                library = {k: cuda_ms(lambda eq=eq, names=names: torch.einsum(
+                    eq, *(ops[n] for n in names.split())), 5) for k, (eq, names) in K3_EINSUM.items()}
+            plain = {"fwd": plain_fwd}
+            for k, leaf in (("bwd_x", leaves[0]), ("bwd_sh", leaves[1]), ("bwd_w", leaves[2])):
+                plain[k] = cuda_ms(lambda leaf=leaf: torch.autograd.grad(ref, [leaf], g,
+                                                                         retain_graph=True), 5)
+            bound = {}
+            for k, (nbytes, nops) in k3_work(x, sh, w).items():
+                t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
+                bound[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+            cases.append({"conv": name, "B": B, "N": N, "M": M, "U": U, "K": K, "dsh": sh_grad,
+                          "errs": errs, "ms": ms, "plain_ms": plain, "library_ms": library,
+                          "bound": bound})
+            print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} U={U:2d} K={K} dsh={int(sh_grad)} "
+                  f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
+                  f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
+                  f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}) | ms kernel/plain/einsum/bound: "
+                  + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{library[k]:.4f}/"
+                             f"{bound[k][0]:.4f}({bound[k][1][0]})" for k in K3_KERNELS), flush=True)
+            del ref, leaves, runs
+    return cases
+
+
+def k3_kernel_entries(cases, launches, launches_training):
+    """The report entries of K3's four kernels, summed over the calls one
+    train step makes (dsh over the calls whose harmonics need a gradient)."""
+    labels = {"fwd": "out", "bwd_w": "dw", "bwd_sh": "dsh", "bwd_x": "dx"}
+    entries = []
+    for k, output in labels.items():
+        used = [c for c in cases if k != "bwd_sh" or c["dsh"]]
+        by = {"bytes": 0.0, "operations": 0.0}
+        for c in used:
+            by[c["bound"][k][1]] += c["bound"][k][0]
+        entries.append({
+            "name": f"tp_scalar_{k}",
+            "route": "cuda",
+            "source": "diffphore_torch/csrc/tp_scalar.cu",
+            "replaces": "diffphore_tpu/ops/pallas/tp_scalar.py:43",
+            "launches": launches[f"k3_{k}"],
+            "launches_training_path": launches_training[f"k3_{k}"],
+            "max_abs_err": max(c["errs"][output][0] for c in cases),
+            "max_rel_err": max(c["errs"][output][0] / max(c["errs"][output][1], 1e-30)
+                               for c in cases),
+            "ms": sum(c["ms"][k] for c in used),
+            "plain_ms": sum(c["plain_ms"][k] for c in used),
+            "bound_ms": sum(c["bound"][k][0] for c in used),
+            "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
+            "library_ms": sum(c["library_ms"][k] for c in used),
+            "unit": f"one train step: the {len(used)} (conv, path) calls, each timed alone; "
+                    f"library_ms is torch.einsum('{K3_EINSUM[k][0]}') on the same views",
+        })
+    return entries
+
+
+def _counters():
+    from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
+
+    return {"k1": tp_fused.KERNEL, "fwd": tp_aggregate.FWD, "bwd_edge": tp_aggregate.BWD_EDGE,
+            "bwd_x": tp_aggregate.BWD_X, "k3_fwd": tp_scalar.FWD, "k3_bwd_w": tp_scalar.BWD_W,
+            "k3_bwd_sh": tp_scalar.BWD_SH, "k3_bwd_x": tp_scalar.BWD_X}
+
+
+def kernel_counts():
+    return {name: k.launches for name, k in _counters().items()}
 
 
 def reset_kernel_counts():
-    from diffphore_torch.ops import tp_aggregate, tp_fused
-
-    for k in (tp_fused.KERNEL, tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X):
+    for k in _counters().values():
         k.launches = 0
 
 
 def expect_counts(what, steps=0, eval_batches=0):
+    """``steps`` training forwards and backwards, ``eval_batches`` eval-mode
+    forwards (validation batches, or the frozen forward of a calibrated
+    step)."""
     got = kernel_counts()
-    want = {"k1": CONVS_PER_FORWARD * eval_batches, "fwd": CONVS_PER_FORWARD * steps,
-            "bwd_edge": CONVS_PER_FORWARD * steps, "bwd_x": CONVS_PER_FORWARD * steps}
+    want = {"k1": CONVS_PER_FORWARD * eval_batches, "fwd": K2_CONVS * steps,
+            "bwd_edge": K2_CONVS * steps, "bwd_x": K2_CONVS * steps,
+            "k3_fwd": K3_CALLS * steps, "k3_bwd_w": K3_CALLS * steps,
+            "k3_bwd_sh": K3_DSH_CALLS * steps, "k3_bwd_x": K3_CALLS * steps}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
     return got
 
 
+def compare_step_gradients(what, results):
+    """(loss, gradients by name) of a step with the kernels against the same
+    step with the plain convs."""
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    floor = TOL_STEP_FLOOR * max(float(g.abs().max()) for g in grads_p.values() if g.numel())
+    worst = 0.0          # over the leaves whose gradient stands clear of the floor
+    for name, gp in grads_p.items():
+        if not gp.numel():
+            continue
+        scale, err = float(gp.abs().max()), float((grads_k[name] - gp).abs().max())
+        if not err <= TOL_STEP_GRAD * scale + floor:
+            raise AssertionError(f"{what}: gradient of {name}: |kernel - plain| {err} > "
+                                 f"{TOL_STEP_GRAD} * {scale} + {floor}")
+        if scale >= 100 * floor:
+            worst = max(worst, err / scale)
+    if not abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p):
+        raise AssertionError(f"{what}: loss: kernel {loss_k} vs plain {loss_p}")
+    print(f"{what}, kernels vs plain convs, same draws: loss {loss_k:.6f} vs {loss_p:.6f}; "
+          f"{len(grads_p)} gradient leaves within {TOL_STEP_GRAD} of their scale "
+          f"(worst |kernel - plain| / max|plain| of a leaf clear of the noise floor: "
+          f"{worst:.2e})", flush=True)
+
+
+def set_use_kernel(model, use_kernel):
+    from diffphore_torch.models.layers import DenseTPConv
+
+    for m in model.modules():
+        if isinstance(m, DenseTPConv):
+            m.use_kernel = use_kernel
+
+
 def phase_training(cfg, train_batch, card):
-    """(c), (b) and (a) of the training path; returns K2's launch counts of
-    the CLI run and K1's of its validation batch."""
+    """(c), (b) and (a) of the training path; returns the launch counts of
+    the CLI run (K2 and K3 of its steps, K1 of its validation batch)."""
     import numpy as np
     import torch
 
     from diffphore_torch.cli import train as train_cli
     from diffphore_torch.data.transforms import draw_noise
-    from diffphore_torch.models.layers import DenseTPConv
     from diffphore_torch.train.state import create_train_state, make_train_step
     from diffphore_torch.utils import checkpoints
 
@@ -425,9 +638,7 @@ def phase_training(cfg, train_batch, card):
     results = []
     for use_kernel in (True, False):
         state = create_train_state(cfg, seed=SEED, device="cuda")
-        for m in state.model.modules():
-            if isinstance(m, DenseTPConv):
-                m.use_kernel = use_kernel
+        set_use_kernel(state.model, use_kernel)
         drop = torch.Generator(device="cuda")
         drop.manual_seed(SEED + 1)
         reset_kernel_counts()
@@ -437,24 +648,7 @@ def phase_training(cfg, train_batch, card):
         results.append((float(metrics["loss"]),
                         {k: p.grad.clone() for k, p in state.model.named_parameters()}))
         del state
-    (loss_k, grads_k), (loss_p, grads_p) = results
-    floor = TOL_STEP_FLOOR * max(float(g.abs().max()) for g in grads_p.values() if g.numel())
-    worst = 0.0          # over the leaves whose gradient stands clear of the floor
-    for name, gp in grads_p.items():
-        if not gp.numel():
-            continue
-        scale, err = float(gp.abs().max()), float((grads_k[name] - gp).abs().max())
-        if not err <= TOL_STEP_GRAD * scale + floor:
-            raise AssertionError(f"step gradient of {name}: |kernel - plain| {err} > "
-                                 f"{TOL_STEP_GRAD} * {scale} + {floor}")
-        if scale >= 100 * floor:
-            worst = max(worst, err / scale)
-    if not abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p):
-        raise AssertionError(f"step loss: kernel {loss_k} vs plain {loss_p}")
-    print(f"train step, kernels vs plain convs, same draws: loss {loss_k:.6f} vs {loss_p:.6f}; "
-          f"{len(grads_p)} gradient leaves within {TOL_STEP_GRAD} of their scale "
-          f"(worst |kernel - plain| / max|plain| of a leaf clear of the noise floor: "
-          f"{worst:.2e})", flush=True)
+    compare_step_gradients("train step", results)
 
     # ---- (b) one fixed batch, fixed noise, dropout on
     state = create_train_state(cfg, seed=SEED, device="cuda")
@@ -482,18 +676,15 @@ def phase_training(cfg, train_batch, card):
     print(f"fixed batch of {B}, fixed noise, dropout {cfg.dropout}: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} over {FIXED_BATCH_STEPS} steps; {FIXED_BATCH_STEPS / elapsed:.2f} "
           f"steps/s, {B * FIXED_BATCH_STEPS / elapsed:.1f} complexes/s, peak memory "
-          f"{peak_fixed:.2f} GiB; per step K2 launches {CONVS_PER_FORWARD} forward + "
-          f"{CONVS_PER_FORWARD} edge backward + {CONVS_PER_FORWARD} sender backward, K1 0 "
-          f"({card})", flush=True)
+          f"{peak_fixed:.2f} GiB; per step K2 launches {K2_CONVS} forward + {K2_CONVS} edge "
+          f"backward + {K2_CONVS} sender backward, K3 {K3_CALLS} forward + {K3_CALLS} dw + "
+          f"{K3_DSH_CALLS} dsh + {K3_CALLS} dx, K1 0 ({card})", flush=True)
     del state
 
     # ---- (a) the training CLI: one epoch over cached complexes + a val-loss epoch
     with tempfile.TemporaryDirectory() as tmp:
-        for sub, src, n in (("train_smoke", TRAIN_CACHE_DIR, TRAIN_COMPLEXES),
-                            ("val_smoke", CACHE_DIR, VAL_COMPLEXES)):
-            os.makedirs(os.path.join(tmp, sub))
-            for f, _ in bucket_complexes(src, n):
-                shutil.copy(f, os.path.join(tmp, sub))
+        copy_bucket(TRAIN_CACHE_DIR, os.path.join(tmp, "train_smoke"), TRAIN_COMPLEXES)
+        copy_bucket(CACHE_DIR, os.path.join(tmp, "val_smoke"), VAL_COMPLEXES)
         run_dir = os.path.join(tmp, "run")
         reset_kernel_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -537,6 +728,174 @@ def phase_training(cfg, train_batch, card):
     return counts
 
 
+def copy_bucket(src, dst, n):
+    os.makedirs(dst)
+    for f, _ in bucket_complexes(src, n):
+        shutil.copy(f, dst)
+
+
+def phase_calibrated(cfg, train_batch, card):
+    """(c) and (a) of the calibrated-sampler path; returns the launch counts
+    of the CLI epoch."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.train.ccsampler import (ccsampler_apply_noise, draw_cc,
+                                                 make_ccsampler_train_step)
+    from diffphore_torch.train.state import create_train_state
+    from diffphore_torch.utils.checkpoints import BEST_EMA_MODEL, load_model_dir
+
+    B, T = train_batch.batch_size, train_batch.num_torsions
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    draws = draw_cc(B, T, gen, "cuda")
+    step = make_ccsampler_train_step(cfg, delta_t=CC_DELTA_T)
+
+    # ---- (c) one calibrated step, kernels against plain convs (the frozen
+    # forward's too), same draws and dropout masks.  Fresh weights, as the
+    # plain train step's check: every gradient leaf is held.  Shipped weights:
+    # the frozen stage (branch selection, poses, targets) and the loss are
+    # held; the gradients are printed, not held: with the trained weights and
+    # these draws one element of the model sits on a step function, and
+    # rounding noise of 1e-7 put on the plain route's own conv outputs moves
+    # the gradients by the same 2.2e-3 of the largest one, to five digits,
+    # while every conv output agrees to 5e-7 (PERF.md, section 6).
+    def state_of(weights, use_kernel):
+        if weights == "fresh":
+            state = create_train_state(cfg, seed=SEED, device="cuda")
+        else:
+            state = create_train_state(cfg, device="cuda",
+                                       model=load_model_dir(MODEL_DIR, device="cuda")[1])
+        set_use_kernel(state.model, use_kernel)
+        return state
+
+    for weights in ("fresh", "shipped"):
+        results, shares = [], []
+        for use_kernel in (True, False):
+            state = state_of(weights, use_kernel)
+            drop = torch.Generator(device="cuda")
+            drop.manual_seed(SEED + 5)
+            reset_kernel_counts()
+            state, metrics = step(state, train_batch, drop, p_from_infer=CC_RATE, draws=draws)
+            torch.cuda.synchronize()
+            on = 1 if use_kernel else 0
+            expect_counts(f"calibrated step, {weights} weights, use_kernel={use_kernel}",
+                          steps=on, eval_batches=on)
+            if float(metrics["grad_finite"]) != 1.0:
+                raise AssertionError(f"calibrated step, {weights} weights: the loss is not finite")
+            shares.append(float(metrics["cc_share"]))
+            results.append((float(metrics["loss"]),
+                            {k: p.grad.clone() for k, p in state.model.named_parameters()}))
+            del state
+        if shares[0] != shares[1] or not 0.0 < shares[0] < 1.0:
+            raise AssertionError(f"calibrated step, {weights} weights: branch shares {shares}")
+        what = (f"calibrated train step, {weights} weights ({shares[0]:.2f} of the graphs on "
+                f"the calibrated branch)")
+        if weights == "fresh":
+            compare_step_gradients(what, results)
+            continue
+        (loss_k, grads_k), (loss_p, grads_p) = results
+        if not abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p):
+            raise AssertionError(f"{what}: loss: kernel {loss_k} vs plain {loss_p}")
+        gmax = max(float(g.abs().max()) for g in grads_p.values() if g.numel())
+        worst = max(float((grads_k[k] - g).abs().max()) for k, g in grads_p.items() if g.numel())
+        stage = []
+        for use_kernel in (True, False):
+            model = state_of(weights, use_kernel).model.eval()
+            with torch.no_grad():
+                stage.append(ccsampler_apply_noise(train_batch, cfg.sigma_schedule, model, CC_RATE,
+                                                   CC_DELTA_T, cfg.no_torsion, draws=draws))
+        (nk, tk, uk), (npl, tpl, upl) = stage
+        pos_err = float((nk.lig_pos - npl.lig_pos).abs().max())
+        rel = {f: float((getattr(tk, f) - getattr(tpl, f)).abs().max()
+                        / getattr(tpl, f).abs().max())
+               for f in ("tr_score", "rot_score", "tor_score")}
+        if not torch.equal(uk, upl) or not torch.equal(nk.t, npl.t) or pos_err > TOL_CC_POS \
+                or max(rel.values()) > TOL_CC_TARGET:
+            raise AssertionError(f"{what}: frozen stage differs: positions {pos_err} A, "
+                                 f"targets {rel}")
+        print(f"{what}, kernels vs plain convs, same draws: loss {loss_k:.6f} vs {loss_p:.6f}; "
+              f"frozen stage: same branch per graph, poses within {pos_err:.1e} A, targets within "
+              f"{max(rel.values()):.1e} of their scale; worst gradient |kernel - plain| over the "
+              f"largest gradient {worst / gmax:.2e} (reported, not held)", flush=True)
+
+    # ---- (a) the training CLI: a fine-tune from the shipped weights with the
+    # calibrated step engaged from epoch 0
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_bucket(TRAIN_CACHE_DIR, os.path.join(tmp, "train_smoke"), TRAIN_COMPLEXES)
+        run_dir = os.path.join(tmp, "run")
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        train_cli.main([
+            "--cache_path", tmp, "--run_dir", run_dir, "--n_epochs", "1",
+            "--batch_size", str(TRAIN_BATCH), "--seed", str(SEED), "--val_inference_freq", "0",
+            "--ns", str(cfg.ns), "--nv", str(cfg.nv),
+            "--num_conv_layers", str(cfg.num_conv_layers), "--dropout", str(cfg.dropout),
+            "--lr", "0.0001", "--pretrain_model_pt", os.path.join(MODEL_DIR, BEST_EMA_MODEL),
+            "--rate_from_infer", str(CC_RATE), "--epoch_from_infer", "0", "--dynamic_coeff", "0",
+            "--delta_t", str(CC_DELTA_T)])
+        torch.cuda.synchronize()
+        steps = TRAIN_COMPLEXES // TRAIN_BATCH
+        counts = expect_counts("cli.train.main with --rate_from_infer", steps=steps,
+                               eval_batches=steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            (rec,) = [json.loads(line) for line in f]
+    keys = ("loss", "tr_loss", "rot_loss", "tor_loss")
+    if rec["steps"] != steps or rec["grad_finite"] != 1.0 or rec["p_from_infer"] != CC_RATE \
+            or not all(np.isfinite(rec[k]) for k in keys):
+        raise AssertionError(f"calibrated training metrics not as expected: {rec}")
+    expected_share = CC_RATE * (1.0 - CC_DELTA_T)
+    if not abs(rec["cc_share"] - expected_share) <= CC_SHARE_BAND:
+        raise AssertionError(f"share of graphs on the calibrated branch {rec['cc_share']}, "
+                             f"expected {expected_share} +- {CC_SHARE_BAND}")
+    rate = rec["steps"] / rec["epoch_time"]
+    print(f"cli.train.main --rate_from_infer {CC_RATE}: {rec['steps']} calibrated steps of batch "
+          f"{TRAIN_BATCH} in {rec['epoch_time']:.3f} s = {rate:.2f} steps/s, "
+          f"{rate * TRAIN_BATCH:.1f} complexes/s (data loading included), train loss "
+          f"{rec['loss']:.4f}, share of graphs on the calibrated branch {rec['cc_share']:.3f} "
+          f"(expected {expected_share:.3f} +- {CC_SHARE_BAND}), peak memory {peak:.2f} GiB; "
+          f"launches {counts}: per step K1 {counts['k1'] // steps}, K2 "
+          f"{counts['fwd'] // steps}+{counts['bwd_edge'] // steps}+{counts['bwd_x'] // steps}, "
+          f"K3 {counts['k3_fwd'] // steps} forward + {counts['k3_bwd_w'] // steps} dw + "
+          f"{counts['k3_bwd_sh'] // steps} dsh + {counts['k3_bwd_x'] // steps} dx ({card})",
+          flush=True)
+    return counts
+
+
+def phase_sampler_modes(cfg, model, job, card):
+    """The ODE and per-step candidate selection on one complex."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli.pipeline import FitEngine
+    from diffphore_torch.ops import tp_fused
+    from diffphore_torch.sampler.sampling import SamplerSettings
+
+    fits = {}
+    for label, kw in (("sde", {}), ("ode", {"ode": True}), ("random_samples=4",
+                                                            {"random_samples": 4})):
+        engine = FitEngine(cfg, model, samples_per_complex=POSES,
+                           settings=SamplerSettings(inference_steps=STEPS, **kw), seed=SEED,
+                           device="cuda")
+        tp_fused.KERNEL.launches = 0
+        (r,) = engine.run_complexes([job])
+        torch.cuda.synchronize()
+        if tp_fused.KERNEL.launches != CONVS_PER_FORWARD * STEPS:
+            raise AssertionError(f"{label}: K1 launched {tp_fused.KERNEL.launches} times")
+        if r["poses"].shape != (POSES, job.n_atoms, 3) or not np.isfinite(r["poses"]).all() \
+                or not np.isfinite(r["fitscore"]).all():
+            raise AssertionError(f"{label}: poses or fitness not finite")
+        fits[label] = np.asarray(r["fitscore"])
+    med = {k: float(np.median(v)) for k, v in fits.items()}
+    print(f"sampler modes, {job.name}, {POSES} poses x {STEPS} steps: median / best fitness "
+          + "; ".join(f"{k} {med[k]:.3f} / {fits[k].max():.3f}" for k in fits)
+          + f" ({card})", flush=True)
+    if not med["random_samples=4"] >= med["sde"] - TOL_CANDIDATE_MEDIAN:
+        raise AssertionError(f"candidate selection lowered the median fitness: {med}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -565,7 +924,7 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    built = build.build(["tp_fused", "tp_aggregate"])
+    built = build.build(["tp_fused", "tp_aggregate", "tp_scalar"])
     build_s = time.perf_counter() - t0
     for name, (path, log) in built.items():
         print(f"build: {name} -> {os.path.relpath(path, HERE)} in {build_s:.1f} s")
@@ -648,7 +1007,10 @@ def main() -> int:
     if not np.median(rmsd) <= TOL_RERUN_RMSD:
         raise AssertionError(f"kernel and plain runs diverge: median RMSD {np.median(rmsd)} A")
 
-    # ---- 5. K2 on the conv inputs of one training-mode forward
+    # the other sampler modes on the same complex
+    phase_sampler_modes(cfg, model, job, card)
+
+    # ---- 5. K2 and K3 on the conv inputs of one training-mode forward
     from diffphore_torch.data.graphs import concat_batches
     from diffphore_torch.data.transforms import apply_noise, draw_noise
 
@@ -660,16 +1022,23 @@ def main() -> int:
     with torch.no_grad():
         noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
     _, train_model = load_model_dir(MODEL_DIR, device="cuda")
-    print("kernel check: tp_aggregate forward and backward on the 23 conv calls of one "
-          "training-mode forward", flush=True)
-    k2_cases = phase_k2_check(capture_training_convs(train_model, noised))
-    del train_model, noised
+    k2_calls, k3_calls = capture_training_convs(train_model, noised)
+    print(f"kernel check: tp_aggregate forward and backward on the {K2_CONVS} conv calls it "
+          "takes of one training-mode forward", flush=True)
+    k2_cases = phase_k2_check(k2_calls)
+    print(f"kernel check: tp_scalar forward and backward on the {K3_CALLS} (conv, path) calls of "
+          "the layer-0 convs of the same forward", flush=True)
+    k3_cases = phase_k3_check(k3_calls)
+    del train_model, noised, k2_calls, k3_calls
     torch.cuda.empty_cache()
 
     # ---- 6. training path
     train_counts = phase_training(cfg, train_batch, card)
 
-    # ---- 7. report
+    # ---- 7. calibrated-sampler path
+    cc_counts = phase_calibrated(cfg, train_batch, card)
+
+    # ---- 8. report
     kernel = {
         "name": "tp_fused",
         "route": "cuda",
@@ -677,6 +1046,7 @@ def main() -> int:
         "replaces": "diffphore_tpu/ops/pallas/tp_fused.py:115",
         "launches": launches,
         "launches_training_path": train_counts["k1"],
+        "launches_calibrated_path": cc_counts["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
         "ms": sum(c["ms"] for c in cases),
@@ -688,7 +1058,11 @@ def main() -> int:
         "library_ms": None,
         "unit": "one forward: the 23 conv calls, each timed alone",
     }
-    print(json.dumps({"kernels": [kernel] + k2_kernel_entries(k2_cases, train_counts)}))
+    k2_entries = k2_kernel_entries(k2_cases, train_counts)
+    for entry, k in zip(k2_entries, ("fwd", "bwd_edge", "bwd_x")):
+        entry["launches_calibrated_path"] = cc_counts[k]
+    print(json.dumps({"kernels": [kernel] + k2_entries
+                      + k3_kernel_entries(k3_cases, cc_counts, train_counts)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

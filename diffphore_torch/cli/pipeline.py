@@ -60,7 +60,8 @@ class FitEngine:
 
     def draw_noise(self, B: int, T: int) -> Tuple[PriorNoise, StepNoise]:
         return (draw_prior(B, T, self.generator, self.device),
-                draw_steps(self.settings.inference_steps, B, T, self.generator, self.device))
+                draw_steps(self.settings.steps, B, T, self.generator, self.device,
+                           self.settings.candidates))
 
     @torch.inference_mode()
     def run_batch(self, batch: ComplexBatch, ref: PhoreArrays, pose_group: int = 1,
@@ -71,13 +72,19 @@ class FitEngine:
         ``ref`` is row-batched; ``noise`` replays given draws."""
         cfg, settings = self.cfg, self.settings
         prior, steps = noise or self.draw_noise(batch.batch_size, batch.num_torsions)
-        b = randomize_position(batch, prior, cfg.tr_sigma_max)
-        b = reverse_diffusion(lambda x: self.model(x, pose_group=pose_group), b,
-                              cfg.sigma_schedule, settings, steps)
         vdw = torch.as_tensor(VDW_TABLE, device=batch.device)[batch.lig_feat[..., 0]]
-        scores = fitscore(b.lig_pos, b.lig_mask, batch.lig_scorer_fp, vdw, ref,
-                          count_fp=batch.lig_phorefp)
-        return b.lig_pos, scores
+
+        def score(b):
+            return fitscore(b.lig_pos, b.lig_mask, batch.lig_scorer_fp, vdw, ref,
+                            count_fp=batch.lig_phorefp)
+
+        # random_samples > 1: per-step candidate selection by the fitness
+        fitness_fn = ((lambda b: fitness_by_index(score(b), self.fitness))
+                      if settings.random_samples > 1 else None)
+        b = randomize_position(batch, prior, cfg.tr_sigma_max, settings.no_torsion)
+        b = reverse_diffusion(lambda x: self.model(x, pose_group=pose_group), b,
+                              cfg.sigma_schedule, settings, steps, fitness_fn=fitness_fn)
+        return b.lig_pos, score(b)
 
     def run_complexes(self, jobs: Sequence[ComplexJob],
                       noises: Optional[Sequence[Tuple[PriorNoise, StepNoise]]] = None

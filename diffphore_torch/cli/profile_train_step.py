@@ -1,19 +1,23 @@
 """Where the time of one training step goes on the GPU.
 
-    python -m diffphore_torch.cli.profile_train_step
+    python -m diffphore_torch.cli.profile_train_step [--rate_from_infer 0.6]
 
 Runs the train step (fresh corpus2-width model, dropout on, batch 24 of
 the 24 x 96 x 8 bucket of the training cache) on one fixed batch after
 warm-up steps, once timed by the host clock around a synchronized window
-and once under ``torch.profiler``.  Prints one JSON object: wall time per
-step, device-busy time and share (sum of kernel times over wall time), the
-time and launches of K2's three kernels, the number of kernel launches per
-step, peak memory, and the top kernels and host ops.  It needs a GPU and
-fails without one.
+and once under ``torch.profiler``.  With ``--rate_from_infer`` > 0 it is the
+calibrated-conformation-sampler step at that branch probability, from the
+shipped corpus2 weights (the frozen reverse step needs a trained model to
+be a fair load).  Prints one JSON object: wall time per step, device-busy
+time and share (sum of kernel times over wall time), the time and launches
+of K1, of K2's three kernels and of K3's four, the number of kernel launches
+per step, peak memory, and the top kernels and host ops.  It needs a GPU
+and fails without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import os
@@ -23,19 +27,34 @@ import time
 import torch
 
 from ..data.graphs import concat_batches, load_cached
-from ..ops import tp_aggregate
+from ..ops import tp_aggregate, tp_fused, tp_scalar
+from ..train.ccsampler import make_ccsampler_train_step
 from ..train.state import create_train_state, make_train_step
-from ..utils.checkpoints import load_config_yaml
+from ..utils.checkpoints import load_config_yaml, load_model_dir
 from .profile_main_path import MODEL_DIR, _ROOT, _device_us
 
 CACHE_DIR = os.path.join(_ROOT, "data", "cache", "train_f1112e7d33")
 BUCKET = (24, 96, 8)
 BATCH, WARMUP, TIMED, PROFILED = 24, 3, 10, 5
-K2_KERNELS = ("tp_aggregate_fwd_kernel", "tp_aggregate_bwd_edge_kernel",
-              "tp_aggregate_bwd_x_kernel")
+#: device kernel name -> the wrapper's launch counter
+KERNELS = {
+    "tp_fused_kernel": tp_fused.KERNEL,
+    "tp_aggregate_fwd_kernel": tp_aggregate.FWD,
+    "tp_aggregate_bwd_edge_kernel": tp_aggregate.BWD_EDGE,
+    "tp_aggregate_bwd_x_kernel": tp_aggregate.BWD_X,
+    "tp_scalar_fwd_kernel": tp_scalar.FWD,
+    "tp_scalar_bwd_w_kernel": tp_scalar.BWD_W,
+    "tp_scalar_bwd_sh_kernel": tp_scalar.BWD_SH,
+    "tp_scalar_bwd_x_kernel": tp_scalar.BWD_X,
+}
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--rate_from_infer", type=float, default=0.0,
+                        help="> 0: profile the calibrated-sampler step at this probability")
+    rate = parser.parse_args(argv).rate_from_infer
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -51,8 +70,16 @@ def main() -> dict:
         if len(rows) == BATCH:
             break
     batch = concat_batches(rows).replace(names=(), meta=()).to("cuda")
-    state = create_train_state(cfg, seed=0, device="cuda")
-    step = make_train_step(cfg)
+    if rate > 0:
+        _, model = load_model_dir(MODEL_DIR, device="cuda")
+        state = create_train_state(cfg, device="cuda", model=model)
+        cc_step = make_ccsampler_train_step(cfg)
+
+        def step(state, batch, gen):
+            return cc_step(state, batch, gen, p_from_infer=rate)
+    else:
+        state = create_train_state(cfg, seed=0, device="cuda")
+        step = make_train_step(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     for _ in range(WARMUP):
@@ -67,8 +94,7 @@ def main() -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    counters = (tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X)
-    before = [k.launches for k in counters]
+    before = {name: k.launches for name, k in KERNELS.items()}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
@@ -86,6 +112,7 @@ def main() -> dict:
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     out = {
         "card": card,
+        "step": f"calibrated sampler, rate_from_infer {rate}" if rate > 0 else "plain diffusion",
         "batch": BATCH, "atoms_phore_torsions": list(BUCKET), "dropout": cfg.dropout,
         "wall_ms_per_step": wall_ms,
         "steps_per_s": 1e3 / wall_ms,
@@ -94,9 +121,10 @@ def main() -> dict:
         "profiled_wall_ms_per_step": profiled_wall_ms,
         "device_busy_ms_per_step": busy_ms or None,
         "device_busy_share": busy_ms / wall_ms if busy_ms else None,
-        "k2_ms_per_step": {name: sum(_device_us(e) for e in kernels if name in e.key)
-                           / 1e3 / PROFILED for name in K2_KERNELS},
-        "k2_launches_per_step": [(k.launches - b) / PROFILED for k, b in zip(counters, before)],
+        "port_kernels_ms_per_step": {name: sum(_device_us(e) for e in kernels if name in e.key)
+                                     / 1e3 / PROFILED for name in KERNELS},
+        "port_kernels_launches_per_step": {name: (k.launches - before[name]) / PROFILED
+                                           for name, k in KERNELS.items()},
         "kernel_launches_per_step": sum(e.count for e in kernels) / PROFILED,
         "top_kernels": [[e.key[:80], _device_us(e) / 1e3 / PROFILED, e.count / PROFILED]
                         for e in sorted(kernels, key=_device_us, reverse=True)[:12]],

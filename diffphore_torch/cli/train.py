@@ -12,9 +12,19 @@ package's.
     python -m diffphore_torch.cli.train --cache_path data/cache \\
         --run_dir runs/try1 --n_epochs 5 --batch_size 24 --val_inference_freq 0
 
+With ``--rate_from_infer`` > 0 the epochs whose calibrated-branch
+probability stands clear of its floor run the calibrated-conformation-sampler
+step (``train.ccsampler``): a fine-tune from shipped weights that engages it
+from the first epoch is
+
+    python -m diffphore_torch.cli.train --cache_path data/cache \\
+        --run_dir runs/cc1 --n_epochs 5 --batch_size 24 --val_inference_freq 0 \\
+        --pretrain_model_pt runs/corpus2/main/best_ema_inference_epoch_model.msgpack \\
+        --rate_from_infer 0.6 --epoch_from_infer 0 --dynamic_coeff 0
+
 Not part of the port yet, and refused with a message that says so: datasets
-from raw files, the calibrated conformation sampler, validation by
-inference, the tank baseline and the confidence head.
+from raw files, validation by inference, the tank baseline and the
+confidence head.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from ..data.dataset import CachedDataset, cache_directories, warmup_subset
 from ..data.loaders import BucketLoader
 from ..device import resolve_device
 from ..models.score_model import ScoreModelConfig
+from ..train.ccsampler import dynamic_schedule, make_ccsampler_train_step
 from ..train.state import create_train_state, make_eval_step, make_train_step, set_learning_rate
 from ..utils import checkpoints, flat_yaml
 from ..utils.logging import AverageMeter, MetricsWriter, log_info
@@ -48,8 +59,6 @@ NOT_PORTED = (
     ("split_val", None, _FEATURIZATION), ("featurize_only", False, _FEATURIZATION),
     ("matching", False, _FEATURIZATION), ("ligand_only", False, _FEATURIZATION),
     ("phore_augment", 0, _FEATURIZATION), ("conf_augment", 0, _FEATURIZATION),
-    ("rate_from_infer", 0.0,
-     "the calibrated-conformation-sampler slice (train/ccsampler.py, sample_step, with K3)"),
     ("model_type", "diff", "the variants slice (train/tank.py)"),
     ("confidence_mode", False, "the confidence-head slice (models/confidence.py)"),
 )
@@ -104,7 +113,16 @@ def parse_args(argv=None):
                    help="curriculum rejection sampling of noise draws")
     p.add_argument("--reject_rate", type=float, default=0.3,
                    help="the reject probability grows to this over training")
-    p.add_argument("--rate_from_infer", type=float, default=0.0, help="not ported yet")
+    # calibrated conformation sampler
+    p.add_argument("--rate_from_infer", type=float, default=0.0,
+                   help="(plateau) probability of the calibrated branch per graph; 0 = off")
+    p.add_argument("--epoch_from_infer", type=int, default=300,
+                   help="first epoch of the calibrated branch (the schedule's u with "
+                        "--dynamic_coeff)")
+    p.add_argument("--dynamic_coeff", type=float, default=0.0,
+                   help="> 0: the probability follows the sigmoid dynamic schedule")
+    p.add_argument("--delta_t", type=float, default=0.05,
+                   help="the time the model's reverse step covers")
     # io / restart
     p.add_argument("--run_dir", type=str, default="runs/diffphore_torch")
     p.add_argument("--device", type=str, default=None,
@@ -191,6 +209,18 @@ def refuse_unported(args) -> None:
                 f"--{flag} is not part of the PyTorch port yet; it comes with {brings}")
 
 
+def cc_probability(args, epoch: int) -> float:
+    """The calibrated branch's probability per graph at ``epoch``: the
+    sigmoid schedule with --dynamic_coeff > 0, else --rate_from_infer from
+    --epoch_from_infer on."""
+    if args.rate_from_infer <= 0:
+        return 0.0
+    if args.dynamic_coeff > 0:
+        return dynamic_schedule(epoch, args.rate_from_infer, args.epoch_from_infer,
+                                args.dynamic_coeff)
+    return args.rate_from_infer if epoch >= args.epoch_from_infer else 0.0
+
+
 def build_datasets(args):
     """(train, val or None) over the cache directories under --cache_path."""
     train_dirs = cache_directories(args.cache_path, "train")
@@ -248,6 +278,15 @@ def main(argv=None) -> None:
                                device=str(device))
     step_fn = make_train_step(cfg, args.ema_rate, args.tr_weight, args.rot_weight,
                               args.tor_weight, reject=args.reject)
+    cc_step_fn = None
+    if args.rate_from_infer > 0:
+        cc_step_fn = make_ccsampler_train_step(cfg, args.ema_rate, args.tr_weight,
+                                               args.rot_weight, args.tor_weight, args.delta_t)
+    # The sigmoid schedule is positive from epoch 0, but the calibrated step
+    # runs a second forward for every row: it engages only above a floor,
+    # relative to the configured rate so that a small rate still engages once
+    # the schedule reaches half its plateau.
+    cc_floor = min(0.01, args.rate_from_infer / 2.0)
     log_info(f"Training on {device}: {len(train_ds)} complexes in {len(loader)} batches of "
              f"{args.batch_size}; convs compute in float32")
 
@@ -271,6 +310,7 @@ def main(argv=None) -> None:
     checkpoints.save_config_yaml(cfg, args.run_dir, extra={
         "n_epochs": args.n_epochs, "batch_size": args.batch_size, "lr": args.lr,
         "ema_rate": args.ema_rate, "rate_from_infer": args.rate_from_infer,
+        "epoch_from_infer": args.epoch_from_infer, "dynamic_coeff": args.dynamic_coeff,
     })
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed + start_epoch)
@@ -288,7 +328,10 @@ def main(argv=None) -> None:
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
-            meter = AverageMeter(list(TRAIN_KEYS) + ["grad_finite"])
+            p_cc = cc_probability(args, epoch)
+            use_cc = cc_step_fn is not None and p_cc > cc_floor
+            keys = TRAIN_KEYS + (("grad_finite", "cc_share") if use_cc else ("grad_finite",))
+            meter = AverageMeter(list(keys))
             t0 = time.time()
             # noise-rejection curriculum: the probability grows linearly over training
             rp = args.reject_rate * epoch / max(args.n_epochs, 1) if args.reject else 0.0
@@ -298,8 +341,10 @@ def main(argv=None) -> None:
             with profiler if profiler is not None else contextlib.nullcontext():
                 for batch in epoch_loader:
                     clean = batch.replace(names=(), meta=()).to(device)
-                    state, m = step_fn(state, clean, generator, rp)
-                    keys = TRAIN_KEYS + ("grad_finite",)
+                    if use_cc:
+                        state, m = cc_step_fn(state, clean, generator, p_cc)
+                    else:
+                        state, m = step_fn(state, clean, generator, rp)
                     row = torch.stack([m[k] for k in keys]).cpu().numpy()  # one transfer
                     meter.add(dict(zip(keys, row)))
                     steps += 1
@@ -310,7 +355,7 @@ def main(argv=None) -> None:
                 log_info(f"torch.profiler trace written to {trace}")
             summary = meter.summary()
             summary.update({"epoch": epoch, "lr": lr, "epoch_time": time.time() - t0,
-                            "steps": steps})
+                            "steps": steps, "p_from_infer": p_cc if use_cc else 0.0})
             log_info(f"epoch {epoch}: loss={summary.get('loss', float('nan')):.4f} "
                      f"tr={summary.get('tr_loss', 0):.3f} rot={summary.get('rot_loss', 0):.3f} "
                      f"tor={summary.get('tor_loss', 0):.3f} ({summary['epoch_time']:.1f}s)")

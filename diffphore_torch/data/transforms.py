@@ -49,28 +49,13 @@ def draw_noise(B: int, T: int, generator: Optional[torch.Generator], device,
                       z_tor=randn(K, B, T), reject_u=rand(2, K, B) if reject else None)
 
 
-def apply_noise(
-    batch,
-    schedule: SigmaSchedule,
-    generator: Optional[torch.Generator] = None,
-    draws: Optional[NoiseDraws] = None,
-    no_torsion: bool = False,
-    reject_prob: float = 0.0,
-) -> Tuple[object, ScoreTargets]:
-    """Noise a clean batch and return (noised batch, score targets):
-    tr_score = -tr / sigma^2, rot_score = the IGSO3 score at the drawn
-    rotation, tor_score = the wrapped-normal score at the drawn torsions.
-
-    ``reject_prob`` > 0 enables the curriculum rejection: with that
-    probability a draw whose normalized translation magnitude exceeds the
-    rotation or torsion magnitudes (or rotation exceeds torsion) is redrawn,
-    as MAX_REJECT_TRIES vectorized draws with first-accepted selection.
-    """
+def forward_updates(batch, schedule: SigmaSchedule, draws: NoiseDraws, no_torsion: bool = False,
+                    reject_prob: float = 0.0):
+    """The forward-diffusion updates the draws stand for: (t, (tr_sigma,
+    rot_sigma, tor_sigma), (tr (B,3), rot (B,3), tor (B,T))), after the
+    curriculum rejection when ``reject_prob`` > 0 and with masked torsions."""
     B = batch.lig_pos.shape[0]
-    T = batch.tor_edges.shape[1]
     reject = reject_prob > 0
-    if draws is None:
-        draws = draw_noise(B, T, generator, batch.device, reject)
     K = draws.z_tr.shape[0]
     if reject and draws.reject_u is None:
         raise ValueError("apply_noise: reject_prob > 0 needs draws made with reject=True")
@@ -107,12 +92,40 @@ def apply_noise(
     if no_torsion:
         tor_update = torch.zeros_like(tor_update)
     tor_update = tor_update * batch.tor_mask
+    return t, (tr_sigma, rot_sigma, tor_sigma), (tr_update, rot_update, tor_update)
 
-    noised = apply_pose_update(batch, tr_update, rot_update, tor_update).replace(t=t)
-    targets = ScoreTargets(
-        tr_score=-tr_update / tr_sigma[:, None] ** 2,
-        rot_score=so3.score_vec(rot_sigma, rot_update),
-        tor_score=torus.score(tor_update, tor_sigma[:, None]) * batch.tor_mask,
+
+def score_targets(sigmas, updates, tor_mask: torch.Tensor) -> ScoreTargets:
+    """The regression targets of updates drawn at the given sigmas:
+    tr_score = -tr / sigma^2, rot_score = the IGSO3 score at the rotation,
+    tor_score = the wrapped-normal score at the torsions."""
+    (tr_sigma, rot_sigma, tor_sigma), (tr, rot, tor) = sigmas, updates
+    return ScoreTargets(
+        tr_score=-tr / tr_sigma[:, None] ** 2,
+        rot_score=so3.score_vec(rot_sigma, rot),
+        tor_score=torus.score(tor, tor_sigma[:, None]) * tor_mask,
         tor_sigma=tor_sigma,
     )
-    return noised, targets
+
+
+def apply_noise(
+    batch,
+    schedule: SigmaSchedule,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[NoiseDraws] = None,
+    no_torsion: bool = False,
+    reject_prob: float = 0.0,
+) -> Tuple[object, ScoreTargets]:
+    """Noise a clean batch and return (noised batch, score targets).
+
+    ``reject_prob`` > 0 enables the curriculum rejection: with that
+    probability a draw whose normalized translation magnitude exceeds the
+    rotation or torsion magnitudes (or rotation exceeds torsion) is redrawn,
+    as MAX_REJECT_TRIES vectorized draws with first-accepted selection.
+    """
+    if draws is None:
+        draws = draw_noise(batch.lig_pos.shape[0], batch.tor_edges.shape[1], generator,
+                           batch.device, reject_prob > 0)
+    t, sigmas, updates = forward_updates(batch, schedule, draws, no_torsion, reject_prob)
+    noised = apply_pose_update(batch, *updates).replace(t=t)
+    return noised, score_targets(sigmas, updates, batch.tor_mask)

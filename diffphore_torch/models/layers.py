@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
-from ..ops import tp_aggregate, tp_fused
+from ..ops import tp_aggregate, tp_fused, tp_scalar
 from ..ops.irreps import parse
 from ..ops.tensor_product import channelwise_tp
 
@@ -178,8 +178,11 @@ class DenseTPConv(nn.Module):
     dropout and no backward.  Training mode: the edge MLP runs in PyTorch
     (relu - dropout between its layers, under autograd) and the sum over
     senders is K2 (:func:`diffphore_torch.ops.tp_aggregate.tp_aggregate`),
-    whose backward is a kernel too.  Either is the CUDA kernel for CUDA
-    tensors and its plain version for CPU tensors.  Setting
+    whose backward is a kernel too; a convolution whose paths all have
+    l_in = 0 (the layer-0 convolutions, scalars in) runs K3 instead, one
+    launch per path (:func:`diffphore_torch.ops.tp_scalar.scalar_paths_aggregate`).
+    Each is the CUDA kernel for CUDA tensors and its plain version for CPU
+    tensors.  Setting
     ``use_kernel = False`` runs the plain versions on any device (a
     comparison run; the main paths leave it on).  Several edge channels
     between the same pairs (ligand bond and radius edges) share the
@@ -230,8 +233,12 @@ class DenseTPConv(nn.Module):
             for a, m in zip(attrs, masks):
                 h = self.drop(torch.relu(a.to(f32) @ self.fc_w1 + self.fc_b1))
                 w = w + (h @ self.fc_w2 + self.fc_b2) * m.to(f32)[..., None]
-            aggregate = (tp_aggregate.tp_aggregate if self.use_kernel
-                         else tp_aggregate.tp_aggregate_plain)
+            if tp_scalar.all_scalar_paths(tp):
+                aggregate = (tp_scalar.scalar_paths_aggregate if self.use_kernel
+                             else tp_scalar.scalar_paths_aggregate_plain)
+            else:
+                aggregate = (tp_aggregate.tp_aggregate if self.use_kernel
+                             else tp_aggregate.tp_aggregate_plain)
             padded = aggregate(tp, x, sh, w.contiguous())
         else:
             aggregate = (tp_fused.tp_aggregate_fused if self.use_kernel

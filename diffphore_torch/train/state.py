@@ -63,6 +63,39 @@ def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     return state
 
 
+def optimize(state: TrainState, cfg: ScoreModelConfig, noised, targets, batch,
+             generator: Optional[torch.Generator], ema_decay: float, tr_weight: float,
+             rot_weight: float, tor_weight: float):
+    """The part of a train step after the noise: the forward in training mode
+    (dropout from ``generator``, batch statistics), the loss, the backward,
+    the NaN guard (a non-finite loss zeroes the gradients and keeps the step
+    count aligned), the optimizer update and the EMA blend.  Returns (state,
+    metrics); ``metrics`` are 0-d tensors on the device, ``grad_finite``
+    among them."""
+    model = state.model
+    model.train()
+    set_dropout_generator(model, generator)
+    state.optimizer.zero_grad(set_to_none=True)
+    preds = model(noised)
+    metrics = score_matching_loss(
+        preds, targets, noised.t, batch.tor_mask, cfg.sigma_schedule,
+        tr_weight, rot_weight, tor_weight, cfg.no_torsion, valid=batch.valid)
+    loss = metrics["loss"]
+    loss.backward()
+    with torch.no_grad():
+        ok = torch.isfinite(loss)
+        for p in model.parameters():
+            p.grad = (torch.zeros_like(p) if p.grad is None
+                      else torch.nan_to_num(p.grad) * ok)
+        state.optimizer.step()
+        for name, p in model.named_parameters():
+            state.ema_params[name].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+    state.step += 1
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_finite"] = ok.to(torch.float32)
+    return state, metrics
+
+
 def make_train_step(
     cfg: ScoreModelConfig,
     ema_decay: float = 0.999,
@@ -72,43 +105,19 @@ def make_train_step(
     reject: bool = False,
 ) -> Callable:
     """Build ``step(state, batch, generator=None, reject_prob=0.0, draws=None)
-    -> (state, metrics)``: noise the clean batch, run the forward in training
-    mode (dropout, batch statistics), the loss, the backward, the NaN guard
-    (a non-finite loss zeroes the gradients and keeps the step count
-    aligned), the optimizer update and the EMA blend.  ``generator`` feeds
-    the noise and the dropout masks; ``draws`` replays given noise.
-    ``metrics`` are 0-d tensors on the device, ``grad_finite`` among them.
-    """
+    -> (state, metrics)``: noise the clean batch, then :func:`optimize`.
+    ``generator`` feeds the noise and the dropout masks; ``draws`` replays
+    given noise."""
     schedule = cfg.sigma_schedule
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
              reject_prob: float = 0.0, draws: Optional[NoiseDraws] = None):
-        model = state.model
         with torch.no_grad():
             noised, targets = apply_noise(
                 batch, schedule, generator, draws, no_torsion=cfg.no_torsion,
                 reject_prob=reject_prob if reject else 0.0)
-        model.train()
-        set_dropout_generator(model, generator)
-        state.optimizer.zero_grad(set_to_none=True)
-        preds = model(noised)
-        metrics = score_matching_loss(
-            preds, targets, noised.t, batch.tor_mask, schedule,
-            tr_weight, rot_weight, tor_weight, cfg.no_torsion, valid=batch.valid)
-        loss = metrics["loss"]
-        loss.backward()
-        with torch.no_grad():
-            ok = torch.isfinite(loss)
-            for p in model.parameters():
-                p.grad = (torch.zeros_like(p) if p.grad is None
-                          else torch.nan_to_num(p.grad) * ok)
-            state.optimizer.step()
-            for name, p in model.named_parameters():
-                state.ema_params[name].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_finite"] = ok.to(torch.float32)
-        return state, metrics
+        return optimize(state, cfg, noised, targets, batch, generator, ema_decay, tr_weight,
+                        rot_weight, tor_weight)
 
     return step
 

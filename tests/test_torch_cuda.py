@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffphore_torch.ops import tp_aggregate, tp_fused
+from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 from diffphore_torch.ops.tensor_product import channelwise_tp
 
 SEQ = ["20x0e", "20x0e + 10x1o", "20x0e + 10x1o + 10x1e", "20x0e + 10x1o + 10x1e + 20x0o"]
@@ -178,3 +178,119 @@ def test_tp_aggregate_rejects_bad_inputs(cuda):
         tp_aggregate.tp_aggregate(tp, x.bfloat16(), sh.bfloat16(), w.bfloat16())
     with pytest.raises(ValueError):  # wrong channel count
         tp_aggregate.tp_aggregate(tp, x, sh, w[..., :-1].contiguous())
+
+
+K3_COUNTERS = (tp_scalar.FWD, tp_scalar.BWD_W, tp_scalar.BWD_SH, tp_scalar.BWD_X)
+
+
+def _k3_inputs(cuda, B, N, M, U, K, seed=0, strided=False):
+    """x, sh, w (masked) and g; with ``strided`` each is a last-axis slice
+    of a wider tensor, as a convolution hands them over."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    pad = 3 if strided else 0
+    x = t(rng.normal(size=(B, M, U + pad)))[..., pad:]
+    sh = t(rng.normal(size=(B, N, M, K + 2 * pad)))[..., pad:pad + K]
+    w = t(rng.normal(size=(B, N, M, U + 2 * pad)) * (rng.random((B, N, M, 1)) > 0.3))
+    w = w[..., pad:pad + U]
+    g = t(rng.normal(size=(B, N, U + pad, K + pad)))[:, :, pad:, :K]
+    return x, sh, w, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,U,K,strided", [
+    (3, 13, 29, 33, 9, False),       # ragged receiver tiles and sender chunks, the widest K
+    (3, 13, 29, 33, 9, True),
+    (2, 37, 96, 20, 3, True),        # the 0e x 1o -> 1o path of a layer-0 conv
+    (2, 37, 24, 20, 1, True),        # the 0e x 0e -> 0e path
+    (1, 5, 7, 64, 2, False),         # the widest U, a K between the template bounds
+])
+def test_tp_scalar_kernels_match_plain(cuda, B, N, M, U, K, strided):
+    """K3 forward and its three gradients against autograd through the
+    einsum: f32 on both sides, they differ by summation order only (1e-4 of
+    each result's scale); one launch of each kernel."""
+    x, sh, w, g = _k3_inputs(cuda, B, N, M, U, K, strided=strided)
+    assert strided != (sh.is_contiguous() and w.is_contiguous())
+    leaves = [v.detach().clone().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_scalar.scalar_path_aggregate_plain(*leaves)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+
+    counts = [k.launches for k in K3_COUNTERS]
+    mine = [v.detach().requires_grad_(True) for v in (x, sh, w)]     # the views themselves
+    out = tp_scalar.scalar_path_aggregate(*mine)
+    grads = torch.autograd.grad(out, mine, g)
+    torch.cuda.synchronize()
+    assert [k.launches for k in K3_COUNTERS] == [c + 1 for c in counts]
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    for name, got, want in zip(("dx", "dsh", "dw"), grads, ref_grads):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps_in,irreps_out", [
+    ("20x0e", "20x0e + 10x1o"),
+    ("6x0e + 3x0o", "6x0e + 2x1o + 2x1e + 3x0o"),    # two paths share the l = 1 harmonics
+])
+def test_tp_scalar_conv_level_matches_plain_and_is_deterministic(cuda, irreps_in, irreps_out):
+    """Every path of an all-l_in-0 convolution: the packed output and the
+    gradients into the full x, sh and w against the plain version (1e-4),
+    the pad lanes zero, two runs equal to the bit, and dsh and dx skipped
+    when sh and x carry no gradient."""
+    tp = channelwise_tp(irreps_in, SH, irreps_out)
+    B, N, M = 3, 13, 29
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    vals = [t(rng.normal(size=(B, M, tp.irreps_in.dim))), t(rng.normal(size=(B, N, M, 9))),
+            t(rng.normal(size=(B, N, M, tp.weight_numel)) * (rng.random((B, N, M, 1)) > 0.3))]
+    g = t(rng.normal(size=(B, N, tp.weight_numel, 4)))      # noise in the pad lanes too
+    lanes = torch.zeros_like(g)
+    for p in tp.paths:
+        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    leaves = [v.clone().requires_grad_(True) for v in vals]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, *leaves)
+    ref_grads = torch.autograd.grad(ref, leaves, g * lanes)
+
+    runs = []
+    for _ in range(2):
+        mine = [v.clone().requires_grad_(True) for v in vals]
+        out = tp_scalar.scalar_paths_aggregate(tp, *mine)
+        runs.append((out,) + torch.autograd.grad(out, mine, g))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, *grads = runs[0]
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float((out * (1 - lanes)).abs().max()) == 0.0
+    for name, got, want in zip(("dx", "dsh", "dw"), grads, ref_grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+    w_only = vals[2].clone().requires_grad_(True)
+    before = [k.launches for k in K3_COUNTERS]
+    out = tp_scalar.scalar_paths_aggregate(tp, vals[0], vals[1], w_only)
+    (dw,) = torch.autograd.grad(out, [w_only], g)
+    n = len(tp.paths)
+    assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [n, n, 0, 0]
+    assert torch.equal(dw, grads[2])
+
+
+@pytest.mark.cuda
+def test_tp_scalar_rejects_bad_inputs(cuda):
+    x, sh, w, _ = _k3_inputs(cuda, 1, 4, 5, 8, 3)
+    with pytest.raises(ValueError):  # a CPU tensor among CUDA tensors
+        tp_scalar.scalar_path_aggregate(x, sh.cpu(), w)
+    with pytest.raises(ValueError):  # x on the CPU, the others on the card
+        tp_scalar.scalar_path_aggregate(x.cpu(), sh, w)
+    with pytest.raises(TypeError):   # bf16 inputs: the kernels read f32 only
+        tp_scalar.scalar_path_aggregate(x.bfloat16(), sh.bfloat16(), w.bfloat16())
+    with pytest.raises(ValueError):  # a last axis that is not unit-stride
+        tp_scalar.scalar_path_aggregate(x, sh, w.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError):  # wrong channel count
+        tp_scalar.scalar_path_aggregate(x, sh, w[..., :-1])
+    with pytest.raises(ValueError):  # more channels than a block holds
+        tp_scalar.scalar_path_aggregate(*_k3_inputs(cuda, 1, 4, 5, 65, 3)[:3])
+    tp = channelwise_tp(SEQ[1], SH, SEQ[2])
+    with pytest.raises(ValueError):  # a convolution with l_in = 1 paths belongs to K2
+        tp_scalar.scalar_paths_aggregate(tp, torch.zeros(1, 5, tp.irreps_in.dim, device=cuda),
+                                         torch.zeros(1, 4, 5, 9, device=cuda),
+                                         torch.zeros(1, 4, 5, tp.weight_numel, device=cuda))

@@ -31,6 +31,8 @@ TRAINING_MODULES = [
     "ops/tp_aggregate.py", "data/transforms.py", "data/dataset.py", "data/loaders.py",
     "train/losses.py", "train/state.py", "utils/logging.py", "cli/train.py",
     "cli/profile_train_step.py",
+    # the calibrated-sampler slice
+    "ops/tp_scalar.py", "train/ccsampler.py", "sampler/sampling.py", "cli/pipeline.py",
 ]
 
 

@@ -81,3 +81,36 @@ def test_fit_engine_matches_jax_engine():
         np.testing.assert_array_equal(res["rank"],
                                       np.argsort(-scores["phscore1"], kind="stable"))
         assert np.isfinite(res["poses"]).all()
+
+
+def test_fit_engine_random_samples_match_jax_engine():
+    """``random_samples = 2``: both engines pick, per step and row, the
+    candidate draw of the higher PhScore1 (``fitness_by_index`` with the
+    engine's fitness index on the port's side).  One complex; tolerances as
+    above."""
+    jcfg, variables, tcfg, model = corpus2()
+    f = cached_files(n=1)[0]
+    key = jax.random.PRNGKey(23)
+    kw = dict(inference_steps=STEPS, random_samples=2)
+    jengine = JFitEngine(jcfg, variables, samples_per_complex=N_POSES,
+                         settings=JSamplerSettings(**kw))
+    engine = FitEngine(tcfg, model, samples_per_complex=N_POSES, settings=SamplerSettings(**kw),
+                       device="cpu")
+    job = job_from_cached(load_cached(f))
+    k1, k2 = jax.random.split(key)
+    T = job.batch.num_torsions
+    noise = (prior_noise(k1, N_POSES, T), step_noise(k2, STEPS, N_POSES, T, S=2))
+    (res,) = engine.run_complexes([job], [noise])
+    batch = load_complex(f)
+    pos, scores = _jax_run(jengine, batch, key)
+    poses = pos[:, :job.n_atoms] + np.asarray(batch.orig_center[0])
+    np.testing.assert_allclose(res["poses"], poses, atol=2e-3)
+    np.testing.assert_allclose(res["fitscore"], scores["phscore1"], atol=1e-4)
+    # the engine draws noise with the candidate axis its settings ask for
+    prior, steps = engine.draw_noise(N_POSES, T)
+    assert steps.z_tr.shape == (STEPS, 2, N_POSES, 3) and prior.tor.shape == (N_POSES, T)
+    # and the first candidate alone gives other poses: the selection took part
+    single = FitEngine(tcfg, model, samples_per_complex=N_POSES,
+                       settings=SamplerSettings(inference_steps=STEPS), device="cpu")
+    (alone,) = single.run_complexes([job], [noise])
+    assert float(np.abs(alone["poses"] - res["poses"]).max()) > 1e-2

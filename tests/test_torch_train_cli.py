@@ -1,8 +1,9 @@
 """``diffphore_torch.cli.train.main`` on the CPU at a small size: a handful
 of cached complexes, a narrow model, two epochs.  Checks what it writes,
 that the run directory loads and samples, that a restart resumes, that a
-JAX checkpoint initializes a fine-tune, and that every flag of a part that
-is not ported raises."""
+JAX checkpoint initializes a fine-tune, that ``--rate_from_infer`` engages
+the calibrated-sampler step by its schedule and floor, and that every flag
+of a part that is not ported raises."""
 
 import json
 import os
@@ -162,7 +163,7 @@ def test_pretrain_from_the_jax_checkpoint(cache_path, tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--model_type", "tank"], "variants slice"),
     (["--confidence_mode"], "confidence-head slice"),
-    (["--rate_from_infer", "0.6"], "calibrated-conformation-sampler slice"),
+    (["--conf_augment", "2"], "featurization slice"),
     (["--train_csv", "pairs.csv"], "featurization slice"),
     (["--data_dir", "x", "--split_train", "y"], "featurization slice"),
     (["--featurize_only"], "featurization slice"),
@@ -199,3 +200,56 @@ def test_config_file_overrides_flags(cache_path, tmp_path):
     cfg = tcli.model_config_from_args(args)
     assert (cfg.ns, cfg.nv, cfg.num_conv_layers, cfg.dropout) == (8, 4, 2, 0.0)
     assert cfg.tp_mode == "channelwise" and cfg.consider_norm
+
+
+def _cc_run(cache_path, out, n_epochs, *flags):
+    tcli.main(["--cache_path", cache_path, "--run_dir", out, "--n_epochs", str(n_epochs),
+               *SMALL_FLAGS, *flags])
+    return [r for r in _records(out) if r.get("mode") != "val"]
+
+
+def test_rate_from_infer_engages_at_epoch_from_infer(cache_path, tmp_path):
+    """Two epochs that cross ``--epoch_from_infer 1``: epoch 0 runs the plain
+    step, epoch 1 the calibrated-sampler step (its record holds the share of
+    graphs that took the branch); the three values land in the YAML."""
+    out = str(tmp_path / "cc")
+    e0, e1 = _cc_run(cache_path, out, 2, "--rate_from_infer", "0.6", "--epoch_from_infer", "1")
+    assert e0["p_from_infer"] == 0.0 and "cc_share" not in e0
+    assert e1["p_from_infer"] == 0.6 and 0.0 <= e1["cc_share"] <= 1.0
+    for r in (e0, e1):
+        assert r["steps"] == 3 and r["grad_finite"] == 1.0
+        assert all(np.isfinite(r[k]) for k in tcli.TRAIN_KEYS)
+    cfg = flat_yaml.load(os.path.join(out, checkpoints.MODEL_PARAMS_YAML))
+    assert (cfg["rate_from_infer"], cfg["epoch_from_infer"], cfg["dynamic_coeff"]) == (0.6, 1, 0.0)
+    _, model = checkpoints.load_model_dir(out, device="cpu", checkpoint=checkpoints.LAST_MODEL)
+    assert not model.training
+
+
+@pytest.mark.parametrize("flags,engaged", [
+    # the shipped recipe at epoch 0: the sigmoid gives 0.002, under the floor of 0.01
+    (["--rate_from_infer", "0.6", "--epoch_from_infer", "300", "--dynamic_coeff", "6.0"], False),
+    # the same schedule with u = 1 is on its plateau at once
+    (["--rate_from_infer", "0.6", "--epoch_from_infer", "1", "--dynamic_coeff", "6.0"], True),
+    # a small rate engages too: the floor is relative, min(0.01, rate / 2)
+    (["--rate_from_infer", "0.008", "--epoch_from_infer", "0"], True),
+    (["--rate_from_infer", "0.0", "--epoch_from_infer", "0"], False),
+])
+def test_cc_floor_gate(cache_path, tmp_path, flags, engaged):
+    (rec,) = _cc_run(cache_path, str(tmp_path / "gate"), 1, "--limit_complexes", "2", *flags)
+    assert ("cc_share" in rec) == engaged
+    assert (rec["p_from_infer"] > 0) == engaged
+
+
+def test_cc_probability_follows_the_jax_cli_gating():
+    """``p_cc`` as diffphore_tpu/cli/train.py computes it: the dynamic
+    schedule when --dynamic_coeff > 0, else the rate from the epoch on."""
+    from diffphore_torch.train.ccsampler import dynamic_schedule
+
+    args = tcli.parse_args(["--rate_from_infer", "0.6", "--dynamic_coeff", "6.0"])
+    assert (args.epoch_from_infer, args.delta_t) == (300, 0.05)
+    for epoch in (0, 150, 300, 600):
+        assert tcli.cc_probability(args, epoch) == dynamic_schedule(epoch, 0.6, 300, 6.0)
+    assert tcli.cc_probability(args, 0) < 0.01 < tcli.cc_probability(args, 150)
+    args = tcli.parse_args(["--rate_from_infer", "0.4", "--epoch_from_infer", "7"])
+    assert [tcli.cc_probability(args, e) for e in (0, 6, 7, 8)] == [0.0, 0.0, 0.4, 0.4]
+    assert tcli.cc_probability(tcli.parse_args([]), 500) == 0.0

@@ -192,3 +192,95 @@ def test_init_parameters_distributions():
     lin = a.tr_final_layer_dense1
     assert float(lin.bias.abs().max()) == 0.0
     assert float(lin.weight.abs().max()) <= 2 / 0.87962566103423978 / lin.in_features ** 0.5 + 1e-6
+
+
+def test_layer0_conv_through_the_k3_route_matches_jax(monkeypatch):
+    """A layer-0 convolution (scalars in: every path has l_in = 0) in
+    training mode goes through ``tp_scalar.scalar_paths_aggregate``, never
+    through K2, and matches the JAX unfused branch: output 2e-5, gradients
+    into the parameters, the sender scalars and the harmonics (which the
+    cross-graph convolutions need) 1e-4 of each gradient's scale."""
+    from diffphore_torch.ops import tp_aggregate, tp_scalar
+
+    irreps_in, irreps_out = "8x0e", "8x0e + 4x1o"
+    rng = np.random.default_rng(4)
+    B, N, M, E = 2, 13, 9, 12
+    x = rng.normal(size=(B, M, 8)).astype(np.float32)
+    sh = rng.normal(size=(B, N, M, 9)).astype(np.float32)
+    attr = rng.normal(size=(B, N, M, E)).astype(np.float32)
+    mask = rng.random((B, N, M)) > 0.4
+    jconv = jl.DenseTPConv(in_irreps=irreps_in, out_irreps=irreps_out, n_edge_features=E,
+                           hidden_features=16, tp_mode="channelwise", compute_dtype="float32",
+                           dropout=0.0)
+    variables = jconv.init(jax.random.PRNGKey(2), jnp.asarray(x), jnp.asarray(attr),
+                           jnp.asarray(sh), jnp.asarray(mask))
+    g = rng.normal(size=(B, N, jl.parse(irreps_out).dim)).astype(np.float32)
+
+    def jloss(params, x_, sh_):
+        out, _ = jconv.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                             x_, jnp.asarray(attr), sh_, jnp.asarray(mask),
+                             deterministic=False, use_running_average=False,
+                             mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(0)})
+        return (out * g).sum(), out
+
+    (_, ref), (gp, gx, gsh) = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        variables["params"], jnp.asarray(x), jnp.asarray(sh))
+
+    calls = []
+    k3 = tp_scalar.scalar_paths_aggregate
+    monkeypatch.setattr(tp_scalar, "scalar_paths_aggregate",
+                        lambda *a: calls.append("k3") or k3(*a))
+    monkeypatch.setattr(tp_aggregate, "tp_aggregate",
+                        lambda *a: pytest.fail("a layer-0 conv must not run K2"))
+    tconv = _load(tl.DenseTPConv(irreps_in, irreps_out, n_edge_features=E, hidden_features=16),
+                  variables).train()
+    tx, tsh = T(x).requires_grad_(True), T(sh).requires_grad_(True)
+    out = tconv(tx, T(attr), tsh, T(mask))
+    assert calls == ["k3"]
+    assert_close(out, ref, RTOL, "training output")
+    (out * T(g)).sum().backward()
+    assert_close(tx.grad, gx, 1e-4, "d/dx")
+    assert_close(tsh.grad, gsh, 1e-4, "d/dsh")
+    want = convert_variables({"params": jax.tree_util.tree_map(np.asarray, dict(gp))})
+    for name, p in tconv.named_parameters():
+        grad = torch.zeros_like(p) if p.grad is None else p.grad
+        assert_close(grad, want[name], 1e-4, f"d/d{name}")
+    # use_kernel = False takes the plain version of the same route
+    tconv.use_kernel = False
+    assert_close(tconv(T(x), T(attr), T(sh), T(mask)), ref, RTOL, "plain route")
+    assert calls == ["k3"]
+
+
+def test_k3_route_is_chosen_exactly_for_the_layer0_convs(monkeypatch):
+    """In a training forward of the score model the six layer-0 convs
+    (scalars in) run K3 and every other conv runs K2; an eval forward runs
+    neither (K1)."""
+    from diffphore_torch.ops import tp_aggregate, tp_scalar
+    from torch_port_helpers import cached_files, load_pair
+
+    _, tcfg = configs(**SMALL)
+    model = init_parameters(ScoreModel(tcfg), seed=0)
+    _, tb = load_pair(cached_files(n=1)[0], rows=2, t=[0.3, 0.7])
+    current, routes = [], {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, tl.DenseTPConv):
+            mod.register_forward_pre_hook(lambda m, a, name=name: current.append(name))
+    k2, k3 = tp_aggregate.tp_aggregate, tp_scalar.scalar_paths_aggregate
+    monkeypatch.setattr(tp_aggregate, "tp_aggregate",
+                        lambda *a: routes.setdefault(current[-1], "k2") and k2(*a))
+    monkeypatch.setattr(tp_scalar, "scalar_paths_aggregate",
+                        lambda *a: routes.setdefault(current[-1], "k3") and k3(*a))
+    with torch.no_grad():
+        model.train()(tb)
+    layer0 = {"encoder." + n for n in (
+        "lig_conv_0", "phore_to_lig_conv_0", "phore_to_lig_norm_conv_0", "phore_conv_0",
+        "lig_to_phore_conv_0", "lig_to_phore_norm_conv_0")}
+    assert {n for n, r in routes.items() if r == "k3"} == layer0
+    assert len(routes) == 11 and set(routes.values()) == {"k2", "k3"}
+    for name, mod in model.named_modules():
+        if isinstance(mod, tl.DenseTPConv):
+            assert tp_scalar.all_scalar_paths(mod.tp) == (name in layer0), name
+    routes.clear()
+    with torch.no_grad():
+        model.eval()(tb)
+    assert routes == {}

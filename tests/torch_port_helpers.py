@@ -116,16 +116,25 @@ def prior_noise(key, B: int, T: int) -> PriorNoise:
     return PriorNoise(tor=t(tor), quat=t(quat), tr=t(tr))
 
 
-def step_noise(key, steps: int, B: int, T: int) -> StepNoise:
-    """The per-step draws of diffphore_tpu reverse_diffusion(..., key, ...)."""
+def step_noise(key, steps: int, B: int, T: int, S: int = 1) -> StepNoise:
+    """The per-step draws of diffphore_tpu reverse_diffusion(..., key, ...)
+    with ``random_samples`` = S, as (steps, S, B, .)."""
     zs = {"tr": [], "rot": [], "tor": []}
     for k in jax.random.split(key, steps):
         k_tr, k_rot, k_tor = jax.random.split(k, 3)
-        zs["tr"].append(np.asarray(jax.random.normal(k_tr, (1, B, 3)))[0])
-        zs["rot"].append(np.asarray(jax.random.normal(k_rot, (1, B, 3)))[0])
-        zs["tor"].append(np.asarray(jax.random.normal(k_tor, (1, B, T)))[0])
+        zs["tr"].append(np.asarray(jax.random.normal(k_tr, (S, B, 3))))
+        zs["rot"].append(np.asarray(jax.random.normal(k_rot, (S, B, 3))))
+        zs["tor"].append(np.asarray(jax.random.normal(k_tor, (S, B, T))))
     t = lambda v: torch.from_numpy(np.stack(v))
     return StepNoise(z_tr=t(zs["tr"]), z_rot=t(zs["rot"]), z_tor=t(zs["tor"]))
+
+
+def sample_step_noise(key, B: int, T: int) -> StepNoise:
+    """The draws of diffphore_tpu.sampler.sample_step(..., key, ...): one
+    step, one candidate."""
+    k_tr, k_rot, k_tor = jax.random.split(key, 3)
+    t = lambda k, n: torch.from_numpy(np.asarray(jax.random.normal(k, (B, n))).copy())[None, None]
+    return StepNoise(z_tr=t(k_tr, 3), z_rot=t(k_rot, 3), z_tor=t(k_tor, T))
 
 
 def assert_close(port, ref, rtol: float, what: str = ""):
@@ -154,6 +163,32 @@ def noise_draws(key, B: int, T: int, reject: bool = False):
         rot_u=t(jax.random.uniform(k_angle, (K, B))),
         z_tor=t(jax.random.normal(k_tor, (K, B, T))),
         reject_u=t(jax.random.uniform(k_rej, (2, K, B))) if reject else None)
+
+
+def cc_draws(key, B: int, T: int):
+    """The draws of diffphore_tpu.train.ccsampler.ccsampler_apply_noise(batch,
+    key, ...), raw, as the port's CCDraws."""
+    from diffphore_torch.data.transforms import NoiseDraws
+    from diffphore_torch.train.ccsampler import CCDraws
+
+    k_t, k_tr, k_rot, k_tor, k_step, k_sel = jax.random.split(key, 6)
+    k_axis, k_angle = jax.random.split(k_rot)          # so3.sample_vec's split
+    t = lambda x: torch.from_numpy(np.asarray(x).copy())
+    noise = NoiseDraws(
+        t=t(jax.random.uniform(k_t, (B,))),
+        z_tr=t(jax.random.normal(k_tr, (B, 3)))[None],
+        rot_axis=t(jax.random.normal(k_axis, (B, 3)))[None],
+        rot_u=t(jax.random.uniform(k_angle, (B,)))[None],
+        z_tor=t(jax.random.normal(k_tor, (B, T)))[None])
+    return CCDraws(noise=noise, step=sample_step_noise(k_step, B, T),
+                   select_u=t(jax.random.uniform(k_sel, (B,))))
+
+
+def cc_train_step_draws(key, B: int, T: int):
+    """The draws of one diffphore_tpu.train.ccsampler train step called with
+    ``key`` (it splits off the dropout key first)."""
+    k_noise, _ = jax.random.split(key)
+    return cc_draws(k_noise, B, T)
 
 
 def train_step_draws(key, B: int, T: int, reject: bool = False):
