@@ -11,7 +11,11 @@ Phases, each fatal on failure:
   3. kernel check: capture the inputs of all 23 tensor-product convs of one
      forward of the main path (corpus2 model, 40 poses of a 24x96x8
      complex), hold K1 (``tp_fused``) against its plain PyTorch version on
-     them, in f32 and with bf16 inputs, and time both with CUDA events.
+     them, in f32 and with bf16 inputs, require two runs to agree to the bit,
+     print each conv's grid and what bounds it, and time the kernel (on the
+     card, by replaying a CUDA graph of its calls, and per call from Python)
+     and the plain version.  A grid of fewer blocks than the card has SMs
+     fails unless the conv runs within twice the launch floor.
   4. main path: ``FitEngine`` samples 8 cached complexes x 40 poses x 20
      reverse-diffusion steps with the corpus2 checkpoint and ranks them by
      fitness; K1 must launch exactly 23 x 20 times per dispatch; poses and
@@ -25,8 +29,9 @@ Phases, each fatal on failure:
      on K3 (``tp_scalar``), two paths each.  Hold every forward and backward
      kernel (K2: dw + dsh per edge, dx per sender; K3: dw, dsh, dx) against
      the plain version and autograd through it, require two runs to agree to
-     the bit, and time kernels, plain and, for K3, the one einsum call with
-     CUDA events.
+     the bit (dw is held from both edge kernels, with and without dsh), time kernels
+     (graph replay), plain and, for K3, the one einsum call, and print each
+     edge backward with dsh beside its norm twin's (dw only, same shapes).
   6. training path: (c) one train step with the kernels against the same
      step with the plain convs, same noise and dropout masks: loss and every
      parameter gradient; (b) 30 steps on one fixed batch with fixed noise and
@@ -131,6 +136,7 @@ TOL_CANDIDATE_MEDIAN = 0.1
 # tensor-core) operations/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+SMS = 132                   # streaming multiprocessors of an H100
 
 
 def card_line() -> str:
@@ -141,6 +147,8 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """ms per call of ``fn``, launched from Python one call after the other:
+    the larger of the card's time and the host's time to make a call."""
     import torch
 
     for _ in range(warmup):
@@ -152,6 +160,29 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, replays: int = 3) -> float:
+    """ms of the card's own time per call of ``fn`` (a kernel wrapper): the
+    calls are captured once into a CUDA graph and the graph is replayed, so
+    the host's time to make a call (tens of microseconds through Python and
+    ctypes, more than many of these kernels run) is not in the reading."""
+    import torch
+
+    fn()                                    # builds, sets attributes, fills caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def k1_work(tp, x, sh, attrs, masks, w1, w2):
@@ -204,6 +235,10 @@ def phase_kernel_check(model, batch, tp_fused):
         raise RuntimeError(f"captured {len(calls)} conv calls, expected {CONVS_PER_FORWARD}")
 
     f32, bf16 = torch.float32, torch.bfloat16
+    (floor_one, call_one), (floor_ms, call_two) = k1_launch_floor(tp_fused, model)
+    print(f"  launch floor of a tp_fused call with nothing to do: on the card {floor_one:.4f} ms "
+          f"with one kernel, {floor_ms:.4f} ms with the sender split's second kernel; per call "
+          f"from Python {call_one:.4f} and {call_two:.4f} ms", flush=True)
     cases = []
     for name, mod, (sender, edge_attr, edge_sh, edge_mask, *_) in calls:
         attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
@@ -217,9 +252,13 @@ def phase_kernel_check(model, batch, tp_fused):
         with torch.inference_mode():
             ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params)
             got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
-            got_bf = tp_fused.tp_aggregate_fused(
-                tp, x.to(bf16), sh.to(bf16), [a.to(bf16) for a in attrs], masks, *params)
+            again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+            low = (x.to(bf16), sh.to(bf16), [a.to(bf16) for a in attrs])
+            got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
+            again_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
             torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(got_bf, again_bf)):
+                raise AssertionError(f"{name}: two runs of tp_fused on the same inputs differ")
             scale = float(ref.abs().max())
             err = float((got - ref).abs().max())
             err_bf = float((got_bf - ref).abs().max())
@@ -227,24 +266,59 @@ def phase_kernel_check(model, batch, tp_fused):
                 raise AssertionError(f"{name}: f32 |kernel - plain| {err} > {TOL_F32} * {scale}")
             if not (err_bf <= TOL_BF16 * max(scale, 1e-30)):
                 raise AssertionError(f"{name}: bf16 |kernel - plain| {err_bf} > {TOL_BF16} * {scale}")
-            ms = cuda_ms(lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params), 20)
+            call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+            ms = device_ms(call, 20)
+            call_ms = cuda_ms(call, 20)
             plain_ms = cuda_ms(
                 lambda: tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params), 5)
         nbytes, ops = k1_work(tp, x, sh, attrs, masks, params[0], params[2])
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
         B, N, M, _ = sh.shape
+        per_block, splits = tp_fused.plan_senders(B, N, M)
+        blocks = B * -(-N // tp_fused.TILE_N) * splits
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        if blocks < SMS and not ms <= 2 * floor_ms:
+            raise AssertionError(f"{name}: grid of {blocks} blocks on {SMS} SMs and {ms} ms, over "
+                                 f"twice the launch floor {floor_ms} ms")
         cases.append({
             "conv": name, "B": B, "N": N, "M": M, "C": len(attrs), "E": params[0].shape[0],
+            "blocks": blocks, "senders_per_block": per_block, "splits": splits,
             "H": params[0].shape[1], "F": tp.weight_numel, "max_abs_err": err,
-            "max_abs_err_bf16": err_bf, "max_abs_ref": scale, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err_bf16": err_bf, "max_abs_ref": scale, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
             "bytes": nbytes, "f32_ops": ops,
         })
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} C={len(attrs)} F={tp.weight_numel:3d} "
-              f"err={err:.2e} bf16_err={err_bf:.2e} (max|ref| {scale:.2e}) "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms",
-              flush=True)
+              f"grid {blocks:4d} blocks ({splits} x {per_block} senders) "
+              f"err={err:.2e} bf16_err={err_bf:.2e} (max|ref| {scale:.2e}) reruns bit-equal  "
+              f"kernel {ms:.4f} ms on the card, {call_ms:.4f} ms per call from Python  "
+              f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+              f"({bound_by}: bytes {t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
     return cases
+
+
+def k1_launch_floor(tp_fused, model):
+    """ms of a K1 call that has next to nothing to do (one batch row, one
+    receiver, four senders, every edge dead): what a call costs before any
+    work, its two launches included when the senders are split."""
+    import torch
+
+    from diffphore_torch.models.layers import DenseTPConv
+
+    mod = next(m for m in model.modules() if isinstance(m, DenseTPConv))
+    tp, E = mod.tp, mod.fc_w1.shape[0]
+    params = (mod.fc_w1.detach(), mod.fc_b1.detach(), mod.fc_w2.detach(), mod.fc_b2.detach())
+    floors = []
+    for M in (4, 24):                   # one split, and six splits + the second kernel
+        x = torch.zeros((1, M, tp.irreps_in.dim), device="cuda")
+        sh = torch.zeros((1, 1, M, tp.irreps_sh.dim), device="cuda")
+        attr = torch.zeros((1, 1, M, E), device="cuda")
+        mask = torch.zeros((1, 1, M), dtype=torch.bool, device="cuda")
+        with torch.inference_mode():
+            call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, [attr], [mask], *params)
+            floors.append((device_ms(call, 50), cuda_ms(call, 50)))
+    return floors
 
 
 def bucket_complexes(cache_dir, n):
@@ -356,7 +430,11 @@ def phase_k2_check(calls):
             dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, True)
             dx = k2.launch_backward_x(tp, x, sh, w, g)
             runs.append((out, dx, dsh, dw))
+        dw_only, _ = k2.launch_backward_edge(tp, x, sh, w, g, False)
         torch.cuda.synchronize()
+        dw_scale = float(ref_dw.abs().max())
+        if not float((dw_only - ref_dw).abs().max()) <= TOL_K2 * max(dw_scale, 1e-30):
+            raise AssertionError(f"{name}: dw of the kernel without dsh is off the plain version's")
         errs = {}
         for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
                                            (ref.detach(), ref_dx, ref_dsh, ref_dw)):
@@ -371,10 +449,11 @@ def phase_k2_check(calls):
         # where the harmonics carry gradient); the plain backward is autograd
         # through the plain version for the same gradients
         ms = {
-            "fwd": cuda_ms(lambda: k2.launch_forward(tp, x, sh, w), 10),
-            "bwd_edge": cuda_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10),
-            "bwd_x": cuda_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
+            "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w), 10),
+            "bwd_edge": device_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10),
+            "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
         }
+        call_ms = cuda_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10)
         edge_leaves = [leaves[2], leaves[1]] if sh_grad else [leaves[2]]
         with torch.no_grad():
             plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w), 3)
@@ -391,14 +470,22 @@ def phase_k2_check(calls):
             t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
             bound[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
         cases.append({"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad, "errs": errs,
-                      "ms": ms, "plain_ms": plain, "bound": bound})
+                      "ms": ms, "call_ms_bwd_edge": call_ms, "plain_ms": plain, "bound": bound})
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F:3d} dsh={int(sh_grad)} "
               f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
               f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
               f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}) | ms kernel/plain/bound: "
               + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{bound[k][0]:.4f}({bound[k][1][0]})"
-                         for k in ("fwd", "bwd_edge", "bwd_x")), flush=True)
+                         for k in ("fwd", "bwd_edge", "bwd_x"))
+              + f" | bwd_edge per call from Python {call_ms:.4f}", flush=True)
         del ref, leaves, runs
+    by_name = {c["conv"]: c for c in cases}
+    for c in cases:
+        twin = by_name.get(c["conv"].replace("_conv_", "_norm_conv_"))
+        if c["dsh"] and twin is not None and twin is not c:
+            a, b = c["ms"]["bwd_edge"], twin["ms"]["bwd_edge"]
+            print(f"  edge backward with dsh, {c['conv']}: {a:.4f} ms, its norm twin (dw only, same "
+                  f"shapes) {b:.4f} ms, ratio {a / b:.2f}", flush=True)
     return cases
 
 
@@ -424,7 +511,7 @@ def k2_kernel_entries(cases, launches):
             "bound_ms": sum(c["bound"][k][0] for c in cases),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
             "library_ms": None,
-            "unit": "one train step: the 17 conv calls, each timed alone",
+            "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay)",
         })
     return entries
 
@@ -494,10 +581,10 @@ def phase_k3_check(calls):
 
             ops = {"x": x, "sh": sh, "w": w, "g": g}
             ms = {
-                "fwd": cuda_ms(lambda: k3.launch_forward(x, sh, w), 20),
-                "bwd_w": cuda_ms(lambda: k3.launch_backward_w(x, sh, g), 20),
-                "bwd_sh": cuda_ms(lambda: k3.launch_backward_sh(x, w, g), 20),
-                "bwd_x": cuda_ms(lambda: k3.launch_backward_x(sh, w, g), 20),
+                "fwd": device_ms(lambda: k3.launch_forward(x, sh, w), 20),
+                "bwd_w": device_ms(lambda: k3.launch_backward_w(x, sh, g), 20),
+                "bwd_sh": device_ms(lambda: k3.launch_backward_sh(x, w, g), 20),
+                "bwd_x": device_ms(lambda: k3.launch_backward_x(sh, w, g), 20),
             }
             with torch.no_grad():
                 plain_fwd = cuda_ms(lambda: k3.scalar_path_aggregate_plain(x, sh, w), 5)
@@ -549,7 +636,7 @@ def k3_kernel_entries(cases, launches, launches_training):
             "bound_ms": sum(c["bound"][k][0] for c in used),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
             "library_ms": sum(c["library_ms"][k] for c in used),
-            "unit": f"one train step: the {len(used)} (conv, path) calls, each timed alone; "
+            "unit": f"one train step: the {len(used)} (conv, path) calls, each timed alone on the card (graph replay); "
                     f"library_ms is torch.einsum('{K3_EINSUM[k][0]}') on the same views",
         })
     return entries
@@ -1056,7 +1143,9 @@ def main() -> int:
         "bound_by": ("operations" if sum(c["bound_ms"] for c in cases if c["bound_by"] == "operations")
                      >= sum(c["bound_ms"] for c in cases if c["bound_by"] == "bytes") else "bytes"),
         "library_ms": None,
-        "unit": "one forward: the 23 conv calls, each timed alone",
+        "call_ms": sum(c["call_ms"] for c in cases),
+        "unit": "one forward: the 23 conv calls, each timed alone; ms on the card (graph replay), "
+                "call_ms per call from Python",
     }
     k2_entries = k2_kernel_entries(k2_cases, train_counts)
     for entry, k in zip(k2_entries, ("fwd", "bwd_edge", "bwd_x")):

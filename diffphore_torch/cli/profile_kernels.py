@@ -1,0 +1,98 @@
+"""Device time of the port's redesigned kernels, one kernel at a time.
+
+    python -m diffphore_torch.cli.profile_kernels
+
+Runs K1 (``ops.tp_fused``) and K2's edge backward (``ops.tp_aggregate``) on
+synthetic inputs at the shapes of the main paths (serving: 40 poses of a
+24 x 96 x 8 complex; training: batch 24 of that bucket; corpus2 widths)
+under ``torch.profiler`` and prints one JSON object per case: the device
+time of each CUDA kernel of the call, in microseconds per call.  A call of
+either wrapper may launch two kernels, which the per-call times of
+``chip_smoke.py`` do not tell apart.  Padded graphs keep their live atoms
+and phore points first, so the masks here are live on the first ``live_n``
+receivers and ``live_m`` senders.  It is the quick way to compare two
+versions of a kernel: run it on both trees in one call on one card.  It
+needs a GPU and fails without one.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..ops import tp_aggregate, tp_fused
+from ..ops.tensor_product import channelwise_tp
+
+SEQ = ["20x0e", "20x0e + 10x1o", "20x0e + 10x1o + 10x1e", "20x0e + 10x1o + 10x1e + 20x0o"]
+SH = "1x0e + 1x1o + 1x2e"
+E = 60
+CALLS = 10
+#: (conv layer, B, N, M, live_n, live_m) of K1 at the serving shapes
+K1_CASES = [(0, 40, 24, 96, 20, 32), (3, 40, 24, 96, 20, 32), (2, 40, 96, 24, 32, 20),
+            (2, 40, 96, 96, 32, 32), (3, 40, 24, 24, 20, 20)]
+#: (conv layer, B, N, M) of the edge backward with dsh at the training shapes
+EDGE_CASES = [(1, 24, 24, 96), (2, 24, 96, 24), (3, 24, 24, 96)]
+
+
+def _device_us(event) -> float:
+    # the attribute was renamed from *cuda* to *device* in torch 2.4
+    return float(getattr(event, "device_time_total", getattr(event, "cuda_time_total", 0.0)))
+
+
+def kernel_times(fn) -> dict:
+    """{kernel name: device us per call} of the port's kernels that ``fn`` launches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(anonymous namespace)::")[-1].split("(")[0]: _device_us(e) / CALLS
+            for e in prof.key_averages() if "tp_" in e.key and _device_us(e) > 0}
+
+
+def main() -> list:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels needs a GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    results = []
+    for layer, B, N, M, live_n, live_m in K1_CASES:
+        tp = channelwise_tp(SEQ[layer], SH, SEQ[min(layer + 1, 3)])
+        F = tp.weight_numel
+        x, sh, attr = randn(B, M, tp.irreps_in.dim), randn(B, N, M, 9), randn(B, N, M, E)
+        mask = torch.zeros(B, N, M, dtype=torch.bool, device="cuda")
+        mask[:, :live_n, :live_m] = True
+        params = (randn(E, E) * 0.1, torch.zeros(E, device="cuda"), randn(E, F) * 0.1,
+                  torch.zeros(F, device="cuda"))
+        with torch.no_grad():
+            times = kernel_times(
+                lambda: tp_fused.tp_aggregate_fused(tp, x, sh, [attr], [mask], *params))
+        results.append({"kernel": "tp_fused", "B": B, "N": N, "M": M, "F": F,
+                        "live_edges": int(mask.sum()), "edges": mask.numel(), "us": times,
+                        "card": card})
+    for layer, B, N, M in EDGE_CASES:
+        tp = channelwise_tp(SEQ[layer], SH, SEQ[min(layer + 1, 3)])
+        F = tp.weight_numel
+        x, sh, w = randn(B, M, tp.irreps_in.dim), randn(B, N, M, 9), randn(B, N, M, F)
+        g = randn(B, N, F, 4)
+        times = kernel_times(lambda: tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True))
+        results.append({"kernel": "tp_aggregate_bwd_edge with dsh", "B": B, "N": N, "M": M, "F": F,
+                        "us": times, "card": card})
+    for r in results:
+        print(json.dumps(r))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -11,249 +11,545 @@
 // (Wigner-3j block, l_in, l_out <= 1, l_sh <= 2).  Output (B, N, F, 4) f32,
 // component k < 3 of each channel, lane 3 zero.
 //
-// What bounds it on an H100.  Every (receiver, sender) pair's attributes
-// (C*E values) are read once, but the edge MLP (2*C*E*H + 2*H*F f32 flops)
-// and the TP run only on live edges (a mask set), a share of the dense grid
-// that the graphs decide.  On the main path's inputs (corpus2, 40 poses of a
-// 24x96x8 complex) device memory bounds 15 of the 23 convs of a forward and
-// f32 arithmetic the other 8 (the phore-to-ligand convs at F >= 80 and the
-// ligand-to-phore convs at F = 120).  The
-// JAX einsum form moves the (B,N,M,F) edge weights and the (B,N,M,H) hidden
-// through device memory; here both stay on chip, so device memory sees only
-// the raw edge attributes, harmonics and masks once, and the output once.
-// This simple form is far from either bound: its grid has B*ceil(N/TN)
-// blocks, each walking all senders in order with three barriers per chunk, so
-// the narrow grids (N = 24, or B = 1) leave most SMs idle.
+// What bounds it on an H100.  The function reads every (receiver, sender)
+// pair's attributes (C*E values), harmonics and masks once and writes a small
+// output; the edge MLP (2*C*E*H + 2*H*F f32 flops) and the tensor product run
+// only on live edges (a mask set), about a third of the grid on the serving
+// inputs (corpus2, 40 poses of a 24x96x8 complex: padded atoms and phore points
+// are dead).  Counted so, per conv family of a forward: the ligand-ligand convs
+// (two attribute channels) and the phore-phore convs are bound by device memory
+// at every width, and so are the two small heads (final_conv, tor_bond_conv);
+// the phore-to-ligand convs are bound by memory at F = 40 and by f32 arithmetic
+// from F = 80 up; the ligand-to-phore convs by memory at F = 40 and 80 and by
+// arithmetic at F = 120: 8 of the 23 convs by arithmetic, 15 by bytes.  Either
+// bound is 4 to 33 microseconds per call, so what the design has to remove is
+// everything else: idle SMs (narrow grids), serial chains, shared-memory
+// traffic per FMA, barriers per sender, and work on dead edges.
 //
-// Design (simple and correct first; tensor cores, TMA and a persistent
-// schedule are later work):
-//  * one block per (batch row b, tile of TN receivers); a loop over sender
-//    chunks of MC takes the place of the TPU's sequential grid axis;
-//  * per chunk, the block stages the chunk's edge attributes, masks,
-//    harmonics and sender features in shared memory, computes the masked
-//    hidden sum for the TN*MC edges cooperatively (W1 in shared memory),
-//    then each thread owns one output channel f: it keeps its W2 column in
-//    registers, forms w[e,f] for every edge, contracts the node-level
-//    z[j,k] = sum_i G[i,j,k] x_i once per sender, and accumulates the TN
-//    receivers' three output components in registers;
-//  * edges whose masks are all zero are skipped (uniformly across the
-//    block), so the work follows the graphs' real edge counts.
-//  All arithmetic is f32; x, sh and attrs may be f32 or bf16.
+// Design.
+//  * Grid = (sender split, tile of TN = 8 receivers, batch row).  The host
+//    picks the senders per block so that every shape of the model gets about
+//    two blocks per SM or more, also N = 1, N = 8 and B = 1; split k takes
+//    senders k, k + splits, ..., because padded graphs keep their live senders
+//    first and contiguous ranges would load the splits unevenly.  When the
+//    senders are split the blocks write partial sums to a scratch buffer and a
+//    second kernel adds the splits in a fixed order: no float atomics, two runs
+//    agree to the bit.
+//  * The edge MLP is two tiled matrix products over LIVE edges only.  A block
+//    reads its masks once, compacts its live edges with warp ballots into one
+//    list in receiver-major order, and takes them ROWS = 32 at a time: every
+//    tile but the last is full, dead edges cost no load and no flop, and the
+//    warps stay converged.
+//  * W1, b1, W2, b2 and the block's sender features stay in shared memory for
+//    the block's life; the hidden tile (written over the attribute rows it came
+//    from) and the edge-weight tile never leave the chip.
+//  * Register tiles: warp = 4 rows, lane = columns lane + 32 c.  The hidden
+//    product keeps 4 x 2 sums per thread, the second 4 x NC (NC = F / 32
+//    rounded up, a template bound); A and the hidden rows are read as float4
+//    broadcasts, the weights conflict-free: 0.3 to 0.4 shared loads per FMA
+//    instead of 2.  A warp reads only its own rows of both, so the two
+//    products need no block barrier between them.
+//  * A tile's attribute rows are gathered with 16-byte cp.async into a
+//    two-stage ring, its harmonics with 4-byte ones: the next tile loads while
+//    this one computes (bf16 inputs are converted on the way in with plain
+//    loads).  The weights and sender features come in the same way, behind the
+//    block's mask and compaction work.
+//  * The tensor product in two steps.  Per (edge, path) of a tile, once for all
+//    the path's channels: t[i,k] = sum_j G_p[i,j,k] sh[j].  Then thread =
+//    channel f walks the tile's rows: w[r,f] * sum_i x[m(r), x_base(f)+i]
+//    t[r,p(f)][i,:], 6 to 12 FMAs a row, no work per sender and no chain of
+//    dependent loads.  The rows come receiver by receiver, so a thread keeps a
+//    running sum and adds it to the receiver's three sums (registers, for the
+//    whole block) when the receiver changes.
+//  All arithmetic is f32 FMA (1e-7 of scale against the plain version).  x,
+//  sh and attrs may be f32 or bf16; masks bool or f32, read as they come.
+//  Where it stands: 4 to 10 times its bound per conv.  A block has three or
+//  four tiles of work on the serving shapes, so its start-up (masks, compaction,
+//  the first gather: three round trips to device memory) is a quarter of its
+//  life, and a tile waits on three barriers with eight warps a block; at
+//  F = 160 the weights and tiles leave room for one block per SM only.  The
+//  products are not the limit: run on the tensor cores (3xTF32 mma.sync, inside
+//  the f32 tolerance) the kernel was 7 to 32% slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TN = 8;           // receivers per block
-constexpr int MC = 8;           // senders per chunk
-constexpr int EDGES = TN * MC;  // edges per chunk
-constexpr int HMAX = 64;        // widest hidden layer (a W2 column lives in registers)
-constexpr int SH_STRIDE = 12;   // padded harmonics row in shared memory
-constexpr int J_MAX = 5;        // harmonic components of one path (l_sh <= 2)
+constexpr int TN = 8;            // receivers per block
+constexpr int ROWS = 32;         // live edges per tile
+constexpr int MS_MAX = 128;      // senders per block
+constexpr int HP = 64;           // padded hidden width (pitch of W1)
+constexpr int SH_STRIDE = 12;    // padded harmonics row in shared memory
+constexpr int J_MAX = 5;         // harmonic components of one path (l_sh <= 2)
 constexpr int G_SIZE = 3 * J_MAX * 3;  // alpha*cg padded to (i < 3, j < 5, k < 3)
-constexpr int MAX_THREADS = 256;
+constexpr int T_SIZE = 12;       // t[i][k] of one (edge, path), k padded to 4
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int RT = ROWS / WARPS;  // rows per warp = rows per thread tile
+constexpr int NC_MAX = 5;         // F <= 160
+constexpr int MAX_PATHS = 16;
+constexpr int MAX_SMEM = 227 * 1024;
+
+static_assert(RT == 4, "the register tiles assume four rows per warp");
+static_assert(WARPS == TN, "the compaction gives each receiver a warp");
+static_assert(THREADS / 8 == ROWS, "the gather gives each row eight threads");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) tp_fused_kernel(
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The shared-memory layout, in floats, the same on the host and the device.
+struct Layout {
+  int w1, b1, w2, b2, g, poff, x, mask, edges, a, wt, sh, t, total;
+};
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_paths, int MS,
+                                              int NC) {
+  Layout L;
+  int o = 0;
+  L.w1 = o;    o += E * HP;
+  L.b1 = o;    o += HP;
+  L.w2 = o;    o += H * 32 * NC;
+  L.b2 = o;    o += 32 * NC;
+  L.g = o;     o += pad4(n_paths * G_SIZE);
+  L.poff = o;  o += MAX_PATHS;
+  L.x = o;     o += MS * pad4(D);
+  L.mask = o;  o += C * TN * MS;
+  L.edges = o; o += pad4(TN * MS / 2 + 1) + 12;   // the live edges (16 bits each), then 9 prefix counts
+  L.a = o;     o += 2 * C * ROWS * E;             // two stages
+  L.wt = o;    o += ROWS * 32 * NC;
+  L.sh = o;    o += 2 * ROWS * SH_STRIDE;         // two stages
+  L.t = o;     o += ROWS * n_paths * T_SIZE;
+  L.total = o;
+  return L;
+}
+
+template <typename T, int NC>
+__global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const T* __restrict__ x,         // (B, M, D) sender features
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ attr0,     // (B, N, M, E) edge attributes, channel 0
     const T* __restrict__ attr1,     // (B, N, M, E) channel 1 (read when C == 2)
-    const float* __restrict__ mask,  // (C, B, N, M)
+    const void* __restrict__ mask0,  // (B, N, M) bool or f32
+    const void* __restrict__ mask1,  // (B, N, M) (read when C == 2)
     const float* __restrict__ w1,    // (E, H)
     const float* __restrict__ b1,    // (H)
     const float* __restrict__ w2,    // (H, F)
     const float* __restrict__ b2,    // (F)
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
-    float* __restrict__ out,         // (B, N, F, 4)
-    int B, int N, int M, int D, int S, int C, int E, int H, int F, int n_paths) {
+    float* __restrict__ dst,         // out (B, N, F, 4), or the partial sums (splits, B, N, F, 4)
+    int B, int N, int M, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
+    int mask_is_f32) {
   extern __shared__ __align__(16) float smem[];
-  float* s_hid = smem;                             // EDGES * HMAX
-  float* s_w1 = s_hid + EDGES * HMAX;              // E * H
-  float* s_b1 = s_w1 + E * H;                      // HMAX
-  float* s_g = s_b1 + HMAX;                        // n_paths * G_SIZE
-  float* s_attr = s_g + n_paths * G_SIZE;          // C * EDGES * E
-  float* s_mask = s_attr + C * EDGES * E;          // C * EDGES
-  float* s_msum = s_mask + C * EDGES;              // EDGES
-  float* s_live = s_msum + EDGES;                  // EDGES
-  float* s_sh = s_live + EDGES;                    // EDGES * SH_STRIDE
-  float* s_x = s_sh + EDGES * SH_STRIDE;           // MC * D
+  constexpr int FP = 32 * NC;
+  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC);
+  float* s_w1 = smem + L.w1;
+  float* s_b1 = smem + L.b1;
+  float* s_w2 = smem + L.w2;
+  float* s_b2 = smem + L.b2;
+  float* s_g = smem + L.g;
+  int* s_poff = reinterpret_cast<int*>(smem + L.poff);          // sh_off of each path
+  float* s_x = smem + L.x;                                      // [ml][DP]
+  float* s_mask = smem + L.mask;                                // [c][nl * MS + ml]
+  uint16_t* s_edges = reinterpret_cast<uint16_t*>(smem + L.edges);   // nl << 8 | ml, receiver-major
+  int* s_pref = reinterpret_cast<int*>(smem + L.edges + pad4(TN * MS / 2 + 1));  // live edges before nl
+  float* s_a = smem + L.a;                                      // [stage][c][row][E]
+  float* s_wt = smem + L.wt;                                    // [row][FP]
+  float* s_sh = smem + L.sh;                                    // [stage][row][SH_STRIDE]
+  float* s_t = smem + L.t;                                      // [row][path][i][4]
 
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * TN;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z;
+  const int n0 = blockIdx.y * TN;
+  // the block's senders are m0, m0 + mstep, ...: interleaved with the other splits'
+  const int m0 = blockIdx.x, mstep = gridDim.x;
+  const int ms = (M - m0 + mstep - 1) / mstep;   // senders of this block, <= MS
+  const int DP = pad4(D);
 
-  for (int i = tid; i < E * H; i += nt) s_w1[i] = w1[i];
-  for (int i = tid; i < HMAX; i += nt) s_b1[i] = i < H ? b1[i] : 0.f;
-  for (int i = tid; i < n_paths * G_SIZE; i += nt) s_g[i] = gtab[i];
-
+  // ---- resident operands: the weights and sender features (asynchronously:
+  // they are first needed by the first tile's products), tables, masks.
+  // Columns past H and F are never read back.
+  if (F % 4 == 0) {
+    for (int i = tid; i < E * (H / 4); i += THREADS) {
+      const int k = i / (H / 4), q = i - k * (H / 4);
+      cp_async16(s_w1 + k * HP + 4 * q, w1 + k * H + 4 * q);
+    }
+    for (int i = tid; i < H * (F / 4); i += THREADS) {
+      const int k = i / (F / 4), q = i - k * (F / 4);
+      cp_async16(s_w2 + k * FP + 4 * q, w2 + k * F + 4 * q);
+    }
+  } else {
+    for (int i = tid; i < E * H; i += THREADS) s_w1[(i / H) * HP + i % H] = w1[i];
+    for (int i = tid; i < H * F; i += THREADS) s_w2[(i / F) * FP + i % F] = w2[i];
+  }
+  for (int ml = tid >> 3; ml < ms; ml += THREADS / 8) {
+    const T* src = x + ((size_t)b * M + m0 + ml * mstep) * D;
+    for (int d = tid & 7; d < D; d += 8) {
+      if (sizeof(T) == 4) cp_async4(s_x + ml * DP + d, src + d);
+      else s_x[ml * DP + d] = to_f(src[d]);
+    }
+  }
+  cp_async_commit();
+  for (int i = tid; i < HP; i += THREADS) s_b1[i] = i < H ? b1[i] : 0.f;
+  for (int i = tid; i < FP; i += THREADS) s_b2[i] = i < F ? b2[i] : 0.f;
+  for (int i = tid; i < n_paths * G_SIZE; i += THREADS) s_g[i] = gtab[i];
+  for (int i = tid; i < 2 * ROWS * SH_STRIDE; i += THREADS) s_sh[i] = 0.f;   // the pad lanes stay 0
+  for (int i = tid; i < C * TN * MS; i += THREADS) {
+    const int c = i / (TN * MS);
+    const int r = i - c * TN * MS;
+    const int nl = r / MS, ml = r - nl * MS;     // ml fastest: along M in memory
+    const int n = n0 + nl;
+    float v = 0.f;
+    if (n < N && ml < ms) {
+      const size_t at = ((size_t)b * N + n) * M + m0 + ml * mstep;
+      const void* mp = c == 0 ? mask0 : mask1;
+      v = mask_is_f32 ? static_cast<const float*>(mp)[at]
+                      : (static_cast<const uint8_t*>(mp)[at] ? 1.f : 0.f);
+    }
+    s_mask[i] = v;
+  }
   const int f = tid;
   const bool active = f < F;
   const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);
-  float w2c[HMAX];
-#pragma unroll
-  for (int h = 0; h < HMAX; ++h) w2c[h] = (active && h < H) ? w2[h * F + f] : 0.f;
-  const float b2f = active ? b2[f] : 0.f;
+  if (active) s_poff[cm.w] = cm.z;               // the same value from every channel of a path
+  __syncthreads();
+
+  // ---- compaction: warp nl lists receiver nl's live senders, in order
+  auto live_ballot = [&](int nl, int ml) {
+    bool live = ml < MS && s_mask[nl * MS + ml] != 0.f;
+    if (C == 2) live = live || (ml < MS && s_mask[TN * MS + nl * MS + ml] != 0.f);
+    return __ballot_sync(0xffffffffu, live);
+  };
+  {
+    int count = 0;
+    for (int base = 0; base < MS; base += 32) count += __popc(live_ballot(warp, base + lane));
+    if (lane == 0) s_pref[warp + 1] = count;
+    if (tid == 0) s_pref[0] = 0;
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int nl = 0; nl < TN; ++nl) s_pref[nl + 1] += s_pref[nl];
+  __syncthreads();
+  {
+    int at = s_pref[warp];
+    for (int base = 0; base < MS; base += 32) {
+      const unsigned bal = live_ballot(warp, base + lane);
+      if (bal >> lane & 1)
+        s_edges[at + __popc(bal & ((1u << lane) - 1))] = (uint16_t)(warp << 8 | (base + lane));
+      at += __popc(bal);
+    }
+  }
+  __syncthreads();
+  const int total = s_pref[TN];
+
+  // gather a tile's attribute rows and harmonics (asynchronously for f32
+  // inputs; bf16 inputs are converted on the way in); eight threads per row
+  auto gather_tile = [&](int stage, int first) {
+    const int row = tid >> 3, sub = tid & 7;
+    if (first + row >= total) return;
+    const int e = s_edges[first + row];
+    const size_t edge = ((size_t)b * N + n0 + (e >> 8)) * M + m0 + (e & 255) * mstep;
+    for (int c = 0; c < C; ++c) {
+      const T* src = (c == 0 ? attr0 : attr1) + edge * E;
+      float* arow = s_a + ((size_t)(stage * C + c) * ROWS + row) * E;
+      if (sizeof(T) == 4) {
+        for (int q = sub; q < E / 4; q += 8) cp_async16(arow + 4 * q, src + 4 * q);
+      } else {
+        for (int k = sub; k < E; k += 8) arow[k] = to_f(src[k]);
+      }
+    }
+    float* srow = s_sh + (stage * ROWS + row) * SH_STRIDE;
+    for (int j = sub; j < S; j += 8) {
+      if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
+      else srow[j] = to_f(sh[edge * S + j]);
+    }
+  };
+
   float acc[TN][3];
 #pragma unroll
   for (int nl = 0; nl < TN; ++nl) acc[nl][0] = acc[nl][1] = acc[nl][2] = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    // ---- stage the chunk: masks, attributes, harmonics, sender features
-    for (int e = tid; e < EDGES; e += nt) {
-      const int n = n0 + e / MC, m = m0 + e % MC;
-      const bool ok = n < N && m < M;
-      float sum = 0.f, live = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float v = ok ? mask[((size_t)(c * B + b) * N + n) * M + m] : 0.f;
-        s_mask[c * EDGES + e] = v;
-        sum += v;
-        live = (v != 0.f) ? 1.f : live;
-      }
-      s_msum[e] = sum;
-      s_live[e] = live;
-    }
-    for (int i = tid; i < C * EDGES * E; i += nt) {
-      const int c = i / (EDGES * E);
-      const int r = i - c * EDGES * E;
-      const int e = r / E, k = r - e * E;
-      const int n = n0 + e / MC, m = m0 + e % MC;
-      const T* a = c == 0 ? attr0 : attr1;
-      s_attr[i] = (n < N && m < M) ? to_f(a[(((size_t)b * N + n) * M + m) * E + k]) : 0.f;
-    }
-    for (int i = tid; i < EDGES * SH_STRIDE; i += nt) {
-      const int e = i / SH_STRIDE, j = i - e * SH_STRIDE;
-      const int n = n0 + e / MC, m = m0 + e % MC;
-      s_sh[i] = (n < N && m < M && j < S) ? to_f(sh[(((size_t)b * N + n) * M + m) * S + j]) : 0.f;
-    }
-    for (int i = tid; i < MC * D; i += nt) {
-      const int ml = i / D, d = i - ml * D;
-      const int m = m0 + ml;
-      s_x[i] = m < M ? to_f(x[((size_t)b * M + m) * D + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // ---- masked hidden sum: hid[e,h] = sum_c mask_c[e] relu(attr_c[e] W1 + b1)[h]
-    for (int o = tid; o < EDGES * HMAX; o += nt) {
-      const int e = o / HMAX, h = o - e * HMAX;
-      float hs = 0.f;
-      if (h < H && s_live[e] != 0.f) {
-        for (int c = 0; c < C; ++c) {
-          const float mc = s_mask[c * EDGES + e];
-          if (mc == 0.f) continue;
-          const float* a = s_attr + (c * EDGES + e) * E;
-          float pre = s_b1[h];
-          for (int k = 0; k < E; ++k) pre = fmaf(a[k], s_w1[k * H + h], pre);
-          hs = fmaf(mc, fmaxf(pre, 0.f), hs);
-        }
-      }
-      s_hid[o] = hs;
-    }
-    __syncthreads();
-
-    // ---- per channel: edge weights, TP contraction, sum over senders
-    if (active) {
-      const float* G = s_g + cm.w * G_SIZE;
-      for (int ml = 0; ml < MC && m0 + ml < M; ++ml) {
-        float y[3];
+  // the running sums of the receiver whose rows are being walked
+  int cur = 0;
+  float r0s = 0.f, r1s = 0.f, r2s = 0.f;
+  auto flush = [&](int to) {
 #pragma unroll
-        for (int i = 0; i < 3; ++i) y[i] = i < cm.y ? s_x[ml * D + cm.x + i] : 0.f;
-        float z[J_MAX][3];
+    for (int nl = 0; nl < TN; ++nl) {
+      if (nl == cur) {
+        acc[nl][0] += r0s;
+        acc[nl][1] += r1s;
+        acc[nl][2] += r2s;
+      }
+    }
+    cur = to;
+    r0s = r1s = r2s = 0.f;
+  };
+
+  gather_tile(0, 0);
+  cp_async_commit();
+
+  for (int first = 0, stage = 0; first < total; first += ROWS, stage ^= 1) {
+    const int rows = min(ROWS, total - first);
+    gather_tile(stage ^ 1, first + ROWS);        // the next tile's loads
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // ---- t[r, p][i, k] = sum_j G_p[i, j, k] sh[r, sh_off(p) + j]
+    for (int i = tid; i < rows * n_paths; i += THREADS) {
+      const int r = i / n_paths, p = i - r * n_paths;
+      const float* G = s_g + p * G_SIZE;
+      const float* sv = s_sh + (stage * ROWS + r) * SH_STRIDE + s_poff[p];
+      float svj[J_MAX];
+#pragma unroll
+      for (int j = 0; j < J_MAX; ++j) svj[j] = sv[j];
+      float* tp = s_t + (size_t)i * T_SIZE;
+#pragma unroll
+      for (int ii = 0; ii < 3; ++ii) {
+        float tk[3] = {0.f, 0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < J_MAX; ++j)
 #pragma unroll
-          for (int k = 0; k < 3; ++k)
-            z[j][k] = G[(0 * J_MAX + j) * 3 + k] * y[0] + G[(1 * J_MAX + j) * 3 + k] * y[1] +
-                      G[(2 * J_MAX + j) * 3 + k] * y[2];
+          for (int k = 0; k < 3; ++k) tk[k] = fmaf(G[(ii * J_MAX + j) * 3 + k], svj[j], tk[k]);
+        *reinterpret_cast<float4*>(tp + 4 * ii) = make_float4(tk[0], tk[1], tk[2], 0.f);
+      }
+    }
+
+    const int r0 = warp * RT;
+    if (r0 < rows) {
+      float mrow[2][RT];                          // the rows' masks; 0 past the tile's end
 #pragma unroll
-        for (int nl = 0; nl < TN; ++nl) {
-          const int e = nl * MC + ml;
-          if (s_live[e] == 0.f) continue;
-          const float4* hv = reinterpret_cast<const float4*>(s_hid + e * HMAX);
-          float w = s_msum[e] * b2f;
+      for (int i = 0; i < RT; ++i) {
+        const bool ok = r0 + i < rows;
+        const int e = ok ? s_edges[first + r0 + i] : 0;
+        const int at = (e >> 8) * MS + (e & 255);
+        mrow[0][i] = ok ? s_mask[at] : 0.f;
+        mrow[1][i] = ok && C == 2 ? s_mask[TN * MS + at] : 0.f;
+      }
+      // ---- hid[r, h] = sum_c mask_c[r] relu(A_c[r, :] W1 + b1)[h]
+      float hs[RT][2];
 #pragma unroll
-          for (int q = 0; q < HMAX / 4; ++q) {
-            const float4 hq = hv[q];
-            w = fmaf(hq.x, w2c[4 * q + 0], w);
-            w = fmaf(hq.y, w2c[4 * q + 1], w);
-            w = fmaf(hq.z, w2c[4 * q + 2], w);
-            w = fmaf(hq.w, w2c[4 * q + 3], w);
+      for (int i = 0; i < RT; ++i) hs[i][0] = hs[i][1] = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float* A = s_a + ((size_t)(stage * C + c) * ROWS + r0) * E;
+        float pre[RT][2];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
+#pragma unroll 5
+        for (int k = 0; k < E; k += 4) {
+          float4 av[RT];
+#pragma unroll
+          for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * E + k);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float wa = s_w1[(k + kk) * HP + lane];
+            const float wb = s_w1[(k + kk) * HP + lane + 32];
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+              const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+              pre[i][0] = fmaf(a, wa, pre[i][0]);
+              pre[i][1] = fmaf(a, wb, pre[i][1]);
+            }
           }
-          const float* sv = s_sh + e * SH_STRIDE + cm.z;
-          float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+        }
 #pragma unroll
-          for (int j = 0; j < J_MAX; ++j) {
-            const float s = sv[j];
-            g0 = fmaf(z[j][0], s, g0);
-            g1 = fmaf(z[j][1], s, g1);
-            g2 = fmaf(z[j][2], s, g2);
+        for (int i = 0; i < RT; ++i) {
+          // rows past the tile's end hold stale data: their mask is 0 and relu drops a NaN
+          const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+          hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[lane], 0.f), hs[i][0]);
+          hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[lane + 32], 0.f), hs[i][1]);
+        }
+      }
+      // the hidden rows take the place of the warp's own rows of A (H <= E)
+      float* hid = s_a + ((size_t)(stage * C) * ROWS + r0) * E;
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const bool ok = r0 + i < rows;
+        if (lane < H) hid[i * E + lane] = ok ? hs[i][0] : 0.f;
+        if (lane + 32 < H) hid[i * E + lane + 32] = ok ? hs[i][1] : 0.f;
+      }
+      __syncwarp();
+
+      // ---- w[r, f] = hid[r, :] W2 + msum[r] b2
+      float wacc[RT][NC];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) wacc[i][c] = 0.f;
+#pragma unroll 5
+      for (int k = 0; k < H; k += 4) {
+        float4 hv[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+          hv[i] = *reinterpret_cast<const float4*>(hid + i * E + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float wv[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) wv[c] = s_w2[(k + kk) * FP + lane + 32 * c];
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) wacc[i][c] = fmaf(h, wv[c], wacc[i][c]);
           }
-          acc[nl][0] = fmaf(w, g0, acc[nl][0]);
-          acc[nl][1] = fmaf(w, g1, acc[nl][1]);
-          acc[nl][2] = fmaf(w, g2, acc[nl][2]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float msum = mrow[0][i] + mrow[1][i];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          s_wt[(r0 + i) * FP + lane + 32 * c] = fmaf(msum, s_b2[lane + 32 * c], wacc[i][c]);
+      }
+    }
+    __syncthreads();
+
+    // ---- the channel's share of every row, summed receiver by receiver
+    if (active) {
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) {
+        const int e = s_edges[first + r];
+        if ((e >> 8) != cur) flush(e >> 8);
+        const float w = s_wt[r * FP + f];
+        const float* xr = s_x + (e & 255) * DP + cm.x;
+        const float* tp = s_t + (r * n_paths + cm.w) * T_SIZE;
+        const float4 t0 = *reinterpret_cast<const float4*>(tp);
+        const float g0 = w * xr[0];
+        r0s = fmaf(g0, t0.x, r0s);
+        r1s = fmaf(g0, t0.y, r1s);
+        r2s = fmaf(g0, t0.z, r2s);
+        if (cm.y == 3) {
+          const float4 t1 = *reinterpret_cast<const float4*>(tp + 4);
+          const float4 t2 = *reinterpret_cast<const float4*>(tp + 8);
+          const float g1 = w * xr[1], g2 = w * xr[2];
+          r0s = fmaf(g2, t2.x, fmaf(g1, t1.x, r0s));
+          r1s = fmaf(g2, t2.y, fmaf(g1, t1.y, r1s));
+          r2s = fmaf(g2, t2.z, fmaf(g1, t1.z, r2s));
         }
       }
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
 
   if (active) {
+    flush(0);
+    float4* o = reinterpret_cast<float4*>(dst) + (size_t)blockIdx.x * B * N * F;
 #pragma unroll
     for (int nl = 0; nl < TN; ++nl) {
       const int n = n0 + nl;
-      if (n < N)
-        reinterpret_cast<float4*>(out)[((size_t)b * N + n) * F + f] =
-            make_float4(acc[nl][0], acc[nl][1], acc[nl][2], 0.f);
+      if (n < N) o[((size_t)b * N + n) * F + f] = make_float4(acc[nl][0], acc[nl][1], acc[nl][2], 0.f);
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* sh, const void* attr0, const void* attr1,
-           const float* mask, const float* w1, const float* b1, const float* w2,
-           const float* b2, const int* chan, const float* gtab, float* out, int B, int N,
-           int M, int D, int S, int C, int E, int H, int F, int n_paths, cudaStream_t stream) {
-  const int threads = ((F + 31) / 32) * 32 < 128 ? 128 : ((F + 31) / 32) * 32;
-  const size_t floats = (size_t)EDGES * HMAX + (size_t)E * H + HMAX + (size_t)n_paths * G_SIZE +
-                        (size_t)C * EDGES * E + (size_t)C * EDGES + 2 * EDGES +
-                        (size_t)EDGES * SH_STRIDE + (size_t)MC * D;
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tp_fused_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TN - 1) / TN, B);
-  tp_fused_kernel<T><<<grid, threads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(attr0),
-      static_cast<const T*>(attr1), mask, w1, b1, w2, b2, reinterpret_cast<const int4*>(chan),
-      gtab, out, B, N, M, D, S, C, E, H, F, n_paths);
+// out[i] = sum over the sender splits, in order.
+__global__ void tp_fused_kernel_sum_splits(const float4* __restrict__ part, float4* __restrict__ out,
+                                       int total, int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float4 s = part[i];
+  for (int k = 1; k < splits; ++k) {
+    const float4 v = part[(size_t)k * total + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+  }
+  s.w = 0.f;
+  out[i] = s;
+}
+
+struct Args {
+  const void *x, *sh, *attr0, *attr1, *mask0, *mask1;
+  const float *w1, *b1, *w2, *b2;
+  const int* chan;
+  const float* gtab;
+  float *out, *part;
+  int B, N, M, D, S, C, E, H, F, n_paths, MS, mask_is_f32;
+};
+
+template <typename T, int NC>
+int launch(const Args& a, cudaStream_t stream) {
+  static bool allowed = false;   // the attribute is set once per instantiation
+  if (!allowed) {
+    cudaError_t err = cudaFuncSetAttribute(tp_fused_kernel<T, NC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC);
+  const size_t bytes = (size_t)L.total * sizeof(float);
+  if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int splits = (a.M + a.MS - 1) / a.MS;
+  const dim3 grid(splits, (a.N + TN - 1) / TN, a.B);
+  float* dst = splits > 1 ? a.part : a.out;
+  tp_fused_kernel<T, NC><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
+      static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.w1, a.b1, a.w2, a.b2,
+      reinterpret_cast<const int4*>(a.chan), a.gtab, dst, a.B, a.N, a.M, a.D, a.S, a.C, a.E, a.H,
+      a.F, a.n_paths, a.MS, a.mask_is_f32);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int total = a.B * a.N * a.F;
+  tp_fused_kernel_sum_splits<<<(total + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(a.part), reinterpret_cast<float4*>(a.out), total, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_nc(const Args& a, cudaStream_t stream) {
+  switch ((a.F + 31) / 32) {
+    case 1:
+    case 2: return launch<T, 2>(a, stream);
+    case 3: return launch<T, 3>(a, stream);
+    case 4: return launch<T, 4>(a, stream);
+    case 5: return launch<T, 5>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t value: 0 when the launch was accepted.
+// Returns a cudaError_t value: 0 when the launch was accepted.  `part` holds
+// (ceil(M / MS), B, N, F, 4) floats when the senders are split (MS < M), else
+// it is not read.
 int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* attr1,
-                const float* mask, const float* w1, const float* b1, const float* w2,
-                const float* b2, const int* chan, const float* gtab, float* out, int B, int N,
-                int M, int D, int S, int C, int E, int H, int F, int n_paths, int bf16,
-                void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 1 || H < 1 || H > HMAX || C < 1 || C > 2 ||
-      S < 1 || S > SH_STRIDE || F < 1 || F > MAX_THREADS || n_paths < 1 || B > 65535)
+                const void* mask0, const void* mask1, const float* w1, const float* b1,
+                const float* w2, const float* b2, const int* chan, const float* gtab, float* out,
+                float* part, int B, int N, int M, int D, int S, int C, int E, int H, int F,
+                int n_paths, int MS, int mask_is_f32, int bf16, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > HP || H > E ||
+      C < 1 ||
+      C > 2 || S < 1 || S > SH_STRIDE || F < 1 || F > 32 * NC_MAX || n_paths < 1 || n_paths > MAX_PATHS ||
+      B > 65535 ||
+      (N + TN - 1) / TN > 65535 || MS < 1 || MS > MS_MAX || (MS < M && part == nullptr))
     return (int)cudaErrorInvalidValue;
+  const Args a{x, sh, attr0, attr1, mask0, mask1, w1, b1, w2, b2, chan, gtab, out, part,
+               B, N, M, D, S, C, E, H, F, n_paths, MS, mask_is_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, sh, attr0, attr1, mask, w1, b1, w2, b2, chan, gtab, out, B,
-                                 N, M, D, S, C, E, H, F, n_paths, st);
-  return launch<float>(x, sh, attr0, attr1, mask, w1, b1, w2, b2, chan, gtab, out, B, N, M, D,
-                       S, C, E, H, F, n_paths, st);
+  return bf16 ? launch_nc<__nv_bfloat16>(a, st) : launch_nc<float>(a, st);
 }
 
 const char* dp_cuda_error_string(int code) {

@@ -13,8 +13,9 @@ into the per-irrep blocks.  The training branch of ``DenseTPConv`` runs it
 (the fused kernel K1 has no dropout and no backward).
 
 :func:`tp_aggregate` launches the kernels for CUDA tensors, forward and,
-through :class:`TPAggregate`, backward (``dw`` and ``dsh`` per edge in one
-kernel, ``dx`` per sender in another), and runs :func:`tp_aggregate_plain`,
+through :class:`TPAggregate`, backward (``dw`` per edge and, where the
+harmonics carry gradient, ``dsh`` per edge in one kernel, ``dx`` per sender
+in another), and runs :func:`tp_aggregate_plain`,
 the same function in plain PyTorch under autograd, for CPU tensors.
 ``FWD``, ``BWD_EDGE`` and ``BWD_X`` count the launches.
 """
@@ -31,7 +32,7 @@ import torch.nn.functional as Fn
 
 from . import build
 from .tensor_product import ChannelwiseTP
-from .tp_fused import K_PAD, _check_tp, _device_tables, _Kernel
+from .tp_fused import K_PAD, TARGET_BLOCKS, TILE_N, _check_tp, _device_tables, _Kernel
 
 FWD = _Kernel()        # tp_aggregate_fwd_kernel
 BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
@@ -80,11 +81,49 @@ def _device_backward_tables(tp: ChannelwiseTP, device: str):
 
 
 @functools.lru_cache(maxsize=None)
+def _dsh_segments(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray]:
+    """Per harmonic component s, the paths whose harmonics reach it: extents
+    ``seg_ptr`` (S + 1) into ``seg`` (rows path index, j = s - sh_off, in path
+    order).  ``dsh[..., s]`` is the sum of term j of every listed path."""
+    sh_slices = tp.irreps_sh.slices()
+    rows = [[] for _ in range(tp.irreps_sh.dim)]
+    for q, p in enumerate(tp.paths):
+        off = sh_slices[p.i_sh].start
+        for j in range(2 * p.l_sh + 1):
+            rows[off + j].append((q, j))
+    seg_ptr = np.zeros(len(rows) + 1, np.int32)
+    seg_ptr[1:] = np.cumsum([len(r) for r in rows])
+    seg = np.array([it for r in rows for it in r] or [(0, 0)], np.int32)
+    return seg_ptr, seg
+
+
+@functools.lru_cache(maxsize=None)
+def _device_dsh_segments(tp: ChannelwiseTP, device: str):
+    return tuple(torch.as_tensor(t, device=device) for t in _dsh_segments(tp))
+
+
+EDGE_SENDERS = (16, 8, 4, 2)   # senders a block of the edge backward may take
+
+
+@functools.lru_cache(maxsize=None)
+def plan_edge_senders(B: int, N: int, M: int) -> int:
+    """Senders per block of the edge backward on (B, N, M): the most of
+    ``EDGE_SENDERS`` that still gives ``TARGET_BLOCKS`` blocks of (batch row,
+    ``TILE_N`` receivers, that many senders), else the fewest.  The kernel
+    takes any count from 1 to 16."""
+    tiles = B * -(-N // TILE_N)
+    for mt in EDGE_SENDERS:
+        if tiles * -(-M // mt) >= TARGET_BLOCKS:
+            return mt
+    return EDGE_SENDERS[-1]
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_aggregate")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dp_tp_aggregate_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
-    lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 9 + [p]
     lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 9 + [i] * 7 + [p]
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x):
         fn.restype = i
@@ -147,17 +186,22 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                          g: torch.Tensor, need_dsh: bool
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dw, dsh or None) from the per-edge backward kernel."""
+    """(dw, dsh or None) from the per-edge backward: a kernel for dw alone,
+    which does not read w, or, when dsh is asked for, one that computes both
+    in one pass over w (its dw differs from the other's by summation order)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
     dev = str(x.device)
     chan, gtab = _device_tables(tp, dev)
     ptab, _, _ = _device_backward_tables(tp, dev)
+    seg_ptr, seg = _device_dsh_segments(tp, dev)
     dw = torch.empty_like(w)
     dsh = torch.empty_like(sh) if need_dsh else None
     rc = _library().dp_tp_aggregate_bwd_edge(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
-        ptab.data_ptr(), gtab.data_ptr(), dw.data_ptr(), dsh.data_ptr() if need_dsh else None,
-        B, N, M, D, S, F, gtab.shape[0], _stream(x.device))
+        ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(), dw.data_ptr(),
+        dsh.data_ptr() if need_dsh else None,
+        B, N, M, D, S, F, gtab.shape[0], plan_edge_senders(B, N, M), seg.shape[0],
+        _stream(x.device))
     _raise_on(rc, "tp_aggregate_bwd_edge")
     BWD_EDGE.launches += 1
     return dw, dsh

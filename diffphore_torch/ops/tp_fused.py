@@ -33,6 +33,13 @@ from .wigner import wigner_3j
 K_PAD = 4         # output lanes per channel (l_out <= 1)
 _J_MAX = 5        # harmonic components of one path in the kernel's tables
 _SH_STRIDE = 12   # the kernel's padded harmonics row
+TILE_N = 8        # receivers per block of the kernel
+MAX_SENDERS = 96  # most senders one block takes
+MIN_SENDERS = 4   # fewest, when the grid would otherwise leave SMs idle
+MAX_F = 160       # widest edge-weight row the kernel's register tiles hold
+MAX_H = 64        # widest hidden layer (and no wider than the edge attributes)
+MAX_PATHS = 16    # most tensor-product paths
+TARGET_BLOCKS = 2 * 132   # two blocks for each SM of an H100
 
 
 class _Kernel:
@@ -120,10 +127,26 @@ def _device_tables(tp: ChannelwiseTP, device: str) -> Tuple[torch.Tensor, torch.
 
 
 @functools.lru_cache(maxsize=None)
+def plan_senders(B: int, N: int, M: int) -> Tuple[int, int]:
+    """(senders per block, sender splits) of a launch on (B, N, M).
+
+    A block takes one batch row, ``TILE_N`` receivers and every
+    ``splits``-th sender.  It takes as many as the kernel allows
+    (``MAX_SENDERS``) unless that leaves fewer than ``TARGET_BLOCKS``
+    blocks; then fewer, down to ``MIN_SENDERS``, and the partial sums of the
+    splits are added by a second kernel.  One split needs no scratch buffer.
+    """
+    tiles = B * -(-N // TILE_N)
+    splits_wanted = -(-TARGET_BLOCKS // tiles)
+    per_block = min(M, MAX_SENDERS, max(MIN_SENDERS, M // splits_wanted))
+    return per_block, -(-M // per_block)
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_fused.argtypes = [p] * 12 + [i] * 11 + [p]
+    lib.dp_tp_fused.argtypes = [p] * 14 + [i] * 13 + [p]
     lib.dp_tp_fused.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -143,7 +166,10 @@ def tp_aggregate_fused(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.  x, sh and attrs share one dtype, f32 or bf16; the MLP
-    parameters are f32; masks are bool or float.  The kernel has no
+    parameters are f32; masks are all bool or all f32 and are read as they
+    come.  A launch is the main kernel and, when the senders are split across
+    blocks (:func:`plan_senders`), a second one that adds the splits' partial
+    sums in order; it counts once.  The kernel has no
     backward: with grad mode on and an input that requires grad it raises
     (training goes through ``ops.tp_aggregate``); the plain version on CPU
     tensors stays differentiable.
@@ -186,21 +212,31 @@ def tp_aggregate_fused(
     for m in masks:
         if tuple(m.shape) != (B, N, M):
             raise ValueError(f"tp_aggregate_fused: mask {tuple(m.shape)}, expected {(B, N, M)}")
+        if m.dtype != masks[0].dtype or m.dtype not in (torch.bool, torch.float32):
+            raise TypeError("tp_aggregate_fused: masks must all be bool or all be f32")
+    if E % 4 or H % 4 or H > min(E, MAX_H) or F > MAX_F or len(tp.paths) > MAX_PATHS:
+        raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
+                         f"H <= min(E, {MAX_H}), F = {F} <= {MAX_F}, at most {MAX_PATHS} paths")
+    if any(t.data_ptr() % 16 for t in (*attrs, w1, w2)):
+        raise ValueError("tp_aggregate_fused: attrs, w1 and w2 must be 16-byte aligned")
     if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)) != ((H,), (H, F), (F,)):
         raise ValueError("tp_aggregate_fused: edge-MLP parameter shapes")
     if any(t.dtype != torch.float32 for t in (w1, b1, w2, b2)):
         raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
 
-    mask = torch.stack([m.to(torch.float32) for m in masks], 0)   # (C, B, N, M)
     chan, gtab = _device_tables(tp, str(dev))
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=dev)
+    per_block, splits = plan_senders(B, N, M)
+    part = (torch.empty((splits, B, N, F, K_PAD), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
     lib = _library()
-    attr1 = attrs[1] if C == 2 else attrs[0]
     rc = lib.dp_tp_fused(
-        x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attr1.data_ptr(), mask.data_ptr(),
+        x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attrs[-1].data_ptr(),
+        masks[0].data_ptr(), masks[-1].data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
-        gtab.data_ptr(), out.data_ptr(),
-        B, N, M, D, S, C, E, H, F, gtab.shape[0], int(dt == torch.bfloat16),
+        gtab.data_ptr(), out.data_ptr(), part.data_ptr() if splits > 1 else None,
+        B, N, M, D, S, C, E, H, F, gtab.shape[0], per_block,
+        int(masks[0].dtype == torch.float32), int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused launch failed: {lib.dp_cuda_error_string(rc).decode()}")

@@ -106,6 +106,91 @@ def test_tp_fused_raises_under_grad(cuda):
         tp_fused.tp_aggregate_fused(tp, x, sh, [attr], [mask], w1, b1, w2, b2)
 
 
+def _k1_inputs(sig, cuda, B, N, M, n_chan, keep=0.7, seed=0):
+    irr_in, irr_out, irr_sh, E = SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    rng = np.random.default_rng(seed)
+    F = tp.weight_numel
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, M, tp.irreps_in.dim)))
+    sh = t(rng.normal(size=(B, N, M, tp.irreps_sh.dim)))
+    attrs = [t(rng.normal(size=(B, N, M, E))) for _ in range(n_chan)]
+    masks = [torch.from_numpy(rng.random((B, N, M)) < keep).to(cuda) for _ in range(n_chan)]
+    params = (t(rng.normal(size=(E, E)) * 0.2), t(rng.normal(size=(E,)) * 0.1),
+              t(rng.normal(size=(E, F)) * 0.2), t(rng.normal(size=(F,)) * 0.1))
+    return tp, x, sh, attrs, masks, params
+
+
+#: (B, N, M): one split; senders split and ragged (M = 96 + 1, N not a
+#: multiple of the receiver tile); one receiver; one batch row, many splits
+K1_SHAPES = [(2, 24, 24), (3, 21, 97), (5, 1, 24), (1, 96, 96), (2, 8, 24), (1, 9, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K1_SHAPES)
+@pytest.mark.parametrize("sig,n_chan", [("layer0", 1), ("layer3", 2), ("final_conv", 1),
+                                        ("tor_bond_conv", 2)])
+def test_tp_fused_sender_split_and_ragged_shapes(cuda, shape, sig, n_chan):
+    """The sender split (partial sums added by the second kernel), ragged
+    receiver tiles and sender ranges, N = 1 and B = 1, with sparse masks (0.3
+    of the edges live: tiles span several senders): f32 within 1e-4 of scale,
+    bf16 within 3e-2, two runs equal to the bit, one launch counted per call."""
+    B, N, M = shape
+    tp, x, sh, attrs, masks, params = _k1_inputs(sig, cuda, B, N, M, n_chan, keep=0.3)
+    ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params)
+    before = tp_fused.KERNEL.launches
+    got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+    again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+    bf = torch.bfloat16
+    got_bf = tp_fused.tp_aggregate_fused(tp, x.to(bf), sh.to(bf), [a.to(bf) for a in attrs],
+                                         masks, *params)
+    torch.cuda.synchronize()
+    assert tp_fused.KERNEL.launches == before + 3
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+    assert float((got_bf - ref).abs().max()) <= 3e-2 * scale
+    assert torch.equal(got, again)
+    assert float(got[..., 3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_fused_dead_rows_and_float_masks(cuda, dtype):
+    """A receiver row with every edge dead gives exact zeros, a batch row
+    with no live edge at all too, and float masks (weights, not only 0 / 1)
+    are read as they come and agree with the plain version."""
+    tp, x, sh, attrs, masks, params = _k1_inputs("layer2", cuda, 3, 24, 96, 2)
+    for m in masks:
+        m[0, 5] = False          # one receiver without senders
+        m[1] = False             # one batch row without edges
+    fmasks = [m.to(torch.float32) * 0.5 for m in masks]
+    if dtype == "bf16":
+        cast = lambda v: v.to(torch.bfloat16)
+        tol = 3e-2
+    else:
+        cast = lambda v: v
+        tol = 1e-4
+    for mk in (masks, fmasks):
+        ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, mk, *params)
+        got = tp_fused.tp_aggregate_fused(tp, cast(x), cast(sh), [cast(a) for a in attrs], mk,
+                                          *params)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+        assert float(got[0, 5].abs().max()) == 0.0
+        assert float(got[1].abs().max()) == 0.0
+    with pytest.raises(TypeError):   # mixed mask types
+        tp_fused.tp_aggregate_fused(tp, x, sh, attrs, [masks[0], fmasks[1]], *params)
+
+
+@pytest.mark.cuda
+def test_tp_fused_all_edges_dead(cuda):
+    tp, x, sh, attrs, masks, params = _k1_inputs("layer1", cuda, 2, 10, 40, 1)
+    masks = [torch.zeros_like(masks[0])]
+    got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+    torch.cuda.synchronize()
+    assert float(got.abs().max()) == 0.0
+
+
 def _k2_inputs(sig, cuda, B=3, N=37, M=29, seed=0):
     irr_in, irr_out, irr_sh, _ = SIGNATURES[sig]
     tp = channelwise_tp(irr_in, irr_sh, irr_out)
@@ -164,7 +249,43 @@ def test_tp_aggregate_is_deterministic_and_skips_unneeded_grads(cuda):
     out = tp_aggregate.tp_aggregate(tp, x, sh, w_only)
     (dw,) = torch.autograd.grad(out, [w_only], g)
     assert tp_aggregate.BWD_X.launches == before
-    assert torch.equal(dw, runs[0][3])
+    # the dw-only kernel and the one that also computes dsh sum in another order
+    assert float((dw - runs[0][3]).abs().max()) <= 1e-5 * float(dw.abs().max())
+
+
+#: (B, N, M) of the edge backward: every sender tile size of its planning,
+#: ragged receiver tiles and an odd number of senders
+K2_EDGE_SHAPES = [(3, 37, 29), (24, 24, 96), (2, 1, 24), (1, 9, 3), (40, 8, 24), (12, 24, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K2_EDGE_SHAPES)
+@pytest.mark.parametrize("sig", ["layer1", "layer3", "final_conv", "tor_bond_conv"])
+@pytest.mark.parametrize("need_dsh", [True, False])
+def test_tp_aggregate_edge_backward_shapes(cuda, shape, sig, need_dsh):
+    """dw and dsh of the edge backward against autograd through the plain
+    version (1e-4 of scale), dsh on and off (two kernels whose dw differ by
+    summation order only), reruns equal to the bit."""
+    tp, x, sh, w, g = _k2_inputs(sig, cuda, *shape)
+    leaves = [v.clone().requires_grad_(True) for v in (sh, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, x, *leaves)
+    lanes = torch.zeros_like(g)
+    for p in tp.paths:
+        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g * lanes)
+
+    dw, dsh = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, need_dsh)
+    dw2, dsh2 = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, need_dsh)
+    dw_other, _ = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, not need_dsh)
+    torch.cuda.synchronize()
+    assert float((dw - ref_dw).abs().max()) <= 1e-4 * float(ref_dw.abs().max())
+    assert torch.equal(dw, dw2)
+    assert float((dw_other - ref_dw).abs().max()) <= 1e-4 * float(ref_dw.abs().max())
+    if need_dsh:
+        assert float((dsh - ref_dsh).abs().max()) <= 1e-4 * float(ref_dsh.abs().max())
+        assert torch.equal(dsh, dsh2)
+    else:
+        assert dsh is None and dsh2 is None
 
 
 @pytest.mark.cuda

@@ -33,6 +33,8 @@ TRAINING_MODULES = [
     "cli/profile_train_step.py",
     # the calibrated-sampler slice
     "ops/tp_scalar.py", "train/ccsampler.py", "sampler/sampling.py", "cli/pipeline.py",
+    # the kernel profiler
+    "cli/profile_kernels.py",
 ]
 
 

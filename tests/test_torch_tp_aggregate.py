@@ -132,3 +132,60 @@ def test_fused_plain_stays_differentiable_on_cpu():
     out = tp_fused.tp_aggregate_fused(ttp, x, sh, [attr], [mask], w1, b1, w2, b2)
     (grad,) = torch.autograd.grad(out.sum(), [w1])
     assert grad.shape == w1.shape and float(grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("shape,expected", [
+    ((24, 24, 96), 16), ((24, 96, 96), 16), ((24, 96, 24), 16), ((24, 24, 24), 4),
+    ((24, 1, 24), 2), ((24, 8, 24), 2), ((3, 37, 29), 2), ((2000, 24, 24), 16)])
+def test_plan_edge_senders(shape, expected):
+    """The most senders per block that still gives two blocks per SM, else
+    the fewest the kernel's pairs of senders allow."""
+    B, N, M = shape
+    mt = tp_aggregate.plan_edge_senders(B, N, M)
+    assert mt == expected and mt in tp_aggregate.EDGE_SENDERS
+    blocks = B * -(-N // tp_fused.TILE_N) * -(-M // mt)
+    assert blocks >= tp_fused.TARGET_BLOCKS or mt == min(tp_aggregate.EDGE_SENDERS)
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+def test_dsh_segments_reproduce_the_harmonics_gradient(sig):
+    """The dsh kernel's list of (path, term) per harmonic component: every
+    term of every path stands once, under the component of sh it reads, and
+    adding the paths' partial sums as the kernel does gives autograd's dsh."""
+    ttp = t_channelwise_tp(*SIGNATURES[sig])
+    seg_ptr, seg = tp_aggregate._dsh_segments(ttp)
+    chan, gtab = tp_fused._tables(ttp)
+    ptab, _, _ = tp_aggregate._backward_tables(ttp)
+    S = ttp.irreps_sh.dim
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == len(seg) == sum(2 * p.l_sh + 1 for p in ttp.paths)
+    listed = set()
+    for s in range(S):
+        for q, j in seg[seg_ptr[s]:seg_ptr[s + 1]]:
+            assert chan[ptab[q, 0], 2] + j == s and j < ptab[q, 2]
+            listed.add((int(q), int(j)))
+    assert listed == {(q, j) for q, p in enumerate(ttp.paths) for j in range(2 * p.l_sh + 1)}
+
+    B, N, M = 1, 2, 3
+    _, _, x, sh, w = _inputs(sig, B, N, M, seed=5)
+    rng = np.random.default_rng(6)
+    g = rng.normal(size=(B, N, ttp.weight_numel, 4)).astype(np.float32)
+    for p in ttp.paths:
+        g[:, :, p.w_slice[0]:p.w_slice[1], 2 * p.l_out + 1:] = 0.0
+    leaf = T(sh).requires_grad_(True)
+    out = tp_aggregate.tp_aggregate_plain(ttp, T(x), leaf, T(w))
+    (ref,) = torch.autograd.grad(out, [leaf], T(g))
+    # the paths' partial sums: part[q][b,n,m,j] = sum_u w[f] sum_i P[n,f,i,j] x[m,x_base(f)+i]
+    P = np.einsum("fijk,bnfk->bnfij", gtab[chan[:, 3]], g[..., :3])
+    part = []
+    for f0, count, d_sh, _ in ptab:
+        acc = np.zeros(sh.shape[:3] + (5,), np.float32)
+        for f in range(f0, f0 + count):
+            x_base, d_in = chan[f, 0], chan[f, 1]
+            t = np.einsum("bnij,bmi->bnmj", P[:, :, f, :d_in], x[:, :, x_base:x_base + d_in])
+            acc += w[..., f, None] * t
+        part.append(acc)
+    got = np.zeros_like(sh)
+    for s in range(S):
+        for q, j in seg[seg_ptr[s]:seg_ptr[s + 1]]:
+            got[..., s] += part[q][..., j]
+    assert_close(got, ref.numpy(), 2e-5, f"{sig} dsh from the paths' partial sums")

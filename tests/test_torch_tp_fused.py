@@ -127,3 +127,53 @@ def test_rejects_l2_irreps():
                                      torch.zeros(4, 4), torch.zeros(4), torch.zeros(4, 8),
                                      torch.zeros(8))
 
+
+
+#: (B, N, M) of the serving forward's convs (40 poses of a 24 x 96 x 8
+#: complex), then ragged and tiny shapes
+PLAN_SHAPES = [(40, 24, 24), (40, 24, 96), (40, 96, 96), (40, 96, 24), (40, 1, 24), (40, 8, 24),
+               (1, 96, 96), (3, 37, 29), (1, 9, 3), (2, 21, 97), (512, 24, 96), (1, 1, 1),
+               (2, 24, 300)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_senders_covers_the_senders_and_fills_the_card(shape):
+    """The sender split of a K1 launch: the ranges tile [0, M) without an
+    empty block, stay within the kernel's limits, and give two blocks per SM
+    wherever MIN_SENDERS senders per block allow it."""
+    B, N, M = shape
+    per_block, splits = ttp.plan_senders(B, N, M)
+    assert 1 <= per_block <= ttp.MAX_SENDERS
+    assert splits * per_block >= M > (splits - 1) * per_block
+    tiles = B * -(-N // ttp.TILE_N)
+    if splits > 1:                       # never fewer senders than the floor allows
+        assert per_block >= min(M, ttp.MIN_SENDERS)
+    if tiles * splits < ttp.TARGET_BLOCKS:   # short of the target only at the floor
+        assert per_block <= ttp.MIN_SENDERS or M <= ttp.MIN_SENDERS
+    if tiles * -(-M // ttp.MAX_SENDERS) >= ttp.TARGET_BLOCKS:   # wide enough: most senders
+        assert splits == -(-M // ttp.MAX_SENDERS)
+
+
+@pytest.mark.parametrize("n_chan", [1, 2])
+def test_float_masks_weigh_the_hidden_sum_and_the_bias(n_chan):
+    """Masks are read as they come: a float mask is a weight on its
+    channel's hidden activations and on b2, as in the function's definition;
+    a bool mask is the weights 0 and 1."""
+    _, tp_t, (x, sh, attrs, masks, w1, b1, w2, b2) = _inputs("layer1", n_chan)
+    rng = np.random.default_rng(7)
+    weights = [m * rng.random(m.shape).astype(np.float32) for m in masks]
+    t = torch.from_numpy
+    got = ttp.tp_aggregate_fused(tp_t, t(x), t(sh), [t(a) for a in attrs],
+                                 [t(v.astype(np.float32)) for v in weights],
+                                 t(w1), t(b1), t(w2), t(b2)).numpy()
+    hid = sum(np.maximum(a @ w1 + b1, 0.0) * v[..., None] for a, v in zip(attrs, weights))
+    w = hid @ w2 + sum(weights)[..., None] * b2
+    blocks = tp_t.aggregate(t(x), t(sh), t(w.astype(np.float32)))
+    ref = ttp.blocks_from_padded(tp_t, torch.from_numpy(got))
+    for b_ref, b_got in zip(blocks, ref):
+        if b_ref is not None:
+            _close(b_got.numpy(), b_ref.numpy(), f"float masks, C = {n_chan}")
+    as_bool = _port(tp_t, (x, sh, attrs, masks, w1, b1, w2, b2)).numpy()
+    as_float = _port(tp_t, (x, sh, attrs, [m.astype(np.float32) for m in masks],
+                            w1, b1, w2, b2)).numpy()
+    np.testing.assert_array_equal(as_bool, as_float)
