@@ -30,8 +30,10 @@ Phases, each fatal on failure:
      kernel (K2: dw + dsh per edge, dx per sender; K3: dw, dsh, dx) against
      the plain version and autograd through it, require two runs to agree to
      the bit (dw is held from both edge kernels, with and without dsh), time kernels
-     (graph replay), plain and, for K3, the one einsum call, and print each
-     edge backward with dsh beside its norm twin's (dw only, same shapes).
+     (graph replay), plain and, for K3, the one einsum call, print the grid
+     and the split of the summed axis of K2's forward and dx for each conv,
+     and each edge backward with dsh beside its norm twin's (dw only, same
+     shapes).
   6. training path: (c) one train step with the kernels against the same
      step with the plain convs, same noise and dropout masks: loss and every
      parameter gradient; (b) 30 steps on one fixed batch with fixed noise and
@@ -464,14 +466,21 @@ def phase_k2_check(calls):
             "bwd_x": cuda_ms(lambda: torch.autograd.grad(ref, [leaves[0]], g,
                                                          retain_graph=True), 3),
         }
+        grid = {}
+        for k, kept in (("fwd", N), ("bwd_x", M)):
+            splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device)
+            grid[k] = (B * -(-kept // k2.KEEP) * splits, splits)
         work = k2_work(tp, x, sh, w, sh_grad)
         bound = {}
         for k, (nbytes, ops) in work.items():
             t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
             bound[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
         cases.append({"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad, "errs": errs,
-                      "ms": ms, "call_ms_bwd_edge": call_ms, "plain_ms": plain, "bound": bound})
+                      "ms": ms, "call_ms_bwd_edge": call_ms, "plain_ms": plain, "bound": bound,
+                      "grid": grid})
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F:3d} dsh={int(sh_grad)} "
+              f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} sender splits), dx grid "
+              f"{grid['bwd_x'][0]} blocks ({grid['bwd_x'][1]} receiver splits) "
               f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
               f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
               f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}) | ms kernel/plain/bound: "
@@ -489,6 +498,16 @@ def phase_k2_check(calls):
     return cases
 
 
+# The CUDA kernels behind each K2 wrapper: the first always runs; the second
+# adds the splits of the summed axis (forward, dx) or replaces the first
+# where the harmonics need a gradient (edge backward).
+K2_DEVICE_KERNELS = {
+    "fwd": ["tp_aggregate_fwd_kernel", "tp_aggregate_sum_splits"],
+    "bwd_edge": ["tp_aggregate_bwd_edge_kernel", "tp_aggregate_bwd_edge_kernel_dsh"],
+    "bwd_x": ["tp_aggregate_bwd_x_kernel", "tp_aggregate_sum_splits"],
+}
+
+
 def k2_kernel_entries(cases, launches):
     """The report entries of K2's three kernels, summed over one step's convs."""
     labels = {"fwd": ("out",), "bwd_edge": ("dw", "dsh"), "bwd_x": ("dx",)}
@@ -499,6 +518,7 @@ def k2_kernel_entries(cases, launches):
             by[c["bound"][k][1]] += c["bound"][k][0]
         entries.append({
             "name": f"tp_aggregate_{k}",
+            "device_kernels": K2_DEVICE_KERNELS[k],
             "route": "cuda",
             "source": "diffphore_torch/csrc/tp_aggregate.cu",
             "replaces": "diffphore_tpu/ops/pallas/tp_aggregate.py:88",
@@ -511,8 +531,11 @@ def k2_kernel_entries(cases, launches):
             "bound_ms": sum(c["bound"][k][0] for c in cases),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
             "library_ms": None,
-            "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay)",
+            "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay); "
+                    "a call runs the first of device_kernels and, where noted there, the second",
         })
+        if k != "bwd_edge":
+            entries[-1]["splits"] = [c["grid"][k][1] for c in cases]
     return entries
 
 

@@ -2,21 +2,26 @@
 
     python -m diffphore_torch.cli.profile_kernels
 
-Runs K1 (``ops.tp_fused``) and K2's edge backward (``ops.tp_aggregate``) on
-synthetic inputs at the shapes of the main paths (serving: 40 poses of a
-24 x 96 x 8 complex; training: batch 24 of that bucket; corpus2 widths)
-under ``torch.profiler`` and prints one JSON object per case: the device
-time of each CUDA kernel of the call, in microseconds per call.  A call of
-either wrapper may launch two kernels, which the per-call times of
-``chip_smoke.py`` do not tell apart.  Padded graphs keep their live atoms
-and phore points first, so the masks here are live on the first ``live_n``
-receivers and ``live_m`` senders.  It is the quick way to compare two
-versions of a kernel: run it on both trees in one call on one card.  It
-needs a GPU and fails without one.
+Runs K1 (``ops.tp_fused``) and K2 (``ops.tp_aggregate``: its forward, its
+edge backward and its dx) on synthetic inputs at the shapes of the main
+paths (serving: 40 poses of a 24 x 96 x 8 complex; training: batch 24 of
+that bucket; corpus2 widths) under ``torch.profiler`` and prints one JSON
+object per case: the device time of each CUDA kernel of the call, in
+microseconds per call.  A call of a wrapper may launch two kernels, which
+the per-call times of ``chip_smoke.py`` do not tell apart.  Padded graphs
+keep their live atoms and phore points first, so the masks (and K2's
+pre-masked edge weights) here are live on the first ``live_n`` receivers
+and ``live_m`` senders.  It is the quick way to compare two versions of a
+kernel: run it on both trees in one call on one card (the K2 forward and
+dx cases call only ``launch_forward`` and ``launch_backward_x``, which
+every version of the port has).  It needs a GPU and fails without one.
+
+    python -m diffphore_torch.cli.profile_kernels [--k2_only]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -35,6 +40,24 @@ K1_CASES = [(0, 40, 24, 96, 20, 32), (3, 40, 24, 96, 20, 32), (2, 40, 96, 24, 32
             (2, 40, 96, 96, 32, 32), (3, 40, 24, 24, 20, 20)]
 #: (conv layer, B, N, M) of the edge backward with dsh at the training shapes
 EDGE_CASES = [(1, 24, 24, 96), (2, 24, 96, 24), (3, 24, 24, 96)]
+#: (conv name, in irreps, sh irreps, out irreps, B, N, M, live_n, live_m) of
+#: K2's forward and dx at the distinct shapes of the 17 training convs (batch
+#: 24, corpus2 widths); live_n x live_m / (N x M) is near the share of live
+#: edges those convs have (11-48%)
+K2_CASES = [
+    ("lig_conv_1", SEQ[1], SH, SEQ[2], 24, 24, 24, 10, 9),
+    ("lig_conv_2", SEQ[2], SH, SEQ[3], 24, 24, 24, 10, 9),
+    ("lig_conv_3", SEQ[3], SH, SEQ[3], 24, 24, 24, 10, 9),
+    ("phore_to_lig_conv_1", SEQ[1], SH, SEQ[2], 24, 24, 96, 20, 42),
+    ("phore_to_lig_conv_2", SEQ[2], SH, SEQ[3], 24, 24, 96, 20, 42),
+    ("phore_to_lig_conv_3", SEQ[3], SH, SEQ[3], 24, 24, 96, 20, 42),
+    ("phore_conv_1", SEQ[1], SH, SEQ[2], 24, 96, 96, 32, 32),
+    ("phore_conv_2", SEQ[2], SH, SEQ[3], 24, 96, 96, 32, 32),
+    ("lig_to_phore_conv_1", SEQ[1], SH, SEQ[2], 24, 96, 24, 42, 20),
+    ("lig_to_phore_conv_2", SEQ[2], SH, SEQ[3], 24, 96, 24, 42, 20),
+    ("final_conv", SEQ[3], SH, "2x1o + 2x1e", 24, 1, 24, 1, 12),
+    ("tor_bond_conv", SEQ[3], "1x1o + 1x0e + 1x1e", "20x0o + 20x0e", 24, 8, 24, 4, 7),
+]
 
 
 def _device_us(event) -> float:
@@ -55,7 +78,11 @@ def kernel_times(fn) -> dict:
             for e in prof.key_averages() if "tp_" in e.key and _device_us(e) > 0}
 
 
-def main() -> list:
+def main(argv=None) -> list:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--k2_only", action="store_true",
+                        help="only K2's forward and dx cases (to compare two trees)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -67,6 +94,23 @@ def main() -> list:
         return torch.randn(*shape, device="cuda", generator=gen)
 
     results = []
+    for name, irr_in, irr_sh, irr_out, B, N, M, live_n, live_m in K2_CASES:
+        tp = channelwise_tp(irr_in, irr_sh, irr_out)
+        F = tp.weight_numel
+        x, sh = randn(B, M, tp.irreps_in.dim), randn(B, N, M, tp.irreps_sh.dim)
+        w = torch.zeros(B, N, M, F, device="cuda")
+        w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
+        g = randn(B, N, F, 4)
+        for kernel, call in (("tp_aggregate_fwd", lambda: tp_aggregate.launch_forward(tp, x, sh, w)),
+                             ("tp_aggregate_bwd_x",
+                              lambda: tp_aggregate.launch_backward_x(tp, x, sh, w, g))):
+            times = kernel_times(call)
+            results.append({"kernel": kernel, "conv": name, "B": B, "N": N, "M": M, "F": F,
+                            "live_edges": B * live_n * live_m, "edges": B * N * M,
+                            "us": times, "us_total": sum(times.values()), "card": card})
+            print(json.dumps(results[-1]), flush=True)
+    if args.k2_only:
+        return results
     for layer, B, N, M, live_n, live_m in K1_CASES:
         tp = channelwise_tp(SEQ[layer], SH, SEQ[min(layer + 1, 3)])
         F = tp.weight_numel
@@ -90,7 +134,8 @@ def main() -> list:
         results.append({"kernel": "tp_aggregate_bwd_edge with dsh", "B": B, "N": N, "M": M, "F": F,
                         "us": times, "card": card})
     for r in results:
-        print(json.dumps(r))
+        if r["kernel"] not in ("tp_aggregate_fwd", "tp_aggregate_bwd_x"):
+            print(json.dumps(r))
     return results
 
 

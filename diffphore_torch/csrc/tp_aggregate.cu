@@ -18,40 +18,64 @@
 //                  * sum_{j,k} G[i,j,k] sh[b,n,m,sh_off+j] g[b,n,f,k]
 //
 // What bounds it on an H100.  Device memory: w (B,N,M,F) is the large operand
-// (106 MB for the widest phore convolution of a 24-complex batch) and each
-// kernel reads or writes it exactly once, coalesced along F; x, sh, g and the
-// outputs are small beside it.  The arithmetic (about 50 f32 operations per
-// edge and channel) stays under the byte bound except where few edges are live.
+// (106 MB for the widest phore convolution of a 24-complex batch, 446 MB over
+// the 17 training convolutions) and each kernel reads or writes it exactly
+// once; x, sh, g and the outputs are small beside it.  Counted as
+// chip_smoke.py's k2_work counts them (each operand read once, each result
+// written once, products on live edges), the forward and dx are bound by those
+// bytes on every training convolution (0.156 ms each over the 17 of a step at
+// 3.35 TB/s), with the arithmetic (about 50 f32 operations per live edge and
+// channel) 3 to 10 times under it; so is the edge backward.  Only 11-48% of
+// the edges are live: a dead edge's row of w is zero.
 //
-// Design (no tensor cores, no TMA):
-//  * thread = channel f, as in the fused kernel; its path's alpha*cg block is a
-//    (3,5,3) table in shared memory;
-//  * forward: one block per (batch row, tile of TN receivers), a loop over
-//    sender chunks of MC whose harmonics and sender features are staged in
-//    shared memory;
-//  * the edge backward (dw, and dsh when asked for) sums over no edges, so its
-//    grid tiles receivers and senders both and fills the card on every shape;
-//    dsh sums over channels; where it is asked for, another kernel computes
-//    dw and dsh in one pass over w with the roles turned: one block per (batch
-//    row, receiver, 32 senders), warp = path, lane = sender walking the path's
-//    channels, w staged through shared memory, so that no sum over channels
-//    crosses threads;
-//  * dx sums over receivers and over the channels that read one input element:
-//    the roles of N and M swap (block = batch row x tile of TM senders, loop
-//    over receiver chunks), each thread keeps its channel's 3 input components
-//    for TM senders in registers, and a last pass adds the channels of each
-//    input element in the fixed order of a host-built list;
-//  * no atomics anywhere: every output element is written once by one thread,
-//    so two runs on the same inputs agree to the bit.
+// Forward and dx: one design, the summed axis split across blocks.
+//  * A block keeps KEEP = 8 entries of one axis (receivers for the forward,
+//    senders for dx) of one batch row, and takes every `splits`-th entry of
+//    the summed axis (senders, receivers): split k takes k, k + splits, ...,
+//    because padded graphs keep their live atoms and phore points first and
+//    contiguous ranges would load the splits unevenly.  The host picks the
+//    splits so that the grid fills every block slot the card has at these
+//    widths (an occupancy query; two blocks per SM at least), N = 1, N = 8 and
+//    B = 1 included, while each split keeps a tile of work.  Split blocks
+//    write partial sums to a scratch buffer that a second kernel adds in a
+//    fixed order; one split writes the result.  No atomics: two runs
+//    agree to the bit.
+//  * A tile is 4 entries of the summed axis x the 8 kept ones: 32 edges.  Its
+//    rows of w (F contiguous floats each, 16-byte cp.async), harmonics and the
+//    per-entry operand (sender features, or the receiver's upstream gradient)
+//    go into a two-stage ring in shared memory: one tile is in flight while
+//    one computes, and every (n, m) pair is read by one block only.
+//  * Per (edge, path), once for all the path's channels: t[i,k] = sum_j
+//    G_p[i,j,k] sh[j] (warp = edge, lane = (path, i)).  The warp first ORs the
+//    edge's row of w: a dead edge is marked so and costs no further
+//    instruction (a warp's vote over the marks gives each thread the
+//    tile's live edges as the bits of one word).  Then thread = (channel,
+//    half of the kept entries) walks the live bits: the forward adds w *
+//    sum_i x[m, x_base+i] t[i,:] to the receiver's three sums, dx adds w *
+//    sum_k t[i,k] g[n,f,k] to the sender's; the entry's x or g sits in
+//    registers for its 4 edges.
+//  * dx then adds the channels that read one input element, in the order of
+//    a host-built list (d_ptr / d_item, copied into shared memory at the
+//    start), inside the block: the partial sums of a split are (B, M, D),
+//    smaller than per-channel ones.
+//  * The edge backward (dw, and dsh when asked for) sums over no edges and has
+//    kernels of its own, below.
+//  Where they stand (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, the
+//  17 convs of a training step at batch 24, graph replay): forward 0.64 ms
+//  and dx 0.76 ms, 4.1x and 4.9x the byte bound (the first design, one
+//  block per (batch row, 8 receivers) and a serial walk over the summed
+//  axis: 3.0 and 2.4 ms).  What holds them back is a tile's chain of
+//  dependent steps (wait, barrier, the edge pass, barrier, the channel pass),
+//  not the bytes: the ring alone, without the arithmetic, moved 1.1-2.0 TB/s.
+//  Resident blocks are what helped (two stages beat three; splits that fill
+//  every slot); bulk copies (TMA) of each row of w ran slower than cp.async.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TN = 8;           // receivers per block (forward, edge backward)
-constexpr int MC = 8;           // senders per staged chunk (forward)
-constexpr int TM = 8;           // senders per block (dx)
-constexpr int NC = 8;           // receivers per staged chunk (dx)
+constexpr int TN = 8;           // receivers per block (edge backward)
 constexpr int SH_STRIDE = 12;   // padded harmonics row in shared memory
 constexpr int J_MAX = 5;        // harmonic components of one path (l_sh <= 2)
 constexpr int G_SIZE = 3 * J_MAX * 3;  // alpha*cg padded to (i < 3, j < 5, k < 3)
@@ -84,76 +108,18 @@ __device__ __forceinline__ void stage_sh(float* s_sh, const float* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS) tp_aggregate_fwd_kernel(
-    const float* __restrict__ x,     // (B, M, D) sender features
-    const float* __restrict__ sh,    // (B, N, M, S) edge harmonics
-    const float* __restrict__ w,     // (B, N, M, F) pre-masked edge weights
-    const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
-    const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
-    float* __restrict__ out,         // (B, N, F, 4)
-    int N, int M, int D, int S, int F, int n_paths) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_g = smem;                          // n_paths * G_SIZE
-  float* s_sh = s_g + n_paths * G_SIZE;       // TN * MC * SH_STRIDE
-  float* s_x = s_sh + TN * MC * SH_STRIDE;    // MC * D
-
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * TN;
-  for (int i = tid; i < n_paths * G_SIZE; i += nt) s_g[i] = gtab[i];
-
-  const int f = tid;
-  const bool active = f < F;
-  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);
-  const float* G = s_g + cm.w * G_SIZE;
-  float acc[TN][3];
-#pragma unroll
-  for (int nl = 0; nl < TN; ++nl) acc[nl][0] = acc[nl][1] = acc[nl][2] = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    stage_sh(s_sh, sh, b, N, M, S, n0, TN, m0, MC, tid, nt);
-    for (int i = tid; i < MC * D; i += nt) {
-      const int m = m0 + i / D;
-      s_x[i] = m < M ? x[((size_t)b * M + m) * D + (i % D)] : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      for (int ml = 0; ml < MC && m0 + ml < M; ++ml) {
-        float z[J_MAX][3];
-        node_product(G, s_x + ml * D, cm.x, cm.y, z);
-#pragma unroll
-        for (int nl = 0; nl < TN; ++nl) {
-          const int n = n0 + nl;
-          if (n >= N) continue;
-          const float wv = w[(((size_t)b * N + n) * M + (m0 + ml)) * F + f];
-          if (wv == 0.f) continue;
-          const float* sv = s_sh + (nl * MC + ml) * SH_STRIDE + cm.z;
-          float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-#pragma unroll
-          for (int j = 0; j < J_MAX; ++j) {
-            const float s = sv[j];
-            g0 = fmaf(z[j][0], s, g0);
-            g1 = fmaf(z[j][1], s, g1);
-            g2 = fmaf(z[j][2], s, g2);
-          }
-          acc[nl][0] = fmaf(wv, g0, acc[nl][0]);
-          acc[nl][1] = fmaf(wv, g1, acc[nl][1]);
-          acc[nl][2] = fmaf(wv, g2, acc[nl][2]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-#pragma unroll
-    for (int nl = 0; nl < TN; ++nl) {
-      const int n = n0 + nl;
-      if (n < N)
-        reinterpret_cast<float4*>(out)[((size_t)b * N + n) * F + f] =
-            make_float4(acc[nl][0], acc[nl][1], acc[nl][2], 0.f);
-    }
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // dw for every edge and channel, where dsh is not asked for.  It sums over no
@@ -408,98 +374,317 @@ __global__ void tp_aggregate_bwd_edge_kernel_dsh(
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS) tp_aggregate_bwd_x_kernel(
+// ---- forward and dx: the summed axis split across blocks (head note) ----
+
+constexpr int KEEP = 8;                 // receivers (forward) or senders (dx) a block keeps
+constexpr int TILE_SUM = 4;             // entries of the summed axis per tile
+constexpr int ROWS = KEEP * TILE_SUM;   // edges per tile, row r = (r / KEEP, r % KEEP)
+constexpr int HALVES = 2;               // threads per channel, each keeps KEEP / HALVES entries
+constexpr int QK = KEEP / HALVES;
+constexpr int STAGES = 2;               // the ring: one tile in flight while one computes
+constexpr int T_SIZE = 12;              // t[i][k] of one (edge, path), k padded to 4
+constexpr int MAX_PATHS = 16;
+constexpr int SPLIT_THREADS = HALVES * MAX_THREADS;
+
+static_assert(ROWS == 32, "a warp's vote gives a tile's live edges, one bit a lane");
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// The shared-memory layout in floats, the same on the host and the device.
+// A stage holds a tile's rows of w, its harmonics and its per-entry operand
+// (x rows of the forward's senders, g rows of dx's receivers).
+struct SplitLayout {
+  int w, sh, side, stage, t, g, poff, live, dlist, total;
+};
+
+__host__ __device__ inline SplitLayout split_layout(bool dx, int F, int D, int n_paths,
+                                                    int n_items) {
+  SplitLayout L;
+  int o = 0;
+  L.w = o;    o += ROWS * pad4(F);
+  L.sh = o;   o += ROWS * SH_STRIDE;
+  L.side = o; o += dx ? TILE_SUM * 4 * F : TILE_SUM * pad4(D);
+  L.stage = pad4(o);
+  o = STAGES * L.stage;
+  L.t = o;    o += ROWS * n_paths * T_SIZE;
+  L.g = o;    o += pad4(n_paths * G_SIZE);
+  L.poff = o; o += MAX_PATHS;
+  L.live = o; o += ROWS;
+  L.dlist = o; o += dx ? pad4(D + 1) + pad4(n_items) : 0;   // dx: d_ptr, then d_item
+  L.total = o;
+  return L;
+}
+
+template <bool DX>
+__device__ __forceinline__ void split_body(
+    const float* __restrict__ x, const float* __restrict__ sh, const float* __restrict__ w,
+    const float* __restrict__ g, const int4* __restrict__ chan, const int4* __restrict__ ptab,
+    const float* __restrict__ gtab, const int* __restrict__ d_ptr,
+    const int* __restrict__ d_item, float* __restrict__ dst, int B, int N, int M, int D, int S,
+    int F, int n_paths, int n_items, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const SplitLayout L = split_layout(DX, F, D, n_paths, n_items);
+  float* s_t = smem + L.t;
+  float* s_g = smem + L.g;
+  int* s_poff = reinterpret_cast<int*>(smem + L.poff);          // sh_off of each path
+  int* s_live = reinterpret_cast<int*>(smem + L.live);           // a tile's rows: live or not
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int split = blockIdx.x, splits = gridDim.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * KEEP;
+  const int n_keep = DX ? M : N, n_sum = DX ? N : M;
+  const int count = split < n_sum ? (n_sum - split + splits - 1) / splits : 0;
+  const int tiles = (count + TILE_SUM - 1) / TILE_SUM;
+  const int FP = pad4(F), DP = pad4(D);
+
+  // The edge of row r of a tile, or -1 past the ragged ends.
+  auto edge_of = [&](int tile, int r) -> long long {
+    const int o = tile * TILE_SUM + r / KEEP, k = k0 + r % KEEP;
+    if (o >= count || k >= n_keep) return -1;
+    const int s = split + o * splits;
+    return ((long long)b * N + (DX ? s : k)) * M + (DX ? k : s);
+  };
+
+  auto load_tile = [&](int tile) {
+    if (tile < tiles) {
+      float* st = smem + (tile % STAGES) * L.stage;
+      for (int r = warp; r < ROWS; r += nwarps) {
+        const long long e = edge_of(tile, r);
+        if (e < 0) continue;
+        const float* src = w + e * F;
+        float* d = st + L.w + r * FP;
+        if (vec) {
+          for (int c = lane; c < F / 4; c += 32) cp_async16(d + 4 * c, src + 4 * c);
+        } else {
+          for (int c = lane; c < F; c += 32) cp_async4(d + c, src + c);
+        }
+        if (lane < S) cp_async4(st + L.sh + r * SH_STRIDE + lane, sh + e * S + lane);
+      }
+      for (int o = warp; o < TILE_SUM; o += nwarps) {
+        const int oo = tile * TILE_SUM + o;
+        if (oo >= count) continue;
+        const int s = split + oo * splits;
+        if (DX) {   // the receiver's upstream gradient, F float4
+          const float* src = g + ((size_t)b * N + s) * F * 4;
+          float* d = st + L.side + o * 4 * F;
+          if (vec) {
+            for (int c = lane; c < F; c += 32) cp_async16(d + 4 * c, src + 4 * c);
+          } else {
+            for (int c = lane; c < 4 * F; c += 32) cp_async4(d + c, src + c);
+          }
+        } else {    // the sender's features
+          const float* src = x + ((size_t)b * M + s) * D;
+          float* d = st + L.side + o * DP;
+          for (int c = lane; c < D; c += 32) cp_async4(d + c, src + c);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the first tiles' loads go out before anything else
+  for (int i = tid; i < STAGES * ROWS * SH_STRIDE; i += nt) {   // pad lanes of the harmonics
+    const int st = i / (ROWS * SH_STRIDE), j = i % SH_STRIDE;
+    if (j >= S) smem[st * L.stage + L.sh + i % (ROWS * SH_STRIDE)] = 0.f;
+  }
+#pragma unroll 1
+  for (int s = 0; s < STAGES - 1; ++s) load_tile(s);
+  for (int i = tid; i < n_paths * G_SIZE; i += nt) s_g[i] = gtab[i];
+  if (tid < n_paths) s_poff[tid] = chan[ptab[tid].x].z;
+  int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
+  int* s_ditem = s_dptr + pad4(D + 1);
+  if (DX) {
+    for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
+    for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
+  }
+
+  // thread = (channel, half of the kept entries)
+  const int c32 = 32 * ((F + 31) / 32);
+  const int half = tid / c32, f = tid - half * c32;
+  const bool active = f < F && half < HALVES;
+  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);
+  const int d_out = active ? ptab[cm.w].w : 0;
+  const int tq = cm.w * T_SIZE;
+  float acc[QK][3];
+#pragma unroll
+  for (int q = 0; q < QK; ++q) acc[q][0] = acc[q][1] = acc[q][2] = 0.f;
+
+  // warp = edge: mark it live or not and form t for every (path, i) of the
+  // live: lane = item p * 3 + i (zero rows of G where i >= d_in)
+  const int items = 3 * n_paths;
+  auto t_pass = [&](int tile) {
+    const float* st = smem + (tile % STAGES) * L.stage;
+    for (int r = warp; r < ROWS; r += nwarps) {
+      bool live = false;
+      if (edge_of(tile, r) >= 0) {
+        const float* wr = st + L.w + r * FP;
+        if (vec) {
+          for (int c = lane; c < F / 4; c += 32) {
+            const float4 v = *reinterpret_cast<const float4*>(wr + 4 * c);
+            live |= (v.x != 0.f) | (v.y != 0.f) | (v.z != 0.f) | (v.w != 0.f);
+          }
+        } else {
+          for (int c = lane; c < F; c += 32) live |= wr[c] != 0.f;
+        }
+      }
+      live = __any_sync(0xffffffffu, live);
+      if (lane == 0) s_live[r] = live;
+      if (!live) continue;
+      const float* sv = st + L.sh + r * SH_STRIDE;
+      float* tr = s_t + r * n_paths * T_SIZE;
+      for (int it = lane; it < items; it += 32) {
+        const int p = it / 3;
+        const float* G = s_g + it * J_MAX * 3;
+        const float* svp = sv + s_poff[p];
+        float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < J_MAX; ++j) {
+          const float v = svp[j];
+          t0 = fmaf(G[j * 3], v, t0);
+          t1 = fmaf(G[j * 3 + 1], v, t1);
+          t2 = fmaf(G[j * 3 + 2], v, t2);
+        }
+        *reinterpret_cast<float4*>(tr + p * T_SIZE + 4 * (it - 3 * p)) = make_float4(t0, t1, t2, 0.f);
+      }
+    }
+  };
+
+  // `mask`: bit r set for each live row r of the tile
+  auto channel_pass = [&](int tile, unsigned mask) {
+    if (!active) return;
+    const float* st = smem + (tile % STAGES) * L.stage;
+#pragma unroll 1
+    for (int o = 0; o < TILE_SUM; ++o) {
+      const unsigned bits = (mask >> (o * KEEP + half * QK)) & ((1u << QK) - 1u);
+      if (bits == 0u) continue;
+      float a0, a1, a2;     // forward: x[m, x_base + i]; dx: g[n, f, k]
+      if (DX) {
+        const float4 gv = *reinterpret_cast<const float4*>(st + L.side + o * 4 * F + 4 * f);
+        a0 = d_out > 0 ? gv.x : 0.f;
+        a1 = d_out > 1 ? gv.y : 0.f;
+        a2 = d_out > 2 ? gv.z : 0.f;
+      } else {
+        const float* xr = st + L.side + o * DP + cm.x;
+        a0 = xr[0];
+        a1 = cm.y == 3 ? xr[1] : 0.f;
+        a2 = cm.y == 3 ? xr[2] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < QK; ++q) {
+        if (!(bits >> q & 1u)) continue;
+        const int r = o * KEEP + half * QK + q;
+        const float wv = st[L.w + r * FP + f];
+        const float* tp = s_t + r * n_paths * T_SIZE + tq;
+        const float4 t0 = *reinterpret_cast<const float4*>(tp);
+        if (!DX) {
+          const float v0 = wv * a0;
+          acc[q][0] = fmaf(v0, t0.x, acc[q][0]);
+          acc[q][1] = fmaf(v0, t0.y, acc[q][1]);
+          acc[q][2] = fmaf(v0, t0.z, acc[q][2]);
+          if (cm.y == 3) {
+            const float4 t1 = *reinterpret_cast<const float4*>(tp + 4);
+            const float4 t2 = *reinterpret_cast<const float4*>(tp + 8);
+            const float v1 = wv * a1, v2 = wv * a2;
+            acc[q][0] = fmaf(v2, t2.x, fmaf(v1, t1.x, acc[q][0]));
+            acc[q][1] = fmaf(v2, t2.y, fmaf(v1, t1.y, acc[q][1]));
+            acc[q][2] = fmaf(v2, t2.z, fmaf(v1, t1.z, acc[q][2]));
+          }
+        } else {
+          acc[q][0] = fmaf(wv, fmaf(t0.z, a2, fmaf(t0.y, a1, t0.x * a0)), acc[q][0]);
+          if (cm.y == 3) {
+            const float4 t1 = *reinterpret_cast<const float4*>(tp + 4);
+            const float4 t2 = *reinterpret_cast<const float4*>(tp + 8);
+            acc[q][1] = fmaf(wv, fmaf(t1.z, a2, fmaf(t1.y, a1, t1.x * a0)), acc[q][1]);
+            acc[q][2] = fmaf(wv, fmaf(t2.z, a2, fmaf(t2.y, a1, t2.x * a0)), acc[q][2]);
+          }
+        }
+      }
+    }
+  };
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                 // the tile has landed; the stage it replaces is read
+    load_tile(tile + STAGES - 1);
+    t_pass(tile);
+    __syncthreads();
+    channel_pass(tile, __ballot_sync(0xffffffffu, s_live[lane] != 0));
+  }
+  cp_async_wait<0>();
+
+  if (!DX) {
+    if (active) {
+      float4* o4 = reinterpret_cast<float4*>(dst) + (size_t)split * B * N * F;
+#pragma unroll
+      for (int q = 0; q < QK; ++q) {
+        const int n = k0 + half * QK + q;
+        if (n < N)
+          o4[((size_t)b * N + n) * F + f] = make_float4(acc[q][0], acc[q][1], acc[q][2], 0.f);
+      }
+    }
+    return;
+  }
+  // dx: the channels that read one input element, added in the list's order
+  __syncthreads();                   // the ring is free
+  const int Fo = F | 1;
+  float* s_d = smem;                 // [kept][i][f]
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < QK; ++q)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s_d[((half * QK + q) * 3 + i) * Fo + f] = acc[q][i];
+  }
+  __syncthreads();
+  float* out = dst + (size_t)split * B * M * D;
+  for (int r = tid; r < KEEP * D; r += nt) {
+    const int k = r / D, d = r - k * D;
+    const int m = k0 + k;
+    if (m >= M) continue;
+    float sum = 0.f;
+    for (int e = s_dptr[d]; e < s_dptr[d + 1]; ++e) {
+      const int it = s_ditem[e];
+      sum += s_d[(k * 3 + (it & 3)) * Fo + (it >> 2)];
+    }
+    out[((size_t)b * M + m) * D + d] = sum;
+  }
+}
+
+__global__ void __launch_bounds__(SPLIT_THREADS, 2) tp_aggregate_fwd_kernel(
+    const float* __restrict__ x,     // (B, M, D) sender features
+    const float* __restrict__ sh,    // (B, N, M, S) edge harmonics
+    const float* __restrict__ w,     // (B, N, M, F) pre-masked edge weights
+    const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
+    const int4* __restrict__ ptab,   // (n_paths): f_start, f_count, d_sh, d_out
+    const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
+    float* __restrict__ dst,         // out (B, N, F, 4), or the partial sums (splits, B, N, F, 4)
+    int B, int N, int M, int D, int S, int F, int n_paths, int vec) {
+  split_body<false>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, dst, B, N, M, D, S, F,
+                    n_paths, 0, vec);
+}
+
+__global__ void __launch_bounds__(SPLIT_THREADS, 2) tp_aggregate_bwd_x_kernel(
     const float* __restrict__ sh,    // (B, N, M, S)
     const float* __restrict__ w,     // (B, N, M, F)
-    const float* __restrict__ g,     // (B, N, F, 4)
+    const float* __restrict__ g,     // (B, N, F, 4) upstream gradient
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const int4* __restrict__ ptab,   // (n_paths): f_start, f_count, d_sh, d_out
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
     const int* __restrict__ d_ptr,   // (D + 1): extents into d_item per input element
     const int* __restrict__ d_item,  // f * 4 + i of every (channel, component) reading it
-    float* __restrict__ dx,          // (B, M, D)
-    int N, int M, int D, int S, int F, int n_paths) {
-  extern __shared__ __align__(16) float smem[];
-  const int Fp = F | 1;
-  float* s_g = smem;                          // n_paths * G_SIZE
-  float* s_sh = s_g + n_paths * G_SIZE;       // NC * TM * SH_STRIDE
-  float* s_d = s_sh + NC * TM * SH_STRIDE;    // TM * 3 * Fp
+    float* __restrict__ dst,         // dx (B, M, D), or the partial sums (splits, B, M, D)
+    int B, int N, int M, int D, int S, int F, int n_paths, int n_items, int vec) {
+  split_body<true>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, dst, B, N, M, D, S, F,
+                   n_paths, n_items, vec);
+}
 
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int b = blockIdx.y;
-  const int m0 = blockIdx.x * TM;
-  for (int i = tid; i < n_paths * G_SIZE; i += nt) s_g[i] = gtab[i];
-
-  const int f = tid;
-  const bool active = f < F;
-  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);
-  const int d_out = active ? ptab[cm.w].w : 0;
-  const float* G = s_g + cm.w * G_SIZE;
-  float acc[TM][3];
-#pragma unroll
-  for (int ml = 0; ml < TM; ++ml) acc[ml][0] = acc[ml][1] = acc[ml][2] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    stage_sh(s_sh, sh, b, N, M, S, n0, NC, m0, TM, tid, nt);
-    __syncthreads();
-    if (active) {
-      for (int nl = 0; nl < NC && n0 + nl < N; ++nl) {
-        const int n = n0 + nl;
-        const float4 gv = reinterpret_cast<const float4*>(g)[((size_t)b * N + n) * F + f];
-        const float g0 = d_out > 0 ? gv.x : 0.f;
-        const float g1 = d_out > 1 ? gv.y : 0.f;
-        const float g2 = d_out > 2 ? gv.z : 0.f;
-        // P[i][j] = sum_k G[i][j][k] g[k]
-        float P[3][J_MAX];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < J_MAX; ++j) {
-            const float* Gij = G + (i * J_MAX + j) * 3;
-            P[i][j] = Gij[0] * g0 + Gij[1] * g1 + Gij[2] * g2;
-          }
-#pragma unroll
-        for (int ml = 0; ml < TM; ++ml) {
-          const int m = m0 + ml;
-          if (m >= M) continue;
-          const float wv = w[(((size_t)b * N + n) * M + m) * F + f];
-          if (wv == 0.f) continue;
-          const float* sv = s_sh + (nl * TM + ml) * SH_STRIDE + cm.z;
-          float u0 = 0.f, u1 = 0.f, u2 = 0.f;
-#pragma unroll
-          for (int j = 0; j < J_MAX; ++j) {
-            const float s = sv[j];
-            u0 = fmaf(P[0][j], s, u0);
-            u1 = fmaf(P[1][j], s, u1);
-            u2 = fmaf(P[2][j], s, u2);
-          }
-          acc[ml][0] = fmaf(wv, u0, acc[ml][0]);
-          acc[ml][1] = fmaf(wv, u1, acc[ml][1]);
-          acc[ml][2] = fmaf(wv, u2, acc[ml][2]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-#pragma unroll
-    for (int ml = 0; ml < TM; ++ml)
-#pragma unroll
-      for (int i = 0; i < 3; ++i) s_d[(ml * 3 + i) * Fp + f] = acc[ml][i];
-  }
-  __syncthreads();
-  for (int r = tid; r < TM * D; r += nt) {
-    const int ml = r / D, d = r - ml * D;
-    const int m = m0 + ml;
-    if (m >= M) continue;
-    float sum = 0.f;
-    for (int e = d_ptr[d]; e < d_ptr[d + 1]; ++e) {
-      const int it = d_item[e];
-      sum += s_d[(ml * 3 + (it & 3)) * Fp + (it >> 2)];
-    }
-    dx[((size_t)b * M + m) * D + d] = sum;
-  }
+// out[i] = sum over the splits of part[k][i], in order.
+__global__ void tp_aggregate_sum_splits(const float* __restrict__ part, float* __restrict__ out,
+                                        long long total, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = part[i];
+  for (int k = 1; k < splits; ++k) s += part[k * total + i];
+  out[i] = s;
 }
 
 int threads_for(int F) {
@@ -517,24 +702,72 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Allows the forward (dx false) or dx kernel all the shared memory an SM
+// has, once per kernel.
+cudaError_t allow_split(bool dx) {
+  static bool allowed[2] = {false, false};
+  if (allowed[dx]) return cudaSuccess;
+  const cudaError_t err = dx ? allow_shared(tp_aggregate_bwd_x_kernel, MAX_SMEM)
+                             : allow_shared(tp_aggregate_fwd_kernel, MAX_SMEM);
+  if (err == cudaSuccess) allowed[dx] = true;
+  return err;
+}
+
+int split_threads(int F) { return HALVES * 32 * ((F + 31) / 32); }
+
+// Checks what the forward (DX false) or dx kernel takes and gives its launch
+// geometry.
+template <bool DX>
+int plan_split(const float* part, int B, int N, int M, int D, int S, int F, int n_paths,
+               int n_items, int splits, dim3& grid, int& threads, size_t& bytes) {
+  const int n_keep = DX ? M : N;
+  if (bad_shape(B, N, M, D, S, F, n_paths) || n_paths > MAX_PATHS || n_items < 0 || splits < 1 ||
+      splits > (DX ? N : M) || (splits > 1 && part == nullptr) ||
+      (n_keep + KEEP - 1) / KEEP > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_split(DX);
+  if (err != cudaSuccess) return (int)err;
+  bytes = (size_t)split_layout(DX, F, D, n_paths, n_items).total * sizeof(float);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  grid = dim3(splits, (n_keep + KEEP - 1) / KEEP, B);
+  threads = split_threads(F);
+  return 0;
+}
+
+// After the main kernel: its launch error, else, when the summed axis is
+// split, the launch of the sum of the splits into `out` (`total` floats).
+int sum_splits(const float* part, float* out, long long total, int splits, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  tp_aggregate_sum_splits<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, total, splits);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 extern "C" {
 
-// Each function returns a cudaError_t value: 0 when the launch was accepted.
+// Each function returns a cudaError_t value: 0 when the launches were accepted.
 
+// `part` holds (splits, B, N, F, 4) floats when the senders are split
+// (splits > 1), else it is not read.
 int dp_tp_aggregate_fwd(const float* x, const float* sh, const float* w, const int* chan,
-                        const float* gtab, float* out, int B, int N, int M, int D, int S, int F,
-                        int n_paths, void* stream) {
-  if (bad_shape(B, N, M, D, S, F, n_paths)) return (int)cudaErrorInvalidValue;
-  const size_t bytes =
-      sizeof(float) * ((size_t)n_paths * G_SIZE + (size_t)TN * MC * SH_STRIDE + (size_t)MC * D);
-  cudaError_t err = allow_shared(tp_aggregate_fwd_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + TN - 1) / TN, B);
-  tp_aggregate_fwd_kernel<<<grid, threads_for(F), bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, sh, w, reinterpret_cast<const int4*>(chan), gtab, out, N, M, D, S, F, n_paths);
-  return (int)cudaGetLastError();
+                        const int* ptab, const float* gtab, float* out, float* part, int B, int N,
+                        int M, int D, int S, int F, int n_paths, int splits, void* stream) {
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  const int rc = plan_split<false>(part, B, N, M, D, S, F, n_paths, 0, splits, grid, threads,
+                                   bytes);
+  if (rc != 0) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = F % 4 == 0 && aligned16(w);
+  tp_aggregate_fwd_kernel<<<grid, threads, bytes, st>>>(
+      x, sh, w, reinterpret_cast<const int4*>(chan), reinterpret_cast<const int4*>(ptab), gtab,
+      splits > 1 ? part : out, B, N, M, D, S, F, n_paths, vec);
+  return sum_splits(part, out, (long long)B * N * F * 4, splits, st);
 }
 
 // dsh may be null: then only dw is computed, by the kernel that tiles receivers
@@ -580,20 +813,39 @@ int dp_tp_aggregate_bwd_edge(const float* x, const float* sh, const float* w, co
   return (int)cudaGetLastError();
 }
 
+// `part` holds (splits, B, M, D) floats when the receivers are split
+// (splits > 1), else it is not read.
 int dp_tp_aggregate_bwd_x(const float* sh, const float* w, const float* g, const int* chan,
                           const int* ptab, const float* gtab, const int* d_ptr, const int* d_item,
-                          float* dx, int B, int N, int M, int D, int S, int F, int n_paths,
-                          void* stream) {
-  if (bad_shape(B, N, M, D, S, F, n_paths)) return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * ((size_t)n_paths * G_SIZE + (size_t)NC * TM * SH_STRIDE +
-                                        (size_t)TM * 3 * (F | 1));
-  cudaError_t err = allow_shared(tp_aggregate_bwd_x_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + TM - 1) / TM, B);
-  tp_aggregate_bwd_x_kernel<<<grid, threads_for(F), bytes, static_cast<cudaStream_t>(stream)>>>(
+                          float* dx, float* part, int B, int N, int M, int D, int S, int F,
+                          int n_paths, int n_items, int splits, void* stream) {
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  const int rc = plan_split<true>(part, B, N, M, D, S, F, n_paths, n_items, splits, grid, threads,
+                                  bytes);
+  if (rc != 0) return rc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = F % 4 == 0 && aligned16(w) && aligned16(g);
+  tp_aggregate_bwd_x_kernel<<<grid, threads, bytes, st>>>(
       sh, w, g, reinterpret_cast<const int4*>(chan), reinterpret_cast<const int4*>(ptab), gtab,
-      d_ptr, d_item, dx, N, M, D, S, F, n_paths);
-  return (int)cudaGetLastError();
+      d_ptr, d_item, splits > 1 ? part : dx, B, N, M, D, S, F, n_paths, n_items, vec);
+  return sum_splits(part, dx, (long long)B * M * D, splits, st);
+}
+
+// Blocks of the forward (dx = 0) or dx kernel that one SM holds at once at
+// these widths (n_items: the length of dx's d_item list), or minus a
+// cudaError_t value.
+int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items) {
+  cudaError_t err = allow_split(dx != 0);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t bytes = (size_t)split_layout(dx != 0, F, D, n_paths, n_items).total * sizeof(float);
+  int blocks = 0;
+  err = dx ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_aggregate_bwd_x_kernel,
+                                                           split_threads(F), bytes)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_aggregate_fwd_kernel,
+                                                           split_threads(F), bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 const char* dp_cuda_error_string(int code) {

@@ -17,7 +17,11 @@ through :class:`TPAggregate`, backward (``dw`` per edge and, where the
 harmonics carry gradient, ``dsh`` per edge in one kernel, ``dx`` per sender
 in another), and runs :func:`tp_aggregate_plain`,
 the same function in plain PyTorch under autograd, for CPU tensors.
-``FWD``, ``BWD_EDGE`` and ``BWD_X`` count the launches.
+The forward and ``dx`` split the axis they sum over (senders, receivers)
+across blocks as :func:`launch_splits` says; split blocks write partial sums
+that a second kernel adds in a fixed order.  ``FWD``, ``BWD_EDGE`` and
+``BWD_X`` count the wrapper calls that launched (one each, whether one
+kernel ran or two).
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ from . import build
 from .tensor_product import ChannelwiseTP
 from .tp_fused import K_PAD, TARGET_BLOCKS, TILE_N, _check_tp, _device_tables, _Kernel
 
-FWD = _Kernel()        # tp_aggregate_fwd_kernel
+FWD = _Kernel()        # tp_aggregate_fwd_kernel (+ tp_aggregate_sum_splits)
 BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
-BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx)
+BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx, + tp_aggregate_sum_splits)
+KEEP = 8               # receivers (forward) or senders (dx) one block keeps
+TILE_SUM = 4           # entries of the summed axis in one tile of a block
 
 
 def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
@@ -119,13 +125,49 @@ def plan_edge_senders(B: int, N: int, M: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def plan_splits(B: int, kept: int, summed: int, target: int = TARGET_BLOCKS) -> int:
+    """Splits of the summed axis of the forward (``plan_splits(B, N, M)``:
+    senders) or of dx (``plan_splits(B, M, N)``: receivers).
+
+    A block takes one batch row, ``KEEP`` entries of the kept axis and
+    every ``splits``-th entry of the summed one (split k: k, k + splits,
+    ...), ``TILE_SUM`` of them a tile.  The fewest splits that give
+    ``target`` blocks, but none with less than a tile of work where the
+    summed axis has one.  One split needs no scratch buffer and no second
+    kernel.
+    """
+    tiles = B * -(-kept // KEEP)
+    return max(1, min(-(-target // tiles), summed // TILE_SUM))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(tp: ChannelwiseTP, dx: bool, device: str) -> int:
+    """Blocks of the forward (or dx) kernel the card holds at once at this
+    convolution's widths (its shared memory and registers decide)."""
+    n_items = len(_backward_tables(tp)[2])
+    per_sm = _library().dp_tp_aggregate_blocks_per_sm(
+        int(dx), tp.irreps_in.dim, tp.weight_numel, len(tp.paths), n_items)
+    _raise_on(max(0, -per_sm), "tp_aggregate occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_splits(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device) -> int:
+    """The splits the forward (or dx) launch takes on the card: enough
+    blocks for two per SM and for every block the card can hold at once."""
+    target = max(TARGET_BLOCKS, _resident_blocks(tp, dx, str(device)))
+    return plan_splits(B, M, N, target) if dx else plan_splits(B, N, M, target)
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_aggregate")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_aggregate_fwd.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.dp_tp_aggregate_fwd.argtypes = [p] * 8 + [i] * 8 + [p]
     lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 9 + [p]
-    lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 9 + [i] * 7 + [p]
-    for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x):
+    lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 9 + [p]
+    lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 5
+    for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
+               lib.dp_tp_aggregate_blocks_per_sm):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -169,15 +211,32 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _scratch(splits: int, shape: Tuple[int, ...], device: torch.device) -> Optional[torch.Tensor]:
+    """The scratch buffer of the splits' partial sums, or None for one split."""
+    if splits == 1:
+        return None
+    return torch.empty((splits,) + shape, dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on CUDA tensors -> (B, N, F, 4) f32."""
+    """The forward kernel on CUDA tensors -> (B, N, F, 4) f32 (and the sum
+    of the sender splits' partial sums when :func:`launch_splits` splits)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
-    chan, gtab = _device_tables(tp, str(x.device))
+    dev = str(x.device)
+    chan, gtab = _device_tables(tp, dev)
+    ptab, _, _ = _device_backward_tables(tp, dev)
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
+    splits = launch_splits(tp, B, N, M, False, x.device)
+    part = _scratch(splits, (B, N, F, K_PAD), x.device)
     rc = _library().dp_tp_aggregate_fwd(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), gtab.data_ptr(),
-        out.data_ptr(), B, N, M, D, S, F, gtab.shape[0], _stream(x.device))
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
+        gtab.data_ptr(), out.data_ptr(), _ptr(part), B, N, M, D, S, F, gtab.shape[0], splits,
+        _stream(x.device))
     _raise_on(rc, "tp_aggregate_fwd")
     FWD.launches += 1
     return out
@@ -209,16 +268,20 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                       g: torch.Tensor) -> torch.Tensor:
-    """dx from the per-sender backward kernel (x gives only its shape)."""
+    """dx from the per-sender backward kernel (x gives only its shape; and
+    the sum of the receiver splits' partial sums when
+    :func:`launch_splits` splits)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
     dev = str(x.device)
     chan, gtab = _device_tables(tp, dev)
     ptab, d_ptr, d_item = _device_backward_tables(tp, dev)
     dx = torch.empty_like(x)
+    splits = launch_splits(tp, B, N, M, True, x.device)
+    part = _scratch(splits, (B, M, D), x.device)
     rc = _library().dp_tp_aggregate_bwd_x(
         sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
-        gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
-        B, N, M, D, S, F, gtab.shape[0], _stream(x.device))
+        gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(), _ptr(part),
+        B, N, M, D, S, F, gtab.shape[0], d_item.shape[0], splits, _stream(x.device))
     _raise_on(rc, "tp_aggregate_bwd_x")
     BWD_X.launches += 1
     return dx

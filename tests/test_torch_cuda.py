@@ -288,6 +288,62 @@ def test_tp_aggregate_edge_backward_shapes(cuda, shape, sig, need_dsh):
         assert dsh is None and dsh2 is None
 
 
+#: (B, N, M) of the forward and dx: one split of the summed axis (B = 24, N =
+#: 96 for the forward; M = 96 for dx), many splits, ragged N and M, N = 1,
+#: B = 1, a single sender tile
+K2_SPLIT_SHAPES = [(24, 96, 24), (24, 24, 96), (3, 37, 29), (2, 1, 24), (1, 96, 96),
+                   (40, 8, 24), (12, 24, 24), (1, 9, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K2_SPLIT_SHAPES)
+@pytest.mark.parametrize("sig", ["layer1", "layer3", "final_conv", "tor_bond_conv"])
+def test_tp_aggregate_forward_and_dx_shapes(cuda, shape, sig):
+    """The forward and dx, the summed axis split as planned, against the
+    plain version and autograd through it (1e-4 of scale); tor_bond_conv
+    has S = 7 harmonics.  Reruns equal to the bit; each wrapper's counter
+    rises by one per call, whether it launched one kernel or two."""
+    tp, x, sh, w, g = _k2_inputs(sig, cuda, *shape)
+    leaf = x.clone().requires_grad_(True)
+    ref = tp_aggregate.tp_aggregate_plain(tp, leaf, sh, w)
+    lanes = torch.zeros_like(g)
+    for p in tp.paths:
+        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    (ref_dx,) = torch.autograd.grad(ref, [leaf], g * lanes)
+
+    before = (tp_aggregate.FWD.launches, tp_aggregate.BWD_X.launches)
+    outs = [tp_aggregate.launch_forward(tp, x, sh, w) for _ in range(2)]
+    dxs = [tp_aggregate.launch_backward_x(tp, x, sh, w, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (tp_aggregate.FWD.launches, tp_aggregate.BWD_X.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    assert float((outs[0] - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert float(outs[0][..., 3].abs().max()) == 0.0
+    assert float((dxs[0] - ref_dx).abs().max()) <= 1e-4 * float(ref_dx.abs().max())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(dxs[0], dxs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 24, 96), (3, 37, 29), (1, 96, 96)])
+def test_tp_aggregate_dead_receivers_and_senders_give_exact_zeros(cuda, shape):
+    """A receiver row with no live sender gives exact zeros out (every
+    split's partial sum is 0), a sender with no live receiver dx of exactly
+    0, a batch row without live edges both."""
+    B, N, M = shape
+    tp, x, sh, w, g = _k2_inputs("layer2", cuda, B, N, M)
+    w[0, N // 2] = 0.0            # a receiver without senders
+    w[-1, :, M // 3] = 0.0        # a sender without receivers
+    w[B // 2] = 0.0               # a batch row without edges (alone when B = 1)
+    out = tp_aggregate.launch_forward(tp, x, sh, w)
+    dx = tp_aggregate.launch_backward_x(tp, x, sh, w, g)
+    torch.cuda.synchronize()
+    assert float(out[0, N // 2].abs().max()) == 0.0
+    assert float(dx[-1, M // 3].abs().max()) == 0.0
+    assert float(out[B // 2].abs().max()) == 0.0 and float(dx[B // 2].abs().max()) == 0.0
+    if B > 1:
+        assert float(out[-1].abs().max()) > 0.0 and float(dx[0].abs().max()) > 0.0
+
+
 @pytest.mark.cuda
 def test_tp_aggregate_rejects_bad_inputs(cuda):
     tp, x, sh, w, _ = _k2_inputs("layer0", cuda, B=1, N=4, M=5)

@@ -189,3 +189,101 @@ def test_dsh_segments_reproduce_the_harmonics_gradient(sig):
         for q, j in seg[seg_ptr[s]:seg_ptr[s + 1]]:
             got[..., s] += part[q][..., j]
     assert_close(got, ref.numpy(), 2e-5, f"{sig} dsh from the paths' partial sums")
+
+
+#: (conv, B, N, M) of the 17 K2 convs of a training-mode forward at batch 24
+#: (corpus2, bucket 24 x 96 x 8), then ragged, N = 1, N = 8 and B = 1 shapes
+TRAINING_K2_SHAPES = (
+    [(f"lig_conv_{i}", 24, 24, 24) for i in (1, 2, 3)]
+    + [(f"phore_to_lig{n}_conv_{i}", 24, 24, 96) for n in ("", "_norm") for i in (1, 2, 3)]
+    + [(f"phore_conv_{i}", 24, 96, 96) for i in (1, 2)]
+    + [(f"lig_to_phore{n}_conv_{i}", 24, 96, 24) for n in ("", "_norm") for i in (1, 2)]
+    + [("final_conv", 24, 1, 24), ("tor_bond_conv", 24, 8, 24)])
+SPLIT_SHAPES = TRAINING_K2_SHAPES + [
+    ("ragged", 3, 37, 29), ("N=1, B=1", 1, 1, 24), ("N=8, B=1", 1, 8, 24), ("B=1", 1, 96, 96),
+    ("one sender", 24, 24, 1)]
+
+
+@pytest.mark.parametrize("name,B,N,M", SPLIT_SHAPES)
+@pytest.mark.parametrize("target", [tp_fused.TARGET_BLOCKS, 5 * 132])
+def test_plan_splits(name, B, N, M, target):
+    """The forward splits the senders, dx the receivers: split k takes k,
+    k + splits, ...; every entry of the summed axis falls in exactly one
+    non-empty split; the fewest splits that give ``target`` blocks of (batch
+    row, KEEP kept entries, split) where the summed axis holds a tile for
+    each, else one split per tile (a split of its own for a short axis).
+    ``target`` is two blocks per SM, or what the card holds at once (five
+    per SM at F = 80)."""
+    for kept, summed in ((N, M), (M, N)):
+        splits = tp_aggregate.plan_splits(B, kept, summed, target)
+        assert 1 <= splits <= max(1, summed // tp_aggregate.TILE_SUM)
+        members = [list(range(k, summed, splits)) for k in range(splits)]
+        assert all(members)
+        assert sorted(i for m in members for i in m) == list(range(summed))
+        tiles = B * -(-kept // tp_aggregate.KEEP)
+        wanted = -(-target // tiles)
+        if summed >= tp_aggregate.TILE_SUM * wanted:
+            assert tiles * splits >= target
+            assert splits == 1 or tiles * (splits - 1) < target
+            assert all(len(m) >= tp_aggregate.TILE_SUM for m in members)
+        else:
+            assert splits == max(1, summed // tp_aggregate.TILE_SUM)
+
+
+def _split_schedule(ttp, x, sh, w, g, splits_fwd, splits_dx):
+    """The forward and dx as the kernels order them, in numpy: per (edge,
+    path) t[i,k] = sum_j G[i,j,k] sh[j]; the forward adds w x t over each
+    sender split (split k: senders k, k + splits, ...), dx adds w t g over
+    each receiver split and then the channels that read one input element in
+    the order of the d_ptr / d_item list; the splits are added in order."""
+    chan, gtab = tp_fused._tables(ttp)
+    ptab, d_ptr, d_item = tp_aggregate._backward_tables(ttp)
+    B, N, M, _ = sh.shape
+    F, D = ttp.weight_numel, ttp.irreps_in.dim
+    t = np.zeros((B, N, M, len(ptab), 3, 3), np.float32)      # [.., path, i, k]
+    for q, (f0, _, d_sh, _) in enumerate(ptab):
+        off = chan[f0, 2]
+        t[..., q, :, :] = np.einsum("ijk,bnmj->bnmik", gtab[q, :, :d_sh], sh[..., off:off + d_sh])
+    d_in = chan[:, 1]
+    mask_in = (np.arange(3)[None, :] < d_in[:, None]).astype(np.float32)     # (F, 3)
+    xf = np.stack([x[..., np.minimum(chan[:, 0] + i, D - 1)] for i in range(3)], -1) * mask_in
+    tf = t[..., chan[:, 3], :, :]                                            # (B, N, M, F, 3, 3)
+    out = np.zeros((B, N, F, 4), np.float32)
+    for k in range(splits_fwd):
+        ms = list(range(k, M, splits_fwd))
+        part = np.einsum("bnmf,bmfi,bnmfik->bnfk", w[:, :, ms], xf[:, ms], tf[:, :, ms])
+        out[..., :3] += part
+    d_out = ptab[chan[:, 3], 3]
+    gm = g[..., :3] * (np.arange(3)[None, :] < d_out[:, None])
+    dx = np.zeros((B, M, D), np.float32)
+    for k in range(splits_dx):
+        ns = list(range(k, N, splits_dx))
+        per = np.einsum("bnmf,bnmfik,bnfk->bmfi", w[:, ns], tf[:, ns], gm[:, ns])
+        part = np.zeros((B, M, D), np.float32)
+        for d in range(D):
+            for it in d_item[d_ptr[d]:d_ptr[d + 1]]:
+                part[..., d] += per[..., it >> 2, it & 3]
+        dx += part
+    return out, dx
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+def test_split_schedule_matches_plain(sig):
+    """The kernels' factorization and order, modelled in numpy, against the
+    plain version and autograd through it (1e-5 of scale), with the splits
+    the kernels would take and with others."""
+    B, N, M = 2, 11, 13
+    jtp, ttp, x, sh, w = _inputs(sig, B, N, M, seed=7)
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=(B, N, ttp.weight_numel, 4)).astype(np.float32)
+    lanes = np.zeros_like(g)
+    for p in ttp.paths:
+        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    leaf = T(x).requires_grad_(True)
+    ref = tp_aggregate.tp_aggregate_plain(ttp, leaf, T(sh), T(w))
+    (ref_dx,) = torch.autograd.grad(ref, [leaf], T(g * lanes))
+    for splits in ((tp_aggregate.plan_splits(B, N, M), tp_aggregate.plan_splits(B, M, N)),
+                   (1, 1), (3, 4)):
+        out, dx = _split_schedule(ttp, x, sh, w, g, *splits)
+        assert_close(out, ref.detach().numpy(), 1e-5, f"{sig} forward, splits {splits}")
+        assert_close(dx, ref_dx.numpy(), 1e-5, f"{sig} dx, splits {splits}")
