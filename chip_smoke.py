@@ -11,12 +11,15 @@ Phases, each fatal on failure:
   3. kernel check: capture the inputs of all 23 tensor-product convs of one
      forward of the main path (corpus2 model, 40 poses of a 24x96x8
      complex), hold K1 (``tp_fused``) against its plain PyTorch version on
-     them, in f32 and with bf16 inputs, require two runs to agree to the bit,
+     them, in f32 and in bf16 (the JAX package's bf16 convolution, which the
+     shipped config's ``compute_dtype`` asks for: the kernel against the
+     plain version on the same bf16 inputs), require two runs to agree to the bit,
      print each conv's grid and what bounds it, and time the kernel (on the
      card, by replaying a CUDA graph of its calls, and per call from Python)
      and the plain version.  A grid of fewer blocks than the card has SMs
-     fails unless the conv runs within twice the launch floor.
-  4. main path: ``FitEngine`` samples 8 cached complexes x 40 poses x 20
+     fails unless the conv runs within twice the launch floor.  One forward
+     of the model, kernel convs against plain convs, at f32 and at bf16.
+  4. main path, at the shipped bf16: ``FitEngine`` samples 8 cached complexes x 40 poses x 20
      reverse-diffusion steps with the corpus2 checkpoint and ranks them by
      fitness; K1 must launch exactly 23 x 20 times per dispatch; poses and
      scores must be finite; one complex is sampled again with the plain
@@ -24,21 +27,25 @@ Phases, each fatal on failure:
      Then the other sampler modes on one complex: the ODE, and
      ``random_samples = 4`` with the fitness as selector.
   5. K2 and K3 check: capture the aggregate calls of the 23 convs of one
-     training-mode forward (corpus2 weights, 24 complexes of the 24x96x8
-     bucket, noised): 17 convs on K2 (``tp_aggregate``), the 6 layer-0 convs
-     on K3 (``tp_scalar``), two paths each.  Hold every forward and backward
-     kernel (K2: dw + dsh per edge, dx per sender; K3: dw, dsh, dx) against
-     the plain version and autograd through it, require two runs to agree to
-     the bit (dw is held from both edge kernels, with and without dsh), time kernels
-     (graph replay), plain and, for K3, the one einsum call, print the grid
-     and the split of the summed axis of K2's forward and dx for each conv,
-     and each edge backward with dsh beside its norm twin's (dw only, same
-     shapes).
+     training-mode forward at the shipped bf16 (corpus2 weights, 24
+     complexes of the 24x96x8 bucket, noised): 17 convs on K2
+     (``tp_aggregate``), the 6 layer-0 convs on K3 (``tp_scalar``), two paths
+     each.  Hold every forward and backward kernel (K2: dw + dsh per edge, dx
+     per sender; K3: forward and dx per conv, dw and dsh per path) against the
+     plain version and autograd through it, on the captured operands in f32
+     and in bf16, require two runs to agree to the bit (dw is held from both
+     edge kernels, with and without dsh), time kernels (graph replay) in both
+     types, plain and, for K3, the einsum calls (graph replay), print the grid
+     and the split of the summed axis of K2's and K3's forward and dx for
+     each conv, and each edge backward with dsh beside its norm twin's (dw
+     only, same shapes).
   6. training path: (c) one train step with the kernels against the same
-     step with the plain convs, same noise and dropout masks: loss and every
-     parameter gradient; (b) 30 steps on one fixed batch with fixed noise and
+     step with the plain convs, same noise and dropout masks: at f32 the loss
+     and every parameter gradient, at the shipped bf16 the loss and the
+     gradient as one vector against the plain route's own f32-vs-bf16
+     difference; (b) 30 steps at bf16 on one fixed batch with fixed noise and
      dropout on: the loss falls; per step K2 launches 17 forward + 17 + 17
-     backward, K3 12 forward + 12 dw + 4 dsh + 12 dx, and K1 none; (a)
+     backward, K3 6 forward + 12 dw + 4 dsh + 6 dx, and K1 none; (a)
      ``diffphore_torch.cli.train.main``: fresh corpus2-width model, batch 24,
      one epoch over 240 cached complexes (10 steps), one validation-loss
      epoch over 20 (K1, 23 launches), finite metrics, a checkpoint that
@@ -46,7 +53,8 @@ Phases, each fatal on failure:
   7. calibrated-sampler path: (c) one step of the calibrated-conformation
      sampler's train step with the kernels against the same step with the
      plain convs, same draws: from fresh weights the loss and every gradient
-     leaf, from the shipped weights the frozen stage and the loss; (a) a
+     leaf (f32) and the gradient as one vector (bf16, as in 6), from the
+     shipped weights the frozen stage and the loss (f32); (a) a bf16
      fine-tune through
      ``cli.train.main`` with ``--rate_from_infer 0.6 --epoch_from_infer 0``:
      one epoch over the same 240 complexes; per step K1 launches 23 times
@@ -60,6 +68,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
@@ -87,8 +96,9 @@ FIXED_BATCH_STEPS = 30
 # K1 against its plain version: |kernel - plain| <= TOL * max|plain|.
 # f32 inputs: both compute in f32 and differ only in summation order.
 TOL_F32 = 1e-4
-# bf16 inputs: the kernel reads x, sh and attrs rounded to bf16 (8-bit
-# mantissa) and is compared with the plain version on the f32 originals.
+# bf16 inputs: kernel and plain version both compute the JAX package's bf16
+# convolution (8-bit mantissas) and differ where an f32 sum taken in another
+# order flips a bf16 rounding of the edge MLP.
 TOL_BF16 = 3e-2
 # One forward of the score model, kernel convs against plain convs.
 TOL_FORWARD = 1e-3
@@ -111,13 +121,32 @@ TOL_STEP_FLOOR = 5e-6
 # K3's kernels against the einsum and autograd through it, f32 on both sides,
 # as K2: they differ by summation order only.
 TOL_K3 = 1e-4
+# K2 and K3 on bf16 operands against the plain version on the same bf16
+# operands: the outputs (f32) differ by f32 summation order only; a gradient,
+# stored in bf16, may sit one bf16 rounding step away where the two f32 sums
+# fall on two sides of a rounding boundary: |kernel - plain| <= BF16_STEP *
+# |plain| + TOL_BF16_FLOOR * max|plain|, element by element.
+TOL_BF16_OUT = 1e-5
+BF16_STEP = 2.0 ** -7
+TOL_BF16_FLOOR = 1e-6
+# A forward or a train step at bf16, kernel convs against plain convs, same
+# draws: at most this share of the plain route's own f32-vs-bf16 difference
+# (the forward's outputs elementwise, a step's gradient as one vector).  At
+# these sizes the kernels' f32 sums, taken in another order than cuBLAS's,
+# flip some of the millions of bf16 roundings of each conv's edge MLP (up to
+# 7e-4 of a conv's scale on an H100, the kernel check above), and 23 convs
+# carry that to the outputs (0.16-0.43 of the difference there).  A kernel
+# that skipped the bf16 roundings would stand at the whole difference.
+TOL_BF16_GAP = 0.5
 
 # Per train step: 17 convs run K2 (forward, edge backward, sender backward),
-# the 6 layer-0 convs run K3 with two paths each: 12 forward, 12 dw, 12 dx,
-# and dsh for the 2 paths of the 2 cross-graph convs whose edge vectors carry
-# learned weights (phore_to_lig_conv_0, lig_to_phore_conv_0).
+# the 6 layer-0 convs run K3 with two paths each: a forward and a dx per conv,
+# a dw per path, and dsh for the 2 paths of the 2 cross-graph convs whose
+# edge vectors carry learned weights (phore_to_lig_conv_0,
+# lig_to_phore_conv_0).
 K2_CONVS = 17
-K3_CALLS = 12
+K3_CONVS = 6
+K3_PATHS = 12
 K3_DSH_CALLS = 4
 CC_RATE = 0.6               # --rate_from_infer of the shipped recipe
 CC_DELTA_T = 0.05
@@ -256,25 +285,38 @@ def phase_kernel_check(model, batch, tp_fused):
             got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
             again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
             low = (x.to(bf16), sh.to(bf16), [a.to(bf16) for a in attrs])
+            ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params)
             got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
             again_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
             torch.cuda.synchronize()
             if not (torch.equal(got, again) and torch.equal(got_bf, again_bf)):
                 raise AssertionError(f"{name}: two runs of tp_fused on the same inputs differ")
-            scale = float(ref.abs().max())
+            scale, scale_bf = float(ref.abs().max()), float(ref_bf.abs().max())
             err = float((got - ref).abs().max())
-            err_bf = float((got_bf - ref).abs().max())
+            err_bf = float((got_bf - ref_bf).abs().max())
             if not (err <= TOL_F32 * max(scale, 1e-30)):
                 raise AssertionError(f"{name}: f32 |kernel - plain| {err} > {TOL_F32} * {scale}")
-            if not (err_bf <= TOL_BF16 * max(scale, 1e-30)):
-                raise AssertionError(f"{name}: bf16 |kernel - plain| {err_bf} > {TOL_BF16} * {scale}")
+            if not (err_bf <= TOL_BF16 * max(scale_bf, 1e-30)):
+                raise AssertionError(f"{name}: bf16 |kernel - plain| {err_bf} > {TOL_BF16} * "
+                                     f"{scale_bf}")
             call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
             ms = device_ms(call, 20)
+            ms_bf = device_ms(lambda: tp_fused.tp_aggregate_fused(tp, *low, masks, *params), 20)
+            # the plain version on the CPU, whose f32 sums are exact to f32
+            # rounding: how far the kernel and cuBLAS's bf16 products each
+            # stand from it (reported, not held)
+            cpu = tp_fused.tp_aggregate_fused_plain(
+                tp, low[0].cpu(), low[1].cpu(), [a.cpu() for a in low[2]],
+                [m.cpu() for m in masks], *(t.cpu() for t in params))
+            err_cpu = float((got_bf.cpu() - cpu).abs().max()) / max(scale_bf, 1e-30)
+            err_plain_cpu = float((ref_bf.cpu() - cpu).abs().max()) / max(scale_bf, 1e-30)
             call_ms = cuda_ms(call, 20)
             plain_ms = cuda_ms(
                 lambda: tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params), 5)
         nbytes, ops = k1_work(tp, x, sh, attrs, masks, params[0], params[2])
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        nbytes_bf, _ = k1_work(tp, low[0], low[1], low[2], masks, params[0], params[2])
+        bound_bf = max(nbytes_bf / PEAK_BYTES * 1e3, t_ops)
         B, N, M, _ = sh.shape
         per_block, splits = tp_fused.plan_senders(B, N, M)
         blocks = B * -(-N // tp_fused.TILE_N) * splits
@@ -286,15 +328,21 @@ def phase_kernel_check(model, batch, tp_fused):
             "conv": name, "B": B, "N": N, "M": M, "C": len(attrs), "E": params[0].shape[0],
             "blocks": blocks, "senders_per_block": per_block, "splits": splits,
             "H": params[0].shape[1], "F": tp.weight_numel, "max_abs_err": err,
-            "max_abs_err_bf16": err_bf, "max_abs_ref": scale, "ms": ms, "call_ms": call_ms,
+            "max_abs_err_bf16": err_bf, "max_rel_err_bf16": err_bf / max(scale_bf, 1e-30),
+            "rel_err_bf16_vs_cpu": err_cpu, "plain_rel_err_bf16_vs_cpu": err_plain_cpu,
+            "max_abs_ref": scale, "ms": ms, "ms_bf16": ms_bf, "bound_ms_bf16": bound_bf,
+            "call_ms": call_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
             "bytes": nbytes, "f32_ops": ops,
         })
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} C={len(attrs)} F={tp.weight_numel:3d} "
               f"grid {blocks:4d} blocks ({splits} x {per_block} senders) "
-              f"err={err:.2e} bf16_err={err_bf:.2e} (max|ref| {scale:.2e}) reruns bit-equal  "
-              f"kernel {ms:.4f} ms on the card, {call_ms:.4f} ms per call from Python  "
+              f"err={err:.2e} bf16_err={err_bf:.2e} (max|ref| {scale:.2e}; against the plain "
+              f"version on the CPU, of scale: kernel {err_cpu:.1e}, plain {err_plain_cpu:.1e}) "
+              f"reruns bit-equal  "
+              f"kernel {ms:.4f} ms on the card (bf16 {ms_bf:.4f}, bound {bound_bf:.4f}), "
+              f"{call_ms:.4f} ms per call from Python  "
               f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
               f"({bound_by}: bytes {t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
     return cases
@@ -339,9 +387,11 @@ def bucket_complexes(cache_dir, n):
 
 def k2_work(tp, x, sh, w, with_dsh):
     """{kernel: (bytes, f32 operations)} that K2's three kernels need on
-    these inputs: each operand read once, each result written once; products
-    with an edge weight counted on edges whose weights are not all zero, dw
-    on every edge (it is defined where w is masked too)."""
+    these inputs: each operand read once, each result written once (x, sh,
+    w and their gradients at their element size, the output and the
+    upstream gradient f32); products with an edge weight counted on edges
+    whose weights are not all zero, dw on every edge (it is defined where w
+    is masked too)."""
     B, N, M, S = sh.shape
     F = tp.weight_numel
     edges = B * N * M
@@ -354,9 +404,8 @@ def k2_work(tp, x, sh, w, with_dsh):
         dw_ops += p.mul_in * 2 * (d2 * d3 + d2)
         dsh_ops += p.mul_in * 2 * d2
         dx_ops += p.mul_in * 2 * (d1 * d2 + d1)
-    f4 = 4
-    out_b, g_b = f4 * B * N * F * 4, f4 * B * N * F * 4
-    x_b, sh_b, w_b = f4 * x.numel(), f4 * sh.numel(), f4 * w.numel()
+    out_b = g_b = 4 * B * N * F * 4
+    x_b, sh_b, w_b = (t.numel() * t.element_size() for t in (x, sh, w))
     dx_b, dsh_b, dw_b = x_b, sh_b, w_b               # gradients, written once
     return {
         "fwd": (x_b + sh_b + w_b + out_b, live * contract + B * M * node),
@@ -398,10 +447,10 @@ def capture_training_convs(model, batch):
     if not all(bool(torch.isfinite(o).all()) for o in out):
         raise AssertionError("training-mode forward is not finite")
     k3_paths = sum(len(c[1].paths) for c in k3_calls)
-    if (len(k2_calls), k3_paths) != (K2_CONVS, K3_CALLS) \
+    if (len(k2_calls), k3_paths) != (K2_CONVS, K3_PATHS) \
             or len(k2_calls) + len(k3_calls) != CONVS_PER_FORWARD:
         raise RuntimeError(f"captured {len(k2_calls)} K2 calls and {k3_paths} K3 path calls of "
-                           f"{len(k3_calls)} convs, expected {K2_CONVS} and {K3_CALLS} of "
+                           f"{len(k3_calls)} convs, expected {K2_CONVS} and {K3_PATHS} of "
                            f"{CONVS_PER_FORWARD - K2_CONVS}")
     if sum(len(c[1].paths) for c in k3_calls if c[5]) != K3_DSH_CALLS:
         raise RuntimeError("the layer-0 convs whose harmonics need a gradient are not the "
@@ -409,8 +458,41 @@ def capture_training_convs(model, batch):
     return k2_calls, k3_calls
 
 
+def bounds(work):
+    """{kernel: (bound ms, "bytes" or "operations")} of a work count."""
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+        out[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def check_result(what, got, want, dtype, tol_f32):
+    """(max |kernel - plain|, max |plain|) of a kernel's result: f32 within
+    ``tol_f32`` of the scale; bf16 operands: an f32 output within
+    TOL_BF16_OUT of the scale, a bf16 gradient within one bf16 rounding step
+    of each element plus TOL_BF16_FLOOR of the scale."""
+    import torch
+
+    want = want.detach()
+    scale = float(want.abs().max())
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    if dtype == torch.float32 or got.dtype == torch.float32:
+        tol = tol_f32 if dtype == torch.float32 else TOL_BF16_OUT
+        if not err <= tol * max(scale, 1e-30):
+            raise AssertionError(f"{what}: |kernel - plain| {err} > {tol} * {scale}")
+    else:
+        excess = float((diff - BF16_STEP * want.abs()).max())
+        if not excess <= TOL_BF16_FLOOR * max(scale, 1e-30):
+            raise AssertionError(f"{what}: bf16 |kernel - plain| exceeds one rounding step by "
+                                 f"{excess} (> {TOL_BF16_FLOOR} * {scale})")
+    return err, scale
+
+
 def phase_k2_check(calls):
-    """Hold K2's kernels against the plain version on the captured inputs."""
+    """Hold K2's kernels against the plain version on the captured inputs,
+    in f32 and in bf16."""
     import torch
 
     from diffphore_torch.ops import tp_aggregate as k2
@@ -418,76 +500,78 @@ def phase_k2_check(calls):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = []
-    for name, tp, x, sh, w, sh_grad in calls:
-        B, N, M, _ = sh.shape
+    for name, tp, x_cap, sh_cap, w_cap, sh_grad in calls:
+        B, N, M, _ = sh_cap.shape
         F = tp.weight_numel
         g = torch.randn((B, N, F, 4), generator=gen, device="cuda")
+        case = {"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad}
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
+            leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
+            ref = k2.tp_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves))
+            ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
+            runs = []
+            for _ in range(2):
+                out = k2.launch_forward(tp, x, sh, w)
+                dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, True)
+                dx = k2.launch_backward_x(tp, x, sh, w, g)
+                runs.append((out, dx, dsh, dw))
+            dw_only, _ = k2.launch_backward_edge(tp, x, sh, w, g, False)
+            torch.cuda.synchronize()
+            check_result(f"{name} {dtype}: dw of the kernel without dsh", dw_only, ref_dw, dtype,
+                         TOL_K2)
+            errs = {}
+            for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
+                                               (ref, ref_dx, ref_dsh, ref_dw)):
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {dtype}: two runs of {label} differ")
+                errs[label] = check_result(f"{name} {dtype}: {label}", got, want, dtype, TOL_K2)
 
-        leaves = [t.clone().requires_grad_(True) for t in (x, sh, w)]
-        ref = k2.tp_aggregate_plain(tp, *leaves)
-        ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
-        runs = []
-        for _ in range(2):
-            out = k2.launch_forward(tp, x, sh, w)
-            dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, True)
-            dx = k2.launch_backward_x(tp, x, sh, w, g)
-            runs.append((out, dx, dsh, dw))
-        dw_only, _ = k2.launch_backward_edge(tp, x, sh, w, g, False)
-        torch.cuda.synchronize()
-        dw_scale = float(ref_dw.abs().max())
-        if not float((dw_only - ref_dw).abs().max()) <= TOL_K2 * max(dw_scale, 1e-30):
-            raise AssertionError(f"{name}: dw of the kernel without dsh is off the plain version's")
-        errs = {}
-        for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
-                                           (ref.detach(), ref_dx, ref_dsh, ref_dw)):
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name}: two runs of {label} differ")
-            scale, err = float(want.abs().max()), float((got - want).abs().max())
-            if not err <= TOL_K2 * max(scale, 1e-30):
-                raise AssertionError(f"{name}: {label} |kernel - plain| {err} > {TOL_K2} * {scale}")
-            errs[label] = (err, scale)
-
-        # times: the backward in the form the train step runs it (dsh only
-        # where the harmonics carry gradient); the plain backward is autograd
-        # through the plain version for the same gradients
-        ms = {
-            "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w), 10),
-            "bwd_edge": device_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10),
-            "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
-        }
-        call_ms = cuda_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10)
-        edge_leaves = [leaves[2], leaves[1]] if sh_grad else [leaves[2]]
-        with torch.no_grad():
-            plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w), 3)
-        plain = {
-            "fwd": plain_fwd,
-            "bwd_edge": cuda_ms(lambda: torch.autograd.grad(ref, edge_leaves, g,
-                                                            retain_graph=True), 3),
-            "bwd_x": cuda_ms(lambda: torch.autograd.grad(ref, [leaves[0]], g,
-                                                         retain_graph=True), 3),
-        }
-        grid = {}
-        for k, kept in (("fwd", N), ("bwd_x", M)):
-            splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device)
-            grid[k] = (B * -(-kept // k2.KEEP) * splits, splits)
-        work = k2_work(tp, x, sh, w, sh_grad)
-        bound = {}
-        for k, (nbytes, ops) in work.items():
-            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-            bound[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-        cases.append({"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad, "errs": errs,
-                      "ms": ms, "call_ms_bwd_edge": call_ms, "plain_ms": plain, "bound": bound,
-                      "grid": grid})
+            # times: the backward in the form the train step runs it (dsh only
+            # where the harmonics carry gradient)
+            case["errs" + tag] = errs
+            case["ms" + tag] = {
+                "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w), 10),
+                "bwd_edge": device_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad),
+                                      10),
+                "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
+            }
+            case["bound" + tag] = bounds(k2_work(tp, x, sh, w, sh_grad))
+            case["grid" + tag] = {}
+            for k, kept in (("fwd", N), ("bwd_x", M)):
+                splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device, dtype)
+                case["grid" + tag][k] = (B * -(-kept // k2.KEEP) * splits, splits)
+            if dtype == torch.float32:
+                # the plain backward is autograd through the plain version
+                case["call_ms_bwd_edge"] = cuda_ms(
+                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10)
+                edge_leaves = [leaves[2], leaves[1]] if sh_grad else [leaves[2]]
+                with torch.no_grad():
+                    plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w), 3)
+                case["plain_ms"] = {
+                    "fwd": plain_fwd,
+                    "bwd_edge": cuda_ms(lambda: torch.autograd.grad(ref, edge_leaves, g,
+                                                                    retain_graph=True), 3),
+                    "bwd_x": cuda_ms(lambda: torch.autograd.grad(ref, [leaves[0]], g,
+                                                                 retain_graph=True), 3),
+                }
+            del ref, leaves, runs
+        cases.append(case)
+        ms, ms_bf, plain, bound = case["ms"], case["ms_bf16"], case["plain_ms"], case["bound"]
+        errs, errs_bf, grid = case["errs"], case["errs_bf16"], case["grid"]
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F:3d} dsh={int(sh_grad)} "
-              f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} sender splits), dx grid "
-              f"{grid['bwd_x'][0]} blocks ({grid['bwd_x'][1]} receiver splits) "
+              f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} sender splits; bf16 "
+              f"{case['grid_bf16']['fwd'][1]}), dx grid {grid['bwd_x'][0]} blocks "
+              f"({grid['bwd_x'][1]} receiver splits; bf16 {case['grid_bf16']['bwd_x'][1]}) "
               f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
               f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
-              f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}) | ms kernel/plain/bound: "
-              + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{bound[k][0]:.4f}({bound[k][1][0]})"
+              f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}); bf16 err out {errs_bf['out'][0]:.1e} "
+              f"dx {errs_bf['dx'][0]:.1e} dsh {errs_bf['dsh'][0]:.1e} dw {errs_bf['dw'][0]:.1e} "
+              f"| ms kernel/plain/bound f32, kernel/bound bf16: "
+              + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{bound[k][0]:.4f}({bound[k][1][0]}), "
+                         f"{ms_bf[k]:.4f}/{case['bound_bf16'][k][0]:.4f}"
                          for k in ("fwd", "bwd_edge", "bwd_x"))
-              + f" | bwd_edge per call from Python {call_ms:.4f}", flush=True)
-        del ref, leaves, runs
+              + f" | bwd_edge per call from Python {case['call_ms_bwd_edge']:.4f}", flush=True)
     by_name = {c["conv"]: c for c in cases}
     for c in cases:
         twin = by_name.get(c["conv"].replace("_conv_", "_norm_conv_"))
@@ -531,8 +615,12 @@ def k2_kernel_entries(cases, launches):
             "bound_ms": sum(c["bound"][k][0] for c in cases),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
             "library_ms": None,
-            "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay); "
-                    "a call runs the first of device_kernels and, where noted there, the second",
+            "ms_bf16": sum(c["ms_bf16"][k] for c in cases),
+            "bound_ms_bf16": sum(c["bound_bf16"][k][0] for c in cases),
+            "max_abs_err_bf16": max(c["errs_bf16"][o][0] for c in cases for o in outputs),
+            "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay), "
+                    "f32 operands (ms) and bf16 ones (ms_bf16); a call runs the first of "
+                    "device_kernels and, where noted there, the second",
         })
         if k != "bwd_edge":
             entries[-1]["splits"] = [c["grid"][k][1] for c in cases]
@@ -540,34 +628,45 @@ def k2_kernel_entries(cases, launches):
 
 
 K3_KERNELS = ("fwd", "bwd_w", "bwd_sh", "bwd_x")
-# The one PyTorch call that computes each K3 kernel's function (operands in
-# the order x, sh, w, g); timed beside the kernel, used nowhere in the port.
+# The one PyTorch call that computes each K3 kernel's function on one path
+# (operands in the order x, sh, w, g); timed beside the kernel, used nowhere
+# in the port.
 K3_EINSUM = {"fwd": ("bmu,bnmk,bnmu->bnuk", "x sh w"), "bwd_w": ("bmu,bnmk,bnuk->bnmu", "x sh g"),
              "bwd_sh": ("bmu,bnmu,bnuk->bnmk", "x w g"), "bwd_x": ("bnmk,bnmu,bnuk->bmu", "sh w g")}
 
 
-def k3_work(x, sh, w):
+def k3_work(tp, x, sh, w):
     """{kernel: (bytes, f32 operations)} that K3's four kernels need on one
-    path's views: each operand read once, each result written once; products
-    with an edge weight counted on edges whose weights are not all zero, dw
-    on every edge (it is defined where w is masked too)."""
-    B, N, M, K = sh.shape
-    U = x.shape[-1]
+    convolution: each operand read once (x once for all paths, the harmonic
+    components the paths read, the weights, the upstream gradient's lanes
+    the paths read), each result written once, at their element sizes (the
+    output and the upstream gradient f32); products with an edge weight
+    counted on edges whose weights are not all zero, dw on every edge (it is
+    defined where w is masked too)."""
+    B, N, M, _ = sh.shape
     edges = B * N * M
     live = int((w != 0).any(-1).sum())
-    x_b, sh_b, w_b, out_b = 4 * B * M * U, 4 * edges * K, 4 * edges * U, 4 * B * N * U * K
-    per_edge = U * (2 * K + 1)           # one product x * w (or x * t), K multiply-adds
+    es = x.element_size()
+    sh_k = sum(k for _, k in {(p.i_sh, 2 * p.l_sh + 1) for p in tp.paths})
+    x_b = es * B * M * tp.irreps_in.dim
+    sh_b, w_b = es * edges * sh_k, es * edges * tp.weight_numel
+    gk = sum(p.mul_in * (2 * p.l_sh + 1) for p in tp.paths)
+    out_b = 4 * B * N * tp.weight_numel * 4          # the packed (B, N, F, 4) f32 output
+    g_b = 4 * B * N * gk                             # the lanes of g the paths read
+    per_edge = sum(p.mul_in * (2 * (2 * p.l_sh + 1) + 1) for p in tp.paths)
+    dsh_ops = sum(p.mul_in * 2 * (2 * p.l_sh + 1) for p in tp.paths)
     return {
         "fwd": (x_b + sh_b + w_b + out_b, live * per_edge),
-        "bwd_w": (x_b + sh_b + out_b + w_b, edges * per_edge),
-        "bwd_sh": (x_b + w_b + out_b + sh_b, live * per_edge),
-        "bwd_x": (sh_b + w_b + out_b + x_b, live * (per_edge + U)),
+        "bwd_w": (x_b + sh_b + g_b + w_b, edges * per_edge),
+        "bwd_sh": (x_b + w_b + g_b + sh_b, live * dsh_ops),
+        "bwd_x": (sh_b + w_b + g_b + x_b, live * (per_edge + tp.weight_numel)),
     }
 
 
 def phase_k3_check(calls):
-    """Hold K3's kernels against the plain version on every (conv, path) call
-    of the captured layer-0 convs, on the views the conv hands over."""
+    """Hold K3's kernels against the plain version on each captured layer-0
+    conv, in f32 and in bf16: the forward and dx per conv, dw and dsh per
+    path on the views the conv hands over."""
     import torch
 
     from diffphore_torch.ops import tp_scalar as k3
@@ -575,69 +674,88 @@ def phase_k3_check(calls):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
     cases = []
-    for name, tp, x_full, sh_full, w_full, sh_grad in calls:
-        B, N, M, _ = sh_full.shape
-        g_full = torch.randn((B, N, tp.weight_numel, 4), generator=gen, device="cuda")
-        for p, (x, sh, w) in zip(tp.paths, k3.path_views(tp, x_full, sh_full, w_full)):
-            K, U = sh.shape[-1], x.shape[-1]
-            g = g_full[:, :, p.w_slice[0]:p.w_slice[1], :K]
-            if w.is_contiguous() or (K > 1 and sh.is_contiguous()):
-                raise AssertionError(f"{name}: the path's operands are copies, not views")
-            leaves = [t.clone().requires_grad_(True) for t in (x, sh, w)]
-            ref = k3.scalar_path_aggregate_plain(*leaves)
-            ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
+    for name, tp, x_cap, sh_cap, w_cap, sh_grad in calls:
+        B, N, M, _ = sh_cap.shape
+        F = tp.weight_numel
+        g = torch.randn((B, N, F, 4), generator=gen, device="cuda")   # noise in the pad lanes
+        lanes = torch.zeros_like(g)
+        for p in tp.paths:
+            lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+        case = {"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad,
+                "paths": len(tp.paths)}
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
+            leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
+            ref = k3.scalar_paths_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves))
+            ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g * lanes,
+                                                          retain_graph=True)
             runs = []
             for _ in range(2):
-                runs.append((k3.launch_forward(x, sh, w), k3.launch_backward_x(sh, w, g),
-                             k3.launch_backward_sh(x, w, g), k3.launch_backward_w(x, sh, g)))
+                out = k3.launch_forward(tp, x, sh, w)
+                dw, dsh = k3.launch_backward_edge(tp, x, sh, w, g, True)
+                dx = k3.launch_backward_x(tp, x, sh, w, g)
+                runs.append((out, dx, dsh, dw))
             torch.cuda.synchronize()
             errs = {}
             for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
-                                               (ref.detach(), ref_dx, ref_dsh, ref_dw)):
+                                               (ref, ref_dx, ref_dsh, ref_dw)):
                 if not torch.equal(got, again):
-                    raise AssertionError(f"{name} path {p.l_sh}: two runs of {label} differ")
-                scale, err = float(want.abs().max()), float((got - want).abs().max())
-                if not err <= TOL_K3 * max(scale, 1e-30):
-                    raise AssertionError(
-                        f"{name} path l={p.l_sh}: {label} |kernel - plain| {err} > {TOL_K3} * {scale}")
-                errs[label] = (err, scale)
-
-            ops = {"x": x, "sh": sh, "w": w, "g": g}
-            ms = {
-                "fwd": device_ms(lambda: k3.launch_forward(x, sh, w), 20),
-                "bwd_w": device_ms(lambda: k3.launch_backward_w(x, sh, g), 20),
-                "bwd_sh": device_ms(lambda: k3.launch_backward_sh(x, w, g), 20),
-                "bwd_x": device_ms(lambda: k3.launch_backward_x(sh, w, g), 20),
+                    raise AssertionError(f"{name} {dtype}: two runs of {label} differ")
+                errs[label] = check_result(f"{name} {dtype}: {label}", got, want, dtype, TOL_K3)
+            case["errs" + tag] = errs
+            case["ms" + tag] = {
+                "fwd": device_ms(lambda: k3.launch_forward(tp, x, sh, w), 20),
+                "bwd_w": device_ms(lambda: k3.launch_backward_edge(tp, x, sh, w, g, False), 20),
+                "bwd_sh": device_ms(
+                    lambda: k3.launch_backward_edge(tp, x, sh, w, g, True, False), 20),
+                "bwd_x": device_ms(lambda: k3.launch_backward_x(tp, x, sh, w, g), 20),
             }
-            with torch.no_grad():
-                plain_fwd = cuda_ms(lambda: k3.scalar_path_aggregate_plain(x, sh, w), 5)
-                library = {k: cuda_ms(lambda eq=eq, names=names: torch.einsum(
-                    eq, *(ops[n] for n in names.split())), 5) for k, (eq, names) in K3_EINSUM.items()}
-            plain = {"fwd": plain_fwd}
-            for k, leaf in (("bwd_x", leaves[0]), ("bwd_sh", leaves[1]), ("bwd_w", leaves[2])):
-                plain[k] = cuda_ms(lambda leaf=leaf: torch.autograd.grad(ref, [leaf], g,
-                                                                         retain_graph=True), 5)
-            bound = {}
-            for k, (nbytes, nops) in k3_work(x, sh, w).items():
-                t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
-                bound[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-            cases.append({"conv": name, "B": B, "N": N, "M": M, "U": U, "K": K, "dsh": sh_grad,
-                          "errs": errs, "ms": ms, "plain_ms": plain, "library_ms": library,
-                          "bound": bound})
-            print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} U={U:2d} K={K} dsh={int(sh_grad)} "
-                  f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
-                  f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
-                  f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}) | ms kernel/plain/einsum/bound: "
-                  + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{library[k]:.4f}/"
-                             f"{bound[k][0]:.4f}({bound[k][1][0]})" for k in K3_KERNELS), flush=True)
+            case["bound" + tag] = bounds(k3_work(tp, x, sh, w))
+            case["grid" + tag] = {
+                k: k3.launch_chunk(tp, B, N, M, k == "bwd_x", x.device, dtype)[1]
+                for k in ("fwd", "bwd_x")}
+            if dtype == torch.float32:
+                # the einsum of each path on the same views, by graph replay
+                library = dict.fromkeys(K3_KERNELS, 0.0)
+                for p, (xv, shv, wv) in zip(tp.paths, k3.path_views(tp, x, sh, w)):
+                    ops = {"x": xv, "sh": shv, "w": wv,
+                           "g": g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]]}
+                    with torch.no_grad():
+                        for k, (eq, names) in K3_EINSUM.items():
+                            library[k] += device_ms(lambda eq=eq, names=names: torch.einsum(
+                                eq, *(ops[n] for n in names.split())), 20)
+                case["library_ms"] = library
+                with torch.no_grad():
+                    plain = {"fwd": cuda_ms(lambda: k3.scalar_paths_aggregate_plain(tp, x, sh, w),
+                                            5)}
+                for k, leaf in (("bwd_x", leaves[0]), ("bwd_sh", leaves[1]), ("bwd_w", leaves[2])):
+                    plain[k] = cuda_ms(lambda leaf=leaf: torch.autograd.grad(
+                        ref, [leaf], g * lanes, retain_graph=True), 5)
+                case["plain_ms"] = plain
             del ref, leaves, runs
+        cases.append(case)
+        ms, ms_bf, bound, lib = case["ms"], case["ms_bf16"], case["bound"], case["library_ms"]
+        errs, errs_bf = case["errs"], case["errs_bf16"]
+        print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F} dsh={int(sh_grad)} "
+              f"splits fwd {case['grid']['fwd']} dx {case['grid']['bwd_x']} (bf16 "
+              f"{case['grid_bf16']['fwd']}, {case['grid_bf16']['bwd_x']}) "
+              f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
+              f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
+              f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}); bf16 err out {errs_bf['out'][0]:.1e} "
+              f"dx {errs_bf['dx'][0]:.1e} dsh {errs_bf['dsh'][0]:.1e} dw {errs_bf['dw'][0]:.1e} "
+              f"| ms kernel/plain/einsum/bound f32, kernel/bound bf16: "
+              + " ".join(f"{k} {ms[k]:.4f}/{case['plain_ms'][k]:.4f}/{lib[k]:.4f}/"
+                         f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
+                         f"{case['bound_bf16'][k][0]:.4f}" for k in K3_KERNELS), flush=True)
     return cases
 
 
 def k3_kernel_entries(cases, launches, launches_training):
     """The report entries of K3's four kernels, summed over the calls one
-    train step makes (dsh over the calls whose harmonics need a gradient)."""
+    train step makes (dsh over the convs whose harmonics need a gradient)."""
     labels = {"fwd": "out", "bwd_w": "dw", "bwd_sh": "dsh", "bwd_x": "dx"}
+    units = {"fwd": "the 6 conv calls", "bwd_x": "the 6 conv calls",
+             "bwd_w": "the 12 (conv, path) calls", "bwd_sh": "the 4 (conv, path) calls"}
     entries = []
     for k, output in labels.items():
         used = [c for c in cases if k != "bwd_sh" or c["dsh"]]
@@ -659,8 +777,13 @@ def k3_kernel_entries(cases, launches, launches_training):
             "bound_ms": sum(c["bound"][k][0] for c in used),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
             "library_ms": sum(c["library_ms"][k] for c in used),
-            "unit": f"one train step: the {len(used)} (conv, path) calls, each timed alone on the card (graph replay); "
-                    f"library_ms is torch.einsum('{K3_EINSUM[k][0]}') on the same views",
+            "ms_bf16": sum(c["ms_bf16"][k] for c in used),
+            "bound_ms_bf16": sum(c["bound_bf16"][k][0] for c in used),
+            "max_abs_err_bf16": max(c["errs_bf16"][output][0] for c in cases),
+            "unit": f"one train step: {units[k]} of the layer-0 convs, each conv timed alone on "
+                    f"the card (graph replay), f32 operands (ms) and bf16 ones (ms_bf16); "
+                    f"library_ms is torch.einsum('{K3_EINSUM[k][0]}') on each path's views, by "
+                    f"graph replay",
         })
     return entries
 
@@ -689,8 +812,8 @@ def expect_counts(what, steps=0, eval_batches=0):
     got = kernel_counts()
     want = {"k1": CONVS_PER_FORWARD * eval_batches, "fwd": K2_CONVS * steps,
             "bwd_edge": K2_CONVS * steps, "bwd_x": K2_CONVS * steps,
-            "k3_fwd": K3_CALLS * steps, "k3_bwd_w": K3_CALLS * steps,
-            "k3_bwd_sh": K3_DSH_CALLS * steps, "k3_bwd_x": K3_CALLS * steps}
+            "k3_fwd": K3_CONVS * steps, "k3_bwd_w": K3_PATHS * steps,
+            "k3_bwd_sh": K3_DSH_CALLS * steps, "k3_bwd_x": K3_CONVS * steps}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
     return got
@@ -719,6 +842,34 @@ def compare_step_gradients(what, results):
           f"{worst:.2e})", flush=True)
 
 
+def compare_bf16_step(what, results):
+    """A bf16 step with the kernels against the same step with the plain
+    convs ({(dtype, use_kernel): (loss, gradients by name)}): the loss within
+    TOL_STEP_GRAD of its size, as at f32 (a scalar whose f32-vs-bf16
+    difference may be near 0 by chance), and the gradient over all leaves as
+    one vector within TOL_BF16_GAP of the plain route's own f32-vs-bf16
+    difference."""
+    import torch
+
+    (loss_k, gk), (loss_p, gp) = results["bfloat16", True], results["bfloat16", False]
+    loss_32, g32 = results["float32", False]
+    names = [k for k, v in gp.items() if v.numel()]
+    flat = lambda d: torch.cat([d[k].flatten() for k in names])
+    err = float((flat(gk) - flat(gp)).norm())
+    gap = float((flat(g32) - flat(gp)).norm())
+    norm = float(flat(gp).norm())
+    if not err <= TOL_BF16_GAP * gap:
+        raise AssertionError(f"{what}: |kernel - plain| of the gradient {err} > {TOL_BF16_GAP} * "
+                             f"the plain route's f32-vs-bf16 difference {gap}")
+    if not abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p):
+        raise AssertionError(f"{what}: loss: kernel {loss_k} vs plain {loss_p} (f32 plain "
+                             f"{loss_32})")
+    print(f"{what}, kernels vs plain convs, same draws: loss {loss_k:.6f} vs {loss_p:.6f} (f32 "
+          f"plain {loss_32:.6f}); gradient over {len(names)} leaves, L2 |kernel - plain| / "
+          f"|plain| {err / norm:.2e} against the plain route's f32-vs-bf16 {gap / norm:.2e}",
+          flush=True)
+
+
 def set_use_kernel(model, use_kernel):
     from diffphore_torch.models.layers import DenseTPConv
 
@@ -744,21 +895,29 @@ def phase_training(cfg, train_batch, card):
     draws = draw_noise(B, T, gen, "cuda")
     step = make_train_step(cfg)
 
-    # ---- (c) one step, kernels against plain convs, same noise and dropout masks
-    results = []
-    for use_kernel in (True, False):
-        state = create_train_state(cfg, seed=SEED, device="cuda")
-        set_use_kernel(state.model, use_kernel)
-        drop = torch.Generator(device="cuda")
-        drop.manual_seed(SEED + 1)
-        reset_kernel_counts()
-        state, metrics = step(state, train_batch, drop, draws=draws)
-        torch.cuda.synchronize()
-        expect_counts(f"step with use_kernel={use_kernel}", steps=1 if use_kernel else 0)
-        results.append((float(metrics["loss"]),
-                        {k: p.grad.clone() for k, p in state.model.named_parameters()}))
-        del state
-    compare_step_gradients("train step", results)
+    # ---- (c) one step, kernels against plain convs, same noise and dropout
+    # masks, at f32 and at the shipped bf16
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+        step_d = make_train_step(cfg_d)
+        for use_kernel in (True, False):
+            state = create_train_state(cfg_d, seed=SEED, device="cuda")
+            set_use_kernel(state.model, use_kernel)
+            drop = torch.Generator(device="cuda")
+            drop.manual_seed(SEED + 1)
+            reset_kernel_counts()
+            state, metrics = step_d(state, train_batch, drop, draws=draws)
+            torch.cuda.synchronize()
+            expect_counts(f"{dtype} step with use_kernel={use_kernel}",
+                          steps=1 if use_kernel else 0)
+            results[dtype, use_kernel] = (float(metrics["loss"]),
+                                          {k: p.grad.clone()
+                                           for k, p in state.model.named_parameters()})
+            del state
+    compare_step_gradients("train step (f32)",
+                           [results["float32", True], results["float32", False]])
+    compare_bf16_step("train step (bf16)", results)
 
     # ---- (b) one fixed batch, fixed noise, dropout on
     state = create_train_state(cfg, seed=SEED, device="cuda")
@@ -787,8 +946,8 @@ def phase_training(cfg, train_batch, card):
           f"{losses[-1]:.4f} over {FIXED_BATCH_STEPS} steps; {FIXED_BATCH_STEPS / elapsed:.2f} "
           f"steps/s, {B * FIXED_BATCH_STEPS / elapsed:.1f} complexes/s, peak memory "
           f"{peak_fixed:.2f} GiB; per step K2 launches {K2_CONVS} forward + {K2_CONVS} edge "
-          f"backward + {K2_CONVS} sender backward, K3 {K3_CALLS} forward + {K3_CALLS} dw + "
-          f"{K3_DSH_CALLS} dsh + {K3_CALLS} dx, K1 0 ({card})", flush=True)
+          f"backward + {K2_CONVS} sender backward, K3 {K3_CONVS} forward + {K3_PATHS} dw + "
+          f"{K3_DSH_CALLS} dsh + {K3_CONVS} dx, K1 0 ({card})", flush=True)
     del state
 
     # ---- (a) the training CLI: one epoch over cached complexes + a val-loss epoch
@@ -851,6 +1010,7 @@ def phase_calibrated(cfg, train_batch, card):
     import torch
 
     from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.models.layers import set_compute_dtype
     from diffphore_torch.train.ccsampler import (ccsampler_apply_noise, draw_cc,
                                                  make_ccsampler_train_step)
     from diffphore_torch.train.state import create_train_state
@@ -860,7 +1020,6 @@ def phase_calibrated(cfg, train_batch, card):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 4)
     draws = draw_cc(B, T, gen, "cuda")
-    step = make_ccsampler_train_step(cfg, delta_t=CC_DELTA_T)
 
     # ---- (c) one calibrated step, kernels against plain convs (the frozen
     # forward's too), same draws and dropout masks.  Fresh weights, as the
@@ -871,26 +1030,32 @@ def phase_calibrated(cfg, train_batch, card):
     # rounding noise of 1e-7 put on the plain route's own conv outputs moves
     # the gradients by the same 2.2e-3 of the largest one, to five digits,
     # while every conv output agrees to 5e-7 (PERF.md, section 6).
-    def state_of(weights, use_kernel):
+    # The fresh-weights step runs at f32 and at the shipped bf16 (held as
+    # the plain train step's), the shipped-weights step at f32.
+    def state_of(weights, use_kernel, cfg_d):
         if weights == "fresh":
-            state = create_train_state(cfg, seed=SEED, device="cuda")
+            state = create_train_state(cfg_d, seed=SEED, device="cuda")
         else:
-            state = create_train_state(cfg, device="cuda",
-                                       model=load_model_dir(MODEL_DIR, device="cuda")[1])
+            model = load_model_dir(MODEL_DIR, device="cuda")[1]
+            set_compute_dtype(model, cfg_d.compute_dtype)
+            state = create_train_state(cfg_d, device="cuda", model=model)
         set_use_kernel(state.model, use_kernel)
         return state
 
-    for weights in ("fresh", "shipped"):
+    fresh = {}
+    for weights, dtype in (("fresh", "float32"), ("fresh", "bfloat16"), ("shipped", "float32")):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+        step_d = make_ccsampler_train_step(cfg_d, delta_t=CC_DELTA_T)
         results, shares = [], []
         for use_kernel in (True, False):
-            state = state_of(weights, use_kernel)
+            state = state_of(weights, use_kernel, cfg_d)
             drop = torch.Generator(device="cuda")
             drop.manual_seed(SEED + 5)
             reset_kernel_counts()
-            state, metrics = step(state, train_batch, drop, p_from_infer=CC_RATE, draws=draws)
+            state, metrics = step_d(state, train_batch, drop, p_from_infer=CC_RATE, draws=draws)
             torch.cuda.synchronize()
             on = 1 if use_kernel else 0
-            expect_counts(f"calibrated step, {weights} weights, use_kernel={use_kernel}",
+            expect_counts(f"calibrated step, {weights} weights, {dtype}, use_kernel={use_kernel}",
                           steps=on, eval_batches=on)
             if float(metrics["grad_finite"]) != 1.0:
                 raise AssertionError(f"calibrated step, {weights} weights: the loss is not finite")
@@ -900,10 +1065,14 @@ def phase_calibrated(cfg, train_batch, card):
             del state
         if shares[0] != shares[1] or not 0.0 < shares[0] < 1.0:
             raise AssertionError(f"calibrated step, {weights} weights: branch shares {shares}")
-        what = (f"calibrated train step, {weights} weights ({shares[0]:.2f} of the graphs on "
-                f"the calibrated branch)")
+        what = (f"calibrated train step, {weights} weights, {dtype} ({shares[0]:.2f} of the "
+                f"graphs on the calibrated branch)")
         if weights == "fresh":
-            compare_step_gradients(what, results)
+            fresh[dtype, True], fresh[dtype, False] = results
+            if dtype == "float32":
+                compare_step_gradients(what, results)
+            else:
+                compare_bf16_step(what, fresh)
             continue
         (loss_k, grads_k), (loss_p, grads_p) = results
         if not abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p):
@@ -912,7 +1081,7 @@ def phase_calibrated(cfg, train_batch, card):
         worst = max(float((grads_k[k] - g).abs().max()) for k, g in grads_p.items() if g.numel())
         stage = []
         for use_kernel in (True, False):
-            model = state_of(weights, use_kernel).model.eval()
+            model = state_of(weights, use_kernel, cfg_d).model.eval()
             with torch.no_grad():
                 stage.append(ccsampler_apply_noise(train_batch, cfg.sigma_schedule, model, CC_RATE,
                                                    CC_DELTA_T, cfg.no_torsion, draws=draws))
@@ -1018,7 +1187,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from diffphore_torch.cli.pipeline import FitEngine, job_from_cached
     from diffphore_torch.data.graphs import repeat_batch
-    from diffphore_torch.models.layers import DenseTPConv
+    from diffphore_torch.models.layers import DenseTPConv, set_compute_dtype
     from diffphore_torch.ops import build, tp_fused
     from diffphore_torch.ops.fitscore import batch_phore_arrays
     from diffphore_torch.sampler.sampling import SamplerSettings, draw_prior, randomize_position
@@ -1044,6 +1213,8 @@ def main() -> int:
 
     # ---- 3. kernel check on the main path's conv inputs
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
+    if cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"the shipped config computes in {cfg.compute_dtype}, not bfloat16")
     complexes = [b for _, b in bucket_complexes(CACHE_DIR, N_COMPLEXES)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1054,20 +1225,36 @@ def main() -> int:
     print("kernel check: tp_fused on the 23 conv calls of one forward", flush=True)
     cases = phase_kernel_check(model, batch, tp_fused)
 
-    # one forward, kernel convs against plain convs
+    # one forward, kernel convs against plain convs: at f32 (TOL_FORWARD) and
+    # at the shipped bf16 (a share of the plain route's own f32-vs-bf16 gap)
     convs = [m for m in model.modules() if isinstance(m, DenseTPConv)]
+    fwd = {}
     with torch.inference_mode():
-        fwd_k = model(batch, pose_group=POSES)
-        for m in convs:
-            m.use_kernel = False
-        fwd_p = model(batch, pose_group=POSES)
-        for m in convs:
-            m.use_kernel = True
-    for label, a, b in zip(("tr", "rot", "tor"), fwd_k, fwd_p):
-        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-        print(f"forward {label}: max |kernel - plain| / max|plain| = {rel:.2e}")
+        for dtype in ("float32", "bfloat16"):
+            set_compute_dtype(model, dtype)
+            for use_kernel in (True, False):
+                for m in convs:
+                    m.use_kernel = use_kernel
+                fwd[dtype, use_kernel] = model(batch, pose_group=POSES)
+    for m in convs:
+        m.use_kernel = True
+    set_compute_dtype(model, cfg.compute_dtype)
+    faults = []
+    for i, label in enumerate(("tr", "rot", "tor")):
+        b32, b16 = fwd["float32", False][i], fwd["bfloat16", False][i]
+        scale = float(b32.abs().max().clamp_min(1e-30))
+        rel = float((fwd["float32", True][i] - b32).abs().max()) / scale
+        rel_bf = float((fwd["bfloat16", True][i] - b16).abs().max()) / scale
+        gap = float((b32 - b16).abs().max()) / scale
+        print(f"forward {label}: max |kernel - plain| / max|plain| = {rel:.2e} (f32), "
+              f"{rel_bf:.2e} (bf16; the plain route's f32-vs-bf16 difference {gap:.2e})",
+              flush=True)
         if not rel <= TOL_FORWARD:
-            raise AssertionError(f"forward {label} differs: {rel} > {TOL_FORWARD}")
+            faults.append(f"forward {label} differs: {rel} > {TOL_FORWARD}")
+        if not rel_bf <= TOL_BF16_GAP * gap:
+            faults.append(f"bf16 forward {label} differs: {rel_bf} > {TOL_BF16_GAP} * {gap}")
+    if faults:
+        raise AssertionError("; ".join(faults))
 
     # ---- 4. main path
     engine = FitEngine(cfg, model, samples_per_complex=POSES,
@@ -1136,7 +1323,8 @@ def main() -> int:
     print(f"kernel check: tp_aggregate forward and backward on the {K2_CONVS} conv calls it "
           "takes of one training-mode forward", flush=True)
     k2_cases = phase_k2_check(k2_calls)
-    print(f"kernel check: tp_scalar forward and backward on the {K3_CALLS} (conv, path) calls of "
+    print(f"kernel check: tp_scalar forward and backward on the {K3_CONVS} convs ({K3_PATHS} "
+          f"paths) of "
           "the layer-0 convs of the same forward", flush=True)
     k3_cases = phase_k3_check(k3_calls)
     del train_model, noised, k2_calls, k3_calls
@@ -1159,6 +1347,9 @@ def main() -> int:
         "launches_calibrated_path": cc_counts["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
+        "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in cases),
+        "ms_bf16": sum(c["ms_bf16"] for c in cases),
+        "bound_ms_bf16": sum(c["bound_ms_bf16"] for c in cases),
         "ms": sum(c["ms"] for c in cases),
         "kernel_ms": sum(c["ms"] for c in cases),
         "plain_ms": sum(c["plain_ms"] for c in cases),
@@ -1168,7 +1359,7 @@ def main() -> int:
         "library_ms": None,
         "call_ms": sum(c["call_ms"] for c in cases),
         "unit": "one forward: the 23 conv calls, each timed alone; ms on the card (graph replay), "
-                "call_ms per call from Python",
+                "f32 inputs (ms) and bf16 ones (ms_bf16), call_ms per call from Python",
     }
     k2_entries = k2_kernel_entries(k2_cases, train_counts)
     for entry, k in zip(k2_entries, ("fwd", "bwd_edge", "bwd_x")):

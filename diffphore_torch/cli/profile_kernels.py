@@ -14,21 +14,29 @@ pre-masked edge weights) here are live on the first ``live_n`` receivers
 and ``live_m`` senders.  It is the quick way to compare two versions of a
 kernel: run it on both trees in one call on one card (the K2 forward and
 dx cases call only ``launch_forward`` and ``launch_backward_x``, which
-every version of the port has).  It needs a GPU and fails without one.
+every version of the port has; the K3 cases call K3's forward and dx per
+convolution where the tree has that interface, else per path, as the
+first K3 did).  It needs a GPU and fails without one.
 
-    python -m diffphore_torch.cli.profile_kernels [--k2_only]
+    python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only]
+
+``--k3_only`` times K3's forward and dx of the six layer-0 training convs
+(f32, and bf16 where the tree takes it): the profiler's device time of each
+kernel, and ``graph_us``, the time per conv of a CUDA graph of its calls
+replayed, launch gaps included.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..ops import tp_aggregate, tp_fused
+from ..ops import tp_aggregate, tp_fused, tp_scalar
 from ..ops.tensor_product import channelwise_tp
 
 SEQ = ["20x0e", "20x0e + 10x1o", "20x0e + 10x1o + 10x1e", "20x0e + 10x1o + 10x1e + 20x0o"]
@@ -60,6 +68,61 @@ K2_CASES = [
 ]
 
 
+#: (conv name, B, N, M, live_n, live_m) of K3 at the six layer-0 training convs
+K3_CASES = [
+    ("lig_conv_0", 24, 24, 24, 10, 9),
+    ("phore_to_lig_conv_0", 24, 24, 96, 20, 42),
+    ("phore_to_lig_norm_conv_0", 24, 24, 96, 20, 42),
+    ("phore_conv_0", 24, 96, 96, 32, 32),
+    ("lig_to_phore_conv_0", 24, 96, 24, 42, 20),
+    ("lig_to_phore_norm_conv_0", 24, 96, 24, 42, 20),
+]
+
+
+def graph_us(fn, iters: int = 20, replays: int = 3) -> float:
+    """us per call of ``fn`` on the card: its calls captured into a CUDA
+    graph and the graph replayed (launch gaps included, the host's time to
+    make a call not)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (iters * replays)
+
+
+def k3_calls(tp, x, sh, w, g):
+    """(forward, dx) of one convolution through this tree's K3: one call for
+    the convolution, or, in a tree whose K3 takes one path per call, one
+    call per path on the convolution's views."""
+    if "tp" in inspect.signature(tp_scalar.launch_forward).parameters:
+        return (lambda: tp_scalar.launch_forward(tp, x, sh, w),
+                lambda: tp_scalar.launch_backward_x(tp, x, sh, w, g))
+    B, N = sh.shape[:2]
+    out = torch.zeros((B, N, tp.weight_numel, 4), device="cuda")
+    dx = torch.zeros_like(x)
+    views = tp_scalar.path_views(tp, x, sh, w)
+
+    def forward():
+        for p, (xv, shv, wv) in zip(tp.paths, views):
+            tp_scalar.launch_forward(xv, shv, wv,
+                                     out[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]])
+
+    def backward_x():
+        for i, (p, (xv, shv, wv)) in enumerate(zip(tp.paths, views)):
+            gv = g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]]
+            tp_scalar.launch_backward_x(shv, wv, gv, dx, accumulate=i > 0)
+    return forward, backward_x
+
+
 def _device_us(event) -> float:
     # the attribute was renamed from *cuda* to *device* in torch 2.4
     return float(getattr(event, "device_time_total", getattr(event, "cuda_time_total", 0.0)))
@@ -82,6 +145,8 @@ def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k2_only", action="store_true",
                         help="only K2's forward and dx cases (to compare two trees)")
+    parser.add_argument("--k3_only", action="store_true",
+                        help="only K3's forward and dx cases (to compare two trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
@@ -94,6 +159,26 @@ def main(argv=None) -> list:
         return torch.randn(*shape, device="cuda", generator=gen)
 
     results = []
+    if args.k3_only:
+        tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+        F = tp.weight_numel
+        bf16 = hasattr(tp_scalar, "path_scale")          # a tree whose K3 takes bf16
+        for dtype in (torch.float32, torch.bfloat16) if bf16 else (torch.float32,):
+            for name, B, N, M, live_n, live_m in K3_CASES:
+                x, sh = randn(B, M, tp.irreps_in.dim), randn(B, N, M, 9)
+                w = torch.zeros(B, N, M, F, device="cuda")
+                w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
+                x, sh, w = x.to(dtype), sh.to(dtype), w.to(dtype)
+                g = randn(B, N, F, 4)
+                for kernel, call in zip(("tp_scalar_fwd", "tp_scalar_bwd_x"),
+                                        k3_calls(tp, x, sh, w, g)):
+                    times = kernel_times(call)
+                    results.append({"kernel": kernel, "conv": name, "dtype": str(dtype),
+                                    "B": B, "N": N, "M": M, "F": F, "us": times,
+                                    "us_total": sum(times.values()), "graph_us": graph_us(call),
+                                    "card": card})
+                    print(json.dumps(results[-1]), flush=True)
+        return results
     for name, irr_in, irr_sh, irr_out, B, N, M, live_n, live_m in K2_CASES:
         tp = channelwise_tp(irr_in, irr_sh, irr_out)
         F = tp.weight_numel

@@ -3,8 +3,8 @@
     python -m diffphore_torch.cli.profile_main_path
 
 Samples one cached complex (the corpus2 model, 40 poses x 20 reverse
-steps, one dispatch as ``FitEngine`` makes it) after a
-warm-up dispatch, once timed by the host clock around a synchronized run
+steps, one dispatch as ``FitEngine`` makes it, at the checkpoint's
+``compute_dtype``, bfloat16) after a warm-up dispatch, once timed by the host clock around a synchronized run
 and once under ``torch.profiler``.  Prints one JSON object: wall time,
 device-busy time and share (sum of kernel times over wall time), K1's time
 and launches, the number of kernel launches, and the top kernels and host
@@ -73,6 +73,7 @@ def main() -> dict:
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     out = {
         "card": card,
+        "compute_dtype": cfg.compute_dtype,
         "poses": POSES, "steps": STEPS, "atoms_phore_torsions":
             [batch.num_atoms, batch.num_phore, batch.num_torsions],
         "wall_ms": wall_ms,

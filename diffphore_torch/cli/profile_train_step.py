@@ -1,6 +1,7 @@
 """Where the time of one training step goes on the GPU.
 
     python -m diffphore_torch.cli.profile_train_step [--rate_from_infer 0.6]
+        [--compute_dtype float32]
 
 Runs the train step (fresh corpus2-width model, dropout on, batch 24 of
 the 24 x 96 x 8 bucket of the training cache) on one fixed batch after
@@ -8,7 +9,9 @@ warm-up steps, once timed by the host clock around a synchronized window
 and once under ``torch.profiler``.  With ``--rate_from_infer`` > 0 it is the
 calibrated-conformation-sampler step at that branch probability, from the
 shipped corpus2 weights (the frozen reverse step needs a trained model to
-be a fair load).  Prints one JSON object: wall time per step, device-busy
+be a fair load).  The convs compute in the shipped config's
+``compute_dtype`` (bfloat16) unless ``--compute_dtype`` says otherwise.
+Prints one JSON object: wall time per step, device-busy
 time and share (sum of kernel times over wall time), the time and launches
 of K1, of K2's three kernels and of K3's four, the number of kernel launches
 per step, peak memory, and the top kernels and host ops.  It needs a GPU
@@ -18,6 +21,7 @@ and fails without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
 import os
@@ -27,6 +31,7 @@ import time
 import torch
 
 from ..data.graphs import concat_batches, load_cached
+from ..models.layers import set_compute_dtype
 from ..ops import tp_aggregate, tp_fused, tp_scalar
 from ..train.ccsampler import make_ccsampler_train_step
 from ..train.state import create_train_state, make_train_step
@@ -54,7 +59,10 @@ def main(argv=None) -> dict:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--rate_from_infer", type=float, default=0.0,
                         help="> 0: profile the calibrated-sampler step at this probability")
-    rate = parser.parse_args(argv).rate_from_infer
+    parser.add_argument("--compute_dtype", choices=["bfloat16", "float32"], default=None,
+                        help="the convs' compute dtype (default: the shipped config's)")
+    args = parser.parse_args(argv)
+    rate = args.rate_from_infer
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,6 +70,8 @@ def main(argv=None) -> dict:
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
     cfg = load_config_yaml(MODEL_DIR)
+    if args.compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     rows = []
     for f in sorted(glob.glob(os.path.join(CACHE_DIR, "*.npz"))):
         b = load_cached(f)
@@ -72,6 +82,7 @@ def main(argv=None) -> dict:
     batch = concat_batches(rows).replace(names=(), meta=()).to("cuda")
     if rate > 0:
         _, model = load_model_dir(MODEL_DIR, device="cuda")
+        set_compute_dtype(model, cfg.compute_dtype)
         state = create_train_state(cfg, device="cuda", model=model)
         cc_step = make_ccsampler_train_step(cfg)
 
@@ -114,6 +125,7 @@ def main(argv=None) -> dict:
         "card": card,
         "step": f"calibrated sampler, rate_from_infer {rate}" if rate > 0 else "plain diffusion",
         "batch": BATCH, "atoms_phore_torsions": list(BUCKET), "dropout": cfg.dropout,
+        "compute_dtype": cfg.compute_dtype,
         "wall_ms_per_step": wall_ms,
         "steps_per_s": 1e3 / wall_ms,
         "complexes_per_s": BATCH * 1e3 / wall_ms,

@@ -183,7 +183,8 @@ def parse_args(argv=None):
                    choices=["channelwise", "fully_connected"])
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"],
-                   help="recorded in the config; the port's convs compute in float32")
+                   help="the convs' edge MLP and aggregate operands (bf16 as the JAX "
+                        "package computes them, or float32)")
     p.add_argument("--model_type", type=str, default="diff", choices=["diff", "tank"])
     p.add_argument("--confidence_mode", action="store_true", help="not ported yet")
     args = p.parse_args(argv)
@@ -288,7 +289,7 @@ def main(argv=None) -> None:
     # the schedule reaches half its plateau.
     cc_floor = min(0.01, args.rate_from_infer / 2.0)
     log_info(f"Training on {device}: {len(train_ds)} complexes in {len(loader)} batches of "
-             f"{args.batch_size}; convs compute in float32")
+             f"{args.batch_size}; convs compute in {cfg.compute_dtype}")
 
     if args.pretrain_model_pt:
         if not os.path.exists(args.pretrain_model_pt):

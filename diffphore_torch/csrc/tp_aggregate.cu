@@ -69,7 +69,19 @@
 //  not the bytes: the ring alone, without the arithmetic, moved 1.1-2.0 TB/s.
 //  Resident blocks are what helped (two stages beat three; splits that fill
 //  every slot); bulk copies (TMA) of each row of w ran slower than cp.async.
+//
+// Operand types.  x, sh and w are f32 or bf16 (a template parameter T; a
+// convolution that computes in bf16 hands them over so), read as they are and
+// multiplied and summed in f32 with alpha * bf16(cg) tables; the forward's
+// output and the upstream gradient g are f32; dw, dsh and dx are stored in T.
+// The ring keeps w in T, so bf16 halves its bytes; a bf16 row of w is 2F
+// bytes, which is not a multiple of 16 at F = 100 (final_conv): the row copies
+// take the largest of 16, 8 or 4 bytes that divides the row and its base
+// address (plain loads otherwise), and the ring's rows keep a 16-byte pitch.
+// Harmonics and sender features are converted to f32 on the way into shared
+// memory.  Split partial sums are f32; the second kernel rounds once.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +93,36 @@ constexpr int J_MAX = 5;        // harmonic components of one path (l_sh <= 2)
 constexpr int G_SIZE = 3 * J_MAX * 3;  // alpha*cg padded to (i < 3, j < 5, k < 3)
 constexpr int MAX_THREADS = 256;
 constexpr size_t MAX_SMEM = 227 * 1024;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Four consecutive elements (16 bytes of f32, 8 of bf16, so aligned) as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 // z[j][k] = sum_i G[i][j][k] * y[i]: the node-level half of the product.
 __device__ __forceinline__ void node_product(const float* G, const float* s_x_row, int x_base,
@@ -98,13 +140,14 @@ __device__ __forceinline__ void node_product(const float* G, const float* s_x_ro
 
 // Stage the harmonics of an (n_count receivers x m_count senders) tile of edges,
 // receiver-major, each row padded to SH_STRIDE with zeros.
-__device__ __forceinline__ void stage_sh(float* s_sh, const float* __restrict__ sh, int b, int N,
+template <typename T>
+__device__ __forceinline__ void stage_sh(float* s_sh, const T* __restrict__ sh, int b, int N,
                                          int M, int S, int n_base, int n_count, int m_base,
                                          int m_count, int tid, int nt) {
   for (int i = tid; i < n_count * m_count * SH_STRIDE; i += nt) {
     const int e = i / SH_STRIDE, j = i - e * SH_STRIDE;
     const int n = n_base + e / m_count, m = m_base + e % m_count;
-    s_sh[i] = (n < N && m < M && j < S) ? sh[(((size_t)b * N + n) * M + m) * S + j] : 0.f;
+    s_sh[i] = (n < N && m < M && j < S) ? to_f(sh[(((size_t)b * N + n) * M + m) * S + j]) : 0.f;
   }
 }
 
@@ -115,6 +158,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -128,14 +175,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // barrier after that.  It does not read w.
 constexpr int MT_MAX = 16;      // senders per block
 
+template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, 3) tp_aggregate_bwd_edge_kernel(
-    const float* __restrict__ x,     // (B, M, D)
-    const float* __restrict__ sh,    // (B, N, M, S)
+    const T* __restrict__ x,         // (B, M, D)
+    const T* __restrict__ sh,        // (B, N, M, S)
     const float* __restrict__ g,     // (B, N, F, 4) upstream gradient
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const int4* __restrict__ ptab,   // (n_paths): f_start, f_count, d_sh, d_out
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
-    float* __restrict__ dw,          // (B, N, M, F)
+    T* __restrict__ dw,              // (B, N, M, F)
     int N, int M, int D, int S, int F, int n_paths, int mt) {
   extern __shared__ __align__(16) float smem[];
   float* s_g = smem;                           // n_paths * G_SIZE
@@ -151,7 +199,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) tp_aggregate_bwd_edge_kernel(
   stage_sh(s_sh, sh, b, N, M, S, n0, TN, m0, mt, tid, nt);
   for (int i = tid; i < mt * D; i += nt) {
     const int m = m0 + i / D;
-    s_x[i] = m < M ? x[((size_t)b * M + m) * D + (i % D)] : 0.f;
+    s_x[i] = m < M ? to_f(x[((size_t)b * M + m) * D + (i % D)]) : 0.f;
   }
   __syncthreads();
 
@@ -186,7 +234,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) tp_aggregate_bwd_edge_kernel(
         const float t = z[j][0] * gk[nl][0] + z[j][1] * gk[nl][1] + z[j][2] * gk[nl][2];
         dwv = fmaf(t, sv[j], dwv);
       }
-      dw[(((size_t)b * N + n) * M + m) * F + f] = dwv;
+      dw[(((size_t)b * N + n) * M + m) * F + f] = from_f<T>(dwv);
     }
   }
 }
@@ -270,19 +318,20 @@ __device__ __forceinline__ void path_dw_dsh(const float* __restrict__ p, float* 
   for (int j = 0; j < DS; ++j) part[j] = acc[j];
 }
 
+template <typename T>
 __global__ void tp_aggregate_bwd_edge_kernel_dsh(
-    const float* __restrict__ x,      // (B, M, D)
-    const float* __restrict__ sh,     // (B, N, M, S)
-    const float* __restrict__ w,      // (B, N, M, F)
+    const T* __restrict__ x,          // (B, M, D)
+    const T* __restrict__ sh,         // (B, N, M, S)
+    const T* __restrict__ w,          // (B, N, M, F)
     const float* __restrict__ g,      // (B, N, F, 4)
     const int4* __restrict__ chan,    // (F): x_base, d_in, sh_off, path
     const int4* __restrict__ ptab,    // (n_paths): f_start, f_count, d_sh, d_out
     const float* __restrict__ gtab,   // (n_paths, 3, J_MAX, 3)
     const int* __restrict__ seg_ptr,  // (S + 1): extents into seg per harmonic component
     const int2* __restrict__ seg,     // (path, j) of every path reaching the component
-    float* __restrict__ dw,           // (B, N, M, F)
-    float* __restrict__ dsh,          // (B, N, M, S)
-    int N, int M, int D, int S, int F, int n_paths, int n_seg) {
+    T* __restrict__ dw,               // (B, N, M, F)
+    T* __restrict__ dsh,              // (B, N, M, S)
+    int N, int M, int D, int S, int F, int n_paths, int n_seg, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int Fp = F | 1, Dp = D | 1;
   float* s_p = smem;                                     // F * P_PITCH: P[f][i][j]
@@ -311,28 +360,28 @@ __global__ void tp_aggregate_bwd_edge_kernel_dsh(
       s_p[f * P_PITCH + ij] = G[ij * 3] * g0 + G[ij * 3 + 1] * g1 + G[ij * 3 + 2] * g2;
     s_p[f * P_PITCH + 3 * J_MAX] = 0.f;
   }
-  const float* wsrc = w + row0 * F;             // count * F contiguous floats
-  if (F % 4 == 0) {
+  const T* wsrc = w + row0 * F;                 // count * F contiguous elements
+  if (vec) {
     for (int i = tid; i < count * (F / 4); i += nt) {
       const int ml = i / (F / 4), f4 = 4 * (i - ml * (F / 4));
-      const float4 v = reinterpret_cast<const float4*>(wsrc)[i];
+      const float4 v = load4(wsrc + 4 * i);
       float* d = s_w + ml * Fp + f4;
       d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
     }
   } else {
     for (int i = tid; i < count * F; i += nt) {
       const int ml = i / F;
-      s_w[ml * Fp + (i - ml * F)] = wsrc[i];
+      s_w[ml * Fp + (i - ml * F)] = to_f(wsrc[i]);
     }
   }
-  const float* xsrc = x + ((size_t)b * M + m0) * D;
+  const T* xsrc = x + ((size_t)b * M + m0) * D;
   for (int i = tid; i < count * D; i += nt) {
     const int ml = i / D;
-    s_x[ml * Dp + (i - ml * D)] = xsrc[i];
+    s_x[ml * Dp + (i - ml * D)] = to_f(xsrc[i]);
   }
   for (int i = tid; i < count * SHP; i += nt) {
     const int ml = i / SHP, j = i - ml * SHP;
-    s_sh[i] = j < S ? sh[(row0 + ml) * S + j] : 0.f;
+    s_sh[i] = j < S ? to_f(sh[(row0 + ml) * S + j]) : 0.f;
   }
   __syncthreads();
 
@@ -352,17 +401,17 @@ __global__ void tp_aggregate_bwd_edge_kernel_dsh(
   }
   __syncthreads();
 
-  float* dwdst = dw + row0 * F;
-  if (F % 4 == 0) {
+  T* dwdst = dw + row0 * F;
+  if (vec) {
     for (int i = tid; i < count * (F / 4); i += nt) {
       const int ml = i / (F / 4), f4 = 4 * (i - ml * (F / 4));
       const float* d = s_w + ml * Fp + f4;
-      reinterpret_cast<float4*>(dwdst)[i] = make_float4(d[0], d[1], d[2], d[3]);
+      store4(dwdst + 4 * i, make_float4(d[0], d[1], d[2], d[3]));
     }
   } else {
     for (int i = tid; i < count * F; i += nt) {
       const int ml = i / F;
-      dwdst[i] = s_w[ml * Fp + (i - ml * F)];
+      dwdst[i] = from_f<T>(s_w[ml * Fp + (i - ml * F)]);
     }
   }
   for (int r = tid; r < count * S; r += nt) {
@@ -370,7 +419,7 @@ __global__ void tp_aggregate_bwd_edge_kernel_dsh(
     float sum = 0.f;
     for (int k = s_segptr[s]; k < s_segptr[s + 1]; ++k)
       sum += s_part[(s_seg[k].x * SH_CHUNK + ml) * J_MAX + s_seg[k].y];
-    dsh[row0 * S + r] = sum;
+    dsh[row0 * S + r] = from_f<T>(sum);
   }
 }
 
@@ -390,18 +439,25 @@ static_assert(ROWS == 32, "a warp's vote gives a tile's live edges, one bit a la
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
+// Elements of a row of w in the ring: F rounded up to 16 bytes.
+__host__ __device__ inline int w_pitch(int F, int esize) {
+  const int per = 16 / esize;
+  return (F + per - 1) / per * per;
+}
+
 // The shared-memory layout in floats, the same on the host and the device.
-// A stage holds a tile's rows of w, its harmonics and its per-entry operand
-// (x rows of the forward's senders, g rows of dx's receivers).
+// A stage holds a tile's rows of w (in the operands' type, esize bytes an
+// element), its harmonics and its per-entry operand (x rows of the forward's
+// senders, g rows of dx's receivers), both in f32.
 struct SplitLayout {
   int w, sh, side, stage, t, g, poff, live, dlist, total;
 };
 
 __host__ __device__ inline SplitLayout split_layout(bool dx, int F, int D, int n_paths,
-                                                    int n_items) {
+                                                    int n_items, int esize) {
   SplitLayout L;
   int o = 0;
-  L.w = o;    o += ROWS * pad4(F);
+  L.w = o;    o += ROWS * w_pitch(F, esize) * esize / 4;
   L.sh = o;   o += ROWS * SH_STRIDE;
   L.side = o; o += dx ? TILE_SUM * 4 * F : TILE_SUM * pad4(D);
   L.stage = pad4(o);
@@ -415,15 +471,62 @@ __host__ __device__ inline SplitLayout split_layout(bool dx, int F, int D, int n
   return L;
 }
 
-template <bool DX>
+// Copies `count` elements of T from src to dst in pieces of `unit` bytes
+// (16, 8 or 4 by cp.async, which both addresses allow; 0: plain loads), lane
+// by lane.
+template <typename T>
+__device__ __forceinline__ void copy_row(T* dst, const T* __restrict__ src, int count, int unit,
+                                         int lane) {
+  constexpr int P16 = 16 / sizeof(T), P8 = 8 / sizeof(T), P4 = 4 / sizeof(T);
+  if (unit == 16) {
+    for (int c = lane; c < count / P16; c += 32) cp_async16(dst + c * P16, src + c * P16);
+  } else if (unit == 8) {
+    for (int c = lane; c < count / P8; c += 32) cp_async8(dst + c * P8, src + c * P8);
+  } else if (unit == 4) {
+    for (int c = lane; c < count / P4; c += 32) cp_async4(dst + c * P4, src + c * P4);
+  } else {
+    for (int c = lane; c < count; c += 32) dst[c] = src[c];
+  }
+}
+
+// One lane's share of the test whether a row of w (in shared memory) is all
+// zero: -0 counts as zero, as it does in f32.
+__device__ __forceinline__ bool any_nonzero(const float* wr, int F, int lane) {
+  bool live = false;
+  if (F % 4 == 0) {
+    for (int c = lane; c < F / 4; c += 32) {
+      const float4 v = *reinterpret_cast<const float4*>(wr + 4 * c);
+      live |= (v.x != 0.f) | (v.y != 0.f) | (v.z != 0.f) | (v.w != 0.f);
+    }
+  } else {
+    for (int c = lane; c < F; c += 32) live |= wr[c] != 0.f;
+  }
+  return live;
+}
+__device__ __forceinline__ bool any_nonzero(const __nv_bfloat16* wr, int F, int lane) {
+  bool live = false;
+  if (F % 4 == 0) {
+    for (int c = lane; c < F / 4; c += 32) {
+      const uint2 v = *reinterpret_cast<const uint2*>(wr + 4 * c);
+      live |= ((v.x | v.y) & 0x7fff7fffu) != 0u;
+    }
+  } else {
+    for (int c = lane; c < F; c += 32) live |= __bfloat162float(wr[c]) != 0.f;
+  }
+  return live;
+}
+
+template <bool DX, typename T>
 __device__ __forceinline__ void split_body(
-    const float* __restrict__ x, const float* __restrict__ sh, const float* __restrict__ w,
+    const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
     const float* __restrict__ g, const int4* __restrict__ chan, const int4* __restrict__ ptab,
     const float* __restrict__ gtab, const int* __restrict__ d_ptr,
-    const int* __restrict__ d_item, float* __restrict__ dst, int B, int N, int M, int D, int S,
-    int F, int n_paths, int n_items, int vec) {
+    const int* __restrict__ d_item, float* __restrict__ dst, T* __restrict__ dx_out, int B, int N,
+    int M, int D, int S, int F, int n_paths, int n_items, int wunit, int gvec) {
   extern __shared__ __align__(16) float smem[];
-  const SplitLayout L = split_layout(DX, F, D, n_paths, n_items);
+  constexpr int ES = sizeof(T);
+  constexpr bool F32 = ES == 4;
+  const SplitLayout L = split_layout(DX, F, D, n_paths, n_items, ES);
   float* s_t = smem + L.t;
   float* s_g = smem + L.g;
   int* s_poff = reinterpret_cast<int*>(smem + L.poff);          // sh_off of each path
@@ -435,7 +538,8 @@ __device__ __forceinline__ void split_body(
   const int n_keep = DX ? M : N, n_sum = DX ? N : M;
   const int count = split < n_sum ? (n_sum - split + splits - 1) / splits : 0;
   const int tiles = (count + TILE_SUM - 1) / TILE_SUM;
-  const int FP = pad4(F), DP = pad4(D);
+  const int FP = w_pitch(F, ES), DP = pad4(D);
+  auto w_rows = [&](const float* st) { return reinterpret_cast<const T*>(st + L.w); };
 
   // The edge of row r of a tile, or -1 past the ragged ends.
   auto edge_of = [&](int tile, int r) -> long long {
@@ -451,14 +555,12 @@ __device__ __forceinline__ void split_body(
       for (int r = warp; r < ROWS; r += nwarps) {
         const long long e = edge_of(tile, r);
         if (e < 0) continue;
-        const float* src = w + e * F;
-        float* d = st + L.w + r * FP;
-        if (vec) {
-          for (int c = lane; c < F / 4; c += 32) cp_async16(d + 4 * c, src + 4 * c);
-        } else {
-          for (int c = lane; c < F; c += 32) cp_async4(d + c, src + c);
+        copy_row(reinterpret_cast<T*>(st + L.w) + r * FP, w + e * F, F, wunit, lane);
+        if (lane < S) {
+          float* d = st + L.sh + r * SH_STRIDE + lane;
+          if (F32) cp_async4(d, sh + e * S + lane);
+          else *d = to_f(sh[e * S + lane]);
         }
-        if (lane < S) cp_async4(st + L.sh + r * SH_STRIDE + lane, sh + e * S + lane);
       }
       for (int o = warp; o < TILE_SUM; o += nwarps) {
         const int oo = tile * TILE_SUM + o;
@@ -467,15 +569,18 @@ __device__ __forceinline__ void split_body(
         if (DX) {   // the receiver's upstream gradient, F float4
           const float* src = g + ((size_t)b * N + s) * F * 4;
           float* d = st + L.side + o * 4 * F;
-          if (vec) {
+          if (gvec) {
             for (int c = lane; c < F; c += 32) cp_async16(d + 4 * c, src + 4 * c);
           } else {
             for (int c = lane; c < 4 * F; c += 32) cp_async4(d + c, src + c);
           }
         } else {    // the sender's features
-          const float* src = x + ((size_t)b * M + s) * D;
+          const T* src = x + ((size_t)b * M + s) * D;
           float* d = st + L.side + o * DP;
-          for (int c = lane; c < D; c += 32) cp_async4(d + c, src + c);
+          for (int c = lane; c < D; c += 32) {
+            if (F32) cp_async4(d + c, src + c);
+            else d[c] = to_f(src[c]);
+          }
         }
       }
     }
@@ -516,17 +621,7 @@ __device__ __forceinline__ void split_body(
     const float* st = smem + (tile % STAGES) * L.stage;
     for (int r = warp; r < ROWS; r += nwarps) {
       bool live = false;
-      if (edge_of(tile, r) >= 0) {
-        const float* wr = st + L.w + r * FP;
-        if (vec) {
-          for (int c = lane; c < F / 4; c += 32) {
-            const float4 v = *reinterpret_cast<const float4*>(wr + 4 * c);
-            live |= (v.x != 0.f) | (v.y != 0.f) | (v.z != 0.f) | (v.w != 0.f);
-          }
-        } else {
-          for (int c = lane; c < F; c += 32) live |= wr[c] != 0.f;
-        }
-      }
+      if (edge_of(tile, r) >= 0) live = any_nonzero(w_rows(st) + r * FP, F, lane);
       live = __any_sync(0xffffffffu, live);
       if (lane == 0) s_live[r] = live;
       if (!live) continue;
@@ -553,6 +648,7 @@ __device__ __forceinline__ void split_body(
   auto channel_pass = [&](int tile, unsigned mask) {
     if (!active) return;
     const float* st = smem + (tile % STAGES) * L.stage;
+    const T* wrows = w_rows(st);
 #pragma unroll 1
     for (int o = 0; o < TILE_SUM; ++o) {
       const unsigned bits = (mask >> (o * KEEP + half * QK)) & ((1u << QK) - 1u);
@@ -573,7 +669,7 @@ __device__ __forceinline__ void split_body(
       for (int q = 0; q < QK; ++q) {
         if (!(bits >> q & 1u)) continue;
         const int r = o * KEEP + half * QK + q;
-        const float wv = st[L.w + r * FP + f];
+        const float wv = to_f(wrows[r * FP + f]);
         const float* tp = s_t + r * n_paths * T_SIZE + tq;
         const float4 t0 = *reinterpret_cast<const float4*>(tp);
         if (!DX) {
@@ -635,7 +731,6 @@ __device__ __forceinline__ void split_body(
       for (int i = 0; i < 3; ++i) s_d[((half * QK + q) * 3 + i) * Fo + f] = acc[q][i];
   }
   __syncthreads();
-  float* out = dst + (size_t)split * B * M * D;
   for (int r = tid; r < KEEP * D; r += nt) {
     const int k = r / D, d = r - k * D;
     const int m = k0 + k;
@@ -645,46 +740,52 @@ __device__ __forceinline__ void split_body(
       const int it = s_ditem[e];
       sum += s_d[(k * 3 + (it & 3)) * Fo + (it >> 2)];
     }
-    out[((size_t)b * M + m) * D + d] = sum;
+    const size_t at = ((size_t)b * M + m) * D + d;
+    if (dst != nullptr) dst[(size_t)split * B * M * D + at] = sum;   // a split's partial sum
+    else dx_out[at] = from_f<T>(sum);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(SPLIT_THREADS, 2) tp_aggregate_fwd_kernel(
-    const float* __restrict__ x,     // (B, M, D) sender features
-    const float* __restrict__ sh,    // (B, N, M, S) edge harmonics
-    const float* __restrict__ w,     // (B, N, M, F) pre-masked edge weights
+    const T* __restrict__ x,         // (B, M, D) sender features
+    const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
+    const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const int4* __restrict__ ptab,   // (n_paths): f_start, f_count, d_sh, d_out
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
     float* __restrict__ dst,         // out (B, N, F, 4), or the partial sums (splits, B, N, F, 4)
-    int B, int N, int M, int D, int S, int F, int n_paths, int vec) {
-  split_body<false>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, dst, B, N, M, D, S, F,
-                    n_paths, 0, vec);
+    int B, int N, int M, int D, int S, int F, int n_paths, int wunit) {
+  split_body<false, T>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, dst, nullptr, B, N,
+                       M, D, S, F, n_paths, 0, wunit, 0);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(SPLIT_THREADS, 2) tp_aggregate_bwd_x_kernel(
-    const float* __restrict__ sh,    // (B, N, M, S)
-    const float* __restrict__ w,     // (B, N, M, F)
+    const T* __restrict__ sh,        // (B, N, M, S)
+    const T* __restrict__ w,         // (B, N, M, F)
     const float* __restrict__ g,     // (B, N, F, 4) upstream gradient
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const int4* __restrict__ ptab,   // (n_paths): f_start, f_count, d_sh, d_out
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
     const int* __restrict__ d_ptr,   // (D + 1): extents into d_item per input element
     const int* __restrict__ d_item,  // f * 4 + i of every (channel, component) reading it
-    float* __restrict__ dst,         // dx (B, M, D), or the partial sums (splits, B, M, D)
-    int B, int N, int M, int D, int S, int F, int n_paths, int n_items, int vec) {
-  split_body<true>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, dst, B, N, M, D, S, F,
-                   n_paths, n_items, vec);
+    float* __restrict__ part,        // the partial sums (splits, B, M, D), or null for one split
+    T* __restrict__ dx,              // (B, M, D) when one split
+    int B, int N, int M, int D, int S, int F, int n_paths, int n_items, int wunit, int gvec) {
+  split_body<true, T>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, part, dx, B, N, M, D, S,
+                      F, n_paths, n_items, wunit, gvec);
 }
 
 // out[i] = sum over the splits of part[k][i], in order.
-__global__ void tp_aggregate_sum_splits(const float* __restrict__ part, float* __restrict__ out,
+template <typename T>
+__global__ void tp_aggregate_sum_splits(const float* __restrict__ part, T* __restrict__ out,
                                         long long total, int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   float s = part[i];
   for (int k = 1; k < splits; ++k) s += part[k * total + i];
-  out[i] = s;
+  out[i] = from_f<T>(s);
 }
 
 int threads_for(int F) {
@@ -702,13 +803,14 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Allows the forward (dx false) or dx kernel all the shared memory an SM
-// has, once per kernel.
+// Allows the forward (dx false) or dx kernel of operand type T all the shared
+// memory an SM has, once per kernel.
+template <typename T>
 cudaError_t allow_split(bool dx) {
   static bool allowed[2] = {false, false};
   if (allowed[dx]) return cudaSuccess;
-  const cudaError_t err = dx ? allow_shared(tp_aggregate_bwd_x_kernel, MAX_SMEM)
-                             : allow_shared(tp_aggregate_fwd_kernel, MAX_SMEM);
+  const cudaError_t err = dx ? allow_shared(tp_aggregate_bwd_x_kernel<T>, MAX_SMEM)
+                             : allow_shared(tp_aggregate_fwd_kernel<T>, MAX_SMEM);
   if (err == cudaSuccess) allowed[dx] = true;
   return err;
 }
@@ -717,7 +819,7 @@ int split_threads(int F) { return HALVES * 32 * ((F + 31) / 32); }
 
 // Checks what the forward (DX false) or dx kernel takes and gives its launch
 // geometry.
-template <bool DX>
+template <bool DX, typename T>
 int plan_split(const float* part, int B, int N, int M, int D, int S, int F, int n_paths,
                int n_items, int splits, dim3& grid, int& threads, size_t& bytes) {
   const int n_keep = DX ? M : N;
@@ -725,9 +827,9 @@ int plan_split(const float* part, int B, int N, int M, int D, int S, int F, int 
       splits > (DX ? N : M) || (splits > 1 && part == nullptr) ||
       (n_keep + KEEP - 1) / KEEP > 65535)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_split(DX);
+  const cudaError_t err = allow_split<T>(DX);
   if (err != cudaSuccess) return (int)err;
-  bytes = (size_t)split_layout(DX, F, D, n_paths, n_items).total * sizeof(float);
+  bytes = (size_t)split_layout(DX, F, D, n_paths, n_items, sizeof(T)).total * sizeof(float);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   grid = dim3(splits, (n_keep + KEEP - 1) / KEEP, B);
   threads = split_threads(F);
@@ -735,53 +837,48 @@ int plan_split(const float* part, int B, int N, int M, int D, int S, int F, int 
 }
 
 // After the main kernel: its launch error, else, when the summed axis is
-// split, the launch of the sum of the splits into `out` (`total` floats).
-int sum_splits(const float* part, float* out, long long total, int splits, cudaStream_t st) {
+// split, the launch of the sum of the splits into `out` (`total` elements).
+template <typename T>
+int sum_splits(const float* part, T* out, long long total, int splits, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  tp_aggregate_sum_splits<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, total, splits);
+  tp_aggregate_sum_splits<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, out, total,
+                                                                              splits);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
-}  // namespace
+// The widest cp.async piece (16, 8 or 4 bytes) that divides a row of F
+// elements of esize bytes and the base address of w; 0 when none does.
+int row_unit(const void* w, int F, int esize) {
+  for (int unit = 16; unit >= 4; unit /= 2)
+    if ((F * esize) % unit == 0 && aligned(w, unit)) return unit;
+  return 0;
+}
 
-extern "C" {
-
-// Each function returns a cudaError_t value: 0 when the launches were accepted.
-
-// `part` holds (splits, B, N, F, 4) floats when the senders are split
-// (splits > 1), else it is not read.
-int dp_tp_aggregate_fwd(const float* x, const float* sh, const float* w, const int* chan,
-                        const int* ptab, const float* gtab, float* out, float* part, int B, int N,
-                        int M, int D, int S, int F, int n_paths, int splits, void* stream) {
+template <typename T>
+int launch_fwd(const void* x, const void* sh, const void* w, const int* chan, const int* ptab,
+               const float* gtab, float* out, float* part, int B, int N, int M, int D, int S,
+               int F, int n_paths, int splits, cudaStream_t st) {
   dim3 grid;
   int threads;
   size_t bytes;
-  const int rc = plan_split<false>(part, B, N, M, D, S, F, n_paths, 0, splits, grid, threads,
-                                   bytes);
+  const int rc = plan_split<false, T>(part, B, N, M, D, S, F, n_paths, 0, splits, grid, threads,
+                                      bytes);
   if (rc != 0) return rc;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec = F % 4 == 0 && aligned16(w);
-  tp_aggregate_fwd_kernel<<<grid, threads, bytes, st>>>(
-      x, sh, w, reinterpret_cast<const int4*>(chan), reinterpret_cast<const int4*>(ptab), gtab,
-      splits > 1 ? part : out, B, N, M, D, S, F, n_paths, vec);
-  return sum_splits(part, out, (long long)B * N * F * 4, splits, st);
+  tp_aggregate_fwd_kernel<T><<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
+      reinterpret_cast<const int4*>(chan), reinterpret_cast<const int4*>(ptab), gtab,
+      splits > 1 ? part : out, B, N, M, D, S, F, n_paths, row_unit(w, F, sizeof(T)));
+  return sum_splits<float>(part, out, (long long)B * N * F * 4, splits, st);
 }
 
-// dsh may be null: then only dw is computed, by the kernel that tiles receivers
-// and senders (mt senders a block, 1 <= mt <= 16), and w, seg_ptr and seg are
-// not read.  Else one kernel computes dw and dsh in one pass over w.
-int dp_tp_aggregate_bwd_edge(const float* x, const float* sh, const float* w, const float* g,
-                             const int* chan, const int* ptab, const float* gtab,
-                             const int* seg_ptr, const int* seg, float* dw, float* dsh, int B,
-                             int N, int M, int D, int S, int F, int n_paths, int mt, int n_seg,
-                             void* stream) {
-  if (bad_shape(B, N, M, D, S, F, n_paths) || mt < 1 || mt > MT_MAX || n_seg < 0 ||
-      (N + TN - 1) / TN > 65535 || N > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
+                    const int* chan, const int* ptab, const float* gtab, const int* seg_ptr,
+                    const int* seg, void* dw, void* dsh, int B, int N, int M, int D, int S, int F,
+                    int n_paths, int mt, int n_seg, cudaStream_t st) {
   const int4* chan4 = reinterpret_cast<const int4*>(chan);
   const int4* ptab4 = reinterpret_cast<const int4*>(ptab);
   const size_t dw_bytes = sizeof(float) * ((size_t)n_paths * G_SIZE + (size_t)TN * mt * SH_STRIDE +
@@ -791,61 +888,122 @@ int dp_tp_aggregate_bwd_edge(const float* x, const float* sh, const float* w, co
                        (size_t)SH_CHUNK * ((F | 1) + (D | 1) + SHP) +
                        (size_t)n_paths * SH_CHUNK * J_MAX + ((S + 1 + 3) / 4) * 4 + (size_t)n_seg * 2);
   if (dw_bytes > MAX_SMEM || sh_bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  static bool allowed = false;   // the attributes are set once
+  static bool allowed = false;   // the attributes are set once per operand type
   if (!allowed) {
-    cudaError_t err = allow_shared(tp_aggregate_bwd_edge_kernel, MAX_SMEM);
-    if (err == cudaSuccess) err = allow_shared(tp_aggregate_bwd_edge_kernel_dsh, MAX_SMEM);
+    cudaError_t err = allow_shared(tp_aggregate_bwd_edge_kernel<T>, MAX_SMEM);
+    if (err == cudaSuccess) err = allow_shared(tp_aggregate_bwd_edge_kernel_dsh<T>, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
+  const T* xt = static_cast<const T*>(x);
+  const T* sht = static_cast<const T*>(sh);
   if (dsh == nullptr) {
     const dim3 grid((M + mt - 1) / mt, (N + TN - 1) / TN, B);
-    tp_aggregate_bwd_edge_kernel<<<grid, threads_for(F), dw_bytes, st>>>(
-        x, sh, g, chan4, ptab4, gtab, dw, N, M, D, S, F, n_paths, mt);
+    tp_aggregate_bwd_edge_kernel<T><<<grid, threads_for(F), dw_bytes, st>>>(
+        xt, sht, g, chan4, ptab4, gtab, static_cast<T*>(dw), N, M, D, S, F, n_paths, mt);
   } else {
     // one warp per path, between 8 and 16 warps
     const int threads = 32 * (n_paths < 8 ? 8 : n_paths > 16 ? 16 : n_paths);
     const dim3 grid((M + SH_CHUNK - 1) / SH_CHUNK, N, B);
-    tp_aggregate_bwd_edge_kernel_dsh<<<grid, threads, sh_bytes, st>>>(
-        x, sh, w, g, chan4, ptab4, gtab, seg_ptr, reinterpret_cast<const int2*>(seg), dw, dsh, N, M,
-        D, S, F, n_paths, n_seg);
+    const int vec = F % 4 == 0 && aligned(w, 4 * sizeof(T)) && aligned(dw, 4 * sizeof(T));
+    tp_aggregate_bwd_edge_kernel_dsh<T><<<grid, threads, sh_bytes, st>>>(
+        xt, sht, static_cast<const T*>(w), g, chan4, ptab4, gtab, seg_ptr,
+        reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, D, S,
+        F, n_paths, n_seg, vec);
   }
   return (int)cudaGetLastError();
 }
 
-// `part` holds (splits, B, M, D) floats when the receivers are split
-// (splits > 1), else it is not read.
-int dp_tp_aggregate_bwd_x(const float* sh, const float* w, const float* g, const int* chan,
-                          const int* ptab, const float* gtab, const int* d_ptr, const int* d_item,
-                          float* dx, float* part, int B, int N, int M, int D, int S, int F,
-                          int n_paths, int n_items, int splits, void* stream) {
+template <typename T>
+int launch_bwd_x(const void* sh, const void* w, const float* g, const int* chan, const int* ptab,
+                 const float* gtab, const int* d_ptr, const int* d_item, void* dx, float* part,
+                 int B, int N, int M, int D, int S, int F, int n_paths, int n_items, int splits,
+                 cudaStream_t st) {
   dim3 grid;
   int threads;
   size_t bytes;
-  const int rc = plan_split<true>(part, B, N, M, D, S, F, n_paths, n_items, splits, grid, threads,
-                                  bytes);
+  const int rc = plan_split<true, T>(part, B, N, M, D, S, F, n_paths, n_items, splits, grid,
+                                     threads, bytes);
   if (rc != 0) return rc;
+  T* out = static_cast<T*>(dx);
+  tp_aggregate_bwd_x_kernel<T><<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+      reinterpret_cast<const int4*>(ptab), gtab, d_ptr, d_item, splits > 1 ? part : nullptr, out,
+      B, N, M, D, S, F, n_paths, n_items, row_unit(w, F, sizeof(T)), aligned(g, 16));
+  return sum_splits<T>(part, out, (long long)B * M * D, splits, st);
+}
+
+template <typename T>
+int blocks_per_sm(int dx, int D, int F, int n_paths, int n_items) {
+  cudaError_t err = allow_split<T>(dx != 0);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t bytes =
+      (size_t)split_layout(dx != 0, F, D, n_paths, n_items, sizeof(T)).total * sizeof(float);
+  int blocks = 0;
+  err = dx ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_aggregate_bwd_x_kernel<T>,
+                                                           split_threads(F), bytes)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_aggregate_fwd_kernel<T>,
+                                                           split_threads(F), bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each function returns a cudaError_t value: 0 when the launches were accepted.
+// `bf16` selects the type of x, sh and w (and of dw, dsh and dx): 0 f32, 1 bf16.
+
+// `part` holds (splits, B, N, F, 4) floats when the senders are split
+// (splits > 1), else it is not read.
+int dp_tp_aggregate_fwd(const void* x, const void* sh, const void* w, const int* chan,
+                        const int* ptab, const float* gtab, float* out, float* part, int B, int N,
+                        int M, int D, int S, int F, int n_paths, int splits, int bf16,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec = F % 4 == 0 && aligned16(w) && aligned16(g);
-  tp_aggregate_bwd_x_kernel<<<grid, threads, bytes, st>>>(
-      sh, w, g, reinterpret_cast<const int4*>(chan), reinterpret_cast<const int4*>(ptab), gtab,
-      d_ptr, d_item, splits > 1 ? part : dx, B, N, M, D, S, F, n_paths, n_items, vec);
-  return sum_splits(part, dx, (long long)B * M * D, splits, st);
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, sh, w, chan, ptab, gtab, out, part, B, N, M, D, S, F,
+                                          n_paths, splits, st)
+              : launch_fwd<float>(x, sh, w, chan, ptab, gtab, out, part, B, N, M, D, S, F,
+                                  n_paths, splits, st);
+}
+
+// dsh may be null: then only dw is computed, by the kernel that tiles receivers
+// and senders (mt senders a block, 1 <= mt <= 16), and w, seg_ptr and seg are
+// not read.  Else one kernel computes dw and dsh in one pass over w.
+int dp_tp_aggregate_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
+                             const int* chan, const int* ptab, const float* gtab,
+                             const int* seg_ptr, const int* seg, void* dw, void* dsh, int B,
+                             int N, int M, int D, int S, int F, int n_paths, int mt, int n_seg,
+                             int bf16, void* stream) {
+  if (bad_shape(B, N, M, D, S, F, n_paths) || mt < 1 || mt > MT_MAX || n_seg < 0 ||
+      (N + TN - 1) / TN > 65535 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_edge<__nv_bfloat16>(x, sh, w, g, chan, ptab, gtab, seg_ptr, seg, dw,
+                                               dsh, B, N, M, D, S, F, n_paths, mt, n_seg, st)
+              : launch_bwd_edge<float>(x, sh, w, g, chan, ptab, gtab, seg_ptr, seg, dw, dsh, B, N,
+                                       M, D, S, F, n_paths, mt, n_seg, st);
+}
+
+// `part` holds (splits, B, M, D) floats when the receivers are split
+// (splits > 1), else it is not read.
+int dp_tp_aggregate_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
+                          const int* ptab, const float* gtab, const int* d_ptr, const int* d_item,
+                          void* dx, float* part, int B, int N, int M, int D, int S, int F,
+                          int n_paths, int n_items, int splits, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_x<__nv_bfloat16>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, dx, part,
+                                            B, N, M, D, S, F, n_paths, n_items, splits, st)
+              : launch_bwd_x<float>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, dx, part, B, N, M,
+                                    D, S, F, n_paths, n_items, splits, st);
 }
 
 // Blocks of the forward (dx = 0) or dx kernel that one SM holds at once at
-// these widths (n_items: the length of dx's d_item list), or minus a
-// cudaError_t value.
-int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items) {
-  cudaError_t err = allow_split(dx != 0);
-  if (err != cudaSuccess) return -(int)err;
-  const size_t bytes = (size_t)split_layout(dx != 0, F, D, n_paths, n_items).total * sizeof(float);
-  int blocks = 0;
-  err = dx ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_aggregate_bwd_x_kernel,
-                                                           split_threads(F), bytes)
-           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_aggregate_fwd_kernel,
-                                                           split_threads(F), bytes);
-  return err == cudaSuccess ? blocks : -(int)err;
+// these widths and operand type (n_items: the length of dx's d_item list), or
+// minus a cudaError_t value.
+int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items, int bf16) {
+  return bf16 ? blocks_per_sm<__nv_bfloat16>(dx, D, F, n_paths, n_items)
+              : blocks_per_sm<float>(dx, D, F, n_paths, n_items);
 }
 
 const char* dp_cuda_error_string(int code) {

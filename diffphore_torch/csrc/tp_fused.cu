@@ -63,6 +63,14 @@
 //    whole block) when the receiver changes.
 //  All arithmetic is f32 FMA (1e-7 of scale against the plain version).  x,
 //  sh and attrs may be f32 or bf16; masks bool or f32, read as they come.
+//  With bf16 inputs the kernel computes what the JAX package's bf16
+//  convolution computes: W1, b1, W2 and b2 are rounded to bf16 as they come
+//  into shared memory; the pre-activation is rounded after the product and
+//  again after the bias, and each channel's edge weights likewise; the
+//  channels then get a hidden tile and a second product each (the masked sum
+//  is formed on the weights, rounded once, not on the hidden rows); the
+//  host's tables hold alpha * bf16(cg).  Kernel and plain version then differ
+//  only where f32 sums in another order flip a bf16 rounding.
 //  Where it stands: 4 to 10 times its bound per conv.  A block has three or
 //  four tiles of work on the serving shapes, so its start-up (masks, compaction,
 //  the first gather: three round trips to device memory) is a quarter of its
@@ -98,6 +106,10 @@ static_assert(THREADS / 8 == ROWS, "the gather gives each row eight threads");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// v rounded to the nearest bf16, as f32.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -160,6 +172,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     int mask_is_f32) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FP = 32 * NC;
+  constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
   const Layout L = make_layout(C, E, H, D, n_paths, MS, NC);
   float* s_w1 = smem + L.w1;
   float* s_b1 = smem + L.b1;
@@ -188,7 +201,10 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
   // ---- resident operands: the weights and sender features (asynchronously:
   // they are first needed by the first tile's products), tables, masks.
   // Columns past H and F are never read back.
-  if (F % 4 == 0) {
+  if (ROUND) {
+    for (int i = tid; i < E * H; i += THREADS) s_w1[(i / H) * HP + i % H] = bf16_round(w1[i]);
+    for (int i = tid; i < H * F; i += THREADS) s_w2[(i / F) * FP + i % F] = bf16_round(w2[i]);
+  } else if (F % 4 == 0) {
     for (int i = tid; i < E * (H / 4); i += THREADS) {
       const int k = i / (H / 4), q = i - k * (H / 4);
       cp_async16(s_w1 + k * HP + 4 * q, w1 + k * H + 4 * q);
@@ -209,8 +225,8 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     }
   }
   cp_async_commit();
-  for (int i = tid; i < HP; i += THREADS) s_b1[i] = i < H ? b1[i] : 0.f;
-  for (int i = tid; i < FP; i += THREADS) s_b2[i] = i < F ? b2[i] : 0.f;
+  for (int i = tid; i < HP; i += THREADS) s_b1[i] = i < H ? (ROUND ? bf16_round(b1[i]) : b1[i]) : 0.f;
+  for (int i = tid; i < FP; i += THREADS) s_b2[i] = i < F ? (ROUND ? bf16_round(b2[i]) : b2[i]) : 0.f;
   for (int i = tid; i < n_paths * G_SIZE; i += THREADS) s_g[i] = gtab[i];
   for (int i = tid; i < 2 * ROWS * SH_STRIDE; i += THREADS) s_sh[i] = 0.f;   // the pad lanes stay 0
   for (int i = tid; i < C * TN * MS; i += THREADS) {
@@ -344,82 +360,159 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
         mrow[0][i] = ok ? s_mask[at] : 0.f;
         mrow[1][i] = ok && C == 2 ? s_mask[TN * MS + at] : 0.f;
       }
-      // ---- hid[r, h] = sum_c mask_c[r] relu(A_c[r, :] W1 + b1)[h]
-      float hs[RT][2];
+      if (ROUND) {
+        // the JAX package's bf16 convolution, channel by channel:
+        // h_c = relu(bf16(bf16(A_c W1) + b1)), in place of the warp's rows of A_c
+        for (int c = 0; c < C; ++c) {
+          float* A = s_a + ((size_t)(stage * C + c) * ROWS + r0) * E;
+          float pre[RT][2];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) hs[i][0] = hs[i][1] = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float* A = s_a + ((size_t)(stage * C + c) * ROWS + r0) * E;
-        float pre[RT][2];
-#pragma unroll
-        for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
+          for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
 #pragma unroll 5
-        for (int k = 0; k < E; k += 4) {
-          float4 av[RT];
+          for (int k = 0; k < E; k += 4) {
+            float4 av[RT];
 #pragma unroll
-          for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * E + k);
+            for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * E + k);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float wa = s_w1[(k + kk) * HP + lane];
-            const float wb = s_w1[(k + kk) * HP + lane + 32];
+            for (int kk = 0; kk < 4; ++kk) {
+              const float wa = s_w1[(k + kk) * HP + lane];
+              const float wb = s_w1[(k + kk) * HP + lane + 32];
 #pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
-              pre[i][0] = fmaf(a, wa, pre[i][0]);
-              pre[i][1] = fmaf(a, wb, pre[i][1]);
+              for (int i = 0; i < RT; ++i) {
+                const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+                pre[i][0] = fmaf(a, wa, pre[i][0]);
+                pre[i][1] = fmaf(a, wb, pre[i][1]);
+              }
+            }
+          }
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            // rows past the tile's end hold stale data: written as zeros
+            const bool ok = r0 + i < rows;
+            const float h0 = fmaxf(bf16_round(bf16_round(pre[i][0]) + s_b1[lane]), 0.f);
+            const float h1 = fmaxf(bf16_round(bf16_round(pre[i][1]) + s_b1[lane + 32]), 0.f);
+            if (lane < H) A[i * E + lane] = ok ? h0 : 0.f;
+            if (lane + 32 < H) A[i * E + lane + 32] = ok ? h1 : 0.f;
+          }
+          __syncwarp();
+        }
+        // w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c): channel 0's term
+        // is stored, channel 1's added to it by the same thread and rounded
+        for (int c = 0; c < C; ++c) {
+          const float* hid = s_a + ((size_t)(stage * C + c) * ROWS + r0) * E;
+          float wacc[RT][NC];
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) wacc[i][cc] = 0.f;
+#pragma unroll 5
+          for (int k = 0; k < H; k += 4) {
+            float4 hv[RT];
+#pragma unroll
+            for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(hid + i * E + k);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              float wv[NC];
+#pragma unroll
+              for (int cc = 0; cc < NC; ++cc) wv[cc] = s_w2[(k + kk) * FP + lane + 32 * cc];
+#pragma unroll
+              for (int i = 0; i < RT; ++i) {
+                const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+                for (int cc = 0; cc < NC; ++cc) wacc[i][cc] = fmaf(h, wv[cc], wacc[i][cc]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) {
+              float* wt = s_wt + (r0 + i) * FP + lane + 32 * cc;
+              const float v = bf16_round(bf16_round(wacc[i][cc]) + s_b2[lane + 32 * cc]) * mc;
+              *wt = c == 0 ? v : bf16_round(*wt + v);
             }
           }
         }
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          // rows past the tile's end hold stale data: their mask is 0 and relu drops a NaN
-          const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
-          hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[lane], 0.f), hs[i][0]);
-          hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[lane + 32], 0.f), hs[i][1]);
-        }
-      }
-      // the hidden rows take the place of the warp's own rows of A (H <= E)
-      float* hid = s_a + ((size_t)(stage * C) * ROWS + r0) * E;
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const bool ok = r0 + i < rows;
-        if (lane < H) hid[i * E + lane] = ok ? hs[i][0] : 0.f;
-        if (lane + 32 < H) hid[i * E + lane + 32] = ok ? hs[i][1] : 0.f;
-      }
-      __syncwarp();
-
-      // ---- w[r, f] = hid[r, :] W2 + msum[r] b2
-      float wacc[RT][NC];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) wacc[i][c] = 0.f;
-#pragma unroll 5
-      for (int k = 0; k < H; k += 4) {
-        float4 hv[RT];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-          hv[i] = *reinterpret_cast<const float4*>(hid + i * E + k);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float wv[NC];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) wv[c] = s_w2[(k + kk) * FP + lane + 32 * c];
-#pragma unroll
+      } else {
+        // ---- hid[r, h] = sum_c mask_c[r] relu(A_c[r, :] W1 + b1)[h]
+        float hs[RT][2];
+  #pragma unroll
+        for (int i = 0; i < RT; ++i) hs[i][0] = hs[i][1] = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const float* A = s_a + ((size_t)(stage * C + c) * ROWS + r0) * E;
+          float pre[RT][2];
+  #pragma unroll
+          for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
+  #pragma unroll 5
+          for (int k = 0; k < E; k += 4) {
+            float4 av[RT];
+  #pragma unroll
+            for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * E + k);
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float wa = s_w1[(k + kk) * HP + lane];
+              const float wb = s_w1[(k + kk) * HP + lane + 32];
+  #pragma unroll
+              for (int i = 0; i < RT; ++i) {
+                const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+                pre[i][0] = fmaf(a, wa, pre[i][0]);
+                pre[i][1] = fmaf(a, wb, pre[i][1]);
+              }
+            }
+          }
+  #pragma unroll
           for (int i = 0; i < RT; ++i) {
-            const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
-#pragma unroll
-            for (int c = 0; c < NC; ++c) wacc[i][c] = fmaf(h, wv[c], wacc[i][c]);
+            // rows past the tile's end hold stale data: their mask is 0 and relu drops a NaN
+            const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+            hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[lane], 0.f), hs[i][0]);
+            hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[lane + 32], 0.f), hs[i][1]);
           }
         }
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float msum = mrow[0][i] + mrow[1][i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          s_wt[(r0 + i) * FP + lane + 32 * c] = fmaf(msum, s_b2[lane + 32 * c], wacc[i][c]);
+        // the hidden rows take the place of the warp's own rows of A (H <= E)
+        float* hid = s_a + ((size_t)(stage * C) * ROWS + r0) * E;
+        __syncwarp();
+  #pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const bool ok = r0 + i < rows;
+          if (lane < H) hid[i * E + lane] = ok ? hs[i][0] : 0.f;
+          if (lane + 32 < H) hid[i * E + lane + 32] = ok ? hs[i][1] : 0.f;
+        }
+        __syncwarp();
+
+        // ---- w[r, f] = hid[r, :] W2 + msum[r] b2
+        float wacc[RT][NC];
+  #pragma unroll
+        for (int i = 0; i < RT; ++i)
+  #pragma unroll
+          for (int c = 0; c < NC; ++c) wacc[i][c] = 0.f;
+  #pragma unroll 5
+        for (int k = 0; k < H; k += 4) {
+          float4 hv[RT];
+  #pragma unroll
+          for (int i = 0; i < RT; ++i)
+            hv[i] = *reinterpret_cast<const float4*>(hid + i * E + k);
+  #pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            float wv[NC];
+  #pragma unroll
+            for (int c = 0; c < NC; ++c) wv[c] = s_w2[(k + kk) * FP + lane + 32 * c];
+  #pragma unroll
+            for (int i = 0; i < RT; ++i) {
+              const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+  #pragma unroll
+              for (int c = 0; c < NC; ++c) wacc[i][c] = fmaf(h, wv[c], wacc[i][c]);
+            }
+          }
+        }
+  #pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float msum = mrow[0][i] + mrow[1][i];
+  #pragma unroll
+          for (int c = 0; c < NC; ++c)
+            s_wt[(r0 + i) * FP + lane + 32 * c] = fmaf(msum, s_b2[lane + 32 * c], wacc[i][c]);
+        }
       }
     }
     __syncthreads();

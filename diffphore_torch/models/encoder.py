@@ -92,7 +92,8 @@ class LigPhoreEncoder(nn.Module):
         def conv(i):
             return DenseTPConv(seq[min(i, len(seq) - 1)], seq[min(i + 1, len(seq) - 1)],
                                n_edge_features=3 * ns, hidden_features=3 * ns,
-                               batch_norm=not cfg.no_batch_norm, dropout=cfg.dropout)
+                               batch_norm=not cfg.no_batch_norm, dropout=cfg.dropout,
+                               compute_dtype=cfg.compute_dtype)
 
         for l in range(cfg.num_conv_layers):
             setattr(self, f"lig_conv_{l}", conv(l))

@@ -169,6 +169,17 @@ class EquivariantBatchNorm(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+def set_compute_dtype(model: nn.Module, compute_dtype: str) -> None:
+    """Every ``DenseTPConv`` of ``model`` computes in ``compute_dtype``
+    ("float32" or "bfloat16") from now on."""
+    dtype = getattr(torch, compute_dtype)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
+    for m in model.modules():
+        if isinstance(m, DenseTPConv):
+            m.compute_dtype = dtype
+
+
 class DenseTPConv(nn.Module):
     """Channelwise tensor-product message passing over a dense (receiver,
     sender) grid with a masked mean over senders.
@@ -179,23 +190,34 @@ class DenseTPConv(nn.Module):
     (relu - dropout between its layers, under autograd) and the sum over
     senders is K2 (:func:`diffphore_torch.ops.tp_aggregate.tp_aggregate`),
     whose backward is a kernel too; a convolution whose paths all have
-    l_in = 0 (the layer-0 convolutions, scalars in) runs K3 instead, one
-    launch per path (:func:`diffphore_torch.ops.tp_scalar.scalar_paths_aggregate`).
+    l_in = 0 (the layer-0 convolutions, scalars in) runs K3 instead
+    (:func:`diffphore_torch.ops.tp_scalar.scalar_paths_aggregate`).
     Each is the CUDA kernel for CUDA tensors and its plain version for CPU
     tensors.  Setting
     ``use_kernel = False`` runs the plain versions on any device (a
     comparison run; the main paths leave it on).  Several edge channels
     between the same pairs (ligand bond and radius edges) share the
     harmonics and pass lists of attrs and masks; the masked mean counts
-    every channel's edges.  All arithmetic is f32, as in the JAX package's
-    fused path.  ``receiver_mask`` marks the receivers that enter the batch
-    norm's training statistics.
+    every channel's edges.  ``receiver_mask`` marks the receivers that enter
+    the batch norm's training statistics.
+
+    ``compute_dtype`` rounds as the JAX package's convolution does (its
+    default, unfused path): with ``"bfloat16"`` the edge MLP runs in bf16
+    (parameters, products, biases, relu, dropout and the masked sum over
+    edge channels), the sender features and harmonics are read in bf16, and
+    the aggregate multiplies them with bf16-rounded coupling tensors and sums
+    in f32; everything from the sum over senders on is f32.  With
+    ``"float32"`` (or None) all arithmetic is f32.  Parameters stay f32.
     """
 
     def __init__(self, in_irreps: str, out_irreps: str, sh_irreps: str = "1x0e + 1x1o + 1x2e",
                  n_edge_features: int = 48, hidden_features: Optional[int] = None,
-                 batch_norm: bool = True, dropout: float = 0.0):
+                 batch_norm: bool = True, dropout: float = 0.0,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
+        self.compute_dtype = getattr(torch, compute_dtype or "float32")
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
         self.tp = channelwise_tp(in_irreps, sh_irreps, out_irreps)
         hidden = hidden_features or n_edge_features
         F = self.tp.weight_numel
@@ -227,12 +249,11 @@ class DenseTPConv(nn.Module):
             counts = counts + m.to(f32).sum(dim=-1)
         denom = torch.clamp(counts, min=1.0)                         # (B, N)
 
-        x, sh = sender_feat.to(f32).contiguous(), edge_sh.to(f32).contiguous()
+        cdt = self.compute_dtype
+        x, sh = sender_feat.to(cdt).contiguous(), edge_sh.to(cdt).contiguous()
         if self.training:
-            w = 0.0
-            for a, m in zip(attrs, masks):
-                h = self.drop(torch.relu(a.to(f32) @ self.fc_w1 + self.fc_b1))
-                w = w + (h @ self.fc_w2 + self.fc_b2) * m.to(f32)[..., None]
+            w = tp_fused.edge_weights(attrs, masks, self.fc_w1, self.fc_b1, self.fc_w2,
+                                      self.fc_b2, cdt, self.drop)
             if tp_scalar.all_scalar_paths(tp):
                 aggregate = (tp_scalar.scalar_paths_aggregate if self.use_kernel
                              else tp_scalar.scalar_paths_aggregate_plain)
@@ -244,7 +265,7 @@ class DenseTPConv(nn.Module):
             aggregate = (tp_fused.tp_aggregate_fused if self.use_kernel
                          else tp_fused.tp_aggregate_fused_plain)
             padded = aggregate(
-                tp, x, sh, [a.to(f32).contiguous() for a in attrs],
+                tp, x, sh, [a.to(cdt).contiguous() for a in attrs],
                 [m.contiguous() for m in masks],
                 self.fc_w1, self.fc_b1, self.fc_w2, self.fc_b2)
         blocks = tp_fused.blocks_from_padded(tp, padded)

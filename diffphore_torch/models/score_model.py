@@ -62,8 +62,8 @@ class ScoreModelConfig:
     # tr/rot magnitude head: "norm_gated" (vec/|vec| * MLP) or "linear"
     # (vec * (1 + softplus(MLP)))
     magnitude_head: str = "norm_gated"
-    # read from shipped configs; the port's convs always compute in f32,
-    # like the JAX package's fused path
+    # the convs' edge MLP and aggregate operands: "bfloat16" (every shipped
+    # config) or "float32"
     compute_dtype: str = "bfloat16"
     tp_mode: str = "channelwise"
     use_pallas_fused: bool = False
@@ -110,7 +110,8 @@ class ScoreModel(nn.Module):
         self.center_distance_expansion = GaussianSmearing(0.0, cfg.center_max_distance, dd)
         self.center_edge_embedding = MLP(dd + sd, ns, ns, dropout=cfg.dropout)
         self.final_conv = DenseTPConv(lig_irreps, "2x1o + 2x1e", n_edge_features=2 * ns,
-                                      batch_norm=bn, dropout=cfg.dropout)
+                                      batch_norm=bn, dropout=cfg.dropout,
+                                      compute_dtype=cfg.compute_dtype)
         self.head_drop = Dropout(cfg.dropout)
         for name in ("tr_final_layer", "rot_final_layer"):
             setattr(self, f"{name}_dense1", nn.Linear(1 + sd, ns))
@@ -122,7 +123,8 @@ class ScoreModel(nn.Module):
             self.tor_bond_conv = DenseTPConv(lig_irreps, f"{ns}x0o + {ns}x0e",
                                              sh_irreps=repr(tor_sh_irreps),
                                              n_edge_features=3 * ns, batch_norm=bn,
-                                             dropout=cfg.dropout)
+                                             dropout=cfg.dropout,
+                                             compute_dtype=cfg.compute_dtype)
             self.tor_final_dense1 = nn.Linear(2 * ns, ns, bias=False)
             self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
 

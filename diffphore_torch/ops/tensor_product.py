@@ -58,9 +58,16 @@ class ChannelwiseTP:
           x:  (B, M, dim_in) sender features.
           sh: (B, N, M, sh_dim);  weights: (B, N, M, weight_numel), pre-masked.
         Returns:
-          list aligned with irreps_out of (B, N, fan_in, 2l+1) sums over M
+          list aligned with irreps_out of (B, N, fan_in, 2l+1) f32 sums over M
           (None where no path feeds the irrep).
+
+        bf16 operands are read as they are and multiplied and summed in f32,
+        with the coupling tensors rounded to bf16 too, as the JAX package's
+        einsum with ``preferred_element_type=f32`` does.  Their gradients
+        come back in bf16.
         """
+        cg_dtype = x.dtype
+        x, sh, weights = x.float(), sh.float(), weights.float()
         in_slices = self.irreps_in.slices()
         sh_slices = self.irreps_sh.slices()
         blocks: List[List[torch.Tensor]] = [[] for _ in self.irreps_out.items]
@@ -69,7 +76,9 @@ class ChannelwiseTP:
             xb = xb.reshape(xb.shape[:-1] + (p.mul_in, 2 * p.l_in + 1))
             shb = sh[..., sh_slices[p.i_sh]]
             wb = weights[..., p.w_slice[0]:p.w_slice[1]]
-            z = torch.einsum("bmui,ijk->bmujk", xb, _cg(p.l_in, p.l_sh, p.l_out, xb))
+            cg = torch.as_tensor(wigner_3j(p.l_in, p.l_sh, p.l_out), dtype=cg_dtype,
+                                 device=xb.device).float()
+            z = torch.einsum("bmui,ijk->bmujk", xb, cg)
             contrib = p.alpha * torch.einsum("bnmj,bnmu,bmujk->bnuk", shb, wb, z)
             blocks[p.i_out].append(contrib)
         return [torch.cat(parts, dim=-2) if parts else None for parts in blocks]

@@ -32,11 +32,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as Fn
 
 from . import build
 from .tensor_product import ChannelwiseTP
-from .tp_fused import K_PAD, TARGET_BLOCKS, TILE_N, _check_tp, _device_tables, _Kernel
+from .tp_fused import (K_PAD, TARGET_BLOCKS, TILE_N, _check_tp, _device_tables, _Kernel,
+                       padded_from_blocks)
 
 FWD = _Kernel()        # tp_aggregate_fwd_kernel (+ tp_aggregate_sum_splits)
 BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
@@ -48,17 +48,11 @@ TILE_SUM = 4           # entries of the summed axis in one tile of a block
 def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``tp.aggregate`` packed into
-    (B, N, F, 4).  Differentiable by autograd in x, sh and w."""
+    (B, N, F, 4) f32 (bf16 operands multiplied and summed in f32, with the
+    coupling tensors rounded to bf16).  Differentiable by autograd in x, sh
+    and w."""
     _check_tp(tp)
-    blocks = tp.aggregate(x, sh, w)
-    taken = [0] * len(blocks)
-    pieces = []
-    for p in tp.paths:                      # channel order = path order
-        start = taken[p.i_out]
-        taken[p.i_out] = start + p.mul_in
-        part = blocks[p.i_out][..., start:start + p.mul_in, :]
-        pieces.append(Fn.pad(part, (0, K_PAD - part.shape[-1])))
-    return torch.cat(pieces, dim=-2)
+    return padded_from_blocks(tp, tp.aggregate(x, sh, w))
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,20 +135,23 @@ def plan_splits(B: int, kept: int, summed: int, target: int = TARGET_BLOCKS) -> 
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(tp: ChannelwiseTP, dx: bool, device: str) -> int:
+def _resident_blocks(tp: ChannelwiseTP, dx: bool, device: str, bf16: bool) -> int:
     """Blocks of the forward (or dx) kernel the card holds at once at this
-    convolution's widths (its shared memory and registers decide)."""
+    convolution's widths and operand type (its shared memory and registers
+    decide)."""
     n_items = len(_backward_tables(tp)[2])
     per_sm = _library().dp_tp_aggregate_blocks_per_sm(
-        int(dx), tp.irreps_in.dim, tp.weight_numel, len(tp.paths), n_items)
+        int(dx), tp.irreps_in.dim, tp.weight_numel, len(tp.paths), n_items, int(bf16))
     _raise_on(max(0, -per_sm), "tp_aggregate occupancy query")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_splits(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device) -> int:
+def launch_splits(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
+                  dtype: torch.dtype = torch.float32) -> int:
     """The splits the forward (or dx) launch takes on the card: enough
     blocks for two per SM and for every block the card can hold at once."""
-    target = max(TARGET_BLOCKS, _resident_blocks(tp, dx, str(device)))
+    target = max(TARGET_BLOCKS,
+                 _resident_blocks(tp, dx, str(device), dtype == torch.bfloat16))
     return plan_splits(B, M, N, target) if dx else plan_splits(B, N, M, target)
 
 
@@ -162,10 +159,10 @@ def launch_splits(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device) -
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_aggregate")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_aggregate_fwd.argtypes = [p] * 8 + [i] * 8 + [p]
-    lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 9 + [p]
-    lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 9 + [p]
-    lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 5
+    lib.dp_tp_aggregate_fwd.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 10 + [p]
+    lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 10 + [p]
+    lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 6
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
                lib.dp_tp_aggregate_blocks_per_sm):
         fn.restype = i
@@ -183,7 +180,7 @@ def _raise_on(rc: int, what: str) -> None:
 def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                   g: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
     """Shapes (B, N, M, D, S, F) of a launch; raises on what the kernels do
-    not take."""
+    not take: x, sh and w of one type, f32 or bf16; g f32."""
     _check_tp(tp)
     if sh.dim() != 4:
         raise ValueError(f"tp_aggregate: sh must be (B, N, M, S), got {tuple(sh.shape)}")
@@ -193,12 +190,16 @@ def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch
                 "w": (w, (B, N, M, F))}
     if g is not None:
         expected["grad"] = (g, (B, N, F, K_PAD))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tp_aggregate: x must be f32 or bf16, got {x.dtype}")
     for name, (t, shape) in expected.items():
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"tp_aggregate: {name} on {t.device}; all tensors must be on one "
                              f"CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"tp_aggregate: {name} must be f32, got {t.dtype}")
+        want = torch.float32 if name == "grad" else x.dtype
+        if t.dtype != want:
+            raise TypeError(f"tp_aggregate: {name} must be {want} (x, sh and w of one type, the "
+                            f"gradient f32), got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"tp_aggregate: {name} {tuple(t.shape)}, expected {shape} for "
                              f"{tp.irreps_in!r} x {tp.irreps_sh!r}")
@@ -228,15 +229,15 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     of the sender splits' partial sums when :func:`launch_splits` splits)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
     dev = str(x.device)
-    chan, gtab = _device_tables(tp, dev)
+    chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
-    splits = launch_splits(tp, B, N, M, False, x.device)
+    splits = launch_splits(tp, B, N, M, False, x.device, x.dtype)
     part = _scratch(splits, (B, N, F, K_PAD), x.device)
     rc = _library().dp_tp_aggregate_fwd(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
         gtab.data_ptr(), out.data_ptr(), _ptr(part), B, N, M, D, S, F, gtab.shape[0], splits,
-        _stream(x.device))
+        int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_aggregate_fwd")
     FWD.launches += 1
     return out
@@ -245,12 +246,13 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                          g: torch.Tensor, need_dsh: bool
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dw, dsh or None) from the per-edge backward: a kernel for dw alone,
-    which does not read w, or, when dsh is asked for, one that computes both
-    in one pass over w (its dw differs from the other's by summation order)."""
+    """(dw, dsh or None) from the per-edge backward, in w's and sh's type: a
+    kernel for dw alone, which does not read w, or, when dsh is asked for,
+    one that computes both in one pass over w (its dw differs from the
+    other's by summation order)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
     dev = str(x.device)
-    chan, gtab = _device_tables(tp, dev)
+    chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
     seg_ptr, seg = _device_dsh_segments(tp, dev)
     dw = torch.empty_like(w)
@@ -260,7 +262,7 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
         ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(), dw.data_ptr(),
         dsh.data_ptr() if need_dsh else None,
         B, N, M, D, S, F, gtab.shape[0], plan_edge_senders(B, N, M), seg.shape[0],
-        _stream(x.device))
+        int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_aggregate_bwd_edge")
     BWD_EDGE.launches += 1
     return dw, dsh
@@ -268,20 +270,21 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                       g: torch.Tensor) -> torch.Tensor:
-    """dx from the per-sender backward kernel (x gives only its shape; and
-    the sum of the receiver splits' partial sums when
+    """dx in x's type from the per-sender backward kernel (x gives only its
+    shape and type; and the sum of the receiver splits' f32 partial sums when
     :func:`launch_splits` splits)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
     dev = str(x.device)
-    chan, gtab = _device_tables(tp, dev)
+    chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, d_ptr, d_item = _device_backward_tables(tp, dev)
     dx = torch.empty_like(x)
-    splits = launch_splits(tp, B, N, M, True, x.device)
+    splits = launch_splits(tp, B, N, M, True, x.device, x.dtype)
     part = _scratch(splits, (B, M, D), x.device)
     rc = _library().dp_tp_aggregate_bwd_x(
         sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
         gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(), _ptr(part),
-        B, N, M, D, S, F, gtab.shape[0], d_item.shape[0], splits, _stream(x.device))
+        B, N, M, D, S, F, gtab.shape[0], d_item.shape[0], splits,
+        int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_aggregate_bwd_x")
     BWD_X.launches += 1
     return dx
@@ -313,11 +316,13 @@ class TPAggregate(torch.autograd.Function):
 
 def tp_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
-    """All-path aggregate -> (B, N, F, 4) f32, differentiable in x, sh, w.
+    """All-path aggregate -> (B, N, F, 4) f32, differentiable in x, sh, w
+    (their gradients in their own type).
 
-    x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked; all f32 and
-    contiguous.  CPU tensors take the plain version; CUDA tensors launch the
-    kernels or raise.
+    x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked; all f32 or
+    all bf16 (read as they are, multiplied and summed in f32), contiguous.
+    CPU tensors take the plain version; CUDA tensors launch the kernels or
+    raise.
     """
     if x.device.type == "cpu":
         return tp_aggregate_plain(tp, x, sh, w)

@@ -7,7 +7,12 @@ The port of ``diffphore_tpu/ops/pallas/tp_fused.py::tp_aggregate_fused``
     w = (sum_c relu(attr_c W1 + b1) * mask_c) W2 + (sum_c mask_c) b2
 
 on chip and sums the channelwise tensor product of the sender features and
-edge harmonics, weighted by w, over all senders.  Output (B, N, F, 4) f32:
+edge harmonics, weighted by w, over all senders.  With bf16 inputs it
+computes what the JAX package's bf16 convolution computes instead
+(:func:`edge_weights` in bf16, then ``ChannelwiseTP.aggregate``): the MLP
+parameters, the pre-activation, the hidden layer, each channel's weights and
+their masked sum are rounded to bf16, the coupling tensors too, and the
+tensor product is summed in f32.  Output (B, N, F, 4) f32:
 channel f's l_out components in lanes [:2*l_out+1], which
 :func:`blocks_from_padded` splits into the per-irrep blocks of
 ``ChannelwiseTP.aggregate``.
@@ -57,6 +62,37 @@ def _check_tp(tp: ChannelwiseTP) -> None:
         raise ValueError("tp_fused supports l_in, l_out <= 1")
 
 
+def edge_weights(attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                 dtype: torch.dtype = torch.float32, drop=None) -> torch.Tensor:
+    """The masked sum over edge channels of the edge MLP, channel by channel,
+    every operation in ``dtype`` as the JAX package's convolution computes
+    it: ``sum_c (drop(relu(attr_c W1 + b1)) W2 + b2) * mask_c`` ->
+    (B, N, M, F) in ``dtype``.  Differentiable; ``drop`` is the dropout
+    between the two layers (training mode)."""
+    w1, b1, w2, b2 = (t.to(dtype) for t in (w1, b1, w2, b2))
+    w = 0.0
+    for a, m in zip(attrs, masks):
+        h = torch.relu(a.to(dtype) @ w1 + b1)
+        if drop is not None:
+            h = drop(h)
+        w = w + (h @ w2 + b2) * m.to(dtype)[..., None]
+    return w
+
+
+def padded_from_blocks(tp: ChannelwiseTP, blocks: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """``ChannelwiseTP.aggregate``'s blocks packed into (B, N, F, 4): the
+    inverse of :func:`blocks_from_padded`."""
+    taken = [0] * len(blocks)
+    pieces = []
+    for p in tp.paths:                      # channel order = path order
+        start = taken[p.i_out]
+        taken[p.i_out] = start + p.mul_in
+        part = blocks[p.i_out][..., start:start + p.mul_in, :]
+        pieces.append(torch.nn.functional.pad(part, (0, K_PAD - part.shape[-1])))
+    return torch.cat(pieces, dim=-2)
+
+
 def tp_aggregate_fused_plain(
     tp: ChannelwiseTP,
     x: torch.Tensor,
@@ -66,7 +102,9 @@ def tp_aggregate_fused_plain(
     w1: torch.Tensor, b1: torch.Tensor,
     w2: torch.Tensor, b2: torch.Tensor,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, all arithmetic in f32.
+    """The kernel's function in plain PyTorch: all arithmetic in f32 for f32
+    inputs; for bf16 inputs (x, sh and attrs) the JAX package's bf16
+    convolution, :func:`edge_weights` in bf16 and ``tp.aggregate``.
 
     x (B, M, D_in); sh (B, N, M, S); attrs C x (B, N, M, E);
     masks C x (B, N, M); w1 (E, H), b1 (H,), w2 (H, F), b2 (F,).
@@ -74,6 +112,9 @@ def tp_aggregate_fused_plain(
     """
     _check_tp(tp)
     f32 = torch.float32
+    if x.dtype == torch.bfloat16:
+        w = edge_weights(attrs, masks, w1, b1, w2, b2, torch.bfloat16)
+        return padded_from_blocks(tp, tp.aggregate(x, sh, w))
     x, sh = x.to(f32), sh.to(f32)
     hsum, msum = 0.0, 0.0
     for a, m in zip(attrs, masks):
@@ -101,10 +142,20 @@ def tp_aggregate_fused_plain(
     return out
 
 
+def coupling(p, dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """alpha * cg of path ``p`` in f32, with cg rounded to ``dtype`` first
+    (the JAX package rounds the coupling tensor to the operands' type)."""
+    cg = wigner_3j(p.l_in, p.l_sh, p.l_out)
+    if dtype != torch.float32:
+        cg = torch.as_tensor(cg, dtype=dtype).double().numpy()
+    return (p.alpha * cg).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray]:
+def _tables(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32
+            ) -> Tuple[np.ndarray, np.ndarray]:
     """Per channel (x_base, d_in, sh_off, path) int32 (F, 4), and per path
-    alpha * cg zero-padded to (3, 5, 3) f32."""
+    alpha * cg (cg rounded to ``dtype``) zero-padded to (3, 5, 3) f32."""
     in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
     chan = np.zeros((tp.weight_numel, 4), np.int32)
     gtab = np.zeros((len(tp.paths), 3, _J_MAX, 3), np.float32)
@@ -113,16 +164,17 @@ def _tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray]:
         sh_off = sh_slices[p.i_sh].start
         if sh_off + _J_MAX > _SH_STRIDE or 2 * p.l_sh + 1 > _J_MAX:
             raise ValueError("harmonics layout outside the kernel's table")
-        cg = wigner_3j(p.l_in, p.l_sh, p.l_out)
-        gtab[q, :cg.shape[0], :cg.shape[1], :cg.shape[2]] = p.alpha * cg
+        cg = coupling(p, dtype)
+        gtab[q, :cg.shape[0], :cg.shape[1], :cg.shape[2]] = cg
         for u in range(p.mul_in):
             chan[p.w_slice[0] + u] = (in_slices[p.i_in].start + u * d1, d1, sh_off, q)
     return chan, gtab
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(tp: ChannelwiseTP, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    chan, gtab = _tables(tp)
+def _device_tables(tp: ChannelwiseTP, device: str, dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    chan, gtab = _tables(tp, dtype)
     return torch.as_tensor(chan, device=device), torch.as_tensor(gtab, device=device)
 
 
@@ -165,9 +217,9 @@ def tp_aggregate_fused(
     """Fused edge MLP + aggregate -> (B, N, F, 4) f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  x, sh and attrs share one dtype, f32 or bf16; the MLP
-    parameters are f32; masks are all bool or all f32 and are read as they
-    come.  A launch is the main kernel and, when the senders are split across
+    raise.  x, sh and attrs share one dtype, f32 or bf16 (then the kernel
+    rounds where :func:`tp_aggregate_fused_plain` does); the MLP parameters
+    are f32; masks are all bool or all f32 and are read as they come.  A launch is the main kernel and, when the senders are split across
     blocks (:func:`plan_senders`), a second one that adds the splits' partial
     sums in order; it counts once.  The kernel has no
     backward: with grad mode on and an input that requires grad it raises
@@ -224,7 +276,7 @@ def tp_aggregate_fused(
     if any(t.dtype != torch.float32 for t in (w1, b1, w2, b2)):
         raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
 
-    chan, gtab = _device_tables(tp, str(dev))
+    chan, gtab = _device_tables(tp, str(dev), dt)
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=dev)
     per_block, splits = plan_senders(B, N, M)
     part = (torch.empty((splits, B, N, F, K_PAD), dtype=torch.float32, device=dev)

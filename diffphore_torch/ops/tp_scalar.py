@@ -1,23 +1,29 @@
 """K3: the scalar-path (l_in = 0) tensor-product aggregate, with its backward.
 
 The port of ``diffphore_tpu/ops/pallas/tp_scalar.py::scalar_path_aggregate``
-(the TPU kernel) as CUDA kernels for Hopper, ``csrc/tp_scalar.cu``:
+(the TPU kernel) as CUDA kernels for Hopper, ``csrc/tp_scalar.cu``.  Per path:
 
-    out[b,n,u,k] = sum_m x[b,m,u] * sh[b,n,m,k] * w[b,n,m,u]
+    out[b,n,u,k] = c_p * sum_m x[b,m,u] * sh[b,n,m,k] * w[b,n,m,u]
 
 For a path with l_in = 0 the coupling tensor times the path's normalization
-is the identity (``wigner_3j(0, l, l)[0] = I / sqrt(2l+1)``, alpha =
-``sqrt(2l+1)``), so this is the whole of the path's block in
+is a multiple c_p of the identity (``wigner_3j(0, l, l)[0] = I / sqrt(2l+1)``,
+alpha = ``sqrt(2l+1)``): c_p = 1 in f32, and ``alpha * bf16(1 / sqrt(2l+1))``
+(1.00135 for l = 1) where the convolution computes in bf16, as the JAX
+package rounds the coupling tensor to the operands' type
+(:func:`path_scale`).  So this is the whole of the path's block in
 ``ChannelwiseTP.aggregate``.  The layer-0 convolutions of the score model
-(``ns x 0e`` in) have only such paths; their training branch runs one launch
-per path (:func:`scalar_paths_aggregate`), the other convolutions stay on K2.
+(``ns x 0e`` in) have only such paths; their training branch runs
+:func:`scalar_paths_aggregate`, the other convolutions stay on K2.
 
-:func:`scalar_path_aggregate` launches the kernels for CUDA tensors, forward
-and, under autograd, backward (``dw``, ``dsh`` and ``dx``, one kernel each),
-and runs :func:`scalar_path_aggregate_plain`, the einsum under autograd, for
-CPU tensors.  Operands may be last-axis slices of larger tensors
-(``sh[..., 1:4]``, ``w[..., 20:40]``): the kernels take strides, nothing is
-copied.  ``FWD``, ``BWD_W``, ``BWD_SH`` and ``BWD_X`` count the launches.
+The forward and ``dx`` are one launch per convolution for all its paths (a
+thread per channel of the full weight row; the summed axis split across
+blocks, the splits' partial sums added in order by a second kernel); ``dw``
+and ``dsh`` are one launch per path on strided views of the convolution's
+tensors (``sh[..., 1:4]``, ``w[..., 20:40]``), nothing copied.  Operands are
+f32 or bf16, read as they are and multiplied and summed in f32; gradients
+come back in each operand's type.  CPU tensors run
+:func:`scalar_paths_aggregate_plain`, the einsums under autograd.  ``FWD``,
+``BWD_W``, ``BWD_SH`` and ``BWD_X`` count the wrapper calls that launched.
 """
 
 from __future__ import annotations
@@ -32,24 +38,37 @@ import torch.nn.functional as Fn
 
 from . import build
 from .tensor_product import ChannelwiseTP
-from .tp_fused import K_PAD, _check_tp, _Kernel
+from .tp_fused import K_PAD, _check_tp, _Kernel, coupling
 from .wigner import wigner_3j
 
-FWD = _Kernel()      # tp_scalar_fwd_kernel
-BWD_W = _Kernel()    # tp_scalar_bwd_w_kernel (dw)
-BWD_SH = _Kernel()   # tp_scalar_bwd_sh_kernel (dsh, when the harmonics need it)
-BWD_X = _Kernel()    # tp_scalar_bwd_x_kernel (dx)
+FWD = _Kernel()      # tp_scalar_fwd_kernel (+ tp_scalar_sum_splits), one per convolution
+BWD_W = _Kernel()    # tp_scalar_bwd_w_kernel (dw), one per path
+BWD_SH = _Kernel()   # tp_scalar_bwd_sh_kernel (dsh, when the harmonics need it), one per path
+BWD_X = _Kernel()    # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per convolution
 
-K_MAX = 9            # harmonic components of one path the kernels take
-U_MAX = 64           # channels of one path the kernels take
+K_MAX = 9            # harmonic components of one path the dw and dsh kernels take
+U_MAX = 64           # channels of one path the dw and dsh kernels take
+THREADS = 256        # threads of a forward or dx block: KEEP = THREADS // F entries kept
+MIN_CHUNK = 8        # fewest entries of the summed axis one split takes
+TARGET_BLOCKS = 2 * 132
 
 
-def scalar_path_aggregate_plain(x: torch.Tensor, sh: torch.Tensor,
-                                w: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain PyTorch -> (B, N, U, K) f32.
-    Differentiable by autograd in x, sh and w."""
+def path_scale(p, dtype: torch.dtype = torch.float32) -> float:
+    """c_p: the path's alpha * cg(0, l, l) diagonal, cg rounded to ``dtype``
+    (exactly 1 in f32)."""
+    if dtype == torch.float32:
+        return 1.0
+    return float(coupling(p, dtype)[0, 0, 0])
+
+
+def scalar_path_aggregate_plain(x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                                scale: float = 1.0) -> torch.Tensor:
+    """One path in plain PyTorch -> (B, N, U, K) f32: ``scale * sum_m x sh
+    w`` of the operands read in f32.  Differentiable by autograd in x, sh
+    and w."""
     f32 = torch.float32
-    return torch.einsum("bmu,bnmk,bnmu->bnuk", x.to(f32), sh.to(f32), w.to(f32))
+    out = torch.einsum("bmu,bnmk,bnmu->bnuk", x.to(f32), sh.to(f32), w.to(f32))
+    return out if scale == 1.0 else scale * out
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,7 +87,7 @@ def all_scalar_paths(tp: ChannelwiseTP) -> bool:
 
 def path_views(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor):
     """Per path, in launch order, the (x, sh, w) last-axis slices of a
-    convolution's full tensors that its K3 call reads."""
+    convolution's full tensors that its path reads."""
     in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
     return [(x[..., in_slices[p.i_in]], sh[..., sh_slices[p.i_sh]],
              w[..., p.w_slice[0]:p.w_slice[1]]) for p in tp.paths]
@@ -83,26 +102,84 @@ def _check_paths(tp: ChannelwiseTP) -> None:
 def scalar_paths_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                                  w: torch.Tensor) -> torch.Tensor:
     """:func:`scalar_paths_aggregate` in plain PyTorch: the einsum of every
-    path, packed into (B, N, F, 4)."""
+    path on the operands read in f32, times its :func:`path_scale` for their
+    type, packed into (B, N, F, 4)."""
     _check_paths(tp)
+    dtype = x.dtype
+    x, sh, w = x.float(), sh.float(), w.float()
     pieces = []
-    for xv, shv, wv in path_views(tp, x, sh, w):          # channel order = path order
-        part = scalar_path_aggregate_plain(xv, shv, wv)
+    for p, (xv, shv, wv) in zip(tp.paths, path_views(tp, x, sh, w)):   # channel order
+        part = scalar_path_aggregate_plain(xv, shv, wv, path_scale(p, dtype))
         pieces.append(Fn.pad(part, (0, K_PAD - part.shape[-1])))
     return torch.cat(pieces, dim=-2)
 
 
 @functools.lru_cache(maxsize=None)
+def _conv_tables(tp: ChannelwiseTP, dtype: torch.dtype):
+    """The forward's and dx's tables: per channel (x element, sh offset, K,
+    0) int32 (F, 4) and c_p f32 (F,); per input element d the channels that
+    read it, extents ``d_ptr`` (D + 1) into ``d_item`` (ascending)."""
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    chan = np.zeros((tp.weight_numel, 4), np.int32)
+    scale = np.zeros(tp.weight_numel, np.float32)
+    readers = [[] for _ in range(tp.irreps_in.dim)]
+    for p in tp.paths:
+        for u in range(p.mul_in):
+            f, d = p.w_slice[0] + u, in_slices[p.i_in].start + u
+            chan[f] = (d, sh_slices[p.i_sh].start, 2 * p.l_sh + 1, 0)
+            scale[f] = path_scale(p, dtype)
+            readers[d].append(f)
+    d_ptr = np.zeros(len(readers) + 1, np.int32)
+    d_ptr[1:] = np.cumsum([len(r) for r in readers])
+    d_item = np.array([f for r in readers for f in sorted(r)] or [0], np.int32)
+    return chan, scale, d_ptr, d_item
+
+
+@functools.lru_cache(maxsize=None)
+def _device_conv_tables(tp: ChannelwiseTP, device: str, dtype: torch.dtype):
+    return tuple(torch.as_tensor(t, device=device) for t in _conv_tables(tp, dtype))
+
+
+def keep_of(F: int) -> int:
+    """Entries of the kept axis (receivers for the forward, senders for dx)
+    one block takes: a thread for each of their channels."""
+    return max(1, THREADS // F)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_chunk(B: int, kept: int, summed: int, F: int, target: int = TARGET_BLOCKS
+               ) -> Tuple[int, int]:
+    """(chunk, splits) of the summed axis of the forward (senders) or dx
+    (receivers): split k takes entries [k * chunk, (k + 1) * chunk).  The
+    fewest splits that give ``target`` blocks of (batch row, ``keep_of(F)``
+    kept entries), none with fewer than ``MIN_CHUNK`` entries where the axis
+    has them: a split's partial sums cost bytes of their own."""
+    tiles = B * -(-kept // keep_of(F))
+    splits = max(1, min(-(-target // tiles), summed // MIN_CHUNK))
+    chunk = -(-summed // splits)
+    return chunk, -(-summed // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(dx: bool, F: int, D: int, n_items: int, bf16: bool, device: str) -> int:
+    """Blocks of the forward (or dx) kernel the card holds at once."""
+    per_sm = _library().dp_tp_scalar_blocks_per_sm(int(dx), F, D, n_items, int(bf16))
+    _raise_on(max(0, -per_sm), "tp_scalar occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_scalar")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.dp_tp_scalar_fwd.argtypes = [p] * 4 + [strides] + [i] * 5 + [p]
-    lib.dp_tp_scalar_bwd_w.argtypes = [p] * 4 + [strides] + [i] * 5 + [p]
-    lib.dp_tp_scalar_bwd_sh.argtypes = [p] * 4 + [strides] + [i] * 6 + [p]
-    lib.dp_tp_scalar_bwd_x.argtypes = [p] * 4 + [strides] + [i] * 6 + [p]
+    lib.dp_tp_scalar_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
+    lib.dp_tp_scalar_bwd_x.argtypes = [p] * 9 + [i] * 11 + [p]
+    lib.dp_tp_scalar_bwd_w.argtypes = [p] * 4 + [strides] + [i] * 5 + [f, i, p]
+    lib.dp_tp_scalar_bwd_sh.argtypes = [p] * 4 + [strides] + [i] * 6 + [f, i, p]
+    lib.dp_tp_scalar_blocks_per_sm.argtypes = [i] * 5
     for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_w, lib.dp_tp_scalar_bwd_sh,
-               lib.dp_tp_scalar_bwd_x):
+               lib.dp_tp_scalar_bwd_x, lib.dp_tp_scalar_blocks_per_sm):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -115,16 +192,20 @@ def _raise_on(rc: int, what: str) -> None:
                            f"{_library().dp_cuda_error_string(rc).decode()}")
 
 
-def _check_views(**views: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
-    """Each (tensor, expected shape): f32, on one CUDA device, of that shape,
-    with a unit last stride and no negative stride."""
+def _check_views(dtype: torch.dtype, **views: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
+    """Each (tensor, expected shape): on one CUDA device, of that shape, with
+    a unit last stride and no negative stride; the gradient ``grad`` f32,
+    every other view of ``dtype`` (f32 or bf16)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tp_scalar: operands must be f32 or bf16, got {dtype}")
     device = next(iter(views.values()))[0].device
     for name, (t, shape) in views.items():
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"tp_scalar: {name} on {t.device}; all tensors must be on one "
                              f"CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"tp_scalar: {name} must be f32, got {t.dtype}")
+        want = torch.float32 if name == "grad" else dtype
+        if t.dtype != want:
+            raise TypeError(f"tp_scalar: {name} must be {want}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"tp_scalar: {name} {tuple(t.shape)}, expected {shape}")
         if (t.shape[-1] > 1 and t.stride(-1) != 1) or any(s < 0 for s in t.stride()):
@@ -132,7 +213,7 @@ def _check_views(**views: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
                              f"slice of a contiguous tensor), got strides {t.stride()}")
 
 
-def _shapes(x: torch.Tensor, sh: torch.Tensor) -> Tuple[int, int, int, int, int]:
+def _path_shapes(x: torch.Tensor, sh: torch.Tensor) -> Tuple[int, int, int, int, int]:
     if sh.dim() != 4 or x.dim() != 3:
         raise ValueError(f"tp_scalar: x must be (B, M, U) and sh (B, N, M, K), got "
                          f"{tuple(x.shape)} and {tuple(sh.shape)}")
@@ -154,125 +235,157 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch_forward(x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The forward kernel on CUDA views; writes ``out`` (a (B, N, U, K) view,
-    made contiguous when not given) and returns it."""
-    B, N, M, U, K = _shapes(x, sh)
-    if out is None:
-        out = torch.empty((B, N, U, K), dtype=torch.float32, device=x.device)
-    _check_views(x=(x, (B, M, U)), sh=(sh, (B, N, M, K)), w=(w, (B, N, M, U)),
-                 out=(out, (B, N, U, K)))
+def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
+    """(B, N, M, D, S, F) of a convolution-level launch; raises on what the
+    forward and dx kernels do not take."""
+    _check_paths(tp)
+    if sh.dim() != 4:
+        raise ValueError(f"tp_scalar: sh must be (B, N, M, S), got {tuple(sh.shape)}")
+    B, N, M, S = sh.shape
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    if F > THREADS:
+        raise ValueError(f"tp_scalar: F = {F} channels, more than a block's {THREADS} threads")
+    views = {"x": (x, (B, M, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
+             "w": (w, (B, N, M, F))}
+    if g is not None:
+        views["grad"] = (g, (B, N, F, K_PAD))
+    _check_views(x.dtype, **views)
+    for name, (t, _) in views.items():
+        if not t.is_contiguous():
+            raise ValueError(f"tp_scalar: {name} must be contiguous")
+    return B, N, M, D, S, F
+
+
+def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """Every path of the convolution in one forward launch -> (B, N, F, 4)
+    f32 (and the sum of the sender splits' partial sums where
+    :func:`launch_chunk` splits)."""
+    B, N, M, D, S, F = _check_conv(tp, x, sh, w)
+    chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
+    out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
+    chunk, splits = launch_chunk(tp, B, N, M, False, x.device, x.dtype)
+    part = (torch.empty((splits, B, N, F, K_PAD), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     rc = _library().dp_tp_scalar_fwd(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), out.data_ptr(), _strides(x, sh, w, out),
-        B, N, M, U, K, _stream(x.device))
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), B, N, M, D, S, F, keep_of(F),
+        chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_scalar_fwd")
     FWD.launches += 1
     return out
 
 
+def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """dx of every path in one launch, in x's type (x gives its shape and
+    type only; and the sum of the receiver splits' f32 partial sums where
+    :func:`launch_chunk` splits)."""
+    B, N, M, D, S, F = _check_conv(tp, x, sh, w, g)
+    chan, scale, d_ptr, d_item = _device_conv_tables(tp, str(x.device), x.dtype)
+    dx = torch.empty_like(x)
+    chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
+    part = (torch.empty((splits, B, M, D), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    rc = _library().dp_tp_scalar_bwd_x(
+        sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
+        d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(), B, N, M, D, S, F, d_item.shape[0],
+        keep_of(F), chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
+    _raise_on(rc, "tp_scalar_bwd_x")
+    BWD_X.launches += 1
+    return dx
+
+
+def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
+                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """(chunk, splits) of the forward (or dx) launch on the card: enough
+    blocks for every block slot the card holds at these widths."""
+    F = tp.weight_numel
+    n_items = len(_conv_tables(tp, dtype)[3])
+    target = max(TARGET_BLOCKS, _resident_blocks(dx, F, tp.irreps_in.dim, n_items,
+                                                 dtype == torch.bfloat16, str(device)))
+    return plan_chunk(B, M, N, F, target) if dx else plan_chunk(B, N, M, F, target)
+
+
 def launch_backward_w(x: torch.Tensor, sh: torch.Tensor, g: torch.Tensor,
-                      dw: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dw into the (B, N, M, U) view ``dw`` (every element written)."""
-    B, N, M, U, K = _shapes(x, sh)
+                      dw: Optional[torch.Tensor] = None, scale: float = 1.0) -> torch.Tensor:
+    """dw of one path into the (B, N, M, U) view ``dw`` of x's type (every
+    element written): ``scale * x * sum_k sh g``."""
+    B, N, M, U, K = _path_shapes(x, sh)
     if dw is None:
-        dw = torch.empty((B, N, M, U), dtype=torch.float32, device=x.device)
-    _check_views(x=(x, (B, M, U)), sh=(sh, (B, N, M, K)), grad=(g, (B, N, U, K)),
+        dw = torch.empty((B, N, M, U), dtype=x.dtype, device=x.device)
+    _check_views(x.dtype, x=(x, (B, M, U)), sh=(sh, (B, N, M, K)), grad=(g, (B, N, U, K)),
                  dw=(dw, (B, N, M, U)))
     rc = _library().dp_tp_scalar_bwd_w(
         x.data_ptr(), sh.data_ptr(), g.data_ptr(), dw.data_ptr(), _strides(x, sh, g, dw),
-        B, N, M, U, K, _stream(x.device))
+        B, N, M, U, K, scale, int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_scalar_bwd_w")
     BWD_W.launches += 1
     return dw
 
 
 def launch_backward_sh(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                       dsh: Optional[torch.Tensor] = None,
-                       accumulate: bool = False) -> torch.Tensor:
-    """dsh into the (B, N, M, K) view ``dsh``: written, or added to what it
-    holds with ``accumulate``."""
+                       dsh: Optional[torch.Tensor] = None, accumulate: bool = False,
+                       scale: float = 1.0) -> torch.Tensor:
+    """dsh of one path into the (B, N, M, K) view ``dsh`` of x's type:
+    written, or added to what it holds with ``accumulate``."""
     B, N, U, K = g.shape
     M = x.shape[1]
     if dsh is None:
-        dsh = torch.empty((B, N, M, K), dtype=torch.float32, device=x.device)
-    _shapes(x, dsh)
-    _check_views(x=(x, (B, M, U)), w=(w, (B, N, M, U)), grad=(g, (B, N, U, K)),
+        dsh = torch.empty((B, N, M, K), dtype=x.dtype, device=x.device)
+    _path_shapes(x, dsh)
+    _check_views(x.dtype, x=(x, (B, M, U)), w=(w, (B, N, M, U)), grad=(g, (B, N, U, K)),
                  dsh=(dsh, (B, N, M, K)))
     rc = _library().dp_tp_scalar_bwd_sh(
         x.data_ptr(), w.data_ptr(), g.data_ptr(), dsh.data_ptr(), _strides(x, w, g, dsh),
-        B, N, M, U, K, int(accumulate), _stream(x.device))
+        B, N, M, U, K, int(accumulate), scale, int(x.dtype == torch.bfloat16),
+        _stream(x.device))
     _raise_on(rc, "tp_scalar_bwd_sh")
     BWD_SH.launches += 1
     return dsh
 
 
-def launch_backward_x(sh: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                      dx: Optional[torch.Tensor] = None,
-                      accumulate: bool = False) -> torch.Tensor:
-    """dx into the (B, M, U) view ``dx``: written, or added to what it holds
-    with ``accumulate``."""
-    B, N, M, K = sh.shape
-    U = w.shape[-1]
-    if dx is None:
-        dx = torch.empty((B, M, U), dtype=torch.float32, device=sh.device)
-    _shapes(dx, sh)
-    _check_views(sh=(sh, (B, N, M, K)), w=(w, (B, N, M, U)), grad=(g, (B, N, U, K)),
-                 dx=(dx, (B, M, U)))
-    rc = _library().dp_tp_scalar_bwd_x(
-        sh.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(), _strides(sh, w, g, dx),
-        B, N, M, U, K, int(accumulate), _stream(sh.device))
-    _raise_on(rc, "tp_scalar_bwd_x")
-    BWD_X.launches += 1
-    return dx
-
-
-class ScalarPathAggregate(torch.autograd.Function):
-    """One path under autograd.  ``dsh`` is computed only when sh requires
-    grad, ``dx`` only when x does, ``dw`` only when w does."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor):
-        ctx.save_for_backward(x, sh, w)
-        return launch_forward(x, sh, w)
-
-    @staticmethod
-    def backward(ctx, grad_out: torch.Tensor):
-        x, sh, w = ctx.saved_tensors
-        need_dx, need_dsh, need_dw = ctx.needs_input_grad
-        g = grad_out.to(torch.float32).contiguous()
-        return (launch_backward_x(sh, w, g) if need_dx else None,
-                launch_backward_sh(x, w, g) if need_dsh else None,
-                launch_backward_w(x, sh, g) if need_dw else None)
-
-
-def scalar_path_aggregate(x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_m x * sh * w -> (B, N, U, K) f32, differentiable in x, sh, w.
-
-    x (B, M, U); sh (B, N, M, K), K <= 9; w (B, N, M, U) pre-masked, U <= 64;
-    all f32 with a unit last stride.  CPU tensors take the plain version;
-    CUDA tensors launch the kernels or raise.
-    """
-    if x.device.type == "cpu" and sh.device.type == "cpu" and w.device.type == "cpu":
-        return scalar_path_aggregate_plain(x, sh, w)
-    return ScalarPathAggregate.apply(x, sh, w)
+def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                         g: torch.Tensor, need_dsh: bool, need_dw: bool = True
+                         ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dw, dsh) of every path of a convolution, in w's and sh's type: per
+    path a dw launch (and a dsh launch) that reads slices of x, sh, w and g
+    and writes slices of the full gradients; dsh only with ``need_dsh``, dw
+    only with ``need_dw``.  g is the (B, N, F, 4) f32 upstream gradient."""
+    # every channel of w belongs to one path, so dw is written whole; sh
+    # may hold components no path reads, and two paths may share one
+    dw = torch.empty_like(w) if need_dw else None
+    dsh = torch.zeros_like(sh) if need_dsh else None
+    seen_sh = set()
+    views = path_views(tp, x, sh, w)
+    grads = path_views(tp, x, sh if dsh is None else dsh, w if dw is None else dw)
+    for p, (xv, shv, wv), (_, dshv, dwv) in zip(tp.paths, views, grads):
+        gv = g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]]
+        scale = path_scale(p, x.dtype)
+        if need_dw:
+            launch_backward_w(xv, shv, gv, dwv, scale)
+        if need_dsh:
+            launch_backward_sh(xv, wv, gv, dshv, p.i_sh in seen_sh, scale)
+            seen_sh.add(p.i_sh)
+    return dw, dsh
 
 
 class ScalarPathsAggregate(torch.autograd.Function):
     """Every path of an all-l_in-0 convolution under autograd, on the
-    convolution's full tensors: each path's kernels read slices of x, sh and
-    w and write slices of the packed output and of the full gradients, so no
-    slice is copied and no gradient is padded and summed afterwards."""
+    convolution's full tensors: one forward launch and one dx launch for the
+    convolution, and per path a dw launch (and a dsh launch) that reads
+    slices of x, sh and w and writes slices of the full gradients, so no
+    slice is copied and no gradient is padded and summed afterwards.
+    ``dsh`` is computed only when sh requires grad, ``dx`` only when x does,
+    ``dw`` only when w does."""
 
     @staticmethod
     def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor):
         ctx.tp = tp
         ctx.save_for_backward(x, sh, w)
-        B, N = sh.shape[:2]
-        out = torch.zeros((B, N, tp.weight_numel, K_PAD), dtype=torch.float32, device=x.device)
-        for p, (xv, shv, wv) in zip(tp.paths, path_views(tp, x, sh, w)):
-            launch_forward(xv, shv, wv, out[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]])
-        return out
+        return launch_forward(tp, x, sh, w)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
@@ -280,46 +393,23 @@ class ScalarPathsAggregate(torch.autograd.Function):
         x, sh, w = ctx.saved_tensors
         _, need_dx, need_dsh, need_dw = ctx.needs_input_grad
         g = grad_out.to(torch.float32).contiguous()
-        # every channel of w belongs to one path, so dw is written whole; sh
-        # and x may hold components no path reads, and two paths may share one
-        dw = torch.empty_like(w) if need_dw else None
-        dsh = torch.zeros_like(sh) if need_dsh else None
-        dx = torch.zeros_like(x) if need_dx else None
-        seen_sh, seen_x = set(), set()
-        views = path_views(tp, x, sh, w)
-        grads = path_views(tp, dx if need_dx else x, dsh if need_dsh else sh,
-                            dw if need_dw else w)
-        for p, (xv, shv, wv), (dxv, dshv, dwv) in zip(tp.paths, views, grads):
-            gv = g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]]
-            if need_dw:
-                launch_backward_w(xv, shv, gv, dwv)
-            if need_dsh:
-                launch_backward_sh(xv, wv, gv, dshv, accumulate=p.i_sh in seen_sh)
-                seen_sh.add(p.i_sh)
-            if need_dx:
-                launch_backward_x(shv, wv, gv, dxv, accumulate=p.i_in in seen_x)
-                seen_x.add(p.i_in)
+        dw, dsh = launch_backward_edge(tp, x, sh, w, g, need_dsh, need_dw)
+        dx = launch_backward_x(tp, x, sh, w, g) if need_dx else None
         return None, dx, dsh, dw
 
 
 def scalar_paths_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
-    """The aggregate of a convolution whose paths all have l_in = 0, one K3
-    launch per path -> (B, N, F, 4) f32 in the layout
-    :func:`tp_fused.blocks_from_padded` reads; differentiable in x, sh, w.
+    """The aggregate of a convolution whose paths all have l_in = 0 -> (B, N,
+    F, 4) f32 in the layout :func:`tp_fused.blocks_from_padded` reads;
+    differentiable in x, sh, w (their gradients in their own type).
 
-    x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked; all f32 and
-    contiguous.  CPU tensors take the plain version; CUDA tensors launch the
-    kernels or raise.
+    x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked, F <= 256;
+    all f32 or all bf16, contiguous.  CPU tensors take the plain version;
+    CUDA tensors launch the kernels or raise.
     """
     _check_paths(tp)
     if x.device.type == "cpu" and sh.device.type == "cpu" and w.device.type == "cpu":
         return scalar_paths_aggregate_plain(tp, x, sh, w)
-    B, N, M, _ = sh.shape
-    expected = {"x": (x, (B, M, tp.irreps_in.dim)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
-                "w": (w, (B, N, M, tp.weight_numel))}
-    _check_views(**expected)
-    for name, (t, _) in expected.items():
-        if not t.is_contiguous():
-            raise ValueError(f"tp_scalar: {name} must be contiguous")
+    _check_conv(tp, x, sh, w)
     return ScalarPathsAggregate.apply(tp, x, sh, w)

@@ -39,8 +39,9 @@ def cuda():
 @pytest.mark.parametrize("n_chan", [1, 2])
 def test_tp_fused_kernel_matches_plain(cuda, sig, n_chan):
     """f32 inputs differ from the plain version by summation order only
-    (1e-4 of the output scale); bf16 inputs by their rounding (3e-2).
-    N = 37 and M = 29 leave ragged receiver tiles and sender chunks."""
+    (1e-4 of the output scale); bf16 inputs take the JAX package's bf16
+    convolution and are held against the plain version's (3e-2).  N = 37
+    and M = 29 leave ragged receiver tiles and sender chunks."""
     irr_in, irr_out, irr_sh, E = SIGNATURES[sig]
     tp = channelwise_tp(irr_in, irr_sh, irr_out)
     rng = np.random.default_rng(0)
@@ -57,13 +58,14 @@ def test_tp_fused_kernel_matches_plain(cuda, sig, n_chan):
     before = tp_fused.KERNEL.launches
     got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, w1, b1, w2, b2)
     bf = torch.bfloat16
-    got_bf = tp_fused.tp_aggregate_fused(tp, x.to(bf), sh.to(bf), [a.to(bf) for a in attrs],
-                                         masks, w1, b1, w2, b2)
+    low = (x.to(bf), sh.to(bf), [a.to(bf) for a in attrs])
+    got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert tp_fused.KERNEL.launches == before + 2
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= 1e-4 * scale
-    assert float((got_bf - ref).abs().max()) <= 3e-2 * scale
+    ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, w1, b1, w2, b2)
+    assert float((got_bf - ref_bf).abs().max()) <= 3e-2 * float(ref_bf.abs().max())
     assert float(got[..., 3].abs().max()) == 0.0  # the pad lane
 
 
@@ -134,7 +136,8 @@ def test_tp_fused_sender_split_and_ragged_shapes(cuda, shape, sig, n_chan):
     """The sender split (partial sums added by the second kernel), ragged
     receiver tiles and sender ranges, N = 1 and B = 1, with sparse masks (0.3
     of the edges live: tiles span several senders): f32 within 1e-4 of scale,
-    bf16 within 3e-2, two runs equal to the bit, one launch counted per call."""
+    bf16 within 3e-2 of the bf16 plain version, two runs equal to the bit, one
+    launch counted per call."""
     B, N, M = shape
     tp, x, sh, attrs, masks, params = _k1_inputs(sig, cuda, B, N, M, n_chan, keep=0.3)
     ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params)
@@ -142,13 +145,14 @@ def test_tp_fused_sender_split_and_ragged_shapes(cuda, shape, sig, n_chan):
     got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
     again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
     bf = torch.bfloat16
-    got_bf = tp_fused.tp_aggregate_fused(tp, x.to(bf), sh.to(bf), [a.to(bf) for a in attrs],
-                                         masks, *params)
+    low = (x.to(bf), sh.to(bf), [a.to(bf) for a in attrs])
+    got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
     torch.cuda.synchronize()
     assert tp_fused.KERNEL.launches == before + 3
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= 1e-4 * scale
-    assert float((got_bf - ref).abs().max()) <= 3e-2 * scale
+    ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params)
+    assert float((got_bf - ref_bf).abs().max()) <= 3e-2 * float(ref_bf.abs().max())
     assert torch.equal(got, again)
     assert float(got[..., 3].abs().max()) == 0.0
 
@@ -171,9 +175,9 @@ def test_tp_fused_dead_rows_and_float_masks(cuda, dtype):
         cast = lambda v: v
         tol = 1e-4
     for mk in (masks, fmasks):
-        ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, mk, *params)
-        got = tp_fused.tp_aggregate_fused(tp, cast(x), cast(sh), [cast(a) for a in attrs], mk,
-                                          *params)
+        low = (cast(x), cast(sh), [cast(a) for a in attrs])
+        ref = tp_fused.tp_aggregate_fused_plain(tp, *low, mk, *params)
+        got = tp_fused.tp_aggregate_fused(tp, *low, mk, *params)
         torch.cuda.synchronize()
         assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
         assert float(got[0, 5].abs().max()) == 0.0
@@ -351,18 +355,90 @@ def test_tp_aggregate_rejects_bad_inputs(cuda):
         tp_aggregate.tp_aggregate(tp, x, sh, w.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError):  # sh on the CPU
         tp_aggregate.tp_aggregate(tp, x, sh.cpu(), w)
-    with pytest.raises(TypeError):  # bf16 inputs: the kernels read f32 only
-        tp_aggregate.tp_aggregate(tp, x.bfloat16(), sh.bfloat16(), w.bfloat16())
+    with pytest.raises(TypeError):  # x, sh and w of two types
+        tp_aggregate.tp_aggregate(tp, x.bfloat16(), sh, w.bfloat16())
+    with pytest.raises(TypeError):  # f64 inputs
+        tp_aggregate.tp_aggregate(tp, x.double(), sh.double(), w.double())
     with pytest.raises(ValueError):  # wrong channel count
         tp_aggregate.tp_aggregate(tp, x, sh, w[..., :-1].contiguous())
+
+
+def _bf16_step(want: torch.Tensor) -> torch.Tensor:
+    """One bf16 rounding step of each element of an f32 result, plus 1e-6 of
+    its scale: where a kernel's f32 sum and the plain version's, taken in
+    another order, fall on two sides of a bf16 rounding boundary."""
+    return want.abs() * 2.0 ** -7 + 1e-6 * float(want.abs().max())
+
+
+def _lanes(tp, g):
+    lanes = torch.zeros_like(g)
+    for p in tp.paths:
+        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    return lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 29), (24, 1, 24), (24, 24, 96), (24, 96, 24)])
+@pytest.mark.parametrize("sig", list(SIGNATURES))
+def test_tp_aggregate_bf16_matches_plain(cuda, shape, sig):
+    """bf16 x, sh and w (a convolution at compute_dtype bfloat16): the
+    forward within 1e-5 of scale of the plain version on the same bf16
+    operands (f32 sums in another order), dx, dsh and dw, stored in bf16,
+    within one bf16 rounding step of each element; reruns equal to the bit.
+    final_conv's F = 100 makes a bf16 row of w 200 bytes: its rows are not
+    16-byte aligned."""
+    tp, x, sh, w, g = _k2_inputs(sig, cuda, *shape)
+    bf = torch.bfloat16
+    x, sh, w = x.to(bf), sh.to(bf), w.to(bf)
+    leaves = [v.float().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, *[v.to(bf) for v in leaves])
+    ref_grads = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    runs = []
+    for _ in range(2):
+        out = tp_aggregate.launch_forward(tp, x, sh, w)
+        dw, dsh = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True)
+        dw_only, _ = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, False)
+        dx = tp_aggregate.launch_backward_x(tp, x, sh, w, g)
+        runs.append((out, dx, dsh, dw, dw_only))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dx, dsh, dw, dw_only = runs[0]
+    assert out.dtype == torch.float32 and float(out[..., 3].abs().max()) == 0.0
+    assert float((out - ref.detach()).abs().max()) <= 1e-5 * float(ref.abs().max())
+    for name, got, want in zip(("dx", "dsh", "dw", "dw without dsh"), (dx, dsh, dw, dw_only),
+                               ref_grads + (ref_grads[2],)):
+        assert got.dtype == bf, name
+        assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_tp_aggregate_bf16_rows_at_every_alignment(cuda, offset):
+    """final_conv's F = 100 with w starting 2, 4, 8 or 16 bytes past a
+    16-byte boundary: the ring copies rows in pieces of 4 or 8 bytes (or
+    loads them plainly) and the results do not change."""
+    tp, x, sh, w, g = _k2_inputs("final_conv", cuda, 24, 1, 24)
+    bf = torch.bfloat16
+    x, sh, w = x.to(bf), sh.to(bf), w.to(bf)
+    buf = torch.zeros(w.numel() + 8, dtype=bf, device=cuda)
+    shifted = buf[offset:offset + w.numel()].view(w.shape)
+    shifted.copy_(w)
+    assert shifted.is_contiguous()
+    for fn in (lambda v: tp_aggregate.launch_forward(tp, x, sh, v),
+               lambda v: tp_aggregate.launch_backward_x(tp, x, sh, v, g),
+               lambda v: tp_aggregate.launch_backward_edge(tp, x, sh, v, g, True)[1]):
+        a, b = fn(w), fn(shifted)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 K3_COUNTERS = (tp_scalar.FWD, tp_scalar.BWD_W, tp_scalar.BWD_SH, tp_scalar.BWD_X)
 
 
 def _k3_inputs(cuda, B, N, M, U, K, seed=0, strided=False):
-    """x, sh, w (masked) and g; with ``strided`` each is a last-axis slice
-    of a wider tensor, as a convolution hands them over."""
+    """x, sh, w (masked) and g of one path; with ``strided`` each is a
+    last-axis slice of a wider tensor, as a convolution hands them over."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
     pad = 3 if strided else 0
@@ -383,25 +459,35 @@ def _k3_inputs(cuda, B, N, M, U, K, seed=0, strided=False):
     (1, 5, 7, 64, 2, False),         # the widest U, a K between the template bounds
 ])
 def test_tp_scalar_kernels_match_plain(cuda, B, N, M, U, K, strided):
-    """K3 forward and its three gradients against autograd through the
-    einsum: f32 on both sides, they differ by summation order only (1e-4 of
-    each result's scale); one launch of each kernel."""
+    """K3's per-path dw and dsh kernels on the views themselves against
+    autograd through the einsum: f32 on both sides, they differ by summation
+    order only (1e-4 of each result's scale), with a path scale; in bf16
+    within one bf16 rounding step of each element.  One launch each."""
     x, sh, w, g = _k3_inputs(cuda, B, N, M, U, K, strided=strided)
     assert strided != (sh.is_contiguous() and w.is_contiguous())
-    leaves = [v.detach().clone().requires_grad_(True) for v in (x, sh, w)]
-    ref = tp_scalar.scalar_path_aggregate_plain(*leaves)
-    ref_grads = torch.autograd.grad(ref, leaves, g)
+    for dtype, scale in ((torch.float32, 1.0), (torch.float32, 1.00135), (torch.bfloat16, 1.00135)):
+        xs, shs, ws = x.to(dtype), sh.to(dtype), w.to(dtype)
+        leaves = [v.float().requires_grad_(True) for v in (xs, shs, ws)]
+        ref = tp_scalar.scalar_path_aggregate_plain(*[v.to(dtype) for v in leaves], scale)
+        _, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g)
+        counts = [k.launches for k in K3_COUNTERS]
+        dw = tp_scalar.launch_backward_w(xs, shs, g, scale=scale)
+        dsh = tp_scalar.launch_backward_sh(xs, ws, g, scale=scale)
+        torch.cuda.synchronize()
+        assert [k.launches - c for k, c in zip(K3_COUNTERS, counts)] == [0, 1, 1, 0]
+        for name, got, want in (("dw", dw, ref_dw), ("dsh", dsh, ref_dsh)):
+            assert got.dtype == dtype, name
+            if dtype == torch.float32:
+                assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+            else:
+                assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
 
-    counts = [k.launches for k in K3_COUNTERS]
-    mine = [v.detach().requires_grad_(True) for v in (x, sh, w)]     # the views themselves
-    out = tp_scalar.scalar_path_aggregate(*mine)
-    grads = torch.autograd.grad(out, mine, g)
-    torch.cuda.synchronize()
-    assert [k.launches for k in K3_COUNTERS] == [c + 1 for c in counts]
-    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
-    for name, got, want in zip(("dx", "dsh", "dw"), grads, ref_grads):
-        assert got.shape == want.shape
-        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+
+def _k3_conv_inputs(cuda, tp, B, N, M, seed=1):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    return [t(rng.normal(size=(B, M, tp.irreps_in.dim))), t(rng.normal(size=(B, N, M, 9))),
+            t(rng.normal(size=(B, N, M, tp.weight_numel)) * (rng.random((B, N, M, 1)) > 0.3))]
 
 
 @pytest.mark.cuda
@@ -412,27 +498,27 @@ def test_tp_scalar_kernels_match_plain(cuda, B, N, M, U, K, strided):
 def test_tp_scalar_conv_level_matches_plain_and_is_deterministic(cuda, irreps_in, irreps_out):
     """Every path of an all-l_in-0 convolution: the packed output and the
     gradients into the full x, sh and w against the plain version (1e-4),
-    the pad lanes zero, two runs equal to the bit, and dsh and dx skipped
-    when sh and x carry no gradient."""
+    the pad lanes zero, two runs equal to the bit, one forward and one dx
+    launch for the convolution and a dw and a dsh launch per path, and dsh
+    and dx skipped when sh and x carry no gradient."""
     tp = channelwise_tp(irreps_in, SH, irreps_out)
-    B, N, M = 3, 13, 29
-    rng = np.random.default_rng(1)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
-    vals = [t(rng.normal(size=(B, M, tp.irreps_in.dim))), t(rng.normal(size=(B, N, M, 9))),
-            t(rng.normal(size=(B, N, M, tp.weight_numel)) * (rng.random((B, N, M, 1)) > 0.3))]
-    g = t(rng.normal(size=(B, N, tp.weight_numel, 4)))      # noise in the pad lanes too
-    lanes = torch.zeros_like(g)
-    for p in tp.paths:
-        lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    vals = _k3_conv_inputs(cuda, tp, 3, 13, 29)
+    B, N = vals[1].shape[:2]
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(B, N, tp.weight_numel, 4)).astype(np.float32)).to(cuda)   # noise in the pad lanes
+    lanes = _lanes(tp, g)
     leaves = [v.clone().requires_grad_(True) for v in vals]
     ref = tp_scalar.scalar_paths_aggregate_plain(tp, *leaves)
     ref_grads = torch.autograd.grad(ref, leaves, g * lanes)
 
+    n = len(tp.paths)
     runs = []
     for _ in range(2):
+        before = [k.launches for k in K3_COUNTERS]
         mine = [v.clone().requires_grad_(True) for v in vals]
         out = tp_scalar.scalar_paths_aggregate(tp, *mine)
         runs.append((out,) + torch.autograd.grad(out, mine, g))
+        assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [1, n, n, 1]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -446,28 +532,70 @@ def test_tp_scalar_conv_level_matches_plain_and_is_deterministic(cuda, irreps_in
     before = [k.launches for k in K3_COUNTERS]
     out = tp_scalar.scalar_paths_aggregate(tp, vals[0], vals[1], w_only)
     (dw,) = torch.autograd.grad(out, [w_only], g)
-    n = len(tp.paths)
-    assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [n, n, 0, 0]
+    assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [1, n, 0, 0]
     assert torch.equal(dw, grads[2])
+
+
+#: (B, N, M) of the six layer-0 training convs of a 24-complex batch, a
+#: ragged shape and one batch row
+K3_CONV_SHAPES = [(24, 24, 24), (24, 24, 96), (24, 96, 24), (24, 96, 96), (3, 37, 29), (1, 9, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_CONV_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_conv_level_training_shapes(cuda, shape, dtype):
+    """The redesigned forward and dx at the layer-0 convs' widths (F = 40),
+    the summed axis split as planned: against the per-path plain version,
+    f32 within 1e-5 of scale, in bf16 the output within 1e-5 of scale and
+    dx within one bf16 rounding step of each element; reruns equal to the
+    bit."""
+    tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w = [v.to(dt) for v in _k3_conv_inputs(cuda, tp, *shape)]
+    B, N, M, _ = sh.shape
+    g = torch.randn((B, N, tp.weight_numel, 4), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    leaves = [v.float().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, *[v.to(dt) for v in leaves])
+    (ref_dx,) = torch.autograd.grad(ref, [leaves[0]], g * _lanes(tp, g))
+    outs = [tp_scalar.launch_forward(tp, x, sh, w) for _ in range(2)]
+    dxs = [tp_scalar.launch_backward_x(tp, x, sh, w, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(dxs[0], dxs[1])
+    assert outs[0].dtype == torch.float32 and dxs[0].dtype == dt
+    assert float((outs[0] - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    if dt == torch.float32:
+        assert float((dxs[0] - ref_dx).abs().max()) <= 1e-5 * float(ref_dx.abs().max())
+    else:
+        assert bool(((dxs[0].float() - ref_dx).abs() <= _bf16_step(ref_dx)).all())
 
 
 @pytest.mark.cuda
 def test_tp_scalar_rejects_bad_inputs(cuda):
-    x, sh, w, _ = _k3_inputs(cuda, 1, 4, 5, 8, 3)
+    x, sh, w, g = _k3_inputs(cuda, 1, 4, 5, 8, 3)
     with pytest.raises(ValueError):  # a CPU tensor among CUDA tensors
-        tp_scalar.scalar_path_aggregate(x, sh.cpu(), w)
-    with pytest.raises(ValueError):  # x on the CPU, the others on the card
-        tp_scalar.scalar_path_aggregate(x.cpu(), sh, w)
-    with pytest.raises(TypeError):   # bf16 inputs: the kernels read f32 only
-        tp_scalar.scalar_path_aggregate(x.bfloat16(), sh.bfloat16(), w.bfloat16())
+        tp_scalar.launch_backward_w(x, sh.cpu(), g)
+    with pytest.raises(TypeError):   # x and sh of two types
+        tp_scalar.launch_backward_w(x.bfloat16(), sh, g)
+    with pytest.raises(TypeError):   # a bf16 upstream gradient
+        tp_scalar.launch_backward_sh(x, w, g.bfloat16())
     with pytest.raises(ValueError):  # a last axis that is not unit-stride
-        tp_scalar.scalar_path_aggregate(x, sh, w.transpose(2, 3).contiguous().transpose(2, 3))
+        tp_scalar.launch_backward_sh(x, w.transpose(2, 3).contiguous().transpose(2, 3), g)
     with pytest.raises(ValueError):  # wrong channel count
-        tp_scalar.scalar_path_aggregate(x, sh, w[..., :-1])
+        tp_scalar.launch_backward_sh(x, w[..., :-1], g)
     with pytest.raises(ValueError):  # more channels than a block holds
-        tp_scalar.scalar_path_aggregate(*_k3_inputs(cuda, 1, 4, 5, 65, 3)[:3])
+        x65, _, w65, g65 = _k3_inputs(cuda, 1, 4, 5, 65, 3)
+        tp_scalar.launch_backward_sh(x65, w65, g65)
     tp = channelwise_tp(SEQ[1], SH, SEQ[2])
     with pytest.raises(ValueError):  # a convolution with l_in = 1 paths belongs to K2
         tp_scalar.scalar_paths_aggregate(tp, torch.zeros(1, 5, tp.irreps_in.dim, device=cuda),
                                          torch.zeros(1, 4, 5, 9, device=cuda),
                                          torch.zeros(1, 4, 5, tp.weight_numel, device=cuda))
+    tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+    vals = _k3_conv_inputs(cuda, tp, 1, 4, 5)
+    with pytest.raises(TypeError):   # x, sh and w of two types
+        tp_scalar.scalar_paths_aggregate(tp, vals[0].bfloat16(), vals[1], vals[2])
+    with pytest.raises(ValueError):  # a non-contiguous weight tensor
+        tp_scalar.scalar_paths_aggregate(tp, vals[0], vals[1],
+                                         vals[2].transpose(1, 2).contiguous().transpose(1, 2))

@@ -2,9 +2,10 @@
 package's Pallas kernel in interpret mode (``scalar_path_aggregate(...,
 interpret=True)``) on the shapes of its own tests, its autograd gradients
 against ``jax.grad`` of the einsum, strided views against contiguous copies,
-and the conv-level packing against ``ChannelwiseTP.aggregate``.  f32 on both
-sides; the CUDA kernels themselves are held against the same plain version
-on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+and the conv-level packing against ``ChannelwiseTP.aggregate``, in f32 and
+with bf16 operands (the per-path scale of a bf16-rounded coupling tensor).
+The CUDA kernels themselves are held against the same plain version on the
+card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -46,7 +47,7 @@ def test_plain_matches_the_pallas_kernel_in_interpret_mode(seed, B, N, M, U, K, 
     x, sh, w = _inputs(seed, B, N, M, U, K, masked)
     ref = np.asarray(j_scalar_path_aggregate(jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w),
                                              interpret=True))
-    got = tp_scalar.scalar_path_aggregate(T(x), T(sh), T(w))
+    got = tp_scalar.scalar_path_aggregate_plain(T(x), T(sh), T(w))
     assert got.shape == (B, N, U, K) and got.dtype == torch.float32
     assert np.allclose(got.numpy(), ref, atol=1e-3), np.abs(got.numpy() - ref).max()
     if masked:
@@ -68,7 +69,7 @@ def test_gradients_match_jax_grad_of_the_einsum(K):
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w))
     leaves = [T(v).requires_grad_(True) for v in (x, sh, w)]
-    (tp_scalar.scalar_path_aggregate(*leaves) * T(g)).sum().backward()
+    (tp_scalar.scalar_path_aggregate_plain(*leaves) * T(g)).sum().backward()
     for name, leaf, ref in zip(("dx", "dsh", "dw"), leaves, want):
         ref = np.asarray(ref)
         err = float(np.abs(leaf.grad.numpy() - ref).max())
@@ -76,9 +77,9 @@ def test_gradients_match_jax_grad_of_the_einsum(K):
 
 
 def test_strided_views_give_the_result_of_contiguous_copies():
-    """The wrapper takes last-axis slices of a conv's full harmonics and
-    weights as they are; the result (and the gradient into the full
-    tensors) equals that of contiguous copies."""
+    """The per-path function takes last-axis slices of a conv's full
+    harmonics and weights as they are; the result (and the gradient into
+    the full tensors) equals that of contiguous copies."""
     B, N, M, ns = 2, 7, 9, 8
     rng = np.random.default_rng(11)
     x = T(rng.normal(size=(B, M, ns)))
@@ -86,8 +87,8 @@ def test_strided_views_give_the_result_of_contiguous_copies():
     w_full = T(rng.normal(size=(B, N, M, 2 * ns))).requires_grad_(True)
     sh_v, w_v = sh_full[..., 1:4], w_full[..., ns:2 * ns]
     assert not sh_v.is_contiguous() and not w_v.is_contiguous()
-    out_v = tp_scalar.scalar_path_aggregate(x, sh_v, w_v)
-    out_c = tp_scalar.scalar_path_aggregate(x, sh_v.detach().contiguous(),
+    out_v = tp_scalar.scalar_path_aggregate_plain(x, sh_v, w_v)
+    out_c = tp_scalar.scalar_path_aggregate_plain(x, sh_v.detach().contiguous(),
                                             w_v.detach().contiguous())
     assert torch.equal(out_v.detach(), out_c)
     out_v.sum().backward()
@@ -136,7 +137,9 @@ def test_route_applies_only_to_all_scalar_convs():
 def test_launch_counters_stay_zero_on_the_cpu():
     counters = (tp_scalar.FWD, tp_scalar.BWD_W, tp_scalar.BWD_SH, tp_scalar.BWD_X)
     before = [k.launches for k in counters]
-    x, sh, w = _inputs(0, 1, 3, 4, 5, 3)
-    leaves = [T(v).requires_grad_(True) for v in (x, sh, w)]
-    tp_scalar.scalar_path_aggregate(*leaves).sum().backward()
+    tp = channelwise_tp("5x0e", SH, "5x0e + 2x1o")
+    rng = np.random.default_rng(0)
+    leaves = [T(rng.normal(size=s)).requires_grad_(True)
+              for s in ((1, 4, 5), (1, 3, 4, 9), (1, 3, 4, tp.weight_numel))]
+    tp_scalar.scalar_paths_aggregate(tp, *leaves).sum().backward()
     assert [k.launches for k in counters] == before

@@ -33,6 +33,8 @@ CORPUS2 = os.path.join(REPO, "runs", "corpus2", "main")
 
 #: a small model: 2 conv layers, narrow widths, f32 convs
 SMALL = dict(ns=8, nv=4, num_conv_layers=2, dropout=0.0, compute_dtype="float32")
+#: the same with bf16 convs, as every shipped config computes them
+SMALL_BF16 = dict(SMALL, compute_dtype="bfloat16")
 
 
 def cached_files(bucket: Tuple[int, int, int] = (24, 96, 8), n: int = 2) -> List[str]:
@@ -72,12 +74,13 @@ def configs(**overrides):
     return jcfg, TConfig(**dataclasses.asdict(jcfg))
 
 
-def corpus2():
-    """(JAX config at f32, JAX variables, port config, port model) of the
-    shipped corpus2 checkpoint."""
+def corpus2(compute_dtype: str = "float32"):
+    """(JAX config, JAX variables, port config, port model) of the shipped
+    corpus2 checkpoint, both configs at ``compute_dtype`` (the checkpoint's
+    own is bfloat16)."""
     from diffphore_tpu.utils.checkpoints import load_config_yaml
 
-    jcfg = dataclasses.replace(load_config_yaml(CORPUS2), compute_dtype="float32")
+    jcfg = dataclasses.replace(load_config_yaml(CORPUS2), compute_dtype=compute_dtype)
     with open(os.path.join(CORPUS2, "best_ema_inference_epoch_model.msgpack"), "rb") as f:
         variables = serialization.msgpack_restore(f.read())
     tcfg = TConfig(**dataclasses.asdict(jcfg))
@@ -145,6 +148,44 @@ def assert_close(port, ref, rtol: float, what: str = ""):
     scale = max(float(np.abs(ref).max()) if ref.size else 0.0, 1.0)
     err = float(np.abs(port - ref).max()) if ref.size else 0.0
     assert err <= rtol * scale, f"{what}: max |port - ref| {err:.3e} > {rtol} * {scale:.3e}"
+
+
+def assert_within_gap(port: dict, ref: dict, ref32: dict, frac: float, what: str = "",
+                      norm: str = "max"):
+    """The port's arrays against the JAX package's at bf16 (``ref``), as a
+    fraction ``frac`` of the difference between the JAX package at f32
+    (``ref32``) and at bf16 on the same inputs.
+
+    ``norm="max"``: the largest elementwise difference, each array relative
+    to its own scale (with a floor of 1e-3 of the largest scale, for arrays
+    that hold only rounding noise).  ``norm="l2"``: the arrays as one
+    vector (a gradient of one loss over all parameter leaves), the L2 norm
+    of the difference.  Returns the f32-vs-bf16 difference."""
+    arr = lambda v: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v,
+                               np.float64)
+    ref = {k: arr(v) for k, v in ref.items() if np.size(v)}
+    if norm == "l2":
+        flat = lambda d: np.concatenate([arr(d[k]).ravel() for k in ref])
+        p, r, r32 = flat(port), flat(ref), flat(ref32)
+        err, gap = np.linalg.norm(p - r), np.linalg.norm(r32 - r)
+        assert err <= frac * gap, (f"{what}: |port - JAX bf16| {err:.3e} > {frac} x "
+                                   f"|JAX f32 - JAX bf16| {gap:.3e} (L2, |JAX bf16| "
+                                   f"{np.linalg.norm(r):.3e})")
+        return gap / np.linalg.norm(r)
+    top = max(float(np.abs(r).max()) for r in ref.values())
+    err = gap = 0.0
+    worst = ""
+    for name, r in ref.items():
+        scale = max(float(np.abs(r).max()), 1e-3 * top, 1e-30)
+        p = arr(port[name])
+        assert p.shape == r.shape, (what, name, p.shape, r.shape)
+        e = float(np.abs(p - r).max()) / scale
+        gap = max(gap, float(np.abs(arr(ref32[name]) - r).max()) / scale)
+        if e > err:
+            err, worst = e, name
+    assert err <= frac * gap, (f"{what}: port vs JAX bf16 {err:.3e} ({worst}) > {frac} x "
+                               f"JAX f32 vs bf16 {gap:.3e}")
+    return gap
 
 
 def noise_draws(key, B: int, T: int, reject: bool = False):
