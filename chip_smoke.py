@@ -31,11 +31,12 @@ Phases, each fatal on failure:
      complexes of the 24x96x8 bucket, noised): 17 convs on K2
      (``tp_aggregate``), the 6 layer-0 convs on K3 (``tp_scalar``), two paths
      each.  Hold every forward and backward kernel (K2: dw + dsh per edge, dx
-     per sender; K3: forward and dx per conv, dw and dsh per path) against the
-     plain version and autograd through it, on the captured operands in f32
-     and in bf16, require two runs to agree to the bit (dw is held from both
-     edge kernels, with and without dsh), time kernels (graph replay) in both
-     types, plain and, for K3, the einsum calls (graph replay), print the grid
+     per sender; K3: forward, edge backward (dw + dsh) and dx per conv)
+     against the plain versions and autograd through them, on the captured
+     operands in f32 and in bf16, require two runs to agree to the bit (dw is
+     held from both edge backwards, with and without dsh), time kernels
+     (graph replay) in both types, plain, and the per-path einsum calls that
+     compute the same functions (graph replay), print the grid
      and the split of the summed axis of K2's and K3's forward and dx for
      each conv, and each edge backward with dsh beside its norm twin's (dw
      only, same shapes).
@@ -45,7 +46,7 @@ Phases, each fatal on failure:
      gradient as one vector against the plain route's own f32-vs-bf16
      difference; (b) 30 steps at bf16 on one fixed batch with fixed noise and
      dropout on: the loss falls; per step K2 launches 17 forward + 17 + 17
-     backward, K3 6 forward + 12 dw + 4 dsh + 6 dx, and K1 none; (a)
+     backward, K3 6 forward + 6 edge backward + 6 dx, and K1 none; (a)
      ``diffphore_torch.cli.train.main``: fresh corpus2-width model, batch 24,
      one epoch over 240 cached complexes (10 steps), one validation-loss
      epoch over 20 (K1, 23 launches), finite metrics, a checkpoint that
@@ -140,14 +141,12 @@ TOL_BF16_FLOOR = 1e-6
 TOL_BF16_GAP = 0.5
 
 # Per train step: 17 convs run K2 (forward, edge backward, sender backward),
-# the 6 layer-0 convs run K3 with two paths each: a forward and a dx per conv,
-# a dw per path, and dsh for the 2 paths of the 2 cross-graph convs whose
-# edge vectors carry learned weights (phore_to_lig_conv_0,
-# lig_to_phore_conv_0).
+# the 6 layer-0 convs run K3: a forward, an edge backward and a dx per conv,
+# the edge backward with dsh on the 2 cross-graph convs whose edge vectors
+# carry learned weights (phore_to_lig_conv_0, lig_to_phore_conv_0).
 K2_CONVS = 17
 K3_CONVS = 6
-K3_PATHS = 12
-K3_DSH_CALLS = 4
+K3_DSH_CONVS = 2
 CC_RATE = 0.6               # --rate_from_infer of the shipped recipe
 CC_DELTA_T = 0.05
 # The frozen stage of a calibrated step from the shipped weights, K1 against
@@ -446,15 +445,13 @@ def capture_training_convs(model, batch):
         model.eval()
     if not all(bool(torch.isfinite(o).all()) for o in out):
         raise AssertionError("training-mode forward is not finite")
-    k3_paths = sum(len(c[1].paths) for c in k3_calls)
-    if (len(k2_calls), k3_paths) != (K2_CONVS, K3_PATHS) \
+    if (len(k2_calls), len(k3_calls)) != (K2_CONVS, K3_CONVS) \
             or len(k2_calls) + len(k3_calls) != CONVS_PER_FORWARD:
-        raise RuntimeError(f"captured {len(k2_calls)} K2 calls and {k3_paths} K3 path calls of "
-                           f"{len(k3_calls)} convs, expected {K2_CONVS} and {K3_PATHS} of "
-                           f"{CONVS_PER_FORWARD - K2_CONVS}")
-    if sum(len(c[1].paths) for c in k3_calls if c[5]) != K3_DSH_CALLS:
+        raise RuntimeError(f"captured {len(k2_calls)} K2 calls and {len(k3_calls)} K3 calls, "
+                           f"expected {K2_CONVS} and {K3_CONVS}")
+    if sum(1 for c in k3_calls if c[5]) != K3_DSH_CONVS:
         raise RuntimeError("the layer-0 convs whose harmonics need a gradient are not the "
-                           f"{K3_DSH_CALLS // 2} expected")
+                           f"{K3_DSH_CONVS} expected")
     return k2_calls, k3_calls
 
 
@@ -537,6 +534,7 @@ def phase_k2_check(calls):
                 "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
             }
             case["bound" + tag] = bounds(k2_work(tp, x, sh, w, sh_grad))
+            case["library_ms" + tag] = k2_library_ms(tp, x, sh, w, g, sh_grad)
             case["grid" + tag] = {}
             for k, kept in (("fwd", N), ("bwd_x", M)):
                 splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device, dtype)
@@ -567,9 +565,10 @@ def phase_k2_check(calls):
               f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
               f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}); bf16 err out {errs_bf['out'][0]:.1e} "
               f"dx {errs_bf['dx'][0]:.1e} dsh {errs_bf['dsh'][0]:.1e} dw {errs_bf['dw'][0]:.1e} "
-              f"| ms kernel/plain/bound f32, kernel/bound bf16: "
-              + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{bound[k][0]:.4f}({bound[k][1][0]}), "
-                         f"{ms_bf[k]:.4f}/{case['bound_bf16'][k][0]:.4f}"
+              f"| ms kernel/plain/einsum/bound f32, kernel/einsum/bound bf16: "
+              + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{case['library_ms'][k]:.4f}/"
+                         f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
+                         f"{case['library_ms_bf16'][k]:.4f}/{case['bound_bf16'][k][0]:.4f}"
                          for k in ("fwd", "bwd_edge", "bwd_x"))
               + f" | bwd_edge per call from Python {case['call_ms_bwd_edge']:.4f}", flush=True)
     by_name = {c["conv"]: c for c in cases}
@@ -614,36 +613,99 @@ def k2_kernel_entries(cases, launches):
             "plain_ms": sum(c["plain_ms"][k] for c in cases),
             "bound_ms": sum(c["bound"][k][0] for c in cases),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
-            "library_ms": None,
+            "library_ms": sum(c["library_ms"][k] for c in cases),
             "ms_bf16": sum(c["ms_bf16"][k] for c in cases),
             "bound_ms_bf16": sum(c["bound_bf16"][k][0] for c in cases),
+            "library_ms_bf16": sum(c["library_ms_bf16"][k] for c in cases),
             "max_abs_err_bf16": max(c["errs_bf16"][o][0] for c in cases for o in outputs),
             "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay), "
                     "f32 operands (ms) and bf16 ones (ms_bf16); a call runs the first of "
-                    "device_kernels and, where noted there, the second",
+                    "device_kernels and, where noted there, the second; library_ms is "
+                    "torch.einsum of " + " and ".join(f"'{eq}'" for eq, _ in K2_EINSUM[k])
+                    + " on each path's operands"
+                    + (" (dsh's where the conv needs it)" if k == "bwd_edge" else "")
+                    + ", by graph replay",
         })
         if k != "bwd_edge":
             entries[-1]["splits"] = [c["grid"][k][1] for c in cases]
     return entries
 
 
-K3_KERNELS = ("fwd", "bwd_w", "bwd_sh", "bwd_x")
-# The one PyTorch call that computes each K3 kernel's function on one path
-# (operands in the order x, sh, w, g); timed beside the kernel, used nowhere
-# in the port.
-K3_EINSUM = {"fwd": ("bmu,bnmk,bnmu->bnuk", "x sh w"), "bwd_w": ("bmu,bnmk,bnuk->bnmu", "x sh g"),
-             "bwd_sh": ("bmu,bnmu,bnuk->bnmk", "x w g"), "bwd_x": ("bnmk,bnmu,bnuk->bmu", "sh w g")}
+def einsum_ms(per_path, eqs):
+    """ms on the card (graph replay) of the einsums ``eqs`` ((equation,
+    operand names)) on every path's operands: the PyTorch calls that compute
+    a kernel's function, timed beside it and used nowhere in the port."""
+    import torch
+
+    def run():
+        for ops in per_path:
+            for eq, names in eqs:
+                torch.einsum(eq, *(ops[n] for n in names.split()))
+    with torch.no_grad():
+        return device_ms(run, 5)
 
 
-def k3_work(tp, x, sh, w):
-    """{kernel: (bytes, f32 operations)} that K3's four kernels need on one
+# Per path, the einsums of K2's three functions on the path's operands x
+# (B, M, mul, 2 l_in + 1), sh, the coupling tensor c (alpha * cg), w and g;
+# the edge backward's second einsum (dsh) only where the harmonics need it.
+K2_EINSUM = {"fwd": [("bmui,bnmj,ijk,bnmu->bnuk", "x sh c w")],
+             "bwd_edge": [("bmui,bnmj,ijk,bnuk->bnmu", "x sh c g"),
+                          ("bmui,ijk,bnmu,bnuk->bnmj", "x c w g")],
+             "bwd_x": [("bnmj,ijk,bnmu,bnuk->bmui", "sh c w g")]}
+
+
+def k2_library_ms(tp, x, sh, w, g, with_dsh):
+    """{kernel: ms} of K2's per-path einsums on one conv, in the operands'
+    type (g cast to it)."""
+    import torch
+
+    from diffphore_torch.ops.tp_fused import coupling
+
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    per_path = []
+    for p in tp.paths:
+        xb = x[..., in_slices[p.i_in]]
+        per_path.append({
+            "x": xb.reshape(xb.shape[:-1] + (p.mul_in, 2 * p.l_in + 1)),
+            "sh": sh[..., sh_slices[p.i_sh]],
+            "c": torch.as_tensor(coupling(p, x.dtype), device=x.device).to(x.dtype),
+            "w": w[..., p.w_slice[0]:p.w_slice[1]],
+            "g": g[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1].to(x.dtype)})
+    return {k: einsum_ms(per_path, eqs if k != "bwd_edge" or with_dsh else eqs[:1])
+            for k, eqs in K2_EINSUM.items()}
+
+
+K3_KERNELS = ("fwd", "bwd_edge", "bwd_x")
+# Per path, the einsums of K3's three functions on the path's views (x, sh,
+# w and g); the edge backward's second einsum (dsh) only where the harmonics
+# need it.
+K3_EINSUM = {"fwd": [("bmu,bnmk,bnmu->bnuk", "x sh w")],
+             "bwd_edge": [("bmu,bnmk,bnuk->bnmu", "x sh g"), ("bmu,bnmu,bnuk->bnmk", "x w g")],
+             "bwd_x": [("bnmk,bnmu,bnuk->bmu", "sh w g")]}
+
+
+def k3_library_ms(tp, x, sh, w, g, with_dsh):
+    """{kernel: ms} of K3's per-path einsums on one conv, in the operands'
+    type (g cast to it)."""
+    from diffphore_torch.ops import tp_scalar as k3
+
+    per_path = [{"x": xv, "sh": shv, "w": wv,
+                 "g": g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]].to(x.dtype)}
+                for p, (xv, shv, wv) in zip(tp.paths, k3.path_views(tp, x, sh, w))]
+    return {k: einsum_ms(per_path, eqs if k != "bwd_edge" or with_dsh else eqs[:1])
+            for k, eqs in K3_EINSUM.items()}
+
+
+def k3_work(tp, x, sh, w, with_dsh):
+    """{kernel: (bytes, f32 operations)} that K3's three kernels need on one
     convolution: each operand read once (x once for all paths, the harmonic
     components the paths read, the weights, the upstream gradient's lanes
-    the paths read), each result written once, at their element sizes (the
-    output and the upstream gradient f32); products with an edge weight
-    counted on edges whose weights are not all zero, dw on every edge (it is
-    defined where w is masked too)."""
-    B, N, M, _ = sh.shape
+    the paths read), each result written once (dsh its full row), at their
+    element sizes (the output and the upstream gradient f32); products with
+    an edge weight counted on edges whose weights are not all zero, dw on
+    every edge (it is defined where w is masked too).  The edge backward
+    reads w and writes dsh only ``with_dsh``."""
+    B, N, M, S = sh.shape
     edges = B * N * M
     live = int((w != 0).any(-1).sum())
     es = x.element_size()
@@ -657,16 +719,17 @@ def k3_work(tp, x, sh, w):
     dsh_ops = sum(p.mul_in * 2 * (2 * p.l_sh + 1) for p in tp.paths)
     return {
         "fwd": (x_b + sh_b + w_b + out_b, live * per_edge),
-        "bwd_w": (x_b + sh_b + g_b + w_b, edges * per_edge),
-        "bwd_sh": (x_b + w_b + g_b + sh_b, live * dsh_ops),
+        "bwd_edge": (x_b + sh_b + g_b + w_b + (w_b + es * edges * S if with_dsh else 0),
+                     edges * per_edge + (live * dsh_ops if with_dsh else 0)),
         "bwd_x": (sh_b + w_b + g_b + x_b, live * (per_edge + tp.weight_numel)),
     }
 
 
 def phase_k3_check(calls):
-    """Hold K3's kernels against the plain version on each captured layer-0
-    conv, in f32 and in bf16: the forward and dx per conv, dw and dsh per
-    path on the views the conv hands over."""
+    """Hold K3's kernels against the plain versions on each captured
+    layer-0 conv, in f32 and in bf16: the forward and dx against autograd
+    through ``scalar_paths_aggregate_plain``, the edge backward (dw and dsh
+    in one launch) against ``scalar_paths_backward_edge_plain``."""
     import torch
 
     from diffphore_torch.ops import tp_scalar as k3
@@ -687,50 +750,50 @@ def phase_k3_check(calls):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
             leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
             ref = k3.scalar_paths_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves))
-            ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g * lanes,
-                                                          retain_graph=True)
+            (ref_dx,) = torch.autograd.grad(ref, [leaves[0]], g * lanes, retain_graph=True)
+            ref_dw, ref_dsh = k3.scalar_paths_backward_edge_plain(tp, x, sh, w, g, True)
             runs = []
             for _ in range(2):
                 out = k3.launch_forward(tp, x, sh, w)
                 dw, dsh = k3.launch_backward_edge(tp, x, sh, w, g, True)
                 dx = k3.launch_backward_x(tp, x, sh, w, g)
                 runs.append((out, dx, dsh, dw))
+            dw_only, _ = k3.launch_backward_edge(tp, x, sh, w, g, False)
+            _, dsh_only = k3.launch_backward_edge(tp, x, sh, w, g, True, False)
             torch.cuda.synchronize()
+            if not (torch.equal(dw_only, runs[0][3]) and torch.equal(dsh_only, runs[0][2])):
+                raise AssertionError(f"{name} {dtype}: the edge backward's dw without dsh, or "
+                                     "its dsh without dw, differs from the launch of both")
+            if float(runs[0][2][..., k3.sh_reach(tp):].abs().max()) != 0.0:
+                raise AssertionError(f"{name} {dtype}: dsh is not zero where no path reads")
             errs = {}
             for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
-                                               (ref, ref_dx, ref_dsh, ref_dw)):
+                                               (ref, ref_dx, ref_dsh.float(), ref_dw.float())):
                 if not torch.equal(got, again):
                     raise AssertionError(f"{name} {dtype}: two runs of {label} differ")
                 errs[label] = check_result(f"{name} {dtype}: {label}", got, want, dtype, TOL_K3)
             case["errs" + tag] = errs
+            # times: the edge backward in the form the train step runs it (dsh
+            # only where the harmonics carry gradient)
             case["ms" + tag] = {
                 "fwd": device_ms(lambda: k3.launch_forward(tp, x, sh, w), 20),
-                "bwd_w": device_ms(lambda: k3.launch_backward_edge(tp, x, sh, w, g, False), 20),
-                "bwd_sh": device_ms(
-                    lambda: k3.launch_backward_edge(tp, x, sh, w, g, True, False), 20),
+                "bwd_edge": device_ms(lambda: k3.launch_backward_edge(tp, x, sh, w, g, sh_grad),
+                                      20),
                 "bwd_x": device_ms(lambda: k3.launch_backward_x(tp, x, sh, w, g), 20),
             }
-            case["bound" + tag] = bounds(k3_work(tp, x, sh, w))
+            case["bound" + tag] = bounds(k3_work(tp, x, sh, w, sh_grad))
             case["grid" + tag] = {
                 k: k3.launch_chunk(tp, B, N, M, k == "bwd_x", x.device, dtype)[1]
                 for k in ("fwd", "bwd_x")}
+            case["library_ms" + tag] = k3_library_ms(tp, x, sh, w, g, sh_grad)
             if dtype == torch.float32:
-                # the einsum of each path on the same views, by graph replay
-                library = dict.fromkeys(K3_KERNELS, 0.0)
-                for p, (xv, shv, wv) in zip(tp.paths, k3.path_views(tp, x, sh, w)):
-                    ops = {"x": xv, "sh": shv, "w": wv,
-                           "g": g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]]}
-                    with torch.no_grad():
-                        for k, (eq, names) in K3_EINSUM.items():
-                            library[k] += device_ms(lambda eq=eq, names=names: torch.einsum(
-                                eq, *(ops[n] for n in names.split())), 20)
-                case["library_ms"] = library
                 with torch.no_grad():
-                    plain = {"fwd": cuda_ms(lambda: k3.scalar_paths_aggregate_plain(tp, x, sh, w),
-                                            5)}
-                for k, leaf in (("bwd_x", leaves[0]), ("bwd_sh", leaves[1]), ("bwd_w", leaves[2])):
-                    plain[k] = cuda_ms(lambda leaf=leaf: torch.autograd.grad(
-                        ref, [leaf], g * lanes, retain_graph=True), 5)
+                    plain = {
+                        "fwd": cuda_ms(lambda: k3.scalar_paths_aggregate_plain(tp, x, sh, w), 5),
+                        "bwd_edge": cuda_ms(lambda: k3.scalar_paths_backward_edge_plain(
+                            tp, x, sh, w, g, sh_grad), 5)}
+                plain["bwd_x"] = cuda_ms(lambda: torch.autograd.grad(
+                    ref, [leaves[0]], g * lanes, retain_graph=True), 5)
                 case["plain_ms"] = plain
             del ref, leaves, runs
         cases.append(case)
@@ -743,24 +806,23 @@ def phase_k3_check(calls):
               f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
               f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}); bf16 err out {errs_bf['out'][0]:.1e} "
               f"dx {errs_bf['dx'][0]:.1e} dsh {errs_bf['dsh'][0]:.1e} dw {errs_bf['dw'][0]:.1e} "
-              f"| ms kernel/plain/einsum/bound f32, kernel/bound bf16: "
+              f"| ms kernel/plain/einsum/bound f32, kernel/einsum/bound bf16: "
               + " ".join(f"{k} {ms[k]:.4f}/{case['plain_ms'][k]:.4f}/{lib[k]:.4f}/"
                          f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
-                         f"{case['bound_bf16'][k][0]:.4f}" for k in K3_KERNELS), flush=True)
+                         f"{case['library_ms_bf16'][k]:.4f}/{case['bound_bf16'][k][0]:.4f}"
+                         for k in K3_KERNELS), flush=True)
     return cases
 
 
 def k3_kernel_entries(cases, launches, launches_training):
-    """The report entries of K3's four kernels, summed over the calls one
-    train step makes (dsh over the convs whose harmonics need a gradient)."""
-    labels = {"fwd": "out", "bwd_w": "dw", "bwd_sh": "dsh", "bwd_x": "dx"}
-    units = {"fwd": "the 6 conv calls", "bwd_x": "the 6 conv calls",
-             "bwd_w": "the 12 (conv, path) calls", "bwd_sh": "the 4 (conv, path) calls"}
+    """The report entries of K3's three kernels, summed over the calls one
+    train step makes (the edge backward with dsh on the convs whose
+    harmonics need a gradient)."""
+    labels = {"fwd": ("out",), "bwd_edge": ("dw", "dsh"), "bwd_x": ("dx",)}
     entries = []
-    for k, output in labels.items():
-        used = [c for c in cases if k != "bwd_sh" or c["dsh"]]
+    for k, outputs in labels.items():
         by = {"bytes": 0.0, "operations": 0.0}
-        for c in used:
+        for c in cases:
             by[c["bound"][k][1]] += c["bound"][k][0]
         entries.append({
             "name": f"tp_scalar_{k}",
@@ -769,21 +831,25 @@ def k3_kernel_entries(cases, launches, launches_training):
             "replaces": "diffphore_tpu/ops/pallas/tp_scalar.py:43",
             "launches": launches[f"k3_{k}"],
             "launches_training_path": launches_training[f"k3_{k}"],
-            "max_abs_err": max(c["errs"][output][0] for c in cases),
-            "max_rel_err": max(c["errs"][output][0] / max(c["errs"][output][1], 1e-30)
-                               for c in cases),
-            "ms": sum(c["ms"][k] for c in used),
-            "plain_ms": sum(c["plain_ms"][k] for c in used),
-            "bound_ms": sum(c["bound"][k][0] for c in used),
+            "max_abs_err": max(c["errs"][o][0] for c in cases for o in outputs),
+            "max_rel_err": max(c["errs"][o][0] / max(c["errs"][o][1], 1e-30)
+                               for c in cases for o in outputs),
+            "ms": sum(c["ms"][k] for c in cases),
+            "plain_ms": sum(c["plain_ms"][k] for c in cases),
+            "bound_ms": sum(c["bound"][k][0] for c in cases),
             "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
-            "library_ms": sum(c["library_ms"][k] for c in used),
-            "ms_bf16": sum(c["ms_bf16"][k] for c in used),
-            "bound_ms_bf16": sum(c["bound_bf16"][k][0] for c in used),
-            "max_abs_err_bf16": max(c["errs_bf16"][output][0] for c in cases),
-            "unit": f"one train step: {units[k]} of the layer-0 convs, each conv timed alone on "
-                    f"the card (graph replay), f32 operands (ms) and bf16 ones (ms_bf16); "
-                    f"library_ms is torch.einsum('{K3_EINSUM[k][0]}') on each path's views, by "
-                    f"graph replay",
+            "library_ms": sum(c["library_ms"][k] for c in cases),
+            "ms_bf16": sum(c["ms_bf16"][k] for c in cases),
+            "bound_ms_bf16": sum(c["bound_bf16"][k][0] for c in cases),
+            "library_ms_bf16": sum(c["library_ms_bf16"][k] for c in cases),
+            "max_abs_err_bf16": max(c["errs_bf16"][o][0] for c in cases for o in outputs),
+            "unit": "one train step: the 6 conv calls of the layer-0 convs, each timed alone on "
+                    "the card (graph replay), f32 operands (ms) and bf16 ones (ms_bf16); "
+                    "library_ms is torch.einsum of "
+                    + " and ".join(f"'{eq}'" for eq, _ in K3_EINSUM[k])
+                    + " on each path's views"
+                    + (" (dsh's where the conv needs it)" if k == "bwd_edge" else "")
+                    + ", by graph replay",
         })
     return entries
 
@@ -792,8 +858,8 @@ def _counters():
     from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 
     return {"k1": tp_fused.KERNEL, "fwd": tp_aggregate.FWD, "bwd_edge": tp_aggregate.BWD_EDGE,
-            "bwd_x": tp_aggregate.BWD_X, "k3_fwd": tp_scalar.FWD, "k3_bwd_w": tp_scalar.BWD_W,
-            "k3_bwd_sh": tp_scalar.BWD_SH, "k3_bwd_x": tp_scalar.BWD_X}
+            "bwd_x": tp_aggregate.BWD_X, "k3_fwd": tp_scalar.FWD,
+            "k3_bwd_edge": tp_scalar.BWD_EDGE, "k3_bwd_x": tp_scalar.BWD_X}
 
 
 def kernel_counts():
@@ -812,8 +878,8 @@ def expect_counts(what, steps=0, eval_batches=0):
     got = kernel_counts()
     want = {"k1": CONVS_PER_FORWARD * eval_batches, "fwd": K2_CONVS * steps,
             "bwd_edge": K2_CONVS * steps, "bwd_x": K2_CONVS * steps,
-            "k3_fwd": K3_CONVS * steps, "k3_bwd_w": K3_PATHS * steps,
-            "k3_bwd_sh": K3_DSH_CALLS * steps, "k3_bwd_x": K3_CONVS * steps}
+            "k3_fwd": K3_CONVS * steps, "k3_bwd_edge": K3_CONVS * steps,
+            "k3_bwd_x": K3_CONVS * steps}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
     return got
@@ -946,8 +1012,8 @@ def phase_training(cfg, train_batch, card):
           f"{losses[-1]:.4f} over {FIXED_BATCH_STEPS} steps; {FIXED_BATCH_STEPS / elapsed:.2f} "
           f"steps/s, {B * FIXED_BATCH_STEPS / elapsed:.1f} complexes/s, peak memory "
           f"{peak_fixed:.2f} GiB; per step K2 launches {K2_CONVS} forward + {K2_CONVS} edge "
-          f"backward + {K2_CONVS} sender backward, K3 {K3_CONVS} forward + {K3_PATHS} dw + "
-          f"{K3_DSH_CALLS} dsh + {K3_CONVS} dx, K1 0 ({card})", flush=True)
+          f"backward + {K2_CONVS} sender backward, K3 {K3_CONVS} forward + {K3_CONVS} edge "
+          f"backward ({K3_DSH_CONVS} with dsh) + {K3_CONVS} dx, K1 0 ({card})", flush=True)
     del state
 
     # ---- (a) the training CLI: one epoch over cached complexes + a val-loss epoch
@@ -1137,8 +1203,8 @@ def phase_calibrated(cfg, train_batch, card):
           f"(expected {expected_share:.3f} +- {CC_SHARE_BAND}), peak memory {peak:.2f} GiB; "
           f"launches {counts}: per step K1 {counts['k1'] // steps}, K2 "
           f"{counts['fwd'] // steps}+{counts['bwd_edge'] // steps}+{counts['bwd_x'] // steps}, "
-          f"K3 {counts['k3_fwd'] // steps} forward + {counts['k3_bwd_w'] // steps} dw + "
-          f"{counts['k3_bwd_sh'] // steps} dsh + {counts['k3_bwd_x'] // steps} dx ({card})",
+          f"K3 {counts['k3_fwd'] // steps} forward + {counts['k3_bwd_edge'] // steps} edge "
+          f"backward + {counts['k3_bwd_x'] // steps} dx ({card})",
           flush=True)
     return counts
 
@@ -1323,9 +1389,8 @@ def main() -> int:
     print(f"kernel check: tp_aggregate forward and backward on the {K2_CONVS} conv calls it "
           "takes of one training-mode forward", flush=True)
     k2_cases = phase_k2_check(k2_calls)
-    print(f"kernel check: tp_scalar forward and backward on the {K3_CONVS} convs ({K3_PATHS} "
-          f"paths) of "
-          "the layer-0 convs of the same forward", flush=True)
+    print(f"kernel check: tp_scalar forward and backward on the {K3_CONVS} layer-0 convs of "
+          "the same forward", flush=True)
     k3_cases = phase_k3_check(k3_calls)
     del train_model, noised, k2_calls, k3_calls
     torch.cuda.empty_cache()

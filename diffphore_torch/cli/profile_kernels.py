@@ -20,10 +20,16 @@ first K3 did).  It needs a GPU and fails without one.
 
     python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only]
 
-``--k3_only`` times K3's forward and dx of the six layer-0 training convs
-(f32, and bf16 where the tree takes it): the profiler's device time of each
-kernel, and ``graph_us``, the time per conv of a CUDA graph of its calls
-replayed, launch gaps included.
+``--k3_only`` times K3's forward, edge backward (``launch_backward_edge``
+as the train step calls it: dsh on the two convs whose harmonics carry a
+gradient) and dx of the six layer-0 training convs (f32, and bf16 where the
+tree takes it): the profiler's device time of each kernel, and
+``graph_us``, the time per conv of a CUDA graph of its calls replayed,
+launch gaps included.  Every tree since K3's forward became one launch per
+convolution has ``launch_backward_edge`` with this signature, so the edge
+backward compares across them.  Beside each edge backward, ``fill_us`` is
+the graph-replay time of ``fill_(0)`` on a tensor of dw's size: writing dw
+alone.
 """
 
 from __future__ import annotations
@@ -68,14 +74,15 @@ K2_CASES = [
 ]
 
 
-#: (conv name, B, N, M, live_n, live_m) of K3 at the six layer-0 training convs
+#: (conv name, B, N, M, live_n, live_m, dsh) of K3 at the six layer-0
+#: training convs; dsh: the harmonics carry a gradient
 K3_CASES = [
-    ("lig_conv_0", 24, 24, 24, 10, 9),
-    ("phore_to_lig_conv_0", 24, 24, 96, 20, 42),
-    ("phore_to_lig_norm_conv_0", 24, 24, 96, 20, 42),
-    ("phore_conv_0", 24, 96, 96, 32, 32),
-    ("lig_to_phore_conv_0", 24, 96, 24, 42, 20),
-    ("lig_to_phore_norm_conv_0", 24, 96, 24, 42, 20),
+    ("lig_conv_0", 24, 24, 24, 10, 9, False),
+    ("phore_to_lig_conv_0", 24, 24, 96, 20, 42, True),
+    ("phore_to_lig_norm_conv_0", 24, 24, 96, 20, 42, False),
+    ("phore_conv_0", 24, 96, 96, 32, 32, False),
+    ("lig_to_phore_conv_0", 24, 96, 24, 42, 20, True),
+    ("lig_to_phore_norm_conv_0", 24, 96, 24, 42, 20, False),
 ]
 
 
@@ -164,19 +171,24 @@ def main(argv=None) -> list:
         F = tp.weight_numel
         bf16 = hasattr(tp_scalar, "path_scale")          # a tree whose K3 takes bf16
         for dtype in (torch.float32, torch.bfloat16) if bf16 else (torch.float32,):
-            for name, B, N, M, live_n, live_m in K3_CASES:
+            for name, B, N, M, live_n, live_m, dsh in K3_CASES:
                 x, sh = randn(B, M, tp.irreps_in.dim), randn(B, N, M, 9)
                 w = torch.zeros(B, N, M, F, device="cuda")
                 w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
                 x, sh, w = x.to(dtype), sh.to(dtype), w.to(dtype)
                 g = randn(B, N, F, 4)
-                for kernel, call in zip(("tp_scalar_fwd", "tp_scalar_bwd_x"),
-                                        k3_calls(tp, x, sh, w, g)):
+                calls = k3_calls(tp, x, sh, w, g) + (
+                    lambda: tp_scalar.launch_backward_edge(tp, x, sh, w, g, dsh),)
+                for kernel, call in zip(("tp_scalar_fwd", "tp_scalar_bwd_x",
+                                         "tp_scalar_bwd_edge"), calls):
                     times = kernel_times(call)
                     results.append({"kernel": kernel, "conv": name, "dtype": str(dtype),
-                                    "B": B, "N": N, "M": M, "F": F, "us": times,
+                                    "B": B, "N": N, "M": M, "F": F, "dsh": dsh, "us": times,
                                     "us_total": sum(times.values()), "graph_us": graph_us(call),
                                     "card": card})
+                    if kernel == "tp_scalar_bwd_edge":
+                        dw = torch.empty_like(w)
+                        results[-1]["fill_us"] = graph_us(lambda: dw.fill_(0))
                     print(json.dumps(results[-1]), flush=True)
         return results
     for name, irr_in, irr_sh, irr_out, B, N, M, live_n, live_m in K2_CASES:

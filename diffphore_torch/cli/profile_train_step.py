@@ -13,7 +13,7 @@ be a fair load).  The convs compute in the shipped config's
 ``compute_dtype`` (bfloat16) unless ``--compute_dtype`` says otherwise.
 Prints one JSON object: wall time per step, device-busy
 time and share (sum of kernel times over wall time), the time and launches
-of K1, of K2's three kernels and of K3's four, the number of kernel launches
+of K1, of K2's three kernels and of K3's three, the number of kernel launches
 per step, peak memory, and the top kernels and host ops.  It needs a GPU
 and fails without one.
 """
@@ -48,8 +48,7 @@ KERNELS = {
     "tp_aggregate_bwd_edge_kernel": tp_aggregate.BWD_EDGE,
     "tp_aggregate_bwd_x_kernel": tp_aggregate.BWD_X,
     "tp_scalar_fwd_kernel": tp_scalar.FWD,
-    "tp_scalar_bwd_w_kernel": tp_scalar.BWD_W,
-    "tp_scalar_bwd_sh_kernel": tp_scalar.BWD_SH,
+    "tp_scalar_bwd_edge_kernel": tp_scalar.BWD_EDGE,
     "tp_scalar_bwd_x_kernel": tp_scalar.BWD_X,
 }
 

@@ -20,13 +20,14 @@
 //
 // What bounds it on an H100.  Device memory: w is the large operand (35 MB
 // for the two paths of the widest phore convolution of a 24-complex batch in
-// f32, half that in bf16) and the forward, dsh and dx kernels read it once,
-// the dw kernel writes its gradient once; x, sh, g and out are small beside
-// it.  The arithmetic is 2K + 1 multiply-adds per edge and channel, far
-// under the byte bound.  Over the six layer-0 convolutions of a training step
-// the forward's and dx's bound is about 25 us in f32, so one launch per path
-// and narrow grids of small blocks would leave the launch floor and idle SMs
-// in charge: hence one launch per convolution and split summed axes.
+// f32, half that in bf16) and the forward and dx kernels read it once, the
+// edge backward writes dw once (and reads w once where dsh is needed); x, sh,
+// g and out are small beside it.  The arithmetic is 2K + 1 multiply-adds per
+// edge and channel, far under the byte bound.  Over the six layer-0
+// convolutions of a training step the forward's and dx's bound is about
+// 25 us in f32, so one launch per path and narrow grids of small blocks would
+// leave the launch floor and idle SMs in charge: hence one launch per
+// convolution, and grids that fill every resident block slot.
 //
 // Forward and dx (one launch per convolution, all its paths):
 //  * thread = (kept entry, channel) over the full weight row of F channels:
@@ -44,29 +45,48 @@
 //    one in dx, which adds the channels that read one input element in the
 //    block, in the order of a host-built list.  No float atomics: two runs
 //    agree to the bit.
-// dw and dsh (one launch per path, on strided views):
-//  * dw: one block per (batch row, tile of TN receivers), a thread per
-//    (receiver, channel) that walks the senders in chunks of MC whose sender
-//    scalars and harmonics are staged in shared memory;
-//  * dsh sums over channels: one block per (batch row, receiver) with that
-//    receiver's g in shared memory, a thread per sender that walks its
-//    edge's channels;
-//  * every operand is a strided view with a unit last stride (sh and w are
-//    last-axis slices of the convolution's full tensors, g a slice of its
-//    packed (B,N,F,4) gradient), and the gradients are written into slices
-//    of the full dsh and dw; where two paths share a slice of dsh, the later
-//    launch adds to what the earlier one wrote, in stream order.
+// Edge backward, dw and dsh (one launch per convolution, all its paths):
+//  * bound by bytes: the dw write and one read of the harmonic components
+//    the paths read, plus one read of w and the dsh write where the
+//    harmonics need a gradient.  Nothing is summed across edges (dw is a
+//    per-edge product, dsh sums over one edge's channels), so it is a
+//    streaming pass: no split, no second kernel, no block barrier;
+//  * lane = four neighbouring channels of a row, one 16-byte (f32) or
+//    8-byte (bf16) access of w, dw and, where the table allows, x; G =
+//    ceil(F / 4) lanes take an edge, so a warp takes 32 / G neighbouring
+//    edges at once (F = 40: 10 lanes, three edges, 480 or 240 coalesced
+//    bytes of dw).  Rows whose width is not a multiple of four, or whose
+//    base is not aligned to four elements, take scalar accesses;
+//  * a warp walks a contiguous run of the flattened (b, n, m) edges, so it
+//    streams one stretch of dw (and w); the grid is as many blocks as the
+//    card holds at once (an occupancy query), the runs split evenly across
+//    their warps.  Per receiver the run enters, each lane turns the table
+//    and g into a coefficient per channel and harmonic component (c_p g[k]
+//    at component offset + k, 0 elsewhere); the edge's first P = 4 harmonic
+//    components (the layer-0 convs' paths read 0-3; a conv whose paths read
+//    a later one is refused) are read once for all paths.  dw = x sum_s
+//    sh[s] coef[s].  Two steps of edges are loaded before either is
+//    finished, to keep loads in flight;
+//  * dsh[s] = sum over the row's channels of x w coef[s]: each lane adds its
+//    four channels, puts its P sums in shared memory, and one lane per
+//    (edge, component) adds the edge's G lanes in order and writes the full
+//    S-component row (0 where no path reads).  No atomics: two runs agree
+//    to the bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
+
 namespace {
 
 constexpr int THREADS = 256;     // threads of a forward or dx block (at most)
-constexpr int TN = 4;            // receivers per block (dw)
-constexpr int MC = 16;           // senders per staged chunk (dw)
-constexpr int K_MAX = 9;         // l <= 4 (dw, dsh)
-constexpr int U_MAX = 64;        // TN * U threads fit one block (dw)
+constexpr int EDGE_THREADS = 256;                // threads of an edge-backward block
+constexpr int EDGE_WARPS = EDGE_THREADS / 32;
+constexpr int EDGE_F_MAX = 128;  // channels of a row: four a lane
+constexpr int P = 4;             // harmonic components the edge backward reads
+constexpr int EB = 2;            // steps of the edge backward loaded before any is finished
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -185,115 +205,187 @@ __global__ void tp_scalar_sum_splits(const float* __restrict__ part, T* __restri
   out[i] = from_f<T>(s);
 }
 
-// ---- dw and dsh: one launch per path, on strided views ----
+// ---- dw and dsh: one launch per convolution (head note) ----
 
-// Element strides of the views; the last axis of each has stride 1.
-struct NodeStride { long long b, m; };      // (B, M, U)
-struct EdgeStride { long long b, n, m; };   // (B, N, M, K) and (B, N, M, U)
-struct OutStride { long long b, n, u; };    // (B, N, U, K)
-
-// Stage x of senders [m0, m0 + mc) as s_x[ml * U + u] in f32.
-template <typename T>
-__device__ __forceinline__ void stage_x(float* s_x, const T* __restrict__ x, NodeStride xs,
-                                        int b, int m0, int mc, int U, int tid, int nt) {
-  for (int i = tid; i < mc * U; i += nt) {
-    const int ml = i / U, u = i - ml * U;
-    s_x[i] = to_f(x[b * xs.b + (m0 + ml) * xs.m + u]);
-  }
+// Four neighbouring elements of a row as f32, and back (the address aligned
+// to four elements).
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const unsigned*>(&a);
+  t.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = t;
 }
 
-// Stage the harmonics of receivers [n0, n0 + rows) x senders [m0, m0 + cols)
-// as s_sh[(r * pitch + c) * KT + k] in f32, zero outside N, M and K.
-template <int KT, typename T>
-__device__ __forceinline__ void stage_sh(float* s_sh, const T* __restrict__ sh, EdgeStride ss,
-                                         int b, int n0, int rows, int N, int m0, int cols, int M,
-                                         int pitch, int K, int tid, int nt) {
-  for (int i = tid; i < rows * cols * KT; i += nt) {
-    const int k = i % KT, e = i / KT;
-    const int c = e % cols, r = e / cols;
-    const int n = n0 + r, m = m0 + c;
-    s_sh[(r * pitch + c) * KT + k] =
-        (n < N && m < M && k < K) ? to_f(sh[b * ss.b + n * ss.n + m * ss.m + k]) : 0.f;
+// dw (B, N, M, F) where dw != nullptr and, with DSH, dsh (B, N, M, S), in T.
+// VEC: F a multiple of four and the rows of dw (and of w with DSH) aligned
+// to four elements; xvec: each lane's four channels read four neighbouring,
+// aligned elements of x.  No channel reads a harmonic component past P.
+template <typename T, bool DSH, bool VEC>
+__global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
+    const T* __restrict__ x,           // (B, M, D) sender scalars
+    const T* __restrict__ sh,          // (B, N, M, S) harmonics
+    const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights (DSH)
+    const float* __restrict__ g,       // (B, N, F, 4) upstream gradient
+    const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
+    const float* __restrict__ scale,   // (F): c_p of the channel's path
+    T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int D, int S, int F, int edges,
+    int xvec) {
+  __shared__ float s_red[DSH ? EDGE_THREADS * P : 1];   // each lane's dsh partial sums
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = (F + 3) / 4;                     // lanes of one edge
+  const int step = 32 / G;                       // edges a warp takes at once
+  const int q = lane / G, j = lane - q * G;      // the lane's edge of a step, its channel quad
+  const bool active = q < step;
+  const bool with_dw = dw != nullptr;
+  int cd[4], co[4], ck[4];
+  float cs[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int f = 4 * j + c;
+    const bool on = active && f < F;
+    const int4 t = on ? chan[f] : make_int4(0, 0, 0, 0);
+    cd[c] = t.x;
+    co[c] = t.y;
+    ck[c] = t.z;
+    cs[c] = on ? scale[f] : 0.f;
   }
-}
+  const int warps = gridDim.x * EDGE_WARPS;
+  const int per = ((edges + warps - 1) / warps + step - 1) / step * step;
+  const int first = (blockIdx.x * EDGE_WARPS + warp) * per;
+  const int e_end = min(edges, first + per);
+  float* red = s_red + (warp * 32) * P;
 
-template <int KT, typename T>
-__global__ void __launch_bounds__(THREADS) tp_scalar_bwd_w_kernel(
-    const T* __restrict__ x, NodeStride xs, const T* __restrict__ sh, EdgeStride ss,
-    const float* __restrict__ g, OutStride gs, T* __restrict__ dw, EdgeStride ds,
-    int N, int M, int U, int K, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_x = smem;              // MC * U
-  float* s_sh = s_x + MC * U;     // TN * MC * KT
-
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * TN;
-  const int nl = tid / U, u = tid - nl * U;
-  const int n = n0 + nl;
-  const bool active = nl < TN && n < N;
-  float gk[KT];
+  for (int e = first; e < e_end;) {
+    const int r = e / M;                              // receiver row b * N + n
+    const int seg_end = min(e_end, (r + 1) * M);
+    const int x_of = (r / N) * M - r * M;             // + edge: the sender row of an edge
+    // per channel, c_p g[k] at harmonic component offset + k, 0 elsewhere
+    float coef[4][P];
+    {
+      const float* gr = g + (r * F + 4 * j) * 4;
 #pragma unroll
-  for (int k = 0; k < KT; ++k)
-    gk[k] = (active && k < K) ? scale * g[b * gs.b + n * gs.n + u * gs.u + k] : 0.f;
-  T* dw_row = dw + b * ds.b + (active ? n : 0) * ds.n + u;
-
-  for (int m0 = 0; m0 < M; m0 += MC) {
-    const int mc = min(MC, M - m0);
-    stage_x(s_x, x, xs, b, m0, mc, U, tid, nt);
-    stage_sh<KT>(s_sh, sh, ss, b, n0, TN, N, m0, mc, M, MC, K, tid, nt);
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int ml = 0; ml < mc; ++ml) {
-        const float* sv = s_sh + (nl * MC + ml) * KT;
-        float t = 0.f;
+      for (int c = 0; c < 4; ++c) {
+        float a[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 0; k < KT; ++k) t = fmaf(sv[k], gk[k], t);
-        dw_row[(m0 + ml) * ds.m] = from_f<T>(s_x[ml * U + u] * t);
+        for (int k = 0; k < 3; ++k)
+          if (k < ck[c]) a[k] = cs[c] * gr[c * 4 + k];
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+          const int k = s - co[c];
+          coef[c][s] = k == 0 ? a[0] : (k == 1 ? a[1] : (k == 2 ? a[2] : 0.f));
+        }
       }
     }
-    __syncthreads();
-  }
-}
-
-template <int KT, typename T>
-__global__ void __launch_bounds__(THREADS) tp_scalar_bwd_sh_kernel(
-    const T* __restrict__ x, NodeStride xs, const T* __restrict__ w, EdgeStride ws,
-    const float* __restrict__ g, OutStride gs, T* __restrict__ dsh, EdgeStride ds,
-    int N, int M, int U, int K, int accumulate, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_g = smem;              // U * KT
-
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int b = blockIdx.y, n = blockIdx.x;
-  for (int i = tid; i < U * KT; i += nt) {
-    const int u = i / KT, k = i - u * KT;
-    s_g[i] = k < K ? scale * g[b * gs.b + n * gs.n + u * gs.u + k] : 0.f;
-  }
-  __syncthreads();
-
-  for (int m = tid; m < M; m += nt) {
-    const T* xr = x + b * xs.b + m * xs.m;
-    const T* wr = w + b * ws.b + n * ws.n + m * ws.m;
-    float acc[KT];
+    for (; e < seg_end; e += EB * step) {
+      // EB steps of `step` edges of one receiver: every load issued first
+      float xv[EB][4], sv[EB][P], wv[EB][4];
 #pragma unroll
-    for (int k = 0; k < KT; ++k) acc[k] = 0.f;
-    for (int u = 0; u < U; ++u) {
-      const float xw = to_f(xr[u]) * to_f(wr[u]);
-      const float* gv = s_g + u * KT;
+      for (int i = 0; i < EB; ++i) {
+        const int edge = e + i * step + q;
+        const bool live = active && edge < seg_end;
 #pragma unroll
-      for (int k = 0; k < KT; ++k) acc[k] = fmaf(xw, gv[k], acc[k]);
+        for (int c = 0; c < 4; ++c) xv[i][c] = wv[i][c] = 0.f;
+#pragma unroll
+        for (int s = 0; s < P; ++s) sv[i][s] = 0.f;
+        if (!live) continue;
+        const T* xr = x + (x_of + edge) * D;
+        if (xvec) {
+          ld4(xr + cd[0], xv[i]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (4 * j + c < F) xv[i][c] = ld(xr + cd[c]);
+        }
+        if (with_dw) {
+#pragma unroll
+          for (int s = 0; s < P; ++s)
+            if (s < S) sv[i][s] = ld(sh + edge * S + s);
+        }
+        if (DSH) {
+          const T* wr = w + edge * F + 4 * j;
+          if (VEC) {
+            ld4(wr, wv[i]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (4 * j + c < F) wv[i][c] = ld(wr + c);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < EB; ++i) {
+        const int edge = e + i * step + q;
+        const bool live = active && edge < seg_end;
+        if (with_dw && live) {
+          float out[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float t = 0.f;
+#pragma unroll
+            for (int s = 0; s < P; ++s) t = fmaf(sv[i][s], coef[c][s], t);
+            out[c] = xv[i][c] * t;
+          }
+          T* o = dw + edge * F + 4 * j;
+          if (VEC) {
+            st4(o, out);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (4 * j + c < F) o[c] = from_f<T>(out[c]);
+          }
+        }
+        if (DSH) {
+          // each lane's partial sums over its four channels, then one lane
+          // per (edge, component) adds its edge's G lanes in order
+          float acc[P];
+#pragma unroll
+          for (int s = 0; s < P; ++s) acc[s] = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float xw = xv[i][c] * wv[i][c];
+#pragma unroll
+            for (int s = 0; s < P; ++s) acc[s] = fmaf(xw, coef[c][s], acc[s]);
+          }
+#pragma unroll
+          for (int s = 0; s < P; ++s) red[lane * P + s] = acc[s];
+          __syncwarp();
+          for (int o = lane; o < step * S; o += 32) {
+            const int qq = o / S, s = o - qq * S;
+            const int edge_q = e + i * step + qq;
+            if (edge_q >= seg_end) continue;
+            float sum = 0.f;
+            if (s < P) {
+              const float* pr = red + qq * G * P + s;
+              for (int jj = 0; jj < G; ++jj) sum += pr[jj * P];
+            }
+            dsh[edge_q * S + s] = from_f<T>(sum);
+          }
+          __syncwarp();
+        }
+      }
     }
-    T* o = dsh + b * ds.b + n * ds.n + m * ds.m;
-#pragma unroll
-    for (int k = 0; k < KT; ++k)
-      if (k < K) o[k] = from_f<T>(accumulate ? to_f(o[k]) + acc[k] : acc[k]);
+    e = seg_end;
   }
-}
-
-bool bad_path_shape(int B, int N, int M, int U, int K) {
-  return B < 1 || B > 65535 || N < 1 || M < 1 || U < 1 || U > U_MAX || K < 1 || K > K_MAX;
 }
 
 bool bad_conv_shape(int B, int N, int M, int D, int S, int F, int keep, int chunk, int splits,
@@ -304,9 +396,6 @@ bool bad_conv_shape(int B, int N, int M, int D, int S, int F, int keep, int chun
 }
 
 int round_up_32(int v) { return ((v + 31) / 32) * 32; }
-
-// The template bound for K accumulators.
-int k_bound(int K) { return K == 1 ? 1 : (K <= 3 ? 3 : K_MAX); }
 
 size_t bwd_x_smem(int keep, int F, int D, int n_items) {
   return sizeof(float) * ((size_t)keep * F + D + 1 + n_items);
@@ -348,53 +437,50 @@ int launch_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
   return sum_splits<T>(part, out, (long long)B * M * D, splits, st);
 }
 
-template <typename T>
-int launch_bwd_w(const void* x, const void* sh, const float* g, void* dw, const long long* s,
-                 int B, int N, int M, int U, int K, float scale, cudaStream_t st) {
-  const NodeStride xs{s[0], s[1]};
-  const EdgeStride ss{s[2], s[3], s[4]};
-  const OutStride gs{s[5], s[6], s[7]};
-  const EdgeStride ds{s[8], s[9], s[10]};
-  const dim3 grid((N + TN - 1) / TN, B);
-  const int threads = round_up_32(TN * U);
+bool quad_aligned(const void* p, int esize) {
+  return reinterpret_cast<unsigned long long>(p) % (4 * esize) == 0;
+}
+
+template <typename T, bool DSH>
+int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const float* g,
+                      const int* chan, const float* scale, void* dw, void* dsh, int N, int M,
+                      int D, int S, int F, int edges, bool vec, int xvec, int blocks,
+                      cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* sht = static_cast<const T*>(sh);
+  const T* wt = static_cast<const T*>(w);
+  const int4* ct = reinterpret_cast<const int4*>(chan);
   T* dwt = static_cast<T*>(dw);
-#define DP_LAUNCH(KT)                                                                         \
-  tp_scalar_bwd_w_kernel<KT, T><<<grid, threads, sizeof(float) * (MC * U + TN * MC * KT), st>>>( \
-      xt, xs, sht, ss, g, gs, dwt, ds, N, M, U, K, scale)
-  switch (k_bound(K)) {
-    case 1: DP_LAUNCH(1); break;
-    case 3: DP_LAUNCH(3); break;
-    default: DP_LAUNCH(K_MAX); break;
-  }
-#undef DP_LAUNCH
+  T* dsht = static_cast<T*>(dsh);
+  if (vec)
+    tp_scalar_bwd_edge_kernel<T, DSH, true><<<blocks, EDGE_THREADS, 0, st>>>(
+        xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
+  else
+    tp_scalar_bwd_edge_kernel<T, DSH, false><<<blocks, EDGE_THREADS, 0, st>>>(
+        xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd_sh(const void* x, const void* w, const float* g, void* dsh, const long long* s,
-                  int B, int N, int M, int U, int K, int accumulate, float scale,
-                  cudaStream_t st) {
-  const NodeStride xs{s[0], s[1]};
-  const EdgeStride ws{s[2], s[3], s[4]};
-  const OutStride gs{s[5], s[6], s[7]};
-  const EdgeStride ds{s[8], s[9], s[10]};
-  const dim3 grid(N, B);
-  const int threads = M >= 128 ? 128 : round_up_32(M);
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* dst = static_cast<T*>(dsh);
-#define DP_LAUNCH(KT)                                                              \
-  tp_scalar_bwd_sh_kernel<KT, T><<<grid, threads, sizeof(float) * (U * KT), st>>>( \
-      xt, xs, wt, ws, g, gs, dst, ds, N, M, U, K, accumulate, scale)
-  switch (k_bound(K)) {
-    case 1: DP_LAUNCH(1); break;
-    case 3: DP_LAUNCH(3); break;
-    default: DP_LAUNCH(K_MAX); break;
-  }
-#undef DP_LAUNCH
-  return (int)cudaGetLastError();
+int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
+                    const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
+                    int M, int D, int S, int F, int x_quads, int blocks, cudaStream_t st) {
+  const int edges = B * N * M;
+  const int esize = sizeof(T);
+  const bool vec = F % 4 == 0 && (dw == nullptr || quad_aligned(dw, esize)) &&
+                   (dsh == nullptr || quad_aligned(w, esize));
+  const int xvec = x_quads && D % 4 == 0 && quad_aligned(x, esize);
+  blocks = std::min(blocks, (edges + EDGE_WARPS - 1) / EDGE_WARPS);
+  return dsh != nullptr ? launch_bwd_edge_t<T, true>(x, sh, w, g, chan, scale, dw, dsh, N, M, D,
+                                                     S, F, edges, vec, xvec, blocks, st)
+                        : launch_bwd_edge_t<T, false>(x, sh, w, g, chan, scale, dw, dsh, N, M, D,
+                                                      S, F, edges, vec, xvec, blocks, st);
+}
+
+template <typename T, bool DSH>
+cudaError_t edge_occupancy(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true>, EDGE_THREADS, 0);
 }
 
 }  // namespace
@@ -437,25 +523,37 @@ int dp_tp_scalar_bwd_x(const void* sh, const void* w, const float* g, const int*
                                     F, n_items, keep, chunk, splits, st);
 }
 
-// One path.  strides: x (b, m), sh (b, n, m), g (b, n, u), dw (b, n, m)
-int dp_tp_scalar_bwd_w(const void* x, const void* sh, const float* g, void* dw,
-                       const long long* strides, int B, int N, int M, int U, int K, float scale,
-                       int bf16, void* stream) {
-  if (bad_path_shape(B, N, M, U, K)) return (int)cudaErrorInvalidValue;
+// dw (B, N, M, F) into `dw` (nullptr: none) and dsh (B, N, M, S) into `dsh`
+// (nullptr: none) of every path of a convolution, in the operands' type, in
+// one launch of at most `blocks` blocks.  `reach`: one past the last
+// harmonic component any channel reads, at most P; dsh's later components
+// are written as 0.  `x_quads`: channels 4i..4i+3 read elements d..d+3 of
+// x, d a multiple of four, for every i (then x is read four elements at a
+// time where its base allows).
+int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
+                          const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
+                          int M, int D, int S, int F, int reach, int x_quads, int blocks, int bf16,
+                          void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
+      reach > P || reach > S || blocks < 1 || (dw == nullptr && dsh == nullptr) ||
+      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_w<__nv_bfloat16>(x, sh, g, dw, strides, B, N, M, U, K, scale, st)
-              : launch_bwd_w<float>(x, sh, g, dw, strides, B, N, M, U, K, scale, st);
+  return bf16 ? launch_bwd_edge<__nv_bfloat16>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S,
+                                               F, x_quads, blocks, st)
+              : launch_bwd_edge<float>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F,
+                                       x_quads, blocks, st);
 }
 
-// One path.  strides: x (b, m), w (b, n, m), g (b, n, u), dsh (b, n, m)
-int dp_tp_scalar_bwd_sh(const void* x, const void* w, const float* g, void* dsh,
-                        const long long* strides, int B, int N, int M, int U, int K,
-                        int accumulate, float scale, int bf16, void* stream) {
-  if (bad_path_shape(B, N, M, U, K)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_sh<__nv_bfloat16>(x, w, g, dsh, strides, B, N, M, U, K, accumulate,
-                                             scale, st)
-              : launch_bwd_sh<float>(x, w, g, dsh, strides, B, N, M, U, K, accumulate, scale, st);
+// Blocks of the edge backward that one SM holds at once (dsh: with dsh), or
+// minus a cudaError_t value.
+int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) {
+  int blocks = 0;
+  const cudaError_t err = bf16 ? (dsh ? edge_occupancy<__nv_bfloat16, true>(&blocks)
+                                      : edge_occupancy<__nv_bfloat16, false>(&blocks))
+                               : (dsh ? edge_occupancy<float, true>(&blocks)
+                                      : edge_occupancy<float, false>(&blocks));
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // Blocks of the forward (dx = 0) or dx kernel that one SM holds at once for a

@@ -18,12 +18,14 @@ package rounds the coupling tensor to the operands' type
 The forward and ``dx`` are one launch per convolution for all its paths (a
 thread per channel of the full weight row; the summed axis split across
 blocks, the splits' partial sums added in order by a second kernel); ``dw``
-and ``dsh`` are one launch per path on strided views of the convolution's
-tensors (``sh[..., 1:4]``, ``w[..., 20:40]``), nothing copied.  Operands are
-f32 or bf16, read as they are and multiplied and summed in f32; gradients
-come back in each operand's type.  CPU tensors run
-:func:`scalar_paths_aggregate_plain`, the einsums under autograd.  ``FWD``,
-``BWD_W``, ``BWD_SH`` and ``BWD_X`` count the wrapper calls that launched.
+and ``dsh`` are one edge-backward launch per convolution (four channels of
+the full row a lane, dsh summed over an edge's lanes in a fixed order).
+Operands are f32 or bf16, read as they are and multiplied and summed in
+f32; gradients come back in each operand's type.  CPU tensors run
+:func:`scalar_paths_aggregate_plain`, the einsums under autograd, and
+:func:`scalar_paths_backward_edge_plain` is the edge backward's plain
+version.  ``FWD``, ``BWD_EDGE`` and ``BWD_X`` count the wrapper calls that
+launched.
 """
 
 from __future__ import annotations
@@ -41,14 +43,13 @@ from .tensor_product import ChannelwiseTP
 from .tp_fused import K_PAD, _check_tp, _Kernel, coupling
 from .wigner import wigner_3j
 
-FWD = _Kernel()      # tp_scalar_fwd_kernel (+ tp_scalar_sum_splits), one per convolution
-BWD_W = _Kernel()    # tp_scalar_bwd_w_kernel (dw), one per path
-BWD_SH = _Kernel()   # tp_scalar_bwd_sh_kernel (dsh, when the harmonics need it), one per path
-BWD_X = _Kernel()    # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per convolution
+FWD = _Kernel()       # tp_scalar_fwd_kernel (+ tp_scalar_sum_splits), one per convolution
+BWD_EDGE = _Kernel()  # tp_scalar_bwd_edge_kernel (dw, and dsh where asked), one per convolution
+BWD_X = _Kernel()     # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per convolution
 
-K_MAX = 9            # harmonic components of one path the dw and dsh kernels take
-U_MAX = 64           # channels of one path the dw and dsh kernels take
 THREADS = 256        # threads of a forward or dx block: KEEP = THREADS // F entries kept
+EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
+EDGE_REACH = 4       # harmonic components the edge backward reads (0e and 1o first)
 MIN_CHUNK = 8        # fewest entries of the summed axis one split takes
 TARGET_BLOCKS = 2 * 132
 
@@ -114,6 +115,31 @@ def scalar_paths_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.T
     return torch.cat(pieces, dim=-2)
 
 
+def scalar_paths_backward_edge_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+                                     w: torch.Tensor, g: torch.Tensor, need_dsh: bool,
+                                     need_dw: bool = True
+                                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """:func:`launch_backward_edge` in plain PyTorch: per path the einsums
+    of dw and dsh on the operands read in f32, times its :func:`path_scale`,
+    written into full-size gradients (dsh zero in the components no path
+    reads) and returned in w's and sh's type."""
+    _check_paths(tp)
+    c_dtype = x.dtype
+    xf, shf, wf, gf = x.float(), sh.float(), w.float(), g.float()
+    dw = torch.zeros_like(wf) if need_dw else None
+    dsh = torch.zeros_like(shf) if need_dsh else None
+    sh_slices = tp.irreps_sh.slices()
+    for p, (xv, shv, wv) in zip(tp.paths, path_views(tp, xf, shf, wf)):
+        c = path_scale(p, c_dtype)
+        lo, hi = p.w_slice
+        gv = gf[:, :, lo:hi, :shv.shape[-1]]
+        if need_dw:
+            dw[..., lo:hi] = c * torch.einsum("bmu,bnmk,bnuk->bnmu", xv, shv, gv)
+        if need_dsh:
+            dsh[..., sh_slices[p.i_sh]] += c * torch.einsum("bmu,bnmu,bnuk->bnmk", xv, wv, gv)
+    return (None if dw is None else dw.to(w.dtype)), (None if dsh is None else dsh.to(sh.dtype))
+
+
 @functools.lru_cache(maxsize=None)
 def _conv_tables(tp: ChannelwiseTP, dtype: torch.dtype):
     """The forward's and dx's tables: per channel (x element, sh offset, K,
@@ -133,6 +159,23 @@ def _conv_tables(tp: ChannelwiseTP, dtype: torch.dtype):
     d_ptr[1:] = np.cumsum([len(r) for r in readers])
     d_item = np.array([f for r in readers for f in sorted(r)] or [0], np.int32)
     return chan, scale, d_ptr, d_item
+
+
+@functools.lru_cache(maxsize=None)
+def sh_reach(tp: ChannelwiseTP) -> int:
+    """One past the last harmonic component any path of ``tp`` reads."""
+    sh_slices = tp.irreps_sh.slices()
+    return max(sh_slices[p.i_sh].stop for p in tp.paths)
+
+
+@functools.lru_cache(maxsize=None)
+def x_quads(tp: ChannelwiseTP) -> bool:
+    """True when channels 4i..4i+3 read elements d..d+3 of x, d a multiple of
+    four, for every i: the edge backward then reads x four elements at a
+    time."""
+    d = _conv_tables(tp, torch.float32)[0][:, 0]
+    return len(d) % 4 == 0 and all(d[i] % 4 == 0 and list(d[i:i + 4]) == list(range(d[i], d[i] + 4))
+                                   for i in range(0, len(d), 4))
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,17 +212,24 @@ def _resident_blocks(dx: bool, F: int, D: int, n_items: int, bf16: bool, device:
 
 
 @functools.lru_cache(maxsize=None)
+def _edge_blocks(need_dsh: bool, bf16: bool, device: str) -> int:
+    """Blocks of the edge backward the card holds at once."""
+    per_sm = _library().dp_tp_scalar_bwd_edge_blocks_per_sm(int(need_dsh), int(bf16))
+    _raise_on(max(0, -per_sm), "tp_scalar edge-backward occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_scalar")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    strides = ctypes.POINTER(ctypes.c_longlong)
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.dp_tp_scalar_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
     lib.dp_tp_scalar_bwd_x.argtypes = [p] * 9 + [i] * 11 + [p]
-    lib.dp_tp_scalar_bwd_w.argtypes = [p] * 4 + [strides] + [i] * 5 + [f, i, p]
-    lib.dp_tp_scalar_bwd_sh.argtypes = [p] * 4 + [strides] + [i] * 6 + [f, i, p]
+    lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.dp_tp_scalar_blocks_per_sm.argtypes = [i] * 5
-    for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_w, lib.dp_tp_scalar_bwd_sh,
-               lib.dp_tp_scalar_bwd_x, lib.dp_tp_scalar_blocks_per_sm):
+    lib.dp_tp_scalar_bwd_edge_blocks_per_sm.argtypes = [i] * 2
+    for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_edge, lib.dp_tp_scalar_bwd_x,
+               lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -193,9 +243,9 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _check_views(dtype: torch.dtype, **views: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
-    """Each (tensor, expected shape): on one CUDA device, of that shape, with
-    a unit last stride and no negative stride; the gradient ``grad`` f32,
-    every other view of ``dtype`` (f32 or bf16)."""
+    """Each (tensor, expected shape): on one CUDA device, of that shape and
+    contiguous; the gradient ``grad`` f32, every other tensor of ``dtype``
+    (f32 or bf16)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tp_scalar: operands must be f32 or bf16, got {dtype}")
     device = next(iter(views.values()))[0].device
@@ -208,27 +258,8 @@ def _check_views(dtype: torch.dtype, **views: Tuple[torch.Tensor, Tuple[int, ...
             raise TypeError(f"tp_scalar: {name} must be {want}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"tp_scalar: {name} {tuple(t.shape)}, expected {shape}")
-        if (t.shape[-1] > 1 and t.stride(-1) != 1) or any(s < 0 for s in t.stride()):
-            raise ValueError(f"tp_scalar: {name} must have a unit last stride (a last-axis "
-                             f"slice of a contiguous tensor), got strides {t.stride()}")
-
-
-def _path_shapes(x: torch.Tensor, sh: torch.Tensor) -> Tuple[int, int, int, int, int]:
-    if sh.dim() != 4 or x.dim() != 3:
-        raise ValueError(f"tp_scalar: x must be (B, M, U) and sh (B, N, M, K), got "
-                         f"{tuple(x.shape)} and {tuple(sh.shape)}")
-    B, N, M, K = sh.shape
-    U = x.shape[-1]
-    if not (1 <= K <= K_MAX and 1 <= U <= U_MAX):
-        raise ValueError(f"tp_scalar: K = {K} (1..{K_MAX}) or U = {U} (1..{U_MAX}) outside "
-                         f"what the kernels take")
-    return B, N, M, U, K
-
-
-def _strides(*tensors: torch.Tensor):
-    """The element strides of the views without their last axis, in order."""
-    flat = [s for t in tensors for s in t.stride()[:-1]]
-    return (ctypes.c_longlong * len(flat))(*flat)
+        if not t.is_contiguous():
+            raise ValueError(f"tp_scalar: {name} must be contiguous")
 
 
 def _stream(device: torch.device) -> int:
@@ -251,9 +282,6 @@ def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.T
     if g is not None:
         views["grad"] = (g, (B, N, F, K_PAD))
     _check_views(x.dtype, **views)
-    for name, (t, _) in views.items():
-        if not t.is_contiguous():
-            raise ValueError(f"tp_scalar: {name} must be contiguous")
     return B, N, M, D, S, F
 
 
@@ -309,75 +337,43 @@ def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
     return plan_chunk(B, M, N, F, target) if dx else plan_chunk(B, N, M, F, target)
 
 
-def launch_backward_w(x: torch.Tensor, sh: torch.Tensor, g: torch.Tensor,
-                      dw: Optional[torch.Tensor] = None, scale: float = 1.0) -> torch.Tensor:
-    """dw of one path into the (B, N, M, U) view ``dw`` of x's type (every
-    element written): ``scale * x * sum_k sh g``."""
-    B, N, M, U, K = _path_shapes(x, sh)
-    if dw is None:
-        dw = torch.empty((B, N, M, U), dtype=x.dtype, device=x.device)
-    _check_views(x.dtype, x=(x, (B, M, U)), sh=(sh, (B, N, M, K)), grad=(g, (B, N, U, K)),
-                 dw=(dw, (B, N, M, U)))
-    rc = _library().dp_tp_scalar_bwd_w(
-        x.data_ptr(), sh.data_ptr(), g.data_ptr(), dw.data_ptr(), _strides(x, sh, g, dw),
-        B, N, M, U, K, scale, int(x.dtype == torch.bfloat16), _stream(x.device))
-    _raise_on(rc, "tp_scalar_bwd_w")
-    BWD_W.launches += 1
-    return dw
-
-
-def launch_backward_sh(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                       dsh: Optional[torch.Tensor] = None, accumulate: bool = False,
-                       scale: float = 1.0) -> torch.Tensor:
-    """dsh of one path into the (B, N, M, K) view ``dsh`` of x's type:
-    written, or added to what it holds with ``accumulate``."""
-    B, N, U, K = g.shape
-    M = x.shape[1]
-    if dsh is None:
-        dsh = torch.empty((B, N, M, K), dtype=x.dtype, device=x.device)
-    _path_shapes(x, dsh)
-    _check_views(x.dtype, x=(x, (B, M, U)), w=(w, (B, N, M, U)), grad=(g, (B, N, U, K)),
-                 dsh=(dsh, (B, N, M, K)))
-    rc = _library().dp_tp_scalar_bwd_sh(
-        x.data_ptr(), w.data_ptr(), g.data_ptr(), dsh.data_ptr(), _strides(x, w, g, dsh),
-        B, N, M, U, K, int(accumulate), scale, int(x.dtype == torch.bfloat16),
-        _stream(x.device))
-    _raise_on(rc, "tp_scalar_bwd_sh")
-    BWD_SH.launches += 1
-    return dsh
-
-
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                          g: torch.Tensor, need_dsh: bool, need_dw: bool = True
                          ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """(dw, dsh) of every path of a convolution, in w's and sh's type: per
-    path a dw launch (and a dsh launch) that reads slices of x, sh, w and g
-    and writes slices of the full gradients; dsh only with ``need_dsh``, dw
-    only with ``need_dw``.  g is the (B, N, F, 4) f32 upstream gradient."""
-    # every channel of w belongs to one path, so dw is written whole; sh
-    # may hold components no path reads, and two paths may share one
+    """(dw, dsh) of every path of a convolution in one launch, in w's and
+    sh's type: dw only with ``need_dw``, dsh (the full S-component row, zero
+    in the components no path reads) only with ``need_dsh``.  g is the (B,
+    N, F, 4) f32 upstream gradient."""
+    B, N, M, D, S, F = _check_conv(tp, x, sh, w, g)
+    if F > EDGE_F_MAX:
+        raise ValueError(f"tp_scalar: F = {F} channels, more than the edge backward's "
+                         f"{EDGE_F_MAX}")
+    if B * N * M * max(F, S) + B * M * D >= 2**31 - 1:
+        raise ValueError("tp_scalar: the edge backward indexes its operands with 32-bit offsets")
+    reach = sh_reach(tp)
+    if reach > EDGE_REACH:
+        raise ValueError(f"tp_scalar: the paths read {reach} harmonic components, more than "
+                         f"the edge backward's {EDGE_REACH}")
+    if not (need_dw or need_dsh):
+        return None, None
+    chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
     dw = torch.empty_like(w) if need_dw else None
-    dsh = torch.zeros_like(sh) if need_dsh else None
-    seen_sh = set()
-    views = path_views(tp, x, sh, w)
-    grads = path_views(tp, x, sh if dsh is None else dsh, w if dw is None else dw)
-    for p, (xv, shv, wv), (_, dshv, dwv) in zip(tp.paths, views, grads):
-        gv = g[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]]
-        scale = path_scale(p, x.dtype)
-        if need_dw:
-            launch_backward_w(xv, shv, gv, dwv, scale)
-        if need_dsh:
-            launch_backward_sh(xv, wv, gv, dshv, p.i_sh in seen_sh, scale)
-            seen_sh.add(p.i_sh)
+    dsh = torch.empty_like(sh) if need_dsh else None
+    bf16 = x.dtype == torch.bfloat16
+    rc = _library().dp_tp_scalar_bwd_edge(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
+        scale.data_ptr(), None if dw is None else dw.data_ptr(),
+        None if dsh is None else dsh.data_ptr(), B, N, M, D, S, F, reach, int(x_quads(tp)),
+        _edge_blocks(need_dsh, bf16, str(x.device)), int(bf16), _stream(x.device))
+    _raise_on(rc, "tp_scalar_bwd_edge")
+    BWD_EDGE.launches += 1
     return dw, dsh
 
 
 class ScalarPathsAggregate(torch.autograd.Function):
     """Every path of an all-l_in-0 convolution under autograd, on the
-    convolution's full tensors: one forward launch and one dx launch for the
-    convolution, and per path a dw launch (and a dsh launch) that reads
-    slices of x, sh and w and writes slices of the full gradients, so no
-    slice is copied and no gradient is padded and summed afterwards.
+    convolution's full tensors: one forward launch, one edge-backward launch
+    (dw, and dsh where asked) and one dx launch for the convolution.
     ``dsh`` is computed only when sh requires grad, ``dx`` only when x does,
     ``dw`` only when w does."""
 

@@ -433,54 +433,7 @@ def test_tp_aggregate_bf16_rows_at_every_alignment(cuda, offset):
         assert torch.equal(a, b)
 
 
-K3_COUNTERS = (tp_scalar.FWD, tp_scalar.BWD_W, tp_scalar.BWD_SH, tp_scalar.BWD_X)
-
-
-def _k3_inputs(cuda, B, N, M, U, K, seed=0, strided=False):
-    """x, sh, w (masked) and g of one path; with ``strided`` each is a
-    last-axis slice of a wider tensor, as a convolution hands them over."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
-    pad = 3 if strided else 0
-    x = t(rng.normal(size=(B, M, U + pad)))[..., pad:]
-    sh = t(rng.normal(size=(B, N, M, K + 2 * pad)))[..., pad:pad + K]
-    w = t(rng.normal(size=(B, N, M, U + 2 * pad)) * (rng.random((B, N, M, 1)) > 0.3))
-    w = w[..., pad:pad + U]
-    g = t(rng.normal(size=(B, N, U + pad, K + pad)))[:, :, pad:, :K]
-    return x, sh, w, g
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,N,M,U,K,strided", [
-    (3, 13, 29, 33, 9, False),       # ragged receiver tiles and sender chunks, the widest K
-    (3, 13, 29, 33, 9, True),
-    (2, 37, 96, 20, 3, True),        # the 0e x 1o -> 1o path of a layer-0 conv
-    (2, 37, 24, 20, 1, True),        # the 0e x 0e -> 0e path
-    (1, 5, 7, 64, 2, False),         # the widest U, a K between the template bounds
-])
-def test_tp_scalar_kernels_match_plain(cuda, B, N, M, U, K, strided):
-    """K3's per-path dw and dsh kernels on the views themselves against
-    autograd through the einsum: f32 on both sides, they differ by summation
-    order only (1e-4 of each result's scale), with a path scale; in bf16
-    within one bf16 rounding step of each element.  One launch each."""
-    x, sh, w, g = _k3_inputs(cuda, B, N, M, U, K, strided=strided)
-    assert strided != (sh.is_contiguous() and w.is_contiguous())
-    for dtype, scale in ((torch.float32, 1.0), (torch.float32, 1.00135), (torch.bfloat16, 1.00135)):
-        xs, shs, ws = x.to(dtype), sh.to(dtype), w.to(dtype)
-        leaves = [v.float().requires_grad_(True) for v in (xs, shs, ws)]
-        ref = tp_scalar.scalar_path_aggregate_plain(*[v.to(dtype) for v in leaves], scale)
-        _, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g)
-        counts = [k.launches for k in K3_COUNTERS]
-        dw = tp_scalar.launch_backward_w(xs, shs, g, scale=scale)
-        dsh = tp_scalar.launch_backward_sh(xs, ws, g, scale=scale)
-        torch.cuda.synchronize()
-        assert [k.launches - c for k, c in zip(K3_COUNTERS, counts)] == [0, 1, 1, 0]
-        for name, got, want in (("dw", dw, ref_dw), ("dsh", dsh, ref_dsh)):
-            assert got.dtype == dtype, name
-            if dtype == torch.float32:
-                assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
-            else:
-                assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
+K3_COUNTERS = (tp_scalar.FWD, tp_scalar.BWD_EDGE, tp_scalar.BWD_X)
 
 
 def _k3_conv_inputs(cuda, tp, B, N, M, seed=1):
@@ -498,9 +451,9 @@ def _k3_conv_inputs(cuda, tp, B, N, M, seed=1):
 def test_tp_scalar_conv_level_matches_plain_and_is_deterministic(cuda, irreps_in, irreps_out):
     """Every path of an all-l_in-0 convolution: the packed output and the
     gradients into the full x, sh and w against the plain version (1e-4),
-    the pad lanes zero, two runs equal to the bit, one forward and one dx
-    launch for the convolution and a dw and a dsh launch per path, and dsh
-    and dx skipped when sh and x carry no gradient."""
+    the pad lanes zero, two runs equal to the bit, one forward, one edge
+    backward and one dx launch for the convolution, and dsh and dx skipped
+    when sh and x carry no gradient."""
     tp = channelwise_tp(irreps_in, SH, irreps_out)
     vals = _k3_conv_inputs(cuda, tp, 3, 13, 29)
     B, N = vals[1].shape[:2]
@@ -511,14 +464,13 @@ def test_tp_scalar_conv_level_matches_plain_and_is_deterministic(cuda, irreps_in
     ref = tp_scalar.scalar_paths_aggregate_plain(tp, *leaves)
     ref_grads = torch.autograd.grad(ref, leaves, g * lanes)
 
-    n = len(tp.paths)
     runs = []
     for _ in range(2):
         before = [k.launches for k in K3_COUNTERS]
         mine = [v.clone().requires_grad_(True) for v in vals]
         out = tp_scalar.scalar_paths_aggregate(tp, *mine)
         runs.append((out,) + torch.autograd.grad(out, mine, g))
-        assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [1, n, n, 1]
+        assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [1, 1, 1]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -532,7 +484,7 @@ def test_tp_scalar_conv_level_matches_plain_and_is_deterministic(cuda, irreps_in
     before = [k.launches for k in K3_COUNTERS]
     out = tp_scalar.scalar_paths_aggregate(tp, vals[0], vals[1], w_only)
     (dw,) = torch.autograd.grad(out, [w_only], g)
-    assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [1, n, 0, 0]
+    assert [k.launches - b for k, b in zip(K3_COUNTERS, before)] == [1, 1, 0]
     assert torch.equal(dw, grads[2])
 
 
@@ -572,21 +524,83 @@ def test_tp_scalar_conv_level_training_shapes(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_CONV_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("need_dsh", [True, False])
+def test_tp_scalar_edge_backward_matches_plain(cuda, shape, dtype, need_dsh):
+    """The edge backward (dw, and dsh where asked) of the layer-0 convs'
+    widths (F = 40) in one launch against its plain version: f32 within 1e-4
+    of each result's scale, bf16 within one bf16 rounding step of each
+    element plus 1e-6 of scale; reruns equal to the bit; dead receivers and
+    senders, and the harmonic components no path reads, exact zeros in dsh;
+    w moved 2 to 16 bytes off its base (scalar accesses where four elements
+    are not aligned) gives the same bits.  One launch per call."""
+    tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w = [v.to(dt) for v in _k3_conv_inputs(cuda, tp, *shape)]
+    B, N, M, _ = sh.shape
+    n_dead, m_dead = max(1, N // 3), max(1, M // 4)
+    w[:, N - n_dead:] = 0                          # dead receivers
+    w[:, :, M - m_dead:] = 0                       # dead senders
+    g = torch.randn((B, N, tp.weight_numel, 4), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    ref_dw, ref_dsh = tp_scalar.scalar_paths_backward_edge_plain(tp, x, sh, w, g, need_dsh)
+    before = tp_scalar.BWD_EDGE.launches
+    runs = [tp_scalar.launch_backward_edge(tp, x, sh, w, g, need_dsh) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tp_scalar.BWD_EDGE.launches == before + 2
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+    dw, dsh = runs[0]
+    assert (dsh is None) == (not need_dsh) and dw.dtype == dt
+    for name, got, want in (("dw", dw, ref_dw), ("dsh", dsh, ref_dsh)):
+        if want is None:
+            continue
+        assert got.dtype == dt, name
+        want = want.float()
+        if dt == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        else:
+            assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
+    if need_dsh:
+        assert float(dsh[:, N - n_dead:].abs().max()) == 0.0
+        assert float(dsh[:, :, M - m_dead:].abs().max()) == 0.0
+        assert float(dsh[..., tp_scalar.sh_reach(tp):].abs().max()) == 0.0
+    buf = torch.zeros(w.numel() + 16, dtype=dt, device=cuda)
+    for offset in sorted({max(1, 2 // w.element_size()), 4 // w.element_size(),
+                          8 // w.element_size(), 16 // w.element_size()}):
+        shifted = buf[offset:offset + w.numel()].view(w.shape)
+        shifted.copy_(w)
+        got = tp_scalar.launch_backward_edge(tp, x, sh, shifted, g, need_dsh)
+        torch.cuda.synchronize()
+        for a, b in zip(got, runs[0]):
+            assert (a is None and b is None) or torch.equal(a, b), offset
+
+
+@pytest.mark.cuda
 def test_tp_scalar_rejects_bad_inputs(cuda):
-    x, sh, w, g = _k3_inputs(cuda, 1, 4, 5, 8, 3)
+    tp = channelwise_tp(SEQ[0], SH, SEQ[1])
+    x, sh, w = _k3_conv_inputs(cuda, tp, 1, 4, 5)
+    g = torch.zeros(1, 4, tp.weight_numel, 4, device=cuda)
+    edge = tp_scalar.launch_backward_edge
     with pytest.raises(ValueError):  # a CPU tensor among CUDA tensors
-        tp_scalar.launch_backward_w(x, sh.cpu(), g)
+        edge(tp, x, sh.cpu(), w, g, True)
     with pytest.raises(TypeError):   # x and sh of two types
-        tp_scalar.launch_backward_w(x.bfloat16(), sh, g)
+        edge(tp, x.bfloat16(), sh, w, g, True)
     with pytest.raises(TypeError):   # a bf16 upstream gradient
-        tp_scalar.launch_backward_sh(x, w, g.bfloat16())
-    with pytest.raises(ValueError):  # a last axis that is not unit-stride
-        tp_scalar.launch_backward_sh(x, w.transpose(2, 3).contiguous().transpose(2, 3), g)
+        edge(tp, x, sh, w, g.bfloat16(), True)
+    with pytest.raises(ValueError):  # a weight tensor that is not contiguous
+        edge(tp, x, sh, w.transpose(1, 2).contiguous().transpose(1, 2), g, True)
     with pytest.raises(ValueError):  # wrong channel count
-        tp_scalar.launch_backward_sh(x, w[..., :-1], g)
-    with pytest.raises(ValueError):  # more channels than a block holds
-        x65, _, w65, g65 = _k3_inputs(cuda, 1, 4, 5, 65, 3)
-        tp_scalar.launch_backward_sh(x65, w65, g65)
+        edge(tp, x, sh, w[..., :-1], g, True)
+    wide = channelwise_tp("65x0e", SH, "65x0e + 1x1o")
+    with pytest.raises(ValueError):  # more channels than four a lane of one warp
+        xw, shw, ww = _k3_conv_inputs(cuda, wide, 1, 4, 5)
+        edge(wide, xw, shw, ww, torch.zeros(1, 4, wide.weight_numel, 4, device=cuda), True)
+    late = channelwise_tp(SEQ[0], "1x1e + 1x1o + 1x0e", SEQ[1])
+    with pytest.raises(ValueError):  # a path reads harmonic components past the fourth
+        xl, _, wl = _k3_conv_inputs(cuda, late, 1, 4, 5)
+        edge(late, xl, torch.zeros(1, 4, 5, 7, device=cuda), wl, g, True)
     tp = channelwise_tp(SEQ[1], SH, SEQ[2])
     with pytest.raises(ValueError):  # a convolution with l_in = 1 paths belongs to K2
         tp_scalar.scalar_paths_aggregate(tp, torch.zeros(1, 5, tp.irreps_in.dim, device=cuda),

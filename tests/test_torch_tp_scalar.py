@@ -2,10 +2,12 @@
 package's Pallas kernel in interpret mode (``scalar_path_aggregate(...,
 interpret=True)``) on the shapes of its own tests, its autograd gradients
 against ``jax.grad`` of the einsum, strided views against contiguous copies,
-and the conv-level packing against ``ChannelwiseTP.aggregate``, in f32 and
-with bf16 operands (the per-path scale of a bf16-rounded coupling tensor).
-The CUDA kernels themselves are held against the same plain version on the
-card (tests/test_torch_cuda.py, chip_smoke.py)."""
+the conv-level packing against ``ChannelwiseTP.aggregate``, in f32 and
+with bf16 operands (the per-path scale of a bf16-rounded coupling tensor),
+and the conv-level edge backward's plain version against ``jax.grad`` of
+``ChannelwiseTP.aggregate``.  The CUDA kernels themselves are held against
+the same plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -14,9 +16,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from diffphore_torch.ops import tp_aggregate, tp_scalar
+from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 from diffphore_torch.ops.tensor_product import channelwise_tp
 from diffphore_tpu.ops.pallas.tp_scalar import scalar_path_aggregate as j_scalar_path_aggregate
+from diffphore_tpu.ops.tensor_product import channelwise_tp as j_channelwise_tp
 
 torch.set_num_threads(2)
 
@@ -134,8 +137,65 @@ def test_route_applies_only_to_all_scalar_convs():
                                          torch.zeros(1, 3, 2, tp.weight_numel))
 
 
+@pytest.mark.parametrize("irreps_in,irreps_out", [
+    ("20x0e", "20x0e + 10x1o"),             # the layer-0 signature, F = 40
+    ("3x0e + 1x0o", "3x0e + 1x1o + 1x0o"),  # F = 7; two paths read harmonic component 0
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("need_dsh", [True, False])
+def test_edge_backward_plain_matches_jax_grad_of_the_aggregate(irreps_in, irreps_out, dtype,
+                                                               need_dsh):
+    """``scalar_paths_backward_edge_plain`` (dw, and dsh of the full
+    9-component row) against ``jax.grad`` of the JAX package's
+    ``ChannelwiseTP.aggregate`` on ragged shapes with masked edges: f32 to
+    1e-5 of each gradient's scale; bf16 operands (JAX at bf16, its
+    bf16-rounded coupling tensors) within one bf16 rounding step of each
+    element plus 1e-6 of scale, except that JAX rounds each path's dsh to
+    bf16 and adds the paths in bf16, so a component that k paths read is held
+    to k steps; the components no path reads exactly zero; dsh alone
+    (``need_dw=False``) gives the same bits."""
+    tp, jtp = channelwise_tp(irreps_in, SH, irreps_out), j_channelwise_tp(irreps_in, SH, irreps_out)
+    B, N, M, F = 2, 5, 7, tp.weight_numel
+    rng = np.random.default_rng(12)
+    vals = [rng.normal(size=(B, M, tp.irreps_in.dim)), rng.normal(size=(B, N, M, 9)),
+            rng.normal(size=(B, N, M, F)) * (rng.random((B, N, M, 1)) > 0.3)]
+    g = T(rng.normal(size=(B, N, F, 4)))                      # noise in the pad lanes too
+    g_blocks = [None if b is None else jnp.asarray(b.numpy())
+                for b in tp_fused.blocks_from_padded(tp, g)]
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jvals = [jnp.asarray(v, jdt) for v in vals]
+
+    def jloss(x_, sh_, w_):
+        return sum((blk.astype(jnp.float32) * gb).sum()
+                   for blk, gb in zip(jtp.aggregate(x_, sh_, w_), g_blocks) if blk is not None)
+
+    want_dsh, want_dw = (torch.from_numpy(np.array(r, np.float32))
+                         for r in jax.grad(jloss, argnums=(1, 2))(*jvals))
+    x, sh, w = (torch.from_numpy(np.array(v, np.float32)).to(tdt) for v in jvals)
+    dw, dsh = tp_scalar.scalar_paths_backward_edge_plain(tp, x, sh, w, g, need_dsh)
+    assert dw.dtype == tdt and (dsh is None) == (not need_dsh)
+    readers = torch.zeros(9)
+    for p in tp.paths:
+        readers[tp.irreps_sh.slices()[p.i_sh]] += 1
+    for name, got, want, steps in (("dw", dw, want_dw, 1.0), ("dsh", dsh, want_dsh, readers)):
+        if got is None:
+            continue
+        scale = float(want.abs().max())
+        err = (got.float() - want).abs()
+        if dtype == "f32":
+            assert float(err.max()) <= 1e-5 * scale, (name, float(err.max()))
+        else:
+            assert bool((err <= steps * 2.0 ** -7 * want.abs() + 1e-6 * scale).all()), name
+    if need_dsh:
+        assert float(dsh[..., readers == 0].abs().max()) == 0.0
+        assert float(dsh[..., 4:].abs().max()) == 0.0
+        dw_none, dsh_alone = tp_scalar.scalar_paths_backward_edge_plain(tp, x, sh, w, g, True,
+                                                                        need_dw=False)
+        assert dw_none is None and torch.equal(dsh_alone, dsh)
+
+
 def test_launch_counters_stay_zero_on_the_cpu():
-    counters = (tp_scalar.FWD, tp_scalar.BWD_W, tp_scalar.BWD_SH, tp_scalar.BWD_X)
+    counters = (tp_scalar.FWD, tp_scalar.BWD_EDGE, tp_scalar.BWD_X)
     before = [k.launches for k in counters]
     tp = channelwise_tp("5x0e", SH, "5x0e + 2x1o")
     rng = np.random.default_rng(0)
