@@ -61,7 +61,25 @@ Phases, each fatal on failure:
      one epoch over the same 240 complexes; per step K1 launches 23 times
      (the frozen reverse step), K2 and K3 as in 6; finite losses, the share
      of graphs on the calibrated branch near 0.6 P(t > 0.05).
-  8. report: the kernels' JSON line, the card line, and the result line.
+  8. serving with the shipped confidence head (``runs/corpus2/confidence``,
+     bf16): the 8 complexes of phase 4 through ``FitEngine`` without and with
+     the head (poses/s of each); K1 exactly 23 x 20 + 21 times per dispatch
+     with it; a finite confidence row that ``rank`` follows; the head on the
+     final poses of one complex, kernel convs against plain convs (f32, and
+     bf16 against the plain route's own f32-vs-bf16 difference).
+  9. the head's training path: K2 and K3 held as in 5 on the 15 + 6 conv
+     calls of one training-mode forward of the shipped head; (c) one head
+     train step from fresh weights with the kernels against the plain convs,
+     as in 6; (b) 30 fixed-batch steps, the loss falls, K2 15 + 15 + 15 and K3
+     6 + 6 + 6 per step; (a) one epoch of ``cli.train.main --confidence_mode``
+     over the 240 complexes plus a validation batch (K1 21 launches, batch
+     statistics), a best-EMA checkpoint that reloads.
+  10. validation by inference: one epoch of ``cli.train.main
+     --val_inference_freq 1`` (one train step, then 4 validation complexes x 8
+     poses x 20 steps on the EMA weights): K1 exactly 4 x 23 x 20 launches, a
+     finite ``valinf_*`` record, the validation's wall time.
+  11. report: the kernels' JSON line (each kernel's launches per path), the
+     card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -147,6 +165,17 @@ TOL_BF16_GAP = 0.5
 K2_CONVS = 17
 K3_CONVS = 6
 K3_DSH_CONVS = 2
+# The confidence head (runs/corpus2/confidence): the score model's encoder, so
+# 21 convs a forward (12 ligand-receiver + 9 phore-receiver), of which K2
+# takes 15 in training and K3 the same 6 layer-0 convs; trained here with the
+# shipped head's label.
+CONFIDENCE_DIR = os.path.join(HERE, "runs", "corpus2", "confidence")
+HEAD_CONVS = 21
+HEAD_K2_CONVS = 15
+HEAD_LABEL = "rmsd_lt2"
+# Validation by inference in the training CLI: a few complexes, a few poses.
+VALINF_COMPLEXES = 4
+VALINF_POSES = 8
 CC_RATE = 0.6               # --rate_from_infer of the shipped recipe
 CC_DELTA_T = 0.05
 # The frozen stage of a calibrated step from the shipped weights, K1 against
@@ -414,9 +443,11 @@ def k2_work(tp, x, sh, w, with_dsh):
     }
 
 
-def capture_training_convs(model, batch):
-    """The aggregate calls of one training-mode forward: (name, tp, x, sh, w,
-    sh needs grad) of every K2 call and of every K3 (conv-level) call."""
+def capture_training_convs(model, batch, k2_convs=K2_CONVS):
+    """The aggregate calls of one training-mode forward of ``model`` (the
+    score model, whose convs K2 takes K2_CONVS of, or the confidence head,
+    HEAD_K2_CONVS): (name, tp, x, sh, w, sh needs grad) of every K2 call and
+    of every K3 (conv-level) call."""
     import torch
 
     from diffphore_torch.models.layers import DenseTPConv
@@ -445,10 +476,9 @@ def capture_training_convs(model, batch):
         model.eval()
     if not all(bool(torch.isfinite(o).all()) for o in out):
         raise AssertionError("training-mode forward is not finite")
-    if (len(k2_calls), len(k3_calls)) != (K2_CONVS, K3_CONVS) \
-            or len(k2_calls) + len(k3_calls) != CONVS_PER_FORWARD:
-        raise RuntimeError(f"captured {len(k2_calls)} K2 calls and {len(k3_calls)} K3 calls, "
-                           f"expected {K2_CONVS} and {K3_CONVS}")
+    if (len(k2_calls), len(k3_calls)) != (k2_convs, K3_CONVS) or len(names) != k2_convs + K3_CONVS:
+        raise RuntimeError(f"captured {len(k2_calls)} K2 calls and {len(k3_calls)} K3 calls of "
+                           f"{len(names)} convs, expected {k2_convs} and {K3_CONVS}")
     if sum(1 for c in k3_calls if c[5]) != K3_DSH_CONVS:
         raise RuntimeError("the layer-0 convs whose harmonics need a gradient are not the "
                            f"{K3_DSH_CONVS} expected")
@@ -871,13 +901,14 @@ def reset_kernel_counts():
         k.launches = 0
 
 
-def expect_counts(what, steps=0, eval_batches=0):
-    """``steps`` training forwards and backwards, ``eval_batches`` eval-mode
-    forwards (validation batches, or the frozen forward of a calibrated
-    step)."""
+def expect_counts(what, steps=0, eval_batches=0, k2_convs=K2_CONVS, k1=None):
+    """``steps`` training forwards and backwards of a model whose convs K2
+    takes ``k2_convs`` of, ``eval_batches`` eval-mode forwards of the score
+    model (validation batches, or the frozen forward of a calibrated step),
+    or ``k1`` K1 launches in all."""
     got = kernel_counts()
-    want = {"k1": CONVS_PER_FORWARD * eval_batches, "fwd": K2_CONVS * steps,
-            "bwd_edge": K2_CONVS * steps, "bwd_x": K2_CONVS * steps,
+    want = {"k1": CONVS_PER_FORWARD * eval_batches if k1 is None else k1,
+            "fwd": k2_convs * steps, "bwd_edge": k2_convs * steps, "bwd_x": k2_convs * steps,
             "k3_fwd": K3_CONVS * steps, "k3_bwd_edge": K3_CONVS * steps,
             "k3_bwd_x": K3_CONVS * steps}
     if got != want:
@@ -1241,6 +1272,250 @@ def phase_sampler_modes(cfg, model, job, card):
         raise AssertionError(f"candidate selection lowered the median fitness: {med}")
 
 
+def phase_confidence_serving(cfg, model, jobs, card):
+    """Serving with the shipped confidence head: FitEngine with and without
+    it on the same complexes (poses/s of each), K1's exact launches with it,
+    a finite confidence row that ``rank`` follows, and the head's row from K1
+    against plain convs on the same final poses.  Returns the K1 launches of
+    the run with the head."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli.pipeline import FitEngine
+    from diffphore_torch.data.graphs import repeat_batch
+    from diffphore_torch.models.layers import set_compute_dtype
+    from diffphore_torch.ops.fitscore import batch_phore_arrays
+    from diffphore_torch.sampler.sampling import SamplerSettings
+    from diffphore_torch.utils.checkpoints import load_confidence_dir
+
+    head_cfg, head = load_confidence_dir(CONFIDENCE_DIR, device="cuda")
+    if head_cfg.compute_dtype != "bfloat16" or head_cfg.ns != cfg.ns:
+        raise AssertionError(f"the shipped head is not at corpus2's width and bf16: {head_cfg}")
+    settings = SamplerSettings(inference_steps=STEPS)
+    plain = FitEngine(cfg, model, samples_per_complex=POSES, settings=settings, seed=SEED,
+                      device="cuda")
+    ranked = FitEngine(cfg, model, samples_per_complex=POSES, settings=settings, seed=SEED,
+                       device="cuda", confidence=head)
+    ranked.run_complexes(jobs[:1])                  # warm-up
+    rates = {}
+    for label, engine in (("without the head", plain), ("with the head", ranked)):
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        results = engine.run_complexes(jobs)
+        torch.cuda.synchronize()
+        rates[label] = len(jobs) * POSES / (time.perf_counter() - t0)
+        per_dispatch = CONVS_PER_FORWARD * STEPS + (HEAD_CONVS if engine is ranked else 0)
+        counts = expect_counts(f"serving {label}", k1=len(jobs) * per_dispatch)
+    for r in results:
+        conf = np.asarray(r["confidence"])
+        if conf.shape != (POSES,) or not np.isfinite(conf).all():
+            raise AssertionError(f"{r['name']}: confidence row not finite or misshapen")
+        if list(r["rank"]) != list(np.argsort(conf)[::-1]):
+            raise AssertionError(f"{r['name']}: rank does not follow the confidence row")
+
+    # the head's row from K1 against plain convs on the same final poses
+    seen = []
+    hook = head.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+    job = jobs[0]
+    rows = repeat_batch(job.batch.to("cuda"), POSES).replace(names=(), meta=())
+    ranked.run_batch(rows, batch_phore_arrays(rows), POSES)
+    hook.remove()
+    final = seen[0]
+    out = {}
+    with torch.inference_mode():
+        for dtype in ("float32", "bfloat16"):
+            set_compute_dtype(head, dtype)
+            for use_kernel in (True, False):
+                set_use_kernel(head, use_kernel)
+                out[dtype, use_kernel] = head(final, pose_group=POSES)
+    worst = []
+    for i, label in enumerate(("fit", "ph", "ex")):
+        b32, b16 = out["float32", False][i], out["bfloat16", False][i]
+        scale = float(b32.abs().max().clamp_min(1e-30))
+        rel = float((out["float32", True][i] - b32).abs().max()) / scale
+        rel_bf = float((out["bfloat16", True][i] - b16).abs().max()) / scale
+        gap = float((b32 - b16).abs().max()) / scale
+        worst.append(f"{label} {rel:.1e} / {rel_bf:.1e} (gap {gap:.1e})")
+        if not rel <= TOL_FORWARD or not rel_bf <= TOL_BF16_GAP * gap:
+            raise AssertionError(f"head {label}: kernel vs plain {rel} (f32), {rel_bf} (bf16) "
+                                 f"against the plain route's f32-vs-bf16 difference {gap}")
+    print(f"serving with the confidence head ({CONFIDENCE_DIR.split('runs/')[-1]}), "
+          f"{len(jobs)} complexes x {POSES} poses x {STEPS} steps: "
+          + ", ".join(f"{rate:.1f} poses/s {label}" for label, rate in rates.items())
+          + f"; K1 launches {counts['k1']} ({counts['k1'] // len(jobs)} per dispatch: "
+          f"{CONVS_PER_FORWARD} x {STEPS} + {HEAD_CONVS}); rank follows the confidence row; "
+          f"head on the final poses of {job.name}, kernel vs plain convs, max |d| / max|plain| "
+          f"f32 / bf16: " + "; ".join(worst) + f" ({card})", flush=True)
+    return counts["k1"]
+
+
+def phase_confidence_training(cfg, train_batch, card):
+    """(c) one head train step, kernels against plain convs; (b) 30 steps on
+    a fixed batch: the loss falls; (a) one epoch of ``cli.train.main
+    --confidence_mode``.  Returns the launch counts of the CLI run."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.data.transforms import draw_noise
+    from diffphore_torch.train.confidence import (create_confidence_train_state,
+                                                  make_confidence_train_step)
+    from diffphore_torch.utils.checkpoints import BEST_EMA_MODEL, load_confidence_dir
+
+    B, T = train_batch.batch_size, train_batch.num_torsions
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    draws = draw_noise(B, T, gen, "cuda")
+
+    # ---- (c) one step from fresh weights, kernels against plain convs, same
+    # noise and dropout masks, at f32 (every gradient leaf) and bf16 (one vector)
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+        step_d = make_confidence_train_step(cfg_d, label_mode=HEAD_LABEL)
+        for use_kernel in (True, False):
+            state = create_confidence_train_state(cfg_d, seed=SEED, device="cuda")
+            set_use_kernel(state.model, use_kernel)
+            drop = torch.Generator(device="cuda")
+            drop.manual_seed(SEED + 7)
+            reset_kernel_counts()
+            state, metrics = step_d(state, train_batch, drop, draws=draws)
+            torch.cuda.synchronize()
+            expect_counts(f"head {dtype} step with use_kernel={use_kernel}",
+                          steps=1 if use_kernel else 0, k2_convs=HEAD_K2_CONVS)
+            results[dtype, use_kernel] = (float(metrics["loss"]),
+                                          {k: p.grad.clone()
+                                           for k, p in state.model.named_parameters()})
+            del state
+    compare_step_gradients("head train step (f32)",
+                           [results["float32", True], results["float32", False]])
+    compare_bf16_step("head train step (bf16)", results)
+
+    # ---- (b) one fixed batch, fixed noise, dropout on
+    step = make_confidence_train_step(cfg, label_mode=HEAD_LABEL)
+    state = create_confidence_train_state(cfg, seed=SEED, device="cuda")
+    drop = torch.Generator(device="cuda")
+    drop.manual_seed(SEED + 8)
+    state, _ = step(state, train_batch, drop, draws=draws)          # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(FIXED_BATCH_STEPS):
+        state, metrics = step(state, train_batch, drop, draws=draws)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    expect_counts("head fixed-batch steps", steps=FIXED_BATCH_STEPS, k2_convs=HEAD_K2_CONVS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"head fixed-batch loss did not fall: {losses}")
+    print(f"head, fixed batch of {B}, fixed noise, dropout {cfg.dropout}, labels {HEAD_LABEL}: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over {FIXED_BATCH_STEPS} steps; "
+          f"{FIXED_BATCH_STEPS / elapsed:.2f} steps/s, {B * FIXED_BATCH_STEPS / elapsed:.1f} "
+          f"complexes/s, peak memory {peak:.3f} GiB; per step K2 {HEAD_K2_CONVS} forward + "
+          f"{HEAD_K2_CONVS} edge backward + {HEAD_K2_CONVS} dx, K3 {K3_CONVS} + {K3_CONVS} + "
+          f"{K3_CONVS}, K1 0 ({card})", flush=True)
+    del state
+
+    # ---- (a) the training CLI in --confidence_mode: one epoch + a val epoch
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_bucket(TRAIN_CACHE_DIR, os.path.join(tmp, "train_smoke"), TRAIN_COMPLEXES)
+        copy_bucket(CACHE_DIR, os.path.join(tmp, "val_smoke"), VAL_COMPLEXES)
+        run_dir = os.path.join(tmp, "run")
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        train_cli.main([
+            "--confidence_mode", "--cache_path", tmp, "--run_dir", run_dir, "--n_epochs", "1",
+            "--batch_size", str(TRAIN_BATCH), "--seed", str(SEED), "--ns", str(cfg.ns),
+            "--nv", str(cfg.nv), "--num_conv_layers", str(cfg.num_conv_layers),
+            "--dropout", str(cfg.dropout), "--confidence_label", HEAD_LABEL])
+        torch.cuda.synchronize()
+        steps = TRAIN_COMPLEXES // TRAIN_BATCH
+        counts = expect_counts("cli.train.main --confidence_mode", steps=steps,
+                               k2_convs=HEAD_K2_CONVS, k1=HEAD_CONVS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if [r["mode"] for r in records] != ["confidence", "confidence_val"]:
+            raise AssertionError(f"metrics.jsonl holds {records}")
+        rec, val = records
+        keys = ("loss", "loss_ph", "loss_ex", "loss_total")
+        if rec["steps"] != steps or not all(np.isfinite(r[k]) for r in records for k in keys):
+            raise AssertionError(f"head training metrics not as expected: {records}")
+        _, reloaded = load_confidence_dir(run_dir, device="cuda", checkpoint=BEST_EMA_MODEL)
+        with torch.no_grad():
+            out = reloaded(train_batch.replace(t=torch.zeros((B,), device="cuda")))
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            raise AssertionError("the reloaded head's forward is not finite")
+    rate = rec["steps"] / rec["epoch_time"]
+    print(f"cli.train.main --confidence_mode: {rec['steps']} steps of batch {TRAIN_BATCH} in "
+          f"{rec['epoch_time']:.3f} s = {rate:.2f} steps/s, {rate * TRAIN_BATCH:.1f} complexes/s "
+          f"(data loading included), train loss {rec['loss']:.4f}, val loss {val['loss']:.4f} "
+          f"over {VAL_COMPLEXES} complexes (batch statistics, K1), peak memory {peak:.3f} GiB; "
+          f"launches {counts} ({card})", flush=True)
+    return counts
+
+
+def phase_val_inference(cfg, card):
+    """One epoch of ``cli.train.main --val_inference_freq 1``: one train
+    step, then validation by inference on VALINF_COMPLEXES complexes x
+    VALINF_POSES poses x STEPS steps with the EMA weights; exact launches, a
+    finite valinf record and the wall time of the validation."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import train as train_cli
+
+    timed = []
+    sample = train_cli.val_inference
+
+    def timed_val_inference(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(*args, **kw)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_bucket(TRAIN_CACHE_DIR, os.path.join(tmp, "train_smoke"), TRAIN_BATCH)
+        copy_bucket(CACHE_DIR, os.path.join(tmp, "val_smoke"), VALINF_COMPLEXES)
+        run_dir = os.path.join(tmp, "run")
+        reset_kernel_counts()
+        train_cli.val_inference = timed_val_inference
+        try:
+            train_cli.main([
+                "--cache_path", tmp, "--run_dir", run_dir, "--n_epochs", "1",
+                "--batch_size", str(TRAIN_BATCH), "--seed", str(SEED), "--ns", str(cfg.ns),
+                "--nv", str(cfg.nv), "--num_conv_layers", str(cfg.num_conv_layers),
+                "--dropout", str(cfg.dropout), "--val_loss_freq", "2",
+                "--val_inference_freq", "1", "--num_inference_complexes",
+                str(VALINF_COMPLEXES), "--inference_samples", str(VALINF_POSES),
+                "--inference_steps", str(STEPS)])
+        finally:
+            train_cli.val_inference = sample
+        torch.cuda.synchronize()
+        counts = expect_counts("cli.train.main --val_inference_freq 1", steps=1,
+                               k1=VALINF_COMPLEXES * CONVS_PER_FORWARD * STEPS)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            (vi,) = [r for r in map(json.loads, f) if "valinf_n" in r]
+        if not os.path.exists(os.path.join(run_dir, "best_ema_inference_epoch_model.msgpack")):
+            raise AssertionError("validation by inference saved no best EMA checkpoint")
+    if vi["valinf_n"] != VALINF_COMPLEXES or not all(
+            np.isfinite(v) for k, v in vi.items() if k.startswith("valinf_")):
+        raise AssertionError(f"valinf record not as expected: {vi}")
+    print(f"validation by inference: {VALINF_COMPLEXES} complexes x {VALINF_POSES} poses x "
+          f"{STEPS} steps in {timed[0]:.3f} s ({VALINF_COMPLEXES * VALINF_POSES / timed[0]:.1f} "
+          f"poses/s, EMA weights, a fresh FitEngine); record "
+          + json.dumps({k: vi[k] for k in sorted(vi)}) + f"; launches {counts} ({card})",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1401,7 +1676,32 @@ def main() -> int:
     # ---- 7. calibrated-sampler path
     cc_counts = phase_calibrated(cfg, train_batch, card)
 
-    # ---- 8. report
+    # ---- 8. serving with the shipped confidence head
+    head_serving_k1 = phase_confidence_serving(cfg, model, jobs, card)
+
+    # ---- 9. the confidence head's training path: K2 and K3 on the conv
+    # inputs of one training-mode forward of the shipped head, then the steps
+    from diffphore_torch.utils.checkpoints import load_confidence_dir, load_config_yaml
+
+    head_cfg = load_config_yaml(CONFIDENCE_DIR)
+    _, head = load_confidence_dir(CONFIDENCE_DIR, device="cuda")
+    with torch.no_grad():
+        noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
+    k2_calls, k3_calls = capture_training_convs(head, noised, HEAD_K2_CONVS)
+    print(f"kernel check: tp_aggregate on the {HEAD_K2_CONVS} conv calls it takes of one "
+          "training-mode forward of the confidence head", flush=True)
+    phase_k2_check(k2_calls)
+    print(f"kernel check: tp_scalar on the {K3_CONVS} layer-0 convs of the same forward",
+          flush=True)
+    phase_k3_check(k3_calls)
+    del head, noised, k2_calls, k3_calls
+    torch.cuda.empty_cache()
+    head_counts = phase_confidence_training(head_cfg, train_batch, card)
+
+    # ---- 10. validation by inference in the training CLI
+    valinf_counts = phase_val_inference(cfg, card)
+
+    # ---- 11. report
     kernel = {
         "name": "tp_fused",
         "route": "cuda",
@@ -1410,6 +1710,9 @@ def main() -> int:
         "launches": launches,
         "launches_training_path": train_counts["k1"],
         "launches_calibrated_path": cc_counts["k1"],
+        "launches_confidence_serving": head_serving_k1,
+        "launches_confidence_training": head_counts["k1"],
+        "launches_val_inference": valinf_counts["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
         "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in cases),
@@ -1429,8 +1732,12 @@ def main() -> int:
     k2_entries = k2_kernel_entries(k2_cases, train_counts)
     for entry, k in zip(k2_entries, ("fwd", "bwd_edge", "bwd_x")):
         entry["launches_calibrated_path"] = cc_counts[k]
-    print(json.dumps({"kernels": [kernel] + k2_entries
-                      + k3_kernel_entries(k3_cases, cc_counts, train_counts)}))
+    k3_entries = k3_kernel_entries(k3_cases, cc_counts, train_counts)
+    for prefix, entries in (("", k2_entries), ("k3_", k3_entries)):
+        for entry, k in zip(entries, K3_KERNELS):
+            entry["launches_confidence_training"] = head_counts[prefix + k]
+            entry["launches_val_inference"] = valinf_counts[prefix + k]
+    print(json.dumps({"kernels": [kernel] + k2_entries + k3_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

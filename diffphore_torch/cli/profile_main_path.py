@@ -1,6 +1,6 @@
 """Where the time of one main-path dispatch goes on the GPU.
 
-    python -m diffphore_torch.cli.profile_main_path
+    python -m diffphore_torch.cli.profile_main_path [--confidence_model_dir runs/corpus2/confidence]
 
 Samples one cached complex (the corpus2 model, 40 poses x 20 reverse
 steps, one dispatch as ``FitEngine`` makes it, at the checkpoint's
@@ -8,11 +8,16 @@ steps, one dispatch as ``FitEngine`` makes it, at the checkpoint's
 and once under ``torch.profiler``.  Prints one JSON object: wall time,
 device-busy time and share (sum of kernel times over wall time), K1's time
 and launches, the number of kernel launches, and the top kernels and host
-ops.  It needs a GPU and fails without one.
+ops.  With ``--confidence_model_dir`` the engine also scores the final poses
+with that confidence head, and the object adds the head's forward alone on
+the dispatch's final poses: its device time and kernel launches (profiler,
+mean of 5) and its wall time per call (host clock, synchronized).  It needs
+a GPU and fails without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import os
@@ -24,7 +29,7 @@ import torch
 from ..data.graphs import load_cached
 from ..ops import tp_fused
 from ..sampler.sampling import SamplerSettings
-from ..utils.checkpoints import load_model_dir
+from ..utils.checkpoints import load_confidence_dir, load_model_dir
 from .pipeline import FitEngine, job_from_cached
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -39,7 +44,16 @@ def _device_us(event) -> float:
                          getattr(event, "self_cuda_time_total", 0.0)))
 
 
-def main() -> dict:
+def _kernels(prof):
+    return [e for e in prof.key_averages()
+            if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--confidence_model_dir", default=None,
+                   help="rank by this confidence head (a --confidence_mode run directory)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -48,8 +62,13 @@ def main() -> dict:
 
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
     batch = load_cached(sorted(glob.glob(os.path.join(CACHE_DIR, "*.npz")))[0])
+    head, seen = None, []
+    if args.confidence_model_dir:
+        _, head = load_confidence_dir(args.confidence_model_dir, device="cuda")
+        head.register_forward_pre_hook(lambda mod, a: seen.append(a[0]))
     engine = FitEngine(cfg, model, samples_per_complex=POSES,
-                       settings=SamplerSettings(inference_steps=STEPS), device="cuda")
+                       settings=SamplerSettings(inference_steps=STEPS), device="cuda",
+                       confidence=head)
     job = job_from_cached(batch)
     engine.run_complexes([job])  # warm-up
     torch.cuda.synchronize()
@@ -66,7 +85,7 @@ def main() -> dict:
         torch.cuda.synchronize()
     k1_launches = tp_fused.KERNEL.launches - launches0
     events = prof.key_averages()
-    kernels = [e for e in events if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _kernels(prof)
     busy_us = sum(_device_us(e) for e in kernels)
     k1_us = sum(_device_us(e) for e in kernels if "tp_fused_kernel" in e.key)
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
@@ -87,6 +106,28 @@ def main() -> dict:
                         for e in sorted(kernels, key=_device_us, reverse=True)[:12]],
         "top_host_ops": [[e.key, e.self_cpu_time_total / 1e3, e.count] for e in host[:12]],
     }
+    if head is not None:
+        final = seen[-1]
+        with torch.inference_mode():
+            head(final, pose_group=POSES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                head(final, pose_group=POSES)
+            torch.cuda.synchronize()
+            head_wall = (time.perf_counter() - t0) * 1e3 / 5
+            with torch.profiler.profile(activities=acts) as hprof:
+                for _ in range(5):
+                    head(final, pose_group=POSES)
+                torch.cuda.synchronize()
+        hk = _kernels(hprof)
+        out.update({
+            "confidence_model_dir": args.confidence_model_dir,
+            "head_wall_ms": head_wall,
+            "head_device_ms": sum(_device_us(e) for e in hk) / 1e3 / 5,
+            "head_k1_ms": sum(_device_us(e) for e in hk if "tp_fused_kernel" in e.key) / 1e3 / 5,
+            "head_kernel_launches": sum(e.count for e in hk) / 5,
+        })
     print(json.dumps(out))
     return out
 

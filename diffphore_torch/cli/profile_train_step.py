@@ -1,6 +1,6 @@
 """Where the time of one training step goes on the GPU.
 
-    python -m diffphore_torch.cli.profile_train_step [--rate_from_infer 0.6]
+    python -m diffphore_torch.cli.profile_train_step [--rate_from_infer 0.6 | --confidence_mode]
         [--compute_dtype float32]
 
 Runs the train step (fresh corpus2-width model, dropout on, batch 24 of
@@ -9,7 +9,9 @@ warm-up steps, once timed by the host clock around a synchronized window
 and once under ``torch.profiler``.  With ``--rate_from_infer`` > 0 it is the
 calibrated-conformation-sampler step at that branch probability, from the
 shipped corpus2 weights (the frozen reverse step needs a trained model to
-be a fair load).  The convs compute in the shipped config's
+be a fair load).  With ``--confidence_mode`` it is the confidence head's train
+step (fresh weights, the config of ``runs/corpus2/confidence``, its
+``rmsd_lt2`` labels).  The convs compute in the shipped config's
 ``compute_dtype`` (bfloat16) unless ``--compute_dtype`` says otherwise.
 Prints one JSON object: wall time per step, device-busy
 time and share (sum of kernel times over wall time), the time and launches
@@ -34,11 +36,13 @@ from ..data.graphs import concat_batches, load_cached
 from ..models.layers import set_compute_dtype
 from ..ops import tp_aggregate, tp_fused, tp_scalar
 from ..train.ccsampler import make_ccsampler_train_step
+from ..train.confidence import create_confidence_train_state, make_confidence_train_step
 from ..train.state import create_train_state, make_train_step
 from ..utils.checkpoints import load_config_yaml, load_model_dir
 from .profile_main_path import MODEL_DIR, _ROOT, _device_us
 
 CACHE_DIR = os.path.join(_ROOT, "data", "cache", "train_f1112e7d33")
+CONFIDENCE_DIR = os.path.join(_ROOT, "runs", "corpus2", "confidence")
 BUCKET = (24, 96, 8)
 BATCH, WARMUP, TIMED, PROFILED = 24, 3, 10, 5
 #: device kernel name -> the wrapper's launch counter
@@ -58,17 +62,21 @@ def main(argv=None) -> dict:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--rate_from_infer", type=float, default=0.0,
                         help="> 0: profile the calibrated-sampler step at this probability")
+    parser.add_argument("--confidence_mode", action="store_true",
+                        help="profile the confidence head's train step")
     parser.add_argument("--compute_dtype", choices=["bfloat16", "float32"], default=None,
                         help="the convs' compute dtype (default: the shipped config's)")
     args = parser.parse_args(argv)
     rate = args.rate_from_infer
+    if rate > 0 and args.confidence_mode:
+        parser.error("--rate_from_infer and --confidence_mode name two different steps")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
-    cfg = load_config_yaml(MODEL_DIR)
+    cfg = load_config_yaml(CONFIDENCE_DIR if args.confidence_mode else MODEL_DIR)
     if args.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     rows = []
@@ -79,7 +87,10 @@ def main(argv=None) -> dict:
         if len(rows) == BATCH:
             break
     batch = concat_batches(rows).replace(names=(), meta=()).to("cuda")
-    if rate > 0:
+    if args.confidence_mode:
+        state = create_confidence_train_state(cfg, seed=0, device="cuda")
+        step = make_confidence_train_step(cfg, label_mode="rmsd_lt2")
+    elif rate > 0:
         _, model = load_model_dir(MODEL_DIR, device="cuda")
         set_compute_dtype(model, cfg.compute_dtype)
         state = create_train_state(cfg, device="cuda", model=model)
@@ -122,7 +133,8 @@ def main(argv=None) -> dict:
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     out = {
         "card": card,
-        "step": f"calibrated sampler, rate_from_infer {rate}" if rate > 0 else "plain diffusion",
+        "step": ("confidence head" if args.confidence_mode else
+                 f"calibrated sampler, rate_from_infer {rate}" if rate > 0 else "plain diffusion"),
         "batch": BATCH, "atoms_phore_torsions": list(BUCKET), "dropout": cfg.dropout,
         "compute_dtype": cfg.compute_dtype,
         "wall_ms_per_step": wall_ms,

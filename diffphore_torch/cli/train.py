@@ -6,11 +6,17 @@ each batch inside the train step, and runs on the GPU unless ``--device
 cpu`` is given.  Per epoch it appends to ``<run_dir>/metrics.jsonl``, runs
 the validation-loss epoch, steers the learning rate on plateaus and saves
 ``last_model.msgpack`` beside ``model_parameters.yml``; the run directory
-loads with ``utils.checkpoints.load_model_dir``.  Flag names are the JAX
+loads with ``utils.checkpoints.load_model_dir``.  Every
+``--val_inference_freq`` epochs it samples poses of the first
+``--num_inference_complexes`` validation complexes with the EMA weights
+(validation by inference), writes the ``valinf_*`` record and keeps the best
+EMA weights by ``--inference_earlystop_metric`` in
+``best_ema_inference_epoch_model.msgpack``.  Flag names are the JAX
 package's.
 
     python -m diffphore_torch.cli.train --cache_path data/cache \\
-        --run_dir runs/try1 --n_epochs 5 --batch_size 24 --val_inference_freq 0
+        --run_dir runs/try1 --n_epochs 5 --batch_size 24 --val_inference_freq 1 \\
+        --num_inference_complexes 20
 
 With ``--rate_from_infer`` > 0 the epochs whose calibrated-branch
 probability stands clear of its floor run the calibrated-conformation-sampler
@@ -22,9 +28,17 @@ from the first epoch is
         --pretrain_model_pt runs/corpus2/main/best_ema_inference_epoch_model.msgpack \\
         --rate_from_infer 0.6 --epoch_from_infer 0 --dynamic_coeff 0
 
+``--confidence_mode`` trains a confidence head instead (``train.confidence``):
+per epoch a ``confidence`` record and, with a validation set, a
+``confidence_val`` record; ``best_ema_inference_epoch_model.msgpack`` holds
+the EMA weights of the best validation loss, and the run directory loads
+with ``utils.checkpoints.load_confidence_dir``:
+
+    python -m diffphore_torch.cli.train --confidence_mode --cache_path data/cache \\
+        --run_dir runs/conf1 --n_epochs 5 --batch_size 24
+
 Not part of the port yet, and refused with a message that says so: datasets
-from raw files, validation by inference, the tank baseline and the
-confidence head.
+from raw files and the tank baseline.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -42,14 +56,21 @@ import torch
 from ..data.dataset import CachedDataset, cache_directories, warmup_subset
 from ..data.loaders import BucketLoader
 from ..device import resolve_device
+from ..chem.rmsd import plain_rmsd
 from ..models.score_model import ScoreModelConfig
+from ..sampler.sampling import SamplerSettings
 from ..train.ccsampler import dynamic_schedule, make_ccsampler_train_step
-from ..train.state import create_train_state, make_eval_step, make_train_step, set_learning_rate
+from ..train.confidence import (LABEL_MODES, create_confidence_train_state,
+                                make_confidence_eval_step, make_confidence_train_step)
+from ..train.state import (create_train_state, ema_model, make_eval_step, make_train_step,
+                           set_learning_rate)
 from ..utils import checkpoints, flat_yaml
 from ..utils.logging import AverageMeter, MetricsWriter, log_info
+from .pipeline import FitEngine, job_from_cached
 
 TRAIN_KEYS = ("loss", "tr_loss", "rot_loss", "tor_loss")
 VAL_KEYS = TRAIN_KEYS + ("tr_base_loss", "rot_base_loss", "tor_base_loss")
+CONFIDENCE_KEYS = ("loss", "loss_ph", "loss_ex", "loss_total")
 
 #: flags of parts that are not ported: (flag, its off value, the slice that brings it)
 _FEATURIZATION = "the host featurization slice (chem/, data/dataset.py from raw files)"
@@ -60,7 +81,6 @@ NOT_PORTED = (
     ("matching", False, _FEATURIZATION), ("ligand_only", False, _FEATURIZATION),
     ("phore_augment", 0, _FEATURIZATION), ("conf_augment", 0, _FEATURIZATION),
     ("model_type", "diff", "the variants slice (train/tank.py)"),
-    ("confidence_mode", False, "the confidence-head slice (models/confidence.py)"),
 )
 
 
@@ -101,9 +121,18 @@ def parse_args(argv=None):
                    help="epochs to warm up training with fewer samples")
     p.add_argument("--warmup_propotion", type=float, default=0.03)
     p.add_argument("--warmup_number", type=int, default=20000)
+    p.add_argument("--valid_warmup_propotion", type=float, default=0.03)
+    p.add_argument("--valid_warmup_number", type=int, default=1000,
+                   help="validation complexes sampled in warm-up epochs (0: the proportion)")
     # validation
     p.add_argument("--val_inference_freq", type=int, default=5,
-                   help="validation by inference is not ported yet: pass 0 with a val set")
+                   help="validate by inference every N epochs (0 = off)")
+    p.add_argument("--num_inference_complexes", type=int, default=100)
+    p.add_argument("--inference_steps", type=int, default=20)
+    p.add_argument("--inference_samples", type=int, default=4)
+    p.add_argument("--inference_earlystop_metric", type=str, default="valinf_rmsds_lt2")
+    p.add_argument("--inference_earlystop_goal", type=str, default="max", choices=["max", "min"])
+    p.add_argument("--early_stop_patience", type=int, default=0, help="0 = off")
     p.add_argument("--test_sigma_intervals", type=int, default=0,
                    help="val loss bucketed into this many t intervals (0 = off)")
     p.add_argument("--val_loss_freq", type=int, default=1,
@@ -186,7 +215,17 @@ def parse_args(argv=None):
                    help="the convs' edge MLP and aggregate operands (bf16 as the JAX "
                         "package computes them, or float32)")
     p.add_argument("--model_type", type=str, default="diff", choices=["diff", "tank"])
-    p.add_argument("--confidence_mode", action="store_true", help="not ported yet")
+    # confidence head
+    p.add_argument("--confidence_mode", action="store_true",
+                   help="train a confidence head instead of the score model")
+    p.add_argument("--confidence_dropout", type=float, default=0.0)
+    p.add_argument("--confidence_no_batchnorm", action="store_true",
+                   help="accepted for the JAX package's flag set; unused")
+    p.add_argument("--confidence_label", type=str, default="rmsd_lt2", choices=LABEL_MODES,
+                   help="rmsd_lt2: the logit of RMSD < 2 A of the noised pose; fitness: "
+                        "regress the analytic fitness")
+    p.add_argument("--by_total", action="store_true",
+                   help="fitness labels: regress the total fitness instead of the ph/ex pair")
     args = p.parse_args(argv)
     if args.config:
         for k, v in flat_yaml.load(args.config).items():
@@ -250,22 +289,193 @@ def val_loss_epoch(eval_step, model, val_loader, generator, device, n_intervals:
     return meter.summary()
 
 
+def val_inference(cfg, model, val_dataset, args, device,
+                  max_complexes: Optional[int] = None) -> Dict[str, float]:
+    """Sample ``--inference_samples`` poses of each of the first
+    ``--num_inference_complexes`` (or ``max_complexes``) validation
+    complexes with ``model`` in ``--inference_steps`` reverse steps, and
+    score the top pose by fitness (PhScore1): the share of complexes whose
+    top pose lies within 2 A (and 5 A) of the true pose (plain RMSD), the
+    mean RMSD and fitness, and the share whose top pose puts an atom within
+    1 A of an exclusion sphere's center.  Complexes without a true pose, and
+    complexes whose sampling raises (logged), are left out."""
+    engine = FitEngine(cfg, model, samples_per_complex=args.inference_samples,
+                       settings=SamplerSettings(inference_steps=args.inference_steps),
+                       seed=args.seed, device=str(device))
+    n = min(len(val_dataset), max_complexes if max_complexes else args.num_inference_complexes)
+    batches = [b for b in (val_dataset[i] for i in range(n)) if "orig_pos" in b.meta[0]]
+    results = engine.run_complexes([job_from_cached(b) for b in batches], skip_failed=True)
+    rmsds, fits, clashes = [], [], []
+    for batch, res in zip(batches, results):
+        if "error" in res:
+            continue
+        poses, fit = res["poses"], res["fitscore"]
+        n_atoms = poses.shape[1]
+        orig = np.asarray(batch.meta[0]["orig_pos"])[:n_atoms]
+        best = int(np.argmax(fit))
+        rmsds.append(plain_rmsd(poses[best], orig))
+        fits.append(max(fit))
+        ex_mask = ((batch.phoretype[0, :, -1] == 1) & batch.phore_mask[0]).numpy()
+        if ex_mask.any():
+            ex = batch.phore_pos[0].numpy()[ex_mask] + batch.orig_center[0].numpy()
+            d = np.linalg.norm(poses[best][:, None, :] - ex[None, :, :], axis=-1)
+            clashes.append(float(d.min() < 1.0))
+    rmsds = np.asarray(rmsds) if rmsds else np.asarray([np.inf])
+    return {
+        "valinf_rmsds_lt2": float((rmsds < 2).mean()),
+        "valinf_rmsds_lt5": float((rmsds < 5).mean()),
+        "valinf_mean_rmsd": float(np.mean(rmsds)),
+        "valinf_mean_fitscore": float(np.mean(fits)) if fits else -2.0,
+        "valinf_clash_fraction": float(np.mean(clashes)) if clashes else 0.0,
+        "valinf_n": len(rmsds),
+    }
+
+
+def val_inference_count(args, epoch: int, n_val: int) -> Optional[int]:
+    """Validation complexes to sample at ``epoch``: fewer in warm-up epochs
+    (``--valid_warmup_number``, or the ``--valid_warmup_propotion`` of the
+    set when that is 0), else ``--num_inference_complexes`` (None)."""
+    if epoch >= args.warmup_epochs:
+        return None
+    if args.valid_warmup_number > 0:
+        return args.valid_warmup_number
+    return max(1, int(args.valid_warmup_propotion * n_val))
+
+
+def restart(args, state) -> bool:
+    """Load ``--restart_dir``/``--model_ckpt`` into ``state`` when it exists,
+    then set ``--restart_lr`` when it is positive; whether it loaded."""
+    if not args.restart_dir:
+        return False
+    ckpt = os.path.join(args.restart_dir, args.model_ckpt)
+    if not os.path.exists(ckpt):
+        return False
+    checkpoints.load_train_state(state, ckpt)
+    log_info(f"Restarted from `{ckpt}`")
+    if args.restart_lr > 0:
+        set_learning_rate(state, args.restart_lr)
+    return True
+
+
+def save_last(args, state, epoch: int) -> None:
+    """``last_model.msgpack`` every ``--ckpt_freq`` epochs and at the end."""
+    if (epoch + 1) % max(args.ckpt_freq, 1) == 0 or epoch == args.n_epochs - 1:
+        checkpoints.save_train_state(state, os.path.join(args.run_dir, checkpoints.LAST_MODEL))
+
+
+class Plateau:
+    """The best loss so far and the plateau decay of the learning rate: more
+    than ``--scheduler_patience`` epochs without a new best multiply it by
+    ``--lr_decay_factor``."""
+
+    def __init__(self, args, state):
+        self.patience, self.factor = args.scheduler_patience, args.lr_decay_factor
+        self.lr = state.learning_rate
+        self.best = np.inf
+        self.rounds = 0
+
+    def update(self, state, loss: float) -> bool:
+        """Record an epoch's loss; whether it is a new best."""
+        if loss < self.best - 1e-6:
+            self.best, self.rounds = loss, 0
+            return True
+        self.rounds += 1
+        if self.rounds > self.patience:
+            self.lr *= self.factor
+            set_learning_rate(state, self.lr)
+            self.rounds = 0
+            log_info(f"plateau: lr -> {self.lr:.2e}")
+        return False
+
+
+def train_confidence(args, device) -> None:
+    """The ``--confidence_mode`` loop: noise each batch, label the noised
+    poses by the analytic fitness (or RMSD < 2 A), regress them; validate on
+    the EMA weights with the batch-statistics eval step, keep the best EMA
+    weights, and steer the learning rate on plateaus."""
+    cfg = model_config_from_args(args)
+    train_ds, val_ds = build_datasets(args)
+    if len(train_ds) == 0:
+        raise SystemExit("Empty training dataset")
+    loader = BucketLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
+    state = create_confidence_train_state(cfg, args.confidence_dropout, seed=args.seed,
+                                          lr=args.lr, weight_decay=args.w_decay,
+                                          device=str(device))
+    step_fn = make_confidence_train_step(cfg, args.ema_rate, args.by_total, args.confidence_label)
+    eval_fn = make_confidence_eval_step(cfg, args.by_total, args.confidence_label)
+    restart(args, state)
+    checkpoints.save_config_yaml(cfg, args.run_dir, extra={
+        "mode": "confidence", "n_epochs": args.n_epochs, "batch_size": args.batch_size,
+        "lr": args.lr, "ema_rate": args.ema_rate, "by_total": args.by_total,
+        "confidence_dropout": args.confidence_dropout,
+        "confidence_label": args.confidence_label,
+    })
+    log_info(f"Training a confidence head on {device}: {len(train_ds)} complexes in "
+             f"{len(loader)} batches of {args.batch_size}, labels {args.confidence_label}")
+    generator = torch.Generator(device=device)
+    generator.manual_seed(args.seed)
+    plateau = Plateau(args, state)
+    val_loader = (BucketLoader(val_ds, args.batch_size, shuffle=False)
+                  if val_ds is not None and len(val_ds) else None)
+    keys = CONFIDENCE_KEYS
+
+    with MetricsWriter(os.path.join(args.run_dir, "metrics.jsonl")) as metrics_out:
+        for epoch in range(args.n_epochs):
+            meter = AverageMeter(list(keys))
+            t0 = time.time()
+            steps = 0
+            for batch in loader:
+                state, m = step_fn(state, batch.replace(names=(), meta=()).to(device), generator)
+                row = torch.stack([m[k] for k in keys]).cpu().numpy()  # one transfer
+                meter.add(dict(zip(keys, row)))
+                steps += 1
+            summary = meter.summary()
+            summary.update({"epoch": epoch, "lr": plateau.lr, "epoch_time": time.time() - t0,
+                            "steps": steps, "mode": "confidence"})
+            log_info(f"confidence epoch {epoch}: loss={summary.get('loss', float('nan')):.4f} "
+                     f"ph={summary.get('loss_ph', 0):.4f} ex={summary.get('loss_ex', 0):.4f} "
+                     f"({summary['epoch_time']:.1f}s)")
+            metrics_out.write(summary)
+            save_last(args, state, epoch)
+
+            # the best and the plateau compare like with like: the train loss
+            # without a validation set, the val loss on epochs where it ran
+            val_loss = None if val_loader is not None else summary.get("loss", np.inf)
+            if val_loader is not None and ((epoch + 1) % max(args.val_loss_freq, 1) == 0
+                                           or epoch == args.n_epochs - 1):
+                ema = ema_model(state)
+                vmeter = AverageMeter(list(keys))
+                for vb in val_loader:
+                    vm = eval_fn(ema, vb.replace(names=(), meta=()).to(device), generator)
+                    vmeter.add(dict(zip(keys, torch.stack([vm[k] for k in keys]).cpu().numpy())))
+                vs = vmeter.summary()
+                vs.update({"epoch": epoch, "mode": "confidence_val"})
+                metrics_out.write(vs)
+                val_loss = vs.get("loss", np.inf)
+                log_info(f"confidence val: loss={val_loss:.4f}")
+            if val_loss is not None and plateau.update(state, val_loss):
+                checkpoints.save_ema_variables(
+                    state, os.path.join(args.run_dir, checkpoints.BEST_EMA_MODEL))
+    log_info("Confidence training finished.")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if args.model_type == "tank" and args.confidence_mode:
+        raise SystemExit("--confidence_mode is a diff-model training mode; "
+                         "it cannot be combined with --model_type tank")
     refuse_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.run_dir, exist_ok=True)
+    if args.confidence_mode:
+        train_confidence(args, device)
+        return
 
     cfg = model_config_from_args(args)
     train_ds, val_ds = build_datasets(args)
     if len(train_ds) == 0:
         raise SystemExit("Empty training dataset")
     has_val = val_ds is not None and len(val_ds) > 0
-    if has_val and args.val_inference_freq:
-        raise NotImplementedError(
-            "--val_inference_freq > 0 with a validation set is not part of the PyTorch port yet "
-            "(it comes with the evaluation slice: train/metrics.py, RMSD); pass "
-            "--val_inference_freq 0")
     loader = BucketLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
     warm_loader = None
     if args.warmup_epochs > 0:
@@ -298,15 +508,7 @@ def main(argv=None) -> None:
         log_info(f"Initialized from pretrained `{args.pretrain_model_pt}` "
                  f"(fresh optimizer, epoch 0)")
 
-    start_epoch = 0
-    if args.restart_dir:
-        ckpt = os.path.join(args.restart_dir, args.model_ckpt)
-        if os.path.exists(ckpt):
-            checkpoints.load_train_state(state, ckpt)
-            start_epoch = state.step // max(len(loader), 1)
-            log_info(f"Restarted from `{ckpt}` at epoch {start_epoch}")
-            if args.restart_lr > 0:
-                set_learning_rate(state, args.restart_lr)
+    start_epoch = state.step // max(len(loader), 1) if restart(args, state) else 0
 
     checkpoints.save_config_yaml(cfg, args.run_dir, extra={
         "n_epochs": args.n_epochs, "batch_size": args.batch_size, "lr": args.lr,
@@ -315,11 +517,11 @@ def main(argv=None) -> None:
     })
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed + start_epoch)
-    best_val_loss = np.inf
-    plateau = 0
-    lr = state.learning_rate if args.restart_dir else args.lr
+    plateau = Plateau(args, state)
+    best_metric = -np.inf if args.inference_earlystop_goal == "max" else np.inf
+    best_rmsd = np.inf
+    es_rounds = 0          # val-inference rounds without improvement of the metric
     eval_step = val_loader = None
-    last_model = os.path.join(args.run_dir, checkpoints.LAST_MODEL)
 
     with MetricsWriter(os.path.join(args.run_dir, "metrics.jsonl")) as metrics_out:
         for epoch in range(start_epoch, args.n_epochs):
@@ -355,7 +557,7 @@ def main(argv=None) -> None:
                 profiler.export_chrome_trace(trace)
                 log_info(f"torch.profiler trace written to {trace}")
             summary = meter.summary()
-            summary.update({"epoch": epoch, "lr": lr, "epoch_time": time.time() - t0,
+            summary.update({"epoch": epoch, "lr": plateau.lr, "epoch_time": time.time() - t0,
                             "steps": steps, "p_from_infer": p_cc if use_cc else 0.0})
             log_info(f"epoch {epoch}: loss={summary.get('loss', float('nan')):.4f} "
                      f"tr={summary.get('tr_loss', 0):.3f} rot={summary.get('rot_loss', 0):.3f} "
@@ -375,20 +577,36 @@ def main(argv=None) -> None:
                 log_info(f"val loss: {val_summary.get('loss', float('nan')):.4f}")
 
             # plateau LR control on the val loss (the train loss without a val set)
-            cur = (val_summary or summary).get("loss", np.inf)
-            if cur < best_val_loss - 1e-6:
-                best_val_loss = cur
-                plateau = 0
-            else:
-                plateau += 1
-                if plateau > args.scheduler_patience:
-                    lr *= args.lr_decay_factor
-                    set_learning_rate(state, lr)
-                    plateau = 0
-                    log_info(f"plateau: lr -> {lr:.2e}")
+            plateau.update(state, (val_summary or summary).get("loss", np.inf))
+            save_last(args, state, epoch)
 
-            if (epoch + 1) % max(args.ckpt_freq, 1) == 0 or epoch == args.n_epochs - 1:
-                checkpoints.save_train_state(state, last_model)
+            if has_val and args.val_inference_freq and (epoch + 1) % args.val_inference_freq == 0:
+                vm = val_inference(cfg, ema_model(state), val_ds, args, device,
+                                   val_inference_count(args, epoch, len(val_ds)))
+                vm["epoch"] = epoch
+                metrics_out.write(vm)
+                log_info(f"val inference: {vm}")
+                metric = vm.get(args.inference_earlystop_metric, 0.0)
+                better = (metric > best_metric if args.inference_earlystop_goal == "max"
+                          else metric < best_metric)
+                # with few val complexes the share metrics tie often: a tie
+                # goes to the lower mean RMSD, else the best would freeze at
+                # the first tying epoch
+                mean_rmsd = vm.get("valinf_mean_rmsd", np.inf)
+                if metric == best_metric and mean_rmsd < best_rmsd:
+                    better = True
+                if better:
+                    best_metric, best_rmsd, es_rounds = metric, mean_rmsd, 0
+                    checkpoints.save_ema_variables(
+                        state, os.path.join(args.run_dir, checkpoints.BEST_EMA_MODEL))
+                    log_info(f"new best {args.inference_earlystop_metric}={metric:.4f}; "
+                             f"saved {checkpoints.BEST_EMA_MODEL}")
+                else:
+                    es_rounds += 1
+                    if args.early_stop_patience and es_rounds >= args.early_stop_patience:
+                        log_info(f"early stop: {args.inference_earlystop_metric} did not "
+                                 f"improve for {es_rounds} val-inference rounds")
+                        break
     log_info("Training finished.")
 
 

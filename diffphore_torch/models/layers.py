@@ -4,7 +4,10 @@ mode, masked batch statistics in training mode) and the channelwise
 dense-edge tensor-product convolution.
 
 ``nn.Module.training`` stands for the JAX package's ``deterministic=False``
-and ``use_running_average=False``, which its trainer always sets together.
+and ``use_running_average=False``, which its trainers set together.  The one
+place that separates them, the confidence head's validation step
+(``deterministic=True, use_running_average=False``), runs in eval mode under
+:func:`batch_statistics`.
 
 Attribute names mirror the JAX package's flax scope names (``Dense_0``,
 ``Embed_k``, ``fc_w1``, ``mix_k``, ``bn``), so a checkpoint converts by a
@@ -13,7 +16,8 @@ mechanical tree walk (:mod:`diffphore_torch.utils.checkpoints`).
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+import contextlib
+from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as Fn
@@ -106,7 +110,9 @@ class EquivariantBatchNorm(nn.Module):
     statistics of the batch over the nodes ``mask`` marks valid (all of them
     when None): the mean and the biased variance around it for scalars, the
     mean component power for l > 0; and moves the running statistics toward
-    them by ``momentum``.
+    them by ``momentum``.  With ``use_batch_stats`` set (see
+    :func:`batch_statistics`) eval mode normalizes by the batch's statistics
+    too and leaves the running ones as they are.
     """
 
     def __init__(self, irreps: str, eps: float = 1e-5, momentum: float = 0.1):
@@ -120,9 +126,10 @@ class EquivariantBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_scalar_ch))
         self.register_buffer("mean", torch.zeros(num_scalar_ch))
         self.register_buffer("var", torch.ones(num_ch))
+        self.use_batch_stats = False
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        batch_stats = self.training
+        batch_stats = self.training or self.use_batch_stats
         if batch_stats:
             m = (torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if mask is None
                  else mask.to(x.dtype))
@@ -161,12 +168,28 @@ class EquivariantBatchNorm(nn.Module):
                 out = field * (torch.rsqrt(var + self.eps) * w)[..., None]
                 outs.append(out.reshape(out.shape[:-2] + (-1,)))
             ch_off += mul
-        if batch_stats:
+        if self.training and not self.use_batch_stats:
             with torch.no_grad():   # the running statistics are updated in place
                 if new_means:
                     self.mean.mul_(1 - self.momentum).add_(self.momentum * torch.cat(new_means))
                 self.var.mul_(1 - self.momentum).add_(self.momentum * torch.cat(new_vars))
         return torch.cat(outs, dim=-1)
+
+
+@contextlib.contextmanager
+def batch_statistics(model: nn.Module) -> Iterator[nn.Module]:
+    """Within the block, every batch norm of ``model`` normalizes by the
+    statistics of the batch it is given and leaves its running statistics
+    untouched, whatever the mode; in eval mode dropout stays off and the
+    convolutions keep their eval route (K1)."""
+    norms = [m for m in model.modules() if isinstance(m, EquivariantBatchNorm)]
+    for m in norms:
+        m.use_batch_stats = True
+    try:
+        yield model
+    finally:
+        for m in norms:
+            m.use_batch_stats = False
 
 
 def set_compute_dtype(model: nn.Module, compute_dtype: str) -> None:

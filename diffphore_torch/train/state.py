@@ -9,6 +9,7 @@ writes the learning rate through :func:`set_learning_rate`.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, Optional
 
@@ -16,6 +17,7 @@ import torch
 
 from ..data.transforms import NoiseDraws, apply_noise
 from ..device import resolve_device
+from ..models.layers import Dropout
 from ..models.score_model import (ScoreModel, ScoreModelConfig, init_parameters,
                                   set_dropout_generator)
 from .losses import score_matching_loss
@@ -23,7 +25,7 @@ from .losses import score_matching_loss
 
 @dataclasses.dataclass
 class TrainState:
-    model: ScoreModel
+    model: torch.nn.Module               # a ScoreModel or a ConfidenceModel
     optimizer: torch.optim.Optimizer
     ema_params: Dict[str, torch.Tensor]   # by parameter name
     step: int = 0
@@ -57,30 +59,30 @@ def create_train_state(cfg: ScoreModelConfig, seed: int = 0, lr: float = 1e-3,
                       ema_params=ema)
 
 
+def ema_model(state: TrainState) -> torch.nn.Module:
+    """An eval-mode copy of the state's model holding the EMA shadow as its
+    parameters (and the current batch statistics); its dropouts hold no
+    generator."""
+    generators = {id(m.generator): None for m in state.model.modules()
+                  if isinstance(m, Dropout) and m.generator is not None}
+    model = copy.deepcopy(state.model, memo=generators)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(state.ema_params[name])
+    return model.eval()
+
+
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
     for group in state.optimizer.param_groups:
         group["lr"] = float(lr)
     return state
 
 
-def optimize(state: TrainState, cfg: ScoreModelConfig, noised, targets, batch,
-             generator: Optional[torch.Generator], ema_decay: float, tr_weight: float,
-             rot_weight: float, tor_weight: float):
-    """The part of a train step after the noise: the forward in training mode
-    (dropout from ``generator``, batch statistics), the loss, the backward,
-    the NaN guard (a non-finite loss zeroes the gradients and keeps the step
-    count aligned), the optimizer update and the EMA blend.  Returns (state,
-    metrics); ``metrics`` are 0-d tensors on the device, ``grad_finite``
-    among them."""
+def apply_gradients(state: TrainState, loss: torch.Tensor, ema_decay: float) -> torch.Tensor:
+    """The backward of ``loss``, the NaN guard (a non-finite loss zeroes the
+    gradients and keeps the step count aligned), the optimizer update and
+    the EMA blend; returns whether the loss was finite (a 0-d tensor)."""
     model = state.model
-    model.train()
-    set_dropout_generator(model, generator)
-    state.optimizer.zero_grad(set_to_none=True)
-    preds = model(noised)
-    metrics = score_matching_loss(
-        preds, targets, noised.t, batch.tor_mask, cfg.sigma_schedule,
-        tr_weight, rot_weight, tor_weight, cfg.no_torsion, valid=batch.valid)
-    loss = metrics["loss"]
     loss.backward()
     with torch.no_grad():
         ok = torch.isfinite(loss)
@@ -91,6 +93,25 @@ def optimize(state: TrainState, cfg: ScoreModelConfig, noised, targets, batch,
         for name, p in model.named_parameters():
             state.ema_params[name].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
     state.step += 1
+    return ok
+
+
+def optimize(state: TrainState, cfg: ScoreModelConfig, noised, targets, batch,
+             generator: Optional[torch.Generator], ema_decay: float, tr_weight: float,
+             rot_weight: float, tor_weight: float):
+    """The part of a train step after the noise: the forward in training mode
+    (dropout from ``generator``, batch statistics), the loss, then
+    :func:`apply_gradients`.  Returns (state, metrics); ``metrics`` are 0-d
+    tensors on the device, ``grad_finite`` among them."""
+    model = state.model
+    model.train()
+    set_dropout_generator(model, generator)
+    state.optimizer.zero_grad(set_to_none=True)
+    preds = model(noised)
+    metrics = score_matching_loss(
+        preds, targets, noised.t, batch.tor_mask, cfg.sigma_schedule,
+        tr_weight, rot_weight, tor_weight, cfg.no_torsion, valid=batch.valid)
+    ok = apply_gradients(state, metrics["loss"], ema_decay)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_finite"] = ok.to(torch.float32)
     return state, metrics

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.confidence import ConfidenceModel
 from ..models.score_model import ScoreModel, ScoreModelConfig
 from . import flat_yaml, flax_msgpack
 
@@ -74,21 +75,35 @@ def load_config_yaml(model_dir: str) -> ScoreModelConfig:
         flat_yaml.load(os.path.join(model_dir, MODEL_PARAMS_YAML)))
 
 
-def load_model_dir(model_dir: str, device: Optional[str] = None,
+def _load_dir(model_dir: str, make_model, device, checkpoint: str, use_ema: bool):
+    dev = resolve_device(device)
+    cfg = load_config_yaml(model_dir)
+    model = make_model(cfg)
+    variables = flax_msgpack.load(os.path.join(model_dir, checkpoint))
+    if use_ema:
+        variables = {**variables, "params": variables["ema_params"]}
+    model.load_state_dict(convert_variables(variables), strict=True)
+    return cfg, model.to(dev).eval()
+
+
+def load_model_dir(model_dir: str, *, device: Optional[str] = None,
                    checkpoint: str = BEST_EMA_MODEL, use_ema: bool = False
                    ) -> Tuple[ScoreModelConfig, ScoreModel]:
     """The config and the eval-mode model of a model directory, on
     ``device`` (the GPU unless the caller asks for the CPU).  ``use_ema``
     takes a train-state checkpoint's EMA shadow instead of its raw
     parameters."""
-    dev = resolve_device(device)
-    cfg = load_config_yaml(model_dir)
-    model = ScoreModel(cfg)
-    variables = flax_msgpack.load(os.path.join(model_dir, checkpoint))
-    if use_ema:
-        variables = {**variables, "params": variables["ema_params"]}
-    model.load_state_dict(convert_variables(variables), strict=True)
-    return cfg, model.to(dev).eval()
+    return _load_dir(model_dir, ScoreModel, device, checkpoint, use_ema)
+
+
+def load_confidence_dir(model_dir: str, *, device: Optional[str] = None,
+                        checkpoint: str = BEST_EMA_MODEL, use_ema: bool = False
+                        ) -> Tuple[ScoreModelConfig, ConfidenceModel]:
+    """The trunk config and the eval-mode confidence head of a
+    ``--confidence_mode`` run directory, as :func:`load_model_dir` reads a
+    score model's.  The training settings ``model_parameters.yml`` also
+    holds (``mode``, ``confidence_label``, ``by_total``, ...) are ignored."""
+    return _load_dir(model_dir, ConfidenceModel, device, checkpoint, use_ema)
 
 
 def save_config_yaml(cfg: ScoreModelConfig, model_dir: str, extra: Optional[Dict] = None) -> str:
@@ -146,6 +161,18 @@ def save_train_state(state, path: str) -> None:
             "mu": variables_from_tensors(model, moments["mu"]),
             "nu": variables_from_tensors(model, moments["nu"]),
         },
+    }, path)
+
+
+def save_ema_variables(state, path: str) -> None:
+    """The EMA shadow and the batch statistics of a
+    ``train.state.TrainState`` as ``{"params", "batch_stats"}``: the layout
+    of a shipped ``best_ema_inference_epoch_model.msgpack``."""
+    model = state.model
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    flax_msgpack.dump({
+        "params": variables_from_tensors(model, state.ema_params),
+        "batch_stats": variables_from_tensors(model, dict(model.named_buffers())),
     }, path)
 
 

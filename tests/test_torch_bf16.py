@@ -28,8 +28,8 @@ from diffphore_tpu.models import layers as jl
 from diffphore_tpu.models.score_model import ScoreModel as JScoreModel
 from diffphore_tpu.ops.tensor_product import channelwise_tp as j_channelwise_tp
 
-from torch_port_helpers import (SMALL_BF16, assert_within_gap, cached_files, configs, corpus2,
-                                load_pair_batch, noise_draws, port_model, randomize_stats)
+from torch_port_helpers import (SMALL_BF16, assert_within_gap, configs, corpus2,
+                                noised_pair, port_model, randomize_stats)
 
 torch.set_num_threads(2)
 
@@ -210,23 +210,6 @@ def test_k3_plain_matches_jax_at_bf16_with_its_path_scale(irreps_in, irreps_out)
         assert bool(((leaf.grad.float() - want.grad).abs() <= step).all()), name
 
 
-def _noised_pair(t, seed):
-    """(JAX batch, port batch) of two cached complexes of bucket 24 x 96 x 8
-    at noise levels ``t``, noised by the port with injected draws: the
-    cached pose makes ligand and phore norms parallel, and the norm channel's
-    rotation axis, their cross product, is rounding noise there."""
-    from diffphore_torch.data import graphs as tgraphs
-    from diffphore_torch.data.transforms import apply_noise
-    from diffphore_torch.ops.diffusion import SigmaSchedule
-
-    jb, tb = load_pair_batch(cached_files(n=2))
-    draws = noise_draws(jax.random.PRNGKey(seed), tb.batch_size, tb.num_torsions)
-    draws.t = torch.tensor(t, dtype=torch.float32)
-    tb, _ = apply_noise(tb, SigmaSchedule(), draws=draws)
-    jb = jb.replace(**{f: jnp.asarray(getattr(tb, f).numpy()) for f in tgraphs.ARRAY_FIELDS})
-    return jb, tb
-
-
 def _small_models(jb, seed=0):
     jcfg16, tcfg16 = configs(**SMALL_BF16)
     jcfg32, _ = configs(**{**SMALL_BF16, "compute_dtype": "float32"})
@@ -238,7 +221,7 @@ def _small_models(jb, seed=0):
 def test_small_score_model_matches_jax_at_bf16():
     """The SMALL config (2 conv layers, ns 8, nv 4) with bf16 convs: each
     output to a quarter of JAX's own f32-vs-bf16 difference."""
-    jb, tb = _noised_pair([0.7, 0.3], seed=8)
+    jb, tb = noised_pair([0.7, 0.3], seed=8)
     j16, j32, variables, model = _small_models(jb)
     ref = jax.jit(lambda v, b: j16.apply(v, b))(variables, jb)
     ref32 = jax.jit(lambda v, b: j32.apply(v, b))(variables, jb)
@@ -256,7 +239,7 @@ def test_small_score_model_training_gradients_match_jax_at_bf16():
     difference.  The gradient is held as one vector, not leaf by leaf: JAX
     reduces each edge-MLP bias gradient over edges in bf16, which moves such
     a leaf far from f32 (the port sums in f32 and rounds once)."""
-    jb, tb = _noised_pair([0.6, 0.2], seed=9)
+    jb, tb = noised_pair([0.6, 0.2], seed=9)
     j16, j32, variables, model = _small_models(jb, seed=1)
     rng = np.random.default_rng(7)
     wts = [rng.normal(size=s).astype(np.float32) for s in ((2, 3), (2, 3), (2, tb.num_torsions))]
@@ -292,7 +275,7 @@ def test_corpus2_forward_matches_jax_at_the_shipped_bf16():
     jcfg16, variables, tcfg16, model = corpus2(compute_dtype="bfloat16")
     jcfg32, _, _, _ = corpus2()
     assert tcfg16.compute_dtype == "bfloat16"
-    jb, tb = _noised_pair([0.7, 0.3], seed=8)
+    jb, tb = noised_pair([0.7, 0.3], seed=8)
     ref = jax.jit(lambda v, b: JScoreModel(jcfg16).apply(v, b))(variables, jb)
     ref32 = jax.jit(lambda v, b: JScoreModel(jcfg32).apply(v, b))(variables, jb)
     with torch.no_grad():

@@ -613,3 +613,59 @@ def test_tp_scalar_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):  # a non-contiguous weight tensor
         tp_scalar.scalar_paths_aggregate(tp, vals[0], vals[1],
                                          vals[2].transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.cuda
+def test_confidence_head_train_step_kernels_match_plain_convs(cuda):
+    """One train step of the confidence head at corpus2's width (ns 20, nv
+    10, 4 conv layers, dropout 0.1, f32 convs) from fresh weights on six
+    cached complexes: with the kernels against the plain convs, same noise
+    and dropout masks, the loss and every gradient leaf (1e-3 of the leaf's
+    scale plus 5e-6 of the largest gradient, for the two transition MLPs
+    whose true gradient is zero); K2 launches 15 forward + 15 edge backward +
+    15 dx, K3 6 + 6 + 6, K1 none."""
+    import glob
+    import os
+
+    from diffphore_torch.data.graphs import concat_batches, load_cached
+    from diffphore_torch.data.transforms import draw_noise
+    from diffphore_torch.models.layers import DenseTPConv
+    from diffphore_torch.models.score_model import ScoreModelConfig
+    from diffphore_torch.train.confidence import (create_confidence_train_state,
+                                                  make_confidence_train_step)
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    batches = []
+    for f in sorted(glob.glob(os.path.join(root, "data", "cache", "val_f1112e7d33", "*.npz"))):
+        b = load_cached(f)
+        if (b.num_atoms, b.num_phore, b.num_torsions) == (24, 96, 8):
+            batches.append(b)
+    batch = concat_batches(batches[:6]).replace(names=(), meta=()).to(cuda)
+    cfg = ScoreModelConfig(compute_dtype="float32")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    draws = draw_noise(batch.batch_size, batch.num_torsions, gen, cuda)
+    counters = (tp_fused.KERNEL, tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X,
+                tp_scalar.FWD, tp_scalar.BWD_EDGE, tp_scalar.BWD_X)
+    results = []
+    for use_kernel in (True, False):
+        state = create_confidence_train_state(cfg, seed=0, device="cuda")
+        for m in state.model.modules():
+            if isinstance(m, DenseTPConv):
+                m.use_kernel = use_kernel
+        drop = torch.Generator(device=cuda)
+        drop.manual_seed(1)
+        before = [c.launches for c in counters]
+        state, metrics = make_confidence_train_step(cfg)(state, batch, drop, draws=draws)
+        torch.cuda.synchronize()
+        launches = [c.launches - b for c, b in zip(counters, before)]
+        assert launches == ([0, 15, 15, 15, 6, 6, 6] if use_kernel else [0] * 7)
+        assert float(metrics["grad_finite"]) == 1.0
+        results.append((float(metrics["loss"]),
+                        {k: p.grad.clone() for k, p in state.model.named_parameters()}))
+    (loss_k, gk), (loss_p, gp) = results
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    floor = 5e-6 * max(float(g.abs().max()) for g in gp.values())
+    for name, g in gp.items():
+        err = float((gk[name] - g).abs().max())
+        assert err <= 1e-3 * float(g.abs().max()) + floor, (name, err)

@@ -35,6 +35,8 @@ TRAINING_MODULES = [
     "ops/tp_scalar.py", "train/ccsampler.py", "sampler/sampling.py", "cli/pipeline.py",
     # the kernel profiler
     "cli/profile_kernels.py",
+    # the confidence head and validation by inference
+    "models/confidence.py", "train/confidence.py", "train/metrics.py", "chem/rmsd.py",
 ]
 
 

@@ -6,6 +6,7 @@ with the row-batched reference built from the batch, as
 Molecule, which ``run_complexes`` needs)."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -78,8 +79,8 @@ def test_fit_engine_matches_jax_engine():
         # pose difference dr allowed above (alpha ~ 1, r ~ 2 A)
         for k in ("V_overlap", "V_exOverlap"):
             np.testing.assert_allclose(res["scores"][k], scores[k], rtol=1e-2, atol=1e-4)
-        np.testing.assert_array_equal(res["rank"],
-                                      np.argsort(-scores["phscore1"], kind="stable"))
+        # the JAX package's order of the delivered poses (cli/inference.py)
+        np.testing.assert_array_equal(res["rank"], np.argsort(scores["phscore1"])[::-1])
         assert np.isfinite(res["poses"]).all()
 
 
@@ -114,3 +115,34 @@ def test_fit_engine_random_samples_match_jax_engine():
                        settings=SamplerSettings(inference_steps=STEPS), device="cpu")
     (alone,) = single.run_complexes([job], [noise])
     assert float(np.abs(alone["poses"] - res["poses"]).max()) > 1e-2
+
+
+@pytest.mark.parametrize("with_confidence", [False, True])
+def test_rank_orders_tied_scores_as_the_jax_package(monkeypatch, with_confidence):
+    """``rank`` is ``np.argsort(key)[::-1]``, the JAX package's expression,
+    with the confidence row as the key when the engine has a head and the
+    fitness otherwise: on tied keys the later pose comes first (a stable
+    sort of the negated key would put the earlier one first)."""
+    from diffphore_torch.models.score_model import ScoreModel
+
+    from torch_port_helpers import SMALL, configs
+
+    _, tcfg = configs(**SMALL)
+    engine = FitEngine(tcfg, ScoreModel(tcfg), samples_per_complex=4, device="cpu")
+    fit = torch.tensor([0.5, 0.7, 0.5, 0.7])
+    conf = torch.tensor([2.0, -1.0, 3.0, 2.0])
+
+    def run_batch(batch, ref, pose_group=1, noise=None):
+        scores = {"phscore1": fit.clone()}
+        if with_confidence:
+            scores["confidence"] = conf.clone()
+        return batch.lig_pos, scores
+
+    monkeypatch.setattr(engine, "run_batch", run_batch)
+    (res,) = engine.run_complexes([job_from_cached(load_cached(cached_files(n=1)[0]))])
+    if with_confidence:
+        assert list(res["rank"]) == [2, 3, 0, 1] and res["confidence"] == conf.tolist()
+    else:
+        assert list(res["rank"]) == [3, 1, 2, 0] and "confidence" not in res
+    key = conf if with_confidence else fit
+    assert list(res["rank"]) == list(np.argsort(key.numpy())[::-1])

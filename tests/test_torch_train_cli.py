@@ -2,8 +2,10 @@
 of cached complexes, a narrow model, two epochs.  Checks what it writes,
 that the run directory loads and samples, that a restart resumes, that a
 JAX checkpoint initializes a fine-tune, that ``--rate_from_infer`` engages
-the calibrated-sampler step by its schedule and floor, and that every flag
-of a part that is not ported raises."""
+the calibrated-sampler step by its schedule and floor, that
+``--confidence_mode`` and ``--val_inference_freq`` write the JAX package's
+records and checkpoints that load in both packages, and that every flag of
+a part that is not ported raises."""
 
 import json
 import os
@@ -162,20 +164,16 @@ def test_pretrain_from_the_jax_checkpoint(cache_path, tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--model_type", "tank"], "variants slice"),
-    (["--confidence_mode"], "confidence-head slice"),
     (["--conf_augment", "2"], "featurization slice"),
     (["--train_csv", "pairs.csv"], "featurization slice"),
     (["--data_dir", "x", "--split_train", "y"], "featurization slice"),
     (["--featurize_only"], "featurization slice"),
     (["--ligand_only"], "featurization slice"),
     (["--phore_augment", "2"], "featurization slice"),
-    (["--val_inference_freq", "5"], "evaluation slice"),
 ])
 def test_unported_flags_raise(cache_path, tmp_path, flags, match):
     base = ["--cache_path", cache_path, "--run_dir", str(tmp_path / "r"), "--n_epochs", "1",
             *SMALL_FLAGS]
-    if "--val_inference_freq" in flags:
-        base = [a for a in base if a not in ("--val_inference_freq", "0")] + ["--batch_size", "2"]
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(base + flags)
     assert not os.path.exists(os.path.join(str(tmp_path / "r"), checkpoints.LAST_MODEL))
@@ -253,3 +251,308 @@ def test_cc_probability_follows_the_jax_cli_gating():
     args = tcli.parse_args(["--rate_from_infer", "0.4", "--epoch_from_infer", "7"])
     assert [tcli.cc_probability(args, e) for e in (0, 6, 7, 8)] == [0.0, 0.0, 0.4, 0.4]
     assert tcli.cc_probability(tcli.parse_args([]), 500) == 0.0
+
+
+# ------------------------------------------------------------------ confidence head
+
+CONF_KEYS = ("loss", "loss_ph", "loss_ex", "loss_total")
+
+
+@pytest.fixture(scope="module")
+def confidence_run(cache_path, tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("conf"))
+    tcli.main(["--confidence_mode", "--cache_path", cache_path, "--run_dir", out,
+               "--n_epochs", "2", "--compute_dtype", "float32", "--confidence_label", "fitness",
+               "--by_total", "--confidence_no_batchnorm", *SMALL_FLAGS])
+    return out
+
+
+def test_confidence_mode_writes_the_jax_records(confidence_run):
+    recs = _records(confidence_run)
+    assert [(r["mode"], r["epoch"]) for r in recs] == [
+        ("confidence", 0), ("confidence_val", 0), ("confidence", 1), ("confidence_val", 1)]
+    for r in recs:
+        assert all(np.isfinite(r[k]) for k in CONF_KEYS)
+        assert r["loss"] == r["loss_total"]                       # --by_total
+    assert recs[0]["steps"] == 3 and recs[0]["lr"] == 1e-3
+    cfg = flat_yaml.load(os.path.join(confidence_run, checkpoints.MODEL_PARAMS_YAML))
+    assert (cfg["mode"], cfg["confidence_label"], cfg["by_total"], cfg["ns"]) == (
+        "confidence", "fitness", True, 8)
+    for name in (checkpoints.LAST_MODEL, checkpoints.BEST_EMA_MODEL):
+        assert os.path.exists(os.path.join(confidence_run, name))
+
+
+def test_confidence_run_directory_loads_in_both_packages(confidence_run):
+    """The best-EMA file loads in the port (``load_confidence_dir``) and, as
+    ``{"params", "batch_stats"}``, in the JAX package
+    (``checkpoints.load_variables``); both heads give the same outputs.  The
+    last-model file's EMA shadow loads in the port too."""
+    import jax
+
+    from diffphore_tpu.data.dataset import load_complex
+    from diffphore_tpu.models.confidence import ConfidenceModel as JConfidenceModel
+    from diffphore_tpu.utils import checkpoints as jckpt
+
+    from torch_port_helpers import noised_pair
+
+    cfg, head = checkpoints.load_confidence_dir(confidence_run, device="cpu")
+    _, last = checkpoints.load_confidence_dir(confidence_run, device="cpu",
+                                              checkpoint=checkpoints.LAST_MODEL, use_ema=True)
+    for (k, a), b in zip(head.state_dict().items(), last.state_dict().values()):
+        assert torch.equal(a, b), k          # the last epoch had the best val loss
+    jcfg = jckpt.load_config_yaml(confidence_run)
+    assert (jcfg.ns, jcfg.compute_dtype) == (cfg.ns, cfg.compute_dtype) == (8, "float32")
+    jmodel = JConfidenceModel(jcfg)
+    template = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                    load_complex(cached_files(n=1)[0]).replace(names=(), meta=()))
+    for name in (checkpoints.BEST_EMA_MODEL, checkpoints.LAST_MODEL):
+        jckpt.load_variables(template, os.path.join(confidence_run, name))
+    variables = jckpt.load_variables(template,
+                                     os.path.join(confidence_run, checkpoints.BEST_EMA_MODEL))
+    jb, tb = noised_pair([0.5, 0.1], seed=2)
+    want = jax.jit(jmodel.apply)(variables, jb)
+    with torch.no_grad():
+        got = head(tb)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_confidence_restart_takes_the_state_and_learning_rate(confidence_run, cache_path,
+                                                              tmp_path):
+    """``--restart_dir`` restores the head's train state (its step count
+    goes on from the 6 steps of the run) and ``--restart_lr`` sets the
+    rate; the epochs count from 0, as in the JAX package's loop."""
+    out = str(tmp_path / "again")
+    tcli.main(["--confidence_mode", "--cache_path", cache_path, "--run_dir", out,
+               "--restart_dir", confidence_run, "--restart_lr", "5e-4", "--n_epochs", "1",
+               "--compute_dtype", "float32", *SMALL_FLAGS])
+    rec = _records(out)[0]
+    assert (rec["mode"], rec["epoch"], rec["lr"], rec["steps"]) == ("confidence", 0, 5e-4, 3)
+    with open(os.path.join(out, checkpoints.LAST_MODEL), "rb") as f:
+        assert serialization.msgpack_restore(f.read())["step"] == 9
+
+
+def test_tank_with_confidence_mode_exits(tmp_path):
+    with pytest.raises(SystemExit, match="diff-model"):
+        tcli.main(["--confidence_mode", "--model_type", "tank", "--device", "cpu",
+                   "--run_dir", str(tmp_path / "r")])
+
+
+# ------------------------------------------------------------------ validation by inference
+
+VALINF_KEYS = ("valinf_rmsds_lt2", "valinf_rmsds_lt5", "valinf_mean_rmsd",
+               "valinf_mean_fitscore", "valinf_clash_fraction", "valinf_n")
+
+
+def test_val_inference_writes_valinf_records_and_best_ema(cache_path, tmp_path):
+    """One epoch with validation by inference (2 validation complexes x 3
+    poses x 3 steps) on the EMA weights: the JAX keys, finite values, and a
+    best-EMA file that loads in both packages with the same outputs."""
+    import jax
+
+    from diffphore_tpu.data.dataset import load_complex
+    from diffphore_tpu.models import ScoreModel as JScoreModel
+    from diffphore_tpu.utils import checkpoints as jckpt
+
+    from torch_port_helpers import noised_pair
+
+    out = str(tmp_path / "vi")
+    tcli.main(["--cache_path", cache_path, "--run_dir", out, "--n_epochs", "1",
+               *SMALL_FLAGS, "--val_inference_freq", "1", "--inference_steps", "3",
+               "--inference_samples", "3", "--compute_dtype", "float32"])
+    recs = _records(out)
+    (vi,) = [r for r in recs if "valinf_n" in r]
+    assert set(VALINF_KEYS) | {"epoch"} == set(vi)
+    assert vi["valinf_n"] == 2 and vi["epoch"] == 0
+    assert all(np.isfinite(vi[k]) for k in VALINF_KEYS)
+    assert 0.0 <= vi["valinf_rmsds_lt2"] <= vi["valinf_rmsds_lt5"] <= 1.0
+    _, model = checkpoints.load_model_dir(out, device="cpu")
+    jcfg = jckpt.load_config_yaml(out)
+    jmodel = JScoreModel(jcfg)
+    template = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                    load_complex(cached_files(n=1)[0]).replace(names=(), meta=()))
+    variables = jckpt.load_variables(template, os.path.join(out, checkpoints.BEST_EMA_MODEL))
+    jb, tb = noised_pair([0.5, 0.3], seed=1)
+    want = jax.jit(jmodel.apply)(variables, jb)
+    with torch.no_grad():
+        got = model(tb)
+    for g, w in zip(got, want):
+        scale = max(float(np.abs(np.asarray(w)).max()), 1.0)
+        assert float(np.abs(g.numpy() - np.asarray(w)).max()) <= 1e-5 * scale
+
+
+def test_val_inference_matches_a_hand_computation(cache_path):
+    """The valinf_* values from the poses FitEngine samples with the same
+    seed: the fitness-ranked top pose's plain RMSD to the cached true pose
+    and its least distance to an exclusion sphere's center."""
+    from diffphore_torch.chem.rmsd import plain_rmsd
+    from diffphore_torch.data.dataset import CachedDataset
+    from diffphore_torch.models.score_model import ScoreModel, init_parameters
+
+    args = tcli.parse_args(["--inference_steps", "2", "--inference_samples", "3", "--seed", "4",
+                            "--ns", "8", "--nv", "4", "--num_conv_layers", "2"])
+    cfg = tcli.model_config_from_args(args)
+    model = init_parameters(ScoreModel(cfg), 0).eval()
+    val = CachedDataset([os.path.join(cache_path, "train_small")])
+    vm = tcli.val_inference(cfg, model, val, args, "cpu", max_complexes=3)
+    engine = FitEngine(cfg, model, samples_per_complex=3,
+                       settings=SamplerSettings(inference_steps=2), seed=4, device="cpu")
+    results = engine.run_complexes([job_from_cached(val[i]) for i in range(3)])
+    rmsds, clashes = [], []
+    for i, r in enumerate(results):
+        best = int(np.argmax(r["fitscore"]))
+        rmsds.append(plain_rmsd(r["poses"][best], val[i].meta[0]["orig_pos"]))
+        b = val[i]
+        ex = (b.phoretype[0, :, -1] == 1) & b.phore_mask[0]
+        if bool(ex.any()):
+            centers = (b.phore_pos[0][ex] + b.orig_center[0]).numpy()
+            d = np.linalg.norm(r["poses"][best][:, None] - centers[None], axis=-1)
+            clashes.append(float(d.min() < 1.0))
+    assert vm["valinf_n"] == 3
+    assert vm["valinf_mean_rmsd"] == pytest.approx(np.mean(rmsds), rel=1e-6)
+    assert vm["valinf_rmsds_lt5"] == np.mean(np.asarray(rmsds) < 5)
+    assert vm["valinf_clash_fraction"] == (np.mean(clashes) if clashes else 0.0)
+    assert vm["valinf_mean_fitscore"] == pytest.approx(
+        np.mean([max(r["fitscore"]) for r in results]), rel=1e-6)
+
+
+@pytest.fixture(scope="module")
+def corpus2_cpu():
+    return checkpoints.load_model_dir(CORPUS2, device="cpu")
+
+
+@pytest.mark.parametrize("steps,fail_at", [(3, None), (5, None), (3, 1)])
+def test_val_inference_matches_the_jax_val_inference(cache_path, corpus2_cpu, monkeypatch,
+                                                     steps, fail_at):
+    """The JAX trainer's ``val_inference``, given the poses and PhScore1
+    that the port's engine samples for each complex, returns the port's
+    dict key for key: the top pose chosen (ties included), the atoms cut
+    off, the clash share and the aggregation agree.  The shipped model at
+    3 steps puts some top poses within 1 A of an exclusion center, at 5
+    steps some within 2 A of the true pose.  A complex whose sampling
+    raises is logged and left out on both sides (``valinf_n`` one lower)."""
+    from diffphore_torch.data.dataset import CachedDataset
+    from diffphore_tpu.cli import pipeline as jpipeline
+    from diffphore_tpu.cli import train as jtrain
+    from diffphore_tpu.data.dataset import load_complex
+
+    n = 5
+    args = tcli.parse_args(["--inference_steps", str(steps), "--inference_samples", "4",
+                            "--seed", "4", "--num_inference_complexes", str(n)])
+    cfg, model = corpus2_cpu
+    val = CachedDataset([os.path.join(cache_path, "train_small")])
+    assert len(val) == n
+    failing = val[fail_at].names[0] if fail_at is not None else None
+
+    sampled = {}
+    real_run_batch, real_run_complexes = FitEngine.run_batch, FitEngine.run_complexes
+    calls = []
+
+    def run_batch(self, *a, **k):
+        calls.append(len(calls))
+        if len(calls) - 1 == fail_at:
+            raise ValueError("a complex the kernels cannot take")
+        return real_run_batch(self, *a, **k)
+
+    def run_complexes(self, jobs, *a, **k):
+        results = real_run_complexes(self, jobs, *a, **k)
+        for job, res in zip(jobs, results):
+            sampled[job.name] = res
+        return results
+
+    monkeypatch.setattr(FitEngine, "run_batch", run_batch)
+    monkeypatch.setattr(FitEngine, "run_complexes", run_complexes)
+    port = tcli.val_inference(cfg, model, val, args, "cpu")
+    assert port["valinf_n"] == (n if fail_at is None else n - 1)
+    if fail_at is not None:
+        assert "error" in sampled[failing]
+
+    class StubEngine:
+        def __init__(self, *a, **k):
+            pass
+
+    def dispatch(engine, batch):
+        name = batch.names[0]
+        if name == failing:
+            raise ValueError("a complex the kernels cannot take")
+        return name
+
+    def collect(name):
+        res = sampled[name]
+        return res["poses"], res["scores"]["phscore1"].tolist(), None
+
+    monkeypatch.setattr(jpipeline, "FitEngine", StubEngine)
+    monkeypatch.setattr(jtrain, "_dispatch_batch_inference", dispatch)
+    monkeypatch.setattr(jtrain, "_collect_batch_inference", collect)
+    ref = jtrain.val_inference(None, None, [load_complex(f) for f in val.files], args)
+    assert set(port) == set(ref)
+    for k in ref:
+        assert port[k] == ref[k], k
+
+
+def test_run_complexes_raises_without_skip_failed(monkeypatch):
+    """Without ``skip_failed`` a complex whose sampling raises ends the call."""
+    from diffphore_torch.models.score_model import ScoreModel, init_parameters
+
+    cfg = tcli.model_config_from_args(tcli.parse_args(["--ns", "8", "--nv", "4",
+                                                       "--num_conv_layers", "2"]))
+    engine = FitEngine(cfg, init_parameters(ScoreModel(cfg), 0), samples_per_complex=2,
+                       settings=SamplerSettings(inference_steps=1), device="cpu")
+
+    def run_batch(*a, **k):
+        raise ValueError("a complex the kernels cannot take")
+
+    monkeypatch.setattr(engine, "run_batch", run_batch)
+    job = job_from_cached(load_cached(cached_files(n=1)[0]))
+    with pytest.raises(ValueError, match="cannot take"):
+        engine.run_complexes([job])
+    (res,) = engine.run_complexes([job], skip_failed=True)
+    assert res == {"name": job.name, "error": "ValueError('a complex the kernels cannot take')"}
+
+
+def _scripted_val_inference(monkeypatch, values):
+    """Replace sampling by a script of (metric, mean RMSD) per round."""
+    calls = []
+
+    def fake(cfg, model, val_ds, args, device, max_complexes=None):
+        metric, rmsd = values[len(calls)]
+        calls.append(max_complexes)
+        return {"valinf_rmsds_lt2": metric, "valinf_mean_rmsd": rmsd, "valinf_n": 2}
+
+    monkeypatch.setattr(tcli, "val_inference", fake)
+    return calls
+
+
+@pytest.mark.parametrize("values,rounds,best_at", [
+    # no improvement in round 2: patience 1 stops after it
+    ([(0.5, 3.0), (0.5, 3.0), (0.9, 1.0)], 2, [0]),
+    # a tie on the metric goes to the lower mean RMSD
+    ([(0.5, 3.0), (0.5, 2.0), (0.5, 2.5)], 3, [0, 1]),
+])
+def test_early_stop_and_tie_break(cache_path, tmp_path, monkeypatch, values, rounds, best_at):
+    calls = _scripted_val_inference(monkeypatch, values)
+    saved = []
+    real_save = checkpoints.save_ema_variables
+    monkeypatch.setattr(checkpoints, "save_ema_variables",
+                        lambda state, path: (saved.append(len(calls) - 1), real_save(state, path)))
+    out = str(tmp_path / "es")
+    tcli.main(["--cache_path", cache_path, "--run_dir", out, "--n_epochs", "3",
+               "--limit_complexes", "2", *SMALL_FLAGS, "--val_inference_freq", "1",
+               "--early_stop_patience", "1", "--val_loss_freq", "5"])
+    assert len(calls) == rounds and saved == best_at
+    train = [r for r in _records(out) if "steps" in r]
+    assert [r["epoch"] for r in train] == list(range(rounds))
+
+
+def test_val_inference_count_cuts_warmup_epochs():
+    args = tcli.parse_args(["--warmup_epochs", "2", "--valid_warmup_number", "7"])
+    assert [tcli.val_inference_count(args, e, 500) for e in (0, 1, 2)] == [7, 7, None]
+    args = tcli.parse_args(["--warmup_epochs", "1", "--valid_warmup_number", "0",
+                            "--valid_warmup_propotion", "0.1"])
+    assert [tcli.val_inference_count(args, e, 55) for e in (0, 1)] == [5, None]
+    assert tcli.val_inference_count(args, 0, 3) == 1
+    args = tcli.parse_args([])
+    assert (args.num_inference_complexes, args.inference_steps, args.inference_samples,
+            args.inference_earlystop_metric, args.inference_earlystop_goal,
+            args.early_stop_patience, args.val_inference_freq) == (
+        100, 20, 4, "valinf_rmsds_lt2", "max", 0, 5)

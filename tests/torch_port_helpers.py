@@ -87,8 +87,22 @@ def corpus2(compute_dtype: str = "float32"):
     return jcfg, variables, tcfg, port_model(tcfg, variables)
 
 
-def port_model(tcfg, variables) -> TScoreModel:
-    model = TScoreModel(tcfg)
+def confidence_pair(run_dir: str, compute_dtype: str = "float32"):
+    """(JAX config, JAX variables, port config, port ConfidenceModel) of a
+    shipped confidence head (``runs/corpus2/confidence``,
+    ``runs/corpus/confidence_rmsd``), both configs at ``compute_dtype``."""
+    from diffphore_torch.models.confidence import ConfidenceModel
+    from diffphore_tpu.utils.checkpoints import load_config_yaml
+
+    jcfg = dataclasses.replace(load_config_yaml(run_dir), compute_dtype=compute_dtype)
+    with open(os.path.join(run_dir, "best_ema_inference_epoch_model.msgpack"), "rb") as f:
+        variables = serialization.msgpack_restore(f.read())
+    tcfg = TConfig(**dataclasses.asdict(jcfg))
+    return jcfg, variables, tcfg, port_model(tcfg, variables, ConfidenceModel)
+
+
+def port_model(tcfg, variables, kind=TScoreModel):
+    model = kind(tcfg)
     model.load_state_dict(convert_variables(jax.tree_util.tree_map(np.asarray, dict(variables))),
                           strict=True)
     return model.eval()
@@ -260,3 +274,20 @@ def load_pair_batch(paths):
     jb = concat_batches([load_complex(p) for p in paths]).replace(names=(), meta=())
     tb = tgraphs.concat_batches([tgraphs.load_cached(p) for p in paths])
     return jax.tree_util.tree_map(jnp.asarray, jb), tb.replace(names=(), meta=())
+
+
+def noised_pair(t, seed: int, n: int = 2):
+    """(JAX batch, port batch) of the first n cached complexes of bucket
+    24 x 96 x 8 at noise levels ``t``, noised by the port with injected
+    draws: the cached pose makes ligand and phore norms parallel, and the
+    norm channel's rotation axis, their cross product, is rounding noise
+    there."""
+    from diffphore_torch.data.transforms import apply_noise
+    from diffphore_torch.ops.diffusion import SigmaSchedule
+
+    jb, tb = load_pair_batch(cached_files(n=n))
+    draws = noise_draws(jax.random.PRNGKey(seed), tb.batch_size, tb.num_torsions)
+    draws.t = torch.tensor(t, dtype=torch.float32)
+    tb, _ = apply_noise(tb, SigmaSchedule(), draws=draws)
+    jb = jb.replace(**{f: jnp.asarray(getattr(tb, f).numpy()) for f in tgraphs.ARRAY_FIELDS})
+    return jb, tb
