@@ -78,7 +78,25 @@ Phases, each fatal on failure:
      --val_inference_freq 1`` (one train step, then 4 validation complexes x 8
      poses x 20 steps on the EMA weights): K1 exactly 4 x 23 x 20 launches, a
      finite ``valinf_*`` record, the validation's wall time.
-  11. report: the kernels' JSON line (each kernel's launches per path), the
+  11. the screening CLI from files: ``diffphore_torch.cli.inference.main``
+     with the corpus2 checkpoint (bf16) on six rows (examples/task.csv's
+     three SDFs, a drug-size SMILES embedded on the host, a MOL2 written here,
+     an unparsable SMILES): five complexes x 40 poses x 20 steps, the sixth
+     logged and skipped; K1 exactly 5 x 23 x 20 launches and no K2 or K3; the
+     artifact set (ranked_results.csv, inference_results.json, 40 ranked poses
+     and a 40 x 19 .score file per complex); each ranked pose re-scored on the
+     card against the phore file within 1e-3 of its .score fitness, bond
+     lengths kept within 1e-3 A; the six rows through the CLI's engine with
+     featurization inline (as the CLI does it) and on two threads ahead of
+     the dispatches, in turns, each timed end to end; K1 against its plain version on the 23 conv inputs of one
+     forward of the SMILES job (32 atoms) and of an SDF job (16 atoms), conv
+     by conv and the whole forward, at f32 and bf16, as in phase 3; a
+     resumed run samples nothing and leaves the table byte for byte; with
+     the confidence head K1 5 x (23 x 20 + 21) launches and a descending
+     confidence property.  Prints featurization ms per complex and its share
+     of run_time, dispatch ms, poses/s, the walls inline and with threads
+     and the engine's phase timers.
+  12. report: the kernels' JSON line (each kernel's launches per path), the
      card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -273,9 +291,59 @@ def k1_work(tp, x, sh, attrs, masks, w1, w2):
     return nbytes, float(np.float64(ops))
 
 
-def phase_kernel_check(model, batch, tp_fused):
-    """Capture every conv call of one forward and hold K1 against its plain
-    version on those inputs."""
+def posed_rows(one, n, cfg, gen):
+    """A B = 1 complex as n rows at prior poses and t = 0.5."""
+    import torch
+
+    from diffphore_torch.data.graphs import repeat_batch
+    from diffphore_torch.sampler.sampling import draw_prior, randomize_position
+
+    batch = repeat_batch(one, n)
+    batch = randomize_position(batch, draw_prior(n, batch.num_torsions, gen, one.device),
+                               tr_sigma_max=cfg.tr_sigma_max)
+    return batch.replace(t=torch.full((n,), 0.5, device=one.device))
+
+
+def check_forward(model, batch, compute_dtype, poses=POSES, what="forward"):
+    """One forward, kernel convs against plain convs: at f32 within
+    TOL_FORWARD of the plain output's scale, at bf16 within TOL_BF16_GAP of
+    the plain route's own f32-vs-bf16 difference."""
+    import torch
+
+    from diffphore_torch.models.layers import DenseTPConv, set_compute_dtype
+
+    convs = [m for m in model.modules() if isinstance(m, DenseTPConv)]
+    fwd = {}
+    with torch.inference_mode():
+        for dtype in ("float32", "bfloat16"):
+            set_compute_dtype(model, dtype)
+            for use_kernel in (True, False):
+                for m in convs:
+                    m.use_kernel = use_kernel
+                fwd[dtype, use_kernel] = model(batch, pose_group=poses)
+    for m in convs:
+        m.use_kernel = True
+    set_compute_dtype(model, compute_dtype)
+    faults = []
+    for i, label in enumerate(("tr", "rot", "tor")):
+        b32, b16 = fwd["float32", False][i], fwd["bfloat16", False][i]
+        scale = float(b32.abs().max().clamp_min(1e-30))
+        rel = float((fwd["float32", True][i] - b32).abs().max()) / scale
+        rel_bf = float((fwd["bfloat16", True][i] - b16).abs().max()) / scale
+        gap = float((b32 - b16).abs().max()) / scale
+        print(f"{what} {label}: max |kernel - plain| / max|plain| = {rel:.2e} (f32), "
+              f"{rel_bf:.2e} (bf16; the plain route's f32-vs-bf16 difference {gap:.2e})",
+              flush=True)
+        if not rel <= TOL_FORWARD:
+            faults.append(f"{what} {label} differs: {rel} > {TOL_FORWARD}")
+        if not rel_bf <= TOL_BF16_GAP * gap:
+            faults.append(f"bf16 {what} {label} differs: {rel_bf} > {TOL_BF16_GAP} * {gap}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def capture_conv_calls(model, batch, poses=POSES):
+    """(name, module, args) of every conv call of one eval forward."""
     import torch
 
     from diffphore_torch.models.layers import DenseTPConv
@@ -287,46 +355,73 @@ def phase_kernel_check(model, batch, tp_fused):
             hooks.append(mod.register_forward_hook(
                 lambda m, args, out, name=name: calls.append((name, m, args))))
     with torch.inference_mode():
-        model(batch, pose_group=POSES)
+        model(batch, pose_group=poses)
     for h in hooks:
         h.remove()
     if len(calls) != CONVS_PER_FORWARD:
         raise RuntimeError(f"captured {len(calls)} conv calls, expected {CONVS_PER_FORWARD}")
+    return calls
 
+
+def check_k1_call(tp_fused, name, mod, args):
+    """K1 against its plain version on one conv call's inputs, at f32 and
+    at bf16: two runs bit-equal, each within TOL_F32 / TOL_BF16 of the plain
+    output's largest element.  Returns the f32 operands, the bf16 ones and
+    the outputs and errors."""
+    import torch
+
+    sender, edge_attr, edge_sh, edge_mask, *_ = args
     f32, bf16 = torch.float32, torch.bfloat16
+    attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
+    masks = edge_mask if isinstance(edge_mask, (list, tuple)) else [edge_mask]
+    x = sender.to(f32).contiguous()
+    sh = edge_sh.to(f32).contiguous()
+    attrs = [a.to(f32).contiguous() for a in attrs]
+    masks = [m.contiguous() for m in masks]
+    params = (mod.fc_w1.detach(), mod.fc_b1.detach(), mod.fc_w2.detach(), mod.fc_b2.detach())
+    tp = mod.tp
+    with torch.inference_mode():
+        ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params)
+        got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+        again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+        low = (x.to(bf16), sh.to(bf16), [a.to(bf16) for a in attrs])
+        ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params)
+        got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
+        again_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
+        torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(got_bf, again_bf)):
+        raise AssertionError(f"{name}: two runs of tp_fused on the same inputs differ")
+    scale, scale_bf = float(ref.abs().max()), float(ref_bf.abs().max())
+    err = float((got - ref).abs().max())
+    err_bf = float((got_bf - ref_bf).abs().max())
+    if not (err <= TOL_F32 * max(scale, 1e-30)):
+        raise AssertionError(f"{name}: f32 |kernel - plain| {err} > {TOL_F32} * {scale}")
+    if not (err_bf <= TOL_BF16 * max(scale_bf, 1e-30)):
+        raise AssertionError(f"{name}: bf16 |kernel - plain| {err_bf} > {TOL_BF16} * "
+                             f"{scale_bf}")
+    return {"tp": tp, "x": x, "sh": sh, "attrs": attrs, "masks": masks, "params": params,
+            "low": low, "got_bf": got_bf, "ref_bf": ref_bf, "err": err, "scale": scale,
+            "err_bf": err_bf, "scale_bf": scale_bf}
+
+
+def phase_kernel_check(model, batch, tp_fused):
+    """Capture every conv call of one forward and hold K1 against its plain
+    version on those inputs; time each call."""
+    import torch
+
+    calls = capture_conv_calls(model, batch)
     (floor_one, call_one), (floor_ms, call_two) = k1_launch_floor(tp_fused, model)
     print(f"  launch floor of a tp_fused call with nothing to do: on the card {floor_one:.4f} ms "
           f"with one kernel, {floor_ms:.4f} ms with the sender split's second kernel; per call "
           f"from Python {call_one:.4f} and {call_two:.4f} ms", flush=True)
     cases = []
-    for name, mod, (sender, edge_attr, edge_sh, edge_mask, *_) in calls:
-        attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
-        masks = edge_mask if isinstance(edge_mask, (list, tuple)) else [edge_mask]
-        x = sender.to(f32).contiguous()
-        sh = edge_sh.to(f32).contiguous()
-        attrs = [a.to(f32).contiguous() for a in attrs]
-        masks = [m.contiguous() for m in masks]
-        params = (mod.fc_w1.detach(), mod.fc_b1.detach(), mod.fc_w2.detach(), mod.fc_b2.detach())
-        tp = mod.tp
+    for name, mod, args in calls:
+        c = check_k1_call(tp_fused, name, mod, args)
+        tp, x, sh, attrs, masks, params, low = (c[k] for k in (
+            "tp", "x", "sh", "attrs", "masks", "params", "low"))
+        err, err_bf, scale, scale_bf = c["err"], c["err_bf"], c["scale"], c["scale_bf"]
+        got_bf, ref_bf = c["got_bf"], c["ref_bf"]
         with torch.inference_mode():
-            ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params)
-            got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
-            again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
-            low = (x.to(bf16), sh.to(bf16), [a.to(bf16) for a in attrs])
-            ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params)
-            got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
-            again_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
-            torch.cuda.synchronize()
-            if not (torch.equal(got, again) and torch.equal(got_bf, again_bf)):
-                raise AssertionError(f"{name}: two runs of tp_fused on the same inputs differ")
-            scale, scale_bf = float(ref.abs().max()), float(ref_bf.abs().max())
-            err = float((got - ref).abs().max())
-            err_bf = float((got_bf - ref_bf).abs().max())
-            if not (err <= TOL_F32 * max(scale, 1e-30)):
-                raise AssertionError(f"{name}: f32 |kernel - plain| {err} > {TOL_F32} * {scale}")
-            if not (err_bf <= TOL_BF16 * max(scale_bf, 1e-30)):
-                raise AssertionError(f"{name}: bf16 |kernel - plain| {err_bf} > {TOL_BF16} * "
-                                     f"{scale_bf}")
             call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
             ms = device_ms(call, 20)
             ms_bf = device_ms(lambda: tp_fused.tp_aggregate_fused(tp, *low, masks, *params), 20)
@@ -1516,6 +1611,288 @@ def phase_val_inference(cfg, card):
     return counts
 
 
+# The screening CLI from files: the three rows of examples/task.csv, a
+# drug-size SMILES (gefitinib: 31 heavy atoms, a quinazoline, 8 rotatable
+# bonds; embedded on the host), a MOL2 the phase writes from EX02.sdf, and an
+# unparsable SMILES that is logged and skipped.
+SCREEN_SMILES = "COc1cc2ncnc(Nc3ccc(F)c(Cl)c3)c2cc1OCCCN1CCOCC1"
+SCREEN_BAD_SMILES = "C1CC(=O"
+SCREEN_SAMPLED = 5
+# A pose re-scored from its ranked SDF (4-decimal coordinates) against the
+# .score file's fitness (6 significant digits), and bond lengths of every
+# pose against the input's (rigid moves and torsion rotations keep them; the
+# coordinates are rounded to 1e-4 A).
+TOL_RESCORE = 1e-3
+TOL_BOND = 1e-3
+
+
+def write_mol2(mol, path):
+    """A TRIPOS MOL2 file of ``mol`` (element atom types, aromatic bonds
+    "ar")."""
+    from diffphore_torch.chem.mol import AROMATIC_BOND
+
+    lines = ["@<TRIPOS>MOLECULE", os.path.basename(path).split(".")[0],
+             f"{mol.num_atoms} {len(mol.bonds)} 0 0 0", "SMALL", "NO_CHARGES", "",
+             "@<TRIPOS>ATOM"]
+    for i, (a, (x, y, z)) in enumerate(zip(mol.atoms, mol.coords)):
+        lines.append(f"{i + 1} {a.symbol}{i + 1} {x:.4f} {y:.4f} {z:.4f} {a.symbol} 1 LIG 0.0000")
+    lines.append("@<TRIPOS>BOND")
+    for k, (i, j, o) in enumerate(mol.bonds):
+        lines.append(f"{k + 1} {i + 1} {j + 1} {'ar' if o == AROMATIC_BOND else o}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
+    """``diffphore_torch.cli.inference.main`` on six rows: five complexes
+    sampled and one skipped, exact K1 launches, the artifact set, the ranked
+    poses re-scored against the phore file, bond lengths kept, the same
+    screen through the engine with featurization inline and on two threads
+    ahead of the dispatches, K1 against its plain version at the screen's
+    own shapes, a resume that samples nothing, and a run with the confidence
+    head.  Returns the K1 launches of the first run."""
+    import contextlib
+    import csv
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffphore_torch.chem.pharmacophore_rules import ligand_phore_features, scoring_phore_fp
+    from diffphore_torch.chem.sdf import parse_sdf
+    from diffphore_torch.cli import inference as cli
+    from diffphore_torch.constants import VDW_TABLE
+    from diffphore_torch.data.phore import parse_phore
+    from diffphore_torch.ops.fitscore import fitscore, make_phore_arrays
+
+    per_dispatch = CONVS_PER_FORWARD * steps if device == "cuda" else 0
+    engines, feat_s, dispatch_s = [], {}, []
+    original = cli.FitEngine
+
+    class Recording(original):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+        def prepare(self, name, *a, **k):
+            t0 = time.perf_counter()
+            job = super().prepare(name, *a, **k)
+            feat_s[name] = time.perf_counter() - t0
+            return job
+
+        def run_complexes(self, jobs, *a, **k):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().run_complexes(jobs, *a, **k)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            dispatch_s.append(time.perf_counter() - t0)
+            return out
+
+    def run(argv):
+        """main(argv) with the counts at 0: its wall s, stdout, featurization
+        s per complex and dispatch s per call."""
+        log = io.StringIO()
+        cli.FitEngine = Recording
+        feat_s.clear()
+        dispatch_s.clear()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                cli.main(argv)
+        finally:
+            cli.FitEngine = original
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, log.getvalue(), dict(feat_s), list(dispatch_s)
+
+    def into(argv, out_dir):
+        i = argv.index("--out_dir")
+        return argv[:i + 1] + [out_dir] + argv[i + 2:]
+
+    def feat_share(out_dir, feat):
+        """Featurization's share of the summed run_time of the dock logs."""
+        run_time = 0.0
+        for name in feat:
+            log_file = os.path.join(out_dir, "mapping_process", name, f"{name}_dock.log")
+            if os.path.exists(log_file):
+                with open(log_file) as f:
+                    run_time += json.load(f)["run_time"]
+        return sum(t for n, t in feat.items() if n != bad_name) / run_time
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lig = parse_sdf(os.path.join(HERE, "examples", "EX02.sdf"))[0]
+        mol2 = os.path.join(tmp, "EX02_mol2.mol2")
+        write_mol2(lig, mol2)
+        phore_file = os.path.join(HERE, "examples", "example.phore")
+        with open(os.path.join(HERE, "examples", "task.csv")) as f:
+            rows = [dict(r, ligand_description=os.path.join(HERE, r["ligand_description"]),
+                         phore=os.path.join(HERE, r["phore"])) for r in csv.DictReader(f)]
+        rows += [{"name": "gefitinib", "ligand_description": SCREEN_SMILES, "phore": phore_file},
+                 {"name": "EX02_mol2", "ligand_description": mol2, "phore": phore_file},
+                 {"name": "bad", "ligand_description": SCREEN_BAD_SMILES, "phore": phore_file}]
+        row_names = [cli.complex_name(r) for r in rows]
+        bad_name = row_names[-1]
+        task = os.path.join(tmp, "task.csv")
+        with open(task, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["name", "ligand_description", "phore"])
+            w.writeheader()
+            w.writerows(rows)
+        out = os.path.join(tmp, "screen")
+        argv = ["--phore_ligand_csv", task, "--model_dir", MODEL_DIR, "--out_dir", out,
+                "--sample_per_complex", str(poses), "--inference_steps", str(steps),
+                "--device", device]
+
+        # ---- the screen
+        wall, log, feat, dispatch = run(argv)
+        counts = expect_counts("cli.inference.main", k1=SCREEN_SAMPLED * per_dispatch)
+        if f"Featurization failed for `{bad_name}`" not in log:
+            raise AssertionError("the unparsable SMILES was not logged as skipped:\n" + log)
+        with open(os.path.join(out, "ranked_results.csv")) as f:
+            ranked = list(csv.reader(f, delimiter="\t"))
+        if ranked[0] != cli.RANKED_COLUMNS or len(ranked) != SCREEN_SAMPLED + 1:
+            raise AssertionError(f"ranked_results.csv: {ranked}")
+        with open(os.path.join(out, "inference_results.json")) as f:
+            journal = json.load(f)
+        names = [r[2] for r in ranked[1:]]
+        if sorted(journal["name"]) != sorted(names) or len(set(names)) != SCREEN_SAMPLED:
+            raise AssertionError(f"sampled {journal['name']}, ranked {names}")
+        engine = engines[-1]
+        timers = engine.timers.report()
+        share = feat_share(out, feat)
+        phore = parse_phore(phore_file)[0]
+        ref = make_phore_arrays(phore).to(device)
+        max_err = max_bond = 0.0
+        for rec, name in zip(rows[:-1], row_names):
+            sdf = parse_sdf(os.path.join(out, "ranked_poses", f"{name}_ranked.sdf"))
+            with open(os.path.join(out, "mapping_process", name, f"{name}.score")) as f:
+                table = [line.rstrip("\n").split("\t") for line in f]
+            if len(sdf) != poses or len(table) != poses or {len(r) for r in table} != {19}:
+                raise AssertionError(f"{name}: {len(sdf)} ranked poses, .score "
+                                     f"{len(table)} x {sorted({len(r) for r in table})}")
+            mol = engine.load_ligand(rec["ligand_description"])
+            if [a.atomic_num for a in sdf[0].atoms] != [a.atomic_num for a in mol.atoms]:
+                raise AssertionError(f"{name}: ranked poses' atoms differ from the input's")
+            xyz = torch.tensor(np.stack([m.coords for m in sdf]), dtype=torch.float32,
+                               device=device)
+            fp = torch.tensor(scoring_phore_fp(mol), dtype=torch.float32, device=device)
+            count_fp = torch.tensor(ligand_phore_features(mol)[0], dtype=torch.float32,
+                                    device=device)
+            vdw = torch.tensor(VDW_TABLE[[a.atomic_num - 1 for a in mol.atoms]], device=device)
+            sc = fitscore(xyz, torch.ones(xyz.shape[:2], dtype=torch.bool, device=device),
+                          fp.expand(poses, -1, -1), vdw.expand(poses, -1), ref.repeat(poses),
+                          count_fp=count_fp.expand(poses, -1, -1))
+            rescored = sc["phscore1"].cpu().numpy()
+            want = np.sort([float(r[15]) for r in table])[::-1]
+            max_err = max(max_err, float(np.abs(rescored - want).max()))
+            bonds = np.asarray([(i, j) for i, j, _ in mol.bonds])
+            d0 = np.linalg.norm(mol.coords[bonds[:, 0]] - mol.coords[bonds[:, 1]], axis=-1)
+            for m in sdf:
+                d = np.linalg.norm(m.coords[bonds[:, 0]] - m.coords[bonds[:, 1]], axis=-1)
+                max_bond = max(max_bond, float(np.abs(d - d0).max()))
+        if not max_err <= TOL_RESCORE:
+            raise AssertionError(f"ranked poses re-scored differ from the .score file: {max_err}")
+        if not max_bond <= TOL_BOND:
+            raise AssertionError(f"a pose's bond lengths moved by {max_bond} A")
+
+        # ---- featurization inline, as the CLI does it, against two threads
+        # featurizing ahead of the dispatches, as a prefetch pool would: the
+        # six rows through the screen's engine, A-B-A, each timed end to end
+        from concurrent.futures import ThreadPoolExecutor
+
+        def screen(threads):
+            t0 = time.perf_counter()
+            args = [(n, r["ligand_description"], phore_file) for n, r in zip(row_names, rows)]
+            with ThreadPoolExecutor(2) as pool:
+                jobs = ((f.result() for f in [pool.submit(engine.prepare, *a) for a in args])
+                        if threads else (engine.prepare(*a) for a in args))
+                n_jobs = 0
+                for job in jobs:
+                    if job is not None:
+                        engine.run_complexes([job])
+                        n_jobs += 1
+            if n_jobs != SCREEN_SAMPLED:
+                raise AssertionError(f"{n_jobs} jobs prepared, expected {SCREEN_SAMPLED}")
+            return time.perf_counter() - t0
+
+        walls = {"inline": [], "threads": []}
+        for label in ("inline", "threads", "inline", "threads"):
+            walls[label].append(screen(label == "threads"))
+
+        # ---- K1 against its plain version at the screen's own shapes: the
+        # 23 conv inputs of one forward of the SMILES job (32 atoms) and of an
+        # SDF job (16), conv by conv at f32 and bf16 (TOL_F32, TOL_BF16) and
+        # the whole forward (TOL_FORWARD, TOL_BF16_GAP)
+        k1_checks = []
+        if device == "cuda":
+            from diffphore_torch.ops import tp_fused
+
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            for i in (3, 0):
+                job = engine.prepare(row_names[i], rows[i]["ligand_description"], phore_file)
+                batch = posed_rows(job.batch.to("cuda"), poses, engine.cfg, gen)
+                errs = [check_k1_call(tp_fused, n, m, a)
+                        for n, m, a in capture_conv_calls(engine.model, batch, poses)]
+                check_forward(engine.model, batch, engine.cfg.compute_dtype, poses,
+                              what=f"screen forward, {row_names[i]}")
+                k1_checks.append(
+                    f"{row_names[i]} at {batch.num_atoms} x {batch.num_phore} x "
+                    f"{batch.num_torsions}: max |kernel - plain| / max|plain| "
+                    f"{max(c['err'] / max(c['scale'], 1e-30) for c in errs):.2e} f32, "
+                    f"{max(c['err_bf'] / max(c['scale_bf'], 1e-30) for c in errs):.2e} bf16")
+
+        # ---- resume: nothing is sampled, the table is the same
+        with open(os.path.join(out, "ranked_results.csv"), "rb") as f:
+            table_bytes = f.read()
+        n_engines = len(engines)
+        run(argv)
+        expect_counts("cli.inference.main, resumed", k1=0)
+        with open(os.path.join(out, "ranked_results.csv"), "rb") as f:
+            if f.read() != table_bytes or len(engines) != n_engines:
+                raise AssertionError("the resumed run changed ranked_results.csv or sampled")
+
+        # ---- with the confidence head
+        out_head = os.path.join(tmp, "screen_head")
+        wall_head, _, _, _ = run(into(argv, out_head)
+                                 + ["--confidence_model_dir", CONFIDENCE_DIR])
+        per_head = per_dispatch + (HEAD_CONVS if device == "cuda" else 0)
+        head_counts = expect_counts("cli.inference.main with the head",
+                                    k1=SCREEN_SAMPLED * per_head)
+        for name in names:
+            sdf_head = parse_sdf(os.path.join(out_head, "ranked_poses", f"{name}_ranked.sdf"))
+            conf = [float(m.props["confidence"]) for m in sdf_head]
+            if len(conf) != poses or conf != sorted(conf, reverse=True):
+                raise AssertionError(f"{name}: confidence property not in descending order")
+
+    def ms(ts):
+        return " ".join(f"{1e3 * t:.1f}" for t in ts)
+
+    feat_ms = {n: 1e3 * t for n, t in feat.items()}
+    screen_s = sum(dispatch)
+    print(f"screening CLI ({device}): {SCREEN_SAMPLED} of 6 complexes sampled (the unparsable "
+          f"SMILES skipped and logged) x {poses} poses x {steps} steps; featurization ms per "
+          f"complex on the host: SDF " + " ".join(f"{feat_ms[n]:.1f}" for n in row_names[:3])
+          + f", SMILES with embedding {feat_ms[row_names[3]]:.1f}, MOL2 "
+          f"{feat_ms[row_names[4]]:.1f}; featurization share of run_time {share:.3f}; dispatch "
+          f"ms per complex {ms(dispatch)}; screen {SCREEN_SAMPLED * poses / screen_s:.1f} "
+          f"poses/s over the dispatches, {SCREEN_SAMPLED * poses / wall:.1f} poses/s over main() "
+          f"({wall:.3f} s, model load and writes included), {wall_head:.3f} s with the head; "
+          f"K1 launches {counts['k1']} ({per_dispatch} per complex), {head_counts['k1']} with "
+          f"the head; re-scored vs .score max |d| {max_err:.2e}; bond lengths max |d| "
+          f"{max_bond:.2e} A; resume: 0 launches, same table; the screen's timers: {timers} "
+          f"({card})", flush=True)
+    print(f"screening CLI ({device}): the six rows through its engine, featurization inline "
+          f"as the CLI does it against two threads featurizing ahead of the dispatches, s in "
+          f"turns: inline {walls['inline'][0]:.3f}, threads {walls['threads'][0]:.3f}, inline "
+          f"{walls['inline'][1]:.3f}, threads {walls['threads'][1]:.3f}; "
+          f"K1 at the screen's shapes against its plain version: "
+          + ("; ".join(k1_checks) or "not run on the CPU") + f" ({card})", flush=True)
+    return counts["k1"]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1528,10 +1905,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from diffphore_torch.cli.pipeline import FitEngine, job_from_cached
     from diffphore_torch.data.graphs import repeat_batch
-    from diffphore_torch.models.layers import DenseTPConv, set_compute_dtype
+    from diffphore_torch.models.layers import DenseTPConv
     from diffphore_torch.ops import build, tp_fused
     from diffphore_torch.ops.fitscore import batch_phore_arrays
-    from diffphore_torch.sampler.sampling import SamplerSettings, draw_prior, randomize_position
+    from diffphore_torch.sampler.sampling import SamplerSettings
     from diffphore_torch.utils.checkpoints import load_model_dir
 
     # ---- 1. card
@@ -1559,43 +1936,10 @@ def main() -> int:
     complexes = [b for _, b in bucket_complexes(CACHE_DIR, N_COMPLEXES)]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    batch = repeat_batch(complexes[0].to("cuda"), POSES)
-    batch = randomize_position(batch, draw_prior(POSES, BUCKET[2], gen, "cuda"),
-                               tr_sigma_max=cfg.tr_sigma_max)
-    batch = batch.replace(t=torch.full((POSES,), 0.5, device="cuda"))
+    batch = posed_rows(complexes[0].to("cuda"), POSES, cfg, gen)
     print("kernel check: tp_fused on the 23 conv calls of one forward", flush=True)
     cases = phase_kernel_check(model, batch, tp_fused)
-
-    # one forward, kernel convs against plain convs: at f32 (TOL_FORWARD) and
-    # at the shipped bf16 (a share of the plain route's own f32-vs-bf16 gap)
-    convs = [m for m in model.modules() if isinstance(m, DenseTPConv)]
-    fwd = {}
-    with torch.inference_mode():
-        for dtype in ("float32", "bfloat16"):
-            set_compute_dtype(model, dtype)
-            for use_kernel in (True, False):
-                for m in convs:
-                    m.use_kernel = use_kernel
-                fwd[dtype, use_kernel] = model(batch, pose_group=POSES)
-    for m in convs:
-        m.use_kernel = True
-    set_compute_dtype(model, cfg.compute_dtype)
-    faults = []
-    for i, label in enumerate(("tr", "rot", "tor")):
-        b32, b16 = fwd["float32", False][i], fwd["bfloat16", False][i]
-        scale = float(b32.abs().max().clamp_min(1e-30))
-        rel = float((fwd["float32", True][i] - b32).abs().max()) / scale
-        rel_bf = float((fwd["bfloat16", True][i] - b16).abs().max()) / scale
-        gap = float((b32 - b16).abs().max()) / scale
-        print(f"forward {label}: max |kernel - plain| / max|plain| = {rel:.2e} (f32), "
-              f"{rel_bf:.2e} (bf16; the plain route's f32-vs-bf16 difference {gap:.2e})",
-              flush=True)
-        if not rel <= TOL_FORWARD:
-            faults.append(f"forward {label} differs: {rel} > {TOL_FORWARD}")
-        if not rel_bf <= TOL_BF16_GAP * gap:
-            faults.append(f"bf16 forward {label} differs: {rel_bf} > {TOL_BF16_GAP} * {gap}")
-    if faults:
-        raise AssertionError("; ".join(faults))
+    check_forward(model, batch, cfg.compute_dtype)
 
     # ---- 4. main path
     engine = FitEngine(cfg, model, samples_per_complex=POSES,
@@ -1627,14 +1971,15 @@ def main() -> int:
           + " ".join(f"{b:.3f}" for b in best), flush=True)
 
     # the same complex, same noise, kernel convs against plain convs
+    convs = [m for m in model.modules() if isinstance(m, DenseTPConv)]
     job = jobs[0]
     noise = engine.draw_noise(POSES, BUCKET[2])
     rows = repeat_batch(job.batch.to("cuda"), POSES)
     ref = batch_phore_arrays(rows)
-    pos_k, sc_k = engine.run_batch(rows, ref, POSES, noise)
+    pos_k, sc_k, _ = engine.run_batch(rows, ref, POSES, noise)
     for m in convs:
         m.use_kernel = False
-    pos_p, sc_p = engine.run_batch(rows, ref, POSES, noise)
+    pos_p, sc_p, _ = engine.run_batch(rows, ref, POSES, noise)
     for m in convs:
         m.use_kernel = True
     n_at = job.n_atoms
@@ -1701,7 +2046,10 @@ def main() -> int:
     # ---- 10. validation by inference in the training CLI
     valinf_counts = phase_val_inference(cfg, card)
 
-    # ---- 11. report
+    # ---- 11. the screening CLI from files
+    screen_k1 = phase_screening_cli(card)
+
+    # ---- 12. report
     kernel = {
         "name": "tp_fused",
         "route": "cuda",
@@ -1713,6 +2061,7 @@ def main() -> int:
         "launches_confidence_serving": head_serving_k1,
         "launches_confidence_training": head_counts["k1"],
         "launches_val_inference": valinf_counts["k1"],
+        "launches_screening_cli": screen_k1,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
         "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in cases),

@@ -73,7 +73,7 @@ VAL_KEYS = TRAIN_KEYS + ("tr_base_loss", "rot_base_loss", "tor_base_loss")
 CONFIDENCE_KEYS = ("loss", "loss_ph", "loss_ex", "loss_total")
 
 #: flags of parts that are not ported: (flag, its off value, the slice that brings it)
-_FEATURIZATION = "the host featurization slice (chem/, data/dataset.py from raw files)"
+_FEATURIZATION = "the raw-file featurization slice (data/dataset.py: PhoreDataset, featurize_record)"
 NOT_PORTED = (
     ("train_csv", None, _FEATURIZATION), ("val_csv", None, _FEATURIZATION),
     ("data_dir", None, _FEATURIZATION), ("split_train", None, _FEATURIZATION),

@@ -112,7 +112,8 @@ class EquivariantBatchNorm(nn.Module):
     mean component power for l > 0; and moves the running statistics toward
     them by ``momentum``.  With ``use_batch_stats`` set (see
     :func:`batch_statistics`) eval mode normalizes by the batch's statistics
-    too and leaves the running ones as they are.
+    too and leaves the running ones as they are, unless ``update_running``
+    is set as well: then it moves them as training mode does.
     """
 
     def __init__(self, irreps: str, eps: float = 1e-5, momentum: float = 0.1):
@@ -127,6 +128,7 @@ class EquivariantBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_scalar_ch))
         self.register_buffer("var", torch.ones(num_ch))
         self.use_batch_stats = False
+        self.update_running = False
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         batch_stats = self.training or self.use_batch_stats
@@ -168,7 +170,7 @@ class EquivariantBatchNorm(nn.Module):
                 out = field * (torch.rsqrt(var + self.eps) * w)[..., None]
                 outs.append(out.reshape(out.shape[:-2] + (-1,)))
             ch_off += mul
-        if self.training and not self.use_batch_stats:
+        if self.update_running if self.use_batch_stats else self.training:
             with torch.no_grad():   # the running statistics are updated in place
                 if new_means:
                     self.mean.mul_(1 - self.momentum).add_(self.momentum * torch.cat(new_means))
@@ -177,19 +179,23 @@ class EquivariantBatchNorm(nn.Module):
 
 
 @contextlib.contextmanager
-def batch_statistics(model: nn.Module) -> Iterator[nn.Module]:
+def batch_statistics(model: nn.Module, update: bool = False) -> Iterator[nn.Module]:
     """Within the block, every batch norm of ``model`` normalizes by the
-    statistics of the batch it is given and leaves its running statistics
-    untouched, whatever the mode; in eval mode dropout stays off and the
-    convolutions keep their eval route (K1)."""
+    statistics of the batch it is given, whatever the mode, and leaves its
+    running statistics untouched, or with ``update`` moves them toward the
+    batch's by its momentum (the JAX package's ``use_running_average=False``
+    with ``mutable=["batch_stats"]``); in eval mode dropout stays off and
+    the convolutions keep their eval route (K1)."""
     norms = [m for m in model.modules() if isinstance(m, EquivariantBatchNorm)]
     for m in norms:
         m.use_batch_stats = True
+        m.update_running = update
     try:
         yield model
     finally:
         for m in norms:
             m.use_batch_stats = False
+            m.update_running = False
 
 
 def set_compute_dtype(model: nn.Module, compute_dtype: str) -> None:

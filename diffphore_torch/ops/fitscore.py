@@ -18,7 +18,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..constants import PHORE_ALPHA, PHORE_WEIGHT
+from ..constants import NUM_PHORETYPE, PHORE_ALPHA, PHORE_WEIGHT
+from ..data.phore import type_index
 
 #: alpha = K / r^2 relating Gaussian sharpness to sphere radius
 K_ALPHA = 2.41798725037
@@ -76,6 +77,44 @@ class PhoreArrays:
     anchor: torch.Tensor       # (B, P)
     is_ex: torch.Tensor        # (B, P) bool
     mask: torch.Tensor         # (B, P) bool
+
+    def replace(self, **changes) -> "PhoreArrays":
+        return dataclasses.replace(self, **changes)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    def to(self, device) -> "PhoreArrays":
+        return self.replace(**{k: v.to(device) for k, v in self.tensors().items()})
+
+    def repeat(self, n: int) -> "PhoreArrays":
+        """Each row repeated ``n`` times (B = 1: one complex's pose rows)."""
+        return self.replace(**{k: torch.repeat_interleave(v, n, dim=0)
+                               for k, v in self.tensors().items()})
+
+
+def make_phore_arrays(phore, pad: Optional[int] = None) -> PhoreArrays:
+    """A phore file's points as one row (B = 1) of CPU tensors, in the
+    file's frame, padded to ``pad`` points: the anchor weight is the file's
+    last column, where ``batch_phore_arrays`` sets 1."""
+    pts = phore.all_points
+    P = pad or len(pts)
+    coord = torch.zeros((1, P, 3))
+    onehot = torch.zeros((1, P, NUM_PHORETYPE))
+    alpha = torch.ones((1, P))
+    weight = torch.zeros((1, P))
+    anchor = torch.zeros((1, P))
+    is_ex = torch.zeros((1, P), dtype=torch.bool)
+    mask = torch.zeros((1, P), dtype=torch.bool)
+    for k, p in enumerate(pts):
+        coord[0, k] = torch.tensor(p.coord, dtype=torch.float32)
+        onehot[0, k, type_index(p.type)] = 1.0
+        alpha[0, k] = p.alpha
+        weight[0, k] = p.weight
+        anchor[0, k] = p.anchor_weight
+        is_ex[0, k] = p.type == "EX"
+        mask[0, k] = True
+    return PhoreArrays(coord, onehot, alpha, weight, anchor, is_ex, mask)
 
 
 def batch_phore_arrays(batch) -> PhoreArrays:

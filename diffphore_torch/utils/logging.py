@@ -1,15 +1,52 @@
-"""Tagged console logging, a JSONL metrics sink and a running-mean meter."""
+"""Tagged console logging, phase timers, a JSONL metrics sink and a
+running-mean meter."""
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
+import sys
+import threading
+import time
 from typing import Dict, List, Optional
 
 
 def log_info(msg: str) -> None:
     print(f"[I] {msg}", flush=True)
+
+
+def log_warn(msg: str) -> None:
+    print(f"[W] {msg}", flush=True)
+
+
+def log_error(msg: str) -> None:
+    print(f"[E] {msg}", file=sys.stderr, flush=True)
+
+
+class PhaseTimers:
+    """Accumulating named wall-clock timers, safe to use from several
+    threads (a lock guards each read-add-store)."""
+
+    def __init__(self) -> None:
+        self.totals: Dict[str, float] = collections.defaultdict(float)
+        self.counts: Dict[str, int] = collections.defaultdict(int)
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
+
+    def report(self) -> str:
+        return " ".join(f"{k}={v:.2f}s" for k, v in sorted(self.totals.items()))
 
 
 class MetricsWriter:

@@ -207,7 +207,7 @@ def test_fit_engine_confidence_row_matches_jax_head_and_ranks_by_it():
     rows = tgraphs.repeat_batch(one, n).replace(names=(), meta=())
     seen = []
     hook = head.register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
-    pos, scores = engine.run_batch(rows, batch_phore_arrays(rows), n)
+    pos, scores, _ = engine.run_batch(rows, batch_phore_arrays(rows), n)
     hook.remove()
     (final,) = seen                      # the final poses (positions and ligand norms), t = 0
     assert torch.equal(final.lig_pos, pos) and float(final.t.abs().max()) == 0.0

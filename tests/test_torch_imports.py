@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``diffphore_torch`` and not
-``chip_smoke.py`` imports jax, flax or the JAX package (checked on the
-source, so nothing is imported to find out)."""
+``chip_smoke.py`` imports jax, flax or the JAX package, nor networkx, pandas
+or PyYAML, which the card's machine does not have (checked on the source, so
+nothing is imported to find out)."""
 
 import ast
 import glob
@@ -11,6 +12,9 @@ import pytest
 from torch_port_helpers import REPO
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffphore_tpu")
+#: host libraries the JAX package's featurization and CLI use and the port
+#: restates (chem/graph.py, the csv module, utils/flat_yaml.py)
+HOST_FORBIDDEN = ("networkx", "pandas", "yaml")
 SOURCES = sorted(glob.glob(os.path.join(REPO, "diffphore_torch", "**", "*.py"), recursive=True)
                  + [os.path.join(REPO, "chip_smoke.py")])
 
@@ -37,6 +41,11 @@ TRAINING_MODULES = [
     "cli/profile_kernels.py",
     # the confidence head and validation by inference
     "models/confidence.py", "train/confidence.py", "train/metrics.py", "chem/rmsd.py",
+    # host featurization and the screening CLI
+    "chem/graph.py", "chem/mol.py", "chem/perception.py", "chem/sdf.py", "chem/smiles.py",
+    "chem/topology.py", "chem/embed.py", "chem/features.py", "chem/lipo.py",
+    "chem/pharmacophore_rules.py", "data/phore.py", "data/graphs.py", "ops/fitscore.py",
+    "cli/inference.py",
 ]
 
 
@@ -68,6 +77,12 @@ def test_kernel_sources_use_no_float_atomics():
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_networkx_pandas_or_yaml_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in HOST_FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 

@@ -132,11 +132,11 @@ def test_rank_orders_tied_scores_as_the_jax_package(monkeypatch, with_confidence
     fit = torch.tensor([0.5, 0.7, 0.5, 0.7])
     conf = torch.tensor([2.0, -1.0, 3.0, 2.0])
 
-    def run_batch(batch, ref, pose_group=1, noise=None):
+    def run_batch(batch, ref, pose_group=1, noise=None, return_trajectory=False):
         scores = {"phscore1": fit.clone()}
         if with_confidence:
             scores["confidence"] = conf.clone()
-        return batch.lig_pos, scores
+        return batch.lig_pos, scores, None
 
     monkeypatch.setattr(engine, "run_batch", run_batch)
     (res,) = engine.run_complexes([job_from_cached(load_cached(cached_files(n=1)[0]))])
