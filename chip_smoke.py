@@ -96,8 +96,28 @@ Phases, each fatal on failure:
      confidence property.  Prints featurization ms per complex and its share
      of run_time, dispatch ms, poses/s, the walls inline and with threads
      and the engine's phase timers.
-  12. report: the kernels' JSON line (each kernel's launches per path), the
-     card line, and the result line.
+  12. training and evaluation from raw files, in the shipped recipe's
+     (48, 160, 16) bucket: ``cli.train.main`` with the corpus2 config on
+     the first two flexible rows of runs/corpus2/train.csv and one of
+     val.csv, ``--phore_augment 1 --conf_augment 1``, the recipe's bucket
+     flags and 4 featurization processes, two epochs of one step: the
+     featurized count, K2 17 x 3 and K3 6 x 3 per step and K1 23 per
+     validation batch, exactly; K2 and K3 held as in 5 on one training-mode
+     forward of a recipe batch (24 rows, repeat-padded); three timed steps
+     at the bucket (peak memory); the trainer again on the same CSVs
+     featurizes nothing; the same train records into fresh caches serially
+     and with the 4 processes, in turns (1, 4, 4, 1), the same files each
+     time; one record of each kind (SDF, SMILES, sub-phore, conformer)
+     featurized serially; ``cli.evaluate.main`` on three rows of
+     test.csv and EX01.sdf with the corpus2 model and head, 40 poses x 20
+     steps, ``--use_symmetry_rmsd true``: K1 exactly 481 launches per
+     evaluated complex, the artifact set, finite metrics; K1 against its
+     plain version on the 23 conv inputs of one forward at the bucket, as
+     in 11.  Prints featurization ms per complex (serial and with the
+     workers, and the turns' walls), dispatch and RMSD ms per complex.
+  13. report: the kernels' JSON line (each kernel's launches per path, and
+     its errors and times at the recipe's bucket), the card line, and the
+     result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -1893,6 +1913,293 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
     return counts["k1"]
 
 
+# Phase 12: training and evaluation from raw files, in the shipped recipe's
+# one (48, 160, 16) bucket (runs/corpus2/pipeline.sh's bucket flags).
+RECIPE_BUCKET_FLAGS = ["--bucket_a_min", "48", "--bucket_a_step", "8", "--bucket_p_min", "160",
+                       "--bucket_p_step", "32", "--bucket_t_min", "16", "--bucket_t_step", "4"]
+RAW_BUCKET = (48, 160, 16)
+RAW_TRAIN_ROWS = 2          # the first two flexible rows of runs/corpus2/train.csv
+RAW_EPOCHS = 2              # one batch of 24 (repeat-padded) an epoch
+RAW_WORKERS = 4             # featurization processes
+RAW_STEP_REPEATS = 3        # timed train steps at the recipe's bucket
+#: what the report lists of each kernel at the recipe's bucket
+RAW_BUCKET_KEYS = ("max_abs_err", "max_rel_err", "max_abs_err_bf16", "ms", "ms_bf16", "plain_ms",
+                   "bound_ms", "bound_ms_bf16", "library_ms", "library_ms_bf16")
+
+
+def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_WORKERS):
+    """``cli.train.main`` from a small CSV in the corpus2 recipe (sub-phore
+    and conformer augmentation, its buckets, spawn workers): the featurized
+    count, K2 and K3 exactly per step, K1 per validation batch; K2 and K3
+    held against their plain versions on one training-mode forward of a
+    recipe batch at 48 x 160 x 16; the step's peak memory; a second run
+    whose featurization does nothing; ``cli.evaluate.main`` with the corpus2
+    model and head on three test rows and an SDF (symmetry RMSD): K1 exactly
+    481 launches per evaluated complex, the artifact set and finite metrics,
+    K1 against its plain version at the bucket; the train records'
+    featurization serially and with the workers, in turns, and one record
+    of each kind serially.  Returns the launch counts of
+    the training and the evaluation."""
+    import contextlib
+    import csv
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import evaluate as eval_cli
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.data import dataset as ds
+    from diffphore_torch.data.loaders import BucketLoader
+    from diffphore_torch.data.transforms import apply_noise, draw_noise
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils import flat_yaml
+    from diffphore_torch.utils.checkpoints import load_model_dir
+
+    on_card = device == "cuda"
+    built = []
+    original = train_cli.PhoreDataset
+
+    class Recording(original):
+        def __init__(self, *a, **k):
+            t0 = time.perf_counter()
+            super().__init__(*a, **k)
+            built.append((self, time.perf_counter() - t0))
+
+    def rows(name, n, pick=lambda r: True):
+        with open(os.path.join(HERE, "runs", "corpus2", name)) as f:
+            reader = csv.DictReader(f)
+            return reader.fieldnames, [r for r in reader if pick(r)][:n]
+
+    def snapshot(root):
+        return {os.path.relpath(os.path.join(d, f), root): os.stat(os.path.join(d, f)).st_mtime_ns
+                for d, _, files in os.walk(root) for f in files}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fields, train_rows = rows("train.csv", RAW_TRAIN_ROWS,
+                                  lambda r: r["name"].startswith("flex_"))
+        _, val_rows = rows("val.csv", 1)
+        _, test_rows = rows("test.csv", 3)
+        ex01 = os.path.join(HERE, "examples", "EX01.sdf")
+        test_rows = test_rows + [{"name": "EX01", "ligand_description": ex01, "aug_num_ex": "3"}]
+        paths = {}
+        for split, body in (("train", train_rows), ("val", val_rows), ("test", test_rows)):
+            paths[split] = os.path.join(tmp, f"{split}.csv")
+            with open(paths[split], "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=fields)
+                w.writeheader()
+                w.writerows(body)
+        config = flat_yaml.load(os.path.join(MODEL_DIR, "model_parameters.yml"))
+        config.update(n_epochs=RAW_EPOCHS, phore_augment=1, conf_augment=1)
+        yml = os.path.join(tmp, "recipe.yml")
+        with open(yml, "w") as f:
+            f.write(flat_yaml.dumps(config))
+        cache, run_dir = os.path.join(tmp, "cache"), os.path.join(tmp, "run")
+        argv = ["--config", yml, "--train_csv", paths["train"], "--val_csv", paths["val"],
+                *RECIPE_BUCKET_FLAGS, "--num_dataloader_workers", str(workers),
+                "--cache_path", cache, "--run_dir", run_dir, "--val_inference_freq", "0",
+                "--seed", str(SEED), "--device", device]
+
+        # ---- the trainer from the CSVs: featurize with the workers, train
+        train_cli.PhoreDataset = Recording
+        reset_kernel_counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            train_cli.main(argv)
+        finally:
+            train_cli.PhoreDataset = original
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (train_ds, feat_train_s), (val_ds, feat_val_s) = built
+        n_records = RAW_TRAIN_ROWS * 3
+        skips = [f for f in os.listdir(train_ds.cache_dir) if f.endswith(".skip")]
+        if train_ds.featurized != n_records or len(train_ds) + len(skips) != n_records \
+                or len(val_ds) != 1 or not len(train_ds):
+            raise AssertionError(f"featurized {train_ds.featurized} train records into "
+                                 f"{len(train_ds)} complexes and {len(skips)} skips, "
+                                 f"{len(val_ds)} val")
+        for b in (train_ds[i] for i in range(len(train_ds))):
+            if (b.num_atoms, b.num_phore, b.num_torsions) != RAW_BUCKET:
+                raise AssertionError(f"{b.names[0]} is not in the recipe's bucket")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        train_rec = [r for r in records if r.get("mode") != "val"]
+        n_steps = sum(r["steps"] for r in train_rec)
+        if len(train_rec) != RAW_EPOCHS or n_steps != RAW_EPOCHS \
+                or not all(np.isfinite(r["loss"]) and r["grad_finite"] == 1.0 for r in train_rec):
+            raise AssertionError(f"the trainer's records: {records}")
+        train_counts = (expect_counts("cli.train.main from CSVs", steps=n_steps,
+                                      eval_batches=RAW_EPOCHS)
+                        if on_card else kernel_counts())
+        peak_cli = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+
+        # ---- again on the same CSVs: every record a cache hit
+        before = snapshot(cache)
+        built.clear()
+        train_cli.PhoreDataset = Recording
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.main(argv + ["--featurize_only"])
+        finally:
+            train_cli.PhoreDataset = original
+        if [d.featurized for d, _ in built] != [0, 0] or snapshot(cache) != before:
+            raise AssertionError("the second run on the same CSVs featurized again")
+
+        # ---- the same train records into fresh caches, serially and with
+        # the workers, in turns
+        train_args = train_cli.parse_args(argv)
+        settings = train_cli.dataset_settings(train_args)
+        train_records = train_cli.augmented_records(ds.records_from_csv(paths["train"]),
+                                                    train_args)
+        turns, turn_files = [], []
+        for i, n in enumerate((1, workers, workers, 1)):
+            turn_cache = os.path.join(tmp, f"turn{i}")
+            t0 = time.perf_counter()
+            d = ds.PhoreDataset(train_records, settings, turn_cache, n, name="train")
+            turns.append((n, time.perf_counter() - t0))
+            turn_files.append(sorted(os.listdir(d.cache_dir)))
+            if d.featurized != len(train_records) or turn_files[-1] != turn_files[0]:
+                raise AssertionError(f"turn {i} ({n} workers) featurized {d.featurized} of "
+                                     f"{len(train_records)} records into {turn_files[-1]}")
+
+        # ---- serial featurization of one record of each kind
+        base = ds.records_from_csv(paths["train"])[-1]
+        kinds = {"SDF": {"name": "EX01", "ligand_description": ex01,
+                         "phore": os.path.join(HERE, "examples", "example.phore")},
+                 "SMILES": base, "SMILES~aug1": {**base, "phore_seed": 1},
+                 "SMILES~conf1": {**base, "conf_seed": 1}}
+        serial_ms = {}
+        for kind, rec in kinds.items():
+            t0 = time.perf_counter()
+            if ds.featurize_record(rec, settings) is None:
+                raise AssertionError(f"{kind} record did not featurize")
+            serial_ms[kind] = 1e3 * (time.perf_counter() - t0)
+
+        # ---- a recipe batch: K2 and K3 against their plain versions, the
+        # step's peak memory and wall time
+        k2_cases = k3_cases = None
+        step_ms = peak_step = float("nan")
+        if on_card:
+            cfg, shipped = load_model_dir(MODEL_DIR, device="cuda")
+            batch = next(iter(BucketLoader(train_ds, TRAIN_BATCH, shuffle=False)))
+            batch = batch.replace(names=(), meta=()).to("cuda")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            draws = draw_noise(TRAIN_BATCH, RAW_BUCKET[2], gen, "cuda")
+            draws.t = torch.linspace(0.02, 0.98, TRAIN_BATCH, device="cuda")
+            with torch.no_grad():
+                noised, _ = apply_noise(batch, cfg.sigma_schedule, draws=draws)
+            k2_calls, k3_calls = capture_training_convs(shipped, noised)
+            print(f"raw files: tp_aggregate on the {K2_CONVS} conv calls of one training-mode "
+                  f"forward at {RAW_BUCKET}", flush=True)
+            k2_cases = phase_k2_check(k2_calls)
+            print(f"raw files: tp_scalar on the {K3_CONVS} layer-0 convs of the same forward",
+                  flush=True)
+            k3_cases = phase_k3_check(k3_calls)
+            del k2_calls, k3_calls, noised, shipped
+            torch.cuda.empty_cache()
+            state = create_train_state(cfg, seed=SEED, device="cuda")
+            step = make_train_step(cfg)
+            state, _ = step(state, batch, gen)                       # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            for _ in range(RAW_STEP_REPEATS):
+                state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / RAW_STEP_REPEATS
+            peak_step = torch.cuda.max_memory_allocated() / 2**30
+            expect_counts("train steps at the recipe's bucket", steps=RAW_STEP_REPEATS)
+            if not bool(torch.isfinite(m["loss"])):
+                raise AssertionError("a train step at the recipe's bucket is not finite")
+            del state
+
+        # ---- the evaluation CLI with the corpus2 model and head
+        out = os.path.join(tmp, "eval")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        res = eval_cli.main([
+            "--test_csv", paths["test"], "--model_dir", MODEL_DIR,
+            "--confidence_model_dir", CONFIDENCE_DIR, "--sample_per_complex", str(poses),
+            "--inference_steps", str(steps), *RECIPE_BUCKET_FLAGS, "--use_symmetry_rmsd", "true",
+            "--num_workers", str(workers), "--cache_path", cache, "--out_dir", out,
+            "--device", device])
+        if on_card:
+            torch.cuda.synchronize()
+        eval_wall = time.perf_counter() - t0
+        names, timings = res["names"], res["timings"]
+        per_complex = (CONVS_PER_FORWARD * steps + HEAD_CONVS) if on_card else 0
+        eval_counts = expect_counts("cli.evaluate.main", k1=len(names) * per_complex)
+        want_files = {"centroid_distances.npy", "confidence.npy", "fitscore.npy",
+                      "min_ex_cross_distances.npy", "min_self_distances.npy", "names.json",
+                      "performance_metrics.json", "rmsds.npy", "run_times.npy"}
+        if set(os.listdir(out)) != want_files or "EX01" not in names or len(names) < 3:
+            raise AssertionError(f"evaluation wrote {sorted(os.listdir(out))} for {names}")
+        for fname in want_files - {"names.json", "performance_metrics.json", "run_times.npy"}:
+            arr = np.load(os.path.join(out, fname))
+            if arr.shape != (len(names), poses) or not np.isfinite(arr).all():
+                raise AssertionError(f"{fname}: shape {arr.shape} or not finite")
+        metrics = res["metrics"]
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"metrics not finite: {metrics}")
+
+        # ---- K1 against its plain version at the recipe's bucket
+        k1_check, k1_summary = "not run on the CPU", None
+        if on_card:
+            from diffphore_torch.ops import tp_fused
+
+            cfg, model = load_model_dir(MODEL_DIR, device="cuda")
+            eval_dir = glob.glob(os.path.join(cache, "eval_*"))[0]
+            one = ds.load_cached(sorted(glob.glob(os.path.join(eval_dir, "*.npz")))[0])
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            rows_k1 = posed_rows(one.to("cuda"), poses, cfg, gen)
+            errs = [check_k1_call(tp_fused, n, m, a)
+                    for n, m, a in capture_conv_calls(model, rows_k1, poses)]
+            check_forward(model, rows_k1, cfg.compute_dtype, poses,
+                          what=f"evaluation forward at {RAW_BUCKET}")
+            k1_summary = {"max_abs_err": max(c["err"] for c in errs),
+                          "max_abs_err_bf16": max(c["err_bf"] for c in errs),
+                          "max_rel_err": max(c["err"] / max(c["scale"], 1e-30) for c in errs),
+                          "max_rel_err_bf16": max(c["err_bf"] / max(c["scale_bf"], 1e-30)
+                                                  for c in errs)}
+            k1_check = (f"max |kernel - plain| / max|plain| {k1_summary['max_rel_err']:.2e} "
+                        f"f32, {k1_summary['max_rel_err_bf16']:.2e} bf16")
+
+    n_train = train_ds.featurized + val_ds.featurized
+    print(f"raw files ({device}): cli.train.main from {RAW_TRAIN_ROWS} corpus2 rows + 1 val row "
+          f"with --phore_augment 1 --conf_augment 1 at {RAW_BUCKET}: {n_records} train records "
+          f"-> {len(train_ds)} complexes + {len(skips)} skipped (bucket caps), featurized with "
+          f"{workers} workers in {feat_train_s + feat_val_s:.3f} s = "
+          f"{1e3 * (feat_train_s + feat_val_s) / n_train:.1f} ms per complex; the "
+          f"{len(train_records)} train records into fresh caches in turns: "
+          + ", ".join(f"{n} worker(s) {t:.3f} s" for n, t in turns)
+          + "; serial ms per complex: " + ", ".join(f"{k} {v:.1f}" for k, v in serial_ms.items())
+          + f"; {n_steps} steps over {RAW_EPOCHS} epochs in {wall:.3f} s (featurization "
+          f"included), losses " + " ".join(f"{r['loss']:.4f}" for r in train_rec)
+          + f", CLI peak memory {peak_cli:.2f} GiB; launches {train_counts}; second run: 0 "
+          f"featurized, cache unchanged; a train step at the bucket (batch {TRAIN_BATCH}, "
+          f"bf16): {step_ms:.1f} ms wall, peak memory {peak_step:.2f} GiB ({card})", flush=True)
+    print(f"raw files ({device}): cli.evaluate.main on {len(names)} complexes "
+          f"({', '.join(names)}) x {poses} poses x {steps} steps with the head in "
+          f"{eval_wall:.3f} s: featurization {timings['featurize_s']:.3f} s for "
+          f"{timings['featurized']} records with {workers} workers "
+          f"({1e3 * timings['featurize_s'] / max(timings['featurized'], 1):.1f} ms per complex); "
+          f"dispatch ms per complex {1e3 * timings.get('sample', 0.0) / len(names):.1f}; RMSD ms "
+          f"per complex (symmetry-corrected for EX01) "
+          f"{1e3 * timings.get('rmsd', 0.0) / len(names):.2f}; K1 launches {eval_counts['k1']} "
+          f"({per_complex} per complex); top1 RMSD < 2 A {metrics['top1_rmsds_below_2']}, by "
+          f"fitness {metrics['rankbyFitscore_top1_rmsds_below_2']}, by confidence "
+          f"{metrics.get('rankbyConfidence_top1_rmsds_below_2')}; K1 at "
+          f"{RAW_BUCKET}: {k1_check} ({card})", flush=True)
+    return {"train": train_counts, "eval": eval_counts, "k1": k1_summary, "k2_cases": k2_cases,
+            "k3_cases": k3_cases}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1910,6 +2217,11 @@ def main() -> int:
     from diffphore_torch.ops.fitscore import batch_phore_arrays
     from diffphore_torch.sampler.sampling import SamplerSettings
     from diffphore_torch.utils.checkpoints import load_model_dir
+
+    t_start = time.perf_counter()
+
+    def mark(label):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label} done", flush=True)
 
     # ---- 1. card
     card = card_line()
@@ -1929,6 +2241,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
 
+    mark("build")
+
     # ---- 3. kernel check on the main path's conv inputs
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
     if cfg.compute_dtype != "bfloat16":
@@ -1940,6 +2254,8 @@ def main() -> int:
     print("kernel check: tp_fused on the 23 conv calls of one forward", flush=True)
     cases = phase_kernel_check(model, batch, tp_fused)
     check_forward(model, batch, cfg.compute_dtype)
+
+    mark("kernel check")
 
     # ---- 4. main path
     engine = FitEngine(cfg, model, samples_per_complex=POSES,
@@ -1993,6 +2309,8 @@ def main() -> int:
     # the other sampler modes on the same complex
     phase_sampler_modes(cfg, model, job, card)
 
+    mark("main path and sampler modes")
+
     # ---- 5. K2 and K3 on the conv inputs of one training-mode forward
     from diffphore_torch.data.graphs import concat_batches
     from diffphore_torch.data.transforms import apply_noise, draw_noise
@@ -2015,14 +2333,22 @@ def main() -> int:
     del train_model, noised, k2_calls, k3_calls
     torch.cuda.empty_cache()
 
+    mark("K2 and K3 check")
+
     # ---- 6. training path
     train_counts = phase_training(cfg, train_batch, card)
+
+    mark("training path")
 
     # ---- 7. calibrated-sampler path
     cc_counts = phase_calibrated(cfg, train_batch, card)
 
+    mark("calibrated-sampler path")
+
     # ---- 8. serving with the shipped confidence head
     head_serving_k1 = phase_confidence_serving(cfg, model, jobs, card)
+
+    mark("confidence serving")
 
     # ---- 9. the confidence head's training path: K2 and K3 on the conv
     # inputs of one training-mode forward of the shipped head, then the steps
@@ -2043,13 +2369,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     head_counts = phase_confidence_training(head_cfg, train_batch, card)
 
+    mark("confidence training")
+
     # ---- 10. validation by inference in the training CLI
     valinf_counts = phase_val_inference(cfg, card)
+
+    mark("validation by inference")
 
     # ---- 11. the screening CLI from files
     screen_k1 = phase_screening_cli(card)
 
-    # ---- 12. report
+    mark("screening CLI")
+
+    # ---- 12. training and evaluation from raw files
+    raw = phase_raw_files(card)
+
+    mark("raw files")
+
+    # ---- 13. report
     kernel = {
         "name": "tp_fused",
         "route": "cuda",
@@ -2062,6 +2399,9 @@ def main() -> int:
         "launches_confidence_training": head_counts["k1"],
         "launches_val_inference": valinf_counts["k1"],
         "launches_screening_cli": screen_k1,
+        "launches_raw_files_training": raw["train"]["k1"],
+        "launches_raw_files_evaluate": raw["eval"]["k1"],
+        "raw_files_bucket": raw["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
         "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in cases),
@@ -2082,10 +2422,15 @@ def main() -> int:
     for entry, k in zip(k2_entries, ("fwd", "bwd_edge", "bwd_x")):
         entry["launches_calibrated_path"] = cc_counts[k]
     k3_entries = k3_kernel_entries(k3_cases, cc_counts, train_counts)
+    raw_entries = (k2_kernel_entries(raw["k2_cases"], raw["train"])
+                   + k3_kernel_entries(raw["k3_cases"], raw["train"], raw["train"]))
     for prefix, entries in (("", k2_entries), ("k3_", k3_entries)):
         for entry, k in zip(entries, K3_KERNELS):
             entry["launches_confidence_training"] = head_counts[prefix + k]
             entry["launches_val_inference"] = valinf_counts[prefix + k]
+            entry["launches_raw_files_training"] = raw["train"][prefix + k]
+    for entry, at_bucket in zip(k2_entries + k3_entries, raw_entries):
+        entry["raw_files_bucket"] = {k: at_bucket[k] for k in RAW_BUCKET_KEYS}
     print(json.dumps({"kernels": [kernel] + k2_entries + k3_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

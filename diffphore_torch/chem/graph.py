@@ -19,6 +19,11 @@ iteration order reaches the result.
   a Kruskal spanning tree, a shortest odd path through the lifted graph by
   bidirectional Dijkstra, over the node and edge order of networkx's
   induced subgraph view.
+- :func:`isomorphisms_iter`: VF2 (``GraphMatcher(G1, G2, node_match,
+  edge_match).isomorphisms_iter()``): candidate pairs from the terminal
+  sets in the order the search inserted them, each against the G2 node
+  first in graph order; the same dicts and sets for the core and terminal
+  vectors, so the mappings come in networkx's sequence.
 - :func:`spring_layout`: Fruchterman-Reingold in ``dim`` dimensions from
   ``np.random.RandomState(seed).rand(n, dim)``, k = 1/sqrt(n), 50
   iterations, threshold 1e-4, rescaled to [-1, 1] (the dense "force"
@@ -28,8 +33,9 @@ iteration order reaches the result.
 from __future__ import annotations
 
 import heapq
+import sys
 from itertools import count
-from typing import Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -338,3 +344,124 @@ def _rescale_layout(pos: np.ndarray, scale: float = 1) -> np.ndarray:
     if lim > 0:
         pos *= scale / lim
     return pos
+
+
+# ----------------------------------------------------------------- VF2 search
+class _VF2:
+    """networkx's ``GraphMatcher`` for simple undirected graphs, test
+    "graph" (isomorphism), with its semantic checks.  ``core`` maps a
+    node to its partner; ``inout`` maps a node of the mapping or of its
+    terminal set to the depth at which it entered, in insertion order."""
+
+    def __init__(self, adj1: Adjacency, adj2: Adjacency, nodes1: Dict, nodes2: Dict,
+                 node_match: Optional[Callable], edge_match: Optional[Callable]):
+        self.G1, self.G2 = adj1, adj2
+        self.nodes1, self.nodes2 = nodes1, nodes2
+        self.G2_nodes = set(adj2)
+        self.G2_node_order = {n: i for i, n in enumerate(adj2)}
+        self.node_match, self.edge_match = node_match, edge_match
+        self.core_1: Dict = {}
+        self.core_2: Dict = {}
+        self.inout_1: Dict = {}
+        self.inout_2: Dict = {}
+
+    def candidate_pairs(self) -> Iterator[Tuple]:
+        min_key = self.G2_node_order.__getitem__
+        T1_inout = [node for node in self.inout_1 if node not in self.core_1]
+        T2_inout = [node for node in self.inout_2 if node not in self.core_2]
+        if T1_inout and T2_inout:
+            node_2 = min(T2_inout, key=min_key)
+            for node_1 in T1_inout:
+                yield node_1, node_2
+        else:
+            other_node = min(self.G2_nodes - set(self.core_2), key=min_key)
+            for node in self.G1:
+                if node not in self.core_1:
+                    yield node, other_node
+
+    def syntactic(self, n1, n2) -> bool:
+        G1, G2 = self.G1, self.G2
+        if (n1 in G1[n1]) != (n2 in G2[n2]):          # R_self
+            return False
+        for nbr in G1[n1]:                              # R_neighbor
+            if nbr in self.core_1 and self.core_1[nbr] not in G2[n2]:
+                return False
+        for nbr in G2[n2]:
+            if nbr in self.core_2 and self.core_2[nbr] not in G1[n1]:
+                return False
+        num1 = sum(1 for nbr in G1[n1] if nbr in self.inout_1 and nbr not in self.core_1)
+        num2 = sum(1 for nbr in G2[n2] if nbr in self.inout_2 and nbr not in self.core_2)
+        if num1 != num2:                                # R_terminout
+            return False
+        num1 = sum(1 for nbr in G1[n1] if nbr not in self.inout_1)
+        num2 = sum(1 for nbr in G2[n2] if nbr not in self.inout_2)
+        return num1 == num2                             # R_new
+
+    def semantic(self, n1, n2) -> bool:
+        if self.node_match is not None and not self.node_match(self.nodes1[n1], self.nodes2[n2]):
+            return False
+        if self.edge_match is not None:
+            nbrs1, nbrs2 = self.G1[n1], self.G2[n2]
+            for nbr in nbrs1:
+                if nbr == n1:
+                    if n2 in nbrs2 and not self.edge_match(nbrs1[n1], nbrs2[n2]):
+                        return False
+                elif nbr in self.core_1:
+                    m = self.core_1[nbr]
+                    if m in nbrs2 and not self.edge_match(nbrs1[nbr], nbrs2[m]):
+                        return False
+        return True
+
+    def push(self, n1, n2) -> int:
+        """Add a pair (``GMState.__init__``); the depth to pop."""
+        self.core_1[n1] = n2
+        self.core_2[n2] = n1
+        depth = len(self.core_1)
+        if n1 not in self.inout_1:
+            self.inout_1[n1] = depth
+        if n2 not in self.inout_2:
+            self.inout_2[n2] = depth
+        for G, core, inout in ((self.G1, self.core_1, self.inout_1),
+                               (self.G2, self.core_2, self.inout_2)):
+            new_nodes = set()
+            for node in core:
+                new_nodes.update([nbr for nbr in G[node] if nbr not in core])
+            for node in new_nodes:
+                if node not in inout:
+                    inout[node] = depth
+        return depth
+
+    def pop(self, n1, n2, depth: int) -> None:
+        """``GMState.restore``."""
+        del self.core_1[n1]
+        del self.core_2[n2]
+        for vector in (self.inout_1, self.inout_2):
+            for node in list(vector.keys()):
+                if vector[node] == depth:
+                    del vector[node]
+
+    def match(self) -> Iterator[Dict]:
+        if len(self.core_1) == len(self.G2):
+            yield self.core_1.copy()
+            return
+        for n1, n2 in self.candidate_pairs():
+            if self.syntactic(n1, n2) and self.semantic(n1, n2):
+                depth = self.push(n1, n2)
+                yield from self.match()
+                self.pop(n1, n2, depth)
+
+
+def isomorphisms_iter(adj1: Adjacency, adj2: Adjacency, nodes1: Optional[Dict] = None,
+                      nodes2: Optional[Dict] = None, node_match: Optional[Callable] = None,
+                      edge_match: Optional[Callable] = None) -> Iterator[Dict]:
+    """``GraphMatcher(G1, G2, node_match, edge_match).isomorphisms_iter()``
+    for simple undirected graphs: every isomorphism G1 -> G2 as a dict, in
+    networkx's sequence.  ``nodes1``/``nodes2`` hold each node's attribute
+    dict (``G.nodes[n]``), which ``node_match(d1, d2)`` compares;
+    ``edge_match(e1, e2)`` compares the edge data dicts of the adjacency."""
+    nodes1 = nodes1 if nodes1 is not None else {n: {} for n in adj1}
+    nodes2 = nodes2 if nodes2 is not None else {n: {} for n in adj2}
+    limit = sys.getrecursionlimit()
+    if limit < 1.5 * len(adj2):
+        sys.setrecursionlimit(int(1.5 * len(adj2)))
+    return _VF2(adj1, adj2, nodes1, nodes2, node_match, edge_match).match()

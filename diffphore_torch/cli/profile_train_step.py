@@ -1,10 +1,13 @@
 """Where the time of one training step goes on the GPU.
 
     python -m diffphore_torch.cli.profile_train_step [--rate_from_infer 0.6 | --confidence_mode]
-        [--compute_dtype float32]
+        [--compute_dtype float32] [--cache_dir DIR --bucket 48 160 16]
 
 Runs the train step (fresh corpus2-width model, dropout on, batch 24 of
-the 24 x 96 x 8 bucket of the training cache) on one fixed batch after
+the 24 x 96 x 8 bucket of the training cache, or of ``--bucket`` in
+``--cache_dir``, such as a ``train_*`` directory that ``cli.train
+--featurize_only`` wrote in the corpus2 recipe's buckets; fewer complexes
+than 24 are repeated to fill the batch) on one fixed batch after
 warm-up steps, once timed by the host clock around a synchronized window
 and once under ``torch.profiler``.  With ``--rate_from_infer`` > 0 it is the
 calibrated-conformation-sampler step at that branch probability, from the
@@ -66,6 +69,10 @@ def main(argv=None) -> dict:
                         help="profile the confidence head's train step")
     parser.add_argument("--compute_dtype", choices=["bfloat16", "float32"], default=None,
                         help="the convs' compute dtype (default: the shipped config's)")
+    parser.add_argument("--cache_dir", default=CACHE_DIR,
+                        help="a directory of featurized .npz complexes")
+    parser.add_argument("--bucket", type=int, nargs=3, default=list(BUCKET),
+                        metavar=("A", "P", "T"), help="the (atoms, phore points, torsions) pads")
     args = parser.parse_args(argv)
     rate = args.rate_from_infer
     if rate > 0 and args.confidence_mode:
@@ -79,13 +86,17 @@ def main(argv=None) -> dict:
     cfg = load_config_yaml(CONFIDENCE_DIR if args.confidence_mode else MODEL_DIR)
     if args.compute_dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
+    bucket = tuple(args.bucket)
     rows = []
-    for f in sorted(glob.glob(os.path.join(CACHE_DIR, "*.npz"))):
+    for f in sorted(glob.glob(os.path.join(args.cache_dir, "*.npz"))):
         b = load_cached(f)
-        if (b.num_atoms, b.num_phore, b.num_torsions) == BUCKET:
+        if (b.num_atoms, b.num_phore, b.num_torsions) == bucket:
             rows.append(b)
         if len(rows) == BATCH:
             break
+    if not rows:
+        raise SystemExit(f"no complex of bucket {bucket} in {args.cache_dir}")
+    rows = [rows[i % len(rows)] for i in range(BATCH)]
     batch = concat_batches(rows).replace(names=(), meta=()).to("cuda")
     if args.confidence_mode:
         state = create_confidence_train_state(cfg, seed=0, device="cuda")
@@ -135,7 +146,7 @@ def main(argv=None) -> dict:
         "card": card,
         "step": ("confidence head" if args.confidence_mode else
                  f"calibrated sampler, rate_from_infer {rate}" if rate > 0 else "plain diffusion"),
-        "batch": BATCH, "atoms_phore_torsions": list(BUCKET), "dropout": cfg.dropout,
+        "batch": BATCH, "atoms_phore_torsions": list(bucket), "dropout": cfg.dropout,
         "compute_dtype": cfg.compute_dtype,
         "wall_ms_per_step": wall_ms,
         "steps_per_s": 1e3 / wall_ms,

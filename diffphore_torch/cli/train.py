@@ -1,8 +1,14 @@
-"""Training loop of the diffusion score model, over cached complexes.
+"""Training loop of the diffusion score model, from raw files or cached complexes.
 
-Reads the featurized ``.npz`` complexes under ``--cache_path``
-(``train_*`` directories, and ``val_*`` for the validation loss), noises
-each batch inside the train step, and runs on the GPU unless ``--device
+With ``--train_csv`` (and ``--val_csv``), or ``--data_dir`` with
+``--split_train`` (and ``--split_val``), it featurizes the records into
+``PhoreDataset`` caches under ``--cache_path`` (``--num_dataloader_workers``
+spawn processes; ``--phore_augment`` and ``--conf_augment`` add records with
+random sub-phores and fresh conformers; ``--featurize_only`` fills the
+caches and exits, on the host alone).  Without them it reads the featurized
+``.npz`` complexes already under ``--cache_path`` (``train_*``
+directories, and ``val_*`` for the validation loss).  It noises each batch
+inside the train step, and runs on the GPU unless ``--device
 cpu`` is given.  Per epoch it appends to ``<run_dir>/metrics.jsonl``, runs
 the validation-loss epoch, steers the learning rate on plateaus and saves
 ``last_model.msgpack`` beside ``model_parameters.yml``; the run directory
@@ -17,6 +23,14 @@ package's.
     python -m diffphore_torch.cli.train --cache_path data/cache \\
         --run_dir runs/try1 --n_epochs 5 --batch_size 24 --val_inference_freq 1 \\
         --num_inference_complexes 20
+
+The shipped corpus2 recipe from its SMILES CSVs, in its one (48, 160, 16)
+bucket:
+
+    python -m diffphore_torch.cli.train --config runs/corpus2/main/model_parameters.yml \\
+        --train_csv runs/corpus2/train.csv --val_csv runs/corpus2/val.csv \\
+        --bucket_a_min 48 --bucket_a_step 8 --bucket_p_min 160 --bucket_p_step 32 \\
+        --bucket_t_min 16 --bucket_t_step 4 --run_dir runs/c2
 
 With ``--rate_from_infer`` > 0 the epochs whose calibrated-branch
 probability stands clear of its floor run the calibrated-conformation-sampler
@@ -37,8 +51,8 @@ with ``utils.checkpoints.load_confidence_dir``:
     python -m diffphore_torch.cli.train --confidence_mode --cache_path data/cache \\
         --run_dir runs/conf1 --n_epochs 5 --batch_size 24
 
-Not part of the port yet, and refused with a message that says so: datasets
-from raw files and the tank baseline.
+Not part of the port yet, and refused with a message that says so: the
+tank baseline.
 """
 
 from __future__ import annotations
@@ -53,7 +67,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..data.dataset import CachedDataset, cache_directories, warmup_subset
+from ..data.dataset import (CachedDataset, DatasetSettings, PhoreDataset, cache_directories,
+                            records_from_csv, records_from_pdbbind_split, warmup_subset)
 from ..data.loaders import BucketLoader
 from ..device import resolve_device
 from ..chem.rmsd import plain_rmsd
@@ -73,13 +88,7 @@ VAL_KEYS = TRAIN_KEYS + ("tr_base_loss", "rot_base_loss", "tor_base_loss")
 CONFIDENCE_KEYS = ("loss", "loss_ph", "loss_ex", "loss_total")
 
 #: flags of parts that are not ported: (flag, its off value, the slice that brings it)
-_FEATURIZATION = "the raw-file featurization slice (data/dataset.py: PhoreDataset, featurize_record)"
 NOT_PORTED = (
-    ("train_csv", None, _FEATURIZATION), ("val_csv", None, _FEATURIZATION),
-    ("data_dir", None, _FEATURIZATION), ("split_train", None, _FEATURIZATION),
-    ("split_val", None, _FEATURIZATION), ("featurize_only", False, _FEATURIZATION),
-    ("matching", False, _FEATURIZATION), ("ligand_only", False, _FEATURIZATION),
-    ("phore_augment", 0, _FEATURIZATION), ("conf_augment", 0, _FEATURIZATION),
     ("model_type", "diff", "the variants slice (train/tank.py)"),
 )
 
@@ -93,18 +102,46 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # data
     p.add_argument("--config", type=str, default=None, help="flat YAML overriding any flag")
+    p.add_argument("--train_csv", type=str, default=None)
+    p.add_argument("--val_csv", type=str, default=None)
+    p.add_argument("--data_dir", type=str, default=None, help="PDBbind-layout root")
+    p.add_argument("--split_train", type=str, default=None)
+    p.add_argument("--split_val", type=str, default=None)
     p.add_argument("--cache_path", type=str, default="data/cache",
-                   help="holds train_*/ and val_*/ directories of featurized .npz complexes")
+                   help="holds the train_*/ and val_*/ directories of featurized .npz complexes")
     p.add_argument("--limit_complexes", type=int, default=0)
+    p.add_argument("--num_dataloader_workers", type=int, default=1,
+                   help="featurization processes (spawn); 1 featurizes in this process")
+    p.add_argument("--featurize_only", action="store_true",
+                   help="featurize and cache the datasets, then exit (needs no GPU)")
     p.add_argument("--ram_cache", default=True, action=argparse.BooleanOptionalAction,
                    help="keep loaded complexes resident in RAM")
-    for flag in ("train_csv", "val_csv", "data_dir", "split_train", "split_val"):
-        p.add_argument(f"--{flag}", type=str, default=None, help="not ported yet")
-    p.add_argument("--featurize_only", action="store_true", help="not ported yet")
-    p.add_argument("--matching", action="store_true", help="not ported yet")
-    p.add_argument("--ligand_only", action="store_true", help="not ported yet")
-    p.add_argument("--phore_augment", type=int, default=0, help="not ported yet")
-    p.add_argument("--conf_augment", type=int, default=0, help="not ported yet")
+    p.add_argument("--matching", action="store_true",
+                   help="fit an embedded conformer's torsions to each true pose")
+    p.add_argument("--ligand_only", action="store_true",
+                   help="synthesize random phores from the ligands")
+    p.add_argument("--phore_augment", type=int, default=0,
+                   help="add K copies of each training record with a random ligand sub-phore")
+    p.add_argument("--phore_augment_ex", type=int, default=2,
+                   help="EX volumes per perceived feature of the augmented records' sub-phores")
+    p.add_argument("--conf_augment", type=int, default=0,
+                   help="add M copies of each training record whose true pose is a freshly "
+                        "embedded conformer (with a ligand sub-phore)")
+    p.add_argument("--max_lig_size", type=int, default=0)
+    p.add_argument("--bucket_a_min", type=int, default=16, help="atom-count bucket floor")
+    p.add_argument("--bucket_p_min", type=int, default=16, help="phore-point bucket floor")
+    p.add_argument("--bucket_t_min", type=int, default=4, help="torsion bucket floor")
+    p.add_argument("--bucket_a_step", type=int, default=8)
+    p.add_argument("--bucket_p_step", type=int, default=16)
+    p.add_argument("--bucket_t_step", type=int, default=4)
+    p.add_argument("--min_phore_num", type=int, default=0)
+    p.add_argument("--max_phore_num", type=int, default=0)
+    p.add_argument("--matching_popsize", type=int, default=20)
+    p.add_argument("--matching_maxiter", type=int, default=20)
+    p.add_argument("--consider_ex", type=_str2bool, default=True)
+    p.add_argument("--ex_connected", type=_str2bool, default=True)
+    p.add_argument("--neighbor_cutoff", type=float, default=5.0)
+    p.add_argument("--remove_hs", type=_str2bool, default=True)
     # optimization
     p.add_argument("--n_epochs", type=int, default=800)
     p.add_argument("--batch_size", type=int, default=10)
@@ -261,12 +298,61 @@ def cc_probability(args, epoch: int) -> float:
     return args.rate_from_infer if epoch >= args.epoch_from_infer else 0.0
 
 
+def dataset_settings(args) -> DatasetSettings:
+    """The featurization settings of the data flags (their digest names the
+    cache directories)."""
+    return DatasetSettings(
+        matching=args.matching, ligand_only=args.ligand_only,
+        max_lig_size=args.max_lig_size, min_phore_num=args.min_phore_num,
+        max_phore_num=args.max_phore_num, seed=args.seed,
+        popsize=args.matching_popsize, maxiter=args.matching_maxiter,
+        consider_ex=args.consider_ex, ex_connected=args.ex_connected,
+        neighbor_cutoff=args.neighbor_cutoff, remove_hs=args.remove_hs,
+        a_min=args.bucket_a_min, p_min=args.bucket_p_min, t_min=args.bucket_t_min,
+        a_step=args.bucket_a_step, p_step=args.bucket_p_step, t_step=args.bucket_t_step,
+    )
+
+
+def augmented_records(records, args):
+    """The records, then ``--phore_augment`` copies of each with a random
+    sub-phore (``phore_seed`` j), then ``--conf_augment`` copies with a
+    fresh conformer (``conf_seed`` j)."""
+    out = list(records)
+    for key, tag, n in (("phore_seed", "aug", args.phore_augment),
+                        ("conf_seed", "conf", args.conf_augment)):
+        out += [{**r, "name": f"{r['name']}~{tag}{j}", key: j,
+                 "aug_num_ex": args.phore_augment_ex}
+                for r in records for j in range(1, n + 1)]
+    return out
+
+
 def build_datasets(args):
-    """(train, val or None) over the cache directories under --cache_path."""
+    """(train, val or None): ``PhoreDataset``s of --train_csv/--val_csv or
+    of the --data_dir splits, else the cache directories under --cache_path."""
+    if args.train_csv or args.data_dir:
+        if args.train_csv:
+            train_records = records_from_csv(args.train_csv)
+            val_records = records_from_csv(args.val_csv) if args.val_csv else []
+        elif args.split_train:
+            train_records = records_from_pdbbind_split(args.split_train, args.data_dir)
+            val_records = (records_from_pdbbind_split(args.split_val, args.data_dir)
+                           if args.split_val else [])
+        else:
+            raise SystemExit("Provide --train_csv or (--data_dir, --split_train)")
+        if args.limit_complexes:
+            train_records = train_records[: args.limit_complexes]
+            val_records = val_records[: args.limit_complexes]
+        settings = dataset_settings(args)
+        train = PhoreDataset(augmented_records(train_records, args), settings, args.cache_path,
+                             args.num_dataloader_workers, name="train", ram_cache=args.ram_cache)
+        val = (PhoreDataset(val_records, settings, args.cache_path, args.num_dataloader_workers,
+                            name="val", ram_cache=args.ram_cache)
+               if val_records else None)
+        return train, val
     train_dirs = cache_directories(args.cache_path, "train")
     if not train_dirs:
         raise SystemExit(f"no train_*/ directory of cached complexes under `{args.cache_path}`; "
-                         "featurizing raw files is not part of the port yet")
+                         "give --train_csv or --data_dir to featurize raw files")
     train = CachedDataset(train_dirs, args.limit_complexes, args.ram_cache)
     val_dirs = cache_directories(args.cache_path, "val")
     val = CachedDataset(val_dirs, args.limit_complexes, args.ram_cache) if val_dirs else None
@@ -465,8 +551,13 @@ def main(argv=None) -> None:
         raise SystemExit("--confidence_mode is a diff-model training mode; "
                          "it cannot be combined with --model_type tank")
     refuse_unported(args)
-    device = resolve_device(args.device)
     os.makedirs(args.run_dir, exist_ok=True)
+    if args.featurize_only:
+        train_ds, val_ds = build_datasets(args)
+        log_info(f"Featurize-only: train={len(train_ds)} "
+                 f"val={len(val_ds) if val_ds else 0} complexes cached")
+        return
+    device = resolve_device(args.device)
     if args.confidence_mode:
         train_confidence(args, device)
         return
@@ -512,8 +603,10 @@ def main(argv=None) -> None:
 
     checkpoints.save_config_yaml(cfg, args.run_dir, extra={
         "n_epochs": args.n_epochs, "batch_size": args.batch_size, "lr": args.lr,
-        "ema_rate": args.ema_rate, "rate_from_infer": args.rate_from_infer,
-        "epoch_from_infer": args.epoch_from_infer, "dynamic_coeff": args.dynamic_coeff,
+        "ema_rate": args.ema_rate, "inference_steps": args.inference_steps,
+        "rate_from_infer": args.rate_from_infer, "epoch_from_infer": args.epoch_from_infer,
+        "dynamic_coeff": args.dynamic_coeff, "phore_augment": args.phore_augment,
+        "phore_augment_ex": args.phore_augment_ex, "conf_augment": args.conf_augment,
     })
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed + start_epoch)

@@ -46,6 +46,9 @@ TRAINING_MODULES = [
     "chem/topology.py", "chem/embed.py", "chem/features.py", "chem/lipo.py",
     "chem/pharmacophore_rules.py", "data/phore.py", "data/graphs.py", "ops/fitscore.py",
     "cli/inference.py",
+    # training and evaluation from raw files
+    "data/phore_sampling.py", "chem/conformer_matching.py", "chem/complex_phore.py",
+    "cli/evaluate.py",
 ]
 
 

@@ -164,12 +164,6 @@ def test_pretrain_from_the_jax_checkpoint(cache_path, tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--model_type", "tank"], "variants slice"),
-    (["--conf_augment", "2"], "featurization slice"),
-    (["--train_csv", "pairs.csv"], "featurization slice"),
-    (["--data_dir", "x", "--split_train", "y"], "featurization slice"),
-    (["--featurize_only"], "featurization slice"),
-    (["--ligand_only"], "featurization slice"),
-    (["--phore_augment", "2"], "featurization slice"),
 ])
 def test_unported_flags_raise(cache_path, tmp_path, flags, match):
     base = ["--cache_path", cache_path, "--run_dir", str(tmp_path / "r"), "--n_epochs", "1",
@@ -180,8 +174,8 @@ def test_unported_flags_raise(cache_path, tmp_path, flags, match):
 
 
 def test_unknown_flags_and_missing_caches_are_errors(tmp_path):
-    with pytest.raises(SystemExit):          # a featurization knob the port does not define
-        tcli.main(["--bucket_a_min", "16", "--device", "cpu"])
+    with pytest.raises(SystemExit):          # a flag neither package defines
+        tcli.main(["--no_such_flag", "16", "--device", "cpu"])
     with pytest.raises(SystemExit, match="no train_"):
         tcli.main(["--cache_path", str(tmp_path), "--device", "cpu", "--run_dir",
                    str(tmp_path / "r")])
@@ -556,3 +550,115 @@ def test_val_inference_count_cuts_warmup_epochs():
             args.inference_earlystop_metric, args.inference_earlystop_goal,
             args.early_stop_patience, args.val_inference_freq) == (
         100, 20, 4, "valinf_rmsds_lt2", "max", 0, 5)
+
+
+# ------------------------------------------------------------ from raw files
+EXAMPLES = os.path.join(REPO, "examples")
+TRAIN_ROWS = ("name,ligand_description,phore,aug_num_ex\n"
+              f"ex01,{EXAMPLES}/EX01.sdf,{EXAMPLES}/example.phore,\n"
+              f"ex02,{EXAMPLES}/EX02.sdf,{EXAMPLES}/example.phore,\n"
+              "apap,CC(=O)Nc1ccc(O)cc1,,3\n"
+              "bad,C1CC(=O,,3\n")
+VAL_ROWS = ("name,ligand_description,phore\n"
+            f"ex03,{EXAMPLES}/EX03.sdf,{EXAMPLES}/example.phore\n")
+CSV_FLAGS = ["--phore_augment", "1", "--conf_augment", "1", "--phore_augment_ex", "3",
+             "--bucket_a_min", "24", "--bucket_p_min", "96", "--bucket_p_step", "32"]
+
+
+@pytest.fixture(scope="module")
+def csvs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("csv")
+    (root / "train.csv").write_text(TRAIN_ROWS)
+    (root / "val.csv").write_text(VAL_ROWS)
+    return ["--train_csv", str(root / "train.csv"), "--val_csv", str(root / "val.csv")]
+
+
+def _tree(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+@pytest.fixture(scope="module")
+def csv_runs(csvs, tmp_path_factory):
+    """One epoch of the port's trainer from the CSVs; the JAX trainer with
+    the same flags and no epoch (it featurizes and writes its config)."""
+    from diffphore_tpu.cli import train as jcli
+
+    root = tmp_path_factory.mktemp("csvrun")
+    common = [*csvs, *CSV_FLAGS, "--ns", "8", "--nv", "4", "--num_conv_layers", "2",
+              "--batch_size", "16", "--val_inference_freq", "0"]
+    tcli.main([*common, "--cache_path", str(root / "cache_port"), "--run_dir",
+               str(root / "port"), "--n_epochs", "1", "--device", "cpu"])
+    jcli.main([*common, "--cache_path", str(root / "cache_jax"), "--run_dir", str(root / "jax"),
+               "--n_epochs", "0"])
+    return root
+
+
+def test_train_csv_featurizes_the_jax_trainers_records(csv_runs):
+    tree = _tree(str(csv_runs / "cache_port"))
+    assert tree == _tree(str(csv_runs / "cache_jax"))
+    train = [p for p in tree if p.startswith("train_")]
+    # 4 rows, each with one sub-phore and one conformer copy; the bad SMILES x3 skipped
+    assert len(train) == 12 and sum(p.endswith(".skip") for p in train) == 3
+    assert sum(p.startswith("val_") for p in tree) == 1
+    recs = _records(str(csv_runs / "port"))
+    assert recs[0]["steps"] >= 1 and np.isfinite(recs[0]["loss"])
+    assert any(r.get("mode") == "val" for r in recs)
+
+
+def test_train_csv_writes_the_jax_trainers_config_keys(csv_runs):
+    got = flat_yaml.load(os.path.join(str(csv_runs / "port"), checkpoints.MODEL_PARAMS_YAML))
+    want = flat_yaml.load(os.path.join(str(csv_runs / "jax"), checkpoints.MODEL_PARAMS_YAML))
+    for k in ("phore_augment", "phore_augment_ex", "conf_augment", "inference_steps",
+              "batch_size", "lr", "ema_rate", "rate_from_infer", "epoch_from_infer",
+              "dynamic_coeff"):
+        assert got[k] == want[k], k
+    assert (got["phore_augment"], got["conf_augment"], got["phore_augment_ex"]) == (1, 1, 3)
+    assert (got["n_epochs"], want["n_epochs"]) == (1, 0)
+
+
+def test_featurize_only_writes_and_exits(csvs, tmp_path):
+    """No device is needed: the caches are written, no run is trained."""
+    tcli.main([*csvs, *CSV_FLAGS, "--featurize_only", "--cache_path", str(tmp_path / "c"),
+               "--run_dir", str(tmp_path / "r")])
+    assert len([p for p in _tree(str(tmp_path / "c")) if p.endswith(".npz")]) == 10
+    assert not os.path.exists(tmp_path / "r" / "metrics.jsonl")
+    assert not os.path.exists(tmp_path / "r" / checkpoints.LAST_MODEL)
+
+
+@pytest.mark.parametrize("flags,n_train", [
+    (["--conf_augment", "2"], 9),
+    (["--phore_augment", "2"], 9),
+    (["--ligand_only"], 3),
+    (["--matching", "--matching_popsize", "3", "--matching_maxiter", "2"], 3),
+    (["--limit_complexes", "2", "--max_lig_size", "12"], 1),
+    (["--min_phore_num", "3", "--max_phore_num", "8", "--remove_hs", "false"], None),
+    (["--consider_ex", "false", "--ex_connected", "false", "--neighbor_cutoff", "4.0"], 3),
+])
+def test_data_flags_are_ported(csvs, tmp_path, monkeypatch, flags, n_train):
+    """Each data flag reaches the datasets as the JAX trainer's does: the
+    same settings digest and records, and the complexes featurized."""
+    from diffphore_tpu.cli import train as jcli
+
+    argv = [*csvs, *flags, "--cache_path", str(tmp_path / "c"), "--featurize_only",
+            "--run_dir", str(tmp_path / "r")]
+    seen = {}
+    real = tcli.PhoreDataset
+
+    def spy(records, settings, *args, **kwargs):
+        seen["port", kwargs["name"]] = ([r["name"] for r in records], settings.digest())
+        return real(records, settings, *args, **kwargs)
+
+    def jax_spy(records, settings, *args, **kwargs):
+        seen["jax", kwargs["name"]] = ([r["name"] for r in records], settings.digest())
+
+    monkeypatch.setattr(tcli, "PhoreDataset", spy)
+    monkeypatch.setattr(jcli, "PhoreDataset", jax_spy)
+    tcli.main(argv)
+    jcli.build_datasets(jcli.parse_args(argv))
+    for name in ("train", "val"):
+        assert seen["port", name] == seen["jax", name]
+    train_dir = tmp_path / "c" / f"train_{seen['port', 'train'][1]}"
+    n = len([f for f in os.listdir(train_dir) if f.endswith(".npz")])
+    if n_train is not None:
+        assert n == n_train
