@@ -81,7 +81,8 @@ Phases, each fatal on failure:
   11. the screening CLI from files: ``diffphore_torch.cli.inference.main``
      with the corpus2 checkpoint (bf16) on six rows (examples/task.csv's
      three SDFs, a drug-size SMILES embedded on the host, a MOL2 written here,
-     an unparsable SMILES): five complexes x 40 poses x 20 steps, the sixth
+     an unparsable SMILES; featurized inline, ``--prefetch_workers 0``):
+     five complexes x 40 poses x 20 steps, the sixth
      logged and skipped; K1 exactly 5 x 23 x 20 launches and no K2 or K3; the
      artifact set (ranked_results.csv, inference_results.json, 40 ranked poses
      and a 40 x 19 .score file per complex); each ranked pose re-scored on the
@@ -115,7 +116,19 @@ Phases, each fatal on failure:
      plain version on the 23 conv inputs of one forward at the bucket, as
      in 11.  Prints featurization ms per complex (serial and with the
      workers, and the turns' walls), dispatch and RMSD ms per complex.
-  13. report: the kernels' JSON line (each kernel's launches per path, and
+  13. scale-out on the one card: a bf16 train step of phase 5's batch over
+     NCCL at world size 1, bit-equal to the step without a process group;
+     the same step over two gloo ranks sharing the card (12 rows each,
+     spawned), against one process from the same seed within TOL_BF16_GAP,
+     replicas equal, K2 17 x 3 and K3 6 x 3 launches on each rank (phase 12
+     runs it at the recipe's bucket too, and times K1 over one evaluation
+     forward there); 12 SDF complexes through one ``cli.inference`` process
+     and through two striped ones at once, then rank 0's merge; phase 11's
+     six rows through ``main()`` with 0, 2, 2, 0 featurization processes,
+     the artifact sets equal but for ``run_time``, K1 exact.  Prints the
+     walls, each process's start-up (launch to first dispatch) and poses/s
+     over the wall and over the dispatch window the CLI logs.
+  14. report: the kernels' JSON line (each kernel's launches per path, and
      its errors and times at the recipe's bucket), the card line, and the
      result line.
 
@@ -1663,6 +1676,32 @@ def write_mol2(mol, path):
         f.write("\n".join(lines) + "\n")
 
 
+def screen_rows(tmp):
+    """(CSV path, rows) of the six rows of the screen from files: the
+    examples' three SDFs, a drug-size SMILES, a MOL2 written here and an
+    unparsable SMILES."""
+    import csv
+
+    from diffphore_torch.chem.sdf import parse_sdf
+
+    lig = parse_sdf(os.path.join(HERE, "examples", "EX02.sdf"))[0]
+    mol2 = os.path.join(tmp, "EX02_mol2.mol2")
+    write_mol2(lig, mol2)
+    phore_file = os.path.join(HERE, "examples", "example.phore")
+    with open(os.path.join(HERE, "examples", "task.csv")) as f:
+        rows = [dict(r, ligand_description=os.path.join(HERE, r["ligand_description"]),
+                     phore=os.path.join(HERE, r["phore"])) for r in csv.DictReader(f)]
+    rows += [{"name": "gefitinib", "ligand_description": SCREEN_SMILES, "phore": phore_file},
+             {"name": "EX02_mol2", "ligand_description": mol2, "phore": phore_file},
+             {"name": "bad", "ligand_description": SCREEN_BAD_SMILES, "phore": phore_file}]
+    task = os.path.join(tmp, "task.csv")
+    with open(task, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["name", "ligand_description", "phore"])
+        w.writeheader()
+        w.writerows(rows)
+    return task, rows
+
+
 def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
     """``diffphore_torch.cli.inference.main`` on six rows: five complexes
     sampled and one skipped, exact K1 launches, the artifact set, the ranked
@@ -1681,6 +1720,7 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
     from diffphore_torch.chem.pharmacophore_rules import ligand_phore_features, scoring_phore_fp
     from diffphore_torch.chem.sdf import parse_sdf
     from diffphore_torch.cli import inference as cli
+    from diffphore_torch.data.featurize import load_ligand
     from diffphore_torch.constants import VDW_TABLE
     from diffphore_torch.data.phore import parse_phore
     from diffphore_torch.ops.fitscore import fitscore, make_phore_arrays
@@ -1743,27 +1783,14 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
         return sum(t for n, t in feat.items() if n != bad_name) / run_time
 
     with tempfile.TemporaryDirectory() as tmp:
-        lig = parse_sdf(os.path.join(HERE, "examples", "EX02.sdf"))[0]
-        mol2 = os.path.join(tmp, "EX02_mol2.mol2")
-        write_mol2(lig, mol2)
-        phore_file = os.path.join(HERE, "examples", "example.phore")
-        with open(os.path.join(HERE, "examples", "task.csv")) as f:
-            rows = [dict(r, ligand_description=os.path.join(HERE, r["ligand_description"]),
-                         phore=os.path.join(HERE, r["phore"])) for r in csv.DictReader(f)]
-        rows += [{"name": "gefitinib", "ligand_description": SCREEN_SMILES, "phore": phore_file},
-                 {"name": "EX02_mol2", "ligand_description": mol2, "phore": phore_file},
-                 {"name": "bad", "ligand_description": SCREEN_BAD_SMILES, "phore": phore_file}]
+        task, rows = screen_rows(tmp)
+        phore_file = rows[0]["phore"]
         row_names = [cli.complex_name(r) for r in rows]
         bad_name = row_names[-1]
-        task = os.path.join(tmp, "task.csv")
-        with open(task, "w", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=["name", "ligand_description", "phore"])
-            w.writeheader()
-            w.writerows(rows)
         out = os.path.join(tmp, "screen")
         argv = ["--phore_ligand_csv", task, "--model_dir", MODEL_DIR, "--out_dir", out,
                 "--sample_per_complex", str(poses), "--inference_steps", str(steps),
-                "--device", device]
+                "--device", device, "--prefetch_workers", "0"]
 
         # ---- the screen
         wall, log, feat, dispatch = run(argv)
@@ -1792,7 +1819,7 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
             if len(sdf) != poses or len(table) != poses or {len(r) for r in table} != {19}:
                 raise AssertionError(f"{name}: {len(sdf)} ranked poses, .score "
                                      f"{len(table)} x {sorted({len(r) for r in table})}")
-            mol = engine.load_ligand(rec["ligand_description"])
+            mol = load_ligand(rec["ligand_description"])
             if [a.atomic_num for a in sdf[0].atoms] != [a.atomic_num for a in mol.atoms]:
                 raise AssertionError(f"{name}: ranked poses' atoms differ from the input's")
             xyz = torch.tensor(np.stack([m.coords for m in sdf]), dtype=torch.float32,
@@ -2117,6 +2144,12 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
             if not bool(torch.isfinite(m["loss"])):
                 raise AssertionError("a train step at the recipe's bucket is not finite")
             del state
+            two_ranks = two_rank_step(batch, os.path.join(tmp, "ranks"), "recipe")
+            print(f"raw files: a bf16 train step at {RAW_BUCKET}, batch {TRAIN_BATCH}: one "
+                  f"process {step_ms:.1f} ms wall; two gloo ranks sharing the card, 12 rows "
+                  f"each: {two_ranks['step_ms']:.1f} ms wall (slowest rank, mean of "
+                  f"{RAW_STEP_REPEATS}), launches per rank {two_ranks['counts']} ({card})",
+                  flush=True)
 
         # ---- the evaluation CLI with the corpus2 model and head
         out = os.path.join(tmp, "eval")
@@ -2153,22 +2186,34 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
             from diffphore_torch.ops import tp_fused
 
             cfg, model = load_model_dir(MODEL_DIR, device="cuda")
+            # the first test row, a corpus2 SMILES (the cache files' names
+            # are digests of the records, which hold the checkout's paths)
             eval_dir = glob.glob(os.path.join(cache, "eval_*"))[0]
-            one = ds.load_cached(sorted(glob.glob(os.path.join(eval_dir, "*.npz")))[0])
+            one = next(b for b in (ds.load_cached(f) for f in glob.glob(
+                os.path.join(eval_dir, "*.npz"))) if b.names[0] == test_rows[0]["name"])
             gen = torch.Generator(device="cuda")
             gen.manual_seed(SEED)
             rows_k1 = posed_rows(one.to("cuda"), poses, cfg, gen)
-            errs = [check_k1_call(tp_fused, n, m, a)
-                    for n, m, a in capture_conv_calls(model, rows_k1, poses)]
+            print(f"raw files: tp_fused on the 23 conv calls of one evaluation forward of "
+                  f"{poses} poses of {one.names[0]} at {RAW_BUCKET}", flush=True)
+            errs = phase_kernel_check(model, rows_k1, tp_fused)
             check_forward(model, rows_k1, cfg.compute_dtype, poses,
                           what=f"evaluation forward at {RAW_BUCKET}")
-            k1_summary = {"max_abs_err": max(c["err"] for c in errs),
-                          "max_abs_err_bf16": max(c["err_bf"] for c in errs),
-                          "max_rel_err": max(c["err"] / max(c["scale"], 1e-30) for c in errs),
-                          "max_rel_err_bf16": max(c["err_bf"] / max(c["scale_bf"], 1e-30)
-                                                  for c in errs)}
-            k1_check = (f"max |kernel - plain| / max|plain| {k1_summary['max_rel_err']:.2e} "
-                        f"f32, {k1_summary['max_rel_err_bf16']:.2e} bf16")
+            k1_summary = {"max_abs_err": max(c["max_abs_err"] for c in errs),
+                          "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in errs),
+                          "max_rel_err": max(c["max_abs_err"] / max(c["max_abs_ref"], 1e-30)
+                                             for c in errs),
+                          "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in errs),
+                          **{k: sum(c[k] for c in errs)
+                             for k in ("ms", "ms_bf16", "bound_ms", "bound_ms_bf16",
+                                       "plain_ms")}}
+            k1_check = (f"{one.names[0]}: max |kernel - plain| / max|plain| "
+                        f"{k1_summary['max_rel_err']:.2e} "
+                        f"f32, {k1_summary['max_rel_err_bf16']:.2e} bf16; one forward's 23 "
+                        f"calls {k1_summary['ms']:.3f} / {k1_summary['ms_bf16']:.3f} ms f32 / "
+                        f"bf16 on the card (graph replay) against bounds "
+                        f"{k1_summary['bound_ms']:.3f} / {k1_summary['bound_ms_bf16']:.3f}, "
+                        f"plain {k1_summary['plain_ms']:.2f} ms")
 
     n_train = train_ds.featurized + val_ds.featurized
     print(f"raw files ({device}): cli.train.main from {RAW_TRAIN_ROWS} corpus2 rows + 1 val row "
@@ -2198,6 +2243,285 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
           f"{RAW_BUCKET}: {k1_check} ({card})", flush=True)
     return {"train": train_counts, "eval": eval_counts, "k1": k1_summary, "k2_cases": k2_cases,
             "k3_cases": k3_cases}
+
+
+# Phase 13: scale-out.  Two gloo ranks share the one card (NCCL takes one
+# rank per card); NCCL at a world size above 1 needs several cards.
+SCALE_WORLD = 2
+SCALE_STEP_REPEATS = 3      # timed steps after the compared one
+SCALE_SDF_COPIES = 4        # copies of the examples' three SDFs: 12 complexes to stripe
+PREFETCH_TURNS = (0, 2, 2, 0)
+
+
+def scale_out_rank(batch_path, out_path):
+    """Rank r of ``SCALE_WORLD`` gloo ranks on cuda:0: one bf16 train step of
+    the shipped config from fresh weights on its rows of the global batch
+    (the batch, noise and dropout masks of one process), its launch counts,
+    then ``SCALE_STEP_REPEATS`` timed steps; writes what it saw."""
+    import torch
+
+    from diffphore_torch.parallel import mesh
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils.checkpoints import load_config_yaml
+
+    shard, device = mesh.init_process_group("cuda:0", backend="gloo")
+    try:
+        cfg = load_config_yaml(MODEL_DIR)
+        batch = torch.load(batch_path, weights_only=False).to(device)
+        state = create_train_state(cfg, seed=SEED, device=str(device))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)
+        step = make_train_step(cfg, shard=shard)
+        reset_kernel_counts()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        grads = {k: p.grad.cpu() for k, p in state.model.named_parameters()}
+        params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+        walls = []
+        for _ in range(SCALE_STEP_REPEATS):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        torch.save({"loss": float(m["loss"]), "grads": grads, "params": params,
+                    "counts": counts, "walls": walls}, out_path % shard.rank)
+    finally:
+        mesh.destroy_process_group()
+
+
+def two_rank_step(batch, tmp, tag):
+    """One bf16 train step over two gloo ranks sharing the card against one
+    process on the whole batch from the same seed: the loss within
+    TOL_STEP_GRAD, the gradient as one vector within TOL_BF16_GAP of the one
+    process's own f32-vs-bf16 difference, the replicas' parameters equal
+    after the step, K2 and K3 at their per-step counts on each rank.
+    Returns the ranks' step wall time (ms, the slower rank's mean) and
+    launch counts."""
+    import torch
+
+    from diffphore_torch.parallel import mesh
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils.checkpoints import load_config_yaml
+
+    os.makedirs(tmp, exist_ok=True)
+    batch_path = os.path.join(tmp, f"{tag}_batch.pt")
+    torch.save(batch.to("cpu"), batch_path)
+    out_path = os.path.join(tmp, f"{tag}_rank%d.pt")
+    mesh.launch(scale_out_rank, SCALE_WORLD, batch_path, out_path)
+    ranks = [torch.load(out_path % r, weights_only=False) for r in range(SCALE_WORLD)]
+    cfg = load_config_yaml(MODEL_DIR)
+    results = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+        state = create_train_state(cfg_d, seed=SEED, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        state, m = make_train_step(cfg_d)(state, batch, gen)
+        results[dtype] = (float(m["loss"]), {k: p.grad.cpu()
+                                             for k, p in state.model.named_parameters()})
+        del state
+    (loss_1, g1), (loss_32, g32) = results["bfloat16"], results["float32"]
+    names = [k for k, v in g1.items() if v.numel()]
+    flat = lambda d: torch.cat([d[k].flatten() for k in names])
+    gap, norm = float((flat(g32) - flat(g1)).norm()), float(flat(g1).norm())
+    for r, out in enumerate(ranks):
+        if out["counts"] != {"k1": 0, **{k: K2_CONVS for k in ("fwd", "bwd_edge", "bwd_x")},
+                             **{k: K3_CONVS for k in ("k3_fwd", "k3_bwd_edge", "k3_bwd_x")}}:
+            raise AssertionError(f"{tag}: rank {r} launched {out['counts']} in one step")
+        err = float((flat(out["grads"]) - flat(g1)).norm())
+        if not err <= TOL_BF16_GAP * gap:
+            raise AssertionError(f"{tag}: rank {r}'s gradient differs from one process's by "
+                                 f"{err} > {TOL_BF16_GAP} * the f32-vs-bf16 difference {gap}")
+        if not abs(out["loss"] - loss_1) <= TOL_STEP_GRAD * abs(loss_1):
+            raise AssertionError(f"{tag}: rank {r}'s loss {out['loss']} vs one process's "
+                                 f"{loss_1}")
+    if any(not torch.equal(ranks[0]["params"][k], ranks[1]["params"][k]) for k in names):
+        raise AssertionError(f"{tag}: the two replicas' parameters differ after a step")
+    step_ms = 1e3 * max(sum(out["walls"]) / len(out["walls"]) for out in ranks)
+    print(f"{tag}: a bf16 step of batch {batch.batch_size} over {SCALE_WORLD} gloo ranks "
+          f"sharing the card against one process from the same seed: loss "
+          f"{ranks[0]['loss']:.6f} vs {loss_1:.6f}; gradient L2 |ranks - one| / |one| "
+          + " ".join(f"{float((flat(o['grads']) - flat(g1)).norm()) / norm:.2e}" for o in ranks)
+          + f" against the f32-vs-bf16 {gap / norm:.2e}; replicas equal; per rank K2 "
+          f"{K2_CONVS} x 3 and K3 {K3_CONVS} x 3 launches", flush=True)
+    return {"step_ms": step_ms, "counts": ranks[0]["counts"]}
+
+
+def artifacts_without_run_time(root):
+    """Every file under ``root``, ``run_time`` taken out of the journals,
+    dock logs and ranked tables."""
+    import csv
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            rel = os.path.relpath(path, root)
+            if name.endswith((".json", "_dock.log")):
+                with open(path) as f:
+                    obj = json.load(f)
+                obj.pop("run_time")
+                out[rel] = obj
+            elif name.startswith("ranked_results"):
+                with open(path) as f:
+                    rows = list(csv.reader(f, delimiter="\t"))
+                col = rows[0].index("run_time")
+                out[rel] = [r[:col] + r[col + 1:] for r in rows]
+            else:
+                with open(path, "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def phase_scale_out(card, train_batch):
+    """NCCL at world size 1 against no process group (bit-equal step); two
+    gloo ranks sharing the card against one process; one screening process
+    against two striped ones on the card, then the merge; the screen from
+    files with featurization inline and in two worker processes, in turns,
+    with the artifact sets compared.  Returns the screen's K1 launches."""
+    import csv
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import inference as cli
+    from diffphore_torch.cli.profile_screen import dispatch_window, run_processes
+    from diffphore_torch.parallel import mesh
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils.checkpoints import load_config_yaml
+
+    # ---- NCCL at world size 1: the same bits as no process group
+    cfg = load_config_yaml(MODEL_DIR)
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(mesh.free_port()))
+    try:
+        shard, device = mesh.init_process_group("cuda")
+        seen = []
+        for one in (None, shard, None):
+            state = create_train_state(cfg, seed=SEED, device="cuda")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            state, m = make_train_step(cfg, shard=one)(state, train_batch, gen)
+            seen.append([m["loss"]] + [p.grad for p in state.model.parameters()]
+                        + [p.detach() for p in state.model.parameters()])
+        backend = torch.distributed.get_backend()
+    finally:
+        mesh.destroy_process_group()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k)
+    if not all(torch.equal(a, c) for a, c in zip(seen[0], seen[2])):
+        raise AssertionError("two plain train steps from the same seed differ: the step is not "
+                             "deterministic on the card")
+    if not all(torch.equal(a, b) for a, b in zip(seen[0], seen[1])):
+        raise AssertionError(f"a step over {backend} at world size 1 differs from the plain step")
+    print(f"scale-out: a bf16 train step over {backend} at world size 1 equals the step without "
+          f"a process group, loss, {len(seen[0]) // 2} gradients and parameters bit for bit",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- two gloo ranks sharing the card, the shipped bf16, 24 x 96 x 8
+        two = two_rank_step(train_batch, os.path.join(tmp, "ranks"), "scale-out")
+
+        # ---- one screening process against two striped ones on the card
+        phore_file = os.path.join(HERE, "examples", "example.phore")
+        rows = []
+        for i in range(SCALE_SDF_COPIES):
+            for name in ("EX01", "EX02", "EX03"):
+                path = os.path.join(tmp, f"{name}_{i}.sdf")
+                shutil.copy(os.path.join(HERE, "examples", f"{name}.sdf"), path)
+                rows.append({"name": f"{name}_{i}", "ligand_description": path,
+                             "phore": phore_file})
+        task = os.path.join(tmp, "stripes.csv")
+        with open(task, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["name", "ligand_description", "phore"])
+            w.writeheader()
+            w.writerows(rows)
+        n = len(rows)
+
+        def cli_argv(out, *extra):
+            return ["--phore_ligand_csv", task, "--model_dir", MODEL_DIR, "--out_dir", out,
+                    "--sample_per_complex", str(POSES), "--inference_steps", str(STEPS),
+                    "--device", "cuda", "--prefetch_workers", "0", *extra]
+
+        one_out, striped_out = os.path.join(tmp, "one"), os.path.join(tmp, "striped")
+        one = run_processes([cli_argv(one_out)], POSES, timeout=600)
+        two_proc = run_processes([cli_argv(striped_out, "--num_processes", str(SCALE_WORLD),
+                                           "--process_rank", str(r))
+                                  for r in range(SCALE_WORLD)], POSES, timeout=600)
+        if one["complexes"] != n or two_proc["complexes"] != n:
+            raise AssertionError(f"the screens sampled {one['complexes']} and "
+                                 f"{two_proc['complexes']} of {n} complexes")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(cli_argv(striped_out, "--num_processes", str(SCALE_WORLD),
+                              "--process_rank", "0"))                 # the merge
+        tables = {}
+        for out in (one_out, striped_out):
+            with open(os.path.join(out, "ranked_results.csv")) as f:
+                tables[out] = list(csv.DictReader(f, delimiter="\t"))
+        if sorted(r["name"] for r in tables[striped_out]) != sorted(
+                r["name"] for r in tables[one_out]) or len(tables[one_out]) != n:
+            raise AssertionError("the merged striped table does not hold the one process's "
+                                 "complexes")
+        if not all(np.isfinite(float(r["max_fitscore"])) for r in tables[striped_out]):
+            raise AssertionError("the merged table holds a fitness that is not finite")
+
+        # ---- the screen from files, featurization inline and in two worker
+        # processes, in turns, through main() in this process
+        screen_task, screen = screen_rows(tmp)
+        turns, sets = [], []
+        reset_kernel_counts()
+        for i, workers in enumerate(PREFETCH_TURNS):
+            out = os.path.join(tmp, f"prefetch{i}")
+            log = io.StringIO()
+            t0, wall0 = time.perf_counter(), time.time()
+            with contextlib.redirect_stdout(log):
+                cli.main(["--phore_ligand_csv", screen_task, "--model_dir", MODEL_DIR,
+                          "--out_dir", out, "--sample_per_complex", str(POSES),
+                          "--inference_steps", str(STEPS), "--device", "cuda",
+                          "--prefetch_workers", str(workers)])
+            torch.cuda.synchronize()
+            _, first, last = dispatch_window(log.getvalue())
+            turns.append((workers, time.perf_counter() - t0, first - wall0, last - first))
+            sets.append(artifacts_without_run_time(out))
+        counts = expect_counts("the screen in turns",
+                               k1=len(PREFETCH_TURNS) * SCREEN_SAMPLED * CONVS_PER_FORWARD * STEPS)
+        for i, got in enumerate(sets[1:], 1):
+            if got != sets[0]:
+                diff = sorted(k for k in set(got) | set(sets[0]) if got.get(k) != sets[0].get(k))
+                raise AssertionError(f"turn {i} ({PREFETCH_TURNS[i]} workers) wrote another "
+                                     f"artifact set than turn 0: {diff[:5]}")
+
+    def rate(workers, column):
+        return " ".join(f"{SCREEN_SAMPLED * POSES / t[column]:.1f}" for t in turns
+                        if t[0] == workers)
+
+    def startups(run):
+        return " + ".join(f"{s:.3f}" for s in run["startup_s"])
+
+    print(f"scale-out: {n} SDF complexes x {POSES} poses x {STEPS} steps through cli.inference "
+          f"processes on the card: one process {one['wall_s']:.3f} s wall = "
+          f"{one['poses_per_s_wall']:.1f} poses/s, start-up (launch to first dispatch) "
+          f"{startups(one)} s, dispatch window {one['window_s']:.3f} s = "
+          f"{one['poses_per_s_window']:.1f} poses/s; two striped processes at once "
+          f"{two_proc['wall_s']:.3f} s wall = {two_proc['poses_per_s_wall']:.1f} poses/s, "
+          f"start-ups {startups(two_proc)} s, dispatch window over both "
+          f"{two_proc['window_s']:.3f} s = {two_proc['poses_per_s_window']:.1f} poses/s; merged "
+          f"by rank 0 into the one process's {n} names ({card})", flush=True)
+    print(f"scale-out: the screen from files ({SCREEN_SAMPLED} of 6 rows sampled, a SMILES "
+          f"embedded) through main() with --prefetch_workers in turns (wall / to the first "
+          f"dispatch / dispatch window): "
+          + ", ".join(f"{w}: {t:.3f} / {s:.3f} / {d:.3f} s" for w, t, s, d in turns)
+          + f"; poses/s over main() inline {rate(0, 1)}, two workers {rate(2, 1)}; over the "
+          f"dispatch window inline {rate(0, 3)}, two workers {rate(2, 3)}; artifact sets equal "
+          f"but for run_time; K1 launches {counts['k1']} ({card})", flush=True)
+    print(f"scale-out: a bf16 step at {BUCKET}, batch {train_batch.batch_size}, two gloo ranks "
+          f"sharing the card: {two['step_ms']:.1f} ms wall ({card})", flush=True)
+    return counts["k1"]
 
 
 def main() -> int:
@@ -2386,7 +2710,12 @@ def main() -> int:
 
     mark("raw files")
 
-    # ---- 13. report
+    # ---- 13. scale-out
+    scale_k1 = phase_scale_out(card, train_batch)
+
+    mark("scale-out")
+
+    # ---- 14. report
     kernel = {
         "name": "tp_fused",
         "route": "cuda",
@@ -2401,6 +2730,7 @@ def main() -> int:
         "launches_screening_cli": screen_k1,
         "launches_raw_files_training": raw["train"]["k1"],
         "launches_raw_files_evaluate": raw["eval"]["k1"],
+        "launches_scale_out_screen": scale_k1,
         "raw_files_bucket": raw["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),

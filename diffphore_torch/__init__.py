@@ -7,6 +7,13 @@ module can be held against the JAX package on the same inputs.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # torch loads on first use: a featurization process imports the package
+    # and numpy, not torch
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

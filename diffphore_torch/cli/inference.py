@@ -15,6 +15,14 @@ resume semantics (existing per-complex outputs are reused unless
   out_dir/mapping_process/{name}/{name}_dock.log   JSON: fitscore, run_time
   out_dir/mapping_process/{name}/{name}_visualisation.sdf   --save_visualisation
 
+Records are featurized in ``--prefetch_workers`` spawn processes ahead of
+the dispatches (inline with 0).  With several visible cards and
+``--use_mesh`` (the default) one process per card screens a stripe of the
+records and the journals are merged in record order.  ``--num_processes N
+--process_rank r`` screens stripe r alone and writes
+``inference_results.rank{r}.json`` (and a ``.done`` marker); rank 0 then
+merges the finished journals and writes the ranked table.
+
 Run:
   python -m diffphore_torch.cli.inference --phore_ligand_csv examples/task.csv \\
       --model_dir runs/corpus2/main --out_dir results/run1 \\
@@ -24,34 +32,34 @@ Run:
 from __future__ import annotations
 
 import argparse
+import collections
 import csv
+import glob
+import itertools
 import json
+import multiprocessing
 import os
 import shutil
 import time
-from typing import Dict, List
+from concurrent.futures import ProcessPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..chem.sdf import write_sdf
 from ..constants import PHORE_ALPHA
+from ..data.featurize import featurize_timed
 from ..data.phore import parse_phore
 from ..device import resolve_device
 from ..models.score_model import ScoreModel, ScoreModelConfig
+from ..parallel import mesh
+from ..parallel.mesh import shard_records
+from ..parallel.workers import bare_main, worker_environment
 from ..sampler.sampling import SamplerSettings
 from ..utils import checkpoints, flat_yaml
 from ..utils.logging import log_error, log_info, log_warn
-from .pipeline import ComplexJob, FitEngine
-
-#: flags of parts that are not ported: (flag, its off value, the slice that brings it)
-NOT_PORTED = (
-    ("num_processes", (0, 1), "the scale-out slice (multi-process striping, --use_mesh)"),
-    ("process_rank", (-1, 0), "the scale-out slice (multi-process striping, --use_mesh)"),
-    # featurization threads hold the GIL against the dispatching thread, and
-    # a screen ran slower with them than without (PERF.md, Findings)
-    ("prefetch_workers", (0,), "featurization in worker processes (ROADMAP, host-side speed)"),
-)
+from .pipeline import ComplexJob, FitEngine, job_from_arrays
 
 RANKED_COLUMNS = ["target", "ligand", "name", "run_time", "max_fitscore",
                   "top5_mean_fitscore", "fitscore"]
@@ -116,16 +124,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch_complexes", type=int, default=1,
                    help="complexes handed to the engine together (one "
                         "dispatch each, up to 16 in flight)")
-    p.add_argument("--prefetch_workers", type=int, default=0,
-                   help="featurization threads (the JAX package's CLI); the "
-                        "port featurizes on the main thread and takes only 0")
+    p.add_argument("--prefetch_workers", type=int, default=2,
+                   help="featurization processes working ahead of the dispatches "
+                        "(0: featurize inline, before each dispatch)")
     p.add_argument("--use_mesh", type=str2bool, default=True,
-                   help="shard pose batches over all visible devices; the "
-                        "port runs on one card")
+                   help="spread the screen over all visible cards, one process each")
     p.add_argument("--num_processes", type=int, default=0,
-                   help="multi-host screening: total process count (not ported)")
+                   help="striped screening: total process count")
     p.add_argument("--process_rank", type=int, default=-1,
-                   help="multi-host screening: this process's stripe (not ported)")
+                   help="striped screening: this process's stripe")
     args = p.parse_args(argv)
     if args.config:
         overrides = flat_yaml.load(args.config) or {}
@@ -135,13 +142,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.target_fishing:
         args.fitness = 5
     return args
-
-
-def refuse_unported(args) -> None:
-    for flag, off, brings in NOT_PORTED:
-        if getattr(args, flag) not in off:
-            raise NotImplementedError(
-                f"--{flag} is not part of the PyTorch port yet; it comes with {brings}")
 
 
 def read_csv_records(path: str) -> List[Dict]:
@@ -246,15 +246,61 @@ def _dump_json(obj, path: str) -> None:
         json.dump(obj, f, indent=4)
 
 
+def featurized(args, engine: FitEngine, todo: List, lookahead: int) -> Iterator:
+    """(name, job or None, featurization seconds) of each (name, record) of
+    ``todo``, in input order: inline with ``--prefetch_workers 0``, else in
+    that many spawn processes (one numeric thread each; they import numpy
+    and the host chemistry, not torch, nor the main module) with up to
+    ``lookahead`` records in flight: the same jobs, from the same arrays.  A
+    record whose featurization raises is logged and gives None; a worker
+    that dies stops the screen
+    (``BrokenProcessPool``).  The workers live as long as the screen: an
+    executor that replaces them (``max_tasks_per_child``) hangs in CPython
+    3.12 once a worker retires with records queued."""
+    keep = args.keep_local_structures
+    if args.prefetch_workers <= 0:
+        for name, record in todo:
+            t0 = time.time()
+            try:
+                job = engine.prepare(name, record["ligand_description"], record["phore"], keep)
+            except Exception as e:  # noqa: BLE001 - one complex must not stop the screen
+                log_error(f"Featurization of `{name}` raised {e!r}")
+                job = None
+            yield name, job, time.time() - t0
+        return
+    queue = iter(todo)
+    in_flight: collections.deque = collections.deque()
+    with worker_environment(), ProcessPoolExecutor(
+            args.prefetch_workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        while True:
+            with bare_main():           # the pool spawns its workers in submit
+                for name, record in itertools.islice(queue, lookahead - len(in_flight)):
+                    in_flight.append((name, pool.submit(featurize_timed, name,
+                                                        record["ligand_description"],
+                                                        record["phore"], keep)))
+            if not in_flight:
+                return
+            name, future = in_flight.popleft()
+            arrays, seconds, error = future.result()
+            engine.timers.add("featurize", seconds)
+            if error is not None:
+                log_error(f"Featurization of `{name}` raised {error}")
+            yield name, None if arrays is None else job_from_arrays(arrays), seconds
+
+
 def fit(args, engine: FitEngine, records: List[Dict], result_file: str) -> Dict:
     """Screening loop with a per-complex resume journal.
 
-    Each complex is featurized (numpy and scipy, CPU tensors) on this
-    thread before its dispatch, in input order.  A complex whose featurization
+    Records are featurized (numpy and scipy, CPU tensors) by
+    :func:`featurized`, ahead of the dispatches in worker processes or
+    inline, and dispatched in input order.  A complex whose featurization
     fails or raises, or whose sampling raises, is logged and skipped.
     ``run_time`` of a complex is its featurization time plus its share of
-    the wall time of the ``run_complexes`` call it was sampled in."""
+    the wall time of the ``run_complexes`` call it was sampled in.  Logs the
+    dispatch window: from the first dispatch's start to the last one's end,
+    on the host's clock."""
     names, fitscores, run_times = [], [], []
+    spans: List = []        # (start, end, complexes) of each run_complexes call
     os.makedirs(os.path.join(args.out_dir, "ranked_poses"), exist_ok=True)
     dispatch = max(1, int(args.batch_complexes))
     pending: List = []
@@ -265,7 +311,8 @@ def fit(args, engine: FitEngine, records: List[Dict], result_file: str) -> Dict:
             return
         t0 = time.time()
         results = engine.run_complexes([j for j, _ in pending], skip_failed=True)
-        per = (time.time() - t0) / len(pending)
+        spans.append((t0, time.time(), len(pending)))
+        per = (spans[-1][1] - t0) / len(pending)
         for (job, t_feat), result in zip(pending, results):
             if "error" in result:
                 log_error(f"Sampling failed for {job.name}: {result['error']}")
@@ -304,15 +351,8 @@ def fit(args, engine: FitEngine, records: List[Dict], result_file: str) -> Dict:
         todo.append((name, record))
 
     calibrated = False
-    for name, record in todo:
-        t0 = time.time()
-        try:
-            job = engine.prepare(name, record["ligand_description"], record["phore"],
-                                 args.keep_local_structures)
-        except Exception as e:  # noqa: BLE001 - one complex must not stop the screen
-            log_error(f"Featurization of `{name}` raised {e!r}")
-            job = None
-        t_feat = time.time() - t0
+    lookahead = max(2 * dispatch, 2 * args.prefetch_workers)
+    for name, job, t_feat in featurized(args, engine, todo, lookahead):
         if job is None:
             log_warn(f"Featurization failed for `{name}`, skipped")
             continue
@@ -329,6 +369,10 @@ def fit(args, engine: FitEngine, records: List[Dict], result_file: str) -> Dict:
         if len(pending) >= dispatch:
             flush()
     flush()
+    if spans:
+        start, end = spans[0][0], spans[-1][1]
+        log_info(f"Dispatch window: {sum(n for *_, n in spans)} complexes in {end - start:.3f} s, "
+                 f"from {start:.3f} to {end:.3f} (unix s)")
     return {"name": names, "fitscore": fitscores, "run_time": run_times}
 
 
@@ -426,9 +470,117 @@ def load_confidence_model(args, device):
     return head
 
 
-def main(argv=None) -> None:
+def screen(args, records: List[Dict], result_file: str, device) -> Dict:
+    """Load the model on ``device`` and screen ``records`` with the
+    per-complex journal ``result_file``; returns the journal."""
+    cfg, model = load_model(args, device)
+    settings = SamplerSettings(
+        inference_steps=args.inference_steps, actual_steps=args.actual_steps,
+        no_random=args.no_random, no_final_step_noise=args.no_final_step_noise,
+        ode=args.ode, no_torsion=args.no_torsion, random_samples=args.random_samples)
+    engine = FitEngine(cfg, model, args.sample_per_complex, settings, fitness=args.fitness,
+                       seed=args.seed, device=str(device),
+                       confidence=load_confidence_model(args, device),
+                       save_trajectory=args.save_visualisation)
+    log_info(f"Process files: {os.path.join(args.out_dir, 'mapping_process/')}")
+    log_info(f"Ranked poses:  {os.path.join(args.out_dir, 'ranked_poses/')}")
+    if args.profile_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            results = fit(args, engine, records, result_file)
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "trace.json")
+        prof.export_chrome_trace(trace)
+        log_info(f"torch.profiler trace written to {trace}")
+    else:
+        results = fit(args, engine, records, result_file)
+    if os.path.exists(result_file + ".tmp"):
+        shutil.move(result_file + ".tmp", result_file)
+    else:
+        _dump_json(results, result_file)
+    log_info(f"Phase timings: {engine.timers.report()}")
+    return results
+
+
+def rank_journal(out_dir: str, rank: int) -> str:
+    return os.path.join(out_dir, f"inference_results.rank{rank}.json")
+
+
+def _screen_stripe(args, records: List[Dict], devices: Sequence[str]) -> None:
+    """Worker r of a multi-card screen (r from the launch's ``RANK``):
+    stripe r of the records on ``devices[r]``, its journal and its
+    ``.done`` marker."""
+    rank, _ = mesh.launched()
+    stripe = shard_records(records, rank, len(devices))
+    journal = rank_journal(args.out_dir, rank)
+    log_info(f"card {devices[rank]}: {len(stripe)} records in stripe {rank}")
+    screen(args, stripe, journal, resolve_device(devices[rank]))
+    with open(journal + ".done", "w") as f:
+        f.write("ok\n")
+
+
+def screen_on_devices(args, records: List[Dict], devices: Sequence[str]) -> Dict:
+    """One spawn process per device, each screening its stripe of the
+    records (the JAX mesh's rows per device, in processes: one host thread
+    issuing to several cards gains nothing on a host-bound path); returns
+    the journals merged in record order.  A worker that fails fails the
+    screen."""
+    log_info(f"Screening over {len(devices)} devices ({', '.join(devices)}), one process each")
+    mesh.launch(_screen_stripe, len(devices), args, records, list(devices))
+    journals = []
+    for r in range(len(devices)):
+        with open(rank_journal(args.out_dir, r)) as f:
+            journals.append(json.load(f))
+    # a journal lists resumed complexes first: find each record's entry by name
+    entries = [collections.defaultdict(collections.deque) for _ in devices]
+    for by_name, journal in zip(entries, journals):
+        for k, name in enumerate(journal["name"]):
+            by_name[name].append(k)
+    merged: Dict[str, List] = {"name": [], "fitscore": [], "run_time": []}
+    for i, record in enumerate(records):
+        r = i % len(devices)
+        found = entries[r].get(_name_or_none(record))
+        if found:
+            k = found.popleft()
+            for key in merged:
+                merged[key].append(journals[r][key][k])
+    return merged
+
+
+def _name_or_none(record: Dict) -> Optional[str]:
+    try:
+        return complex_name(record)
+    except Exception:  # noqa: BLE001 - fit skipped the record too
+        return None
+
+
+def merge_rank_journals(out_dir: str, rank: int, results: Dict) -> Dict:
+    """Rank 0 of a striped screen: its journal followed by every other
+    rank's that has a ``.done`` marker; the others are left out with a
+    warning (their ranks may still be running)."""
+    for rf in sorted(glob.glob(os.path.join(out_dir, "inference_results.rank*.json"))):
+        if os.path.abspath(rf) == os.path.abspath(rank_journal(out_dir, rank)):
+            continue
+        if not os.path.exists(rf + ".done"):
+            log_warn(f"Rank journal {rf} has no completion marker; "
+                     f"skipping (its rank may still be running)")
+            continue
+        try:
+            with open(rf) as f:
+                other = json.load(f)
+            for k in ("name", "fitscore", "run_time"):
+                results[k] = list(results.get(k, [])) + list(other.get(k, []))
+        except (OSError, ValueError) as e:
+            log_warn(f"Could not merge rank journal {rf}: {e}")
+    return results
+
+
+def main(argv=None, devices: Optional[Sequence[str]] = None) -> None:
+    """The CLI.  ``devices`` names the devices of a multi-card screen (all
+    visible cards by default, when ``--use_mesh`` and more than one)."""
     args = parse_args(argv)
-    refuse_unported(args)
     os.makedirs(args.out_dir, exist_ok=True)
     result_file = os.path.join(args.out_dir, "inference_results.json")
 
@@ -440,6 +592,14 @@ def main(argv=None) -> None:
                    if complex_name(r) in keep
                    or os.path.basename(str(r["ligand_description"])).split(".")[0] in keep]
         log_info(f"split_file: kept {len(records)} records")
+    # striped screening: each process screens records[rank::n] into its own
+    # journal; rank 0 merges the finished ones
+    n_proc = max(args.num_processes, 1)
+    rank = max(args.process_rank, 0)
+    if n_proc > 1:
+        records = shard_records(records, rank, n_proc)
+        result_file = rank_journal(args.out_dir, rank)
+        log_info(f"process {rank}/{n_proc}: {len(records)} records in stripe")
     log_info(f"Number of fitting samples: {len(records)}")
     if not records:
         log_error("No valid fitting samples, please check your input.")
@@ -447,40 +607,27 @@ def main(argv=None) -> None:
 
     if not os.path.exists(result_file) or args.overwrite:
         device = resolve_device(args.device)
-        if args.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-            log_warn("--use_mesh: sharding over several cards comes with the scale-out "
-                     "slice; running on one card")
-        cfg, model = load_model(args, device)
-        settings = SamplerSettings(
-            inference_steps=args.inference_steps, actual_steps=args.actual_steps,
-            no_random=args.no_random, no_final_step_noise=args.no_final_step_noise,
-            ode=args.ode, no_torsion=args.no_torsion, random_samples=args.random_samples)
-        engine = FitEngine(cfg, model, args.sample_per_complex, settings, fitness=args.fitness,
-                           seed=args.seed, device=str(device),
-                           confidence=load_confidence_model(args, device),
-                           save_trajectory=args.save_visualisation)
-        log_info(f"Process files: {os.path.join(args.out_dir, 'mapping_process/')}")
-        log_info(f"Ranked poses:  {os.path.join(args.out_dir, 'ranked_poses/')}")
-        if args.profile_dir:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            with torch.profiler.profile(activities=activities) as prof:
-                results = fit(args, engine, records, result_file)
-            os.makedirs(args.profile_dir, exist_ok=True)
-            trace = os.path.join(args.profile_dir, "trace.json")
-            prof.export_chrome_trace(trace)
-            log_info(f"torch.profiler trace written to {trace}")
-        else:
-            results = fit(args, engine, records, result_file)
-        if os.path.exists(result_file + ".tmp"):
-            shutil.move(result_file + ".tmp", result_file)
-        else:
+        if devices is None and args.use_mesh and n_proc == 1 and device == torch.device("cuda"):
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if devices is not None and len(devices) > 1 and n_proc == 1:
+            results = screen_on_devices(args, records, devices)
             _dump_json(results, result_file)
-        log_info(f"Phase timings: {engine.timers.report()}")
+        else:
+            results = screen(args, records, result_file, device)
+        if n_proc > 1:
+            # completion marker: rank 0 merges only finished journals
+            with open(result_file + ".done", "w") as f:
+                f.write("ok\n")
     else:
         with open(result_file) as f:
             results = json.load(f)
+    # single-process runs never merge, so stale rank journals of an earlier
+    # striped run cannot inject phantom entries
+    if n_proc > 1 and rank != 0:
+        log_info(f"rank {rank}: journal written; rank 0 merges and ranks")
+        return
+    if n_proc > 1:
+        results = merge_rank_journals(args.out_dir, rank, results)
     if results and results.get("name"):
         analyze_results(args, results)
 

@@ -25,23 +25,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..chem.embed import embed_molecule
 from ..chem.mol import Molecule
-from ..chem.sdf import read_molecule
-from ..chem.smiles import mol_from_smiles
 from ..constants import VDW_TABLE
-from ..data.graphs import ComplexBatch, build_complex, repeat_batch, round_up
-from ..data.phore import parse_phore
+from ..data.featurize import featurize
+from ..data.graphs import ComplexBatch, from_numpy, repeat_batch
 from ..device import resolve_device
 from ..models.confidence import ConfidenceModel
 from ..models.layers import batch_statistics
 from ..models.score_model import ScoreModel, ScoreModelConfig
 from ..ops import build
-from ..ops.fitscore import (PhoreArrays, batch_phore_arrays, fitness_by_index, fitscore,
-                            make_phore_arrays)
+from ..ops.fitscore import PhoreArrays, batch_phore_arrays, fitness_by_index, fitscore
 from ..sampler.sampling import (PriorNoise, SamplerSettings, StepNoise, draw_prior, draw_steps,
                                 randomize_position, reverse_diffusion)
-from ..utils.logging import PhaseTimers, log_info, log_warn
+from ..utils.logging import PhaseTimers, log_info
 
 
 @dataclasses.dataclass
@@ -53,6 +49,25 @@ class ComplexJob:
     ref: Optional[PhoreArrays] = None
     #: the H-free ligand (topology and input coordinates), for the writers
     mol: Optional[Molecule] = None
+
+
+def prepare_job(name: str, ligand_description: str, phore_path: str,
+                keep_local_structures: bool = True) -> Optional[ComplexJob]:
+    """Featurize one (ligand, first phore of the file) pair into a job of CPU
+    tensors (:func:`data.featurize.featurize`: padded to buckets of 8 atoms,
+    at least 16, 16 phore points and 4 torsion slots); None when the ligand
+    or the phore cannot be read."""
+    arrays = featurize(name, ligand_description, phore_path, keep_local_structures)
+    return None if arrays is None else job_from_arrays(arrays)
+
+
+def job_from_arrays(d: Dict) -> ComplexJob:
+    """The job of :func:`data.featurize.featurize`'s arrays, here or from a
+    featurization process."""
+    tensors = lambda arrays: {k: torch.from_numpy(v) for k, v in arrays.items()}  # noqa: E731
+    batch = from_numpy(d["batch"], names=(d["name"],), meta=(d["meta"],))
+    return ComplexJob(d["name"], batch, d["mol"].num_atoms, PhoreArrays(**tensors(d["ref"])),
+                      d["mol"])
 
 
 def job_from_cached(batch: ComplexBatch) -> ComplexJob:
@@ -90,45 +105,11 @@ class FitEngine:
         self.timers = PhaseTimers()
 
     # ------------------------------------------------------------ featurize
-    def load_ligand(self, description: str,
-                    keep_local_structures: bool = True) -> Optional[Molecule]:
-        """An SDF/MOL/MOL2/PDB path or a SMILES string -> an H-free 3D
-        molecule (SMILES are embedded; files too without
-        ``keep_local_structures``), or None when it cannot be read."""
-        if os.path.exists(description):
-            mol = read_molecule(description, remove_hs=True)
-            if mol is not None and not keep_local_structures:
-                embed_molecule(mol)
-            return mol
-        try:
-            mol = mol_from_smiles(description)
-        except Exception as e:  # noqa: BLE001 - report and skip the ligand
-            log_warn(f"Failed to parse ligand description `{description}`: {e}")
-            return None
-        embed_molecule(mol)
-        return mol
-
     def prepare(self, name: str, ligand_description: str, phore_path: str,
                 keep_local_structures: bool = True) -> Optional[ComplexJob]:
-        """Featurize one (ligand, first phore of the file) pair into a job of
-        CPU tensors, padded to buckets of 8 atoms (at least 16), 16 phore
-        points and 4 torsion slots (``build_complex``'s default); None when the ligand or the phore cannot
-        be read.  Safe to call from worker threads."""
+        """:func:`prepare_job`, timed as the ``featurize`` phase."""
         with self.timers.phase("featurize"):
-            mol = self.load_ligand(ligand_description, keep_local_structures)
-            if mol is None or mol.num_atoms < 2:
-                return None
-            phores = parse_phore(phore_path)
-            if not phores:
-                log_warn(f"No pharmacophore parsed from `{phore_path}`")
-                return None
-            phore = phores[0]
-            p_pad = round_up(len(phore.all_points), 16)
-            batch = build_complex(name, mol, phore, a_pad=round_up(mol.num_atoms, 8, 16),
-                                  p_pad=p_pad, meta={"phore_file": phore_path})
-            ref = make_phore_arrays(phore, pad=p_pad)
-            ref = ref.replace(coord=ref.coord - batch.orig_center[0])
-            return ComplexJob(name, batch, mol.num_atoms, ref, mol)
+            return prepare_job(name, ligand_description, phore_path, keep_local_structures)
 
     # -------------------------------------------------------------- sampling
     @torch.no_grad()

@@ -51,6 +51,18 @@ with ``utils.checkpoints.load_confidence_dir``:
     python -m diffphore_torch.cli.train --confidence_mode --cache_path data/cache \\
         --run_dir runs/conf1 --n_epochs 5 --batch_size 24
 
+With more than one visible card the score model trains data-parallel over
+all of them, as the JAX trainer shards each batch over ``jax.devices()``:
+one spawned process per card (``parallel.mesh.launch``), or the processes
+``torchrun`` starts (``torchrun --nproc_per_node N -m
+diffphore_torch.cli.train ...``; with ``--device cpu`` over gloo).  Every
+rank loads the same global batch and trains on its rows of it
+(the world size must divide ``--batch_size``); rank 0 alone writes the
+run directory and validates by inference.  Ranks read the caches and
+featurize nothing: the spawning process featurizes raw files before it
+starts them; under ``torchrun`` run ``--featurize_only`` first.  A
+confidence head trains on one device.
+
 Not part of the port yet, and refused with a message that says so: the
 tank baseline.
 """
@@ -61,6 +73,7 @@ import argparse
 import contextlib
 import dataclasses
 import os
+import sys
 import time
 from typing import Dict, Optional
 
@@ -73,6 +86,7 @@ from ..data.loaders import BucketLoader
 from ..device import resolve_device
 from ..chem.rmsd import plain_rmsd
 from ..models.score_model import ScoreModelConfig
+from ..parallel import mesh
 from ..sampler.sampling import SamplerSettings
 from ..train.ccsampler import dynamic_schedule, make_ccsampler_train_step
 from ..train.confidence import (LABEL_MODES, create_confidence_train_state,
@@ -326,9 +340,11 @@ def augmented_records(records, args):
     return out
 
 
-def build_datasets(args):
+def build_datasets(args, featurize: bool = True):
     """(train, val or None): ``PhoreDataset``s of --train_csv/--val_csv or
-    of the --data_dir splits, else the cache directories under --cache_path."""
+    of the --data_dir splits, else the cache directories under --cache_path.
+    Without ``featurize`` (a rank of a data-parallel run) the records must
+    be cached already: a rank waits for no featurization in a collective."""
     if args.train_csv or args.data_dir:
         if args.train_csv:
             train_records = records_from_csv(args.train_csv)
@@ -344,9 +360,10 @@ def build_datasets(args):
             val_records = val_records[: args.limit_complexes]
         settings = dataset_settings(args)
         train = PhoreDataset(augmented_records(train_records, args), settings, args.cache_path,
-                             args.num_dataloader_workers, name="train", ram_cache=args.ram_cache)
+                             args.num_dataloader_workers, name="train", ram_cache=args.ram_cache,
+                             featurize=featurize)
         val = (PhoreDataset(val_records, settings, args.cache_path, args.num_dataloader_workers,
-                            name="val", ram_cache=args.ram_cache)
+                            name="val", ram_cache=args.ram_cache, featurize=featurize)
                if val_records else None)
         return train, val
     train_dirs = cache_directories(args.cache_path, "train")
@@ -552,18 +569,43 @@ def main(argv=None) -> None:
                          "it cannot be combined with --model_type tank")
     refuse_unported(args)
     os.makedirs(args.run_dir, exist_ok=True)
+    rank, world = mesh.launched()
     if args.featurize_only:
-        train_ds, val_ds = build_datasets(args)
-        log_info(f"Featurize-only: train={len(train_ds)} "
-                 f"val={len(val_ds) if val_ds else 0} complexes cached")
+        if rank == 0:                  # one process featurizes, on the host alone
+            train_ds, val_ds = build_datasets(args)
+            log_info(f"Featurize-only: train={len(train_ds)} "
+                     f"val={len(val_ds) if val_ds else 0} complexes cached")
         return
     device = resolve_device(args.device)
     if args.confidence_mode:
-        train_confidence(args, device)
+        # the head trains on one device, as the JAX trainer leaves it unsharded
+        if rank == 0:
+            train_confidence(args, device)
         return
+    if world == 1:
+        cards = torch.cuda.device_count() if device == torch.device("cuda") else 1
+        if cards > 1:
+            build_datasets(args)       # featurize here, before the ranks: they read the caches
+            log_info(f"Training data-parallel over {cards} cards, one process each")
+            mesh.launch(main, cards, sys.argv[1:] if argv is None else list(argv))
+        else:
+            train(args, device)
+        return
+    shard, device = mesh.init_process_group(device.type)
+    try:
+        train(args, device, shard)
+    finally:
+        mesh.destroy_process_group()
 
+
+def train(args, device, shard: Optional[mesh.DataShard] = None) -> None:
+    """The score model's training loop on ``device``; with a ``shard`` as
+    one rank of a data-parallel run (rank 0 writes the run directory)."""
+    main_rank = shard is None or shard.rank == 0
+    if shard is not None and args.batch_size % shard.world:
+        raise SystemExit("batch_size must divide the device count")
     cfg = model_config_from_args(args)
-    train_ds, val_ds = build_datasets(args)
+    train_ds, val_ds = build_datasets(args, featurize=shard is None)
     if len(train_ds) == 0:
         raise SystemExit("Empty training dataset")
     has_val = val_ds is not None and len(val_ds) > 0
@@ -579,18 +621,20 @@ def main(argv=None) -> None:
     state = create_train_state(cfg, seed=args.seed, lr=args.lr, weight_decay=args.w_decay,
                                device=str(device))
     step_fn = make_train_step(cfg, args.ema_rate, args.tr_weight, args.rot_weight,
-                              args.tor_weight, reject=args.reject)
+                              args.tor_weight, reject=args.reject, shard=shard)
     cc_step_fn = None
     if args.rate_from_infer > 0:
         cc_step_fn = make_ccsampler_train_step(cfg, args.ema_rate, args.tr_weight,
-                                               args.rot_weight, args.tor_weight, args.delta_t)
+                                               args.rot_weight, args.tor_weight, args.delta_t,
+                                               shard=shard)
     # The sigmoid schedule is positive from epoch 0, but the calibrated step
     # runs a second forward for every row: it engages only above a floor,
     # relative to the configured rate so that a small rate still engages once
     # the schedule reaches half its plateau.
     cc_floor = min(0.01, args.rate_from_infer / 2.0)
     log_info(f"Training on {device}: {len(train_ds)} complexes in {len(loader)} batches of "
-             f"{args.batch_size}; convs compute in {cfg.compute_dtype}")
+             f"{args.batch_size}; convs compute in {cfg.compute_dtype}"
+             + ("" if shard is None else f"; rank {shard.rank} of {shard.world}"))
 
     if args.pretrain_model_pt:
         if not os.path.exists(args.pretrain_model_pt):
@@ -601,13 +645,14 @@ def main(argv=None) -> None:
 
     start_epoch = state.step // max(len(loader), 1) if restart(args, state) else 0
 
-    checkpoints.save_config_yaml(cfg, args.run_dir, extra={
-        "n_epochs": args.n_epochs, "batch_size": args.batch_size, "lr": args.lr,
-        "ema_rate": args.ema_rate, "inference_steps": args.inference_steps,
-        "rate_from_infer": args.rate_from_infer, "epoch_from_infer": args.epoch_from_infer,
-        "dynamic_coeff": args.dynamic_coeff, "phore_augment": args.phore_augment,
-        "phore_augment_ex": args.phore_augment_ex, "conf_augment": args.conf_augment,
-    })
+    if main_rank:
+        checkpoints.save_config_yaml(cfg, args.run_dir, extra={
+            "n_epochs": args.n_epochs, "batch_size": args.batch_size, "lr": args.lr,
+            "ema_rate": args.ema_rate, "inference_steps": args.inference_steps,
+            "rate_from_infer": args.rate_from_infer, "epoch_from_infer": args.epoch_from_infer,
+            "dynamic_coeff": args.dynamic_coeff, "phore_augment": args.phore_augment,
+            "phore_augment_ex": args.phore_augment_ex, "conf_augment": args.conf_augment,
+        })
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed + start_epoch)
     plateau = Plateau(args, state)
@@ -616,10 +661,11 @@ def main(argv=None) -> None:
     es_rounds = 0          # val-inference rounds without improvement of the metric
     eval_step = val_loader = None
 
-    with MetricsWriter(os.path.join(args.run_dir, "metrics.jsonl")) as metrics_out:
+    with MetricsWriter(os.path.join(args.run_dir, "metrics.jsonl") if main_rank
+                       else None) as metrics_out:
         for epoch in range(start_epoch, args.n_epochs):
             profiler: Optional[torch.profiler.profile] = None
-            if args.profile_dir and epoch == start_epoch:
+            if args.profile_dir and epoch == start_epoch and main_rank:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -661,7 +707,7 @@ def main(argv=None) -> None:
             if has_val and (epoch + 1) % max(args.val_loss_freq, 1) == 0:
                 if eval_step is None:
                     eval_step = make_eval_step(cfg, args.tr_weight, args.rot_weight,
-                                               args.tor_weight)
+                                               args.tor_weight, shard=shard)
                     val_loader = BucketLoader(val_ds, args.batch_size, shuffle=False)
                 val_summary = val_loss_epoch(eval_step, state.model, val_loader, generator,
                                              device, max(args.test_sigma_intervals, 0))
@@ -671,11 +717,15 @@ def main(argv=None) -> None:
 
             # plateau LR control on the val loss (the train loss without a val set)
             plateau.update(state, (val_summary or summary).get("loss", np.inf))
-            save_last(args, state, epoch)
+            if main_rank:
+                save_last(args, state, epoch)
 
             if has_val and args.val_inference_freq and (epoch + 1) % args.val_inference_freq == 0:
-                vm = val_inference(cfg, ema_model(state), val_ds, args, device,
-                                   val_inference_count(args, epoch, len(val_ds)))
+                vm = None
+                if main_rank:      # the other ranks wait for its metrics
+                    vm = val_inference(cfg, ema_model(state), val_ds, args, device,
+                                       val_inference_count(args, epoch, len(val_ds)))
+                vm = mesh.broadcast_object(vm)
                 vm["epoch"] = epoch
                 metrics_out.write(vm)
                 log_info(f"val inference: {vm}")
@@ -690,8 +740,9 @@ def main(argv=None) -> None:
                     better = True
                 if better:
                     best_metric, best_rmsd, es_rounds = metric, mean_rmsd, 0
-                    checkpoints.save_ema_variables(
-                        state, os.path.join(args.run_dir, checkpoints.BEST_EMA_MODEL))
+                    if main_rank:
+                        checkpoints.save_ema_variables(
+                            state, os.path.join(args.run_dir, checkpoints.BEST_EMA_MODEL))
                     log_info(f"new best {args.inference_earlystop_metric}={metric:.4f}; "
                              f"saved {checkpoints.BEST_EMA_MODEL}")
                 else:

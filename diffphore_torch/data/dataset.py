@@ -38,8 +38,10 @@ import numpy as np
 
 from ..chem.sdf import parse_sdf, read_molecule
 from ..chem.smiles import mol_from_smiles
+from ..parallel.workers import worker_environment
 from ..utils.logging import log_info, log_warn
-from .graphs import ARRAY_FIELDS, ComplexBatch, build_complex, load_cached, round_up
+from .featurize import round_up
+from .graphs import ARRAY_FIELDS, ComplexBatch, build_complex, load_cached
 from .phore import parse_phore
 
 
@@ -214,12 +216,6 @@ def _worker(args) -> Optional[str]:
     return cache_file
 
 
-#: thread counts of the numeric libraries in a featurization process: their
-#: arrays are small, and idle threads of several processes spin against one
-#: another on the host's cores
-_WORKER_THREADS = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
-
-
 def _pool_map(num_workers: int, todo: List) -> List[Optional[str]]:
     """``_worker`` over ``todo`` in ``num_workers`` spawn processes (not
     fork: the caller may hold a CUDA context, which a worker never touches),
@@ -227,21 +223,13 @@ def _pool_map(num_workers: int, todo: List) -> List[Optional[str]]:
     than terminate, which would kill respawned workers mid-write.  A script
     that calls this needs the ``if __name__ == "__main__":`` guard, as every
     spawn pool does."""
-    saved = {k: os.environ.get(k) for k in _WORKER_THREADS}
-    os.environ.update(_WORKER_THREADS)
-    try:
+    with worker_environment():
         pool = multiprocessing.get_context("spawn").Pool(num_workers, maxtasksperchild=32)
         try:
             return pool.map(_worker, todo)
         finally:
             pool.close()
             pool.join()
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
 
 class Subset:
@@ -291,7 +279,8 @@ class _FileDataset:
 class PhoreDataset(_FileDataset):
     """The records' complexes, featurized once and cached one ``.npz`` per
     record.  ``featurized`` counts the records this construction featurized
-    (0 when every record was a cache or ``.skip`` hit)."""
+    (0 when every record was a cache or ``.skip`` hit).  With ``featurize``
+    False a record that is neither cached nor skipped raises ``SystemExit``."""
 
     def __init__(
         self,
@@ -301,6 +290,7 @@ class PhoreDataset(_FileDataset):
         num_workers: int = 1,
         name: str = "dataset",
         ram_cache: bool = False,
+        featurize: bool = True,
     ):
         self.settings = settings or DatasetSettings()
         self.records = list(records)
@@ -309,9 +299,9 @@ class PhoreDataset(_FileDataset):
         self.files: List[str] = []
         self._ram = {} if ram_cache else None
         self.featurized = 0
-        self._preprocess(num_workers)
+        self._preprocess(num_workers, featurize)
 
-    def _preprocess(self, num_workers: int) -> None:
+    def _preprocess(self, num_workers: int, featurize: bool) -> None:
         todo = []
         for r in self.records:
             f = os.path.join(self.cache_dir, _record_key(r) + ".npz")
@@ -319,6 +309,10 @@ class PhoreDataset(_FileDataset):
                 self.files.append(f)
             elif not os.path.exists(f + ".skip"):
                 todo.append((r, dataclasses.asdict(self.settings), f))
+        if todo and not featurize:
+            raise SystemExit(f"{len(todo)} of {len(self.records)} complexes are not cached in "
+                             f"{self.cache_dir}; featurize them first (--featurize_only, "
+                             "one process)")
         if todo:
             log_info(f"Featurizing {len(todo)} complexes "
                      f"({len(self.records) - len(todo)} cached) -> {self.cache_dir}")

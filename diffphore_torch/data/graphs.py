@@ -18,12 +18,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..chem.features import bond_features, featurize_atoms
 from ..chem.mol import Molecule
-from ..chem.pharmacophore_rules import ligand_phore_features, scoring_phore_fp
-from ..chem.topology import rotatable_bonds
-from ..constants import NUM_PHORETYPE, PHORETYPES
-from .phore import Phore, PhoreGraph, build_phore_graph
+from .featurize import complex_arrays
+from .phore import Phore
 
 
 @dataclasses.dataclass
@@ -141,106 +138,11 @@ def repeat_batch(batch: ComplexBatch, n: int) -> ComplexBatch:
         **{k: torch.repeat_interleave(v, n, dim=0) for k, v in batch.tensors().items()})
 
 
-def round_up(x: int, step: int, minimum: Optional[int] = None) -> int:
-    """x rounded up to a multiple of ``step``, at least ``minimum`` (default
-    ``step``)."""
-    return max(step if minimum is None else minimum, ((x + step - 1) // step) * step)
-
-
-def build_complex(
-    name: str,
-    mol: Molecule,
-    phore: Phore,
-    a_pad: Optional[int] = None,
-    p_pad: Optional[int] = None,
-    t_pad: Optional[int] = None,
-    consider_ex: bool = True,
-    neighbor_cutoff: Optional[float] = 5.0,
-    ex_connected: bool = True,
-    move_to_center: bool = True,
-    orig_pos: Optional[np.ndarray] = None,
-    meta: Optional[Dict] = None,
-) -> ComplexBatch:
+def build_complex(name: str, mol: Molecule, phore: Phore, **kw) -> ComplexBatch:
     """Featurize one (H-free ligand, phore) pair into a B = 1 padded batch
-    of CPU tensors: the ligand graph, the phore graph, the rule-based
-    pharmacophore fingerprints and norms, both centered on the phore's
-    centroid.  Pads default to multiples of 8 atoms, 8 points and 4
-    torsion slots."""
-    if any(a.atomic_num == 1 for a in mol.atoms):
-        raise ValueError(f"{name}: the ligand must be H-free")
-    n_atoms = mol.num_atoms
-    pg: PhoreGraph = build_phore_graph(phore, consider_ex, neighbor_cutoff, ex_connected)
-    n_phore = pg.pos.shape[0]
-    edges, masks = rotatable_bonds(mol)
-    n_tor = len(edges)
-
-    A = round_up(n_atoms, 8) if a_pad is None else a_pad
-    P = round_up(n_phore, 8) if p_pad is None else p_pad
-    T = round_up(max(n_tor, 1), 4) if t_pad is None else t_pad
-    if n_atoms > A or n_phore > P or n_tor > T:
-        raise ValueError(
-            f"{name}: sizes (A={n_atoms}, P={n_phore}, T={n_tor}) exceed pads ({A},{P},{T})")
-
-    fp, norms, ang1, ang2, counts = ligand_phore_features(mol)
-    arrays: Dict[str, np.ndarray] = {}
-
-    def padded(shape, dtype, value, rows=n_atoms):
-        out = np.zeros(shape, dtype)
-        out[:rows] = value
-        return out
-
-    arrays["lig_feat"] = padded((A, 16), np.int32, featurize_atoms(mol))
-    arrays["lig_pos"] = padded((A, 3), np.float32, mol.coords)
-    arrays["lig_mask"] = padded(A, bool, True)
-    arrays["lig_phorefp"] = padded((A, NUM_PHORETYPE), np.float32, fp)
-    arrays["lig_scorer_fp"] = padded((A, NUM_PHORETYPE), np.float32, scoring_phore_fp(mol))
-    lig_norm = np.zeros((NUM_PHORETYPE, A, 3), np.float32)
-    lig_norm[:, :n_atoms] = np.transpose(norms, (1, 0, 2))
-    arrays["lig_norm"] = lig_norm
-    arrays["lig_norm_angle1"] = padded((A, NUM_PHORETYPE), np.float32, ang1)
-    arrays["lig_norm_angle2"] = padded((A, NUM_PHORETYPE), np.float32, ang2)
-    arrays["lig_ph"] = np.asarray([counts[t] for t in PHORETYPES], np.float32)
-
-    bond_attr = np.zeros((A, A, 4), np.float32)
-    bond_mask = np.zeros((A, A), bool)
-    for i, j, o in mol.bonds:
-        bf = bond_features(o)
-        bond_attr[i, j] = bf
-        bond_attr[j, i] = bf
-        bond_mask[i, j] = bond_mask[j, i] = True
-    arrays["bond_attr"], arrays["bond_mask"] = bond_attr, bond_mask
-
-    mask_rot = np.zeros((T, A), bool)
-    if n_tor:
-        mask_rot[:n_tor, :n_atoms] = masks
-    arrays["tor_edges"] = padded((T, 2), np.int32, edges, n_tor)
-    arrays["tor_mask"] = padded(T, bool, True, n_tor)
-    arrays["mask_rotate"] = mask_rot
-
-    arrays["phore_x"] = padded((P, 5), np.float32, pg.x, n_phore)
-    arrays["phore_pos"] = padded((P, 3), np.float32, pg.pos, n_phore)
-    arrays["phore_norm"] = padded((P, 3), np.float32, pg.norm, n_phore)
-    arrays["phore_mask"] = padded(P, bool, True, n_phore)
-    arrays["phoretype"] = padded((P, NUM_PHORETYPE), np.float32, pg.phoretype, n_phore)
-    pem = np.zeros((P, P), bool)
-    pem[pg.edge_index[0], pg.edge_index[1]] = True
-    arrays["phore_edge_mask"] = pem
-
-    center = pg.pos.mean(axis=0).astype(np.float32)
-    if move_to_center:
-        arrays["lig_pos"][:n_atoms] -= center
-        arrays["phore_pos"][:n_phore] -= center
-    arrays["orig_center"] = center
-
-    md = dict(meta or {})
-    md.setdefault("n_atoms", n_atoms)
-    md.setdefault("n_phore", n_phore)
-    md.setdefault("n_tor", n_tor)
-    if orig_pos is not None:
-        md["orig_pos"] = np.asarray(orig_pos)
-    arrays = {k: v[None] for k, v in arrays.items()}
-    arrays["t"] = np.zeros(1, np.float32)
-    arrays["valid"] = np.ones(1, bool)
+    of CPU tensors: :func:`data.featurize.complex_arrays` (its keywords: the
+    pads, the phore graph's settings, ``orig_pos``, ``meta``) as tensors."""
+    arrays, md = complex_arrays(name, mol, phore, **kw)
     return from_numpy(arrays, names=(name,), meta=(md,))
 
 

@@ -34,6 +34,12 @@ class NoiseDraws:
     z_tor: torch.Tensor     # (K, B, T) standard normal
     reject_u: Optional[torch.Tensor] = None  # (2, K, B) uniform, with rejection
 
+    def rows(self, sl: slice) -> "NoiseDraws":
+        """The draws of the batch rows ``sl``."""
+        return NoiseDraws(t=self.t[sl], z_tr=self.z_tr[:, sl], rot_axis=self.rot_axis[:, sl],
+                          rot_u=self.rot_u[:, sl], z_tor=self.z_tor[:, sl],
+                          reject_u=None if self.reject_u is None else self.reject_u[:, :, sl])
+
 
 def draw_noise(B: int, T: int, generator: Optional[torch.Generator], device,
                reject: bool = False) -> NoiseDraws:

@@ -53,11 +53,20 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {rate} outside [0, 1)")
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        #: set by :func:`data_parallel`: masks are drawn for the global batch
+        #: (leading axis) and this rank's rows taken
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        if self.shard is None:
+            u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:
+            shape = (x.shape[0] * self.shard.world,) + tuple(x.shape[1:])
+            u = torch.rand(shape, generator=self.generator, device=x.device)
+            u = u[self.shard.rows(shape[0])]
+        keep = u >= self.rate
         return x * keep.to(x.dtype) / (1.0 - self.rate)
 
 
@@ -113,7 +122,11 @@ class EquivariantBatchNorm(nn.Module):
     them by ``momentum``.  With ``use_batch_stats`` set (see
     :func:`batch_statistics`) eval mode normalizes by the batch's statistics
     too and leaves the running ones as they are, unless ``update_running``
-    is set as well: then it moves them as training mode does.
+    is set as well: then it moves them as training mode does.  With a
+    ``shard`` (see :func:`data_parallel`) the batch's statistics are those of
+    the global batch: the sums and the count are summed over the ranks, the
+    variance is taken around the global mean, and the gradient flows back
+    through the sums to every rank's rows.
     """
 
     def __init__(self, irreps: str, eps: float = 1e-5, momentum: float = 0.1):
@@ -129,17 +142,19 @@ class EquivariantBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(num_ch))
         self.use_batch_stats = False
         self.update_running = False
+        self.shard = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         batch_stats = self.training or self.use_batch_stats
         if batch_stats:
             m = (torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device) if mask is None
                  else mask.to(x.dtype))
-            denom = torch.clamp(m.sum(), min=1.0)
+            total = (lambda v: v) if self.shard is None else self.shard.sum
+            denom = torch.clamp(total(m.sum()), min=1.0)
             node_axes = tuple(range(m.dim()))
 
             def masked_mean(v):                       # (..., mul) -> (mul,)
-                return (v * m[..., None]).sum(dim=node_axes) / denom
+                return total((v * m[..., None]).sum(dim=node_axes)) / denom
 
         outs, new_means, new_vars = [], [], []
         ch_off, sc_off = 0, 0
@@ -196,6 +211,22 @@ def batch_statistics(model: nn.Module, update: bool = False) -> Iterator[nn.Modu
         for m in norms:
             m.use_batch_stats = False
             m.update_running = False
+
+
+@contextlib.contextmanager
+def data_parallel(model: nn.Module, shard) -> Iterator[nn.Module]:
+    """Within the block, the batch norms and dropouts of ``model`` compute as
+    rank ``shard.rank`` of a data-parallel step (a
+    ``parallel.mesh.DataShard``): batch statistics of the global batch,
+    dropout masks drawn for it.  ``shard`` None changes nothing."""
+    mods = [m for m in model.modules() if isinstance(m, (EquivariantBatchNorm, Dropout))]
+    for m in mods:
+        m.shard = shard
+    try:
+        yield model
+    finally:
+        for m in mods:
+            m.shard = None
 
 
 def set_compute_dtype(model: nn.Module, compute_dtype: str) -> None:

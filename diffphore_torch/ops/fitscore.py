@@ -18,8 +18,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..constants import NUM_PHORETYPE, PHORE_ALPHA, PHORE_WEIGHT
-from ..data.phore import type_index
+from ..constants import PHORE_ALPHA, PHORE_WEIGHT
+from ..data.featurize import phore_arrays
 
 #: alpha = K / r^2 relating Gaussian sharpness to sphere radius
 K_ALPHA = 2.41798725037
@@ -97,24 +97,7 @@ def make_phore_arrays(phore, pad: Optional[int] = None) -> PhoreArrays:
     """A phore file's points as one row (B = 1) of CPU tensors, in the
     file's frame, padded to ``pad`` points: the anchor weight is the file's
     last column, where ``batch_phore_arrays`` sets 1."""
-    pts = phore.all_points
-    P = pad or len(pts)
-    coord = torch.zeros((1, P, 3))
-    onehot = torch.zeros((1, P, NUM_PHORETYPE))
-    alpha = torch.ones((1, P))
-    weight = torch.zeros((1, P))
-    anchor = torch.zeros((1, P))
-    is_ex = torch.zeros((1, P), dtype=torch.bool)
-    mask = torch.zeros((1, P), dtype=torch.bool)
-    for k, p in enumerate(pts):
-        coord[0, k] = torch.tensor(p.coord, dtype=torch.float32)
-        onehot[0, k, type_index(p.type)] = 1.0
-        alpha[0, k] = p.alpha
-        weight[0, k] = p.weight
-        anchor[0, k] = p.anchor_weight
-        is_ex[0, k] = p.type == "EX"
-        mask[0, k] = True
-    return PhoreArrays(coord, onehot, alpha, weight, anchor, is_ex, mask)
+    return PhoreArrays(**{k: torch.from_numpy(v) for k, v in phore_arrays(phore, pad).items()})
 
 
 def batch_phore_arrays(batch) -> PhoreArrays:

@@ -60,6 +60,10 @@ class StepNoise:
     z_rot: torch.Tensor  # (steps, S, B, 3)
     z_tor: torch.Tensor  # (steps, S, B, T)
 
+    def rows(self, sl: slice) -> "StepNoise":
+        """The draws of the batch rows ``sl``."""
+        return StepNoise(self.z_tr[:, :, sl], self.z_rot[:, :, sl], self.z_tor[:, :, sl])
+
 
 def draw_prior(B: int, T: int, generator: torch.Generator, device) -> PriorNoise:
     def normal(*shape):

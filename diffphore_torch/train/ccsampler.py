@@ -28,6 +28,7 @@ from ..models.score_model import ScoreModelConfig
 from ..ops.diffusion import SigmaSchedule
 from ..ops.geometry import kabsch, matrix_to_axis_angle
 from ..ops.torsion import apply_torsion_updates
+from ..parallel.mesh import shard_rows
 from ..sampler.sampling import StepNoise, apply_pose_update, draw_steps, sample_step
 from .losses import ScoreTargets
 from .state import TrainState, optimize
@@ -45,6 +46,10 @@ class CCDraws:
     noise: NoiseDraws        # t and the forward noise, one try (K = 1)
     step: StepNoise          # the reverse step's noise: one step, one candidate
     select_u: torch.Tensor   # (B,) uniform: the branch selection
+
+    def rows(self, sl: slice) -> "CCDraws":
+        """The draws of the batch rows ``sl``."""
+        return CCDraws(self.noise.rows(sl), self.step.rows(sl), self.select_u[sl])
 
 
 def draw_cc(B: int, T: int, generator: Optional[torch.Generator], device) -> CCDraws:
@@ -124,13 +129,17 @@ def ccsampler_apply_noise(
 
 def make_ccsampler_train_step(cfg: ScoreModelConfig, ema_decay: float = 0.999,
                               tr_weight: float = 0.33, rot_weight: float = 0.33,
-                              tor_weight: float = 0.33, delta_t: float = 0.05) -> Callable:
+                              tor_weight: float = 0.33, delta_t: float = 0.05,
+                              shard=None) -> Callable:
     """Build ``step(state, batch, generator=None, p_from_infer=0.0, draws=None)
     -> (state, metrics)``: the train step with the calibrated branch.  The
     reverse step inside it is a forward of the current weights in eval mode
     (running batch-norm statistics, no dropout) without gradients; the rest
     is :func:`diffphore_torch.train.state.optimize`.  ``metrics`` also hold
-    ``cc_share``, the share of graphs that took the calibrated branch."""
+    ``cc_share``, the share of graphs that took the calibrated branch.  Built
+    with a ``shard`` (``parallel.mesh.DataShard``), the step takes the global
+    batch and its draws and keeps this rank's rows of both, as
+    ``train.state.make_train_step`` does."""
     schedule = cfg.sigma_schedule
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None,
@@ -138,11 +147,18 @@ def make_ccsampler_train_step(cfg: ScoreModelConfig, ema_decay: float = 0.999,
         model = state.model
         model.eval()
         with torch.no_grad():
+            B = batch.batch_size
+            if shard is not None:
+                if draws is None:
+                    draws = draw_cc(B, batch.num_torsions, generator, batch.device)
+                batch, draws = shard_rows(batch, shard.rank, shard.world), draws.rows(
+                    shard.rows(B))
             noised, targets, use_cc = ccsampler_apply_noise(
                 batch, schedule, model, p_from_infer, delta_t, cfg.no_torsion, generator, draws)
         state, metrics = optimize(state, cfg, noised, targets, batch, generator, ema_decay,
-                                  tr_weight, rot_weight, tor_weight)
-        metrics["cc_share"] = use_cc.to(torch.float32).mean()
+                                  tr_weight, rot_weight, tor_weight, shard)
+        use_cc = use_cc.to(torch.float32)
+        metrics["cc_share"] = use_cc.mean() if shard is None else shard.sum(use_cc.sum()) / B
         return state, metrics
 
     return step

@@ -33,17 +33,24 @@ def score_matching_loss(
     no_torsion: bool = False,
     apply_mean: bool = True,
     valid: Optional[torch.Tensor] = None,
+    shard=None,
 ) -> Dict[str, torch.Tensor]:
     """``apply_mean=False`` returns per-graph (B,) losses instead of scalars
     (the validation epoch buckets them by sigma interval).  ``valid`` is a
     (B,) weight mask: repeat-padded rows of a short final batch contribute
-    zero to every reduction."""
+    zero to every reduction.  With a ``shard`` (``parallel.mesh.DataShard``)
+    the inputs are this rank's rows and each scalar is this rank's share of
+    the global batch's value: the weights are summed over the ranks, and the
+    shares sum to the value."""
     tr_pred, rot_pred, tor_pred = preds
     tr_sigma, rot_sigma, _ = schedule(t)
     w = torch.ones_like(t, dtype=tr_pred.dtype) if valid is None else valid.to(tr_pred.dtype)
+    total = (lambda v: v) if shard is None else shard.sum
     if apply_mean:
+        w_sum = torch.clamp(total(w.sum()), min=1.0)
+
         def red(x):  # per-graph mean over the trailing axis, then validity-weighted mean
-            return (x.mean(-1) * w).sum() / torch.clamp(w.sum(), min=1.0)
+            return (x.mean(-1) * w).sum() / w_sum
     else:
         def red(x):
             return x.mean(-1)
@@ -64,7 +71,7 @@ def score_matching_loss(
         if apply_mean:
             # element-weighted over all real torsion slots; invalid graphs zeroed
             m = m * w[:, None]
-            denom = torch.clamp(m.sum(), min=1.0)
+            denom = torch.clamp(total(m.sum()), min=1.0)
             tor_loss = (((tor_pred - targets.tor_score) ** 2 / tor_norm2) * m).sum() / denom
             tor_base = (((targets.tor_score ** 2) / tor_norm2) * m).sum() / denom
         else:

@@ -40,10 +40,13 @@ class PhaseTimers:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Add a phase timed elsewhere (in a worker process)."""
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
 
     def report(self) -> str:
         return " ".join(f"{k}={v:.2f}s" for k, v in sorted(self.totals.items()))

@@ -326,7 +326,7 @@ def test_augmented_records_match_the_jax_trainer(monkeypatch):
     seen = {}
 
     def fake(tag):
-        def make(records, settings, cache_path, num_workers, name, ram_cache):
+        def make(records, settings, cache_path, num_workers, name, ram_cache, featurize=True):
             seen[(tag, name)] = (json.dumps(records), settings.digest(), cache_path, num_workers)
             return name
         return make

@@ -49,6 +49,8 @@ TRAINING_MODULES = [
     # training and evaluation from raw files
     "data/phore_sampling.py", "chem/conformer_matching.py", "chem/complex_phore.py",
     "cli/evaluate.py",
+    # scale-out and prefetch
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/workers.py",
 ]
 
 

@@ -140,14 +140,10 @@ def test_flags_and_config_parse_as_the_jax_package(tmp_path):
                   "3", "--min_similarity", "0.5"]):
         got, want = vars(tcli.parse_args(argv)), vars(jcli.parse_args(argv))
         assert got.pop("device") is None
-        # the port featurizes on the main thread: no prefetch threads
-        assert got.pop("prefetch_workers") == 0 and want.pop("prefetch_workers") == 2
         assert got == want, argv
-    for argv in (["--num_processes", "2"], ["--process_rank", "1"]):
-        with pytest.raises(NotImplementedError, match="scale-out"):
-            tcli.refuse_unported(tcli.parse_args(argv))
-    with pytest.raises(NotImplementedError, match="worker processes"):
-        tcli.refuse_unported(tcli.parse_args(["--prefetch_workers", "2"]))
+    for argv in (["--num_processes", "2", "--process_rank", "1", "--prefetch_workers", "0",
+                  "--use_mesh", "false"],):
+        assert vars(tcli.parse_args(argv)) == dict(vars(jcli.parse_args(argv)), device=None)
 
 
 def test_cli_artifacts_match_the_jax_cli(tmp_path):
@@ -265,8 +261,8 @@ def test_resume_reuses_finished_complexes(tmp_path, small_model_dir):
 
 
 def test_featurization_runs_on_the_main_thread(tmp_path, small_model_dir):
-    """Each complex is featurized on the main thread, in input order, and an
-    unparsable row is logged and skipped."""
+    """With ``--prefetch_workers 0`` each complex is featurized on the main
+    thread, in input order, and an unparsable row is logged and skipped."""
     import threading
 
     task = tmp_path / "task.csv"
@@ -281,7 +277,8 @@ def test_featurization_runs_on_the_main_thread(tmp_path, small_model_dir):
     FitEngine.prepare = prepare
     try:
         log = _run(["--phore_ligand_csv", str(task), "--model_dir", small_model_dir,
-                    "--out_dir", str(tmp_path / "out"), "--allow_random_init", "true"] + FAST)
+                    "--out_dir", str(tmp_path / "out"), "--allow_random_init", "true",
+                    "--prefetch_workers", "0"] + FAST)
     finally:
         FitEngine.prepare = original
     names = [f"example_phore_0__EX0{i}" for i in (1, 2, 3)] + ["example_phore_0__C1CC(=O"]
