@@ -128,6 +128,26 @@ Phases, each fatal on failure:
      the artifact sets equal but for ``run_time``, K1 exact.  Prints the
      walls, each process's start-up (launch to first dispatch) and poses/s
      over the wall and over the dispatch window the CLI logs.
+  15. the model-family variants (run before the report): ``cli.train.main``
+     with the corpus2 config and ``--use_att true --trioformer_layer 1``
+     (bf16, corpus2 width) for two epochs of one step over 24 cached
+     complexes, with a validation batch: K2 17 x 3 and K3 6 x 3 a step and
+     K1 23 a validation batch, exactly; K2 and K3 held as in 5 on one
+     use_att training-mode forward; a step's wall, busy time and peak memory.
+     That run directory served by ``FitEngine`` (phase 4's 8 complexes x 40
+     poses x 20 steps, K1 exactly 460 a dispatch, a re-sample with the plain
+     convs), K1 held as in 3 on one use_att forward's 23 conv calls and the
+     forward against the plain convs, one complex through
+     ``cli.inference.main`` (the artifact set). ``cli.train.main --model_type
+     tank`` (hidden 16, 8 blocks) for two epochs on the same caches: finite
+     losses, ``last_model.msgpack``'s EMA reloaded to the trainer's
+     validation loss, poses recovered from its distance maps for EX01 and
+     EX02 at example.phore. A fresh fully connected model: one dispatch of
+     one complex x 40 x 20 and one train step of 24. A fresh Fourier model's
+     forward on the card against the CPU (f32, batch statistics). The oracle
+     score driving the reverse SDE on the card for 4 complexes x 8 poses:
+     the poses recovered, and the same chain on the CPU. The tank, fully
+     connected and oracle paths launch no kernel.
   14. report: the kernels' JSON line (each kernel's launches per path, and
      its errors and times at the recipe's bucket), the card line, and the
      result line.
@@ -2524,6 +2544,468 @@ def phase_scale_out(card, train_batch):
     return counts["k1"]
 
 
+# Phase 15, the model-family variants off the shipped config: cli.train runs
+# of two epochs of one step each, over TRAIN_BATCH cached complexes and a
+# validation batch of VAL_COMPLEXES.
+VARIANT_EPOCHS = 2
+VARIANT_STEP_REPEATS = 3    # timed train steps of the use_att model and of the tank model
+RECOVERY_LIGANDS = ("EX01.sdf", "EX02.sdf")   # tank poses from files, at example.phore
+ORACLE_COMPLEXES = 4
+ORACLE_POSES = 8
+# The oracle chain recovers a pose as tests/test_oracle_sampler.py holds the
+# JAX chain: per complex at least ORACLE_MIN_RECOVERED of ORACLE_POSES poses
+# within 2 A of the clean pose and the best within 1 A.
+ORACLE_MIN_RECOVERED = 6
+# The same chain on the card and on the CPU, same noise: median pose RMSD (A)
+# between the two.  Kabsch and the score tables round differently on the two
+# devices; the chain contracts such differences.
+TOL_ORACLE_RMSD = 1e-3
+# The tank model's validation loss recomputed from its reloaded EMA weights,
+# against the trainer's record: the same computation on the same card.
+TOL_TANK_RELOAD = 1e-5
+
+
+def profiled_busy_ms(fn, repeats=2):
+    """The card's busy ms per call of ``fn``: the device time of every
+    kernel ``torch.profiler`` sees in ``repeats`` calls (the optimizer's
+    annotation range, which repeats its kernels' time, left out); 0 when the
+    profiler sees no device time."""
+    import torch
+
+    from diffphore_torch.cli.profile_main_path import _device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Optimizer.")]
+    return sum(_device_us(e) for e in kernels) / 1e3 / repeats
+
+
+def sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+
+
+def timed_steps(step, repeats, device="cuda"):
+    """(wall ms per call, peak GiB) of ``repeats`` calls of ``step`` after
+    one warm-up call."""
+    step()
+    sync(device)
+    reset_peak(device)
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        step()
+    sync(device)
+    return 1e3 * (time.perf_counter() - t0) / repeats, peak_gib(device)
+
+
+def read_records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_variants(card, cfg, train_batch, draws, jobs, device="cuda", poses=POSES, steps=STEPS,
+                   tank_width=(16, 8)):
+    """The variants on the card: (1) ``cli.train.main`` with the corpus2
+    config and ``--use_att true``: exact launches, K2 and K3 against their
+    plain versions on one use_att training forward, a step's wall, busy time
+    and peak memory; (2) that run directory served by ``FitEngine`` (8
+    complexes x 40 poses x 20 steps, K1 exact, a re-sample with the plain
+    convs), K1 against its plain version on one use_att forward's 23 conv
+    calls, one complex through ``cli.inference.main``; (3) ``cli.train.main
+    --model_type tank``: no launch, a checkpoint that reloads to the same
+    validation loss, poses recovered from its distance maps on two complexes
+    from files; (4) a fully connected model: a dispatch and a train step, no
+    launch; (5) a Fourier model's forward on the card against the CPU, and
+    the oracle score driving the reverse SDE on the card, against the same
+    chain on the CPU.  Returns the launch counts of each path.  With
+    ``device="cpu"``, a small ``cfg`` and fewer ``poses`` and ``steps`` it
+    rehearses the phase on the CPU (no kernel, so no count is held and the
+    kernel checks are left out)."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from diffphore_torch.chem.sdf import read_molecule
+    from diffphore_torch.cli import inference as infer_cli
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.cli.pipeline import FitEngine
+    from diffphore_torch.data.dataset import CachedDataset, cache_directories
+    from diffphore_torch.data.graphs import (build_complex, concat_batches, pad_to_bucket,
+                                             repeat_batch)
+    from diffphore_torch.data.loaders import BucketLoader
+    from diffphore_torch.data.phore import parse_phore
+    from diffphore_torch.data.transforms import apply_noise
+    from diffphore_torch.models.layers import batch_statistics
+    from diffphore_torch.models.score_model import ScoreModel, init_parameters
+    from diffphore_torch.ops import tp_fused
+    from diffphore_torch.ops.fitscore import batch_phore_arrays
+    from diffphore_torch.sampler import oracle
+    from diffphore_torch.sampler.sampling import (PriorNoise, SamplerSettings, StepNoise,
+                                                  draw_prior, draw_steps, randomize_position,
+                                                  reverse_diffusion)
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.train.tank import (create_tank_train_state, make_tank_eval_step,
+                                            make_tank_train_step, tank_pose_metrics)
+    from diffphore_torch.utils import checkpoints, flat_yaml
+
+    on_card = device == "cuda"
+
+    def expect(what, **kw):
+        return expect_counts(what, **kw) if on_card else kernel_counts()
+
+    per_dispatch = CONVS_PER_FORWARD * steps
+    laps = [time.perf_counter()]
+
+    def lap():
+        """s since the previous lap: each part's share of the phase."""
+        laps.append(time.perf_counter())
+        return f"[{laps[-1] - laps[-2]:.1f} s]"
+
+    counts = {}
+    drop = torch.Generator(device=device)
+    drop.manual_seed(SEED + 5)
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_bucket(TRAIN_CACHE_DIR, os.path.join(tmp, "train_variants"), TRAIN_BATCH)
+        copy_bucket(CACHE_DIR, os.path.join(tmp, "val_variants"), VAL_COMPLEXES)
+
+        # ---- 15.1 use_att trained through the CLI, in the corpus2 recipe
+        config = flat_yaml.load(os.path.join(MODEL_DIR, "model_parameters.yml"))
+        config.update(n_epochs=VARIANT_EPOCHS, use_att=True, trioformer_layer=1, ns=cfg.ns,
+                      nv=cfg.nv, num_conv_layers=cfg.num_conv_layers,
+                      batch_size=train_batch.batch_size)
+        yml = os.path.join(tmp, "use_att.yml")
+        with open(yml, "w") as f:
+            f.write(flat_yaml.dumps(config))
+        att_run = os.path.join(tmp, "use_att")
+        reset_kernel_counts()
+        train_cli.main(["--config", yml, "--cache_path", tmp, "--run_dir", att_run,
+                        "--val_inference_freq", "0", "--seed", str(SEED), "--device", device])
+        sync(device)
+        counts["use_att_training"] = expect(
+            "use_att cli.train.main", steps=VARIANT_EPOCHS, eval_batches=VARIANT_EPOCHS)
+        records = read_records(att_run)
+        train_rec = [r for r in records if r.get("mode") != "val"]
+        val_rec = [r for r in records if r.get("mode") == "val"]
+        if (len(train_rec), len(val_rec)) != (VARIANT_EPOCHS, VARIANT_EPOCHS) \
+                or any(r["steps"] != 1 or r["grad_finite"] != 1.0 for r in train_rec) \
+                or not all(np.isfinite(r["loss"]) for r in train_rec + val_rec):
+            raise AssertionError(f"use_att training records: {records}")
+        att_cfg, att_model = checkpoints.load_model_dir(att_run, device=device,
+                                                        checkpoint=checkpoints.LAST_MODEL)
+        if not (att_cfg.use_att and att_cfg.trioformer_layer == 1 and att_cfg.compute_dtype
+                == "bfloat16" and (att_cfg.ns, att_cfg.nv, att_cfg.num_conv_layers)
+                == (cfg.ns, cfg.nv, cfg.num_conv_layers)):
+            raise AssertionError(f"the use_att run is not corpus2's width with use_att: {att_cfg}")
+        if on_card:
+            with torch.no_grad():
+                noised, _ = apply_noise(train_batch, att_cfg.sigma_schedule, draws=draws)
+            k2_calls, k3_calls = capture_training_convs(att_model, noised)
+            print(f"kernel check: tp_aggregate on the {K2_CONVS} conv calls it takes of one "
+                  "training-mode forward of the use_att model", flush=True)
+            phase_k2_check(k2_calls)
+            print(f"kernel check: tp_scalar on the {K3_CONVS} layer-0 convs of the same "
+                  "forward", flush=True)
+            phase_k3_check(k3_calls)
+            del k2_calls, k3_calls, noised
+        state = create_train_state(att_cfg, seed=SEED, device=device)
+        step = make_train_step(att_cfg)
+        run_step = lambda: step(state, train_batch, drop, draws=draws)
+        wall_ms, peak = timed_steps(run_step, VARIANT_STEP_REPEATS, device)
+        busy_ms = profiled_busy_ms(run_step) if on_card else 0.0
+        del state
+        reset_peak(device)
+        print(f"use_att training: cli.train.main, {VARIANT_EPOCHS} epochs of one step of "
+              f"{TRAIN_BATCH} and a validation batch of {VAL_COMPLEXES}, losses "
+              + " ".join(f"{r['loss']:.4f}" for r in train_rec) + "; val "
+              + " ".join(f"{r['loss']:.4f}" for r in val_rec)
+              + f"; launches {counts['use_att_training']}; a bf16 step of {TRAIN_BATCH} at "
+              f"{BUCKET[0]} x {BUCKET[1]} x {BUCKET[2]}: wall {wall_ms:.1f} ms, busy "
+              + (f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.3f} of the wall)" if busy_ms
+                 else "not measured (the profiler saw no device time)")
+              + f", peak memory {peak:.3f} GiB ({card}) {lap()}", flush=True)
+
+        # ---- 15.2 the use_att run directory served
+        engine = FitEngine(att_cfg, att_model, samples_per_complex=poses,
+                           settings=SamplerSettings(inference_steps=steps), seed=SEED,
+                           device=device)
+        engine.run_complexes(jobs[:1])                                # warm-up
+        sync(device)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        results = engine.run_complexes(jobs)
+        sync(device)
+        elapsed = time.perf_counter() - t0
+        counts["use_att_serving"] = expect("use_att serving", k1=len(jobs) * per_dispatch)
+        for job, r in zip(jobs, results):
+            if r["poses"].shape != (poses, job.n_atoms, 3) or not np.isfinite(r["poses"]).all() \
+                    or not np.isfinite(r["fitscore"]).all():
+                raise AssertionError(f"use_att {r['name']}: poses or fitscores not finite")
+        job = jobs[0]
+        noise = engine.draw_noise(poses, job.batch.num_torsions)
+        rows = repeat_batch(job.batch.to(device), poses)
+        ref = batch_phore_arrays(rows)
+        pos_k, _, _ = engine.run_batch(rows, ref, poses, noise)
+        set_use_kernel(att_model, False)
+        pos_p, _, _ = engine.run_batch(rows, ref, poses, noise)
+        set_use_kernel(att_model, True)
+        n_at = job.n_atoms
+        rmsd = ((pos_k[:, :n_at] - pos_p[:, :n_at]) ** 2).sum(-1).mean(-1).sqrt().cpu().numpy()
+        if not np.median(rmsd) <= TOL_RERUN_RMSD:
+            raise AssertionError(f"use_att kernel and plain runs diverge: median RMSD "
+                                 f"{np.median(rmsd)} A")
+        k1_note = "not run (no card)"
+        if on_card:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED)
+            posed = posed_rows(job.batch.to(device), poses, att_cfg, gen)
+            errs = [check_k1_call(tp_fused, name, mod, args)
+                    for name, mod, args in capture_conv_calls(att_model, posed, poses)]
+            check_forward(att_model, posed, att_cfg.compute_dtype, poses, what="use_att forward")
+            k1_note = ("max |kernel - plain| / max|plain| of a call "
+                       f"{max(c['err'] / max(c['scale'], 1e-30) for c in errs):.2e} (f32), "
+                       f"{max(c['err_bf'] / max(c['scale_bf'], 1e-30) for c in errs):.2e} "
+                       f"(bf16); largest abs err {max(c['err'] for c in errs):.2e}")
+            del errs, posed
+        print(f"use_att serving: {len(jobs)} complexes x {poses} poses x {steps} steps in "
+              f"{elapsed:.3f} s = {len(jobs) * poses / elapsed:.1f} poses/s ({card}); K1 "
+              f"{counts['use_att_serving']['k1']} launches; kernel vs plain convs, same noise: "
+              f"pose RMSD median {np.median(rmsd):.2e} max {rmsd.max():.2e} A; K1 against its "
+              f"plain version on the conv calls of one use_att forward: {k1_note} {lap()}",
+              flush=True)
+        del engine
+
+        # one complex through the screening CLI from the run directory
+        with open(os.path.join(HERE, "examples", "task.csv")) as f:
+            row = dict(next(csv.DictReader(f)))
+        row = dict(row, ligand_description=os.path.join(HERE, row["ligand_description"]),
+                   phore=os.path.join(HERE, row["phore"]))
+        task = os.path.join(tmp, "one.csv")
+        with open(task, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(row))
+            w.writeheader()
+            w.writerow(row)
+        screen = os.path.join(tmp, "att_screen")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        infer_cli.main(["--phore_ligand_csv", task, "--model_dir", att_run, "--ckpt",
+                        checkpoints.LAST_MODEL, "--out_dir", screen, "--sample_per_complex",
+                        str(poses), "--inference_steps", str(steps), "--device", device,
+                        "--prefetch_workers", "0"])
+        sync(device)
+        screen_s = time.perf_counter() - t0
+        counts["use_att_cli"] = expect("use_att cli.inference.main", k1=per_dispatch)
+        name = infer_cli.complex_name(row)
+        with open(os.path.join(screen, "ranked_results.csv")) as f:
+            ranked = list(csv.reader(f, delimiter="\t"))
+        with open(os.path.join(screen, "mapping_process", name, f"{name}.score")) as f:
+            table = [line.rstrip("\n").split("\t") for line in f]
+        with open(os.path.join(screen, "ranked_poses", f"{name}_ranked.sdf")) as f:
+            n_poses = f.read().count("$$$$")
+        if ranked[0] != infer_cli.RANKED_COLUMNS or [r[2] for r in ranked[1:]] != [name] \
+                or not os.path.exists(os.path.join(screen, "inference_results.json")) \
+                or len(table) != poses or {len(r) for r in table} != {19} or n_poses != poses:
+            raise AssertionError(f"use_att cli.inference.main artifacts: {ranked}, "
+                                 f"{len(table)} score rows, {n_poses} ranked poses")
+        print(f"use_att cli.inference.main: {name}, {poses} poses x {steps} steps in "
+              f"{screen_s:.2f} s (model load, featurization and writers included); the "
+              f"artifact set complete; K1 {counts['use_att_cli']['k1']} launches ({card}) "
+              f"{lap()}", flush=True)
+        del att_model
+        reset_peak(device)
+
+        # ---- 15.3 the tank mode at the JAX defaults (hidden 16, 8 blocks)
+        tank_run = os.path.join(tmp, "tank")
+        reset_kernel_counts()
+        train_cli.main(["--model_type", "tank", "--cache_path", tmp, "--run_dir", tank_run,
+                        "--n_epochs", str(VARIANT_EPOCHS), "--batch_size",
+                        str(train_batch.batch_size), "--tank_hidden_dim", str(tank_width[0]),
+                        "--tank_blocks", str(tank_width[1]), "--seed", str(SEED),
+                        "--device", device])
+        sync(device)
+        counts["tank"] = expect_counts("tank cli.train.main")
+        records = read_records(tank_run)
+        train_rec = [r for r in records if r["mode"] == "tank"]
+        val_rec = [r for r in records if r["mode"] == "tank_val"]
+        if (len(train_rec), len(val_rec)) != (VARIANT_EPOCHS, VARIANT_EPOCHS) \
+                or any(r["steps"] != 1 or r["grad_finite"] != 1.0 for r in train_rec) \
+                or not all(np.isfinite(r["loss"]) for r in train_rec + val_rec):
+            raise AssertionError(f"tank training records: {records}")
+        settings, tank = checkpoints.load_tank_dir(tank_run, device=device,
+                                                   checkpoint=checkpoints.LAST_MODEL,
+                                                   use_ema=True)
+        if (settings["tank_hidden_dim"], settings["tank_blocks"]) != tuple(tank_width):
+            raise AssertionError(f"the tank run's width: {settings}")
+        val_ds = CachedDataset(cache_directories(tmp, "val"))
+        (vb,) = list(BucketLoader(val_ds, train_batch.batch_size, shuffle=False))
+        affinity = train_cli.batch_affinity(vb).to(device)
+        vm = make_tank_eval_step()(tank, vb.replace(names=(), meta=()).to(device), affinity)
+        reloaded = float(vm["loss"])
+        if not abs(reloaded - val_rec[-1]["loss"]) <= TOL_TANK_RELOAD * abs(val_rec[-1]["loss"]):
+            raise AssertionError(f"the reloaded tank model's val loss {reloaded} against the "
+                                 f"trainer's {val_rec[-1]['loss']}")
+        tstate = create_tank_train_state(*tank_width, seed=SEED, device=device)
+        tstep = make_tank_train_step()
+        batch_aff = torch.zeros(train_batch.batch_size, device=device)
+        tank_ms, tank_peak = timed_steps(lambda: tstep(tstate, train_batch, batch_aff, drop),
+                                         VARIANT_STEP_REPEATS, device)
+        del tstate
+        phore = parse_phore(os.path.join(HERE, "examples", "example.phore"))[0]
+        mols = [read_molecule(os.path.join(HERE, "examples", lig), remove_hs=True)
+                for lig in RECOVERY_LIGANDS]
+        built = [build_complex(lig, m, phore) for lig, m in zip(RECOVERY_LIGANDS, mols)]
+        pads = [max(getattr(b, k) for b in built)
+                for k in ("num_atoms", "num_phore", "num_torsions")]
+        files_batch = concat_batches(pad_to_bucket(built, *pads)).replace(names=(), meta=())
+        reset_kernel_counts()
+        sync(device)
+        t0 = time.perf_counter()
+        metrics = tank_pose_metrics(tank, files_batch.to(device), mols,
+                                    generator=torch.Generator(device=device).manual_seed(SEED))
+        sync(device)
+        recovery_ms = 1e3 * (time.perf_counter() - t0) / len(mols)
+        expect_counts("tank pose metrics")
+        if not np.isfinite(metrics["rmsds"]).all():
+            raise AssertionError(f"tank pose metrics: {metrics}")
+        print(f"tank: cli.train.main --model_type tank (hidden {tank_width[0]}, {tank_width[1]} "
+              f"blocks), {VARIANT_EPOCHS} epochs of one step of {train_batch.batch_size}: losses "
+              + " ".join(f"{r['loss']:.4f}" for r in train_rec) + ", val "
+              + " ".join(f"{r['loss']:.4f}" for r in val_rec)
+              + f"; last_model.msgpack's EMA reloaded: val loss {reloaded:.6f}; a step "
+              f"{tank_ms:.1f} ms, peak memory {tank_peak:.3f} GiB; coordinate recovery "
+              f"(4 initializations x 500 Adam steps) {recovery_ms:.1f} ms per complex, RMSDs "
+              + " ".join(f"{r:.2f}" for r in metrics["rmsds"])
+              + f" A; no kernel launched ({card}) {lap()}", flush=True)
+        del tank
+        reset_peak(device)
+
+    # ---- 15.4 fully connected tensor products, fresh corpus2-width weights
+    fc_cfg = dataclasses.replace(cfg, tp_mode="fully_connected")
+    fc_model = init_parameters(ScoreModel(fc_cfg), SEED)
+    engine = FitEngine(fc_cfg, fc_model, samples_per_complex=poses,
+                       settings=SamplerSettings(inference_steps=steps), seed=SEED, device=device)
+    engine.calibrate_batch_stats(jobs[0], iters=20)     # random weights, as --allow_random_init
+    sync(device)
+    reset_kernel_counts()
+    reset_peak(device)
+    t0 = time.perf_counter()
+    (res,) = engine.run_complexes(jobs[:1])
+    sync(device)
+    fc_s = time.perf_counter() - t0
+    fc_peak = peak_gib(device)
+    counts["fully_connected_serving"] = expect_counts("fully connected dispatch")
+    if not (np.isfinite(res["poses"]).all() and np.isfinite(res["fitscore"]).all()):
+        raise AssertionError("fully connected dispatch: poses or fitscores not finite")
+    del engine, fc_model
+    state = create_train_state(fc_cfg, seed=SEED, device=device)
+    step = make_train_step(fc_cfg)
+    reset_peak(device)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, train_batch, drop, draws=draws)
+    sync(device)
+    fc_step_s = time.perf_counter() - t0
+    fc_step_peak = peak_gib(device)
+    counts["fully_connected_training"] = expect_counts("fully connected train step")
+    if not (np.isfinite(float(m["loss"])) and float(m["grad_finite"]) == 1.0):
+        raise AssertionError(f"fully connected train step: {m}")
+    del state
+    reset_peak(device)
+    print(f"fully connected (fresh corpus2-width weights, bf16): one complex x {poses} poses x "
+          f"{steps} steps in {fc_s:.3f} s, peak memory {fc_peak:.3f} GiB; one train step of "
+          f"{train_batch.batch_size} (the first, no warm-up) {1e3 * fc_step_s:.1f} ms, loss "
+          f"{float(m['loss']):.4f}, peak memory {fc_step_peak:.3f} GiB; no kernel launched "
+          f"({card}) {lap()}", flush=True)
+
+    # ---- 15.5 the Fourier embedding, and the oracle score driving the chain
+    f_cfg = dataclasses.replace(cfg, embedding_type="fourier", compute_dtype="float32")
+    f_model = init_parameters(ScoreModel(f_cfg), SEED).eval()
+    fb = posed_rows(jobs[0].batch, 8, f_cfg, torch.Generator().manual_seed(SEED))
+    fb = fb.replace(t=torch.linspace(0.05, 0.95, 8))
+    # fresh weights: the batch norms normalize by the batch's statistics
+    # (eval-mode convs, K1 on the card), else the identity running statistics
+    # let the activations overflow through the conv stack
+    with torch.no_grad(), batch_statistics(f_model):
+        cpu_out = f_model(fb)
+        f_model.to(device)
+        reset_kernel_counts()
+        card_out = f_model(fb.to(device))
+        sync(device)
+    counts["fourier"] = expect("Fourier model forward", k1=CONVS_PER_FORWARD)
+    if not all(bool(torch.isfinite(o).all()) for o in tuple(cpu_out) + tuple(card_out)):
+        raise AssertionError("Fourier model: a forward is not finite")
+    rel = max(float((c.cpu() - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+              for c, p in zip(card_out, cpu_out))
+    if not rel <= TOL_FORWARD:
+        raise AssertionError(f"Fourier model: card against CPU {rel} > {TOL_FORWARD}")
+    del f_model
+
+    schedule = cfg.sigma_schedule
+    clean = concat_batches([repeat_batch(j.batch, ORACLE_POSES)
+                            for j in jobs[:ORACLE_COMPLEXES]]).replace(names=(), meta=())
+    B, T = clean.batch_size, clean.num_torsions
+    gen = torch.Generator().manual_seed(SEED)
+    prior, noise = draw_prior(B, T, gen, "cpu"), draw_steps(STEPS, B, T, gen, "cpu")
+    settings = SamplerSettings(inference_steps=STEPS, no_final_step_noise=True)
+
+    def chain(device):
+        b = clean.to(device)
+        pr = PriorNoise(*(t.to(device) for t in (prior.tor, prior.quat, prior.tr)))
+        st = StepNoise(*(t.to(device) for t in (noise.z_tr, noise.z_rot, noise.z_tor)))
+        start = randomize_position(b, pr, schedule.tr_sigma_max)
+        return reverse_diffusion(oracle.make_oracle_score_fn(b, schedule), start, schedule,
+                                 settings, st).lig_pos.cpu()
+
+    reset_kernel_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    on_device = chain(device)
+    sync(device)
+    oracle_s = time.perf_counter() - t0
+    counts["oracle"] = expect_counts("oracle chain")
+    on_cpu = chain("cpu")
+    m = clean.lig_mask.double()
+    rmsd = lambda a, b: (((a.double() - b.double()) ** 2).sum(-1) * m).sum(-1).div(m.sum(-1)).sqrt()
+    r = rmsd(on_device, clean.lig_pos).numpy().reshape(-1, ORACLE_POSES)
+    if not all((row < 2.0).sum() >= ORACLE_MIN_RECOVERED and row.min() < 1.0 for row in r):
+        raise AssertionError(f"the oracle chain did not recover the poses: {r}")
+    drift = rmsd(on_device, on_cpu).numpy()
+    if not np.median(drift) <= TOL_ORACLE_RMSD:
+        raise AssertionError(f"the oracle chain on the card against the CPU: median "
+                             f"{np.median(drift)} A")
+    print(f"Fourier model (fresh corpus2-width weights, f32, batch statistics): card against "
+          f"CPU forward, max "
+          f"|d| / max|CPU| {rel:.2e}, K1 {counts['fourier']['k1']} launches (its convs are "
+          f"channelwise). Oracle scores drive the reverse SDE on the card: "
+          f"{len(r)} complexes x {ORACLE_POSES} poses x {STEPS} steps in "
+          f"{oracle_s:.3f} s, RMSD to the clean pose per complex (median, best) "
+          + " ".join(f"({np.median(row):.2f}, {row.min():.2f})" for row in r)
+          + f" A; against the same chain on the CPU: median {np.median(drift):.2e}, max "
+          f"{drift.max():.2e} A; no kernel launched ({card}) {lap()}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2715,6 +3197,11 @@ def main() -> int:
 
     mark("scale-out")
 
+    # ---- 15. the model-family variants (ahead of the report)
+    variants = phase_variants(card, cfg, train_batch, draws, jobs)
+
+    mark("variants")
+
     # ---- 14. report
     kernel = {
         "name": "tp_fused",
@@ -2731,6 +3218,10 @@ def main() -> int:
         "launches_raw_files_training": raw["train"]["k1"],
         "launches_raw_files_evaluate": raw["eval"]["k1"],
         "launches_scale_out_screen": scale_k1,
+        "launches_use_att_serving": variants["use_att_serving"]["k1"],
+        "launches_use_att_cli": variants["use_att_cli"]["k1"],
+        "launches_use_att_training": variants["use_att_training"]["k1"],
+        "launches_fourier_forward": variants["fourier"]["k1"],
         "raw_files_bucket": raw["k1"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
@@ -2759,6 +3250,13 @@ def main() -> int:
             entry["launches_confidence_training"] = head_counts[prefix + k]
             entry["launches_val_inference"] = valinf_counts[prefix + k]
             entry["launches_raw_files_training"] = raw["train"][prefix + k]
+    for prefix, entries in (("", k2_entries), ("k3_", k3_entries)):
+        for entry, k in zip(entries, K3_KERNELS):
+            entry["launches_use_att_training"] = variants["use_att_training"][prefix + k]
+    for entry in [kernel] + k2_entries + k3_entries:
+        entry["launches_tank_fully_connected_oracle"] = sum(
+            n for path in ("tank", "fully_connected_serving", "fully_connected_training",
+                           "oracle") for n in variants[path].values())
     for entry, at_bucket in zip(k2_entries + k3_entries, raw_entries):
         entry["raw_files_bucket"] = {k: at_bucket[k] for k in RAW_BUCKET_KEYS}
     print(json.dumps({"kernels": [kernel] + k2_entries + k3_entries}))

@@ -63,8 +63,16 @@ featurize nothing: the spawning process featurizes raw files before it
 starts them; under ``torchrun`` run ``--featurize_only`` first.  A
 confidence head trains on one device.
 
-Not part of the port yet, and refused with a message that says so: the
-tank baseline.
+With ``--model_type tank`` it trains the TANKBind-style model instead
+(``models/trioformer.py::TankPhore``, ``--tank_hidden_dim``,
+``--tank_blocks``): distance-map regression (or contact classification with
+``--contact_as_class``) plus affinity, on one device, with the same plateau
+learning rate, EMA, ``last_model.msgpack`` and best-EMA checkpoint by the
+validation loss; the run directory loads with
+``utils.checkpoints.load_tank_dir``.
+
+Not part of the port yet, and refused with a message that says so: l = 2
+features (``--use_second_order_repr``).
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from ..data.dataset import (CachedDataset, DatasetSettings, PhoreDataset, cache_
 from ..data.loaders import BucketLoader
 from ..device import resolve_device
 from ..chem.rmsd import plain_rmsd
+from ..models.encoder import NEXT_SLICE
 from ..models.score_model import ScoreModelConfig
 from ..parallel import mesh
 from ..sampler.sampling import SamplerSettings
@@ -93,6 +102,7 @@ from ..train.confidence import (LABEL_MODES, create_confidence_train_state,
                                 make_confidence_eval_step, make_confidence_train_step)
 from ..train.state import (create_train_state, ema_model, make_eval_step, make_train_step,
                            set_learning_rate)
+from ..train.tank import create_tank_train_state, make_tank_eval_step, make_tank_train_step
 from ..utils import checkpoints, flat_yaml
 from ..utils.logging import AverageMeter, MetricsWriter, log_info
 from .pipeline import FitEngine, job_from_cached
@@ -100,10 +110,11 @@ from .pipeline import FitEngine, job_from_cached
 TRAIN_KEYS = ("loss", "tr_loss", "rot_loss", "tor_loss")
 VAL_KEYS = TRAIN_KEYS + ("tr_base_loss", "rot_base_loss", "tor_base_loss")
 CONFIDENCE_KEYS = ("loss", "loss_ph", "loss_ex", "loss_total")
+TANK_KEYS = ("loss", "contact_loss", "affinity_loss")
 
 #: flags of parts that are not ported: (flag, its off value, the slice that brings it)
 NOT_PORTED = (
-    ("model_type", "diff", "the variants slice (train/tank.py)"),
+    ("use_second_order_repr", False, NEXT_SLICE),
 )
 
 
@@ -266,6 +277,15 @@ def parse_args(argv=None):
                    help="the convs' edge MLP and aggregate operands (bf16 as the JAX "
                         "package computes them, or float32)")
     p.add_argument("--model_type", type=str, default="diff", choices=["diff", "tank"])
+    p.add_argument("--tank_hidden_dim", type=int, default=16)
+    p.add_argument("--tank_blocks", type=int, default=8)
+    p.add_argument("--no_affinity", action="store_true",
+                   help="tank: drop the affinity MSE term")
+    p.add_argument("--contact_as_class", action="store_true",
+                   help="tank: BCE contact classification instead of distance regression")
+    p.add_argument("--contact_weight", type=float, default=1.0)
+    p.add_argument("--affinity_weight", type=float, default=0.01)
+    p.add_argument("--pose_weight", type=float, default=5.0)
     # confidence head
     p.add_argument("--confidence_mode", action="store_true",
                    help="train a confidence head instead of the score model")
@@ -562,6 +582,85 @@ def train_confidence(args, device) -> None:
     log_info("Confidence training finished.")
 
 
+def batch_affinity(batch) -> torch.Tensor:
+    """Per-graph affinity labels from the batch's metadata (0 where a record
+    has none, as in every cache here)."""
+    return torch.tensor([float(m.get("affinity", 0.0) or 0.0) for m in batch.meta],
+                        dtype=torch.float32)
+
+
+def train_tank(args, device) -> None:
+    """The ``--model_type tank`` loop: distance-map (or contact) and
+    affinity training; validation loss on the EMA weights, the best EMA
+    weights kept, the learning rate steered on plateaus."""
+    train_ds, val_ds = build_datasets(args)
+    if len(train_ds) == 0:
+        raise SystemExit("Empty training dataset")
+    loader = BucketLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed)
+    state = create_tank_train_state(args.tank_hidden_dim, args.tank_blocks, seed=args.seed,
+                                    lr=args.lr, weight_decay=args.w_decay, device=str(device))
+    terms = dict(consider_affinity=not args.no_affinity, pred_dis=not args.contact_as_class,
+                 contact_weight=args.contact_weight, affinity_weight=args.affinity_weight,
+                 pose_weight=args.pose_weight)
+    step_fn = make_tank_train_step(args.ema_rate, **terms)
+    eval_fn = make_tank_eval_step(**terms)
+    restart(args, state)
+    os.makedirs(args.run_dir, exist_ok=True)
+    settings = {k: getattr(args, k) for k in (
+        "model_type", "tank_hidden_dim", "tank_blocks", "no_affinity", "contact_as_class",
+        "contact_weight", "affinity_weight", "pose_weight", "n_epochs", "batch_size", "lr",
+        "ema_rate", "seed")}
+    with open(os.path.join(args.run_dir, checkpoints.MODEL_PARAMS_YAML), "w") as f:
+        f.write(flat_yaml.dumps(settings))
+    log_info(f"Training the tank model on {device}: {len(train_ds)} complexes in "
+             f"{len(loader)} batches of {args.batch_size}")
+    generator = torch.Generator(device=device)
+    generator.manual_seed(args.seed)
+    plateau = Plateau(args, state)
+    val_loader = (BucketLoader(val_ds, args.batch_size, shuffle=False)
+                  if val_ds is not None and len(val_ds) else None)
+
+    with MetricsWriter(os.path.join(args.run_dir, "metrics.jsonl")) as metrics_out:
+        for epoch in range(args.n_epochs):
+            meter = AverageMeter(["loss", "grad_finite"])
+            t0 = time.time()
+            steps = 0
+            for batch in loader:
+                aff = batch_affinity(batch).to(device)
+                state, m = step_fn(state, batch.replace(names=(), meta=()).to(device), aff,
+                                   generator)
+                row = torch.stack([m["loss"], m["grad_finite"]]).cpu().numpy()  # one transfer
+                meter.add({"loss": row[0], "grad_finite": row[1]})
+                steps += 1
+            summary = meter.summary()
+            summary.update({"epoch": epoch, "lr": plateau.lr, "epoch_time": time.time() - t0,
+                            "steps": steps, "mode": "tank"})
+            log_info(f"tank epoch {epoch}: loss={summary.get('loss', float('nan')):.4f} "
+                     f"({summary['epoch_time']:.1f}s)")
+            metrics_out.write(summary)
+            save_last(args, state, epoch)
+
+            val_loss = None if val_loader is not None else summary.get("loss", np.inf)
+            if val_loader is not None and ((epoch + 1) % max(args.val_loss_freq, 1) == 0
+                                           or epoch == args.n_epochs - 1):
+                ema = ema_model(state)
+                vmeter = AverageMeter(list(TANK_KEYS))
+                for vb in val_loader:
+                    vm = eval_fn(ema, vb.replace(names=(), meta=()).to(device),
+                                 batch_affinity(vb).to(device))
+                    vmeter.add(dict(zip(TANK_KEYS,
+                                        torch.stack([vm[k] for k in TANK_KEYS]).cpu().numpy())))
+                vs = vmeter.summary()
+                vs.update({"epoch": epoch, "mode": "tank_val"})
+                metrics_out.write(vs)
+                val_loss = vs.get("loss", np.inf)
+                log_info(f"tank val: loss={val_loss:.4f}")
+            if val_loss is not None and plateau.update(state, val_loss):
+                checkpoints.save_ema_variables(
+                    state, os.path.join(args.run_dir, checkpoints.BEST_EMA_MODEL))
+    log_info("Tank training finished.")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.model_type == "tank" and args.confidence_mode:
@@ -577,6 +676,11 @@ def main(argv=None) -> None:
                      f"val={len(val_ds) if val_ds else 0} complexes cached")
         return
     device = resolve_device(args.device)
+    if args.model_type == "tank":
+        # one device, as the JAX trainer leaves the tank step unsharded
+        if rank == 0:
+            train_tank(args, device)
+        return
     if args.confidence_mode:
         # the head trains on one device, as the JAX trainer leaves it unsharded
         if rank == 0:

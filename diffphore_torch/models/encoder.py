@@ -4,10 +4,15 @@ the knowledge-guided bipartite cross graph on (A, P) with phore-type
 agreement weights, learned direction flips, per-atom softmax weights and the
 norm-angle alignment channel.
 
-A dense phore grid (``phore_knn = 0``) and no geometric attention
-(``use_att = False``).  In training mode the MLPs and convs apply dropout,
-the convs' batch norms take masked batch statistics, and the pose-group
-factoring is off.
+With ``use_att`` a geometric attention block (Trioformer,
+``models/trioformer.py``) replaces the node features after the phore graph
+is built, and its pair embedding conditions the cross edges: it joins their
+attributes and scales their vectors.  The phore grid is dense
+(``phore_knn = 0``) and the features go up to l = 1
+(``use_second_order_repr = False``).  In training mode the MLPs and convs
+apply dropout, the convs' batch norms take masked batch statistics, and the
+pose-group factoring is off; it is off with ``use_att`` too, whose node
+features depend on the pose.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ from ..constants import LIG_FEATURE_DIMS, NUM_PHORETYPE, PHORE_FEATURE_DIMS, VDW
 from ..ops.geometry import angle_between
 from ..ops.sh import spherical_harmonics_lmax2
 from .layers import MLP, CategoricalEncoder, DenseTPConv, GaussianSmearing, leaky_relu
+from .trioformer import GeometricAttention
+
+#: the slice of the port that brings the refused encoder options
+NEXT_SLICE = "the next slice of the port (l = 2 features and the KNN phore grid)"
 
 
 def irrep_seq(ns: int, nv: int):
@@ -46,11 +55,11 @@ class LigPhoreEncoder(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.use_att or cfg.phore_knn or cfg.use_second_order_repr:
+        if cfg.phore_knn or cfg.use_second_order_repr:
             raise NotImplementedError(
-                "the port supports use_att=False, phore_knn=0, use_second_order_repr=False")
-        if cfg.tp_mode != "channelwise":
-            raise NotImplementedError("the port supports tp_mode='channelwise'")
+                f"phore_knn > 0 and use_second_order_repr come with {NEXT_SLICE}")
+        if cfg.tp_mode not in ("channelwise", "fully_connected"):
+            raise ValueError(f"tp_mode {cfg.tp_mode!r}: channelwise or fully_connected")
         self.cfg = cfg
         ns, sd = cfg.ns, cfg.sigma_embed_dim
         self.ns = ns
@@ -84,6 +93,11 @@ class LigPhoreEncoder(nn.Module):
                         1, NUM_PHORETYPE, 1, activation=leaky_relu, dropout=cfg.dropout)
                 if cfg.use_phore_match_feat:
                     cross_in += 3 * NUM_PHORETYPE
+            if cfg.use_att:
+                cross_in += ns
+                self.mlp_att = MLP(ns, 2 * ns, 1, activation=leaky_relu, dropout=cfg.dropout)
+        if cfg.use_att:
+            self.geometric_attention = GeometricAttention(ns, cfg.trioformer_layer)
         self.cross_edge_embedding = MLP(cross_in, ns, ns, dropout=cfg.dropout)
 
         seq = irrep_seq(ns, cfg.nv)
@@ -93,7 +107,7 @@ class LigPhoreEncoder(nn.Module):
             return DenseTPConv(seq[min(i, len(seq) - 1)], seq[min(i + 1, len(seq) - 1)],
                                n_edge_features=3 * ns, hidden_features=3 * ns,
                                batch_norm=not cfg.no_batch_norm, dropout=cfg.dropout,
-                               compute_dtype=cfg.compute_dtype)
+                               compute_dtype=cfg.compute_dtype, tp_mode=cfg.tp_mode)
 
         for l in range(cfg.num_conv_layers):
             setattr(self, f"lig_conv_{l}", conv(l))
@@ -115,8 +129,10 @@ class LigPhoreEncoder(nn.Module):
             complex-major.  The phore-side tensors and the whole layer-0
             phore conv depend only on (phore, sigma), so they are computed
             on one representative row per complex and repeated: exact, not
-            an approximation.  Ignored (1) when B is not divisible, and in
-            training mode (dropout and batch statistics differ per row).
+            an approximation.  Ignored (1) when B is not divisible, in
+            training mode (dropout and batch statistics differ per row) and
+            with ``use_att`` (the attention mixes the pose into the phore
+            features).
         Returns:
           (lig_node_attr (B, A, D_out), phore_node_attr (B, P, D_phore)).
         """
@@ -125,7 +141,7 @@ class LigPhoreEncoder(nn.Module):
         P = batch.phore_pos.shape[1]
         lig_mask, phore_mask = batch.lig_mask, batch.phore_mask
         pg = int(pose_group) if pose_group else 1
-        if pg > 1 and (B % pg or self.training):
+        if pg > 1 and (B % pg or self.training or cfg.use_att):
             pg = 1
 
         def rep_b(x):
@@ -175,8 +191,17 @@ class LigPhoreEncoder(nn.Module):
         phore_edge_sh = rep_b(phore_edge_sh_c)
         p_pair_mask = rep_b(p_pair_mask_c)
 
+        # ---------------- geometric attention: Trioformer-updated node
+        # features and the pair embedding of the cross edges
+        z_ij = None
+        if cfg.use_att:
+            lig_node_attr, phore_node_attr, z_ij = self.geometric_attention(
+                lig_node_attr, phore_node_attr, batch.lig_pos, batch.phore_pos,
+                lig_mask, phore_mask)
+
         # ---------------- knowledge-guided cross graph on (A, P)
-        cross_attr, cross_sh, cross_norm_sh, cross_mask = self._cross_graph(batch, node_sigma)
+        cross_attr, cross_sh, cross_norm_sh, cross_mask = self._cross_graph(
+            batch, node_sigma, z_ij)
         cross_sh_T = cross_sh.transpose(1, 2).contiguous()
         cross_norm_sh_T = cross_norm_sh.transpose(1, 2).contiguous()
         cross_mask_T = cross_mask.transpose(1, 2).contiguous()
@@ -258,9 +283,11 @@ class LigPhoreEncoder(nn.Module):
             clashed = dis_min[..., None] <= cut  # (B, A, K)
         return self.boarder_embedding(clashed.long(), dis_min[..., None])
 
-    def _cross_graph(self, batch, node_sigma: torch.Tensor):
+    def _cross_graph(self, batch, node_sigma: torch.Tensor, z_ij=None):
         """The knowledge-guided (A, P) bipartite grid: edge attrs, edge
-        harmonics, norm-alignment harmonics and the mask."""
+        harmonics, norm-alignment harmonics and the mask.  ``z_ij`` (B, A, P,
+        ns), the geometric attention's pair embedding, joins the attributes
+        and scales the edge vectors."""
         cfg = self.cfg
         B, A = batch.lig_pos.shape[:2]
         P = batch.phore_pos.shape[1]
@@ -314,6 +341,10 @@ class LigPhoreEncoder(nn.Module):
 
                 if cfg.use_phore_match_feat:
                     edge_attr = torch.cat([edge_attr, phoretype_attr], -1)
+
+            if z_ij is not None:
+                edge_attr = torch.cat([edge_attr, z_ij], -1)
+                edge_vec = edge_vec * leaky_relu(self.mlp_att(z_ij))
 
             if cfg.angle_match:
                 # ligand norm selected by type agreement (B, A, P, 3)

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..ops import tp_aggregate, tp_fused, tp_scalar
 from ..ops.irreps import parse
-from ..ops.tensor_product import channelwise_tp
+from ..ops.tensor_product import channelwise_tp, fully_connected_tp
 
 
 class GaussianSmearing(nn.Module):
@@ -241,8 +241,9 @@ def set_compute_dtype(model: nn.Module, compute_dtype: str) -> None:
 
 
 class DenseTPConv(nn.Module):
-    """Channelwise tensor-product message passing over a dense (receiver,
-    sender) grid with a masked mean over senders.
+    """Tensor-product message passing over a dense (receiver, sender) grid
+    with a masked mean over senders; ``tp_mode`` "channelwise" (the shipped
+    configs) or "fully_connected".
 
     Eval mode: the edge MLP and the sum over senders are one call of K1
     (:func:`diffphore_torch.ops.tp_fused.tp_aggregate_fused`), which has no
@@ -268,28 +269,42 @@ class DenseTPConv(nn.Module):
     the aggregate multiplies them with bf16-rounded coupling tensors and sums
     in f32; everything from the sum over senders on is f32.  With
     ``"float32"`` (or None) all arithmetic is f32.  Parameters stay f32.
+
+    ``tp_mode="fully_connected"``: the edge MLP is a submodule ``fc`` (the
+    JAX package's name) that gives each edge a weight per (input channel,
+    output channel) pair of every path, in the compute dtype as above, and
+    :meth:`FullyConnectedTP.aggregate` sums the product over senders in
+    plain PyTorch on any device, in eval and training mode alike: no kernel
+    runs, in the JAX package or here, and there is no mix.
     """
 
     def __init__(self, in_irreps: str, out_irreps: str, sh_irreps: str = "1x0e + 1x1o + 1x2e",
                  n_edge_features: int = 48, hidden_features: Optional[int] = None,
                  batch_norm: bool = True, dropout: float = 0.0,
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None, tp_mode: str = "channelwise"):
         super().__init__()
         self.compute_dtype = getattr(torch, compute_dtype or "float32")
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
-        self.tp = channelwise_tp(in_irreps, sh_irreps, out_irreps)
+        if tp_mode not in ("channelwise", "fully_connected"):
+            raise ValueError(f"tp_mode {tp_mode!r}: channelwise or fully_connected")
+        self.channelwise = tp_mode == "channelwise"
         hidden = hidden_features or n_edge_features
-        F = self.tp.weight_numel
-        self.fc_w1 = nn.Parameter(torch.zeros(n_edge_features, hidden))
-        self.fc_b1 = nn.Parameter(torch.zeros(hidden))
-        self.fc_w2 = nn.Parameter(torch.zeros(hidden, F))
-        self.fc_b2 = nn.Parameter(torch.zeros(F))
-        for k, fan_in, mul_out in self.tp.mix_specs:
-            if any(p.i_out == k for p in self.tp.paths):
-                setattr(self, f"mix_{k}", nn.Parameter(torch.zeros(fan_in, mul_out)))
+        if self.channelwise:
+            self.tp = channelwise_tp(in_irreps, sh_irreps, out_irreps)
+            F = self.tp.weight_numel
+            self.fc_w1 = nn.Parameter(torch.zeros(n_edge_features, hidden))
+            self.fc_b1 = nn.Parameter(torch.zeros(hidden))
+            self.fc_w2 = nn.Parameter(torch.zeros(hidden, F))
+            self.fc_b2 = nn.Parameter(torch.zeros(F))
+            for k, fan_in, mul_out in self.tp.mix_specs:
+                if any(p.i_out == k for p in self.tp.paths):
+                    setattr(self, f"mix_{k}", nn.Parameter(torch.zeros(fan_in, mul_out)))
+            self.drop = Dropout(dropout)
+        else:
+            self.tp = fully_connected_tp(in_irreps, sh_irreps, out_irreps)
+            self.fc = MLP(n_edge_features, hidden, self.tp.weight_numel, dropout=dropout)
         self.bn = EquivariantBatchNorm(out_irreps) if batch_norm else None
-        self.drop = Dropout(dropout)
         self.use_kernel = True
 
     def forward(
@@ -311,6 +326,20 @@ class DenseTPConv(nn.Module):
 
         cdt = self.compute_dtype
         x, sh = sender_feat.to(cdt).contiguous(), edge_sh.to(cdt).contiguous()
+        if not self.channelwise:
+            # Peak bytes at the widest call, a cross-graph conv of the last
+            # layer in a 40-pose dispatch at 24 x 96 (92,160 edges, 2,200
+            # weights each): the (B, N, M, F) weights, 0.41 GB in bf16, up to
+            # three times while the edge MLP's output is biased and masked,
+            # plus one path's f32 slice of them (0.15 GB) and its f32 product
+            # of harmonics and senders (22 MB).  At f32 the sum over senders
+            # folds into a matmul; at bf16 the messages the JAX package rounds
+            # per edge exist, 18 MB in bf16 for all paths.
+            fc = self.fc
+            w = tp_fused.edge_weights(attrs, masks, fc.Dense_0.weight.t(), fc.Dense_0.bias,
+                                      fc.Dense_1.weight.t(), fc.Dense_1.bias, cdt, fc.drop)
+            out = self.tp.aggregate(x, sh, w) / denom[..., None]
+            return out if self.bn is None else self.bn(out, receiver_mask)
         if self.training:
             w = tp_fused.edge_weights(attrs, masks, self.fc_w1, self.fc_b1, self.fc_w2,
                                       self.fc_b2, cdt, self.drop)

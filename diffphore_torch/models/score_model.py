@@ -65,6 +65,9 @@ class ScoreModelConfig:
     # the convs' edge MLP and aggregate operands: "bfloat16" (every shipped
     # config) or "float32"
     compute_dtype: str = "bfloat16"
+    # "channelwise" (every shipped config: uvu weights per edge, a static
+    # mix, the kernels) or "fully_connected" (uvw weights per edge, plain
+    # PyTorch)
     tp_mode: str = "channelwise"
     use_pallas_fused: bool = False
     phore_knn: int = 0
@@ -111,7 +114,7 @@ class ScoreModel(nn.Module):
         self.center_edge_embedding = MLP(dd + sd, ns, ns, dropout=cfg.dropout)
         self.final_conv = DenseTPConv(lig_irreps, "2x1o + 2x1e", n_edge_features=2 * ns,
                                       batch_norm=bn, dropout=cfg.dropout,
-                                      compute_dtype=cfg.compute_dtype)
+                                      compute_dtype=cfg.compute_dtype, tp_mode=cfg.tp_mode)
         self.head_drop = Dropout(cfg.dropout)
         for name in ("tr_final_layer", "rot_final_layer"):
             setattr(self, f"{name}_dense1", nn.Linear(1 + sd, ns))
@@ -124,7 +127,8 @@ class ScoreModel(nn.Module):
                                              sh_irreps=repr(tor_sh_irreps),
                                              n_edge_features=3 * ns, batch_norm=bn,
                                              dropout=cfg.dropout,
-                                             compute_dtype=cfg.compute_dtype)
+                                             compute_dtype=cfg.compute_dtype,
+                                             tp_mode=cfg.tp_mode)
             self.tor_final_dense1 = nn.Linear(2 * ns, ns, bias=False)
             self.tor_final_dense2 = nn.Linear(ns, 1, bias=False)
 

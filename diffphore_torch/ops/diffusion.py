@@ -3,10 +3,17 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 
 import numpy as np
 import torch
+
+#: the raw normal draws of the JAX package's Fourier projections (row h - 1:
+#: half-width h), written by analysis/write_fourier_table.py
+FOURIER_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "fourier_projection.npz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +65,33 @@ def sinusoidal_embedding(t: torch.Tensor, embedding_dim: int,
     return emb
 
 
+@functools.lru_cache(maxsize=None)
+def fourier_draws(half: int) -> np.ndarray:
+    """The JAX package's ``jax.random.normal(PRNGKey(0), (half,))``, read
+    from :data:`FOURIER_TABLE`; raises for a half-width the table lacks."""
+    with np.load(FOURIER_TABLE) as z:
+        table = z["normal"]
+    if not 1 <= half <= table.shape[0]:
+        raise ValueError(f"Fourier embedding half-width {half}: the table holds 1 to "
+                         f"{table.shape[0]}")
+    return table[half - 1, :half].copy()
+
+
+def gaussian_fourier_embedding(t: torch.Tensor, embedding_dim: int,
+                               scale: float = 1.0) -> torch.Tensor:
+    """Gaussian Fourier embedding: [sin, cos] of 2 pi t W with a frozen
+    projection W ~ N(0, scale^2) of embedding_dim // 2 entries, the JAX
+    package's draws."""
+    w = torch.as_tensor(fourier_draws(embedding_dim // 2), device=t.device) * scale
+    proj = t[..., None].to(torch.float32) * w * (2.0 * math.pi)
+    return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
+
+
 def timestep_embedding(embedding_type: str, embedding_dim: int, embedding_scale: float = 10000):
-    """Only 'sinusoidal' is ported: the JAX package's 'fourier' embedding
-    draws its frozen projection from jax.random, whose bits the port cannot
-    reproduce."""
+    """'sinusoidal' (of embedding_scale * t) or 'fourier' (projections of
+    scale embedding_scale)."""
     if embedding_type == "sinusoidal":
         return lambda t: sinusoidal_embedding(embedding_scale * t, embedding_dim)
+    if embedding_type == "fourier":
+        return lambda t: gaussian_fourier_embedding(t, embedding_dim, embedding_scale)
     raise NotImplementedError(embedding_type)

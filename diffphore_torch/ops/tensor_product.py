@@ -1,12 +1,15 @@
-"""Channelwise tensor products of irreps features.
+"""Weighted tensor products of irreps features, channelwise and fully
+connected.
 
 The path tables are static numpy/Python metadata, identical to the JAX
 package's; the contractions are torch.  A channelwise ("uvu") product has
 one edge weight per input channel per path and a static per-irrep linear
-mix to the output multiplicities, applied after the sum over senders.
-
-Normalization: each path is scaled by sqrt(2*l_out + 1) (component
-normalization); the 1/sqrt(fan_in) factor lives in the mix weights.
+mix to the output multiplicities, applied after the sum over senders; each
+path is scaled by sqrt(2*l_out + 1) (component normalization) and the
+1/sqrt(fan_in) factor lives in the mix weights.  A fully connected ("uvw")
+product has a weight per (input channel, output channel) pair per path and
+scales each path by sqrt(2*l_out + 1) / sqrt(fan_in), fan_in the input
+channels of all paths into the same output irrep.
 """
 
 from __future__ import annotations
@@ -38,6 +41,112 @@ class _Path:
 
 def _cg(l1: int, l2: int, l3: int, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(wigner_3j(l1, l2, l3), dtype=like.dtype, device=like.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class FullyConnectedTP:
+    """Static path table of a fully connected tensor product; harmonics of
+    multiplicity 1."""
+
+    irreps_in: Irreps
+    irreps_sh: Irreps
+    irreps_out: Irreps
+    paths: Tuple[_Path, ...]
+    weight_numel: int
+
+    def aggregate(self, x: torch.Tensor, sh: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+        """The tensor product of each edge summed over senders:
+
+            out[b, n, v, k] = sum_m sum_p alpha_p sum_{u, i, j}
+                x[b, m, u, i] sh[b, n, m, j] C_p[i, j, k] w[b, n, m, u, v]
+
+        Args:
+          x: (B, M, dim_in) sender features.
+          sh: (B, N, M, sh_dim); weights: (B, N, M, weight_numel), pre-masked.
+        Returns:
+          (B, N, irreps_out.dim) f32; irreps no path feeds are zero.
+
+        Per path the harmonics meet the sender features first, (B, N, M, u,
+        2 l_out + 1) in f32.  f32 operands: one batched matmul per receiver
+        contracts that with the weights over (sender, input channel), so the
+        sum over senders folds into the matmul and no per-edge message
+        exists.  bf16 operands (the coupling tensors rounded to bf16 too):
+        the JAX package's bf16 product rounds each path's message of each
+        edge to bf16, multiplies it by alpha in bf16 and sums the paths in
+        bf16 before the f32 sum over senders, so the messages are formed per
+        edge (a matmul per edge over the input channels) and rounded there;
+        they cannot be folded without changing the result.
+        """
+        cg_dtype = x.dtype
+        per_edge = x.dtype == torch.bfloat16
+        x, sh = x.float(), sh.float()
+        B, N, M = sh.shape[:3]
+        in_slices, sh_slices = self.irreps_in.slices(), self.irreps_sh.slices()
+        blocks: List[Optional[torch.Tensor]] = [None] * len(self.irreps_out)
+        for p in self.paths:
+            d3 = 2 * p.l_out + 1
+            xb = x[..., in_slices[p.i_in]].reshape(B, M, p.mul_in, 2 * p.l_in + 1)
+            cg = torch.as_tensor(wigner_3j(p.l_in, p.l_sh, p.l_out), dtype=cg_dtype,
+                                 device=x.device).float()
+            z = torch.einsum("bmui,ijk->bmujk", xb, cg)
+            wb = weights[..., p.w_slice[0]:p.w_slice[1]].float()
+            if per_edge:
+                y = torch.einsum("bnmj,bmujk->bnmku", sh[..., sh_slices[p.i_sh]], z)
+                msg = torch.bmm(y.reshape(B * N * M, d3, p.mul_in),
+                                wb.reshape(B * N * M, p.mul_in, p.mul_out))
+                alpha = torch.tensor(p.alpha, dtype=torch.bfloat16, device=x.device)
+                contrib = (msg.to(torch.bfloat16) * alpha).reshape(B, N, M, d3, p.mul_out)
+            else:
+                y = torch.einsum("bnmj,bmujk->bnkmu", sh[..., sh_slices[p.i_sh]], z)
+                msg = torch.bmm(y.reshape(B * N, d3, M * p.mul_in),
+                                wb.reshape(B * N, M * p.mul_in, p.mul_out))
+                contrib = p.alpha * msg.reshape(B, N, d3, p.mul_out)
+            prev = blocks[p.i_out]
+            blocks[p.i_out] = contrib if prev is None else prev + contrib
+        parts = []
+        for k, (mul, ir) in enumerate(self.irreps_out):
+            block = blocks[k]
+            if block is None:
+                parts.append(torch.zeros((B, N, mul * ir.dim), dtype=torch.float32,
+                                         device=x.device))
+                continue
+            if per_edge:
+                block = block.float().sum(dim=2)                       # over senders
+            parts.append(block.transpose(-1, -2).reshape(B, N, mul * ir.dim))
+        return torch.cat(parts, dim=-1)
+
+
+def _raw_paths(irr_in: Irreps, irr_sh: Irreps, irr_out: Irreps):
+    """Every (in, sh, out) irrep triple the selection rule allows, in the JAX
+    package's order, and the input channels into each output irrep."""
+    raw_paths: List[List] = []
+    fan_in = [0] * len(irr_out)
+    for i, (mul_in, ir_in) in enumerate(irr_in):
+        for j, (mul_sh, ir_sh) in enumerate(irr_sh):
+            if mul_sh != 1:
+                raise ValueError("sh inputs must be multiplicity-1")
+            for k, (mul_out, ir_out) in enumerate(irr_out):
+                if ir_out in ir_in * ir_sh:
+                    raw_paths.append([i, j, k, mul_in, mul_out, ir_in.l, ir_sh.l, ir_out.l])
+                    fan_in[k] += mul_in
+    return raw_paths, fan_in
+
+
+@functools.lru_cache(maxsize=None)
+def fully_connected_tp(irreps_in: str, irreps_sh: str, irreps_out: str) -> FullyConnectedTP:
+    """Build (and cache) the fully connected path table."""
+    irr_in, irr_sh, irr_out = parse(str(irreps_in)), parse(str(irreps_sh)), parse(str(irreps_out))
+    raw_paths, fan_in = _raw_paths(irr_in, irr_sh, irr_out)
+    paths: List[_Path] = []
+    offset = 0
+    for i, j, k, mul_in, mul_out, l_in, l_sh, l_out in raw_paths:
+        n = mul_in * mul_out
+        alpha = math.sqrt(2 * l_out + 1) / math.sqrt(max(fan_in[k], 1))
+        paths.append(_Path(i, j, k, mul_in, mul_out, l_in, l_sh, l_out,
+                           (offset, offset + n), alpha))
+        offset += n
+    return FullyConnectedTP(irr_in, irr_sh, irr_out, tuple(paths), offset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,16 +197,7 @@ class ChannelwiseTP:
 def channelwise_tp(irreps_in: str, irreps_sh: str, irreps_out: str) -> ChannelwiseTP:
     """Build (and cache) the channel-wise path table."""
     irr_in, irr_sh, irr_out = parse(str(irreps_in)), parse(str(irreps_sh)), parse(str(irreps_out))
-    raw_paths: List[List] = []
-    fan_in = [0] * len(irr_out)
-    for i, (mul_in, ir_in) in enumerate(irr_in):
-        for j, (mul_sh, ir_sh) in enumerate(irr_sh):
-            if mul_sh != 1:
-                raise ValueError("sh inputs must be multiplicity-1")
-            for k, (mul_out, ir_out) in enumerate(irr_out):
-                if ir_out in ir_in * ir_sh:
-                    raw_paths.append([i, j, k, mul_in, mul_out, ir_in.l, ir_sh.l, ir_out.l])
-                    fan_in[k] += mul_in
+    raw_paths, fan_in = _raw_paths(irr_in, irr_sh, irr_out)
     paths: List[_Path] = []
     offset = 0
     for i, j, k, mul_in, mul_out, l_in, l_sh, l_out in raw_paths:

@@ -5,10 +5,11 @@ A model directory holds ``model_parameters.yml`` and flax msgpack files of
 tree onto the port's ``state_dict``: module paths are the same (the port's
 attribute names mirror the flax scopes), flax ``Dense.kernel`` (in, out) is
 transposed to ``Linear.weight`` (out, in), ``Embed.embedding`` becomes
-``Embedding.weight``, and raw parameter matrices (``fc_w1``, ``mix_k``, batch
-norm ``weight``/``bias``) and batch statistics (``mean``/``var``, buffers)
-map as they are.  :func:`variables_from_tensors` is the inverse, so a run
-directory the port writes (``model_parameters.yml`` + ``last_model.msgpack``
+``Embedding.weight`` and a ``LayerNorm``'s ``scale`` its ``weight``, and
+raw parameter matrices (``fc_w1``, ``mix_k``, batch norm ``weight``/``bias``)
+and batch statistics (``mean``/``var``, buffers) map as they are.
+:func:`variables_from_tensors` is the inverse, so a run directory the port
+writes (``model_parameters.yml`` + ``last_model.msgpack``
 holding ``step``, ``params``, ``batch_stats``, ``ema_params`` and the
 optimizer moments) loads with :func:`load_model_dir`, here and in the JAX
 package's tree layout.
@@ -19,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..models.confidence import ConfidenceModel
 from ..models.score_model import ScoreModel, ScoreModelConfig
+from ..models.trioformer import TankPhore
 from . import flat_yaml, flax_msgpack
 
 LAST_MODEL = "last_model.msgpack"
@@ -34,26 +36,44 @@ BEST_EMA_MODEL = "best_ema_inference_epoch_model.msgpack"
 MODEL_PARAMS_YAML = "model_parameters.yml"
 
 
-def migrate_fc_params(node: Any) -> Any:
+def migrate_fc_params(node: Any, expects: Optional[Callable[[Tuple[str, ...]], bool]] = None,
+                      path: Tuple[str, ...] = ()) -> Any:
     """Rename the older checkpoint format's nested ``fc`` edge MLP
-    (Dense_0/Dense_1) of the channelwise convs to ``fc_w1/fc_b1/fc_w2/fc_b2``."""
+    (Dense_0/Dense_1) of the channelwise convs to ``fc_w1/fc_b1/fc_w2/fc_b2``.
+    ``expects(path)`` says whether the module at ``path`` holds ``fc_w1``;
+    an ``fc`` elsewhere (the edge MLP of a fully connected conv) keeps its
+    name.  Without it every such ``fc`` is renamed."""
     if not isinstance(node, dict):
         return node
     out = {}
     for k, v in node.items():
-        if k == "fc" and isinstance(v, dict) and "Dense_0" in v and "fc_w1" not in node:
+        if (k == "fc" and isinstance(v, dict) and "Dense_0" in v and "fc_w1" not in node
+                and (expects is None or expects(path))):
             out["fc_w1"] = v["Dense_0"].get("kernel")
             out["fc_b1"] = v["Dense_0"].get("bias")
             out["fc_w2"] = v["Dense_1"].get("kernel")
             out["fc_b2"] = v["Dense_1"].get("bias")
         else:
-            out[k] = migrate_fc_params(v)
+            out[k] = migrate_fc_params(v, expects, path + (str(k),))
     return out
 
 
-def convert_variables(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
-    """flax ``{"params", "batch_stats"}`` tree of numpy leaves -> state_dict."""
-    variables = migrate_fc_params(variables)
+def convert_variables(variables: Dict[str, Any], model: Optional[torch.nn.Module] = None
+                      ) -> "OrderedDict[str, torch.Tensor]":
+    """flax ``{"params", "batch_stats"}`` tree of numpy leaves -> state_dict.
+
+    Given the ``model`` the tree is for, the older format's ``fc`` edge MLPs
+    are renamed only in the convs that hold ``fc_w1`` (see
+    :func:`migrate_fc_params`); a flax norm's ``scale`` becomes ``weight``.
+    """
+    expects = None
+    if model is not None:
+        names = {name for name, _ in model.named_parameters()}
+        expects = lambda path: ".".join(path + ("fc_w1",)) in names
+    for collection in ("params", "batch_stats"):
+        if collection in variables:
+            variables = {**variables,
+                         collection: migrate_fc_params(variables[collection], expects)}
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for collection in ("params", "batch_stats"):
         for path, leaf in flax_msgpack.flatten(variables.get(collection, {})):
@@ -61,7 +81,7 @@ def convert_variables(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tens
             *mods, name = path
             if name == "kernel":
                 name, arr = "weight", arr.T
-            elif name == "embedding":
+            elif name in ("embedding", "scale"):
                 name = "weight"
             key = ".".join(mods + [name])
             if key in out:
@@ -75,15 +95,19 @@ def load_config_yaml(model_dir: str) -> ScoreModelConfig:
         flat_yaml.load(os.path.join(model_dir, MODEL_PARAMS_YAML)))
 
 
-def _load_dir(model_dir: str, make_model, device, checkpoint: str, use_ema: bool):
+def _load_weights(model: torch.nn.Module, model_dir: str, device, checkpoint: str,
+                  use_ema: bool) -> torch.nn.Module:
     dev = resolve_device(device)
-    cfg = load_config_yaml(model_dir)
-    model = make_model(cfg)
     variables = flax_msgpack.load(os.path.join(model_dir, checkpoint))
     if use_ema:
         variables = {**variables, "params": variables["ema_params"]}
-    model.load_state_dict(convert_variables(variables), strict=True)
-    return cfg, model.to(dev).eval()
+    model.load_state_dict(convert_variables(variables, model), strict=True)
+    return model.to(dev).eval()
+
+
+def _load_dir(model_dir: str, make_model, device, checkpoint: str, use_ema: bool):
+    cfg = load_config_yaml(model_dir)
+    return cfg, _load_weights(make_model(cfg), model_dir, device, checkpoint, use_ema)
 
 
 def load_model_dir(model_dir: str, *, device: Optional[str] = None,
@@ -104,6 +128,16 @@ def load_confidence_dir(model_dir: str, *, device: Optional[str] = None,
     score model's.  The training settings ``model_parameters.yml`` also
     holds (``mode``, ``confidence_label``, ``by_total``, ...) are ignored."""
     return _load_dir(model_dir, ConfidenceModel, device, checkpoint, use_ema)
+
+
+def load_tank_dir(run_dir: str, *, device: Optional[str] = None,
+                  checkpoint: str = BEST_EMA_MODEL, use_ema: bool = False
+                  ) -> Tuple[Dict, TankPhore]:
+    """The settings and the eval-mode ``TankPhore`` of a ``--model_type
+    tank`` run directory, as :func:`load_model_dir` reads a score model's."""
+    settings = flat_yaml.load(os.path.join(run_dir, MODEL_PARAMS_YAML))
+    model = TankPhore(settings["tank_hidden_dim"], settings["tank_blocks"])
+    return settings, _load_weights(model, run_dir, device, checkpoint, use_ema)
 
 
 def save_config_yaml(cfg: ScoreModelConfig, model_dir: str, extra: Optional[Dict] = None) -> str:
@@ -134,6 +168,8 @@ def variables_from_tensors(model: torch.nn.Module, tensors: Dict[str, torch.Tens
             name, arr = "kernel", arr.T
         elif kind is torch.nn.Embedding:
             name = "embedding"
+        elif kind is torch.nn.LayerNorm and name == "weight":
+            name = "scale"
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
@@ -184,8 +220,8 @@ def load_train_state(state, path: str, weights_only: bool = False):
     as the JAX package ships, loads that way."""
     raw = flax_msgpack.load(path)
     model, dev = state.model, state.device
-    model.load_state_dict(convert_variables(raw), strict=True)
-    ema = convert_variables({"params": raw.get("ema_params") or raw["params"]})
+    model.load_state_dict(convert_variables(raw, model), strict=True)
+    ema = convert_variables({"params": raw.get("ema_params") or raw["params"]}, model)
     for name in state.ema_params:
         state.ema_params[name] = ema[name].to(dev)
     if weights_only:
@@ -194,8 +230,8 @@ def load_train_state(state, path: str, weights_only: bool = False):
         raise ValueError(f"`{path}` holds no optimizer state of the port: it cannot be resumed "
                          f"from (use it as --pretrain_model_pt)")
     state.step = int(raw["step"])
-    mu = convert_variables({"params": raw["opt_state"]["mu"]})
-    nu = convert_variables({"params": raw["opt_state"]["nu"]})
+    mu = convert_variables({"params": raw["opt_state"]["mu"]}, model)
+    nu = convert_variables({"params": raw["opt_state"]["nu"]}, model)
     for name, p in model.named_parameters():
         if name in mu:
             state.optimizer.state[p] = {

@@ -153,8 +153,12 @@ def test_diffusion_schedule_and_embedding():
     emb_t = tdiff.timestep_embedding("sinusoidal", 20, 10000)(T(t))
     emb_j = jdiff.timestep_embedding("sinusoidal", 20, 10000)(jnp.asarray(t))
     assert_close(emb_t, emb_j, 1e-4, "sinusoidal embedding")
-    with pytest.raises(NotImplementedError):
-        tdiff.timestep_embedding("fourier", 20)
+    # the Fourier embedding reads the JAX package's frozen projection from
+    # the port's table; at the default scale its arguments reach 1e5
+    for scale in (1.0, 10000.0):
+        emb_t = tdiff.timestep_embedding("fourier", 20, scale)(T(t))
+        emb_j = jdiff.timestep_embedding("fourier", 20, scale)(jnp.asarray(t))
+        assert_close(emb_t, emb_j, 1e-5, f"fourier embedding, scale {scale}")
 
 
 def test_score_norm_tables_equal():

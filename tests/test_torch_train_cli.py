@@ -163,7 +163,7 @@ def test_pretrain_from_the_jax_checkpoint(cache_path, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model_type", "tank"], "variants slice"),
+    (["--use_second_order_repr", "true"], "next slice"),
 ])
 def test_unported_flags_raise(cache_path, tmp_path, flags, match):
     base = ["--cache_path", cache_path, "--run_dir", str(tmp_path / "r"), "--n_epochs", "1",

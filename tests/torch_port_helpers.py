@@ -103,8 +103,8 @@ def confidence_pair(run_dir: str, compute_dtype: str = "float32"):
 
 def port_model(tcfg, variables, kind=TScoreModel):
     model = kind(tcfg)
-    model.load_state_dict(convert_variables(jax.tree_util.tree_map(np.asarray, dict(variables))),
-                          strict=True)
+    model.load_state_dict(convert_variables(jax.tree_util.tree_map(np.asarray, dict(variables)),
+                                            model), strict=True)
     return model.eval()
 
 
@@ -253,10 +253,11 @@ def train_step_draws(key, B: int, T: int, reject: bool = False):
     return noise_draws(k_noise, B, T, reject)
 
 
-def port_leaves(tree) -> dict:
+def port_leaves(tree, model=None) -> dict:
     """A flax params (or gradient, or EMA) tree as {port parameter name:
-    tensor}, in the port's orientation."""
-    return convert_variables({"params": jax.tree_util.tree_map(np.asarray, dict(tree))})
+    tensor}, in the port's orientation; pass the port ``model`` for a tree
+    of fully connected convs (see ``convert_variables``)."""
+    return convert_variables({"params": jax.tree_util.tree_map(np.asarray, dict(tree))}, model)
 
 
 def port_train_state(jstate, tcfg, lr: float = 1e-3, weight_decay: float = 0.0):
