@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``diffphore_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase
+    python3 chip_smoke.py --second_order_only   # phases 1, 2 and 16 (~2 min)
 
 Phases, each fatal on failure:
   1. card: require CUDA; print the card's name and power limit; full-f32
@@ -148,9 +149,25 @@ Phases, each fatal on failure:
      score driving the reverse SDE on the card for 4 complexes x 8 poses:
      the poses recovered, and the same chain on the CPU. The tank, fully
      connected and oracle paths launch no kernel.
+  16. l = 2 features (``use_second_order_repr``, run before the report):
+     ``runs/second_order_probe`` (corpus2's width, written by the JAX package
+     with analysis/write_second_order_probe.py) through ``load_model_dir``,
+     its kernel-path f32 forward held against its JAX reference at TOL_F32 of
+     max|JAX| (and of max(max|JAX|, 1), the reference tests' scale) and
+     against the plain convs on the card at TOL_F32 of scale;
+     K1's 8-lane kernel held as in 3 on the 23 conv calls of one 40-pose
+     forward, and K2's and K3's as in 5 on the 17 + 6 training convs; a
+     train step, kernels against plain convs from fresh weights (the loss,
+     and the gradient as one vector: at bf16 as in 6, at f32 within
+     TOL_STEP_GRAD of its norm), its wall, busy time and peak memory; ``FitEngine``
+     serving the probe on phase 4's 8 complexes x 40 x 20 (K1 exactly 460
+     a dispatch, poses/s); ``cli.train.main --use_second_order_repr true``
+     (bf16, corpus2 width) for two steps of 24 and a validation batch (K2
+     17 x 3 and K3 6 x 3 a step, K1 23, exactly; the checkpoint reloads).
+     The 4-lane kernels launch no time there.
   14. report: the kernels' JSON line (each kernel's launches per path, and
-     its errors and times at the recipe's bucket), the card line, and the
-     result line.
+     its errors and times at the recipe's bucket; the 8-lane kernels' as
+     ``*_l2`` entries), the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -158,6 +175,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import glob
 import json
@@ -262,10 +280,11 @@ CC_SHARE_BAND = 0.13
 # of 40 poses spreads by a few hundredths between noise draws.
 TOL_CANDIDATE_MEDIAN = 0.1
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and f32 (non
-# tensor-core) operations/s.
+# H100 SXM peaks (NVIDIA data sheet, 700 W, dense): HBM bytes/s, f32 (non
+# tensor-core) operations/s and bf16 tensor-core operations/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 SMS = 132                   # streaming multiprocessors of an H100
 
 
@@ -315,10 +334,19 @@ def device_ms(fn, iters: int, replays: int = 3) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def out_lanes(tp):
+    """Floats of one receiver's result that the function defines: each
+    path's 2 l_out + 1 components for each of its channels (the kernels'
+    padding lanes not counted)."""
+    return sum(p.mul_in * (2 * p.l_out + 1) for p in tp.paths)
+
+
 def k1_work(tp, x, sh, attrs, masks, w1, w2):
-    """(bytes, f32 operations) the fused function needs on these inputs:
-    each input read once and the output written once; the edge MLP and the
-    tensor product counted on edges with a mask set."""
+    """(bytes, matrix-product operations, other operations) the fused
+    function needs on these inputs: each input read once and the output's
+    defined lanes written once; the edge MLP's two products (bf16 tensor-core
+    work where the operands are bf16), then its bias, relu and mask terms and
+    the tensor product (vector work), counted on edges with a mask set."""
     import numpy as np
 
     B, N, M, S = sh.shape
@@ -327,7 +355,7 @@ def k1_work(tp, x, sh, attrs, masks, w1, w2):
     nbytes = (x.numel() * x.element_size() + sh.numel() * sh.element_size()
               + sum(a.numel() * a.element_size() for a in attrs)
               + sum(m.numel() * m.element_size() for m in masks)
-              + 4 * (E * H + H + H * F + F) + 4 * B * N * F * 4)
+              + 4 * (E * H + H + H * F + F) + 4 * B * N * out_lanes(tp))
     live_c = sum(int((m != 0).sum()) for m in masks)
     any_mask = masks[0] != 0
     for m in masks[1:]:
@@ -339,9 +367,9 @@ def k1_work(tp, x, sh, attrs, masks, w1, w2):
         d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
         tp_ops += p.mul_in * 2 * (d2 * d3 + d3)
         node_ops += p.mul_in * 2 * d1 * d2 * d3
-    ops = (live_c * (2 * E * H + 3 * H) + live * (2 * H * F + 2 * F + tp_ops)
-           + B * M * node_ops)
-    return nbytes, float(np.float64(ops))
+    mm_ops = live_c * 2 * E * H + live * 2 * H * F
+    vec_ops = live_c * 3 * H + live * (2 * F + tp_ops) + B * M * node_ops
+    return nbytes, float(np.float64(mm_ops)), float(np.float64(vec_ops))
 
 
 def posed_rows(one, n, cfg, gen):
@@ -489,13 +517,20 @@ def phase_kernel_check(model, batch, tp_fused):
             call_ms = cuda_ms(call, 20)
             plain_ms = cuda_ms(
                 lambda: tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params), 5)
-        nbytes, ops = k1_work(tp, x, sh, attrs, masks, params[0], params[2])
+        nbytes, mm_ops, vec_ops = k1_work(tp, x, sh, attrs, masks, params[0], params[2])
+        ops = mm_ops + vec_ops
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-        nbytes_bf, _ = k1_work(tp, low[0], low[1], low[2], masks, params[0], params[2])
-        bound_bf = max(nbytes_bf / PEAK_BYTES * 1e3, t_ops)
+        # bf16: the edge MLP's products at the tensor cores' rate, the rest at
+        # the vector rate, the two units working at once
+        nbytes_bf, _, _ = k1_work(tp, low[0], low[1], low[2], masks, params[0], params[2])
+        t_ops_bf = max(mm_ops / PEAK_BF16, vec_ops / PEAK_F32) * 1e3
+        bound_bf = max(nbytes_bf / PEAK_BYTES * 1e3, t_ops_bf)
         B, N, M, _ = sh.shape
-        per_block, splits = tp_fused.plan_senders(B, N, M)
-        blocks = B * -(-N // tp_fused.TILE_N) * splits
+        l2 = tp_fused.lanes(tp) == tp_fused.K_PAD_L2
+        tile_n, cap = ((tp_fused.TILE_N_L2, tp_fused.MAX_SENDERS_L2) if l2
+                       else (tp_fused.TILE_N, tp_fused.MAX_SENDERS))
+        per_block, splits = tp_fused.plan_senders(B, N, M, tile_n, cap)
+        blocks = B * -(-N // tile_n) * splits
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         if blocks < SMS and not ms <= 2 * floor_ms:
             raise AssertionError(f"{name}: grid of {blocks} blocks on {SMS} SMs and {ms} ms, over "
@@ -510,7 +545,7 @@ def phase_kernel_check(model, batch, tp_fused):
             "call_ms": call_ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
-            "bytes": nbytes, "f32_ops": ops,
+            "bytes": nbytes, "f32_ops": ops, "mlp_product_ops": mm_ops,
         })
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} C={len(attrs)} F={tp.weight_numel:3d} "
               f"grid {blocks:4d} blocks ({splits} x {per_block} senders) "
@@ -565,11 +600,10 @@ def k2_work(tp, x, sh, w, with_dsh):
     """{kernel: (bytes, f32 operations)} that K2's three kernels need on
     these inputs: each operand read once, each result written once (x, sh,
     w and their gradients at their element size, the output and the
-    upstream gradient f32); products with an edge weight counted on edges
-    whose weights are not all zero, dw on every edge (it is defined where w
-    is masked too)."""
+    upstream gradient f32, at their defined lanes: ``out_lanes``); products
+    with an edge weight counted on edges whose weights are not all zero, dw
+    on every edge (it is defined where w is masked too)."""
     B, N, M, S = sh.shape
-    F = tp.weight_numel
     edges = B * N * M
     live = int((w != 0).any(-1).sum())
     node = contract = dw_ops = dsh_ops = dx_ops = 0
@@ -580,7 +614,7 @@ def k2_work(tp, x, sh, w, with_dsh):
         dw_ops += p.mul_in * 2 * (d2 * d3 + d2)
         dsh_ops += p.mul_in * 2 * d2
         dx_ops += p.mul_in * 2 * (d1 * d2 + d1)
-    out_b = g_b = 4 * B * N * F * 4
+    out_b = g_b = 4 * B * N * out_lanes(tp)
     x_b, sh_b, w_b = (t.numel() * t.element_size() for t in (x, sh, w))
     dx_b, dsh_b, dw_b = x_b, sh_b, w_b               # gradients, written once
     return {
@@ -671,6 +705,7 @@ def phase_k2_check(calls):
     import torch
 
     from diffphore_torch.ops import tp_aggregate as k2
+    from diffphore_torch.ops.tp_fused import K_PAD_L2, lanes
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -678,7 +713,8 @@ def phase_k2_check(calls):
     for name, tp, x_cap, sh_cap, w_cap, sh_grad in calls:
         B, N, M, _ = sh_cap.shape
         F = tp.weight_numel
-        g = torch.randn((B, N, F, 4), generator=gen, device="cuda")
+        l2 = lanes(tp) == K_PAD_L2
+        g = torch.randn((B, N, F, lanes(tp)), generator=gen, device="cuda")
         case = {"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad}
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
@@ -715,6 +751,9 @@ def phase_k2_check(calls):
             case["library_ms" + tag] = k2_library_ms(tp, x, sh, w, g, sh_grad)
             case["grid" + tag] = {}
             for k, kept in (("fwd", N), ("bwd_x", M)):
+                if l2:      # the 8-lane kernels: a block per kept entry, no split
+                    case["grid" + tag][k] = (B * kept, 1)
+                    continue
                 splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device, dtype)
                 case["grid" + tag][k] = (B * -(-kept // k2.KEEP) * splits, splits)
             if dtype == torch.float32:
@@ -769,8 +808,17 @@ K2_DEVICE_KERNELS = {
 }
 
 
-def k2_kernel_entries(cases, launches):
-    """The report entries of K2's three kernels, summed over one step's convs."""
+# The 8-lane kernels (l = 2): one CUDA kernel a wrapper call.
+K2_DEVICE_KERNELS_L2 = {
+    "fwd": ["tp_aggregate_fwd_l2_kernel"],
+    "bwd_edge": ["tp_aggregate_bwd_edge_l2_kernel"],
+    "bwd_x": ["tp_aggregate_bwd_x_l2_kernel"],
+}
+
+
+def k2_kernel_entries(cases, launches, l2=False):
+    """The report entries of K2's three kernels, summed over one step's convs
+    (``l2``: the 8-lane kernels, names ending in ``_l2``)."""
     labels = {"fwd": ("out",), "bwd_edge": ("dw", "dsh"), "bwd_x": ("dx",)}
     entries = []
     for k, outputs in labels.items():
@@ -778,12 +826,12 @@ def k2_kernel_entries(cases, launches):
         for c in cases:
             by[c["bound"][k][1]] += c["bound"][k][0]
         entries.append({
-            "name": f"tp_aggregate_{k}",
-            "device_kernels": K2_DEVICE_KERNELS[k],
+            "name": f"tp_aggregate_{k}" + ("_l2" if l2 else ""),
+            "device_kernels": (K2_DEVICE_KERNELS_L2 if l2 else K2_DEVICE_KERNELS)[k],
             "route": "cuda",
             "source": "diffphore_torch/csrc/tp_aggregate.cu",
             "replaces": "diffphore_tpu/ops/pallas/tp_aggregate.py:88",
-            "launches": launches[k],
+            "launches": launches[k + ("_l2" if l2 else "")],
             "max_abs_err": max(c["errs"][o][0] for c in cases for o in outputs),
             "max_rel_err": max(c["errs"][o][0] / max(c["errs"][o][1], 1e-30)
                                for c in cases for o in outputs),
@@ -891,8 +939,7 @@ def k3_work(tp, x, sh, w, with_dsh):
     x_b = es * B * M * tp.irreps_in.dim
     sh_b, w_b = es * edges * sh_k, es * edges * tp.weight_numel
     gk = sum(p.mul_in * (2 * p.l_sh + 1) for p in tp.paths)
-    out_b = 4 * B * N * tp.weight_numel * 4          # the packed (B, N, F, 4) f32 output
-    g_b = 4 * B * N * gk                             # the lanes of g the paths read
+    out_b = g_b = 4 * B * N * gk     # the f32 output's and g's lanes that the paths define
     per_edge = sum(p.mul_in * (2 * (2 * p.l_sh + 1) + 1) for p in tp.paths)
     dsh_ops = sum(p.mul_in * 2 * (2 * p.l_sh + 1) for p in tp.paths)
     return {
@@ -911,6 +958,7 @@ def phase_k3_check(calls):
     import torch
 
     from diffphore_torch.ops import tp_scalar as k3
+    from diffphore_torch.ops.tp_fused import lanes as n_lanes
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
@@ -918,7 +966,7 @@ def phase_k3_check(calls):
     for name, tp, x_cap, sh_cap, w_cap, sh_grad in calls:
         B, N, M, _ = sh_cap.shape
         F = tp.weight_numel
-        g = torch.randn((B, N, F, 4), generator=gen, device="cuda")   # noise in the pad lanes
+        g = torch.randn((B, N, F, n_lanes(tp)), generator=gen, device="cuda")   # pad lanes: noise
         lanes = torch.zeros_like(g)
         for p in tp.paths:
             lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
@@ -942,7 +990,8 @@ def phase_k3_check(calls):
             if not (torch.equal(dw_only, runs[0][3]) and torch.equal(dsh_only, runs[0][2])):
                 raise AssertionError(f"{name} {dtype}: the edge backward's dw without dsh, or "
                                      "its dsh without dw, differs from the launch of both")
-            if float(runs[0][2][..., k3.sh_reach(tp):].abs().max()) != 0.0:
+            unread = runs[0][2][..., k3.sh_reach(tp):]
+            if unread.numel() and float(unread.abs().max()) != 0.0:
                 raise AssertionError(f"{name} {dtype}: dsh is not zero where no path reads")
             errs = {}
             for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
@@ -992,23 +1041,25 @@ def phase_k3_check(calls):
     return cases
 
 
-def k3_kernel_entries(cases, launches, launches_training):
+def k3_kernel_entries(cases, launches, launches_training, l2=False):
     """The report entries of K3's three kernels, summed over the calls one
     train step makes (the edge backward with dsh on the convs whose
-    harmonics need a gradient)."""
+    harmonics need a gradient); ``l2``: the 8-lane instantiations, names
+    ending in ``_l2``."""
     labels = {"fwd": ("out",), "bwd_edge": ("dw", "dsh"), "bwd_x": ("dx",)}
+    suffix = "_l2" if l2 else ""
     entries = []
     for k, outputs in labels.items():
         by = {"bytes": 0.0, "operations": 0.0}
         for c in cases:
             by[c["bound"][k][1]] += c["bound"][k][0]
         entries.append({
-            "name": f"tp_scalar_{k}",
+            "name": f"tp_scalar_{k}{suffix}",
             "route": "cuda",
             "source": "diffphore_torch/csrc/tp_scalar.cu",
             "replaces": "diffphore_tpu/ops/pallas/tp_scalar.py:43",
-            "launches": launches[f"k3_{k}"],
-            "launches_training_path": launches_training[f"k3_{k}"],
+            "launches": launches[f"k3_{k}{suffix}"],
+            "launches_training_path": launches_training[f"k3_{k}{suffix}"],
             "max_abs_err": max(c["errs"][o][0] for c in cases for o in outputs),
             "max_rel_err": max(c["errs"][o][0] / max(c["errs"][o][1], 1e-30)
                                for c in cases for o in outputs),
@@ -1033,11 +1084,17 @@ def k3_kernel_entries(cases, launches, launches_training):
 
 
 def _counters():
+    """Every kernel's launch counter: the 4-lane kernels and, under the same
+    names ending in ``_l2``, the 8-lane ones (l = 2)."""
     from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 
     return {"k1": tp_fused.KERNEL, "fwd": tp_aggregate.FWD, "bwd_edge": tp_aggregate.BWD_EDGE,
             "bwd_x": tp_aggregate.BWD_X, "k3_fwd": tp_scalar.FWD,
-            "k3_bwd_edge": tp_scalar.BWD_EDGE, "k3_bwd_x": tp_scalar.BWD_X}
+            "k3_bwd_edge": tp_scalar.BWD_EDGE, "k3_bwd_x": tp_scalar.BWD_X,
+            "k1_l2": tp_fused.KERNEL_L2, "fwd_l2": tp_aggregate.FWD_L2,
+            "bwd_edge_l2": tp_aggregate.BWD_EDGE_L2, "bwd_x_l2": tp_aggregate.BWD_X_L2,
+            "k3_fwd_l2": tp_scalar.FWD_L2, "k3_bwd_edge_l2": tp_scalar.BWD_EDGE_L2,
+            "k3_bwd_x_l2": tp_scalar.BWD_X_L2}
 
 
 def kernel_counts():
@@ -1049,16 +1106,24 @@ def reset_kernel_counts():
         k.launches = 0
 
 
-def expect_counts(what, steps=0, eval_batches=0, k2_convs=K2_CONVS, k1=None):
-    """``steps`` training forwards and backwards of a model whose convs K2
-    takes ``k2_convs`` of, ``eval_batches`` eval-mode forwards of the score
-    model (validation batches, or the frozen forward of a calibrated step),
-    or ``k1`` K1 launches in all."""
-    got = kernel_counts()
-    want = {"k1": CONVS_PER_FORWARD * eval_batches if k1 is None else k1,
-            "fwd": k2_convs * steps, "bwd_edge": k2_convs * steps, "bwd_x": k2_convs * steps,
-            "k3_fwd": K3_CONVS * steps, "k3_bwd_edge": K3_CONVS * steps,
-            "k3_bwd_x": K3_CONVS * steps}
+def want_counts(steps=0, eval_batches=0, k2_convs=K2_CONVS, k1=None, l2=False):
+    """The launches of ``steps`` training forwards and backwards of a model
+    whose convs K2 takes ``k2_convs`` of, ``eval_batches`` eval-mode forwards
+    of the score model (validation batches, or the frozen forward of a
+    calibrated step), or ``k1`` K1 launches in all: on the 8-lane kernels
+    (``l2``) or the 4-lane ones, the other layout's at 0."""
+    per = {"k1": CONVS_PER_FORWARD * eval_batches if k1 is None else k1,
+           "fwd": k2_convs * steps, "bwd_edge": k2_convs * steps, "bwd_x": k2_convs * steps,
+           "k3_fwd": K3_CONVS * steps, "k3_bwd_edge": K3_CONVS * steps,
+           "k3_bwd_x": K3_CONVS * steps}
+    return {k + suffix: (n if (suffix == "_l2") == l2 else 0)
+            for suffix in ("", "_l2") for k, n in per.items()}
+
+
+def expect_counts(what, **kw):
+    """The launches since the counts were set to 0, held exactly against
+    :func:`want_counts` (``kw``)."""
+    got, want = kernel_counts(), want_counts(**kw)
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
     return got
@@ -2348,8 +2413,7 @@ def two_rank_step(batch, tmp, tag):
     flat = lambda d: torch.cat([d[k].flatten() for k in names])
     gap, norm = float((flat(g32) - flat(g1)).norm()), float(flat(g1).norm())
     for r, out in enumerate(ranks):
-        if out["counts"] != {"k1": 0, **{k: K2_CONVS for k in ("fwd", "bwd_edge", "bwd_x")},
-                             **{k: K3_CONVS for k in ("k3_fwd", "k3_bwd_edge", "k3_bwd_x")}}:
+        if out["counts"] != want_counts(steps=1):
             raise AssertionError(f"{tag}: rank {r} launched {out['counts']} in one step")
         err = float((flat(out["grads"]) - flat(g1)).norm())
         if not err <= TOL_BF16_GAP * gap:
@@ -3006,7 +3070,318 @@ def phase_variants(card, cfg, train_batch, draws, jobs, device="cuda", poses=POS
     return counts
 
 
-def main() -> int:
+# ---- 16. l = 2 features (use_second_order_repr) on the 8-lane kernels
+
+PROBE_DIR = os.path.join(HERE, "runs", "second_order_probe")
+# the reference rows of reference.npz (analysis/write_second_order_probe.py):
+# the first cached complex at these diffusion times, its ligand moved off the
+# cached pose (A), where the norm channel's axis would be rounding noise
+PROBE_T = (0.7, 0.3)
+PROBE_SHIFT = ((0.5, -0.2, 0.1), (-1.0, 0.3, 0.4))
+L2_TRAIN_STEPS = 2              # cli.train steps of batch 24 at corpus2's width
+L2_STEP_REPEATS = 2             # timed train steps
+
+
+def phase_second_order(card, jobs, train_batch, draws):
+    """16: the second-order model on the 8-lane kernels.  (a) the probe
+    checkpoint's kernel-path f32 forward against its JAX reference; (b) K1
+    held conv by conv against its plain version on the 23 calls of one
+    40-pose forward, f32 and bf16, and the forward against the plain convs;
+    (c) K2 and K3 held against their plain versions on the 17 + 6 convs of
+    one training-mode forward; (d) a train step, kernels against plain
+    convs, same draws, from fresh weights (the gradient as one vector at
+    f32 and at bf16); (e) FitEngine serves the probe on phase 4's 8 complexes x 40 x
+    20, K1 exactly 460 a dispatch; (f) ``cli.train.main
+    --use_second_order_repr true`` at corpus2's width, bf16, two steps of 24
+    and a validation batch, launches exact, the checkpoint reloads.  Returns
+    the cases and counts for the report."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.cli.pipeline import FitEngine
+    from diffphore_torch.data.graphs import repeat_batch
+    from diffphore_torch.data.transforms import apply_noise, draw_noise
+    from diffphore_torch.models.layers import DenseTPConv, set_compute_dtype
+    from diffphore_torch.ops import tp_fused
+    from diffphore_torch.sampler.sampling import SamplerSettings
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils import checkpoints
+
+    t_phase = time.perf_counter()
+    cfg, model = checkpoints.load_model_dir(PROBE_DIR, device="cuda")
+    convs = [m for m in model.modules() if isinstance(m, DenseTPConv)]
+    if not (cfg.use_second_order_repr and cfg.compute_dtype == "bfloat16"
+            and (cfg.ns, cfg.nv, cfg.num_conv_layers) == (20, 10, 4)
+            and all(tp_fused.lanes(m.tp) == tp_fused.K_PAD_L2 for m in convs)):
+        raise AssertionError("the probe is not corpus2's width at bf16 on the 8-lane layout")
+
+    # ---- (a) the kernel-path f32 forward against the JAX reference
+    ref = np.load(os.path.join(PROBE_DIR, "reference.npz"))
+    first = jobs[0].batch.to("cuda")
+    rows = repeat_batch(first, len(PROBE_T))
+    rows = rows.replace(t=torch.tensor(PROBE_T, dtype=torch.float32, device="cuda"),
+                        lig_pos=rows.lig_pos + torch.tensor(PROBE_SHIFT, device="cuda")[:, None])
+    set_compute_dtype(model, "float32")
+    reset_kernel_counts()
+    with torch.inference_mode():
+        out = model(rows)
+        torch.cuda.synchronize()
+        expect_counts("the probe's forward", eval_batches=1, l2=True)
+        set_use_kernel(model, False)
+        plain = model(rows)
+        set_use_kernel(model, True)
+    set_compute_dtype(model, cfg.compute_dtype)
+    for name, o, p in zip(("tr", "rot", "tor"), out, plain):
+        want = ref[name]
+        o, p = o.float().cpu().numpy(), p.float().cpu().numpy()
+        # of max|JAX|, and of the reference tests' scale max(max|JAX|, 1)
+        # (tests/test_torch_score_model.py)
+        top = float(np.abs(want).max())
+        err = float(np.abs(o - want).max()) / max(top, 1e-30)
+        err_plain = float(np.abs(p - want).max()) / max(top, 1e-30)
+        err_unit = float(np.abs(o - want).max()) / max(top, 1.0)
+        err_kp = float(np.abs(o - p).max()) / max(float(np.abs(p).max()), 1e-30)
+        print(f"second order: probe {name} (f32) against the JAX reference, of max|JAX| "
+              f"{top:.4g}: kernels {err:.2e}, plain convs on the card {err_plain:.2e} (kernels "
+              f"{err_unit:.2e} of max(max|JAX|, 1)); kernels against plain convs {err_kp:.2e} "
+              "of max|plain|", flush=True)
+        if not (err <= TOL_F32 and err_unit <= TOL_F32 and err_kp <= TOL_F32):
+            raise AssertionError(f"probe {name}: {err} of max|JAX| (or {err_unit} of "
+                                 f"max(max|JAX|, 1)) or {err_kp} against the plain convs "
+                                 f"> {TOL_F32}")
+
+    # ---- (b) K1 on the 23 conv calls of one 40-pose forward
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    batch = posed_rows(first, POSES, cfg, gen)
+    print("second order, kernel check: tp_fused (8 lanes) on the 23 conv calls of one forward",
+          flush=True)
+    k1_cases = phase_kernel_check(model, batch, tp_fused)
+    check_forward(model, batch, cfg.compute_dtype, what="second-order forward")
+    t_k1 = time.perf_counter()
+
+    # ---- (c) K2 and K3 on the convs of one training-mode forward
+    with torch.no_grad():
+        noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
+    _, train_model = checkpoints.load_model_dir(PROBE_DIR, device="cuda")
+    k2_calls, k3_calls = capture_training_convs(train_model, noised)
+    print(f"second order, kernel check: tp_aggregate (8 lanes) on the {K2_CONVS} conv calls it "
+          "takes of one training-mode forward", flush=True)
+    k2_cases = phase_k2_check(k2_calls)
+    print(f"second order, kernel check: tp_scalar (8 lanes) on the {K3_CONVS} layer-0 convs",
+          flush=True)
+    k3_cases = phase_k3_check(k3_calls)
+    del train_model, noised, k2_calls, k3_calls
+    torch.cuda.empty_cache()
+    t_k23 = time.perf_counter()
+
+    # ---- (d) a train step, kernels against plain convs, from fresh weights,
+    # on phase 6's draws (the K2/K3 check's draws take every noise level,
+    # t = 0.02 included, where the model sits on a step function)
+    B = train_batch.batch_size
+    gen_d = torch.Generator(device="cuda")
+    gen_d.manual_seed(SEED)
+    draws = draw_noise(B, train_batch.num_torsions, gen_d, "cuda")
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+        step_d = make_train_step(cfg_d)
+        for use_kernel in (True, False):
+            state = create_train_state(cfg_d, seed=SEED, device="cuda")
+            set_use_kernel(state.model, use_kernel)
+            drop = torch.Generator(device="cuda")
+            drop.manual_seed(SEED + 1)
+            reset_kernel_counts()
+            state, metrics = step_d(state, train_batch, drop, draws=draws)
+            torch.cuda.synchronize()
+            expect_counts(f"second-order {dtype} step with use_kernel={use_kernel}",
+                          steps=1 if use_kernel else 0, l2=True)
+            results[dtype, use_kernel] = (float(metrics["loss"]),
+                                          {k: p.grad.clone()
+                                           for k, p in state.model.named_parameters()})
+            del state
+    compare_bf16_step("second-order train step (bf16)", results)
+    # f32: the loss, and the gradient as one vector.  Leaf by leaf it is not
+    # held: from these fresh weights one element sits on a step function that
+    # 1e-7 of relative noise in the plain convs' outputs flips as the kernels'
+    # rounding does, moving phore_to_lig_conv_1's edge MLP by 1.2e-3 of its
+    # scale either way (PERF.md)
+    (loss_k, gk), (loss_p, gp) = results["float32", True], results["float32", False]
+    names = [k for k, v in gp.items() if v.numel()]
+    flat = lambda d: torch.cat([d[k].flatten() for k in names])
+    err = float((flat(gk) - flat(gp)).norm()) / float(flat(gp).norm())
+    leaf_err = {k: float((gk[k] - gp[k]).abs().max()) / max(float(gp[k].abs().max()), 1e-30)
+                for k in names}
+    worst = max(names, key=leaf_err.get)
+    print(f"second-order train step (f32), kernels vs plain convs, same draws: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f}; gradient over {len(names)} leaves, L2 |kernel - plain| "
+          f"/ |plain| {err:.2e} (the worst leaf {worst}: {leaf_err[worst]:.2e} of its scale)",
+          flush=True)
+    if not (err <= TOL_STEP_GRAD and abs(loss_k - loss_p) <= TOL_STEP_GRAD * abs(loss_p)):
+        raise AssertionError(f"second-order f32 step: gradient {err} or loss {loss_k} vs "
+                             f"{loss_p} beyond {TOL_STEP_GRAD}")
+    del results, gk, gp
+    state = create_train_state(cfg, seed=SEED, device="cuda")
+    step = make_train_step(cfg)
+    drop = torch.Generator(device="cuda")
+    drop.manual_seed(SEED + 2)
+    run_step = lambda: step(state, train_batch, drop, draws=draws)
+    step_ms, step_peak = timed_steps(run_step, L2_STEP_REPEATS)
+    step_busy = profiled_busy_ms(run_step)
+    del state
+    torch.cuda.empty_cache()
+    print(f"second-order train step at bf16, batch {B}: {step_ms:.1f} ms wall, {step_busy:.1f} ms "
+          f"busy on the card (torch.profiler), peak memory {step_peak:.2f} GiB ({card})",
+          flush=True)
+    t_step = time.perf_counter()
+
+    # ---- (e) serving: FitEngine on phase 4's complexes
+    engine = FitEngine(cfg, model, samples_per_complex=POSES,
+                       settings=SamplerSettings(inference_steps=STEPS), seed=SEED, device="cuda")
+    engine.run_complexes(jobs[:1])          # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    served = engine.run_complexes(jobs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serving = expect_counts("second-order serving",
+                            k1=len(jobs) * CONVS_PER_FORWARD * STEPS, l2=True)
+    for job, r in zip(jobs, served):
+        if r["poses"].shape != (POSES, job.n_atoms, 3) or not np.isfinite(r["poses"]).all() \
+                or not np.isfinite(r["fitscore"]).all():
+            raise AssertionError(f"second order {r['name']}: poses or fitscores not finite")
+    poses_per_s = len(jobs) * POSES / serve_s
+    print(f"second-order serving: {len(jobs)} complexes x {POSES} poses x {STEPS} steps in "
+          f"{serve_s:.3f} s = {poses_per_s:.1f} poses/s ({card}); K1 (8 lanes) launches "
+          f"{serving['k1_l2']} ({serving['k1_l2'] // len(jobs)} per dispatch)", flush=True)
+    t_serve = time.perf_counter()
+
+    # ---- (f) the training CLI with --use_second_order_repr true
+    with tempfile.TemporaryDirectory() as tmp:
+        copy_bucket(TRAIN_CACHE_DIR, os.path.join(tmp, "train_l2"), L2_TRAIN_STEPS * TRAIN_BATCH)
+        copy_bucket(CACHE_DIR, os.path.join(tmp, "val_l2"), VAL_COMPLEXES)
+        run_dir = os.path.join(tmp, "run")
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        train_cli.main([
+            "--cache_path", tmp, "--run_dir", run_dir, "--n_epochs", "1",
+            "--batch_size", str(TRAIN_BATCH), "--seed", str(SEED), "--val_inference_freq", "0",
+            "--ns", str(cfg.ns), "--nv", str(cfg.nv), "--num_conv_layers",
+            str(cfg.num_conv_layers), "--dropout", str(cfg.dropout), "--compute_dtype",
+            "bfloat16", "--use_second_order_repr", "true", "--lr", "0.001"])
+        torch.cuda.synchronize()
+        cli_counts = expect_counts("cli.train.main --use_second_order_repr true",
+                                   steps=L2_TRAIN_STEPS, eval_batches=1, l2=True)
+        cli_peak = torch.cuda.max_memory_allocated() / 2**30
+        records = read_records(run_dir)
+        rec = [r for r in records if r.get("mode") != "val"][0]
+        val = [r for r in records if r.get("mode") == "val"][0]
+        if rec["steps"] != L2_TRAIN_STEPS or rec["grad_finite"] != 1.0 \
+                or not all(np.isfinite(rec[k]) for k in ("loss", "tr_loss", "rot_loss",
+                                                        "tor_loss")) \
+                or not np.isfinite(val["loss"]):
+            raise AssertionError(f"second-order training metrics not as expected: {rec} {val}")
+        run_cfg, reloaded = checkpoints.load_model_dir(
+            run_dir, device="cuda", checkpoint=checkpoints.LAST_MODEL, use_ema=True)
+        if not run_cfg.use_second_order_repr or (run_cfg.ns, run_cfg.nv) != (cfg.ns, cfg.nv):
+            raise AssertionError("the run directory's config is not the second-order model")
+        with torch.no_grad():
+            out = reloaded(train_batch.replace(t=torch.full((B,), 0.5, device="cuda")))
+        if not all(bool(torch.isfinite(o).all()) for o in out):
+            raise AssertionError("the reloaded second-order checkpoint's forward is not finite")
+    print(f"second-order cli.train.main: {rec['steps']} steps of batch {TRAIN_BATCH} in "
+          f"{rec['epoch_time']:.3f} s, train loss {rec['loss']:.4f}, val loss {val['loss']:.4f}, "
+          f"peak memory {cli_peak:.2f} GiB; launches {cli_counts}; the checkpoint reloads "
+          f"({card})", flush=True)
+    t_end = time.perf_counter()
+    print(f"second order: phase {t_end - t_phase:.1f} s (probe and K1 {t_k1 - t_phase:.1f}, "
+          f"K2/K3 {t_k23 - t_k1:.1f}, train steps {t_step - t_k23:.1f}, serving "
+          f"{t_serve - t_step:.1f}, cli {t_end - t_serve:.1f})", flush=True)
+    return {"k1_cases": k1_cases, "k2_cases": k2_cases, "k3_cases": k3_cases,
+            "serving": serving, "cli": cli_counts, "poses_per_s": poses_per_s,
+            "step_ms": step_ms, "step_busy_ms": step_busy, "step_peak_gib": step_peak}
+
+
+def recipe_batch(gen):
+    """The first TRAIN_BATCH cached training complexes of the bucket as one
+    batch on the card, and noise draws for it from ``gen`` at every noise
+    level (t from 0.02 to 0.98)."""
+    import torch
+
+    from diffphore_torch.data.graphs import concat_batches
+    from diffphore_torch.data.transforms import draw_noise
+
+    train_batch = concat_batches(
+        [b for _, b in bucket_complexes(TRAIN_CACHE_DIR, TRAIN_BATCH)]
+    ).replace(names=(), meta=()).to("cuda")
+    draws = draw_noise(TRAIN_BATCH, BUCKET[2], gen, "cuda")
+    draws.t = torch.linspace(0.02, 0.98, TRAIN_BATCH, device="cuda")   # every noise level
+    return train_batch, draws
+
+
+def second_order_entries(second):
+    """The report entries of the 8-lane kernels from phase 16's result."""
+    return ([k1_entry("tp_fused_l2", second["k1_cases"], second["serving"]["k1_l2"])]
+            + k2_kernel_entries(second["k2_cases"], second["cli"], l2=True)
+            + k3_kernel_entries(second["k3_cases"], second["cli"], second["cli"], l2=True))
+
+
+def second_order_alone(card, kind):
+    """Phase 16 alone, after the card line and the build: its inputs made as
+    main() makes them, then its report entries, the card line and the result
+    line."""
+    import torch
+
+    from diffphore_torch.cli.pipeline import job_from_cached
+
+    jobs = [job_from_cached(b) for _, b in bucket_complexes(CACHE_DIR, N_COMPLEXES)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    train_batch, draws = recipe_batch(gen)
+    second = phase_second_order(card, jobs, train_batch, draws)
+    print(json.dumps({"kernels": second_order_entries(second)}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def k1_entry(name, cases, launches):
+    """The report entry of K1's kernel ``name``, summed over one forward's
+    conv calls (``cases`` from phase_kernel_check)."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for c in cases:
+        by[c["bound_by"]] += c["bound_ms"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "diffphore_torch/csrc/tp_fused.cu",
+        "replaces": "diffphore_tpu/ops/pallas/tp_fused.py:115",
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
+        "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in cases),
+        "ms_bf16": sum(c["ms_bf16"] for c in cases),
+        "bound_ms_bf16": sum(c["bound_ms_bf16"] for c in cases),
+        "ms": sum(c["ms"] for c in cases),
+        "kernel_ms": sum(c["ms"] for c in cases),
+        "plain_ms": sum(c["plain_ms"] for c in cases),
+        "bound_ms": sum(c["bound_ms"] for c in cases),
+        "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
+        "library_ms": None,
+        "call_ms": sum(c["call_ms"] for c in cases),
+        "unit": "one forward: the 23 conv calls, each timed alone; ms on the card (graph replay), "
+                "f32 inputs (ms) and bf16 ones (ms_bf16), call_ms per call from Python",
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
+    parser.add_argument("--second_order_only", action="store_true",
+                        help="after the card line and the build, run phase 16 (l = 2) alone")
+    args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -3048,6 +3423,8 @@ def main() -> int:
                 print(f"  ptxas: {line.strip()}")
 
     mark("build")
+    if args.second_order_only:
+        return second_order_alone(card, kind)
 
     # ---- 3. kernel check on the main path's conv inputs
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
@@ -3118,14 +3495,9 @@ def main() -> int:
     mark("main path and sampler modes")
 
     # ---- 5. K2 and K3 on the conv inputs of one training-mode forward
-    from diffphore_torch.data.graphs import concat_batches
-    from diffphore_torch.data.transforms import apply_noise, draw_noise
+    from diffphore_torch.data.transforms import apply_noise
 
-    train_batch = concat_batches(
-        [b for _, b in bucket_complexes(TRAIN_CACHE_DIR, TRAIN_BATCH)]
-    ).replace(names=(), meta=()).to("cuda")
-    draws = draw_noise(TRAIN_BATCH, BUCKET[2], gen, "cuda")
-    draws.t = torch.linspace(0.02, 0.98, TRAIN_BATCH, device="cuda")   # every noise level
+    train_batch, draws = recipe_batch(gen)
     with torch.no_grad():
         noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
     _, train_model = load_model_dir(MODEL_DIR, device="cuda")
@@ -3202,13 +3574,14 @@ def main() -> int:
 
     mark("variants")
 
+    # ---- 16. l = 2 features on the 8-lane kernels (ahead of the report)
+    second = phase_second_order(card, jobs, train_batch, draws)
+
+    mark("second order")
+
     # ---- 14. report
-    kernel = {
-        "name": "tp_fused",
-        "route": "cuda",
-        "source": "diffphore_torch/csrc/tp_fused.cu",
-        "replaces": "diffphore_tpu/ops/pallas/tp_fused.py:115",
-        "launches": launches,
+    kernel = k1_entry("tp_fused", cases, launches)
+    kernel.update({
         "launches_training_path": train_counts["k1"],
         "launches_calibrated_path": cc_counts["k1"],
         "launches_confidence_serving": head_serving_k1,
@@ -3223,22 +3596,7 @@ def main() -> int:
         "launches_use_att_training": variants["use_att_training"]["k1"],
         "launches_fourier_forward": variants["fourier"]["k1"],
         "raw_files_bucket": raw["k1"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "max_abs_err_bf16": max(c["max_abs_err_bf16"] for c in cases),
-        "max_rel_err_bf16": max(c["max_rel_err_bf16"] for c in cases),
-        "ms_bf16": sum(c["ms_bf16"] for c in cases),
-        "bound_ms_bf16": sum(c["bound_ms_bf16"] for c in cases),
-        "ms": sum(c["ms"] for c in cases),
-        "kernel_ms": sum(c["ms"] for c in cases),
-        "plain_ms": sum(c["plain_ms"] for c in cases),
-        "bound_ms": sum(c["bound_ms"] for c in cases),
-        "bound_by": ("operations" if sum(c["bound_ms"] for c in cases if c["bound_by"] == "operations")
-                     >= sum(c["bound_ms"] for c in cases if c["bound_by"] == "bytes") else "bytes"),
-        "library_ms": None,
-        "call_ms": sum(c["call_ms"] for c in cases),
-        "unit": "one forward: the 23 conv calls, each timed alone; ms on the card (graph replay), "
-                "f32 inputs (ms) and bf16 ones (ms_bf16), call_ms per call from Python",
-    }
+    })
     k2_entries = k2_kernel_entries(k2_cases, train_counts)
     for entry, k in zip(k2_entries, ("fwd", "bwd_edge", "bwd_x")):
         entry["launches_calibrated_path"] = cc_counts[k]
@@ -3259,7 +3617,8 @@ def main() -> int:
                            "oracle") for n in variants[path].values())
     for entry, at_bucket in zip(k2_entries + k3_entries, raw_entries):
         entry["raw_files_bucket"] = {k: at_bucket[k] for k in RAW_BUCKET_KEYS}
-    print(json.dumps({"kernels": [kernel] + k2_entries + k3_entries}))
+    print(json.dumps({"kernels": [kernel] + k2_entries + k3_entries
+                      + second_order_entries(second)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

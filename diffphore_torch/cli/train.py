@@ -71,8 +71,9 @@ learning rate, EMA, ``last_model.msgpack`` and best-EMA checkpoint by the
 validation loss; the run directory loads with
 ``utils.checkpoints.load_tank_dir``.
 
-Not part of the port yet, and refused with a message that says so: l = 2
-features (``--use_second_order_repr``).
+``--use_second_order_repr true`` trains the l = 2 model (the 8-lane
+instantiations of the kernels); its ``model_parameters.yml`` carries the
+flag, so ``FitEngine``, ``cli.inference`` and ``cli.evaluate`` serve it.
 """
 
 from __future__ import annotations
@@ -93,7 +94,6 @@ from ..data.dataset import (CachedDataset, DatasetSettings, PhoreDataset, cache_
 from ..data.loaders import BucketLoader
 from ..device import resolve_device
 from ..chem.rmsd import plain_rmsd
-from ..models.encoder import NEXT_SLICE
 from ..models.score_model import ScoreModelConfig
 from ..parallel import mesh
 from ..sampler.sampling import SamplerSettings
@@ -111,11 +111,6 @@ TRAIN_KEYS = ("loss", "tr_loss", "rot_loss", "tor_loss")
 VAL_KEYS = TRAIN_KEYS + ("tr_base_loss", "rot_base_loss", "tor_base_loss")
 CONFIDENCE_KEYS = ("loss", "loss_ph", "loss_ex", "loss_total")
 TANK_KEYS = ("loss", "contact_loss", "affinity_loss")
-
-#: flags of parts that are not ported: (flag, its off value, the slice that brings it)
-NOT_PORTED = (
-    ("use_second_order_repr", False, NEXT_SLICE),
-)
 
 
 def _str2bool(v) -> bool:
@@ -311,13 +306,6 @@ def model_config_from_args(args) -> ScoreModelConfig:
     if isinstance(kw.get("clash_cutoff"), list):
         kw["clash_cutoff"] = tuple(kw["clash_cutoff"])
     return ScoreModelConfig(**kw)
-
-
-def refuse_unported(args) -> None:
-    for flag, off, brings in NOT_PORTED:
-        if getattr(args, flag) != off:
-            raise NotImplementedError(
-                f"--{flag} is not part of the PyTorch port yet; it comes with {brings}")
 
 
 def cc_probability(args, epoch: int) -> float:
@@ -666,7 +654,6 @@ def main(argv=None) -> None:
     if args.model_type == "tank" and args.confidence_mode:
         raise SystemExit("--confidence_mode is a diff-model training mode; "
                          "it cannot be combined with --model_type tank")
-    refuse_unported(args)
     os.makedirs(args.run_dir, exist_ok=True)
     rank, world = mesh.launched()
     if args.featurize_only:

@@ -80,6 +80,32 @@
 // address (plain loads otherwise), and the ring's rows keep a 16-byte pitch.
 // Harmonics and sender features are converted to f32 on the way into shared
 // memory.  Split partial sums are f32; the second kernel rounds once.
+//
+// The 8-lane kernels (`*_l2`: a product whose irreps reach l = 2, the
+// second-order features).  Every path has l_in, l_sh, l_out <= 2, so G_p is
+// (5, 5, 5), out and g are (B, N, F, 8) (lanes 5-7 zero, never read) and a
+// layer-3 convolution has F = 360 channels over 30 paths, D = 200: the
+// 4-lane kernels' two-threads-a-channel blocks, per-path t tables and rings
+// of w do not fit in a block.  These kernels are the simple version:
+//  * one block per kept entry (forward: a receiver; dx: a sender) of one
+//    batch row, a thread per channel, and a loop over the summed axis in
+//    tiles of L2_ROWS = 32 entries; no split and no second kernel, since the
+//    training shapes give B * N >= 576 blocks;
+//  * per tile a warp per edge marks it live (its row of w not all zero) and
+//    stages its harmonics (and, forward, the sender's features); then per
+//    (live edge, path, i) t[i][k] = sum_j G_p[i,j,k] sh[j] is formed once for
+//    all the path's channels, d_in x d_out values packed per path; then each
+//    channel walks the live edges: forward out[k] += w sum_i x[i] t[i][k],
+//    dx acc[i] += w sum_k t[i][k] g[k] (w and g read from device memory,
+//    coalesced across the channels);
+//  * dx adds the channels that read one input element in the order of the
+//    host's list, as the 4-lane dx does;
+//  * the edge backward: one block per (batch row, receiver, L2_EDGE_SENDERS
+//    senders), a thread per channel, P[i][j] = sum_k G[i,j,k] g[k] in
+//    registers; per edge q[j] = sum_i x[i] P[i][j], dw = sum_j sh[j] q[j];
+//    with dsh each channel leaves w q[j] in shared memory, the block adds
+//    them path by path and then the paths that reach each component, in
+//    fixed orders.  No float atomics anywhere: reruns agree to the bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -947,6 +973,370 @@ int blocks_per_sm(int dx, int D, int F, int n_paths, int n_items) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
+// ---- the 8-lane kernels (irreps up to l = 2; head note) ----
+
+constexpr int L2_K = 5;                 // components of an l <= 2 irrep
+constexpr int L2_G = L2_K * L2_K * L2_K;   // alpha*cg padded to (5, 5, 5)
+constexpr int L2_ROWS = 32;             // summed-axis entries per tile
+constexpr int L2_THREADS = 384;         // a thread per channel: F <= 384
+constexpr int L2_MAX_PATHS = 32;
+constexpr int L2_EDGE_SENDERS = 8;      // senders per block of the edge backward
+
+// The forward's and dx's shared memory, in floats.
+struct L2Layout {
+  int g, ptab, x, sh, live, t, d, dlist, total;
+};
+
+__host__ __device__ inline L2Layout l2_layout(bool dx, int D, int F, int n_paths, int t_size,
+                                              int n_items) {
+  L2Layout L;
+  int o = 0;
+  L.g = o;     o += pad4(n_paths * L2_G);
+  L.ptab = o;  o += n_paths * 8;
+  L.x = o;     o += dx ? 0 : pad4(L2_ROWS * D);
+  L.sh = o;    o += L2_ROWS * SH_STRIDE;
+  L.live = o;  o += L2_ROWS;
+  L.t = o;     o += pad4(L2_ROWS * t_size);
+  L.d = o;     o += dx ? pad4(L2_K * F) : 0;
+  L.dlist = o; o += dx ? pad4(D + 1) + pad4(n_items) : 0;   // dx: d_ptr, then d_item
+  L.total = o;
+  return L;
+}
+
+// The forward (DX false: out (B, N, F, 8) f32) or dx (DX true: dx (B, M, D) in
+// T) of one block: kept entry blockIdx.x of batch row blockIdx.y.
+template <bool DX, typename T>
+__device__ __forceinline__ void l2_body(
+    const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
+    const float* __restrict__ g, const int4* __restrict__ chan, const int* __restrict__ ptab,
+    const float* __restrict__ gtab, const int* __restrict__ d_ptr,
+    const int* __restrict__ d_item, float* __restrict__ out, T* __restrict__ dx_out, int N, int M,
+    int D, int S, int F, int n_paths, int t_size, int n_items) {
+  extern __shared__ __align__(16) float smem[];
+  const L2Layout L = l2_layout(DX, D, F, n_paths, t_size, n_items);
+  float* s_g = smem + L.g;
+  int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);   // sh_off, d_in, d_sh, d_out, t_off, ...
+  float* s_x = smem + L.x;                                // [row][D] (forward)
+  float* s_sh = smem + L.sh;                              // [row][SH_STRIDE]
+  int* s_live = reinterpret_cast<int*>(smem + L.live);
+  float* s_t = smem + L.t;                                // [row][t_size]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int k = blockIdx.x, b = blockIdx.y;
+  const int n_sum = DX ? N : M;
+  for (int i = tid; i < n_paths * L2_G; i += nt) s_g[i] = gtab[i];
+  for (int i = tid; i < n_paths * 8; i += nt) s_ptab[i] = ptab[i];
+  int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
+  int* s_ditem = s_dptr + pad4(D + 1);
+  if (DX) {
+    for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
+    for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
+  }
+  const int f = tid;
+  const bool active = f < F;
+  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);   // x_base, d_in, d_out, path
+  const int t_off = active ? ptab[cm.w * 8 + 4] : 0;
+  float acc[L2_K];   // forward: out[k]; dx: the sum for x component i
+#pragma unroll
+  for (int i = 0; i < L2_K; ++i) acc[i] = 0.f;
+  __syncthreads();
+
+  for (int s0 = 0; s0 < n_sum; s0 += L2_ROWS) {
+    const int rows = min(L2_ROWS, n_sum - s0);
+    for (int r = warp; r < rows; r += nwarps) {
+      const int s = s0 + r;
+      const size_t e = DX ? ((size_t)b * N + s) * M + k : ((size_t)b * N + k) * M + s;
+      bool live = false;
+      for (int c = lane; c < F; c += 32) live |= to_f(w[e * F + c]) != 0.f;
+      live = __any_sync(0xffffffffu, live);
+      if (lane == 0) s_live[r] = live;
+      if (lane < SH_STRIDE) s_sh[r * SH_STRIDE + lane] = live && lane < S ? to_f(sh[e * S + lane]) : 0.f;
+      if (!DX && live)
+        for (int d = lane; d < D; d += 32) s_x[r * D + d] = to_f(x[((size_t)b * M + s) * D + d]);
+    }
+    __syncthreads();
+    // t of every (live edge, path, i)
+    for (int it = tid; it < rows * n_paths * L2_K; it += nt) {
+      const int r = it / (n_paths * L2_K);
+      const int rem = it - r * n_paths * L2_K;
+      const int p = rem / L2_K, i = rem - p * L2_K;
+      const int* pt = s_ptab + p * 8;
+      if (!s_live[r] || i >= pt[1]) continue;
+      const int d_sh = pt[2], d_out = pt[3];
+      const float* G = s_g + p * L2_G + i * L2_K * L2_K;
+      const float* sv = s_sh + r * SH_STRIDE + pt[0];
+      float* tq = s_t + r * t_size + pt[4] + i * d_out;
+      for (int kk = 0; kk < d_out; ++kk) {
+        float t = 0.f;
+        for (int j = 0; j < d_sh; ++j) t = fmaf(G[j * L2_K + kk], sv[j], t);
+        tq[kk] = t;
+      }
+    }
+    __syncthreads();
+    if (active) {
+      for (int r = 0; r < rows; ++r) {
+        if (!s_live[r]) continue;
+        const int s = s0 + r;
+        const size_t e = DX ? ((size_t)b * N + s) * M + k : ((size_t)b * N + k) * M + s;
+        const float wv = to_f(w[e * F + f]);
+        const float* tq = s_t + r * t_size + t_off;
+        if (!DX) {
+          const float* xr = s_x + r * D + cm.x;
+#pragma unroll
+          for (int i = 0; i < L2_K; ++i) {
+            if (i >= cm.y) break;
+            const float gv = wv * xr[i];
+#pragma unroll
+            for (int kk = 0; kk < L2_K; ++kk)
+              if (kk < cm.z) acc[kk] = fmaf(gv, tq[i * cm.z + kk], acc[kk]);
+          }
+        } else {
+          const float4* gr = reinterpret_cast<const float4*>(g) + (((size_t)b * N + s) * F + f) * 2;
+          const float4 g0 = gr[0], g1 = gr[1];
+          const float gk[L2_K] = {g0.x, g0.y, g0.z, g0.w, g1.x};
+#pragma unroll
+          for (int i = 0; i < L2_K; ++i) {
+            if (i >= cm.y) break;
+            float t = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < L2_K; ++kk)
+              if (kk < cm.z) t = fmaf(tq[i * cm.z + kk], gk[kk], t);
+            acc[i] = fmaf(wv, t, acc[i]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!DX) {
+    if (active) {
+      float4* o = reinterpret_cast<float4*>(out) + (((size_t)b * N + k) * F + f) * 2;
+      o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      o[1] = make_float4(acc[4], 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  float* s_d = smem + L.d;   // [i][f]
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < L2_K; ++i) s_d[i * F + f] = acc[i];
+  }
+  __syncthreads();
+  for (int d = tid; d < D; d += nt) {
+    float sum = 0.f;
+    for (int q = s_dptr[d]; q < s_dptr[d + 1]; ++q) {
+      const int it = s_ditem[q];
+      sum += s_d[(it & 7) * F + (it >> 3)];
+    }
+    dx_out[((size_t)b * M + k) * D + d] = from_f<T>(sum);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_fwd_l2_kernel(
+    const T* __restrict__ x,         // (B, M, D) sender features
+    const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
+    const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
+    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
+    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
+    float* __restrict__ out,         // (B, N, F, 8)
+    int N, int M, int D, int S, int F, int n_paths, int t_size) {
+  l2_body<false, T>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, out, nullptr, N, M, D,
+                    S, F, n_paths, t_size, 0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_l2_kernel(
+    const T* __restrict__ sh,        // (B, N, M, S)
+    const T* __restrict__ w,         // (B, N, M, F)
+    const float* __restrict__ g,     // (B, N, F, 8) upstream gradient
+    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,    // (n_paths, 8)
+    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
+    const int* __restrict__ d_ptr,   // (D + 1): extents into d_item per input element
+    const int* __restrict__ d_item,  // f * 8 + i of every (channel, component) reading it
+    T* __restrict__ dx,              // (B, M, D)
+    int N, int M, int D, int S, int F, int n_paths, int t_size, int n_items) {
+  l2_body<true, T>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, nullptr, dx, N, M, D, S,
+                   F, n_paths, t_size, n_items);
+}
+
+// dw (and, with DSH, dsh) of the edges (b, n, m0 .. m0 + L2_EDGE_SENDERS).
+template <typename T, bool DSH>
+__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
+    const T* __restrict__ x,          // (B, M, D)
+    const T* __restrict__ sh,         // (B, N, M, S)
+    const T* __restrict__ w,          // (B, N, M, F) (read with DSH)
+    const float* __restrict__ g,      // (B, N, F, 8)
+    const int4* __restrict__ chan,    // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,     // (n_paths, 8)
+    const float* __restrict__ gtab,   // (n_paths, 5, 5, 5)
+    const int* __restrict__ seg_ptr,  // (S + 1): extents into seg per harmonic component
+    const int2* __restrict__ seg,     // (path, j) of every path reaching the component
+    T* __restrict__ dw,               // (B, N, M, F)
+    T* __restrict__ dsh,              // (B, N, M, S)
+    int N, int M, int D, int S, int F, int n_paths, int n_seg) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_part = smem;                                        // [ml][f][j]
+  float* s_pp = s_part + L2_EDGE_SENDERS * F * L2_K;           // [ml][path][j]
+  int* s_segptr = reinterpret_cast<int*>(s_pp + L2_EDGE_SENDERS * n_paths * L2_K);
+  int2* s_seg = reinterpret_cast<int2*>(s_segptr + ((S + 1 + 3) / 4) * 4);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m0 = blockIdx.x * L2_EDGE_SENDERS, n = blockIdx.y, b = blockIdx.z;
+  const int count = min(L2_EDGE_SENDERS, M - m0);
+  const int f = tid;
+  if (f < F) {
+    const int4 cm = chan[f];
+    const int* pt = ptab + cm.w * 8;
+    const int sh_off = pt[0], d_sh = pt[2];
+    const float* G = gtab + cm.w * L2_G;
+    const float4* gr = reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * 2;
+    const float4 g0 = gr[0], g1 = gr[1];
+    const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, g1.x};
+    float gk[L2_K];
+#pragma unroll
+    for (int kk = 0; kk < L2_K; ++kk) gk[kk] = kk < cm.z ? ga[kk] : 0.f;   // pad lanes ignored
+    float P[L2_K][L2_K];
+#pragma unroll
+    for (int i = 0; i < L2_K; ++i)
+#pragma unroll
+      for (int j = 0; j < L2_K; ++j) {
+        float v = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < L2_K; ++kk) v = fmaf(G[(i * L2_K + j) * L2_K + kk], gk[kk], v);
+        P[i][j] = v;
+      }
+    for (int ml = 0; ml < count; ++ml) {
+      const int m = m0 + ml;
+      const T* xr = x + ((size_t)b * M + m) * D + cm.x;
+      const size_t e = ((size_t)b * N + n) * M + m;
+      float xi[L2_K], q[L2_K];
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) xi[i] = i < cm.y ? to_f(xr[i]) : 0.f;
+      float dwv = 0.f;
+#pragma unroll
+      for (int j = 0; j < L2_K; ++j) {
+        float v = 0.f;
+#pragma unroll
+        for (int i = 0; i < L2_K; ++i) v = fmaf(xi[i], P[i][j], v);
+        q[j] = v;
+        if (j < d_sh) dwv = fmaf(to_f(sh[e * S + sh_off + j]), v, dwv);
+      }
+      dw[e * F + f] = from_f<T>(dwv);
+      if (DSH) {
+        const float wv = to_f(w[e * F + f]);
+#pragma unroll
+        for (int j = 0; j < L2_K; ++j) s_part[(ml * F + f) * L2_K + j] = wv * q[j];
+      }
+    }
+  }
+  if (!DSH) return;
+  for (int i = tid; i <= S; i += nt) s_segptr[i] = seg_ptr[i];
+  for (int i = tid; i < n_seg; i += nt) s_seg[i] = seg[i];
+  __syncthreads();
+  // per (sender, path, j): the path's channels, in order
+  for (int it = tid; it < count * n_paths; it += nt) {
+    const int ml = it / n_paths, p = it - ml * n_paths;
+    const int* pt = ptab + p * 8;
+    const int d_sh = pt[2], f0 = pt[5], fc = pt[6];
+    for (int j = 0; j < L2_K; ++j) {
+      float sum = 0.f;
+      if (j < d_sh)
+        for (int u = 0; u < fc; ++u) sum += s_part[(ml * F + f0 + u) * L2_K + j];
+      s_pp[(ml * n_paths + p) * L2_K + j] = sum;
+    }
+  }
+  __syncthreads();
+  // per (sender, component): the paths that reach it, in the host list's order
+  for (int it = tid; it < count * S; it += nt) {
+    const int ml = it / S, sc = it - ml * S;
+    float sum = 0.f;
+    for (int q = s_segptr[sc]; q < s_segptr[sc + 1]; ++q)
+      sum += s_pp[(ml * n_paths + s_seg[q].x) * L2_K + s_seg[q].y];
+    dsh[(((size_t)b * N + n) * M + m0 + ml) * S + sc] = from_f<T>(sum);
+  }
+}
+
+bool bad_shape_l2(int B, int N, int M, int D, int S, int F, int n_paths) {
+  return B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 || F > L2_THREADS ||
+         n_paths < 1 || n_paths > L2_MAX_PATHS || B > 65535;
+}
+
+// Threads of an 8-lane block: one per channel.
+int threads_l2(int F) { return ((F + 31) / 32) * 32; }
+
+template <typename T>
+int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* chan, const int* ptab,
+                  const float* gtab, float* out, int B, int N, int M, int D, int S, int F,
+                  int n_paths, int t_size, cudaStream_t st) {
+  const size_t bytes = (size_t)l2_layout(false, D, F, n_paths, t_size, 0).total * sizeof(float);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = allow_shared(tp_aggregate_fwd_l2_kernel<T>, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  tp_aggregate_fwd_l2_kernel<T><<<dim3(N, B), threads_l2(F), bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
+      reinterpret_cast<const int4*>(chan), ptab, gtab, out, N, M, D, S, F, n_paths, t_size);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
+                    const int* ptab, const float* gtab, const int* d_ptr, const int* d_item,
+                    void* dx, int B, int N, int M, int D, int S, int F, int n_paths, int t_size,
+                    int n_items, cudaStream_t st) {
+  const size_t bytes =
+      (size_t)l2_layout(true, D, F, n_paths, t_size, n_items).total * sizeof(float);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = allow_shared(tp_aggregate_bwd_x_l2_kernel<T>, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  tp_aggregate_bwd_x_l2_kernel<T><<<dim3(M, B), threads_l2(F), bytes, st>>>(
+      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+      ptab, gtab, d_ptr, d_item, static_cast<T*>(dx), N, M, D, S, F, n_paths, t_size, n_items);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
+                       const int* chan, const int* ptab, const float* gtab, const int* seg_ptr,
+                       const int* seg, void* dw, void* dsh, int B, int N, int M, int D, int S,
+                       int F, int n_paths, int n_seg, cudaStream_t st) {
+  const dim3 grid((M + L2_EDGE_SENDERS - 1) / L2_EDGE_SENDERS, N, B);
+  const T* xt = static_cast<const T*>(x);
+  const T* sht = static_cast<const T*>(sh);
+  const int4* chan4 = reinterpret_cast<const int4*>(chan);
+  if (dsh == nullptr) {
+    tp_aggregate_bwd_edge_l2_kernel<T, false><<<grid, threads_l2(F), 0, st>>>(
+        xt, sht, nullptr, g, chan4, ptab, gtab, nullptr, nullptr, static_cast<T*>(dw), nullptr, N,
+        M, D, S, F, n_paths, 0);
+    return (int)cudaGetLastError();
+  }
+  const size_t bytes =
+      sizeof(float) * ((size_t)L2_EDGE_SENDERS * (F + n_paths) * L2_K + ((S + 1 + 3) / 4) * 4 +
+                       (size_t)n_seg * 2);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = allow_shared(tp_aggregate_bwd_edge_l2_kernel<T, true>, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  tp_aggregate_bwd_edge_l2_kernel<T, true><<<grid, threads_l2(F), bytes, st>>>(
+      xt, sht, static_cast<const T*>(w), g, chan4, ptab, gtab, seg_ptr,
+      reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, D, S,
+      F, n_paths, n_seg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1004,6 +1394,48 @@ int dp_tp_aggregate_bwd_x(const void* sh, const void* w, const float* g, const i
 int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items, int bf16) {
   return bf16 ? blocks_per_sm<__nv_bfloat16>(dx, D, F, n_paths, n_items)
               : blocks_per_sm<float>(dx, D, F, n_paths, n_items);
+}
+
+// The 8-lane kernels (l <= 2): out and g (B, N, F, 8); tables from
+// tp_fused.tables_l2 (chan (F, 4), ptab (n_paths, 8), gtab (n_paths, 5, 5, 5),
+// t_size floats of t an edge); one launch each, no split.
+int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const int* chan,
+                           const int* ptab, const float* gtab, float* out, int B, int N, int M,
+                           int D, int S, int F, int n_paths, int t_size, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd_l2<__nv_bfloat16>(x, sh, w, chan, ptab, gtab, out, B, N, M, D, S, F,
+                                             n_paths, t_size, st)
+              : launch_fwd_l2<float>(x, sh, w, chan, ptab, gtab, out, B, N, M, D, S, F, n_paths,
+                                     t_size, st);
+}
+
+// dsh may be null: then only dw is computed and w, seg_ptr and seg are not read.
+int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
+                                const int* chan, const int* ptab, const float* gtab,
+                                const int* seg_ptr, const int* seg, void* dw, void* dsh, int B,
+                                int N, int M, int D, int S, int F, int n_paths, int n_seg,
+                                int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || n_seg < 0 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_edge_l2<__nv_bfloat16>(x, sh, w, g, chan, ptab, gtab, seg_ptr, seg, dw,
+                                                  dsh, B, N, M, D, S, F, n_paths, n_seg, st)
+              : launch_bwd_edge_l2<float>(x, sh, w, g, chan, ptab, gtab, seg_ptr, seg, dw, dsh, B,
+                                          N, M, D, S, F, n_paths, n_seg, st);
+}
+
+int dp_tp_aggregate_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
+                             const int* ptab, const float* gtab, const int* d_ptr,
+                             const int* d_item, void* dx, int B, int N, int M, int D, int S, int F,
+                             int n_paths, int t_size, int n_items, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || n_items < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_x_l2<__nv_bfloat16>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, dx, B,
+                                               N, M, D, S, F, n_paths, t_size, n_items, st)
+              : launch_bwd_x_l2<float>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, dx, B, N, M, D,
+                                       S, F, n_paths, t_size, n_items, st);
 }
 
 const char* dp_cuda_error_string(int code) {

@@ -78,6 +78,34 @@
 //  F = 160 the weights and tiles leave room for one block per SM only.  The
 //  products are not the limit: run on the tensor cores (3xTF32 mma.sync, inside
 //  the f32 tolerance) the kernel was 7 to 32% slower.
+//
+// The 8-lane kernel, tp_fused_l2_kernel: the same function where the irreps
+// reach l = 2 (the second-order features): l_in, l_sh, l_out <= 2, G_p
+// padded to (5, 5, 5), output (B, N, F, 8) (lanes 5-7 zero).  The kernel
+// above is left as it is for l <= 1; at l = 2 its layout does not fit: a
+// layer-3 convolution has F = 360 channels (its register tiles take 160),
+// 30 paths, D = 200 features a sender, and its W2 (60 x 384 f32), edge-weight
+// tile and per-path t tile alone would need over 290 KB of shared memory.
+// This one is the simple version:
+//  * a thread per channel (384 threads, F <= 384); the thread keeps its
+//    column of W2 (H <= 64 values) and b2 in registers, so W2 takes no shared
+//    memory and the edge weights are never stored: w[r, f] = hid[r, :] .
+//    W2[:, f] is formed where it is used;
+//  * grid = (sender split, tile of L2_TN = 4 receivers, batch row), the
+//    senders interleaved across the splits as above, at most 64 a block;
+//    the block's live (receiver, sender) pairs are compacted with warp
+//    ballots in receiver-major order and taken L2_ROWS = 32 at a time;
+//  * per tile, once for all the channels: the attribute rows are gathered,
+//    the hidden layer is computed (thread = (row, hidden unit); f32: the
+//    masked sum over edge channels; bf16: each channel's rounded hidden row,
+//    as above), and t[i][k] = sum_j G_p[i,j,k] sh[j] of every (edge, path),
+//    d_in x d_out values packed per path;
+//  * then each channel walks the tile's rows: w from its hidden row and its
+//    W2 column (bf16: rounded per edge channel, summed and rounded, as
+//    above), sum_i w x[m, x_base + i] t[i][:] into a running sum that moves
+//    into the receiver's five sums (registers) when the receiver changes.
+//  Plain loads, no cp.async ring, one block per SM (384 threads): its times
+//  are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -572,6 +600,350 @@ __global__ void tp_fused_kernel_sum_splits(const float4* __restrict__ part, floa
   out[i] = s;
 }
 
+// ---- the 8-lane kernel (irreps up to l = 2; head note) ----
+
+constexpr int L2_THREADS = 384;   // a thread per channel: F <= 384
+constexpr int L2_WARPS = L2_THREADS / 32;
+constexpr int L2_TN = 4;          // receivers per block
+constexpr int L2_ROWS = 32;       // live edges per tile
+constexpr int L2_MS_MAX = 64;     // senders per block
+constexpr int L2_HMAX = 64;       // widest hidden layer: a W2 column in registers
+constexpr int L2_K = 5;           // components of an l <= 2 irrep
+constexpr int L2_G = L2_K * L2_K * L2_K;   // alpha*cg padded to (5, 5, 5)
+constexpr int L2_MAX_PATHS = 32;
+
+static_assert(L2_WARPS <= 16, "the compaction's warp counts");
+
+// The 8-lane kernel's shared memory, in floats (every piece 16-byte aligned).
+struct LayoutL2 {
+  int w1, b1, g, ptab, x, mask, edges, wcnt, a, sh, hid, em, t, total;
+};
+
+__host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int D, int n_paths,
+                                                   int t_size, int MS) {
+  LayoutL2 L;
+  int o = 0;
+  L.w1 = o;    o += pad4(E * H);
+  L.b1 = o;    o += pad4(H);
+  L.g = o;     o += pad4(n_paths * L2_G);
+  L.ptab = o;  o += n_paths * 8;                  // ints
+  L.x = o;     o += pad4(MS * D);
+  L.mask = o;  o += pad4(C * L2_TN * MS);
+  L.edges = o; o += pad4(L2_TN * MS);             // ints: nl * MS + ml of the live pairs
+  L.wcnt = o;  o += 20;                           // ints: per-warp counts, then the total
+  L.a = o;     o += pad4(C * L2_ROWS * E);
+  L.sh = o;    o += L2_ROWS * SH_STRIDE;
+  L.hid = o;   o += pad4(C * L2_ROWS * H);
+  L.em = o;    o += 2 * L2_ROWS;
+  L.t = o;     o += pad4(L2_ROWS * t_size);
+  L.total = o;
+  return L;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
+    const T* __restrict__ x,         // (B, M, D) sender features
+    const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
+    const T* __restrict__ attr0,     // (B, N, M, E) edge attributes, channel 0
+    const T* __restrict__ attr1,     // (B, N, M, E) channel 1 (read when C == 2)
+    const void* __restrict__ mask0,  // (B, N, M) bool or f32
+    const void* __restrict__ mask1,  // (B, N, M) (read when C == 2)
+    const float* __restrict__ w1,    // (E, H)
+    const float* __restrict__ b1,    // (H)
+    const float* __restrict__ w2,    // (H, F)
+    const float* __restrict__ b2,    // (F)
+    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
+    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
+    float* __restrict__ dst,         // out (B, N, F, 8), or the partial sums (splits, B, N, F, 8)
+    int B, int N, int M, int D, int S, int C, int E, int H, int F, int n_paths, int t_size,
+    int MS, int mask_is_f32) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
+  const LayoutL2 L = make_layout_l2(C, E, H, D, n_paths, t_size, MS);
+  float* s_w1 = smem + L.w1;                                    // [k][H]
+  float* s_b1 = smem + L.b1;
+  float* s_g = smem + L.g;
+  int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);
+  float* s_x = smem + L.x;                                      // [ml][D]
+  float* s_mask = smem + L.mask;                                // [c][nl * MS + ml]
+  int* s_edges = reinterpret_cast<int*>(smem + L.edges);
+  int* s_wcnt = reinterpret_cast<int*>(smem + L.wcnt);
+  float* s_a = smem + L.a;                                      // [c][row][E]
+  float* s_sh = smem + L.sh;                                    // [row][SH_STRIDE]
+  float* s_hid = smem + L.hid;                                  // [c][row][H] (f32: c = 0 only)
+  float* s_em = smem + L.em;                                    // [c][row]: the rows' masks
+  float* s_t = smem + L.t;                                      // [row][t_size]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z;
+  const int n0 = blockIdx.y * L2_TN;
+  const int m0 = blockIdx.x, mstep = gridDim.x;
+  const int ms = (M - m0 + mstep - 1) / mstep;   // senders of this block, <= MS
+
+  for (int i = tid; i < E * H; i += L2_THREADS) s_w1[i] = ROUND ? bf16_round(w1[i]) : w1[i];
+  for (int i = tid; i < H; i += L2_THREADS) s_b1[i] = ROUND ? bf16_round(b1[i]) : b1[i];
+  for (int i = tid; i < n_paths * L2_G; i += L2_THREADS) s_g[i] = gtab[i];
+  for (int i = tid; i < n_paths * 8; i += L2_THREADS) s_ptab[i] = ptab[i];
+  for (int i = tid; i < ms * D; i += L2_THREADS) {
+    const int ml = i / D, d = i - ml * D;
+    s_x[i] = to_f(x[((size_t)b * M + m0 + ml * mstep) * D + d]);
+  }
+  for (int i = tid; i < C * L2_TN * MS; i += L2_THREADS) {
+    const int c = i / (L2_TN * MS);
+    const int r = i - c * L2_TN * MS;
+    const int nl = r / MS, ml = r - nl * MS;
+    const int n = n0 + nl;
+    float v = 0.f;
+    if (n < N && ml < ms) {
+      const size_t at = ((size_t)b * N + n) * M + m0 + ml * mstep;
+      const void* mp = c == 0 ? mask0 : mask1;
+      v = mask_is_f32 ? static_cast<const float*>(mp)[at]
+                      : (static_cast<const uint8_t*>(mp)[at] ? 1.f : 0.f);
+    }
+    s_mask[i] = v;
+  }
+  // the thread's channel: its table row, W2 column and b2
+  const int f = tid;
+  const bool active = f < F;
+  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);   // x_base, d_in, d_out, path
+  const int t_off = active ? ptab[cm.w * 8 + 4] : 0;
+  float w2c[L2_HMAX];
+#pragma unroll
+  for (int h = 0; h < L2_HMAX; ++h) {
+    const float v = active && h < H ? w2[(size_t)h * F + f] : 0.f;
+    w2c[h] = ROUND ? bf16_round(v) : v;
+  }
+  const float b2f = active ? (ROUND ? bf16_round(b2[f]) : b2[f]) : 0.f;
+  __syncthreads();
+
+  // ---- compaction: the live pairs nl * MS + ml, in order
+  const int pairs = L2_TN * MS;
+  int total = 0;
+  for (int base = 0; base < pairs; base += L2_THREADS) {
+    const int idx = base + tid;
+    bool live = false;
+    if (idx < pairs) {
+      live = s_mask[idx] != 0.f;
+      if (C == 2) live = live || s_mask[pairs + idx] != 0.f;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) s_wcnt[warp] = __popc(bal);
+    __syncthreads();
+    if (tid == 0) {
+      int run = 0;
+      for (int w = 0; w < L2_WARPS; ++w) {
+        const int c = s_wcnt[w];
+        s_wcnt[w] = run;
+        run += c;
+      }
+      s_wcnt[16] = run;
+    }
+    __syncthreads();
+    if (live) s_edges[total + s_wcnt[warp] + __popc(bal & ((1u << lane) - 1u))] = idx;
+    total += s_wcnt[16];
+    __syncthreads();
+  }
+
+  float acc[L2_TN][L2_K];
+#pragma unroll
+  for (int nl = 0; nl < L2_TN; ++nl)
+#pragma unroll
+    for (int k = 0; k < L2_K; ++k) acc[nl][k] = 0.f;
+  int cur = 0;          // the receiver whose rows are being walked, and its running sums
+  float run[L2_K];
+#pragma unroll
+  for (int k = 0; k < L2_K; ++k) run[k] = 0.f;
+
+  for (int first = 0; first < total; first += L2_ROWS) {
+    const int rows = min(L2_ROWS, total - first);
+    // ---- gather the tile's attribute rows, harmonics and masks
+    for (int i = tid; i < C * rows * E; i += L2_THREADS) {
+      const int c = i / (rows * E);
+      const int rem = i - c * rows * E;
+      const int r = rem / E, k = rem - r * E;
+      const int e = s_edges[first + r];
+      const int nl = e / MS, ml = e - nl * MS;
+      const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
+      s_a[(c * L2_ROWS + r) * E + k] = to_f((c == 0 ? attr0 : attr1)[edge * E + k]);
+    }
+    for (int i = tid; i < rows * SH_STRIDE; i += L2_THREADS) {
+      const int r = i / SH_STRIDE, j = i - r * SH_STRIDE;
+      const int e = s_edges[first + r];
+      const int nl = e / MS, ml = e - nl * MS;
+      const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
+      s_sh[i] = j < S ? to_f(sh[edge * S + j]) : 0.f;
+    }
+    for (int i = tid; i < C * rows; i += L2_THREADS) {
+      const int c = i / rows, r = i - c * rows;
+      s_em[c * L2_ROWS + r] = s_mask[c * pairs + s_edges[first + r]];
+    }
+    __syncthreads();
+
+    // ---- the hidden layer, once for all channels
+    if (ROUND) {
+      for (int i = tid; i < C * rows * H; i += L2_THREADS) {
+        const int c = i / (rows * H);
+        const int rem = i - c * rows * H;
+        const int r = rem / H, h = rem - r * H;
+        const float* A = s_a + (c * L2_ROWS + r) * E;
+        float pre = 0.f;
+        for (int k = 0; k < E; ++k) pre = fmaf(A[k], s_w1[k * H + h], pre);
+        s_hid[(c * L2_ROWS + r) * H + h] = fmaxf(bf16_round(bf16_round(pre) + s_b1[h]), 0.f);
+      }
+    } else {
+      for (int i = tid; i < rows * H; i += L2_THREADS) {
+        const int r = i / H, h = i - r * H;
+        float hs = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const float* A = s_a + (c * L2_ROWS + r) * E;
+          float pre = 0.f;
+          for (int k = 0; k < E; ++k) pre = fmaf(A[k], s_w1[k * H + h], pre);
+          hs = fmaf(s_em[c * L2_ROWS + r], fmaxf(pre + s_b1[h], 0.f), hs);
+        }
+        s_hid[r * H + h] = hs;
+      }
+    }
+    // ---- t of every (edge, path, i)
+    for (int it = tid; it < rows * n_paths * L2_K; it += L2_THREADS) {
+      const int r = it / (n_paths * L2_K);
+      const int rem = it - r * n_paths * L2_K;
+      const int p = rem / L2_K, i = rem - p * L2_K;
+      const int* pt = s_ptab + p * 8;
+      if (i >= pt[1]) continue;
+      const int d_sh = pt[2], d_out = pt[3];
+      const float* G = s_g + p * L2_G + i * L2_K * L2_K;
+      const float* sv = s_sh + r * SH_STRIDE + pt[0];
+      float* tq = s_t + r * t_size + pt[4] + i * d_out;
+      for (int k = 0; k < d_out; ++k) {
+        float t = 0.f;
+        for (int j = 0; j < d_sh; ++j) t = fmaf(G[j * L2_K + k], sv[j], t);
+        tq[k] = t;
+      }
+    }
+    __syncthreads();
+
+    // ---- the channel's share of every row, summed receiver by receiver
+    if (active) {
+      for (int r = 0; r < rows; ++r) {
+        const int e = s_edges[first + r];
+        const int nl = e / MS, ml = e - nl * MS;
+        if (nl != cur) {
+#pragma unroll
+          for (int q = 0; q < L2_TN; ++q)
+            if (q == cur) {
+#pragma unroll
+              for (int k = 0; k < L2_K; ++k) acc[q][k] += run[k];
+            }
+          cur = nl;
+#pragma unroll
+          for (int k = 0; k < L2_K; ++k) run[k] = 0.f;
+        }
+        float w = 0.f;
+        for (int c = 0; c < (ROUND ? C : 1); ++c) {
+          const float* hr = s_hid + (c * L2_ROWS + r) * H;
+          float dot = 0.f;
+#pragma unroll
+          for (int h4 = 0; h4 < L2_HMAX / 4; ++h4) {
+            if (4 * h4 < H) {
+              const float4 v = *reinterpret_cast<const float4*>(hr + 4 * h4);
+              dot = fmaf(v.x, w2c[4 * h4], dot);
+              dot = fmaf(v.y, w2c[4 * h4 + 1], dot);
+              dot = fmaf(v.z, w2c[4 * h4 + 2], dot);
+              dot = fmaf(v.w, w2c[4 * h4 + 3], dot);
+            }
+          }
+          if (ROUND) {
+            const float v = bf16_round(bf16_round(dot) + b2f) * s_em[c * L2_ROWS + r];
+            w = c == 0 ? v : bf16_round(w + v);
+          } else {
+            const float msum = s_em[r] + (C == 2 ? s_em[L2_ROWS + r] : 0.f);
+            w = fmaf(msum, b2f, dot);
+          }
+        }
+        const float* xr = s_x + ml * D + cm.x;
+        const float* tq = s_t + r * t_size + t_off;
+#pragma unroll
+        for (int i = 0; i < L2_K; ++i) {
+          if (i >= cm.y) break;
+          const float g = w * xr[i];
+#pragma unroll
+          for (int k = 0; k < L2_K; ++k)
+            if (k < cm.z) run[k] = fmaf(g, tq[i * cm.z + k], run[k]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (active) {
+#pragma unroll
+    for (int q = 0; q < L2_TN; ++q)
+      if (q == cur) {
+#pragma unroll
+        for (int k = 0; k < L2_K; ++k) acc[q][k] += run[k];
+      }
+    float4* o = reinterpret_cast<float4*>(dst) + (size_t)blockIdx.x * B * N * F * 2;
+#pragma unroll
+    for (int nl = 0; nl < L2_TN; ++nl) {
+      const int n = n0 + nl;
+      if (n < N) {
+        const size_t at = ((size_t)b * N + n) * F + f;
+        o[2 * at] = make_float4(acc[nl][0], acc[nl][1], acc[nl][2], acc[nl][3]);
+        o[2 * at + 1] = make_float4(acc[nl][4], 0.f, 0.f, 0.f);
+      }
+    }
+  }
+}
+
+// out[i] = sum over the sender splits of part[k][i], in order (floats).
+__global__ void tp_fused_l2_sum_splits(const float* __restrict__ part, float* __restrict__ out,
+                                       long long total, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = part[i];
+  for (int k = 1; k < splits; ++k) s += part[k * total + i];
+  out[i] = s;
+}
+
+struct ArgsL2 {
+  const void *x, *sh, *attr0, *attr1, *mask0, *mask1;
+  const float *w1, *b1, *w2, *b2;
+  const int *chan, *ptab;
+  const float* gtab;
+  float *out, *part;
+  int B, N, M, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32;
+};
+
+template <typename T>
+int launch_l2(const ArgsL2& a, cudaStream_t stream) {
+  static bool allowed = false;   // the attribute is set once per instantiation
+  if (!allowed) {
+    cudaError_t err = cudaFuncSetAttribute(tp_fused_l2_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const LayoutL2 L = make_layout_l2(a.C, a.E, a.H, a.D, a.n_paths, a.t_size, a.MS);
+  const size_t bytes = (size_t)L.total * sizeof(float);
+  if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int splits = (a.M + a.MS - 1) / a.MS;
+  const dim3 grid(splits, (a.N + L2_TN - 1) / L2_TN, a.B);
+  float* dst = splits > 1 ? a.part : a.out;
+  tp_fused_l2_kernel<T><<<grid, L2_THREADS, bytes, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
+      static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.w1, a.b1, a.w2, a.b2,
+      reinterpret_cast<const int4*>(a.chan), a.ptab, a.gtab, dst, a.B, a.N, a.M, a.D, a.S, a.C,
+      a.E, a.H, a.F, a.n_paths, a.t_size, a.MS, a.mask_is_f32);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long total = (long long)a.B * a.N * a.F * 8;
+  tp_fused_l2_sum_splits<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a.part, a.out,
+                                                                             total, splits);
+  return (int)cudaGetLastError();
+}
+
 struct Args {
   const void *x, *sh, *attr0, *attr1, *mask0, *mask1;
   const float *w1, *b1, *w2, *b2;
@@ -643,6 +1015,26 @@ int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* at
                B, N, M, D, S, C, E, H, F, n_paths, MS, mask_is_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_nc<__nv_bfloat16>(a, st) : launch_nc<float>(a, st);
+}
+
+// The 8-lane kernel (irreps up to l = 2): out (B, N, F, 8); tables from
+// tp_fused.tables_l2; `part` holds (ceil(M / MS), B, N, F, 8) floats when the
+// senders are split (MS < M).  Returns a cudaError_t value.
+int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void* attr1,
+                   const void* mask0, const void* mask1, const float* w1, const float* b1,
+                   const float* w2, const float* b2, const int* chan, const int* ptab,
+                   const float* gtab, float* out, float* part, int B, int N, int M, int D, int S,
+                   int C, int E, int H, int F, int n_paths, int t_size, int MS, int mask_is_f32,
+                   int bf16, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HMAX ||
+      C < 1 || C > 2 || S < 1 || S > SH_STRIDE || F < 1 || F > L2_THREADS || n_paths < 1 ||
+      n_paths > L2_MAX_PATHS || t_size < 1 || B > 65535 || (N + L2_TN - 1) / L2_TN > 65535 ||
+      MS < 1 || MS > L2_MS_MAX || (MS < M && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const ArgsL2 a{x, sh, attr0, attr1, mask0, mask1, w1, b1, w2, b2, chan, ptab, gtab, out, part,
+                 B, N, M, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_l2<__nv_bfloat16>(a, st) : launch_l2<float>(a, st);
 }
 
 const char* dp_cuda_error_string(int code) {

@@ -72,6 +72,14 @@
 //    (edge, component) adds the edge's G lanes in order and writes the full
 //    S-component row (0 where no path reads).  No atomics: two runs agree
 //    to the bit.
+// Lanes.  Every kernel is a template on L, the largest l of the
+// convolution's irreps.  L = 1 is the 4-lane layout above (K <= 3, g and out
+// (B, N, F, 4), P = 4 components in the edge backward).  L = 2 is the same
+// code with five sums a channel (K <= 5: the 0e x 2e -> 2e path of the
+// second-order layer-0 convolutions), g and out (B, N, F, 8) (lanes 5-7
+// zero, never read), and the edge backward reading all P = 9 harmonic
+// components (that path reads components 4-8); `if constexpr` keeps the
+// L = 1 instantiations as they were.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +94,8 @@ constexpr int EDGE_THREADS = 256;                // threads of an edge-backward 
 constexpr int EDGE_WARPS = EDGE_THREADS / 32;
 constexpr int EDGE_F_MAX = 128;  // channels of a row: four a lane
 constexpr int P = 4;             // harmonic components the edge backward reads
+constexpr int P_L1 = P;
+constexpr int P_L2 = 9;          // the same at L = 2: 0e, 1o and 2e
 constexpr int EB = 2;            // steps of the edge backward loaded before any is finished
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -104,7 +114,7 @@ __device__ __forceinline__ float ld(const T* p) { return to_f(__ldg(p)); }
 // ---- forward and dx: one launch per convolution (head note) ----
 
 // dst: out (B, N, F, 4) when one split, else the partial sums (splits, B, N, F, 4).
-template <typename T>
+template <typename T, int L>
 __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
     const T* __restrict__ x,           // (B, M, D) sender scalars
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
@@ -119,10 +129,11 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
   const int m0 = blockIdx.x * chunk, m1 = min(M, m0 + chunk);
   const int4 c = chan[f];
   const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;   // in range for any K
+  const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
   const T* xp = x + (size_t)b * M * D + c.x;
   const T* wp = w + ((size_t)b * N + n) * M * F + f;
   const T* sp = sh + ((size_t)b * N + n) * M * S + c.y;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
 #pragma unroll 8
   for (int m = m0; m < m1; ++m) {
     const float xw = ld(xp + (size_t)m * D) * ld(wp + (size_t)m * F);
@@ -130,18 +141,29 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
     a0 = fmaf(xw, ld(s), a0);
     a1 = fmaf(xw, ld(s + k1), a1);
     a2 = fmaf(xw, ld(s + k2), a2);
+    if constexpr (L == 2) {
+      a3 = fmaf(xw, ld(s + k3), a3);
+      a4 = fmaf(xw, ld(s + k4), a4);
+    }
   }
   const float sc = scale[f];
-  reinterpret_cast<float4*>(dst)[((size_t)blockIdx.x * B * N + (size_t)b * N + n) * F + f] =
-      make_float4(sc * a0, k1 ? sc * a1 : 0.f, k2 ? sc * a2 : 0.f, 0.f);
+  const size_t at = ((size_t)blockIdx.x * B * N + (size_t)b * N + n) * F + f;
+  if constexpr (L == 1) {
+    reinterpret_cast<float4*>(dst)[at] =
+        make_float4(sc * a0, k1 ? sc * a1 : 0.f, k2 ? sc * a2 : 0.f, 0.f);
+  } else {
+    float4* o = reinterpret_cast<float4*>(dst) + 2 * at;
+    o[0] = make_float4(sc * a0, k1 ? sc * a1 : 0.f, k2 ? sc * a2 : 0.f, k3 ? sc * a3 : 0.f);
+    o[1] = make_float4(k4 ? sc * a4 : 0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 // Writes dx (B, M, D) in T when one split, else f32 partial sums (splits, B, M, D).
-template <typename T>
+template <typename T, int L>
 __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
     const T* __restrict__ sh,          // (B, N, M, S)
     const T* __restrict__ w,           // (B, N, M, F)
-    const float* __restrict__ g,       // (B, N, F, 4) upstream gradient
+    const float* __restrict__ g,       // (B, N, F, 4 L) upstream gradient
     const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
     const float* __restrict__ scale,   // (F)
     const int* __restrict__ d_ptr,     // (D + 1): extents into d_item per input element
@@ -163,18 +185,25 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
       const int n0 = blockIdx.x * chunk, n1 = min(N, n0 + chunk);
       const int4 c = chan[f];
       const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;
+      const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
       const size_t edge_n = (size_t)M;                      // edges between receivers n, n + 1
       const T* wp = w + ((size_t)b * N * M + m) * F + f;
       const T* sp = sh + ((size_t)b * N * M + m) * S + c.y;
-      const float4* gp = reinterpret_cast<const float4*>(g) + (size_t)b * N * F + f;
+      // L float4 of g a channel
+      const float4* gp = reinterpret_cast<const float4*>(g) + ((size_t)b * N * F + f) * L;
 #pragma unroll 8
       for (int n = n0; n < n1; ++n) {
         const float wv = ld(wp + n * edge_n * F);
         const T* s = sp + n * edge_n * S;
-        const float4 gv = __ldg(gp + (size_t)n * F);
+        const float4 gv = __ldg(gp + (size_t)n * F * L);
         float t = ld(s) * gv.x;
         t = fmaf(ld(s + k1), k1 ? gv.y : 0.f, t);
         t = fmaf(ld(s + k2), k2 ? gv.z : 0.f, t);
+        if constexpr (L == 2) {
+          const float4 gw = __ldg(gp + (size_t)n * F * L + 1);
+          t = fmaf(ld(s + k3), k3 ? gv.w : 0.f, t);
+          t = fmaf(ld(s + k4), k4 ? gw.x : 0.f, t);
+        }
         acc = fmaf(wv, t, acc);
       }
       acc *= scale[f];
@@ -240,16 +269,18 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
 // VEC: F a multiple of four and the rows of dw (and of w with DSH) aligned
 // to four elements; xvec: each lane's four channels read four neighbouring,
 // aligned elements of x.  No channel reads a harmonic component past P.
-template <typename T, bool DSH, bool VEC>
+template <typename T, bool DSH, bool VEC, int L>
 __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
     const T* __restrict__ x,           // (B, M, D) sender scalars
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
     const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights (DSH)
-    const float* __restrict__ g,       // (B, N, F, 4) upstream gradient
+    const float* __restrict__ g,       // (B, N, F, 4 L) upstream gradient
     const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
     const float* __restrict__ scale,   // (F): c_p of the channel's path
     T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int D, int S, int F, int edges,
     int xvec) {
+  constexpr int P = L == 1 ? P_L1 : P_L2;   // harmonic components read
+  constexpr int KK = 2 * L + 1;            // components of a channel's output
   __shared__ float s_red[DSH ? EDGE_THREADS * P : 1];   // each lane's dsh partial sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = (F + 3) / 4;                     // lanes of one edge
@@ -281,7 +312,7 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
     const int x_of = (r / N) * M - r * M;             // + edge: the sender row of an edge
     // per channel, c_p g[k] at harmonic component offset + k, 0 elsewhere
     float coef[4][P];
-    {
+    if constexpr (L == 1) {
       const float* gr = g + (r * F + 4 * j) * 4;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -293,6 +324,25 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
         for (int s = 0; s < P; ++s) {
           const int k = s - co[c];
           coef[c][s] = k == 0 ? a[0] : (k == 1 ? a[1] : (k == 2 ? a[2] : 0.f));
+        }
+      }
+    } else {
+      const float* gr = g + (r * F + 4 * j) * 8;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float a[KK];
+#pragma unroll
+        for (int k = 0; k < KK; ++k) a[k] = 0.f;
+#pragma unroll
+        for (int k = 0; k < KK; ++k)
+          if (k < ck[c]) a[k] = cs[c] * gr[c * 8 + k];
+#pragma unroll
+        for (int s = 0; s < P; ++s) {
+          const int k = s - co[c];
+          float v = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KK; ++kk) v = k == kk ? a[kk] : v;
+          coef[c][s] = v;
         }
       }
     }
@@ -411,26 +461,26 @@ int sum_splits(const float* part, T* out, long long total, int splits, cudaStrea
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int L>
 int launch_fwd(const void* x, const void* sh, const void* w, const int* chan, const float* scale,
                float* out, float* part, int B, int N, int M, int D, int S, int F, int keep,
                int chunk, int splits, cudaStream_t st) {
   const dim3 grid(splits, (N + keep - 1) / keep, B);
-  tp_scalar_fwd_kernel<T><<<grid, round_up_32(keep * F), 0, st>>>(
+  tp_scalar_fwd_kernel<T, L><<<grid, round_up_32(keep * F), 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
       reinterpret_cast<const int4*>(chan), scale, splits > 1 ? part : out, B, N, M, D, S, F, keep,
       chunk);
-  return sum_splits<float>(part, out, (long long)B * N * F * 4, splits, st);
+  return sum_splits<float>(part, out, (long long)B * N * F * 4 * L, splits, st);
 }
 
-template <typename T>
+template <typename T, int L>
 int launch_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
                  const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
                  int B, int N, int M, int D, int S, int F, int n_items, int keep, int chunk,
                  int splits, cudaStream_t st) {
   const dim3 grid(splits, (M + keep - 1) / keep, B);
   T* out = static_cast<T*>(dx);
-  tp_scalar_bwd_x_kernel<T><<<grid, round_up_32(keep * F), bwd_x_smem(keep, F, D, n_items), st>>>(
+  tp_scalar_bwd_x_kernel<T, L><<<grid, round_up_32(keep * F), bwd_x_smem(keep, F, D, n_items), st>>>(
       static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
       scale, d_ptr, d_item, out, splits > 1 ? part : nullptr, B, N, M, D, S, F, n_items, keep,
       chunk);
@@ -441,7 +491,7 @@ bool quad_aligned(const void* p, int esize) {
   return reinterpret_cast<unsigned long long>(p) % (4 * esize) == 0;
 }
 
-template <typename T, bool DSH>
+template <typename T, bool DSH, int L>
 int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const float* g,
                       const int* chan, const float* scale, void* dw, void* dsh, int N, int M,
                       int D, int S, int F, int edges, bool vec, int xvec, int blocks,
@@ -453,15 +503,15 @@ int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const float*
   T* dwt = static_cast<T*>(dw);
   T* dsht = static_cast<T*>(dsh);
   if (vec)
-    tp_scalar_bwd_edge_kernel<T, DSH, true><<<blocks, EDGE_THREADS, 0, st>>>(
+    tp_scalar_bwd_edge_kernel<T, DSH, true, L><<<blocks, EDGE_THREADS, 0, st>>>(
         xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
   else
-    tp_scalar_bwd_edge_kernel<T, DSH, false><<<blocks, EDGE_THREADS, 0, st>>>(
+    tp_scalar_bwd_edge_kernel<T, DSH, false, L><<<blocks, EDGE_THREADS, 0, st>>>(
         xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int L>
 int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
                     const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
                     int M, int D, int S, int F, int x_quads, int blocks, cudaStream_t st) {
@@ -471,16 +521,94 @@ int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g
                    (dsh == nullptr || quad_aligned(w, esize));
   const int xvec = x_quads && D % 4 == 0 && quad_aligned(x, esize);
   blocks = std::min(blocks, (edges + EDGE_WARPS - 1) / EDGE_WARPS);
-  return dsh != nullptr ? launch_bwd_edge_t<T, true>(x, sh, w, g, chan, scale, dw, dsh, N, M, D,
-                                                     S, F, edges, vec, xvec, blocks, st)
-                        : launch_bwd_edge_t<T, false>(x, sh, w, g, chan, scale, dw, dsh, N, M, D,
-                                                      S, F, edges, vec, xvec, blocks, st);
+  return dsh != nullptr ? launch_bwd_edge_t<T, true, L>(x, sh, w, g, chan, scale, dw, dsh, N, M,
+                                                        D, S, F, edges, vec, xvec, blocks, st)
+                        : launch_bwd_edge_t<T, false, L>(x, sh, w, g, chan, scale, dw, dsh, N, M,
+                                                         D, S, F, edges, vec, xvec, blocks, st);
 }
 
-template <typename T, bool DSH>
+template <typename T, bool DSH, int L>
 cudaError_t edge_occupancy(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true>, EDGE_THREADS, 0);
+      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true, L>, EDGE_THREADS, 0);
+}
+
+// The extern "C" entry points of lane count L (below), shared by both.
+template <int L>
+int fwd_entry(const void* x, const void* sh, const void* w, const int* chan, const float* scale,
+              float* out, float* part, int B, int N, int M, int D, int S, int F, int keep,
+              int chunk, int splits, int bf16, void* stream) {
+  if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, M, part) ||
+      (N + keep - 1) / keep > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<__nv_bfloat16, L>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F,
+                                             keep, chunk, splits, st)
+              : launch_fwd<float, L>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep,
+                                     chunk, splits, st);
+}
+
+template <int L>
+int bwd_x_entry(const void* sh, const void* w, const float* g, const int* chan,
+                const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
+                int B, int N, int M, int D, int S, int F, int n_items, int keep, int chunk,
+                int splits, int bf16, void* stream) {
+  if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, N, part) || n_items < 1 ||
+      (M + keep - 1) / keep > 65535 || bwd_x_smem(keep, F, D, n_items) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_x<__nv_bfloat16, L>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B,
+                                               N, M, D, S, F, n_items, keep, chunk, splits, st)
+              : launch_bwd_x<float, L>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D,
+                                       S, F, n_items, keep, chunk, splits, st);
+}
+
+template <int L>
+int bwd_edge_entry(const void* x, const void* sh, const void* w, const float* g, const int* chan,
+                   const float* scale, void* dw, void* dsh, int B, int N, int M, int D, int S,
+                   int F, int reach, int x_quads, int blocks, int bf16, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
+      reach > (L == 1 ? P_L1 : P_L2) || reach > S || blocks < 1 ||
+      (dw == nullptr && dsh == nullptr) ||
+      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_edge<__nv_bfloat16, L>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D,
+                                                  S, F, x_quads, blocks, st)
+              : launch_bwd_edge<float, L>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F,
+                                          x_quads, blocks, st);
+}
+
+template <int L>
+int edge_blocks_entry(int dsh, int bf16) {
+  int blocks = 0;
+  const cudaError_t err = bf16 ? (dsh ? edge_occupancy<__nv_bfloat16, true, L>(&blocks)
+                                      : edge_occupancy<__nv_bfloat16, false, L>(&blocks))
+                               : (dsh ? edge_occupancy<float, true, L>(&blocks)
+                                      : edge_occupancy<float, false, L>(&blocks));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+template <int L>
+int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
+  if (F < 1 || F > THREADS) return -(int)cudaErrorInvalidValue;
+  const int keep = THREADS / F;
+  const int threads = round_up_32(keep * F);
+  int blocks = 0;
+  cudaError_t err;
+  if (dx) {
+    const size_t bytes = bwd_x_smem(keep, F, D, n_items);
+    err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, L>, threads, bytes)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_scalar_bwd_x_kernel<float, L>, threads, bytes);
+  } else {
+    err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L>, threads, 0)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_scalar_fwd_kernel<float, L>, threads, 0);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // namespace
@@ -497,14 +625,8 @@ extern "C" {
 int dp_tp_scalar_fwd(const void* x, const void* sh, const void* w, const int* chan,
                      const float* scale, float* out, float* part, int B, int N, int M, int D,
                      int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
-  if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, M, part) ||
-      (N + keep - 1) / keep > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<__nv_bfloat16>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F,
-                                          keep, chunk, splits, st)
-              : launch_fwd<float>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep, chunk,
-                                  splits, st);
+  return fwd_entry<1>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep, chunk, splits,
+                      bf16, stream);
 }
 
 // dx (B, M, D) of every path of a convolution, in the operands' type; `part`
@@ -513,14 +635,8 @@ int dp_tp_scalar_bwd_x(const void* sh, const void* w, const float* g, const int*
                        const float* scale, const int* d_ptr, const int* d_item, void* dx,
                        float* part, int B, int N, int M, int D, int S, int F, int n_items,
                        int keep, int chunk, int splits, int bf16, void* stream) {
-  if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, N, part) || n_items < 1 ||
-      (M + keep - 1) / keep > 65535 || bwd_x_smem(keep, F, D, n_items) > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_x<__nv_bfloat16>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N,
-                                            M, D, S, F, n_items, keep, chunk, splits, st)
-              : launch_bwd_x<float>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S,
-                                    F, n_items, keep, chunk, splits, st);
+  return bwd_x_entry<1>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F,
+                        n_items, keep, chunk, splits, bf16, stream);
 }
 
 // dw (B, N, M, F) into `dw` (nullptr: none) and dsh (B, N, M, S) into `dsh`
@@ -534,50 +650,51 @@ int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const fl
                           const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
                           int M, int D, int S, int F, int reach, int x_quads, int blocks, int bf16,
                           void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
-      reach > P || reach > S || blocks < 1 || (dw == nullptr && dsh == nullptr) ||
-      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_edge<__nv_bfloat16>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S,
-                                               F, x_quads, blocks, st)
-              : launch_bwd_edge<float>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F,
-                                       x_quads, blocks, st);
+  return bwd_edge_entry<1>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F, reach, x_quads,
+                           blocks, bf16, stream);
 }
 
 // Blocks of the edge backward that one SM holds at once (dsh: with dsh), or
 // minus a cudaError_t value.
-int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) {
-  int blocks = 0;
-  const cudaError_t err = bf16 ? (dsh ? edge_occupancy<__nv_bfloat16, true>(&blocks)
-                                      : edge_occupancy<__nv_bfloat16, false>(&blocks))
-                               : (dsh ? edge_occupancy<float, true>(&blocks)
-                                      : edge_occupancy<float, false>(&blocks));
-  return err == cudaSuccess ? blocks : -(int)err;
-}
+int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) { return edge_blocks_entry<1>(dsh, bf16); }
 
 // Blocks of the forward (dx = 0) or dx kernel that one SM holds at once for a
 // convolution of F channels (keep = THREADS / F entries a block), D input
 // elements and n_items (channel, element) pairs, or minus a cudaError_t value.
 int dp_tp_scalar_blocks_per_sm(int dx, int F, int D, int n_items, int bf16) {
-  if (F < 1 || F > THREADS) return -(int)cudaErrorInvalidValue;
-  const int keep = THREADS / F;
-  const int threads = round_up_32(keep * F);
-  int blocks = 0;
-  cudaError_t err;
-  if (dx) {
-    const size_t bytes = bwd_x_smem(keep, F, D, n_items);
-    err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16>, threads, bytes)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<float>, threads, bytes);
-  } else {
-    err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16>, threads, 0)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<float>, threads, 0);
-  }
-  return err == cudaSuccess ? blocks : -(int)err;
+  return blocks_entry<1>(dx, F, D, n_items, bf16);
+}
+
+// The same five functions at L = 2: g and out (B, N, F, 8), K <= 5, reach <= 9.
+int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int* chan,
+                        const float* scale, float* out, float* part, int B, int N, int M, int D,
+                        int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
+  return fwd_entry<2>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep, chunk, splits,
+                      bf16, stream);
+}
+
+int dp_tp_scalar_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
+                          const float* scale, const int* d_ptr, const int* d_item, void* dx,
+                          float* part, int B, int N, int M, int D, int S, int F, int n_items,
+                          int keep, int chunk, int splits, int bf16, void* stream) {
+  return bwd_x_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F,
+                        n_items, keep, chunk, splits, bf16, stream);
+}
+
+int dp_tp_scalar_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
+                             const int* chan, const float* scale, void* dw, void* dsh, int B,
+                             int N, int M, int D, int S, int F, int reach, int x_quads,
+                             int blocks, int bf16, void* stream) {
+  return bwd_edge_entry<2>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F, reach, x_quads,
+                           blocks, bf16, stream);
+}
+
+int dp_tp_scalar_bwd_edge_blocks_per_sm_l2(int dsh, int bf16) {
+  return edge_blocks_entry<2>(dsh, bf16);
+}
+
+int dp_tp_scalar_blocks_per_sm_l2(int dx, int F, int D, int n_items, int bf16) {
+  return blocks_entry<2>(dx, F, D, n_items, bf16);
 }
 
 const char* dp_cuda_error_string(int code) {

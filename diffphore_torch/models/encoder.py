@@ -8,8 +8,8 @@ With ``use_att`` a geometric attention block (Trioformer,
 ``models/trioformer.py``) replaces the node features after the phore graph
 is built, and its pair embedding conditions the cross edges: it joins their
 attributes and scales their vectors.  The phore grid is dense
-(``phore_knn = 0``) and the features go up to l = 1
-(``use_second_order_repr = False``).  In training mode the MLPs and convs
+(``phore_knn = 0``); the features go up to l = 1, or to l = 2 with
+``use_second_order_repr`` (the 8-lane kernels).  In training mode the MLPs and convs
 apply dropout, the convs' batch norms take masked batch statistics, and the
 pose-group factoring is off; it is off with ``use_att`` too, whose node
 features depend on the pose.
@@ -29,11 +29,18 @@ from ..ops.sh import spherical_harmonics_lmax2
 from .layers import MLP, CategoricalEncoder, DenseTPConv, GaussianSmearing, leaky_relu
 from .trioformer import GeometricAttention
 
-#: the slice of the port that brings the refused encoder options
-NEXT_SLICE = "the next slice of the port (l = 2 features and the KNN phore grid)"
+#: the slice of the port that brings the refused encoder option
+NEXT_SLICE = "the next slice of the port (the KNN phore grid)"
 
 
-def irrep_seq(ns: int, nv: int):
+def irrep_seq(ns: int, nv: int, second_order: bool = False):
+    if second_order:
+        return [
+            f"{ns}x0e",
+            f"{ns}x0e + {nv}x1o + {nv}x2e",
+            f"{ns}x0e + {nv}x1o + {nv}x2e + {nv}x1e + {nv}x2o",
+            f"{ns}x0e + {nv}x1o + {nv}x2e + {nv}x1e + {nv}x2o + {ns}x0o",
+        ]
     return [
         f"{ns}x0e",
         f"{ns}x0e + {nv}x1o",
@@ -55,9 +62,8 @@ class LigPhoreEncoder(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.phore_knn or cfg.use_second_order_repr:
-            raise NotImplementedError(
-                f"phore_knn > 0 and use_second_order_repr come with {NEXT_SLICE}")
+        if cfg.phore_knn:
+            raise NotImplementedError(f"phore_knn > 0 comes with {NEXT_SLICE}")
         if cfg.tp_mode not in ("channelwise", "fully_connected"):
             raise ValueError(f"tp_mode {cfg.tp_mode!r}: channelwise or fully_connected")
         self.cfg = cfg
@@ -100,7 +106,7 @@ class LigPhoreEncoder(nn.Module):
             self.geometric_attention = GeometricAttention(ns, cfg.trioformer_layer)
         self.cross_edge_embedding = MLP(cross_in, ns, ns, dropout=cfg.dropout)
 
-        seq = irrep_seq(ns, cfg.nv)
+        seq = irrep_seq(ns, cfg.nv, cfg.use_second_order_repr)
         self.out_irreps = seq[min(cfg.num_conv_layers, len(seq) - 1)]
 
         def conv(i):

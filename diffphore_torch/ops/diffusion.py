@@ -51,13 +51,23 @@ def t_schedule(inference_steps: int) -> np.ndarray:
     return np.linspace(1.0, 0.0, inference_steps + 1)[:-1]
 
 
+def embedding_frequencies(half: int, max_positions: int, device) -> torch.Tensor:
+    """The sinusoidal embedding's f32 frequencies exp(-log(max_positions) * i /
+    (half - 1)): the f32 exponents, formed as the JAX package forms them,
+    raised in f64 and rounded once, which is what the CPU's f32 exp gives at
+    the shipped widths.  Every device then holds the same table.  A device's
+    own f32 exp may stand one ulp off, and the phase ``embedding_scale * t *
+    freq`` (up to 1e4) carries one ulp of a low frequency to 3e-4 of the
+    score model's outputs."""
+    exponent = (torch.arange(half, dtype=torch.float32, device=device)
+                * (-math.log(max_positions) / (half - 1)))
+    return torch.exp(exponent.double()).float()
+
+
 def sinusoidal_embedding(t: torch.Tensor, embedding_dim: int,
                          max_positions: int = 10000) -> torch.Tensor:
     """Transformer-style sinusoidal embedding of (fractional) steps."""
-    half = embedding_dim // 2
-    freq = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=t.device)
-        * (-math.log(max_positions) / (half - 1)))
+    freq = embedding_frequencies(embedding_dim // 2, max_positions, t.device)
     emb = t[..., None].to(torch.float32) * freq
     emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
     if embedding_dim % 2 == 1:

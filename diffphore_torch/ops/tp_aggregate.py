@@ -7,9 +7,10 @@ The port of ``diffphore_tpu/ops/pallas/tp_aggregate.py::tp_aggregate_pallas``
 
     out[b,n,f,k] = alpha_p sum_{m,i,j} x[b,m,u_p(f),i] sh[b,n,m,j] C_p[i,j,k] w[b,n,m,f]
 
-Output (B, N, F, 4) f32: channel f's l_out components in lanes
-[:2*l_out+1], the rest zero; :func:`tp_fused.blocks_from_padded` splits it
-into the per-irrep blocks.  The training branch of ``DenseTPConv`` runs it
+Output (B, N, F, L) f32, L = :func:`tp_fused.lanes` (4 where every irrep
+has l <= 1, else 8): channel f's l_out components in lanes [:2*l_out+1],
+the rest zero; :func:`tp_fused.blocks_from_padded` splits it into the
+per-irrep blocks.  The training branch of ``DenseTPConv`` runs it
 (the fused kernel K1 has no dropout and no backward).
 
 :func:`tp_aggregate` launches the kernels for CUDA tensors, forward and,
@@ -21,7 +22,10 @@ The forward and ``dx`` split the axis they sum over (senders, receivers)
 across blocks as :func:`launch_splits` says; split blocks write partial sums
 that a second kernel adds in a fixed order.  ``FWD``, ``BWD_EDGE`` and
 ``BWD_X`` count the wrapper calls that launched (one each, whether one
-kernel ran or two).
+kernel ran or two).  A product whose irreps reach l = 2 runs the 8-lane
+kernels of the same source (``*_l2``: one block per receiver (forward),
+sender (dx) or receiver and run of senders (edge backward), a thread per
+channel, no split), counted by ``FWD_L2``, ``BWD_EDGE_L2`` and ``BWD_X_L2``.
 """
 
 from __future__ import annotations
@@ -35,12 +39,16 @@ import torch
 
 from . import build
 from .tensor_product import ChannelwiseTP
-from .tp_fused import (K_PAD, TARGET_BLOCKS, TILE_N, _check_tp, _device_tables, _Kernel,
+from .tp_fused import (K_PAD, K_PAD_L2, MAX_F_L2, MAX_PATHS_L2, TARGET_BLOCKS, TILE_N,
+                       _check_tp, _device_tables, _Kernel, device_tables_l2, lanes,
                        padded_from_blocks)
 
 FWD = _Kernel()        # tp_aggregate_fwd_kernel (+ tp_aggregate_sum_splits)
 BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
 BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx, + tp_aggregate_sum_splits)
+FWD_L2 = _Kernel()       # tp_aggregate_fwd_l2_kernel
+BWD_EDGE_L2 = _Kernel()  # tp_aggregate_bwd_edge_l2_kernel (dw, and dsh when needed)
+BWD_X_L2 = _Kernel()     # tp_aggregate_bwd_x_l2_kernel
 KEEP = 8               # receivers (forward) or senders (dx) one block keeps
 TILE_SUM = 4           # entries of the summed axis in one tile of a block
 
@@ -48,7 +56,7 @@ TILE_SUM = 4           # entries of the summed axis in one tile of a block
 def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``tp.aggregate`` packed into
-    (B, N, F, 4) f32 (bf16 operands multiplied and summed in f32, with the
+    (B, N, F, lanes(tp)) f32 (bf16 operands multiplied and summed in f32, with the
     coupling tensors rounded to bf16).  Differentiable by autograd in x, sh
     and w."""
     _check_tp(tp)
@@ -56,10 +64,11 @@ def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _backward_tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _backward_tables(tp: ChannelwiseTP, stride: int = 4
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per path (f_start, f_count, d_sh, d_out) int32 (n_paths, 4); and, per
     input element d, the (channel, component) pairs that read it: extents
-    ``d_ptr`` (D + 1) into ``d_item`` (entries f * 4 + i, ascending)."""
+    ``d_ptr`` (D + 1) into ``d_item`` (entries f * stride + i, ascending)."""
     in_slices = tp.irreps_in.slices()
     ptab = np.zeros((len(tp.paths), 4), np.int32)
     readers = [[] for _ in range(tp.irreps_in.dim)]
@@ -68,7 +77,8 @@ def _backward_tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray, np.ndar
         ptab[q] = (p.w_slice[0], p.mul_in, 2 * p.l_sh + 1, 2 * p.l_out + 1)
         for u in range(p.mul_in):
             for i in range(d1):
-                readers[in_slices[p.i_in].start + u * d1 + i].append((p.w_slice[0] + u) * 4 + i)
+                readers[in_slices[p.i_in].start + u * d1 + i].append(
+                    (p.w_slice[0] + u) * stride + i)
     d_ptr = np.zeros(len(readers) + 1, np.int32)
     d_ptr[1:] = np.cumsum([len(r) for r in readers])
     d_item = np.array([it for r in readers for it in sorted(r)] or [0], np.int32)
@@ -76,8 +86,8 @@ def _backward_tables(tp: ChannelwiseTP) -> Tuple[np.ndarray, np.ndarray, np.ndar
 
 
 @functools.lru_cache(maxsize=None)
-def _device_backward_tables(tp: ChannelwiseTP, device: str):
-    return tuple(torch.as_tensor(t, device=device) for t in _backward_tables(tp))
+def _device_backward_tables(tp: ChannelwiseTP, device: str, stride: int = 4):
+    return tuple(torch.as_tensor(t, device=device) for t in _backward_tables(tp, stride))
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,8 +173,12 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 10 + [p]
     lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 6
+    lib.dp_tp_aggregate_fwd_l2.argtypes = [p] * 7 + [i] * 9 + [p]
+    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 11 + [i] * 9 + [p]
+    lib.dp_tp_aggregate_bwd_x_l2.argtypes = [p] * 9 + [i] * 10 + [p]
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
-               lib.dp_tp_aggregate_blocks_per_sm):
+               lib.dp_tp_aggregate_blocks_per_sm, lib.dp_tp_aggregate_fwd_l2,
+               lib.dp_tp_aggregate_bwd_edge_l2, lib.dp_tp_aggregate_bwd_x_l2):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -180,8 +194,9 @@ def _raise_on(rc: int, what: str) -> None:
 def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                   g: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
     """Shapes (B, N, M, D, S, F) of a launch; raises on what the kernels do
-    not take: x, sh and w of one type, f32 or bf16; g f32."""
-    _check_tp(tp)
+    not take: x, sh and w of one type, f32 or bf16; g f32 (B, N, F,
+    lanes(tp))."""
+    k_pad = lanes(tp)
     if sh.dim() != 4:
         raise ValueError(f"tp_aggregate: sh must be (B, N, M, S), got {tuple(sh.shape)}")
     B, N, M, S = sh.shape
@@ -189,7 +204,7 @@ def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch
     expected = {"x": (x, (B, M, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
                 "w": (w, (B, N, M, F))}
     if g is not None:
-        expected["grad"] = (g, (B, N, F, K_PAD))
+        expected["grad"] = (g, (B, N, F, k_pad))
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tp_aggregate: x must be f32 or bf16, got {x.dtype}")
     for name, (t, shape) in expected.items():
@@ -205,6 +220,8 @@ def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch
                              f"{tp.irreps_in!r} x {tp.irreps_sh!r}")
         if not t.is_contiguous():
             raise ValueError(f"tp_aggregate: {name} must be contiguous")
+    if k_pad == K_PAD_L2 and (F > MAX_F_L2 or len(tp.paths) > MAX_PATHS_L2):
+        raise ValueError(f"tp_aggregate: F = {F} <= {MAX_F_L2} and at most {MAX_PATHS_L2} paths")
     return B, N, M, D, S, F
 
 
@@ -229,6 +246,16 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     of the sender splits' partial sums when :func:`launch_splits` splits)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
     dev = str(x.device)
+    if lanes(tp) == K_PAD_L2:
+        chan, ptab, gtab, t_size = device_tables_l2(tp, dev, x.dtype)
+        out = torch.empty((B, N, F, K_PAD_L2), dtype=torch.float32, device=x.device)
+        rc = _library().dp_tp_aggregate_fwd_l2(
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
+            gtab.data_ptr(), out.data_ptr(), B, N, M, D, S, F, gtab.shape[0], t_size,
+            int(x.dtype == torch.bfloat16), _stream(x.device))
+        _raise_on(rc, "tp_aggregate_fwd_l2")
+        FWD_L2.launches += 1
+        return out
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
@@ -252,11 +279,21 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     other's by summation order)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
     dev = str(x.device)
-    chan, gtab = _device_tables(tp, dev, x.dtype)
-    ptab, _, _ = _device_backward_tables(tp, dev)
     seg_ptr, seg = _device_dsh_segments(tp, dev)
     dw = torch.empty_like(w)
     dsh = torch.empty_like(sh) if need_dsh else None
+    if lanes(tp) == K_PAD_L2:
+        chan, ptab, gtab, _ = device_tables_l2(tp, dev, x.dtype)
+        rc = _library().dp_tp_aggregate_bwd_edge_l2(
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
+            ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(), dw.data_ptr(),
+            dsh.data_ptr() if need_dsh else None, B, N, M, D, S, F, gtab.shape[0], seg.shape[0],
+            int(x.dtype == torch.bfloat16), _stream(x.device))
+        _raise_on(rc, "tp_aggregate_bwd_edge_l2")
+        BWD_EDGE_L2.launches += 1
+        return dw, dsh
+    chan, gtab = _device_tables(tp, dev, x.dtype)
+    ptab, _, _ = _device_backward_tables(tp, dev)
     rc = _library().dp_tp_aggregate_bwd_edge(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
         ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(), dw.data_ptr(),
@@ -275,9 +312,20 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
     :func:`launch_splits` splits)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
     dev = str(x.device)
+    dx = torch.empty_like(x)
+    if lanes(tp) == K_PAD_L2:
+        chan, ptab, gtab, t_size = device_tables_l2(tp, dev, x.dtype)
+        _, d_ptr, d_item = _device_backward_tables(tp, dev, K_PAD_L2)
+        rc = _library().dp_tp_aggregate_bwd_x_l2(
+            sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
+            gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
+            B, N, M, D, S, F, gtab.shape[0], t_size, d_item.shape[0],
+            int(x.dtype == torch.bfloat16), _stream(x.device))
+        _raise_on(rc, "tp_aggregate_bwd_x_l2")
+        BWD_X_L2.launches += 1
+        return dx
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, d_ptr, d_item = _device_backward_tables(tp, dev)
-    dx = torch.empty_like(x)
     splits = launch_splits(tp, B, N, M, True, x.device, x.dtype)
     part = _scratch(splits, (B, M, D), x.device)
     rc = _library().dp_tp_aggregate_bwd_x(
@@ -316,7 +364,7 @@ class TPAggregate(torch.autograd.Function):
 
 def tp_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
-    """All-path aggregate -> (B, N, F, 4) f32, differentiable in x, sh, w
+    """All-path aggregate -> (B, N, F, lanes(tp)) f32, differentiable in x, sh, w
     (their gradients in their own type).
 
     x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked; all f32 or

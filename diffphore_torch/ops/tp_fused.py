@@ -12,14 +12,17 @@ computes what the JAX package's bf16 convolution computes instead
 (:func:`edge_weights` in bf16, then ``ChannelwiseTP.aggregate``): the MLP
 parameters, the pre-activation, the hidden layer, each channel's weights and
 their masked sum are rounded to bf16, the coupling tensors too, and the
-tensor product is summed in f32.  Output (B, N, F, 4) f32:
-channel f's l_out components in lanes [:2*l_out+1], which
-:func:`blocks_from_padded` splits into the per-irrep blocks of
-``ChannelwiseTP.aggregate``.
+tensor product is summed in f32.  Output (B, N, F, L) f32, L =
+:func:`lanes` (4 where every irrep has l <= 1, else 8): channel f's l_out
+components in lanes [:2*l_out+1], which :func:`blocks_from_padded` splits
+into the per-irrep blocks of ``ChannelwiseTP.aggregate``.
 
 :func:`tp_aggregate_fused` launches the kernel for CUDA tensors and runs
 :func:`tp_aggregate_fused_plain`, the same function in plain PyTorch, for
-CPU tensors.  ``KERNEL.launches`` counts the launches.
+CPU tensors.  A product whose irreps reach l = 2 (``use_second_order_repr``)
+runs the 8-lane kernel ``tp_fused_l2_kernel`` (same source), the others the
+4-lane one.  ``KERNEL.launches`` and ``KERNEL_L2.launches`` count the
+launches of each.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from . import build
 from .tensor_product import ChannelwiseTP
 from .wigner import wigner_3j
 
-K_PAD = 4         # output lanes per channel (l_out <= 1)
+K_PAD = 4         # output lanes per channel where every irrep has l <= 1
+K_PAD_L2 = 8      # where an irrep has l = 2 (five components, padded to 8)
 _J_MAX = 5        # harmonic components of one path in the kernel's tables
 _SH_STRIDE = 12   # the kernel's padded harmonics row
 TILE_N = 8        # receivers per block of the kernel
@@ -45,6 +49,11 @@ MAX_F = 160       # widest edge-weight row the kernel's register tiles hold
 MAX_H = 64        # widest hidden layer (and no wider than the edge attributes)
 MAX_PATHS = 16    # most tensor-product paths
 TARGET_BLOCKS = 2 * 132   # two blocks for each SM of an H100
+# the 8-lane kernel (l <= 2)
+TILE_N_L2 = 4         # receivers per block
+MAX_SENDERS_L2 = 64   # most senders one block takes
+MAX_F_L2 = 384        # a thread per channel
+MAX_PATHS_L2 = 32
 
 
 class _Kernel:
@@ -53,13 +62,23 @@ class _Kernel:
     launches = 0
 
 
-KERNEL = _Kernel()
+KERNEL = _Kernel()      # tp_fused_kernel, the 4-lane product
+KERNEL_L2 = _Kernel()   # tp_fused_l2_kernel, the 8-lane product
 
 
 def _check_tp(tp: ChannelwiseTP) -> None:
-    if any(ir.l > 1 for _, ir in tp.irreps_in.items) or any(
-            ir.l > 1 for _, ir in tp.irreps_out.items):
-        raise ValueError("tp_fused supports l_in, l_out <= 1")
+    if any(ir.l > 2 for _, ir in tp.irreps_in.items) or any(
+            ir.l > 2 for _, ir in tp.irreps_out.items):
+        raise ValueError("tp_fused supports l_in, l_out <= 2")
+
+
+@functools.lru_cache(maxsize=None)
+def lanes(tp: ChannelwiseTP) -> int:
+    """Output lanes per channel: 4 where every input and output irrep has
+    l <= 1 (the 4-lane kernels), else 8 (l = 2, the 8-lane ones)."""
+    _check_tp(tp)
+    l_max = max(ir.l for _, ir in tp.irreps_in.items + tp.irreps_out.items)
+    return K_PAD if l_max <= 1 else K_PAD_L2
 
 
 def edge_weights(attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
@@ -81,15 +100,16 @@ def edge_weights(attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
 
 
 def padded_from_blocks(tp: ChannelwiseTP, blocks: List[Optional[torch.Tensor]]) -> torch.Tensor:
-    """``ChannelwiseTP.aggregate``'s blocks packed into (B, N, F, 4): the
-    inverse of :func:`blocks_from_padded`."""
+    """``ChannelwiseTP.aggregate``'s blocks packed into (B, N, F, lanes(tp)):
+    the inverse of :func:`blocks_from_padded`."""
+    k_pad = lanes(tp)
     taken = [0] * len(blocks)
     pieces = []
     for p in tp.paths:                      # channel order = path order
         start = taken[p.i_out]
         taken[p.i_out] = start + p.mul_in
         part = blocks[p.i_out][..., start:start + p.mul_in, :]
-        pieces.append(torch.nn.functional.pad(part, (0, K_PAD - part.shape[-1])))
+        pieces.append(torch.nn.functional.pad(part, (0, k_pad - part.shape[-1])))
     return torch.cat(pieces, dim=-2)
 
 
@@ -108,9 +128,9 @@ def tp_aggregate_fused_plain(
 
     x (B, M, D_in); sh (B, N, M, S); attrs C x (B, N, M, E);
     masks C x (B, N, M); w1 (E, H), b1 (H,), w2 (H, F), b2 (F,).
-    Returns (B, N, F, 4) f32.
+    Returns (B, N, F, lanes(tp)) f32.
     """
-    _check_tp(tp)
+    k_pad = lanes(tp)
     f32 = torch.float32
     if x.dtype == torch.bfloat16:
         w = edge_weights(attrs, masks, w1, b1, w2, b2, torch.bfloat16)
@@ -125,7 +145,7 @@ def tp_aggregate_fused_plain(
     w = hsum @ w2.to(f32) + msum[..., None] * b2.to(f32)      # (B, N, M, F)
 
     B, N = sh.shape[:2]
-    out = torch.zeros((B, N, tp.weight_numel, K_PAD), dtype=f32, device=x.device)
+    out = torch.zeros((B, N, tp.weight_numel, k_pad), dtype=f32, device=x.device)
     in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
     for p in tp.paths:
         d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
@@ -179,18 +199,56 @@ def _device_tables(tp: ChannelwiseTP, device: str, dtype: torch.dtype = torch.fl
 
 
 @functools.lru_cache(maxsize=None)
-def plan_senders(B: int, N: int, M: int) -> Tuple[int, int]:
+def tables_l2(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The 8-lane kernels' tables: per channel (x_base, d_in, d_out, path)
+    int32 (F, 4); per path (sh_off, d_in, d_sh, d_out, t_off, f_start,
+    f_count, 0) int32 (n_paths, 8); per path alpha * cg (cg rounded to
+    ``dtype``) zero-padded to (5, 5, 5) f32; and the floats of an edge's
+    harmonic half-product t, ``sum_p d_in * d_out`` (path p's t[i, k] =
+    sum_j G_p[i, j, k] sh[sh_off + j] at t_off + i * d_out + k)."""
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    chan = np.zeros((tp.weight_numel, 4), np.int32)
+    ptab = np.zeros((len(tp.paths), 8), np.int32)
+    gtab = np.zeros((len(tp.paths), _J_MAX, _J_MAX, _J_MAX), np.float32)
+    t_off = 0
+    for q, p in enumerate(tp.paths):
+        d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
+        sh_off = sh_slices[p.i_sh].start
+        if sh_off + d2 > _SH_STRIDE or max(d1, d2, d3) > _J_MAX:
+            raise ValueError("harmonics layout outside the kernel's table")
+        gtab[q, :d1, :d2, :d3] = coupling(p, dtype)
+        ptab[q] = (sh_off, d1, d2, d3, t_off, p.w_slice[0], p.mul_in, 0)
+        t_off += d1 * d3
+        for u in range(p.mul_in):
+            chan[p.w_slice[0] + u] = (in_slices[p.i_in].start + u * d1, d1, d3, q)
+    return chan, ptab, gtab, t_off
+
+
+@functools.lru_cache(maxsize=None)
+def device_tables_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    chan, ptab, gtab, t_size = tables_l2(tp, dtype)
+    return (torch.as_tensor(chan, device=device), torch.as_tensor(ptab, device=device),
+            torch.as_tensor(gtab, device=device), t_size)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_senders(B: int, N: int, M: int, tile_n: int = TILE_N,
+                 max_senders: int = MAX_SENDERS) -> Tuple[int, int]:
     """(senders per block, sender splits) of a launch on (B, N, M).
 
-    A block takes one batch row, ``TILE_N`` receivers and every
+    A block takes one batch row, ``tile_n`` receivers and every
     ``splits``-th sender.  It takes as many as the kernel allows
-    (``MAX_SENDERS``) unless that leaves fewer than ``TARGET_BLOCKS``
+    (``max_senders``) unless that leaves fewer than ``TARGET_BLOCKS``
     blocks; then fewer, down to ``MIN_SENDERS``, and the partial sums of the
     splits are added by a second kernel.  One split needs no scratch buffer.
+    The 4-lane kernel takes ``TILE_N`` and ``MAX_SENDERS``, the 8-lane one
+    ``TILE_N_L2`` and ``MAX_SENDERS_L2``.
     """
-    tiles = B * -(-N // TILE_N)
+    tiles = B * -(-N // tile_n)
     splits_wanted = -(-TARGET_BLOCKS // tiles)
-    per_block = min(M, MAX_SENDERS, max(MIN_SENDERS, M // splits_wanted))
+    per_block = min(M, max_senders, max(MIN_SENDERS, M // splits_wanted))
     return per_block, -(-M // per_block)
 
 
@@ -200,6 +258,8 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dp_tp_fused.argtypes = [p] * 14 + [i] * 13 + [p]
     lib.dp_tp_fused.restype = i
+    lib.dp_tp_fused_l2.argtypes = [p] * 15 + [i] * 14 + [p]
+    lib.dp_tp_fused_l2.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -235,7 +295,6 @@ def tp_aggregate_fused(
         raise RuntimeError(
             "tp_aggregate_fused has no backward: call it under torch.no_grad(), or put the "
             "model in training mode so the convolution runs ops.tp_aggregate")
-    _check_tp(tp)
     dev = x.device
     B, N, M, S = sh.shape
     D = x.shape[-1]
@@ -266,15 +325,17 @@ def tp_aggregate_fused(
             raise ValueError(f"tp_aggregate_fused: mask {tuple(m.shape)}, expected {(B, N, M)}")
         if m.dtype != masks[0].dtype or m.dtype not in (torch.bool, torch.float32):
             raise TypeError("tp_aggregate_fused: masks must all be bool or all be f32")
+    if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)) != ((H,), (H, F), (F,)):
+        raise ValueError("tp_aggregate_fused: edge-MLP parameter shapes")
+    if any(t.dtype != torch.float32 for t in (w1, b1, w2, b2)):
+        raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
+    if lanes(tp) == K_PAD_L2:
+        return _launch_l2(tp, x, sh, attrs, masks, w1, b1, w2, b2)
     if E % 4 or H % 4 or H > min(E, MAX_H) or F > MAX_F or len(tp.paths) > MAX_PATHS:
         raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
                          f"H <= min(E, {MAX_H}), F = {F} <= {MAX_F}, at most {MAX_PATHS} paths")
     if any(t.data_ptr() % 16 for t in (*attrs, w1, w2)):
         raise ValueError("tp_aggregate_fused: attrs, w1 and w2 must be 16-byte aligned")
-    if (tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)) != ((H,), (H, F), (F,)):
-        raise ValueError("tp_aggregate_fused: edge-MLP parameter shapes")
-    if any(t.dtype != torch.float32 for t in (w1, b1, w2, b2)):
-        raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
 
     chan, gtab = _device_tables(tp, str(dev), dt)
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=dev)
@@ -296,8 +357,43 @@ def tp_aggregate_fused(
     return out
 
 
+def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+               attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+               ) -> torch.Tensor:
+    """The 8-lane kernel on inputs :func:`tp_aggregate_fused` has checked."""
+    dev = x.device
+    B, N, M, S = sh.shape
+    E, H = w1.shape
+    F = tp.weight_numel
+    if E % 4 or H % 4 or H > MAX_H or F > MAX_F_L2 or len(tp.paths) > MAX_PATHS_L2:
+        raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
+                         f"H <= {MAX_H}, F = {F} <= {MAX_F_L2}, at most {MAX_PATHS_L2} paths")
+    if any(t.data_ptr() % 16 for t in attrs):
+        raise ValueError("tp_aggregate_fused: attrs must be 16-byte aligned")
+    chan, ptab, gtab, t_size = device_tables_l2(tp, str(dev), x.dtype)
+    out = torch.empty((B, N, F, K_PAD_L2), dtype=torch.float32, device=dev)
+    per_block, splits = plan_senders(B, N, M, TILE_N_L2, MAX_SENDERS_L2)
+    part = (torch.empty((splits, B, N, F, K_PAD_L2), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    lib = _library()
+    rc = lib.dp_tp_fused_l2(
+        x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attrs[-1].data_ptr(),
+        masks[0].data_ptr(), masks[-1].data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
+        ptab.data_ptr(), gtab.data_ptr(), out.data_ptr(),
+        part.data_ptr() if splits > 1 else None,
+        B, N, M, x.shape[-1], S, len(attrs), E, H, F, gtab.shape[0], t_size, per_block,
+        int(masks[0].dtype == torch.float32), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tp_fused_l2 launch failed: {lib.dp_cuda_error_string(rc).decode()}")
+    KERNEL_L2.launches += 1
+    return out
+
+
 def blocks_from_padded(tp: ChannelwiseTP, padded: torch.Tensor) -> List[Optional[torch.Tensor]]:
-    """Split the (B, N, F, 4) output into per-irrep blocks aligned with
+    """Split the (B, N, F, lanes) output into per-irrep blocks aligned with
     ``ChannelwiseTP.aggregate``'s return value."""
     out: List[Optional[torch.Tensor]] = [None] * len(tp.irreps_out.items)
     for k_blk, (mul, ir) in enumerate(tp.irreps_out.items):

@@ -25,7 +25,12 @@ f32; gradients come back in each operand's type.  CPU tensors run
 :func:`scalar_paths_aggregate_plain`, the einsums under autograd, and
 :func:`scalar_paths_backward_edge_plain` is the edge backward's plain
 version.  ``FWD``, ``BWD_EDGE`` and ``BWD_X`` count the wrapper calls that
-launched.
+launched.  A convolution whose irreps reach l = 2 (the layer-0 convolutions
+of ``use_second_order_repr``, whose ``0e x 2e -> 2e`` path has K = 5 and
+reads harmonic components 4-8) runs the kernels' 8-lane instantiations
+(``L = 2``: five sums a channel, the upstream gradient and the output
+(B, N, F, 8), the edge backward reading all nine components), counted by
+``FWD_L2``, ``BWD_EDGE_L2`` and ``BWD_X_L2``.
 """
 
 from __future__ import annotations
@@ -40,16 +45,20 @@ import torch.nn.functional as Fn
 
 from . import build
 from .tensor_product import ChannelwiseTP
-from .tp_fused import K_PAD, _check_tp, _Kernel, coupling
+from .tp_fused import K_PAD_L2, _check_tp, _Kernel, coupling, lanes
 from .wigner import wigner_3j
 
 FWD = _Kernel()       # tp_scalar_fwd_kernel (+ tp_scalar_sum_splits), one per convolution
 BWD_EDGE = _Kernel()  # tp_scalar_bwd_edge_kernel (dw, and dsh where asked), one per convolution
 BWD_X = _Kernel()     # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per convolution
+FWD_L2 = _Kernel()       # the same kernels' 8-lane instantiations (l = 2)
+BWD_EDGE_L2 = _Kernel()
+BWD_X_L2 = _Kernel()
 
 THREADS = 256        # threads of a forward or dx block: KEEP = THREADS // F entries kept
 EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
 EDGE_REACH = 4       # harmonic components the edge backward reads (0e and 1o first)
+EDGE_REACH_L2 = 9    # the 8-lane instantiation's: 0e, 1o and 2e
 MIN_CHUNK = 8        # fewest entries of the summed axis one split takes
 TARGET_BLOCKS = 2 * 132
 
@@ -104,14 +113,15 @@ def scalar_paths_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.T
                                  w: torch.Tensor) -> torch.Tensor:
     """:func:`scalar_paths_aggregate` in plain PyTorch: the einsum of every
     path on the operands read in f32, times its :func:`path_scale` for their
-    type, packed into (B, N, F, 4)."""
+    type, packed into (B, N, F, lanes(tp))."""
     _check_paths(tp)
+    k_pad = lanes(tp)
     dtype = x.dtype
     x, sh, w = x.float(), sh.float(), w.float()
     pieces = []
     for p, (xv, shv, wv) in zip(tp.paths, path_views(tp, x, sh, w)):   # channel order
         part = scalar_path_aggregate_plain(xv, shv, wv, path_scale(p, dtype))
-        pieces.append(Fn.pad(part, (0, K_PAD - part.shape[-1])))
+        pieces.append(Fn.pad(part, (0, k_pad - part.shape[-1])))
     return torch.cat(pieces, dim=-2)
 
 
@@ -204,17 +214,22 @@ def plan_chunk(B: int, kept: int, summed: int, F: int, target: int = TARGET_BLOC
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(dx: bool, F: int, D: int, n_items: int, bf16: bool, device: str) -> int:
+def _resident_blocks(dx: bool, F: int, D: int, n_items: int, bf16: bool, device: str,
+                     l2: bool = False) -> int:
     """Blocks of the forward (or dx) kernel the card holds at once."""
-    per_sm = _library().dp_tp_scalar_blocks_per_sm(int(dx), F, D, n_items, int(bf16))
+    query = (_library().dp_tp_scalar_blocks_per_sm_l2 if l2
+             else _library().dp_tp_scalar_blocks_per_sm)
+    per_sm = query(int(dx), F, D, n_items, int(bf16))
     _raise_on(max(0, -per_sm), "tp_scalar occupancy query")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
-def _edge_blocks(need_dsh: bool, bf16: bool, device: str) -> int:
+def _edge_blocks(need_dsh: bool, bf16: bool, device: str, l2: bool = False) -> int:
     """Blocks of the edge backward the card holds at once."""
-    per_sm = _library().dp_tp_scalar_bwd_edge_blocks_per_sm(int(need_dsh), int(bf16))
+    query = (_library().dp_tp_scalar_bwd_edge_blocks_per_sm_l2 if l2
+             else _library().dp_tp_scalar_bwd_edge_blocks_per_sm)
+    per_sm = query(int(need_dsh), int(bf16))
     _raise_on(max(0, -per_sm), "tp_scalar edge-backward occupancy query")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -228,8 +243,15 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.dp_tp_scalar_blocks_per_sm.argtypes = [i] * 5
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm.argtypes = [i] * 2
+    lib.dp_tp_scalar_fwd_l2.argtypes = lib.dp_tp_scalar_fwd.argtypes
+    lib.dp_tp_scalar_bwd_x_l2.argtypes = lib.dp_tp_scalar_bwd_x.argtypes
+    lib.dp_tp_scalar_bwd_edge_l2.argtypes = lib.dp_tp_scalar_bwd_edge.argtypes
+    lib.dp_tp_scalar_blocks_per_sm_l2.argtypes = [i] * 5
+    lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2.argtypes = [i] * 2
     for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_edge, lib.dp_tp_scalar_bwd_x,
-               lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm):
+               lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm,
+               lib.dp_tp_scalar_fwd_l2, lib.dp_tp_scalar_bwd_edge_l2, lib.dp_tp_scalar_bwd_x_l2,
+               lib.dp_tp_scalar_blocks_per_sm_l2, lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -280,7 +302,7 @@ def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.T
     views = {"x": (x, (B, M, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
              "w": (w, (B, N, M, F))}
     if g is not None:
-        views["grad"] = (g, (B, N, F, K_PAD))
+        views["grad"] = (g, (B, N, F, lanes(tp)))
     _check_views(x.dtype, **views)
     return B, N, M, D, S, F
 
@@ -291,17 +313,20 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     f32 (and the sum of the sender splits' partial sums where
     :func:`launch_chunk` splits)."""
     B, N, M, D, S, F = _check_conv(tp, x, sh, w)
+    k_pad = lanes(tp)
+    l2 = k_pad == K_PAD_L2
     chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
-    out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
     chunk, splits = launch_chunk(tp, B, N, M, False, x.device, x.dtype)
-    part = (torch.empty((splits, B, N, F, K_PAD), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, B, N, F, k_pad), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    rc = _library().dp_tp_scalar_fwd(
+    launch = _library().dp_tp_scalar_fwd_l2 if l2 else _library().dp_tp_scalar_fwd
+    rc = launch(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), scale.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(), B, N, M, D, S, F, keep_of(F),
         chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
-    _raise_on(rc, "tp_scalar_fwd")
-    FWD.launches += 1
+    _raise_on(rc, "tp_scalar_fwd_l2" if l2 else "tp_scalar_fwd")
+    (FWD_L2 if l2 else FWD).launches += 1
     return out
 
 
@@ -316,13 +341,15 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
     chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
     part = (torch.empty((splits, B, M, D), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    rc = _library().dp_tp_scalar_bwd_x(
+    l2 = lanes(tp) == K_PAD_L2
+    launch = _library().dp_tp_scalar_bwd_x_l2 if l2 else _library().dp_tp_scalar_bwd_x
+    rc = launch(
         sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
         d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
         None if part is None else part.data_ptr(), B, N, M, D, S, F, d_item.shape[0],
         keep_of(F), chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
-    _raise_on(rc, "tp_scalar_bwd_x")
-    BWD_X.launches += 1
+    _raise_on(rc, "tp_scalar_bwd_x_l2" if l2 else "tp_scalar_bwd_x")
+    (BWD_X_L2 if l2 else BWD_X).launches += 1
     return dx
 
 
@@ -333,7 +360,8 @@ def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
     F = tp.weight_numel
     n_items = len(_conv_tables(tp, dtype)[3])
     target = max(TARGET_BLOCKS, _resident_blocks(dx, F, tp.irreps_in.dim, n_items,
-                                                 dtype == torch.bfloat16, str(device)))
+                                                 dtype == torch.bfloat16, str(device),
+                                                 lanes(tp) == K_PAD_L2))
     return plan_chunk(B, M, N, F, target) if dx else plan_chunk(B, N, M, F, target)
 
 
@@ -343,30 +371,32 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     """(dw, dsh) of every path of a convolution in one launch, in w's and
     sh's type: dw only with ``need_dw``, dsh (the full S-component row, zero
     in the components no path reads) only with ``need_dsh``.  g is the (B,
-    N, F, 4) f32 upstream gradient."""
+    N, F, lanes(tp)) f32 upstream gradient."""
     B, N, M, D, S, F = _check_conv(tp, x, sh, w, g)
     if F > EDGE_F_MAX:
         raise ValueError(f"tp_scalar: F = {F} channels, more than the edge backward's "
                          f"{EDGE_F_MAX}")
     if B * N * M * max(F, S) + B * M * D >= 2**31 - 1:
         raise ValueError("tp_scalar: the edge backward indexes its operands with 32-bit offsets")
-    reach = sh_reach(tp)
-    if reach > EDGE_REACH:
+    l2 = lanes(tp) == K_PAD_L2
+    reach, most = sh_reach(tp), (EDGE_REACH_L2 if l2 else EDGE_REACH)
+    if reach > most:
         raise ValueError(f"tp_scalar: the paths read {reach} harmonic components, more than "
-                         f"the edge backward's {EDGE_REACH}")
+                         f"the edge backward's {most}")
     if not (need_dw or need_dsh):
         return None, None
     chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
     dw = torch.empty_like(w) if need_dw else None
     dsh = torch.empty_like(sh) if need_dsh else None
     bf16 = x.dtype == torch.bfloat16
-    rc = _library().dp_tp_scalar_bwd_edge(
+    launch = _library().dp_tp_scalar_bwd_edge_l2 if l2 else _library().dp_tp_scalar_bwd_edge
+    rc = launch(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
         scale.data_ptr(), None if dw is None else dw.data_ptr(),
         None if dsh is None else dsh.data_ptr(), B, N, M, D, S, F, reach, int(x_quads(tp)),
-        _edge_blocks(need_dsh, bf16, str(x.device)), int(bf16), _stream(x.device))
-    _raise_on(rc, "tp_scalar_bwd_edge")
-    BWD_EDGE.launches += 1
+        _edge_blocks(need_dsh, bf16, str(x.device), l2), int(bf16), _stream(x.device))
+    _raise_on(rc, "tp_scalar_bwd_edge_l2" if l2 else "tp_scalar_bwd_edge")
+    (BWD_EDGE_L2 if l2 else BWD_EDGE).launches += 1
     return dw, dsh
 
 
@@ -397,7 +427,7 @@ class ScalarPathsAggregate(torch.autograd.Function):
 def scalar_paths_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                            w: torch.Tensor) -> torch.Tensor:
     """The aggregate of a convolution whose paths all have l_in = 0 -> (B, N,
-    F, 4) f32 in the layout :func:`tp_fused.blocks_from_padded` reads;
+    F, lanes(tp)) f32 in the layout :func:`tp_fused.blocks_from_padded` reads;
     differentiable in x, sh, w (their gradients in their own type).
 
     x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked, F <= 256;

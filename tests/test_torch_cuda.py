@@ -669,3 +669,184 @@ def test_confidence_head_train_step_kernels_match_plain_convs(cuda):
     for name, g in gp.items():
         err = float((gk[name] - g).abs().max())
         assert err <= 1e-3 * float(g.abs().max()) + floor, (name, err)
+
+
+# ---- the 8-lane instantiations: irreps up to l = 2 (use_second_order_repr) ----
+
+SEQ2 = ["20x0e", "20x0e + 10x1o + 10x2e", "20x0e + 10x1o + 10x2e + 10x1e + 10x2o",
+        "20x0e + 10x1o + 10x2e + 10x1e + 10x2o + 20x0o"]
+#: (in irreps, out irreps, sh irreps, E = H) of the second-order model's conv
+#: signatures at corpus2's width
+SIGNATURES_L2 = {
+    "layer0": (SEQ2[0], SEQ2[1], SH, 60),
+    "layer1": (SEQ2[1], SEQ2[2], SH, 60),
+    "layer2": (SEQ2[2], SEQ2[3], SH, 60),
+    "layer3": (SEQ2[3], SEQ2[3], SH, 60),
+    "final_conv": (SEQ2[3], "2x1o + 2x1e", SH, 40),
+    "tor_bond_conv": (SEQ2[3], "20x0o + 20x0e", "1x1o + 1x0e + 1x1e", 60),
+}
+#: (B, N, M): ragged tiles, sender splits (B = 1), the serving shapes
+L2_SHAPES = [(3, 37, 29), (1, 96, 96), (40, 24, 96), (40, 96, 24)]
+
+
+def _l2_tp(sig):
+    irr_in, irr_out, irr_sh, E = SIGNATURES_L2[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    assert tp_fused.lanes(tp) == 8
+    return tp, E
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+@pytest.mark.parametrize("n_chan", [1, 2])
+@pytest.mark.parametrize("shape", L2_SHAPES)
+def test_tp_fused_l2_kernel_matches_plain(cuda, sig, n_chan, shape):
+    """The 8-lane K1 against its plain version: f32 within 1e-4 of the
+    output scale, bf16 (the JAX package's bf16 convolution) within 3e-2;
+    lanes 5-7 zero; reruns equal to the bit; one launch a call."""
+    tp, E = _l2_tp(sig)
+    rng = np.random.default_rng(0)
+    B, N, M = shape
+    H, F = E, tp.weight_numel
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, M, tp.irreps_in.dim)))
+    sh = t(rng.normal(size=(B, N, M, tp.irreps_sh.dim)))
+    attrs = [t(rng.normal(size=(B, N, M, E))) for _ in range(n_chan)]
+    masks = [torch.from_numpy(rng.random((B, N, M)) > 0.6).to(cuda) for _ in range(n_chan)]
+    params = (t(rng.normal(size=(E, H)) * 0.2), t(rng.normal(size=(H,)) * 0.1),
+              t(rng.normal(size=(H, F)) * 0.2), t(rng.normal(size=(F,)) * 0.1))
+
+    ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params)
+    before = (tp_fused.KERNEL.launches, tp_fused.KERNEL_L2.launches)
+    got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+    again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params)
+    bf = torch.bfloat16
+    low = (x.to(bf), sh.to(bf), [a.to(bf) for a in attrs])
+    got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params)
+    torch.cuda.synchronize()
+    assert (tp_fused.KERNEL.launches, tp_fused.KERNEL_L2.launches) == (before[0], before[1] + 3)
+    assert got.shape == (B, N, F, 8) and torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params)
+    assert float((got_bf - ref_bf).abs().max()) <= 3e-2 * float(ref_bf.abs().max())
+    assert float(got[..., 5:].abs().max()) == 0.0  # the pad lanes
+
+
+def _l2_k2_inputs(tp, cuda, B, N, M, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, M, tp.irreps_in.dim)))
+    sh = t(rng.normal(size=(B, N, M, tp.irreps_sh.dim)))
+    w = t(rng.normal(size=(B, N, M, tp.weight_numel)) * (rng.random((B, N, M, 1)) > 0.3))
+    g = t(rng.normal(size=(B, N, tp.weight_numel, 8)))   # noise in the pad lanes
+    return x, sh, w, g
+
+
+L2_K2_COUNTERS = (tp_aggregate.FWD_L2, tp_aggregate.BWD_EDGE_L2, tp_aggregate.BWD_X_L2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", [s for s in SIGNATURES_L2 if s != "layer0"])
+@pytest.mark.parametrize("shape", [(3, 37, 29), (2, 1, 24), (24, 24, 96), (24, 96, 24)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_kernels_match_plain(cuda, sig, shape, dtype):
+    """The 8-lane K2 (forward, edge backward with and without dsh, dx)
+    against autograd through the plain version: f32 within 1e-4 of each
+    result's scale; bf16 operands: the f32 output within 1e-5 of scale and
+    the bf16 gradients within one bf16 rounding step of each element; the
+    upstream gradient's pad lanes ignored; reruns equal to the bit."""
+    tp, _ = _l2_tp(sig)
+    x, sh, w, g = _l2_k2_inputs(tp, cuda, *shape)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w = x.to(dt), sh.to(dt), w.to(dt)
+    leaves = [v.float().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, *[v.to(dt) for v in leaves])
+    ref_grads = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    runs = []
+    for _ in range(2):
+        before = [k.launches for k in L2_K2_COUNTERS]
+        out = tp_aggregate.launch_forward(tp, x, sh, w)
+        dw, dsh = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True)
+        dw_only, none = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, False)
+        dx = tp_aggregate.launch_backward_x(tp, x, sh, w, g)
+        assert none is None
+        assert [k.launches - b for k, b in zip(L2_K2_COUNTERS, before)] == [1, 2, 1]
+        runs.append((out, dx, dsh, dw, dw_only))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dx, dsh, dw, dw_only = runs[0]
+    assert out.shape == ref.shape and float(out[..., 5:].abs().max()) == 0.0
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    assert float((out - ref.detach()).abs().max()) <= tol * float(ref.abs().max())
+    for name, got, want in zip(("dx", "dsh", "dw", "dw without dsh"), (dx, dsh, dw, dw_only),
+                               ref_grads + (ref_grads[2],)):
+        assert got.dtype == dt, name
+        if dt == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        else:
+            assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
+
+
+@pytest.mark.cuda
+def test_tp_aggregate_l2_autograd_launches_the_8_lane_kernels(cuda):
+    """tp_aggregate under autograd on an l = 2 product: one launch of each
+    8-lane kernel, none of the 4-lane ones."""
+    tp, _ = _l2_tp("layer2")
+    x, sh, w, g = _l2_k2_inputs(tp, cuda, 3, 37, 29)
+    l1 = (tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X)
+    before = [k.launches for k in l1 + L2_K2_COUNTERS]
+    leaves = [v.clone().requires_grad_(True) for v in (x, sh, w)]
+    out = tp_aggregate.tp_aggregate(tp, *leaves)
+    torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(l1 + L2_K2_COUNTERS, before)] == [0, 0, 0, 1, 1, 1]
+
+
+L2_K3_COUNTERS = (tp_scalar.FWD_L2, tp_scalar.BWD_EDGE_L2, tp_scalar.BWD_X_L2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_CONV_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_l2_conv_matches_plain(cuda, shape, dtype):
+    """The second-order layer-0 conv (20x0e in; 0e, 1o and 2e out: the 2e
+    path has K = 5 and reads harmonic components 4-8) on K3's 8-lane
+    instantiation: forward, edge backward (dw with and without dsh) and dx
+    against autograd through the plain version; f32 within 1e-4 of scale,
+    bf16 outputs within 1e-5 and gradients within one bf16 rounding step;
+    reruns equal to the bit; one launch each of the 8-lane counters."""
+    tp = channelwise_tp(SEQ2[0], SH, SEQ2[1])
+    assert tp_scalar.all_scalar_paths(tp) and tp_fused.lanes(tp) == 8
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w = [v.to(dt) for v in _k3_conv_inputs(cuda, tp, *shape)]
+    B, N, M, _ = sh.shape
+    g = torch.randn((B, N, tp.weight_numel, 8), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    leaves = [v.float().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, *[v.to(dt) for v in leaves])
+    ref_grads = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    runs = []
+    for _ in range(2):
+        before = [k.launches for k in L2_K3_COUNTERS]
+        out = tp_scalar.launch_forward(tp, x, sh, w)
+        dw, dsh = tp_scalar.launch_backward_edge(tp, x, sh, w, g, True)
+        dw_only, none = tp_scalar.launch_backward_edge(tp, x, sh, w, g, False)
+        dx = tp_scalar.launch_backward_x(tp, x, sh, w, g)
+        assert none is None
+        assert [k.launches - b for k, b in zip(L2_K3_COUNTERS, before)] == [1, 2, 1]
+        runs.append((out, dx, dsh, dw, dw_only))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dx, dsh, dw, dw_only = runs[0]
+    assert out.shape == (B, N, tp.weight_numel, 8) and float(out[..., 5:].abs().max()) == 0.0
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    assert float((out - ref.detach()).abs().max()) <= tol * float(ref.abs().max())
+    for name, got, want in zip(("dx", "dsh", "dw", "dw without dsh"), (dx, dsh, dw, dw_only),
+                               ref_grads + (ref_grads[2],)):
+        assert got.dtype == dt, name
+        if dt == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        else:
+            assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name

@@ -5,6 +5,7 @@ norms, rotations and Kabsch, torsion updates and modify_conformer.
 Inputs are numpy draws from fixed seeds; tolerances are f32 ones."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -159,6 +160,21 @@ def test_diffusion_schedule_and_embedding():
         emb_t = tdiff.timestep_embedding("fourier", 20, scale)(T(t))
         emb_j = jdiff.timestep_embedding("fourier", 20, scale)(jnp.asarray(t))
         assert_close(emb_t, emb_j, 1e-5, f"fourier embedding, scale {scale}")
+
+
+@pytest.mark.parametrize("half", [4, 10, 16, 32, 64])
+def test_embedding_frequencies_are_rounded_once(half):
+    """The sinusoidal embedding's frequencies: exp of the f32 exponents taken
+    in f64 and rounded to f32 once, on any device; at the shipped width
+    (sigma_embed_dim 20) the JAX package's table bit for bit."""
+    exponent = np.arange(half, dtype=np.float32) * np.float32(-math.log(10000) / (half - 1))
+    want = np.exp(exponent.astype(np.float64)).astype(np.float32)
+    got = tdiff.embedding_frequencies(half, 10000, "cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if half == 10:
+        jax_freq = jnp.exp(jnp.arange(half, dtype=jnp.float32) * (-math.log(10000) / (half - 1)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_freq))
 
 
 def test_score_norm_tables_equal():

@@ -120,12 +120,16 @@ def test_cpu_wrapper_runs_plain_and_counts_nothing():
 
 
 def test_rejects_l2_irreps():
+    """Irreps of l = 2 take the 8-lane layout (five components a channel,
+    padded to 8); beyond l = 2 the product is refused."""
+    args = (torch.zeros(1, 2, 2, 9), [torch.zeros(1, 2, 2, 4)], [torch.ones(1, 2, 2)],
+            torch.zeros(4, 4), torch.zeros(4), torch.zeros(4, 8), torch.zeros(8))
     tp_t = t_channelwise_tp("4x0e + 2x2e", SH, "4x0e")
-    with pytest.raises(ValueError):
-        ttp.tp_aggregate_fused_plain(tp_t, torch.zeros(1, 2, 14), torch.zeros(1, 2, 2, 9),
-                                     [torch.zeros(1, 2, 2, 4)], [torch.ones(1, 2, 2)],
-                                     torch.zeros(4, 4), torch.zeros(4), torch.zeros(4, 8),
-                                     torch.zeros(8))
+    out = ttp.tp_aggregate_fused_plain(tp_t, torch.zeros(1, 2, 14), *args)
+    assert out.shape == (1, 2, tp_t.weight_numel, 8)
+    tp_3 = t_channelwise_tp("4x0e + 2x3o", SH, "4x0e")
+    with pytest.raises(ValueError, match="l_in, l_out <= 2"):
+        ttp.tp_aggregate_fused_plain(tp_3, torch.zeros(1, 2, 18), *args)
 
 
 
@@ -152,6 +156,24 @@ def test_plan_senders_covers_the_senders_and_fills_the_card(shape):
         assert per_block <= ttp.MIN_SENDERS or M <= ttp.MIN_SENDERS
     if tiles * -(-M // ttp.MAX_SENDERS) >= ttp.TARGET_BLOCKS:   # wide enough: most senders
         assert splits == -(-M // ttp.MAX_SENDERS)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_senders_at_the_8_lane_kernels_limits(shape):
+    """The same split with the 8-lane kernel's tile and sender cap
+    (TILE_N_L2, MAX_SENDERS_L2): the ranges tile [0, M), stay within the cap
+    and fill the card as far as MIN_SENDERS allows."""
+    B, N, M = shape
+    per_block, splits = ttp.plan_senders(B, N, M, ttp.TILE_N_L2, ttp.MAX_SENDERS_L2)
+    assert 1 <= per_block <= ttp.MAX_SENDERS_L2
+    assert splits * per_block >= M > (splits - 1) * per_block
+    tiles = B * -(-N // ttp.TILE_N_L2)
+    if splits > 1:
+        assert per_block >= min(M, ttp.MIN_SENDERS)
+    if tiles * splits < ttp.TARGET_BLOCKS:
+        assert per_block <= ttp.MIN_SENDERS or M <= ttp.MIN_SENDERS
+    if tiles * -(-M // ttp.MAX_SENDERS_L2) >= ttp.TARGET_BLOCKS:
+        assert splits == -(-M // ttp.MAX_SENDERS_L2)
 
 
 @pytest.mark.parametrize("n_chan", [1, 2])

@@ -4,8 +4,8 @@ that the run directory loads and samples, that a restart resumes, that a
 JAX checkpoint initializes a fine-tune, that ``--rate_from_infer`` engages
 the calibrated-sampler step by its schedule and floor, that
 ``--confidence_mode`` and ``--val_inference_freq`` write the JAX package's
-records and checkpoints that load in both packages, and that every flag of
-a part that is not ported raises."""
+records and checkpoints that load in both packages, and that
+``--use_second_order_repr true`` trains a run directory that serves."""
 
 import json
 import os
@@ -162,15 +162,23 @@ def test_pretrain_from_the_jax_checkpoint(cache_path, tmp_path):
     assert recs[0]["steps"] == 1 and np.isfinite(recs[0]["loss"])
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--use_second_order_repr", "true"], "next slice"),
-])
-def test_unported_flags_raise(cache_path, tmp_path, flags, match):
-    base = ["--cache_path", cache_path, "--run_dir", str(tmp_path / "r"), "--n_epochs", "1",
-            *SMALL_FLAGS]
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(base + flags)
-    assert not os.path.exists(os.path.join(str(tmp_path / "r"), checkpoints.LAST_MODEL))
+def test_second_order_trains_a_run_directory_that_serves(cache_path, tmp_path):
+    """--use_second_order_repr true: one epoch on the CPU, a model_parameters.yml
+    that carries the flag, a checkpoint that loads as an l = 2 model, and
+    FitEngine samples finite poses with it."""
+    out = str(tmp_path / "r")
+    tcli.main(["--cache_path", cache_path, "--run_dir", out, "--n_epochs", "1",
+               "--use_second_order_repr", "true", *SMALL_FLAGS])
+    recs = [r for r in _records(out) if r.get("mode") != "val"]
+    assert recs[0]["steps"] == 3 and recs[0]["grad_finite"] == 1.0
+    assert flat_yaml.load(os.path.join(out, checkpoints.MODEL_PARAMS_YAML))[
+        "use_second_order_repr"] is True
+    cfg, model = checkpoints.load_model_dir(out, device="cpu", checkpoint=checkpoints.LAST_MODEL)
+    assert cfg.use_second_order_repr and "2o" in model.encoder.out_irreps
+    engine = FitEngine(cfg, model, samples_per_complex=2,
+                       settings=SamplerSettings(inference_steps=2), seed=0, device="cpu")
+    (res,) = engine.run_complexes([job_from_cached(load_cached(cached_files(n=1)[0]))])
+    assert np.isfinite(res["poses"]).all() and np.isfinite(res["fitscore"]).all()
 
 
 def test_unknown_flags_and_missing_caches_are_errors(tmp_path):

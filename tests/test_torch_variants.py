@@ -385,8 +385,27 @@ def test_fully_connected_checkpoint_keeps_its_fc_and_old_channelwise_migrate():
         checkpoints.convert_variables(old, conv))
 
 
-@pytest.mark.parametrize("flag", ["phore_knn", "use_second_order_repr"])
+@pytest.mark.parametrize("flag", ["phore_knn"])
 def test_unported_encoder_options_raise_naming_the_next_slice(flag):
-    _, tcfg = configs(**{**SMALL, flag: 8 if flag == "phore_knn" else True})
-    with pytest.raises(NotImplementedError, match="next slice"):
+    _, tcfg = configs(**{**SMALL, flag: 8})
+    with pytest.raises(NotImplementedError, match="next slice of the port .the KNN phore grid"):
         ScoreModel(tcfg)
+
+
+def test_second_order_model_builds_and_trains_one_step():
+    """use_second_order_repr builds (2e/2o fields from layer 1 on, every conv
+    on the 8-lane layout) and takes one finite train step on the CPU."""
+    from diffphore_torch.train.state import create_train_state, make_train_step
+
+    _, tcfg = configs(**{**SMALL, "use_second_order_repr": True})
+    state = create_train_state(tcfg, seed=0, device="cpu")
+    convs = [m for m in state.model.modules() if isinstance(m, tl.DenseTPConv)]
+    assert "2e" in state.model.encoder.out_irreps
+    assert all(tp_fused.lanes(m.tp) == 8 for m in convs)
+    batch = load_pair_batch(cached_files(n=2))[1]
+    gen = torch.Generator().manual_seed(0)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    state, metrics = make_train_step(tcfg)(state, batch, gen)
+    assert float(metrics["grad_finite"]) == 1.0 and np.isfinite(float(metrics["loss"]))
+    after = state.model.state_dict()
+    assert any(not torch.equal(before[k], after[k]) for k in before)
