@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --second_order_only   # phases 1, 2 and 16 (~2 min)
+    python3 chip_smoke.py --knn_only            # phases 1, 2 and 17
 
 Phases, each fatal on failure:
   1. card: require CUDA; print the card's name and power limit; full-f32
@@ -165,9 +166,30 @@ Phases, each fatal on failure:
      (bf16, corpus2 width) for two steps of 24 and a validation batch (K2
      17 x 3 and K3 6 x 3 a step, K1 23, exactly; the checkpoint reloads).
      The 4-lane kernels launch no time there.
+  17. the KNN phore grid (``phore_knn``, run before the report) on the
+     kernels' sender-index mode: (a) K1's sender-index mode held against its
+     plain version (f32 and bf16, reruns bit-equal) on the 3 phore conv calls
+     of one 40-pose forward of corpus2 at K = 24, on a complex whose phore
+     graph K = 24 compacts, and K2's (forward, dw, dx) and K3's on the phore
+     conv calls of one training-mode forward of the 24-complex batch, each
+     timed (graph replay) beside its plain version, the gathered per-path
+     einsums and its bound; the same at 8 lanes on the second-order probe's
+     weights at K = 24; (b) serving at bf16 from a model directory with
+     phore_knn: 24: the probe's f32 forward within TOL_F32 of max|JAX| of
+     runs/knn_probe/reference.npz, K = 40 within TOL_F32 of the dense model,
+     ``cli.inference.main`` on one SDF row of examples/task.csv and
+     ``FitEngine`` on phase 4's 8 complexes x 40 x 20 in turns with the
+     dense model, each turn half the complexes (K1 exactly 400 dense + 60 sender-index launches a KNN
+     dispatch; poses/s of each beside phase 4's); (c) a
+     train step at K = 24, kernels against plain convs (f32 leaf by leaf,
+     bf16 as one vector), K2 15 + 2 and K3 5 + 1 launches of each kernel, its
+     wall, busy time and peak memory; the 8-lane model's dispatch (K1 400 +
+     60) and train step (K2 15 + 2, K3 5 + 1 at 8 lanes).  Every earlier
+     phase holds the sender-index counts at 0.
   14. report: the kernels' JSON line (each kernel's launches per path, and
      its errors and times at the recipe's bucket; the 8-lane kernels' as
-     ``*_l2`` entries), the card line, and the result line.
+     ``*_l2`` entries, the sender-index mode's as ``*_idx`` and
+     ``*_idx_l2``), the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -254,6 +276,10 @@ TOL_BF16_GAP = 0.5
 K2_CONVS = 17
 K3_CONVS = 6
 K3_DSH_CONVS = 2
+# The KNN phore grid (phore_knn): the 3 phore convs (phore_conv_0, 1, 2) run
+# the kernels' sender-index mode, K3's for the layer-0 one and K2's for the
+# other two in training; the other 20 convs stay dense.
+KNN_CONVS = 3
 # The confidence head (runs/corpus2/confidence): the score model's encoder, so
 # 21 convs a forward (12 ligand-receiver + 9 phore-receiver), of which K2
 # takes 15 in training and K3 the same 6 layer-0 convs; trained here with the
@@ -341,18 +367,21 @@ def out_lanes(tp):
     return sum(p.mul_in * (2 * p.l_out + 1) for p in tp.paths)
 
 
-def k1_work(tp, x, sh, attrs, masks, w1, w2):
+def k1_work(tp, x, sh, attrs, masks, w1, w2, idx=None):
     """(bytes, matrix-product operations, other operations) the fused
     function needs on these inputs: each input read once and the output's
     defined lanes written once; the edge MLP's two products (bf16 tensor-core
     work where the operands are bf16), then its bias, relu and mask terms and
-    the tensor product (vector work), counted on edges with a mask set."""
+    the tensor product (vector work), counted on edges with a mask set.  A
+    sender index ``idx`` (the sender-index mode) is read once too, and the
+    node-level products count per row of x."""
     import numpy as np
 
     B, N, M, S = sh.shape
     E, H = w1.shape
     F = tp.weight_numel
     nbytes = (x.numel() * x.element_size() + sh.numel() * sh.element_size()
+              + (0 if idx is None else idx.numel() * idx.element_size())
               + sum(a.numel() * a.element_size() for a in attrs)
               + sum(m.numel() * m.element_size() for m in masks)
               + 4 * (E * H + H + H * F + F) + 4 * B * N * out_lanes(tp))
@@ -368,7 +397,7 @@ def k1_work(tp, x, sh, attrs, masks, w1, w2):
         tp_ops += p.mul_in * 2 * (d2 * d3 + d3)
         node_ops += p.mul_in * 2 * d1 * d2 * d3
     mm_ops = live_c * 2 * E * H + live * 2 * H * F
-    vec_ops = live_c * 3 * H + live * (2 * F + tp_ops) + B * M * node_ops
+    vec_ops = live_c * 3 * H + live * (2 * F + tp_ops) + B * x.shape[1] * node_ops
     return nbytes, float(np.float64(mm_ops)), float(np.float64(vec_ops))
 
 
@@ -596,14 +625,18 @@ def bucket_complexes(cache_dir, n):
     raise RuntimeError(f"found {len(out)} of {n} complexes of bucket {BUCKET} in {cache_dir}")
 
 
-def k2_work(tp, x, sh, w, with_dsh):
+def k2_work(tp, x, sh, w, with_dsh, idx=None):
     """{kernel: (bytes, f32 operations)} that K2's three kernels need on
     these inputs: each operand read once, each result written once (x, sh,
     w and their gradients at their element size, the output and the
     upstream gradient f32, at their defined lanes: ``out_lanes``); products
     with an edge weight counted on edges whose weights are not all zero, dw
-    on every edge (it is defined where w is masked too)."""
-    B, N, M, S = sh.shape
+    on every edge (it is defined where w is masked too).  A sender index
+    ``idx`` is read once by each kernel; edges are its (receiver, slot)
+    pairs, and node-level products count per row of x (M_x of them)."""
+    B, N, M, S = sh.shape                            # M senders, or slots with an index
+    M_x = x.shape[1]                                 # rows of x: node-level work
+    idx_b = 0 if idx is None else idx.numel() * idx.element_size()
     edges = B * N * M
     live = int((w != 0).any(-1).sum())
     node = contract = dw_ops = dsh_ops = dx_ops = 0
@@ -618,18 +651,18 @@ def k2_work(tp, x, sh, w, with_dsh):
     x_b, sh_b, w_b = (t.numel() * t.element_size() for t in (x, sh, w))
     dx_b, dsh_b, dw_b = x_b, sh_b, w_b               # gradients, written once
     return {
-        "fwd": (x_b + sh_b + w_b + out_b, live * contract + B * M * node),
-        "bwd_edge": (x_b + sh_b + g_b + dw_b + (w_b + dsh_b if with_dsh else 0),
-                     edges * dw_ops + B * M * node + (live * dsh_ops if with_dsh else 0)),
-        "bwd_x": (sh_b + w_b + g_b + dx_b, live * dx_ops + B * N * node),
+        "fwd": (x_b + sh_b + w_b + out_b + idx_b, live * contract + B * M_x * node),
+        "bwd_edge": (x_b + sh_b + g_b + dw_b + idx_b + (w_b + dsh_b if with_dsh else 0),
+                     edges * dw_ops + B * M_x * node + (live * dsh_ops if with_dsh else 0)),
+        "bwd_x": (sh_b + w_b + g_b + dx_b + idx_b, live * dx_ops + B * N * node),
     }
 
 
 def capture_training_convs(model, batch, k2_convs=K2_CONVS):
     """The aggregate calls of one training-mode forward of ``model`` (the
     score model, whose convs K2 takes K2_CONVS of, or the confidence head,
-    HEAD_K2_CONVS): (name, tp, x, sh, w, sh needs grad) of every K2 call and
-    of every K3 (conv-level) call."""
+    HEAD_K2_CONVS): (name, tp, x, sh, w, sh needs grad, sender index or
+    None) of every K2 call and of every K3 (conv-level) call."""
     import torch
 
     from diffphore_torch.models.layers import DenseTPConv
@@ -641,9 +674,10 @@ def capture_training_convs(model, batch, k2_convs=K2_CONVS):
     originals = (tp_aggregate.tp_aggregate, tp_scalar.scalar_paths_aggregate)
 
     def recorder(calls, original):
-        def record(tp, x, sh, w):
-            calls.append((names[-1], tp, x.detach(), sh.detach(), w.detach(), sh.requires_grad))
-            return original(tp, x, sh, w)
+        def record(tp, x, sh, w, sender_index=None):
+            calls.append((names[-1], tp, x.detach(), sh.detach(), w.detach(), sh.requires_grad,
+                          sender_index))
+            return original(tp, x, sh, w, sender_index=sender_index)
         return record
 
     tp_aggregate.tp_aggregate = recorder(k2_calls, originals[0])
@@ -701,39 +735,53 @@ def check_result(what, got, want, dtype, tol_f32):
 
 def phase_k2_check(calls):
     """Hold K2's kernels against the plain version on the captured inputs,
-    in f32 and in bf16."""
+    in f32 and in bf16.  A call with a sender index runs the sender-index
+    mode: dw without dsh (the phore convs' harmonics carry no gradient), dx
+    by the index's inverse lists (built beforehand, as the autograd forward
+    builds them), and the gathered einsums as the library time."""
     import torch
 
     from diffphore_torch.ops import tp_aggregate as k2
-    from diffphore_torch.ops.tp_fused import K_PAD_L2, lanes
+    from diffphore_torch.ops.tp_fused import K_PAD_L2, lanes, sender_lists
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     cases = []
-    for name, tp, x_cap, sh_cap, w_cap, sh_grad in calls:
+    for name, tp, x_cap, sh_cap, w_cap, sh_grad, idx in calls:
         B, N, M, _ = sh_cap.shape
-        F = tp.weight_numel
+        M_x, F = x_cap.shape[1], tp.weight_numel
         l2 = lanes(tp) == K_PAD_L2
         g = torch.randn((B, N, F, lanes(tp)), generator=gen, device="cuda")
-        case = {"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad}
+        case = {"conv": name, "B": B, "N": N, "M": M, "M_x": M_x, "F": F, "dsh": sh_grad,
+                "indexed": idx is not None}
+        kw, dx_kw = {}, {}
+        if idx is not None:
+            if sh_grad:
+                raise AssertionError(f"{name}: a phore conv's harmonics carry a gradient")
+            kw = {"sender_index": idx}
+            dx_kw = dict(kw, lists=sender_lists(idx, M_x))
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
             leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
-            ref = k2.tp_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves))
+            ref = k2.tp_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves), **kw)
             ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
             runs = []
             for _ in range(2):
-                out = k2.launch_forward(tp, x, sh, w)
-                dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, True)
-                dx = k2.launch_backward_x(tp, x, sh, w, g)
+                out = k2.launch_forward(tp, x, sh, w, **kw)
+                dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, idx is None, **kw)
+                dx = k2.launch_backward_x(tp, x, sh, w, g, **dx_kw)
                 runs.append((out, dx, dsh, dw))
-            dw_only, _ = k2.launch_backward_edge(tp, x, sh, w, g, False)
+            if idx is None:
+                dw_only, _ = k2.launch_backward_edge(tp, x, sh, w, g, False)
+                torch.cuda.synchronize()
+                check_result(f"{name} {dtype}: dw of the kernel without dsh", dw_only, ref_dw,
+                             dtype, TOL_K2)
             torch.cuda.synchronize()
-            check_result(f"{name} {dtype}: dw of the kernel without dsh", dw_only, ref_dw, dtype,
-                         TOL_K2)
             errs = {}
             for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
                                                (ref, ref_dx, ref_dsh, ref_dw)):
+                if got is None:         # dsh: the sender-index mode computes none
+                    continue
                 if not torch.equal(got, again):
                     raise AssertionError(f"{name} {dtype}: two runs of {label} differ")
                 errs[label] = check_result(f"{name} {dtype}: {label}", got, want, dtype, TOL_K2)
@@ -742,16 +790,17 @@ def phase_k2_check(calls):
             # where the harmonics carry gradient)
             case["errs" + tag] = errs
             case["ms" + tag] = {
-                "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w), 10),
-                "bwd_edge": device_ms(lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad),
-                                      10),
-                "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g), 10),
+                "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w, **kw), 10),
+                "bwd_edge": device_ms(
+                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw), 10),
+                "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g, **dx_kw), 10),
             }
-            case["bound" + tag] = bounds(k2_work(tp, x, sh, w, sh_grad))
-            case["library_ms" + tag] = k2_library_ms(tp, x, sh, w, g, sh_grad)
+            case["bound" + tag] = bounds(k2_work(tp, x, sh, w, sh_grad, idx))
+            case["library_ms" + tag] = (k2_library_ms(tp, x, sh, w, g, sh_grad) if idx is None
+                                        else index_library_ms(tp, x, sh, w, g, idx))
             case["grid" + tag] = {}
-            for k, kept in (("fwd", N), ("bwd_x", M)):
-                if l2:      # the 8-lane kernels: a block per kept entry, no split
+            for k, kept in (("fwd", N), ("bwd_x", M_x)):
+                if l2 or idx is not None:   # the 8-lane bodies: a block per kept entry
                     case["grid" + tag][k] = (B * kept, 1)
                     continue
                 splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device, dtype)
@@ -759,10 +808,10 @@ def phase_k2_check(calls):
             if dtype == torch.float32:
                 # the plain backward is autograd through the plain version
                 case["call_ms_bwd_edge"] = cuda_ms(
-                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad), 10)
+                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw), 10)
                 edge_leaves = [leaves[2], leaves[1]] if sh_grad else [leaves[2]]
                 with torch.no_grad():
-                    plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w), 3)
+                    plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w, **kw), 3)
                 case["plain_ms"] = {
                     "fwd": plain_fwd,
                     "bwd_edge": cuda_ms(lambda: torch.autograd.grad(ref, edge_leaves, g,
@@ -773,15 +822,14 @@ def phase_k2_check(calls):
             del ref, leaves, runs
         cases.append(case)
         ms, ms_bf, plain, bound = case["ms"], case["ms_bf16"], case["plain_ms"], case["bound"]
-        errs, errs_bf, grid = case["errs"], case["errs_bf16"], case["grid"]
-        print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F:3d} dsh={int(sh_grad)} "
+        grid = case["grid"]
+        print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} "
+              + (f"(slots of M_x={M_x} senders) " if idx is not None else "")
+              + f"F={F:3d} dsh={int(sh_grad)} "
               f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} sender splits; bf16 "
               f"{case['grid_bf16']['fwd'][1]}), dx grid {grid['bwd_x'][0]} blocks "
               f"({grid['bwd_x'][1]} receiver splits; bf16 {case['grid_bf16']['bwd_x'][1]}) "
-              f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
-              f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
-              f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}); bf16 err out {errs_bf['out'][0]:.1e} "
-              f"dx {errs_bf['dx'][0]:.1e} dsh {errs_bf['dsh'][0]:.1e} dw {errs_bf['dw'][0]:.1e} "
+              f"{errors_text(case)} "
               f"| ms kernel/plain/einsum/bound f32, kernel/einsum/bound bf16: "
               + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{case['library_ms'][k]:.4f}/"
                          f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
@@ -796,6 +844,15 @@ def phase_k2_check(calls):
             print(f"  edge backward with dsh, {c['conv']}: {a:.4f} ms, its norm twin (dw only, same "
                   f"shapes) {b:.4f} ms, ratio {a / b:.2f}", flush=True)
     return cases
+
+
+def errors_text(case):
+    """A K2 or K3 case's errors against the plain version, f32 then bf16,
+    with the plain results' scales."""
+    errs, errs_bf = case["errs"], case["errs_bf16"]
+    return ("err " + " ".join(f"{k} {v[0]:.1e}" for k, v in errs.items())
+            + " (max|ref| " + " ".join(f"{v[1]:.1e}" for v in errs.values()) + "); bf16 err "
+            + " ".join(f"{k} {v[0]:.1e}" for k, v in errs_bf.items()))
 
 
 # The CUDA kernels behind each K2 wrapper: the first always runs; the second
@@ -922,7 +979,7 @@ def k3_library_ms(tp, x, sh, w, g, with_dsh):
             for k, eqs in K3_EINSUM.items()}
 
 
-def k3_work(tp, x, sh, w, with_dsh):
+def k3_work(tp, x, sh, w, with_dsh, idx=None):
     """{kernel: (bytes, f32 operations)} that K3's three kernels need on one
     convolution: each operand read once (x once for all paths, the harmonic
     components the paths read, the weights, the upstream gradient's lanes
@@ -930,13 +987,14 @@ def k3_work(tp, x, sh, w, with_dsh):
     element sizes (the output and the upstream gradient f32); products with
     an edge weight counted on edges whose weights are not all zero, dw on
     every edge (it is defined where w is masked too).  The edge backward
-    reads w and writes dsh only ``with_dsh``."""
+    reads w and writes dsh only ``with_dsh``.  A sender index ``idx`` is
+    read once by each kernel."""
     B, N, M, S = sh.shape
     edges = B * N * M
     live = int((w != 0).any(-1).sum())
     es = x.element_size()
     sh_k = sum(k for _, k in {(p.i_sh, 2 * p.l_sh + 1) for p in tp.paths})
-    x_b = es * B * M * tp.irreps_in.dim
+    x_b = es * x.numel() + (0 if idx is None else idx.numel() * idx.element_size())
     sh_b, w_b = es * edges * sh_k, es * edges * tp.weight_numel
     gk = sum(p.mul_in * (2 * p.l_sh + 1) for p in tp.paths)
     out_b = g_b = 4 * B * N * gk     # the f32 output's and g's lanes that the paths define
@@ -954,85 +1012,101 @@ def phase_k3_check(calls):
     """Hold K3's kernels against the plain versions on each captured
     layer-0 conv, in f32 and in bf16: the forward and dx against autograd
     through ``scalar_paths_aggregate_plain``, the edge backward (dw and dsh
-    in one launch) against ``scalar_paths_backward_edge_plain``."""
+    in one launch) against ``scalar_paths_backward_edge_plain``.  A call
+    with a sender index runs the sender-index mode as phase_k2_check does:
+    dw without dsh, dx by the index's inverse lists, the gathered einsums
+    as the library time."""
     import torch
 
     from diffphore_torch.ops import tp_scalar as k3
-    from diffphore_torch.ops.tp_fused import lanes as n_lanes
+    from diffphore_torch.ops.tp_fused import lanes as n_lanes, sender_lists
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
     cases = []
-    for name, tp, x_cap, sh_cap, w_cap, sh_grad in calls:
+    for name, tp, x_cap, sh_cap, w_cap, sh_grad, idx in calls:
         B, N, M, _ = sh_cap.shape
-        F = tp.weight_numel
+        M_x, F = x_cap.shape[1], tp.weight_numel
         g = torch.randn((B, N, F, n_lanes(tp)), generator=gen, device="cuda")   # pad lanes: noise
         lanes = torch.zeros_like(g)
         for p in tp.paths:
             lanes[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
-        case = {"conv": name, "B": B, "N": N, "M": M, "F": F, "dsh": sh_grad,
-                "paths": len(tp.paths)}
+        case = {"conv": name, "B": B, "N": N, "M": M, "M_x": M_x, "F": F, "dsh": sh_grad,
+                "paths": len(tp.paths), "indexed": idx is not None}
+        kw, dx_kw = {}, {}
+        if idx is not None:
+            if sh_grad:
+                raise AssertionError(f"{name}: a phore conv's harmonics carry a gradient")
+            kw = {"sender_index": idx}
+            dx_kw = dict(kw, lists=sender_lists(idx, M_x))
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
             leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
-            ref = k3.scalar_paths_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves))
+            ref = k3.scalar_paths_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves), **kw)
             (ref_dx,) = torch.autograd.grad(ref, [leaves[0]], g * lanes, retain_graph=True)
-            ref_dw, ref_dsh = k3.scalar_paths_backward_edge_plain(tp, x, sh, w, g, True)
+            ref_dw, ref_dsh = k3.scalar_paths_backward_edge_plain(tp, x, sh, w, g, idx is None,
+                                                                  **kw)
             runs = []
             for _ in range(2):
-                out = k3.launch_forward(tp, x, sh, w)
-                dw, dsh = k3.launch_backward_edge(tp, x, sh, w, g, True)
-                dx = k3.launch_backward_x(tp, x, sh, w, g)
+                out = k3.launch_forward(tp, x, sh, w, **kw)
+                dw, dsh = k3.launch_backward_edge(tp, x, sh, w, g, idx is None, **kw)
+                dx = k3.launch_backward_x(tp, x, sh, w, g, **dx_kw)
                 runs.append((out, dx, dsh, dw))
-            dw_only, _ = k3.launch_backward_edge(tp, x, sh, w, g, False)
-            _, dsh_only = k3.launch_backward_edge(tp, x, sh, w, g, True, False)
+            if idx is None:
+                dw_only, _ = k3.launch_backward_edge(tp, x, sh, w, g, False)
+                _, dsh_only = k3.launch_backward_edge(tp, x, sh, w, g, True, False)
+                torch.cuda.synchronize()
+                if not (torch.equal(dw_only, runs[0][3]) and torch.equal(dsh_only, runs[0][2])):
+                    raise AssertionError(f"{name} {dtype}: the edge backward's dw without dsh, "
+                                         "or its dsh without dw, differs from the launch of both")
+                unread = runs[0][2][..., k3.sh_reach(tp):]
+                if unread.numel() and float(unread.abs().max()) != 0.0:
+                    raise AssertionError(f"{name} {dtype}: dsh is not zero where no path reads")
             torch.cuda.synchronize()
-            if not (torch.equal(dw_only, runs[0][3]) and torch.equal(dsh_only, runs[0][2])):
-                raise AssertionError(f"{name} {dtype}: the edge backward's dw without dsh, or "
-                                     "its dsh without dw, differs from the launch of both")
-            unread = runs[0][2][..., k3.sh_reach(tp):]
-            if unread.numel() and float(unread.abs().max()) != 0.0:
-                raise AssertionError(f"{name} {dtype}: dsh is not zero where no path reads")
             errs = {}
             for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
-                                               (ref, ref_dx, ref_dsh.float(), ref_dw.float())):
+                                               (ref, ref_dx, ref_dsh, ref_dw)):
+                if got is None:         # dsh: the sender-index mode computes none
+                    continue
                 if not torch.equal(got, again):
                     raise AssertionError(f"{name} {dtype}: two runs of {label} differ")
-                errs[label] = check_result(f"{name} {dtype}: {label}", got, want, dtype, TOL_K3)
+                errs[label] = check_result(f"{name} {dtype}: {label}", got, want.float(), dtype,
+                                           TOL_K3)
             case["errs" + tag] = errs
             # times: the edge backward in the form the train step runs it (dsh
             # only where the harmonics carry gradient)
             case["ms" + tag] = {
-                "fwd": device_ms(lambda: k3.launch_forward(tp, x, sh, w), 20),
-                "bwd_edge": device_ms(lambda: k3.launch_backward_edge(tp, x, sh, w, g, sh_grad),
-                                      20),
-                "bwd_x": device_ms(lambda: k3.launch_backward_x(tp, x, sh, w, g), 20),
+                "fwd": device_ms(lambda: k3.launch_forward(tp, x, sh, w, **kw), 20),
+                "bwd_edge": device_ms(
+                    lambda: k3.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw), 20),
+                "bwd_x": device_ms(lambda: k3.launch_backward_x(tp, x, sh, w, g, **dx_kw), 20),
             }
-            case["bound" + tag] = bounds(k3_work(tp, x, sh, w, sh_grad))
+            case["bound" + tag] = bounds(k3_work(tp, x, sh, w, sh_grad, idx))
             case["grid" + tag] = {
-                k: k3.launch_chunk(tp, B, N, M, k == "bwd_x", x.device, dtype)[1]
-                for k in ("fwd", "bwd_x")}
-            case["library_ms" + tag] = k3_library_ms(tp, x, sh, w, g, sh_grad)
+                "fwd": k3.launch_chunk(tp, B, N, M, False, x.device, dtype)[1],
+                "bwd_x": (1 if idx is not None     # the lists: one split
+                          else k3.launch_chunk(tp, B, N, M, True, x.device, dtype)[1])}
+            case["library_ms" + tag] = (k3_library_ms(tp, x, sh, w, g, sh_grad) if idx is None
+                                        else index_library_ms(tp, x, sh, w, g, idx))
             if dtype == torch.float32:
                 with torch.no_grad():
                     plain = {
-                        "fwd": cuda_ms(lambda: k3.scalar_paths_aggregate_plain(tp, x, sh, w), 5),
+                        "fwd": cuda_ms(lambda: k3.scalar_paths_aggregate_plain(tp, x, sh, w,
+                                                                               **kw), 5),
                         "bwd_edge": cuda_ms(lambda: k3.scalar_paths_backward_edge_plain(
-                            tp, x, sh, w, g, sh_grad), 5)}
+                            tp, x, sh, w, g, sh_grad, **kw), 5)}
                 plain["bwd_x"] = cuda_ms(lambda: torch.autograd.grad(
                     ref, [leaves[0]], g * lanes, retain_graph=True), 5)
                 case["plain_ms"] = plain
             del ref, leaves, runs
         cases.append(case)
         ms, ms_bf, bound, lib = case["ms"], case["ms_bf16"], case["bound"], case["library_ms"]
-        errs, errs_bf = case["errs"], case["errs_bf16"]
-        print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F} dsh={int(sh_grad)} "
+        print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} "
+              + (f"(slots of M_x={M_x} senders) " if idx is not None else "")
+              + f"F={F} dsh={int(sh_grad)} "
               f"splits fwd {case['grid']['fwd']} dx {case['grid']['bwd_x']} (bf16 "
               f"{case['grid_bf16']['fwd']}, {case['grid_bf16']['bwd_x']}) "
-              f"err out {errs['out'][0]:.1e} dx {errs['dx'][0]:.1e} dsh {errs['dsh'][0]:.1e} "
-              f"dw {errs['dw'][0]:.1e} (max|ref| {errs['out'][1]:.1e} {errs['dx'][1]:.1e} "
-              f"{errs['dsh'][1]:.1e} {errs['dw'][1]:.1e}); bf16 err out {errs_bf['out'][0]:.1e} "
-              f"dx {errs_bf['dx'][0]:.1e} dsh {errs_bf['dsh'][0]:.1e} dw {errs_bf['dw'][0]:.1e} "
+              f"{errors_text(case)} "
               f"| ms kernel/plain/einsum/bound f32, kernel/einsum/bound bf16: "
               + " ".join(f"{k} {ms[k]:.4f}/{case['plain_ms'][k]:.4f}/{lib[k]:.4f}/"
                          f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
@@ -1084,8 +1158,9 @@ def k3_kernel_entries(cases, launches, launches_training, l2=False):
 
 
 def _counters():
-    """Every kernel's launch counter: the 4-lane kernels and, under the same
-    names ending in ``_l2``, the 8-lane ones (l = 2)."""
+    """Every kernel's launch counter: the 4-lane kernels, under the same
+    names ending in ``_l2`` the 8-lane ones (l = 2), and ending in ``_idx``
+    (``_idx_l2``) the sender-index mode of the KNN phore grid."""
     from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 
     return {"k1": tp_fused.KERNEL, "fwd": tp_aggregate.FWD, "bwd_edge": tp_aggregate.BWD_EDGE,
@@ -1094,7 +1169,16 @@ def _counters():
             "k1_l2": tp_fused.KERNEL_L2, "fwd_l2": tp_aggregate.FWD_L2,
             "bwd_edge_l2": tp_aggregate.BWD_EDGE_L2, "bwd_x_l2": tp_aggregate.BWD_X_L2,
             "k3_fwd_l2": tp_scalar.FWD_L2, "k3_bwd_edge_l2": tp_scalar.BWD_EDGE_L2,
-            "k3_bwd_x_l2": tp_scalar.BWD_X_L2}
+            "k3_bwd_x_l2": tp_scalar.BWD_X_L2,
+            "k1_idx": tp_fused.KERNEL_IDX, "fwd_idx": tp_aggregate.FWD_IDX,
+            "bwd_edge_idx": tp_aggregate.BWD_EDGE_IDX, "bwd_x_idx": tp_aggregate.BWD_X_IDX,
+            "k3_fwd_idx": tp_scalar.FWD_IDX, "k3_bwd_edge_idx": tp_scalar.BWD_EDGE_IDX,
+            "k3_bwd_x_idx": tp_scalar.BWD_X_IDX,
+            "k1_idx_l2": tp_fused.KERNEL_IDX_L2, "fwd_idx_l2": tp_aggregate.FWD_IDX_L2,
+            "bwd_edge_idx_l2": tp_aggregate.BWD_EDGE_IDX_L2,
+            "bwd_x_idx_l2": tp_aggregate.BWD_X_IDX_L2, "k3_fwd_idx_l2": tp_scalar.FWD_IDX_L2,
+            "k3_bwd_edge_idx_l2": tp_scalar.BWD_EDGE_IDX_L2,
+            "k3_bwd_x_idx_l2": tp_scalar.BWD_X_IDX_L2}
 
 
 def kernel_counts():
@@ -1106,18 +1190,36 @@ def reset_kernel_counts():
         k.launches = 0
 
 
-def want_counts(steps=0, eval_batches=0, k2_convs=K2_CONVS, k1=None, l2=False):
+def want_counts(steps=0, eval_batches=0, k2_convs=K2_CONVS, k1=None, l2=False, knn=False,
+                k1_idx=None):
     """The launches of ``steps`` training forwards and backwards of a model
     whose convs K2 takes ``k2_convs`` of, ``eval_batches`` eval-mode forwards
     of the score model (validation batches, or the frozen forward of a
     calibrated step), or ``k1`` K1 launches in all: on the 8-lane kernels
-    (``l2``) or the 4-lane ones, the other layout's at 0."""
-    per = {"k1": CONVS_PER_FORWARD * eval_batches if k1 is None else k1,
-           "fwd": k2_convs * steps, "bwd_edge": k2_convs * steps, "bwd_x": k2_convs * steps,
-           "k3_fwd": K3_CONVS * steps, "k3_bwd_edge": K3_CONVS * steps,
-           "k3_bwd_x": K3_CONVS * steps}
-    return {k + suffix: (n if (suffix == "_l2") == l2 else 0)
-            for suffix in ("", "_l2") for k, n in per.items()}
+    (``l2``) or the 4-lane ones, the other layout's at 0.  ``knn``: the
+    model's phore grid is KNN-compacted, so its KNN_CONVS phore convs (K3
+    the layer-0 one, K2 the others) run the sender-index mode (``k1_idx``
+    K1 launches in all with ``k1``); else every sender-index count is 0."""
+    phore = KNN_CONVS if knn else 0
+    if k1 is None:
+        k1, k1_idx = (CONVS_PER_FORWARD - phore) * eval_batches, phore * eval_batches
+    per = {"k1": k1, "fwd": k2_convs * steps, "bwd_edge": k2_convs * steps,
+           "bwd_x": k2_convs * steps, "k3_fwd": K3_CONVS * steps,
+           "k3_bwd_edge": K3_CONVS * steps, "k3_bwd_x": K3_CONVS * steps}
+    idx = {k: 0 for k in per}
+    if knn:
+        idx = {"k1": k1_idx or 0, "fwd": (phore - 1) * steps, "bwd_edge": (phore - 1) * steps,
+               "bwd_x": (phore - 1) * steps, "k3_fwd": steps, "k3_bwd_edge": steps,
+               "k3_bwd_x": steps}
+        per = {k: n - (idx[k] if k != "k1" else 0) for k, n in per.items()}
+    out = {}
+    for suffix in ("", "_l2"):
+        on = (suffix == "_l2") == l2
+        for k, n in per.items():
+            out[k + suffix] = n if on else 0
+        for k, n in idx.items():
+            out[k + "_idx" + suffix] = n if on else 0
+    return out
 
 
 def expect_counts(what, **kw):
@@ -3304,6 +3406,533 @@ def phase_second_order(card, jobs, train_batch, draws):
             "step_ms": step_ms, "step_busy_ms": step_busy, "step_peak_gib": step_peak}
 
 
+KNN = 24                        # phore_knn of the KNN path (runs/knn_probe)
+KNN_EXACT = 40                  # at least the largest in-degree of these phores
+KNN_PROBE_DIR = os.path.join(HERE, "runs", "knn_probe")
+KNN_STEP_REPEATS = 2            # timed train steps
+KNN_SCREEN_ROW = "EX01"         # examples/task.csv's row served by cli.inference
+# FitEngine runs, in turns: (model, half of phase 4's complexes), so each
+# model serves every complex once and the two sit symmetric in the window
+KNN_SERVING_TURNS = (("dense", 0), ("KNN", 0), ("KNN", 1), ("dense", 1))
+
+
+def max_in_degree(batch) -> int:
+    """The most senders a receiver of a (cached) batch's phore graph has."""
+    m = batch.phore_mask
+    return int((batch.phore_edge_mask & m[:, :, None] & m[:, None, :]).sum(-1).max())
+
+
+def knn_model_dir(tmp, src_dir, knn):
+    """A model directory under ``tmp``: ``src_dir``'s model_parameters.yml
+    with ``phore_knn: knn`` and its weights (linked: the option adds no
+    parameter)."""
+    from diffphore_torch.utils.checkpoints import BEST_EMA_MODEL
+
+    out = os.path.join(tmp, f"{os.path.basename(src_dir)}_knn{knn}")
+    os.makedirs(out)
+    with open(os.path.join(src_dir, "model_parameters.yml")) as f:
+        text = f.read()
+    if "phore_knn: 0\n" not in text:
+        raise RuntimeError(f"{src_dir}: model_parameters.yml has no phore_knn: 0")
+    with open(os.path.join(out, "model_parameters.yml"), "w") as f:
+        f.write(text.replace("phore_knn: 0\n", f"phore_knn: {knn}\n"))
+    os.symlink(os.path.join(src_dir, BEST_EMA_MODEL), os.path.join(out, BEST_EMA_MODEL))
+    return out
+
+
+def capture_index_calls(model, batch, poses=POSES):
+    """(name, module, args, sender index) of the sender-index conv calls of
+    one eval forward: the KNN_CONVS phore convs of a KNN model."""
+    import torch
+
+    from diffphore_torch.models.layers import DenseTPConv
+
+    calls = []
+    hooks = [mod.register_forward_hook(
+        lambda m, args, kwargs, out, name=name: calls.append(
+            (name, m, args, kwargs.get("sender_index"))), with_kwargs=True)
+        for name, mod in model.named_modules() if isinstance(mod, DenseTPConv)]
+    with torch.inference_mode():
+        model(batch, pose_group=poses)
+    for h in hooks:
+        h.remove()
+    indexed = [c for c in calls if c[3] is not None]
+    if len(calls) != CONVS_PER_FORWARD or len(indexed) != KNN_CONVS:
+        raise RuntimeError(f"captured {len(calls)} conv calls, {len(indexed)} with a sender "
+                           f"index; expected {CONVS_PER_FORWARD} and {KNN_CONVS}")
+    return indexed
+
+
+def phase_k1_index_check(calls):
+    """K1's sender-index mode against its plain version on captured phore
+    conv calls, at f32 and bf16, reruns bit-equal; timed (graph replay and
+    per call from Python) beside the plain version and the bound.  Returns
+    the cases in phase_kernel_check's form."""
+    import torch
+
+    from diffphore_torch.ops import tp_fused
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for name, mod, args, idx in calls:
+        sender, edge_attr, edge_sh, edge_mask, *_ = args
+        tp = mod.tp
+        x, sh = sender.to(f32).contiguous(), edge_sh.to(f32).contiguous()
+        attrs, masks = [edge_attr.to(f32).contiguous()], [edge_mask.contiguous()]
+        params = (mod.fc_w1.detach(), mod.fc_b1.detach(), mod.fc_w2.detach(), mod.fc_b2.detach())
+        low = (x.to(bf16), sh.to(bf16), [a.to(bf16) for a in attrs])
+        kw = {"sender_index": idx}
+        with torch.inference_mode():
+            ref = tp_fused.tp_aggregate_fused_plain(tp, x, sh, attrs, masks, *params, **kw)
+            got = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params, **kw)
+            again = tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params, **kw)
+            ref_bf = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params, **kw)
+            got_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params, **kw)
+            again_bf = tp_fused.tp_aggregate_fused(tp, *low, masks, *params, **kw)
+            torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got_bf, again_bf)):
+            raise AssertionError(f"{name}: two runs of the sender-index tp_fused differ")
+        scale, scale_bf = float(ref.abs().max()), float(ref_bf.abs().max())
+        err, err_bf = float((got - ref).abs().max()), float((got_bf - ref_bf).abs().max())
+        if not err <= TOL_F32 * max(scale, 1e-30):
+            raise AssertionError(f"{name}: f32 |kernel - plain| {err} > {TOL_F32} * {scale}")
+        if not err_bf <= TOL_BF16 * max(scale_bf, 1e-30):
+            raise AssertionError(f"{name}: bf16 |kernel - plain| {err_bf} > {TOL_BF16} * "
+                                 f"{scale_bf}")
+        with torch.inference_mode():
+            call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params, **kw)
+            ms = device_ms(call, 20)
+            ms_bf = device_ms(lambda: tp_fused.tp_aggregate_fused(tp, *low, masks, *params, **kw),
+                              20)
+            call_ms = cuda_ms(call, 20)
+            plain_ms = cuda_ms(lambda: tp_fused.tp_aggregate_fused_plain(
+                tp, x, sh, attrs, masks, *params, **kw), 5)
+        nbytes, mm_ops, vec_ops = k1_work(tp, x, sh, attrs, masks, params[0], params[2], idx)
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, (mm_ops + vec_ops) / PEAK_F32 * 1e3
+        nbytes_bf, _, _ = k1_work(tp, *low, masks, params[0], params[2], idx)
+        bound_bf = max(nbytes_bf / PEAK_BYTES * 1e3,
+                       max(mm_ops / PEAK_BF16, vec_ops / PEAK_F32) * 1e3)
+        B, N, K, _ = sh.shape
+        l2 = tp_fused.lanes(tp) == tp_fused.K_PAD_L2
+        per_block, splits = tp_fused.plan_senders(
+            B, N, K, *((tp_fused.TILE_N_L2, tp_fused.MAX_SENDERS_L2) if l2
+                       else (tp_fused.TILE_N, tp_fused.MAX_SENDERS)))
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        cases.append({
+            "conv": name, "B": B, "N": N, "K": K, "M_x": x.shape[1], "F": tp.weight_numel,
+            "lanes": tp_fused.lanes(tp), "splits": splits, "max_abs_err": err,
+            "max_abs_err_bf16": err_bf, "max_rel_err_bf16": err_bf / max(scale_bf, 1e-30),
+            "max_abs_ref": scale, "ms": ms, "ms_bf16": ms_bf, "bound_ms_bf16": bound_bf,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": bound_by})
+        print(f"  {name:28s} B={B:2d} N={N:3d} K={K} M_x={x.shape[1]} F={tp.weight_numel:3d} "
+              f"lanes {tp_fused.lanes(tp)} ({splits} slot splits) err={err:.2e} "
+              f"bf16_err={err_bf:.2e} (max|ref| {scale:.2e}) reruns bit-equal  kernel {ms:.4f} ms "
+              f"on the card (bf16 {ms_bf:.4f}, bound {bound_bf:.4f}), {call_ms:.4f} ms per call "
+              f"from Python  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+              f"({bound_by}: bytes {t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
+    return cases
+
+
+def index_library_ms(tp, x, sh, w, g, idx):
+    """{kernel: ms} on the card (graph replay) of the PyTorch calls that
+    compute the sender-index functions: per path, the gather of the senders
+    (an index) and the gathered einsum of the forward and of dw, and for dx
+    the per-slot einsum and an ``index_add_`` into the senders."""
+    import torch
+
+    from diffphore_torch.ops import tp_scalar
+    from diffphore_torch.ops.tp_fused import coupling
+
+    B, N, K, _ = sh.shape
+    scalar = tp_scalar.all_scalar_paths(tp)
+    bidx = torch.arange(B, device=x.device)[:, None, None]
+    flat = (idx.long() + x.shape[1] * bidx).reshape(-1)
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    paths = []
+    for p in tp.paths:
+        d1 = 2 * p.l_in + 1
+        paths.append({"x": x[..., in_slices[p.i_in]], "mul": p.mul_in, "d1": d1,
+                      "sh": sh[..., sh_slices[p.i_sh]],
+                      "c": torch.as_tensor(coupling(p, x.dtype), device=x.device).to(x.dtype),
+                      "w": w[..., p.w_slice[0]:p.w_slice[1]],
+                      "g": g[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1].to(x.dtype)})
+
+    def xg(pp):
+        v = pp["x"][bidx, idx]
+        return v if scalar else v.reshape(v.shape[:-1] + (pp["mul"], pp["d1"]))
+
+    def fwd():
+        for pp in paths:
+            if scalar:
+                torch.einsum("bnmu,bnmk,bnmu->bnuk", xg(pp), pp["sh"], pp["w"])
+            else:
+                torch.einsum("bnmui,bnmj,ijk,bnmu->bnuk", xg(pp), pp["sh"], pp["c"], pp["w"])
+
+    def edge():
+        for pp in paths:
+            if scalar:
+                torch.einsum("bnmu,bnmk,bnuk->bnmu", xg(pp), pp["sh"], pp["g"])
+            else:
+                torch.einsum("bnmui,bnmj,ijk,bnuk->bnmu", xg(pp), pp["sh"], pp["c"], pp["g"])
+
+    def dx():
+        for pp in paths:
+            if scalar:
+                per = torch.einsum("bnmk,bnmu,bnuk->bnmu", pp["sh"], pp["w"], pp["g"])
+            else:
+                per = torch.einsum("bnmj,ijk,bnmu,bnuk->bnmui", pp["sh"], pp["c"], pp["w"],
+                                   pp["g"])
+            out = torch.zeros((B * x.shape[1],) + per.shape[3:], dtype=per.dtype,
+                              device=x.device)
+            out.index_add_(0, flat, per.reshape((-1,) + per.shape[3:]))
+
+    with torch.no_grad():
+        return {"fwd": device_ms(fwd, 5), "bwd_edge": device_ms(edge, 5),
+                "bwd_x": device_ms(dx, 5)}
+
+
+def index_k23_check(model, batch):
+    """K2's and K3's sender-index mode held (phase_k2_check,
+    phase_k3_check) on the phore conv calls of one training-mode forward of
+    a KNN model -> (K2 cases, K3 cases)."""
+    k2_calls, k3_calls = capture_training_convs(model, batch)
+    k2_calls, k3_calls = ([c for c in calls if c[6] is not None] for calls in (k2_calls, k3_calls))
+    names = [c[0] for c in k3_calls + k2_calls]
+    if names != [f"encoder.phore_conv_{i}" for i in range(KNN_CONVS)]:
+        raise AssertionError(f"sender-index training calls {names}")
+    return phase_k2_check(k2_calls), phase_k3_check(k3_calls)
+
+
+def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
+    """The report entries of the sender-index kernels (``l2``: the 8-lane
+    instantiations): K1's over the phore convs of one 40-pose forward, K2's
+    and K3's over those of one train step; launches from the KNN serving
+    run and the KNN train step."""
+    suffix = "_idx" + ("_l2" if l2 else "")
+    k1 = k1_entry("tp_fused" + suffix, k1_cases, serving["k1" + suffix])
+    k1["device_kernels"] = (["tp_fused_l2_kernel with a sender index", "tp_fused_l2_sum_splits"]
+                            if l2 else ["tp_fused_kernel<T, NC, IDX = true>",
+                                        "tp_fused_kernel_sum_splits"])
+    k1["unit"] = (f"one forward: the {KNN_CONVS} phore conv calls (K = {KNN}), each timed "
+                  "alone; ms on the card (graph replay), f32 inputs (ms) and bf16 ones "
+                  "(ms_bf16), call_ms per call from Python")
+    entries = [k1]
+    labels = {"fwd": ("out",), "bwd_edge": ("dw",), "bwd_x": ("dx",)}
+    for family, cases, prefix, source, replaces in (
+            ("tp_aggregate", k2_cases, "", "diffphore_torch/csrc/tp_aggregate.cu",
+             "diffphore_tpu/ops/pallas/tp_aggregate.py:88"),
+            ("tp_scalar", k3_cases, "k3_", "diffphore_torch/csrc/tp_scalar.cu",
+             "diffphore_tpu/ops/pallas/tp_scalar.py:43")):
+        for k, outputs in labels.items():
+            by = {"bytes": 0.0, "operations": 0.0}
+            for c in cases:
+                by[c["bound"][k][1]] += c["bound"][k][0]
+            entries.append({
+                "name": f"{family}_{k}{suffix}", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": training[prefix + k + suffix],
+                "max_abs_err": max(c["errs"][o][0] for c in cases for o in outputs),
+                "max_rel_err": max(c["errs"][o][0] / max(c["errs"][o][1], 1e-30)
+                                   for c in cases for o in outputs),
+                "ms": sum(c["ms"][k] for c in cases),
+                "plain_ms": sum(c["plain_ms"][k] for c in cases),
+                "bound_ms": sum(c["bound"][k][0] for c in cases),
+                "bound_by": "operations" if by["operations"] >= by["bytes"] else "bytes",
+                "library_ms": sum(c["library_ms"][k] for c in cases),
+                "ms_bf16": sum(c["ms_bf16"][k] for c in cases),
+                "bound_ms_bf16": sum(c["bound_bf16"][k][0] for c in cases),
+                "library_ms_bf16": sum(c["library_ms_bf16"][k] for c in cases),
+                "max_abs_err_bf16": max(c["errs_bf16"][o][0] for c in cases for o in outputs),
+                "unit": f"one train step: the {len(cases)} phore conv call(s) on this kernel "
+                        f"(K = {KNN}), each timed alone on the card (graph replay; dx with the "
+                        "index's inverse lists built beforehand, as the forward builds them), "
+                        "f32 (ms) and bf16 (ms_bf16) operands; library_ms is the gather of the "
+                        "senders and the gathered per-path torch.einsum (dx: the per-slot "
+                        "einsum and index_add_), by graph replay",
+            })
+    return entries
+
+
+def phase_knn(card, jobs, train_batch, draws, main_poses_per_s=None):
+    """17: the KNN phore grid (phore_knn) on the kernels' sender-index mode.
+    (a) K1 held against its plain version on the 3 phore conv calls of one
+    40-pose eval forward of corpus2 at K = 24 (a complex whose phore K = 24
+    compacts), K2 and K3 on the phore conv calls of one training-mode
+    forward of the 24-complex batch; the same at 8 lanes on the second-order
+    probe's weights at K = 24.  (b) serving at bf16 from a model directory
+    with phore_knn: 24: ``cli.inference.main`` on one SDF row and
+    ``FitEngine`` on phase 4's complexes x 40 x 20 in turns with the dense
+    model over their two halves (dense, KNN on the first; KNN, dense on the
+    second), K1 exactly 400 dense + 60 sender-index
+    launches a KNN dispatch, poses/s beside the dense model's and phase 4's;
+    the probe's f32 forward against runs/knn_probe/reference.npz; K = 40
+    against the dense model.  (c) a train step at K = 24, kernels against
+    plain convs (f32 and bf16), K2 15 + 2 and K3 5 + 1 a kernel, its wall,
+    busy time and peak memory; the 8-lane serving dispatch and step.
+    Returns the report entries."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli import inference as cli
+    from diffphore_torch.cli.pipeline import FitEngine
+    from diffphore_torch.data.graphs import concat_batches, load_cached
+    from diffphore_torch.data.transforms import apply_noise, draw_noise
+    from diffphore_torch.models.layers import set_compute_dtype
+    from diffphore_torch.sampler.sampling import SamplerSettings
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils import checkpoints
+
+    t_phase = time.perf_counter()
+    per_dispatch = dict(k1=(CONVS_PER_FORWARD - KNN_CONVS) * STEPS, k1_idx=KNN_CONVS * STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        knn_dir = knn_model_dir(tmp, MODEL_DIR, KNN)
+        cfg, model = checkpoints.load_model_dir(knn_dir, device="cuda")
+        if not (cfg.phore_knn == KNN and cfg.compute_dtype == "bfloat16"
+                and (cfg.ns, cfg.nv, cfg.num_conv_layers) == (20, 10, 4)):
+            raise AssertionError("the KNN model is not corpus2 at bf16 with phore_knn 24")
+        knn_job = next(j for j in jobs if max_in_degree(j.batch) > KNN)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        batch = posed_rows(knn_job.batch.to("cuda"), POSES, cfg, gen)
+
+        # ---- (a) the kernel checks, 4 lanes
+        print(f"KNN, kernel check: tp_fused's sender-index mode on the {KNN_CONVS} phore conv "
+              f"calls of one forward of {knn_job.name} (largest in-degree "
+              f"{max_in_degree(knn_job.batch)} > K = {KNN})", flush=True)
+        k1_cases = phase_k1_index_check(capture_index_calls(model, batch))
+        with torch.no_grad():
+            noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
+        _, train_model = checkpoints.load_model_dir(knn_dir, device="cuda")
+        print("KNN, kernel check: tp_scalar's and tp_aggregate's sender-index mode on the phore "
+              f"conv calls of one training-mode forward (batch {train_batch.batch_size})",
+              flush=True)
+        k2_cases, k3_cases = index_k23_check(train_model, noised)
+        del train_model
+        t_a = time.perf_counter()
+
+        # ---- (b) serving: the probe, K = 40 against the dense grid, the CLI,
+        # FitEngine
+        rows = concat_batches([load_cached(f) for f in knn_probe_files()]).replace(
+            names=(), meta=()).to("cuda")
+        rows = rows.replace(t=torch.tensor(PROBE_T, dtype=torch.float32, device="cuda"),
+                            lig_pos=rows.lig_pos + torch.tensor(PROBE_SHIFT, device="cuda")[:, None])
+        ref = np.load(os.path.join(KNN_PROBE_DIR, "reference.npz"))
+        set_compute_dtype(model, "float32")
+        with torch.inference_mode():
+            out = model(rows)
+        for name, o in zip(("tr", "rot", "tor"), out):
+            want = ref[name]
+            err = float(np.abs(o.float().cpu().numpy() - want).max()) / float(np.abs(want).max())
+            print(f"KNN: probe {name} (f32, kernels) against the JAX reference: {err:.2e} of "
+                  f"max|JAX| {float(np.abs(want).max()):.4g}", flush=True)
+            if not err <= TOL_F32:
+                raise AssertionError(f"KNN probe {name}: {err} of max|JAX| > {TOL_F32}")
+        _, exact = checkpoints.load_model_dir(knn_model_dir(tmp, MODEL_DIR, KNN_EXACT),
+                                              device="cuda")
+        _, dense = checkpoints.load_model_dir(MODEL_DIR, device="cuda")
+        for m in (exact, dense):
+            set_compute_dtype(m, "float32")
+        if max_in_degree(knn_job.batch) > KNN_EXACT:
+            raise AssertionError(f"K = {KNN_EXACT} is not exact on {knn_job.name}")
+        with torch.inference_mode():
+            for name, a, b in zip(("tr", "rot", "tor"), exact(batch, pose_group=POSES),
+                                  dense(batch, pose_group=POSES)):
+                err = float((a - b).abs().max()) / float(b.abs().max())
+                print(f"KNN: K = {KNN_EXACT} against the dense grid, {name} (f32, kernels): "
+                      f"{err:.2e} of max|dense|", flush=True)
+                if not err <= TOL_F32:
+                    raise AssertionError(f"K = {KNN_EXACT} {name}: {err} > {TOL_F32}")
+        set_compute_dtype(model, cfg.compute_dtype)
+        set_compute_dtype(dense, cfg.compute_dtype)
+        del exact
+
+        task = os.path.join(tmp, "task.csv")
+        with open(os.path.join(HERE, "examples", "task.csv")) as f:
+            lines = f.read().splitlines()
+        examples = os.path.join(HERE, "examples") + os.sep
+        with open(task, "w") as f:      # the row's paths made absolute
+            f.write("\n".join([lines[0]] + [r.replace("examples/", examples) for r in lines[1:]
+                                            if r.startswith(KNN_SCREEN_ROW + ",")]) + "\n")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["--phore_ligand_csv", task, "--model_dir", knn_dir, "--out_dir",
+                      os.path.join(tmp, "screen"), "--sample_per_complex", str(POSES),
+                      "--inference_steps", str(STEPS), "--prefetch_workers", "0",
+                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_counts = expect_counts("KNN cli.inference.main", knn=True, **per_dispatch)
+        if not os.path.exists(os.path.join(tmp, "screen", "ranked_results.csv")):
+            raise AssertionError("KNN cli.inference.main wrote no ranked_results.csv")
+        print(f"KNN cli.inference.main: one complex x {POSES} poses x {STEPS} steps in "
+              f"{cli_s:.2f} s; launches {cli_counts}", flush=True)
+
+        engines = {label: FitEngine(c, m, samples_per_complex=POSES,
+                                    settings=SamplerSettings(inference_steps=STEPS), seed=SEED,
+                                    device="cuda")
+                   for label, c, m in (("dense", dataclasses.replace(cfg, phore_knn=0), dense),
+                                       ("KNN", cfg, model))}
+        for engine in engines.values():
+            engine.run_complexes(jobs[:1])          # warm-up
+        torch.cuda.synchronize()
+        halves = (jobs[:len(jobs) // 2], jobs[len(jobs) // 2:])
+        turns = []                                  # (label, complexes, seconds)
+        serving = {}
+        for label, half in KNN_SERVING_TURNS:
+            part = halves[half]
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            served = engines[label].run_complexes(part)
+            torch.cuda.synchronize()
+            turns.append((label, len(part), time.perf_counter() - t0))
+            if label == "dense":
+                expect_counts("dense serving", k1=len(part) * CONVS_PER_FORWARD * STEPS)
+                continue
+            counts = expect_counts("KNN serving", knn=True,
+                                   **{k: len(part) * v for k, v in per_dispatch.items()})
+            serving = {k: serving.get(k, 0) + v for k, v in counts.items()}
+            for job, r in zip(part, served):
+                if r["poses"].shape != (POSES, job.n_atoms, 3) \
+                        or not np.isfinite(r["poses"]).all() \
+                        or not np.isfinite(r["fitscore"]).all():
+                    raise AssertionError(f"KNN serving {r['name']}: not finite")
+        knn_rate, dense_rate = (sum(n for k, n, _ in turns if k == label) * POSES
+                                / sum(t for k, _, t in turns if k == label)
+                                for label in ("KNN", "dense"))
+        print(f"KNN serving: {len(jobs)} complexes x {POSES} poses x {STEPS} steps at "
+              f"{knn_rate:.1f} poses/s against the dense model's {dense_rate:.1f}, in turns of "
+              "half the complexes each "
+              + " ".join(f"{k} {n * POSES / t:.1f}" for k, n, t in turns)
+              + ("" if main_poses_per_s is None else f"; phase 4 {main_poses_per_s:.1f}")
+              + f" ({card}); K1 launches {serving['k1']} dense + {serving['k1_idx']} "
+              f"sender-index ({serving['k1'] // len(jobs)} + {serving['k1_idx'] // len(jobs)} "
+              "a dispatch)", flush=True)
+        del dense, engines
+        t_b = time.perf_counter()
+
+        # ---- (c) a train step at K = 24, kernels against plain convs
+        B = train_batch.batch_size
+        gen_c = torch.Generator(device="cuda")
+        gen_c.manual_seed(SEED)
+        step_draws = draw_noise(B, train_batch.num_torsions, gen_c, "cuda")
+        results = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg_d = dataclasses.replace(cfg, compute_dtype=dtype)
+            step_d = make_train_step(cfg_d)
+            for use_kernel in (True, False):
+                state = create_train_state(cfg_d, seed=SEED, device="cuda")
+                set_use_kernel(state.model, use_kernel)
+                drop = torch.Generator(device="cuda")
+                drop.manual_seed(SEED + 1)
+                reset_kernel_counts()
+                state, metrics = step_d(state, train_batch, drop, draws=step_draws)
+                torch.cuda.synchronize()
+                counts = expect_counts(f"KNN {dtype} step with use_kernel={use_kernel}",
+                                       steps=1 if use_kernel else 0, knn=True)
+                if use_kernel and dtype == "bfloat16":
+                    training = counts
+                results[dtype, use_kernel] = (float(metrics["loss"]),
+                                              {k: p.grad.clone()
+                                               for k, p in state.model.named_parameters()})
+                del state
+        compare_step_gradients("KNN train step (f32)",
+                               [results["float32", True], results["float32", False]])
+        compare_bf16_step("KNN train step (bf16)", results)
+        del results
+        state = create_train_state(cfg, seed=SEED, device="cuda")
+        step = make_train_step(cfg)
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(SEED + 2)
+        run_step = lambda: step(state, train_batch, drop, draws=step_draws)
+        step_ms, step_peak = timed_steps(run_step, KNN_STEP_REPEATS)
+        step_busy = profiled_busy_ms(run_step)
+        del state
+        torch.cuda.empty_cache()
+        print(f"KNN train step at bf16, batch {B}: {step_ms:.1f} ms wall, {step_busy:.1f} ms busy "
+              f"on the card (torch.profiler), peak memory {step_peak:.2f} GiB; launches "
+              f"{training} ({card})", flush=True)
+        t_c = time.perf_counter()
+
+        # ---- the 8-lane sender-index kernels: the second-order probe's
+        # weights at K = 24
+        l2_dir = knn_model_dir(tmp, PROBE_DIR, KNN)
+        cfg2, model2 = checkpoints.load_model_dir(l2_dir, device="cuda")
+        batch2 = posed_rows(knn_job.batch.to("cuda"), POSES, cfg2, gen)
+        print("KNN, kernel check at 8 lanes (second-order model): tp_fused", flush=True)
+        k1_cases_l2 = phase_k1_index_check(capture_index_calls(model2, batch2))
+        _, train2 = checkpoints.load_model_dir(l2_dir, device="cuda")
+        with torch.no_grad():
+            noised, _ = apply_noise(train_batch, cfg2.sigma_schedule, draws=draws)
+        print("KNN, kernel check at 8 lanes: tp_scalar and tp_aggregate", flush=True)
+        k2_cases_l2, k3_cases_l2 = index_k23_check(train2, noised)
+        del train2, noised
+        engine = FitEngine(cfg2, model2, samples_per_complex=POSES,
+                           settings=SamplerSettings(inference_steps=STEPS), seed=SEED,
+                           device="cuda")
+        reset_kernel_counts()
+        served = engine.run_complexes([knn_job])
+        torch.cuda.synchronize()
+        serving_l2 = expect_counts("KNN serving at 8 lanes", knn=True, l2=True, **per_dispatch)
+        if not np.isfinite(served[0]["poses"]).all():
+            raise AssertionError("KNN serving at 8 lanes: poses not finite")
+        state = create_train_state(cfg2, seed=SEED, device="cuda")
+        reset_kernel_counts()
+        state, metrics = make_train_step(cfg2)(state, train_batch, drop, draws=step_draws)
+        torch.cuda.synchronize()
+        training_l2 = expect_counts("KNN train step at 8 lanes", steps=1, knn=True, l2=True)
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError("KNN train step at 8 lanes: loss not finite")
+        del state, model2, engine
+        torch.cuda.empty_cache()
+    t_end = time.perf_counter()
+    print(f"KNN: phase {t_end - t_phase:.1f} s (kernel checks {t_a - t_phase:.1f}, serving "
+          f"{t_b - t_a:.1f}, train steps {t_c - t_b:.1f}, 8 lanes {t_end - t_c:.1f})", flush=True)
+    return (index_entries(k1_cases, k2_cases, k3_cases, serving, training)
+            + index_entries(k1_cases_l2, k2_cases_l2, k3_cases_l2, serving_l2, training_l2,
+                            l2=True))
+
+
+def knn_probe_files():
+    """The cached complexes of runs/knn_probe's reference rows: the first
+    two of the bucket whose phore graph K = KNN compacts
+    (analysis/write_knn_probe.py)."""
+    from diffphore_torch.data.graphs import load_cached
+
+    out = []
+    for f in sorted(glob.glob(os.path.join(CACHE_DIR, "*.npz"))):
+        b = load_cached(f)
+        if (b.num_atoms, b.num_phore, b.num_torsions) == BUCKET and max_in_degree(b) > KNN:
+            out.append(f)
+        if len(out) == len(PROBE_T):
+            return out
+    raise RuntimeError(f"fewer than {len(PROBE_T)} complexes of bucket {BUCKET} that K = {KNN} "
+                       "compacts")
+
+
+def knn_alone(card, kind):
+    """Phase 17 alone, after the card line and the build: its inputs made
+    as main() makes them, then its report entries, the card line and the
+    result line."""
+    import torch
+
+    from diffphore_torch.cli.pipeline import job_from_cached
+
+    jobs = [job_from_cached(b) for _, b in bucket_complexes(CACHE_DIR, N_COMPLEXES)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    train_batch, draws = recipe_batch(gen)
+    entries = phase_knn(card, jobs, train_batch, draws)
+    print(json.dumps({"kernels": entries}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def recipe_batch(gen):
     """The first TRAIN_BATCH cached training complexes of the bucket as one
     batch on the card, and noise draws for it from ``gen`` at every noise
@@ -3381,6 +4010,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
     parser.add_argument("--second_order_only", action="store_true",
                         help="after the card line and the build, run phase 16 (l = 2) alone")
+    parser.add_argument("--knn_only", action="store_true",
+                        help="after the card line and the build, run phase 17 (the KNN phore "
+                             "grid) alone")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3425,6 +4057,8 @@ def main(argv=None) -> int:
     mark("build")
     if args.second_order_only:
         return second_order_alone(card, kind)
+    if args.knn_only:
+        return knn_alone(card, kind)
 
     # ---- 3. kernel check on the main path's conv inputs
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
@@ -3579,6 +4213,11 @@ def main(argv=None) -> int:
 
     mark("second order")
 
+    # ---- 17. the KNN phore grid on the sender-index mode (ahead of the report)
+    knn = phase_knn(card, jobs, train_batch, draws, poses_per_s)
+
+    mark("KNN phore grid")
+
     # ---- 14. report
     kernel = k1_entry("tp_fused", cases, launches)
     kernel.update({
@@ -3618,7 +4257,7 @@ def main(argv=None) -> int:
     for entry, at_bucket in zip(k2_entries + k3_entries, raw_entries):
         entry["raw_files_bucket"] = {k: at_bucket[k] for k in RAW_BUCKET_KEYS}
     print(json.dumps({"kernels": [kernel] + k2_entries + k3_entries
-                      + second_order_entries(second)}))
+                      + second_order_entries(second) + knn}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

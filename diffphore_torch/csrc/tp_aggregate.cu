@@ -106,6 +106,22 @@
 //    with dsh each channel leaves w q[j] in shared memory, the block adds
 //    them path by path and then the paths that reach each component, in
 //    fixed orders.  No float atomics anywhere: reruns agree to the bit.
+//
+// Sender-index mode (the KNN phore grid): an int32 index (B, N, K) names the
+// sender row of x (B, Mx, D) that slot k of receiver n reads; sh, w and dw are
+// (B, N, K, .).  The 4-lane kernels above share one sender row across the 8
+// receivers of a block, which an index breaks, so the mode runs the 8-lane
+// kernels' bodies, instantiated at LANES = 4 (l <= 1) and 8:
+//  * forward: a block per receiver, its slots the summed axis; a live slot's
+//    x row is read at its index;
+//  * edge backward (dw only: the phore harmonics carry no gradient, so dsh is
+//    refused): a block per (receiver, 8 slots), x read at the index;
+//  * dx: each sender's slots, from the inverse of the index (the host's
+//    stable sort of the flat index: `order`, the slots by sender, ascending
+//    within one, and `ptr`, each sender's extent), walked by a block per
+//    sender in that order; the slots' sums are added per input element as
+//    above.  Fixed orders, no atomics: reruns agree to the bit.
+// Dead slots (a zero row of w) cost no flop in the forward and dx.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1003,15 +1019,19 @@ __host__ __device__ inline L2Layout l2_layout(bool dx, int D, int F, int n_paths
   return L;
 }
 
-// The forward (DX false: out (B, N, F, 8) f32) or dx (DX true: dx (B, M, D) in
-// T) of one block: kept entry blockIdx.x of batch row blockIdx.y.
-template <bool DX, typename T>
+// The forward (DX false: out (B, N, F, LANES) f32) or dx (DX true: dx (B, Mx,
+// D) in T) of one block: kept entry blockIdx.x of batch row blockIdx.y.
+// Dense: Mx = M, idx, order and ptr null.  Sender-index mode: the forward
+// reads x at idx; dx walks the block's sender's slots order[ptr[b * Mx + k]
+// ..], each the flat slot (b * N + n) * M + m.
+template <bool DX, typename T, int LANES>
 __device__ __forceinline__ void l2_body(
     const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
     const float* __restrict__ g, const int4* __restrict__ chan, const int* __restrict__ ptab,
     const float* __restrict__ gtab, const int* __restrict__ d_ptr,
-    const int* __restrict__ d_item, float* __restrict__ out, T* __restrict__ dx_out, int N, int M,
-    int D, int S, int F, int n_paths, int t_size, int n_items) {
+    const int* __restrict__ d_item, const int* __restrict__ idx, const int* __restrict__ order,
+    const int* __restrict__ ptr, float* __restrict__ out, T* __restrict__ dx_out, int N, int M,
+    int Mx, int D, int S, int F, int n_paths, int t_size, int n_items) {
   extern __shared__ __align__(16) float smem[];
   const L2Layout L = l2_layout(DX, D, F, n_paths, t_size, n_items);
   float* s_g = smem + L.g;
@@ -1023,7 +1043,14 @@ __device__ __forceinline__ void l2_body(
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int k = blockIdx.x, b = blockIdx.y;
-  const int n_sum = DX ? N : M;
+  const bool listed = DX && order != nullptr;
+  const int first = listed ? ptr[(size_t)b * Mx + k] : 0;
+  const int n_sum = listed ? ptr[(size_t)b * Mx + k + 1] - first : DX ? N : M;
+  // the edge (flat slot) of entry s of the summed axis
+  auto edge_of = [&](int s) -> size_t {
+    if (listed) return (size_t)order[first + s];
+    return DX ? ((size_t)b * N + s) * M + k : ((size_t)b * N + k) * M + s;
+  };
   for (int i = tid; i < n_paths * L2_G; i += nt) s_g[i] = gtab[i];
   for (int i = tid; i < n_paths * 8; i += nt) s_ptab[i] = ptab[i];
   int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
@@ -1045,14 +1072,16 @@ __device__ __forceinline__ void l2_body(
     const int rows = min(L2_ROWS, n_sum - s0);
     for (int r = warp; r < rows; r += nwarps) {
       const int s = s0 + r;
-      const size_t e = DX ? ((size_t)b * N + s) * M + k : ((size_t)b * N + k) * M + s;
+      const size_t e = edge_of(s);
       bool live = false;
       for (int c = lane; c < F; c += 32) live |= to_f(w[e * F + c]) != 0.f;
       live = __any_sync(0xffffffffu, live);
       if (lane == 0) s_live[r] = live;
       if (lane < SH_STRIDE) s_sh[r * SH_STRIDE + lane] = live && lane < S ? to_f(sh[e * S + lane]) : 0.f;
-      if (!DX && live)
-        for (int d = lane; d < D; d += 32) s_x[r * D + d] = to_f(x[((size_t)b * M + s) * D + d]);
+      if (!DX && live) {
+        const size_t row = (size_t)b * Mx + (idx != nullptr ? idx[e] : s);
+        for (int d = lane; d < D; d += 32) s_x[r * D + d] = to_f(x[row * D + d]);
+      }
     }
     __syncthreads();
     // t of every (live edge, path, i)
@@ -1076,8 +1105,7 @@ __device__ __forceinline__ void l2_body(
     if (active) {
       for (int r = 0; r < rows; ++r) {
         if (!s_live[r]) continue;
-        const int s = s0 + r;
-        const size_t e = DX ? ((size_t)b * N + s) * M + k : ((size_t)b * N + k) * M + s;
+        const size_t e = edge_of(s0 + r);
         const float wv = to_f(w[e * F + f]);
         const float* tq = s_t + r * t_size + t_off;
         if (!DX) {
@@ -1091,9 +1119,10 @@ __device__ __forceinline__ void l2_body(
               if (kk < cm.z) acc[kk] = fmaf(gv, tq[i * cm.z + kk], acc[kk]);
           }
         } else {
-          const float4* gr = reinterpret_cast<const float4*>(g) + (((size_t)b * N + s) * F + f) * 2;
-          const float4 g0 = gr[0], g1 = gr[1];
-          const float gk[L2_K] = {g0.x, g0.y, g0.z, g0.w, g1.x};
+          // the slot's receiver row b * N + n is e / M
+          const float4* gr = reinterpret_cast<const float4*>(g) + ((e / M) * F + f) * (LANES / 4);
+          const float4 g0 = gr[0];
+          const float gk[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
 #pragma unroll
           for (int i = 0; i < L2_K; ++i) {
             if (i >= cm.y) break;
@@ -1111,9 +1140,10 @@ __device__ __forceinline__ void l2_body(
 
   if (!DX) {
     if (active) {
-      float4* o = reinterpret_cast<float4*>(out) + (((size_t)b * N + k) * F + f) * 2;
+      // 4 lanes: d_out <= 3, so acc[3] and acc[4] are 0
+      float4* o = reinterpret_cast<float4*>(out) + (((size_t)b * N + k) * F + f) * (LANES / 4);
       o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      o[1] = make_float4(acc[4], 0.f, 0.f, 0.f);
+      if (LANES == 8) o[1] = make_float4(acc[4], 0.f, 0.f, 0.f);
     }
     return;
   }
@@ -1129,47 +1159,53 @@ __device__ __forceinline__ void l2_body(
       const int it = s_ditem[q];
       sum += s_d[(it & 7) * F + (it >> 3)];
     }
-    dx_out[((size_t)b * M + k) * D + d] = from_f<T>(sum);
+    dx_out[((size_t)b * Mx + k) * D + d] = from_f<T>(sum);
   }
 }
 
-template <typename T>
+// LANES: floats of a channel in out and g, 8 (l = 2) or 4 (the sender-index
+// mode's l <= 1 instantiation).
+template <typename T, int LANES>
 __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_fwd_l2_kernel(
-    const T* __restrict__ x,         // (B, M, D) sender features
+    const T* __restrict__ x,         // (B, Mx, D) sender features
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
+    const int* __restrict__ idx,     // (B, N, M) sender of each slot, or null (dense: Mx = M)
     const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
     const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
     const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
-    float* __restrict__ out,         // (B, N, F, 8)
-    int N, int M, int D, int S, int F, int n_paths, int t_size) {
-  l2_body<false, T>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, out, nullptr, N, M, D,
-                    S, F, n_paths, t_size, 0);
+    float* __restrict__ out,         // (B, N, F, LANES)
+    int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size) {
+  l2_body<false, T, LANES>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, idx, nullptr,
+                           nullptr, out, nullptr, N, M, Mx, D, S, F, n_paths, t_size, 0);
 }
 
-template <typename T>
+template <typename T, int LANES>
 __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_l2_kernel(
     const T* __restrict__ sh,        // (B, N, M, S)
     const T* __restrict__ w,         // (B, N, M, F)
-    const float* __restrict__ g,     // (B, N, F, 8) upstream gradient
+    const float* __restrict__ g,     // (B, N, F, LANES) upstream gradient
     const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
     const int* __restrict__ ptab,    // (n_paths, 8)
     const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
     const int* __restrict__ d_ptr,   // (D + 1): extents into d_item per input element
     const int* __restrict__ d_item,  // f * 8 + i of every (channel, component) reading it
-    T* __restrict__ dx,              // (B, M, D)
-    int N, int M, int D, int S, int F, int n_paths, int t_size, int n_items) {
-  l2_body<true, T>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, nullptr, dx, N, M, D, S,
-                   F, n_paths, t_size, n_items);
+    const int* __restrict__ order,   // sender-index mode: the slots by sender, or null (dense)
+    const int* __restrict__ ptr,     // (B * Mx + 1): each sender's extent in order
+    T* __restrict__ dx,              // (B, Mx, D) (dense: Mx = M)
+    int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size, int n_items) {
+  l2_body<true, T, LANES>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, nullptr, order, ptr,
+                          nullptr, dx, N, M, Mx, D, S, F, n_paths, t_size, n_items);
 }
 
 // dw (and, with DSH, dsh) of the edges (b, n, m0 .. m0 + L2_EDGE_SENDERS).
-template <typename T, bool DSH>
+template <typename T, bool DSH, int LANES>
 __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
-    const T* __restrict__ x,          // (B, M, D)
+    const T* __restrict__ x,          // (B, Mx, D)
     const T* __restrict__ sh,         // (B, N, M, S)
     const T* __restrict__ w,          // (B, N, M, F) (read with DSH)
-    const float* __restrict__ g,      // (B, N, F, 8)
+    const int* __restrict__ idx,      // (B, N, M) sender of each slot, or null (dense: Mx = M)
+    const float* __restrict__ g,      // (B, N, F, LANES)
     const int4* __restrict__ chan,    // (F): x_base, d_in, d_out, path
     const int* __restrict__ ptab,     // (n_paths, 8)
     const float* __restrict__ gtab,   // (n_paths, 5, 5, 5)
@@ -1177,7 +1213,7 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
     const int2* __restrict__ seg,     // (path, j) of every path reaching the component
     T* __restrict__ dw,               // (B, N, M, F)
     T* __restrict__ dsh,              // (B, N, M, S)
-    int N, int M, int D, int S, int F, int n_paths, int n_seg) {
+    int N, int M, int Mx, int D, int S, int F, int n_paths, int n_seg) {
   extern __shared__ __align__(16) float smem[];
   float* s_part = smem;                                        // [ml][f][j]
   float* s_pp = s_part + L2_EDGE_SENDERS * F * L2_K;           // [ml][path][j]
@@ -1192,9 +1228,10 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
     const int* pt = ptab + cm.w * 8;
     const int sh_off = pt[0], d_sh = pt[2];
     const float* G = gtab + cm.w * L2_G;
-    const float4* gr = reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * 2;
-    const float4 g0 = gr[0], g1 = gr[1];
-    const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, g1.x};
+    const float4* gr =
+        reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * (LANES / 4);
+    const float4 g0 = gr[0];
+    const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
     float gk[L2_K];
 #pragma unroll
     for (int kk = 0; kk < L2_K; ++kk) gk[kk] = kk < cm.z ? ga[kk] : 0.f;   // pad lanes ignored
@@ -1210,8 +1247,8 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
       }
     for (int ml = 0; ml < count; ++ml) {
       const int m = m0 + ml;
-      const T* xr = x + ((size_t)b * M + m) * D + cm.x;
       const size_t e = ((size_t)b * N + n) * M + m;
+      const T* xr = x + ((size_t)b * Mx + (idx != nullptr ? idx[e] : m)) * D + cm.x;
       float xi[L2_K], q[L2_K];
 #pragma unroll
       for (int i = 0; i < L2_K; ++i) xi[i] = i < cm.y ? to_f(xr[i]) : 0.f;
@@ -1264,76 +1301,85 @@ bool bad_shape_l2(int B, int N, int M, int D, int S, int F, int n_paths) {
          n_paths < 1 || n_paths > L2_MAX_PATHS || B > 65535;
 }
 
+// The sender-index mode's arguments: idx null means dense (Mx = M, 8 lanes).
+bool bad_mode(const void* idx, int M, int Mx, int lanes) {
+  return Mx < 1 || (lanes != 4 && lanes != 8) || (idx == nullptr && (Mx != M || lanes != 8));
+}
+
 // Threads of an 8-lane block: one per channel.
 int threads_l2(int F) { return ((F + 31) / 32) * 32; }
 
-template <typename T>
-int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* chan, const int* ptab,
-                  const float* gtab, float* out, int B, int N, int M, int D, int S, int F,
-                  int n_paths, int t_size, cudaStream_t st) {
+template <typename T, int LANES>
+int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
+                  const int* ptab, const float* gtab, float* out, int B, int N, int M, int Mx,
+                  int D, int S, int F, int n_paths, int t_size, cudaStream_t st) {
   const size_t bytes = (size_t)l2_layout(false, D, F, n_paths, t_size, 0).total * sizeof(float);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
   if (!allowed) {
-    const cudaError_t err = allow_shared(tp_aggregate_fwd_l2_kernel<T>, MAX_SMEM);
+    const cudaError_t err = allow_shared(tp_aggregate_fwd_l2_kernel<T, LANES>, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  tp_aggregate_fwd_l2_kernel<T><<<dim3(N, B), threads_l2(F), bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
-      reinterpret_cast<const int4*>(chan), ptab, gtab, out, N, M, D, S, F, n_paths, t_size);
+  tp_aggregate_fwd_l2_kernel<T, LANES><<<dim3(N, B), threads_l2(F), bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), idx,
+      reinterpret_cast<const int4*>(chan), ptab, gtab, out, N, M, Mx, D, S, F, n_paths, t_size);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int LANES>
 int launch_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
                     const int* ptab, const float* gtab, const int* d_ptr, const int* d_item,
-                    void* dx, int B, int N, int M, int D, int S, int F, int n_paths, int t_size,
-                    int n_items, cudaStream_t st) {
+                    const int* order, const int* ptr, void* dx, int B, int N, int M, int Mx, int D,
+                    int S, int F, int n_paths, int t_size, int n_items, cudaStream_t st) {
   const size_t bytes =
       (size_t)l2_layout(true, D, F, n_paths, t_size, n_items).total * sizeof(float);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
   if (!allowed) {
-    const cudaError_t err = allow_shared(tp_aggregate_bwd_x_l2_kernel<T>, MAX_SMEM);
+    const cudaError_t err = allow_shared(tp_aggregate_bwd_x_l2_kernel<T, LANES>, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  tp_aggregate_bwd_x_l2_kernel<T><<<dim3(M, B), threads_l2(F), bytes, st>>>(
+  tp_aggregate_bwd_x_l2_kernel<T, LANES><<<dim3(Mx, B), threads_l2(F), bytes, st>>>(
       static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
-      ptab, gtab, d_ptr, d_item, static_cast<T*>(dx), N, M, D, S, F, n_paths, t_size, n_items);
+      ptab, gtab, d_ptr, d_item, order, ptr, static_cast<T*>(dx), N, M, Mx, D, S, F, n_paths,
+      t_size, n_items);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
-                       const int* chan, const int* ptab, const float* gtab, const int* seg_ptr,
-                       const int* seg, void* dw, void* dsh, int B, int N, int M, int D, int S,
-                       int F, int n_paths, int n_seg, cudaStream_t st) {
+template <typename T, int LANES>
+int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,
+                       const float* g, const int* chan, const int* ptab, const float* gtab,
+                       const int* seg_ptr, const int* seg, void* dw, void* dsh, int B, int N,
+                       int M, int Mx, int D, int S, int F, int n_paths, int n_seg,
+                       cudaStream_t st) {
   const dim3 grid((M + L2_EDGE_SENDERS - 1) / L2_EDGE_SENDERS, N, B);
   const T* xt = static_cast<const T*>(x);
   const T* sht = static_cast<const T*>(sh);
   const int4* chan4 = reinterpret_cast<const int4*>(chan);
   if (dsh == nullptr) {
-    tp_aggregate_bwd_edge_l2_kernel<T, false><<<grid, threads_l2(F), 0, st>>>(
-        xt, sht, nullptr, g, chan4, ptab, gtab, nullptr, nullptr, static_cast<T*>(dw), nullptr, N,
-        M, D, S, F, n_paths, 0);
+    tp_aggregate_bwd_edge_l2_kernel<T, false, LANES><<<grid, threads_l2(F), 0, st>>>(
+        xt, sht, nullptr, idx, g, chan4, ptab, gtab, nullptr, nullptr, static_cast<T*>(dw),
+        nullptr, N, M, Mx, D, S, F, n_paths, 0);
     return (int)cudaGetLastError();
   }
+  if (idx != nullptr || LANES != 8) return (int)cudaErrorInvalidValue;   // dsh: dense, 8 lanes
   const size_t bytes =
       sizeof(float) * ((size_t)L2_EDGE_SENDERS * (F + n_paths) * L2_K + ((S + 1 + 3) / 4) * 4 +
                        (size_t)n_seg * 2);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
   if (!allowed) {
-    const cudaError_t err = allow_shared(tp_aggregate_bwd_edge_l2_kernel<T, true>, MAX_SMEM);
+    const cudaError_t err =
+        allow_shared(tp_aggregate_bwd_edge_l2_kernel<T, true, LANES>, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  tp_aggregate_bwd_edge_l2_kernel<T, true><<<grid, threads_l2(F), bytes, st>>>(
-      xt, sht, static_cast<const T*>(w), g, chan4, ptab, gtab, seg_ptr,
-      reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, D, S,
-      F, n_paths, n_seg);
+  tp_aggregate_bwd_edge_l2_kernel<T, true, LANES><<<grid, threads_l2(F), bytes, st>>>(
+      xt, sht, static_cast<const T*>(w), nullptr, g, chan4, ptab, gtab, seg_ptr,
+      reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, M, D,
+      S, F, n_paths, n_seg);
   return (int)cudaGetLastError();
 }
 
@@ -1399,43 +1445,75 @@ int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items
 // The 8-lane kernels (l <= 2): out and g (B, N, F, 8); tables from
 // tp_fused.tables_l2 (chan (F, 4), ptab (n_paths, 8), gtab (n_paths, 5, 5, 5),
 // t_size floats of t an edge); one launch each, no split.
-int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const int* chan,
-                           const int* ptab, const float* gtab, float* out, int B, int N, int M,
-                           int D, int S, int F, int n_paths, int t_size, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1) return (int)cudaErrorInvalidValue;
+//
+// `lanes` (4 or 8) is the floats of a channel in out and g; 4 only in the
+// sender-index mode (idx, or order and ptr, not null; x and dx (B, Mx, D),
+// sh, w and dw (B, N, M, .) with M the slots), where dsh is refused.  Dense:
+// Mx = M, 8 lanes.
+
+int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
+                           const int* chan, const int* ptab, const float* gtab, float* out, int B,
+                           int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size,
+                           int lanes, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || bad_mode(idx, M, Mx, lanes))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd_l2<__nv_bfloat16>(x, sh, w, chan, ptab, gtab, out, B, N, M, D, S, F,
-                                             n_paths, t_size, st)
-              : launch_fwd_l2<float>(x, sh, w, chan, ptab, gtab, out, B, N, M, D, S, F, n_paths,
-                                     t_size, st);
+  if (lanes == 4)
+    return bf16 ? launch_fwd_l2<__nv_bfloat16, 4>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M,
+                                                  Mx, D, S, F, n_paths, t_size, st)
+                : launch_fwd_l2<float, 4>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M, Mx, D,
+                                          S, F, n_paths, t_size, st);
+  return bf16 ? launch_fwd_l2<__nv_bfloat16, 8>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M, Mx,
+                                                D, S, F, n_paths, t_size, st)
+              : launch_fwd_l2<float, 8>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M, Mx, D, S,
+                                        F, n_paths, t_size, st);
 }
 
 // dsh may be null: then only dw is computed and w, seg_ptr and seg are not read.
-int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
-                                const int* chan, const int* ptab, const float* gtab,
-                                const int* seg_ptr, const int* seg, void* dw, void* dsh, int B,
-                                int N, int M, int D, int S, int F, int n_paths, int n_seg,
-                                int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || n_seg < 0 || N > 65535)
+int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,
+                                const float* g, const int* chan, const int* ptab,
+                                const float* gtab, const int* seg_ptr, const int* seg, void* dw,
+                                void* dsh, int B, int N, int M, int Mx, int D, int S, int F,
+                                int n_paths, int n_seg, int lanes, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || n_seg < 0 || N > 65535 ||
+      bad_mode(idx, M, Mx, lanes) || (idx != nullptr && dsh != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_edge_l2<__nv_bfloat16>(x, sh, w, g, chan, ptab, gtab, seg_ptr, seg, dw,
-                                                  dsh, B, N, M, D, S, F, n_paths, n_seg, st)
-              : launch_bwd_edge_l2<float>(x, sh, w, g, chan, ptab, gtab, seg_ptr, seg, dw, dsh, B,
-                                          N, M, D, S, F, n_paths, n_seg, st);
+  if (lanes == 4)
+    return bf16 ? launch_bwd_edge_l2<__nv_bfloat16, 4>(x, sh, w, idx, g, chan, ptab, gtab,
+                                                       seg_ptr, seg, dw, dsh, B, N, M, Mx, D, S,
+                                                       F, n_paths, n_seg, st)
+                : launch_bwd_edge_l2<float, 4>(x, sh, w, idx, g, chan, ptab, gtab, seg_ptr, seg,
+                                               dw, dsh, B, N, M, Mx, D, S, F, n_paths, n_seg, st);
+  return bf16 ? launch_bwd_edge_l2<__nv_bfloat16, 8>(x, sh, w, idx, g, chan, ptab, gtab, seg_ptr,
+                                                     seg, dw, dsh, B, N, M, Mx, D, S, F, n_paths,
+                                                     n_seg, st)
+              : launch_bwd_edge_l2<float, 8>(x, sh, w, idx, g, chan, ptab, gtab, seg_ptr, seg, dw,
+                                             dsh, B, N, M, Mx, D, S, F, n_paths, n_seg, st);
 }
 
+// Sender-index mode: `order` and `ptr` from tp_fused.sender_lists.
 int dp_tp_aggregate_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
                              const int* ptab, const float* gtab, const int* d_ptr,
-                             const int* d_item, void* dx, int B, int N, int M, int D, int S, int F,
-                             int n_paths, int t_size, int n_items, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || n_items < 1)
+                             const int* d_item, const int* order, const int* ptr, void* dx, int B,
+                             int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size,
+                             int n_items, int lanes, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || n_items < 1 || Mx > 65535 ||
+      bad_mode(order, M, Mx, lanes) || (order == nullptr) != (ptr == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_x_l2<__nv_bfloat16>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, dx, B,
-                                               N, M, D, S, F, n_paths, t_size, n_items, st)
-              : launch_bwd_x_l2<float>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, dx, B, N, M, D,
-                                       S, F, n_paths, t_size, n_items, st);
+  if (lanes == 4)
+    return bf16 ? launch_bwd_x_l2<__nv_bfloat16, 4>(sh, w, g, chan, ptab, gtab, d_ptr, d_item,
+                                                    order, ptr, dx, B, N, M, Mx, D, S, F, n_paths,
+                                                    t_size, n_items, st)
+                : launch_bwd_x_l2<float, 4>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, order, ptr,
+                                            dx, B, N, M, Mx, D, S, F, n_paths, t_size, n_items,
+                                            st);
+  return bf16 ? launch_bwd_x_l2<__nv_bfloat16, 8>(sh, w, g, chan, ptab, gtab, d_ptr, d_item,
+                                                  order, ptr, dx, B, N, M, Mx, D, S, F, n_paths,
+                                                  t_size, n_items, st)
+              : launch_bwd_x_l2<float, 8>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, order, ptr,
+                                          dx, B, N, M, Mx, D, S, F, n_paths, t_size, n_items, st);
 }
 
 const char* dp_cuda_error_string(int code) {

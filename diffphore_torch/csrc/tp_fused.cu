@@ -106,6 +106,19 @@
 //    into the receiver's five sums (registers) when the receiver changes.
 //  Plain loads, no cp.async ring, one block per SM (384 threads): its times
 //  are in PERF.md.
+//
+// Sender-index mode (the KNN phore grid): an int32 index (B, N, K) names the
+// sender of each (receiver, slot); the edge tensors are (B, N, K, ...), x is
+// (B, M_x, D), and the function is the one above with the sum over slots:
+//   out[b,n,f,k] = sum_s w[b,n,s,f] sum_{i,j} G x[b, idx[b,n,s], .] sh[b,n,s,.]
+// A block of TN receivers has up to TN * K distinct sender rows (192 at K =
+// 24, over MS_MAX), so in this mode a block keeps no sender features: each
+// tile's rows bring their sender's features into the ring with their
+// attributes and harmonics, and the split axis is the slot axis.  Dead slots
+// are never gathered (the compaction drops them) and cost no flop.  Both
+// kernels take the mode, tp_fused_kernel as a template flag IDX (l <= 1; its
+// dense instantiations are as they were) and tp_fused_l2_kernel (l = 2) at
+// run time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,8 +173,10 @@ struct Layout {
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
+// `idx`: the sender-index mode, whose sender features ride in the ring (two
+// stages of ROWS rows) instead of the block's MS senders.
 __host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_paths, int MS,
-                                              int NC) {
+                                              int NC, bool idx) {
   Layout L;
   int o = 0;
   L.w1 = o;    o += E * HP;
@@ -170,7 +185,7 @@ __host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_
   L.b2 = o;    o += 32 * NC;
   L.g = o;     o += pad4(n_paths * G_SIZE);
   L.poff = o;  o += MAX_PATHS;
-  L.x = o;     o += MS * pad4(D);
+  L.x = o;     o += (idx ? 2 * ROWS : MS) * pad4(D);
   L.mask = o;  o += C * TN * MS;
   L.edges = o; o += pad4(TN * MS / 2 + 1) + 12;   // the live edges (16 bits each), then 9 prefix counts
   L.a = o;     o += 2 * C * ROWS * E;             // two stages
@@ -181,14 +196,15 @@ __host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_
   return L;
 }
 
-template <typename T, int NC>
+template <typename T, int NC, bool IDX>
 __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
-    const T* __restrict__ x,         // (B, M, D) sender features
+    const T* __restrict__ x,         // (B, M, D) sender features; IDX: (B, Mx, D)
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ attr0,     // (B, N, M, E) edge attributes, channel 0
     const T* __restrict__ attr1,     // (B, N, M, E) channel 1 (read when C == 2)
     const void* __restrict__ mask0,  // (B, N, M) bool or f32
     const void* __restrict__ mask1,  // (B, N, M) (read when C == 2)
+    const int* __restrict__ idx,     // IDX: (B, N, M) the sender of each slot
     const float* __restrict__ w1,    // (E, H)
     const float* __restrict__ b1,    // (H)
     const float* __restrict__ w2,    // (H, F)
@@ -196,19 +212,19 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
     float* __restrict__ dst,         // out (B, N, F, 4), or the partial sums (splits, B, N, F, 4)
-    int B, int N, int M, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
+    int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
     int mask_is_f32) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FP = 32 * NC;
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
-  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC);
+  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC, IDX);
   float* s_w1 = smem + L.w1;
   float* s_b1 = smem + L.b1;
   float* s_w2 = smem + L.w2;
   float* s_b2 = smem + L.b2;
   float* s_g = smem + L.g;
   int* s_poff = reinterpret_cast<int*>(smem + L.poff);          // sh_off of each path
-  float* s_x = smem + L.x;                                      // [ml][DP]
+  float* s_x = smem + L.x;                                      // [ml][DP]; IDX: [stage][row][DP]
   float* s_mask = smem + L.mask;                                // [c][nl * MS + ml]
   uint16_t* s_edges = reinterpret_cast<uint16_t*>(smem + L.edges);   // nl << 8 | ml, receiver-major
   int* s_pref = reinterpret_cast<int*>(smem + L.edges + pad4(TN * MS / 2 + 1));  // live edges before nl
@@ -245,7 +261,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     for (int i = tid; i < E * H; i += THREADS) s_w1[(i / H) * HP + i % H] = w1[i];
     for (int i = tid; i < H * F; i += THREADS) s_w2[(i / F) * FP + i % F] = w2[i];
   }
-  for (int ml = tid >> 3; ml < ms; ml += THREADS / 8) {
+  for (int ml = tid >> 3; ml < (IDX ? 0 : ms); ml += THREADS / 8) {
     const T* src = x + ((size_t)b * M + m0 + ml * mstep) * D;
     for (int d = tid & 7; d < D; d += 8) {
       if (sizeof(T) == 4) cp_async4(s_x + ml * DP + d, src + d);
@@ -325,6 +341,14 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     for (int j = sub; j < S; j += 8) {
       if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
       else srow[j] = to_f(sh[edge * S + j]);
+    }
+    if (IDX) {   // the row's sender features
+      const T* src = x + ((size_t)b * Mx + idx[edge]) * D;
+      float* xrow = s_x + (stage * ROWS + row) * DP;
+      for (int d = sub; d < D; d += 8) {
+        if (sizeof(T) == 4) cp_async4(xrow + d, src + d);
+        else xrow[d] = to_f(src[d]);
+      }
     }
   };
 
@@ -552,7 +576,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
         const int e = s_edges[first + r];
         if ((e >> 8) != cur) flush(e >> 8);
         const float w = s_wt[r * FP + f];
-        const float* xr = s_x + (e & 255) * DP + cm.x;
+        const float* xr = s_x + (IDX ? (stage * ROWS + r) : (e & 255)) * DP + cm.x;
         const float* tp = s_t + (r * n_paths + cm.w) * T_SIZE;
         const float4 t0 = *reinterpret_cast<const float4*>(tp);
         const float g0 = w * xr[0];
@@ -619,15 +643,16 @@ struct LayoutL2 {
   int w1, b1, g, ptab, x, mask, edges, wcnt, a, sh, hid, em, t, total;
 };
 
+// `indexed`: the sender-index mode, whose x rows are staged per tile row.
 __host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int D, int n_paths,
-                                                   int t_size, int MS) {
+                                                   int t_size, int MS, bool indexed) {
   LayoutL2 L;
   int o = 0;
   L.w1 = o;    o += pad4(E * H);
   L.b1 = o;    o += pad4(H);
   L.g = o;     o += pad4(n_paths * L2_G);
   L.ptab = o;  o += n_paths * 8;                  // ints
-  L.x = o;     o += pad4(MS * D);
+  L.x = o;     o += pad4((indexed ? L2_ROWS : MS) * D);
   L.mask = o;  o += pad4(C * L2_TN * MS);
   L.edges = o; o += pad4(L2_TN * MS);             // ints: nl * MS + ml of the live pairs
   L.wcnt = o;  o += 20;                           // ints: per-warp counts, then the total
@@ -642,12 +667,13 @@ __host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int D, i
 
 template <typename T>
 __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
-    const T* __restrict__ x,         // (B, M, D) sender features
+    const T* __restrict__ x,         // (B, Mx, D) sender features (Mx = M without idx)
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ attr0,     // (B, N, M, E) edge attributes, channel 0
     const T* __restrict__ attr1,     // (B, N, M, E) channel 1 (read when C == 2)
     const void* __restrict__ mask0,  // (B, N, M) bool or f32
     const void* __restrict__ mask1,  // (B, N, M) (read when C == 2)
+    const int* __restrict__ idx,     // (B, N, M) sender of each slot, or null (dense)
     const float* __restrict__ w1,    // (E, H)
     const float* __restrict__ b1,    // (H)
     const float* __restrict__ w2,    // (H, F)
@@ -656,16 +682,17 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
     const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
     const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
     float* __restrict__ dst,         // out (B, N, F, 8), or the partial sums (splits, B, N, F, 8)
-    int B, int N, int M, int D, int S, int C, int E, int H, int F, int n_paths, int t_size,
-    int MS, int mask_is_f32) {
+    int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths,
+    int t_size, int MS, int mask_is_f32) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
-  const LayoutL2 L = make_layout_l2(C, E, H, D, n_paths, t_size, MS);
+  const bool indexed = idx != nullptr;
+  const LayoutL2 L = make_layout_l2(C, E, H, D, n_paths, t_size, MS, indexed);
   float* s_w1 = smem + L.w1;                                    // [k][H]
   float* s_b1 = smem + L.b1;
   float* s_g = smem + L.g;
   int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);
-  float* s_x = smem + L.x;                                      // [ml][D]
+  float* s_x = smem + L.x;                                      // [ml][D], indexed: [row][D]
   float* s_mask = smem + L.mask;                                // [c][nl * MS + ml]
   int* s_edges = reinterpret_cast<int*>(smem + L.edges);
   int* s_wcnt = reinterpret_cast<int*>(smem + L.wcnt);
@@ -686,7 +713,7 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
   for (int i = tid; i < H; i += L2_THREADS) s_b1[i] = ROUND ? bf16_round(b1[i]) : b1[i];
   for (int i = tid; i < n_paths * L2_G; i += L2_THREADS) s_g[i] = gtab[i];
   for (int i = tid; i < n_paths * 8; i += L2_THREADS) s_ptab[i] = ptab[i];
-  for (int i = tid; i < ms * D; i += L2_THREADS) {
+  for (int i = tid; i < (indexed ? 0 : ms * D); i += L2_THREADS) {
     const int ml = i / D, d = i - ml * D;
     s_x[i] = to_f(x[((size_t)b * M + m0 + ml * mstep) * D + d]);
   }
@@ -779,6 +806,14 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
       const int c = i / rows, r = i - c * rows;
       s_em[c * L2_ROWS + r] = s_mask[c * pairs + s_edges[first + r]];
     }
+    // the sender-index mode: each row's sender features
+    for (int i = tid; i < (indexed ? rows * D : 0); i += L2_THREADS) {
+      const int r = i / D, d = i - r * D;
+      const int e = s_edges[first + r];
+      const int nl = e / MS, ml = e - nl * MS;
+      const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
+      s_x[i] = to_f(x[((size_t)b * Mx + idx[edge]) * D + d]);
+    }
     __syncthreads();
 
     // ---- the hidden layer, once for all channels
@@ -862,7 +897,7 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
             w = fmaf(msum, b2f, dot);
           }
         }
-        const float* xr = s_x + ml * D + cm.x;
+        const float* xr = s_x + (indexed ? r : ml) * D + cm.x;
         const float* tq = s_t + r * t_size + t_off;
 #pragma unroll
         for (int i = 0; i < L2_K; ++i) {
@@ -909,11 +944,12 @@ __global__ void tp_fused_l2_sum_splits(const float* __restrict__ part, float* __
 
 struct ArgsL2 {
   const void *x, *sh, *attr0, *attr1, *mask0, *mask1;
+  const int* idx;
   const float *w1, *b1, *w2, *b2;
   const int *chan, *ptab;
   const float* gtab;
   float *out, *part;
-  int B, N, M, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32;
+  int B, N, M, Mx, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32;
 };
 
 template <typename T>
@@ -925,7 +961,8 @@ int launch_l2(const ArgsL2& a, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  const LayoutL2 L = make_layout_l2(a.C, a.E, a.H, a.D, a.n_paths, a.t_size, a.MS);
+  const LayoutL2 L =
+      make_layout_l2(a.C, a.E, a.H, a.D, a.n_paths, a.t_size, a.MS, a.idx != nullptr);
   const size_t bytes = (size_t)L.total * sizeof(float);
   if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
@@ -933,9 +970,9 @@ int launch_l2(const ArgsL2& a, cudaStream_t stream) {
   float* dst = splits > 1 ? a.part : a.out;
   tp_fused_l2_kernel<T><<<grid, L2_THREADS, bytes, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
-      static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.w1, a.b1, a.w2, a.b2,
-      reinterpret_cast<const int4*>(a.chan), a.ptab, a.gtab, dst, a.B, a.N, a.M, a.D, a.S, a.C,
-      a.E, a.H, a.F, a.n_paths, a.t_size, a.MS, a.mask_is_f32);
+      static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
+      reinterpret_cast<const int4*>(a.chan), a.ptab, a.gtab, dst, a.B, a.N, a.M, a.Mx, a.D, a.S,
+      a.C, a.E, a.H, a.F, a.n_paths, a.t_size, a.MS, a.mask_is_f32);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)a.B * a.N * a.F * 8;
@@ -946,33 +983,34 @@ int launch_l2(const ArgsL2& a, cudaStream_t stream) {
 
 struct Args {
   const void *x, *sh, *attr0, *attr1, *mask0, *mask1;
+  const int* idx;
   const float *w1, *b1, *w2, *b2;
   const int* chan;
   const float* gtab;
   float *out, *part;
-  int B, N, M, D, S, C, E, H, F, n_paths, MS, mask_is_f32;
+  int B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32;
 };
 
-template <typename T, int NC>
+template <typename T, int NC, bool IDX>
 int launch(const Args& a, cudaStream_t stream) {
   static bool allowed = false;   // the attribute is set once per instantiation
   if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(tp_fused_kernel<T, NC>,
+    cudaError_t err = cudaFuncSetAttribute(tp_fused_kernel<T, NC, IDX>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC);
+  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC, IDX);
   const size_t bytes = (size_t)L.total * sizeof(float);
   if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
   const dim3 grid(splits, (a.N + TN - 1) / TN, a.B);
   float* dst = splits > 1 ? a.part : a.out;
-  tp_fused_kernel<T, NC><<<grid, THREADS, bytes, stream>>>(
+  tp_fused_kernel<T, NC, IDX><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
-      static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.w1, a.b1, a.w2, a.b2,
-      reinterpret_cast<const int4*>(a.chan), a.gtab, dst, a.B, a.N, a.M, a.D, a.S, a.C, a.E, a.H,
-      a.F, a.n_paths, a.MS, a.mask_is_f32);
+      static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
+      reinterpret_cast<const int4*>(a.chan), a.gtab, dst, a.B, a.N, a.M, a.Mx, a.D, a.S, a.C, a.E,
+      a.H, a.F, a.n_paths, a.MS, a.mask_is_f32);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int total = a.B * a.N * a.F;
@@ -981,14 +1019,14 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool IDX>
 int launch_nc(const Args& a, cudaStream_t stream) {
   switch ((a.F + 31) / 32) {
     case 1:
-    case 2: return launch<T, 2>(a, stream);
-    case 3: return launch<T, 3>(a, stream);
-    case 4: return launch<T, 4>(a, stream);
-    case 5: return launch<T, 5>(a, stream);
+    case 2: return launch<T, 2, IDX>(a, stream);
+    case 3: return launch<T, 3, IDX>(a, stream);
+    case 4: return launch<T, 4, IDX>(a, stream);
+    case 5: return launch<T, 5, IDX>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -999,40 +1037,47 @@ extern "C" {
 
 // Returns a cudaError_t value: 0 when the launch was accepted.  `part` holds
 // (ceil(M / MS), B, N, F, 4) floats when the senders are split (MS < M), else
-// it is not read.
+// it is not read.  Sender-index mode: idx (B, N, M) int32 the sender of each
+// slot, x (B, Mx, D); dense: idx null, Mx = M.
 int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* attr1,
-                const void* mask0, const void* mask1, const float* w1, const float* b1,
-                const float* w2, const float* b2, const int* chan, const float* gtab, float* out,
-                float* part, int B, int N, int M, int D, int S, int C, int E, int H, int F,
-                int n_paths, int MS, int mask_is_f32, int bf16, void* stream) {
+                const void* mask0, const void* mask1, const int* idx, const float* w1,
+                const float* b1, const float* w2, const float* b2, const int* chan,
+                const float* gtab, float* out, float* part, int B, int N, int M, int Mx, int D,
+                int S, int C, int E, int H, int F, int n_paths, int MS, int mask_is_f32,
+                int bf16, void* stream) {
   if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > HP || H > E ||
       C < 1 ||
       C > 2 || S < 1 || S > SH_STRIDE || F < 1 || F > 32 * NC_MAX || n_paths < 1 || n_paths > MAX_PATHS ||
       B > 65535 ||
-      (N + TN - 1) / TN > 65535 || MS < 1 || MS > MS_MAX || (MS < M && part == nullptr))
+      (N + TN - 1) / TN > 65535 || MS < 1 || MS > MS_MAX || (MS < M && part == nullptr) ||
+      Mx < 1 || (idx == nullptr && Mx != M))
     return (int)cudaErrorInvalidValue;
-  const Args a{x, sh, attr0, attr1, mask0, mask1, w1, b1, w2, b2, chan, gtab, out, part,
-               B, N, M, D, S, C, E, H, F, n_paths, MS, mask_is_f32};
+  const Args a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, gtab, out, part,
+               B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_nc<__nv_bfloat16>(a, st) : launch_nc<float>(a, st);
+  if (idx != nullptr)
+    return bf16 ? launch_nc<__nv_bfloat16, true>(a, st) : launch_nc<float, true>(a, st);
+  return bf16 ? launch_nc<__nv_bfloat16, false>(a, st) : launch_nc<float, false>(a, st);
 }
 
 // The 8-lane kernel (irreps up to l = 2): out (B, N, F, 8); tables from
 // tp_fused.tables_l2; `part` holds (ceil(M / MS), B, N, F, 8) floats when the
-// senders are split (MS < M).  Returns a cudaError_t value.
+// senders (slots) are split (MS < M).  Sender-index mode: idx (B, N, M) int32,
+// x (B, Mx, D); dense: idx null, Mx = M.  Returns a cudaError_t value.
 int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void* attr1,
-                   const void* mask0, const void* mask1, const float* w1, const float* b1,
-                   const float* w2, const float* b2, const int* chan, const int* ptab,
-                   const float* gtab, float* out, float* part, int B, int N, int M, int D, int S,
-                   int C, int E, int H, int F, int n_paths, int t_size, int MS, int mask_is_f32,
-                   int bf16, void* stream) {
+                   const void* mask0, const void* mask1, const int* idx, const float* w1,
+                   const float* b1, const float* w2, const float* b2, const int* chan,
+                   const int* ptab, const float* gtab, float* out, float* part, int B, int N,
+                   int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths,
+                   int t_size, int MS, int mask_is_f32, int bf16, void* stream) {
   if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HMAX ||
       C < 1 || C > 2 || S < 1 || S > SH_STRIDE || F < 1 || F > L2_THREADS || n_paths < 1 ||
       n_paths > L2_MAX_PATHS || t_size < 1 || B > 65535 || (N + L2_TN - 1) / L2_TN > 65535 ||
-      MS < 1 || MS > L2_MS_MAX || (MS < M && part == nullptr))
+      MS < 1 || MS > L2_MS_MAX || (MS < M && part == nullptr) || Mx < 1 ||
+      (idx == nullptr && Mx != M))
     return (int)cudaErrorInvalidValue;
-  const ArgsL2 a{x, sh, attr0, attr1, mask0, mask1, w1, b1, w2, b2, chan, ptab, gtab, out, part,
-                 B, N, M, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32};
+  const ArgsL2 a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, ptab, gtab, out,
+                 part, B, N, M, Mx, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_l2<__nv_bfloat16>(a, st) : launch_l2<float>(a, st);
 }

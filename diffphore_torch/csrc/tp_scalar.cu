@@ -80,6 +80,15 @@
 // zero, never read), and the edge backward reading all P = 9 harmonic
 // components (that path reads components 4-8); `if constexpr` keeps the
 // L = 1 instantiations as they were.
+// Sender-index mode (the KNN phore grid; a template flag IDX, so the dense
+// instantiations stay as they were): an int32 index (B, N, K) names the
+// sender row of x (B, Mx, U) that slot k of receiver n reads; sh, w and dw are
+// (B, N, K, .).  The forward and the edge backward read x at the index.  dx
+// walks each sender's slots in the fixed order of the host's inverse lists
+// (`order`: the flat slots by sender, ascending within one; `ptr`: each
+// sender's extent), a thread per (kept sender, channel) as above, no split;
+// the channels that read one element are then added in the block as above.
+// No atomics: reruns agree to the bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,14 +123,16 @@ __device__ __forceinline__ float ld(const T* p) { return to_f(__ldg(p)); }
 // ---- forward and dx: one launch per convolution (head note) ----
 
 // dst: out (B, N, F, 4) when one split, else the partial sums (splits, B, N, F, 4).
-template <typename T, int L>
+template <typename T, int L, bool IDX>
 __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
-    const T* __restrict__ x,           // (B, M, D) sender scalars
+    const T* __restrict__ x,           // (B, Mx, D) sender scalars (Mx = M without IDX)
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
     const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights
+    const int* __restrict__ idx,       // (B, N, M) sender of each slot (IDX)
     const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
     const float* __restrict__ scale,   // (F): c_p of the channel's path
-    float* __restrict__ dst, int B, int N, int M, int D, int S, int F, int keep, int chunk) {
+    float* __restrict__ dst, int B, int N, int M, int Mx, int D, int S, int F, int keep,
+    int chunk) {
   const int tid = threadIdx.x;
   const int kl = tid / F, f = tid - kl * F;
   const int b = blockIdx.z, n = blockIdx.y * keep + kl;
@@ -130,13 +141,15 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
   const int4 c = chan[f];
   const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;   // in range for any K
   const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
-  const T* xp = x + (size_t)b * M * D + c.x;
+  const T* xp = x + (size_t)b * Mx * D + c.x;
   const T* wp = w + ((size_t)b * N + n) * M * F + f;
   const T* sp = sh + ((size_t)b * N + n) * M * S + c.y;
+  const int* ip = IDX ? idx + ((size_t)b * N + n) * M : nullptr;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
 #pragma unroll 8
   for (int m = m0; m < m1; ++m) {
-    const float xw = ld(xp + (size_t)m * D) * ld(wp + (size_t)m * F);
+    const int row = IDX ? __ldg(ip + m) : m;
+    const float xw = ld(xp + (size_t)row * D) * ld(wp + (size_t)m * F);
     const T* s = sp + (size_t)m * S;
     a0 = fmaf(xw, ld(s), a0);
     a1 = fmaf(xw, ld(s + k1), a1);
@@ -159,7 +172,8 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
 }
 
 // Writes dx (B, M, D) in T when one split, else f32 partial sums (splits, B, M, D).
-template <typename T, int L>
+// IDX: dx (B, Mx, D) from each sender's slots order[ptr[b * Mx + m] ..], one split.
+template <typename T, int L, bool IDX>
 __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
     const T* __restrict__ sh,          // (B, N, M, S)
     const T* __restrict__ w,           // (B, N, M, F)
@@ -168,8 +182,10 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
     const float* __restrict__ scale,   // (F)
     const int* __restrict__ d_ptr,     // (D + 1): extents into d_item per input element
     const int* __restrict__ d_item,    // the channels reading each element, ascending
-    T* __restrict__ dx, float* __restrict__ part, int B, int N, int M, int D, int S, int F,
-    int n_items, int keep, int chunk) {
+    const int* __restrict__ order,     // IDX: the flat slots (b * N + n) * M + k by sender
+    const int* __restrict__ ptr,       // IDX: (B * Mx + 1) each sender's extent in order
+    T* __restrict__ dx, float* __restrict__ part, int B, int N, int M, int Mx, int D, int S,
+    int F, int n_items, int keep, int chunk) {
   extern __shared__ __align__(16) float smem[];
   float* s_part = smem;                                            // [kept][F]
   int* s_dptr = reinterpret_cast<int*>(smem + keep * F);           // D + 1
@@ -177,9 +193,37 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   const int kl = tid / F, f = tid - kl * F;
   const int b = blockIdx.z, m0 = blockIdx.y * keep, m = m0 + kl;
+  const int n_keep = IDX ? Mx : M;
   for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
   for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
-  if (kl < keep) {
+  if (kl < keep && IDX) {
+    float acc = 0.f;
+    if (m < Mx) {
+      const int4 c = chan[f];
+      const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;
+      const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
+      const int q1 = ptr[(size_t)b * Mx + m + 1];
+#pragma unroll 4
+      for (int q = ptr[(size_t)b * Mx + m]; q < q1; ++q) {
+        const size_t e = (size_t)__ldg(order + q);          // the slot; its receiver row e / M
+        const float wv = ld(w + e * F + f);
+        const T* s = sh + e * S + c.y;
+        const float4* gp = reinterpret_cast<const float4*>(g) + ((e / M) * F + f) * L;
+        const float4 gv = __ldg(gp);
+        float t = ld(s) * gv.x;
+        t = fmaf(ld(s + k1), k1 ? gv.y : 0.f, t);
+        t = fmaf(ld(s + k2), k2 ? gv.z : 0.f, t);
+        if constexpr (L == 2) {
+          const float4 gw = __ldg(gp + 1);
+          t = fmaf(ld(s + k3), k3 ? gv.w : 0.f, t);
+          t = fmaf(ld(s + k4), k4 ? gw.x : 0.f, t);
+        }
+        acc = fmaf(wv, t, acc);
+      }
+      acc *= scale[f];
+    }
+    s_part[kl * F + f] = acc;
+  } else if (kl < keep) {
     float acc = 0.f;
     if (m < M) {
       const int n0 = blockIdx.x * chunk, n1 = min(N, n0 + chunk);
@@ -214,10 +258,10 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
   for (int r = tid; r < keep * D; r += nt) {
     const int k = r / D, d = r - k * D;
     const int mm = m0 + k;
-    if (mm >= M) continue;
+    if (mm >= n_keep) continue;
     float sum = 0.f;
     for (int e = s_dptr[d]; e < s_dptr[d + 1]; ++e) sum += s_part[k * F + s_ditem[e]];
-    const size_t at = ((size_t)b * M + mm) * D + d;
+    const size_t at = ((size_t)b * n_keep + mm) * D + d;
     if (part != nullptr) part[(size_t)blockIdx.x * B * M * D + at] = sum;
     else dx[at] = from_f<T>(sum);
   }
@@ -269,16 +313,18 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
 // VEC: F a multiple of four and the rows of dw (and of w with DSH) aligned
 // to four elements; xvec: each lane's four channels read four neighbouring,
 // aligned elements of x.  No channel reads a harmonic component past P.
-template <typename T, bool DSH, bool VEC, int L>
+// IDX: x (B, Mx, D) read at idx (B, N, M), the sender of each slot.
+template <typename T, bool DSH, bool VEC, int L, bool IDX>
 __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
-    const T* __restrict__ x,           // (B, M, D) sender scalars
+    const T* __restrict__ x,           // (B, M, D) sender scalars; IDX: (B, Mx, D)
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
     const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights (DSH)
+    const int* __restrict__ idx,       // (B, N, M) (IDX)
     const float* __restrict__ g,       // (B, N, F, 4 L) upstream gradient
     const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
     const float* __restrict__ scale,   // (F): c_p of the channel's path
-    T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int D, int S, int F, int edges,
-    int xvec) {
+    T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int Mx, int D, int S, int F,
+    int edges, int xvec) {
   constexpr int P = L == 1 ? P_L1 : P_L2;   // harmonic components read
   constexpr int KK = 2 * L + 1;            // components of a channel's output
   __shared__ float s_red[DSH ? EDGE_THREADS * P : 1];   // each lane's dsh partial sums
@@ -310,6 +356,7 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
     const int r = e / M;                              // receiver row b * N + n
     const int seg_end = min(e_end, (r + 1) * M);
     const int x_of = (r / N) * M - r * M;             // + edge: the sender row of an edge
+    const int x_base = (r / N) * Mx;                  // IDX: + idx[edge]
     // per channel, c_p g[k] at harmonic component offset + k, 0 elsewhere
     float coef[4][P];
     if constexpr (L == 1) {
@@ -358,7 +405,7 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
 #pragma unroll
         for (int s = 0; s < P; ++s) sv[i][s] = 0.f;
         if (!live) continue;
-        const T* xr = x + (x_of + edge) * D;
+        const T* xr = x + (IDX ? x_base + __ldg(idx + edge) : x_of + edge) * D;
         if (xvec) {
           ld4(xr + cd[0], xv[i]);
         } else {
@@ -462,29 +509,44 @@ int sum_splits(const float* part, T* out, long long total, int splits, cudaStrea
 }
 
 template <typename T, int L>
-int launch_fwd(const void* x, const void* sh, const void* w, const int* chan, const float* scale,
-               float* out, float* part, int B, int N, int M, int D, int S, int F, int keep,
-               int chunk, int splits, cudaStream_t st) {
+int launch_fwd(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
+               const float* scale, float* out, float* part, int B, int N, int M, int Mx, int D,
+               int S, int F, int keep, int chunk, int splits, cudaStream_t st) {
   const dim3 grid(splits, (N + keep - 1) / keep, B);
-  tp_scalar_fwd_kernel<T, L><<<grid, round_up_32(keep * F), 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
-      reinterpret_cast<const int4*>(chan), scale, splits > 1 ? part : out, B, N, M, D, S, F, keep,
-      chunk);
+  const int threads = round_up_32(keep * F);
+  float* dst = splits > 1 ? part : out;
+  if (idx != nullptr)
+    tp_scalar_fwd_kernel<T, L, true><<<grid, threads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), idx,
+        reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, Mx, D, S, F, keep, chunk);
+  else
+    tp_scalar_fwd_kernel<T, L, false><<<grid, threads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), nullptr,
+        reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, M, D, S, F, keep, chunk);
   return sum_splits<float>(part, out, (long long)B * N * F * 4 * L, splits, st);
 }
 
 template <typename T, int L>
 int launch_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
-                 const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
-                 int B, int N, int M, int D, int S, int F, int n_items, int keep, int chunk,
-                 int splits, cudaStream_t st) {
-  const dim3 grid(splits, (M + keep - 1) / keep, B);
+                 const float* scale, const int* d_ptr, const int* d_item, const int* order,
+                 const int* ptr, void* dx, float* part, int B, int N, int M, int Mx, int D, int S,
+                 int F, int n_items, int keep, int chunk, int splits, cudaStream_t st) {
+  const bool indexed = order != nullptr;
+  const dim3 grid(splits, ((indexed ? Mx : M) + keep - 1) / keep, B);
+  const int threads = round_up_32(keep * F);
+  const size_t bytes = bwd_x_smem(keep, F, D, n_items);
   T* out = static_cast<T*>(dx);
-  tp_scalar_bwd_x_kernel<T, L><<<grid, round_up_32(keep * F), bwd_x_smem(keep, F, D, n_items), st>>>(
-      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
-      scale, d_ptr, d_item, out, splits > 1 ? part : nullptr, B, N, M, D, S, F, n_items, keep,
-      chunk);
-  return sum_splits<T>(part, out, (long long)B * M * D, splits, st);
+  if (indexed)
+    tp_scalar_bwd_x_kernel<T, L, true><<<grid, threads, bytes, st>>>(
+        static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+        scale, d_ptr, d_item, order, ptr, out, nullptr, B, N, M, Mx, D, S, F, n_items, keep,
+        chunk);
+  else
+    tp_scalar_bwd_x_kernel<T, L, false><<<grid, threads, bytes, st>>>(
+        static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+        scale, d_ptr, d_item, nullptr, nullptr, out, splits > 1 ? part : nullptr, B, N, M, M, D,
+        S, F, n_items, keep, chunk);
+  return sum_splits<T>(part, out, (long long)B * M * D, indexed ? 1 : splits, st);
 }
 
 bool quad_aligned(const void* p, int esize) {
@@ -492,91 +554,109 @@ bool quad_aligned(const void* p, int esize) {
 }
 
 template <typename T, bool DSH, int L>
-int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const float* g,
-                      const int* chan, const float* scale, void* dw, void* dsh, int N, int M,
-                      int D, int S, int F, int edges, bool vec, int xvec, int blocks,
-                      cudaStream_t st) {
+int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const int* idx,
+                      const float* g, const int* chan, const float* scale, void* dw, void* dsh,
+                      int N, int M, int Mx, int D, int S, int F, int edges, bool vec, int xvec,
+                      int blocks, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* sht = static_cast<const T*>(sh);
   const T* wt = static_cast<const T*>(w);
   const int4* ct = reinterpret_cast<const int4*>(chan);
   T* dwt = static_cast<T*>(dw);
   T* dsht = static_cast<T*>(dsh);
-  if (vec)
-    tp_scalar_bwd_edge_kernel<T, DSH, true, L><<<blocks, EDGE_THREADS, 0, st>>>(
-        xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
-  else
-    tp_scalar_bwd_edge_kernel<T, DSH, false, L><<<blocks, EDGE_THREADS, 0, st>>>(
-        xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
+  if (idx != nullptr) {   // the sender-index mode: dw only (the entry refuses dsh)
+    if (vec)
+      tp_scalar_bwd_edge_kernel<T, false, true, L, true><<<blocks, EDGE_THREADS, 0, st>>>(
+          xt, sht, wt, idx, g, ct, scale, dwt, dsht, N, M, Mx, D, S, F, edges, xvec);
+    else
+      tp_scalar_bwd_edge_kernel<T, false, false, L, true><<<blocks, EDGE_THREADS, 0, st>>>(
+          xt, sht, wt, idx, g, ct, scale, dwt, dsht, N, M, Mx, D, S, F, edges, xvec);
+  } else if (vec) {
+    tp_scalar_bwd_edge_kernel<T, DSH, true, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
+        xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
+  } else {
+    tp_scalar_bwd_edge_kernel<T, DSH, false, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
+        xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int L>
-int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
+int launch_bwd_edge(const void* x, const void* sh, const void* w, const int* idx, const float* g,
                     const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
-                    int M, int D, int S, int F, int x_quads, int blocks, cudaStream_t st) {
+                    int M, int Mx, int D, int S, int F, int x_quads, int blocks,
+                    cudaStream_t st) {
   const int edges = B * N * M;
   const int esize = sizeof(T);
   const bool vec = F % 4 == 0 && (dw == nullptr || quad_aligned(dw, esize)) &&
                    (dsh == nullptr || quad_aligned(w, esize));
   const int xvec = x_quads && D % 4 == 0 && quad_aligned(x, esize);
   blocks = std::min(blocks, (edges + EDGE_WARPS - 1) / EDGE_WARPS);
-  return dsh != nullptr ? launch_bwd_edge_t<T, true, L>(x, sh, w, g, chan, scale, dw, dsh, N, M,
-                                                        D, S, F, edges, vec, xvec, blocks, st)
-                        : launch_bwd_edge_t<T, false, L>(x, sh, w, g, chan, scale, dw, dsh, N, M,
-                                                         D, S, F, edges, vec, xvec, blocks, st);
+  return dsh != nullptr
+             ? launch_bwd_edge_t<T, true, L>(x, sh, w, idx, g, chan, scale, dw, dsh, N, M, Mx, D,
+                                             S, F, edges, vec, xvec, blocks, st)
+             : launch_bwd_edge_t<T, false, L>(x, sh, w, idx, g, chan, scale, dw, dsh, N, M, Mx, D,
+                                              S, F, edges, vec, xvec, blocks, st);
 }
 
 template <typename T, bool DSH, int L>
 cudaError_t edge_occupancy(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true, L>, EDGE_THREADS, 0);
+      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true, L, false>, EDGE_THREADS, 0);
 }
 
-// The extern "C" entry points of lane count L (below), shared by both.
+// The extern "C" entry points of lane count L (below), shared by both.  A
+// null idx (or order and ptr) is the dense mode, Mx = M.
 template <int L>
-int fwd_entry(const void* x, const void* sh, const void* w, const int* chan, const float* scale,
-              float* out, float* part, int B, int N, int M, int D, int S, int F, int keep,
-              int chunk, int splits, int bf16, void* stream) {
+int fwd_entry(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
+              const float* scale, float* out, float* part, int B, int N, int M, int Mx, int D,
+              int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
   if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, M, part) ||
-      (N + keep - 1) / keep > 65535)
+      (N + keep - 1) / keep > 65535 || Mx < 1 || (idx == nullptr && Mx != M))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<__nv_bfloat16, L>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F,
-                                             keep, chunk, splits, st)
-              : launch_fwd<float, L>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep,
-                                     chunk, splits, st);
+  return bf16 ? launch_fwd<__nv_bfloat16, L>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx,
+                                             D, S, F, keep, chunk, splits, st)
+              : launch_fwd<float, L>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx, D, S, F,
+                                     keep, chunk, splits, st);
 }
 
 template <int L>
 int bwd_x_entry(const void* sh, const void* w, const float* g, const int* chan,
-                const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
-                int B, int N, int M, int D, int S, int F, int n_items, int keep, int chunk,
-                int splits, int bf16, void* stream) {
+                const float* scale, const int* d_ptr, const int* d_item, const int* order,
+                const int* ptr, void* dx, float* part, int B, int N, int M, int Mx, int D, int S,
+                int F, int n_items, int keep, int chunk, int splits, int bf16, void* stream) {
+  const bool indexed = order != nullptr;
   if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, N, part) || n_items < 1 ||
-      (M + keep - 1) / keep > 65535 || bwd_x_smem(keep, F, D, n_items) > 48 * 1024)
+      ((indexed ? Mx : M) + keep - 1) / keep > 65535 ||
+      bwd_x_smem(keep, F, D, n_items) > 48 * 1024 || Mx < 1 || indexed != (ptr != nullptr) ||
+      (!indexed && Mx != M) || (indexed && splits != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_x<__nv_bfloat16, L>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B,
-                                               N, M, D, S, F, n_items, keep, chunk, splits, st)
-              : launch_bwd_x<float, L>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D,
-                                       S, F, n_items, keep, chunk, splits, st);
+  return bf16 ? launch_bwd_x<__nv_bfloat16, L>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr,
+                                               dx, part, B, N, M, Mx, D, S, F, n_items, keep,
+                                               chunk, splits, st)
+              : launch_bwd_x<float, L>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr, dx,
+                                       part, B, N, M, Mx, D, S, F, n_items, keep, chunk, splits,
+                                       st);
 }
 
 template <int L>
-int bwd_edge_entry(const void* x, const void* sh, const void* w, const float* g, const int* chan,
-                   const float* scale, void* dw, void* dsh, int B, int N, int M, int D, int S,
-                   int F, int reach, int x_quads, int blocks, int bf16, void* stream) {
+int bwd_edge_entry(const void* x, const void* sh, const void* w, const int* idx, const float* g,
+                   const int* chan, const float* scale, void* dw, void* dsh, int B, int N, int M,
+                   int Mx, int D, int S, int F, int reach, int x_quads, int blocks, int bf16,
+                   void* stream) {
   if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
       reach > (L == 1 ? P_L1 : P_L2) || reach > S || blocks < 1 ||
-      (dw == nullptr && dsh == nullptr) ||
-      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
+      (dw == nullptr && dsh == nullptr) || Mx < 1 || (idx == nullptr && Mx != M) ||
+      (idx != nullptr && dsh != nullptr) ||
+      (long long)B * N * M * std::max(F, S) + (long long)B * std::max(M, Mx) * D >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_edge<__nv_bfloat16, L>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D,
-                                                  S, F, x_quads, blocks, st)
-              : launch_bwd_edge<float, L>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F,
-                                          x_quads, blocks, st);
+  return bf16 ? launch_bwd_edge<__nv_bfloat16, L>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M,
+                                                  Mx, D, S, F, x_quads, blocks, st)
+              : launch_bwd_edge<float, L>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M, Mx, D,
+                                          S, F, x_quads, blocks, st);
 }
 
 template <int L>
@@ -599,14 +679,14 @@ int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
   if (dx) {
     const size_t bytes = bwd_x_smem(keep, F, D, n_items);
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, L>, threads, bytes)
+                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, L, false>, threads, bytes)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<float, L>, threads, bytes);
+                     &blocks, tp_scalar_bwd_x_kernel<float, L, false>, threads, bytes);
   } else {
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L>, threads, 0)
+                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L, false>, threads, 0)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<float, L>, threads, 0);
+                     &blocks, tp_scalar_fwd_kernel<float, L, false>, threads, 0);
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -621,22 +701,26 @@ extern "C" {
 
 // Every path of a convolution: out (B, N, F, 4) f32; `part` holds (splits, B,
 // N, F, 4) floats when the senders are split (splits > 1), else it is not
-// read.  Senders [k * chunk, (k + 1) * chunk) go to split k.
-int dp_tp_scalar_fwd(const void* x, const void* sh, const void* w, const int* chan,
-                     const float* scale, float* out, float* part, int B, int N, int M, int D,
-                     int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
-  return fwd_entry<1>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep, chunk, splits,
-                      bf16, stream);
+// read.  Senders [k * chunk, (k + 1) * chunk) go to split k.  Sender-index
+// mode: idx (B, N, M) int32, x (B, Mx, D); dense: idx null, Mx = M.
+int dp_tp_scalar_fwd(const void* x, const void* sh, const void* w, const int* idx,
+                     const int* chan, const float* scale, float* out, float* part, int B, int N,
+                     int M, int Mx, int D, int S, int F, int keep, int chunk, int splits, int bf16,
+                     void* stream) {
+  return fwd_entry<1>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx, D, S, F, keep, chunk,
+                      splits, bf16, stream);
 }
 
 // dx (B, M, D) of every path of a convolution, in the operands' type; `part`
-// holds (splits, B, M, D) floats when the receivers are split.
+// holds (splits, B, M, D) floats when the receivers are split.  Sender-index
+// mode: `order` and `ptr` (tp_fused.sender_lists), dx (B, Mx, D), one split.
 int dp_tp_scalar_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
-                       const float* scale, const int* d_ptr, const int* d_item, void* dx,
-                       float* part, int B, int N, int M, int D, int S, int F, int n_items,
-                       int keep, int chunk, int splits, int bf16, void* stream) {
-  return bwd_x_entry<1>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F,
-                        n_items, keep, chunk, splits, bf16, stream);
+                       const float* scale, const int* d_ptr, const int* d_item, const int* order,
+                       const int* ptr, void* dx, float* part, int B, int N, int M, int Mx, int D,
+                       int S, int F, int n_items, int keep, int chunk, int splits, int bf16,
+                       void* stream) {
+  return bwd_x_entry<1>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr, dx, part, B, N, M, Mx,
+                        D, S, F, n_items, keep, chunk, splits, bf16, stream);
 }
 
 // dw (B, N, M, F) into `dw` (nullptr: none) and dsh (B, N, M, S) into `dsh`
@@ -645,13 +729,14 @@ int dp_tp_scalar_bwd_x(const void* sh, const void* w, const float* g, const int*
 // harmonic component any channel reads, at most P; dsh's later components
 // are written as 0.  `x_quads`: channels 4i..4i+3 read elements d..d+3 of
 // x, d a multiple of four, for every i (then x is read four elements at a
-// time where its base allows).
-int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
-                          const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
-                          int M, int D, int S, int F, int reach, int x_quads, int blocks, int bf16,
-                          void* stream) {
-  return bwd_edge_entry<1>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F, reach, x_quads,
-                           blocks, bf16, stream);
+// time where its base allows).  Sender-index mode: idx (B, N, M) int32, x
+// (B, Mx, D), dw only.
+int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const int* idx,
+                          const float* g, const int* chan, const float* scale, void* dw,
+                          void* dsh, int B, int N, int M, int Mx, int D, int S, int F, int reach,
+                          int x_quads, int blocks, int bf16, void* stream) {
+  return bwd_edge_entry<1>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M, Mx, D, S, F, reach,
+                           x_quads, blocks, bf16, stream);
 }
 
 // Blocks of the edge backward that one SM holds at once (dsh: with dsh), or
@@ -666,27 +751,29 @@ int dp_tp_scalar_blocks_per_sm(int dx, int F, int D, int n_items, int bf16) {
 }
 
 // The same five functions at L = 2: g and out (B, N, F, 8), K <= 5, reach <= 9.
-int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int* chan,
-                        const float* scale, float* out, float* part, int B, int N, int M, int D,
-                        int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
-  return fwd_entry<2>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep, chunk, splits,
-                      bf16, stream);
+int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
+                        const int* chan, const float* scale, float* out, float* part, int B,
+                        int N, int M, int Mx, int D, int S, int F, int keep, int chunk,
+                        int splits, int bf16, void* stream) {
+  return fwd_entry<2>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx, D, S, F, keep, chunk,
+                      splits, bf16, stream);
 }
 
 int dp_tp_scalar_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
-                          const float* scale, const int* d_ptr, const int* d_item, void* dx,
-                          float* part, int B, int N, int M, int D, int S, int F, int n_items,
-                          int keep, int chunk, int splits, int bf16, void* stream) {
-  return bwd_x_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F,
-                        n_items, keep, chunk, splits, bf16, stream);
+                          const float* scale, const int* d_ptr, const int* d_item,
+                          const int* order, const int* ptr, void* dx, float* part, int B, int N,
+                          int M, int Mx, int D, int S, int F, int n_items, int keep, int chunk,
+                          int splits, int bf16, void* stream) {
+  return bwd_x_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr, dx, part, B, N, M, Mx,
+                        D, S, F, n_items, keep, chunk, splits, bf16, stream);
 }
 
-int dp_tp_scalar_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
-                             const int* chan, const float* scale, void* dw, void* dsh, int B,
-                             int N, int M, int D, int S, int F, int reach, int x_quads,
-                             int blocks, int bf16, void* stream) {
-  return bwd_edge_entry<2>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F, reach, x_quads,
-                           blocks, bf16, stream);
+int dp_tp_scalar_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,
+                             const float* g, const int* chan, const float* scale, void* dw,
+                             void* dsh, int B, int N, int M, int Mx, int D, int S, int F,
+                             int reach, int x_quads, int blocks, int bf16, void* stream) {
+  return bwd_edge_entry<2>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M, Mx, D, S, F, reach,
+                           x_quads, blocks, bf16, stream);
 }
 
 int dp_tp_scalar_bwd_edge_blocks_per_sm_l2(int dsh, int bf16) {

@@ -7,12 +7,17 @@ norm-angle alignment channel.
 With ``use_att`` a geometric attention block (Trioformer,
 ``models/trioformer.py``) replaces the node features after the phore graph
 is built, and its pair embedding conditions the cross edges: it joins their
-attributes and scales their vectors.  The phore grid is dense
-(``phore_knn = 0``); the features go up to l = 1, or to l = 2 with
-``use_second_order_repr`` (the 8-lane kernels).  In training mode the MLPs and convs
-apply dropout, the convs' batch norms take masked batch statistics, and the
-pose-group factoring is off; it is off with ``use_att`` too, whose node
-features depend on the pose.
+attributes and scales their vectors.  With ``0 < phore_knn < P`` the phore
+grid is compacted to each receiver's ``phore_knn`` nearest masked senders
+(the JAX package's ``jax.lax.top_k`` selection, ties to the lower index):
+the phore edge MLP, harmonics and mask run on (P, K) and the phore convs
+take the sender index (the kernels' sender-index mode).  The result equals
+the dense grid's when K is at least the largest in-degree; below that the
+farthest neighbours drop first.  The features go up to l = 1, or to l = 2
+with ``use_second_order_repr`` (the 8-lane kernels).  In training mode the
+MLPs and convs apply dropout, the convs' batch norms take masked batch
+statistics, and the pose-group factoring is off; it is off with ``use_att``
+too, whose node features depend on the pose, and with ``phore_knn``.
 """
 
 from __future__ import annotations
@@ -26,11 +31,9 @@ from torch import nn
 from ..constants import LIG_FEATURE_DIMS, NUM_PHORETYPE, PHORE_FEATURE_DIMS, VDW_TABLE
 from ..ops.geometry import angle_between
 from ..ops.sh import spherical_harmonics_lmax2
+from ..ops.tensor_product import gather_senders
 from .layers import MLP, CategoricalEncoder, DenseTPConv, GaussianSmearing, leaky_relu
 from .trioformer import GeometricAttention
-
-#: the slice of the port that brings the refused encoder option
-NEXT_SLICE = "the next slice of the port (the KNN phore grid)"
 
 
 def irrep_seq(ns: int, nv: int, second_order: bool = False):
@@ -51,10 +54,24 @@ def irrep_seq(ns: int, nv: int, second_order: bool = False):
 
 def _pair_attr(edge: torch.Tensor, recv: torch.Tensor, send: torch.Tensor) -> torch.Tensor:
     """concat([edge (B,N,M,e), recv (B,N,r) over senders, send (B,M,s) over
-    receivers]) -> (B, N, M, e+r+s)."""
+    receivers, or (B,N,M,s) already per receiver (a sender-index grid)])
+    -> (B, N, M, e+r+s)."""
     B, N, M = edge.shape[:3]
-    return torch.cat([edge, recv[:, :, None, :].expand(B, N, M, recv.shape[-1]),
-                      send[:, None, :, :].expand(B, N, M, send.shape[-1])], dim=-1)
+    # the receiver's view is made first: autograd adds a node tensor's
+    # gradients in an order set by when its uses were made, so this order is
+    # part of the gradients' bits
+    recv = recv[:, :, None, :].expand(B, N, M, recv.shape[-1])
+    if send.dim() == 3:
+        send = send[:, None, :, :].expand(B, N, M, send.shape[-1])
+    return torch.cat([edge, recv, send], dim=-1)
+
+
+def knn_senders(sel: torch.Tensor, k: int) -> torch.Tensor:
+    """Each receiver's ``k`` smallest keys of ``sel`` (B, N, M) -> their
+    indices (B, N, k) int64, in ascending order with ties to the lower
+    index: ``jax.lax.top_k(-sel, k)``'s indices, bit for bit (a stable
+    sort; ``torch.topk`` promises no order among ties)."""
+    return torch.sort(sel, dim=-1, stable=True).indices[..., :k]
 
 
 class LigPhoreEncoder(nn.Module):
@@ -62,8 +79,8 @@ class LigPhoreEncoder(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.phore_knn:
-            raise NotImplementedError(f"phore_knn > 0 comes with {NEXT_SLICE}")
+        if cfg.phore_knn < 0:
+            raise ValueError(f"phore_knn {cfg.phore_knn}: 0 (the dense grid) or a count")
         if cfg.tp_mode not in ("channelwise", "fully_connected"):
             raise ValueError(f"tp_mode {cfg.tp_mode!r}: channelwise or fully_connected")
         self.cfg = cfg
@@ -136,9 +153,9 @@ class LigPhoreEncoder(nn.Module):
             phore conv depend only on (phore, sigma), so they are computed
             on one representative row per complex and repeated: exact, not
             an approximation.  Ignored (1) when B is not divisible, in
-            training mode (dropout and batch statistics differ per row) and
+            training mode (dropout and batch statistics differ per row),
             with ``use_att`` (the attention mixes the pose into the phore
-            features).
+            features) and with ``phore_knn``, as in the JAX package.
         Returns:
           (lig_node_attr (B, A, D_out), phore_node_attr (B, P, D_phore)).
         """
@@ -147,7 +164,7 @@ class LigPhoreEncoder(nn.Module):
         P = batch.phore_pos.shape[1]
         lig_mask, phore_mask = batch.lig_mask, batch.phore_mask
         pg = int(pose_group) if pose_group else 1
-        if pg > 1 and (B % pg or self.training or cfg.use_att):
+        if pg > 1 and (B % pg or self.training or cfg.use_att or cfg.phore_knn):
             pg = 1
 
         def rep_b(x):
@@ -188,7 +205,19 @@ class LigPhoreEncoder(nn.Module):
         p_d = torch.linalg.norm(p_vec, dim=-1)
         p_pair_mask_c = (batch.phore_edge_mask[::pg]
                          & phore_mask_c[:, :, None] & phore_mask_c[:, None, :])
-        p_attr = torch.cat([phore_sigma_c[:, :, None, :].expand(C, P, P, sd),
+        # the KNN grid: each receiver's K nearest masked senders; every
+        # phore-phore edge tensor on (P, K).  A row with fewer than K live
+        # senders keeps masked slots (distance inf), dead everywhere below.
+        phore_nbr = None
+        if 0 < cfg.phore_knn < P:
+            sel = torch.where(p_pair_mask_c, p_d, torch.full_like(p_d, float("inf")))
+            nbr = knn_senders(sel, cfg.phore_knn)                    # (B, P, K)
+            p_pair_mask_c = torch.gather(p_pair_mask_c, 2, nbr)
+            p_vec = gather_senders(phore_pos_c, nbr) - phore_pos_c[:, :, None, :]
+            p_d = torch.gather(p_d, 2, nbr)
+            phore_nbr = nbr.to(torch.int32).contiguous()
+        M_p = p_d.shape[-1]                                          # P, or K
+        p_attr = torch.cat([phore_sigma_c[:, :, None, :].expand(C, P, M_p, sd),
                             self.phore_distance_expansion(p_d)], -1)
         phore_edge_attr_c = self.phore_edge_embedding(p_attr)
         phore_edge_sh_c = spherical_harmonics_lmax2(p_vec)
@@ -243,9 +272,11 @@ class LigPhoreEncoder(nn.Module):
                         phore_node_attr_c, _pair_attr(phore_edge_attr_c, phore_sc_c, phore_sc_c),
                         phore_edge_sh_c, p_pair_mask_c, phore_mask_c))
                 else:
+                    send_sc = (phore_sc if phore_nbr is None
+                               else gather_senders(phore_sc, phore_nbr))   # (B, P, K, ns)
                     phore_intra = phore_conv(
-                        phore_node_attr, _pair_attr(phore_edge_attr, phore_sc, phore_sc),
-                        phore_edge_sh, p_pair_mask, phore_mask)
+                        phore_node_attr, _pair_attr(phore_edge_attr, phore_sc, send_sc),
+                        phore_edge_sh, p_pair_mask, phore_mask, sender_index=phore_nbr)
                 # phore <- ligand: the transposed cross grid, with the
                 # receiver (phore) and sender (ligand) scalars in the
                 # reference's part order [edge, lig_sc, phore_sc]

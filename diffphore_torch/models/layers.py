@@ -276,6 +276,13 @@ class DenseTPConv(nn.Module):
     :meth:`FullyConnectedTP.aggregate` sums the product over senders in
     plain PyTorch on any device, in eval and training mode alike: no kernel
     runs, in the JAX package or here, and there is no mix.
+
+    ``sender_index`` (B, N, K) int32: the sender-index grid of the KNN phore
+    graph (``phore_knn``).  The edge tensors are (B, N, K, ...), slot k of
+    receiver n reads the sender row ``sender_feat[b, sender_index[b, n,
+    k]]`` and ``sender_feat`` stays (B, M, D); K1, K2 and K3 run their
+    sender-index mode (the JAX package gathers the senders and takes its
+    einsum path), and the fully connected product gathers x.
     """
 
     def __init__(self, in_irreps: str, out_irreps: str, sh_irreps: str = "1x0e + 1x1o + 1x2e",
@@ -314,6 +321,7 @@ class DenseTPConv(nn.Module):
         edge_sh: torch.Tensor,                                       # (B, N, M, sh_dim)
         edge_mask: Union[torch.Tensor, List[torch.Tensor]],          # (B, N, M) or C of them
         receiver_mask: Optional[torch.Tensor] = None,                # (B, N)
+        sender_index: Optional[torch.Tensor] = None,                 # (B, N, M) int32
     ) -> torch.Tensor:
         tp = self.tp
         attrs = edge_attr if isinstance(edge_attr, (list, tuple)) else [edge_attr]
@@ -326,6 +334,8 @@ class DenseTPConv(nn.Module):
 
         cdt = self.compute_dtype
         x, sh = sender_feat.to(cdt).contiguous(), edge_sh.to(cdt).contiguous()
+        # the dense grid calls the aggregates as it always has
+        index = {} if sender_index is None else {"sender_index": sender_index}
         if not self.channelwise:
             # Peak bytes at the widest call, a cross-graph conv of the last
             # layer in a 40-pose dispatch at 24 x 96 (92,160 edges, 2,200
@@ -338,7 +348,7 @@ class DenseTPConv(nn.Module):
             fc = self.fc
             w = tp_fused.edge_weights(attrs, masks, fc.Dense_0.weight.t(), fc.Dense_0.bias,
                                       fc.Dense_1.weight.t(), fc.Dense_1.bias, cdt, fc.drop)
-            out = self.tp.aggregate(x, sh, w) / denom[..., None]
+            out = self.tp.aggregate(x, sh, w, **index) / denom[..., None]
             return out if self.bn is None else self.bn(out, receiver_mask)
         if self.training:
             w = tp_fused.edge_weights(attrs, masks, self.fc_w1, self.fc_b1, self.fc_w2,
@@ -349,14 +359,14 @@ class DenseTPConv(nn.Module):
             else:
                 aggregate = (tp_aggregate.tp_aggregate if self.use_kernel
                              else tp_aggregate.tp_aggregate_plain)
-            padded = aggregate(tp, x, sh, w.contiguous())
+            padded = aggregate(tp, x, sh, w.contiguous(), **index)
         else:
             aggregate = (tp_fused.tp_aggregate_fused if self.use_kernel
                          else tp_fused.tp_aggregate_fused_plain)
             padded = aggregate(
                 tp, x, sh, [a.to(cdt).contiguous() for a in attrs],
                 [m.contiguous() for m in masks],
-                self.fc_w1, self.fc_b1, self.fc_w2, self.fc_b2)
+                self.fc_w1, self.fc_b1, self.fc_w2, self.fc_b2, **index)
         blocks = tp_fused.blocks_from_padded(tp, padded)
 
         B, N = padded.shape[:2]

@@ -39,6 +39,15 @@ class _Path:
     alpha: float
 
 
+def gather_senders(x: torch.Tensor, sender_index: torch.Tensor) -> torch.Tensor:
+    """Per-receiver senders of a sender-index grid: ``x[b, sender_index[b,
+    n, k]]`` -> (B, N, K, ...) from x (B, M, ...) and an integer index (B,
+    N, K).  Differentiable in x: its gradient adds each slot's into its
+    sender."""
+    bidx = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    return x[bidx, sender_index.long()]
+
+
 def _cg(l1: int, l2: int, l3: int, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(wigner_3j(l1, l2, l3), dtype=like.dtype, device=like.device)
 
@@ -54,15 +63,18 @@ class FullyConnectedTP:
     paths: Tuple[_Path, ...]
     weight_numel: int
 
-    def aggregate(self, x: torch.Tensor, sh: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
+    def aggregate(self, x: torch.Tensor, sh: torch.Tensor, weights: torch.Tensor,
+                  sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The tensor product of each edge summed over senders:
 
             out[b, n, v, k] = sum_m sum_p alpha_p sum_{u, i, j}
                 x[b, m, u, i] sh[b, n, m, j] C_p[i, j, k] w[b, n, m, u, v]
 
         Args:
-          x: (B, M, dim_in) sender features.
+          x: (B, M, dim_in) sender features, or (B, N, M, dim_in) senders
+            gathered per receiver (the sender-index grid: m is receiver n's
+            slot); ``sender_index`` (B, N, M) gathers them from (B, M_x,
+            dim_in).
           sh: (B, N, M, sh_dim); weights: (B, N, M, weight_numel), pre-masked.
         Returns:
           (B, N, irreps_out.dim) f32; irreps no path feeds are zero.
@@ -81,24 +93,28 @@ class FullyConnectedTP:
         cg_dtype = x.dtype
         per_edge = x.dtype == torch.bfloat16
         x, sh = x.float(), sh.float()
+        if sender_index is not None:
+            x = gather_senders(x, sender_index)      # in f32: slots' gradients add in f32
+        m = "bnm" if x.dim() == sh.dim() else "bm"
         B, N, M = sh.shape[:3]
         in_slices, sh_slices = self.irreps_in.slices(), self.irreps_sh.slices()
         blocks: List[Optional[torch.Tensor]] = [None] * len(self.irreps_out)
         for p in self.paths:
             d3 = 2 * p.l_out + 1
-            xb = x[..., in_slices[p.i_in]].reshape(B, M, p.mul_in, 2 * p.l_in + 1)
+            xb = x[..., in_slices[p.i_in]]
+            xb = xb.reshape(xb.shape[:-1] + (p.mul_in, 2 * p.l_in + 1))
             cg = torch.as_tensor(wigner_3j(p.l_in, p.l_sh, p.l_out), dtype=cg_dtype,
                                  device=x.device).float()
-            z = torch.einsum("bmui,ijk->bmujk", xb, cg)
+            z = torch.einsum(f"{m}ui,ijk->{m}ujk", xb, cg)
             wb = weights[..., p.w_slice[0]:p.w_slice[1]].float()
             if per_edge:
-                y = torch.einsum("bnmj,bmujk->bnmku", sh[..., sh_slices[p.i_sh]], z)
+                y = torch.einsum(f"bnmj,{m}ujk->bnmku", sh[..., sh_slices[p.i_sh]], z)
                 msg = torch.bmm(y.reshape(B * N * M, d3, p.mul_in),
                                 wb.reshape(B * N * M, p.mul_in, p.mul_out))
                 alpha = torch.tensor(p.alpha, dtype=torch.bfloat16, device=x.device)
                 contrib = (msg.to(torch.bfloat16) * alpha).reshape(B, N, M, d3, p.mul_out)
             else:
-                y = torch.einsum("bnmj,bmujk->bnkmu", sh[..., sh_slices[p.i_sh]], z)
+                y = torch.einsum(f"bnmj,{m}ujk->bnkmu", sh[..., sh_slices[p.i_sh]], z)
                 msg = torch.bmm(y.reshape(B * N, d3, M * p.mul_in),
                                 wb.reshape(B * N, M * p.mul_in, p.mul_out))
                 contrib = p.alpha * msg.reshape(B, N, d3, p.mul_out)
@@ -159,12 +175,16 @@ class ChannelwiseTP:
     #: per output irrep block: (block_index, fan_in_channels, mul_out)
     mix_specs: Tuple[Tuple[int, int, int], ...]
 
-    def aggregate(self, x: torch.Tensor, sh: torch.Tensor,
-                  weights: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    def aggregate(self, x: torch.Tensor, sh: torch.Tensor, weights: torch.Tensor,
+                  sender_index: Optional[torch.Tensor] = None) -> List[Optional[torch.Tensor]]:
         """Edge-summed TP, one einsum per path with the sender sum folded in.
 
         Args:
-          x:  (B, M, dim_in) sender features.
+          x:  (B, M, dim_in) sender features, or (B, N, M, dim_in) senders
+              gathered per receiver for the sender-index (KNN) grid, where m
+              is receiver n's slot (the JAX package's
+              ``"bnmui,bnmj,ijk,bnmu->bnuk"``); ``sender_index`` (B, N, M)
+              gathers them from (B, M_x, dim_in).
           sh: (B, N, M, sh_dim);  weights: (B, N, M, weight_numel), pre-masked.
         Returns:
           list aligned with irreps_out of (B, N, fan_in, 2l+1) f32 sums over M
@@ -173,10 +193,14 @@ class ChannelwiseTP:
         bf16 operands are read as they are and multiplied and summed in f32,
         with the coupling tensors rounded to bf16 too, as the JAX package's
         einsum with ``preferred_element_type=f32`` does.  Their gradients
-        come back in bf16.
+        come back in bf16; x's slots' gradients add in f32 and round once,
+        as the kernels' (JAX rounds each slot's).
         """
         cg_dtype = x.dtype
         x, sh, weights = x.float(), sh.float(), weights.float()
+        if sender_index is not None:
+            x = gather_senders(x, sender_index)      # in f32: slots' gradients add in f32
+        m = "bnm" if x.dim() == sh.dim() else "bm"
         in_slices = self.irreps_in.slices()
         sh_slices = self.irreps_sh.slices()
         blocks: List[List[torch.Tensor]] = [[] for _ in self.irreps_out.items]
@@ -187,8 +211,8 @@ class ChannelwiseTP:
             wb = weights[..., p.w_slice[0]:p.w_slice[1]]
             cg = torch.as_tensor(wigner_3j(p.l_in, p.l_sh, p.l_out), dtype=cg_dtype,
                                  device=xb.device).float()
-            z = torch.einsum("bmui,ijk->bmujk", xb, cg)
-            contrib = p.alpha * torch.einsum("bnmj,bnmu,bmujk->bnuk", shb, wb, z)
+            z = torch.einsum(f"{m}ui,ijk->{m}ujk", xb, cg)
+            contrib = p.alpha * torch.einsum(f"bnmj,bnmu,{m}ujk->bnuk", shb, wb, z)
             blocks[p.i_out].append(contrib)
         return [torch.cat(parts, dim=-2) if parts else None for parts in blocks]
 

@@ -26,6 +26,17 @@ kernel ran or two).  A product whose irreps reach l = 2 runs the 8-lane
 kernels of the same source (``*_l2``: one block per receiver (forward),
 sender (dx) or receiver and run of senders (edge backward), a thread per
 channel, no split), counted by ``FWD_L2``, ``BWD_EDGE_L2`` and ``BWD_X_L2``.
+
+Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
+int32, x is (B, M_x, D), sh and w are (B, N, K, .) and slot k of receiver n
+reads the sender row ``x[b, sender_index[b, n, k]]``; dx adds each sender's
+slots.  The three functions run those ``*_l2`` kernels' bodies at both lane
+counts (4 where l <= 1): the forward reads x at the index, the edge
+backward too (dw only: no phore conv needs dsh, which the mode refuses),
+and dx walks each sender's slots in the fixed order of
+:func:`tp_fused.sender_lists`.  ``FWD_IDX``, ``BWD_EDGE_IDX`` and
+``BWD_X_IDX`` count the 4-lane launches, the ``*_IDX_L2`` counters the
+8-lane ones.
 """
 
 from __future__ import annotations
@@ -40,8 +51,8 @@ import torch
 from . import build
 from .tensor_product import ChannelwiseTP
 from .tp_fused import (K_PAD, K_PAD_L2, MAX_F_L2, MAX_PATHS_L2, TARGET_BLOCKS, TILE_N,
-                       _check_tp, _device_tables, _Kernel, device_tables_l2, lanes,
-                       padded_from_blocks)
+                       _check_tp, _device_tables, _Kernel, _ptr, check_index, counter,
+                       device_tables_l2, lanes, padded_from_blocks, sender_lists)
 
 FWD = _Kernel()        # tp_aggregate_fwd_kernel (+ tp_aggregate_sum_splits)
 BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
@@ -49,18 +60,25 @@ BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx, + tp_aggregate_sum_split
 FWD_L2 = _Kernel()       # tp_aggregate_fwd_l2_kernel
 BWD_EDGE_L2 = _Kernel()  # tp_aggregate_bwd_edge_l2_kernel (dw, and dsh when needed)
 BWD_X_L2 = _Kernel()     # tp_aggregate_bwd_x_l2_kernel
+FWD_IDX = _Kernel()          # the sender-index mode: tp_aggregate_fwd_l2_kernel<T, 4>
+BWD_EDGE_IDX = _Kernel()     # tp_aggregate_bwd_edge_l2_kernel<T, false, 4>
+BWD_X_IDX = _Kernel()        # tp_aggregate_bwd_x_l2_kernel<T, 4>
+FWD_IDX_L2 = _Kernel()       # the same at 8 lanes (l = 2)
+BWD_EDGE_IDX_L2 = _Kernel()
+BWD_X_IDX_L2 = _Kernel()
 KEEP = 8               # receivers (forward) or senders (dx) one block keeps
 TILE_SUM = 4           # entries of the summed axis in one tile of a block
 
 
 def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                       w: torch.Tensor) -> torch.Tensor:
+                       w: torch.Tensor, sender_index: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``tp.aggregate`` packed into
     (B, N, F, lanes(tp)) f32 (bf16 operands multiplied and summed in f32, with the
     coupling tensors rounded to bf16).  Differentiable by autograd in x, sh
-    and w."""
+    and w.  ``sender_index``: the sender-index mode (module note)."""
     _check_tp(tp)
-    return padded_from_blocks(tp, tp.aggregate(x, sh, w))
+    return padded_from_blocks(tp, tp.aggregate(x, sh, w, sender_index))
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,9 +191,9 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 10 + [p]
     lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 6
-    lib.dp_tp_aggregate_fwd_l2.argtypes = [p] * 7 + [i] * 9 + [p]
-    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 11 + [i] * 9 + [p]
-    lib.dp_tp_aggregate_bwd_x_l2.argtypes = [p] * 9 + [i] * 10 + [p]
+    lib.dp_tp_aggregate_fwd_l2.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 12 + [i] * 11 + [p]
+    lib.dp_tp_aggregate_bwd_x_l2.argtypes = [p] * 11 + [i] * 12 + [p]
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
                lib.dp_tp_aggregate_blocks_per_sm, lib.dp_tp_aggregate_fwd_l2,
                lib.dp_tp_aggregate_bwd_edge_l2, lib.dp_tp_aggregate_bwd_x_l2):
@@ -192,16 +210,20 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                  g: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
+                  g: Optional[torch.Tensor] = None,
+                  sender_index: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
     """Shapes (B, N, M, D, S, F) of a launch; raises on what the kernels do
     not take: x, sh and w of one type, f32 or bf16; g f32 (B, N, F,
-    lanes(tp))."""
+    lanes(tp)); with ``sender_index`` (B, N, M) int32, x (B, M_x, D)."""
     k_pad = lanes(tp)
     if sh.dim() != 4:
         raise ValueError(f"tp_aggregate: sh must be (B, N, M, S), got {tuple(sh.shape)}")
     B, N, M, S = sh.shape
     D, F = tp.irreps_in.dim, tp.weight_numel
-    expected = {"x": (x, (B, M, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
+    m_x = M if sender_index is None else x.shape[1]
+    if sender_index is not None:
+        check_index(sender_index, (B, N, M), x.device, "tp_aggregate")
+    expected = {"x": (x, (B, m_x, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
                 "w": (w, (B, N, M, F))}
     if g is not None:
         expected["grad"] = (g, (B, N, F, k_pad))
@@ -236,25 +258,24 @@ def _scratch(splits: int, shape: Tuple[int, ...], device: torch.device) -> Optio
     return torch.empty((splits,) + shape, dtype=torch.float32, device=device)
 
 
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
 def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                   w: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on CUDA tensors -> (B, N, F, 4) f32 (and the sum
-    of the sender splits' partial sums when :func:`launch_splits` splits)."""
-    B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
+                   w: torch.Tensor, sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel on CUDA tensors -> (B, N, F, lanes(tp)) f32 (and
+    the sum of the sender splits' partial sums when :func:`launch_splits`
+    splits)."""
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, sender_index=sender_index)
     dev = str(x.device)
-    if lanes(tp) == K_PAD_L2:
+    k_pad = lanes(tp)
+    if k_pad == K_PAD_L2 or sender_index is not None:
         chan, ptab, gtab, t_size = device_tables_l2(tp, dev, x.dtype)
-        out = torch.empty((B, N, F, K_PAD_L2), dtype=torch.float32, device=x.device)
+        out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
         rc = _library().dp_tp_aggregate_fwd_l2(
-            x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
-            gtab.data_ptr(), out.data_ptr(), B, N, M, D, S, F, gtab.shape[0], t_size,
-            int(x.dtype == torch.bfloat16), _stream(x.device))
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), chan.data_ptr(),
+            ptab.data_ptr(), gtab.data_ptr(), out.data_ptr(), B, N, M, x.shape[1], D, S, F,
+            gtab.shape[0], t_size, k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
         _raise_on(rc, "tp_aggregate_fwd_l2")
-        FWD_L2.launches += 1
+        counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index,
+                k_pad == K_PAD_L2).launches += 1
         return out
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
@@ -271,26 +292,33 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
 
 
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                         g: torch.Tensor, need_dsh: bool
+                         g: torch.Tensor, need_dsh: bool,
+                         sender_index: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dw, dsh or None) from the per-edge backward, in w's and sh's type: a
     kernel for dw alone, which does not read w, or, when dsh is asked for,
     one that computes both in one pass over w (its dw differs from the
-    other's by summation order)."""
-    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
+    other's by summation order).  The sender-index mode computes dw only and
+    refuses ``need_dsh``."""
+    if sender_index is not None and need_dsh:
+        raise ValueError("tp_aggregate: the sender-index mode computes no dsh (the KNN phore "
+                         "grid's harmonics carry no gradient)")
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g, sender_index)
     dev = str(x.device)
     seg_ptr, seg = _device_dsh_segments(tp, dev)
     dw = torch.empty_like(w)
     dsh = torch.empty_like(sh) if need_dsh else None
-    if lanes(tp) == K_PAD_L2:
+    k_pad = lanes(tp)
+    if k_pad == K_PAD_L2 or sender_index is not None:
         chan, ptab, gtab, _ = device_tables_l2(tp, dev, x.dtype)
         rc = _library().dp_tp_aggregate_bwd_edge_l2(
-            x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
-            ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(), dw.data_ptr(),
-            dsh.data_ptr() if need_dsh else None, B, N, M, D, S, F, gtab.shape[0], seg.shape[0],
-            int(x.dtype == torch.bfloat16), _stream(x.device))
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), g.data_ptr(),
+            chan.data_ptr(), ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(),
+            dw.data_ptr(), _ptr(dsh), B, N, M, x.shape[1], D, S, F, gtab.shape[0], seg.shape[0],
+            k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
         _raise_on(rc, "tp_aggregate_bwd_edge_l2")
-        BWD_EDGE_L2.launches += 1
+        counter(BWD_EDGE, BWD_EDGE_L2, BWD_EDGE_IDX, BWD_EDGE_IDX_L2, sender_index,
+                k_pad == K_PAD_L2).launches += 1
         return dw, dsh
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
@@ -306,23 +334,31 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
 
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                      g: torch.Tensor) -> torch.Tensor:
+                      g: torch.Tensor, sender_index: Optional[torch.Tensor] = None,
+                      lists: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """dx in x's type from the per-sender backward kernel (x gives only its
     shape and type; and the sum of the receiver splits' f32 partial sums when
-    :func:`launch_splits` splits)."""
-    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g)
+    :func:`launch_splits` splits).  The sender-index mode walks each
+    sender's slots in the order of ``lists`` (:func:`tp_fused.sender_lists`
+    of the index, built here when not given)."""
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g, sender_index)
     dev = str(x.device)
     dx = torch.empty_like(x)
-    if lanes(tp) == K_PAD_L2:
+    k_pad = lanes(tp)
+    if k_pad == K_PAD_L2 or sender_index is not None:
+        order = ptr = None
+        if sender_index is not None:
+            order, ptr = lists if lists is not None else sender_lists(sender_index, x.shape[1])
         chan, ptab, gtab, t_size = device_tables_l2(tp, dev, x.dtype)
         _, d_ptr, d_item = _device_backward_tables(tp, dev, K_PAD_L2)
         rc = _library().dp_tp_aggregate_bwd_x_l2(
             sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
-            gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
-            B, N, M, D, S, F, gtab.shape[0], t_size, d_item.shape[0],
-            int(x.dtype == torch.bfloat16), _stream(x.device))
+            gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), _ptr(order), _ptr(ptr),
+            dx.data_ptr(), B, N, M, x.shape[1], D, S, F, gtab.shape[0], t_size, d_item.shape[0],
+            k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
         _raise_on(rc, "tp_aggregate_bwd_x_l2")
-        BWD_X_L2.launches += 1
+        counter(BWD_X, BWD_X_L2, BWD_X_IDX, BWD_X_IDX_L2, sender_index,
+                k_pad == K_PAD_L2).launches += 1
         return dx
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, d_ptr, d_item = _device_backward_tables(tp, dev)
@@ -341,37 +377,44 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
 class TPAggregate(torch.autograd.Function):
     """The kernels under autograd.  ``dsh`` is computed only when sh requires
     grad (the cross-graph convs, whose edge vectors carry learned weights),
-    ``dx`` only when x does."""
+    ``dx`` only when x does.  With a sender index the forward builds the
+    index's inverse lists for dx once, when x requires grad."""
 
     @staticmethod
-    def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor):
+    def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                sender_index: Optional[torch.Tensor] = None):
         ctx.tp = tp
+        ctx.sender_index = sender_index
+        ctx.lists = (sender_lists(sender_index, x.shape[1])
+                     if sender_index is not None and ctx.needs_input_grad[1] else None)
         ctx.save_for_backward(x, sh, w)
-        return launch_forward(tp, x, sh, w)
+        return launch_forward(tp, x, sh, w, sender_index)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
         x, sh, w = ctx.saved_tensors
-        _, need_dx, need_dsh, need_dw = ctx.needs_input_grad
+        _, need_dx, need_dsh, need_dw, _ = ctx.needs_input_grad
         g = grad_out.to(torch.float32).contiguous()
         dx = dw = dsh = None
         if need_dw or need_dsh:
-            dw, dsh = launch_backward_edge(ctx.tp, x, sh, w, g, need_dsh)
+            dw, dsh = launch_backward_edge(ctx.tp, x, sh, w, g, need_dsh, ctx.sender_index)
         if need_dx:
-            dx = launch_backward_x(ctx.tp, x, sh, w, g)
-        return None, dx, dsh, dw if need_dw else None
+            dx = launch_backward_x(ctx.tp, x, sh, w, g, ctx.sender_index, ctx.lists)
+        return None, dx, dsh, dw if need_dw else None, None
 
 
-def tp_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
+def tp_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                 sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """All-path aggregate -> (B, N, F, lanes(tp)) f32, differentiable in x, sh, w
     (their gradients in their own type).
 
     x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked; all f32 or
     all bf16 (read as they are, multiplied and summed in f32), contiguous.
-    CPU tensors take the plain version; CUDA tensors launch the kernels or
+    ``sender_index`` (B, N, K) int32: the sender-index mode, x (B, M_x,
+    D_in) and M = K (module note; sh must not require grad there).  CPU
+    tensors take the plain version; CUDA tensors launch the kernels or
     raise.
     """
     if x.device.type == "cpu":
-        return tp_aggregate_plain(tp, x, sh, w)
-    return TPAggregate.apply(tp, x, sh, w)
+        return tp_aggregate_plain(tp, x, sh, w, sender_index)
+    return TPAggregate.apply(tp, x, sh, w, sender_index)

@@ -23,6 +23,14 @@ CPU tensors.  A product whose irreps reach l = 2 (``use_second_order_repr``)
 runs the 8-lane kernel ``tp_fused_l2_kernel`` (same source), the others the
 4-lane one.  ``KERNEL.launches`` and ``KERNEL_L2.launches`` count the
 launches of each.
+
+Sender-index mode (the KNN phore grid, ``phore_knn``): with
+``sender_index`` (B, N, K) int32 the edge tensors are (B, N, K, ...) and
+slot k of receiver n reads the sender row ``x[b, sender_index[b, n, k]]``
+of x (B, M_x, D).  Each kernel takes it (``tp_fused_kernel`` for l <= 1, as a
+template flag, and ``tp_fused_l2_kernel`` for l = 2): a tile's rows bring
+their senders' features with their attributes instead of the block keeping
+its senders'.  ``KERNEL_IDX`` and ``KERNEL_IDX_L2`` count those launches.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import numpy as np
 import torch
 
 from . import build
-from .tensor_product import ChannelwiseTP
+from .tensor_product import ChannelwiseTP, gather_senders
 from .wigner import wigner_3j
 
 K_PAD = 4         # output lanes per channel where every irrep has l <= 1
@@ -64,6 +72,50 @@ class _Kernel:
 
 KERNEL = _Kernel()      # tp_fused_kernel, the 4-lane product
 KERNEL_L2 = _Kernel()   # tp_fused_l2_kernel, the 8-lane product
+KERNEL_IDX = _Kernel()      # tp_fused_kernel<T, NC, true>: the sender-index mode (l <= 1)
+KERNEL_IDX_L2 = _Kernel()   # tp_fused_l2_kernel in the sender-index mode (l = 2)
+
+
+def counter(dense: _Kernel, dense_l2: _Kernel, idx: _Kernel, idx_l2: _Kernel,
+            sender_index: Optional[torch.Tensor], l2: bool) -> _Kernel:
+    """The counter of the kernel a launch ran: by its mode (a sender index or
+    none) and its lanes (``l2``: 8)."""
+    if sender_index is None:
+        return dense_l2 if l2 else dense
+    return idx_l2 if l2 else idx
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def check_index(sender_index: torch.Tensor, shape: Tuple[int, int, int], device,
+                what: str) -> None:
+    """Raises unless ``sender_index`` is a contiguous int32 (B, N, K) tensor
+    on ``device``: what the kernels' sender-index mode reads.  Its values
+    must lie in [0, M_x) (not checked: that would wait for the card)."""
+    if sender_index.dtype != torch.int32 or tuple(sender_index.shape) != tuple(shape):
+        raise ValueError(f"{what}: sender_index must be int32 {tuple(shape)}, got "
+                         f"{sender_index.dtype} {tuple(sender_index.shape)}")
+    if sender_index.device != device or not sender_index.is_contiguous():
+        raise ValueError(f"{what}: sender_index must be contiguous on {device}")
+
+
+def sender_lists(sender_index: torch.Tensor, m_x: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of a sender index (B, N, K): ``order`` (B * N * K,) int32,
+    the flat slots (b * N + n) * K + k sorted by their sender row b * m_x +
+    sender_index[b, n, k] (a stable sort: ascending slots within a sender),
+    and ``ptr`` (B * m_x + 1,) int32, each sender row's extent in
+    ``order``.  The backward kernels add a sender's slots in this fixed
+    order, so the sum needs no atomics and reruns agree to the bit."""
+    B = sender_index.shape[0]
+    rows = (sender_index.long()
+            + m_x * torch.arange(B, device=sender_index.device)[:, None, None]).reshape(-1)
+    order = torch.sort(rows, stable=True).indices.to(torch.int32)
+    ptr = torch.zeros(B * m_x + 1, dtype=torch.int64, device=rows.device)
+    ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=B * m_x), 0)
+    return order, ptr.to(torch.int32)
 
 
 def _check_tp(tp: ChannelwiseTP) -> None:
@@ -121,20 +173,23 @@ def tp_aggregate_fused_plain(
     masks: Sequence[torch.Tensor],
     w1: torch.Tensor, b1: torch.Tensor,
     w2: torch.Tensor, b2: torch.Tensor,
+    sender_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: all arithmetic in f32 for f32
     inputs; for bf16 inputs (x, sh and attrs) the JAX package's bf16
     convolution, :func:`edge_weights` in bf16 and ``tp.aggregate``.
 
     x (B, M, D_in); sh (B, N, M, S); attrs C x (B, N, M, E);
-    masks C x (B, N, M); w1 (E, H), b1 (H,), w2 (H, F), b2 (F,).
-    Returns (B, N, F, lanes(tp)) f32.
+    masks C x (B, N, M); w1 (E, H), b1 (H,), w2 (H, F), b2 (F,).  With
+    ``sender_index`` (B, N, K) the edge tensors' M is K and x is (B, M_x,
+    D_in), slot k of receiver n reading sender row ``sender_index[b, n,
+    k]``.  Returns (B, N, F, lanes(tp)) f32.
     """
     k_pad = lanes(tp)
     f32 = torch.float32
     if x.dtype == torch.bfloat16:
         w = edge_weights(attrs, masks, w1, b1, w2, b2, torch.bfloat16)
-        return padded_from_blocks(tp, tp.aggregate(x, sh, w))
+        return padded_from_blocks(tp, tp.aggregate(x, sh, w, sender_index))
     x, sh = x.to(f32), sh.to(f32)
     hsum, msum = 0.0, 0.0
     for a, m in zip(attrs, masks):
@@ -152,12 +207,15 @@ def tp_aggregate_fused_plain(
         xb = x[..., in_slices[p.i_in]].reshape(x.shape[:2] + (p.mul_in, d1))
         cg = torch.as_tensor(p.alpha * wigner_3j(p.l_in, p.l_sh, p.l_out), dtype=f32,
                              device=x.device)
-        z = torch.einsum("bmui,ijk->bmujk", xb, cg)          # node-level
+        z = torch.einsum("bmui,ijk->bmujk", xb, cg)          # node-level (f32)
+        m = "bm"
+        if sender_index is not None:
+            z, m = gather_senders(z, sender_index), "bnm"    # (B, N, K, u, j, k)
         wb = w[..., p.w_slice[0]:p.w_slice[1]]               # (B, N, M, u)
         acc = 0.0
         for j in range(d2):
             ws = wb * sh[..., sh_slices[p.i_sh].start + j, None]
-            acc = acc + torch.einsum("bnmu,bmuk->bnuk", ws, z[:, :, :, j, :])
+            acc = acc + torch.einsum(f"bnmu,{m}uk->bnuk", ws, z[..., j, :])
         out[:, :, p.w_slice[0]:p.w_slice[1], :d3] = acc
     return out
 
@@ -256,9 +314,9 @@ def plan_senders(B: int, N: int, M: int, tile_n: int = TILE_N,
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_fused.argtypes = [p] * 14 + [i] * 13 + [p]
+    lib.dp_tp_fused.argtypes = [p] * 15 + [i] * 14 + [p]
     lib.dp_tp_fused.restype = i
-    lib.dp_tp_fused_l2.argtypes = [p] * 15 + [i] * 14 + [p]
+    lib.dp_tp_fused_l2.argtypes = [p] * 16 + [i] * 15 + [p]
     lib.dp_tp_fused_l2.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -273,21 +331,25 @@ def tp_aggregate_fused(
     masks: Sequence[torch.Tensor],
     w1: torch.Tensor, b1: torch.Tensor,
     w2: torch.Tensor, b2: torch.Tensor,
+    sender_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused edge MLP + aggregate -> (B, N, F, 4) f32.
+    """Fused edge MLP + aggregate -> (B, N, F, lanes(tp)) f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.  x, sh and attrs share one dtype, f32 or bf16 (then the kernel
     rounds where :func:`tp_aggregate_fused_plain` does); the MLP parameters
-    are f32; masks are all bool or all f32 and are read as they come.  A launch is the main kernel and, when the senders are split across
+    are f32; masks are all bool or all f32 and are read as they come.  A
+    launch is the main kernel and, when the senders are split across
     blocks (:func:`plan_senders`), a second one that adds the splits' partial
     sums in order; it counts once.  The kernel has no
     backward: with grad mode on and an input that requires grad it raises
     (training goes through ``ops.tp_aggregate``); the plain version on CPU
-    tensors stays differentiable.
+    tensors stays differentiable.  ``sender_index`` (B, N, K) int32: the
+    sender-index mode (module note), x (B, M_x, D) and the edge tensors'
+    M = K.
     """
     if x.device.type == "cpu":
-        return tp_aggregate_fused_plain(tp, x, sh, attrs, masks, w1, b1, w2, b2)
+        return tp_aggregate_fused_plain(tp, x, sh, attrs, masks, w1, b1, w2, b2, sender_index)
     if x.device.type != "cuda":
         raise ValueError(f"tp_aggregate_fused: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(
@@ -306,7 +368,8 @@ def tp_aggregate_fused(
         raise TypeError(f"tp_aggregate_fused: inputs must be f32 or bf16, got {dt}")
     if C not in (1, 2) or len(masks) != C:
         raise ValueError("tp_aggregate_fused: one or two edge channels")
-    if tuple(x.shape) != (B, M, tp.irreps_in.dim) or S != tp.irreps_sh.dim:
+    m_x = M if sender_index is None else x.shape[1]
+    if tuple(x.shape) != (B, m_x, tp.irreps_in.dim) or S != tp.irreps_sh.dim:
         raise ValueError(f"tp_aggregate_fused: x {tuple(x.shape)} / sh {tuple(sh.shape)} "
                          f"do not match {tp.irreps_in!r} x {tp.irreps_sh!r}")
     for t in list(attrs) + list(masks) + [x, sh, w1, b1, w2, b2]:
@@ -329,8 +392,10 @@ def tp_aggregate_fused(
         raise ValueError("tp_aggregate_fused: edge-MLP parameter shapes")
     if any(t.dtype != torch.float32 for t in (w1, b1, w2, b2)):
         raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
+    if sender_index is not None:
+        check_index(sender_index, (B, N, M), dev, "tp_aggregate_fused")
     if lanes(tp) == K_PAD_L2:
-        return _launch_l2(tp, x, sh, attrs, masks, w1, b1, w2, b2)
+        return _launch_l2(tp, x, sh, attrs, masks, w1, b1, w2, b2, sender_index)
     if E % 4 or H % 4 or H > min(E, MAX_H) or F > MAX_F or len(tp.paths) > MAX_PATHS:
         raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
                          f"H <= min(E, {MAX_H}), F = {F} <= {MAX_F}, at most {MAX_PATHS} paths")
@@ -346,22 +411,24 @@ def tp_aggregate_fused(
     rc = lib.dp_tp_fused(
         x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attrs[-1].data_ptr(),
         masks[0].data_ptr(), masks[-1].data_ptr(),
+        _ptr(sender_index),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
-        gtab.data_ptr(), out.data_ptr(), part.data_ptr() if splits > 1 else None,
-        B, N, M, D, S, C, E, H, F, gtab.shape[0], per_block,
+        gtab.data_ptr(), out.data_ptr(), _ptr(part),
+        B, N, M, x.shape[1], D, S, C, E, H, F, gtab.shape[0], per_block,
         int(masks[0].dtype == torch.float32), int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused launch failed: {lib.dp_cuda_error_string(rc).decode()}")
-    KERNEL.launches += 1
+    counter(KERNEL, KERNEL_L2, KERNEL_IDX, KERNEL_IDX_L2, sender_index, False).launches += 1
     return out
 
 
 def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
-               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
-               ) -> torch.Tensor:
-    """The 8-lane kernel on inputs :func:`tp_aggregate_fused` has checked."""
+               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+               sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``tp_fused_l2_kernel`` on inputs :func:`tp_aggregate_fused` has
+    checked: the 8-lane product, dense or in the sender-index mode."""
     dev = x.device
     B, N, M, S = sh.shape
     E, H = w1.shape
@@ -380,15 +447,16 @@ def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     rc = lib.dp_tp_fused_l2(
         x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attrs[-1].data_ptr(),
         masks[0].data_ptr(), masks[-1].data_ptr(),
+        _ptr(sender_index),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
         ptab.data_ptr(), gtab.data_ptr(), out.data_ptr(),
-        part.data_ptr() if splits > 1 else None,
-        B, N, M, x.shape[-1], S, len(attrs), E, H, F, gtab.shape[0], t_size, per_block,
-        int(masks[0].dtype == torch.float32), int(x.dtype == torch.bfloat16),
+        _ptr(part),
+        B, N, M, x.shape[1], x.shape[-1], S, len(attrs), E, H, F, gtab.shape[0], t_size,
+        per_block, int(masks[0].dtype == torch.float32), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused_l2 launch failed: {lib.dp_cuda_error_string(rc).decode()}")
-    KERNEL_L2.launches += 1
+    counter(KERNEL, KERNEL_L2, KERNEL_IDX, KERNEL_IDX_L2, sender_index, True).launches += 1
     return out
 
 

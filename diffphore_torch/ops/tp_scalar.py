@@ -31,6 +31,14 @@ reads harmonic components 4-8) runs the kernels' 8-lane instantiations
 (``L = 2``: five sums a channel, the upstream gradient and the output
 (B, N, F, 8), the edge backward reading all nine components), counted by
 ``FWD_L2``, ``BWD_EDGE_L2`` and ``BWD_X_L2``.
+
+Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
+int32, x is (B, M_x, D), sh and w (B, N, K, .) and slot k of receiver n
+reads the sender row ``x[b, sender_index[b, n, k]]``.  The forward and the
+edge backward (dw only; the mode refuses dsh) read x at the index; dx walks
+each sender's slots in the order of :func:`tp_fused.sender_lists`, one
+split.  The same kernels, a template flag apart, at both lane counts;
+``FWD_IDX``, ``BWD_EDGE_IDX``, ``BWD_X_IDX`` (and ``*_IDX_L2``) count them.
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ import torch
 import torch.nn.functional as Fn
 
 from . import build
-from .tensor_product import ChannelwiseTP
-from .tp_fused import K_PAD_L2, _check_tp, _Kernel, coupling, lanes
+from .tensor_product import ChannelwiseTP, gather_senders
+from .tp_fused import (K_PAD_L2, _check_tp, _Kernel, _ptr, check_index, counter, coupling,
+                       lanes, sender_lists)
 from .wigner import wigner_3j
 
 FWD = _Kernel()       # tp_scalar_fwd_kernel (+ tp_scalar_sum_splits), one per convolution
@@ -54,6 +63,12 @@ BWD_X = _Kernel()     # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per
 FWD_L2 = _Kernel()       # the same kernels' 8-lane instantiations (l = 2)
 BWD_EDGE_L2 = _Kernel()
 BWD_X_L2 = _Kernel()
+FWD_IDX = _Kernel()       # the sender-index mode (l <= 1)
+BWD_EDGE_IDX = _Kernel()
+BWD_X_IDX = _Kernel()
+FWD_IDX_L2 = _Kernel()    # the sender-index mode at l = 2
+BWD_EDGE_IDX_L2 = _Kernel()
+BWD_X_IDX_L2 = _Kernel()
 
 THREADS = 256        # threads of a forward or dx block: KEEP = THREADS // F entries kept
 EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
@@ -74,10 +89,11 @@ def path_scale(p, dtype: torch.dtype = torch.float32) -> float:
 def scalar_path_aggregate_plain(x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                                 scale: float = 1.0) -> torch.Tensor:
     """One path in plain PyTorch -> (B, N, U, K) f32: ``scale * sum_m x sh
-    w`` of the operands read in f32.  Differentiable by autograd in x, sh
-    and w."""
+    w`` of the operands read in f32; x (B, M, U), or (B, N, M, U) senders
+    gathered per receiver.  Differentiable by autograd in x, sh and w."""
     f32 = torch.float32
-    out = torch.einsum("bmu,bnmk,bnmu->bnuk", x.to(f32), sh.to(f32), w.to(f32))
+    m = "bnm" if x.dim() == sh.dim() else "bm"
+    out = torch.einsum(f"{m}u,bnmk,bnmu->bnuk", x.to(f32), sh.to(f32), w.to(f32))
     return out if scale == 1.0 else scale * out
 
 
@@ -110,14 +126,18 @@ def _check_paths(tp: ChannelwiseTP) -> None:
 
 
 def scalar_paths_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                                 w: torch.Tensor) -> torch.Tensor:
+                                 w: torch.Tensor, sender_index: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """:func:`scalar_paths_aggregate` in plain PyTorch: the einsum of every
     path on the operands read in f32, times its :func:`path_scale` for their
-    type, packed into (B, N, F, lanes(tp))."""
+    type, packed into (B, N, F, lanes(tp)).  ``sender_index``: x gathered
+    per receiver first (the sender-index mode)."""
     _check_paths(tp)
     k_pad = lanes(tp)
     dtype = x.dtype
     x, sh, w = x.float(), sh.float(), w.float()
+    if sender_index is not None:
+        x = gather_senders(x, sender_index)      # in f32: slots' gradients add in f32
     pieces = []
     for p, (xv, shv, wv) in zip(tp.paths, path_views(tp, x, sh, w)):   # channel order
         part = scalar_path_aggregate_plain(xv, shv, wv, path_scale(p, dtype))
@@ -127,15 +147,20 @@ def scalar_paths_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.T
 
 def scalar_paths_backward_edge_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                                      w: torch.Tensor, g: torch.Tensor, need_dsh: bool,
-                                     need_dw: bool = True
+                                     need_dw: bool = True,
+                                     sender_index: Optional[torch.Tensor] = None
                                      ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """:func:`launch_backward_edge` in plain PyTorch: per path the einsums
     of dw and dsh on the operands read in f32, times its :func:`path_scale`,
     written into full-size gradients (dsh zero in the components no path
-    reads) and returned in w's and sh's type."""
+    reads) and returned in w's and sh's type.  ``sender_index``: x gathered
+    per receiver first."""
     _check_paths(tp)
     c_dtype = x.dtype
     xf, shf, wf, gf = x.float(), sh.float(), w.float(), g.float()
+    if sender_index is not None:
+        xf = gather_senders(xf, sender_index)
+    m = "bnm" if xf.dim() == shf.dim() else "bm"
     dw = torch.zeros_like(wf) if need_dw else None
     dsh = torch.zeros_like(shf) if need_dsh else None
     sh_slices = tp.irreps_sh.slices()
@@ -144,9 +169,9 @@ def scalar_paths_backward_edge_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: tor
         lo, hi = p.w_slice
         gv = gf[:, :, lo:hi, :shv.shape[-1]]
         if need_dw:
-            dw[..., lo:hi] = c * torch.einsum("bmu,bnmk,bnuk->bnmu", xv, shv, gv)
+            dw[..., lo:hi] = c * torch.einsum(f"{m}u,bnmk,bnuk->bnmu", xv, shv, gv)
         if need_dsh:
-            dsh[..., sh_slices[p.i_sh]] += c * torch.einsum("bmu,bnmu,bnuk->bnmk", xv, wv, gv)
+            dsh[..., sh_slices[p.i_sh]] += c * torch.einsum(f"{m}u,bnmu,bnuk->bnmk", xv, wv, gv)
     return (None if dw is None else dw.to(w.dtype)), (None if dsh is None else dsh.to(sh.dtype))
 
 
@@ -238,9 +263,9 @@ def _edge_blocks(need_dsh: bool, bf16: bool, device: str, l2: bool = False) -> i
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_scalar")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_scalar_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
-    lib.dp_tp_scalar_bwd_x.argtypes = [p] * 9 + [i] * 11 + [p]
-    lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.dp_tp_scalar_fwd.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.dp_tp_scalar_bwd_x.argtypes = [p] * 11 + [i] * 12 + [p]
+    lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.dp_tp_scalar_blocks_per_sm.argtypes = [i] * 5
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm.argtypes = [i] * 2
     lib.dp_tp_scalar_fwd_l2.argtypes = lib.dp_tp_scalar_fwd.argtypes
@@ -289,9 +314,11 @@ def _stream(device: torch.device) -> int:
 
 
 def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                g: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
+                g: Optional[torch.Tensor] = None,
+                sender_index: Optional[torch.Tensor] = None) -> Tuple[int, ...]:
     """(B, N, M, D, S, F) of a convolution-level launch; raises on what the
-    forward and dx kernels do not take."""
+    forward and dx kernels do not take (with ``sender_index`` (B, N, M)
+    int32, x is (B, M_x, D))."""
     _check_paths(tp)
     if sh.dim() != 4:
         raise ValueError(f"tp_scalar: sh must be (B, N, M, S), got {tuple(sh.shape)}")
@@ -299,7 +326,10 @@ def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.T
     D, F = tp.irreps_in.dim, tp.weight_numel
     if F > THREADS:
         raise ValueError(f"tp_scalar: F = {F} channels, more than a block's {THREADS} threads")
-    views = {"x": (x, (B, M, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
+    m_x = M if sender_index is None else x.shape[1]
+    if sender_index is not None:
+        check_index(sender_index, (B, N, M), x.device, "tp_scalar")
+    views = {"x": (x, (B, m_x, D)), "sh": (sh, (B, N, M, tp.irreps_sh.dim)),
              "w": (w, (B, N, M, F))}
     if g is not None:
         views["grad"] = (g, (B, N, F, lanes(tp)))
@@ -308,11 +338,11 @@ def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.T
 
 
 def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                   w: torch.Tensor) -> torch.Tensor:
+                   w: torch.Tensor, sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every path of the convolution in one forward launch -> (B, N, F, 4)
     f32 (and the sum of the sender splits' partial sums where
     :func:`launch_chunk` splits)."""
-    B, N, M, D, S, F = _check_conv(tp, x, sh, w)
+    B, N, M, D, S, F = _check_conv(tp, x, sh, w, sender_index=sender_index)
     k_pad = lanes(tp)
     l2 = k_pad == K_PAD_L2
     chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
@@ -322,34 +352,42 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
             if splits > 1 else None)
     launch = _library().dp_tp_scalar_fwd_l2 if l2 else _library().dp_tp_scalar_fwd
     rc = launch(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(), B, N, M, D, S, F, keep_of(F),
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), chan.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), _ptr(part), B, N, M, x.shape[1], D, S, F, keep_of(F),
         chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_scalar_fwd_l2" if l2 else "tp_scalar_fwd")
-    (FWD_L2 if l2 else FWD).launches += 1
+    counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index, l2).launches += 1
     return out
 
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                      g: torch.Tensor) -> torch.Tensor:
+                      g: torch.Tensor, sender_index: Optional[torch.Tensor] = None,
+                      lists: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """dx of every path in one launch, in x's type (x gives its shape and
     type only; and the sum of the receiver splits' f32 partial sums where
-    :func:`launch_chunk` splits)."""
-    B, N, M, D, S, F = _check_conv(tp, x, sh, w, g)
+    :func:`launch_chunk` splits).  The sender-index mode walks each sender's
+    slots in the order of ``lists`` (:func:`tp_fused.sender_lists` of the
+    index, built here when not given), one split."""
+    B, N, M, D, S, F = _check_conv(tp, x, sh, w, g, sender_index)
     chan, scale, d_ptr, d_item = _device_conv_tables(tp, str(x.device), x.dtype)
     dx = torch.empty_like(x)
-    chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
-    part = (torch.empty((splits, B, M, D), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    order = ptr = part = None
+    if sender_index is None:
+        chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
+        part = (torch.empty((splits, B, M, D), dtype=torch.float32, device=x.device)
+                if splits > 1 else None)
+    else:
+        order, ptr = lists if lists is not None else sender_lists(sender_index, x.shape[1])
+        chunk, splits = N, 1
     l2 = lanes(tp) == K_PAD_L2
     launch = _library().dp_tp_scalar_bwd_x_l2 if l2 else _library().dp_tp_scalar_bwd_x
     rc = launch(
         sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
-        d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(),
-        None if part is None else part.data_ptr(), B, N, M, D, S, F, d_item.shape[0],
-        keep_of(F), chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
+        d_ptr.data_ptr(), d_item.data_ptr(), _ptr(order), _ptr(ptr), dx.data_ptr(), _ptr(part),
+        B, N, M, x.shape[1], D, S, F, d_item.shape[0], keep_of(F), chunk, splits,
+        int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_scalar_bwd_x_l2" if l2 else "tp_scalar_bwd_x")
-    (BWD_X_L2 if l2 else BWD_X).launches += 1
+    counter(BWD_X, BWD_X_L2, BWD_X_IDX, BWD_X_IDX_L2, sender_index, l2).launches += 1
     return dx
 
 
@@ -366,17 +404,22 @@ def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
 
 
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                         g: torch.Tensor, need_dsh: bool, need_dw: bool = True
+                         g: torch.Tensor, need_dsh: bool, need_dw: bool = True,
+                         sender_index: Optional[torch.Tensor] = None
                          ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(dw, dsh) of every path of a convolution in one launch, in w's and
     sh's type: dw only with ``need_dw``, dsh (the full S-component row, zero
     in the components no path reads) only with ``need_dsh``.  g is the (B,
-    N, F, lanes(tp)) f32 upstream gradient."""
-    B, N, M, D, S, F = _check_conv(tp, x, sh, w, g)
+    N, F, lanes(tp)) f32 upstream gradient.  The sender-index mode computes
+    dw only and refuses ``need_dsh``."""
+    if sender_index is not None and need_dsh:
+        raise ValueError("tp_scalar: the sender-index mode computes no dsh (the KNN phore "
+                         "grid's harmonics carry no gradient)")
+    B, N, M, D, S, F = _check_conv(tp, x, sh, w, g, sender_index)
     if F > EDGE_F_MAX:
         raise ValueError(f"tp_scalar: F = {F} channels, more than the edge backward's "
                          f"{EDGE_F_MAX}")
-    if B * N * M * max(F, S) + B * M * D >= 2**31 - 1:
+    if B * N * M * max(F, S) + B * x.shape[1] * D >= 2**31 - 1:
         raise ValueError("tp_scalar: the edge backward indexes its operands with 32-bit offsets")
     l2 = lanes(tp) == K_PAD_L2
     reach, most = sh_reach(tp), (EDGE_REACH_L2 if l2 else EDGE_REACH)
@@ -391,12 +434,12 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     bf16 = x.dtype == torch.bfloat16
     launch = _library().dp_tp_scalar_bwd_edge_l2 if l2 else _library().dp_tp_scalar_bwd_edge
     rc = launch(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
-        scale.data_ptr(), None if dw is None else dw.data_ptr(),
-        None if dsh is None else dsh.data_ptr(), B, N, M, D, S, F, reach, int(x_quads(tp)),
-        _edge_blocks(need_dsh, bf16, str(x.device), l2), int(bf16), _stream(x.device))
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), g.data_ptr(),
+        chan.data_ptr(), scale.data_ptr(), _ptr(dw), _ptr(dsh), B, N, M, x.shape[1], D, S, F,
+        reach, int(x_quads(tp)), _edge_blocks(need_dsh, bf16, str(x.device), l2), int(bf16),
+        _stream(x.device))
     _raise_on(rc, "tp_scalar_bwd_edge_l2" if l2 else "tp_scalar_bwd_edge")
-    (BWD_EDGE_L2 if l2 else BWD_EDGE).launches += 1
+    counter(BWD_EDGE, BWD_EDGE_L2, BWD_EDGE_IDX, BWD_EDGE_IDX_L2, sender_index, l2).launches += 1
     return dw, dsh
 
 
@@ -408,34 +451,42 @@ class ScalarPathsAggregate(torch.autograd.Function):
     ``dw`` only when w does."""
 
     @staticmethod
-    def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor):
+    def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                sender_index: Optional[torch.Tensor] = None):
         ctx.tp = tp
+        ctx.sender_index = sender_index
+        ctx.lists = (sender_lists(sender_index, x.shape[1])
+                     if sender_index is not None and ctx.needs_input_grad[1] else None)
         ctx.save_for_backward(x, sh, w)
-        return launch_forward(tp, x, sh, w)
+        return launch_forward(tp, x, sh, w, sender_index)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
         tp = ctx.tp
         x, sh, w = ctx.saved_tensors
-        _, need_dx, need_dsh, need_dw = ctx.needs_input_grad
+        _, need_dx, need_dsh, need_dw, _ = ctx.needs_input_grad
         g = grad_out.to(torch.float32).contiguous()
-        dw, dsh = launch_backward_edge(tp, x, sh, w, g, need_dsh, need_dw)
-        dx = launch_backward_x(tp, x, sh, w, g) if need_dx else None
-        return None, dx, dsh, dw
+        idx = ctx.sender_index
+        dw, dsh = launch_backward_edge(tp, x, sh, w, g, need_dsh, need_dw, idx)
+        dx = launch_backward_x(tp, x, sh, w, g, idx, ctx.lists) if need_dx else None
+        return None, dx, dsh, dw, None
 
 
 def scalar_paths_aggregate(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                           w: torch.Tensor) -> torch.Tensor:
+                           w: torch.Tensor, sender_index: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The aggregate of a convolution whose paths all have l_in = 0 -> (B, N,
     F, lanes(tp)) f32 in the layout :func:`tp_fused.blocks_from_padded` reads;
     differentiable in x, sh, w (their gradients in their own type).
 
     x (B, M, D_in); sh (B, N, M, S); w (B, N, M, F) pre-masked, F <= 256;
-    all f32 or all bf16, contiguous.  CPU tensors take the plain version;
-    CUDA tensors launch the kernels or raise.
+    all f32 or all bf16, contiguous.  ``sender_index`` (B, N, K) int32: the
+    sender-index mode, x (B, M_x, D_in) and M = K (module note).  CPU
+    tensors take the plain version; CUDA tensors launch the kernels or
+    raise.
     """
     _check_paths(tp)
     if x.device.type == "cpu" and sh.device.type == "cpu" and w.device.type == "cpu":
-        return scalar_paths_aggregate_plain(tp, x, sh, w)
-    _check_conv(tp, x, sh, w)
-    return ScalarPathsAggregate.apply(tp, x, sh, w)
+        return scalar_paths_aggregate_plain(tp, x, sh, w, sender_index)
+    _check_conv(tp, x, sh, w, sender_index=sender_index)
+    return ScalarPathsAggregate.apply(tp, x, sh, w, sender_index)

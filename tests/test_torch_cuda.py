@@ -850,3 +850,194 @@ def test_tp_scalar_l2_conv_matches_plain(cuda, shape, dtype):
             assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
         else:
             assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
+
+
+# ---- the sender-index mode (the KNN phore grid, phore_knn) ----
+
+#: (B, N, K, M_x): ragged tiles, a slot split (B = 1), the serving and the
+#: training shapes at K = 24 of a 96-point phore
+INDEX_SHAPES = [(3, 37, 5, 29), (1, 96, 24, 96), (40, 96, 24, 96), (24, 96, 24, 96)]
+#: the phore convs' signatures at 4 lanes (SEQ) and at 8 (SEQ2)
+INDEX_SIGNATURES = {f"{tag}_{sig}": (seq[i], seq[i + 1], SH, 60)
+                    for tag, seq in (("l1", SEQ), ("l2", SEQ2))
+                    for i, sig in enumerate(("layer0", "layer1", "layer2"))}
+
+
+def _index_inputs(tp, cuda, B, N, K, Mx, n_chan=1, E=60, seed=0):
+    """x (B, Mx, D), a random sender index (B, N, K), edge tensors on (B, N,
+    K) with a mask that leaves whole receivers (and every slot past a live
+    count) dead, as a KNN grid's padded phore points and short rows do."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, Mx, tp.irreps_in.dim)))
+    idx = torch.from_numpy(rng.integers(0, Mx, (B, N, K)).astype(np.int32)).to(cuda)
+    sh = t(rng.normal(size=(B, N, K, tp.irreps_sh.dim)))
+    live = rng.integers(0, K + 1, (B, N, 1)) > np.arange(K)      # the first `live` slots
+    live[:, N // 2:N // 2 + 3] = False                           # padded receivers
+    masks = [torch.from_numpy(live & (rng.random((B, N, K)) > 0.2 * c)).to(cuda)
+             for c in range(n_chan)]
+    attrs = [t(rng.normal(size=(B, N, K, E))) for _ in range(n_chan)]
+    return x, idx, sh, attrs, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(INDEX_SIGNATURES))
+@pytest.mark.parametrize("shape", INDEX_SHAPES)
+def test_tp_fused_index_mode_matches_plain(cuda, sig, shape):
+    """K1's sender-index mode (tp_fused_kernel<T, NC, true> at 4 lanes,
+    tp_fused_l2_kernel at 8) against its plain version: f32 within 1e-4 of scale, bf16 within 3e-2;
+    two runs bit-equal; one launch each on the index counter of its lanes;
+    dead receivers all zero."""
+    irr_in, irr_out, irr_sh, E = INDEX_SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    k_pad = tp_fused.lanes(tp)
+    counter = tp_fused.KERNEL_IDX if k_pad == 4 else tp_fused.KERNEL_IDX_L2
+    x, idx, sh, attrs, masks = _index_inputs(tp, cuda, *shape)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    F = tp.weight_numel
+    params = (t(rng.normal(size=(E, E)) * 0.2), t(rng.normal(size=(E,)) * 0.1),
+              t(rng.normal(size=(E, F)) * 0.2), t(rng.normal(size=(F,)) * 0.1))
+    bf = torch.bfloat16
+    for low in (False, True):
+        ops = (x.to(bf), sh.to(bf), [a.to(bf) for a in attrs]) if low else (x, sh, attrs)
+        ref = tp_fused.tp_aggregate_fused_plain(tp, *ops, masks, *params, sender_index=idx)
+        before = (counter.launches, tp_fused.KERNEL.launches, tp_fused.KERNEL_L2.launches)
+        got = tp_fused.tp_aggregate_fused(tp, *ops, masks, *params, sender_index=idx)
+        again = tp_fused.tp_aggregate_fused(tp, *ops, masks, *params, sender_index=idx)
+        torch.cuda.synchronize()
+        assert (counter.launches, tp_fused.KERNEL.launches, tp_fused.KERNEL_L2.launches) == (
+            before[0] + 2, before[1], before[2])
+        assert torch.equal(got, again) and got.shape == (x.shape[0], shape[1], F, k_pad)
+        tol = 3e-2 if low else 1e-4
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+        dead = ~masks[0].any(-1)
+        assert float(got[dead].abs().max()) == 0.0
+
+
+def _index_k2_leaves(tp, cuda, shape, dt):
+    x, idx, sh, _, masks = _index_inputs(tp, cuda, *shape)
+    B, N, K, _ = shape
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.normal(size=(B, N, K, tp.weight_numel))).astype(np.float32))
+    w = (w.to(cuda) * masks[0][..., None]).to(dt)
+    g = torch.from_numpy(rng.normal(size=(B, N, tp.weight_numel, tp_fused.lanes(tp)))
+                         .astype(np.float32)).to(cuda)
+    return x.to(dt), idx, sh.to(dt), w, g
+
+
+def _assert_grads(names, gots, wants, dt):
+    for name, got, want in zip(names, gots, wants):
+        assert got.dtype == dt, name
+        if dt == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        else:
+            assert bool(((got.float() - want).abs() <= _bf16_step(want)).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", [s for s in INDEX_SIGNATURES if not s.endswith("layer0")])
+@pytest.mark.parametrize("shape", INDEX_SHAPES[::2] + [(2, 1, 24, 17)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_index_mode_matches_plain(cuda, sig, shape, dtype):
+    """K2's sender-index mode (forward, edge backward, dx by the inverse
+    lists) against autograd through the plain version on gathered senders:
+    f32 within 1e-4 of scale; bf16 outputs within 1e-5 and gradients within
+    one bf16 rounding step; reruns bit-equal; one launch each on the index
+    counters of its lanes, none on the dense ones; dsh refused."""
+    irr_in, irr_out, irr_sh, _ = INDEX_SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, idx, sh, w, g = _index_k2_leaves(tp, cuda, shape, dt)
+    l2 = tp_fused.lanes(tp) == 8
+    counters = ((tp_aggregate.FWD_IDX_L2, tp_aggregate.BWD_EDGE_IDX_L2, tp_aggregate.BWD_X_IDX_L2)
+                if l2 else (tp_aggregate.FWD_IDX, tp_aggregate.BWD_EDGE_IDX,
+                            tp_aggregate.BWD_X_IDX))
+    dense = (tp_aggregate.FWD, tp_aggregate.BWD_EDGE, tp_aggregate.BWD_X, tp_aggregate.FWD_L2,
+             tp_aggregate.BWD_EDGE_L2, tp_aggregate.BWD_X_L2)
+    leaves = [v.float().requires_grad_(True) for v in (x, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, leaves[0].to(dt), sh, leaves[1].to(dt),
+                                          sender_index=idx)
+    ref_dx, ref_dw = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    runs = []
+    for _ in range(2):
+        before = [k.launches for k in counters + dense]
+        out = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx)
+        dw, none = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, False, sender_index=idx)
+        dx = tp_aggregate.launch_backward_x(tp, x, sh, w, g, sender_index=idx)
+        assert none is None
+        assert [k.launches - b for k, b in zip(counters + dense, before)] == [1, 1, 1] + [0] * 6
+        runs.append((out, dx, dw))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dx, dw = runs[0]
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    ref = ref.detach()
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    _assert_grads(("dx", "dw"), (dx, dw), (ref_dx, ref_dw), dt)
+    with pytest.raises(ValueError, match="computes no dsh"):
+        tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True, sender_index=idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("shape", INDEX_SHAPES + [(2, 1, 24, 17)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_index_mode_matches_plain(cuda, l2, shape, dtype):
+    """K3's sender-index mode on the layer-0 phore conv (20x0e in): forward,
+    edge backward (dw) and dx by the inverse lists against autograd through
+    the plain version, tolerances as K2's; reruns bit-equal; one launch each
+    on the index counters of its lanes; dsh refused."""
+    tp = channelwise_tp(SEQ2[0] if l2 else SEQ[0], SH, SEQ2[1] if l2 else SEQ[1])
+    assert tp_scalar.all_scalar_paths(tp)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, idx, sh, w, g = _index_k2_leaves(tp, cuda, shape, dt)
+    counters = ((tp_scalar.FWD_IDX_L2, tp_scalar.BWD_EDGE_IDX_L2, tp_scalar.BWD_X_IDX_L2) if l2
+                else (tp_scalar.FWD_IDX, tp_scalar.BWD_EDGE_IDX, tp_scalar.BWD_X_IDX))
+    leaves = [v.float().requires_grad_(True) for v in (x, w)]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, leaves[0].to(dt), sh, leaves[1].to(dt),
+                                                 sender_index=idx)
+    ref_dx, ref_dw = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    runs = []
+    for _ in range(2):
+        before = [k.launches for k in counters]
+        out = tp_scalar.launch_forward(tp, x, sh, w, sender_index=idx)
+        dw, none = tp_scalar.launch_backward_edge(tp, x, sh, w, g, False, sender_index=idx)
+        dx = tp_scalar.launch_backward_x(tp, x, sh, w, g, sender_index=idx)
+        assert none is None
+        assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1]
+        runs.append((out, dx, dw))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dx, dw = runs[0]
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    ref = ref.detach()
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    _assert_grads(("dx", "dw"), (dx, dw), (ref_dx, ref_dw), dt)
+    with pytest.raises(ValueError, match="computes no dsh"):
+        tp_scalar.launch_backward_edge(tp, x, sh, w, g, True, sender_index=idx)
+
+
+@pytest.mark.cuda
+def test_index_mode_under_autograd_launches_the_index_kernels(cuda):
+    """tp_aggregate and scalar_paths_aggregate with a sender index under
+    autograd: one launch of each index-mode kernel, none of the dense ones;
+    the gradients equal the direct launches'."""
+    for tp, fn, mod in ((channelwise_tp(SEQ[1], SH, SEQ[2]), tp_aggregate.tp_aggregate,
+                         tp_aggregate),
+                        (channelwise_tp(SEQ[0], SH, SEQ[1]), tp_scalar.scalar_paths_aggregate,
+                         tp_scalar)):
+        x, idx, sh, w, g = _index_k2_leaves(tp, cuda, (3, 37, 5, 29), torch.float32)
+        idx_k = (mod.FWD_IDX, mod.BWD_EDGE_IDX, mod.BWD_X_IDX)
+        dense = (mod.FWD, mod.BWD_EDGE, mod.BWD_X, mod.FWD_L2, mod.BWD_EDGE_L2, mod.BWD_X_L2)
+        before = [k.launches for k in idx_k + dense]
+        leaves = [v.clone().requires_grad_(True) for v in (x, w)]
+        out = fn(tp, leaves[0], sh, leaves[1], sender_index=idx)
+        gx, gw = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(idx_k + dense, before)] == [1, 1, 1] + [0] * 6
+        assert torch.equal(gx, mod.launch_backward_x(tp, x, sh, w, g, sender_index=idx))
+        assert torch.equal(gw, mod.launch_backward_edge(tp, x, sh, w, g, False,
+                                                        sender_index=idx)[0])

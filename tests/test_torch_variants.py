@@ -9,8 +9,8 @@ single conv or product); gradients leaf by leaf within 1e-4 of the leaf's
 scale plus 5e-6 of the largest (the two transition MLPs that only rescale
 the cross-graph edge vector hold rounding noise on both sides); at bf16
 within a quarter of JAX's own f32-vs-bf16 difference.  Also: the committed
-Fourier table against JAX's draws, checkpoints in both directions, and the
-refused options."""
+Fourier table against JAX's draws, checkpoints in both directions, and a
+KNN-grid model's train step."""
 
 import dataclasses
 import importlib.util
@@ -385,11 +385,19 @@ def test_fully_connected_checkpoint_keeps_its_fc_and_old_channelwise_migrate():
         checkpoints.convert_variables(old, conv))
 
 
-@pytest.mark.parametrize("flag", ["phore_knn"])
-def test_unported_encoder_options_raise_naming_the_next_slice(flag):
-    _, tcfg = configs(**{**SMALL, flag: 8})
-    with pytest.raises(NotImplementedError, match="next slice of the port .the KNN phore grid"):
-        ScoreModel(tcfg)
+def test_knn_model_builds_and_trains_one_step():
+    """phore_knn (the KNN phore grid, once refused) builds, and takes one
+    finite train step on the CPU that moves the parameters."""
+    from diffphore_torch.train.state import create_train_state, make_train_step
+
+    _, tcfg = configs(**{**SMALL, "phore_knn": 8})
+    state = create_train_state(tcfg, seed=0, device="cpu")
+    batch = load_pair_batch(cached_files(n=2))[1]
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    state, metrics = make_train_step(tcfg)(state, batch, torch.Generator().manual_seed(0))
+    assert float(metrics["grad_finite"]) == 1.0 and np.isfinite(float(metrics["loss"]))
+    after = state.model.state_dict()
+    assert any(not torch.equal(before[k], after[k]) for k in before)
 
 
 def test_second_order_model_builds_and_trains_one_step():
