@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --second_order_only   # phases 1, 2 and 16 (~2 min)
     python3 chip_smoke.py --knn_only            # phases 1, 2 and 17
+    python3 chip_smoke.py --host_modules_only   # phases 1, 2 and 18
 
 Phases, each fatal on failure:
   1. card: require CUDA; print the card's name and power limit; full-f32
@@ -186,7 +187,33 @@ Phases, each fatal on failure:
      wall, busy time and peak memory; the 8-lane model's dispatch (K1 400 +
      60) and train step (K2 15 + 2, K3 5 + 1 at 8 lanes).  Every earlier
      phase holds the sender-index counts at 0.
-  14. report: the kernels' JSON line (each kernel's launches per path, and
+  18. the host-only modules (run before the report): (a) ``python -m
+     diffphore_torch.data.synth_library --n 24``: 24 distinct rows, each
+     parsed and embedded to finite coordinates, host ms per ligand; (b) the
+     corpus2 recipe's phase A on it (``cli.train.main --ligand_only``, the
+     recipe's bucket flags, batch 24, one epoch, 4 featurization processes,
+     runs/corpus2/val6.csv, corpus2 width at bf16): every row featurized (the
+     few past the bucket caps skipped, as the recipe skips them), K2 17 x 3
+     and K3 6 x 3 a step and K1 23 a validation batch, exactly, finite
+     losses, a checkpoint that reloads, a step's wall, busy time and peak
+     memory; (c) the AncPhore CLI compiled by ``utils/ancphore_bridge`` into
+     build/ancphore (timed; native/ byte for byte unchanged), the three SDF
+     rows of examples/task.csv through ``cli.inference.main`` (K1 exactly 3 x
+     460), each complex's 40 ranked poses scored by the CLI
+     (``calc_phore_fitting``, return_all, fitness 1-6, custom coefficients)
+     and by ``ops.fitscore`` on the card, written as a .score file: V_ref,
+     V_overlap, match %, V_exOverlap, anchor %, ov_pct, ex_pct and PhScore1-4
+     (raw and calibrated) within one unit of the sixth significant digit
+     where the two perceive the same ligand features (equal V_db: EX01 and
+     EX02), column -6 under custom coefficients against the repaired
+     ``fitscore``; V_db and the fishing score, and EX03 (the CLI perceives
+     its features otherwise), reported; (d) the baseline drivers on the same
+     files (run_phore align, screen with EX01 labelled 1, fishing over two
+     copies of example.phore; performance_analyze over (c)'s ranked poses;
+     run_docking without vina and run_ifptarget without IFPTarget skipped
+     cleanly), each driver's wall.
+  14. report: the kernels' JSON line (each kernel's launches per path, phase
+     18's as ``launches_synthetic_pretrain`` and ``launches_host_modules_screen``, and
      its errors and times at the recipe's bucket; the 8-lane kernels' as
      ``*_l2`` entries, the sender-index mode's as ``*_idx`` and
      ``*_idx_l2``), the card line, and the result line.
@@ -3977,6 +4004,443 @@ def second_order_alone(card, kind):
     return 0
 
 
+# Phase 18: the host-only modules.  (a) a synthetic library made by the
+# module's CLI, (b) the corpus2 recipe's phase A (runs/corpus2/pipeline.sh:
+# the ligand-only pretrain, without augmentation) on it through
+# ``cli.train.main``, (c) the AncPhore CLI built from native/ancphore_cli by
+# the port's bridge and held against the card's scorer on the ranked poses
+# of three screened complexes, (d) the baseline drivers on the same files.
+HOST_LIBRARY = 24           # ligands of the library: one batch of the recipe
+HOST_WORKERS = 4            # featurization processes of the trainer
+HOST_SCREEN = 3             # the SDF rows of examples/task.csv
+HOST_COEFFS = {"overlap_coeff": 0.5, "percent_coeff": 0.5}
+#: the CLI clamps a negative percent or anchor coefficient to 0 (the JAX
+#: package's fitscore does not), so the card's custom fitness is asked for
+#: with the anchor coefficient the CLI applies
+HOST_CARD_COEFFS = dict(HOST_COEFFS, anchor_coeff=0.0)
+#: .score columns held to six significant digits against the CLI's, where
+#: the CLI and the port perceive the same ligand features (equal V_db)
+HOST_HELD = {6: "V_ref", 7: "V_overlap", 8: "match %", 9: "V_exOverlap", 10: "anchor %",
+             11: "ov_pct", 12: "ex_pct", 13: "PhScore1 (raw, col -6)",
+             15: "PhScore1 (calibrated)", 16: "PhScore2", 17: "PhScore3", 18: "PhScore4"}
+#: columns reported, not held: the CLI's perception of EX03 differs
+HOST_REPORTED = {5: "V_db", 14: "fishing"}
+
+
+#: embeds each row of a library CSV (argv[1]) in 3D and prints, as JSON,
+#: whether each came out finite
+HOST_EMBED_CHECK = """
+import csv, json, sys
+import numpy as np
+from diffphore_torch.chem.embed import embed_molecule
+from diffphore_torch.chem.smiles import mol_from_smiles
+finite = []
+with open(sys.argv[1], newline="") as f:
+    for i, row in enumerate(csv.DictReader(f)):
+        mol = mol_from_smiles(row["ligand_description"])
+        embed_molecule(mol, seed=i)
+        finite.append(bool(np.isfinite(mol.coords).all()))
+print(json.dumps(finite))
+"""
+
+
+def sixth_digit_gap(got, want, floor):
+    """|got - want| in units of the sixth significant digit of the larger of
+    |got|, |want| and ``floor``, a tenth of the quantity's natural scale: a
+    value far below its scale (a pose's overlap with a distant sphere, a
+    difference of two near-equal terms) is judged at the scale's precision,
+    which an f32 sum of double-precision terms can keep, not at its own."""
+    import math
+
+    m = max(abs(got), abs(want), floor)
+    return round(abs(got - want) / 10 ** (math.floor(math.log10(m)) - 5), 6) if m > 0 else 0.0
+
+
+def score_table(path):
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f]
+
+
+def column_gaps(card_rows, cli_rows, columns):
+    """{column: the largest sixth-digit gap over the rows}.  Natural scales:
+    the reference volume V_ref for V_db, V_ref and V_overlap, the exclusion
+    cutoff (500) for V_exOverlap, 1 for the fractions and scores."""
+    out = {}
+    for col in columns:
+        for a, b in zip(card_rows, cli_rows):
+            scale = {5: float(b[6]), 6: float(b[6]), 7: float(b[6]), 9: 500.0}.get(col, 1.0)
+            gap = sixth_digit_gap(float(a[col]), float(b[col]), 0.1 * scale)
+            out[col] = max(out.get(col, 0.0), gap)
+    return out
+
+
+def phase_host_modules(card, device="cuda", poses=POSES, steps=STEPS, config_overrides=None):
+    """(a) ``python -m diffphore_torch.data.synth_library``: HOST_LIBRARY
+    distinct rows, each parsed and embedded to finite coordinates; (b)
+    ``cli.train.main --ligand_only`` on it in the corpus2 recipe's phase A
+    (its bucket flags, batch 24, one epoch, HOST_WORKERS processes,
+    runs/corpus2/val6.csv): every row featurized, K2 17 x 3 and K3 6 x 3 a
+    step and K1 23 a validation batch, exactly, finite losses, a checkpoint
+    that reloads, a step's wall, busy time and peak memory; (c) the AncPhore
+    CLI built by ``utils/ancphore_bridge.ensure_built`` into build/ancphore
+    (native/ untouched), ``cli.inference.main`` on the SDF rows of
+    examples/task.csv (K1 exactly HOST_SCREEN x 460), each complex's ranked
+    poses scored by the CLI (``calc_phore_fitting``: return_all, fitness 1-6,
+    custom coefficients) and by ``ops.fitscore`` on the card, written as a
+    .score file, the columns HOST_HELD within one unit of the sixth
+    significant digit where the two perceive the same features, the custom
+    column against the repaired ``fitscore``; (d) the baseline drivers on
+    the same files.  Returns the launch counts of (b) and (c).  With
+    ``device="cpu"``, small ``config_overrides`` and fewer ``poses`` and
+    ``steps`` it rehearses the phase on the CPU (no count is held)."""
+    import csv
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from diffphore_torch.baselines import performance_analyze, run_docking, run_ifptarget, \
+        run_phore
+    from diffphore_torch.chem.pharmacophore_rules import ligand_phore_features, scoring_phore_fp
+    from diffphore_torch.chem.sdf import parse_sdf
+    from diffphore_torch.chem.smiles import mol_from_smiles
+    from diffphore_torch.cli import inference as infer_cli
+    from diffphore_torch.cli import train as train_cli
+    from diffphore_torch.constants import VDW_TABLE
+    from diffphore_torch.data.featurize import load_ligand
+    from diffphore_torch.data.loaders import BucketLoader
+    from diffphore_torch.data.phore import parse_phore
+    from diffphore_torch.ops.fitscore import fitscore, make_phore_arrays
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils import ancphore_bridge, checkpoints, flat_yaml
+
+    on_card = device == "cuda"
+
+    def expect(what, **kw):
+        return expect_counts(what, **kw) if on_card else kernel_counts()
+
+    def native_digest():
+        h = hashlib.sha256()
+        root = os.path.join(HERE, "native")
+        for d, _, files in sorted(os.walk(root)):
+            for f in sorted(files):
+                with open(os.path.join(d, f), "rb") as fh:
+                    h.update(f.encode() + fh.read())
+        return h.hexdigest()
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap():
+        """s since the previous lap: each part's share of the phase."""
+        laps.append(time.perf_counter())
+        return f"[{laps[-1] - laps[-2]:.1f} s]"
+
+    counts, walls = {}, {}
+    examples = os.path.join(HERE, "examples")
+    phore_file = os.path.join(examples, "example.phore")
+    ligands = [os.path.join(examples, f"EX0{i}.sdf") for i in range(1, HOST_SCREEN + 1)]
+    native_before = native_digest()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) the library, through the module's CLI
+        lib = os.path.join(tmp, "lib.csv")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "diffphore_torch.data.synth_library", "--n",
+                        str(HOST_LIBRARY), "--seed", str(SEED), "--out", lib], check=True,
+                       cwd=HERE, capture_output=True)
+        walls["library"] = time.perf_counter() - t0
+        with open(lib, newline="") as f:
+            rows = list(csv.DictReader(f))
+        names = [r["name"] for r in rows]
+        smiles = [r["ligand_description"] for r in rows]
+        if names != [f"synth_{i:05d}" for i in range(HOST_LIBRARY)] \
+                or len(set(smiles)) != HOST_LIBRARY:
+            raise AssertionError(f"the library's rows: {rows}")
+        heavy = [mol_from_smiles(smi).num_atoms for smi in smiles]
+        print(f"host modules: synth_library CLI, {HOST_LIBRARY} distinct ligands ({min(heavy)}-"
+              f"{max(heavy)} heavy atoms) in {walls['library']:.3f} s = "
+              f"{1e3 * walls['library'] / HOST_LIBRARY:.1f} ms per ligand on the host "
+              f"(interpreter start-up included) {lap()}", flush=True)
+        # each row embedded in 3D in a process of its own, beside the trainer
+        embed_check = subprocess.Popen(
+            [sys.executable, "-c", HOST_EMBED_CHECK, lib], cwd=HERE, stdout=subprocess.PIPE,
+            text=True)
+
+        # ---- (b) the recipe's phase A on the library
+        config = flat_yaml.load(os.path.join(MODEL_DIR, "model_parameters.yml"))
+        config.update(n_epochs=1, batch_size=TRAIN_BATCH, phore_augment=0, conf_augment=0,
+                      **(config_overrides or {}))
+        yml = os.path.join(tmp, "phase_a.yml")
+        with open(yml, "w") as f:
+            f.write(flat_yaml.dumps(config))
+        run_dir, cache = os.path.join(tmp, "pretrain"), os.path.join(tmp, "cache")
+        built = []
+        original = train_cli.PhoreDataset
+
+        class Recording(original):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                built.append(self)
+
+        train_cli.PhoreDataset = Recording
+        reset_kernel_counts()
+        reset_peak(device)
+        t0 = time.perf_counter()
+        try:
+            train_cli.main(["--config", yml, "--train_csv", lib, "--val_csv",
+                            os.path.join(HERE, "runs", "corpus2", "val6.csv"), "--ligand_only",
+                            *RECIPE_BUCKET_FLAGS, "--batch_size", str(TRAIN_BATCH),
+                            "--n_epochs", "1", "--val_inference_freq", "0",
+                            "--num_dataloader_workers", str(HOST_WORKERS), "--cache_path", cache,
+                            "--run_dir", run_dir, "--seed", str(SEED), "--device", device])
+        finally:
+            train_cli.PhoreDataset = original
+        sync(device)
+        walls["pretrain"] = time.perf_counter() - t0
+        records = read_records(run_dir)
+        train_rec = [r for r in records if r.get("mode") != "val"]
+        val_rec = [r for r in records if r.get("mode") == "val"]
+        n_steps = sum(r["steps"] for r in train_rec)
+        counts["pretrain"] = expect("ligand-only cli.train.main", steps=n_steps,
+                                    eval_batches=len(val_rec))
+        train_ds, val_ds = built
+        skips = [f for f in os.listdir(train_ds.cache_dir) if f.endswith(".skip")]
+        if train_ds.featurized != HOST_LIBRARY or len(train_ds) + len(skips) != HOST_LIBRARY \
+                or not len(train_ds) or (n_steps, len(val_rec)) != (1, 1) \
+                or not all(np.isfinite(r["loss"]) and r.get("grad_finite", 1.0) == 1.0
+                           for r in train_rec) or not np.isfinite(val_rec[0]["loss"]):
+            raise AssertionError(f"featurized {train_ds.featurized} of {HOST_LIBRARY} into "
+                                 f"{len(train_ds)}, {len(val_ds)} val; records {records}")
+        run_cfg, _ = checkpoints.load_model_dir(run_dir, device=device,
+                                                checkpoint=checkpoints.LAST_MODEL)
+        if (run_cfg.ns, run_cfg.nv, run_cfg.num_conv_layers, run_cfg.compute_dtype) != (
+                config["ns"], config["nv"], config["num_conv_layers"], config["compute_dtype"]):
+            raise AssertionError(f"the reloaded checkpoint's config: {run_cfg}")
+        batch = next(iter(BucketLoader(train_ds, TRAIN_BATCH, shuffle=False)))
+        batch = batch.replace(names=(), meta=()).to(device)
+        state = create_train_state(run_cfg, seed=SEED, device=device)
+        step = make_train_step(run_cfg)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)
+        run_step = lambda: step(state, batch, gen)
+        step_ms, peak = timed_steps(run_step, 2, device)
+        busy_ms = profiled_busy_ms(run_step) if on_card else 0.0
+        del state, batch
+        reset_peak(device)
+        shape = (train_ds[0].num_atoms, train_ds[0].num_phore, train_ds[0].num_torsions)
+        print(f"host modules: cli.train.main --ligand_only on the library (recipe phase A, "
+              f"bucket {shape}, {HOST_WORKERS} featurization processes): {train_ds.featurized} "
+              f"+ {val_ds.featurized} val records featurized ({len(skips)} + "
+              f"{val_ds.featurized - len(val_ds)} past the bucket caps, skipped as the recipe "
+              f"skips them), {n_steps} step, losses "
+              + " ".join(f"{r['loss']:.4f}" for r in train_rec) + f", val {val_rec[0]['loss']:.4f}"
+              + f", {walls['pretrain']:.3f} s (featurization included); launches "
+              f"{nonzero(counts['pretrain'])}; checkpoint reloaded; a {run_cfg.compute_dtype} "
+              f"step of {TRAIN_BATCH}: wall {step_ms:.1f} ms, busy "
+              + (f"{busy_ms:.2f} ms" if busy_ms else "not measured")
+              + f", peak memory {peak:.3f} GiB ({card}) {lap()}", flush=True)
+
+        out_check, _ = embed_check.communicate()
+        finite = json.loads(out_check)
+        if embed_check.returncode != 0 or finite != [True] * HOST_LIBRARY:
+            raise AssertionError(f"the library's rows embed to finite coordinates: {finite}")
+        print(f"host modules: each of the {HOST_LIBRARY} rows parsed and embedded to finite "
+              f"coordinates {lap()}", flush=True)
+
+        # ---- (c) the CLI built by the bridge, against the card's scorer
+        build_dir = os.path.join(HERE, "build", "ancphore")
+        fresh = not os.path.exists(ancphore_bridge.binary_path())
+        t0 = time.perf_counter()
+        binary = ancphore_bridge.ensure_built()
+        walls["build"] = time.perf_counter() - t0
+        if binary is None or os.path.dirname(binary) != build_dir:
+            raise AssertionError(f"the AncPhore CLI did not build into {build_dir}: {binary}")
+        task = os.path.join(tmp, "task.csv")
+        with open(os.path.join(examples, "task.csv")) as f:
+            task_rows = [dict(r, ligand_description=os.path.join(HERE, r["ligand_description"]),
+                              phore=os.path.join(HERE, r["phore"])) for r in csv.DictReader(f)]
+        with open(task, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["name", "ligand_description", "phore"])
+            w.writeheader()
+            w.writerows(task_rows)
+        out = os.path.join(tmp, "screen")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        infer_cli.main(["--phore_ligand_csv", task, "--model_dir", MODEL_DIR, "--out_dir", out,
+                        "--sample_per_complex", str(poses), "--inference_steps", str(steps),
+                        "--device", device, "--prefetch_workers", "0"])
+        sync(device)
+        walls["screen"] = time.perf_counter() - t0
+        counts["screen"] = expect("cli.inference.main on examples/task.csv",
+                                  k1=HOST_SCREEN * CONVS_PER_FORWARD * steps if on_card else 0)
+        ref = make_phore_arrays(parse_phore(phore_file)[0]).to(device)
+        gaps, reported, held, custom_gap, t_cli = {}, {}, [], 0.0, 0.0
+        for rec in task_rows:
+            name = infer_cli.complex_name(rec)
+            ranked = os.path.join(out, "ranked_poses", f"{name}_ranked.sdf")
+            mols = parse_sdf(ranked)
+            mol = load_ligand(rec["ligand_description"])
+            n = len(mols)
+            if n != poses:
+                raise AssertionError(f"{name}: {n} ranked poses")
+            t0 = time.perf_counter()
+            cli_file = os.path.join(tmp, f"{name}.cli.score")
+            columns = ancphore_bridge.calc_phore_fitting(ranked, phore_file, cli_file,
+                                                         overwrite=True, return_all=True)
+            by_fitness = {k: ancphore_bridge.calc_phore_fitting(ranked, phore_file, cli_file,
+                                                                fitness=k)
+                          for k in range(1, 7)}
+            custom_file = os.path.join(tmp, f"{name}.custom.score")
+            custom = ancphore_bridge.calc_phore_fitting(ranked, phore_file, custom_file,
+                                                        overwrite=True, fitness=6, **HOST_COEFFS)
+            t_cli += time.perf_counter() - t0
+            cli_rows = score_table(cli_file)
+            if len(columns) != n or {len(c) for c in columns} != {5} \
+                    or any(len(v) != n for v in by_fitness.values()) or len(custom) != n \
+                    or {len(r) for r in cli_rows} != {19}:
+                raise AssertionError(f"{name}: the CLI's score file is malformed")
+            if [float(r[-6]) for r in cli_rows] != by_fitness[6] \
+                    or [c[0] for c in columns] != by_fitness[6]:
+                raise AssertionError(f"{name}: parse_score_file's columns disagree")
+            xyz = torch.tensor(np.stack([m.coords for m in mols]), dtype=torch.float32,
+                               device=device)
+            args = (xyz, torch.ones(xyz.shape[:2], dtype=torch.bool, device=device),
+                    torch.tensor(scoring_phore_fp(mol), dtype=torch.float32,
+                                 device=device).expand(n, -1, -1),
+                    torch.tensor(VDW_TABLE[[a.atomic_num - 1 for a in mol.atoms]],
+                                 device=device).expand(n, -1), ref.repeat(n))
+            count_fp = torch.tensor(ligand_phore_features(mol)[0], dtype=torch.float32,
+                                    device=device).expand(n, -1, -1)
+            sc = {k: v.cpu().numpy() for k, v in fitscore(*args, count_fp=count_fp).items()}
+            card_file = os.path.join(tmp, f"{name}.card.score")
+            infer_cli.write_score_file(card_file, name, cli_rows[0][2], sc)
+            card_rows = score_table(card_file)
+            same_features = column_gaps(card_rows, cli_rows, [5])[5] <= 1.0
+            g = column_gaps(card_rows, cli_rows, list(HOST_HELD) + list(HOST_REPORTED))
+            reported[name] = g
+            if same_features:
+                held.append(name)
+                for col in HOST_HELD:
+                    gaps[col] = max(gaps.get(col, 0.0), g[col])
+                sc_c = fitscore(*args, count_fp=count_fp, **HOST_CARD_COEFFS)["fitness"]
+                custom_gap = max(custom_gap, max(
+                    sixth_digit_gap(float(f"{a:.6g}"), b, 0.1)
+                    for a, b in zip(sc_c.cpu().numpy(), custom)))
+        print(f"host modules: AncPhore CLI built by the bridge into "
+              f"{os.path.relpath(binary, HERE)} in {walls['build']:.3f} s "
+              f"({'compiled' if fresh else 'already built'}; native/ unchanged); "
+              f"cli.inference.main on {HOST_SCREEN} SDF rows x {poses} poses x {steps} steps in "
+              f"{walls['screen']:.3f} s, launches {nonzero(counts['screen'])}; the CLI scored the "
+              f"{HOST_SCREEN} x {poses} ranked poses in {t_cli:.3f} s (8 calls a complex); the "
+              f"card's .score against the CLI's, largest gap in units of the sixth significant "
+              f"digit on {', '.join(held)}: "
+              + ", ".join(f"{HOST_HELD[c]} {v:.2f}" for c, v in sorted(gaps.items()))
+              + f"; custom column -6 ({HOST_COEFFS}) against fitscore with "
+              f"{HOST_CARD_COEFFS}: {custom_gap:.2f}; reported, not held: "
+              + "; ".join(f"{name}: " + ", ".join(f"{HOST_REPORTED.get(c, HOST_HELD.get(c))} "
+                                                  f"{v:.3g}" for c, v in g.items()
+                                                  if c in HOST_REPORTED or name not in held)
+                          for name, g in reported.items())
+              + f" ({card}) {lap()}", flush=True)
+        want_held = [infer_cli.complex_name(r) for r in task_rows[:2]]
+        if not set(want_held) <= set(held):
+            raise AssertionError(f"the CLI perceives other features than the port for "
+                                 f"{sorted(set(want_held) - set(held))}")
+        bad = {HOST_HELD[c]: v for c, v in gaps.items() if v > 1.0}
+        if bad or custom_gap > 1.0:
+            raise AssertionError(f"the card's score file against the CLI's, in units of the "
+                                 f"sixth significant digit: {bad}, custom column {custom_gap}")
+        if native_digest() != native_before:
+            raise AssertionError("native/ changed")
+
+        # ---- (d) the baseline drivers on the same files
+        base = os.path.join(tmp, "baselines")
+        label_csv = os.path.join(tmp, "screen_labels.csv")
+        with open(label_csv, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["ligand_description", "label"])
+            w.writerows([[p, int(i == 0)] for i, p in enumerate(ligands)])
+        phore_dir = os.path.join(tmp, "targets")
+        os.makedirs(phore_dir)
+        for t in ("targetA", "targetB"):
+            shutil.copy(phore_file, os.path.join(phore_dir, f"{t}.phore"))
+        truth = os.path.join(tmp, "truth")
+        os.makedirs(truth)
+        for rec, lig in zip(task_rows, ligands):
+            shutil.copy(lig, os.path.join(truth, infer_cli.complex_name(rec) + ".sdf"))
+        dock_csv = os.path.join(tmp, "dock.csv")
+        with open(dock_csv, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["name", "receptor", "ligand", "cx", "cy", "cz"])
+            w.writerows([[f"EX0{i + 1}", "receptor.pdbqt", p, 0, 0, 0]
+                         for i, p in enumerate(ligands)])
+        drivers = {
+            "run_phore align": ("align", lambda d: run_phore.main(
+                ["--task", "align", "--dataset_csv", task, "--out_dir", d])),
+            "run_phore screen": ("screen", lambda d: run_phore.main(
+                ["--task", "screen", "--dataset_csv", label_csv, "--phore", phore_file,
+                 "--out_dir", d])),
+            "run_phore fishing": ("fishing", lambda d: run_phore.main(
+                ["--task", "fishing", "--ligand", ligands[0], "--phore_dir", phore_dir,
+                 "--out_dir", d])),
+            "performance_analyze": ("table", lambda d: performance_analyze.main(
+                ["--poses_dir", os.path.join(out, "ranked_poses"), "--truth_dir", truth,
+                 "--out", os.path.join(d, "table.json")])),
+            "run_docking": ("docking", lambda d: run_docking.main(
+                ["--task", "docking", "--binary", "vina", "--dataset_csv", dock_csv,
+                 "--out_dir", d])),
+            "run_ifptarget": ("ifptarget", lambda d: run_ifptarget.main(
+                ["--ligand_dir", examples, "--out_dir", d])),
+        }
+        for label, (sub, fn) in drivers.items():
+            d = os.path.join(base, sub)
+            os.makedirs(d, exist_ok=True)
+            t0 = time.perf_counter()
+            fn(d)
+            walls[label] = time.perf_counter() - t0
+
+        def load(*parts):
+            with open(os.path.join(base, *parts)) as f:
+                return json.load(f) if parts[-1].endswith(".json") else list(csv.DictReader(f))
+
+        align = load("align", "ancphore_results.json")
+        summary = load("screen", "ancphore_screen_summary.json")
+        screen_rows_ = load("screen", "ancphore_screen_ranked.csv")
+        fishing_rows = load("fishing", "ancphore_fishing_ranked.csv")
+        table = load("table", "table.json")
+        docking = load("docking", "docking_results.json")
+        ifp = load("ifptarget", "summary.json")
+        skipped = [b for b in ("vina", "IFPTarget") if shutil.which(b) is None]
+        ranked_scores = [float(r["best_score"]) for r in screen_rows_]
+        fishing_scores = [float(r["best_score"]) for r in fishing_rows]
+        if len(align) != HOST_SCREEN or not all(np.isfinite(r["best_score"]) for r in align) \
+                or summary["n"] != HOST_SCREEN or not 0.0 <= summary["roc_auc"] <= 1.0 \
+                or ranked_scores != sorted(ranked_scores, reverse=True) \
+                or {r["label"] for r in screen_rows_} != {"0", "1"} \
+                or sorted(r["target"] for r in fishing_rows) != ["targetA", "targetB"] \
+                or fishing_scores != sorted(fishing_scores, reverse=True) \
+                or table.get("n_complexes") != HOST_SCREEN \
+                or ("vina" in skipped and docking != []) \
+                or ("IFPTarget" in skipped and ifp != {"shards": []}):
+            raise AssertionError(f"baselines: align {align}, screen {summary} {screen_rows_}, "
+                                 f"fishing {fishing_rows}, table {table}, docking {docking}, "
+                                 f"ifptarget {ifp}")
+        if native_digest() != native_before:
+            raise AssertionError("native/ changed")
+        print(f"host modules: baseline drivers on the same files ({card}): "
+              + ", ".join(f"{k} {walls[k]:.3f} s" for k in drivers)
+              + f"; screen AUC {summary['roc_auc']:.3f}, {HOST_SCREEN} complexes' top-1 RMSD "
+              f"< 2 A {table['top1_rmsd_below_2']}%; not installed, skipped cleanly: "
+              f"{', '.join(skipped) or 'none'} {lap()}", flush=True)
+    print(f"host modules: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+def nonzero(counts):
+    """The counters a run moved (every other one is 0)."""
+    return {k: n for k, n in counts.items() if n}
+
+
 def k1_entry(name, cases, launches):
     """The report entry of K1's kernel ``name``, summed over one forward's
     conv calls (``cases`` from phase_kernel_check)."""
@@ -4013,6 +4477,9 @@ def main(argv=None) -> int:
     parser.add_argument("--knn_only", action="store_true",
                         help="after the card line and the build, run phase 17 (the KNN phore "
                              "grid) alone")
+    parser.add_argument("--host_modules_only", action="store_true",
+                        help="after the card line and the build, run phase 18 (the host-only "
+                             "modules) alone")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4059,6 +4526,13 @@ def main(argv=None) -> int:
         return second_order_alone(card, kind)
     if args.knn_only:
         return knn_alone(card, kind)
+    if args.host_modules_only:
+        host = phase_host_modules(card)
+        print(json.dumps({"host_modules_launches": host}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. kernel check on the main path's conv inputs
     cfg, model = load_model_dir(MODEL_DIR, device="cuda")
@@ -4218,6 +4692,11 @@ def main(argv=None) -> int:
 
     mark("KNN phore grid")
 
+    # ---- 18. the host-only modules (ahead of the report)
+    host = phase_host_modules(card)
+
+    mark("host modules")
+
     # ---- 14. report
     kernel = k1_entry("tp_fused", cases, launches)
     kernel.update({
@@ -4234,6 +4713,8 @@ def main(argv=None) -> int:
         "launches_use_att_cli": variants["use_att_cli"]["k1"],
         "launches_use_att_training": variants["use_att_training"]["k1"],
         "launches_fourier_forward": variants["fourier"]["k1"],
+        "launches_synthetic_pretrain": host["pretrain"]["k1"],
+        "launches_host_modules_screen": host["screen"]["k1"],
         "raw_files_bucket": raw["k1"],
     })
     k2_entries = k2_kernel_entries(k2_cases, train_counts)
@@ -4250,6 +4731,8 @@ def main(argv=None) -> int:
     for prefix, entries in (("", k2_entries), ("k3_", k3_entries)):
         for entry, k in zip(entries, K3_KERNELS):
             entry["launches_use_att_training"] = variants["use_att_training"][prefix + k]
+            entry["launches_synthetic_pretrain"] = host["pretrain"][prefix + k]
+            entry["launches_host_modules_screen"] = host["screen"][prefix + k]
     for entry in [kernel] + k2_entries + k3_entries:
         entry["launches_tank_fully_connected_oracle"] = sum(
             n for path in ("tank", "fully_connected_serving", "fully_connected_training",

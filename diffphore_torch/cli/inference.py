@@ -395,12 +395,14 @@ def _desc(x: float):
     return (1, 0.0) if x != x else (0, -x)
 
 
-def _write_table(path: str, rows: List[List]) -> None:
-    """Tab-separated, minimal quoting, header first: the text pandas'
-    ``to_csv(sep="\\t", index=False)`` writes for these columns."""
+def _write_table(path: str, rows: List[List], columns: Sequence[str] = RANKED_COLUMNS,
+                 sep: str = "\t") -> None:
+    """Minimal quoting, header first, NaN as an empty cell: the text pandas'
+    ``to_csv(sep=sep, index=False)`` writes for these columns (each of one
+    type; no columns and no rows: an empty line)."""
     with open(path, "w", newline="") as f:
-        w = csv.writer(f, delimiter="\t", lineterminator="\n", quoting=csv.QUOTE_MINIMAL)
-        w.writerow(RANKED_COLUMNS)
+        w = csv.writer(f, delimiter=sep, lineterminator="\n", quoting=csv.QUOTE_MINIMAL)
+        w.writerow(columns)
         w.writerows([["" if v != v else str(v) for v in row] for row in rows])
 
 

@@ -374,14 +374,16 @@ def _column(raw: List[str]) -> List:
     return [None if v in NA_VALUES else cast(v.strip() if cast is not str else v) for v in raw]
 
 
-def records_from_csv(path: str) -> List[Dict]:
+def records_from_csv(path: str, pandas_records: bool = False) -> List[Dict]:
     """The JAX package's ``pd.read_csv(path).drop_duplicates()`` records,
     without pandas: each column typed as pandas infers it (so a column of
     integers with an empty cell gives floats, ``3.0``, which the cache key
     hashes as such), duplicate rows dropped after typing with the first kept,
     and missing cells left out of each record, so a record hashes as one from
     a CSV without that column.  A first data row longer than the header
-    gives up its leading fields as pandas' index."""
+    gives up its leading fields as pandas' index.  ``pandas_records``: the
+    rows as ``pd.read_csv(path).to_dict("records")`` gives them instead,
+    every row, a missing cell NaN."""
     with open(path, newline="", encoding="utf-8-sig") as f:
         rows = [r for r in csv.reader(f) if r]
     if not rows:
@@ -396,6 +398,9 @@ def records_from_csv(path: str) -> List[Dict]:
     records, seen = [], set()
     for i in range(len(body)):
         values = tuple(col[i] for col in columns)
+        if pandas_records:
+            records.append({k: float("nan") if v is None else v for k, v in zip(header, values)})
+            continue
         if values in seen:
             continue
         seen.add(values)

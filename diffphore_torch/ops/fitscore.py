@@ -130,14 +130,23 @@ def fitscore(
     lig_vdw: torch.Tensor,      # (B, A) van-der-Waals radii
     ref: PhoreArrays,
     exvolume_cutoff: float = 500.0,
+    overlap_coeff: float = -1.0,
+    percent_coeff: float = -1.0,
+    anchor_coeff: float = -1.0,
+    combine: str = "max",
     count_fp: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Score each pose row against its reference pharmacophore ("max"
-    combination: the best-matching ligand feature per reference feature).
+    """Score each pose row against its reference pharmacophore.
     Returns per-pose (B,) tensors: V_db, V_ref, V_overlap, match_pct,
     V_exOverlap, anchor_pct, ov_pct, ex_pct, fitness, fishing, n_matched,
     n_ref, phscore1..4, phscore1_raw (phscore1 is calibrated).
 
+    ``fitness`` is the custom-coefficient PhScore (score column -6)
+    ``overlap_coeff * (ov_pct - ex_pct) + percent_coeff * match_pct +
+    anchor_coeff * anchor_pct`` when ``overlap_coeff >= 0``, else the raw
+    PhScore1.  ``combine``: how a reference feature's overlap aggregates
+    over the ligand's same-type features, "max" (the best-matching one,
+    AncPhore's 1:1 feature mapping) or "sum" (every pair volume).
     ``count_fp``: fingerprint for the fishing score's feature count
     (defaults to ``lig_phorefp``)."""
     dev = lig_coords.device
@@ -162,7 +171,7 @@ def fitscore(
     pair_mask = same_type * lm[..., None] * feat_mask[:, None, :].to(torch.float32)
     vol = _pair_volume(ref.weight[:, None], ref_t_weight_db[:, None], alpha[:, None],
                        ref_t_alpha[:, None], d2) * pair_mask      # (B, A, P)
-    per_ref_overlap = vol.max(dim=-2).values                      # (B, P)
+    per_ref_overlap = vol.sum(-2) if combine == "sum" else vol.max(dim=-2).values  # (B, P)
     V_overlap = per_ref_overlap.sum(-1)
 
     r_match = torch.sqrt(K_ALPHA / alpha)
@@ -192,10 +201,12 @@ def fitscore(
     phscore1_raw = phscore(*PHSCORE_COEFFS[1])
     phscore1_cal = calibrate_phscore1(phscore1_raw)
     fishing = phscore1_cal * n_matched / torch.clamp(n_db + n_ref - n_matched, min=1.0)
+    custom = (phscore(overlap_coeff, percent_coeff, anchor_coeff) if overlap_coeff >= 0
+              else phscore1_raw)
     out = {
         "V_db": V_db, "V_ref": V_ref, "V_overlap": V_overlap, "match_pct": match_pct,
         "V_exOverlap": V_ex, "anchor_pct": anchor_pct, "ov_pct": ov_pct, "ex_pct": ex_pct,
-        "fitness": phscore1_raw, "fishing": fishing, "n_matched": n_matched, "n_ref": n_ref,
+        "fitness": custom, "fishing": fishing, "n_matched": n_matched, "n_ref": n_ref,
     }
     for k, coeffs in PHSCORE_COEFFS.items():
         out[f"phscore{k}"] = phscore(*coeffs)

@@ -1,6 +1,6 @@
 """A reader and writer for the flat ``model_parameters.yml`` files:
 ``key: scalar`` lines and block lists (``key:`` followed by ``- item``
-lines).  Scalars resolve as YAML 1.1's safe loader resolves them (null,
+lines; an empty one ``key: []``).  Scalars resolve as YAML 1.1's safe loader resolves them (null,
 bools, ints, floats, plain or quoted strings), so the result equals
 ``yaml.safe_load`` on these files without needing PyYAML, and what
 :func:`dumps` writes, both read back unchanged."""
@@ -12,15 +12,23 @@ from typing import Any, Dict
 
 _INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
 _FLOAT = re.compile(r"^[-+]?(\.[0-9]+|[0-9][0-9_]*(\.[0-9_]*)?)([eE][-+][0-9]+)?$")
-_BOOLS = {"true": True, "True": True, "TRUE": True, "yes": True, "Yes": True, "on": True,
+_BOOLS = {"true": True, "True": True, "TRUE": True, "yes": True, "Yes": True, "YES": True,
+          "on": True, "On": True, "ON": True,
           "false": False, "False": False, "FALSE": False, "no": False, "No": False,
-          "off": False}
+          "NO": False, "off": False, "Off": False, "OFF": False}
+#: plain text that YAML 1.1 would read as another type (octal, hex, binary
+#: or sexagesimal numbers, dates, the value and merge keys) or as syntax (a
+#: leading indicator, "- " or "? ", ": " or " #" inside, a trailing colon)
+_NOT_PLAIN = re.compile(r"^([-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+|[-+]?0b[01_]+"
+                        r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*"
+                        r"|[-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?|=|<<"
+                        r"|[\[\]{}*&!|>%@`'\"#,].*|[-?:]( .*)?|.*(: | #).*|.*:)$", re.S)
 
 
 def scalar(text: str) -> Any:
     s = text.strip()
     if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
-        return s[1:-1]
+        return s[1:-1].replace("''", "'") if s[0] == "'" else s[1:-1]
     if s in ("", "~", "null", "Null", "NULL"):
         return None
     if s in _BOOLS:
@@ -56,7 +64,10 @@ def loads(text: str) -> Dict[str, Any]:
         if line[0].isspace() or ":" not in line:
             raise ValueError(f"unsupported YAML line: {raw!r}")
         key, _, value = line.partition(":")
-        if value.strip():
+        if value.strip() == "[]":
+            out[key.strip()] = []
+            current = None
+        elif value.strip():
             out[key.strip()] = scalar(value)
             current = None
         else:
@@ -88,21 +99,26 @@ def _format(value: Any) -> str:
             text = f"{mantissa}.0e{exponent}"
         return text
     text = str(value)
-    if scalar(text) != text or text != text.strip() or " #" in text or ":" in text:
+    if scalar(text) != text or text != text.strip() or _NOT_PLAIN.match(text):
         return "'" + text.replace("'", "''") + "'"
     return text
 
 
-def dumps(data: Dict[str, Any]) -> str:
-    """Flat mapping of scalars and lists of scalars -> YAML, keys sorted."""
+def dumps(data) -> str:
+    """Flat mapping of scalars and lists of scalars, or a list of scalars,
+    -> YAML, keys sorted: the text of ``yaml.safe_dump(data, sort_keys=True)``."""
+    if isinstance(data, (list, tuple)):
+        return "\n".join(f"- {_format(v)}" for v in data) + "\n" if data else "[]\n"
+    if not data:
+        return "{}\n"
     lines = []
     for key in sorted(data):
         value = data[key]
-        if isinstance(value, (list, tuple)):
-            if not value:
-                raise ValueError(f"cannot write the empty list `{key}`")
+        if not isinstance(value, (list, tuple)):
+            lines.append(f"{key}: {_format(value)}")
+        elif value:
             lines.append(f"{key}:")
             lines.extend(f"- {_format(v)}" for v in value)
         else:
-            lines.append(f"{key}: {_format(value)}")
+            lines.append(f"{key}: []")
     return "\n".join(lines) + "\n"

@@ -12,8 +12,9 @@ import pytest
 from torch_port_helpers import REPO
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffphore_tpu")
-#: host libraries the JAX package's featurization and CLI use and the port
-#: restates (chem/graph.py, the csv module, utils/flat_yaml.py)
+#: host libraries the JAX package's featurization, CLI and baselines use and
+#: the port restates (chem/graph.py, the csv module, utils/flat_yaml.py,
+#: baselines.sort_order)
 HOST_FORBIDDEN = ("networkx", "pandas", "yaml")
 SOURCES = sorted(glob.glob(os.path.join(REPO, "diffphore_torch", "**", "*.py"), recursive=True)
                  + [os.path.join(REPO, "chip_smoke.py")])
@@ -51,6 +52,10 @@ TRAINING_MODULES = [
     "cli/evaluate.py",
     # scale-out and prefetch
     "parallel/__init__.py", "parallel/mesh.py", "parallel/workers.py",
+    # the host-only modules: synthetic library, AncPhore bridge, baselines, misc
+    "data/synth_library.py", "utils/ancphore_bridge.py", "utils/misc.py",
+    "baselines/__init__.py", "baselines/performance_analyze.py", "baselines/prepare_data.py",
+    "baselines/run_docking.py", "baselines/run_ifptarget.py", "baselines/run_phore.py",
 ]
 
 
