@@ -583,10 +583,11 @@ def phase_kernel_check(model, batch, tp_fused):
         bound_bf = max(nbytes_bf / PEAK_BYTES * 1e3, t_ops_bf)
         B, N, M, _ = sh.shape
         l2 = tp_fused.lanes(tp) == tp_fused.K_PAD_L2
-        tile_n, cap = ((tp_fused.TILE_N_L2, tp_fused.MAX_SENDERS_L2) if l2
-                       else (tp_fused.TILE_N, tp_fused.MAX_SENDERS))
-        per_block, splits = tp_fused.plan_senders(B, N, M, tile_n, cap)
-        blocks = B * -(-N // tile_n) * splits
+        if l2:
+            per_block, splits, channel_tiles, blocks = tp_fused.grid_l2(tp, B, N, M)
+        else:
+            per_block, splits = tp_fused.plan_senders(B, N, M)
+            channel_tiles, blocks = 1, B * -(-N // tp_fused.TILE_N) * splits
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         if blocks < SMS and not ms <= 2 * floor_ms:
             raise AssertionError(f"{name}: grid of {blocks} blocks on {SMS} SMs and {ms} ms, over "
@@ -594,6 +595,7 @@ def phase_kernel_check(model, batch, tp_fused):
         cases.append({
             "conv": name, "B": B, "N": N, "M": M, "C": len(attrs), "E": params[0].shape[0],
             "blocks": blocks, "senders_per_block": per_block, "splits": splits,
+            "channel_tiles": channel_tiles,
             "H": params[0].shape[1], "F": tp.weight_numel, "max_abs_err": err,
             "max_abs_err_bf16": err_bf, "max_rel_err_bf16": err_bf / max(scale_bf, 1e-30),
             "rel_err_bf16_vs_cpu": err_cpu, "plain_rel_err_bf16_vs_cpu": err_plain_cpu,
@@ -604,7 +606,8 @@ def phase_kernel_check(model, batch, tp_fused):
             "bytes": nbytes, "f32_ops": ops, "mlp_product_ops": mm_ops,
         })
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} C={len(attrs)} F={tp.weight_numel:3d} "
-              f"grid {blocks:4d} blocks ({splits} x {per_block} senders) "
+              f"grid {blocks:4d} blocks ({splits} x {per_block} senders, {channel_tiles} "
+              f"channel tile{'s' if channel_tiles > 1 else ''}) "
               f"err={err:.2e} bf16_err={err_bf:.2e} (max|ref| {scale:.2e}; against the plain "
               f"version on the CPU, of scale: kernel {err_cpu:.1e}, plain {err_plain_cpu:.1e}) "
               f"reruns bit-equal  "
@@ -1046,7 +1049,7 @@ def phase_k3_check(calls):
     import torch
 
     from diffphore_torch.ops import tp_scalar as k3
-    from diffphore_torch.ops.tp_fused import lanes as n_lanes, sender_lists
+    from diffphore_torch.ops.tp_fused import lanes as n_lanes
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
@@ -1065,9 +1068,17 @@ def phase_k3_check(calls):
             if sh_grad:
                 raise AssertionError(f"{name}: a phore conv's harmonics carry a gradient")
             kw = {"sender_index": idx}
-            dx_kw = dict(kw, lists=sender_lists(idx, M_x))
+            count = torch.bincount((idx.long() + M_x * torch.arange(B, device=idx.device)[
+                :, None, None]).flatten(), minlength=B * M_x).float()
+            case["slots_per_sender"] = {"max": int(count.max()), "mean": float(count.mean()),
+                                        "mean_read": float(count[count > 0].mean()),
+                                        "unread": int((count == 0).sum())}
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
+            if idx is not None:
+                # the index's inverse lists and slot chunks, built beforehand
+                # as the autograd forward builds them
+                dx_kw = dict(kw, lists=k3.dx_lists(tp, idx, M_x, dtype))
             leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
             ref = k3.scalar_paths_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves), **kw)
             (ref_dx,) = torch.autograd.grad(ref, [leaves[0]], g * lanes, retain_graph=True)
@@ -1109,10 +1120,13 @@ def phase_k3_check(calls):
                 "bwd_x": device_ms(lambda: k3.launch_backward_x(tp, x, sh, w, g, **dx_kw), 20),
             }
             case["bound" + tag] = bounds(k3_work(tp, x, sh, w, sh_grad, idx))
+            if idx is None:
+                dx_grid = k3.launch_chunk(tp, B, N, M, True, x.device, dtype)[1]
+            else:
+                lists = dx_kw["lists"]
+                dx_grid = f"Q={lists.Q} x {int(lists.row_ptr[-1])} chunks, {lists.blocks} blocks"
             case["grid" + tag] = {
-                "fwd": k3.launch_chunk(tp, B, N, M, False, x.device, dtype)[1],
-                "bwd_x": (1 if idx is not None     # the lists: one split
-                          else k3.launch_chunk(tp, B, N, M, True, x.device, dtype)[1])}
+                "fwd": k3.launch_chunk(tp, B, N, M, False, x.device, dtype)[1], "bwd_x": dx_grid}
             case["library_ms" + tag] = (k3_library_ms(tp, x, sh, w, g, sh_grad) if idx is None
                                         else index_library_ms(tp, x, sh, w, g, idx))
             if dtype == torch.float32:
@@ -1129,7 +1143,11 @@ def phase_k3_check(calls):
         cases.append(case)
         ms, ms_bf, bound, lib = case["ms"], case["ms_bf16"], case["bound"], case["library_ms"]
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} "
-              + (f"(slots of M_x={M_x} senders) " if idx is not None else "")
+              + (f"(slots of M_x={M_x} senders; slots a sender: max "
+                 f"{case['slots_per_sender']['max']}, mean {case['slots_per_sender']['mean']:.2f}, "
+                 f"{case['slots_per_sender']['mean_read']:.2f} over the "
+                 f"{B * M_x - case['slots_per_sender']['unread']} read) " if idx is not None
+                 else "")
               + f"F={F} dsh={int(sh_grad)} "
               f"splits fwd {case['grid']['fwd']} dx {case['grid']['bwd_x']} (bf16 "
               f"{case['grid_bf16']['fwd']}, {case['grid_bf16']['bwd_x']}) "
@@ -3541,19 +3559,23 @@ def phase_k1_index_check(calls):
                        max(mm_ops / PEAK_BF16, vec_ops / PEAK_F32) * 1e3)
         B, N, K, _ = sh.shape
         l2 = tp_fused.lanes(tp) == tp_fused.K_PAD_L2
-        per_block, splits = tp_fused.plan_senders(
-            B, N, K, *((tp_fused.TILE_N_L2, tp_fused.MAX_SENDERS_L2) if l2
-                       else (tp_fused.TILE_N, tp_fused.MAX_SENDERS)))
+        if l2:
+            per_block, splits, channel_tiles, blocks = tp_fused.grid_l2(tp, B, N, K)
+        else:
+            per_block, splits = tp_fused.plan_senders(B, N, K)
+            channel_tiles, blocks = 1, B * -(-N // tp_fused.TILE_N) * splits
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         cases.append({
             "conv": name, "B": B, "N": N, "K": K, "M_x": x.shape[1], "F": tp.weight_numel,
-            "lanes": tp_fused.lanes(tp), "splits": splits, "max_abs_err": err,
+            "lanes": tp_fused.lanes(tp), "splits": splits, "channel_tiles": channel_tiles,
+            "blocks": blocks, "max_abs_err": err,
             "max_abs_err_bf16": err_bf, "max_rel_err_bf16": err_bf / max(scale_bf, 1e-30),
             "max_abs_ref": scale, "ms": ms, "ms_bf16": ms_bf, "bound_ms_bf16": bound_bf,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": bound_by})
         print(f"  {name:28s} B={B:2d} N={N:3d} K={K} M_x={x.shape[1]} F={tp.weight_numel:3d} "
-              f"lanes {tp_fused.lanes(tp)} ({splits} slot splits) err={err:.2e} "
+              f"lanes {tp_fused.lanes(tp)} (grid {blocks} blocks: {splits} slot splits, "
+              f"{channel_tiles} channel tiles) err={err:.2e} "
               f"bf16_err={err_bf:.2e} (max|ref| {scale:.2e}) reruns bit-equal  kernel {ms:.4f} ms "
               f"on the card (bf16 {ms_bf:.4f}, bound {bound_bf:.4f}), {call_ms:.4f} ms per call "
               f"from Python  plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
@@ -3672,7 +3694,8 @@ def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
                 "max_abs_err_bf16": max(c["errs_bf16"][o][0] for c in cases for o in outputs),
                 "unit": f"one train step: the {len(cases)} phore conv call(s) on this kernel "
                         f"(K = {KNN}), each timed alone on the card (graph replay; dx with the "
-                        "index's inverse lists built beforehand, as the forward builds them), "
+                        "index's inverse lists (K3: and slot chunks) built beforehand, as the "
+                        "forward builds them), "
                         "f32 (ms) and bf16 (ms_bf16) operands; library_ms is the gather of the "
                         "senders and the gathered per-path torch.einsum (dx: the per-slot "
                         "einsum and index_add_), by graph replay",

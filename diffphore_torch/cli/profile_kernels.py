@@ -18,7 +18,7 @@ every version of the port has; the K3 cases call K3's forward and dx per
 convolution where the tree has that interface, else per path, as the
 first K3 did).  It needs a GPU and fails without one.
 
-    python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only]
+    python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only | --k1_l2 | --k3_index]
 
 ``--k3_only`` times K3's forward, edge backward (``launch_backward_edge``
 as the train step calls it: dsh on the two convs whose harmonics carry a
@@ -30,6 +30,20 @@ convolution has ``launch_backward_edge`` with this signature, so the edge
 backward compares across them.  Beside each edge backward, ``fill_us`` is
 the graph-replay time of ``fill_(0)`` on a tensor of dw's size: writing dw
 alone.
+
+``--k1_l2`` times the 8-lane K1 (``tp_fused_l2_kernel``, f32 and bf16) on
+the 23 conv signatures of one forward of a second-order model at corpus2's
+widths (F up to 360, 30 paths, D = 200, E = H = 60), at the serving shapes
+(40 poses of a 24 x 96 x 8 complex) and the step's (24 rows of that bucket),
+then in the sender-index mode on the 3 phore convs at K = 24; a summary line
+per (mode, rows, dtype) sums the 23 (or 3) calls.  ``--k3_index`` times K3's
+sender-index dx at 4 and 8 lanes on the layer-0 phore conv of a 24-row step
+at K = 24, on an index of nearest live phore points (uneven loads: some
+points are among the nearest of most receivers, padded ones of none).  Both
+print ``graph_us`` beside the profiler's per-kernel times.  ``--k1_l2`` runs
+unchanged in a tree from before the 8-lane K1's redesign; in a tree from
+before the sender-index dx's, ``--k3_index`` needs ``lists`` to be that
+tree's ``tp_fused.sender_lists(idx, P)``.
 """
 
 from __future__ import annotations
@@ -76,6 +90,23 @@ K2_CASES = [
 
 #: (conv name, B, N, M, live_n, live_m, dsh) of K3 at the six layer-0
 #: training convs; dsh: the harmonics carry a gradient
+SEQ2 = ["20x0e", "20x0e + 10x1o + 10x2e", "20x0e + 10x1o + 10x2e + 10x1e + 10x2o",
+        "20x0e + 10x1o + 10x2e + 10x1e + 10x2o + 20x0o"]
+#: (conv, in irreps, sh irreps, out irreps, E, N, M, channels, live_n, live_m)
+#: of the 23 conv calls of one second-order forward (a 24 x 96 x 8 complex:
+#: 24 ligand atoms, 96 phore points); phore_conv_0 runs once per complex
+#: (pose-group factoring), so its rows are 1
+K1_L2_CASES = (
+    [(f"lig_conv_{i}", SEQ2[i], SH, SEQ2[min(i + 1, 3)], 60, 24, 24, 2, 20, 20) for i in range(4)]
+    + [(f"phore_to_lig{t}_conv_{i}", SEQ2[i], SH, SEQ2[min(i + 1, 3)], 60, 24, 96, 1, 20, 32)
+       for i in range(4) for t in ("", "_norm")]
+    + [(f"phore_conv_{i}", SEQ2[i], SH, SEQ2[i + 1], 60, 96, 96, 1, 32, 32) for i in range(3)]
+    + [(f"lig_to_phore{t}_conv_{i}", SEQ2[i], SH, SEQ2[i + 1], 60, 96, 24, 1, 32, 20)
+       for i in range(3) for t in ("", "_norm")]
+    + [("final_conv", SEQ2[3], SH, "2x1o + 2x1e", 40, 1, 24, 1, 1, 20),
+       ("tor_bond_conv", SEQ2[3], "1x1o + 1x0e + 1x1e", "20x0o + 20x0e", 60, 8, 24, 1, 4, 20)])
+KNN_K = 24
+
 K3_CASES = [
     ("lig_conv_0", 24, 24, 24, 10, 9, False),
     ("phore_to_lig_conv_0", 24, 24, 96, 20, 42, True),
@@ -148,12 +179,113 @@ def kernel_times(fn) -> dict:
             for e in prof.key_averages() if "tp_" in e.key and _device_us(e) > 0}
 
 
+def knn_index(B: int, P: int, K: int, gen: torch.Generator):
+    """(index (B, P, K) int32, receiver mask (B, P)): each row's phore points
+    at random positions, the first 30-60 live; every receiver takes its K
+    nearest live points (a padded receiver too: its slots are masked)."""
+    pos = torch.rand((B, P, 3), device="cuda", generator=gen) * 20.0
+    live_n = torch.randint(30, 61, (B,), device="cuda", generator=gen)
+    live = torch.arange(P, device="cuda")[None, :] < live_n[:, None]
+    d = torch.cdist(pos, pos).masked_fill(~live[:, None, :], float("inf"))
+    idx = torch.sort(d, dim=-1, stable=True).indices[..., :K].to(torch.int32).contiguous()
+    return idx, live
+
+
+def k1_l2_cases(randn, gen, card) -> list:
+    """The 8-lane K1 on K1_L2_CASES at 40 and 24 rows, dense, then the
+    sender-index mode on the phore convs; f32 and bf16."""
+    results = []
+    for rows in (40, 24):
+        for indexed in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                total = {"kernel": "tp_fused_l2" + ("_idx" if indexed else ""), "rows": rows,
+                         "dtype": str(dtype), "calls": 0, "us_total": 0.0, "graph_us": 0.0,
+                         "card": card}
+                for name, irr_in, irr_sh, irr_out, E, N, M, C, live_n, live_m in K1_L2_CASES:
+                    if indexed and not name.startswith("phore_conv"):
+                        continue
+                    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+                    F = tp.weight_numel
+                    B = 1 if name == "phore_conv_0" and not indexed else rows
+                    kw, m_x = {}, M
+                    if indexed:
+                        idx, live = knn_index(B, M, KNN_K, gen)
+                        kw, M = {"sender_index": idx}, KNN_K
+                        masks = [(live[:, :, None] & torch.ones(B, N, M, dtype=torch.bool,
+                                                                device="cuda")).contiguous()]
+                    else:
+                        masks = []
+                        for c in range(C):
+                            m = torch.zeros(B, N, M, dtype=torch.bool, device="cuda")
+                            m[:, :live_n, :live_m - 4 * c] = True
+                            masks.append(m)
+                    x = randn(B, m_x, tp.irreps_in.dim).to(dtype)
+                    sh = randn(B, N, M, tp.irreps_sh.dim).to(dtype)
+                    attrs = [randn(B, N, M, E).to(dtype) for _ in range(C)]
+                    params = (randn(E, E) * 0.1, randn(E) * 0.1, randn(E, F) * 0.1,
+                              randn(F) * 0.1)
+                    call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params,
+                                                               **kw)
+                    with torch.no_grad():
+                        times = kernel_times(call)
+                        g_us = graph_us(call)
+                    results.append({"kernel": total["kernel"], "conv": name, "dtype": str(dtype),
+                                    "B": B, "N": N, "M": M, "F": F, "C": C,
+                                    "live_edges": int(masks[0].sum()), "us": times,
+                                    "us_total": sum(times.values()), "graph_us": g_us,
+                                    "card": card})
+                    print(json.dumps(results[-1]), flush=True)
+                    total["calls"] += 1
+                    total["us_total"] += results[-1]["us_total"]
+                    total["graph_us"] += g_us
+                results.append(total)
+                print(json.dumps(total), flush=True)
+    return results
+
+
+def k3_index_cases(randn, gen, card) -> list:
+    """K3's sender-index dx on the layer-0 phore conv of a 24-row step at
+    K = 24, at 4 and 8 lanes, f32 and bf16: per-kernel device time and
+    graph_us, with the index's lists built beforehand (as the autograd
+    forward builds them)."""
+    results = []
+    B, P = 24, 96
+    idx, live = knn_index(B, P, KNN_K, gen)
+    count = torch.bincount((idx.long() + P * torch.arange(B, device="cuda")[:, None, None])
+                           .flatten(), minlength=B * P)
+    for lanes_, seq in ((4, SEQ), (8, SEQ2)):
+        tp = channelwise_tp(seq[0], SH, seq[1])
+        F = tp.weight_numel
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(B, P, tp.irreps_in.dim).to(dtype)
+            sh = randn(B, P, KNN_K, 9).to(dtype)
+            w = (randn(B, P, KNN_K, F) * live[:, :, None, None]).to(dtype).contiguous()
+            g = randn(B, P, F, lanes_)
+            lists = tp_scalar.dx_lists(tp, idx, P, dtype)
+            call = lambda: tp_scalar.launch_backward_x(tp, x, sh, w, g, sender_index=idx,
+                                                       lists=lists)
+            times = kernel_times(call)
+            results.append({"kernel": "tp_scalar_bwd_x_idx", "lanes": lanes_,
+                            "dtype": str(dtype), "B": B, "N": P, "K": KNN_K, "M_x": P, "F": F,
+                            "slots_per_sender_max": int(count.max()),
+                            "slots_per_sender_mean": float(count.float().mean()),
+                            "senders_read": int((count > 0).sum()), "us": times,
+                            "us_total": sum(times.values()), "graph_us": graph_us(call),
+                            "card": card})
+            print(json.dumps(results[-1]), flush=True)
+    return results
+
+
 def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k2_only", action="store_true",
                         help="only K2's forward and dx cases (to compare two trees)")
     parser.add_argument("--k3_only", action="store_true",
                         help="only K3's forward and dx cases (to compare two trees)")
+    parser.add_argument("--k1_l2", action="store_true",
+                        help="only the 8-lane K1, dense and sender-index (to compare two trees)")
+    parser.add_argument("--k3_index", action="store_true",
+                        help="only K3's sender-index dx at 4 and 8 lanes (to compare two trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
@@ -165,6 +297,10 @@ def main(argv=None) -> list:
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
+    if args.k1_l2:
+        return k1_l2_cases(randn, gen, card)
+    if args.k3_index:
+        return k3_index_cases(randn, gen, card)
     results = []
     if args.k3_only:
         tp = channelwise_tp(SEQ[0], SH, SEQ[1])

@@ -80,32 +80,53 @@
 //  the f32 tolerance) the kernel was 7 to 32% slower.
 //
 // The 8-lane kernel, tp_fused_l2_kernel: the same function where the irreps
-// reach l = 2 (the second-order features): l_in, l_sh, l_out <= 2, G_p
-// padded to (5, 5, 5), output (B, N, F, 8) (lanes 5-7 zero).  The kernel
-// above is left as it is for l <= 1; at l = 2 its layout does not fit: a
-// layer-3 convolution has F = 360 channels (its register tiles take 160),
-// 30 paths, D = 200 features a sender, and its W2 (60 x 384 f32), edge-weight
-// tile and per-path t tile alone would need over 290 KB of shared memory.
-// This one is the simple version:
-//  * a thread per channel (384 threads, F <= 384); the thread keeps its
-//    column of W2 (H <= 64 values) and b2 in registers, so W2 takes no shared
-//    memory and the edge weights are never stored: w[r, f] = hid[r, :] .
-//    W2[:, f] is formed where it is used;
-//  * grid = (sender split, tile of L2_TN = 4 receivers, batch row), the
-//    senders interleaved across the splits as above, at most 64 a block;
-//    the block's live (receiver, sender) pairs are compacted with warp
-//    ballots in receiver-major order and taken L2_ROWS = 32 at a time;
-//  * per tile, once for all the channels: the attribute rows are gathered,
-//    the hidden layer is computed (thread = (row, hidden unit); f32: the
-//    masked sum over edge channels; bf16: each channel's rounded hidden row,
-//    as above), and t[i][k] = sum_j G_p[i,j,k] sh[j] of every (edge, path),
-//    d_in x d_out values packed per path;
-//  * then each channel walks the tile's rows: w from its hidden row and its
-//    W2 column (bf16: rounded per edge channel, summed and rounded, as
-//    above), sum_i w x[m, x_base + i] t[i][:] into a running sum that moves
-//    into the receiver's five sums (registers) when the receiver changes.
-//  Plain loads, no cp.async ring, one block per SM (384 threads): its times
-//  are in PERF.md.
+// reach l = 2 (the second-order features): l_in, l_sh, l_out <= 2, output
+// (B, N, F, 8) (lanes 5-7 zero).  The kernel above is left as it is for
+// l <= 1.  At l = 2 a layer-3 convolution has F = 360 channels, 30 paths and
+// D = 200 features a sender, and the edge MLP's second product (2 H F = 43,200
+// flops an edge) is most of the arithmetic: f32 it is bound by operations
+// from F = 180 up (bytes below), bf16 by bytes.  Its first version kept a W2
+// column a thread (384 threads, one block an SM) and formed w[r, f] as one
+// chain of H dependent FMAs a row: 5% of its f32 bound.
+//  * Channel tiles.  The host cuts the channels at path boundaries into
+//    tiles filled up to 128 (tp_fused.channel_tiles: 60 | 120 + 60 |
+//    120 + 120 + 60 | 3 x 120 on the probe); a block takes one (batch row,
+//    tile of L2_TN = 4 receivers, sender split of up to 96, channel tile)
+//    and keeps only its tile's W2 columns, b2, coupling entries (flat,
+//    d_in x d_sh x d_out a path) and t rows.  So W2 leaves the registers, the
+//    shared memory stays under 113 KB (two blocks of eight warps an SM), and
+//    the grid has the channel tiles as a factor (plan_senders counts them).
+//    The hidden layer is computed once a tile (a quarter to a third of the
+//    flops again at F = 360).  A block whose masks are all dead writes zeros
+//    and loads no weight.
+//  * Register tiles.  A warp takes two of a tile's L2_ROWS = 16 live rows:
+//    the hidden layer with lane = units 2 lane, 2 lane + 1 (a float4 of
+//    each row's attributes and a float2 of W1 a step: 4 independent sums),
+//    then, f32, w[r, f] with lane = channels 2 lane + 64 j, + 1 (8
+//    independent sums at 128 channels, 0.31 shared loads an FMA; one 64-
+//    channel group for a tile of 64 or fewer), without a block barrier
+//    between them (a warp reads only its own rows).  bf16: the hidden rows
+//    and W2 (stored transposed, pitch 72: conflict-free fragment loads) are
+//    bf16 values, so w = hid W2 runs on the tensor cores, mma.sync m16n8k16
+//    with f32 sums over all 16 rows after one barrier.
+//  * A cp.async ring.  Each tile's attribute rows, harmonics (f32) and its
+//    rows' sender features (the tile's x slice [x_lo, x_lo + xw), in both
+//    modes) are copied into the second of two stages while the first is
+//    computed; bf16 operands stay bf16 in shared memory (8-byte copies) and
+//    are widened where they are read.
+//  * t[i][k] = sum_j G[i, j, k] sh[j] once a (row, path, i < d_in), rows
+//    fastest so a warp shares one loop shape.  The walk: a thread per (tile
+//    channel, part of the rows: two parts, four for a tile of up to 64
+//    channels); the tile's channels are walked in the order of their (d_in,
+//    d_out) (the host's walk order), so a warp runs one unrolled shape; each
+//    row adds w x t into a running sum that moves into the receiver's five
+//    sums when the receiver (a per-row table) changes; the parts' sums are
+//    added in order at the end.
+//  Exactness as above: the bf16 rounding points (W1, b1, W2, b2 rounded on
+//  entry; pre-activation rounded after the product and after the bias; each
+//  channel's edge weights rounded, summed and rounded), the receiver-major
+//  compaction of live pairs, fixed-order split sums, no float atomics: two
+//  runs agree to the bit.
 //
 // Sender-index mode (the KNN phore grid): an int32 index (B, N, K) names the
 // sender of each (receiver, slot); the edge tensors are (B, N, K, ...), x is
@@ -118,11 +139,14 @@
 // are never gathered (the compaction drops them) and cost no flop.  Both
 // kernels take the mode, tp_fused_kernel as a template flag IDX (l <= 1; its
 // dense instantiations are as they were) and tp_fused_l2_kernel (l = 2) at
-// run time.
+// run time: its rows' sender features ride the ring in either mode, so the
+// index only changes which sender row a tile row copies.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -626,47 +650,153 @@ __global__ void tp_fused_kernel_sum_splits(const float4* __restrict__ part, floa
 
 // ---- the 8-lane kernel (irreps up to l = 2; head note) ----
 
-constexpr int L2_THREADS = 384;   // a thread per channel: F <= 384
+constexpr int L2_THREADS = 256;   // eight warps
 constexpr int L2_WARPS = L2_THREADS / 32;
 constexpr int L2_TN = 4;          // receivers per block
-constexpr int L2_ROWS = 32;       // live edges per tile
-constexpr int L2_MS_MAX = 64;     // senders per block
-constexpr int L2_HMAX = 64;       // widest hidden layer: a W2 column in registers
+constexpr int L2_ROWS = 16;       // live edges per tile: two a warp
+constexpr int L2_RW = L2_ROWS / L2_WARPS;
+constexpr int L2_MS_MAX = 96;     // senders per block: a 96-point phore in one split
+constexpr int L2_HP = 64;         // padded hidden width: two units a lane
+constexpr int L2_KB = 72;         // bf16 pitch of W2^T and the hidden rows (conflict-free mma loads)
 constexpr int L2_K = 5;           // components of an l <= 2 irrep
-constexpr int L2_G = L2_K * L2_K * L2_K;   // alpha*cg padded to (5, 5, 5)
 constexpr int L2_MAX_PATHS = 32;
+constexpr int L2_SMEM = 113 * 1024;   // two blocks an SM
 
-static_assert(L2_WARPS <= 16, "the compaction's warp counts");
+static_assert(L2_RW == 2, "the hidden layer and the edge-weight product take two rows a warp");
+static_assert(L2_THREADS / 16 == L2_ROWS, "the gather gives each row sixteen threads");
 
-// The 8-lane kernel's shared memory, in floats (every piece 16-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+}
+// Four neighbouring elements of a staged row, as f32.
+__device__ __forceinline__ float4 ld4s(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4s(const __nv_bfloat16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+// A 16-byte (f32) or 8-byte (bf16) asynchronous copy of four elements.
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void cp_async_quad(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  cp_async8(dst, src);
+}
+
+// d += a b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The 8-lane kernel's shared memory, in floats (every piece 16-byte aligned);
+// `esize` the operands' bytes (the staged attribute and feature rows keep
+// their type).  dp_tp_fused_l2_smem returns its size to the wrapper.
 struct LayoutL2 {
-  int w1, b1, g, ptab, x, mask, edges, wcnt, a, sh, hid, em, t, total;
+  int w1, b1, w2, b2, g, ptab, pi, mask, edges, wcnt, rn, a, sh, x, hid, wt, t, total;
 };
 
-// `indexed`: the sender-index mode, whose x rows are staged per tile row.
-__host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int D, int n_paths,
-                                                   int t_size, int MS, bool indexed) {
+__host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int DX, int TS, int GS,
+                                                   int PC, int MS, int FTP, int esize) {
   LayoutL2 L;
   int o = 0;
-  L.w1 = o;    o += pad4(E * H);
-  L.b1 = o;    o += pad4(H);
-  L.g = o;     o += pad4(n_paths * L2_G);
-  L.ptab = o;  o += n_paths * 8;                  // ints
-  L.x = o;     o += pad4((indexed ? L2_ROWS : MS) * D);
+  L.w1 = o;    o += E * L2_HP;
+  L.b1 = o;    o += L2_HP;
+  L.w2 = o;    o += esize == 2 ? FTP * L2_KB / 2 : H * FTP;   // bf16: W2^T [n][L2_KB]
+  L.b2 = o;    o += FTP;
+  L.g = o;     o += pad4(GS);
+  L.ptab = o;  o += pad4(PC * 8);                     // ints
+  L.pi = o;    o += pad4(PC * L2_K);                  // ints: the tile's (path, i), i < d_in
   L.mask = o;  o += pad4(C * L2_TN * MS);
-  L.edges = o; o += pad4(L2_TN * MS);             // ints: nl * MS + ml of the live pairs
-  L.wcnt = o;  o += 20;                           // ints: per-warp counts, then the total
-  L.a = o;     o += pad4(C * L2_ROWS * E);
-  L.sh = o;    o += L2_ROWS * SH_STRIDE;
-  L.hid = o;   o += pad4(C * L2_ROWS * H);
-  L.em = o;    o += 2 * L2_ROWS;
-  L.t = o;     o += pad4(L2_ROWS * t_size);
+  L.edges = o; o += pad4(L2_TN * MS);                 // ints: nl * MS + ml of the live pairs
+  L.wcnt = o;  o += 20;                               // ints: per-warp counts, then the total
+  L.rn = o;    o += 2 * L2_ROWS;                      // ints: each staged row's receiver
+  L.a = o;     o += pad4((2 * C * L2_ROWS * E * esize + 3) / 4);    // two stages
+  L.sh = o;    o += 2 * L2_ROWS * SH_STRIDE;                       // two stages
+  L.x = o;     o += pad4((2 * L2_ROWS * DX * esize + 3) / 4);      // two stages
+  L.hid = o;   o += C * L2_ROWS * (esize == 2 ? L2_KB / 2 : L2_HP);   // bf16: [c][row][L2_KB]
+  L.wt = o;    o += L2_ROWS * FTP;
+  L.t = o;     o += pad4(L2_ROWS * TS);
   L.total = o;
   return L;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
+// One row of the walk for a channel of shape (DI, DO): its edge weight w,
+// its DI sender features xr and the row's t block of its path (DI x DO,
+// padded to float4s) into the running sums.
+template <int DI, int DO, typename T>
+__device__ __forceinline__ void walk_row(float (&run)[5], float w, const T* xr, const float* tq) {
+  constexpr int NT = (DI * DO + 3) / 4;
+  float t[4 * NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(tq + 4 * q);
+    t[4 * q] = v.x;
+    t[4 * q + 1] = v.y;
+    t[4 * q + 2] = v.z;
+    t[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < DI; ++i) {
+    const float g = w * to_f(xr[i]);
+#pragma unroll
+    for (int k = 0; k < DO; ++k) run[k] = fmaf(g, t[i * DO + k], run[k]);
+  }
+}
+
+// The running sums of receiver `cur` moved into its five sums (registers:
+// the receiver is chosen by comparison, not by an index), and `cur` = to.
+__device__ __forceinline__ void flush_run(float (&acc)[L2_TN][L2_K], float (&run)[L2_K], int& cur,
+                                          int to) {
+#pragma unroll
+  for (int q = 0; q < L2_TN; ++q)
+    if (q == cur) {
+#pragma unroll
+      for (int k = 0; k < L2_K; ++k) acc[q][k] += run[k];
+    }
+  cur = to;
+#pragma unroll
+  for (int k = 0; k < L2_K; ++k) run[k] = 0.f;
+}
+
+// Rows [rb, re) of a tile for one channel of shape (DI, DO): row r's
+// receiver rn[r], edge weight wt[r * wp], features xr + r * xp and t block
+// tq + r * tp (the pointers at the channel's column of row 0).
+template <int DI, int DO, typename T>
+__device__ __forceinline__ void walk_rows(float (&acc)[L2_TN][L2_K], float (&run)[L2_K], int& cur,
+                                          int rb, int re, const int* rn, const float* wt, int wp,
+                                          const T* xr, int xp, const float* tq, int tp) {
+#pragma unroll 2
+  for (int r = rb; r < re; ++r) {
+    const int nl = rn[r];
+    if (nl != cur) flush_run(acc, run, cur, nl);
+    walk_row<DI, DO>(run, wt[r * wp], xr + (size_t)r * xp, tq + r * tp);
+  }
+}
+
+// t[i][k] = sum_j G[i, j, k] sh[j] of one (row, path, i), k < DO, j < DS.
+template <int DS, int DO>
+__device__ __forceinline__ void t_entry(float* tq, const float* G, const float* sv) {
+  float svj[DS];
+#pragma unroll
+  for (int j = 0; j < DS; ++j) svj[j] = sv[j];
+#pragma unroll
+  for (int k = 0; k < DO; ++k) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < DS; ++j) t = fmaf(G[j * DO + k], svj[j], t);
+    tq[k] = t;
+  }
+}
+
+// NCH: 64-channel groups of a tile (FTP = 64 NCH channels, lane = two
+// neighbouring channels of each group).
+template <typename T, int NCH>
+__global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     const T* __restrict__ x,         // (B, Mx, D) sender features (Mx = M without idx)
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ attr0,     // (B, N, M, E) edge attributes, channel 0
@@ -678,45 +808,51 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
     const float* __restrict__ b1,    // (H)
     const float* __restrict__ w2,    // (H, F)
     const float* __restrict__ b2,    // (F)
-    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
-    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
-    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
+    const int4* __restrict__ chan,   // (F): x offset in the tile's slice, d_in, d_out, tile path
+    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, g_off, 0, 0
+    const float* __restrict__ gflat, // each path's alpha*cg, (d_in, d_sh, d_out) entries
+    const int* __restrict__ ctab,    // (n_ct, 8): f0, fc, p0, pc, x_lo, xw, g0, gs
+    const int* __restrict__ walk,    // (F): each tile's channels in the walk's order
     float* __restrict__ dst,         // out (B, N, F, 8), or the partial sums (splits, B, N, F, 8)
-    int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths,
-    int t_size, int MS, int mask_is_f32) {
+    int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_ct, int DX,
+    int TS, int GS, int PC, int MS, int mask_is_f32, int xvec) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
+  constexpr int FTP = 64 * NCH;
   const bool indexed = idx != nullptr;
-  const LayoutL2 L = make_layout_l2(C, E, H, D, n_paths, t_size, MS, indexed);
-  float* s_w1 = smem + L.w1;                                    // [k][H]
+  const LayoutL2 L = make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, sizeof(T));
+  float* s_w1 = smem + L.w1;                                    // [k][L2_HP]
   float* s_b1 = smem + L.b1;
-  float* s_g = smem + L.g;
-  int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);
-  float* s_x = smem + L.x;                                      // [ml][D], indexed: [row][D]
+  float* s_w2 = smem + L.w2;                                    // [k][FTP]: the tile's columns
+  __nv_bfloat16* s_w2t = reinterpret_cast<__nv_bfloat16*>(s_w2);   // bf16: [n][L2_KB]
+  float* s_b2 = smem + L.b2;
+  float* s_g = smem + L.g;                                      // the tile's coupling entries
+  int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);          // the tile's paths
+  int* s_pi = reinterpret_cast<int*>(smem + L.pi);              // p * 8 + i, i < d_in(p)
   float* s_mask = smem + L.mask;                                // [c][nl * MS + ml]
   int* s_edges = reinterpret_cast<int*>(smem + L.edges);
   int* s_wcnt = reinterpret_cast<int*>(smem + L.wcnt);
-  float* s_a = smem + L.a;                                      // [c][row][E]
-  float* s_sh = smem + L.sh;                                    // [row][SH_STRIDE]
-  float* s_hid = smem + L.hid;                                  // [c][row][H] (f32: c = 0 only)
-  float* s_em = smem + L.em;                                    // [c][row]: the rows' masks
-  float* s_t = smem + L.t;                                      // [row][t_size]
+  int* s_rn = reinterpret_cast<int*>(smem + L.rn);              // [stage][row]: nl
+  T* s_a = reinterpret_cast<T*>(smem + L.a);                    // [stage][c][row][E]
+  float* s_sh = smem + L.sh;                                    // [stage][row][SH_STRIDE]
+  T* s_x = reinterpret_cast<T*>(smem + L.x);                    // [stage][row][DX]
+  float* s_hid = smem + L.hid;                                  // f32: [row][L2_HP]
+  __nv_bfloat16* s_hidb = reinterpret_cast<__nv_bfloat16*>(s_hid);   // bf16: [c][row][L2_KB]
+  float* s_wt = smem + L.wt;                                    // [row][FTP]
+  float* s_t = smem + L.t;                                      // [row][TS]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.z;
   const int n0 = blockIdx.y * L2_TN;
-  const int m0 = blockIdx.x, mstep = gridDim.x;
+  const int ct = blockIdx.x % n_ct, split = blockIdx.x / n_ct;
+  const int m0 = split, mstep = gridDim.x / n_ct;
   const int ms = (M - m0 + mstep - 1) / mstep;   // senders of this block, <= MS
+  const int f0 = ctab[ct * 8], fc = ctab[ct * 8 + 1], p0 = ctab[ct * 8 + 2];
+  const int pc = ctab[ct * 8 + 3], x_lo = ctab[ct * 8 + 4], xw = ctab[ct * 8 + 5];
+  const int g0 = ctab[ct * 8 + 6], gs = ctab[ct * 8 + 7];
 
-  for (int i = tid; i < E * H; i += L2_THREADS) s_w1[i] = ROUND ? bf16_round(w1[i]) : w1[i];
-  for (int i = tid; i < H; i += L2_THREADS) s_b1[i] = ROUND ? bf16_round(b1[i]) : b1[i];
-  for (int i = tid; i < n_paths * L2_G; i += L2_THREADS) s_g[i] = gtab[i];
-  for (int i = tid; i < n_paths * 8; i += L2_THREADS) s_ptab[i] = ptab[i];
-  for (int i = tid; i < (indexed ? 0 : ms * D); i += L2_THREADS) {
-    const int ml = i / D, d = i - ml * D;
-    s_x[i] = to_f(x[((size_t)b * M + m0 + ml * mstep) * D + d]);
-  }
+  for (int i = tid; i < 2 * L2_ROWS * SH_STRIDE; i += L2_THREADS) s_sh[i] = 0.f;   // pad lanes 0
   for (int i = tid; i < C * L2_TN * MS; i += L2_THREADS) {
     const int c = i / (L2_TN * MS);
     const int r = i - c * L2_TN * MS;
@@ -731,29 +867,27 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
     }
     s_mask[i] = v;
   }
-  // the thread's channel: its table row, W2 column and b2
-  const int f = tid;
-  const bool active = f < F;
-  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);   // x_base, d_in, d_out, path
-  const int t_off = active ? ptab[cm.w * 8 + 4] : 0;
-  float w2c[L2_HMAX];
-#pragma unroll
-  for (int h = 0; h < L2_HMAX; ++h) {
-    const float v = active && h < H ? w2[(size_t)h * F + f] : 0.f;
-    w2c[h] = ROUND ? bf16_round(v) : v;
-  }
-  const float b2f = active ? (ROUND ? bf16_round(b2[f]) : b2[f]) : 0.f;
+  // the walk's thread: slot fl of the tile's walk order (channel fw of the
+  // tile), rows of part `part` of each tile: two parts of a tile of up to
+  // 128 channels, four of one of up to 64
+  const int cw = fc > 64 ? 128 : 64, parts = L2_THREADS / cw;
+  const int fl = tid % cw, part = tid / cw;
+  const bool walker = fl < fc;
+  const int fw = walker ? walk[f0 + fl] - f0 : 0;
+  const int4 cm = walker ? chan[f0 + fw] : make_int4(0, 0, 0, 0);   // x offset, d_in, d_out, path
+  const int t_off = walker ? ptab[(p0 + cm.w) * 8 + 4] : 0;
+  const int shape = cm.y * 8 + cm.z;
   __syncthreads();
 
-  // ---- compaction: the live pairs nl * MS + ml, in order
+  // ---- compaction: the live pairs nl * MS + ml, in order (receiver-major)
   const int pairs = L2_TN * MS;
   int total = 0;
   for (int base = 0; base < pairs; base += L2_THREADS) {
-    const int idx = base + tid;
+    const int pi = base + tid;
     bool live = false;
-    if (idx < pairs) {
-      live = s_mask[idx] != 0.f;
-      if (C == 2) live = live || s_mask[pairs + idx] != 0.f;
+    if (pi < pairs) {
+      live = s_mask[pi] != 0.f;
+      if (C == 2) live = live || s_mask[pairs + pi] != 0.f;
     }
     const unsigned bal = __ballot_sync(0xffffffffu, live);
     if (lane == 0) s_wcnt[warp] = __popc(bal);
@@ -768,10 +902,104 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
       s_wcnt[16] = run;
     }
     __syncthreads();
-    if (live) s_edges[total + s_wcnt[warp] + __popc(bal & ((1u << lane) - 1u))] = idx;
+    if (live) s_edges[total + s_wcnt[warp] + __popc(bal & ((1u << lane) - 1u))] = pi;
     total += s_wcnt[16];
     __syncthreads();
   }
+
+  if (total == 0) {   // no live pair: zeros, and no weight is loaded
+    if (walker && part == 0) {
+      float4* o = reinterpret_cast<float4*>(dst) + (size_t)split * B * N * F * 2;
+      for (int nl = 0; nl < L2_TN && n0 + nl < N; ++nl) {
+        const size_t at = ((size_t)b * N + n0 + nl) * F + f0 + fw;
+        o[2 * at] = o[2 * at + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+
+  // ---- resident operands of a block with live pairs: W1, b1, the tile's W2
+  // columns, b2, coupling entries and path rows (f32 weights asynchronously,
+  // with the first tile's rows).  Padding columns are zero.
+  if (ROUND) {
+    for (int i = tid; i < E * L2_HP; i += L2_THREADS) {
+      const int k = i / L2_HP, h = i - k * L2_HP;
+      s_w1[i] = h < H ? bf16_round(w1[k * H + h]) : 0.f;
+    }
+    for (int i = tid; i < L2_HP * FTP; i += L2_THREADS) {
+      const int k = i / FTP, c = i - k * FTP;
+      s_w2t[c * L2_KB + k] =
+          __float2bfloat16_rn(c < fc && k < H ? w2[(size_t)k * F + f0 + c] : 0.f);
+    }
+  } else {
+    for (int i = tid; i < E * (H / 4); i += L2_THREADS) {
+      const int k = i / (H / 4), q = i - k * (H / 4);
+      cp_async16(s_w1 + k * L2_HP + 4 * q, w1 + k * H + 4 * q);
+    }
+    for (int i = tid; i < E * (L2_HP - H); i += L2_THREADS) {
+      const int k = i / (L2_HP - H);
+      s_w1[k * L2_HP + H + i - k * (L2_HP - H)] = 0.f;
+    }
+    if (F % 4 == 0 && f0 % 4 == 0 && fc % 4 == 0) {   // W2's rows in 16-byte pieces
+      for (int i = tid; i < H * (FTP / 4); i += L2_THREADS) {
+        const int k = i / (FTP / 4), c = 4 * (i - k * (FTP / 4));
+        if (c < fc) cp_async16(s_w2 + k * FTP + c, w2 + (size_t)k * F + f0 + c);
+        else *reinterpret_cast<float4*>(s_w2 + k * FTP + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int i = tid; i < H * FTP; i += L2_THREADS) {
+        const int k = i / FTP, c = i - k * FTP;
+        if (c < fc) cp_async4(s_w2 + i, w2 + (size_t)k * F + f0 + c);
+        else s_w2[i] = 0.f;
+      }
+    }
+  }
+  cp_async_commit();
+  for (int i = tid; i < L2_HP; i += L2_THREADS)
+    s_b1[i] = i < H ? (ROUND ? bf16_round(b1[i]) : b1[i]) : 0.f;
+  for (int i = tid; i < FTP; i += L2_THREADS)
+    s_b2[i] = i < fc ? (ROUND ? bf16_round(b2[f0 + i]) : b2[f0 + i]) : 0.f;
+  for (int i = tid; i < gs; i += L2_THREADS) s_g[i] = gflat[g0 + i];
+  for (int i = tid; i < pc * 8; i += L2_THREADS) s_ptab[i] = ptab[p0 * 8 + i];
+  int n_pi = 0;         // the tile's (path, i) pairs of the t step, in order
+  for (int p = 0; p < pc; ++p) {
+    const int d_in = ptab[(p0 + p) * 8 + 1];
+    if (tid < d_in) s_pi[n_pi + tid] = p * 8 + tid;
+    n_pi += d_in;
+  }
+
+  // gather a tile's attribute rows, harmonics and sender features into a
+  // stage of the ring, sixteen threads a row (asynchronously where the
+  // alignment allows; bf16 harmonics with plain loads)
+  auto gather_tile = [&](int stage, int first) {
+    const int row = tid >> 4, sub = tid & 15;
+    if (first + row >= total) return;
+    const int e = s_edges[first + row];
+    const int nl = e / MS, ml = e - nl * MS;
+    const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
+    if (sub == 0) s_rn[stage * L2_ROWS + row] = nl;
+    for (int c = 0; c < C; ++c) {
+      const T* src = (c == 0 ? attr0 : attr1) + edge * E;
+      T* arow = s_a + ((size_t)(stage * C + c) * L2_ROWS + row) * E;
+      for (int q = sub; q < E / 4; q += 16) cp_async_quad(arow + 4 * q, src + 4 * q);
+    }
+    float* srow = s_sh + (stage * L2_ROWS + row) * SH_STRIDE;
+    for (int j = sub; j < S; j += 16) {
+      if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
+      else srow[j] = to_f(sh[edge * S + j]);
+    }
+    const int m = indexed ? __ldg(idx + edge) : m0 + ml * mstep;
+    const T* xs = x + ((size_t)b * Mx + m) * D + x_lo;
+    T* xrow = s_x + (size_t)(stage * L2_ROWS + row) * DX;
+    if (xvec) {
+      for (int q = sub; q < xw / 4; q += 16) cp_async_quad(xrow + 4 * q, xs + 4 * q);
+    } else {
+      for (int d = sub; d < xw && x_lo + d < D; d += 16) {
+        if (sizeof(T) == 4) cp_async4(xrow + d, xs + d);
+        else xrow[d] = xs[d];
+      }
+    }
+  };
 
   float acc[L2_TN][L2_K];
 #pragma unroll
@@ -783,148 +1011,256 @@ __global__ void __launch_bounds__(L2_THREADS, 1) tp_fused_l2_kernel(
 #pragma unroll
   for (int k = 0; k < L2_K; ++k) run[k] = 0.f;
 
-  for (int first = 0; first < total; first += L2_ROWS) {
+  gather_tile(0, 0);
+  cp_async_commit();
+
+  for (int first = 0, stage = 0; first < total; first += L2_ROWS, stage ^= 1) {
     const int rows = min(L2_ROWS, total - first);
-    // ---- gather the tile's attribute rows, harmonics and masks
-    for (int i = tid; i < C * rows * E; i += L2_THREADS) {
-      const int c = i / (rows * E);
-      const int rem = i - c * rows * E;
-      const int r = rem / E, k = rem - r * E;
-      const int e = s_edges[first + r];
-      const int nl = e / MS, ml = e - nl * MS;
-      const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
-      s_a[(c * L2_ROWS + r) * E + k] = to_f((c == 0 ? attr0 : attr1)[edge * E + k]);
-    }
-    for (int i = tid; i < rows * SH_STRIDE; i += L2_THREADS) {
-      const int r = i / SH_STRIDE, j = i - r * SH_STRIDE;
-      const int e = s_edges[first + r];
-      const int nl = e / MS, ml = e - nl * MS;
-      const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
-      s_sh[i] = j < S ? to_f(sh[edge * S + j]) : 0.f;
-    }
-    for (int i = tid; i < C * rows; i += L2_THREADS) {
-      const int c = i / rows, r = i - c * rows;
-      s_em[c * L2_ROWS + r] = s_mask[c * pairs + s_edges[first + r]];
-    }
-    // the sender-index mode: each row's sender features
-    for (int i = tid; i < (indexed ? rows * D : 0); i += L2_THREADS) {
-      const int r = i / D, d = i - r * D;
-      const int e = s_edges[first + r];
-      const int nl = e / MS, ml = e - nl * MS;
-      const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
-      s_x[i] = to_f(x[((size_t)b * Mx + idx[edge]) * D + d]);
-    }
+    gather_tile(stage ^ 1, first + L2_ROWS);        // the next tile's loads
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    // ---- the hidden layer, once for all channels
-    if (ROUND) {
-      for (int i = tid; i < C * rows * H; i += L2_THREADS) {
-        const int c = i / (rows * H);
-        const int rem = i - c * rows * H;
-        const int r = rem / H, h = rem - r * H;
-        const float* A = s_a + (c * L2_ROWS + r) * E;
-        float pre = 0.f;
-        for (int k = 0; k < E; ++k) pre = fmaf(A[k], s_w1[k * H + h], pre);
-        s_hid[(c * L2_ROWS + r) * H + h] = fmaxf(bf16_round(bf16_round(pre) + s_b1[h]), 0.f);
-      }
-    } else {
-      for (int i = tid; i < rows * H; i += L2_THREADS) {
-        const int r = i / H, h = i - r * H;
-        float hs = 0.f;
-        for (int c = 0; c < C; ++c) {
-          const float* A = s_a + (c * L2_ROWS + r) * E;
-          float pre = 0.f;
-          for (int k = 0; k < E; ++k) pre = fmaf(A[k], s_w1[k * H + h], pre);
-          hs = fmaf(s_em[c * L2_ROWS + r], fmaxf(pre + s_b1[h], 0.f), hs);
-        }
-        s_hid[r * H + h] = hs;
-      }
+    // ---- per warp, its two rows: the hidden layer, then (f32) the edge weights
+    const int r0 = warp * L2_RW;
+    float mrow[2][L2_RW];                         // the rows' masks; 0 past the tile's end
+#pragma unroll
+    for (int i = 0; i < L2_RW; ++i) {
+      const bool ok = r0 + i < rows;
+      const int e = ok ? s_edges[first + r0 + i] : 0;
+      mrow[0][i] = ok ? s_mask[e] : 0.f;
+      mrow[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
     }
-    // ---- t of every (edge, path, i)
-    for (int it = tid; it < rows * n_paths * L2_K; it += L2_THREADS) {
-      const int r = it / (n_paths * L2_K);
-      const int rem = it - r * n_paths * L2_K;
-      const int p = rem / L2_K, i = rem - p * L2_K;
-      const int* pt = s_ptab + p * 8;
-      if (i >= pt[1]) continue;
-      const int d_sh = pt[2], d_out = pt[3];
-      const float* G = s_g + p * L2_G + i * L2_K * L2_K;
-      const float* sv = s_sh + r * SH_STRIDE + pt[0];
-      float* tq = s_t + r * t_size + pt[4] + i * d_out;
-      for (int k = 0; k < d_out; ++k) {
-        float t = 0.f;
-        for (int j = 0; j < d_sh; ++j) t = fmaf(G[j * L2_K + k], sv[j], t);
-        tq[k] = t;
-      }
-    }
-    __syncthreads();
-
-    // ---- the channel's share of every row, summed receiver by receiver
-    if (active) {
-      for (int r = 0; r < rows; ++r) {
-        const int e = s_edges[first + r];
-        const int nl = e / MS, ml = e - nl * MS;
-        if (nl != cur) {
+    if (r0 < rows) {
+      // hidden units 2 lane, 2 lane + 1 of both rows: pre = A_c W1
+      float hs[L2_RW][2] = {};
+      for (int c = 0; c < C; ++c) {
+        const T* A = s_a + ((size_t)(stage * C + c) * L2_ROWS + r0) * E;
+        float pre[L2_RW][2] = {};
+#pragma unroll 3
+        for (int k = 0; k < E; k += 4) {
+          float4 av[L2_RW];
 #pragma unroll
-          for (int q = 0; q < L2_TN; ++q)
-            if (q == cur) {
+          for (int i = 0; i < L2_RW; ++i) av[i] = ld4s(A + i * E + k);
 #pragma unroll
-              for (int k = 0; k < L2_K; ++k) acc[q][k] += run[k];
-            }
-          cur = nl;
+          for (int kk = 0; kk < 4; ++kk) {
+            const float2 wv = *reinterpret_cast<const float2*>(s_w1 + (k + kk) * L2_HP + 2 * lane);
 #pragma unroll
-          for (int k = 0; k < L2_K; ++k) run[k] = 0.f;
-        }
-        float w = 0.f;
-        for (int c = 0; c < (ROUND ? C : 1); ++c) {
-          const float* hr = s_hid + (c * L2_ROWS + r) * H;
-          float dot = 0.f;
-#pragma unroll
-          for (int h4 = 0; h4 < L2_HMAX / 4; ++h4) {
-            if (4 * h4 < H) {
-              const float4 v = *reinterpret_cast<const float4*>(hr + 4 * h4);
-              dot = fmaf(v.x, w2c[4 * h4], dot);
-              dot = fmaf(v.y, w2c[4 * h4 + 1], dot);
-              dot = fmaf(v.z, w2c[4 * h4 + 2], dot);
-              dot = fmaf(v.w, w2c[4 * h4 + 3], dot);
+            for (int i = 0; i < L2_RW; ++i) {
+              const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+              pre[i][0] = fmaf(a, wv.x, pre[i][0]);
+              pre[i][1] = fmaf(a, wv.y, pre[i][1]);
             }
           }
+        }
+        const float2 bv = *reinterpret_cast<const float2*>(s_b1 + 2 * lane);
+#pragma unroll
+        for (int i = 0; i < L2_RW; ++i) {
+          // rows past the tile's end hold stale data: written as zeros
+          const bool ok = r0 + i < rows;
           if (ROUND) {
-            const float v = bf16_round(bf16_round(dot) + b2f) * s_em[c * L2_ROWS + r];
-            w = c == 0 ? v : bf16_round(w + v);
+            // the JAX package's bf16 convolution, channel by channel:
+            // h_c = relu(bf16(bf16(A_c W1) + b1))
+            const float h0 = fmaxf(bf16_round(bf16_round(pre[i][0]) + bv.x), 0.f);
+            const float h1 = fmaxf(bf16_round(bf16_round(pre[i][1]) + bv.y), 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
+                __floats2bfloat162_rn(ok ? h0 : 0.f, ok ? h1 : 0.f);
           } else {
-            const float msum = s_em[r] + (C == 2 ? s_em[L2_ROWS + r] : 0.f);
-            w = fmaf(msum, b2f, dot);
+            // hid = sum_c mask_c relu(A_c W1 + b1)
+            const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+            hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + bv.x, 0.f), hs[i][0]);
+            hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + bv.y, 0.f), hs[i][1]);
           }
         }
-        const float* xr = s_x + (indexed ? r : ml) * D + cm.x;
-        const float* tq = s_t + r * t_size + t_off;
+      }
+      if constexpr (!ROUND) {
 #pragma unroll
-        for (int i = 0; i < L2_K; ++i) {
-          if (i >= cm.y) break;
-          const float g = w * xr[i];
-#pragma unroll
-          for (int k = 0; k < L2_K; ++k)
-            if (k < cm.z) run[k] = fmaf(g, tq[i * cm.z + k], run[k]);
+        for (int i = 0; i < L2_RW; ++i) {
+          const bool ok = r0 + i < rows;
+          *reinterpret_cast<float2*>(s_hid + (r0 + i) * L2_HP + 2 * lane) =
+              ok ? make_float2(hs[i][0], hs[i][1]) : make_float2(0.f, 0.f);
         }
+        __syncwarp();
+        // ---- w[r, f] = hid W2 + msum b2 of the tile's channels 2 lane + 64 j,
+        // + 1, j < G (register tile of two rows x 2 G channels; G = 1 for a
+        // tile of 64 or fewer)
+        auto product = [&](auto groups) {
+          constexpr int G = decltype(groups)::value;
+          const float* hr = s_hid + r0 * L2_HP;
+          float wacc[L2_RW][G][2] = {};
+#pragma unroll 3
+          for (int k = 0; k < H; k += 4) {
+            float4 hv[L2_RW];
+#pragma unroll
+            for (int i = 0; i < L2_RW; ++i)
+              hv[i] = *reinterpret_cast<const float4*>(hr + i * L2_HP + k);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              float2 wv[G];
+#pragma unroll
+              for (int j = 0; j < G; ++j)
+                wv[j] = *reinterpret_cast<const float2*>(s_w2 + (k + kk) * FTP + 2 * lane + 64 * j);
+#pragma unroll
+              for (int i = 0; i < L2_RW; ++i) {
+                const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                  wacc[i][j][0] = fmaf(h, wv[j].x, wacc[i][j][0]);
+                  wacc[i][j][1] = fmaf(h, wv[j].y, wacc[i][j][1]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < L2_RW; ++i) {
+            const float msum = mrow[0][i] + mrow[1][i];
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+              const int col = 2 * lane + 64 * j;
+              const float2 bv = *reinterpret_cast<const float2*>(s_b2 + col);
+              *reinterpret_cast<float2*>(s_wt + (r0 + i) * FTP + col) =
+                  make_float2(fmaf(msum, bv.x, wacc[i][j][0]), fmaf(msum, bv.y, wacc[i][j][1]));
+            }
+          }
+        };
+        if (NCH == 2 && fc > 64) product(std::integral_constant<int, NCH>{});
+        else product(std::integral_constant<int, 1>{});
+      }
+    } else if (ROUND) {
+      for (int c = 0; c < C; ++c)   // rows past the tile's end: zeros for the product below
+        for (int i = 0; i < L2_RW; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
+              __floats2bfloat162_rn(0.f, 0.f);
+    }
+    if constexpr (ROUND) {
+      // ---- bf16: w = hid_c W2 on the tensor cores (mma.sync m16n8k16, f32
+      // sums; both operands are bf16 values), column tile warp + 8 j of the
+      // 16 rows; lane g = lane / 4 holds rows g and g + 8, tq = lane % 4
+      // their columns 2 tq, 2 tq + 1 (the fragment layout)
+      __syncthreads();
+      const int g = lane >> 2, tq = lane & 3;
+      float mr[2][2];                           // [c][row g, g + 8]
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = g + 8 * i;
+        const bool ok = r < rows;
+        const int e = ok ? s_edges[first + r] : 0;
+        mr[0][i] = ok ? s_mask[e] : 0.f;
+        mr[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
+      }
+      auto product = [&](auto groups) {
+        constexpr int G = decltype(groups)::value;
+        for (int c = 0; c < C; ++c) {
+          const __nv_bfloat16* hb = s_hidb + c * L2_ROWS * L2_KB;
+          float d[G][4] = {};
+          for (int k0 = 0; k0 < H; k0 += 16) {
+            unsigned a[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              a[q] = *reinterpret_cast<const unsigned*>(
+                  hb + (g + 8 * (q & 1)) * L2_KB + k0 + 2 * tq + 8 * (q >> 1));
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+              const __nv_bfloat16* wb = s_w2t + ((warp + 8 * j) * 8 + g) * L2_KB + k0 + 2 * tq;
+              const unsigned bb[2] = {*reinterpret_cast<const unsigned*>(wb),
+                                      *reinterpret_cast<const unsigned*>(wb + 8)};
+              mma_bf16(d[j], a, bb);
+            }
+          }
+          // w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c): channel 0's term
+          // is stored, channel 1's added to it by the same thread and rounded
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int row = g + 8 * (q >> 1), col = (warp + 8 * j) * 8 + 2 * tq + (q & 1);
+              const float mc = c == 0 ? mr[0][q >> 1] : mr[1][q >> 1];
+              const float v = bf16_round(bf16_round(d[j][q]) + s_b2[col]) * mc;
+              float* wt = s_wt + row * FTP + col;
+              *wt = c == 0 ? v : bf16_round(*wt + v);
+            }
+          }
+        }
+      };
+      if (NCH == 2 && fc > 64) product(std::integral_constant<int, NCH>{});
+      else product(std::integral_constant<int, 1>{});
+    }
+    // ---- t of every (row, tile path, i): t[i][k] = sum_j G[i, j, k] sh[j]
+    // (rows fastest, so a warp mostly shares one (path, i) and its shape)
+    for (int it = tid; it < L2_ROWS * n_pi; it += L2_THREADS) {
+      const int r = it % L2_ROWS, pi = s_pi[it / L2_ROWS];
+      const int p = pi >> 3, i = pi & 7;
+      const int* pt = s_ptab + p * 8;
+      if (r >= rows) continue;
+      const int d_sh = pt[2], d_out = pt[3];
+      const float* G = s_g + pt[5] + i * d_sh * d_out;
+      const float* sv = s_sh + (stage * L2_ROWS + r) * SH_STRIDE + pt[0];
+      float* tq = s_t + r * TS + pt[4] + i * d_out;
+      switch (d_sh * 8 + d_out) {
+        case 9: t_entry<1, 1>(tq, G, sv); break;
+        case 11: t_entry<1, 3>(tq, G, sv); break;
+        case 13: t_entry<1, 5>(tq, G, sv); break;
+        case 25: t_entry<3, 1>(tq, G, sv); break;
+        case 27: t_entry<3, 3>(tq, G, sv); break;
+        case 29: t_entry<3, 5>(tq, G, sv); break;
+        case 41: t_entry<5, 1>(tq, G, sv); break;
+        case 43: t_entry<5, 3>(tq, G, sv); break;
+        default: t_entry<5, 5>(tq, G, sv); break;
+      }
+    }
+    __syncthreads();
+
+    // ---- the channel's share of its half of the rows, summed receiver by
+    // receiver (the loops' bounds fixed by the channel's shape)
+    if (walker) {
+      const int rb = part * (L2_ROWS / parts), re = min(rows, rb + L2_ROWS / parts);
+      const int* rn = s_rn + stage * L2_ROWS;
+      const float* wt = s_wt + fw;
+      const T* xr = s_x + (size_t)stage * L2_ROWS * DX + cm.x;
+      const float* tq = s_t + t_off;
+      switch (shape) {
+        case 9: walk_rows<1, 1>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 11: walk_rows<1, 3>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 13: walk_rows<1, 5>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 25: walk_rows<3, 1>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 27: walk_rows<3, 3>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 29: walk_rows<3, 5>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 41: walk_rows<5, 1>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        case 43: walk_rows<5, 3>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
+        default: walk_rows<5, 5>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
       }
     }
     __syncthreads();
   }
+  cp_async_wait<0>();
+  flush_run(acc, run, cur, 0);
 
-  if (active) {
+  // the other parts' sums, added to part 0's in order (over the hidden and
+  // edge-weight tiles, free now)
+  float* red = smem + L.hid;                                    // [nl][cw][L2_K]
+  for (int q = 1; q < parts; ++q) {
+    __syncthreads();
+    if (walker && part == q) {
 #pragma unroll
-    for (int q = 0; q < L2_TN; ++q)
-      if (q == cur) {
+      for (int nl = 0; nl < L2_TN; ++nl)
 #pragma unroll
-        for (int k = 0; k < L2_K; ++k) acc[q][k] += run[k];
-      }
-    float4* o = reinterpret_cast<float4*>(dst) + (size_t)blockIdx.x * B * N * F * 2;
+        for (int k = 0; k < L2_K; ++k) red[(nl * cw + fl) * L2_K + k] = acc[nl][k];
+    }
+    __syncthreads();
+    if (walker && part == 0) {
+#pragma unroll
+      for (int nl = 0; nl < L2_TN; ++nl)
+#pragma unroll
+        for (int k = 0; k < L2_K; ++k) acc[nl][k] += red[(nl * cw + fl) * L2_K + k];
+    }
+  }
+  if (walker && part == 0) {
+    float4* o = reinterpret_cast<float4*>(dst) + (size_t)split * B * N * F * 2;
 #pragma unroll
     for (int nl = 0; nl < L2_TN; ++nl) {
       const int n = n0 + nl;
       if (n < N) {
-        const size_t at = ((size_t)b * N + n) * F + f;
+        const size_t at = ((size_t)b * N + n) * F + f0 + fw;
         o[2 * at] = make_float4(acc[nl][0], acc[nl][1], acc[nl][2], acc[nl][3]);
         o[2 * at + 1] = make_float4(acc[nl][4], 0.f, 0.f, 0.f);
       }
@@ -947,38 +1283,48 @@ struct ArgsL2 {
   const int* idx;
   const float *w1, *b1, *w2, *b2;
   const int *chan, *ptab;
-  const float* gtab;
+  const float* gflat;
+  const int *ctab, *walk;
   float *out, *part;
-  int B, N, M, Mx, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32;
+  int B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS, mask_is_f32;
 };
 
-template <typename T>
+template <typename T, int NCH>
 int launch_l2(const ArgsL2& a, cudaStream_t stream) {
   static bool allowed = false;   // the attribute is set once per instantiation
   if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(tp_fused_l2_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    cudaError_t err = cudaFuncSetAttribute(tp_fused_l2_kernel<T, NCH>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, L2_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  const LayoutL2 L =
-      make_layout_l2(a.C, a.E, a.H, a.D, a.n_paths, a.t_size, a.MS, a.idx != nullptr);
+  const LayoutL2 L = make_layout_l2(a.C, a.E, a.H, a.DX, a.TS, a.GS, a.PC, a.MS, 64 * NCH,
+                                    sizeof(T));
   const size_t bytes = (size_t)L.total * sizeof(float);
-  if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (bytes > (size_t)L2_SMEM) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
-  const dim3 grid(splits, (a.N + L2_TN - 1) / L2_TN, a.B);
+  const dim3 grid(splits * a.n_ct, (a.N + L2_TN - 1) / L2_TN, a.B);
   float* dst = splits > 1 ? a.part : a.out;
-  tp_fused_l2_kernel<T><<<grid, L2_THREADS, bytes, stream>>>(
+  // the sender rows' slices go four elements at a time where every row's
+  // slice starts on such a boundary (x_lo is a multiple of four)
+  const int xvec = a.D % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % (4 * sizeof(T)) == 0;
+  tp_fused_l2_kernel<T, NCH><<<grid, L2_THREADS, bytes, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
       static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
-      reinterpret_cast<const int4*>(a.chan), a.ptab, a.gtab, dst, a.B, a.N, a.M, a.Mx, a.D, a.S,
-      a.C, a.E, a.H, a.F, a.n_paths, a.t_size, a.MS, a.mask_is_f32);
+      reinterpret_cast<const int4*>(a.chan), a.ptab, a.gflat, a.ctab, a.walk, dst, a.B, a.N, a.M,
+      a.Mx,
+      a.D, a.S, a.C, a.E, a.H, a.F, a.n_ct, a.DX, a.TS, a.GS, a.PC, a.MS, a.mask_is_f32, xvec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)a.B * a.N * a.F * 8;
   tp_fused_l2_sum_splits<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a.part, a.out,
                                                                              total, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_l2_nch(const ArgsL2& a, cudaStream_t stream) {
+  return a.FTP == 64 ? launch_l2<T, 1>(a, stream) : launch_l2<T, 2>(a, stream);
 }
 
 struct Args {
@@ -1061,25 +1407,39 @@ int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* at
 }
 
 // The 8-lane kernel (irreps up to l = 2): out (B, N, F, 8); tables from
-// tp_fused.tables_l2; `part` holds (ceil(M / MS), B, N, F, 8) floats when the
-// senders (slots) are split (MS < M).  Sender-index mode: idx (B, N, M) int32,
-// x (B, Mx, D); dense: idx null, Mx = M.  Returns a cudaError_t value.
+// tp_fused.tables_tiled_l2 (chan, ptab, gflat, ctab of n_ct channel tiles, the
+// walk order and the layout's sizes DX, TS, GS, PC and FTP, 64 or 128); `part` holds
+// (ceil(M / MS), B, N, F, 8) floats when the senders (slots) are split (MS <
+// M).  Sender-index mode: idx (B, N, M) int32, x (B, Mx, D); dense: idx null,
+// Mx = M.  Returns a cudaError_t value.
 int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void* attr1,
                    const void* mask0, const void* mask1, const int* idx, const float* w1,
                    const float* b1, const float* w2, const float* b2, const int* chan,
-                   const int* ptab, const float* gtab, float* out, float* part, int B, int N,
-                   int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths,
-                   int t_size, int MS, int mask_is_f32, int bf16, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HMAX ||
-      C < 1 || C > 2 || S < 1 || S > SH_STRIDE || F < 1 || F > L2_THREADS || n_paths < 1 ||
-      n_paths > L2_MAX_PATHS || t_size < 1 || B > 65535 || (N + L2_TN - 1) / L2_TN > 65535 ||
-      MS < 1 || MS > L2_MS_MAX || (MS < M && part == nullptr) || Mx < 1 ||
-      (idx == nullptr && Mx != M))
+                   const int* ptab, const float* gflat, const int* ctab, const int* walk,
+                   float* out, float* part, int B, int N, int M, int Mx, int D, int S, int C,
+                   int E, int H, int F,
+                   int n_ct, int DX, int TS, int GS, int PC, int FTP, int MS, int mask_is_f32,
+                   int bf16, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HP ||
+      C < 1 || C > 2 || S < 1 || S > SH_STRIDE || F < 1 || n_ct < 1 || DX < 4 || DX % 4 ||
+      TS < 1 || GS < 1 || PC < 1 || PC > L2_MAX_PATHS || (FTP != 64 && FTP != 128) ||
+      B > 65535 || (N + L2_TN - 1) / L2_TN > 65535 || MS < 1 || MS > L2_MS_MAX ||
+      (MS < M && part == nullptr) || Mx < 1 || (idx == nullptr && Mx != M) ||
+      (long long)((M + MS - 1) / MS) * n_ct > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const ArgsL2 a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, ptab, gtab, out,
-                 part, B, N, M, Mx, D, S, C, E, H, F, n_paths, t_size, MS, mask_is_f32};
+  const ArgsL2 a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, ptab, gflat, ctab,
+                 walk, out, part, B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS,
+                 mask_is_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_l2<__nv_bfloat16>(a, st) : launch_l2<float>(a, st);
+  return bf16 ? launch_l2_nch<__nv_bfloat16>(a, st) : launch_l2_nch<float>(a, st);
+}
+
+// Bytes of shared memory the 8-lane kernel takes at these sizes (the
+// arguments of dp_tp_fused_l2, esize the operands' bytes); a launch that
+// needs more than L2_SMEM is refused.
+int dp_tp_fused_l2_smem(int C, int E, int H, int DX, int TS, int GS, int PC, int MS, int FTP,
+                        int esize) {
+  return make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, esize).total * (int)sizeof(float);
 }
 
 const char* dp_cuda_error_string(int code) {

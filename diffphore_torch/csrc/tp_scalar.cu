@@ -80,14 +80,36 @@
 // zero, never read), and the edge backward reading all P = 9 harmonic
 // components (that path reads components 4-8); `if constexpr` keeps the
 // L = 1 instantiations as they were.
-// Sender-index mode (the KNN phore grid; a template flag IDX, so the dense
-// instantiations stay as they were): an int32 index (B, N, K) names the
-// sender row of x (B, Mx, U) that slot k of receiver n reads; sh, w and dw are
-// (B, N, K, .).  The forward and the edge backward read x at the index.  dx
-// walks each sender's slots in the fixed order of the host's inverse lists
-// (`order`: the flat slots by sender, ascending within one; `ptr`: each
-// sender's extent), a thread per (kept sender, channel) as above, no split;
-// the channels that read one element are then added in the block as above.
+// Sender-index mode (the KNN phore grid; a template flag IDX on the forward
+// and the edge backward, so the dense instantiations stay as they were): an
+// int32 index (B, N, K) names the sender row of x (B, Mx, U) that slot k of
+// receiver n reads; sh, w and dw are (B, N, K, .).  The forward and the edge
+// backward read x at the index.
+// Sender-index dx: tp_scalar_bwd_x_idx_slots, _chunks and _sum.  What bounds
+// it: the bytes of the dense dx (each slot's w row and harmonics, each
+// receiver's g row once, dx once), about 3 us at 4 lanes and K = 24 on a
+// 24-complex step.  But a sender's slots are scattered over the receivers
+// (the host's inverse lists `order` / `ptr` name them), and under KNN their
+// counts are uneven (a phore point among the K nearest of most receivers has
+// dozens, a padded one none).  The first version walked one sender's whole
+// list a thread, a chain of dependent loads (the slot, then its w, sh and g)
+// as long as the longest list on a grid of a few small blocks: 13x its
+// bound, no faster than a gathered einsum with index_add_.  Cutting the
+// lists into chunks (below) alone left a second cost in view: a slot reads
+// its receiver's g row (16 or 32 bytes a channel), so walking by sender read
+// g once per (slot, channel), 4 to 8 times the bytes of w, from L2.  So:
+//  * _slots, receiver by receiver (a thread per (receiver, channel), its g
+//    row read once): each slot's f32 term y = w * sum_k sh g, written in slot
+//    order, coalesced;
+//  * _chunks: every sender's list cut into chunks of at most Q slots
+//    (`cuts`: the chunks tile `order` in its own order, chunk i is
+//    order[cuts[i] .. cuts[i + 1])), Q chosen on the host so that the chunks
+//    fill every block slot the card holds (an occupancy query); a thread per
+//    (chunk, channel) loads eight slots' terms before adding any, in order,
+//    into an f32 scratch row;
+//  * _sum: each sender's chunks added in order (`row_ptr`: its extent in the
+//    chunks), times c_p, then the channels that read one element, as the
+//    dense dx adds them.
 // No atomics: reruns agree to the bit.
 
 #include <cuda_bf16.h>
@@ -172,8 +194,7 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
 }
 
 // Writes dx (B, M, D) in T when one split, else f32 partial sums (splits, B, M, D).
-// IDX: dx (B, Mx, D) from each sender's slots order[ptr[b * Mx + m] ..], one split.
-template <typename T, int L, bool IDX>
+template <typename T, int L>
 __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
     const T* __restrict__ sh,          // (B, N, M, S)
     const T* __restrict__ w,           // (B, N, M, F)
@@ -182,9 +203,7 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
     const float* __restrict__ scale,   // (F)
     const int* __restrict__ d_ptr,     // (D + 1): extents into d_item per input element
     const int* __restrict__ d_item,    // the channels reading each element, ascending
-    const int* __restrict__ order,     // IDX: the flat slots (b * N + n) * M + k by sender
-    const int* __restrict__ ptr,       // IDX: (B * Mx + 1) each sender's extent in order
-    T* __restrict__ dx, float* __restrict__ part, int B, int N, int M, int Mx, int D, int S,
+    T* __restrict__ dx, float* __restrict__ part, int B, int N, int M, int D, int S,
     int F, int n_items, int keep, int chunk) {
   extern __shared__ __align__(16) float smem[];
   float* s_part = smem;                                            // [kept][F]
@@ -193,37 +212,9 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   const int kl = tid / F, f = tid - kl * F;
   const int b = blockIdx.z, m0 = blockIdx.y * keep, m = m0 + kl;
-  const int n_keep = IDX ? Mx : M;
   for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
   for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
-  if (kl < keep && IDX) {
-    float acc = 0.f;
-    if (m < Mx) {
-      const int4 c = chan[f];
-      const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;
-      const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
-      const int q1 = ptr[(size_t)b * Mx + m + 1];
-#pragma unroll 4
-      for (int q = ptr[(size_t)b * Mx + m]; q < q1; ++q) {
-        const size_t e = (size_t)__ldg(order + q);          // the slot; its receiver row e / M
-        const float wv = ld(w + e * F + f);
-        const T* s = sh + e * S + c.y;
-        const float4* gp = reinterpret_cast<const float4*>(g) + ((e / M) * F + f) * L;
-        const float4 gv = __ldg(gp);
-        float t = ld(s) * gv.x;
-        t = fmaf(ld(s + k1), k1 ? gv.y : 0.f, t);
-        t = fmaf(ld(s + k2), k2 ? gv.z : 0.f, t);
-        if constexpr (L == 2) {
-          const float4 gw = __ldg(gp + 1);
-          t = fmaf(ld(s + k3), k3 ? gv.w : 0.f, t);
-          t = fmaf(ld(s + k4), k4 ? gw.x : 0.f, t);
-        }
-        acc = fmaf(wv, t, acc);
-      }
-      acc *= scale[f];
-    }
-    s_part[kl * F + f] = acc;
-  } else if (kl < keep) {
+  if (kl < keep) {
     float acc = 0.f;
     if (m < M) {
       const int n0 = blockIdx.x * chunk, n1 = min(N, n0 + chunk);
@@ -258,10 +249,10 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
   for (int r = tid; r < keep * D; r += nt) {
     const int k = r / D, d = r - k * D;
     const int mm = m0 + k;
-    if (mm >= n_keep) continue;
+    if (mm >= M) continue;
     float sum = 0.f;
     for (int e = s_dptr[d]; e < s_dptr[d + 1]; ++e) sum += s_part[k * F + s_ditem[e]];
-    const size_t at = ((size_t)b * n_keep + mm) * D + d;
+    const size_t at = ((size_t)b * M + mm) * D + d;
     if (part != nullptr) part[(size_t)blockIdx.x * B * M * D + at] = sum;
     else dx[at] = from_f<T>(sum);
   }
@@ -276,6 +267,102 @@ __global__ void tp_scalar_sum_splits(const float* __restrict__ part, T* __restri
   float s = part[i];
   for (int k = 1; k < splits; ++k) s += part[k * total + i];
   out[i] = from_f<T>(s);
+}
+
+// ---- sender-index dx: per-slot terms, slot chunks, a sum per sender (head note) ----
+
+constexpr int IDX_UNROLL = 8;   // slots of a chunk whose loads are in flight at once
+
+// y[e, f] = w[e, f] * sum_k sh[e, off_f + k] g[e / M, f, k] (f32) of every
+// slot e: a thread per (receiver row, channel) reads its g row once and walks
+// the row's M slots.
+template <typename T, int L>
+__global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_idx_slots(
+    const T* __restrict__ sh,          // (B, N, M, S)
+    const T* __restrict__ w,           // (B, N, M, F)
+    const float* __restrict__ g,       // (B, N, F, 4 L) upstream gradient
+    const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
+    float* __restrict__ y, int receivers, int M, int S, int F, int keep) {
+  const int tid = threadIdx.x;
+  const int kl = tid / F, f = tid - kl * F;
+  const int rr = blockIdx.x * keep + kl;
+  if (kl >= keep || rr >= receivers) return;
+  const int4 c = chan[f];
+  const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;
+  const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
+  const float4* gp = reinterpret_cast<const float4*>(g) + ((size_t)rr * F + f) * L;
+  const float4 gv = __ldg(gp);
+  float4 gw = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (L == 2) gw = __ldg(gp + 1);
+  const float c1 = k1 ? gv.y : 0.f, c2 = k2 ? gv.z : 0.f;
+  const float c3 = k3 ? gv.w : 0.f, c4 = k4 ? gw.x : 0.f;
+  const size_t e0 = (size_t)rr * M;
+#pragma unroll 4
+  for (int k = 0; k < M; ++k) {
+    const size_t e = e0 + k;
+    const T* s = sh + e * S + c.y;
+    float t = ld(s) * gv.x;
+    t = fmaf(ld(s + k1), c1, t);
+    t = fmaf(ld(s + k2), c2, t);
+    if constexpr (L == 2) {
+      t = fmaf(ld(s + k3), c3, t);
+      t = fmaf(ld(s + k4), c4, t);
+    }
+    y[e * F + f] = ld(w + e * F + f) * t;
+  }
+}
+
+// part[i][f] = the f32 sum over chunk i's slots order[cuts[i] .. cuts[i + 1])
+// of y[e, f], in order, for the first row_ptr[rows] chunks (the rest of the
+// grid-stride range is the host's bound).
+__global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_idx_chunks(
+    const float* __restrict__ y,       // (B * N * M, F) the slots' terms
+    const int* __restrict__ order,     // the flat slots (b * N + n) * M + k by sender
+    const int* __restrict__ cuts,      // (chunks + 1): each chunk's extent in order
+    const int* __restrict__ row_ptr,   // (rows + 1): each sender's extent in the chunks
+    float* __restrict__ part, int F, int keep, int rows) {
+  const int tid = threadIdx.x;
+  const int kl = tid / F, f = tid - kl * F;
+  if (kl >= keep) return;
+  const int chunks = __ldg(row_ptr + rows);
+  for (int it = blockIdx.x * keep + kl; it < chunks; it += gridDim.x * keep) {
+    const int q0 = __ldg(cuts + it), q1 = __ldg(cuts + it + 1);
+    float acc = 0.f;
+    for (int q = q0; q < q1; q += IDX_UNROLL) {
+      // every load of IDX_UNROLL slots issued before any is used
+      float v[IDX_UNROLL];
+#pragma unroll
+      for (int u = 0; u < IDX_UNROLL; ++u)
+        v[u] = q + u < q1 ? __ldg(y + (size_t)__ldg(order + q + u) * F + f) : 0.f;
+#pragma unroll
+      for (int u = 0; u < IDX_UNROLL; ++u)
+        if (q + u < q1) acc += v[u];
+    }
+    part[(size_t)it * F + f] = acc;
+  }
+}
+
+// dx[r, d] = sum over the channels f reading element d (d_item order) of
+// c_p(f) * (the sum of sender r's chunks' part[., f], in order).
+template <typename T>
+__global__ void tp_scalar_bwd_x_idx_sum(const float* __restrict__ part,
+                                        const int* __restrict__ row_ptr,
+                                        const float* __restrict__ scale,
+                                        const int* __restrict__ d_ptr,
+                                        const int* __restrict__ d_item, T* __restrict__ dx,
+                                        int rows, int D, int F) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * D) return;
+  const int r = i / D, d = i - r * D;
+  const int it0 = __ldg(row_ptr + r), it1 = __ldg(row_ptr + r + 1);
+  float sum = 0.f;
+  for (int e = __ldg(d_ptr + d); e < __ldg(d_ptr + d + 1); ++e) {
+    const int f = __ldg(d_item + e);
+    float s = 0.f;
+    for (int it = it0; it < it1; ++it) s += part[(size_t)it * F + f];
+    sum += __fmul_rn(s, scale[f]);
+  }
+  dx[i] = from_f<T>(sum);
 }
 
 // ---- dw and dsh: one launch per convolution (head note) ----
@@ -528,25 +615,40 @@ int launch_fwd(const void* x, const void* sh, const void* w, const int* idx, con
 
 template <typename T, int L>
 int launch_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
-                 const float* scale, const int* d_ptr, const int* d_item, const int* order,
-                 const int* ptr, void* dx, float* part, int B, int N, int M, int Mx, int D, int S,
-                 int F, int n_items, int keep, int chunk, int splits, cudaStream_t st) {
-  const bool indexed = order != nullptr;
-  const dim3 grid(splits, ((indexed ? Mx : M) + keep - 1) / keep, B);
+                 const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
+                 int B, int N, int M, int D, int S, int F, int n_items, int keep, int chunk,
+                 int splits, cudaStream_t st) {
+  const dim3 grid(splits, (M + keep - 1) / keep, B);
   const int threads = round_up_32(keep * F);
   const size_t bytes = bwd_x_smem(keep, F, D, n_items);
   T* out = static_cast<T*>(dx);
-  if (indexed)
-    tp_scalar_bwd_x_kernel<T, L, true><<<grid, threads, bytes, st>>>(
-        static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
-        scale, d_ptr, d_item, order, ptr, out, nullptr, B, N, M, Mx, D, S, F, n_items, keep,
-        chunk);
-  else
-    tp_scalar_bwd_x_kernel<T, L, false><<<grid, threads, bytes, st>>>(
-        static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
-        scale, d_ptr, d_item, nullptr, nullptr, out, splits > 1 ? part : nullptr, B, N, M, M, D,
-        S, F, n_items, keep, chunk);
-  return sum_splits<T>(part, out, (long long)B * M * D, indexed ? 1 : splits, st);
+  tp_scalar_bwd_x_kernel<T, L><<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+      scale, d_ptr, d_item, out, splits > 1 ? part : nullptr, B, N, M, D, S, F, n_items, keep,
+      chunk);
+  return sum_splits<T>(part, out, (long long)B * M * D, splits, st);
+}
+
+template <typename T, int L>
+int launch_bwd_x_idx(const void* sh, const void* w, const float* g, const int* chan,
+                     const float* scale, const int* d_ptr, const int* d_item, const int* order,
+                     const int* cuts, const int* row_ptr, void* dx, float* y, float* part,
+                     int receivers, int M, int D, int S, int F, int rows, int keep, int blocks,
+                     cudaStream_t st) {
+  const int threads = round_up_32(keep * F);
+  tp_scalar_bwd_x_idx_slots<T, L><<<(receivers + keep - 1) / keep, threads, 0, st>>>(
+      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+      y, receivers, M, S, F, keep);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tp_scalar_bwd_x_idx_chunks<<<blocks, threads, 0, st>>>(y, order, cuts, row_ptr, part, F, keep,
+                                                         rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)rows * D;
+  tp_scalar_bwd_x_idx_sum<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      part, row_ptr, scale, d_ptr, d_item, static_cast<T*>(dx), rows, D, F);
+  return (int)cudaGetLastError();
 }
 
 bool quad_aligned(const void* p, int esize) {
@@ -623,22 +725,37 @@ int fwd_entry(const void* x, const void* sh, const void* w, const int* idx, cons
 
 template <int L>
 int bwd_x_entry(const void* sh, const void* w, const float* g, const int* chan,
-                const float* scale, const int* d_ptr, const int* d_item, const int* order,
-                const int* ptr, void* dx, float* part, int B, int N, int M, int Mx, int D, int S,
-                int F, int n_items, int keep, int chunk, int splits, int bf16, void* stream) {
-  const bool indexed = order != nullptr;
+                const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
+                int B, int N, int M, int D, int S, int F, int n_items, int keep, int chunk,
+                int splits, int bf16, void* stream) {
   if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, N, part) || n_items < 1 ||
-      ((indexed ? Mx : M) + keep - 1) / keep > 65535 ||
-      bwd_x_smem(keep, F, D, n_items) > 48 * 1024 || Mx < 1 || indexed != (ptr != nullptr) ||
-      (!indexed && Mx != M) || (indexed && splits != 1))
+      (M + keep - 1) / keep > 65535 || bwd_x_smem(keep, F, D, n_items) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_x<__nv_bfloat16, L>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr,
-                                               dx, part, B, N, M, Mx, D, S, F, n_items, keep,
-                                               chunk, splits, st)
-              : launch_bwd_x<float, L>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr, dx,
-                                       part, B, N, M, Mx, D, S, F, n_items, keep, chunk, splits,
-                                       st);
+  return bf16 ? launch_bwd_x<__nv_bfloat16, L>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B,
+                                               N, M, D, S, F, n_items, keep, chunk, splits, st)
+              : launch_bwd_x<float, L>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M,
+                                       D, S, F, n_items, keep, chunk, splits, st);
+}
+
+template <int L>
+int bwd_x_idx_entry(const void* sh, const void* w, const float* g, const int* chan,
+                    const float* scale, const int* d_ptr, const int* d_item, const int* order,
+                    const int* cuts, const int* row_ptr, void* dx, float* y, float* part, int B,
+                    int N, int M, int Mx, int D, int S, int F, int keep, int blocks, int bf16,
+                    void* stream) {
+  if (B < 1 || N < 1 || M < 1 || Mx < 1 || D < 1 || S < 1 || F < 1 || keep < 1 ||
+      keep * F > THREADS || blocks < 1 || order == nullptr || cuts == nullptr ||
+      row_ptr == nullptr || y == nullptr || part == nullptr ||
+      (long long)B * N * M * std::max(F, S) >= INT_MAX || (long long)B * Mx * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_x_idx<__nv_bfloat16, L>(sh, w, g, chan, scale, d_ptr, d_item, order,
+                                                   cuts, row_ptr, dx, y, part, B * N, M, D, S, F,
+                                                   B * Mx, keep, blocks, st)
+              : launch_bwd_x_idx<float, L>(sh, w, g, chan, scale, d_ptr, d_item, order, cuts,
+                                           row_ptr, dx, y, part, B * N, M, D, S, F, B * Mx,
+                                           keep, blocks, st);
 }
 
 template <int L>
@@ -669,6 +786,7 @@ int edge_blocks_entry(int dsh, int bf16) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
+// dx: 0 the forward, 1 the dense dx, 2 the sender-index dx (chunks).
 template <int L>
 int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
   if (F < 1 || F > THREADS) return -(int)cudaErrorInvalidValue;
@@ -676,12 +794,15 @@ int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
   const int threads = round_up_32(keep * F);
   int blocks = 0;
   cudaError_t err;
-  if (dx) {
+  if (dx == 2) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_scalar_bwd_x_idx_chunks,
+                                                        threads, 0);
+  } else if (dx) {
     const size_t bytes = bwd_x_smem(keep, F, D, n_items);
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, L, false>, threads, bytes)
+                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, L>, threads, bytes)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<float, L, false>, threads, bytes);
+                     &blocks, tp_scalar_bwd_x_kernel<float, L>, threads, bytes);
   } else {
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L, false>, threads, 0)
@@ -712,15 +833,26 @@ int dp_tp_scalar_fwd(const void* x, const void* sh, const void* w, const int* id
 }
 
 // dx (B, M, D) of every path of a convolution, in the operands' type; `part`
-// holds (splits, B, M, D) floats when the receivers are split.  Sender-index
-// mode: `order` and `ptr` (tp_fused.sender_lists), dx (B, Mx, D), one split.
+// holds (splits, B, M, D) floats when the receivers are split.
 int dp_tp_scalar_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
-                       const float* scale, const int* d_ptr, const int* d_item, const int* order,
-                       const int* ptr, void* dx, float* part, int B, int N, int M, int Mx, int D,
-                       int S, int F, int n_items, int keep, int chunk, int splits, int bf16,
-                       void* stream) {
-  return bwd_x_entry<1>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr, dx, part, B, N, M, Mx,
-                        D, S, F, n_items, keep, chunk, splits, bf16, stream);
+                       const float* scale, const int* d_ptr, const int* d_item, void* dx,
+                       float* part, int B, int N, int M, int D, int S, int F, int n_items,
+                       int keep, int chunk, int splits, int bf16, void* stream) {
+  return bwd_x_entry<1>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F, n_items,
+                        keep, chunk, splits, bf16, stream);
+}
+
+// The sender-index dx (B, Mx, D), in the operands' type: `order`
+// (tp_fused.sender_lists), `cuts` and `row_ptr` (tp_scalar.slot_chunks); `y`
+// (B * N * M, F) and `part` (chunks, F) floats of scratch, part for at least
+// the row_ptr[B * Mx] chunks; `blocks` blocks of `keep` chunks.
+int dp_tp_scalar_bwd_x_idx(const void* sh, const void* w, const float* g, const int* chan,
+                           const float* scale, const int* d_ptr, const int* d_item,
+                           const int* order, const int* cuts, const int* row_ptr, void* dx,
+                           float* y, float* part, int B, int N, int M, int Mx, int D, int S, int F,
+                           int keep, int blocks, int bf16, void* stream) {
+  return bwd_x_idx_entry<1>(sh, w, g, chan, scale, d_ptr, d_item, order, cuts, row_ptr, dx, y,
+                            part, B, N, M, Mx, D, S, F, keep, blocks, bf16, stream);
 }
 
 // dw (B, N, M, F) into `dw` (nullptr: none) and dsh (B, N, M, S) into `dsh`
@@ -743,14 +875,15 @@ int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const in
 // minus a cudaError_t value.
 int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) { return edge_blocks_entry<1>(dsh, bf16); }
 
-// Blocks of the forward (dx = 0) or dx kernel that one SM holds at once for a
-// convolution of F channels (keep = THREADS / F entries a block), D input
-// elements and n_items (channel, element) pairs, or minus a cudaError_t value.
+// Blocks of the forward (dx = 0), dense dx (1) or sender-index dx (2, its
+// chunk kernel) that one SM holds at once for a convolution of F
+// channels (keep = THREADS / F entries a block), D input elements and n_items
+// (channel, element) pairs, or minus a cudaError_t value.
 int dp_tp_scalar_blocks_per_sm(int dx, int F, int D, int n_items, int bf16) {
   return blocks_entry<1>(dx, F, D, n_items, bf16);
 }
 
-// The same five functions at L = 2: g and out (B, N, F, 8), K <= 5, reach <= 9.
+// The same six functions at L = 2: g and out (B, N, F, 8), K <= 5, reach <= 9.
 int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
                         const int* chan, const float* scale, float* out, float* part, int B,
                         int N, int M, int Mx, int D, int S, int F, int keep, int chunk,
@@ -760,12 +893,20 @@ int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int*
 }
 
 int dp_tp_scalar_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
-                          const float* scale, const int* d_ptr, const int* d_item,
-                          const int* order, const int* ptr, void* dx, float* part, int B, int N,
-                          int M, int Mx, int D, int S, int F, int n_items, int keep, int chunk,
-                          int splits, int bf16, void* stream) {
-  return bwd_x_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, order, ptr, dx, part, B, N, M, Mx,
-                        D, S, F, n_items, keep, chunk, splits, bf16, stream);
+                          const float* scale, const int* d_ptr, const int* d_item, void* dx,
+                          float* part, int B, int N, int M, int D, int S, int F, int n_items,
+                          int keep, int chunk, int splits, int bf16, void* stream) {
+  return bwd_x_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F, n_items,
+                        keep, chunk, splits, bf16, stream);
+}
+
+int dp_tp_scalar_bwd_x_idx_l2(const void* sh, const void* w, const float* g, const int* chan,
+                           const float* scale, const int* d_ptr, const int* d_item,
+                           const int* order, const int* cuts, const int* row_ptr, void* dx,
+                           float* y, float* part, int B, int N, int M, int Mx, int D, int S, int F,
+                           int keep, int blocks, int bf16, void* stream) {
+  return bwd_x_idx_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, order, cuts, row_ptr, dx, y,
+                            part, B, N, M, Mx, D, S, F, keep, blocks, bf16, stream);
 }
 
 int dp_tp_scalar_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,

@@ -20,9 +20,10 @@ into the per-irrep blocks of ``ChannelwiseTP.aggregate``.
 :func:`tp_aggregate_fused` launches the kernel for CUDA tensors and runs
 :func:`tp_aggregate_fused_plain`, the same function in plain PyTorch, for
 CPU tensors.  A product whose irreps reach l = 2 (``use_second_order_repr``)
-runs the 8-lane kernel ``tp_fused_l2_kernel`` (same source), the others the
-4-lane one.  ``KERNEL.launches`` and ``KERNEL_L2.launches`` count the
-launches of each.
+runs the 8-lane kernel ``tp_fused_l2_kernel`` (same source; a block per
+channel tile of :func:`channel_tiles`, its tables by tile from
+:func:`tables_tiled_l2`), the others the 4-lane one.  ``KERNEL.launches``
+and ``KERNEL_L2.launches`` count the launches of each.
 
 Sender-index mode (the KNN phore grid, ``phore_knn``): with
 ``sender_index`` (B, N, K) int32 the edge tensors are (B, N, K, ...) and
@@ -59,9 +60,12 @@ MAX_PATHS = 16    # most tensor-product paths
 TARGET_BLOCKS = 2 * 132   # two blocks for each SM of an H100
 # the 8-lane kernel (l <= 2)
 TILE_N_L2 = 4         # receivers per block
-MAX_SENDERS_L2 = 64   # most senders one block takes
-MAX_F_L2 = 384        # a thread per channel
+MAX_SENDERS_L2 = 96   # most senders one block takes (a 96-point phore in one split)
+MAX_F_L2 = 384        # widest edge-weight row
 MAX_PATHS_L2 = 32
+ROWS_L2 = 16          # live edges per tile
+TILE_F_L2 = 128       # widest channel tile of a block (two channels a lane, two lane groups)
+SMEM_L2 = 113 * 1024  # shared memory a block may take so that two fit on an SM
 
 
 class _Kernel:
@@ -292,19 +296,100 @@ def device_tables_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype = torch.
 
 
 @functools.lru_cache(maxsize=None)
+def channel_tiles(tp: ChannelwiseTP) -> Tuple[Tuple[int, int, int, int], ...]:
+    """The 8-lane kernel's channel tiles: (first channel, channels, first
+    path, paths) of each, cut at path boundaries, each filled with paths up
+    to ``TILE_F_L2`` channels.  A block takes one tile: its W2 columns, t
+    tables and coupling tensors only, and computes its product in 64-channel
+    groups (so a tile of 120 wastes 8 columns, one of 90 would waste 38)."""
+    if any(p.mul_in > TILE_F_L2 for p in tp.paths):
+        raise ValueError(f"tp_fused: a path of more than {TILE_F_L2} channels")
+    tiles, f0, p0 = [], 0, 0
+    for q, p in enumerate(tp.paths):
+        end = p.w_slice[1]
+        if q + 1 == len(tp.paths) or tp.paths[q + 1].w_slice[1] - f0 > TILE_F_L2:
+            tiles.append((f0, end - f0, p0, q + 1 - p0))
+            f0, p0 = end, q + 1
+    return tuple(tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def tables_tiled_l2(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32):
+    """The 8-lane K1's tables, by channel tile (:func:`channel_tiles`): per
+    channel (x offset from its tile's x_lo, d_in, d_out, path within the
+    tile) int32 (F, 4); per path (sh_off, d_in, d_sh, d_out, t_off and g_off
+    within its tile, 0, 0) int32 (n_paths, 8), each path's t block starting
+    on a multiple of four floats; alpha * cg of every path (cg rounded to
+    ``dtype``), its d_in x d_sh x d_out entries flat in path order (f32); per
+    tile (f0, fc, p0, pc, x_lo, xw, g0, gs) int32 (tiles, 8): its channels,
+    paths, the x elements [x_lo, x_lo + xw) its channels read (x_lo and xw
+    multiples of four) and its coupling entries; the walk's order (F,)
+    int32, each tile's channels sorted by (d_in, d_out), so that a warp of
+    the walk mostly shares one loop shape; and the layout's sizes (DX, TS,
+    GS, PC, FTP): the widest x slice, t row, coupling slice and path count
+    of a tile, and the channel pitch (64 or 128)."""
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    tiles = channel_tiles(tp)
+    chan = np.zeros((tp.weight_numel, 4), np.int32)
+    ptab = np.zeros((len(tp.paths), 8), np.int32)
+    ctab = np.zeros((len(tiles), 8), np.int32)
+    walk = np.zeros(tp.weight_numel, np.int32)
+    gflat, t_sizes = [], []
+    for k, (f0, fc, p0, pc) in enumerate(tiles):
+        paths = tp.paths[p0:p0 + pc]
+        x_lo = min(in_slices[p.i_in].start for p in paths) // 4 * 4
+        x_hi = max(in_slices[p.i_in].start + p.mul_in * (2 * p.l_in + 1) for p in paths)
+        g0 = sum(len(g) for g in gflat)
+        t_off = g_off = 0
+        for q, p in enumerate(paths, start=p0):
+            d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
+            sh_off = sh_slices[p.i_sh].start
+            if sh_off + d2 > _SH_STRIDE or max(d1, d2, d3) > _J_MAX:
+                raise ValueError("harmonics layout outside the kernel's table")
+            ptab[q] = (sh_off, d1, d2, d3, t_off, g_off, 0, 0)
+            gflat.append(coupling(p, dtype).reshape(-1))
+            for u in range(p.mul_in):
+                chan[p.w_slice[0] + u] = (in_slices[p.i_in].start + u * d1 - x_lo, d1, d3, q - p0)
+            t_off += -(-d1 * d3 // 4) * 4
+            g_off += d1 * d2 * d3
+        ctab[k] = (f0, fc, p0, pc, x_lo, -(-(x_hi - x_lo) // 4) * 4, g0, g_off)
+        walk[f0:f0 + fc] = f0 + np.argsort(chan[f0:f0 + fc, 1] * 8 + chan[f0:f0 + fc, 2],
+                                           kind="stable")
+        t_sizes.append(t_off)
+    dims = (int(ctab[:, 5].max()), max(t_sizes), int(ctab[:, 7].max()), int(ctab[:, 3].max()),
+            64 if ctab[:, 1].max() <= 64 else 128)
+    return chan, ptab, np.concatenate(gflat).astype(np.float32), ctab, walk, dims
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables_tiled_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype):
+    *tables, dims = tables_tiled_l2(tp, dtype)
+    return tuple(torch.as_tensor(t, device=device) for t in tables) + (dims,)
+
+
+def grid_l2(tp: ChannelwiseTP, B: int, N: int, M: int) -> Tuple[int, int, int, int]:
+    """(senders per block, sender splits, channel tiles, blocks) of an
+    8-lane K1 launch on (B, N, M)."""
+    tiles = len(channel_tiles(tp))
+    per_block, splits = plan_senders(B, N, M, TILE_N_L2, MAX_SENDERS_L2, tiles)
+    return per_block, splits, tiles, B * -(-N // TILE_N_L2) * splits * tiles
+
+
+@functools.lru_cache(maxsize=None)
 def plan_senders(B: int, N: int, M: int, tile_n: int = TILE_N,
-                 max_senders: int = MAX_SENDERS) -> Tuple[int, int]:
+                 max_senders: int = MAX_SENDERS, channel_tiles: int = 1) -> Tuple[int, int]:
     """(senders per block, sender splits) of a launch on (B, N, M).
 
-    A block takes one batch row, ``tile_n`` receivers and every
-    ``splits``-th sender.  It takes as many as the kernel allows
-    (``max_senders``) unless that leaves fewer than ``TARGET_BLOCKS``
-    blocks; then fewer, down to ``MIN_SENDERS``, and the partial sums of the
-    splits are added by a second kernel.  One split needs no scratch buffer.
+    A block takes one batch row, ``tile_n`` receivers, one of
+    ``channel_tiles`` tiles of the channels and every ``splits``-th sender.
+    It takes as many as the kernel allows (``max_senders``) unless that
+    leaves fewer than ``TARGET_BLOCKS`` blocks; then fewer, down to
+    ``MIN_SENDERS``, and the partial sums of the splits are added by a second
+    kernel.  One split needs no scratch buffer.
     The 4-lane kernel takes ``TILE_N`` and ``MAX_SENDERS``, the 8-lane one
     ``TILE_N_L2`` and ``MAX_SENDERS_L2``.
     """
-    tiles = B * -(-N // tile_n)
+    tiles = B * -(-N // tile_n) * channel_tiles
     splits_wanted = -(-TARGET_BLOCKS // tiles)
     per_block = min(M, max_senders, max(MIN_SENDERS, M // splits_wanted))
     return per_block, -(-M // per_block)
@@ -316,8 +401,10 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dp_tp_fused.argtypes = [p] * 15 + [i] * 14 + [p]
     lib.dp_tp_fused.restype = i
-    lib.dp_tp_fused_l2.argtypes = [p] * 16 + [i] * 15 + [p]
+    lib.dp_tp_fused_l2.argtypes = [p] * 18 + [i] * 19 + [p]
     lib.dp_tp_fused_l2.restype = i
+    lib.dp_tp_fused_l2_smem.argtypes = [i] * 10
+    lib.dp_tp_fused_l2_smem.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -428,7 +515,8 @@ def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``tp_fused_l2_kernel`` on inputs :func:`tp_aggregate_fused` has
-    checked: the 8-lane product, dense or in the sender-index mode."""
+    checked: the 8-lane product, dense or in the sender-index mode, one
+    block a (batch row, receiver tile, sender split, channel tile)."""
     dev = x.device
     B, N, M, S = sh.shape
     E, H = w1.shape
@@ -436,23 +524,26 @@ def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     if E % 4 or H % 4 or H > MAX_H or F > MAX_F_L2 or len(tp.paths) > MAX_PATHS_L2:
         raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
                          f"H <= {MAX_H}, F = {F} <= {MAX_F_L2}, at most {MAX_PATHS_L2} paths")
-    if any(t.data_ptr() % 16 for t in attrs):
-        raise ValueError("tp_aggregate_fused: attrs must be 16-byte aligned")
-    chan, ptab, gtab, t_size = device_tables_l2(tp, str(dev), x.dtype)
+    if any(t.data_ptr() % 16 for t in (*attrs, w1, w2)):
+        raise ValueError("tp_aggregate_fused: attrs, w1 and w2 must be 16-byte aligned")
+    chan, ptab, gflat, ctab, walk, dims = _device_tables_tiled_l2(tp, str(dev), x.dtype)
+    per_block, splits, n_ct, _ = grid_l2(tp, B, N, M)
+    lib = _library()
+    if lib.dp_tp_fused_l2_smem(len(attrs), E, H, *dims[:4], per_block, dims[4],
+                               x.element_size()) > SMEM_L2:
+        raise ValueError(f"tp_aggregate_fused: E = {E}, H = {H} and the channel tiles' sizes "
+                         f"{dims} need more than the {SMEM_L2} bytes of shared memory a block has")
     out = torch.empty((B, N, F, K_PAD_L2), dtype=torch.float32, device=dev)
-    per_block, splits = plan_senders(B, N, M, TILE_N_L2, MAX_SENDERS_L2)
     part = (torch.empty((splits, B, N, F, K_PAD_L2), dtype=torch.float32, device=dev)
             if splits > 1 else None)
-    lib = _library()
     rc = lib.dp_tp_fused_l2(
         x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attrs[-1].data_ptr(),
-        masks[0].data_ptr(), masks[-1].data_ptr(),
-        _ptr(sender_index),
+        masks[0].data_ptr(), masks[-1].data_ptr(), _ptr(sender_index),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
-        ptab.data_ptr(), gtab.data_ptr(), out.data_ptr(),
+        ptab.data_ptr(), gflat.data_ptr(), ctab.data_ptr(), walk.data_ptr(), out.data_ptr(),
         _ptr(part),
-        B, N, M, x.shape[1], x.shape[-1], S, len(attrs), E, H, F, gtab.shape[0], t_size,
-        per_block, int(masks[0].dtype == torch.float32), int(x.dtype == torch.bfloat16),
+        B, N, M, x.shape[1], x.shape[-1], S, len(attrs), E, H, F, n_ct, *dims, per_block,
+        int(masks[0].dtype == torch.float32), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused_l2 launch failed: {lib.dp_cuda_error_string(rc).decode()}")

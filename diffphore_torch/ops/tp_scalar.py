@@ -35,17 +35,22 @@ reads harmonic components 4-8) runs the kernels' 8-lane instantiations
 Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
 int32, x is (B, M_x, D), sh and w (B, N, K, .) and slot k of receiver n
 reads the sender row ``x[b, sender_index[b, n, k]]``.  The forward and the
-edge backward (dw only; the mode refuses dsh) read x at the index; dx walks
-each sender's slots in the order of :func:`tp_fused.sender_lists`, one
-split.  The same kernels, a template flag apart, at both lane counts;
-``FWD_IDX``, ``BWD_EDGE_IDX``, ``BWD_X_IDX`` (and ``*_IDX_L2``) count them.
+edge backward (dw only; the mode refuses dsh) read x at the index, the same
+kernels a template flag apart.  dx has kernels of its own: a first forms
+each slot's term w * sum_k sh g (receiver by receiver, so each g row is read
+once), each sender's slots, in the order of :func:`tp_fused.sender_lists`,
+are cut into chunks of at most Q (:func:`slot_chunks`, Q from
+:func:`plan_slot_chunk` so that the chunks fill the card), a thread sums one
+(chunk, channel) of terms into a scratch row, and a third kernel adds each
+sender's chunks in order.  Both lane counts; ``FWD_IDX``, ``BWD_EDGE_IDX``,
+``BWD_X_IDX`` (and ``*_IDX_L2``) count them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +70,7 @@ BWD_EDGE_L2 = _Kernel()
 BWD_X_L2 = _Kernel()
 FWD_IDX = _Kernel()       # the sender-index mode (l <= 1)
 BWD_EDGE_IDX = _Kernel()
-BWD_X_IDX = _Kernel()
+BWD_X_IDX = _Kernel()      # tp_scalar_bwd_x_idx_slots, _chunks and _sum
 FWD_IDX_L2 = _Kernel()    # the sender-index mode at l = 2
 BWD_EDGE_IDX_L2 = _Kernel()
 BWD_X_IDX_L2 = _Kernel()
@@ -75,6 +80,7 @@ EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
 EDGE_REACH = 4       # harmonic components the edge backward reads (0e and 1o first)
 EDGE_REACH_L2 = 9    # the 8-lane instantiation's: 0e, 1o and 2e
 MIN_CHUNK = 8        # fewest entries of the summed axis one split takes
+MIN_SLOTS = 4        # fewest slots a chunk of the sender-index dx takes, where there are enough
 TARGET_BLOCKS = 2 * 132
 
 
@@ -239,9 +245,70 @@ def plan_chunk(B: int, kept: int, summed: int, F: int, target: int = TARGET_BLOC
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(dx: bool, F: int, D: int, n_items: int, bf16: bool, device: str,
+def plan_slot_chunk(slots: int, senders: int, F: int, target: int = TARGET_BLOCKS
+                    ) -> Tuple[int, int]:
+    """(Q, bound) of the sender-index dx over ``slots`` slots and ``senders``
+    sender rows: Q, the most slots one chunk takes, the largest (and at
+    least ``MIN_SLOTS``) whose chunks still give ``target`` blocks of
+    ``keep_of(F)`` chunks whatever the index; ``bound``, the most chunks any
+    index can give at that Q (each sender's last chunk may be short), the
+    kernel's grid-stride range and the scratch's rows."""
+    Q = max(MIN_SLOTS, slots // (target * keep_of(F)))
+    return Q, slots // Q + min(senders, slots)
+
+
+def slot_chunks(ptr: torch.Tensor, Q: int, bound: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each sender's slots of :func:`tp_fused.sender_lists` cut into chunks of
+    at most ``Q``, on ptr's device and without waiting for it: ``cuts``
+    (bound + 1,) int32, chunk i is ``order[cuts[i]:cuts[i + 1]]`` (the chunks
+    tile ``order`` in its own order; those past the last are empty), and
+    ``row_ptr`` (senders + 1,) int32, sender r's chunks ``row_ptr[r]:row_ptr[r
+    + 1]`` (none for a sender no slot reads)."""
+    p = ptr.long()
+    count = p[1:] - p[:-1]
+    row_ptr = torch.zeros_like(p)
+    row_ptr[1:] = torch.cumsum((count + Q - 1) // Q, 0)
+    i = torch.arange(bound, device=p.device)
+    row = torch.searchsorted(row_ptr[1:], i, right=True).clamp(max=max(len(count) - 1, 0))
+    start = torch.where(i < row_ptr[-1], p[row] + (i - row_ptr[row]) * Q, p[-1])
+    return torch.cat([start, p[-1:]]).int(), row_ptr.int()
+
+
+class DxLists(NamedTuple):
+    """What the sender-index dx reads of an index: (order, ptr) of
+    :func:`tp_fused.sender_lists`, (cuts, row_ptr) of :func:`slot_chunks`,
+    the chunks' Q and the blocks that cover their ``len(cuts) - 1`` rows."""
+
+    order: torch.Tensor
+    ptr: torch.Tensor
+    cuts: torch.Tensor
+    row_ptr: torch.Tensor
+    Q: int
+    blocks: int
+
+
+def dx_lists(tp: ChannelwiseTP, sender_index: torch.Tensor, m_x: int,
+             dtype: torch.dtype = torch.float32) -> DxLists:
+    """The sender-index dx's lists and plan for a (B, N, K) index over B *
+    m_x senders: Q from :func:`plan_slot_chunk` against every block slot the
+    card holds of the chunk kernel (an occupancy query).  The autograd
+    forward builds them once."""
+    B, N, K = sender_index.shape
+    F = tp.weight_numel
+    target = TARGET_BLOCKS
+    if sender_index.device.type == "cuda":
+        target = max(target, _resident_blocks(2, F, tp.irreps_in.dim, 1, dtype == torch.bfloat16,
+                                              str(sender_index.device), lanes(tp) == K_PAD_L2))
+    Q, bound = plan_slot_chunk(B * N * K, B * m_x, F, target)
+    order, ptr = sender_lists(sender_index, m_x)
+    return DxLists(order, ptr, *slot_chunks(ptr, Q, bound), Q, -(-bound // keep_of(F)))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(dx: int, F: int, D: int, n_items: int, bf16: bool, device: str,
                      l2: bool = False) -> int:
-    """Blocks of the forward (or dx) kernel the card holds at once."""
+    """Blocks of the forward (dx = 0), the dense dx (1) or the sender-index
+    dx's chunk kernel (2) the card holds at once."""
     query = (_library().dp_tp_scalar_blocks_per_sm_l2 if l2
              else _library().dp_tp_scalar_blocks_per_sm)
     per_sm = query(int(dx), F, D, n_items, int(bf16))
@@ -264,19 +331,22 @@ def _library() -> ctypes.CDLL:
     lib = build.load("tp_scalar")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dp_tp_scalar_fwd.argtypes = [p] * 8 + [i] * 11 + [p]
-    lib.dp_tp_scalar_bwd_x.argtypes = [p] * 11 + [i] * 12 + [p]
+    lib.dp_tp_scalar_bwd_x.argtypes = [p] * 9 + [i] * 11 + [p]
+    lib.dp_tp_scalar_bwd_x_idx.argtypes = [p] * 13 + [i] * 10 + [p]
     lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.dp_tp_scalar_blocks_per_sm.argtypes = [i] * 5
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm.argtypes = [i] * 2
     lib.dp_tp_scalar_fwd_l2.argtypes = lib.dp_tp_scalar_fwd.argtypes
     lib.dp_tp_scalar_bwd_x_l2.argtypes = lib.dp_tp_scalar_bwd_x.argtypes
+    lib.dp_tp_scalar_bwd_x_idx_l2.argtypes = lib.dp_tp_scalar_bwd_x_idx.argtypes
     lib.dp_tp_scalar_bwd_edge_l2.argtypes = lib.dp_tp_scalar_bwd_edge.argtypes
     lib.dp_tp_scalar_blocks_per_sm_l2.argtypes = [i] * 5
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2.argtypes = [i] * 2
     for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_edge, lib.dp_tp_scalar_bwd_x,
                lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm,
                lib.dp_tp_scalar_fwd_l2, lib.dp_tp_scalar_bwd_edge_l2, lib.dp_tp_scalar_bwd_x_l2,
-               lib.dp_tp_scalar_blocks_per_sm_l2, lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2):
+               lib.dp_tp_scalar_blocks_per_sm_l2, lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2,
+               lib.dp_tp_scalar_bwd_x_idx, lib.dp_tp_scalar_bwd_x_idx_l2):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -362,30 +432,40 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                       g: torch.Tensor, sender_index: Optional[torch.Tensor] = None,
-                      lists: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                      lists: Optional[DxLists] = None) -> torch.Tensor:
     """dx of every path in one launch, in x's type (x gives its shape and
     type only; and the sum of the receiver splits' f32 partial sums where
-    :func:`launch_chunk` splits).  The sender-index mode walks each sender's
-    slots in the order of ``lists`` (:func:`tp_fused.sender_lists` of the
-    index, built here when not given), one split."""
+    :func:`launch_chunk` splits).  The sender-index mode forms each slot's
+    f32 term once (receiver by receiver), sums each sender's terms in chunks
+    (:func:`dx_lists`: ``lists``, built here when not given), then each
+    sender's chunks in order: three kernels, one launch."""
     B, N, M, D, S, F = _check_conv(tp, x, sh, w, g, sender_index)
     chan, scale, d_ptr, d_item = _device_conv_tables(tp, str(x.device), x.dtype)
     dx = torch.empty_like(x)
-    order = ptr = part = None
+    l2 = lanes(tp) == K_PAD_L2
+    bf16 = int(x.dtype == torch.bfloat16)
     if sender_index is None:
         chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
         part = (torch.empty((splits, B, M, D), dtype=torch.float32, device=x.device)
                 if splits > 1 else None)
+        launch = _library().dp_tp_scalar_bwd_x_l2 if l2 else _library().dp_tp_scalar_bwd_x
+        rc = launch(
+            sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
+            d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(), _ptr(part), B, N, M, D, S, F,
+            d_item.shape[0], keep_of(F), chunk, splits, bf16, _stream(x.device))
     else:
-        order, ptr = lists if lists is not None else sender_lists(sender_index, x.shape[1])
-        chunk, splits = N, 1
-    l2 = lanes(tp) == K_PAD_L2
-    launch = _library().dp_tp_scalar_bwd_x_l2 if l2 else _library().dp_tp_scalar_bwd_x
-    rc = launch(
-        sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
-        d_ptr.data_ptr(), d_item.data_ptr(), _ptr(order), _ptr(ptr), dx.data_ptr(), _ptr(part),
-        B, N, M, x.shape[1], D, S, F, d_item.shape[0], keep_of(F), chunk, splits,
-        int(x.dtype == torch.bfloat16), _stream(x.device))
+        m_x = x.shape[1]
+        if lists is None:
+            lists = dx_lists(tp, sender_index, m_x, x.dtype)
+        y = torch.empty((B * N * M, F), dtype=torch.float32, device=x.device)
+        part = torch.empty((len(lists.cuts) - 1, F), dtype=torch.float32, device=x.device)
+        launch = (_library().dp_tp_scalar_bwd_x_idx_l2 if l2
+                  else _library().dp_tp_scalar_bwd_x_idx)
+        rc = launch(
+            sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
+            d_ptr.data_ptr(), d_item.data_ptr(), lists.order.data_ptr(), lists.cuts.data_ptr(),
+            lists.row_ptr.data_ptr(), dx.data_ptr(), y.data_ptr(), part.data_ptr(), B, N, M, m_x,
+            D, S, F, keep_of(F), lists.blocks, bf16, _stream(x.device))
     _raise_on(rc, "tp_scalar_bwd_x_l2" if l2 else "tp_scalar_bwd_x")
     counter(BWD_X, BWD_X_L2, BWD_X_IDX, BWD_X_IDX_L2, sender_index, l2).launches += 1
     return dx
@@ -397,7 +477,7 @@ def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
     blocks for every block slot the card holds at these widths."""
     F = tp.weight_numel
     n_items = len(_conv_tables(tp, dtype)[3])
-    target = max(TARGET_BLOCKS, _resident_blocks(dx, F, tp.irreps_in.dim, n_items,
+    target = max(TARGET_BLOCKS, _resident_blocks(int(dx), F, tp.irreps_in.dim, n_items,
                                                  dtype == torch.bfloat16, str(device),
                                                  lanes(tp) == K_PAD_L2))
     return plan_chunk(B, M, N, F, target) if dx else plan_chunk(B, N, M, F, target)
@@ -455,7 +535,7 @@ class ScalarPathsAggregate(torch.autograd.Function):
                 sender_index: Optional[torch.Tensor] = None):
         ctx.tp = tp
         ctx.sender_index = sender_index
-        ctx.lists = (sender_lists(sender_index, x.shape[1])
+        ctx.lists = (dx_lists(tp, sender_index, x.shape[1], x.dtype)
                      if sender_index is not None and ctx.needs_input_grad[1] else None)
         ctx.save_for_backward(x, sh, w)
         return launch_forward(tp, x, sh, w, sender_index)

@@ -732,6 +732,22 @@ def test_tp_fused_l2_kernel_matches_plain(cuda, sig, n_chan, shape):
     assert float(got[..., 5:].abs().max()) == 0.0  # the pad lanes
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+def test_tp_fused_l2_layout_fits_two_blocks_an_sm(cuda, sig):
+    """The kernel's own count of its shared memory (dp_tp_fused_l2_smem)
+    stays within SMEM_L2 at one and two edge channels, f32 and bf16, with
+    MAX_SENDERS_L2 senders a block, on each signature's channel tiles."""
+    tp, E = _l2_tp(sig)
+    *_, dims = tp_fused.tables_tiled_l2(tp)
+    lib = tp_fused._library()
+    for C in (1, 2):
+        for esize in (4, 2):
+            smem = lib.dp_tp_fused_l2_smem(C, E, E, *dims[:4], tp_fused.MAX_SENDERS_L2,
+                                           dims[4], esize)
+            assert 0 < smem <= tp_fused.SMEM_L2, (C, esize, smem)
+
+
 def _l2_k2_inputs(tp, cuda, B, N, M, seed=0):
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
