@@ -441,6 +441,20 @@ def posed_rows(one, n, cfg, gen):
     return batch.replace(t=torch.full((n,), 0.5, device=one.device))
 
 
+def digest(tensors) -> str:
+    """The first 16 hex digits of a SHA-256 over the bytes of ``tensors`` (a
+    model's state, or a batch's tensors), in order: equal digests, equal
+    bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def check_forward(model, batch, compute_dtype, poses=POSES, what="forward"):
     """One forward, kernel convs against plain convs: at f32 within
     TOL_FORWARD of the plain output's scale, at bf16 within TOL_BF16_GAP of
@@ -792,6 +806,8 @@ def phase_k2_check(calls):
             dx_kw = dict(kw, lists=sender_lists(idx, M_x))
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
+            if l2 and idx is None:   # dx reads the live bits the forward made, as in the step
+                dx_kw = {"live": k2.live_rows_l2(w)}
             leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
             ref = k2.tp_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves), **kw)
             ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
@@ -830,8 +846,12 @@ def phase_k2_check(calls):
                                         else index_library_ms(tp, x, sh, w, g, idx))
             case["grid" + tag] = {}
             for k, kept in (("fwd", N), ("bwd_x", M_x)):
-                if l2 or idx is not None:   # the 8-lane bodies: a block per kept entry
+                if idx is not None:         # the sender-index bodies: a block per kept entry
                     case["grid" + tag][k] = (B * kept, 1)
+                    continue
+                if l2:                      # by channel tile
+                    case["grid" + tag][k] = k2.grid_l2(tp, B, N, M, k == "bwd_x", x.device,
+                                                       dtype)
                     continue
                 splits = k2.launch_splits(tp, B, N, M, k == "bwd_x", x.device, dtype)
                 case["grid" + tag][k] = (B * -(-kept // k2.KEEP) * splits, splits)
@@ -895,11 +915,17 @@ K2_DEVICE_KERNELS = {
 }
 
 
-# The 8-lane kernels (l = 2): one CUDA kernel a wrapper call.
+# The 8-lane kernels (l = 2): the forward is the live pass over w and the
+# tiled kernel on the live tiles, with a third kernel that adds the senders'
+# splits where they split; dx the tiled kernel on the same live bits (the
+# train step's forward makes them) and a second kernel that adds the
+# splits' and channel tiles' partial sums where there is more than one; the
+# edge backward one kernel.
 K2_DEVICE_KERNELS_L2 = {
-    "fwd": ["tp_aggregate_fwd_l2_kernel"],
+    "fwd": ["tp_aggregate_l2_live_kernel", "tp_aggregate_fwd_l2_tiled_kernel",
+            "tp_aggregate_sum_splits"],
     "bwd_edge": ["tp_aggregate_bwd_edge_l2_kernel"],
-    "bwd_x": ["tp_aggregate_bwd_x_l2_kernel"],
+    "bwd_x": ["tp_aggregate_bwd_x_l2_tiled_kernel", "tp_aggregate_l2_dx_sum"],
 }
 
 
@@ -932,8 +958,8 @@ def k2_kernel_entries(cases, launches, l2=False):
             "library_ms_bf16": sum(c["library_ms_bf16"][k] for c in cases),
             "max_abs_err_bf16": max(c["errs_bf16"][o][0] for c in cases for o in outputs),
             "unit": "one train step: the 17 conv calls, each timed alone on the card (graph replay), "
-                    "f32 operands (ms) and bf16 ones (ms_bf16); a call runs the first of "
-                    "device_kernels and, where noted there, the second; library_ms is "
+                    "f32 operands (ms) and bf16 ones (ms_bf16); a call runs device_kernels as "
+                    "noted where they are listed; library_ms is "
                     "torch.einsum of " + " and ".join(f"'{eq}'" for eq, _ in K2_EINSUM[k])
                     + " on each path's operands"
                     + (" (dsh's where the conv needs it)" if k == "bwd_edge" else "")
@@ -2993,6 +3019,10 @@ def phase_variants(card, cfg, train_batch, draws, jobs, device="cuda", poses=POS
             posed = posed_rows(job.batch.to(device), poses, att_cfg, gen)
             errs = [check_k1_call(tp_fused, name, mod, args)
                     for name, mod, args in capture_conv_calls(att_model, posed, poses)]
+            # the weights and rows the check reads, as digests that a rerun (or
+            # analysis/use_att_repro.py) can be held to bit for bit
+            print(f"use_att forward check: weights {digest(att_model.state_dict().values())}, "
+                  f"rows {digest([posed.lig_pos, posed.t])}", flush=True)
             check_forward(att_model, posed, att_cfg.compute_dtype, poses, what="use_att forward")
             k1_note = ("max |kernel - plain| / max|plain| of a call "
                        f"{max(c['err'] / max(c['scale'], 1e-30) for c in errs):.2e} (f32), "

@@ -18,7 +18,8 @@ every version of the port has; the K3 cases call K3's forward and dx per
 convolution where the tree has that interface, else per path, as the
 first K3 did).  It needs a GPU and fails without one.
 
-    python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only | --k1_l2 | --k3_index]
+    python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only | --k1_l2 | --k3_index |
+                                                   --k2_l2]
 
 ``--k3_only`` times K3's forward, edge backward (``launch_backward_edge``
 as the train step calls it: dsh on the two convs whose harmonics carry a
@@ -44,6 +45,18 @@ print ``graph_us`` beside the profiler's per-kernel times.  ``--k1_l2`` runs
 unchanged in a tree from before the 8-lane K1's redesign; in a tree from
 before the sender-index dx's, ``--k3_index`` needs ``lists`` to be that
 tree's ``tp_fused.sender_lists(idx, P)``.
+
+``--k2_l2`` times the dense 8-lane K2 forward and dx (f32 and bf16; dx on
+the live bits of w made beforehand, as the train step's forward makes them,
+where the tree's dx takes them): on the
+17 training convs of a second-order model at corpus2's widths (batch 24 of a
+24 x 96 x 8 bucket, live-first edge weights as in ``K2_CASES``), with a
+summary line per (kernel, dtype) that sums the 17; then on each of the six
+widths of that model (F = 60, 80, 140, 180, 300, 360) at 24 x 24 x 96, 24 x
+96 x 24 and 24 x 24 x 24 (B x N x M).  Both print ``graph_us`` beside the
+profiler's per-kernel times.  It calls only ``launch_forward`` and
+``launch_backward_x``, so it runs unchanged in a tree from before the
+kernels' redesign.
 """
 
 from __future__ import annotations
@@ -106,6 +119,25 @@ K1_L2_CASES = (
     + [("final_conv", SEQ2[3], SH, "2x1o + 2x1e", 40, 1, 24, 1, 1, 20),
        ("tor_bond_conv", SEQ2[3], "1x1o + 1x0e + 1x1e", "20x0o + 20x0e", 60, 8, 24, 1, 4, 20)])
 KNN_K = 24
+#: (conv, in irreps, sh irreps, out irreps, N, M, live_n, live_m) of the 17
+#: convs of a second-order training forward that K2 takes (every conv but the
+#: six layer-0 ones, which K3 takes), at batch 24 of a 24 x 96 x 8 bucket
+K2_L2_CASES = (
+    [(f"lig_conv_{i}", SEQ2[i], SH, SEQ2[min(i + 1, 3)], 24, 24, 10, 9) for i in (1, 2, 3)]
+    + [(f"phore_to_lig{t}_conv_{i}", SEQ2[i], SH, SEQ2[min(i + 1, 3)], 24, 96, 20, 42)
+       for i in (1, 2, 3) for t in ("", "_norm")]
+    + [(f"phore_conv_{i}", SEQ2[i], SH, SEQ2[i + 1], 96, 96, 32, 32) for i in (1, 2)]
+    + [(f"lig_to_phore{t}_conv_{i}", SEQ2[i], SH, SEQ2[i + 1], 96, 24, 42, 20)
+       for i in (1, 2) for t in ("", "_norm")]
+    + [("final_conv", SEQ2[3], SH, "2x1o + 2x1e", 1, 24, 1, 12),
+       ("tor_bond_conv", SEQ2[3], "1x1o + 1x0e + 1x1e", "20x0o + 20x0e", 8, 24, 4, 7)])
+#: (F, in irreps, sh irreps, out irreps) of the six widths of that model
+K2_L2_WIDTHS = [(60, SEQ2[0], SH, SEQ2[1]),
+                (80, SEQ2[3], "1x1o + 1x0e + 1x1e", "20x0o + 20x0e"),
+                (140, SEQ2[3], SH, "2x1o + 2x1e"), (180, SEQ2[1], SH, SEQ2[2]),
+                (300, SEQ2[2], SH, SEQ2[3]), (360, SEQ2[3], SH, SEQ2[3])]
+#: (B, N, M, live_n, live_m) of the width sweep
+K2_L2_SHAPES = [(24, 24, 96, 20, 42), (24, 96, 24, 42, 20), (24, 24, 24, 10, 9)]
 
 K3_CASES = [
     ("lig_conv_0", 24, 24, 24, 10, 9, False),
@@ -276,6 +308,60 @@ def k3_index_cases(randn, gen, card) -> list:
     return results
 
 
+def k2_l2_cases(randn, card) -> list:
+    """The dense 8-lane K2 forward and dx on K2_L2_CASES (with one summary
+    per (kernel, dtype)) and on K2_L2_WIDTHS x K2_L2_SHAPES, f32 and bf16."""
+    results = []
+
+    def one(tp, B, N, M, live_n, live_m, dtype, tag):
+        F = tp.weight_numel
+        x = randn(B, M, tp.irreps_in.dim).to(dtype)
+        sh = randn(B, N, M, tp.irreps_sh.dim).to(dtype)
+        w = torch.zeros(B, N, M, F, device="cuda")
+        w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
+        w = w.to(dtype)
+        g = randn(B, N, F, 8)
+        # dx as the train step runs it: on the live bits the forward made,
+        # in a tree whose dx takes them
+        kw = ({"live": tp_aggregate.live_rows_l2(w)}
+              if "live" in inspect.signature(tp_aggregate.launch_backward_x).parameters else {})
+        out = []
+        for kernel, call in (
+                ("tp_aggregate_fwd_l2", lambda: tp_aggregate.launch_forward(tp, x, sh, w)),
+                ("tp_aggregate_bwd_x_l2",
+                 lambda: tp_aggregate.launch_backward_x(tp, x, sh, w, g, **kw))):
+            times = kernel_times(call)
+            out.append({"kernel": kernel, "case": tag, "dtype": str(dtype), "B": B, "N": N,
+                        "M": M, "F": F, "live_edges": B * live_n * live_m, "edges": B * N * M,
+                        "us": times, "us_total": sum(times.values()), "graph_us": graph_us(call),
+                        "card": card})
+            print(json.dumps(out[-1]), flush=True)
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        sums = {k: {"kernel": k, "case": "the 17 training convs", "dtype": str(dtype), "calls": 0,
+                    "us_total": 0.0, "graph_us": 0.0, "card": card}
+                for k in ("tp_aggregate_fwd_l2", "tp_aggregate_bwd_x_l2")}
+        for name, irr_in, irr_sh, irr_out, N, M, live_n, live_m in K2_L2_CASES:
+            for r in one(channelwise_tp(irr_in, irr_sh, irr_out), 24, N, M, live_n, live_m,
+                         dtype, name):
+                total = sums[r["kernel"]]
+                total["calls"] += 1
+                total["us_total"] += r["us_total"]
+                total["graph_us"] += r["graph_us"]
+                results.append(r)
+        for total in sums.values():
+            results.append(total)
+            print(json.dumps(total), flush=True)
+    for F, irr_in, irr_sh, irr_out in K2_L2_WIDTHS:
+        tp = channelwise_tp(irr_in, irr_sh, irr_out)
+        assert tp.weight_numel == F
+        for B, N, M, live_n, live_m in K2_L2_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                results += one(tp, B, N, M, live_n, live_m, dtype, f"F={F}")
+    return results
+
+
 def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k2_only", action="store_true",
@@ -286,6 +372,8 @@ def main(argv=None) -> list:
                         help="only the 8-lane K1, dense and sender-index (to compare two trees)")
     parser.add_argument("--k3_index", action="store_true",
                         help="only K3's sender-index dx at 4 and 8 lanes (to compare two trees)")
+    parser.add_argument("--k2_l2", action="store_true",
+                        help="only the dense 8-lane K2 forward and dx (to compare two trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
@@ -301,6 +389,8 @@ def main(argv=None) -> list:
         return k1_l2_cases(randn, gen, card)
     if args.k3_index:
         return k3_index_cases(randn, gen, card)
+    if args.k2_l2:
+        return k2_l2_cases(randn, card)
     results = []
     if args.k3_only:
         tp = channelwise_tp(SEQ[0], SH, SEQ[1])

@@ -86,21 +86,54 @@
 // (5, 5, 5), out and g are (B, N, F, 8) (lanes 5-7 zero, never read) and a
 // layer-3 convolution has F = 360 channels over 30 paths, D = 200: the
 // 4-lane kernels' two-threads-a-channel blocks, per-path t tables and rings
-// of w do not fit in a block.  These kernels are the simple version:
-//  * one block per kept entry (forward: a receiver; dx: a sender) of one
-//    batch row, a thread per channel, and a loop over the summed axis in
-//    tiles of L2_ROWS = 32 entries; no split and no second kernel, since the
-//    training shapes give B * N >= 576 blocks;
-//  * per tile a warp per edge marks it live (its row of w not all zero) and
-//    stages its harmonics (and, forward, the sender's features); then per
-//    (live edge, path, i) t[i][k] = sum_j G_p[i,j,k] sh[j] is formed once for
-//    all the path's channels, d_in x d_out values packed per path; then each
-//    channel walks the live edges: forward out[k] += w sum_i x[i] t[i][k],
-//    dx acc[i] += w sum_k t[i][k] g[k] (w and g read from device memory,
-//    coalesced across the channels);
-//  * dx adds the channels that read one input element in the order of the
-//    host's list, as the 4-lane dx does;
-//  * the edge backward: one block per (batch row, receiver, L2_EDGE_SENDERS
+// of w do not fit in a block.
+//  * The forward and dx (tp_aggregate_{fwd,bwd_x}_l2_tiled_kernel) take the
+//    4-lane design above by channel tile: the host cuts the channels at path
+//    boundaries into tiles of at most 128 (tp_fused.channel_tiles, as the
+//    8-lane K1 does: 120 + 120 + 120 at F = 360), and a block is one (batch
+//    row, T2_KEEP = 8 kept entries, channel tile, split of the summed axis).
+//    It loads only its tile's coupling entries, path rows and t blocks, its
+//    rows of w restricted to the tile's channels, and, forward, the tile's x
+//    slice [x_lo, x_lo + xw) of each sender; dx each receiver's g row of the
+//    tile's channels, lanes 0-4.  A tile is 4 summed entries x the 8 kept
+//    ones = 32 edges, one bit a lane.
+//  * Dead edges cost nothing.  Reading every row of w to find the live ones
+//    made each tile a round trip to device memory whatever its content (the
+//    first version of these kernels, which tested each row in the ring, spent
+//    ~1 ms of its 1.7-1.9 ms there over a training step's 17 convs).  So a
+//    live pass (tp_aggregate_l2_live_kernel, a streaming read of w at 2.2
+//    TB/s) first sets one bit per edge whose row is not all zero; the
+//    autograd forward runs it once and dx reads the same bits.  A block turns
+//    its edges' bits into per-tile masks and a list of live tiles, and loads
+//    and walks only those tiles, of them only the live rows.
+//  * A two-stage cp.async ring carries the live rows (w in the operands'
+//    type, 16- or 8-byte pieces; bf16 harmonics as the 4-byte words that
+//    cover a row and bf16 x in 8-byte pieces, so no plain load waits in the
+//    phase that starts the next tile's loads).  Per tile, warp = (path, i)
+//    item, lane = row forms t of the live rows (a warp runs one shape); then
+//    thread = (walk slot, part of the kept entries) walks the live bits with
+//    its channel's shape (d_in, d_out) fixed at compile time, the summed
+//    entry's x or g loaded once for its kept entries.  A warp runs each shape
+//    it holds in turn, so the host packs a tile's channels into warps by
+//    shape (tp_aggregate.walk_l2: at most two shapes a warp on the probe).
+//    Two barriers a live tile; three blocks of eight warps an SM.
+//  * The splits fill every block slot of an occupancy query
+//    (dp_tp_aggregate_l2_blocks_per_sm); the forward's splits are added by
+//    tp_aggregate_sum_splits; dx adds each tile's channels that read one x
+//    element in the order of a per-tile host list (tp_aggregate.dx_lists_l2)
+//    and writes per-(split, tile) partial sums of its tile's slice, which
+//    tp_aggregate_l2_dx_sum adds tile by tile, split by split (one split and
+//    one tile write dx directly).  Fixed orders, no float atomics: reruns
+//    agree to the bit.
+//    Where they stand (chip_smoke.py phase 16 on an NVIDIA H100 80GB HBM3 at
+//    700 W, the 17 convs of a second-order training step at batch 24, graph
+//    replay, f32 / bf16): forward 1.57 / 1.55 ms, of it the live pass ~0.44
+//    / ~0.25; dx 1.33 / 1.29 ms; 4.5x / 8.4x and 3.8x / 7.0x their byte
+//    bounds (the first design, a block per kept entry and a thread per
+//    channel: 3.1-3.2 / 3.0 and 2.6-2.8 / 2.5-2.8 ms).  bf16 runs no
+//    slower than f32: with every tile a round trip, it was slower, moving
+//    half the bytes in as many trips.
+//  * The edge backward: one block per (batch row, receiver, L2_EDGE_SENDERS
 //    senders), a thread per channel, P[i][j] = sum_k G[i,j,k] g[k] in
 //    registers; per edge q[j] = sum_i x[i] P[i][j], dw = sum_j sh[j] q[j];
 //    with dsh each channel leaves w q[j] in shared memory, the block adds
@@ -109,9 +142,11 @@
 //
 // Sender-index mode (the KNN phore grid): an int32 index (B, N, K) names the
 // sender row of x (B, Mx, D) that slot k of receiver n reads; sh, w and dw are
-// (B, N, K, .).  The 4-lane kernels above share one sender row across the 8
-// receivers of a block, which an index breaks, so the mode runs the 8-lane
-// kernels' bodies, instantiated at LANES = 4 (l <= 1) and 8:
+// (B, N, K, .).  The 4-lane kernels and the tiled 8-lane ones share one
+// sender row across the 8 receivers of a block, which an index breaks, so
+// the mode runs l2_body (the first, untiled 8-lane design: a block per kept
+// entry, a thread per channel, w and g read from device memory) and the
+// 8-lane edge backward, instantiated at LANES = 4 (l <= 1) and 8:
 //  * forward: a block per receiver, its slots the summed axis; a live slot's
 //    x row is read at its index;
 //  * edge backward (dw only: the phore harmonics carry no gradient, so dsh is
@@ -1019,11 +1054,10 @@ __host__ __device__ inline L2Layout l2_layout(bool dx, int D, int F, int n_paths
   return L;
 }
 
-// The forward (DX false: out (B, N, F, LANES) f32) or dx (DX true: dx (B, Mx,
-// D) in T) of one block: kept entry blockIdx.x of batch row blockIdx.y.
-// Dense: Mx = M, idx, order and ptr null.  Sender-index mode: the forward
-// reads x at idx; dx walks the block's sender's slots order[ptr[b * Mx + k]
-// ..], each the flat slot (b * N + n) * M + m.
+// The sender-index mode's forward (DX false: out (B, N, F, LANES) f32) or dx
+// (DX true: dx (B, Mx, D) in T) of one block: kept entry blockIdx.x of batch
+// row blockIdx.y.  The forward reads x at idx; dx walks the block's sender's
+// slots order[ptr[b * Mx + k] ..], each the flat slot (b * N + n) * M + m.
 template <bool DX, typename T, int LANES>
 __device__ __forceinline__ void l2_body(
     const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
@@ -1043,13 +1077,11 @@ __device__ __forceinline__ void l2_body(
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int k = blockIdx.x, b = blockIdx.y;
-  const bool listed = DX && order != nullptr;
-  const int first = listed ? ptr[(size_t)b * Mx + k] : 0;
-  const int n_sum = listed ? ptr[(size_t)b * Mx + k + 1] - first : DX ? N : M;
+  const int first = DX ? ptr[(size_t)b * Mx + k] : 0;
+  const int n_sum = DX ? ptr[(size_t)b * Mx + k + 1] - first : M;
   // the edge (flat slot) of entry s of the summed axis
   auto edge_of = [&](int s) -> size_t {
-    if (listed) return (size_t)order[first + s];
-    return DX ? ((size_t)b * N + s) * M + k : ((size_t)b * N + k) * M + s;
+    return DX ? (size_t)order[first + s] : ((size_t)b * N + k) * M + s;
   };
   for (int i = tid; i < n_paths * L2_G; i += nt) s_g[i] = gtab[i];
   for (int i = tid; i < n_paths * 8; i += nt) s_ptab[i] = ptab[i];
@@ -1079,7 +1111,7 @@ __device__ __forceinline__ void l2_body(
       if (lane == 0) s_live[r] = live;
       if (lane < SH_STRIDE) s_sh[r * SH_STRIDE + lane] = live && lane < S ? to_f(sh[e * S + lane]) : 0.f;
       if (!DX && live) {
-        const size_t row = (size_t)b * Mx + (idx != nullptr ? idx[e] : s);
+        const size_t row = (size_t)b * Mx + idx[e];
         for (int d = lane; d < D; d += 32) s_x[r * D + d] = to_f(x[row * D + d]);
       }
     }
@@ -1170,7 +1202,7 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_fwd_l2_kernel(
     const T* __restrict__ x,         // (B, Mx, D) sender features
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
-    const int* __restrict__ idx,     // (B, N, M) sender of each slot, or null (dense: Mx = M)
+    const int* __restrict__ idx,     // (B, N, M) sender of each slot
     const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
     const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
     const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
@@ -1190,9 +1222,9 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_l2_kernel(
     const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
     const int* __restrict__ d_ptr,   // (D + 1): extents into d_item per input element
     const int* __restrict__ d_item,  // f * 8 + i of every (channel, component) reading it
-    const int* __restrict__ order,   // sender-index mode: the slots by sender, or null (dense)
+    const int* __restrict__ order,   // the slots by sender
     const int* __restrict__ ptr,     // (B * Mx + 1): each sender's extent in order
-    T* __restrict__ dx,              // (B, Mx, D) (dense: Mx = M)
+    T* __restrict__ dx,              // (B, Mx, D)
     int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size, int n_items) {
   l2_body<true, T, LANES>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, nullptr, order, ptr,
                           nullptr, dx, N, M, Mx, D, S, F, n_paths, t_size, n_items);
@@ -1294,6 +1326,725 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
       sum += s_pp[(ml * n_paths + s_seg[q].x) * L2_K + s_seg[q].y];
     dsh[(((size_t)b * N + n) * M + m0 + ml) * S + sc] = from_f<T>(sum);
   }
+}
+
+// ---- the dense 8-lane forward and dx by channel tile (head note) ----
+
+constexpr int T2_KEEP = 8;              // receivers (forward) or senders (dx) a block keeps
+constexpr int T2_SUM = 4;               // entries of the summed axis a tile
+constexpr int T2_ROWS = T2_KEEP * T2_SUM;   // edges a tile, row r = (r / T2_KEEP, r % T2_KEEP)
+constexpr int T2_THREADS = 256;
+constexpr int T2_QMAX = 4;              // kept entries of one thread: 4 (two parts) or 2 (four)
+constexpr int T2_STAGES = 2;            // the ring: one tile in flight while one computes
+constexpr int T2_SHP = 13;              // staged harmonics row, odd: lane = row reads no bank twice
+constexpr int T2_EW = 32;               // words of live bits a kept entry: 1,024 summed entries
+constexpr int T2_WALK = 128;            // walk slots of a channel tile (tp_aggregate.walk_l2)
+constexpr int T2_MAXT = T2_EW * 32 / T2_SUM;   // tiles a block walks at most
+
+static_assert(T2_THREADS / 32 == T2_KEEP, "warp = kept entry in the live pass and the loads");
+
+static_assert(T2_ROWS == 32, "a warp's vote gives a tile's live edges, one bit a lane");
+
+// The shared memory of the tiled forward (dx false) and dx, in floats, the
+// same on the host and the device.  FTP: the channel pitch (64 or 128); DXW,
+// TS, GS, PC: the widest x slice, t row, coupling slice and path count of a
+// channel tile (tp_fused.tables_tiled_l2); NI: the longest of dx's per-tile
+// item lists; esize: the operands' bytes.  A stage of the ring holds a tile's
+// rows of w (in T), its harmonics (f32, or bf16 as the 4-byte words that
+// cover the row) and its per-entry operand: the forward's sender x slices
+// (in T), dx's receiver g rows (lanes 0-3 as a float4, lane 4 apart).  dx's
+// end reuses the ring for its per-(sender, component, channel) sums.
+struct T2Layout {
+  int w, sh, side, stage, t, g, ptab, pi, ebits, tmask, tlist, dlist, total;
+};
+
+__host__ __device__ inline T2Layout t2_layout(bool dx, int FTP, int DXW, int TS, int GS, int PC,
+                                              int NI, int esize) {
+  T2Layout L;
+  int o = 0;
+  L.w = o;     o += T2_ROWS * FTP * esize / 4;
+  L.sh = o;    o += T2_ROWS * T2_SHP;
+  L.side = o;  o += dx ? T2_SUM * FTP * 5 : T2_SUM * DXW * esize / 4;
+  L.stage = pad4(o);
+  o = T2_STAGES * L.stage;
+  L.t = o;     o += pad4(T2_ROWS * TS);
+  L.g = o;     o += pad4(GS);
+  L.ptab = o;  o += pad4(PC * 8);                   // ints
+  L.pi = o;    o += pad4(PC * L2_K);                // ints: the tile's (path, i), i < d_in
+  L.ebits = o; o += T2_KEEP * T2_EW;                // ints: each kept entry's live summed entries
+  L.tmask = o; o += T2_MAXT;                        // ints: each tile's live rows
+  L.tlist = o; o += T2_MAXT + 4;                    // ints: the live tiles, then their count
+  L.dlist = o; o += dx ? pad4(DXW + 1) + pad4(NI) : 0;   // ints: d_ptr, then d_item
+  L.total = o;
+  if (dx && L.total < T2_KEEP * L2_K * (FTP | 1)) L.total = T2_KEEP * L2_K * (FTP | 1);
+  return L;
+}
+
+// t[i][k] = sum_j G[i, j, k] sh[j] of one (edge, path, i), k < DO, j < DS.
+template <int DS, int DO, typename U>
+__device__ __forceinline__ void t_entry(float* tq, const float* G, const U* sv) {
+  float svj[DS];
+#pragma unroll
+  for (int j = 0; j < DS; ++j) svj[j] = to_f(sv[j]);
+#pragma unroll
+  for (int k = 0; k < DO; ++k) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < DS; ++j) t = fmaf(G[j * DO + k], svj[j], t);
+    tq[k] = t;
+  }
+}
+
+template <typename U>
+__device__ __forceinline__ void t_item(int shape, float* tq, const float* G, const U* sv) {
+  switch (shape) {
+    case 011: t_entry<1, 1>(tq, G, sv); break;
+    case 013: t_entry<1, 3>(tq, G, sv); break;
+    case 015: t_entry<1, 5>(tq, G, sv); break;
+    case 031: t_entry<3, 1>(tq, G, sv); break;
+    case 033: t_entry<3, 3>(tq, G, sv); break;
+    case 035: t_entry<3, 5>(tq, G, sv); break;
+    case 051: t_entry<5, 1>(tq, G, sv); break;
+    case 053: t_entry<5, 3>(tq, G, sv); break;
+    default: t_entry<5, 5>(tq, G, sv); break;
+  }
+}
+
+// The DI * DO values of an edge's t block of one path (padded to float4s).
+template <int DI, int DO>
+__device__ __forceinline__ void load_t(float (&t)[4 * ((DI * DO + 3) / 4)], const float* tq) {
+#pragma unroll
+  for (int q = 0; q < (DI * DO + 3) / 4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(tq + 4 * q);
+    t[4 * q] = v.x, t[4 * q + 1] = v.y, t[4 * q + 2] = v.z, t[4 * q + 3] = v.w;
+  }
+}
+
+// The forward's walk of one tile for a channel of shape (DI, DO): for each
+// summed entry o (sender) its x values once, then each live edge of the
+// thread's kept receivers (bits `base` .. of each entry's eight):
+// acc[q][k] += w sum_i x[i] t[i][k].  xs, wc: the channel's x and w in the
+// stage; tq: its path's t block of row 0.
+template <int DI, int DO, typename T>
+__device__ __forceinline__ void fwd_walk(float (&acc)[T2_QMAX][L2_K], unsigned mask, int base,
+                                         int qk, const T* xs, int DXW, const T* wc, int FTP,
+                                         const float* tq, int TS) {
+#pragma unroll 1
+  for (int o = 0; o < T2_SUM; ++o) {
+    const unsigned bits = (mask >> (o * T2_KEEP + base)) & ((1u << qk) - 1u);
+    if (bits == 0u) continue;
+    float xv[DI];
+#pragma unroll
+    for (int i = 0; i < DI; ++i) xv[i] = to_f(xs[o * DXW + i]);
+#pragma unroll
+    for (int q = 0; q < T2_QMAX; ++q) {
+      if (!(bits >> q & 1u)) continue;
+      const int r = o * T2_KEEP + base + q;
+      const float wv = to_f(wc[r * FTP]);
+      float t[4 * ((DI * DO + 3) / 4)];
+      load_t<DI, DO>(t, tq + r * TS);
+#pragma unroll
+      for (int i = 0; i < DI; ++i) {
+        const float gi = wv * xv[i];
+#pragma unroll
+        for (int k = 0; k < DO; ++k) acc[q][k] = fmaf(gi, t[i * DO + k], acc[q][k]);
+      }
+    }
+  }
+}
+
+// dx's walk of one tile for a channel of shape (DI, DO): for each summed
+// entry o (receiver) its upstream gradient once, then each live edge of the
+// thread's kept senders: acc[q][i] += w sum_k t[i][k] g[k].
+template <int DI, int DO, typename T>
+__device__ __forceinline__ void dx_walk(float (&acc)[T2_QMAX][L2_K], unsigned mask, int base,
+                                        int qk, const float4* g4, const float* g1, int FTP,
+                                        const T* wc, const float* tq, int TS) {
+#pragma unroll 1
+  for (int o = 0; o < T2_SUM; ++o) {
+    const unsigned bits = (mask >> (o * T2_KEEP + base)) & ((1u << qk) - 1u);
+    if (bits == 0u) continue;
+    const float4 v = g4[o * FTP];
+    const float ga[L2_K] = {v.x, v.y, v.z, v.w, DO > 4 ? g1[o * FTP] : 0.f};
+#pragma unroll
+    for (int q = 0; q < T2_QMAX; ++q) {
+      if (!(bits >> q & 1u)) continue;
+      const int r = o * T2_KEEP + base + q;
+      const float wv = to_f(wc[r * FTP]);
+      float t[4 * ((DI * DO + 3) / 4)];
+      load_t<DI, DO>(t, tq + r * TS);
+#pragma unroll
+      for (int i = 0; i < DI; ++i) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < DO; ++k) s = fmaf(t[i * DO + k], ga[k], s);
+        acc[q][i] = fmaf(wv, s, acc[q][i]);
+      }
+    }
+  }
+}
+
+// One block of the tiled forward (DX false) or dx: batch row blockIdx.z,
+// kept entries blockIdx.y * T2_KEEP .., channel tile blockIdx.x % n_ct,
+// split blockIdx.x / n_ct of the summed axis (every splits-th entry).
+//  * forward: dst is out (B, N, F, 8) or, split, the partial sums (splits,
+//    B, N, F, 8);
+//  * dx: dst is null where one split and one tile write dx (B, M, D) in T
+//    directly, else the partial sums (splits * n_ct, B, M, D) f32, each
+//    (split, tile) writing the x elements of its tile's slice.
+// wunit: the cp.async piece of a row of w (16, 8 or 4 bytes; 0: plain
+// loads); vec: x slices (forward) or g rows (dx) in 16-byte (bf16 x: 8)
+// pieces; shw: bf16 harmonics as the 4-byte words that cover a row.
+template <bool DX, typename T>
+__device__ __forceinline__ void tiled_body(
+    const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
+    const float* __restrict__ g, const int4* __restrict__ chan, const int* __restrict__ ptab,
+    const float* __restrict__ gflat, const int* __restrict__ ctab, const int* __restrict__ walk,
+    const unsigned* __restrict__ bits, const int* __restrict__ dptr,
+    const int* __restrict__ ditem, float* __restrict__ dst, T* __restrict__ dx_out, int B, int N,
+    int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC, int NI,
+    int wunit, int vec, int shw) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool F32 = sizeof(T) == 4;
+  const T2Layout L = t2_layout(DX, FTP, DXW, TS, GS, PC, NI, sizeof(T));
+  float* s_t = smem + L.t;                                      // [row][TS]
+  float* s_g = smem + L.g;                                      // the tile's coupling entries
+  int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);          // the tile's paths
+  int* s_pi = reinterpret_cast<int*>(smem + L.pi);              // p * 8 + i, i < d_in(p)
+  unsigned* s_ebits = reinterpret_cast<unsigned*>(smem + L.ebits);
+  unsigned* s_tmask = reinterpret_cast<unsigned*>(smem + L.tmask);
+  int* s_tlist = reinterpret_cast<int*>(smem + L.tlist);
+  int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
+  int* s_ditem = s_dptr + pad4(DXW + 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = T2_THREADS / 32;
+  const int ct = blockIdx.x % n_ct, split = blockIdx.x / n_ct, splits = gridDim.x / n_ct;
+  const int b = blockIdx.z, k0 = blockIdx.y * T2_KEEP;
+  const int n_keep = DX ? M : N, n_sum = DX ? N : M;
+  const int count = split < n_sum ? (n_sum - split + splits - 1) / splits : 0;
+  const int tiles = (count + T2_SUM - 1) / T2_SUM;
+  const int f0 = ctab[ct * 8], fc = ctab[ct * 8 + 1], p0 = ctab[ct * 8 + 2];
+  const int pc = ctab[ct * 8 + 3], x_lo = ctab[ct * 8 + 4], xw = ctab[ct * 8 + 5];
+  const int g0 = ctab[ct * 8 + 6], gs = ctab[ct * 8 + 7];
+  const long long sh_elems = (long long)B * N * M * S;
+
+  // warp w stages row o * T2_KEEP + w of each tile (kept entry k0 + w,
+  // summed entry tile * T2_SUM + o); its edge moves by `step` a summed entry
+  const bool kept_ok = k0 + warp < n_keep;
+  const long long step = (long long)splits * (DX ? M : 1);
+  const long long e00 = DX ? ((long long)b * N + split) * M + k0 + warp
+                           : ((long long)b * N + k0 + warp) * M + split;
+  auto row_edge = [&](int tile, int o) -> long long {
+    const int j = tile * T2_SUM + o;
+    return kept_ok && j < count ? e00 + j * step : -1;
+  };
+  // the edge of row r of a tile (any warp's), or -1 past the ragged ends
+  auto edge_of = [&](int tile, int r) -> long long {
+    const int o = tile * T2_SUM + r / T2_KEEP, k = k0 + r % T2_KEEP;
+    if (o >= count || k >= n_keep) return -1;
+    const int s = split + o * splits;
+    return ((long long)b * N + (DX ? s : k)) * M + (DX ? k : s);
+  };
+
+  // The live edges, from the bits of the live pass: per kept entry the live
+  // summed entries (warp = kept entry, lane = entry), then per tile its
+  // 32 edges' bits (row r = o * T2_KEEP + kk) and the list of tiles with a
+  // live edge.  Only those tiles are loaded, and of them only live rows.
+  const int ewords = (count + 31) / 32;
+  for (int j0 = 0; j0 < 32 * ewords; j0 += 32) {
+    const long long e = row_edge(0, j0 + lane);
+    const bool on = e >= 0 && (__ldg(bits + (e >> 5)) >> (e & 31) & 1u);
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) s_ebits[warp * T2_EW + j0 / 32] = m;
+  }
+  __syncthreads();
+  for (int t = tid; t < tiles; t += T2_THREADS) {
+    unsigned m = 0u;
+#pragma unroll
+    for (int kk = 0; kk < T2_KEEP; ++kk) {
+      const unsigned nib = s_ebits[kk * T2_EW + (T2_SUM * t) / 32] >> ((T2_SUM * t) % 32) & 0xfu;
+#pragma unroll
+      for (int o = 0; o < T2_SUM; ++o) m |= (nib >> o & 1u) << (o * T2_KEEP + kk);
+    }
+    s_tmask[t] = m;
+  }
+  __syncthreads();
+  if (warp == 0) {   // the live tiles, in order
+    int n = 0;
+    for (int t0 = 0; t0 < tiles; t0 += 32) {
+      const bool on = t0 + lane < tiles && s_tmask[t0 + lane] != 0u;
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) s_tlist[n + __popc(m & ((1u << lane) - 1u))] = t0 + lane;
+      n += __popc(m);
+    }
+    if (lane == 0) s_tlist[T2_MAXT] = n;
+  }
+  __syncthreads();
+  const int n_live = s_tlist[T2_MAXT];
+
+  // the i-th live tile's live rows of w, their harmonics, and the operand of
+  // each of its summed entries with a live edge
+  auto load_tile = [&](int i) {
+    if (i < n_live) {
+      const int tile = s_tlist[i];
+      const unsigned mask = s_tmask[tile];
+      float* st = smem + (i % T2_STAGES) * L.stage;
+#pragma unroll
+      for (int o = 0; o < T2_SUM; ++o) {
+        const int r = o * T2_KEEP + warp;
+        if (!(mask >> r & 1u)) continue;
+        const long long e = row_edge(tile, o);
+        copy_row(reinterpret_cast<T*>(st + L.w) + r * FTP, w + e * F + f0, fc, wunit, lane);
+        float* srow = st + L.sh + r * T2_SHP;
+        if (F32) {
+          if (lane < S) cp_async4(srow + lane, sh + e * S + lane);
+        } else if (shw) {   // the words covering elements e S .. e S + S - 1
+          const long long w0 = (e * S) >> 1;
+          if (lane < (int)(((e * S + S + 1) >> 1) - w0)) {
+            const long long wd = w0 + lane;
+            if (2 * wd + 2 <= sh_elems)
+              cp_async4(srow + lane, reinterpret_cast<const unsigned*>(sh) + wd);
+            else   // the tensor's last element, alone in its word
+              reinterpret_cast<T*>(srow + lane)[0] = sh[2 * wd];
+          }
+        } else if (lane < S) {
+          reinterpret_cast<T*>(srow)[lane] = sh[e * S + lane];
+        }
+      }
+      if (warp < T2_SUM) {
+        const int o = warp, oo = tile * T2_SUM + o;
+        if (mask >> (o * T2_KEEP) & 0xffu) {
+          const int s = split + oo * splits;
+          if (DX) {   // the receiver's upstream gradient, the tile's channels, lanes 0-4
+            const float* src = g + ((size_t)b * N + s) * F * 8 + (size_t)f0 * 8;
+            float* d4 = st + L.side + o * FTP * 4;
+            float* d1 = st + L.side + T2_SUM * FTP * 4 + o * FTP;
+            for (int c = lane; c < fc; c += 32) {
+              if (vec) {
+                cp_async16(d4 + 4 * c, src + 8 * c);
+              } else {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) cp_async4(d4 + 4 * c + k, src + 8 * c + k);
+              }
+              cp_async4(d1 + c, src + 8 * c + 4);
+            }
+          } else {    // the sender's x slice [x_lo, x_lo + xw)
+            const T* src = x + ((size_t)b * M + s) * D + x_lo;
+            T* d = reinterpret_cast<T*>(st + L.side) + o * DXW;
+            if (vec) {
+              for (int q = lane; q < xw / 4; q += 32) {
+                if (F32) cp_async16(d + 4 * q, src + 4 * q);
+                else cp_async8(d + 4 * q, src + 4 * q);
+              }
+            } else {
+              for (int c = lane; c < xw && x_lo + c < D; c += 32) {
+                if (F32) cp_async4(d + c, src + c);
+                else d[c] = src[c];
+              }
+            }
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the first live tiles' loads go out before anything else
+#pragma unroll 1
+  for (int i = 0; i < T2_STAGES - 1; ++i) load_tile(i);
+  for (int i = tid; i < gs; i += T2_THREADS) s_g[i] = gflat[g0 + i];
+  for (int i = tid; i < pc * 8; i += T2_THREADS) s_ptab[i] = ptab[p0 * 8 + i];
+  int n_pi = 0;         // the tile's (path, i) pairs of the t step, in path order
+  for (int p = 0; p < pc; ++p) {
+    const int d_in = ptab[(p0 + p) * 8 + 1];
+    if (tid < d_in) s_pi[n_pi + tid] = p * 8 + tid;
+    n_pi += d_in;
+  }
+  if (DX) {
+    const int* row = dptr + ct * (DXW + 1);
+    const int base = row[0];
+    for (int i = tid; i <= xw; i += T2_THREADS) s_dptr[i] = row[i] - base;
+    for (int i = tid; i < row[xw] - base; i += T2_THREADS) s_ditem[i] = ditem[base + i];
+  }
+
+  // the walk's thread: slot fl of the tile's walk (channel fw of the tile,
+  // or none), kept entries base .. base + qk - 1: two parts of four for a
+  // tile of up to 128 channels, four of two for one of up to 64
+  const int cw = fc > 64 ? 128 : 64, qk = T2_KEEP / (T2_THREADS / cw);
+  const int fl = tid % cw, base = (tid / cw) * qk;
+  const int slot = walk[ct * T2_WALK + fl];
+  const bool walker = slot >= 0;
+  const int fw = walker ? slot : 0;
+  const int4 cm = walker ? chan[f0 + fw] : make_int4(0, 1, 1, 0);   // x offset, d_in, d_out, path
+  const int t_off = walker ? ptab[(p0 + cm.w) * 8 + 4] : 0;
+  const int shape = cm.y * 8 + cm.z;
+  float acc[T2_QMAX][L2_K];
+#pragma unroll
+  for (int q = 0; q < T2_QMAX; ++q)
+#pragma unroll
+    for (int k = 0; k < L2_K; ++k) acc[q][k] = 0.f;
+
+  // t of every (live row, path, i): warp = (path, i) item, lane = row, so a
+  // warp runs one shape and reads one coupling block
+  auto t_pass = [&](const float* st, int tile, unsigned mask) {
+    const int r = lane;
+    if (!(mask >> r & 1u)) return;
+    const float* srow = st + L.sh + r * T2_SHP;
+    const T* svb = reinterpret_cast<const T*>(srow) +
+                   (!F32 && shw ? (int)((edge_of(tile, r) * S) & 1) : 0);
+    float* tr = s_t + r * TS;
+    for (int it = warp; it < n_pi; it += NW) {
+      const int pi = s_pi[it];
+      const int* pt = s_ptab + (pi >> 3) * 8;   // sh_off, d_in, d_sh, d_out, t_off, g_off
+      const int k = pi & 7, d_sh = pt[2], d_out = pt[3];
+      const float* G = s_g + pt[5] + k * d_sh * d_out;
+      float* tq = tr + pt[4] + k * d_out;
+      if (F32) t_item(d_sh * 8 + d_out, tq, G, srow + pt[0]);
+      else t_item(d_sh * 8 + d_out, tq, G, svb + pt[0]);
+    }
+  };
+
+  for (int i = 0; i < n_live; ++i) {
+    cp_async_wait<T2_STAGES - 2>();
+    __syncthreads();                 // the tile has landed; the stage it replaces is read
+    load_tile(i + T2_STAGES - 1);
+    const int tile = s_tlist[i];
+    const unsigned mask = s_tmask[tile];
+    const float* st = smem + (i % T2_STAGES) * L.stage;
+    t_pass(st, tile, mask);
+    __syncthreads();
+    if (!walker) continue;
+    const T* wc = reinterpret_cast<const T*>(st + L.w) + fw;
+    const float* tq = s_t + t_off;
+    if (!DX) {
+      const T* xs = reinterpret_cast<const T*>(st + L.side) + cm.x;
+#define T2_FWD(DI, DO) fwd_walk<DI, DO>(acc, mask, base, qk, xs, DXW, wc, FTP, tq, TS)
+      switch (shape) {
+        case 011: T2_FWD(1, 1); break;
+        case 013: T2_FWD(1, 3); break;
+        case 015: T2_FWD(1, 5); break;
+        case 031: T2_FWD(3, 1); break;
+        case 033: T2_FWD(3, 3); break;
+        case 035: T2_FWD(3, 5); break;
+        case 051: T2_FWD(5, 1); break;
+        case 053: T2_FWD(5, 3); break;
+        default: T2_FWD(5, 5); break;
+      }
+#undef T2_FWD
+    } else {
+      const float4* g4 = reinterpret_cast<const float4*>(st + L.side) + fw;
+      const float* g1 = st + L.side + T2_SUM * FTP * 4 + fw;
+#define T2_DX(DI, DO) dx_walk<DI, DO>(acc, mask, base, qk, g4, g1, FTP, wc, tq, TS)
+      switch (shape) {
+        case 011: T2_DX(1, 1); break;
+        case 013: T2_DX(1, 3); break;
+        case 015: T2_DX(1, 5); break;
+        case 031: T2_DX(3, 1); break;
+        case 033: T2_DX(3, 3); break;
+        case 035: T2_DX(3, 5); break;
+        case 051: T2_DX(5, 1); break;
+        case 053: T2_DX(5, 3); break;
+        default: T2_DX(5, 5); break;
+      }
+#undef T2_DX
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!DX) {
+    if (walker) {
+      float4* o4 = reinterpret_cast<float4*>(dst) + (size_t)split * B * N * F * 2;
+#pragma unroll
+      for (int q = 0; q < T2_QMAX; ++q) {
+        const int n = k0 + base + q;
+        if (q >= qk || n >= N) continue;
+        const size_t at = ((size_t)b * N + n) * F + f0 + fw;
+        o4[2 * at] = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+        o4[2 * at + 1] = make_float4(acc[q][4], 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+  // dx: the tile's channels that read one x element, added in the order of
+  // the tile's list
+  __syncthreads();                   // the ring is free
+  const int FO = FTP | 1;
+  float* s_d = smem;                 // [kept][i][channel of the tile]
+  if (walker) {
+#pragma unroll
+    for (int q = 0; q < T2_QMAX; ++q) {
+      if (q >= qk) continue;
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) s_d[((base + q) * L2_K + i) * FO + fw] = acc[q][i];
+    }
+  }
+  __syncthreads();
+  const int width = dst != nullptr ? xw : D;   // dx written directly: every element of a row
+  for (int r = tid; r < T2_KEEP * width; r += T2_THREADS) {
+    const int kk = r / width, c = r - kk * width;
+    const int m = k0 + kk;
+    const int e = dst != nullptr ? c : c - x_lo;   // position in the tile's slice
+    const int d = x_lo + e;
+    if (m >= M || d >= D) continue;
+    float sum = 0.f;
+    if (e >= 0 && e < xw)
+      for (int q = s_dptr[e]; q < s_dptr[e + 1]; ++q) {
+        const int it = s_ditem[q];
+        sum += s_d[(kk * L2_K + (it & 7)) * FO + (it >> 3)];
+      }
+    const size_t at = ((size_t)b * M + m) * D + d;
+    if (dst != nullptr) dst[(size_t)(split * n_ct + ct) * B * M * D + at] = sum;
+    else dx_out[at] = from_f<T>(sum);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_fwd_l2_tiled_kernel(
+    const T* __restrict__ x,          // (B, M, D) sender features
+    const T* __restrict__ sh,         // (B, N, M, S) edge harmonics
+    const T* __restrict__ w,          // (B, N, M, F) pre-masked edge weights
+    const int4* __restrict__ chan,    // (F): x offset in the tile's slice, d_in, d_out, tile path
+    const int* __restrict__ ptab,     // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, g_off, 0, 0
+    const float* __restrict__ gflat,  // each path's alpha*cg, (d_in, d_sh, d_out) entries
+    const int* __restrict__ ctab,     // (n_ct, 8): f0, fc, p0, pc, x_lo, xw, g0, gs
+    const int* __restrict__ walk,     // (n_ct, 128): each walk slot's tile channel, or -1
+    const unsigned* __restrict__ bits,   // bit e of the live pass: edge e's row of w not all zero
+    float* __restrict__ dst,          // out (B, N, F, 8), or the partial sums (splits, B, N, F, 8)
+    int B, int N, int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC,
+    int wunit, int xvec, int shw) {
+  tiled_body<false, T>(x, sh, w, nullptr, chan, ptab, gflat, ctab, walk, bits, nullptr, nullptr,
+                       dst, nullptr, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, 0, wunit, xvec,
+                       shw);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_bwd_x_l2_tiled_kernel(
+    const T* __restrict__ sh,         // (B, N, M, S)
+    const T* __restrict__ w,          // (B, N, M, F)
+    const float* __restrict__ g,      // (B, N, F, 8) upstream gradient
+    const int4* __restrict__ chan,    // as the forward's
+    const int* __restrict__ ptab,
+    const float* __restrict__ gflat,
+    const int* __restrict__ ctab,
+    const int* __restrict__ walk,
+    const unsigned* __restrict__ bits,
+    const int* __restrict__ dptr,     // (n_ct, DXW + 1): extents into ditem per element of a slice
+    const int* __restrict__ ditem,    // (f - f0) * 8 + i of each (tile channel, i) reading it
+    float* __restrict__ part,         // the partial sums (splits * n_ct, B, M, D), or null
+    T* __restrict__ dx,               // (B, M, D) when one split and one tile
+    int B, int N, int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC,
+    int NI, int wunit, int gvec, int shw) {
+  tiled_body<true, T>(nullptr, sh, w, g, chan, ptab, gflat, ctab, walk, bits, dptr, ditem, part, dx,
+                      B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, NI, wunit, gvec, shw);
+}
+
+// dx[r, d] = sum over the tiles whose x slice holds d, in order, of the
+// sum over the splits, in order, of their partial sums; rounded once.
+template <typename T>
+__global__ void tp_aggregate_l2_dx_sum(const float* __restrict__ part,
+                                       const int* __restrict__ ctab, T* __restrict__ out,
+                                       long long total, int D, int n_ct, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int d = (int)(i % D);
+  float s = 0.f;
+  for (int ct = 0; ct < n_ct; ++ct) {
+    const int lo = __ldg(ctab + ct * 8 + 4), xw = __ldg(ctab + ct * 8 + 5);
+    if (d < lo || d >= lo + xw) continue;
+    for (int k = 0; k < splits; ++k) s += part[(size_t)(k * n_ct + ct) * total + i];
+  }
+  out[i] = from_f<T>(s);
+}
+
+// The live pass: bit e % 32 of bits[e / 32] set where row e of w (F
+// elements of T) holds a nonzero (-0 counts as zero, as in f32).  A warp
+// takes LIVE_ROWS rows, a block of eight warps 8 LIVE_ROWS of them (whole
+// words of bits): each lane loads U-byte pieces (U: 16, 8, 4 or 2 bytes,
+// dividing a row and w's address), LIVE_UNROLL pieces of each of its warp's
+// rows at once, so that their loads are in flight together, and the warp
+// votes a row.
+constexpr int LIVE_ROWS = 4;            // rows of a warp in the live pass
+constexpr int LIVE_UNROLL = 3;          // pieces a lane loads of a row at once
+constexpr int LIVE_BLOCK = 8 * LIVE_ROWS;   // rows of a block
+static_assert(LIVE_BLOCK % 32 == 0 && 32 % LIVE_ROWS == 0, "whole words a block");
+
+// The magnitude bits of a U-byte piece of w, ORed: nonzero iff an element is.
+template <typename T, int U>
+__device__ __forceinline__ unsigned piece_bits(const char* p) {
+  constexpr unsigned MAG = sizeof(T) == 4 ? 0x7fffffffu : 0x7fff7fffu;
+  if constexpr (U == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    return (v.x | v.y | v.z | v.w) & MAG;
+  } else if constexpr (U == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    return (v.x | v.y) & MAG;
+  } else if constexpr (U == 4) {
+    return __ldg(reinterpret_cast<const unsigned*>(p)) & MAG;
+  } else {
+    return __ldg(reinterpret_cast<const unsigned short*>(p)) & 0x7fffu;
+  }
+}
+
+template <typename T, int U>
+__device__ __forceinline__ void live_rows(bool (&nz)[LIVE_ROWS], const char* base, size_t pitch,
+                                          int valid, int pieces, int lane) {
+  for (int c0 = lane; c0 < pieces; c0 += 32 * LIVE_UNROLL) {
+    unsigned v[LIVE_ROWS][LIVE_UNROLL];
+#pragma unroll
+    for (int q = 0; q < LIVE_ROWS; ++q)
+#pragma unroll
+      for (int u = 0; u < LIVE_UNROLL; ++u) {
+        const int c = c0 + 32 * u;
+        v[q][u] = q < valid && c < pieces ? piece_bits<T, U>(base + q * pitch + (size_t)c * U)
+                                          : 0u;
+      }
+#pragma unroll
+    for (int q = 0; q < LIVE_ROWS; ++q)
+#pragma unroll
+      for (int u = 0; u < LIVE_UNROLL; ++u) nz[q] |= v[q][u] != 0u;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256) tp_aggregate_l2_live_kernel(
+    const T* __restrict__ w, unsigned* __restrict__ bits, long long rows, int F, int unit) {
+  __shared__ unsigned s_bits[8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r0 = (long long)blockIdx.x * LIVE_BLOCK + warp * LIVE_ROWS;
+  const int pieces = F * (int)sizeof(T) / unit;
+  const int valid = r0 >= rows ? 0 : (int)min((long long)LIVE_ROWS, rows - r0);
+  const size_t pitch = (size_t)F * sizeof(T);
+  const char* base = reinterpret_cast<const char*>(w) + r0 * pitch;
+  bool nz[LIVE_ROWS];
+#pragma unroll
+  for (int q = 0; q < LIVE_ROWS; ++q) nz[q] = false;
+  if (unit == 16) live_rows<T, 16>(nz, base, pitch, valid, pieces, lane);
+  else if (unit == 8) live_rows<T, 8>(nz, base, pitch, valid, pieces, lane);
+  else if (unit == 4) live_rows<T, 4>(nz, base, pitch, valid, pieces, lane);
+  else live_rows<T, 2>(nz, base, pitch, valid, pieces, lane);
+  unsigned mine = 0u;   // this warp's rows, at their place in their word
+#pragma unroll
+  for (int q = 0; q < LIVE_ROWS; ++q)
+    mine |= (unsigned)__any_sync(0xffffffffu, nz[q]) << ((warp * LIVE_ROWS + q) % 32);
+  if (lane == 0) s_bits[warp] = mine;
+  __syncthreads();
+  constexpr int PER_WORD = 32 / LIVE_ROWS;   // warps a word
+  if (threadIdx.x < LIVE_BLOCK / 32) {
+    const long long word = (long long)blockIdx.x * (LIVE_BLOCK / 32) + threadIdx.x;
+    if (word * 32 < rows) {
+      unsigned out = 0u;
+#pragma unroll
+      for (int k = 0; k < PER_WORD; ++k) out |= s_bits[threadIdx.x * PER_WORD + k];
+      bits[word] = out;
+    }
+  }
+}
+
+// Allows the tiled forward (dx false) or dx kernel of operand type T all the
+// shared memory an SM has, once per kernel.
+template <typename T>
+cudaError_t allow_tiled(bool dx) {
+  static bool allowed[2] = {false, false};
+  if (allowed[dx]) return cudaSuccess;
+  const cudaError_t err = dx ? allow_shared(tp_aggregate_bwd_x_l2_tiled_kernel<T>, MAX_SMEM)
+                             : allow_shared(tp_aggregate_fwd_l2_tiled_kernel<T>, MAX_SMEM);
+  if (err == cudaSuccess) allowed[dx] = true;
+  return err;
+}
+
+size_t tiled_bytes(bool dx, int FTP, int DXW, int TS, int GS, int PC, int NI, int esize) {
+  return (size_t)t2_layout(dx, FTP, DXW, TS, GS, PC, NI, esize).total * sizeof(float);
+}
+
+bool bad_tiling(int B, int N, int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS,
+                int GS, int PC, int NI, int splits, int summed, const float* part, bool need_part) {
+  return B < 1 || B > 65535 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 ||
+         n_ct < 1 || (FTP != 64 && FTP != 128) || DXW < 4 || DXW % 4 != 0 || TS < 4 ||
+         TS % 4 != 0 || GS < 1 || PC < 1 || PC > L2_MAX_PATHS || NI < 0 || splits < 1 ||
+         splits > summed || (summed + splits - 1) / splits > 32 * T2_EW ||
+         (long long)splits * n_ct > 65535 || (need_part && part == nullptr);
+}
+
+template <typename T>
+int launch_live(const void* w, unsigned* bits, long long rows, int F, int unit, cudaStream_t st) {
+  if (rows < 1 || F < 1 || (unit != 16 && unit != 8 && unit != 4 && unit != (int)sizeof(T)) ||
+      (F * (int)sizeof(T)) % unit != 0 || !aligned(w, unit) || bits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (rows + LIVE_BLOCK - 1) / LIVE_BLOCK;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tp_aggregate_l2_live_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(static_cast<const T*>(w), bits,
+                                                                   rows, F, unit);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd_l2_tiled(const void* x, const void* sh, const void* w, const int* chan,
+                        const int* ptab, const float* gflat, const int* ctab, const int* walk,
+                        const unsigned* bits, float* out, float* part, int B, int N, int M, int D,
+                        int S, int F,
+                        int n_ct, int FTP, int DXW, int TS, int GS, int PC, int splits, int wunit,
+                        cudaStream_t st) {
+  if (bad_tiling(B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, 0, splits, M, part, splits > 1) ||
+      (N + T2_KEEP - 1) / T2_KEEP > 65535 || (wunit != 0 && !aligned(w, wunit)) ||
+      bits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = tiled_bytes(false, FTP, DXW, TS, GS, PC, 0, sizeof(T));
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_tiled<T>(false);
+  if (err != cudaSuccess) return (int)err;
+  const int xvec = D % 4 == 0 && aligned(x, 4 * sizeof(T));
+  const int shw = sizeof(T) == 2 && aligned(sh, 4);
+  tp_aggregate_fwd_l2_tiled_kernel<T><<<dim3(splits * n_ct, (N + T2_KEEP - 1) / T2_KEEP, B),
+                                        T2_THREADS, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
+      reinterpret_cast<const int4*>(chan), ptab, gflat, ctab, walk, bits, splits > 1 ? part : out,
+      B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, wunit, xvec, shw);
+  return sum_splits<float>(part, out, (long long)B * N * F * 8, splits, st);
+}
+
+template <typename T>
+int launch_bwd_x_l2_tiled(const void* sh, const void* w, const float* g, const int* chan,
+                          const int* ptab, const float* gflat, const int* ctab, const int* walk,
+                          const unsigned* bits, const int* dptr, const int* ditem, void* dx,
+                          float* part, int B, int N,
+                          int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS,
+                          int PC, int NI, int splits, int wunit, cudaStream_t st) {
+  const bool partial = splits > 1 || n_ct > 1;
+  if (bad_tiling(B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, NI, splits, N, part, partial) ||
+      (M + T2_KEEP - 1) / T2_KEEP > 65535 || (wunit != 0 && !aligned(w, wunit)) ||
+      bits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = tiled_bytes(true, FTP, DXW, TS, GS, PC, NI, sizeof(T));
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_tiled<T>(true);
+  if (err != cudaSuccess) return (int)err;
+  T* out = static_cast<T*>(dx);
+  tp_aggregate_bwd_x_l2_tiled_kernel<T><<<dim3(splits * n_ct, (M + T2_KEEP - 1) / T2_KEEP, B),
+                                          T2_THREADS, bytes, st>>>(
+      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+      ptab, gflat, ctab, walk, bits, dptr, ditem, partial ? part : nullptr, out, B, N, M, D, S, F,
+      n_ct,
+      FTP, DXW, TS, GS, PC, NI, wunit, aligned(g, 16), sizeof(T) == 2 && aligned(sh, 4));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !partial) return (int)err;
+  const long long total = (long long)B * M * D;
+  tp_aggregate_l2_dx_sum<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(part, ctab, out, total,
+                                                                           D, n_ct, splits);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int tiled_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, int PC, int NI) {
+  cudaError_t err = allow_tiled<T>(dx != 0);
+  if (err != cudaSuccess) return -(int)err;
+  const size_t bytes = tiled_bytes(dx != 0, FTP, DXW, TS, GS, PC, NI, sizeof(T));
+  if (bytes > MAX_SMEM) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  err = dx ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, tp_aggregate_bwd_x_l2_tiled_kernel<T>, T2_THREADS, bytes)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, tp_aggregate_fwd_l2_tiled_kernel<T>, T2_THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 bool bad_shape_l2(int B, int N, int M, int D, int S, int F, int n_paths) {
@@ -1442,20 +2193,88 @@ int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items
               : blocks_per_sm<float>(dx, D, F, n_paths, n_items);
 }
 
-// The 8-lane kernels (l <= 2): out and g (B, N, F, 8); tables from
-// tp_fused.tables_l2 (chan (F, 4), ptab (n_paths, 8), gtab (n_paths, 5, 5, 5),
-// t_size floats of t an edge); one launch each, no split.
+// The 8-lane kernels (l <= 2): out and g (B, N, F, 8).
 //
-// `lanes` (4 or 8) is the floats of a channel in out and g; 4 only in the
-// sender-index mode (idx, or order and ptr, not null; x and dx (B, Mx, D),
-// sh, w and dw (B, N, M, .) with M the slots), where dsh is refused.  Dense:
-// Mx = M, 8 lanes.
+// The dense forward and dx by channel tile: tables from
+// tp_fused.tables_tiled_l2 (chan (F, 4), ptab (n_paths, 8), gflat, ctab
+// (n_ct, 8), walk (F)) and their sizes (FTP, DXW, TS, GS, PC); dx's per-tile
+// lists from tp_aggregate.dx_lists_l2 (dptr (n_ct, DXW + 1), ditem, NI the
+// longest list); `bits`, the live pass's bits of w (dp_tp_aggregate_l2_live).
+// `splits` of the summed axis (1 <= splits <= its length, at most 1,024
+// summed entries a split); `part` holds the forward's (splits, B, N, F, 8)
+// floats when splits > 1 and dx's (splits * n_ct, B, M, D) when splits > 1
+// or n_ct > 1, else it is not read.  `wunit`: the cp.async piece (16, 8 or
+// 4 bytes; 0 for plain loads) that divides a row of w, each tile's first
+// channel and width, and w's address.
+
+int dp_tp_aggregate_fwd_l2_tiled(const void* x, const void* sh, const void* w, const int* chan,
+                                 const int* ptab, const float* gflat, const int* ctab,
+                                 const int* walk, const unsigned* bits, float* out, float* part,
+                                 int B, int N, int M, int D, int S, int F, int n_ct, int FTP,
+                                 int DXW, int TS, int GS, int PC, int splits, int wunit, int bf16,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd_l2_tiled<__nv_bfloat16>(x, sh, w, chan, ptab, gflat, ctab, walk, bits,
+                                                   out, part, B, N, M, D, S, F, n_ct, FTP, DXW, TS,
+                                                   GS, PC, splits, wunit, st)
+              : launch_fwd_l2_tiled<float>(x, sh, w, chan, ptab, gflat, ctab, walk, bits, out,
+                                           part, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC,
+                                           splits, wunit, st);
+}
+
+int dp_tp_aggregate_bwd_x_l2_tiled(const void* sh, const void* w, const float* g, const int* chan,
+                                   const int* ptab, const float* gflat, const int* ctab,
+                                   const int* walk, const unsigned* bits, const int* dptr,
+                                   const int* ditem, void* dx, float* part, int B, int N, int M,
+                                   int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS,
+                                   int PC, int NI, int splits, int wunit, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_x_l2_tiled<__nv_bfloat16>(sh, w, g, chan, ptab, gflat, ctab, walk, bits,
+                                                     dptr, ditem, dx, part, B, N, M, D, S, F, n_ct,
+                                                     FTP, DXW, TS, GS, PC, NI, splits, wunit, st)
+              : launch_bwd_x_l2_tiled<float>(sh, w, g, chan, ptab, gflat, ctab, walk, bits, dptr,
+                                             ditem, dx, part, B, N, M, D, S, F, n_ct, FTP, DXW, TS,
+                                             GS, PC, NI, splits, wunit, st);
+}
+
+// The live pass of w (rows of F elements, rows = B N M): bits (rows + 31) /
+// 32 words.  `unit`: the load piece (16, 8, 4 or the element's bytes), which
+// must divide a row and w's address.
+int dp_tp_aggregate_l2_live(const void* w, unsigned* bits, long long rows, int F, int unit,
+                            int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_live<__nv_bfloat16>(w, bits, rows, F, unit, st)
+              : launch_live<float>(w, bits, rows, F, unit, st);
+}
+
+// Bytes of shared memory a block of the tiled forward (dx = 0) or dx takes
+// at these sizes and operand bytes (esize 4 or 2).
+int dp_tp_aggregate_l2_smem(int dx, int FTP, int DXW, int TS, int GS, int PC, int NI, int esize) {
+  return (int)tiled_bytes(dx != 0, FTP, DXW, TS, GS, PC, NI, esize);
+}
+
+// Blocks of the tiled forward (dx = 0) or dx that one SM holds at once at
+// these sizes and operand type, or minus a cudaError_t value.
+int dp_tp_aggregate_l2_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, int PC, int NI,
+                                     int bf16) {
+  return bf16 ? tiled_blocks_per_sm<__nv_bfloat16>(dx, FTP, DXW, TS, GS, PC, NI)
+              : tiled_blocks_per_sm<float>(dx, FTP, DXW, TS, GS, PC, NI);
+}
+
+// The sender-index mode (idx, or order and ptr, never null; x and dx (B, Mx,
+// D), sh, w and dw (B, N, M, .) with M the slots): tables from
+// tp_fused.tables_l2 (chan (F, 4), ptab (n_paths, 8), gtab (n_paths, 5, 5,
+// 5), t_size floats of t an edge); one launch each, no split.  `lanes` (4
+// or 8) is the floats of a channel in out and g.  The edge backward also
+// runs dense (idx null: Mx = M, 8 lanes), where it computes dsh when asked;
+// the mode refuses dsh.
 
 int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
                            const int* chan, const int* ptab, const float* gtab, float* out, int B,
                            int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size,
                            int lanes, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || bad_mode(idx, M, Mx, lanes))
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || idx == nullptr ||
+      bad_mode(idx, M, Mx, lanes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lanes == 4)
@@ -1492,14 +2311,14 @@ int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w, co
                                              dsh, B, N, M, Mx, D, S, F, n_paths, n_seg, st);
 }
 
-// Sender-index mode: `order` and `ptr` from tp_fused.sender_lists.
+// `order` and `ptr` from tp_fused.sender_lists.
 int dp_tp_aggregate_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
                              const int* ptab, const float* gtab, const int* d_ptr,
                              const int* d_item, const int* order, const int* ptr, void* dx, int B,
                              int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size,
                              int n_items, int lanes, int bf16, void* stream) {
   if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || n_items < 1 || Mx > 65535 ||
-      bad_mode(order, M, Mx, lanes) || (order == nullptr) != (ptr == nullptr))
+      order == nullptr || ptr == nullptr || bad_mode(order, M, Mx, lanes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lanes == 4)

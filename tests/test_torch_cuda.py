@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_kernel_layouts as layouts
 from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 from diffphore_torch.ops.tensor_product import channelwise_tp
 
@@ -817,6 +818,122 @@ def test_tp_aggregate_l2_autograd_launches_the_8_lane_kernels(cuda):
     torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(l1 + L2_K2_COUNTERS, before)] == [0, 0, 0, 1, 1, 1]
+
+
+#: (B, N, M) of the dense 8-lane K2 forward and dx: the probe's training
+#: shapes (batch 24 of a 24 x 96 x 8 bucket: split and unsplit grids), B = 1
+#: (the most splits), N = 1 (final_conv), N and M below a tile, ragged tiles
+K2_TILED_SHAPES = [(24, 24, 96), (24, 96, 24), (24, 24, 24), (1, 96, 96), (24, 1, 24),
+                   (2, 3, 2), (3, 37, 29)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+@pytest.mark.parametrize("shape", K2_TILED_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_tiled_forward_and_dx(cuda, sig, shape, dtype):
+    """The dense 8-lane forward and dx by channel tile at the probe's six
+    widths (F = 60 to 360; F = 140 has bf16 rows of w that are not a
+    multiple of 16 bytes), on live-first edge weights with dead edges
+    inside (whole tiles dead at the far ends): against autograd through the
+    plain version, f32 within 1e-4 of each result's scale, bf16 the output
+    within 1e-5 and dx within one bf16 rounding step of each element; the
+    upstream gradient's pad lanes ignored; the output's pad lanes zero;
+    reruns equal to the bit; one launch a call; B = 1 splits both summed
+    axes."""
+    tp, _ = _l2_tp(sig)
+    B, N, M = shape
+    x, sh, w, g = _l2_k2_inputs(tp, cuda, B, N, M, seed=3)
+    live_n, live_m = -(-2 * N // 5), -(-M // 2)
+    w[:, live_n:] = 0.0
+    w[:, :, live_m:] = 0.0
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w = x.to(dt), sh.to(dt), w.to(dt)
+    xl = x.float().requires_grad_(True)
+    ref = tp_aggregate.tp_aggregate_plain(tp, xl.to(dt), sh, w)
+    (ref_dx,) = torch.autograd.grad(ref, [xl], g * _lanes(tp, g))
+    runs = []
+    for _ in range(2):
+        before = [k.launches for k in L2_K2_COUNTERS]
+        runs.append((tp_aggregate.launch_forward(tp, x, sh, w),
+                     tp_aggregate.launch_backward_x(tp, x, sh, w, g)))
+        assert [k.launches - b for k, b in zip(L2_K2_COUNTERS, before)] == [1, 0, 1]
+    torch.cuda.synchronize()
+    (out, dx), (out2, dx2) = runs
+    assert torch.equal(out, out2) and torch.equal(dx, dx2)
+    assert out.shape == ref.shape and float(out[..., 5:].abs().max()) == 0.0
+    assert dx.dtype == dt and dx.shape == x.shape
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    assert float((out - ref.detach()).abs().max()) <= tol * float(ref.abs().max())
+    if dt == torch.float32:
+        assert float((dx - ref_dx).abs().max()) <= 1e-4 * float(ref_dx.abs().max())
+    else:
+        assert bool(((dx.float() - ref_dx).abs() <= _bf16_step(ref_dx)).all())
+    if shape == (1, 96, 96):
+        for k in (False, True):
+            assert tp_aggregate.grid_l2(tp, B, N, M, k, cuda, dt)[1] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 96, 96, 300), (3, 37, 29, 140), (1, 1, 5, 80),
+                                   (2, 5, 7, 60)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_live_pass_matches_plain(cuda, shape, dtype):
+    """The live pass's bits equal the plain version's on rows dead, live in
+    one channel only (the first, a middle one, the last) and live
+    throughout, -0 counting as zero; rows that end inside a word of bits
+    and w at an offset that allows only narrow loads."""
+    B, N, M, F = shape
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(size=(B, N, M, F)).astype(np.float32))
+    kind = torch.from_numpy(rng.integers(0, 6, (B, N, M)))   # 5: live throughout
+    w[kind == 0] = 0.0
+    w[kind == 1] = -0.0
+    for k, col in ((2, 0), (3, F // 2), (4, F - 1)):
+        keep = w[kind == k][:, col].clone()
+        w[kind == k] = 0.0
+        w[(kind == k).nonzero(as_tuple=True) + (torch.full((int((kind == k).sum()),), col),)] = keep
+    w = w.to(dt).to(cuda)
+    got = tp_aggregate.live_rows_l2(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tp_aggregate.live_rows_plain(w))
+    flat = torch.empty(w.numel() + 1, dtype=dt, device=cuda)[1:].view(w.shape)   # 2-byte offset
+    flat.copy_(w)
+    assert torch.equal(tp_aggregate.live_rows_l2(flat), tp_aggregate.live_rows_plain(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_tiled_all_dead_gives_exact_zeros(cuda, dtype):
+    """Every edge dead: the tiled forward and dx write exact zeros, split or
+    not."""
+    tp, _ = _l2_tp("layer3")
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    for B, N, M in ((24, 24, 96), (1, 96, 96), (2, 3, 2)):
+        x, sh, w, g = _l2_k2_inputs(tp, cuda, B, N, M)
+        x, sh, w = x.to(dt), sh.to(dt), torch.zeros_like(w, dtype=dt)
+        out = tp_aggregate.launch_forward(tp, x, sh, w)
+        dx = tp_aggregate.launch_backward_x(tp, x, sh, w, g)
+        torch.cuda.synchronize()
+        assert float(out.abs().max()) == 0.0 and float(dx.float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+def test_tp_aggregate_l2_layout_count_matches_the_plain_count(cuda, sig):
+    """The library's count of the tiled forward's and dx's shared memory
+    (dp_tp_aggregate_l2_smem) equals the plain copy of the layout's sums
+    that tests/test_torch_kernel_plans.py holds to two blocks an SM, f32
+    and bf16; the occupancy query gives two blocks an SM or more."""
+    tp, _ = _l2_tp(sig)
+    lib = tp_aggregate._library()
+    for dx in (False, True):
+        sizes = tp_aggregate.layout_sizes_l2(tp, dx)
+        for esize in (4, 2):
+            assert lib.dp_tp_aggregate_l2_smem(int(dx), *sizes, esize) == \
+                layouts.k2_l2_smem(dx, *sizes, esize), (dx, esize)
+            assert lib.dp_tp_aggregate_l2_blocks_per_sm(int(dx), *sizes, int(esize == 2)) >= 2
 
 
 L2_K3_COUNTERS = (tp_scalar.FWD_L2, tp_scalar.BWD_EDGE_L2, tp_scalar.BWD_X_L2)

@@ -4,7 +4,9 @@ K3's sender-index dx cuts each sender's slots (``tp_fused.sender_lists``) into
 chunks (``tp_scalar.slot_chunks``) and adds the chunks' sums in order; the
 8-lane K1 splits the channels into tiles at path boundaries
 (``tp_fused.channel_tiles``) and reads its tables by tile
-(``tp_fused.tables_tiled_l2``).  The CUDA kernels run only on the card
+(``tp_fused.tables_tiled_l2``); the dense 8-lane K2 forward and dx read the
+same tiles, dx through per-tile lists (``tp_aggregate.dx_lists_l2``), and
+split the summed axis (``tp_aggregate.plan_splits_l2``).  The CUDA kernels run only on the card
 (tests/test_torch_cuda.py and chip_smoke.py hold them there); here the plans
 are checked for coverage and grid size, and a plain emulation of each
 kernel's arithmetic in the kernel's order, read from the same tables, is held
@@ -20,7 +22,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from diffphore_torch.ops import tp_fused, tp_scalar
+import torch_kernel_layouts as layouts
+from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 from diffphore_torch.ops.tensor_product import channelwise_tp
 from diffphore_tpu.ops import tensor_product as jtp
 
@@ -360,3 +363,190 @@ def test_tiled_tables_reproduce_the_plain_and_jax_aggregate(sig, indexed):
     jout = tp_fused.padded_from_blocks(tp, [None if blk is None else T(np.asarray(blk))
                                             for blk in blocks])
     assert float((got - jout).abs().max()) <= TOL * float(jout.abs().max())
+
+
+# ---- the dense 8-lane K2 forward and dx: channel tiles, per-tile lists,
+# splits, layout
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+def test_k2_l2_dx_lists_cover_every_reader_once(sig):
+    """dx's per-tile lists (``tp_aggregate.dx_lists_l2``) name every
+    (x element, channel, component) that the global list of the untiled
+    kernels names, each exactly once across the tiles, within the tile
+    that holds the channel and inside that tile's x slice, ascending within
+    an element; the extents are flat past a slice and the longest list is
+    the one reported."""
+    tp = channelwise_tp(*SIGNATURES_L2[sig][:3])
+    chan, _, _, ctab, _, dims = tp_fused.tables_tiled_l2(tp)
+    dptr, ditem, longest = tp_aggregate.dx_lists_l2(tp)
+    assert dptr.dtype == ditem.dtype == np.int32
+    assert dptr.shape == (len(ctab), dims[0] + 1)
+    _, g_ptr, g_item = tp_aggregate._backward_tables(tp, tp_fused.K_PAD_L2)
+    want = sorted((d, int(it) >> 3, int(it) & 7) for d in range(tp.irreps_in.dim)
+                  for it in g_item[g_ptr[d]:g_ptr[d + 1]])
+    got, channels = [], []
+    for t, (f0, fc, _, _, x_lo, xw, _, _) in enumerate(ctab.tolist()):
+        assert (dptr[t, xw:] == dptr[t, xw]).all()
+        for e in range(xw):
+            items = ditem[dptr[t, e]:dptr[t, e + 1]].tolist()
+            assert items == sorted(items)
+            if items:
+                assert x_lo + e < tp.irreps_in.dim
+            got += [(x_lo + e, f0 + (it >> 3), it & 7) for it in items]
+            assert all((it >> 3) < fc for it in items)
+        channels += sorted({f0 + (it >> 3) for it in ditem[dptr[t, 0]:dptr[t, xw]].tolist()})
+    assert sorted(got) == want and len(got) == len(set(got))
+    assert channels == list(range(tp.weight_numel))       # each channel in one tile, in order
+    assert longest == int((dptr[:, -1] - dptr[:, 0]).max())
+    for f in range(tp.weight_numel):                      # every component of every channel
+        assert sum(1 for _, c, _ in got if c == f) == chan[f, 1]
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+def test_k2_l2_walk_takes_each_channel_once_packed_by_shape(sig):
+    """The tiled kernels' walk (``tp_aggregate.walk_l2``): each tile's
+    channels once, in the first 64 slots (a tile of up to 64 channels) or
+    128, at most 32 a warp; a warp runs no more channel shapes than the
+    fewest warps could hold the tile's shapes in, plus one."""
+    tp = channelwise_tp(*SIGNATURES_L2[sig][:3])
+    chan, _, _, ctab, _, _ = tp_fused.tables_tiled_l2(tp)
+    walk = tp_aggregate.walk_l2(tp)
+    assert walk.shape == (len(ctab), tp_aggregate.WALK_L2) and walk.dtype == np.int32
+    for t, (f0, fc, *_) in enumerate(ctab.tolist()):
+        cw = 128 if fc > 64 else 64
+        row = walk[t]
+        assert (row[cw:] == -1).all()
+        assert sorted(row[row >= 0].tolist()) == list(range(fc))
+        shapes = {(int(chan[f0 + f, 1]), int(chan[f0 + f, 2])) for f in range(fc)}
+        for k in range(0, cw, 32):
+            warp = [f for f in row[k:k + 32].tolist() if f >= 0]
+            held = {(int(chan[f0 + f, 1]), int(chan[f0 + f, 2])) for f in warp}
+            assert len(held) <= max(1, -(-len(shapes) // (cw // 32))) + 1, (t, k, held)
+
+
+#: (B, kept, summed) of the 8-lane K2 forward (kept = N, summed = M) and dx
+#: (kept = M, summed = N) at the second-order probe's training shapes
+#: (batch 24 of a 24 x 96 x 8 bucket), with B = 1 and N = 1
+K2_L2_PLAN_SHAPES = [(24, 24, 24), (24, 24, 96), (24, 96, 24), (24, 96, 96), (24, 1, 24),
+                     (24, 24, 1), (24, 8, 24), (24, 24, 8), (1, 24, 96), (1, 96, 24), (1, 1, 24),
+                     (1, 24, 1), (1, 1, 1), (3, 5, 2)]
+
+
+@pytest.mark.parametrize("sig", [s for s in SIGNATURES_L2 if s != "layer0"])
+@pytest.mark.parametrize("dx", [False, True])
+def test_k2_l2_split_plan(sig, dx):
+    """Splits of the summed axis at the probe's shapes, at B = 1 and at
+    N = 1, against the occupancy of an H100 at the kernel's layout (two or
+    more blocks an SM): at least one split and never more than the summed
+    axis has entries; a tile of work for each split where the axis has
+    one; and the grid holds every block slot of the card unless the summed
+    axis runs out of tiles."""
+    tp = channelwise_tp(*SIGNATURES_L2[sig][:3])
+    tiles = len(tp_fused.channel_tiles(tp))
+    for esize in (4, 2):
+        resident = H100_SMS * min(8, layouts.blocks_per_sm(
+            layouts.k2_l2_smem(dx, *tp_aggregate.layout_sizes_l2(tp, dx), esize)))
+        assert resident >= 2 * H100_SMS
+        target = max(tp_fused.TARGET_BLOCKS, resident)
+        for B, kept, summed in K2_L2_PLAN_SHAPES:
+            splits = tp_aggregate.plan_splits_l2(B, kept, summed, tiles, target)
+            assert 1 <= splits <= max(1, summed)
+            if summed >= tp_aggregate.TILE_SUM:
+                assert summed // splits >= tp_aggregate.TILE_SUM
+            blocks = B * -(-kept // tp_aggregate.KEEP) * tiles * splits
+            if splits < summed // tp_aggregate.TILE_SUM:
+                assert blocks >= target, (B, kept, summed)
+            if B * -(-kept // tp_aggregate.KEEP) * tiles >= target:   # no split needed
+                assert splits == 1
+
+
+@pytest.mark.parametrize("sig", list(SIGNATURES_L2))
+def test_k2_l2_layout_fits_two_blocks_an_sm(sig):
+    """The tiled forward's and dx's shared memory, summed as ``t2_layout``
+    sums it (tests/torch_kernel_layouts.py), fits two blocks an SM of an
+    H100 at every width of the probe, f32 and bf16; the forward three at
+    f32 and dx three at bf16."""
+    tp = channelwise_tp(*SIGNATURES_L2[sig][:3])
+    for dx in (False, True):
+        for esize in (4, 2):
+            smem = layouts.k2_l2_smem(dx, *tp_aggregate.layout_sizes_l2(tp, dx), esize)
+            assert smem <= tp_fused.SMEM_L2, (dx, esize, smem)
+            assert layouts.blocks_per_sm(smem) >= (3 if esize == 2 or not dx else 2)
+
+
+def _tiled_k2(tp, x, sh, w, g, splits):
+    """The tiled forward and dx's f32 arithmetic read from
+    ``tables_tiled_l2`` and ``dx_lists_l2`` as the kernels read them, in
+    plain PyTorch: per channel tile its t rows (t_off + i d_out + k from the
+    tile's coupling entries), each channel's x offset from x_lo; the
+    summed axis cut into ``splits`` strided parts (part k takes k, k +
+    splits, ...) whose sums are added in order; dx per (sender, tile
+    channel, component), then per element of a tile's slice its list, then
+    the tiles in order."""
+    chan, ptab, gflat, ctab, _, dims = tp_fused.tables_tiled_l2(tp)
+    dptr, ditem, _ = tp_aggregate.dx_lists_l2(tp)
+    B, N, M, _ = sh.shape
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    out = torch.zeros((B, N, F, 8))
+    dx = torch.zeros((B, M, D))
+    for t, (f0, fc, p0, pc, x_lo, xw, g0, _) in enumerate(ctab.tolist()):
+        tt = torch.zeros((B, N, M, dims[1]))
+        for q in range(p0, p0 + pc):
+            sh_off, d1, d2, d3, t_off, g_off = ptab[q, :6].tolist()
+            G = torch.from_numpy(gflat[g0 + g_off:g0 + g_off + d1 * d2 * d3].reshape(d1, d2, d3))
+            tt[..., t_off:t_off + d1 * d3] = torch.einsum(
+                "ijk,bnmj->bnmik", G, sh[..., sh_off:sh_off + d2]).reshape(B, N, M, d1 * d3)
+        acc = torch.zeros((B, M, fc, 8))
+        for f in range(f0, f0 + fc):
+            xo, d1, d3, pl = chan[f].tolist()
+            t_off = int(ptab[p0 + pl, 4])
+            tf = tt[..., t_off:t_off + d1 * d3].reshape(B, N, M, d1, d3)
+            xf = x[..., x_lo + xo:x_lo + xo + d1]                       # (B, M, d1)
+            fwd = torch.einsum("bnm,bmi,bnmik->bnmk", w[..., f], xf, tf)
+            bwd = torch.einsum("bnm,bnmik,bnk->bnmi", w[..., f], tf, g[:, :, f, :d3])
+            out[:, :, f, :d3] = sum(fwd[:, :, s::splits].sum(2) for s in range(splits))
+            acc[:, :, f - f0, :d1] = sum(bwd[:, s::splits].sum(1) for s in range(splits))
+        for e in range(xw):
+            for it in ditem[dptr[t, e]:dptr[t, e + 1]].tolist():
+                dx[:, :, x_lo + e] += acc[:, :, it >> 3, it & 7]
+    return out, dx
+
+
+@pytest.mark.parametrize("sig,splits", [("layer1", 1), ("layer3", 3), ("final_conv", 2),
+                                        ("tor_bond_conv", 1), ("layer0", 2)])
+def test_tiled_k2_reproduces_the_plain_and_jax_aggregate_and_dx(sig, splits):
+    """The tiled forward and dx, read from their tables as the kernels read
+    them (f32, split sums in order), against ``tp_aggregate_plain`` and its
+    gradient in x and against the JAX package's aggregate and its gradient:
+    to 1e-5 of each result's scale; the upstream gradient's pad lanes are
+    ignored."""
+    tp = channelwise_tp(*SIGNATURES_L2[sig][:3])
+    assert tp_fused.lanes(tp) == 8
+    rng = np.random.default_rng(17)
+    B, N, M = 2, 3, 7
+    F, D = tp.weight_numel, tp.irreps_in.dim
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    x, sh = f(B, M, D), f(B, N, M, tp.irreps_sh.dim)
+    w = f(B, N, M, F) * (rng.random((B, N, M, 1)) > 0.4).astype(np.float32)
+    g = f(B, N, F, 8)                                     # noise in the pad lanes
+    mask = np.zeros_like(g)
+    for p in tp.paths:
+        mask[:, :, p.w_slice[0]:p.w_slice[1], :2 * p.l_out + 1] = 1.0
+    got_out, got_dx = _tiled_k2(tp, T(x), T(sh), T(w), T(g), splits)
+
+    xl = T(x).requires_grad_(True)
+    want = tp_aggregate.tp_aggregate_plain(tp, xl, T(sh), T(w))
+    (want_dx,) = torch.autograd.grad(want, [xl], T(g * mask))
+    for got_, want_ in ((got_out, want.detach()), (got_dx, want_dx)):
+        assert float((got_ - want_).abs().max()) <= TOL * float(want_.abs().max())
+
+    jt = jtp.channelwise_tp(*SIGNATURES_L2[sig][:3])
+
+    def jout(x_):
+        return _jax_padded(tp, jt.aggregate(x_, jnp.asarray(sh), jnp.asarray(w)), 8)
+
+    j_out = np.asarray(jout(jnp.asarray(x)))
+    j_dx = np.asarray(jax.grad(lambda x_: (jout(x_) * g * mask).sum())(jnp.asarray(x)))
+    for got_, want_ in ((got_out.numpy(), j_out), (got_dx.numpy(), j_dx)):
+        assert float(np.abs(got_ - want_).max()) <= TOL * float(np.abs(want_).max())
