@@ -23,11 +23,23 @@ difference.  This script repeats that on the card and prints:
   * ``check_forward``'s three numbers for tr, rot and tor on each trained
     model.
 
+``--perturb`` trains again beside a stream that keeps the card busy and after
+the caching allocator has moved, each against the first run, and lists the
+training's CUDA kernels that add with atomics or by index.
+
+``--moved_stats N`` holds ``check_forward``'s numbers, each against its
+bound, on N states of the trained model whose batch norms' running
+statistics one training-mode forward has moved (as any training step moves
+them), with dropout drawn after ``torch.manual_seed(seed)`` for seed 0 ..
+N - 1, each from the trained state, and on one state that all N forwards
+moved in turn.
+
 ``--save PATH`` keeps the first model's weights and forward outputs, and
 ``--compare A B`` prints how far two such files (from two processes, or two
 machines) lie apart.
 
-    python analysis/use_att_repro.py [--deterministic] [--save PATH] [--json PATH]
+    python analysis/use_att_repro.py [--deterministic] [--perturb] [--moved_stats N]
+                                     [--save PATH] [--json PATH]
     python analysis/use_att_repro.py --compare A B
 
 Needs a GPU (not ``--compare``).  Imports no JAX.
@@ -50,6 +62,110 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 
+#: substrings of the names of CUDA kernels that add with atomics or by index
+#: (whose order of addition the hardware's timing may decide)
+ATOMIC_KERNELS = ("atomic", "index_put", "indexing_backward", "scatter", "index_add",
+                  "indexFunc", "embedding_backward", "put_kernel", "histogram", "bincount")
+
+
+def perturb(result, train, compare, model_a):
+    """Training under three disturbances, each against the first run: a
+    side stream that keeps the card busy with matrix products the whole
+    time (other blocks resident beside the training's: the order in which
+    atomics land changes); the caching allocator moved by held tensors of
+    odd sizes (other addresses); and the CUDA kernels of a training run by
+    the profiler, those named in ATOMIC_KERNELS listed."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    stop = threading.Event()
+
+    def busy():
+        side = torch.cuda.Stream()
+        a = torch.randn(4096, 4096, device="cuda")
+        with torch.cuda.stream(side):
+            while not stop.is_set():
+                for _ in range(8):
+                    a = torch.tanh(a @ a * 1e-3)
+                side.synchronize()
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    try:
+        (_, busy_model), _ = train("busy")
+    finally:
+        stop.set()
+        worker.join()
+    result["training beside a busy stream"] = compare(model_a, busy_model)
+    print(f"training beside a busy stream: {json.dumps(result['training beside a busy stream'])}",
+          flush=True)
+    held = [torch.empty(n * 4099 + 17, device="cuda") for n in range(1, 200)]
+    (_, moved_model), _ = train("allocator moved")
+    del held
+    result["training after the allocator moved"] = compare(model_a, moved_model)
+    print("training after the allocator moved: "
+          f"{json.dumps(result['training after the allocator moved'])}", flush=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train("profiled")
+    names = sorted({e.key for e in prof.key_averages()
+                    if any(k in e.key for k in ATOMIC_KERNELS)})
+    result["kernels that add by index or with atomics"] = names
+    print(f"training's kernels that add by index or with atomics: {json.dumps(names)}",
+          flush=True)
+
+
+def moved_statistics(result, model, cfg, numbers, n):
+    """check_forward's numbers (``numbers(model)``) on states of ``model``
+    whose batch norms' running statistics one training-mode forward of
+    chip_smoke.py's training batch moved, dropout drawn after
+    ``torch.manual_seed(seed)``: for each seed from the trained state, then
+    with all n forwards in turn.  The model's buffers are put back after."""
+    import torch
+
+    import chip_smoke as cs
+    from diffphore_torch.data.transforms import apply_noise
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    train_batch, draws = cs.recipe_batch(gen)
+    with torch.no_grad():
+        noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
+    kept = [(buf, buf.detach().clone()) for buf in model.buffers()]
+
+    def restore():
+        with torch.no_grad():
+            for buf, was in kept:
+                buf.copy_(was)
+
+    def move(seed):
+        torch.manual_seed(seed)
+        model.train()
+        with torch.no_grad():
+            model(noised)
+        model.eval()
+
+    states = {}
+    for seed in range(n):
+        move(seed)
+        states[f"seed {seed}"] = numbers(model)
+        restore()
+    for seed in range(n):
+        move(seed)
+    states[f"seeds 0-{n - 1} in turn"] = numbers(model)
+    restore()
+    for label, rows in states.items():
+        print(f"check_forward's numbers, statistics moved ({label}): {json.dumps(rows)}",
+              flush=True)
+    result["check_forward, statistics moved"] = states
+    readings = [r for rows in states.values() for r in rows.values()]
+    worst = max(r["bf16 kernel-plain"] / max(r["plain f32-bf16"], 1e-30) for r in readings)
+    print(f"statistics moved: all within the bounds {all(r['within'] for r in readings)}; "
+          f"largest bf16 kernel-plain / f32-bf16 gap {worst:.3f} (bound {cs.TOL_BF16_GAP})",
+          flush=True)
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json", default=None, help="write the results here too")
@@ -57,6 +173,13 @@ def main(argv=None) -> dict:
                         help="also train and run the forward under deterministic algorithms")
     parser.add_argument("--save", default=None, help="keep weights and outputs here (torch.save)")
     parser.add_argument("--compare", nargs=2, default=None, help="two --save files to compare")
+    parser.add_argument("--perturb", action="store_true",
+                        help="also train while another stream keeps the card busy and after "
+                             "the caching allocator has moved, and list the training's CUDA "
+                             "kernels that add with atomics or by index")
+    parser.add_argument("--moved_stats", type=int, default=0,
+                        help="also hold the forward check on this many states whose running "
+                             "statistics a training-mode forward has moved")
     args = parser.parse_args(argv)
     import numpy as np
     import torch
@@ -132,6 +255,8 @@ def main(argv=None) -> dict:
             print(f"training after moving the {label} generator: "
                   f"{json.dumps(result[f'training after moving the {label} generator'])}",
                   flush=True)
+        if args.perturb:
+            perturb(result, train, compare, model_a)
         if args.deterministic:
             trained_det, refused = train("c", deterministic=True)
             result["training, deterministic algorithms"] = (
@@ -208,7 +333,9 @@ def main(argv=None) -> dict:
     print("largest |output| by module (plain bf16): "
           + json.dumps(result["largest |output| by module, plain bf16"]), flush=True)
 
-    for name, model in (("a", model_a), ("b", model_b)):
+    def numbers(model):
+        """check_forward's numbers for tr, rot and tor, and whether each
+        lies within its bound."""
         fwd = {(d, k): forward(model, d, k) for d in ("float32", "bfloat16") for k in (True, False)}
         rows = {}
         for i, label in enumerate(("tr", "rot", "tor")):
@@ -218,8 +345,17 @@ def main(argv=None) -> dict:
                 "f32 kernel-plain": float((fwd["float32", True][i] - b32).abs().max()) / scale,
                 "bf16 kernel-plain": float((fwd["bfloat16", True][i] - b16).abs().max()) / scale,
                 "plain f32-bf16": float((b32 - b16).abs().max()) / scale, "max|plain f32|": scale}
+            r = rows[label]
+            r["within"] = (r["f32 kernel-plain"] <= cs.TOL_FORWARD and r["bf16 kernel-plain"]
+                           <= cs.TOL_BF16_GAP * r["plain f32-bf16"])
+        return rows
+
+    for name, model in (("a", model_a), ("b", model_b)):
+        rows = numbers(model)
         result[f"check_forward, model {name}"] = rows
         print(f"check_forward's numbers, model {name}: {json.dumps(rows)}", flush=True)
+    if args.moved_stats:
+        moved_statistics(result, model_a, cfg_a, numbers, args.moved_stats)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

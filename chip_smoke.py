@@ -706,7 +706,8 @@ def capture_training_convs(model, batch, k2_convs=K2_CONVS):
     """The aggregate calls of one training-mode forward of ``model`` (the
     score model, whose convs K2 takes K2_CONVS of, or the confidence head,
     HEAD_K2_CONVS): (name, tp, x, sh, w, sh needs grad, sender index or
-    None) of every K2 call and of every K3 (conv-level) call."""
+    None) of every K2 call and of every K3 (conv-level) call.  The model's
+    buffers (running statistics) are left as they were."""
     import torch
 
     from diffphore_torch.models.layers import DenseTPConv
@@ -726,6 +727,10 @@ def capture_training_convs(model, batch, k2_convs=K2_CONVS):
 
     tp_aggregate.tp_aggregate = recorder(k2_calls, originals[0])
     tp_scalar.scalar_paths_aggregate = recorder(k3_calls, originals[1])
+    # a training-mode forward moves the batch norms' running statistics, with
+    # dropout masks from the process's global generator (whatever earlier
+    # phases drew): the model's buffers are put back as they were
+    kept = [(buf, buf.detach().clone()) for buf in model.buffers()]
     try:
         model.train()
         out = model(batch)
@@ -734,6 +739,9 @@ def capture_training_convs(model, batch, k2_convs=K2_CONVS):
         for h in hooks:
             h.remove()
         model.eval()
+        with torch.no_grad():
+            for buf, was in kept:
+                buf.copy_(was)
     if not all(bool(torch.isfinite(o).all()) for o in out):
         raise AssertionError("training-mode forward is not finite")
     if (len(k2_calls), len(k3_calls)) != (k2_convs, K3_CONVS) or len(names) != k2_convs + K3_CONVS:
@@ -786,7 +794,7 @@ def phase_k2_check(calls):
     import torch
 
     from diffphore_torch.ops import tp_aggregate as k2
-    from diffphore_torch.ops.tp_fused import K_PAD_L2, lanes, sender_lists
+    from diffphore_torch.ops.tp_fused import K_PAD_L2, lanes
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -798,23 +806,27 @@ def phase_k2_check(calls):
         g = torch.randn((B, N, F, lanes(tp)), generator=gen, device="cuda")
         case = {"conv": name, "B": B, "N": N, "M": M, "M_x": M_x, "F": F, "dsh": sh_grad,
                 "indexed": idx is not None}
-        kw, dx_kw = {}, {}
+        kw, dx_kw, edge_kw = {}, {}, {}
         if idx is not None:
             if sh_grad:
                 raise AssertionError(f"{name}: a phore conv's harmonics carry a gradient")
             kw = {"sender_index": idx}
-            dx_kw = dict(kw, lists=sender_lists(idx, M_x))
         for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             x, sh, w = (t.to(dtype) for t in (x_cap, sh_cap, w_cap))
-            if l2 and idx is None:   # dx reads the live bits the forward made, as in the step
-                dx_kw = {"live": k2.live_rows_l2(w)}
+            # dx (and at 8 lanes, dense, the edge backward's dsh) read the
+            # live bits and the index's lists the autograd forward made, as
+            # in the step
+            if idx is not None:
+                dx_kw = dict(kw, lists=k2.idx_dx_lists(idx, M_x), live=k2.live_rows_l2(w))
+            elif l2:
+                dx_kw = edge_kw = {"live": k2.live_rows_l2(w)}
             leaves = [t.detach().float().clone().requires_grad_(True) for t in (x, sh, w)]
             ref = k2.tp_aggregate_plain(tp, *(leaf.to(dtype) for leaf in leaves), **kw)
             ref_dx, ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g, retain_graph=True)
             runs = []
             for _ in range(2):
                 out = k2.launch_forward(tp, x, sh, w, **kw)
-                dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, idx is None, **kw)
+                dw, dsh = k2.launch_backward_edge(tp, x, sh, w, g, idx is None, **kw, **edge_kw)
                 dx = k2.launch_backward_x(tp, x, sh, w, g, **dx_kw)
                 runs.append((out, dx, dsh, dw))
             if idx is None:
@@ -822,6 +834,8 @@ def phase_k2_check(calls):
                 torch.cuda.synchronize()
                 check_result(f"{name} {dtype}: dw of the kernel without dsh", dw_only, ref_dw,
                              dtype, TOL_K2)
+                if l2 and not torch.equal(dw_only, runs[0][3]):   # one arithmetic, with dsh or not
+                    raise AssertionError(f"{name} {dtype}: dw with dsh and without differ")
             torch.cuda.synchronize()
             errs = {}
             for label, got, again, want in zip(("out", "dx", "dsh", "dw"), runs[0], runs[1],
@@ -835,19 +849,28 @@ def phase_k2_check(calls):
             # times: the backward in the form the train step runs it (dsh only
             # where the harmonics carry gradient)
             case["errs" + tag] = errs
+            if idx is None:
+                dx_call = lambda: k2.launch_backward_x(tp, x, sh, w, g, **dx_kw)
+            else:   # the live bits the autograd forward makes for dx alone: timed with it
+                case["live_ms" + tag] = device_ms(lambda: k2.live_rows_l2(w), 10)
+                dx_call = lambda: k2.launch_backward_x(
+                    tp, x, sh, w, g, **dict(dx_kw, live=k2.live_rows_l2(w)))
             case["ms" + tag] = {
                 "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w, **kw), 10),
                 "bwd_edge": device_ms(
-                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw), 10),
-                "bwd_x": device_ms(lambda: k2.launch_backward_x(tp, x, sh, w, g, **dx_kw), 10),
+                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw, **edge_kw), 10),
+                "bwd_x": device_ms(dx_call, 10),
             }
             case["bound" + tag] = bounds(k2_work(tp, x, sh, w, sh_grad, idx))
             case["library_ms" + tag] = (k2_library_ms(tp, x, sh, w, g, sh_grad) if idx is None
                                         else index_library_ms(tp, x, sh, w, g, idx))
             case["grid" + tag] = {}
+            if l2 or idx is not None:       # a block per (32 senders, receivers, batch row)
+                case["grid" + tag]["bwd_edge"] = k2.edge_grid_l2(B, N, M, idx is not None)
             for k, kept in (("fwd", N), ("bwd_x", M_x)):
-                if idx is not None:         # the sender-index bodies: a block per kept entry
-                    case["grid" + tag][k] = (B * kept, 1)
+                if idx is not None:         # forward: a block per receiver; dx: per chunk
+                    case["grid" + tag][k] = ((B * kept, 1) if k == "fwd" else
+                                             (int(dx_kw["lists"].row_ptr[-1]), dx_kw["lists"].Q))
                     continue
                 if l2:                      # by channel tile
                     case["grid" + tag][k] = k2.grid_l2(tp, B, N, M, k == "bwd_x", x.device,
@@ -858,7 +881,7 @@ def phase_k2_check(calls):
             if dtype == torch.float32:
                 # the plain backward is autograd through the plain version
                 case["call_ms_bwd_edge"] = cuda_ms(
-                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw), 10)
+                    lambda: k2.launch_backward_edge(tp, x, sh, w, g, sh_grad, **kw, **edge_kw), 10)
                 edge_leaves = [leaves[2], leaves[1]] if sh_grad else [leaves[2]]
                 with torch.no_grad():
                     plain_fwd = cuda_ms(lambda: k2.tp_aggregate_plain(tp, x, sh, w, **kw), 3)
@@ -878,13 +901,18 @@ def phase_k2_check(calls):
               + f"F={F:3d} dsh={int(sh_grad)} "
               f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} sender splits; bf16 "
               f"{case['grid_bf16']['fwd'][1]}), dx grid {grid['bwd_x'][0]} blocks "
-              f"({grid['bwd_x'][1]} receiver splits; bf16 {case['grid_bf16']['bwd_x'][1]}) "
-              f"{errors_text(case)} "
+              + (f"(chunks of at most {grid['bwd_x'][1]} slots) " if idx is not None else
+                 f"({grid['bwd_x'][1]} receiver splits; bf16 {case['grid_bf16']['bwd_x'][1]}) ")
+              + (f"edge grid {grid['bwd_edge'][0]} blocks ({grid['bwd_edge'][1]} receivers a "
+                 "block) " if "bwd_edge" in grid else "")
+              + f"{errors_text(case)} "
               f"| ms kernel/plain/einsum/bound f32, kernel/einsum/bound bf16: "
               + " ".join(f"{k} {ms[k]:.4f}/{plain[k]:.4f}/{case['library_ms'][k]:.4f}/"
                          f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
                          f"{case['library_ms_bf16'][k]:.4f}/{case['bound_bf16'][k][0]:.4f}"
                          for k in ("fwd", "bwd_edge", "bwd_x"))
+              + (f" (bwd_x with the live pass, alone {case['live_ms']:.4f} / "
+                 f"{case['live_ms_bf16']:.4f})" if idx is not None else "")
               + f" | bwd_edge per call from Python {case['call_ms_bwd_edge']:.4f}", flush=True)
     by_name = {c["conv"]: c for c in cases}
     for c in cases:
@@ -920,11 +948,11 @@ K2_DEVICE_KERNELS = {
 # splits where they split; dx the tiled kernel on the same live bits (the
 # train step's forward makes them) and a second kernel that adds the
 # splits' and channel tiles' partial sums where there is more than one; the
-# edge backward one kernel.
+# edge backward each receiver's P once, then the edge kernel.
 K2_DEVICE_KERNELS_L2 = {
     "fwd": ["tp_aggregate_l2_live_kernel", "tp_aggregate_fwd_l2_tiled_kernel",
             "tp_aggregate_sum_splits"],
-    "bwd_edge": ["tp_aggregate_bwd_edge_l2_kernel"],
+    "bwd_edge": ["tp_aggregate_l2_p_kernel", "tp_aggregate_bwd_edge_l2_kernel"],
     "bwd_x": ["tp_aggregate_bwd_x_l2_tiled_kernel", "tp_aggregate_l2_dx_sum"],
 }
 
@@ -3683,6 +3711,16 @@ def index_k23_check(model, batch):
     return phase_k2_check(k2_calls), phase_k3_check(k3_calls)
 
 
+# The CUDA kernels behind each sender-index K2 wrapper (at 4 and 8 lanes): dx
+# reads the live bits and chunk lists that the autograd forward makes for it.
+K2_DEVICE_KERNELS_IDX = {
+    "fwd": ["tp_aggregate_fwd_l2_kernel"],
+    "bwd_edge": ["tp_aggregate_bwd_edge_idx_kernel"],
+    "bwd_x": ["tp_aggregate_l2_live_kernel (in the forward)", "tp_aggregate_bwd_x_idx_l2_kernel",
+              "tp_aggregate_bwd_x_idx_sum"],
+}
+
+
 def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
     """The report entries of the sender-index kernels (``l2``: the 8-lane
     instantiations): K1's over the phore convs of one 40-pose forward, K2's
@@ -3725,11 +3763,19 @@ def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
                 "unit": f"one train step: the {len(cases)} phore conv call(s) on this kernel "
                         f"(K = {KNN}), each timed alone on the card (graph replay; dx with the "
                         "index's inverse lists (K3: and slot chunks) built beforehand, as the "
-                        "forward builds them), "
+                        "forward builds them"
+                        + ("; K2's dx includes the live pass over w that the autograd forward "
+                           "runs for it, live_ms that pass alone" if family == "tp_aggregate"
+                           else "") + "), "
                         "f32 (ms) and bf16 (ms_bf16) operands; library_ms is the gather of the "
                         "senders and the gathered per-path torch.einsum (dx: the per-slot "
                         "einsum and index_add_), by graph replay",
             })
+            if family == "tp_aggregate":
+                entries[-1]["device_kernels"] = K2_DEVICE_KERNELS_IDX[k]
+                if k == "bwd_x":
+                    entries[-1]["live_ms"] = sum(c["live_ms"] for c in cases)
+                    entries[-1]["live_ms_bf16"] = sum(c["live_ms_bf16"] for c in cases)
     return entries
 
 

@@ -19,7 +19,7 @@ convolution where the tree has that interface, else per path, as the
 first K3 did).  It needs a GPU and fails without one.
 
     python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only | --k1_l2 | --k3_index |
-                                                   --k2_l2]
+                                                   --k2_l2 | --k2_edge_l2 | --k2_index]
 
 ``--k3_only`` times K3's forward, edge backward (``launch_backward_edge``
 as the train step calls it: dsh on the two convs whose harmonics carry a
@@ -57,6 +57,17 @@ widths of that model (F = 60, 80, 140, 180, 300, 360) at 24 x 24 x 96, 24 x
 profiler's per-kernel times.  It calls only ``launch_forward`` and
 ``launch_backward_x``, so it runs unchanged in a tree from before the
 kernels' redesign.
+
+``--k2_edge_l2`` times the 8-lane K2 edge backward on those 17 convs as the
+train step runs it (dsh on the five cross convs, dw alone on the others;
+on w's live bits where the tree's edge backward takes them), f32 and bf16,
+with summary lines over the 17, the five and the twelve.  ``--k2_index``
+times K2's sender-index dw and dx at 4 and 8 lanes on the KNN step's two K2
+calls (24 rows, 96 phore points, K = 24, a nearest-live-point index), dx
+on the lists (and live bits) made beforehand, as the autograd forward makes
+them, with a summary per (kernel, lanes, dtype).  Both call only
+``launch_backward_edge`` and ``launch_backward_x``, so they run unchanged
+in a tree from before these kernels' redesign.
 """
 
 from __future__ import annotations
@@ -362,6 +373,109 @@ def k2_l2_cases(randn, card) -> list:
     return results
 
 
+#: the 17 convs' edge backward as the step runs it: dsh on the cross convs
+#: (their harmonics carry a gradient), dw alone on the others
+def _step_dsh(name: str) -> bool:
+    return name.startswith(("phore_to_lig_conv", "lig_to_phore_conv"))
+
+
+def k2_edge_l2_cases(randn, card) -> list:
+    """The 8-lane K2 edge backward on K2_L2_CASES (f32 and bf16), with dsh
+    where the step asks for it, on the live bits of w made beforehand where
+    the tree's edge backward takes them (the train step's forward makes
+    them); a summary line per (kernel, dtype) sums the 17, and one each the
+    convs with dsh and without."""
+    results = []
+    takes_live = "live" in inspect.signature(tp_aggregate.launch_backward_edge).parameters
+    for dtype in (torch.float32, torch.bfloat16):
+        sums = {k: {"kernel": "tp_aggregate_bwd_edge_l2", "case": k, "dtype": str(dtype),
+                    "calls": 0, "us_total": 0.0, "graph_us": 0.0, "card": card}
+                for k in ("the 17 training convs", "with dsh", "dw only")}
+        for name, irr_in, irr_sh, irr_out, N, M, live_n, live_m in K2_L2_CASES:
+            tp = channelwise_tp(irr_in, irr_sh, irr_out)
+            F, B, dsh = tp.weight_numel, 24, _step_dsh(name)
+            x = randn(B, M, tp.irreps_in.dim).to(dtype)
+            sh = randn(B, N, M, tp.irreps_sh.dim).to(dtype)
+            w = torch.zeros(B, N, M, F, device="cuda")
+            w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
+            w = w.to(dtype)
+            g = randn(B, N, F, 8)
+            kw = {"live": tp_aggregate.live_rows_l2(w)} if takes_live and dsh else {}
+            call = lambda: tp_aggregate.launch_backward_edge(tp, x, sh, w, g, dsh, **kw)
+            times = kernel_times(call)
+            r = {"kernel": "tp_aggregate_bwd_edge_l2", "conv": name, "dtype": str(dtype), "B": B,
+                 "N": N, "M": M, "F": F, "dsh": dsh, "live_edges": B * live_n * live_m,
+                 "edges": B * N * M, "us": times, "us_total": sum(times.values()),
+                 "graph_us": graph_us(call), "card": card}
+            results.append(r)
+            print(json.dumps(r), flush=True)
+            for k in ("the 17 training convs", "with dsh" if dsh else "dw only"):
+                sums[k]["calls"] += 1
+                sums[k]["us_total"] += r["us_total"]
+                sums[k]["graph_us"] += r["graph_us"]
+        for total in sums.values():
+            results.append(total)
+            print(json.dumps(total), flush=True)
+    return results
+
+
+#: (conv, layer) of the KNN step's K2 calls: the phore convs past layer 0
+K2_INDEX_CONVS = [("phore_conv_1", 1), ("phore_conv_2", 2)]
+
+
+def k2_index_cases(randn, gen, card) -> list:
+    """K2's sender-index dw and dx at 4 and 8 lanes (f32 and bf16) on the
+    KNN step's two K2 calls (24 rows, 96 phore points, K = 24, a
+    nearest-live-point index, dead receivers' rows of w zero), dx with the
+    index's lists and (where the tree's dx takes them) w's live bits made
+    beforehand, as the autograd forward makes them; ``live_us`` is that
+    live pass's graph-replay time.  A summary line per (kernel, lanes,
+    dtype) sums the two calls."""
+    results = []
+    B, P, K = 24, 96, KNN_K
+    idx, live = knn_index(B, P, K, gen)
+    dx_params = inspect.signature(tp_aggregate.launch_backward_x).parameters
+    new_lists = hasattr(tp_aggregate, "idx_dx_lists")
+    for lanes_, seq in ((4, SEQ), (8, SEQ2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            sums = {k: {"kernel": k, "lanes": lanes_, "case": "the KNN step's 2 calls",
+                        "dtype": str(dtype), "calls": 0, "us_total": 0.0, "graph_us": 0.0,
+                        "card": card}
+                    for k in ("tp_aggregate_bwd_edge_idx", "tp_aggregate_bwd_x_idx")}
+            for name, layer in K2_INDEX_CONVS:
+                tp = channelwise_tp(seq[layer], SH, seq[layer + 1])
+                F = tp.weight_numel
+                x = randn(B, P, tp.irreps_in.dim).to(dtype)
+                sh = randn(B, P, K, 9).to(dtype)
+                w = (randn(B, P, K, F) * live[:, :, None, None]).to(dtype).contiguous()
+                g = randn(B, P, F, lanes_)
+                kw = ({"lists": tp_aggregate.idx_dx_lists(idx, P)} if new_lists
+                      else {"lists": tp_fused.sender_lists(idx, P)})
+                if "live" in dx_params:
+                    kw["live"] = tp_aggregate.live_rows_l2(w)
+                for kernel, call in (
+                        ("tp_aggregate_bwd_edge_idx", lambda: tp_aggregate.launch_backward_edge(
+                            tp, x, sh, w, g, False, sender_index=idx)),
+                        ("tp_aggregate_bwd_x_idx", lambda: tp_aggregate.launch_backward_x(
+                            tp, x, sh, w, g, sender_index=idx, **kw))):
+                    times = kernel_times(call)
+                    r = {"kernel": kernel, "conv": name, "lanes": lanes_, "dtype": str(dtype),
+                         "B": B, "N": P, "K": K, "F": F, "us": times,
+                         "us_total": sum(times.values()), "graph_us": graph_us(call),
+                         "card": card}
+                    if kernel == "tp_aggregate_bwd_x_idx":
+                        r["live_us"] = graph_us(lambda: tp_aggregate.live_rows_l2(w))
+                    results.append(r)
+                    print(json.dumps(r), flush=True)
+                    sums[kernel]["calls"] += 1
+                    sums[kernel]["us_total"] += r["us_total"]
+                    sums[kernel]["graph_us"] += r["graph_us"]
+            for total in sums.values():
+                results.append(total)
+                print(json.dumps(total), flush=True)
+    return results
+
+
 def main(argv=None) -> list:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--k2_only", action="store_true",
@@ -374,6 +488,11 @@ def main(argv=None) -> list:
                         help="only K3's sender-index dx at 4 and 8 lanes (to compare two trees)")
     parser.add_argument("--k2_l2", action="store_true",
                         help="only the dense 8-lane K2 forward and dx (to compare two trees)")
+    parser.add_argument("--k2_edge_l2", action="store_true",
+                        help="only the 8-lane K2 edge backward (to compare two trees)")
+    parser.add_argument("--k2_index", action="store_true",
+                        help="only K2's sender-index dw and dx at 4 and 8 lanes (to compare two "
+                             "trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
@@ -391,6 +510,10 @@ def main(argv=None) -> list:
         return k3_index_cases(randn, gen, card)
     if args.k2_l2:
         return k2_l2_cases(randn, card)
+    if args.k2_edge_l2:
+        return k2_edge_l2_cases(randn, card)
+    if args.k2_index:
+        return k2_index_cases(randn, gen, card)
     results = []
     if args.k3_only:
         tp = channelwise_tp(SEQ[0], SH, SEQ[1])

@@ -133,30 +133,54 @@
 //    channel: 3.1-3.2 / 3.0 and 2.6-2.8 / 2.5-2.8 ms).  bf16 runs no
 //    slower than f32: with every tile a round trip, it was slower, moving
 //    half the bytes in as many trips.
-//  * The edge backward: one block per (batch row, receiver, L2_EDGE_SENDERS
-//    senders), a thread per channel, P[i][j] = sum_k G[i,j,k] g[k] in
-//    registers; per edge q[j] = sum_i x[i] P[i][j], dw = sum_j sh[j] q[j];
-//    with dsh each channel leaves w q[j] in shared memory, the block adds
-//    them path by path and then the paths that reach each component, in
-//    fixed orders.  No float atomics anywhere: reruns agree to the bit.
-//
-// Sender-index mode (the KNN phore grid): an int32 index (B, N, K) names the
-// sender row of x (B, Mx, D) that slot k of receiver n reads; sh, w and dw are
-// (B, N, K, .).  The 4-lane kernels and the tiled 8-lane ones share one
-// sender row across the 8 receivers of a block, which an index breaks, so
-// the mode runs l2_body (the first, untiled 8-lane design: a block per kept
-// entry, a thread per channel, w and g read from device memory) and the
-// 8-lane edge backward, instantiated at LANES = 4 (l <= 1) and 8:
-//  * forward: a block per receiver, its slots the summed axis; a live slot's
-//    x row is read at its index;
-//  * edge backward (dw only: the phore harmonics carry no gradient, so dsh is
-//    refused): a block per (receiver, 8 slots), x read at the index;
-//  * dx: each sender's slots, from the inverse of the index (the host's
-//    stable sort of the flat index: `order`, the slots by sender, ascending
-//    within one, and `ptr`, each sender's extent), walked by a block per
-//    sender in that order; the slots' sums are added per input element as
-//    above.  Fixed orders, no atomics: reruns agree to the bit.
-// Dead slots (a zero row of w) cost no flop in the forward and dx.
+//  * The edge backward: it sums over no edge, so what bounds it is writing
+//    dw (every edge, live or dead) and the arithmetic per (edge, channel).
+//    A first kernel (tp_aggregate_l2_p_kernel) forms every receiver's
+//    P[f][i][j] = sum_k G[i,j,k] g[n,f,k] once into a scratch row (the
+//    first design formed it per 8 senders, 125 loads and products a thread
+//    each time; formed per block of 32 senders, in the block, it still took
+//    a fifth of the time).  tp_aggregate_bwd_edge_l2_kernel then takes a
+//    block per (32 senders, run of receivers, batch row): it stages its
+//    senders' x rows once for the run (cp.async), each receiver's P row and
+//    harmonics (and, for dsh, rows of w) while the previous receiver's dw
+//    leaves, and turns the roles: warp = the paths of a host plan
+//    (tp_aggregate.edge_plan_l2: by falling cost to the least loaded warp),
+//    lane = sender.  A path's shape (d_in, d_sh) is fixed at compile time
+//    and the same for the whole warp, so an l = 0 path costs 2 products and
+//    not a padded 5 x 5; P is a broadcast read, x and w lie at odd pitches
+//    (no bank read twice), the harmonics sit in registers.  dw is left in
+//    the place of w and leaves row by row, coalesced (four elements a store
+//    where F allows).  With dsh, each lane adds its sender's w q[j] over
+//    the path's channels in registers (no sum crosses threads) and the
+//    block then adds the paths that reach each component in the host list's
+//    order.  dsh reads only the rows of w that the forward's live bits
+//    mark: a dead row is zero.
+//  * The sender-index mode: an int32 index (B, N, K) names the sender row of
+//    x (B, Mx, D) that slot k of receiver n reads; sh, w and dw are (B, N,
+//    K, .).  The forward is the first, untiled 8-lane design at LANES = 4
+//    (l <= 1) or 8: a block per receiver, a thread per channel, a live
+//    slot's x row read at its index.  The edge backward (dw only: the phore
+//    harmonics carry no gradient, so dsh is refused) is
+//    tp_aggregate_bwd_edge_idx_kernel: a block per receiver's slots (up to
+//    32), a thread per channel with its P in registers, formed once for the
+//    receiver's K slots (the first design formed it per 8 slots; the dense
+//    design above ran the mode 1-29% slower: 24 slots fill three quarters of
+//    its lanes).  dx (tp_aggregate_bwd_x_idx_l2_kernel) takes each sender's
+//    slots (the host's stable sort of the flat index) in
+//    chunks of at most 32 (tp_aggregate.idx_dx_lists), so that a sender
+//    that most receivers read spreads over several blocks, a block a chunk
+//    (blocks that each walked several chunks, their constants loaded once,
+//    ran slower: fewer blocks hid less of each one's barriers).  A block
+//    marks its chunk's live slots from the live pass's bits (made once in
+//    the autograd forward) and loads only those, 4 at a time on a
+//    two-stage cp.async ring: their rows of w and harmonics and their
+//    receivers' g rows (the walk read g from device memory slot by slot,
+//    most of its time in the first version); it forms t of each (slot,
+//    path, i) with the path's shape fixed and walks them with thread =
+//    channel; a second kernel adds each sender's chunks in order.  Fixed
+//    orders, no atomics: reruns agree to the bit.
+//  Where they stand: PERF.md (chip_smoke.py phases 16 and 17,
+//  profile_kernels --k2_edge_l2 and --k2_index).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1031,86 +1055,74 @@ constexpr int L2_G = L2_K * L2_K * L2_K;   // alpha*cg padded to (5, 5, 5)
 constexpr int L2_ROWS = 32;             // summed-axis entries per tile
 constexpr int L2_THREADS = 384;         // a thread per channel: F <= 384
 constexpr int L2_MAX_PATHS = 32;
-constexpr int L2_EDGE_SENDERS = 8;      // senders per block of the edge backward
 
-// The forward's and dx's shared memory, in floats.
+// The sender-index forward's shared memory, in floats.
 struct L2Layout {
-  int g, ptab, x, sh, live, t, d, dlist, total;
+  int g, ptab, x, sh, live, t, total;
 };
 
-__host__ __device__ inline L2Layout l2_layout(bool dx, int D, int F, int n_paths, int t_size,
-                                              int n_items) {
+__host__ __device__ inline L2Layout l2_layout(int D, int n_paths, int t_size) {
   L2Layout L;
   int o = 0;
   L.g = o;     o += pad4(n_paths * L2_G);
   L.ptab = o;  o += n_paths * 8;
-  L.x = o;     o += dx ? 0 : pad4(L2_ROWS * D);
+  L.x = o;     o += pad4(L2_ROWS * D);
   L.sh = o;    o += L2_ROWS * SH_STRIDE;
   L.live = o;  o += L2_ROWS;
   L.t = o;     o += pad4(L2_ROWS * t_size);
-  L.d = o;     o += dx ? pad4(L2_K * F) : 0;
-  L.dlist = o; o += dx ? pad4(D + 1) + pad4(n_items) : 0;   // dx: d_ptr, then d_item
   L.total = o;
   return L;
 }
 
-// The sender-index mode's forward (DX false: out (B, N, F, LANES) f32) or dx
-// (DX true: dx (B, Mx, D) in T) of one block: kept entry blockIdx.x of batch
-// row blockIdx.y.  The forward reads x at idx; dx walks the block's sender's
-// slots order[ptr[b * Mx + k] ..], each the flat slot (b * N + n) * M + m.
-template <bool DX, typename T, int LANES>
-__device__ __forceinline__ void l2_body(
-    const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
-    const float* __restrict__ g, const int4* __restrict__ chan, const int* __restrict__ ptab,
-    const float* __restrict__ gtab, const int* __restrict__ d_ptr,
-    const int* __restrict__ d_item, const int* __restrict__ idx, const int* __restrict__ order,
-    const int* __restrict__ ptr, float* __restrict__ out, T* __restrict__ dx_out, int N, int M,
-    int Mx, int D, int S, int F, int n_paths, int t_size, int n_items) {
+// The sender-index mode's forward, out (B, N, F, LANES) f32 (LANES: floats
+// of a channel in out, 8 (l = 2) or 4 (the mode's l <= 1 instantiation)):
+// a block per receiver blockIdx.x of batch row blockIdx.y, a thread per
+// channel, its slots the summed axis in tiles of L2_ROWS; a live slot's x
+// row is read at its index.
+template <typename T, int LANES>
+__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_fwd_l2_kernel(
+    const T* __restrict__ x,         // (B, Mx, D) sender features
+    const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
+    const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
+    const int* __restrict__ idx,     // (B, N, M) sender of each slot
+    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
+    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
+    float* __restrict__ out,         // (B, N, F, LANES)
+    int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size) {
   extern __shared__ __align__(16) float smem[];
-  const L2Layout L = l2_layout(DX, D, F, n_paths, t_size, n_items);
+  const L2Layout L = l2_layout(D, n_paths, t_size);
   float* s_g = smem + L.g;
   int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);   // sh_off, d_in, d_sh, d_out, t_off, ...
-  float* s_x = smem + L.x;                                // [row][D] (forward)
+  float* s_x = smem + L.x;                                // [row][D]
   float* s_sh = smem + L.sh;                              // [row][SH_STRIDE]
   int* s_live = reinterpret_cast<int*>(smem + L.live);
   float* s_t = smem + L.t;                                // [row][t_size]
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const int k = blockIdx.x, b = blockIdx.y;
-  const int first = DX ? ptr[(size_t)b * Mx + k] : 0;
-  const int n_sum = DX ? ptr[(size_t)b * Mx + k + 1] - first : M;
-  // the edge (flat slot) of entry s of the summed axis
-  auto edge_of = [&](int s) -> size_t {
-    return DX ? (size_t)order[first + s] : ((size_t)b * N + k) * M + s;
-  };
+  const size_t e0 = ((size_t)b * N + k) * M;   // the receiver's first slot
   for (int i = tid; i < n_paths * L2_G; i += nt) s_g[i] = gtab[i];
   for (int i = tid; i < n_paths * 8; i += nt) s_ptab[i] = ptab[i];
-  int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
-  int* s_ditem = s_dptr + pad4(D + 1);
-  if (DX) {
-    for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
-    for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
-  }
   const int f = tid;
   const bool active = f < F;
   const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);   // x_base, d_in, d_out, path
   const int t_off = active ? ptab[cm.w * 8 + 4] : 0;
-  float acc[L2_K];   // forward: out[k]; dx: the sum for x component i
+  float acc[L2_K];
 #pragma unroll
   for (int i = 0; i < L2_K; ++i) acc[i] = 0.f;
   __syncthreads();
 
-  for (int s0 = 0; s0 < n_sum; s0 += L2_ROWS) {
-    const int rows = min(L2_ROWS, n_sum - s0);
+  for (int s0 = 0; s0 < M; s0 += L2_ROWS) {
+    const int rows = min(L2_ROWS, M - s0);
     for (int r = warp; r < rows; r += nwarps) {
-      const int s = s0 + r;
-      const size_t e = edge_of(s);
+      const size_t e = e0 + s0 + r;
       bool live = false;
       for (int c = lane; c < F; c += 32) live |= to_f(w[e * F + c]) != 0.f;
       live = __any_sync(0xffffffffu, live);
       if (lane == 0) s_live[r] = live;
       if (lane < SH_STRIDE) s_sh[r * SH_STRIDE + lane] = live && lane < S ? to_f(sh[e * S + lane]) : 0.f;
-      if (!DX && live) {
+      if (live) {
         const size_t row = (size_t)b * Mx + idx[e];
         for (int d = lane; d < D; d += 32) s_x[r * D + d] = to_f(x[row * D + d]);
       }
@@ -1137,194 +1149,28 @@ __device__ __forceinline__ void l2_body(
     if (active) {
       for (int r = 0; r < rows; ++r) {
         if (!s_live[r]) continue;
-        const size_t e = edge_of(s0 + r);
+        const size_t e = e0 + s0 + r;
         const float wv = to_f(w[e * F + f]);
         const float* tq = s_t + r * t_size + t_off;
-        if (!DX) {
-          const float* xr = s_x + r * D + cm.x;
+        const float* xr = s_x + r * D + cm.x;
 #pragma unroll
-          for (int i = 0; i < L2_K; ++i) {
-            if (i >= cm.y) break;
-            const float gv = wv * xr[i];
+        for (int i = 0; i < L2_K; ++i) {
+          if (i >= cm.y) break;
+          const float gv = wv * xr[i];
 #pragma unroll
-            for (int kk = 0; kk < L2_K; ++kk)
-              if (kk < cm.z) acc[kk] = fmaf(gv, tq[i * cm.z + kk], acc[kk]);
-          }
-        } else {
-          // the slot's receiver row b * N + n is e / M
-          const float4* gr = reinterpret_cast<const float4*>(g) + ((e / M) * F + f) * (LANES / 4);
-          const float4 g0 = gr[0];
-          const float gk[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
-#pragma unroll
-          for (int i = 0; i < L2_K; ++i) {
-            if (i >= cm.y) break;
-            float t = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < L2_K; ++kk)
-              if (kk < cm.z) t = fmaf(tq[i * cm.z + kk], gk[kk], t);
-            acc[i] = fmaf(wv, t, acc[i]);
-          }
+          for (int kk = 0; kk < L2_K; ++kk)
+            if (kk < cm.z) acc[kk] = fmaf(gv, tq[i * cm.z + kk], acc[kk]);
         }
       }
     }
     __syncthreads();
   }
 
-  if (!DX) {
-    if (active) {
-      // 4 lanes: d_out <= 3, so acc[3] and acc[4] are 0
-      float4* o = reinterpret_cast<float4*>(out) + (((size_t)b * N + k) * F + f) * (LANES / 4);
-      o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      if (LANES == 8) o[1] = make_float4(acc[4], 0.f, 0.f, 0.f);
-    }
-    return;
-  }
-  float* s_d = smem + L.d;   // [i][f]
   if (active) {
-#pragma unroll
-    for (int i = 0; i < L2_K; ++i) s_d[i * F + f] = acc[i];
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += nt) {
-    float sum = 0.f;
-    for (int q = s_dptr[d]; q < s_dptr[d + 1]; ++q) {
-      const int it = s_ditem[q];
-      sum += s_d[(it & 7) * F + (it >> 3)];
-    }
-    dx_out[((size_t)b * Mx + k) * D + d] = from_f<T>(sum);
-  }
-}
-
-// LANES: floats of a channel in out and g, 8 (l = 2) or 4 (the sender-index
-// mode's l <= 1 instantiation).
-template <typename T, int LANES>
-__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_fwd_l2_kernel(
-    const T* __restrict__ x,         // (B, Mx, D) sender features
-    const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
-    const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
-    const int* __restrict__ idx,     // (B, N, M) sender of each slot
-    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
-    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
-    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
-    float* __restrict__ out,         // (B, N, F, LANES)
-    int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size) {
-  l2_body<false, T, LANES>(x, sh, w, nullptr, chan, ptab, gtab, nullptr, nullptr, idx, nullptr,
-                           nullptr, out, nullptr, N, M, Mx, D, S, F, n_paths, t_size, 0);
-}
-
-template <typename T, int LANES>
-__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_l2_kernel(
-    const T* __restrict__ sh,        // (B, N, M, S)
-    const T* __restrict__ w,         // (B, N, M, F)
-    const float* __restrict__ g,     // (B, N, F, LANES) upstream gradient
-    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
-    const int* __restrict__ ptab,    // (n_paths, 8)
-    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
-    const int* __restrict__ d_ptr,   // (D + 1): extents into d_item per input element
-    const int* __restrict__ d_item,  // f * 8 + i of every (channel, component) reading it
-    const int* __restrict__ order,   // the slots by sender
-    const int* __restrict__ ptr,     // (B * Mx + 1): each sender's extent in order
-    T* __restrict__ dx,              // (B, Mx, D)
-    int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size, int n_items) {
-  l2_body<true, T, LANES>(nullptr, sh, w, g, chan, ptab, gtab, d_ptr, d_item, nullptr, order, ptr,
-                          nullptr, dx, N, M, Mx, D, S, F, n_paths, t_size, n_items);
-}
-
-// dw (and, with DSH, dsh) of the edges (b, n, m0 .. m0 + L2_EDGE_SENDERS).
-template <typename T, bool DSH, int LANES>
-__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_l2_kernel(
-    const T* __restrict__ x,          // (B, Mx, D)
-    const T* __restrict__ sh,         // (B, N, M, S)
-    const T* __restrict__ w,          // (B, N, M, F) (read with DSH)
-    const int* __restrict__ idx,      // (B, N, M) sender of each slot, or null (dense: Mx = M)
-    const float* __restrict__ g,      // (B, N, F, LANES)
-    const int4* __restrict__ chan,    // (F): x_base, d_in, d_out, path
-    const int* __restrict__ ptab,     // (n_paths, 8)
-    const float* __restrict__ gtab,   // (n_paths, 5, 5, 5)
-    const int* __restrict__ seg_ptr,  // (S + 1): extents into seg per harmonic component
-    const int2* __restrict__ seg,     // (path, j) of every path reaching the component
-    T* __restrict__ dw,               // (B, N, M, F)
-    T* __restrict__ dsh,              // (B, N, M, S)
-    int N, int M, int Mx, int D, int S, int F, int n_paths, int n_seg) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_part = smem;                                        // [ml][f][j]
-  float* s_pp = s_part + L2_EDGE_SENDERS * F * L2_K;           // [ml][path][j]
-  int* s_segptr = reinterpret_cast<int*>(s_pp + L2_EDGE_SENDERS * n_paths * L2_K);
-  int2* s_seg = reinterpret_cast<int2*>(s_segptr + ((S + 1 + 3) / 4) * 4);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int m0 = blockIdx.x * L2_EDGE_SENDERS, n = blockIdx.y, b = blockIdx.z;
-  const int count = min(L2_EDGE_SENDERS, M - m0);
-  const int f = tid;
-  if (f < F) {
-    const int4 cm = chan[f];
-    const int* pt = ptab + cm.w * 8;
-    const int sh_off = pt[0], d_sh = pt[2];
-    const float* G = gtab + cm.w * L2_G;
-    const float4* gr =
-        reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * (LANES / 4);
-    const float4 g0 = gr[0];
-    const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
-    float gk[L2_K];
-#pragma unroll
-    for (int kk = 0; kk < L2_K; ++kk) gk[kk] = kk < cm.z ? ga[kk] : 0.f;   // pad lanes ignored
-    float P[L2_K][L2_K];
-#pragma unroll
-    for (int i = 0; i < L2_K; ++i)
-#pragma unroll
-      for (int j = 0; j < L2_K; ++j) {
-        float v = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < L2_K; ++kk) v = fmaf(G[(i * L2_K + j) * L2_K + kk], gk[kk], v);
-        P[i][j] = v;
-      }
-    for (int ml = 0; ml < count; ++ml) {
-      const int m = m0 + ml;
-      const size_t e = ((size_t)b * N + n) * M + m;
-      const T* xr = x + ((size_t)b * Mx + (idx != nullptr ? idx[e] : m)) * D + cm.x;
-      float xi[L2_K], q[L2_K];
-#pragma unroll
-      for (int i = 0; i < L2_K; ++i) xi[i] = i < cm.y ? to_f(xr[i]) : 0.f;
-      float dwv = 0.f;
-#pragma unroll
-      for (int j = 0; j < L2_K; ++j) {
-        float v = 0.f;
-#pragma unroll
-        for (int i = 0; i < L2_K; ++i) v = fmaf(xi[i], P[i][j], v);
-        q[j] = v;
-        if (j < d_sh) dwv = fmaf(to_f(sh[e * S + sh_off + j]), v, dwv);
-      }
-      dw[e * F + f] = from_f<T>(dwv);
-      if (DSH) {
-        const float wv = to_f(w[e * F + f]);
-#pragma unroll
-        for (int j = 0; j < L2_K; ++j) s_part[(ml * F + f) * L2_K + j] = wv * q[j];
-      }
-    }
-  }
-  if (!DSH) return;
-  for (int i = tid; i <= S; i += nt) s_segptr[i] = seg_ptr[i];
-  for (int i = tid; i < n_seg; i += nt) s_seg[i] = seg[i];
-  __syncthreads();
-  // per (sender, path, j): the path's channels, in order
-  for (int it = tid; it < count * n_paths; it += nt) {
-    const int ml = it / n_paths, p = it - ml * n_paths;
-    const int* pt = ptab + p * 8;
-    const int d_sh = pt[2], f0 = pt[5], fc = pt[6];
-    for (int j = 0; j < L2_K; ++j) {
-      float sum = 0.f;
-      if (j < d_sh)
-        for (int u = 0; u < fc; ++u) sum += s_part[(ml * F + f0 + u) * L2_K + j];
-      s_pp[(ml * n_paths + p) * L2_K + j] = sum;
-    }
-  }
-  __syncthreads();
-  // per (sender, component): the paths that reach it, in the host list's order
-  for (int it = tid; it < count * S; it += nt) {
-    const int ml = it / S, sc = it - ml * S;
-    float sum = 0.f;
-    for (int q = s_segptr[sc]; q < s_segptr[sc + 1]; ++q)
-      sum += s_pp[(ml * n_paths + s_seg[q].x) * L2_K + s_seg[q].y];
-    dsh[(((size_t)b * N + n) * M + m0 + ml) * S + sc] = from_f<T>(sum);
+    // 4 lanes: d_out <= 3, so acc[3] and acc[4] are 0
+    float4* o = reinterpret_cast<float4*>(out) + (((size_t)b * N + k) * F + f) * (LANES / 4);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (LANES == 8) o[1] = make_float4(acc[4], 0.f, 0.f, 0.f);
   }
 }
 
@@ -2047,6 +1893,558 @@ int tiled_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, int PC, int NI
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
+// ---- the 8-lane edge backward (dense), and the sender-index mode's dw ----
+
+constexpr int PT_W = 12;        // ints of a path's row (tp_aggregate.path_tables_l2)
+constexpr int EB_SLOTS = 32;    // senders of a block: lane = sender
+constexpr int EB_WARPS = 8;
+constexpr int EB_THREADS = 32 * EB_WARPS;
+constexpr int EB_SHP = 13;      // a staged harmonics row: odd, so lane = row reads no bank twice
+constexpr int IDX_EDGE_SLOTS = 32;  // slots of a block of the sender-index dw: a receiver's K
+
+// P[b, n, f, i, j] = sum_k G[i, j, k] g[b, n, f, k] of every receiver and
+// channel, one block a receiver, thread = entry of the P row (PT floats,
+// entry e of the host's table pent: (channel, its coupling entries' offset
+// in gflat, d_out, 1), or zeros for a pad entry).  The edge backward's
+// blocks read it: a receiver's P is formed once, not once per block of
+// senders.  (Blocks of 8 receivers that read each entry's coupling values
+// once ran twice as long: a quarter of the blocks.)
+__global__ void __launch_bounds__(256) tp_aggregate_l2_p_kernel(
+    const float* __restrict__ g,      // (B, N, F, 8)
+    const int4* __restrict__ pent,    // (PT)
+    const float* __restrict__ gflat,  // each path's alpha*cg, (d_in, d_sh, d_out) entries
+    float* __restrict__ Pg,           // (B, N, PT)
+    int F, int PT) {
+  const size_t row = blockIdx.x;     // b * N + n
+  const float* gr = g + row * F * 8;
+  float* out = Pg + row * PT;
+  for (int e = threadIdx.x; e < PT; e += blockDim.x) {
+    const int4 en = __ldg(pent + e);
+    float v = 0.f;
+    for (int k = 0; k < en.z; ++k) v = fmaf(__ldg(gflat + en.y + k), __ldg(gr + en.x * 8 + k), v);
+    out[e] = v;
+  }
+}
+
+// The edge backward's shared memory, in floats: the receiver's P (PT
+// floats: each channel's d_in x d_sh entries padded to float4s), the
+// block's senders' x rows (EB_SLOTS x (D | 1)), their rows of w and then of
+// dw (EB_SLOTS x (F | 1)), their harmonics (EB_SLOTS x EB_SHP) and, with
+// dsh, each (path, component, sender)'s sum over the path's channels (PS
+// floats).
+struct EdgeLayout {
+  int p, x, w, sh, part, total;
+};
+
+__host__ __device__ inline EdgeLayout edge_layout(bool dsh, int D, int F, int PT, int PS) {
+  EdgeLayout L;
+  int o = 0;
+  L.p = o;    o += pad4(PT);
+  L.x = o;    o += EB_SLOTS * (D | 1);
+  L.w = o;    o += EB_SLOTS * (F | 1);
+  L.sh = o;   o += EB_SLOTS * EB_SHP;
+  L.part = o; o += dsh ? PS : 0;
+  L.total = o;
+  return L;
+}
+
+// One path's channels for the lane's sender, the path's shape (DI, DS)
+// fixed: per channel q[j] = sum_i x[i] P[i][j] (P a broadcast, x from the
+// lane's row), dw = sum_j sh[j] q[j] (the harmonics in registers) left in
+// the place of w; with DSH the sums over the path's channels of w q[j],
+// in channel order, written to part[j * EB_SLOTS].
+template <int DI, int DS, bool DSH>
+__device__ __forceinline__ void edge_path(const float* __restrict__ P, const float* xr, float* wr,
+                                          const float* shr, int fc, float* part) {
+  constexpr int PP = (DI * DS + 3) / 4 * 4;
+  float shj[DS], acc[DS];
+#pragma unroll
+  for (int j = 0; j < DS; ++j) {
+    shj[j] = shr[j];
+    acc[j] = 0.f;
+  }
+#pragma unroll 2
+  for (int u = 0; u < fc; ++u) {
+    float pv[PP];
+#pragma unroll
+    for (int q = 0; q < PP / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(P + u * PP + 4 * q);
+      pv[4 * q] = v.x, pv[4 * q + 1] = v.y, pv[4 * q + 2] = v.z, pv[4 * q + 3] = v.w;
+    }
+    float xi[DI];
+#pragma unroll
+    for (int i = 0; i < DI; ++i) xi[i] = xr[u * DI + i];
+    const float wv = DSH ? wr[u] : 0.f;
+    float dwv = 0.f;
+#pragma unroll
+    for (int j = 0; j < DS; ++j) {
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < DI; ++i) q = fmaf(xi[i], pv[i * DS + j], q);
+      dwv = fmaf(shj[j], q, dwv);
+      if (DSH) acc[j] = fmaf(wv, q, acc[j]);
+    }
+    wr[u] = dwv;
+  }
+  if (DSH) {
+#pragma unroll
+    for (int j = 0; j < DS; ++j) part[j * EB_SLOTS] = acc[j];
+  }
+}
+
+// dw (and, with DSH, dsh) of the edges (b, n, m0 .. m0 + EB_SLOTS - 1) for
+// the receivers n of a block: a block per (sender chunk blockIdx.x, run of
+// `rn` receivers blockIdx.y, batch row blockIdx.z).  The chunk's x rows go
+// into shared memory once; per receiver its P row (tp_aggregate_l2_p_kernel)
+// and harmonics arrive by cp.async while the previous receiver's dw leaves;
+// warp = the paths of the host's plan, lane = sender, computes dw in place;
+// dw leaves row by row (four elements a store where F allows); with DSH the
+// block stages the receiver's live rows of w and adds the paths that reach
+// each component.
+template <typename T, bool DSH>
+__global__ void __launch_bounds__(EB_THREADS, 2) tp_aggregate_bwd_edge_l2_kernel(
+    const T* __restrict__ x,          // (B, M, D)
+    const T* __restrict__ sh,         // (B, N, M, S)
+    const T* __restrict__ w,          // (B, N, M, F) (read with DSH)
+    const unsigned* __restrict__ bits,   // the live pass's bits of w, or null (read with DSH)
+    const float* __restrict__ Pg,     // (B, N, PT) of tp_aggregate_l2_p_kernel
+    const int* __restrict__ ptab,     // (n_paths, PT_W)
+    const int* __restrict__ plan,     // (EB_WARPS, plan_w): each warp's paths, -1 past the last
+    const int* __restrict__ seg_ptr,  // (S + 1): extents into seg per harmonic component
+    const int2* __restrict__ seg,     // (path, j) of every path reaching the component
+    T* __restrict__ dw,               // (B, N, M, F)
+    T* __restrict__ dsh,              // (B, N, M, S)
+    int N, int M, int D, int S, int F, int PT, int PS, int plan_w, int rn, int xpair, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool F32 = sizeof(T) == 4;
+  const EdgeLayout L = edge_layout(DSH, D, F, PT, PS);
+  float* s_p = smem + L.p;
+  float* s_x = smem + L.x;
+  float* s_w = smem + L.w;
+  float* s_sh = smem + L.sh;
+  float* s_part = smem + L.part;
+  const int XP = D | 1, WP = F | 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * EB_SLOTS, b = blockIdx.z;
+  const int n0 = blockIdx.y * rn, n_end = min(N, n0 + rn);
+  const int count = min(EB_SLOTS, M - m0);
+
+  // the chunk's x rows as f32 (warp = row): cp.async at f32, two elements a
+  // load at bf16 where x allows (xpair)
+  for (int ml = warp; ml < count; ml += EB_WARPS) {
+    const T* xs = x + ((size_t)b * M + m0 + ml) * D;
+    float* xd = s_x + ml * XP;
+    if (F32) {
+      for (int d = lane; d < D; d += 32) cp_async4(xd + d, xs + d);
+    } else if (xpair) {
+      for (int c = lane; c < D / 2; c += 32) {
+        const float2 v = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(xs)[c]);
+        xd[2 * c] = v.x, xd[2 * c + 1] = v.y;
+      }
+    } else {
+      for (int d = lane; d < D; d += 32) xd[d] = to_f(xs[d]);
+    }
+  }
+  // receiver n's P row and harmonics, by cp.async (bf16 harmonics by plain
+  // loads)
+  auto stage_receiver = [&](int n) {
+    const float* pr = Pg + ((size_t)b * N + n) * PT;
+    for (int i = tid; i < PT / 4; i += EB_THREADS) cp_async16(s_p + 4 * i, pr + 4 * i);
+    const size_t row0 = ((size_t)b * N + n) * M + m0;
+    for (int i = tid; i < count * EB_SHP; i += EB_THREADS) {
+      const int ml = i / EB_SHP, j = i - ml * EB_SHP;
+      if (F32 && j < S) cp_async4(s_sh + i, sh + (row0 + ml) * S + j);
+      else s_sh[i] = j < S ? to_f(sh[(row0 + ml) * S + j]) : 0.f;
+    }
+    cp_async_commit();
+  };
+  stage_receiver(n0);
+
+  for (int n = n0; n < n_end; ++n) {
+    const size_t row0 = ((size_t)b * N + n) * M + m0;   // the receiver's first edge
+    cp_async_wait<0>();
+    __syncthreads();   // P, harmonics (and x) landed; the previous receiver's dw has left s_w
+    if (DSH) {         // its rows of w (warp = row); a dead row (bits) is zero and not read
+      for (int ml = warp; ml < count; ml += EB_WARPS) {
+        const size_t e = row0 + ml;
+        const bool live = bits == nullptr || (__ldg(bits + (e >> 5)) >> (e & 31) & 1u);
+        const T* ws = w + e * F;
+        float* wd = s_w + ml * WP;
+        if (vec) {
+          for (int c = lane; c < F / 4; c += 32) {
+            const float4 v = live ? load4(ws + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
+            wd[4 * c] = v.x, wd[4 * c + 1] = v.y, wd[4 * c + 2] = v.z, wd[4 * c + 3] = v.w;
+          }
+        } else {
+          for (int c = lane; c < F; c += 32) wd[c] = live ? to_f(ws[c]) : 0.f;
+        }
+      }
+      __syncthreads();
+    }
+
+    if (lane < count) {
+      for (int k = 0; k < plan_w; ++k) {   // warp = path, lane = sender
+        const int p = plan[warp * plan_w + k];
+        if (p < 0) break;
+        const int* pt = ptab + p * PT_W;
+        const int sh_off = pt[0], d_in = pt[1], d_sh = pt[2], f0 = pt[4], fc = pt[5];
+        const float* P = s_p + pt[9];
+        const float* xr = s_x + lane * XP + pt[6];
+        float* wr = s_w + lane * WP + f0;
+        const float* shr = s_sh + lane * EB_SHP + sh_off;
+        float* part = s_part + pt[10] + lane;
+#define EB_PATH(DI, DS) edge_path<DI, DS, DSH>(P, xr, wr, shr, fc, part)
+        switch (d_in * 8 + d_sh) {
+          case 011: EB_PATH(1, 1); break;
+          case 013: EB_PATH(1, 3); break;
+          case 015: EB_PATH(1, 5); break;
+          case 031: EB_PATH(3, 1); break;
+          case 033: EB_PATH(3, 3); break;
+          case 035: EB_PATH(3, 5); break;
+          case 051: EB_PATH(5, 1); break;
+          case 053: EB_PATH(5, 3); break;
+          default: EB_PATH(5, 5); break;
+        }
+#undef EB_PATH
+      }
+    }
+    __syncthreads();
+    if (n + 1 < n_end) stage_receiver(n + 1);   // s_p and s_sh were last read above
+
+    // dw row by row (four elements a store where F and dw allow), then dsh
+    for (int ml = warp; ml < count; ml += EB_WARPS) {
+      T* dst = dw + (row0 + ml) * F;
+      const float* src = s_w + ml * WP;
+      if (vec) {
+        for (int c = lane; c < F / 4; c += 32)
+          store4(dst + 4 * c, make_float4(src[4 * c], src[4 * c + 1], src[4 * c + 2],
+                                          src[4 * c + 3]));
+      } else {
+        for (int c = lane; c < F; c += 32) dst[c] = from_f<T>(src[c]);
+      }
+    }
+    if (DSH) {
+      // per (sender, component): the paths that reach it, in the host list's order
+      for (int r = tid; r < count * S; r += EB_THREADS) {
+        const int ml = r / S, s = r - ml * S;
+        float sum = 0.f;
+        for (int q = seg_ptr[s]; q < seg_ptr[s + 1]; ++q) {
+          const int2 pj = seg[q];
+          sum += s_part[ptab[pj.x * PT_W + 10] + pj.y * EB_SLOTS + ml];
+        }
+        dsh[(row0 + ml) * S + s] = from_f<T>(sum);
+      }
+    }
+  }
+}
+
+// The sender-index mode's dw (both lane counts) of the slots (b, n, m0 ..
+// m0 + IDX_EDGE_SLOTS - 1): a block per (receiver, run of its slots: all K
+// of them at K <= 32), a thread per channel.  The thread forms its channel's
+// P[i][j] = sum_k G[i,j,k] g[k] in registers once for the receiver's slots
+// (the first design formed it for every 8 slots), then per slot q[j] =
+// sum_i x[i] P[i][j] with x read at the index, dw = sum_j sh[j] q[j].  (The
+// dense design above, a block per 32 senders, ran it 1-29% slower: a
+// receiver's 24 slots fill three quarters of its lanes.)
+template <typename T, int LANES>
+__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_idx_kernel(
+    const T* __restrict__ x,          // (B, Mx, D)
+    const T* __restrict__ sh,         // (B, N, M, S)
+    const int* __restrict__ idx,      // (B, N, M) sender of each slot
+    const float* __restrict__ g,      // (B, N, F, LANES)
+    const int4* __restrict__ chan,    // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,     // (n_paths, 8) of tp_fused.tables_l2
+    const float* __restrict__ gtab,   // (n_paths, 5, 5, 5)
+    T* __restrict__ dw,               // (B, N, M, F)
+    int N, int M, int Mx, int D, int S, int F) {
+  const int m0 = blockIdx.x * IDX_EDGE_SLOTS, n = blockIdx.y, b = blockIdx.z;
+  const int count = min(IDX_EDGE_SLOTS, M - m0);
+  const int f = threadIdx.x;
+  if (f >= F) return;
+  const int4 cm = chan[f];
+  const int* pt = ptab + cm.w * 8;
+  const int sh_off = pt[0], d_sh = pt[2];
+  const float* G = gtab + cm.w * L2_G;
+  const float4* gr =
+      reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * (LANES / 4);
+  const float4 g0 = gr[0];
+  const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
+  float gk[L2_K];
+#pragma unroll
+  for (int kk = 0; kk < L2_K; ++kk) gk[kk] = kk < cm.z ? ga[kk] : 0.f;   // pad lanes ignored
+  float P[L2_K][L2_K];
+#pragma unroll
+  for (int i = 0; i < L2_K; ++i)
+#pragma unroll
+    for (int j = 0; j < L2_K; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < L2_K; ++kk) v = fmaf(G[(i * L2_K + j) * L2_K + kk], gk[kk], v);
+      P[i][j] = v;
+    }
+  for (int ml = 0; ml < count; ++ml) {
+    const size_t e = ((size_t)b * N + n) * M + m0 + ml;
+    const T* xr = x + ((size_t)b * Mx + idx[e]) * D + cm.x;
+    float xi[L2_K];
+#pragma unroll
+    for (int i = 0; i < L2_K; ++i) xi[i] = i < cm.y ? to_f(xr[i]) : 0.f;
+    float dwv = 0.f;
+#pragma unroll
+    for (int j = 0; j < L2_K; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) v = fmaf(xi[i], P[i][j], v);
+      if (j < d_sh) dwv = fmaf(to_f(sh[e * S + sh_off + j]), v, dwv);
+    }
+    dw[e * F + f] = from_f<T>(dwv);
+  }
+}
+
+// ---- the sender-index dx, both lane counts ----
+
+constexpr int XI_Q = 32;          // slots a chunk takes at most (tp_aggregate.plan_idx_chunk)
+constexpr int XI_ROWS = 4;        // live slots a tile
+constexpr int XI_STAGES = 2;      // the ring: one tile in flight while one computes
+constexpr int XI_SHP = 13;
+
+// The chunk kernel's shared memory, in floats: the ring's stages, each a
+// tile's rows of w (in T, a 16-byte pitch), harmonics (XI_SHP floats a
+// row; bf16 as the 4-byte words that cover the row) and its receivers' g
+// rows (lanes 0-3 of each channel as a float4, at 8 lanes lane 4 apart); t
+// of a tile's rows (XI_ROWS x TS); the coupling entries (GS); the (path, i)
+// items; the chunk's live slots and their count; then the d lists, past the
+// per (component, channel) sums (5 x F) that the end writes over the ring.
+struct XiLayout {
+  int w, sh, g4, g1, stage, t, g, pi, rows, dlist, total;
+};
+
+__host__ __device__ inline XiLayout xi_layout(int D, int F, int n_paths, int TS, int GS,
+                                              int n_items, int esize, int lanes) {
+  XiLayout L;
+  int o = 0;
+  L.w = o;     o += XI_ROWS * w_pitch(F, esize) * esize / 4;
+  L.sh = o;    o += pad4(XI_ROWS * XI_SHP);
+  L.g4 = o;    o += XI_ROWS * F * 4;
+  L.g1 = o;    o += lanes == 8 ? XI_ROWS * F : 0;
+  L.stage = pad4(o);
+  o = XI_STAGES * L.stage;
+  L.t = o;     o += pad4(XI_ROWS * TS);
+  L.g = o;     o += pad4(GS);
+  L.pi = o;    o += pad4(n_paths * L2_K);
+  L.rows = o;  o += XI_Q + 4;
+  o = max(o, pad4(L2_K * F));
+  L.dlist = o; o += pad4(D + 1) + pad4(n_items);
+  L.total = o;
+  return L;
+}
+
+// dx's walk of one tile for a channel of shape (DI, DO): per live slot r,
+// acc[i] += w sum_k t[i][k] g[k], g the slot's receiver's row in the stage.
+template <int DI, int DO, typename T>
+__device__ __forceinline__ void xi_walk(float (&acc)[L2_K], const T* wc, int FP, const float* tq,
+                                        int TS, const float4* g4, const float* g1, int F, int n) {
+  for (int r = 0; r < n; ++r) {
+    const float4 v = g4[r * F];
+    const float gk[L2_K] = {v.x, v.y, v.z, v.w, DO > 4 ? g1[r * F] : 0.f};
+    const float wv = to_f(wc[r * FP]);
+    float t[4 * ((DI * DO + 3) / 4)];
+    load_t<DI, DO>(t, tq + r * TS);
+#pragma unroll
+    for (int i = 0; i < DI; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < DO; ++k) s = fmaf(t[i * DO + k], gk[k], s);
+      acc[i] = fmaf(wv, s, acc[i]);
+    }
+  }
+}
+
+// The sender-index dx, first pass: a block per chunk of one sender's slots
+// (blockIdx.x; order[cuts[c] .. cuts[c + 1]], ascending slots), a thread
+// per channel.  Of the chunk only the live slots
+// (bits) are loaded: their rows of w, harmonics and receivers' g rows, a
+// tile of XI_ROWS on the ring at a time; per tile t of each (slot, path,
+// i), then each channel's walk; at the end the channels reading each x
+// element are added in the d list's order into part[c] (D floats).
+template <typename T, int LANES>
+__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_idx_l2_kernel(
+    const T* __restrict__ sh,         // (B, N, K, S)
+    const T* __restrict__ w,          // (B, N, K, F)
+    const float* __restrict__ g,      // (B, N, F, LANES)
+    const unsigned* __restrict__ bits,   // the live pass's bits of w
+    const int4* __restrict__ chan,    // (F): x_base, d_in, d_out, path
+    const int* __restrict__ ptab,     // (n_paths, PT_W)
+    const float* __restrict__ gflat,  // each path's alpha*cg, (d_in, d_sh, d_out) entries
+    const int* __restrict__ pi_items,   // p * 8 + i of every (path, i < d_in), in path order
+    const int* __restrict__ order,    // the slots by sender
+    const int* __restrict__ cuts,     // (chunks + 1): chunk c is order[cuts[c] .. cuts[c + 1]]
+    const int* __restrict__ d_ptr,    // (D + 1): extents into d_item per input element
+    const int* __restrict__ d_item,   // f * 8 + i of every (channel, component) reading it
+    float* __restrict__ part,         // (chunks, D)
+    int K, int D, int S, int F, int n_paths, int TS, int GS, int n_pi, int n_items, int chunks,
+    int wunit, int shw, int gvec, long long sh_elems) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool F32 = sizeof(T) == 4;
+  const XiLayout L = xi_layout(D, F, n_paths, TS, GS, n_items, sizeof(T), LANES);
+  float* s_t = smem + L.t;
+  float* s_g = smem + L.g;
+  int* s_pi = reinterpret_cast<int*>(smem + L.pi);
+  int* s_rows = reinterpret_cast<int*>(smem + L.rows);
+  int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
+  int* s_ditem = s_dptr + pad4(D + 1);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int FP = w_pitch(F, sizeof(T));
+  for (int i = tid; i < GS; i += nt) s_g[i] = gflat[i];
+  for (int i = tid; i < n_pi; i += nt) s_pi[i] = pi_items[i];
+  for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
+  for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
+  const int f = tid;
+  const bool active = f < F;
+  const int4 cm = active ? chan[f] : make_int4(0, 1, 1, 0);   // x_base, d_in, d_out, path
+  const int t_off = active ? ptab[cm.w * PT_W + 7] : 0;
+
+  {
+    const int c = blockIdx.x;
+    const int c0 = cuts[c], cnt = cuts[c + 1] - c0;
+    if (cnt <= 0) return;           // past the last chunk
+    // the chunk's live slots, in order
+    if (warp == 0) {
+      const int e = lane < cnt ? order[c0 + lane] : 0;
+      const bool on = lane < cnt && (__ldg(bits + (e >> 5)) >> (e & 31) & 1u);
+      const unsigned m = __ballot_sync(0xffffffffu, on);
+      if (on) s_rows[__popc(m & ((1u << lane) - 1u))] = e;
+      if (lane == 0) s_rows[XI_Q] = __popc(m);
+    }
+    __syncthreads();
+    const int n_live = s_rows[XI_Q];
+    const int tiles = (n_live + XI_ROWS - 1) / XI_ROWS;
+
+    // the t-th tile's rows of w and harmonics (warp = row) and its slots'
+    // receivers' g rows (thread = (row, channel))
+    auto load_tile = [&](int t) {
+      if (t < tiles) {
+        float* st = smem + (t % XI_STAGES) * L.stage;
+        const int n = min(XI_ROWS, n_live - t * XI_ROWS);
+        for (int r = warp; r < n; r += nwarps) {
+          const long long e = s_rows[t * XI_ROWS + r];
+          copy_row(reinterpret_cast<T*>(st + L.w) + r * FP, w + e * F, F, wunit, lane);
+          float* srow = st + L.sh + r * XI_SHP;
+          if (F32) {
+            if (lane < S) cp_async4(srow + lane, sh + e * S + lane);
+          } else if (shw) {   // the words covering elements e S .. e S + S - 1
+            const long long w0 = (e * S) >> 1;
+            if (lane < (int)(((e * S + S + 1) >> 1) - w0)) {
+              const long long wd = w0 + lane;
+              if (2 * wd + 2 <= sh_elems)
+                cp_async4(srow + lane, reinterpret_cast<const unsigned*>(sh) + wd);
+              else   // the tensor's last element, alone in its word
+                reinterpret_cast<T*>(srow + lane)[0] = sh[2 * wd];
+            }
+          } else if (lane < S) {
+            reinterpret_cast<T*>(srow)[lane] = sh[e * S + lane];
+          }
+        }
+        for (int i = tid; i < n * F; i += nt) {
+          const int r = i / F, ff = i - r * F;
+          const float* src = g + ((size_t)(s_rows[t * XI_ROWS + r] / K) * F + ff) * LANES;
+          float* d4 = st + L.g4 + (size_t)i * 4;
+          if (gvec) {
+            cp_async16(d4, src);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) cp_async4(d4 + k, src + k);
+          }
+          if (LANES == 8) cp_async4(st + L.g1 + i, src + 4);
+        }
+      }
+      cp_async_commit();
+    };
+
+#pragma unroll 1
+    for (int t = 0; t < XI_STAGES - 1; ++t) load_tile(t);
+    float acc[L2_K];
+#pragma unroll
+    for (int i = 0; i < L2_K; ++i) acc[i] = 0.f;
+
+    for (int t = 0; t < tiles; ++t) {
+      cp_async_wait<XI_STAGES - 2>();
+      __syncthreads();                 // the tile has landed; the stage it replaces is read
+      load_tile(t + XI_STAGES - 1);
+      const float* st = smem + (t % XI_STAGES) * L.stage;
+      const int* rows = s_rows + t * XI_ROWS;
+      const int n = min(XI_ROWS, n_live - t * XI_ROWS);
+      // t of every (row, path, i)
+      for (int it = tid; it < n * n_pi; it += nt) {
+        const int r = it / n_pi, pi = s_pi[it - r * n_pi];
+        const int* pt = ptab + (pi >> 3) * PT_W;   // sh_off, d_in, d_sh, d_out, .., t_off, g_off
+        const int i = pi & 7, d_sh = pt[2], d_out = pt[3];
+        const float* G = s_g + pt[8] + i * d_sh * d_out;
+        float* tq = s_t + r * TS + pt[7] + i * d_out;
+        const float* srow = st + L.sh + r * XI_SHP;
+        if (F32) {
+          t_item(d_sh * 8 + d_out, tq, G, srow + pt[0]);
+        } else {
+          const T* svb = reinterpret_cast<const T*>(srow) +
+                         (shw ? (int)(((long long)rows[r] * S) & 1) : 0);
+          t_item(d_sh * 8 + d_out, tq, G, svb + pt[0]);
+        }
+      }
+      __syncthreads();
+      if (!active) continue;
+      const T* wc = reinterpret_cast<const T*>(st + L.w) + f;
+      const float* tq = s_t + t_off;
+      const float4* g4 = reinterpret_cast<const float4*>(st + L.g4) + f;
+      const float* g1 = st + L.g1 + f;
+#define XI_WALK(DI, DO) xi_walk<DI, DO>(acc, wc, FP, tq, TS, g4, g1, F, n)
+      switch (cm.y * 8 + cm.z) {
+        case 011: XI_WALK(1, 1); break;
+        case 013: XI_WALK(1, 3); break;
+        case 015: XI_WALK(1, 5); break;
+        case 031: XI_WALK(3, 1); break;
+        case 033: XI_WALK(3, 3); break;
+        case 035: XI_WALK(3, 5); break;
+        case 051: XI_WALK(5, 1); break;
+        case 053: XI_WALK(5, 3); break;
+        default: XI_WALK(5, 5); break;
+      }
+#undef XI_WALK
+    }
+    cp_async_wait<0>();
+
+    // the channels that read one x element, added in the list's order
+    __syncthreads();                   // the ring is free
+    float* s_d = smem;                 // [i][f]
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) s_d[i * F + f] = acc[i];
+    }
+    __syncthreads();
+    for (int d = tid; d < D; d += nt) {
+      float sum = 0.f;
+      for (int q = s_dptr[d]; q < s_dptr[d + 1]; ++q) {
+        const int it = s_ditem[q];
+        sum += s_d[(it & 7) * F + (it >> 3)];
+      }
+      part[(size_t)c * D + d] = sum;
+    }
+  }
+}
+
+// dx[r, d] = the sum over sender row r's chunks, in order, of part[c][d];
+// zero for a sender no slot reads; rounded once.
+template <typename T>
+__global__ void tp_aggregate_bwd_x_idx_sum(const float* __restrict__ part,
+                                           const int* __restrict__ row_ptr, T* __restrict__ dx,
+                                           long long total, int D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long r = i / D;
+  const int d = (int)(i - r * D);
+  float s = 0.f;
+  for (int c = row_ptr[r]; c < row_ptr[r + 1]; ++c) s += part[(size_t)c * D + d];
+  dx[i] = from_f<T>(s);
+}
 bool bad_shape_l2(int B, int N, int M, int D, int S, int F, int n_paths) {
   return B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 || F > L2_THREADS ||
          n_paths < 1 || n_paths > L2_MAX_PATHS || B > 65535;
@@ -2064,7 +2462,7 @@ template <typename T, int LANES>
 int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
                   const int* ptab, const float* gtab, float* out, int B, int N, int M, int Mx,
                   int D, int S, int F, int n_paths, int t_size, cudaStream_t st) {
-  const size_t bytes = (size_t)l2_layout(false, D, F, n_paths, t_size, 0).total * sizeof(float);
+  const size_t bytes = (size_t)l2_layout(D, n_paths, t_size).total * sizeof(float);
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   static bool allowed = false;
   if (!allowed) {
@@ -2078,59 +2476,107 @@ int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* idx, 
   return (int)cudaGetLastError();
 }
 
-template <typename T, int LANES>
-int launch_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
-                    const int* ptab, const float* gtab, const int* d_ptr, const int* d_item,
-                    const int* order, const int* ptr, void* dx, int B, int N, int M, int Mx, int D,
-                    int S, int F, int n_paths, int t_size, int n_items, cudaStream_t st) {
-  const size_t bytes =
-      (size_t)l2_layout(true, D, F, n_paths, t_size, n_items).total * sizeof(float);
-  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+size_t edge_bytes(bool dsh, int D, int F, int PT, int PS) {
+  return (size_t)edge_layout(dsh, D, F, PT, PS).total * sizeof(float);
+}
+
+size_t xi_bytes(int D, int F, int n_paths, int TS, int GS, int n_items, int esize, int lanes) {
+  return (size_t)xi_layout(D, F, n_paths, TS, GS, n_items, esize, lanes).total * sizeof(float);
+}
+
+// Allows the edge backward of operand type T (with or without dsh) all the
+// shared memory an SM has, once per kernel.
+template <typename T, bool DSH>
+cudaError_t allow_edge() {
   static bool allowed = false;
-  if (!allowed) {
-    const cudaError_t err = allow_shared(tp_aggregate_bwd_x_l2_kernel<T, LANES>, MAX_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    allowed = true;
+  if (allowed) return cudaSuccess;
+  const cudaError_t err = allow_shared(tp_aggregate_bwd_edge_l2_kernel<T, DSH>, MAX_SMEM);
+  if (err == cudaSuccess) allowed = true;
+  return err;
+}
+
+template <typename T>
+int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const unsigned* bits,
+                       const float* g, const int* pent, const float* gflat, const int* ptab,
+                       const int* plan, const int* seg_ptr, const int* seg, float* Pg, void* dw,
+                       void* dsh, int B, int N, int M, int D, int S, int F, int PT, int PS,
+                       int plan_w, int rn, cudaStream_t st) {
+  const bool with_dsh = dsh != nullptr;
+  const size_t bytes = edge_bytes(with_dsh, D, F, PT, PS);
+  if (bytes > MAX_SMEM || PT % 4 != 0 || !aligned(Pg, 16)) return (int)cudaErrorInvalidValue;
+  tp_aggregate_l2_p_kernel<<<(unsigned)(B * N), 256, 0, st>>>(
+      g, reinterpret_cast<const int4*>(pent), gflat, Pg, F, PT);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + EB_SLOTS - 1) / EB_SLOTS, (N + rn - 1) / rn, B);
+  const T* xt = static_cast<const T*>(x);
+  const T* sht = static_cast<const T*>(sh);
+  const int xpair = D % 2 == 0 && aligned(x, 4);
+  const int vec = F % 4 == 0 && aligned(dw, 4 * sizeof(T)) &&
+                  (!with_dsh || aligned(w, 4 * sizeof(T)));
+  if (!with_dsh) {
+    if ((err = allow_edge<T, false>()) != cudaSuccess) return (int)err;
+    tp_aggregate_bwd_edge_l2_kernel<T, false><<<grid, EB_THREADS, bytes, st>>>(
+        xt, sht, nullptr, nullptr, Pg, ptab, plan, nullptr, nullptr, static_cast<T*>(dw),
+        nullptr, N, M, D, S, F, PT, PS, plan_w, rn, xpair, vec);
+  } else {
+    if ((err = allow_edge<T, true>()) != cudaSuccess) return (int)err;
+    tp_aggregate_bwd_edge_l2_kernel<T, true><<<grid, EB_THREADS, bytes, st>>>(
+        xt, sht, static_cast<const T*>(w), bits, Pg, ptab, plan, seg_ptr,
+        reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, D,
+        S, F, PT, PS, plan_w, rn, xpair, vec);
   }
-  tp_aggregate_bwd_x_l2_kernel<T, LANES><<<dim3(Mx, B), threads_l2(F), bytes, st>>>(
-      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
-      ptab, gtab, d_ptr, d_item, order, ptr, static_cast<T*>(dx), N, M, Mx, D, S, F, n_paths,
-      t_size, n_items);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int LANES>
-int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,
-                       const float* g, const int* chan, const int* ptab, const float* gtab,
-                       const int* seg_ptr, const int* seg, void* dw, void* dsh, int B, int N,
-                       int M, int Mx, int D, int S, int F, int n_paths, int n_seg,
-                       cudaStream_t st) {
-  const dim3 grid((M + L2_EDGE_SENDERS - 1) / L2_EDGE_SENDERS, N, B);
-  const T* xt = static_cast<const T*>(x);
-  const T* sht = static_cast<const T*>(sh);
-  const int4* chan4 = reinterpret_cast<const int4*>(chan);
-  if (dsh == nullptr) {
-    tp_aggregate_bwd_edge_l2_kernel<T, false, LANES><<<grid, threads_l2(F), 0, st>>>(
-        xt, sht, nullptr, idx, g, chan4, ptab, gtab, nullptr, nullptr, static_cast<T*>(dw),
-        nullptr, N, M, Mx, D, S, F, n_paths, 0);
-    return (int)cudaGetLastError();
-  }
-  if (idx != nullptr || LANES != 8) return (int)cudaErrorInvalidValue;   // dsh: dense, 8 lanes
-  const size_t bytes =
-      sizeof(float) * ((size_t)L2_EDGE_SENDERS * (F + n_paths) * L2_K + ((S + 1 + 3) / 4) * 4 +
-                       (size_t)n_seg * 2);
-  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+int launch_bwd_edge_idx(const void* x, const void* sh, const int* idx, const float* g,
+                        const int* chan, const int* ptab, const float* gtab, void* dw, int B,
+                        int N, int M, int Mx, int D, int S, int F, cudaStream_t st) {
+  const dim3 grid((M + IDX_EDGE_SLOTS - 1) / IDX_EDGE_SLOTS, N, B);
+  tp_aggregate_bwd_edge_idx_kernel<T, LANES><<<grid, threads_l2(F), 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), idx, g,
+      reinterpret_cast<const int4*>(chan), ptab, gtab, static_cast<T*>(dw), N, M, Mx, D, S, F);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int LANES>
+cudaError_t allow_xi() {
   static bool allowed = false;
-  if (!allowed) {
-    const cudaError_t err =
-        allow_shared(tp_aggregate_bwd_edge_l2_kernel<T, true, LANES>, MAX_SMEM);
+  if (allowed) return cudaSuccess;
+  const cudaError_t err = allow_shared(tp_aggregate_bwd_x_idx_l2_kernel<T, LANES>, MAX_SMEM);
+  if (err == cudaSuccess) allowed = true;
+  return err;
+}
+
+// Threads of a block of the sender-index dx: a thread per channel, four
+// warps at least (the tile's loads take a warp a row).
+int xi_threads(int F) { return max(128, threads_l2(F)); }
+
+template <typename T, int LANES>
+int launch_bwd_x_idx_l2(const void* sh, const void* w, const float* g, const unsigned* bits,
+                        const int* chan, const int* ptab, const float* gflat, const int* pi_items,
+                        const int* order, const int* cuts, const int* row_ptr, const int* d_ptr,
+                        const int* d_item, void* dx, float* part, int B, int N, int K, int Mx,
+                        int D, int S, int F, int n_paths, int TS, int GS, int n_pi, int n_items,
+                        int chunks, cudaStream_t st) {
+  const size_t bytes = xi_bytes(D, F, n_paths, TS, GS, n_items, sizeof(T), LANES);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_xi<T, LANES>();
+  if (err != cudaSuccess) return (int)err;
+  const long long sh_elems = (long long)B * N * K * S;
+  if (chunks > 0) {
+    tp_aggregate_bwd_x_idx_l2_kernel<T, LANES><<<chunks, xi_threads(F), bytes, st>>>(
+        static_cast<const T*>(sh), static_cast<const T*>(w), g, bits,
+        reinterpret_cast<const int4*>(chan), ptab, gflat, pi_items, order, cuts, d_ptr, d_item,
+        part, K, D, S, F, n_paths, TS, GS, n_pi, n_items, chunks, row_unit(w, F, sizeof(T)),
+        sizeof(T) == 2 && aligned(sh, 4), aligned(g, 16), sh_elems);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    allowed = true;
   }
-  tp_aggregate_bwd_edge_l2_kernel<T, true, LANES><<<grid, threads_l2(F), bytes, st>>>(
-      xt, sht, static_cast<const T*>(w), nullptr, g, chan4, ptab, gtab, seg_ptr,
-      reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, M, D,
-      S, F, n_paths, n_seg);
+  const long long total = (long long)B * Mx * D;
+  tp_aggregate_bwd_x_idx_sum<T><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      part, row_ptr, static_cast<T*>(dx), total, D);
   return (int)cudaGetLastError();
 }
 
@@ -2261,13 +2707,11 @@ int dp_tp_aggregate_l2_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, i
               : tiled_blocks_per_sm<float>(dx, FTP, DXW, TS, GS, PC, NI);
 }
 
-// The sender-index mode (idx, or order and ptr, never null; x and dx (B, Mx,
-// D), sh, w and dw (B, N, M, .) with M the slots): tables from
+// The sender-index mode (idx, or the dx lists, never null; x and dx (B, Mx,
+// D), sh, w and dw (B, N, M, .) with M the slots).  `lanes` (4 or 8) is the
+// floats of a channel in out and g.  The forward: tables from
 // tp_fused.tables_l2 (chan (F, 4), ptab (n_paths, 8), gtab (n_paths, 5, 5,
-// 5), t_size floats of t an edge); one launch each, no split.  `lanes` (4
-// or 8) is the floats of a channel in out and g.  The edge backward also
-// runs dense (idx null: Mx = M, 8 lanes), where it computes dsh when asked;
-// the mode refuses dsh.
+// 5), t_size floats of t an edge), one launch, no split.
 
 int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
                            const int* chan, const int* ptab, const float* gtab, float* out, int B,
@@ -2288,53 +2732,126 @@ int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const i
                                         F, n_paths, t_size, st);
 }
 
-// dsh may be null: then only dw is computed and w, seg_ptr and seg are not read.
-int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,
-                                const float* g, const int* chan, const int* ptab,
-                                const float* gtab, const int* seg_ptr, const int* seg, void* dw,
-                                void* dsh, int B, int N, int M, int Mx, int D, int S, int F,
-                                int n_paths, int n_seg, int lanes, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || n_seg < 0 || N > 65535 ||
-      bad_mode(idx, M, Mx, lanes) || (idx != nullptr && dsh != nullptr))
+// The dense 8-lane edge backward: P of every receiver into Pg (B, N, PT)
+// floats (tp_aggregate_l2_p_kernel, from the host's entry table pent (PT,
+// 4) and gflat), then the edge kernel on tables from
+// tp_aggregate.path_tables_l2 (ptab (n_paths, 12), PT and PS), its warps'
+// paths (plan (8, plan_w)) and the receivers a block takes (rn).  dsh may
+// be null: then only dw is computed and w, bits, seg_ptr and seg are not
+// read.  bits: the live pass's bits of w, or null (every row of w read).
+int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w,
+                                const unsigned* bits, const float* g, const int* pent,
+                                const float* gflat, const int* ptab, const int* plan,
+                                const int* seg_ptr, const int* seg, float* Pg, void* dw,
+                                void* dsh, int B, int N, int M, int D, int S, int F, int n_paths,
+                                int PT, int PS, int plan_w, int rn, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || (M + EB_SLOTS - 1) / EB_SLOTS > 65535 ||
+      PT < 4 || PS < 0 || plan_w < 1 || rn < 1 || (N + rn - 1) / rn > 65535 ||
+      (long long)B * N > 0x7fffffffLL || Pg == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_edge_l2<__nv_bfloat16>(x, sh, w, bits, g, pent, gflat, ptab, plan,
+                                                  seg_ptr, seg, Pg, dw, dsh, B, N, M, D, S, F,
+                                                  PT, PS, plan_w, rn, st)
+              : launch_bwd_edge_l2<float>(x, sh, w, bits, g, pent, gflat, ptab, plan, seg_ptr,
+                                          seg, Pg, dw, dsh, B, N, M, D, S, F, PT, PS, plan_w, rn,
+                                          st);
+}
+
+// The sender-index mode's dw (idx never null; x (B, Mx, D), sh and dw (B,
+// N, M, .) with M the slots): tables from tp_fused.tables_l2 (chan (F, 4),
+// ptab (n_paths, 8), gtab (n_paths, 5, 5, 5)); `lanes` (4 or 8) is the
+// floats of a channel in g.
+int dp_tp_aggregate_bwd_edge_idx(const void* x, const void* sh, const int* idx, const float* g,
+                                 const int* chan, const int* ptab, const float* gtab, void* dw,
+                                 int B, int N, int M, int Mx, int D, int S, int F, int n_paths,
+                                 int lanes, int bf16, void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || N > 65535 || idx == nullptr ||
+      bad_mode(idx, M, Mx, lanes))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lanes == 4)
-    return bf16 ? launch_bwd_edge_l2<__nv_bfloat16, 4>(x, sh, w, idx, g, chan, ptab, gtab,
-                                                       seg_ptr, seg, dw, dsh, B, N, M, Mx, D, S,
-                                                       F, n_paths, n_seg, st)
-                : launch_bwd_edge_l2<float, 4>(x, sh, w, idx, g, chan, ptab, gtab, seg_ptr, seg,
-                                               dw, dsh, B, N, M, Mx, D, S, F, n_paths, n_seg, st);
-  return bf16 ? launch_bwd_edge_l2<__nv_bfloat16, 8>(x, sh, w, idx, g, chan, ptab, gtab, seg_ptr,
-                                                     seg, dw, dsh, B, N, M, Mx, D, S, F, n_paths,
-                                                     n_seg, st)
-              : launch_bwd_edge_l2<float, 8>(x, sh, w, idx, g, chan, ptab, gtab, seg_ptr, seg, dw,
-                                             dsh, B, N, M, Mx, D, S, F, n_paths, n_seg, st);
+    return bf16 ? launch_bwd_edge_idx<__nv_bfloat16, 4>(x, sh, idx, g, chan, ptab, gtab, dw, B, N,
+                                                        M, Mx, D, S, F, st)
+                : launch_bwd_edge_idx<float, 4>(x, sh, idx, g, chan, ptab, gtab, dw, B, N, M, Mx,
+                                                D, S, F, st);
+  return bf16 ? launch_bwd_edge_idx<__nv_bfloat16, 8>(x, sh, idx, g, chan, ptab, gtab, dw, B, N, M,
+                                                      Mx, D, S, F, st)
+              : launch_bwd_edge_idx<float, 8>(x, sh, idx, g, chan, ptab, gtab, dw, B, N, M, Mx, D,
+                                              S, F, st);
 }
 
-// `order` and `ptr` from tp_fused.sender_lists.
-int dp_tp_aggregate_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
-                             const int* ptab, const float* gtab, const int* d_ptr,
-                             const int* d_item, const int* order, const int* ptr, void* dx, int B,
-                             int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size,
-                             int n_items, int lanes, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || n_items < 1 || Mx > 65535 ||
-      order == nullptr || ptr == nullptr || bad_mode(order, M, Mx, lanes))
+// The sender-index dx: the chunk kernel over `chunks` chunks (order, cuts
+// and row_ptr from tp_aggregate.idx_dx_lists; bits, the live pass's bits
+// of w), then the sum of each sender's chunks in order.  Tables from tp_aggregate.path_tables_l2 (TS floats of
+// t a slot, GS coupling entries; pi_items, its n_pi (path, i) items) and
+// d_ptr / d_item (entries f * 8 + i); `part` holds (chunks, D) floats.
+int dp_tp_aggregate_bwd_x_idx_l2(const void* sh, const void* w, const float* g,
+                                 const unsigned* bits, const int* chan, const int* ptab,
+                                 const float* gflat, const int* pi_items, const int* order,
+                                 const int* cuts, const int* row_ptr, const int* d_ptr,
+                                 const int* d_item, void* dx, float* part, int B, int N, int K,
+                                 int Mx, int D, int S, int F, int n_paths, int TS, int GS,
+                                 int n_pi, int n_items, int chunks, int lanes, int bf16,
+                                 void* stream) {
+  if (bad_shape_l2(B, N, K, D, S, F, n_paths) || Mx < 1 || TS < 4 || TS % 4 != 0 || GS < 1 ||
+      n_pi < 1 || n_pi > n_paths * L2_K || n_items < 1 || chunks < 0 || order == nullptr ||
+      cuts == nullptr || row_ptr == nullptr || bits == nullptr || pi_items == nullptr ||
+      (chunks > 0 && part == nullptr) || (lanes != 4 && lanes != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lanes == 4)
-    return bf16 ? launch_bwd_x_l2<__nv_bfloat16, 4>(sh, w, g, chan, ptab, gtab, d_ptr, d_item,
-                                                    order, ptr, dx, B, N, M, Mx, D, S, F, n_paths,
-                                                    t_size, n_items, st)
-                : launch_bwd_x_l2<float, 4>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, order, ptr,
-                                            dx, B, N, M, Mx, D, S, F, n_paths, t_size, n_items,
-                                            st);
-  return bf16 ? launch_bwd_x_l2<__nv_bfloat16, 8>(sh, w, g, chan, ptab, gtab, d_ptr, d_item,
-                                                  order, ptr, dx, B, N, M, Mx, D, S, F, n_paths,
-                                                  t_size, n_items, st)
-              : launch_bwd_x_l2<float, 8>(sh, w, g, chan, ptab, gtab, d_ptr, d_item, order, ptr,
-                                          dx, B, N, M, Mx, D, S, F, n_paths, t_size, n_items, st);
+    return bf16 ? launch_bwd_x_idx_l2<__nv_bfloat16, 4>(sh, w, g, bits, chan, ptab, gflat,
+                                                        pi_items, order, cuts, row_ptr, d_ptr,
+                                                        d_item, dx, part, B, N, K, Mx, D, S, F,
+                                                        n_paths, TS, GS, n_pi, n_items, chunks,
+                                                        st)
+                : launch_bwd_x_idx_l2<float, 4>(sh, w, g, bits, chan, ptab, gflat, pi_items,
+                                                order, cuts, row_ptr, d_ptr, d_item, dx, part, B,
+                                                N, K, Mx, D, S, F, n_paths, TS, GS, n_pi, n_items,
+                                                chunks, st);
+  return bf16 ? launch_bwd_x_idx_l2<__nv_bfloat16, 8>(sh, w, g, bits, chan, ptab, gflat,
+                                                      pi_items, order, cuts, row_ptr, d_ptr,
+                                                      d_item, dx, part, B, N, K, Mx, D, S, F,
+                                                      n_paths, TS, GS, n_pi, n_items, chunks, st)
+              : launch_bwd_x_idx_l2<float, 8>(sh, w, g, bits, chan, ptab, gflat, pi_items, order,
+                                              cuts, row_ptr, d_ptr, d_item, dx, part, B, N, K, Mx,
+                                              D, S, F, n_paths, TS, GS, n_pi, n_items, chunks,
+                                              st);
 }
 
+// Bytes of shared memory a block of the edge backward (dsh = 0 or 1) or of
+// the sender-index dx's chunk kernel (operands of esize bytes, 4 or 2, and
+// `lanes` floats of g a channel) takes at these sizes.
+int dp_tp_aggregate_edge_l2_smem(int dsh, int D, int F, int PT, int PS) {
+  return (int)edge_bytes(dsh != 0, D, F, PT, PS);
+}
+
+int dp_tp_aggregate_idx_dx_l2_smem(int D, int F, int n_paths, int TS, int GS, int n_items,
+                                   int esize, int lanes) {
+  return (int)xi_bytes(D, F, n_paths, TS, GS, n_items, esize, lanes);
+}
+
+// Blocks of the edge backward (dsh = 0 or 1) that one SM holds at once at
+// these sizes and operand type, or minus a cudaError_t value.
+int dp_tp_aggregate_edge_l2_blocks_per_sm(int dsh, int D, int F, int PT, int PS, int bf16) {
+  const size_t bytes = edge_bytes(dsh != 0, D, F, PT, PS);
+  cudaError_t err = dsh ? (bf16 ? allow_edge<__nv_bfloat16, true>() : allow_edge<float, true>())
+                        : (bf16 ? allow_edge<__nv_bfloat16, false>() : allow_edge<float, false>());
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  if (dsh)
+    err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_aggregate_bwd_edge_l2_kernel<__nv_bfloat16, true>, EB_THREADS, bytes)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_aggregate_bwd_edge_l2_kernel<float, true>, EB_THREADS, bytes);
+  else
+    err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_aggregate_bwd_edge_l2_kernel<__nv_bfloat16, false>, EB_THREADS, bytes)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, tp_aggregate_bwd_edge_l2_kernel<float, false>, EB_THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
 const char* dp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

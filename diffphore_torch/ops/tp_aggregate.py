@@ -29,18 +29,26 @@ per (batch row, ``KEEP`` kept entries, channel tile of
 :func:`tp_fused.channel_tiles`, split of the summed axis as
 :func:`launch_splits_l2` says), on the live edges that a streaming pass over
 w marks (:func:`live_rows_l2`; made once by the autograd forward, read by
-dx), their split or per-tile partial sums added by a second kernel in a
-fixed order), the edge backward a block per receiver and run of senders, a
-thread per channel.
+dx and by the edge backward's dsh), their split or per-tile partial sums
+added by a second kernel in a fixed order); the edge backward forms each
+receiver's P once (``tp_aggregate_l2_p_kernel``, :func:`p_entries_l2`),
+then a block per (``EDGE_SLOTS`` senders, run of receivers, batch row) runs
+warp = path (the paths of :func:`edge_plan_l2`, each with its shape fixed),
+lane = sender, from :func:`path_tables_l2`.
 
 Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
 int32, x is (B, M_x, D), sh and w are (B, N, K, .) and slot k of receiver n
 reads the sender row ``x[b, sender_index[b, n, k]]``; dx adds each sender's
-slots.  The three functions run those ``*_l2`` kernels' bodies at both lane
-counts (4 where l <= 1): the forward reads x at the index, the edge
-backward too (dw only: no phore conv needs dsh, which the mode refuses),
-and dx walks each sender's slots in the fixed order of
-:func:`tp_fused.sender_lists`.  ``FWD_IDX``, ``BWD_EDGE_IDX`` and
+slots.  At both lane counts (4 where l <= 1): the forward is a block per
+receiver and a thread per channel, reading x at the index; the edge
+backward a block per receiver's slots (up to ``IDX_EDGE_SLOTS``), a thread
+per channel with P in registers formed once for them, x read at the index
+(dw only: no phore conv needs dsh, which the mode refuses); dx takes each
+sender's slots
+in chunks of at most ``IDX_Q`` (:func:`idx_dx_lists`, in the fixed order of
+:func:`tp_fused.sender_lists`), loads only the live ones (w's live bits,
+which the autograd forward makes with the lists), and a second kernel adds
+each sender's chunks in order.  ``FWD_IDX``, ``BWD_EDGE_IDX`` and
 ``BWD_X_IDX`` count the 4-lane launches, the ``*_IDX_L2`` counters the
 8-lane ones.
 """
@@ -49,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,18 +66,19 @@ from . import build
 from .tensor_product import ChannelwiseTP
 from .tp_fused import (K_PAD, K_PAD_L2, MAX_F_L2, MAX_PATHS_L2, TARGET_BLOCKS, TILE_N,
                        _check_tp, _device_tables, _device_tables_tiled_l2, _Kernel, _ptr,
-                       check_index, counter, device_tables_l2, lanes, padded_from_blocks,
-                       sender_lists, tables_tiled_l2)
+                       check_index, counter, coupling, device_tables_l2, lanes,
+                       padded_from_blocks, sender_lists, tables_l2, tables_tiled_l2)
+from .tp_scalar import slot_chunks
 
 FWD = _Kernel()        # tp_aggregate_fwd_kernel (+ tp_aggregate_sum_splits)
 BWD_EDGE = _Kernel()   # tp_aggregate_bwd_edge_kernel (dw, and dsh when needed)
 BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx, + tp_aggregate_sum_splits)
 FWD_L2 = _Kernel()       # tp_aggregate_fwd_l2_tiled_kernel (+ tp_aggregate_sum_splits)
-BWD_EDGE_L2 = _Kernel()  # tp_aggregate_bwd_edge_l2_kernel (dw, and dsh when needed)
+BWD_EDGE_L2 = _Kernel()  # tp_aggregate_l2_p_kernel + tp_aggregate_bwd_edge_l2_kernel<T, DSH>
 BWD_X_L2 = _Kernel()     # tp_aggregate_bwd_x_l2_tiled_kernel (+ tp_aggregate_l2_dx_sum)
 FWD_IDX = _Kernel()          # the sender-index mode: tp_aggregate_fwd_l2_kernel<T, 4>
-BWD_EDGE_IDX = _Kernel()     # tp_aggregate_bwd_edge_l2_kernel<T, false, 4>
-BWD_X_IDX = _Kernel()        # tp_aggregate_bwd_x_l2_kernel<T, 4>
+BWD_EDGE_IDX = _Kernel()     # tp_aggregate_bwd_edge_idx_kernel<T, 4>
+BWD_X_IDX = _Kernel()        # tp_aggregate_bwd_x_idx_l2_kernel<T, 4> + tp_aggregate_bwd_x_idx_sum
 FWD_IDX_L2 = _Kernel()       # the same at 8 lanes (l = 2)
 BWD_EDGE_IDX_L2 = _Kernel()
 BWD_X_IDX_L2 = _Kernel()
@@ -276,6 +285,179 @@ def plan_splits_l2(B: int, kept: int, summed: int, tiles: int,
     return max(1, min(-(-target // blocks), summed // TILE_SUM), -(-summed // MAX_SUMMED_L2))
 
 
+PT_W = 12          # ints of a path's row in :func:`path_tables_l2`
+EDGE_SLOTS = 32    # senders (slots) a block of the 8-lane edge backward takes: lane = sender
+EDGE_WARPS = 8     # warps of that block, each walking the paths :func:`edge_plan_l2` gives it
+IDX_Q = 32         # slots a chunk of the sender-index dx takes at most
+MIN_SLOTS = 4      # fewest slots a chunk takes, where there are enough
+
+
+@functools.lru_cache(maxsize=None)
+def path_tables_l2(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32):
+    """The tables of the 8-lane edge backward and of the sender-index dx:
+    per channel (x_base, d_in, d_out, path) int32 (F, 4)
+    (:func:`tp_fused.tables_l2`'s); per path int32 (n_paths, ``PT_W``):
+    (sh_off, d_in, d_sh, d_out, f0, fc, x0 (the x offset of its first
+    channel), t_off (its t block in a slot's t row, d_in x d_out padded to
+    float4s), g_off (its coupling entries in ``gflat``), p_off (its
+    channels' P blocks, d_in x d_sh each padded to float4s), part_off (its
+    d_sh dsh sums over the edge backward's ``EDGE_SLOTS`` senders), 0);
+    alpha * cg of every path (cg rounded to ``dtype``), its d_in x d_sh x
+    d_out entries flat in path order (f32); and the sizes (PT, PS, TS, GS):
+    the floats of P, of the dsh sums, of a t row and of ``gflat``."""
+    chan, _, _, _ = tables_l2(tp, dtype)
+    sh_slices = tp.irreps_sh.slices()
+    ptab = np.zeros((len(tp.paths), PT_W), np.int32)
+    gflat = []
+    t_off = g_off = p_off = part_off = 0
+    for q, p in enumerate(tp.paths):
+        d1, d2, d3 = 2 * p.l_in + 1, 2 * p.l_sh + 1, 2 * p.l_out + 1
+        f0, fc = p.w_slice[0], p.mul_in
+        ptab[q] = (sh_slices[p.i_sh].start, d1, d2, d3, f0, fc, chan[f0, 0], t_off, g_off, p_off,
+                   part_off, 0)
+        gflat.append(coupling(p, dtype).reshape(-1))
+        t_off += -(-d1 * d3 // 4) * 4
+        g_off += d1 * d2 * d3
+        p_off += fc * (-(-d1 * d2 // 4) * 4)
+        part_off += d2 * EDGE_SLOTS
+    return chan, ptab, np.concatenate(gflat).astype(np.float32), (p_off, part_off, t_off, g_off)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_path_tables_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype):
+    *tables, sizes = path_tables_l2(tp, dtype)
+    return tuple(torch.as_tensor(t, device=device) for t in tables) + (sizes,)
+
+
+@functools.lru_cache(maxsize=None)
+def p_entries_l2(tp: ChannelwiseTP) -> np.ndarray:
+    """The edge backward's P row, entry by entry: (PT, 4) int32, entry
+    p_off + u * pad4(d_in d_sh) + i d_sh + j of path p is (its channel f0 +
+    u, the offset of G_p[i, j, :] in ``path_tables_l2``'s gflat, d_out, 1);
+    a pad entry is zeros.  P[e] = sum_k gflat[e.1 + k] g[receiver, e.0, k],
+    k < e.2."""
+    _, ptab, _, (PT, _, _, _) = path_tables_l2(tp)
+    out = np.zeros((PT, 4), np.int32)
+    for row in ptab.tolist():
+        d1, d2, d3, f0, fc, g_off, p_off = row[1], row[2], row[3], row[4], row[5], row[8], row[9]
+        pp = -(-d1 * d2 // 4) * 4
+        for u in range(fc):
+            for ij in range(d1 * d2):
+                out[p_off + u * pp + ij] = (f0 + u, g_off + ij * d3, d3, 1)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _device_p_entries_l2(tp: ChannelwiseTP, device: str) -> torch.Tensor:
+    return torch.as_tensor(p_entries_l2(tp), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def pi_items_l2(tp: ChannelwiseTP) -> np.ndarray:
+    """The sender-index dx's t items: p * 8 + i of every (path p, i <
+    d_in), in path order (int32)."""
+    return np.array([q * 8 + i for q, p in enumerate(tp.paths) for i in range(2 * p.l_in + 1)],
+                    np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_pi_items_l2(tp: ChannelwiseTP, device: str) -> torch.Tensor:
+    return torch.as_tensor(pi_items_l2(tp), device=device)
+
+
+def _path_cost(row: np.ndarray) -> int:
+    """A path's work in the edge backward, per sender: its channels x
+    (d_in d_sh + 2 d_sh + d_in)."""
+    d_in, d_sh, fc = int(row[1]), int(row[2]), int(row[5])
+    return fc * (d_in * d_sh + 2 * d_sh + d_in)
+
+
+@functools.lru_cache(maxsize=None)
+def edge_plan_l2(tp: ChannelwiseTP) -> np.ndarray:
+    """Each warp's paths in the edge backward (warp = path, lane = sender):
+    (EDGE_WARPS, width) int32, -1 past a warp's last.  The paths by falling
+    cost (:func:`_path_cost`), each to the warp with the least work so far
+    (the lowest such warp); a warp walks its paths in the order taken."""
+    ptab = path_tables_l2(tp)[1]
+    load = [0] * EDGE_WARPS
+    lists = [[] for _ in range(EDGE_WARPS)]
+    for q in sorted(range(len(ptab)), key=lambda q: (-_path_cost(ptab[q]), q)):
+        k = min(range(EDGE_WARPS), key=lambda k: (load[k], k))
+        lists[k].append(q)
+        load[k] += _path_cost(ptab[q])
+    width = max(len(lt) for lt in lists)
+    plan = np.full((EDGE_WARPS, width), -1, np.int32)
+    for k, lt in enumerate(lists):
+        plan[k, :len(lt)] = lt
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _device_edge_plan_l2(tp: ChannelwiseTP, device: str) -> torch.Tensor:
+    return torch.as_tensor(edge_plan_l2(tp), device=device)
+
+
+EDGE_RN_MAX = 8    # receivers a block of the edge backward takes at most
+IDX_EDGE_SLOTS = 32  # slots a block of the sender-index dw takes: a receiver's K up to 32
+
+
+@functools.lru_cache(maxsize=None)
+def plan_edge_receivers(B: int, N: int, M: int, target: int = 2 * TARGET_BLOCKS) -> int:
+    """Receivers a block of the dense 8-lane edge backward takes, one after
+    another: the most (up to ``EDGE_RN_MAX``) that still leave ``target``
+    blocks of (``EDGE_SLOTS`` senders, receivers, batch row), so that the
+    chunk's x rows are staged once for them."""
+    units = B * N * -(-M // EDGE_SLOTS)
+    return max(1, min(EDGE_RN_MAX, N, units // target))
+
+
+def edge_grid_l2(B: int, N: int, M: int, indexed: bool = False) -> Tuple[int, int]:
+    """(blocks, receivers a block) of an edge-backward launch: dense at 8
+    lanes a block per (sender chunk of ``EDGE_SLOTS``, run of receivers,
+    batch row); in the sender-index mode a block per (``IDX_EDGE_SLOTS``
+    slots, receiver, batch row)."""
+    if indexed:
+        return -(-M // IDX_EDGE_SLOTS) * N * B, 1
+    rn = plan_edge_receivers(B, N, M)
+    return -(-M // EDGE_SLOTS) * -(-N // rn) * B, rn
+
+
+@functools.lru_cache(maxsize=None)
+def plan_idx_chunk(slots: int, senders: int, target: int = 4 * TARGET_BLOCKS
+                   ) -> Tuple[int, int]:
+    """(Q, bound) of the sender-index dx over ``slots`` slots and
+    ``senders`` sender rows: Q, the most slots one chunk (one block) takes:
+    ``IDX_Q`` where the slots give ``target`` chunks of it, fewer (down to
+    ``MIN_SLOTS``) where they do not; ``bound``, the most chunks any index can
+    give at that Q (each sender's last chunk may be short): the grid and the
+    scratch's rows."""
+    Q = min(IDX_Q, max(MIN_SLOTS, slots // target))
+    return Q, slots // Q + min(senders, slots)
+
+
+class IdxDxLists(NamedTuple):
+    """What the sender-index dx reads of an index: (order, ptr) of
+    :func:`tp_fused.sender_lists` and (cuts, row_ptr) of
+    :func:`tp_scalar.slot_chunks` at :func:`plan_idx_chunk`'s Q."""
+
+    order: torch.Tensor
+    ptr: torch.Tensor
+    cuts: torch.Tensor
+    row_ptr: torch.Tensor
+    Q: int
+
+
+def idx_dx_lists(sender_index: torch.Tensor, m_x: int) -> IdxDxLists:
+    """The sender-index dx's lists for a (B, N, K) index over B * m_x
+    senders, on the index's device and without waiting for it: each
+    sender's slots in ascending order, cut into chunks of at most Q.  The
+    autograd forward builds them once."""
+    B, N, K = sender_index.shape
+    Q, bound = plan_idx_chunk(B * N * K, B * m_x)
+    order, ptr = sender_lists(sender_index, m_x)
+    return IdxDxLists(order, ptr, *slot_chunks(ptr, Q, bound), Q)
+
+
 def live_rows_plain(w: torch.Tensor) -> torch.Tensor:
     """The live pass's function in plain PyTorch: bit e % 32 of word e // 32
     (int32, (E + 31) // 32 words, E = w's rows) set where row e of w
@@ -370,19 +552,25 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 6
     lib.dp_tp_aggregate_fwd_l2.argtypes = [p] * 8 + [i] * 11 + [p]
-    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 12 + [i] * 11 + [p]
-    lib.dp_tp_aggregate_bwd_x_l2.argtypes = [p] * 11 + [i] * 12 + [p]
+    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 14 + [i] * 12 + [p]
+    lib.dp_tp_aggregate_bwd_edge_idx.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.dp_tp_aggregate_bwd_x_idx_l2.argtypes = [p] * 15 + [i] * 15 + [p]
     lib.dp_tp_aggregate_fwd_l2_tiled.argtypes = [p] * 11 + [i] * 15 + [p]
     lib.dp_tp_aggregate_bwd_x_l2_tiled.argtypes = [p] * 13 + [i] * 16 + [p]
     lib.dp_tp_aggregate_l2_smem.argtypes = [i] * 8
     lib.dp_tp_aggregate_l2_blocks_per_sm.argtypes = [i] * 8
     lib.dp_tp_aggregate_l2_live.argtypes = [p, p, ctypes.c_longlong, i, i, i, p]
+    lib.dp_tp_aggregate_edge_l2_smem.argtypes = [i] * 5
+    lib.dp_tp_aggregate_idx_dx_l2_smem.argtypes = [i] * 8
+    lib.dp_tp_aggregate_edge_l2_blocks_per_sm.argtypes = [i] * 6
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
                lib.dp_tp_aggregate_blocks_per_sm, lib.dp_tp_aggregate_fwd_l2,
-               lib.dp_tp_aggregate_bwd_edge_l2, lib.dp_tp_aggregate_bwd_x_l2,
+               lib.dp_tp_aggregate_bwd_edge_l2, lib.dp_tp_aggregate_bwd_x_idx_l2,
                lib.dp_tp_aggregate_fwd_l2_tiled, lib.dp_tp_aggregate_bwd_x_l2_tiled,
                lib.dp_tp_aggregate_l2_smem, lib.dp_tp_aggregate_l2_blocks_per_sm,
-               lib.dp_tp_aggregate_l2_live):
+               lib.dp_tp_aggregate_l2_live, lib.dp_tp_aggregate_edge_l2_smem,
+               lib.dp_tp_aggregate_idx_dx_l2_smem, lib.dp_tp_aggregate_edge_l2_blocks_per_sm,
+               lib.dp_tp_aggregate_bwd_edge_idx):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -517,13 +705,22 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
 
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                          g: torch.Tensor, need_dsh: bool,
-                         sender_index: Optional[torch.Tensor] = None
+                         sender_index: Optional[torch.Tensor] = None,
+                         live: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dw, dsh or None) from the per-edge backward, in w's and sh's type: a
-    kernel for dw alone, which does not read w, or, when dsh is asked for,
-    one that computes both in one pass over w (its dw differs from the
-    other's by summation order).  The sender-index mode computes dw only and
-    refuses ``need_dsh``."""
+    """(dw, dsh or None) from the per-edge backward, in w's and sh's type.
+    At 4 lanes, dense: a kernel for dw alone, which does not read w, or,
+    when dsh is asked for, one that computes both in one pass over w (its
+    dw differs from the other's by summation order).  At 8 lanes, dense:
+    ``tp_aggregate_l2_p_kernel`` (each receiver's P once), then
+    ``tp_aggregate_bwd_edge_l2_kernel``, a block per (32 senders, run of
+    :func:`plan_edge_receivers` receivers, batch row), dw alone or with
+    dsh; with dsh it reads w, and of w only the rows that ``live`` marks
+    (the bits of :func:`live_rows_l2` of w, which the autograd forward
+    makes: a dead row is zero), every row when ``live`` is None.  In the
+    sender-index mode, at 4 or 8 lanes: ``tp_aggregate_bwd_edge_idx_kernel``,
+    a block per receiver's K slots; it computes dw only and refuses
+    ``need_dsh``."""
     if sender_index is not None and need_dsh:
         raise ValueError("tp_aggregate: the sender-index mode computes no dsh (the KNN phore "
                          "grid's harmonics carry no gradient)")
@@ -533,16 +730,32 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     dw = torch.empty_like(w)
     dsh = torch.empty_like(sh) if need_dsh else None
     k_pad = lanes(tp)
-    if k_pad == K_PAD_L2 or sender_index is not None:
+    bf16 = int(x.dtype == torch.bfloat16)
+    if sender_index is not None:
         chan, ptab, gtab, _ = device_tables_l2(tp, dev, x.dtype)
-        rc = _library().dp_tp_aggregate_bwd_edge_l2(
-            x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), g.data_ptr(),
-            chan.data_ptr(), ptab.data_ptr(), gtab.data_ptr(), seg_ptr.data_ptr(), seg.data_ptr(),
-            dw.data_ptr(), _ptr(dsh), B, N, M, x.shape[1], D, S, F, gtab.shape[0], seg.shape[0],
-            k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
-        _raise_on(rc, "tp_aggregate_bwd_edge_l2")
+        rc = _library().dp_tp_aggregate_bwd_edge_idx(
+            x.data_ptr(), sh.data_ptr(), sender_index.data_ptr(), g.data_ptr(), chan.data_ptr(),
+            ptab.data_ptr(), gtab.data_ptr(), dw.data_ptr(), B, N, M, x.shape[1], D, S, F,
+            gtab.shape[0], k_pad, bf16, _stream(x.device))
+        _raise_on(rc, "tp_aggregate_bwd_edge_idx")
         counter(BWD_EDGE, BWD_EDGE_L2, BWD_EDGE_IDX, BWD_EDGE_IDX_L2, sender_index,
                 k_pad == K_PAD_L2).launches += 1
+        return dw, dsh
+    if k_pad == K_PAD_L2:
+        if live is not None and need_dsh:
+            live = _check_live(live, w)
+        _, ptab, gflat, (PT, PS, _, _) = _device_path_tables_l2(tp, dev, x.dtype)
+        plan = _device_edge_plan_l2(tp, dev)
+        pent = _device_p_entries_l2(tp, dev)
+        P = torch.empty((B, N, PT), dtype=torch.float32, device=x.device)
+        rc = _library().dp_tp_aggregate_bwd_edge_l2(
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(live) if need_dsh else None,
+            g.data_ptr(), pent.data_ptr(), gflat.data_ptr(), ptab.data_ptr(), plan.data_ptr(),
+            seg_ptr.data_ptr(), seg.data_ptr(), P.data_ptr(), dw.data_ptr(), _ptr(dsh), B, N, M,
+            D, S, F, ptab.shape[0], PT, PS, plan.shape[1], plan_edge_receivers(B, N, M), bf16,
+            _stream(x.device))
+        _raise_on(rc, "tp_aggregate_bwd_edge_l2")
+        BWD_EDGE_L2.launches += 1
         return dw, dsh
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
@@ -559,16 +772,18 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                       g: torch.Tensor, sender_index: Optional[torch.Tensor] = None,
-                      lists: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      lists: Optional[IdxDxLists] = None,
                       live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dx in x's type from the per-sender backward kernel (x gives only its
     shape and type; and the sum of the receiver splits' f32 partial sums when
     :func:`launch_splits` splits; at 8 lanes, of the splits' and channel
-    tiles' partial sums where there is more than one; it reads ``live``,
-    the bits of :func:`live_rows_l2` of w, made here when not given).  The
-    sender-index mode walks each
-    sender's slots in the order of ``lists`` (:func:`tp_fused.sender_lists`
-    of the index, built here when not given)."""
+    tiles' partial sums where there is more than one).  At 8 lanes, dense,
+    and in the sender-index mode it reads ``live``, the bits of
+    :func:`live_rows_l2` of w, made here when not given.  The sender-index
+    mode (both lane counts) adds each sender's slots in chunks of
+    ``lists`` (:func:`idx_dx_lists` of the index, built here when not
+    given), loading only live slots, then each sender's chunks in order:
+    two kernels, one launch."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g, sender_index)
     dev = str(x.device)
     dx = torch.empty_like(x)
@@ -591,15 +806,22 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
         BWD_X_L2.launches += 1
         return dx
     if sender_index is not None:
-        order, ptr = lists if lists is not None else sender_lists(sender_index, x.shape[1])
-        chan, ptab, gtab, t_size = device_tables_l2(tp, dev, x.dtype)
+        m_x = x.shape[1]
+        lists = lists if lists is not None else idx_dx_lists(sender_index, m_x)
+        live = _check_live(live, w)
+        chan, ptab, gflat, (_, _, TS, GS) = _device_path_tables_l2(tp, dev, x.dtype)
         _, d_ptr, d_item = _device_backward_tables(tp, dev, K_PAD_L2)
-        rc = _library().dp_tp_aggregate_bwd_x_l2(
-            sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
-            gtab.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(), _ptr(order), _ptr(ptr),
-            dx.data_ptr(), B, N, M, x.shape[1], D, S, F, gtab.shape[0], t_size, d_item.shape[0],
-            k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
-        _raise_on(rc, "tp_aggregate_bwd_x_l2")
+        chunks = lists.cuts.shape[0] - 1
+        part = torch.empty((chunks, D), dtype=torch.float32, device=x.device)
+        pi_items = _device_pi_items_l2(tp, dev)
+        rc = _library().dp_tp_aggregate_bwd_x_idx_l2(
+            sh.data_ptr(), w.data_ptr(), g.data_ptr(), live.data_ptr(), chan.data_ptr(),
+            ptab.data_ptr(), gflat.data_ptr(), pi_items.data_ptr(), lists.order.data_ptr(),
+            lists.cuts.data_ptr(), lists.row_ptr.data_ptr(), d_ptr.data_ptr(), d_item.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), B, N, M, m_x, D, S, F, ptab.shape[0], TS, GS,
+            pi_items.shape[0], d_item.shape[0], chunks, k_pad, int(x.dtype == torch.bfloat16),
+            _stream(x.device))
+        _raise_on(rc, "tp_aggregate_bwd_x_idx_l2")
         counter(BWD_X, BWD_X_L2, BWD_X_IDX, BWD_X_IDX_L2, sender_index,
                 k_pad == K_PAD_L2).launches += 1
         return dx
@@ -621,18 +843,20 @@ class TPAggregate(torch.autograd.Function):
     """The kernels under autograd.  ``dsh`` is computed only when sh requires
     grad (the cross-graph convs, whose edge vectors carry learned weights),
     ``dx`` only when x does.  With a sender index the forward builds the
-    index's inverse lists for dx once, when x requires grad; at 8 lanes,
-    dense, it makes w's live bits once for the forward and dx."""
+    dx's chunk lists and w's live bits once, when x requires grad; at 8
+    lanes, dense, it makes w's live bits once for the forward, the edge
+    backward's dsh and dx."""
 
     @staticmethod
     def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                 sender_index: Optional[torch.Tensor] = None):
         ctx.tp = tp
         ctx.sender_index = sender_index
-        ctx.lists = (sender_lists(sender_index, x.shape[1])
-                     if sender_index is not None and ctx.needs_input_grad[1] else None)
         ctx.save_for_backward(x, sh, w)
-        ctx.live = None
+        ctx.lists = ctx.live = None
+        if sender_index is not None and ctx.needs_input_grad[1]:
+            ctx.lists = idx_dx_lists(sender_index, x.shape[1])
+            ctx.live = live_rows_l2(w)
         if sender_index is None and lanes(tp) == K_PAD_L2:
             out, ctx.live = forward_l2(tp, x, sh, w)
             return out
@@ -645,7 +869,8 @@ class TPAggregate(torch.autograd.Function):
         g = grad_out.to(torch.float32).contiguous()
         dx = dw = dsh = None
         if need_dw or need_dsh:
-            dw, dsh = launch_backward_edge(ctx.tp, x, sh, w, g, need_dsh, ctx.sender_index)
+            dw, dsh = launch_backward_edge(ctx.tp, x, sh, w, g, need_dsh, ctx.sender_index,
+                                           ctx.live)
         if need_dx:
             dx = launch_backward_x(ctx.tp, x, sh, w, g, ctx.sender_index, ctx.lists, ctx.live)
         return None, dx, dsh, dw if need_dw else None, None

@@ -1174,3 +1174,185 @@ def test_index_mode_under_autograd_launches_the_index_kernels(cuda):
         assert torch.equal(gx, mod.launch_backward_x(tp, x, sh, w, g, sender_index=idx))
         assert torch.equal(gw, mod.launch_backward_edge(tp, x, sh, w, g, False,
                                                         sender_index=idx)[0])
+
+
+# ---- the 8-lane edge backward and the sender-index dx (redesigned) ----
+
+#: (signature, B, N, M) of the edge backward: the second-order probe's
+#: training shapes (batch 24 of a 24 x 96 x 8 bucket), final_conv's N = 1
+#: (F = 140: a bf16 row of w, 280 bytes, is not a multiple of 16),
+#: tor_bond_conv's N = 8, B = 1, fewer senders than a block's lanes
+EDGE_L2_CASES = [("layer1", 24, 24, 96), ("layer2", 24, 96, 24), ("layer3", 24, 24, 24),
+                 ("layer3", 24, 24, 96), ("final_conv", 24, 1, 24), ("tor_bond_conv", 24, 8, 24),
+                 ("layer2", 1, 96, 96), ("layer1", 1, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_L2_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_edge_backward_on_the_probe_shapes(cuda, case, dtype):
+    """tp_aggregate_bwd_edge_l2_kernel (a block per 32 senders, warp =
+    path, lane = sender) against autograd through the plain version: f32
+    within 1e-4 of scale, bf16 gradients within one rounding step; dsh read
+    on the live bits of w equal to the bit to dsh read from every row; dw
+    with and without dsh equal to the bit; reruns equal to the bit; one
+    BWD_EDGE_L2 launch a call."""
+    sig, B, N, M = case
+    tp, _ = _l2_tp(sig)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w, g = _l2_k2_inputs(tp, cuda, B, N, M, seed=M)
+    x, sh, w = x.to(dt), sh.to(dt), w.to(dt)
+    leaves = [v.float().requires_grad_(True) for v in (sh, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, x, *[v.to(dt) for v in leaves])
+    ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    live = tp_aggregate.live_rows_l2(w)
+    before = tp_aggregate.BWD_EDGE_L2.launches
+    dw, dsh = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True, live=live)
+    dw2, dsh2 = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True, live=live)
+    dw_all, dsh_all = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True)
+    dw_only, none = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, False)
+    torch.cuda.synchronize()
+    assert tp_aggregate.BWD_EDGE_L2.launches == before + 4 and none is None
+    for a in (dw2, dw_all, dw_only):
+        assert torch.equal(dw, a)
+    assert torch.equal(dsh, dsh2) and torch.equal(dsh, dsh_all)
+    _assert_grads(("dw", "dsh"), (dw, dsh), (ref_dw, ref_dsh), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["odd_shapes", "w_offset", "x_offset"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_edge_backward_scalar_loads(cuda, form, dtype):
+    """The edge backward where its four-element rows of w and dw or its x
+    pairs do not apply: F = 33 and D = 27 (odd), or the probe's layer3 with
+    w or x one element past an allocation's start.  Against autograd
+    through the plain version as on the probe shapes; dw with dsh (reading
+    w) and without equal to the bit."""
+    if form == "odd_shapes":
+        tp = channelwise_tp("3x0e + 3x1o + 3x2e", SH, "3x0e + 3x1o + 3x2e")
+        assert tp_fused.lanes(tp) == 8 and tp.weight_numel % 4 and tp.irreps_in.dim % 2
+    else:
+        tp, _ = _l2_tp("layer3")
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w, g = _l2_k2_inputs(tp, cuda, 3, 5, 37, seed=7)
+    x, sh, w = x.to(dt), sh.to(dt), w.to(dt)
+
+    def shifted(t):   # the same values, one element past the allocation's start
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    if form == "w_offset":
+        w = shifted(w)
+    elif form == "x_offset":
+        x = shifted(x)
+    leaves = [v.float().requires_grad_(True) for v in (sh, w)]
+    ref = tp_aggregate.tp_aggregate_plain(tp, x, *[v.to(dt) for v in leaves])
+    ref_dsh, ref_dw = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    dw, dsh = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True,
+                                                live=tp_aggregate.live_rows_l2(w))
+    dw_only, _ = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, False)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw_only)
+    _assert_grads(("dw", "dsh"), (dw, dsh), (ref_dw, ref_dsh), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_l2_edge_backward_all_dead(cuda, dtype):
+    """Every row of w zero: dsh exactly zero, with the live bits and
+    without; dw (defined on dead edges too) as the plain version's."""
+    tp, _ = _l2_tp("layer3")
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w, g = _l2_k2_inputs(tp, cuda, 24, 24, 96)
+    x, sh, w = x.to(dt), sh.to(dt), torch.zeros_like(w, dtype=dt)
+    wl = w.float().requires_grad_(True)
+    (ref_dw,) = torch.autograd.grad(tp_aggregate.tp_aggregate_plain(tp, x, sh, wl.to(dt)), [wl],
+                                    g * _lanes(tp, g))
+    for live in (tp_aggregate.live_rows_l2(w), None):
+        dw, dsh = tp_aggregate.launch_backward_edge(tp, x, sh, w, g, True, live=live)
+        torch.cuda.synchronize()
+        assert float(dsh.float().abs().max()) == 0.0
+        _assert_grads(("dw",), (dw,), (ref_dw,), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", [s for s in INDEX_SIGNATURES if not s.endswith("layer0")]
+                         + [f"dense_{s}" for s in SIGNATURES_L2 if s != "layer0"])
+def test_tp_aggregate_edge_and_index_dx_layout_counts(cuda, sig):
+    """The library's counts of the edge backward's and the sender-index
+    dx's shared memory equal the plain copies of the layouts
+    (tests/torch_kernel_layouts.py) that the CPU tests hold to two blocks an
+    SM; the occupancy query gives the edge backward two blocks an SM."""
+    if sig.startswith("dense_"):
+        tp, _ = _l2_tp(sig[len("dense_"):])
+    else:
+        irr_in, irr_out, irr_sh, _ = INDEX_SIGNATURES[sig]
+        tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    _, ptab, _, (PT, PS, TS, GS) = tp_aggregate.path_tables_l2(tp)
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    n_items = len(tp_aggregate._backward_tables(tp, 8)[2])
+    lib = tp_aggregate._library()
+    for dsh in (0, 1):
+        if tp_fused.lanes(tp) != 8:       # the dense edge backward takes 8-lane products
+            break
+        assert lib.dp_tp_aggregate_edge_l2_smem(dsh, D, F, PT, PS) == \
+            layouts.edge_l2_smem(bool(dsh), D, F, PT, PS)
+        for bf16 in (0, 1):
+            assert lib.dp_tp_aggregate_edge_l2_blocks_per_sm(dsh, D, F, PT, PS, bf16) >= 2
+    lanes = tp_fused.lanes(tp)
+    for esize in (4, 2):
+        assert lib.dp_tp_aggregate_idx_dx_l2_smem(D, F, len(ptab), TS, GS, n_items, esize,
+                                                  lanes) == \
+            layouts.idx_dx_l2_smem(D, F, len(ptab), TS, GS, n_items, esize, lanes)
+
+
+def _nearest_index(cuda, B, P, K, seed):
+    """A KNN grid's index: each row's phore points at random positions, the
+    first 30-60 live, every receiver's K nearest live points (a sender read
+    by most receivers, padded ones by none), and the live receivers."""
+    rng = np.random.default_rng(seed)
+    pos = rng.random((B, P, 3)) * 20.0
+    live = np.arange(P)[None, :] < rng.integers(30, 61, (B, 1))
+    d = np.linalg.norm(pos[:, :, None] - pos[:, None, :], axis=-1)
+    d = np.where(live[:, None, :], d, np.inf)
+    idx = np.argsort(d, axis=-1, kind="stable")[..., :K].astype(np.int32)
+    return torch.from_numpy(idx).to(cuda), torch.from_numpy(live).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", [s for s in INDEX_SIGNATURES if not s.endswith("layer0")])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_index_dx_on_a_nearest_point_index(cuda, sig, dtype):
+    """The sender-index dx (chunks of a sender's live slots, then each
+    sender's chunks in order) at the KNN step's shapes (24 rows, 96 points,
+    K = 24) on a nearest-live-point index, dead receivers' rows of w zero:
+    against autograd through the plain version; equal to the bit with the
+    lists and live bits the autograd forward makes and with those made in
+    the call, and on a rerun; one launch a call on its lanes' counter."""
+    irr_in, irr_out, irr_sh, _ = INDEX_SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, irr_sh, irr_out)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    B, P, K = 24, 96, 24
+    idx, live = _nearest_index(cuda, B, P, K, seed=len(sig))
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, P, tp.irreps_in.dim))).to(dt)
+    sh = t(rng.normal(size=(B, P, K, tp.irreps_sh.dim))).to(dt)
+    w = (t(rng.normal(size=(B, P, K, tp.weight_numel))) * live[:, :, None, None]).to(dt)
+    g = t(rng.normal(size=(B, P, tp.weight_numel, tp_fused.lanes(tp))))
+    xl = x.float().requires_grad_(True)
+    ref = tp_aggregate.tp_aggregate_plain(tp, xl.to(dt), sh, w, sender_index=idx)
+    (ref_dx,) = torch.autograd.grad(ref, [xl], g * _lanes(tp, g))
+    counter = tp_aggregate.BWD_X_IDX_L2 if tp_fused.lanes(tp) == 8 else tp_aggregate.BWD_X_IDX
+    lists, bits = tp_aggregate.idx_dx_lists(idx, P), tp_aggregate.live_rows_l2(w)
+    before = counter.launches
+    dx = tp_aggregate.launch_backward_x(tp, x, sh, w, g, sender_index=idx, lists=lists, live=bits)
+    again = tp_aggregate.launch_backward_x(tp, x, sh, w, g, sender_index=idx, lists=lists,
+                                           live=bits)
+    inside = tp_aggregate.launch_backward_x(tp, x, sh, w, g, sender_index=idx)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 3
+    assert torch.equal(dx, again) and torch.equal(dx, inside)
+    _assert_grads(("dx",), (dx,), (ref_dx,), dt)

@@ -33,6 +33,31 @@ def k2_l2_smem(dx: bool, ftp: int, dxw: int, ts: int, gs: int, pc: int, ni: int,
     return 4 * floats
 
 
+def edge_l2_smem(dsh: bool, D: int, F: int, pt: int, ps: int) -> int:
+    """Bytes of the 8-lane edge backward's block (``edge_layout``): the
+    receiver's P (PT floats), 32 senders' x rows (D | 1 floats each), their
+    rows of w, then dw (F | 1 floats), their harmonics (13 floats) and, with
+    dsh, the paths' sums (PS floats)."""
+    return 4 * (pad4(pt) + 32 * (D | 1) + 32 * (F | 1) + 32 * 13 + (ps if dsh else 0))
+
+
+def idx_dx_l2_smem(D: int, F: int, n_paths: int, ts: int, gs: int, ni: int, esize: int,
+                   lanes: int) -> int:
+    """Bytes of the sender-index dx's chunk block (``xi_layout``): two ring
+    stages, each 4 slots' rows of w (F elements of the operands' type at a
+    16-byte pitch), harmonics (13 floats) and receivers' g rows (F float4s,
+    at 8 lanes F floats more); t of 4 slots (TS floats each), the coupling
+    entries (GS), the (path, i) items (5 a path), the live slots and their
+    count (36 ints); then, past the (component, channel) sums (5 F floats)
+    that the end writes over what comes before, the d lists (D + 1 extents,
+    NI items)."""
+    per = 16 // esize
+    stage = pad4(4 * (-(-F // per) * per) * esize // 4 + pad4(4 * 13) + 4 * F * 4
+                 + (4 * F if lanes == 8 else 0))
+    floats = 2 * stage + pad4(4 * ts) + pad4(gs) + pad4(n_paths * 5) + 36
+    return 4 * (max(floats, pad4(5 * F)) + pad4(D + 1) + pad4(ni))
+
+
 def blocks_per_sm(smem: int) -> int:
     """Blocks of ``smem`` bytes that an H100 SM's shared memory holds."""
     return H100_SM_SMEM // (smem + H100_BLOCK_RESERVED)
