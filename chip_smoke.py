@@ -849,12 +849,9 @@ def phase_k2_check(calls):
             # times: the backward in the form the train step runs it (dsh only
             # where the harmonics carry gradient)
             case["errs" + tag] = errs
-            if idx is None:
-                dx_call = lambda: k2.launch_backward_x(tp, x, sh, w, g, **dx_kw)
-            else:   # the live bits the autograd forward makes for dx alone: timed with it
+            dx_call = lambda: k2.launch_backward_x(tp, x, sh, w, g, **dx_kw)
+            if idx is not None:   # the forward's live pass (timed in the forward), alone
                 case["live_ms" + tag] = device_ms(lambda: k2.live_rows_l2(w), 10)
-                dx_call = lambda: k2.launch_backward_x(
-                    tp, x, sh, w, g, **dict(dx_kw, live=k2.live_rows_l2(w)))
             case["ms" + tag] = {
                 "fwd": device_ms(lambda: k2.launch_forward(tp, x, sh, w, **kw), 10),
                 "bwd_edge": device_ms(
@@ -868,8 +865,9 @@ def phase_k2_check(calls):
             if l2 or idx is not None:       # a block per (32 senders, receivers, batch row)
                 case["grid" + tag]["bwd_edge"] = k2.edge_grid_l2(B, N, M, idx is not None)
             for k, kept in (("fwd", N), ("bwd_x", M_x)):
-                if idx is not None:         # forward: a block per receiver; dx: per chunk
-                    case["grid" + tag][k] = ((B * kept, 1) if k == "fwd" else
+                if idx is not None:         # forward: by channel tile; dx: a block per chunk
+                    case["grid" + tag][k] = (k2.grid_idx(tp, B, N, M, x.device, dtype)
+                                             if k == "fwd" else
                                              (int(dx_kw["lists"].row_ptr[-1]), dx_kw["lists"].Q))
                     continue
                 if l2:                      # by channel tile
@@ -899,7 +897,8 @@ def phase_k2_check(calls):
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} "
               + (f"(slots of M_x={M_x} senders) " if idx is not None else "")
               + f"F={F:3d} dsh={int(sh_grad)} "
-              f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} sender splits; bf16 "
+              f"fwd grid {grid['fwd'][0]} blocks ({grid['fwd'][1]} "
+              + ("slot" if idx is not None else "sender") + " splits; bf16 "
               f"{case['grid_bf16']['fwd'][1]}), dx grid {grid['bwd_x'][0]} blocks "
               + (f"(chunks of at most {grid['bwd_x'][1]} slots) " if idx is not None else
                  f"({grid['bwd_x'][1]} receiver splits; bf16 {case['grid_bf16']['bwd_x'][1]}) ")
@@ -911,7 +910,7 @@ def phase_k2_check(calls):
                          f"{bound[k][0]:.4f}({bound[k][1][0]}), {ms_bf[k]:.4f}/"
                          f"{case['library_ms_bf16'][k]:.4f}/{case['bound_bf16'][k][0]:.4f}"
                          for k in ("fwd", "bwd_edge", "bwd_x"))
-              + (f" (bwd_x with the live pass, alone {case['live_ms']:.4f} / "
+              + (f" (fwd with the live pass, alone {case['live_ms']:.4f} / "
                  f"{case['live_ms_bf16']:.4f})" if idx is not None else "")
               + f" | bwd_edge per call from Python {case['call_ms_bwd_edge']:.4f}", flush=True)
     by_name = {c["conv"]: c for c in cases}
@@ -1174,7 +1173,10 @@ def phase_k3_check(calls):
                 "bwd_x": device_ms(lambda: k3.launch_backward_x(tp, x, sh, w, g, **dx_kw), 20),
             }
             case["bound" + tag] = bounds(k3_work(tp, x, sh, w, sh_grad, idx))
-            if idx is None:
+            if idx is None and n_lanes(tp) == 8:   # runs of senders x receiver splits
+                run, _, splits = k3.launch_plan_l2(tp, B, N, M, x.device, dtype)
+                dx_grid = f"{splits} (runs of {run} senders)"
+            elif idx is None:
                 dx_grid = k3.launch_chunk(tp, B, N, M, True, x.device, dtype)[1]
             else:
                 lists = dx_kw["lists"]
@@ -1253,6 +1255,8 @@ def k3_kernel_entries(cases, launches, launches_training, l2=False):
                     + (" (dsh's where the conv needs it)" if k == "bwd_edge" else "")
                     + ", by graph replay",
         })
+        if l2 and k == "bwd_x":   # its own kernel: a block per (run of senders, receivers)
+            entries[-1]["device_kernels"] = ["tp_scalar_bwd_x_l2_kernel", "tp_scalar_sum_splits"]
     return entries
 
 
@@ -3711,13 +3715,15 @@ def index_k23_check(model, batch):
     return phase_k2_check(k2_calls), phase_k3_check(k3_calls)
 
 
-# The CUDA kernels behind each sender-index K2 wrapper (at 4 and 8 lanes): dx
-# reads the live bits and chunk lists that the autograd forward makes for it.
+# The CUDA kernels behind each sender-index K2 wrapper (at 4 and 8 lanes): the
+# forward makes w's live bits (for itself and dx), then the tiled forward on
+# the live tiles (and the sum of the slot splits where they split); dx reads
+# the live bits and chunk lists that the autograd forward makes for it.
 K2_DEVICE_KERNELS_IDX = {
-    "fwd": ["tp_aggregate_fwd_l2_kernel"],
+    "fwd": ["tp_aggregate_l2_live_kernel", "tp_aggregate_fwd_idx_tiled_kernel",
+            "tp_aggregate_sum_splits"],
     "bwd_edge": ["tp_aggregate_bwd_edge_idx_kernel"],
-    "bwd_x": ["tp_aggregate_l2_live_kernel (in the forward)", "tp_aggregate_bwd_x_idx_l2_kernel",
-              "tp_aggregate_bwd_x_idx_sum"],
+    "bwd_x": ["tp_aggregate_bwd_x_idx_l2_kernel", "tp_aggregate_bwd_x_idx_sum"],
 }
 
 
@@ -3764,16 +3770,16 @@ def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
                         f"(K = {KNN}), each timed alone on the card (graph replay; dx with the "
                         "index's inverse lists (K3: and slot chunks) built beforehand, as the "
                         "forward builds them"
-                        + ("; K2's dx includes the live pass over w that the autograd forward "
-                           "runs for it, live_ms that pass alone" if family == "tp_aggregate"
-                           else "") + "), "
+                        + ("; K2's forward includes the live pass over w that it runs for "
+                           "itself and dx, live_ms that pass alone, and dx reads the bits made "
+                           "beforehand" if family == "tp_aggregate" else "") + "), "
                         "f32 (ms) and bf16 (ms_bf16) operands; library_ms is the gather of the "
                         "senders and the gathered per-path torch.einsum (dx: the per-slot "
                         "einsum and index_add_), by graph replay",
             })
             if family == "tp_aggregate":
                 entries[-1]["device_kernels"] = K2_DEVICE_KERNELS_IDX[k]
-                if k == "bwd_x":
+                if k == "fwd":
                     entries[-1]["live_ms"] = sum(c["live_ms"] for c in cases)
                     entries[-1]["live_ms_bf16"] = sum(c["live_ms_bf16"] for c in cases)
     return entries

@@ -19,7 +19,7 @@ convolution where the tree has that interface, else per path, as the
 first K3 did).  It needs a GPU and fails without one.
 
     python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only | --k1_l2 | --k3_index |
-                                                   --k2_l2 | --k2_edge_l2 | --k2_index]
+                                                   --k2_l2 | --k2_edge_l2 | --k2_index | --k3_l2]
 
 ``--k3_only`` times K3's forward, edge backward (``launch_backward_edge``
 as the train step calls it: dsh on the two convs whose harmonics carry a
@@ -62,12 +62,19 @@ kernels' redesign.
 train step runs it (dsh on the five cross convs, dw alone on the others;
 on w's live bits where the tree's edge backward takes them), f32 and bf16,
 with summary lines over the 17, the five and the twelve.  ``--k2_index``
-times K2's sender-index dw and dx at 4 and 8 lanes on the KNN step's two K2
-calls (24 rows, 96 phore points, K = 24, a nearest-live-point index), dx
-on the lists (and live bits) made beforehand, as the autograd forward makes
-them, with a summary per (kernel, lanes, dtype).  Both call only
-``launch_backward_edge`` and ``launch_backward_x``, so they run unchanged
-in a tree from before these kernels' redesign.
+times K2's sender-index forward, dw and dx at 4 and 8 lanes on the KNN
+step's two K2 calls (24 rows, 96 phore points, K = 24, a nearest-live-point
+index): the forward as the step calls it (with the live pass over w where
+the tree's forward makes it), dx on the lists (and live bits) made
+beforehand, as the autograd forward makes them, ``live_us`` the live pass
+alone; a summary per (kernel, lanes, dtype), and a ``step`` line per
+(lanes, dtype) that sums the forward, dx and, where the tree's forward does
+not run it, the live pass.  ``--k3_l2`` times K3's 8-lane forward, dx and
+edge backward (dsh where the step asks for it) on the six layer-0 convs of a
+second-order training step (``K3_CASES`` shapes, 20x0e -> SEQ2[1], g (B, N,
+F, 8)), f32 and bf16, with a summary line per (kernel, dtype).  Both call
+only ``launch_forward``, ``launch_backward_edge`` and ``launch_backward_x``,
+so they run unchanged in a tree from before these kernels' redesign.
 """
 
 from __future__ import annotations
@@ -424,24 +431,29 @@ K2_INDEX_CONVS = [("phore_conv_1", 1), ("phore_conv_2", 2)]
 
 
 def k2_index_cases(randn, gen, card) -> list:
-    """K2's sender-index dw and dx at 4 and 8 lanes (f32 and bf16) on the
-    KNN step's two K2 calls (24 rows, 96 phore points, K = 24, a
-    nearest-live-point index, dead receivers' rows of w zero), dx with the
-    index's lists and (where the tree's dx takes them) w's live bits made
-    beforehand, as the autograd forward makes them; ``live_us`` is that
-    live pass's graph-replay time.  A summary line per (kernel, lanes,
-    dtype) sums the two calls."""
+    """K2's sender-index forward, dw and dx at 4 and 8 lanes (f32 and bf16)
+    on the KNN step's two K2 calls (24 rows, 96 phore points, K = 24, a
+    nearest-live-point index, dead receivers' rows of w zero): the forward
+    as the step calls it, dx with the index's lists and (where the tree's dx
+    takes them) w's live bits made beforehand, as the autograd forward makes
+    them; ``live_us`` is that live pass's graph-replay time.  A summary line
+    per (kernel, lanes, dtype) sums the two calls, and a ``step`` line the
+    forward and dx with the live pass once (in the forward where the tree's
+    forward makes it)."""
     results = []
     B, P, K = 24, 96, KNN_K
     idx, live = knn_index(B, P, K, gen)
     dx_params = inspect.signature(tp_aggregate.launch_backward_x).parameters
     new_lists = hasattr(tp_aggregate, "idx_dx_lists")
+    fwd_live = hasattr(tp_aggregate, "forward_idx")      # the forward runs the live pass
     for lanes_, seq in ((4, SEQ), (8, SEQ2)):
         for dtype in (torch.float32, torch.bfloat16):
             sums = {k: {"kernel": k, "lanes": lanes_, "case": "the KNN step's 2 calls",
                         "dtype": str(dtype), "calls": 0, "us_total": 0.0, "graph_us": 0.0,
                         "card": card}
-                    for k in ("tp_aggregate_bwd_edge_idx", "tp_aggregate_bwd_x_idx")}
+                    for k in ("tp_aggregate_fwd_idx", "tp_aggregate_bwd_edge_idx",
+                              "tp_aggregate_bwd_x_idx")}
+            live_sum = 0.0
             for name, layer in K2_INDEX_CONVS:
                 tp = channelwise_tp(seq[layer], SH, seq[layer + 1])
                 F = tp.weight_numel
@@ -454,6 +466,8 @@ def k2_index_cases(randn, gen, card) -> list:
                 if "live" in dx_params:
                     kw["live"] = tp_aggregate.live_rows_l2(w)
                 for kernel, call in (
+                        ("tp_aggregate_fwd_idx", lambda: tp_aggregate.launch_forward(
+                            tp, x, sh, w, sender_index=idx)),
                         ("tp_aggregate_bwd_edge_idx", lambda: tp_aggregate.launch_backward_edge(
                             tp, x, sh, w, g, False, sender_index=idx)),
                         ("tp_aggregate_bwd_x_idx", lambda: tp_aggregate.launch_backward_x(
@@ -465,6 +479,7 @@ def k2_index_cases(randn, gen, card) -> list:
                          "card": card}
                     if kernel == "tp_aggregate_bwd_x_idx":
                         r["live_us"] = graph_us(lambda: tp_aggregate.live_rows_l2(w))
+                        live_sum += r["live_us"]
                     results.append(r)
                     print(json.dumps(r), flush=True)
                     sums[kernel]["calls"] += 1
@@ -473,6 +488,53 @@ def k2_index_cases(randn, gen, card) -> list:
             for total in sums.values():
                 results.append(total)
                 print(json.dumps(total), flush=True)
+            step = {"kernel": "step: tp_aggregate_fwd_idx + tp_aggregate_bwd_x_idx + live pass",
+                    "lanes": lanes_, "case": "the KNN step's 2 calls", "dtype": str(dtype),
+                    "live_in_forward": fwd_live, "live_us": live_sum,
+                    "graph_us": sums["tp_aggregate_fwd_idx"]["graph_us"]
+                    + sums["tp_aggregate_bwd_x_idx"]["graph_us"] + (0.0 if fwd_live else live_sum),
+                    "card": card}
+            results.append(step)
+            print(json.dumps(step), flush=True)
+    return results
+
+
+def k3_l2_cases(randn, card) -> list:
+    """K3's 8-lane forward, dx and edge backward (dsh where the step asks
+    for it) on the six layer-0 convs of a second-order training step
+    (``K3_CASES`` shapes, 20x0e -> SEQ2[1], F = 60, g (B, N, F, 8)), f32 and
+    bf16: per-kernel device time and graph_us per conv, and a summary line
+    per (kernel, dtype) over the six."""
+    results = []
+    tp = channelwise_tp(SEQ2[0], SH, SEQ2[1])
+    F = tp.weight_numel
+    for dtype in (torch.float32, torch.bfloat16):
+        sums = {k: {"kernel": k, "case": "the 6 layer-0 convs", "dtype": str(dtype), "calls": 0,
+                    "us_total": 0.0, "graph_us": 0.0, "card": card}
+                for k in ("tp_scalar_fwd_l2", "tp_scalar_bwd_x_l2", "tp_scalar_bwd_edge_l2")}
+        for name, B, N, M, live_n, live_m, dsh in K3_CASES:
+            x, sh = randn(B, M, tp.irreps_in.dim), randn(B, N, M, 9)
+            w = torch.zeros(B, N, M, F, device="cuda")
+            w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
+            x, sh, w = x.to(dtype), sh.to(dtype), w.to(dtype)
+            g = randn(B, N, F, 8)
+            for kernel, call in (
+                    ("tp_scalar_fwd_l2", lambda: tp_scalar.launch_forward(tp, x, sh, w)),
+                    ("tp_scalar_bwd_x_l2", lambda: tp_scalar.launch_backward_x(tp, x, sh, w, g)),
+                    ("tp_scalar_bwd_edge_l2",
+                     lambda: tp_scalar.launch_backward_edge(tp, x, sh, w, g, dsh))):
+                times = kernel_times(call)
+                r = {"kernel": kernel, "conv": name, "dtype": str(dtype), "B": B, "N": N, "M": M,
+                     "F": F, "dsh": dsh, "us": times, "us_total": sum(times.values()),
+                     "graph_us": graph_us(call), "card": card}
+                results.append(r)
+                print(json.dumps(r), flush=True)
+                sums[kernel]["calls"] += 1
+                sums[kernel]["us_total"] += r["us_total"]
+                sums[kernel]["graph_us"] += r["graph_us"]
+        for total in sums.values():
+            results.append(total)
+            print(json.dumps(total), flush=True)
     return results
 
 
@@ -491,8 +553,11 @@ def main(argv=None) -> list:
     parser.add_argument("--k2_edge_l2", action="store_true",
                         help="only the 8-lane K2 edge backward (to compare two trees)")
     parser.add_argument("--k2_index", action="store_true",
-                        help="only K2's sender-index dw and dx at 4 and 8 lanes (to compare two "
-                             "trees)")
+                        help="only K2's sender-index forward, dw and dx at 4 and 8 lanes (to "
+                             "compare two trees)")
+    parser.add_argument("--k3_l2", action="store_true",
+                        help="only K3's 8-lane forward, dx and edge backward on the layer-0 "
+                             "convs (to compare two trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
@@ -514,6 +579,8 @@ def main(argv=None) -> list:
         return k2_edge_l2_cases(randn, card)
     if args.k2_index:
         return k2_index_cases(randn, gen, card)
+    if args.k3_l2:
+        return k3_l2_cases(randn, card)
     results = []
     if args.k3_only:
         tp = channelwise_tp(SEQ[0], SH, SEQ[1])

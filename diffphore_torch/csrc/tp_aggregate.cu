@@ -157,9 +157,19 @@
 //    mark: a dead row is zero.
 //  * The sender-index mode: an int32 index (B, N, K) names the sender row of
 //    x (B, Mx, D) that slot k of receiver n reads; sh, w and dw are (B, N,
-//    K, .).  The forward is the first, untiled 8-lane design at LANES = 4
-//    (l <= 1) or 8: a block per receiver, a thread per channel, a live
-//    slot's x row read at its index.  The edge backward (dw only: the phore
+//    K, .).  The forward (tp_aggregate_fwd_idx_tiled_kernel, LANES = 4 for
+//    l <= 1 or 8) is the dense tiled forward above with the slots as the
+//    summed axis: a block per (batch row, 8 receivers, channel tile, split
+//    of at most 64 slots), the live pass's bits (made once by the autograd
+//    forward for it and dx), only live tiles and rows loaded.  Every slot
+//    has its own sender, so each live row brings its own x slice into the
+//    ring (x read at the index, which the block reads once with the bits),
+//    and the walk reads x per row, not per summed entry.  The first design
+//    (a block per receiver, a thread per channel) read each row of w twice,
+//    once to test it live and once to walk it, staged each whole padded
+//    coupling table and left 22-79% of its threads idle: 1.6-1.9x slower
+//    without the live pass than this design with it (PERF.md).
+//    The edge backward (dw only: the phore
 //    harmonics carry no gradient, so dsh is refused) is
 //    tp_aggregate_bwd_edge_idx_kernel: a block per receiver's slots (up to
 //    32), a thread per channel with its P in registers, formed once for the
@@ -1052,127 +1062,8 @@ int blocks_per_sm(int dx, int D, int F, int n_paths, int n_items) {
 
 constexpr int L2_K = 5;                 // components of an l <= 2 irrep
 constexpr int L2_G = L2_K * L2_K * L2_K;   // alpha*cg padded to (5, 5, 5)
-constexpr int L2_ROWS = 32;             // summed-axis entries per tile
 constexpr int L2_THREADS = 384;         // a thread per channel: F <= 384
 constexpr int L2_MAX_PATHS = 32;
-
-// The sender-index forward's shared memory, in floats.
-struct L2Layout {
-  int g, ptab, x, sh, live, t, total;
-};
-
-__host__ __device__ inline L2Layout l2_layout(int D, int n_paths, int t_size) {
-  L2Layout L;
-  int o = 0;
-  L.g = o;     o += pad4(n_paths * L2_G);
-  L.ptab = o;  o += n_paths * 8;
-  L.x = o;     o += pad4(L2_ROWS * D);
-  L.sh = o;    o += L2_ROWS * SH_STRIDE;
-  L.live = o;  o += L2_ROWS;
-  L.t = o;     o += pad4(L2_ROWS * t_size);
-  L.total = o;
-  return L;
-}
-
-// The sender-index mode's forward, out (B, N, F, LANES) f32 (LANES: floats
-// of a channel in out, 8 (l = 2) or 4 (the mode's l <= 1 instantiation)):
-// a block per receiver blockIdx.x of batch row blockIdx.y, a thread per
-// channel, its slots the summed axis in tiles of L2_ROWS; a live slot's x
-// row is read at its index.
-template <typename T, int LANES>
-__global__ void __launch_bounds__(L2_THREADS) tp_aggregate_fwd_l2_kernel(
-    const T* __restrict__ x,         // (B, Mx, D) sender features
-    const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
-    const T* __restrict__ w,         // (B, N, M, F) pre-masked edge weights
-    const int* __restrict__ idx,     // (B, N, M) sender of each slot
-    const int4* __restrict__ chan,   // (F): x_base, d_in, d_out, path
-    const int* __restrict__ ptab,    // (n_paths, 8): sh_off, d_in, d_sh, d_out, t_off, f0, fc, 0
-    const float* __restrict__ gtab,  // (n_paths, 5, 5, 5)
-    float* __restrict__ out,         // (B, N, F, LANES)
-    int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size) {
-  extern __shared__ __align__(16) float smem[];
-  const L2Layout L = l2_layout(D, n_paths, t_size);
-  float* s_g = smem + L.g;
-  int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);   // sh_off, d_in, d_sh, d_out, t_off, ...
-  float* s_x = smem + L.x;                                // [row][D]
-  float* s_sh = smem + L.sh;                              // [row][SH_STRIDE]
-  int* s_live = reinterpret_cast<int*>(smem + L.live);
-  float* s_t = smem + L.t;                                // [row][t_size]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
-  const int k = blockIdx.x, b = blockIdx.y;
-  const size_t e0 = ((size_t)b * N + k) * M;   // the receiver's first slot
-  for (int i = tid; i < n_paths * L2_G; i += nt) s_g[i] = gtab[i];
-  for (int i = tid; i < n_paths * 8; i += nt) s_ptab[i] = ptab[i];
-  const int f = tid;
-  const bool active = f < F;
-  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);   // x_base, d_in, d_out, path
-  const int t_off = active ? ptab[cm.w * 8 + 4] : 0;
-  float acc[L2_K];
-#pragma unroll
-  for (int i = 0; i < L2_K; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int s0 = 0; s0 < M; s0 += L2_ROWS) {
-    const int rows = min(L2_ROWS, M - s0);
-    for (int r = warp; r < rows; r += nwarps) {
-      const size_t e = e0 + s0 + r;
-      bool live = false;
-      for (int c = lane; c < F; c += 32) live |= to_f(w[e * F + c]) != 0.f;
-      live = __any_sync(0xffffffffu, live);
-      if (lane == 0) s_live[r] = live;
-      if (lane < SH_STRIDE) s_sh[r * SH_STRIDE + lane] = live && lane < S ? to_f(sh[e * S + lane]) : 0.f;
-      if (live) {
-        const size_t row = (size_t)b * Mx + idx[e];
-        for (int d = lane; d < D; d += 32) s_x[r * D + d] = to_f(x[row * D + d]);
-      }
-    }
-    __syncthreads();
-    // t of every (live edge, path, i)
-    for (int it = tid; it < rows * n_paths * L2_K; it += nt) {
-      const int r = it / (n_paths * L2_K);
-      const int rem = it - r * n_paths * L2_K;
-      const int p = rem / L2_K, i = rem - p * L2_K;
-      const int* pt = s_ptab + p * 8;
-      if (!s_live[r] || i >= pt[1]) continue;
-      const int d_sh = pt[2], d_out = pt[3];
-      const float* G = s_g + p * L2_G + i * L2_K * L2_K;
-      const float* sv = s_sh + r * SH_STRIDE + pt[0];
-      float* tq = s_t + r * t_size + pt[4] + i * d_out;
-      for (int kk = 0; kk < d_out; ++kk) {
-        float t = 0.f;
-        for (int j = 0; j < d_sh; ++j) t = fmaf(G[j * L2_K + kk], sv[j], t);
-        tq[kk] = t;
-      }
-    }
-    __syncthreads();
-    if (active) {
-      for (int r = 0; r < rows; ++r) {
-        if (!s_live[r]) continue;
-        const size_t e = e0 + s0 + r;
-        const float wv = to_f(w[e * F + f]);
-        const float* tq = s_t + r * t_size + t_off;
-        const float* xr = s_x + r * D + cm.x;
-#pragma unroll
-        for (int i = 0; i < L2_K; ++i) {
-          if (i >= cm.y) break;
-          const float gv = wv * xr[i];
-#pragma unroll
-          for (int kk = 0; kk < L2_K; ++kk)
-            if (kk < cm.z) acc[kk] = fmaf(gv, tq[i * cm.z + kk], acc[kk]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-    // 4 lanes: d_out <= 3, so acc[3] and acc[4] are 0
-    float4* o = reinterpret_cast<float4*>(out) + (((size_t)b * N + k) * F + f) * (LANES / 4);
-    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    if (LANES == 8) o[1] = make_float4(acc[4], 0.f, 0.f, 0.f);
-  }
-}
 
 // ---- the dense 8-lane forward and dx by channel tile (head note) ----
 
@@ -1186,6 +1077,7 @@ constexpr int T2_SHP = 13;              // staged harmonics row, odd: lane = row
 constexpr int T2_EW = 32;               // words of live bits a kept entry: 1,024 summed entries
 constexpr int T2_WALK = 128;            // walk slots of a channel tile (tp_aggregate.walk_l2)
 constexpr int T2_MAXT = T2_EW * 32 / T2_SUM;   // tiles a block walks at most
+constexpr int T2_IDXW = 64;             // slots a block of the sender-index forward takes at most
 
 static_assert(T2_THREADS / 32 == T2_KEEP, "warp = kept entry in the live pass and the loads");
 
@@ -1198,19 +1090,22 @@ static_assert(T2_ROWS == 32, "a warp's vote gives a tile's live edges, one bit a
 // item lists; esize: the operands' bytes.  A stage of the ring holds a tile's
 // rows of w (in T), its harmonics (f32, or bf16 as the 4-byte words that
 // cover the row) and its per-entry operand: the forward's sender x slices
-// (in T), dx's receiver g rows (lanes 0-3 as a float4, lane 4 apart).  dx's
-// end reuses the ring for its per-(sender, component, channel) sums.
+// (in T; the sender-index forward (idx) one a row, each row its own sender),
+// dx's receiver g rows (lanes 0-3 as a float4, lane 4 apart).  dx's end
+// reuses the ring for its per-(sender, component, channel) sums; the
+// sender-index forward keeps its kept entries' sender rows (T2_IDXW ints
+// each) past the rest.
 struct T2Layout {
-  int w, sh, side, stage, t, g, ptab, pi, ebits, tmask, tlist, dlist, total;
+  int w, sh, side, stage, t, g, ptab, pi, ebits, tmask, tlist, dlist, sidx, total;
 };
 
 __host__ __device__ inline T2Layout t2_layout(bool dx, int FTP, int DXW, int TS, int GS, int PC,
-                                              int NI, int esize) {
+                                              int NI, int esize, bool idx = false) {
   T2Layout L;
   int o = 0;
   L.w = o;     o += T2_ROWS * FTP * esize / 4;
   L.sh = o;    o += T2_ROWS * T2_SHP;
-  L.side = o;  o += dx ? T2_SUM * FTP * 5 : T2_SUM * DXW * esize / 4;
+  L.side = o;  o += dx ? T2_SUM * FTP * 5 : (idx ? T2_ROWS : T2_SUM) * DXW * esize / 4;
   L.stage = pad4(o);
   o = T2_STAGES * L.stage;
   L.t = o;     o += pad4(T2_ROWS * TS);
@@ -1221,6 +1116,7 @@ __host__ __device__ inline T2Layout t2_layout(bool dx, int FTP, int DXW, int TS,
   L.tmask = o; o += T2_MAXT;                        // ints: each tile's live rows
   L.tlist = o; o += T2_MAXT + 4;                    // ints: the live tiles, then their count
   L.dlist = o; o += dx ? pad4(DXW + 1) + pad4(NI) : 0;   // ints: d_ptr, then d_item
+  L.sidx = o;  o += idx ? T2_KEEP * T2_IDXW : 0;        // ints: each live slot's sender row
   L.total = o;
   if (dx && L.total < T2_KEEP * L2_K * (FTP | 1)) L.total = T2_KEEP * L2_K * (FTP | 1);
   return L;
@@ -1270,8 +1166,9 @@ __device__ __forceinline__ void load_t(float (&t)[4 * ((DI * DO + 3) / 4)], cons
 // summed entry o (sender) its x values once, then each live edge of the
 // thread's kept receivers (bits `base` .. of each entry's eight):
 // acc[q][k] += w sum_i x[i] t[i][k].  xs, wc: the channel's x and w in the
-// stage; tq: its path's t block of row 0.
-template <int DI, int DO, typename T>
+// stage; tq: its path's t block of row 0.  IDX: every row its own sender,
+// its x slice at the row's place.
+template <int DI, int DO, bool IDX, typename T>
 __device__ __forceinline__ void fwd_walk(float (&acc)[T2_QMAX][L2_K], unsigned mask, int base,
                                          int qk, const T* xs, int DXW, const T* wc, int FTP,
                                          const float* tq, int TS) {
@@ -1280,12 +1177,18 @@ __device__ __forceinline__ void fwd_walk(float (&acc)[T2_QMAX][L2_K], unsigned m
     const unsigned bits = (mask >> (o * T2_KEEP + base)) & ((1u << qk) - 1u);
     if (bits == 0u) continue;
     float xv[DI];
+    if (!IDX) {
 #pragma unroll
-    for (int i = 0; i < DI; ++i) xv[i] = to_f(xs[o * DXW + i]);
+      for (int i = 0; i < DI; ++i) xv[i] = to_f(xs[o * DXW + i]);
+    }
 #pragma unroll
     for (int q = 0; q < T2_QMAX; ++q) {
       if (!(bits >> q & 1u)) continue;
       const int r = o * T2_KEEP + base + q;
+      if (IDX) {
+#pragma unroll
+        for (int i = 0; i < DI; ++i) xv[i] = to_f(xs[r * DXW + i]);
+      }
       const float wv = to_f(wc[r * FTP]);
       float t[4 * ((DI * DO + 3) / 4)];
       load_t<DI, DO>(t, tq + r * TS);
@@ -1333,15 +1236,17 @@ __device__ __forceinline__ void dx_walk(float (&acc)[T2_QMAX][L2_K], unsigned ma
 // One block of the tiled forward (DX false) or dx: batch row blockIdx.z,
 // kept entries blockIdx.y * T2_KEEP .., channel tile blockIdx.x % n_ct,
 // split blockIdx.x / n_ct of the summed axis (every splits-th entry).
-//  * forward: dst is out (B, N, F, 8) or, split, the partial sums (splits,
-//    B, N, F, 8);
+//  * forward: dst is out (B, N, F, LANES) or, split, the partial sums
+//    (splits, B, N, F, LANES); IDX: the sender-index forward (slot j of
+//    receiver n reads sender row idx[b, n, j] of x (B, Mx, D); at most
+//    T2_IDXW slots a split), each live row's x slice staged with it;
 //  * dx: dst is null where one split and one tile write dx (B, M, D) in T
 //    directly, else the partial sums (splits * n_ct, B, M, D) f32, each
 //    (split, tile) writing the x elements of its tile's slice.
 // wunit: the cp.async piece of a row of w (16, 8 or 4 bytes; 0: plain
 // loads); vec: x slices (forward) or g rows (dx) in 16-byte (bf16 x: 8)
 // pieces; shw: bf16 harmonics as the 4-byte words that cover a row.
-template <bool DX, typename T>
+template <bool DX, typename T, int LANES = 8, bool IDX = false>
 __device__ __forceinline__ void tiled_body(
     const T* __restrict__ x, const T* __restrict__ sh, const T* __restrict__ w,
     const float* __restrict__ g, const int4* __restrict__ chan, const int* __restrict__ ptab,
@@ -1349,10 +1254,11 @@ __device__ __forceinline__ void tiled_body(
     const unsigned* __restrict__ bits, const int* __restrict__ dptr,
     const int* __restrict__ ditem, float* __restrict__ dst, T* __restrict__ dx_out, int B, int N,
     int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC, int NI,
-    int wunit, int vec, int shw) {
+    int wunit, int vec, int shw, const int* __restrict__ idx = nullptr, int Mx = 0) {
+  static_assert(!(DX && IDX), "the sender-index dx has kernels of its own");
   extern __shared__ __align__(16) float smem[];
   constexpr bool F32 = sizeof(T) == 4;
-  const T2Layout L = t2_layout(DX, FTP, DXW, TS, GS, PC, NI, sizeof(T));
+  const T2Layout L = t2_layout(DX, FTP, DXW, TS, GS, PC, NI, sizeof(T), IDX);
   float* s_t = smem + L.t;                                      // [row][TS]
   float* s_g = smem + L.g;                                      // the tile's coupling entries
   int* s_ptab = reinterpret_cast<int*>(smem + L.ptab);          // the tile's paths
@@ -1362,6 +1268,7 @@ __device__ __forceinline__ void tiled_body(
   int* s_tlist = reinterpret_cast<int*>(smem + L.tlist);
   int* s_dptr = reinterpret_cast<int*>(smem + L.dlist);
   int* s_ditem = s_dptr + pad4(DXW + 1);
+  int* s_idx = reinterpret_cast<int*>(smem + L.sidx);           // IDX: [kept][slot] sender row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int NW = T2_THREADS / 32;
   const int ct = blockIdx.x % n_ct, split = blockIdx.x / n_ct, splits = gridDim.x / n_ct;
@@ -1395,11 +1302,13 @@ __device__ __forceinline__ void tiled_body(
   // The live edges, from the bits of the live pass: per kept entry the live
   // summed entries (warp = kept entry, lane = entry), then per tile its
   // 32 edges' bits (row r = o * T2_KEEP + kk) and the list of tiles with a
-  // live edge.  Only those tiles are loaded, and of them only live rows.
+  // live edge.  Only those tiles are loaded, and of them only live rows
+  // (IDX: with each live slot's sender row, read here once).
   const int ewords = (count + 31) / 32;
   for (int j0 = 0; j0 < 32 * ewords; j0 += 32) {
     const long long e = row_edge(0, j0 + lane);
     const bool on = e >= 0 && (__ldg(bits + (e >> 5)) >> (e & 31) & 1u);
+    if (IDX && on) s_idx[warp * T2_IDXW + j0 + lane] = __ldg(idx + e);
     const unsigned m = __ballot_sync(0xffffffffu, on);
     if (lane == 0) s_ebits[warp * T2_EW + j0 / 32] = m;
   }
@@ -1428,8 +1337,23 @@ __device__ __forceinline__ void tiled_body(
   __syncthreads();
   const int n_live = s_tlist[T2_MAXT];
 
+  // a sender's x slice [x_lo, x_lo + xw) into the stage (a warp's lanes)
+  auto copy_slice = [&](T* d, const T* src, int ln) {
+    if (vec) {
+      for (int q = ln; q < xw / 4; q += 32) {
+        if (F32) cp_async16(d + 4 * q, src + 4 * q);
+        else cp_async8(d + 4 * q, src + 4 * q);
+      }
+    } else {
+      for (int c = ln; c < xw && x_lo + c < D; c += 32) {
+        if (F32) cp_async4(d + c, src + c);
+        else d[c] = src[c];
+      }
+    }
+  };
+
   // the i-th live tile's live rows of w, their harmonics, and the operand of
-  // each of its summed entries with a live edge
+  // each of its summed entries with a live edge (IDX: of each live row)
   auto load_tile = [&](int i) {
     if (i < n_live) {
       const int tile = s_tlist[i];
@@ -1456,8 +1380,13 @@ __device__ __forceinline__ void tiled_body(
         } else if (lane < S) {
           reinterpret_cast<T*>(srow)[lane] = sh[e * S + lane];
         }
+        if (IDX) {    // the slot's sender's x slice [x_lo, x_lo + xw), at the row's place
+          const T* src = x + ((size_t)b * Mx + s_idx[warp * T2_IDXW + tile * T2_SUM + o]) * D +
+                         x_lo;
+          copy_slice(reinterpret_cast<T*>(st + L.side) + r * DXW, src, lane);
+        }
       }
-      if (warp < T2_SUM) {
+      if (!IDX && warp < T2_SUM) {
         const int o = warp, oo = tile * T2_SUM + o;
         if (mask >> (o * T2_KEEP) & 0xffu) {
           const int s = split + oo * splits;
@@ -1475,19 +1404,8 @@ __device__ __forceinline__ void tiled_body(
               cp_async4(d1 + c, src + 8 * c + 4);
             }
           } else {    // the sender's x slice [x_lo, x_lo + xw)
-            const T* src = x + ((size_t)b * M + s) * D + x_lo;
-            T* d = reinterpret_cast<T*>(st + L.side) + o * DXW;
-            if (vec) {
-              for (int q = lane; q < xw / 4; q += 32) {
-                if (F32) cp_async16(d + 4 * q, src + 4 * q);
-                else cp_async8(d + 4 * q, src + 4 * q);
-              }
-            } else {
-              for (int c = lane; c < xw && x_lo + c < D; c += 32) {
-                if (F32) cp_async4(d + c, src + c);
-                else d[c] = src[c];
-              }
-            }
+            copy_slice(reinterpret_cast<T*>(st + L.side) + o * DXW,
+                       x + ((size_t)b * M + s) * D + x_lo, lane);
           }
         }
       }
@@ -1564,7 +1482,7 @@ __device__ __forceinline__ void tiled_body(
     const float* tq = s_t + t_off;
     if (!DX) {
       const T* xs = reinterpret_cast<const T*>(st + L.side) + cm.x;
-#define T2_FWD(DI, DO) fwd_walk<DI, DO>(acc, mask, base, qk, xs, DXW, wc, FTP, tq, TS)
+#define T2_FWD(DI, DO) fwd_walk<DI, DO, IDX>(acc, mask, base, qk, xs, DXW, wc, FTP, tq, TS)
       switch (shape) {
         case 011: T2_FWD(1, 1); break;
         case 013: T2_FWD(1, 3); break;
@@ -1598,15 +1516,16 @@ __device__ __forceinline__ void tiled_body(
   cp_async_wait<0>();
 
   if (!DX) {
-    if (walker) {
-      float4* o4 = reinterpret_cast<float4*>(dst) + (size_t)split * B * N * F * 2;
+    if (walker) {   // LANES 4: d_out <= 3, so acc[q][3] and acc[q][4] are 0
+      constexpr int Q4 = LANES / 4;
+      float4* o4 = reinterpret_cast<float4*>(dst) + (size_t)split * B * N * F * Q4;
 #pragma unroll
       for (int q = 0; q < T2_QMAX; ++q) {
         const int n = k0 + base + q;
         if (q >= qk || n >= N) continue;
         const size_t at = ((size_t)b * N + n) * F + f0 + fw;
-        o4[2 * at] = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
-        o4[2 * at + 1] = make_float4(acc[q][4], 0.f, 0.f, 0.f);
+        o4[Q4 * at] = make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+        if (LANES == 8) o4[Q4 * at + 1] = make_float4(acc[q][4], 0.f, 0.f, 0.f);
       }
     }
     return;
@@ -1682,6 +1601,28 @@ __global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_bwd_x_l2_tiled_ker
     int NI, int wunit, int gvec, int shw) {
   tiled_body<true, T>(nullptr, sh, w, g, chan, ptab, gflat, ctab, walk, bits, dptr, ditem, part, dx,
                       B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, NI, wunit, gvec, shw);
+}
+
+// The sender-index forward at LANES = 4 (l <= 1) or 8: the tiled forward
+// with every row of a tile its own sender (x (B, Mx, D) read at idx).
+template <typename T, int LANES>
+__global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_fwd_idx_tiled_kernel(
+    const T* __restrict__ x,          // (B, Mx, D) sender features
+    const T* __restrict__ sh,         // (B, N, K, S) slot harmonics
+    const T* __restrict__ w,          // (B, N, K, F) pre-masked slot weights
+    const int* __restrict__ idx,      // (B, N, K) sender row of each slot
+    const int4* __restrict__ chan,    // as the dense tiled forward's
+    const int* __restrict__ ptab,
+    const float* __restrict__ gflat,
+    const int* __restrict__ ctab,
+    const int* __restrict__ walk,
+    const unsigned* __restrict__ bits,   // the live pass's bits of w
+    float* __restrict__ dst,          // out (B, N, F, LANES), or the partial sums (splits, ...)
+    int B, int N, int K, int Mx, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS,
+    int PC, int wunit, int xvec, int shw) {
+  tiled_body<false, T, LANES, true>(x, sh, w, nullptr, chan, ptab, gflat, ctab, walk, bits,
+                                    nullptr, nullptr, dst, nullptr, B, N, K, D, S, F, n_ct, FTP,
+                                    DXW, TS, GS, PC, 0, wunit, xvec, shw, idx, Mx);
 }
 
 // dx[r, d] = sum over the tiles whose x slice holds d, in order, of the
@@ -1798,8 +1739,20 @@ cudaError_t allow_tiled(bool dx) {
   return err;
 }
 
-size_t tiled_bytes(bool dx, int FTP, int DXW, int TS, int GS, int PC, int NI, int esize) {
-  return (size_t)t2_layout(dx, FTP, DXW, TS, GS, PC, NI, esize).total * sizeof(float);
+size_t tiled_bytes(bool dx, int FTP, int DXW, int TS, int GS, int PC, int NI, int esize,
+                   bool idx = false) {
+  return (size_t)t2_layout(dx, FTP, DXW, TS, GS, PC, NI, esize, idx).total * sizeof(float);
+}
+
+// Allows the sender-index forward of operand type T and LANES all the
+// shared memory an SM has, once per kernel.
+template <typename T, int LANES>
+cudaError_t allow_idx_fwd() {
+  static bool allowed = false;
+  if (allowed) return cudaSuccess;
+  const cudaError_t err = allow_shared(tp_aggregate_fwd_idx_tiled_kernel<T, LANES>, MAX_SMEM);
+  if (err == cudaSuccess) allowed = true;
+  return err;
 }
 
 bool bad_tiling(int B, int N, int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS,
@@ -1846,6 +1799,44 @@ int launch_fwd_l2_tiled(const void* x, const void* sh, const void* w, const int*
       reinterpret_cast<const int4*>(chan), ptab, gflat, ctab, walk, bits, splits > 1 ? part : out,
       B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, wunit, xvec, shw);
   return sum_splits<float>(part, out, (long long)B * N * F * 8, splits, st);
+}
+
+template <typename T, int LANES>
+int launch_fwd_idx_tiled(const void* x, const void* sh, const void* w, const int* idx,
+                         const int* chan, const int* ptab, const float* gflat, const int* ctab,
+                         const int* walk, const unsigned* bits, float* out, float* part, int B,
+                         int N, int K, int Mx, int D, int S, int F, int n_ct, int FTP, int DXW,
+                         int TS, int GS, int PC, int splits, int wunit, cudaStream_t st) {
+  if (bad_tiling(B, N, K, D, S, F, n_ct, FTP, DXW, TS, GS, PC, 0, splits, K, part, splits > 1) ||
+      (K + splits - 1) / splits > T2_IDXW || Mx < 1 || idx == nullptr ||
+      (N + T2_KEEP - 1) / T2_KEEP > 65535 || (wunit != 0 && !aligned(w, wunit)) ||
+      bits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = tiled_bytes(false, FTP, DXW, TS, GS, PC, 0, sizeof(T), true);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_idx_fwd<T, LANES>();
+  if (err != cudaSuccess) return (int)err;
+  const int xvec = D % 4 == 0 && aligned(x, 4 * sizeof(T));
+  const int shw = sizeof(T) == 2 && aligned(sh, 4);
+  tp_aggregate_fwd_idx_tiled_kernel<T, LANES><<<dim3(splits * n_ct, (N + T2_KEEP - 1) / T2_KEEP,
+                                                     B),
+                                                T2_THREADS, bytes, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), idx,
+      reinterpret_cast<const int4*>(chan), ptab, gflat, ctab, walk, bits, splits > 1 ? part : out,
+      B, N, K, Mx, D, S, F, n_ct, FTP, DXW, TS, GS, PC, wunit, xvec, shw);
+  return sum_splits<float>(part, out, (long long)B * N * F * LANES, splits, st);
+}
+
+template <typename T, int LANES>
+int idx_fwd_blocks_per_sm(int FTP, int DXW, int TS, int GS, int PC) {
+  cudaError_t err = allow_idx_fwd<T, LANES>();
+  if (err != cudaSuccess) return -(int)err;
+  const size_t bytes = tiled_bytes(false, FTP, DXW, TS, GS, PC, 0, sizeof(T), true);
+  if (bytes > MAX_SMEM) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tp_aggregate_fwd_idx_tiled_kernel<T, LANES>, T2_THREADS, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 template <typename T>
@@ -2458,24 +2449,6 @@ bool bad_mode(const void* idx, int M, int Mx, int lanes) {
 // Threads of an 8-lane block: one per channel.
 int threads_l2(int F) { return ((F + 31) / 32) * 32; }
 
-template <typename T, int LANES>
-int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
-                  const int* ptab, const float* gtab, float* out, int B, int N, int M, int Mx,
-                  int D, int S, int F, int n_paths, int t_size, cudaStream_t st) {
-  const size_t bytes = (size_t)l2_layout(D, n_paths, t_size).total * sizeof(float);
-  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  static bool allowed = false;
-  if (!allowed) {
-    const cudaError_t err = allow_shared(tp_aggregate_fwd_l2_kernel<T, LANES>, MAX_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    allowed = true;
-  }
-  tp_aggregate_fwd_l2_kernel<T, LANES><<<dim3(N, B), threads_l2(F), bytes, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), idx,
-      reinterpret_cast<const int4*>(chan), ptab, gtab, out, N, M, Mx, D, S, F, n_paths, t_size);
-  return (int)cudaGetLastError();
-}
-
 size_t edge_bytes(bool dsh, int D, int F, int PT, int PS) {
   return (size_t)edge_layout(dsh, D, F, PT, PS).total * sizeof(float);
 }
@@ -2708,28 +2681,52 @@ int dp_tp_aggregate_l2_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, i
 }
 
 // The sender-index mode (idx, or the dx lists, never null; x and dx (B, Mx,
-// D), sh, w and dw (B, N, M, .) with M the slots).  `lanes` (4 or 8) is the
-// floats of a channel in out and g.  The forward: tables from
-// tp_fused.tables_l2 (chan (F, 4), ptab (n_paths, 8), gtab (n_paths, 5, 5,
-// 5), t_size floats of t an edge), one launch, no split.
+// D), sh, w and dw (B, N, K, .) with K the slots).  `lanes` (4 or 8) is the
+// floats of a channel in out and g.  The forward: the dense tiled
+// forward's tables and sizes (tp_fused.tables_tiled_l2, tp_aggregate.walk_l2)
+// and `bits`, the live pass's bits of w; `splits` of the slots (at most 64
+// slots a split), `part` (splits, B, N, F, lanes) floats when splits > 1.
 
-int dp_tp_aggregate_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
-                           const int* chan, const int* ptab, const float* gtab, float* out, int B,
-                           int N, int M, int Mx, int D, int S, int F, int n_paths, int t_size,
-                           int lanes, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || t_size < 1 || idx == nullptr ||
-      bad_mode(idx, M, Mx, lanes))
-    return (int)cudaErrorInvalidValue;
+int dp_tp_aggregate_fwd_idx_tiled(const void* x, const void* sh, const void* w, const int* idx,
+                                  const int* chan, const int* ptab, const float* gflat,
+                                  const int* ctab, const int* walk, const unsigned* bits,
+                                  float* out, float* part, int B, int N, int K, int Mx, int D,
+                                  int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC,
+                                  int splits, int wunit, int lanes, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (lanes == 4)
-    return bf16 ? launch_fwd_l2<__nv_bfloat16, 4>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M,
-                                                  Mx, D, S, F, n_paths, t_size, st)
-                : launch_fwd_l2<float, 4>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M, Mx, D,
-                                          S, F, n_paths, t_size, st);
-  return bf16 ? launch_fwd_l2<__nv_bfloat16, 8>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M, Mx,
-                                                D, S, F, n_paths, t_size, st)
-              : launch_fwd_l2<float, 8>(x, sh, w, idx, chan, ptab, gtab, out, B, N, M, Mx, D, S,
-                                        F, n_paths, t_size, st);
+    return bf16 ? launch_fwd_idx_tiled<__nv_bfloat16, 4>(x, sh, w, idx, chan, ptab, gflat, ctab,
+                                                         walk, bits, out, part, B, N, K, Mx, D,
+                                                         S, F, n_ct, FTP, DXW, TS, GS, PC, splits,
+                                                         wunit, st)
+                : launch_fwd_idx_tiled<float, 4>(x, sh, w, idx, chan, ptab, gflat, ctab, walk,
+                                                 bits, out, part, B, N, K, Mx, D, S, F, n_ct, FTP,
+                                                 DXW, TS, GS, PC, splits, wunit, st);
+  if (lanes != 8) return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_fwd_idx_tiled<__nv_bfloat16, 8>(x, sh, w, idx, chan, ptab, gflat, ctab,
+                                                       walk, bits, out, part, B, N, K, Mx, D, S,
+                                                       F, n_ct, FTP, DXW, TS, GS, PC, splits,
+                                                       wunit, st)
+              : launch_fwd_idx_tiled<float, 8>(x, sh, w, idx, chan, ptab, gflat, ctab, walk, bits,
+                                               out, part, B, N, K, Mx, D, S, F, n_ct, FTP, DXW,
+                                               TS, GS, PC, splits, wunit, st);
+}
+
+// Bytes of shared memory a block of the sender-index forward takes at these
+// sizes and operand bytes (esize 4 or 2), and the blocks of it (lanes 4 or
+// 8) that one SM holds at once, or minus a cudaError_t value.
+int dp_tp_aggregate_idx_fwd_smem(int FTP, int DXW, int TS, int GS, int PC, int esize) {
+  return (int)tiled_bytes(false, FTP, DXW, TS, GS, PC, 0, esize, true);
+}
+
+int dp_tp_aggregate_idx_fwd_blocks_per_sm(int FTP, int DXW, int TS, int GS, int PC, int lanes,
+                                          int bf16) {
+  if (lanes == 4)
+    return bf16 ? idx_fwd_blocks_per_sm<__nv_bfloat16, 4>(FTP, DXW, TS, GS, PC)
+                : idx_fwd_blocks_per_sm<float, 4>(FTP, DXW, TS, GS, PC);
+  if (lanes != 8) return -(int)cudaErrorInvalidValue;
+  return bf16 ? idx_fwd_blocks_per_sm<__nv_bfloat16, 8>(FTP, DXW, TS, GS, PC)
+              : idx_fwd_blocks_per_sm<float, 8>(FTP, DXW, TS, GS, PC);
 }
 
 // The dense 8-lane edge backward: P of every receiver into Pg (B, N, PT)

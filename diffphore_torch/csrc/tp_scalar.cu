@@ -79,7 +79,29 @@
 // second-order layer-0 convolutions), g and out (B, N, F, 8) (lanes 5-7
 // zero, never read), and the edge backward reading all P = 9 harmonic
 // components (that path reads components 4-8); `if constexpr` keeps the
-// L = 1 instantiations as they were.
+// L = 1 instantiations as they were.  dx at L = 2 has a kernel of its own,
+// tp_scalar_bwd_x_l2_kernel.  The dx above, a thread per (sender, channel),
+// read its receiver's g row as two float4 for every (edge, channel), 32
+// bytes of which it used 5 floats, from L1 at a 32-byte stride (8 loads of
+// 128 bytes for a warp's 32 channels): 0.133 / 0.129 ms (f32 / bf16) over
+// the six layer-0 convs of a second-order training step, 3.4x / 6.2x its
+// byte bound.  Here thread = (channel, group of X2_Q = 4 senders): per
+// receiver it loads the channel's g row once for its four senders (lanes
+// 0-3 as a float4, lane 4 only where K = 5), then each sender's element of
+// w (a warp's neighbouring channels: one coalesced row) and its K harmonic
+// components (broadcast); a block takes a run of up to X2_Q (X2_THREADS /
+// F) senders of one batch row and a chunk of receivers, no barrier before
+// the end, and the host splits the receivers down to X2_MIN_CHUNK = 4 so
+// that the grid holds four times the block slots the card has.  0.1231 /
+// 0.1226 ms (chip_smoke.py phase 16 on an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md): faster than the thread-per-(sender, channel) dx at both
+// dtypes, still 3.1x / 5.9x the byte bound.  Tried and slower
+// (analysis/k3_dx_l2_variants.py): g, harmonics (and w) staged a block on a
+// cp.async ring, thread = (sender, four channels) (0.121-0.165 /
+// 0.136-0.199 ms); more loads in flight (two or four receivers unrolled,
+// eight senders a thread: 0.134-0.200 ms); registers capped for three
+// blocks an SM (0.22-0.24 ms); w loaded evict-first (f32 5% faster, bf16 2%
+// slower).
 // Sender-index mode (the KNN phore grid; a template flag IDX on the forward
 // and the edge backward, so the dense instantiations stay as they were): an
 // int32 index (B, N, K) names the sender row of x (B, Mx, U) that slot k of
@@ -194,6 +216,7 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
 }
 
 // Writes dx (B, M, D) in T when one split, else f32 partial sums (splits, B, M, D).
+// L = 1 only: the 8-lane dx is tp_scalar_bwd_x_l2_kernel.
 template <typename T, int L>
 __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
     const T* __restrict__ sh,          // (B, N, M, S)
@@ -220,7 +243,6 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
       const int n0 = blockIdx.x * chunk, n1 = min(N, n0 + chunk);
       const int4 c = chan[f];
       const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;
-      const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
       const size_t edge_n = (size_t)M;                      // edges between receivers n, n + 1
       const T* wp = w + ((size_t)b * N * M + m) * F + f;
       const T* sp = sh + ((size_t)b * N * M + m) * S + c.y;
@@ -234,11 +256,6 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_bwd_x_kernel(
         float t = ld(s) * gv.x;
         t = fmaf(ld(s + k1), k1 ? gv.y : 0.f, t);
         t = fmaf(ld(s + k2), k2 ? gv.z : 0.f, t);
-        if constexpr (L == 2) {
-          const float4 gw = __ldg(gp + (size_t)n * F * L + 1);
-          t = fmaf(ld(s + k3), k3 ? gv.w : 0.f, t);
-          t = fmaf(ld(s + k4), k4 ? gw.x : 0.f, t);
-        }
         acc = fmaf(wv, t, acc);
       }
       acc *= scale[f];
@@ -267,6 +284,96 @@ __global__ void tp_scalar_sum_splits(const float* __restrict__ part, T* __restri
   float s = part[i];
   for (int k = 1; k < splits; ++k) s += part[k * total + i];
   out[i] = from_f<T>(s);
+}
+
+// ---- the 8-lane dx: four senders a thread (head note) ----
+
+constexpr int X2_THREADS = 256;   // threads of a block at most: (channel, group of senders) each
+constexpr int X2_Q = 4;           // senders of a thread: each g load serves them all
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// The shared memory of a block, in floats: the (sender, channel) sums of
+// its run, then the d lists.
+__host__ __device__ inline int x2_floats(int F, int D, int n_items, int run) {
+  return pad4(run * F) + pad4(D + 1) + pad4(n_items);
+}
+
+// dx (B, M, D) of every path at L = 2, in T, or the f32 partial sums
+// (splits, B, M, D) where the receivers are split.  Block: batch row
+// blockIdx.z, senders blockIdx.y * run .. (a run of at most X2_Q (X2_THREADS /
+// F) senders), receivers [blockIdx.x * chunk, + chunk).  Thread = (channel,
+// group of X2_Q senders of the run): per receiver it loads the channel's g
+// row once (lanes 0-3 as a float4, lane 4 where K = 5) for its senders,
+// then each sender's w and harmonics (neighbouring threads, neighbouring
+// channels: coalesced rows of w, broadcast harmonics):
+// acc[q] += w sum_{k < K} sh[off + k] g[k].  Then the channels that read
+// one element are added in the order of the d list, as the 4-lane dx adds
+// them.
+template <typename T>
+__global__ void __launch_bounds__(X2_THREADS) tp_scalar_bwd_x_l2_kernel(
+    const T* __restrict__ sh,          // (B, N, M, S)
+    const T* __restrict__ w,           // (B, N, M, F)
+    const float* __restrict__ g,       // (B, N, F, 8) upstream gradient
+    const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
+    const float* __restrict__ scale,   // (F)
+    const int* __restrict__ d_ptr,     // (D + 1): extents into d_item per input element
+    const int* __restrict__ d_item,    // the channels reading each element, ascending
+    T* __restrict__ dx, float* __restrict__ part, int B, int N, int M, int D, int S, int F,
+    int n_items, int run, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_part = smem;                                             // [sender of the run][F]
+  int* s_dptr = reinterpret_cast<int*>(smem + pad4(run * F));       // D + 1
+  int* s_ditem = s_dptr + pad4(D + 1);                              // n_items
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int grp = tid / F, f = tid - grp * F;
+  const int b = blockIdx.z, m0 = blockIdx.y * run;
+  const int cnt = min(run, M - m0);              // senders of the block
+  const int mq = grp * X2_Q;                     // the thread's first sender in the run
+  const int nq = min(X2_Q, cnt - mq);            // and its count (none past the run)
+  for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
+  for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
+  float acc[X2_Q] = {};
+  if (nq > 0) {
+    const int4 c = chan[f];
+    const int K = c.z;
+    const int n0 = blockIdx.x * chunk, n1 = min(N, n0 + chunk);
+    const size_t wstep = (size_t)M * F, sstep = (size_t)M * S;     // between receivers
+    const T* wp = w + ((size_t)b * N * M + m0 + mq) * F + f;
+    const T* sp = sh + ((size_t)b * N * M + m0 + mq) * S + c.y;
+    const float* gp = g + ((size_t)b * N * F + f) * 8;
+#pragma unroll 1
+    for (int n = n0; n < n1; ++n) {
+      const float4 ga = __ldg(reinterpret_cast<const float4*>(gp + (size_t)n * F * 8));
+      const float gk[5] = {ga.x, ga.y, ga.z, ga.w, K > 4 ? __ldg(gp + (size_t)n * F * 8 + 4) : 0.f};
+      float wv[X2_Q];
+#pragma unroll
+      for (int q = 0; q < X2_Q; ++q) wv[q] = q < nq ? ld(wp + n * wstep + q * F) : 0.f;
+#pragma unroll
+      for (int q = 0; q < X2_Q; ++q) {
+        if (q >= nq) break;
+        const T* s = sp + n * sstep + q * S;
+        float t = 0.f;
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+          if (k < K) t = fmaf(ld(s + k), gk[k], t);
+        acc[q] = fmaf(wv[q], t, acc[q]);
+      }
+    }
+    const float sc = scale[f];
+#pragma unroll
+    for (int q = 0; q < X2_Q; ++q)
+      if (q < nq) s_part[(mq + q) * F + f] = acc[q] * sc;
+  }
+  __syncthreads();
+  for (int r = tid; r < cnt * D; r += nt) {
+    const int k = r / D, d = r - k * D;
+    float sum = 0.f;
+    for (int e = s_dptr[d]; e < s_dptr[d + 1]; ++e) sum += s_part[k * F + s_ditem[e]];
+    const size_t at = ((size_t)b * M + m0 + k) * D + d;
+    if (part != nullptr) part[(size_t)blockIdx.x * B * M * D + at] = sum;
+    else dx[at] = from_f<T>(sum);
+  }
 }
 
 // ---- sender-index dx: per-slot terms, slot chunks, a sum per sender (head note) ----
@@ -629,6 +736,40 @@ int launch_bwd_x(const void* sh, const void* w, const float* g, const int* chan,
   return sum_splits<T>(part, out, (long long)B * M * D, splits, st);
 }
 
+size_t x2_bytes(int F, int D, int n_items, int run) {
+  return sizeof(float) * (size_t)x2_floats(F, D, n_items, run);
+}
+
+int x2_threads(int F, int run) { return round_up_32(((run + X2_Q - 1) / X2_Q) * F); }
+
+bool bad_x2(int F, int run) {
+  return F < 1 || run < 1 || ((run + X2_Q - 1) / X2_Q) * F > X2_THREADS;
+}
+
+template <typename T>
+int launch_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
+                    const float* scale, const int* d_ptr, const int* d_item, void* dx, float* part,
+                    int B, int N, int M, int D, int S, int F, int n_items, int run, int chunk,
+                    int splits, cudaStream_t st) {
+  const size_t bytes = x2_bytes(F, D, n_items, run);
+  if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+  T* out = static_cast<T*>(dx);
+  tp_scalar_bwd_x_l2_kernel<T><<<dim3(splits, (M + run - 1) / run, B), x2_threads(F, run), bytes,
+                                 st>>>(
+      static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
+      scale, d_ptr, d_item, out, splits > 1 ? part : nullptr, B, N, M, D, S, F, n_items, run,
+      chunk);
+  return sum_splits<T>(part, out, (long long)B * M * D, splits, st);
+}
+
+template <typename T>
+int x2_blocks_per_sm(int F, int D, int n_items, int run) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tp_scalar_bwd_x_l2_kernel<T>, x2_threads(F, run), x2_bytes(F, D, n_items, run));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 template <typename T, int L>
 int launch_bwd_x_idx(const void* sh, const void* w, const float* g, const int* chan,
                      const float* scale, const int* d_ptr, const int* d_item, const int* order,
@@ -797,12 +938,13 @@ int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
   if (dx == 2) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_scalar_bwd_x_idx_chunks,
                                                         threads, 0);
-  } else if (dx) {
+  } else if (dx) {   // L = 2 has a dx kernel of its own (dp_tp_scalar_bwd_x_l2_blocks_per_sm)
+    if constexpr (L != 1) return -(int)cudaErrorInvalidValue;
     const size_t bytes = bwd_x_smem(keep, F, D, n_items);
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, L>, threads, bytes)
+                     &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, 1>, threads, bytes)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_bwd_x_kernel<float, L>, threads, bytes);
+                     &blocks, tp_scalar_bwd_x_kernel<float, 1>, threads, bytes);
   } else {
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L, false>, threads, 0)
@@ -892,12 +1034,33 @@ int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int*
                       splits, bf16, stream);
 }
 
+// The 8-lane dx: a block per (receiver split, run of `run` senders, batch
+// row) of ceil(run / 4) F threads, at most X2_THREADS; receivers [k *
+// chunk, (k + 1) * chunk) go to split k.
 int dp_tp_scalar_bwd_x_l2(const void* sh, const void* w, const float* g, const int* chan,
                           const float* scale, const int* d_ptr, const int* d_item, void* dx,
                           float* part, int B, int N, int M, int D, int S, int F, int n_items,
-                          int keep, int chunk, int splits, int bf16, void* stream) {
-  return bwd_x_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M, D, S, F, n_items,
-                        keep, chunk, splits, bf16, stream);
+                          int run, int chunk, int splits, int bf16, void* stream) {
+  if (bad_conv_shape(B, N, M, D, S, F, 1, chunk, splits, N, part) || n_items < 1 ||
+      bad_x2(F, run) || (M + run - 1) / run > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_x_l2<__nv_bfloat16>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B,
+                                               N, M, D, S, F, n_items, run, chunk, splits, st)
+              : launch_bwd_x_l2<float>(sh, w, g, chan, scale, d_ptr, d_item, dx, part, B, N, M,
+                                       D, S, F, n_items, run, chunk, splits, st);
+}
+
+// Bytes of shared memory a block of the 8-lane dx takes, and the blocks of
+// it that one SM holds at once, or minus a cudaError_t value.
+int dp_tp_scalar_bwd_x_l2_smem(int F, int D, int n_items, int run) {
+  return (int)x2_bytes(F, D, n_items, run);
+}
+
+int dp_tp_scalar_bwd_x_l2_blocks_per_sm(int F, int D, int n_items, int run, int bf16) {
+  if (bad_x2(F, run)) return -(int)cudaErrorInvalidValue;
+  return bf16 ? x2_blocks_per_sm<__nv_bfloat16>(F, D, n_items, run)
+              : x2_blocks_per_sm<float>(F, D, n_items, run);
 }
 
 int dp_tp_scalar_bwd_x_idx_l2(const void* sh, const void* w, const float* g, const int* chan,

@@ -39,18 +39,20 @@ lane = sender, from :func:`path_tables_l2`.
 Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
 int32, x is (B, M_x, D), sh and w are (B, N, K, .) and slot k of receiver n
 reads the sender row ``x[b, sender_index[b, n, k]]``; dx adds each sender's
-slots.  At both lane counts (4 where l <= 1): the forward is a block per
-receiver and a thread per channel, reading x at the index; the edge
-backward a block per receiver's slots (up to ``IDX_EDGE_SLOTS``), a thread
-per channel with P in registers formed once for them, x read at the index
-(dw only: no phore conv needs dsh, which the mode refuses); dx takes each
-sender's slots
-in chunks of at most ``IDX_Q`` (:func:`idx_dx_lists`, in the fixed order of
-:func:`tp_fused.sender_lists`), loads only the live ones (w's live bits,
-which the autograd forward makes with the lists), and a second kernel adds
-each sender's chunks in order.  ``FWD_IDX``, ``BWD_EDGE_IDX`` and
-``BWD_X_IDX`` count the 4-lane launches, the ``*_IDX_L2`` counters the
-8-lane ones.
+slots.  At both lane counts (4 where l <= 1): the forward is the dense
+8-lane tiled forward with the slots as its summed axis (:func:`forward_idx`:
+a block per (batch row, ``KEEP`` receivers, channel tile, split of at most
+``IDX_SUMMED`` slots), each live slot's x slice read at the index into the
+ring, on w's live bits, which the autograd forward makes once for it and
+dx); the edge backward a block per receiver's slots (up to
+``IDX_EDGE_SLOTS``), a thread per channel with P in registers formed once
+for them, x read at the index (dw only: no phore conv needs dsh, which the
+mode refuses); dx takes each sender's slots in chunks of at most ``IDX_Q``
+(:func:`idx_dx_lists`, in the fixed order of :func:`tp_fused.sender_lists`,
+built by the autograd forward), loads only the live ones (the forward's
+live bits), and a second kernel adds each sender's chunks in order.
+``FWD_IDX``, ``BWD_EDGE_IDX`` and ``BWD_X_IDX`` count the 4-lane launches,
+the ``*_IDX_L2`` counters the 8-lane ones.
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ BWD_X = _Kernel()      # tp_aggregate_bwd_x_kernel (dx, + tp_aggregate_sum_split
 FWD_L2 = _Kernel()       # tp_aggregate_fwd_l2_tiled_kernel (+ tp_aggregate_sum_splits)
 BWD_EDGE_L2 = _Kernel()  # tp_aggregate_l2_p_kernel + tp_aggregate_bwd_edge_l2_kernel<T, DSH>
 BWD_X_L2 = _Kernel()     # tp_aggregate_bwd_x_l2_tiled_kernel (+ tp_aggregate_l2_dx_sum)
-FWD_IDX = _Kernel()          # the sender-index mode: tp_aggregate_fwd_l2_kernel<T, 4>
+FWD_IDX = _Kernel()          # the sender-index mode: tp_aggregate_l2_live_kernel +
+#                              tp_aggregate_fwd_idx_tiled_kernel<T, 4> (+ tp_aggregate_sum_splits)
 BWD_EDGE_IDX = _Kernel()     # tp_aggregate_bwd_edge_idx_kernel<T, 4>
 BWD_X_IDX = _Kernel()        # tp_aggregate_bwd_x_idx_l2_kernel<T, 4> + tp_aggregate_bwd_x_idx_sum
 FWD_IDX_L2 = _Kernel()       # the same at 8 lanes (l = 2)
@@ -523,6 +526,39 @@ def grid_l2(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
     return B * -(-kept // KEEP) * len(tables_tiled_l2(tp)[3]) * splits, splits
 
 
+IDX_SUMMED = 64   # slots one block of the sender-index forward takes at most (a split's)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_splits_idx(B: int, N: int, K: int, tiles: int, target: int = TARGET_BLOCKS) -> int:
+    """Splits of the slots of the sender-index forward (a block per (batch
+    row, ``KEEP`` receivers, channel tile, split)): :func:`plan_splits_l2`,
+    and enough that no split takes more than ``IDX_SUMMED`` slots (a block
+    keeps its slots' sender rows in shared memory)."""
+    return max(plan_splits_l2(B, N, K, tiles, target), -(-K // IDX_SUMMED))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks_idx(tp: ChannelwiseTP, device: str, bf16: bool) -> int:
+    """Blocks of the sender-index forward the card holds at once at this
+    convolution's channel tiles and operand type."""
+    per_sm = _library().dp_tp_aggregate_idx_fwd_blocks_per_sm(
+        *layout_sizes_l2(tp, False)[:5], lanes(tp), int(bf16))
+    _raise_on(max(0, -per_sm), "tp_aggregate_fwd_idx occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grid_idx(tp: ChannelwiseTP, B: int, N: int, K: int, device,
+             dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """(blocks, splits) of a sender-index forward launch on (B, N, K):
+    enough blocks for two per SM and for every block the card can hold at
+    once."""
+    tiles = len(tables_tiled_l2(tp)[3])
+    target = max(TARGET_BLOCKS, _resident_blocks_idx(tp, str(device), dtype == torch.bfloat16))
+    splits = plan_splits_idx(B, N, K, tiles, target)
+    return B * -(-N // KEEP) * tiles * splits, splits
+
+
 @functools.lru_cache(maxsize=None)
 def _row_unit_l2(tp: ChannelwiseTP, esize: int) -> int:
     """The widest cp.async piece (16, 8 or 4 bytes) dividing a row of w and
@@ -551,7 +587,9 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_aggregate_bwd_edge.argtypes = [p] * 11 + [i] * 10 + [p]
     lib.dp_tp_aggregate_bwd_x.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.dp_tp_aggregate_blocks_per_sm.argtypes = [i] * 6
-    lib.dp_tp_aggregate_fwd_l2.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.dp_tp_aggregate_fwd_idx_tiled.argtypes = [p] * 12 + [i] * 17 + [p]
+    lib.dp_tp_aggregate_idx_fwd_smem.argtypes = [i] * 6
+    lib.dp_tp_aggregate_idx_fwd_blocks_per_sm.argtypes = [i] * 7
     lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 14 + [i] * 12 + [p]
     lib.dp_tp_aggregate_bwd_edge_idx.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.dp_tp_aggregate_bwd_x_idx_l2.argtypes = [p] * 15 + [i] * 15 + [p]
@@ -564,7 +602,8 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_aggregate_idx_dx_l2_smem.argtypes = [i] * 8
     lib.dp_tp_aggregate_edge_l2_blocks_per_sm.argtypes = [i] * 6
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
-               lib.dp_tp_aggregate_blocks_per_sm, lib.dp_tp_aggregate_fwd_l2,
+               lib.dp_tp_aggregate_blocks_per_sm, lib.dp_tp_aggregate_fwd_idx_tiled,
+               lib.dp_tp_aggregate_idx_fwd_smem, lib.dp_tp_aggregate_idx_fwd_blocks_per_sm,
                lib.dp_tp_aggregate_bwd_edge_l2, lib.dp_tp_aggregate_bwd_x_idx_l2,
                lib.dp_tp_aggregate_fwd_l2_tiled, lib.dp_tp_aggregate_bwd_x_l2_tiled,
                lib.dp_tp_aggregate_l2_smem, lib.dp_tp_aggregate_l2_blocks_per_sm,
@@ -668,27 +707,50 @@ def forward_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     return out, live
 
 
+def forward_idx(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+                sender_index: torch.Tensor, live: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sender-index forward on CUDA tensors, at 4 or 8 lanes -> (out (B,
+    N, F, lanes(tp)) f32, the live bits of w): ``live`` (the bits of
+    :func:`live_rows_l2` of w), or the live pass now where it is not given;
+    then ``tp_aggregate_fwd_idx_tiled_kernel``, the dense tiled forward by
+    channel tile with each slot's x slice read at the index, on the live
+    tiles, and, when :func:`grid_idx` splits the slots, the sum of the
+    splits' partial sums; one ``FWD_IDX`` (``FWD_IDX_L2``) launch.  dx reads
+    the same bits (the autograd forward keeps them)."""
+    B, N, K, D, S, F = _check_inputs(tp, x, sh, w, sender_index=sender_index)
+    k_pad = lanes(tp)
+    live = _check_live(live, w)
+    chan, ptab, gflat, ctab, _, _ = _device_tables_tiled_l2(tp, str(x.device), x.dtype)
+    walk = _device_walk_l2(tp, str(x.device))
+    _, splits = grid_idx(tp, B, N, K, x.device, x.dtype)
+    out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
+    part = _scratch(splits, (B, N, F, k_pad), x.device)
+    rc = _library().dp_tp_aggregate_fwd_idx_tiled(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), sender_index.data_ptr(), chan.data_ptr(),
+        ptab.data_ptr(), gflat.data_ptr(), ctab.data_ptr(), walk.data_ptr(), live.data_ptr(),
+        out.data_ptr(), _ptr(part), B, N, K, x.shape[1], D, S, F, ctab.shape[0],
+        *layout_sizes_l2(tp, False)[:5], splits, _w_unit_l2(tp, w), k_pad,
+        int(x.dtype == torch.bfloat16), _stream(x.device))
+    _raise_on(rc, "tp_aggregate_fwd_idx_tiled")
+    counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index, k_pad == K_PAD_L2).launches += 1
+    return out, live
+
+
 def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
-                   w: torch.Tensor, sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   w: torch.Tensor, sender_index: Optional[torch.Tensor] = None,
+                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward kernel on CUDA tensors -> (B, N, F, lanes(tp)) f32 (and
     the sum of the sender splits' partial sums when :func:`launch_splits`
-    splits; dense at 8 lanes, :func:`forward_l2`)."""
-    if lanes(tp) == K_PAD_L2 and sender_index is None:
-        return forward_l2(tp, x, sh, w)[0]
-    B, N, M, D, S, F = _check_inputs(tp, x, sh, w, sender_index=sender_index)
-    dev = str(x.device)
-    k_pad = lanes(tp)
+    splits; dense at 8 lanes, :func:`forward_l2`; with a sender index,
+    :func:`forward_idx` on ``live``, the live bits of w, made here when not
+    given)."""
     if sender_index is not None:
-        chan, ptab, gtab, t_size = device_tables_l2(tp, dev, x.dtype)
-        out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
-        rc = _library().dp_tp_aggregate_fwd_l2(
-            x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), chan.data_ptr(),
-            ptab.data_ptr(), gtab.data_ptr(), out.data_ptr(), B, N, M, x.shape[1], D, S, F,
-            gtab.shape[0], t_size, k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
-        _raise_on(rc, "tp_aggregate_fwd_l2")
-        counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index,
-                k_pad == K_PAD_L2).launches += 1
-        return out
+        return forward_idx(tp, x, sh, w, sender_index, live)[0]
+    if lanes(tp) == K_PAD_L2:
+        return forward_l2(tp, x, sh, w)[0]
+    B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
+    dev = str(x.device)
     chan, gtab = _device_tables(tp, dev, x.dtype)
     ptab, _, _ = _device_backward_tables(tp, dev)
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=x.device)
@@ -779,11 +841,12 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
     :func:`launch_splits` splits; at 8 lanes, of the splits' and channel
     tiles' partial sums where there is more than one).  At 8 lanes, dense,
     and in the sender-index mode it reads ``live``, the bits of
-    :func:`live_rows_l2` of w, made here when not given.  The sender-index
-    mode (both lane counts) adds each sender's slots in chunks of
-    ``lists`` (:func:`idx_dx_lists` of the index, built here when not
-    given), loading only live slots, then each sender's chunks in order:
-    two kernels, one launch."""
+    :func:`live_rows_l2` of w that the autograd forward made (the
+    forward's own, :func:`forward_l2`, :func:`forward_idx`), made here when
+    not given.  The sender-index mode (both lane counts) adds each sender's
+    slots in chunks of ``lists`` (:func:`idx_dx_lists` of the index, built
+    here when not given), loading only live slots, then each sender's
+    chunks in order: two kernels, one launch."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w, g, sender_index)
     dev = str(x.device)
     dx = torch.empty_like(x)
@@ -842,10 +905,9 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
 class TPAggregate(torch.autograd.Function):
     """The kernels under autograd.  ``dsh`` is computed only when sh requires
     grad (the cross-graph convs, whose edge vectors carry learned weights),
-    ``dx`` only when x does.  With a sender index the forward builds the
-    dx's chunk lists and w's live bits once, when x requires grad; at 8
-    lanes, dense, it makes w's live bits once for the forward, the edge
-    backward's dsh and dx."""
+    ``dx`` only when x does.  The forward makes w's live bits once: at 8
+    lanes, dense, for itself, the edge backward's dsh and dx; with a sender
+    index for itself and dx, and, when x requires grad, dx's chunk lists."""
 
     @staticmethod
     def forward(ctx, tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
@@ -854,13 +916,15 @@ class TPAggregate(torch.autograd.Function):
         ctx.sender_index = sender_index
         ctx.save_for_backward(x, sh, w)
         ctx.lists = ctx.live = None
-        if sender_index is not None and ctx.needs_input_grad[1]:
-            ctx.lists = idx_dx_lists(sender_index, x.shape[1])
-            ctx.live = live_rows_l2(w)
-        if sender_index is None and lanes(tp) == K_PAD_L2:
+        if sender_index is not None:
+            if ctx.needs_input_grad[1]:
+                ctx.lists = idx_dx_lists(sender_index, x.shape[1])
+            out, ctx.live = forward_idx(tp, x, sh, w, sender_index)
+            return out
+        if lanes(tp) == K_PAD_L2:
             out, ctx.live = forward_l2(tp, x, sh, w)
             return out
-        return launch_forward(tp, x, sh, w, sender_index)
+        return launch_forward(tp, x, sh, w)
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):

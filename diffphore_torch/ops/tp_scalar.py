@@ -29,8 +29,12 @@ launched.  A convolution whose irreps reach l = 2 (the layer-0 convolutions
 of ``use_second_order_repr``, whose ``0e x 2e -> 2e`` path has K = 5 and
 reads harmonic components 4-8) runs the kernels' 8-lane instantiations
 (``L = 2``: five sums a channel, the upstream gradient and the output
-(B, N, F, 8), the edge backward reading all nine components), counted by
-``FWD_L2``, ``BWD_EDGE_L2`` and ``BWD_X_L2``.
+(B, N, F, 8), the edge backward reading all nine components) and a dx of
+its own (``tp_scalar_bwd_x_l2_kernel``: thread = (channel, ``X2_Q``
+senders), each g row loaded once for the thread's senders; a block per
+(batch row, run of :func:`plan_run_l2` senders, chunk of receivers), the
+receivers split as :func:`plan_chunk_l2` says), counted by ``FWD_L2``,
+``BWD_EDGE_L2`` and ``BWD_X_L2``.
 
 Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
 int32, x is (B, M_x, D), sh and w (B, N, K, .) and slot k of receiver n
@@ -67,7 +71,7 @@ BWD_EDGE = _Kernel()  # tp_scalar_bwd_edge_kernel (dw, and dsh where asked), one
 BWD_X = _Kernel()     # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per convolution
 FWD_L2 = _Kernel()       # the same kernels' 8-lane instantiations (l = 2)
 BWD_EDGE_L2 = _Kernel()
-BWD_X_L2 = _Kernel()
+BWD_X_L2 = _Kernel()     # tp_scalar_bwd_x_l2_kernel (+ tp_scalar_sum_splits)
 FWD_IDX = _Kernel()       # the sender-index mode (l <= 1)
 BWD_EDGE_IDX = _Kernel()
 BWD_X_IDX = _Kernel()      # tp_scalar_bwd_x_idx_slots, _chunks and _sum
@@ -76,6 +80,10 @@ BWD_EDGE_IDX_L2 = _Kernel()
 BWD_X_IDX_L2 = _Kernel()
 
 THREADS = 256        # threads of a forward or dx block: KEEP = THREADS // F entries kept
+X2_THREADS = 256     # threads of an 8-lane dx block at most: (channel, X2_Q senders) each
+X2_Q = 4             # senders of an 8-lane dx thread
+X2_MIN_CHUNK = 4     # fewest receivers one split of the 8-lane dx takes
+X2_WAVES = 4         # the 8-lane dx's grid: blocks for this many of each block slot of the card
 EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
 EDGE_REACH = 4       # harmonic components the edge backward reads (0e and 1o first)
 EDGE_REACH_L2 = 9    # the 8-lane instantiation's: 0e, 1o and 2e
@@ -245,6 +253,30 @@ def plan_chunk(B: int, kept: int, summed: int, F: int, target: int = TARGET_BLOC
 
 
 @functools.lru_cache(maxsize=None)
+def plan_run_l2(M: int, F: int) -> int:
+    """Senders one block of the 8-lane dx takes (a run): a thread per
+    (channel, group of ``X2_Q`` senders), at most ``X2_THREADS`` threads, the
+    runs of the M senders as even as that allows."""
+    runs = -(-M // (X2_Q * max(1, X2_THREADS // F)))
+    return -(-M // runs)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_chunk_l2(B: int, N: int, M: int, F: int, target: int = TARGET_BLOCKS
+                  ) -> Tuple[int, int, int]:
+    """(run, chunk, splits) of the 8-lane dx: a block per (batch row, run of
+    :func:`plan_run_l2` senders, chunk of receivers [k * chunk, (k + 1) *
+    chunk)); at least the fewest splits that give ``target`` blocks, none
+    with fewer than ``X2_MIN_CHUNK`` receivers where there are that many.
+    Each thread reads each of its receivers' g rows once for its senders."""
+    run = plan_run_l2(M, F)
+    tiles = B * -(-M // run)
+    splits = max(1, min(-(-target // tiles), N // X2_MIN_CHUNK))
+    chunk = max(1, N // splits)
+    return run, chunk, -(-N // chunk)
+
+
+@functools.lru_cache(maxsize=None)
 def plan_slot_chunk(slots: int, senders: int, F: int, target: int = TARGET_BLOCKS
                     ) -> Tuple[int, int]:
     """(Q, bound) of the sender-index dx over ``slots`` slots and ``senders``
@@ -317,6 +349,16 @@ def _resident_blocks(dx: int, F: int, D: int, n_items: int, bf16: bool, device: 
 
 
 @functools.lru_cache(maxsize=None)
+def _resident_blocks_x2(F: int, D: int, n_items: int, run: int, bf16: bool,
+                        device: str) -> int:
+    """Blocks of the 8-lane dx the card holds at once at these widths and
+    run of senders."""
+    per_sm = _library().dp_tp_scalar_bwd_x_l2_blocks_per_sm(F, D, n_items, run, int(bf16))
+    _raise_on(max(0, -per_sm), "tp_scalar_bwd_x_l2 occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _edge_blocks(need_dsh: bool, bf16: bool, device: str, l2: bool = False) -> int:
     """Blocks of the edge backward the card holds at once."""
     query = (_library().dp_tp_scalar_bwd_edge_blocks_per_sm_l2 if l2
@@ -342,11 +384,14 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_scalar_bwd_edge_l2.argtypes = lib.dp_tp_scalar_bwd_edge.argtypes
     lib.dp_tp_scalar_blocks_per_sm_l2.argtypes = [i] * 5
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2.argtypes = [i] * 2
+    lib.dp_tp_scalar_bwd_x_l2_smem.argtypes = [i] * 4
+    lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm.argtypes = [i] * 5
     for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_edge, lib.dp_tp_scalar_bwd_x,
                lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm,
                lib.dp_tp_scalar_fwd_l2, lib.dp_tp_scalar_bwd_edge_l2, lib.dp_tp_scalar_bwd_x_l2,
                lib.dp_tp_scalar_blocks_per_sm_l2, lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2,
-               lib.dp_tp_scalar_bwd_x_idx, lib.dp_tp_scalar_bwd_x_idx_l2):
+               lib.dp_tp_scalar_bwd_x_idx, lib.dp_tp_scalar_bwd_x_idx_l2,
+               lib.dp_tp_scalar_bwd_x_l2_smem, lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -435,24 +480,29 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
                       lists: Optional[DxLists] = None) -> torch.Tensor:
     """dx of every path in one launch, in x's type (x gives its shape and
     type only; and the sum of the receiver splits' f32 partial sums where
-    :func:`launch_chunk` splits).  The sender-index mode forms each slot's
-    f32 term once (receiver by receiver), sums each sender's terms in chunks
-    (:func:`dx_lists`: ``lists``, built here when not given), then each
-    sender's chunks in order: three kernels, one launch."""
+    :func:`launch_chunk` splits; at 8 lanes by runs of senders and receiver
+    chunks, :func:`launch_plan_l2`).  The sender-index mode forms each
+    slot's f32 term once (receiver by receiver), sums each sender's terms in
+    chunks (:func:`dx_lists`: ``lists``, built here when not given), then
+    each sender's chunks in order: three kernels, one launch."""
     B, N, M, D, S, F = _check_conv(tp, x, sh, w, g, sender_index)
     chan, scale, d_ptr, d_item = _device_conv_tables(tp, str(x.device), x.dtype)
     dx = torch.empty_like(x)
     l2 = lanes(tp) == K_PAD_L2
     bf16 = int(x.dtype == torch.bfloat16)
     if sender_index is None:
-        chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
+        if l2:
+            keep, chunk, splits = launch_plan_l2(tp, B, N, M, x.device, x.dtype)
+        else:
+            keep = keep_of(F)
+            chunk, splits = launch_chunk(tp, B, N, M, True, x.device, x.dtype)
         part = (torch.empty((splits, B, M, D), dtype=torch.float32, device=x.device)
                 if splits > 1 else None)
         launch = _library().dp_tp_scalar_bwd_x_l2 if l2 else _library().dp_tp_scalar_bwd_x
         rc = launch(
             sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
             d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(), _ptr(part), B, N, M, D, S, F,
-            d_item.shape[0], keep_of(F), chunk, splits, bf16, _stream(x.device))
+            d_item.shape[0], keep, chunk, splits, bf16, _stream(x.device))
     else:
         m_x = x.shape[1]
         if lists is None:
@@ -471,10 +521,24 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
     return dx
 
 
+def launch_plan_l2(tp: ChannelwiseTP, B: int, N: int, M: int, device,
+                   dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """(run, chunk, splits) of the 8-lane dx launch on the card
+    (:func:`plan_chunk_l2`): blocks for ``X2_WAVES`` times every block slot
+    the card holds at these widths, so that the last wave's share is small."""
+    F = tp.weight_numel
+    run = plan_run_l2(M, F)
+    n_items = len(_conv_tables(tp, dtype)[3])
+    target = max(TARGET_BLOCKS, X2_WAVES * _resident_blocks_x2(
+        F, tp.irreps_in.dim, n_items, run, dtype == torch.bfloat16, str(device)))
+    return plan_chunk_l2(B, N, M, F, target)
+
+
 def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
                  dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
-    """(chunk, splits) of the forward (or dx) launch on the card: enough
-    blocks for every block slot the card holds at these widths."""
+    """(chunk, splits) of the forward (or the 4-lane dx) launch on the card:
+    enough blocks for every block slot the card holds at these widths (the
+    8-lane dx: :func:`launch_plan_l2`)."""
     F = tp.weight_numel
     n_items = len(_conv_tables(tp, dtype)[3])
     target = max(TARGET_BLOCKS, _resident_blocks(int(dx), F, tp.irreps_in.dim, n_items,

@@ -1356,3 +1356,178 @@ def test_tp_aggregate_index_dx_on_a_nearest_point_index(cuda, sig, dtype):
     assert counter.launches == before + 3
     assert torch.equal(dx, again) and torch.equal(dx, inside)
     _assert_grads(("dx",), (dx,), (ref_dx,), dt)
+
+
+# ---- the sender-index K2 forward (tp_aggregate_fwd_idx_tiled_kernel) and
+# the 8-lane K3 dx (tp_scalar_bwd_x_l2_kernel)
+
+#: (in irreps, sh irreps, out irreps) of the sender-index forward's cases:
+#: the KNN phore convs at 4 and 8 lanes, and final_conv's signatures, whose
+#: bf16 rows of w (200 and 280 bytes) are not a multiple of 16 bytes, and a
+#: narrow one with odd F (a row of w not 4-byte aligned) and D % 4 != 0
+IDX_FWD_SIGNATURES = {
+    "l1_layer1": (SEQ[1], SH, SEQ[2]), "l1_layer2": (SEQ[2], SH, SEQ[3]),
+    "l2_layer1": (SEQ2[1], SH, SEQ2[2]), "l2_layer2": (SEQ2[2], SH, SEQ2[3]),
+    "l1_final": (SEQ[3], SH, "2x1o + 2x1e"), "l2_final": (SEQ2[3], SH, "2x1o + 2x1e"),
+    "l1_narrow": ("5x0e + 3x1o", SH, "5x0e + 2x1o"),
+}
+
+
+def _idx_forward_case(tp, cuda, B, N, K, Mx, dt, idx=None, dead=False, seed=5):
+    """x, index, sh and w (dead receivers and a live count of slots per
+    receiver as _index_inputs makes them; every slot dead with ``dead``) in
+    ``dt``, with the plain version's output on them."""
+    x, idx0, sh, _, masks = _index_inputs(tp, cuda, B, N, K, Mx, seed=seed)
+    idx = idx0 if idx is None else idx
+    rng = np.random.default_rng(seed + 1)
+    w = torch.from_numpy(rng.normal(size=(B, N, K, tp.weight_numel)).astype(np.float32)).to(cuda)
+    w = w * (0.0 if dead else masks[0][..., None].float())
+    x, sh, w = x.to(dt), sh.to(dt), w.to(dt).contiguous()
+    ref = tp_aggregate.tp_aggregate_plain(tp, x, sh, w, sender_index=idx)
+    return x, idx, sh, w, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(IDX_FWD_SIGNATURES))
+@pytest.mark.parametrize("K", [24, 7, 40])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_index_forward_matches_plain(cuda, sig, K, dtype):
+    """The sender-index forward by channel tile at 4 and 8 lanes, K = 24, 7
+    and 40, dead receivers and dead slots: against the plain version, f32
+    within 1e-4 and bf16 within 1e-5 of scale; pad lanes zero; equal to the
+    bit on a rerun and whether w's live bits are given or made in the call;
+    one launch a call on its lanes' index counter, none on the others."""
+    tp = channelwise_tp(*IDX_FWD_SIGNATURES[sig])
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, idx, sh, w, ref = _idx_forward_case(tp, cuda, 3, 37, K, 29, dt)
+    counter = tp_aggregate.FWD_IDX_L2 if tp_fused.lanes(tp) == 8 else tp_aggregate.FWD_IDX
+    others = [k for k in (tp_aggregate.FWD, tp_aggregate.FWD_L2, tp_aggregate.FWD_IDX,
+                          tp_aggregate.FWD_IDX_L2) if k is not counter]
+    before = [counter.launches] + [k.launches for k in others]
+    out, bits = tp_aggregate.forward_idx(tp, x, sh, w, idx)
+    again = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx)
+    given = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx,
+                                        live=tp_aggregate.live_rows_l2(w))
+    torch.cuda.synchronize()
+    assert [counter.launches] + [k.launches for k in others] == [before[0] + 3] + before[1:]
+    assert torch.equal(bits, tp_aggregate.live_rows_plain(w))
+    assert torch.equal(out, again) and torch.equal(out, given)
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    pad = 1 - _lanes(tp, torch.ones_like(out))
+    assert float((out * pad).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", ["l1_layer2", "l2_layer2", "l2_final"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_aggregate_index_forward_edge_cases(cuda, sig, dtype):
+    """The sender-index forward with every slot dead (exact zeros), with an
+    index that names one sender in every slot (each receiver's sum of that
+    sender's terms), and at the KNN step's shape (24 rows, 96 points, K =
+    24) on a nearest-live-point index with dead receivers' rows of w zero:
+    against the plain version as above, reruns equal to the bit."""
+    tp = channelwise_tp(*IDX_FWD_SIGNATURES[sig])
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    x, idx, sh, w, _ = _idx_forward_case(tp, cuda, 2, 9, 24, 11, dt, dead=True)
+    out = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx)
+    torch.cuda.synchronize()
+    assert float(out.abs().max()) == 0.0
+    same = torch.full((2, 9, 24), 4, dtype=torch.int32, device=cuda)
+    x, idx, sh, w, ref = _idx_forward_case(tp, cuda, 2, 9, 24, 11, dt, idx=same)
+    out = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    B, P, K = 24, 96, 24
+    idx, live = _nearest_index(cuda, B, P, K, seed=3)
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    x = t(rng.normal(size=(B, P, tp.irreps_in.dim))).to(dt)
+    sh = t(rng.normal(size=(B, P, K, tp.irreps_sh.dim))).to(dt)
+    w = (t(rng.normal(size=(B, P, K, tp.weight_numel))) * live[:, :, None, None]).to(dt)
+    ref = tp_aggregate.tp_aggregate_plain(tp, x, sh, w, sender_index=idx)
+    out = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx)
+    again = tp_aggregate.launch_forward(tp, x, sh, w, sender_index=idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def _x2_launch(tp, x, sh, w, g, run, chunk, splits):
+    """The 8-lane K3 dx on a plan of the caller's: (run, chunk, splits)."""
+    B, N, M, S = sh.shape
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    chan, scale, d_ptr, d_item = tp_scalar._device_conv_tables(tp, str(x.device), x.dtype)
+    dx = torch.empty_like(x)
+    part = torch.empty((splits, B, M, D), device=x.device) if splits > 1 else None
+    rc = tp_scalar._library().dp_tp_scalar_bwd_x_l2(
+        sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), scale.data_ptr(),
+        d_ptr.data_ptr(), d_item.data_ptr(), dx.data_ptr(), None if part is None else
+        part.data_ptr(), B, N, M, D, S, F, d_item.shape[0], run, chunk, splits,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    tp_scalar._raise_on(rc, "tp_scalar_bwd_x_l2")
+    return dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plans", [
+    ((1, 1, 1), [(1, 1, 1)]),
+    ((2, 1, 24), [(12, 1, 1), (5, 1, 1)]),
+    ((1, 9, 3), [(3, 9, 1), (2, 4, 3), (1, 1, 9)]),
+    ((24, 96, 96), [(16, 96, 1), (16, 24, 4), (13, 10, 10)]),
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_l2_dx_plans(cuda, shape, plans, dtype):
+    """The 8-lane K3 dx (F = 60) at N = 1, M = 1 and the widest layer-0
+    shape, on the planned grid and on runs of senders and receiver splits
+    of the test's own: against autograd through the plain version (f32
+    within 1e-4 of scale, bf16 within one rounding step), reruns equal to
+    the bit; one launch a call on BWD_X_L2."""
+    tp = channelwise_tp(SEQ2[0], SH, SEQ2[1])
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, sh, w = [v.to(dt) for v in _k3_conv_inputs(cuda, tp, *shape)]
+    B, N, M, _ = sh.shape
+    g = torch.randn((B, N, tp.weight_numel, 8), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    xl = x.float().requires_grad_(True)
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, xl.to(dt), sh, w)
+    (want,) = torch.autograd.grad(ref, [xl], g * _lanes(tp, g))
+    before = tp_scalar.BWD_X_L2.launches
+    planned = tp_scalar.launch_backward_x(tp, x, sh, w, g)
+    again = tp_scalar.launch_backward_x(tp, x, sh, w, g)
+    got = [planned] + [_x2_launch(tp, x, sh, w, g, *plan) for plan in plans]
+    got_again = [_x2_launch(tp, x, sh, w, g, *plan) for plan in plans]
+    torch.cuda.synchronize()
+    assert tp_scalar.BWD_X_L2.launches == before + 2
+    assert torch.equal(planned, again)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], got_again))
+    _assert_grads(["dx"] * len(got), got, [want] * len(got), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(IDX_FWD_SIGNATURES))
+def test_index_forward_and_k3_dx_layout_counts(cuda, sig):
+    """The libraries' counts of the sender-index forward's and of the
+    8-lane K3 dx's shared memory equal the plain copies of the layouts
+    (tests/torch_kernel_layouts.py) that the CPU tests hold to a budget;
+    the occupancy queries give two blocks an SM or more (the K3 dx three)."""
+    tp = channelwise_tp(*IDX_FWD_SIGNATURES[sig])
+    lib = tp_aggregate._library()
+    sizes = tp_aggregate.layout_sizes_l2(tp, False)[:5]
+    for esize in (4, 2):
+        assert lib.dp_tp_aggregate_idx_fwd_smem(*sizes, esize) == \
+            layouts.k2_idx_fwd_smem(*sizes, esize), esize
+        assert lib.dp_tp_aggregate_idx_fwd_blocks_per_sm(*sizes, tp_fused.lanes(tp),
+                                                         int(esize == 2)) >= 2
+    k3 = channelwise_tp(SEQ2[0], SH, SEQ2[1])
+    F, D = k3.weight_numel, k3.irreps_in.dim
+    ni = len(tp_scalar._conv_tables(k3, torch.float32)[3])
+    for M in (1, 24, 96):
+        run = tp_scalar.plan_run_l2(M, F)
+        assert tp_scalar._library().dp_tp_scalar_bwd_x_l2_smem(F, D, ni, run) == \
+            layouts.k3_dx_l2_smem(F, D, ni, run)
+        for bf16 in (0, 1):
+            assert tp_scalar._library().dp_tp_scalar_bwd_x_l2_blocks_per_sm(
+                F, D, ni, run, bf16) >= 3

@@ -882,3 +882,190 @@ def test_index_dx_k2_reproduces_the_plain_and_jax_dx(lanes, k, Q):
         tp, jt.aggregate(x_[bidx, idx], jnp.asarray(sh), jnp.asarray(w)), lanes) * g).sum())(
             jnp.asarray(x)))
     assert float(np.abs(got.numpy() - jdx).max()) <= TOL * float(np.abs(jdx).max())
+
+
+# ---- the sender-index K2 forward (both lane counts): the dense tiled
+# forward's channel tiles, each slot's x slice read at the index
+
+#: (B, N, K) of the sender-index forward: the KNN step's and serving shapes,
+#: B = 1, short and long slot rows (K = 7, 40, 100: more than a split takes)
+IDX_FWD_SHAPES = [(24, 96, 24), (40, 96, 24), (1, 96, 24), (1, 5, 7), (2, 3, 40), (1, 8, 100),
+                  (3, 37, 5)]
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_idx_forward_split_plan_and_layout(lanes):
+    """The sender-index forward's shared memory (``t2_layout`` with idx,
+    tests/torch_kernel_layouts.py) fits two blocks an SM of an H100 on the
+    KNN phore convs, f32 and bf16; its slot splits (``plan_splits_idx``)
+    are the dense tiled forward's or more, none takes more than
+    ``IDX_SUMMED`` slots, and more than that fill the card."""
+    for sig in SIGNATURES_IDX[lanes]:
+        tp = channelwise_tp(*sig)
+        assert tp_fused.lanes(tp) == lanes
+        tiles = len(tp_fused.channel_tiles(tp))
+        sizes = tp_aggregate.layout_sizes_l2(tp, False)[:5]
+        for esize in (4, 2):
+            smem = layouts.k2_idx_fwd_smem(*sizes, esize)
+            assert smem <= tp_fused.SMEM_L2, (sig, esize, smem)
+            assert layouts.blocks_per_sm(smem) >= 2
+            target = max(tp_fused.TARGET_BLOCKS, H100_SMS * min(8, layouts.blocks_per_sm(smem)))
+            for B, N, K in IDX_FWD_SHAPES:
+                splits = tp_aggregate.plan_splits_idx(B, N, K, tiles, target)
+                assert tp_aggregate.plan_splits_l2(B, N, K, tiles, target) <= splits <= max(1, K)
+                assert -(-K // splits) <= tp_aggregate.IDX_SUMMED, (B, N, K)
+                if -(-K // tp_aggregate.IDX_SUMMED) < splits < K // tp_aggregate.TILE_SUM:
+                    assert B * -(-N // tp_aggregate.KEEP) * tiles * splits >= target
+
+
+def _tiled_k2_idx(tp, x, sh, w, idx, splits, lanes):
+    """The sender-index forward's f32 arithmetic read from
+    ``tables_tiled_l2`` as the kernel reads it, in plain PyTorch: per channel
+    tile its t rows, each slot's x slice gathered at the index from the
+    tile's x_lo, the slots cut into ``splits`` strided parts (part k takes
+    k, k + splits, ...) whose sums are added in order."""
+    chan, ptab, gflat, ctab, _, dims = tp_fused.tables_tiled_l2(tp)
+    B, N, K, _ = sh.shape
+    xs = x[torch.arange(B)[:, None, None], idx.long()]               # (B, N, K, D)
+    out = torch.zeros((B, N, tp.weight_numel, lanes))
+    for f0, fc, p0, pc, x_lo, xw, g0, _ in ctab.tolist():
+        tt = torch.zeros((B, N, K, dims[1]))
+        for q in range(p0, p0 + pc):
+            sh_off, d1, d2, d3, t_off, g_off = ptab[q, :6].tolist()
+            G = torch.from_numpy(gflat[g0 + g_off:g0 + g_off + d1 * d2 * d3].reshape(d1, d2, d3))
+            tt[..., t_off:t_off + d1 * d3] = torch.einsum(
+                "ijk,bnmj->bnmik", G, sh[..., sh_off:sh_off + d2]).reshape(B, N, K, d1 * d3)
+        for f in range(f0, f0 + fc):
+            xo, d1, d3, pl = chan[f].tolist()
+            t_off = int(ptab[p0 + pl, 4])
+            tf = tt[..., t_off:t_off + d1 * d3].reshape(B, N, K, d1, d3)
+            xf = xs[..., x_lo + xo:x_lo + xo + d1]
+            fwd = torch.einsum("bnm,bnmi,bnmik->bnmk", w[..., f], xf, tf)
+            out[:, :, f, :d3] = sum(fwd[:, :, s::splits].sum(2) for s in range(splits))
+    return out
+
+
+@pytest.mark.parametrize("lanes,k", [(4, 0), (4, 1), (8, 0), (8, 1)])
+@pytest.mark.parametrize("K,splits", [(7, 1), (7, 3), (40, 1)])
+def test_idx_forward_reproduces_the_plain_and_jax_aggregate(lanes, k, K, splits):
+    """The sender-index forward's emulation (4 and 8 lanes; K = 7 whole and
+    in three strided splits, K = 40; dead receivers and dead slots; one
+    sender in every receiver's first slot) against ``tp_aggregate_plain`` in
+    the sender-index mode and the JAX package's aggregate on x gathered per
+    receiver: to 1e-5 of the output's scale; the pad lanes stay zero."""
+    tp = channelwise_tp(*SIGNATURES_IDX[lanes][k])
+    rng = np.random.default_rng(lanes + 10 * k + K + splits)
+    B, N, Mx = 2, 9, 11
+    D = tp.irreps_in.dim
+    idx = rng.integers(0, Mx, (B, N, K)).astype(np.int32)
+    idx[:, :, 0] = 3
+    x = rng.normal(size=(B, Mx, D)).astype(np.float32)
+    sh = rng.normal(size=(B, N, K, 9)).astype(np.float32)
+    live = rng.integers(0, K + 1, (B, N, 1)) > np.arange(K)
+    live[:, 4] = False                                   # a dead receiver
+    w = (rng.normal(size=(B, N, K, tp.weight_numel)) * live[..., None]).astype(np.float32)
+    got = _tiled_k2_idx(tp, T(x), T(sh), T(w), T(idx), splits, lanes)
+    want = tp_aggregate.tp_aggregate_plain(tp, T(x), T(sh), T(w), sender_index=T(idx))
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    assert float(got[:, 4].abs().max()) == 0.0
+
+    jt = jtp.channelwise_tp(*SIGNATURES_IDX[lanes][k])
+    jout = np.asarray(_jax_padded(tp, jt.aggregate(jnp.asarray(x[np.arange(B)[:, None, None],
+                                                                    idx]),
+                                                   jnp.asarray(sh), jnp.asarray(w)), lanes))
+    assert float(np.abs(got.numpy() - jout).max()) <= TOL * float(np.abs(jout).max())
+
+
+# ---- the 8-lane K3 dx: runs of senders, four a thread, chunks of receivers
+
+#: (B, N, M) of the six layer-0 training convs at batch 24 and the edge cases
+K3_DX_SHAPES = [(24, 24, 24), (24, 24, 96), (24, 96, 24), (24, 96, 96), (1, 1, 1), (24, 1, 24),
+                (1, 96, 1), (3, 37, 29), (2, 9, 300)]
+
+
+@pytest.mark.parametrize("F", [60, 40, 7, 256])
+def test_k3_dx_l2_plan_covers_the_convs_and_fills_the_card(F):
+    """The 8-lane dx's plan (``plan_chunk_l2``): runs of senders, ``X2_Q``
+    a thread, at most ``X2_THREADS`` threads a block, that tile the senders
+    as evenly as that allows, receiver chunks that tile the receivers, none
+    under ``X2_MIN_CHUNK`` receivers where there are that many, and a grid
+    that holds every block slot of the card unless the receivers run out;
+    its shared memory (``x2_floats``) fits eight blocks an SM at F = 60."""
+    D, ni = 20, 3 * 20
+    for B, N, M in K3_DX_SHAPES:
+        run = tp_scalar.plan_run_l2(M, F)
+        smem = layouts.k3_dx_l2_smem(F, D, ni, run)
+        if F == 60:
+            assert layouts.blocks_per_sm(smem) >= 8, (M, smem)
+        for target in (tp_scalar.TARGET_BLOCKS, 8 * H100_SMS):
+            run_, chunk, splits = tp_scalar.plan_chunk_l2(B, N, M, F, target)
+            threads = -(-run // tp_scalar.X2_Q) * F
+            assert run_ == run and 1 <= threads <= max(F, tp_scalar.X2_THREADS)
+            runs = -(-M // run)
+            assert run * (runs - 1) < M <= run * runs                  # no empty run
+            assert run * runs - M < runs                               # as even as it can be
+            assert chunk * (splits - 1) < N <= chunk * splits          # no empty chunk
+            if N >= tp_scalar.X2_MIN_CHUNK:
+                assert chunk >= tp_scalar.X2_MIN_CHUNK
+            if splits < N // tp_scalar.X2_MIN_CHUNK:
+                assert B * runs * splits >= target
+
+
+def _k3_dx_l2(tp, sh, w, g, run, chunk):
+    """The 8-lane dx's f32 arithmetic in the kernel's grouping, in plain
+    PyTorch: per (run of senders, chunk of receivers) each (sender,
+    channel)'s sum over the chunk of w sum_{k < K} sh[off + k] g[k], times
+    c_p, then the channels reading an element in d_item order; the chunks'
+    partial sums added in order."""
+    chan, scale, d_ptr, d_item = tp_scalar._conv_tables(tp, torch.float32)
+    B, N, M, S = sh.shape
+    F, D = tp.weight_numel, tp.irreps_in.dim
+    t = torch.zeros((B, N, M, F))
+    for k in range(5):
+        on = torch.from_numpy(chan[:, 2] > k)
+        comp = torch.from_numpy(np.minimum(chan[:, 1] + k, S - 1))
+        t = t + torch.where(on, sh[..., comp] * g[:, :, None, :, k], torch.zeros(F))
+    dx = torch.zeros((B, M, D))
+    for m0 in range(0, M, run):
+        total = 0.0
+        for n0 in range(0, N, chunk):
+            acc = (w[:, n0:n0 + chunk, m0:m0 + run] * t[:, n0:n0 + chunk, m0:m0 + run]).sum(1)
+            acc = acc * torch.from_numpy(scale)
+            part = torch.zeros(acc.shape[:2] + (D,))
+            for d in range(D):
+                for f in d_item[d_ptr[d]:d_ptr[d + 1]].tolist():
+                    part[..., d] += acc[..., f]
+            total = total + part
+        dx[:, m0:m0 + run] = total
+    return dx
+
+
+@pytest.mark.parametrize("B,N,M,run,chunk", [(2, 9, 7, 3, 4), (1, 1, 1, 1, 1), (2, 5, 11, 11, 5),
+                                             (3, 17, 4, 2, 8)])
+def test_k3_dx_l2_reproduces_the_plain_and_jax_dx(B, N, M, run, chunk):
+    """The 8-lane dx's emulation (runs of senders and chunks of receivers,
+    the upstream gradient's pad lanes noise) against the gradient in x of
+    ``scalar_paths_aggregate_plain`` and of the JAX package's aggregate on
+    the second-order layer-0 conv: to 1e-5 of dx's scale."""
+    tp = channelwise_tp(SEQ2[0], SH, SEQ2[1])
+    assert tp_fused.lanes(tp) == 8 and tp_scalar.all_scalar_paths(tp)
+    rng = np.random.default_rng(B * 100 + N + M)
+    D = tp.irreps_in.dim
+    x = rng.normal(size=(B, M, D)).astype(np.float32)
+    sh = rng.normal(size=(B, N, M, 9)).astype(np.float32)
+    w = (rng.normal(size=(B, N, M, tp.weight_numel))
+         * (rng.random((B, N, M, 1)) > 0.3)).astype(np.float32)
+    g, mask = _upstream(tp, rng, B, N, 8)
+    got = _k3_dx_l2(tp, T(sh), T(w), T(g), run, chunk)
+
+    xl = T(x).requires_grad_(True)
+    out = tp_scalar.scalar_paths_aggregate_plain(tp, xl, T(sh), T(w))
+    (want,) = torch.autograd.grad(out, [xl], T(g * mask))
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+
+    jt = jtp.channelwise_tp(SEQ2[0], SH, SEQ2[1])
+    jdx = np.asarray(jax.grad(lambda x_: (_jax_padded(
+        tp, jt.aggregate(x_, jnp.asarray(sh), jnp.asarray(w)), 8) * g * mask).sum())(
+            jnp.asarray(x)))
+    assert float(np.abs(got.numpy() - jdx).max()) <= TOL * float(np.abs(jdx).max())

@@ -33,6 +33,24 @@ def k2_l2_smem(dx: bool, ftp: int, dxw: int, ts: int, gs: int, pc: int, ni: int,
     return 4 * floats
 
 
+def k2_idx_fwd_smem(ftp: int, dxw: int, ts: int, gs: int, pc: int, esize: int) -> int:
+    """Bytes of the sender-index K2 forward's block (``t2_layout`` with
+    idx): the dense tiled forward's, each stage's x slices one a row (32 of
+    DXW elements in the operands' type, not four), then each kept
+    receiver's slots' sender rows (8 x 64 ints)."""
+    stage = pad4(32 * ftp * esize // 4 + 32 * 13 + 32 * dxw * esize // 4)
+    floats = (2 * stage + pad4(32 * ts) + pad4(gs) + pad4(pc * 8) + pad4(pc * 5)
+              + 8 * 32 + 256 + 260 + 8 * 64)
+    return 4 * floats
+
+
+def k3_dx_l2_smem(F: int, D: int, ni: int, run: int) -> int:
+    """Bytes of the 8-lane K3 dx's block (``x2_floats`` in
+    csrc/tp_scalar.cu): the (sender, channel) sums of its run of senders,
+    then the d lists (D + 1 extents, NI items)."""
+    return 4 * (pad4(run * F) + pad4(D + 1) + pad4(ni))
+
+
 def edge_l2_smem(dsh: bool, D: int, F: int, pt: int, ps: int) -> int:
     """Bytes of the 8-lane edge backward's block (``edge_layout``): the
     receiver's P (PT floats), 32 senders' x rows (D | 1 floats each), their
