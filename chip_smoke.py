@@ -1181,8 +1181,12 @@ def phase_k3_check(calls):
             else:
                 lists = dx_kw["lists"]
                 dx_grid = f"Q={lists.Q} x {int(lists.row_ptr[-1])} chunks, {lists.blocks} blocks"
-            case["grid" + tag] = {
-                "fwd": k3.launch_chunk(tp, B, N, M, False, x.device, dtype)[1], "bwd_x": dx_grid}
+            if idx is None and n_lanes(tp) == 8:   # whole receivers a block, no splits
+                R, SL, MC = k3.launch_plan_fwd_l2(tp, B, N, M, x.device, dtype)
+                fwd_grid = f"1 ({R} receivers x {SL} slices a block, {MC} senders staged)"
+            else:
+                fwd_grid = k3.launch_chunk(tp, B, N, M, False, x.device, dtype)[1]
+            case["grid" + tag] = {"fwd": fwd_grid, "bwd_x": dx_grid}
             case["library_ms" + tag] = (k3_library_ms(tp, x, sh, w, g, sh_grad) if idx is None
                                         else index_library_ms(tp, x, sh, w, g, idx))
             if dtype == torch.float32:
@@ -1219,7 +1223,7 @@ def phase_k3_check(calls):
 def k3_kernel_entries(cases, launches, launches_training, l2=False):
     """The report entries of K3's three kernels, summed over the calls one
     train step makes (the edge backward with dsh on the convs whose
-    harmonics need a gradient); ``l2``: the 8-lane instantiations, names
+    harmonics need a gradient); ``l2``: the 8-lane kernels, names
     ending in ``_l2``."""
     labels = {"fwd": ("out",), "bwd_edge": ("dw", "dsh"), "bwd_x": ("dx",)}
     suffix = "_l2" if l2 else ""
@@ -1255,8 +1259,11 @@ def k3_kernel_entries(cases, launches, launches_training, l2=False):
                     + (" (dsh's where the conv needs it)" if k == "bwd_edge" else "")
                     + ", by graph replay",
         })
-        if l2 and k == "bwd_x":   # its own kernel: a block per (run of senders, receivers)
-            entries[-1]["device_kernels"] = ["tp_scalar_bwd_x_l2_kernel", "tp_scalar_sum_splits"]
+        if l2:   # kernels of their own at 8 lanes
+            entries[-1]["device_kernels"] = {
+                "fwd": ["tp_scalar_fwd_l2_kernel"],
+                "bwd_edge": ["tp_scalar_bwd_edge_l2_kernel"],
+                "bwd_x": ["tp_scalar_bwd_x_l2_kernel", "tp_scalar_sum_splits"]}[k]
     return entries
 
 

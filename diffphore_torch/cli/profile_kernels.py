@@ -72,7 +72,9 @@ alone; a summary per (kernel, lanes, dtype), and a ``step`` line per
 not run it, the live pass.  ``--k3_l2`` times K3's 8-lane forward, dx and
 edge backward (dsh where the step asks for it) on the six layer-0 convs of a
 second-order training step (``K3_CASES`` shapes, 20x0e -> SEQ2[1], g (B, N,
-F, 8)), f32 and bf16, with a summary line per (kernel, dtype).  Both call
+F, 8)), f32 and bf16, with a summary line per (kernel, dtype); the forward's
+and the edge backward's lines carry their blocks an SM and the forward's
+grid (``k3_l2_plan``).  Both call
 only ``launch_forward``, ``launch_backward_edge`` and ``launch_backward_x``,
 so they run unchanged in a tree from before these kernels' redesign.
 """
@@ -499,11 +501,35 @@ def k2_index_cases(randn, gen, card) -> list:
     return results
 
 
+def k3_l2_plan(tp, B, N, M, dtype, dsh) -> dict:
+    """The blocks an SM of this tree's 8-lane K3 forward and edge backward
+    (from their occupancy queries) and the forward's grid: its
+    (receivers, slices, staged senders) a block where the tree has the
+    whole-receiver forward, else its sender splits."""
+    device, bf16 = "cuda:0", dtype == torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    F, S, D = tp.weight_numel, tp.irreps_sh.dim, tp.irreps_in.dim
+    if hasattr(tp_scalar, "launch_plan_fwd_l2"):
+        t = tp_scalar.units_l2(tp, dtype)
+        n_items = int(t.comp_ptr[-1])
+        return {"fwd_blocks_per_sm": tp_scalar._resident_blocks_f2(
+                    F, len(t.units), S, D, t.vec, bf16, device) // sms,
+                "fwd_plan": list(tp_scalar.launch_plan_fwd_l2(tp, B, N, M, device, dtype)),
+                "edge_blocks_per_sm": tp_scalar._edge_blocks_l2(
+                    dsh, t.vec, S, n_items, bf16, device) // sms}
+    n_items = len(tp_scalar._conv_tables(tp, dtype)[3])
+    return {"fwd_blocks_per_sm": tp_scalar._resident_blocks(0, F, D, n_items, bf16, device,
+                                                           True) // sms,
+            "fwd_splits": tp_scalar.launch_chunk(tp, B, N, M, False, device, dtype)[1],
+            "edge_blocks_per_sm": tp_scalar._edge_blocks(dsh, bf16, device, True) // sms}
+
+
 def k3_l2_cases(randn, card) -> list:
     """K3's 8-lane forward, dx and edge backward (dsh where the step asks
     for it) on the six layer-0 convs of a second-order training step
     (``K3_CASES`` shapes, 20x0e -> SEQ2[1], F = 60, g (B, N, F, 8)), f32 and
-    bf16: per-kernel device time and graph_us per conv, and a summary line
+    bf16: per-kernel device time and graph_us per conv (the forward's and
+    the edge backward's lines with :func:`k3_l2_plan`), and a summary line
     per (kernel, dtype) over the six."""
     results = []
     tp = channelwise_tp(SEQ2[0], SH, SEQ2[1])
@@ -518,6 +544,7 @@ def k3_l2_cases(randn, card) -> list:
             w[:, :live_n, :live_m] = randn(B, live_n, live_m, F)
             x, sh, w = x.to(dtype), sh.to(dtype), w.to(dtype)
             g = randn(B, N, F, 8)
+            plan = k3_l2_plan(tp, B, N, M, dtype, dsh)
             for kernel, call in (
                     ("tp_scalar_fwd_l2", lambda: tp_scalar.launch_forward(tp, x, sh, w)),
                     ("tp_scalar_bwd_x_l2", lambda: tp_scalar.launch_backward_x(tp, x, sh, w, g)),
@@ -527,6 +554,9 @@ def k3_l2_cases(randn, card) -> list:
                 r = {"kernel": kernel, "conv": name, "dtype": str(dtype), "B": B, "N": N, "M": M,
                      "F": F, "dsh": dsh, "us": times, "us_total": sum(times.values()),
                      "graph_us": graph_us(call), "card": card}
+                if kernel != "tp_scalar_bwd_x_l2":
+                    part = "fwd" if kernel == "tp_scalar_fwd_l2" else "edge"
+                    r.update({k: v for k, v in plan.items() if k.startswith(part)})
                 results.append(r)
                 print(json.dumps(r), flush=True)
                 sums[kernel]["calls"] += 1

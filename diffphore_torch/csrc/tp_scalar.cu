@@ -72,15 +72,66 @@
 //    (edge, component) adds the edge's G lanes in order and writes the full
 //    S-component row (0 where no path reads).  No atomics: two runs agree
 //    to the bit.
-// Lanes.  Every kernel is a template on L, the largest l of the
+// Lanes.  Every kernel above is a template on L, the largest l of the
 // convolution's irreps.  L = 1 is the 4-lane layout above (K <= 3, g and out
-// (B, N, F, 4), P = 4 components in the edge backward).  L = 2 is the same
-// code with five sums a channel (K <= 5: the 0e x 2e -> 2e path of the
-// second-order layer-0 convolutions), g and out (B, N, F, 8) (lanes 5-7
-// zero, never read), and the edge backward reading all P = 9 harmonic
-// components (that path reads components 4-8); `if constexpr` keeps the
-// L = 1 instantiations as they were.  dx at L = 2 has a kernel of its own,
-// tp_scalar_bwd_x_l2_kernel.  The dx above, a thread per (sender, channel),
+// (B, N, F, 4), P = 4 components in the edge backward).  At L = 2 (K <= 5:
+// the 0e x 2e -> 2e path of the second-order layer-0 convolutions; g and out
+// (B, N, F, 8), lanes 5-7 zero, never read) the sender-index mode runs the
+// same code with five sums a channel and the edge backward reading all P =
+// 9 harmonic components (`if constexpr` keeps the L = 1 instantiations as
+// they were); the dense mode has three kernels of its own.
+// Their lane is a unit (tp_scalar.units_l2): up to four neighbouring channels
+// of one path, so it reads x and w as one 16-byte (f32) or 8-byte (bf16)
+// access where every path is four channels wide at a multiple of four and
+// the bases allow (else element by element: the same sums in the same
+// order), and only its path's K harmonic components.
+//  * tp_scalar_fwd_l2_kernel.  The L = 2 instantiation of the forward above
+//    split the senders across blocks until the grid filled the card, and
+//    wrote and re-read (B, N, F, 8) f32 partial sums a split (24-95 MB over
+//    the six layer-0 convs, beside w's 110 / 55 MB) in a second kernel;
+//    each thread (receiver, channel) loaded x, w and five harmonic
+//    components an edge: 0.114-0.117 / 0.110-0.113 ms (f32 / bf16) over the
+//    six convs, 0.101-0.102 / 0.098-0.104 on one split
+//    (analysis/k3_l2_fwd_edge_variants.py, NVIDIA H100 80GB HBM3 at 700 W).
+//    Here a block owns R whole receivers of one batch row and all their
+//    senders: thread = (receiver, slice of SL, unit), the slices of a
+//    receiver sum its senders s, s + SL, ... in order, F2_U = 4 senders'
+//    w in flight a lane, with a chunk of MC senders' harmonics (the block's
+//    receivers) and rows of x staged in shared memory as f32 (f32 operands
+//    by cp.async, every copy in flight at once; bf16 through registers,
+//    four loads a thread in flight); then the slices' sums meet in shared
+//    memory, are added in order and written once.  (R, SL) come from a
+//    cost model over waves of the card's block slots (tp_scalar.plan_fwd_l2,
+//    an occupancy query).  0.0767 / 0.0760 ms (72 / 64 registers; the same
+//    card, PERF.md); staged through registers at f32 too, 0.0892.
+//    Tried and not kept: the same lanes with x, w and the harmonics loaded
+//    from device memory two senders at a time, no staging (0.080 / 0.086:
+//    f32 faster then, bf16 slower); two or eight senders in flight (0.093 / 0.080, 0.100 /
+//    0.080); fixed plans of 1-8 receivers a block (0.093-0.135 /
+//    0.083-0.117); registers capped for three or four blocks an SM (0.088
+//    / 0.081, 0.088 / 0.075 with spills); the staging's loads issued eight
+//    or sixteen a thread before any store (91-96 registers: 0.094 /
+//    0.103-0.111).  Without its staging the forward takes 0.058 / 0.065,
+//    without w's device-memory reads 0.074 / 0.072 (timing only): bf16's staging, whose copies cp.async cannot convert,
+//    is what is left to hide.
+//  * tp_scalar_bwd_edge_l2_kernel.  The L = 2 instantiation of the edge
+//    backward above held coef[4][9] a lane and loaded all nine harmonic
+//    components of each edge (114-128 registers, two blocks an SM), and
+//    added dsh over an edge's 15 lanes in a serial chain: 0.108-0.110 /
+//    0.116-0.127 ms.  Here a lane holds coef[4][5] for its path's K
+//    components and loads only those, dsh component s adds only the units
+//    whose path reads it (5 at F = 60), and its registers are capped for
+//    three blocks an SM (E2_MIN_BLOCKS): 0.0905 / 0.0865 ms (78-80
+//    registers).  Uncapped (90-112 registers, two blocks an SM) it took
+//    0.096 / 0.107.  What bounds it is latency, not bytes: without its
+//    harmonic loads it takes 0.082 / 0.075, without its dw stores 0.072 /
+//    0.080 (timing only), and writing dw alone (fill_) 0.037 /
+//    0.022.  Tried and not kept: one or four steps in flight (0.098 /
+//    0.087, 0.094-0.116 / 0.103-0.105); four or five blocks an SM (spills:
+//    0.099-0.116 / 0.087-0.100); each warp's harmonic rows staged 16 edges
+//    at a time in shared memory, the next chunk's loads in flight (0.108-
+//    0.127 / 0.115-0.135); dsh's sums read four at a time (no change).
+//  * tp_scalar_bwd_x_l2_kernel (dx).  The dx above, a thread per (sender, channel),
 // read its receiver's g row as two float4 for every (edge, channel), 32
 // bytes of which it used 5 floats, from L1 at a 32-byte stride (8 loads of
 // 128 bytes for a warp's 32 channels): 0.133 / 0.129 ms (f32 / bf16) over
@@ -103,7 +154,7 @@
 // blocks an SM (0.22-0.24 ms); w loaded evict-first (f32 5% faster, bf16 2%
 // slower).
 // Sender-index mode (the KNN phore grid; a template flag IDX on the forward
-// and the edge backward, so the dense instantiations stay as they were): an
+// and the edge backward, so the 4-lane dense instantiations stay as they were): an
 // int32 index (B, N, K) names the sender row of x (B, Mx, U) that slot k of
 // receiver n reads; sh, w and dw are (B, N, K, .).  The forward and the edge
 // backward read x at the index.
@@ -679,6 +730,348 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
   }
 }
 
+// ---- the dense 8-lane forward and edge backward: lane = a unit of one path (head note) ----
+
+constexpr int KM = 5;              // harmonic components of a channel at L = 2, at most
+constexpr int F2_THREADS = 256;    // threads of an 8-lane forward block at most
+constexpr int F2_U = 4;            // senders whose w a forward lane loads before it adds any
+constexpr int E2_THREADS = 256;    // threads of an 8-lane edge-backward block
+constexpr int E2_WARPS = E2_THREADS / 32;
+constexpr int E2_EB = 2;           // steps of edges loaded before any is finished
+constexpr int E2_MIN_BLOCKS = 3;   // registers for three blocks an SM (at most 85 a thread)
+
+// A unit: up to four neighbouring channels f0 .. f0 + cnt - 1 of one path,
+// reading x elements d0 .. d0 + cnt - 1 and harmonic components off .. off +
+// K - 1; packed as int4 (f0, d0, off, K + 8 cnt).
+struct Unit {
+  int f0, d0, off, K, cnt;
+};
+__device__ __forceinline__ Unit unit_of(int4 u) { return {u.x, u.y, u.z, u.w & 7, u.w >> 3}; }
+
+// cnt neighbouring elements as f32 (VEC: four, one aligned access), 0 past cnt.
+template <bool VEC, typename T>
+__device__ __forceinline__ void ld_unit(const T* p, int cnt, float (&v)[4]) {
+  if constexpr (VEC) {
+    ld4(p, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = c < cnt ? ld(p + c) : 0.f;
+  }
+}
+
+// A unit's elements of w as loaded, converted when used: one 16-byte (f32)
+// or 8-byte (bf16) access where VEC, so that F2_U senders in flight cost a
+// lane 4 F2_U (f32) or 2 F2_U (bf16) registers.
+template <typename T, bool VEC>
+struct Raw4 {
+  float v[4];
+  __device__ __forceinline__ void load(const T* p, int cnt) { ld_unit<false>(p, cnt, v); }
+  __device__ __forceinline__ void get(float (&o)[4]) const {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c] = v[c];
+  }
+};
+template <>
+struct Raw4<float, true> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p, int) {
+    v = __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ void get(float (&o)[4]) const {
+    o[0] = v.x;
+    o[1] = v.y;
+    o[2] = v.z;
+    o[3] = v.w;
+  }
+};
+template <>
+struct Raw4<__nv_bfloat16, true> {
+  uint2 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, int) {
+    v = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void get(float (&o)[4]) const {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = b.x;
+    o[3] = b.y;
+  }
+};
+
+// A 4-byte copy from device to shared memory in flight until cp_async_wait_all.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Floats of an 8-lane forward block's shared memory: while it sums, a chunk
+// of MC senders' harmonics for each of its R receivers (R MC S) and their
+// rows of x (MC D, from a multiple of four); at the end each (receiver,
+// slice, channel)'s KM sums, over the same space.
+__host__ __device__ inline int f2_stage_floats(int R, int MC, int S, int D) {
+  return pad4(R * MC * S) + MC * D;
+}
+__host__ __device__ inline int f2_floats(int R, int SL, int F, int MC, int S, int D) {
+  const int sums = R * SL * F * KM, stage = f2_stage_floats(R, MC, S, D);
+  return sums > stage ? sums : stage;
+}
+
+// out (B, N, F, 8) f32 of every path at L = 2, written once.  Block: batch
+// row blockIdx.y, receivers blockIdx.x * R .. + R, all their senders, in
+// chunks of MC (a multiple of SL): the block stages a chunk's harmonics of
+// its receivers and the chunk's rows of x in shared memory (f32, coalesced),
+// then thread = (receiver r, slice s of SL, unit j of G), j fastest, sums
+// its slice's senders of the chunk, m = s, s + SL, ... in order: acc[c][k] +=
+// x[m, d0 + c] w[n, m, f0 + c] sh[n, m, off + k], w read from device memory
+// F2_U senders at a time (one access each where VEC), x and the path's K
+// harmonic components from shared memory.  Then the slices' sums go to
+// shared memory and each (receiver, channel) adds its SL slices in order,
+// times c_p, and writes its 8 lanes (lanes past K zero).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(F2_THREADS) tp_scalar_fwd_l2_kernel(
+    const T* __restrict__ x,           // (B, M, D) sender scalars
+    const T* __restrict__ sh,          // (B, N, M, S) harmonics
+    const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights
+    const int4* __restrict__ units,    // (G) the lanes' units
+    const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
+    const float* __restrict__ scale,   // (F): c_p of the channel's path
+    float* __restrict__ out, int N, int M, int D, int S, int F, int G, int R, int SL, int MC) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_sh = smem;                                 // [R][MC][S]
+  float* s_x = smem + pad4(R * MC * S);               // [MC][D]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int rs = tid / G, j = tid - rs * G;
+  const int r = rs / SL, s = rs - r * SL;
+  const int b = blockIdx.y, n0 = blockIdx.x * R, n = n0 + r;
+  const int rows = min(R, N - n0);                    // receivers of the block
+  float acc[4][KM];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < KM; ++k) acc[c][k] = 0.f;
+  Unit u = {0, 0, 0, 0, 0};
+  if (r < R) u = unit_of(units[j]);
+  const bool on = r < rows;
+  const T* wr = w + ((size_t)b * N + n) * M * F + u.f0;
+  for (int c0 = 0; c0 < M; c0 += MC) {
+    const int cnt = min(MC, M - c0);
+    __syncthreads();                                  // the last chunk's readers are done
+    const int per = cnt * S;
+    const T* shb = sh + (((size_t)b * N + n0) * M + c0) * S;
+    const T* xb = x + ((size_t)b * M + c0) * D;
+    if constexpr (sizeof(T) == 4) {   // f32: every copy in flight at once, no registers
+      for (int i = tid; i < rows * per; i += nt) {
+        const int rr = i / per;
+        cp_async4(s_sh + rr * MC * S + i - rr * per, shb + (size_t)rr * M * S + i - rr * per);
+      }
+      for (int i = tid; i < cnt * D; i += nt) cp_async4(s_x + i, xb + i);
+      cp_async_wait_all();
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < rows * per; i += nt) {
+        const int rr = i / per;
+        s_sh[rr * MC * S + i - rr * per] = ld(shb + (size_t)rr * M * S + i - rr * per);
+      }
+#pragma unroll 4
+      for (int i = tid; i < cnt * D; i += nt) s_x[i] = ld(xb + i);
+    }
+    __syncthreads();
+    if (!on) continue;
+    const float* sr = s_sh + r * MC * S + u.off;
+    const float* xr = s_x + u.d0;
+    for (int m = s; m < cnt; m += F2_U * SL) {
+      Raw4<T, VEC> wv[F2_U];                          // every load issued before any is used
+#pragma unroll
+      for (int i = 0; i < F2_U; ++i)
+        if (m + i * SL < cnt) wv[i].load(wr + (size_t)(c0 + m + i * SL) * F, u.cnt);
+#pragma unroll
+      for (int i = 0; i < F2_U; ++i) {
+        const int mm = m + i * SL;
+        if (mm >= cnt) break;
+        float wf[4], xv[4];
+        wv[i].get(wf);
+        if constexpr (VEC) {
+          const float4 t = *reinterpret_cast<const float4*>(xr + mm * D);
+          xv[0] = t.x;
+          xv[1] = t.y;
+          xv[2] = t.z;
+          xv[3] = t.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) xv[c] = c < u.cnt ? xr[mm * D + c] : 0.f;
+        }
+        float sv[KM];
+#pragma unroll
+        for (int k = 0; k < KM; ++k) sv[k] = k < u.K ? sr[mm * S + k] : 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float xw = xv[c] * wf[c];
+#pragma unroll
+          for (int k = 0; k < KM; ++k) acc[c][k] = fmaf(xw, sv[k], acc[c][k]);
+        }
+      }
+    }
+  }
+  __syncthreads();                                    // the sums take the staging space
+  if (r < R) {
+    float* dst = smem + ((size_t)(r * SL + s) * F + u.f0) * KM;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < u.cnt)
+#pragma unroll
+        for (int k = 0; k < KM; ++k) dst[c * KM + k] = acc[c][k];
+  }
+  __syncthreads();
+  for (int i = tid; i < rows * F; i += nt) {
+    const int rr = i / F, f = i - rr * F, nn = n0 + rr;
+    const float* p = smem + (size_t)rr * SL * F * KM + f * KM;
+    float a[KM];
+#pragma unroll
+    for (int k = 0; k < KM; ++k) a[k] = p[k];
+    for (int sl = 1; sl < SL; ++sl)
+#pragma unroll
+      for (int k = 0; k < KM; ++k) a[k] += p[(size_t)sl * F * KM + k];
+    const int K = chan[f].z;
+    const float sc = scale[f];
+    float4* o = reinterpret_cast<float4*>(out + (((size_t)b * N + nn) * F + f) * 8);
+    o[0] = make_float4(sc * a[0], K > 1 ? sc * a[1] : 0.f, K > 2 ? sc * a[2] : 0.f,
+                       K > 3 ? sc * a[3] : 0.f);
+    o[1] = make_float4(K > 4 ? sc * a[4] : 0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// dw (B, N, M, F) where dw != nullptr and, with DSH, dsh (B, N, M, S), in T,
+// of every path at L = 2.  G <= 32 lanes take an edge (lane = unit), so a warp
+// takes step = 32 / G neighbouring edges at once and walks a contiguous run
+// of the flattened (b, n, m) edges; per receiver each lane turns c_p and g
+// into coef[c][k] (0 past its unit's cnt and K).  dw = x sum_k sh[off + k]
+// coef[k] from the unit's K components.  dsh[s] = the sum, over the units
+// whose path reads component s (comp_item[comp_ptr[s] ..], in order), of
+// sum_c x w coef[c][s - off]: each lane puts its KM sums in shared memory and
+// lane (edge, s) of the warp adds that list and writes the edge's dsh row
+// (0 where no path reads), coalesced.  No atomics: reruns agree to the bit.
+template <typename T, bool DSH, bool VEC>
+__global__ void __launch_bounds__(E2_THREADS, E2_MIN_BLOCKS) tp_scalar_bwd_edge_l2_kernel(
+    const T* __restrict__ x,           // (B, M, D) sender scalars
+    const T* __restrict__ sh,          // (B, N, M, S) harmonics
+    const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights (DSH)
+    const float* __restrict__ g,       // (B, N, F, 8) upstream gradient
+    const int4* __restrict__ units,    // (G) the lanes' units
+    const float* __restrict__ uscale,  // (G): c_p of the unit's path
+    const int* __restrict__ comp_ptr,  // (S + 1): extents into comp_item per component (DSH)
+    const int* __restrict__ comp_item, // unit j * KM + k of each component, ascending j
+    T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int D, int S, int F, int G,
+    int n_items, int edges) {
+  __shared__ float s_red[DSH ? E2_THREADS * KM : 1];   // each lane's dsh sums
+  extern __shared__ int s_comp[];                     // DSH: comp_ptr, then comp_item
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int step = 32 / G;                       // edges a warp takes at once
+  const int q = lane / G, j = lane - q * G;      // the lane's edge of a step, its unit
+  const bool active = q < step;
+  const bool with_dw = dw != nullptr;
+  Unit u = {0, 0, 0, 0, 0};
+  float sc = 0.f;
+  if (active) {
+    u = unit_of(units[j]);
+    sc = uscale[j];
+  }
+  if constexpr (DSH) {
+    for (int i = threadIdx.x; i <= S; i += E2_THREADS) s_comp[i] = comp_ptr[i];
+    for (int i = threadIdx.x; i < n_items; i += E2_THREADS) s_comp[S + 1 + i] = comp_item[i];
+    __syncthreads();
+  }
+  const int warps = gridDim.x * E2_WARPS;
+  const int per = ((edges + warps - 1) / warps + step - 1) / step * step;
+  const int first = (blockIdx.x * E2_WARPS + warp) * per;
+  const int e_end = min(edges, first + per);
+  float* red = s_red + (warp * 32) * KM;
+
+  for (int e = first; e < e_end;) {
+    const int r = e / M;                              // receiver row b * N + n
+    const int seg_end = min(e_end, (r + 1) * M);
+    const int x_of = (r / N) * M - r * M;             // + edge: the sender row of an edge
+    float coef[4][KM];
+    {
+      const float* gr = g + ((size_t)r * F + u.f0) * 8;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < KM; ++k)
+          coef[c][k] = c < u.cnt && k < u.K ? sc * gr[c * 8 + k] : 0.f;
+    }
+    for (; e < seg_end; e += E2_EB * step) {
+      // E2_EB steps of `step` edges of one receiver: every load issued first
+      float xv[E2_EB][4], sv[E2_EB][KM], wv[E2_EB][4];
+#pragma unroll
+      for (int i = 0; i < E2_EB; ++i) {
+        const int edge = e + i * step + q;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xv[i][c] = wv[i][c] = 0.f;
+#pragma unroll
+        for (int k = 0; k < KM; ++k) sv[i][k] = 0.f;
+        if (!active || edge >= seg_end) continue;
+        ld_unit<VEC>(x + (size_t)(x_of + edge) * D + u.d0, u.cnt, xv[i]);
+        if (with_dw) {
+#pragma unroll
+          for (int k = 0; k < KM; ++k)
+            if (k < u.K) sv[i][k] = ld(sh + (size_t)edge * S + u.off + k);
+        }
+        if (DSH) ld_unit<VEC>(w + (size_t)edge * F + u.f0, u.cnt, wv[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < E2_EB; ++i) {
+        const int edge = e + i * step + q;
+        const bool live = active && edge < seg_end;
+        if (with_dw && live) {
+          float o[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float t = 0.f;
+#pragma unroll
+            for (int k = 0; k < KM; ++k) t = fmaf(sv[i][k], coef[c][k], t);
+            o[c] = xv[i][c] * t;
+          }
+          T* dst = dw + (size_t)edge * F + u.f0;
+          if constexpr (VEC) {
+            st4(dst, o);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (c < u.cnt) dst[c] = from_f<T>(o[c]);
+          }
+        }
+        if constexpr (DSH) {
+#pragma unroll
+          for (int k = 0; k < KM; ++k) {
+            float a = 0.f;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) a = fmaf(xv[i][c] * wv[i][c], coef[c][k], a);
+            red[lane * KM + k] = a;
+          }
+          __syncwarp();
+          const int base = e + i * step;
+          for (int o = lane; o < step * S; o += 32) {
+            const int qq = o / S, s_ = o - qq * S;
+            if (base + qq >= seg_end) continue;
+            float sum = 0.f;
+            for (int it = s_comp[s_]; it < s_comp[s_ + 1]; ++it)
+              sum += red[qq * G * KM + s_comp[S + 1 + it]];
+            dsh[(size_t)base * S + o] = from_f<T>(sum);
+          }
+          __syncwarp();
+        }
+      }
+    }
+    e = seg_end;
+  }
+}
+
 bool bad_conv_shape(int B, int N, int M, int D, int S, int F, int keep, int chunk, int splits,
                     int summed, const float* part) {
   return B < 1 || B > 65535 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || keep < 1 ||
@@ -713,7 +1106,7 @@ int launch_fwd(const void* x, const void* sh, const void* w, const int* idx, con
     tp_scalar_fwd_kernel<T, L, true><<<grid, threads, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), idx,
         reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, Mx, D, S, F, keep, chunk);
-  else
+  else if constexpr (L == 1)   // the dense L = 2 forward is tp_scalar_fwd_l2_kernel
     tp_scalar_fwd_kernel<T, L, false><<<grid, threads, 0, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), nullptr,
         reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, M, D, S, F, keep, chunk);
@@ -814,12 +1207,13 @@ int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const int* i
     else
       tp_scalar_bwd_edge_kernel<T, false, false, L, true><<<blocks, EDGE_THREADS, 0, st>>>(
           xt, sht, wt, idx, g, ct, scale, dwt, dsht, N, M, Mx, D, S, F, edges, xvec);
-  } else if (vec) {
-    tp_scalar_bwd_edge_kernel<T, DSH, true, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
-        xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
-  } else {
-    tp_scalar_bwd_edge_kernel<T, DSH, false, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
-        xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
+  } else if constexpr (L == 1) {   // the dense L = 2 edge backward: tp_scalar_bwd_edge_l2_kernel
+    if (vec)
+      tp_scalar_bwd_edge_kernel<T, DSH, true, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
+          xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
+    else
+      tp_scalar_bwd_edge_kernel<T, DSH, false, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
+          xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
   }
   return (int)cudaGetLastError();
 }
@@ -842,10 +1236,120 @@ int launch_bwd_edge(const void* x, const void* sh, const void* w, const int* idx
                                               S, F, edges, vec, xvec, blocks, st);
 }
 
+// At L = 2 the kernel runs only in the sender-index mode (dw alone).
 template <typename T, bool DSH, int L>
 cudaError_t edge_occupancy(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true, L, false>, EDGE_THREADS, 0);
+      blocks, tp_scalar_bwd_edge_kernel<T, DSH && L == 1, true, L, L == 2>, EDGE_THREADS, 0);
+}
+
+// ---- the dense 8-lane forward and edge backward: launches ----
+
+size_t f2_bytes(int R, int SL, int F, int MC, int S, int D) {
+  return sizeof(float) * (size_t)f2_floats(R, SL, F, MC, S, D);
+}
+
+int f2_threads(int R, int SL, int G) { return round_up_32(R * SL * G); }
+
+bool bad_f2(int F, int G, int R, int SL, int MC, int S, int D) {
+  return F < 1 || G < 1 || G > F || R < 1 || SL < 1 || (long long)R * SL * G > F2_THREADS ||
+         MC < SL || MC % SL != 0 || S < 1 || D < 1 || f2_bytes(R, SL, F, MC, S, D) > 48 * 1024;
+}
+
+// VEC: every unit four channels at a multiple of four reading four x
+// elements at a multiple of four (`vec_units`, the host's check), rows of
+// F and D elements, and these bases aligned to four elements.
+bool unit_vec(int vec_units, int F, int D, int esize, const void* a, const void* b,
+              const void* c) {
+  return vec_units && F % 4 == 0 && D % 4 == 0 && quad_aligned(a, esize) &&
+         (b == nullptr || quad_aligned(b, esize)) && (c == nullptr || quad_aligned(c, esize));
+}
+
+template <typename T>
+int launch_fwd_l2(const void* x, const void* sh, const void* w, const int* units,
+                  const int* chan, const float* scale, float* out, int B, int N, int M, int D,
+                  int S, int F, int G, int R, int SL, int MC, int vec_units, cudaStream_t st) {
+  const dim3 grid((N + R - 1) / R, B);
+  const int threads = f2_threads(R, SL, G);
+  const size_t bytes = f2_bytes(R, SL, F, MC, S, D);
+  const T* xt = static_cast<const T*>(x);
+  const T* sht = static_cast<const T*>(sh);
+  const T* wt = static_cast<const T*>(w);
+  const int4* ut = reinterpret_cast<const int4*>(units);
+  const int4* ct = reinterpret_cast<const int4*>(chan);
+  if (unit_vec(vec_units, F, D, sizeof(T), x, w, nullptr))
+    tp_scalar_fwd_l2_kernel<T, true><<<grid, threads, bytes, st>>>(
+        xt, sht, wt, ut, ct, scale, out, N, M, D, S, F, G, R, SL, MC);
+  else
+    tp_scalar_fwd_l2_kernel<T, false><<<grid, threads, bytes, st>>>(
+        xt, sht, wt, ut, ct, scale, out, N, M, D, S, F, G, R, SL, MC);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int f2_blocks_per_sm(int R, int SL, int G, int F, int MC, int S, int D, int vec) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, vec ? tp_scalar_fwd_l2_kernel<T, true> : tp_scalar_fwd_l2_kernel<T, false>,
+      f2_threads(R, SL, G), f2_bytes(R, SL, F, MC, S, D));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+size_t e2_bytes(bool dsh, int S, int n_items) {
+  return dsh ? sizeof(int) * ((size_t)S + 1 + n_items) : 0;
+}
+
+template <typename T, bool DSH>
+int launch_bwd_edge_l2_t(const void* x, const void* sh, const void* w, const float* g,
+                         const int* units, const float* uscale, const int* comp_ptr,
+                         const int* comp_item, void* dw, void* dsh, int N, int M, int D, int S,
+                         int F, int G, int n_items, int edges, bool vec, int blocks,
+                         cudaStream_t st) {
+  const size_t bytes = e2_bytes(DSH, S, n_items);
+  const T* xt = static_cast<const T*>(x);
+  const T* sht = static_cast<const T*>(sh);
+  const T* wt = static_cast<const T*>(w);
+  const int4* ut = reinterpret_cast<const int4*>(units);
+  T* dwt = static_cast<T*>(dw);
+  T* dsht = static_cast<T*>(dsh);
+  if (vec)
+    tp_scalar_bwd_edge_l2_kernel<T, DSH, true><<<blocks, E2_THREADS, bytes, st>>>(
+        xt, sht, wt, g, ut, uscale, comp_ptr, comp_item, dwt, dsht, N, M, D, S, F, G, n_items,
+        edges);
+  else
+    tp_scalar_bwd_edge_l2_kernel<T, DSH, false><<<blocks, E2_THREADS, bytes, st>>>(
+        xt, sht, wt, g, ut, uscale, comp_ptr, comp_item, dwt, dsht, N, M, D, S, F, G, n_items,
+        edges);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const float* g,
+                       const int* units, const float* uscale, const int* comp_ptr,
+                       const int* comp_item, void* dw, void* dsh, int B, int N, int M, int D,
+                       int S, int F, int G, int n_items, int vec_units, int blocks,
+                       cudaStream_t st) {
+  const int edges = B * N * M;
+  const bool vec = unit_vec(vec_units, F, D, sizeof(T), x, dw, dsh == nullptr ? nullptr : w);
+  blocks = std::min(blocks, (edges + E2_WARPS - 1) / E2_WARPS);
+  return dsh != nullptr
+             ? launch_bwd_edge_l2_t<T, true>(x, sh, w, g, units, uscale, comp_ptr, comp_item, dw,
+                                             dsh, N, M, D, S, F, G, n_items, edges, vec, blocks,
+                                             st)
+             : launch_bwd_edge_l2_t<T, false>(x, sh, w, g, units, uscale, comp_ptr, comp_item,
+                                              dw, dsh, N, M, D, S, F, G, n_items, edges, vec,
+                                              blocks, st);
+}
+
+template <typename T, bool DSH>
+int e2_blocks_per_sm_t(int vec, int S, int n_items) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks,
+      vec ? tp_scalar_bwd_edge_l2_kernel<T, DSH, true>
+          : tp_scalar_bwd_edge_l2_kernel<T, DSH, false>,
+      E2_THREADS, e2_bytes(DSH, S, n_items));
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // The extern "C" entry points of lane count L (below), shared by both.  A
@@ -855,7 +1359,8 @@ int fwd_entry(const void* x, const void* sh, const void* w, const int* idx, cons
               const float* scale, float* out, float* part, int B, int N, int M, int Mx, int D,
               int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
   if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, M, part) ||
-      (N + keep - 1) / keep > 65535 || Mx < 1 || (idx == nullptr && Mx != M))
+      (N + keep - 1) / keep > 65535 || Mx < 1 || (idx == nullptr && Mx != M) ||
+      (L == 2 && idx == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_fwd<__nv_bfloat16, L>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx,
@@ -907,7 +1412,7 @@ int bwd_edge_entry(const void* x, const void* sh, const void* w, const int* idx,
   if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
       reach > (L == 1 ? P_L1 : P_L2) || reach > S || blocks < 1 ||
       (dw == nullptr && dsh == nullptr) || Mx < 1 || (idx == nullptr && Mx != M) ||
-      (idx != nullptr && dsh != nullptr) ||
+      (idx != nullptr && dsh != nullptr) || (L == 2 && idx == nullptr) ||
       (long long)B * N * M * std::max(F, S) + (long long)B * std::max(M, Mx) * D >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -919,6 +1424,7 @@ int bwd_edge_entry(const void* x, const void* sh, const void* w, const int* idx,
 
 template <int L>
 int edge_blocks_entry(int dsh, int bf16) {
+  if (L == 2 && dsh) return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   const cudaError_t err = bf16 ? (dsh ? edge_occupancy<__nv_bfloat16, true, L>(&blocks)
                                       : edge_occupancy<__nv_bfloat16, false, L>(&blocks))
@@ -945,11 +1451,11 @@ int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
                      &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, 1>, threads, bytes)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &blocks, tp_scalar_bwd_x_kernel<float, 1>, threads, bytes);
-  } else {
+  } else {   // at L = 2 the sender-index forward's (the dense one is tp_scalar_fwd_l2_kernel)
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L, false>, threads, 0)
+                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L, L == 2>, threads, 0)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<float, L, false>, threads, 0);
+                     &blocks, tp_scalar_fwd_kernel<float, L, L == 2>, threads, 0);
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -1086,6 +1592,78 @@ int dp_tp_scalar_bwd_edge_blocks_per_sm_l2(int dsh, int bf16) {
 
 int dp_tp_scalar_blocks_per_sm_l2(int dx, int F, int D, int n_items, int bf16) {
   return blocks_entry<2>(dx, F, D, n_items, bf16);
+}
+
+// The dense 8-lane forward (tp_scalar_fwd_l2_kernel): out (B, N, F, 8) f32
+// of every path, one launch, a block per (R receivers, batch row) of
+// round_up_32(R * SL * G) threads, each receiver's senders split over SL
+// slices of G lanes and staged MC at a time (a multiple of SL).  `units` (G)
+// int4 of (f0, d0, off, K + 8 cnt), tp_scalar.units_l2; `vec_units`: its
+// four-channel check held.
+int dp_tp_scalar_fwd_l2_dense(const void* x, const void* sh, const void* w, const int* units,
+                              const int* chan, const float* scale, float* out, int B, int N,
+                              int M, int D, int S, int F, int G, int R, int SL, int MC,
+                              int vec_units, int bf16, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || M < 1 || bad_f2(F, G, R, SL, MC, S, D) ||
+      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd_l2<__nv_bfloat16>(x, sh, w, units, chan, scale, out, B, N, M, D, S, F,
+                                             G, R, SL, MC, vec_units, st)
+              : launch_fwd_l2<float>(x, sh, w, units, chan, scale, out, B, N, M, D, S, F, G, R,
+                                     SL, MC, vec_units, st);
+}
+
+// Bytes of shared memory a block of the dense 8-lane forward takes, and the
+// blocks of it that one SM holds at once, or minus a cudaError_t value.
+int dp_tp_scalar_fwd_l2_dense_smem(int R, int SL, int F, int MC, int S, int D) {
+  return (int)f2_bytes(R, SL, F, MC, S, D);
+}
+
+int dp_tp_scalar_fwd_l2_dense_blocks_per_sm(int R, int SL, int G, int F, int MC, int S, int D,
+                                            int vec, int bf16) {
+  if (bad_f2(F, G, R, SL, MC, S, D)) return -(int)cudaErrorInvalidValue;
+  return bf16 ? f2_blocks_per_sm<__nv_bfloat16>(R, SL, G, F, MC, S, D, vec)
+              : f2_blocks_per_sm<float>(R, SL, G, F, MC, S, D, vec);
+}
+
+// The dense 8-lane edge backward (tp_scalar_bwd_edge_l2_kernel): dw into `dw`
+// (nullptr: none) and dsh (B, N, M, S) into `dsh` (nullptr: none), in the
+// operands' type, in one launch of at most `blocks` blocks of E2_THREADS;
+// lane = unit (G <= 32), `uscale` (G) its c_p; dsh component s sums the
+// units comp_item[comp_ptr[s] .. comp_ptr[s + 1]) (j * 5 + k each).
+int dp_tp_scalar_bwd_edge_l2_dense(const void* x, const void* sh, const void* w, const float* g,
+                                   const int* units, const float* uscale, const int* comp_ptr,
+                                   const int* comp_item, void* dw, void* dsh, int B, int N, int M,
+                                   int D, int S, int F, int G, int n_items, int vec_units,
+                                   int blocks, int bf16, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || G < 1 || G > 32 ||
+      G > F || n_items < 0 || blocks < 1 || (dw == nullptr && dsh == nullptr) ||
+      (dsh != nullptr && (comp_ptr == nullptr || comp_item == nullptr)) ||
+      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_edge_l2<__nv_bfloat16>(x, sh, w, g, units, uscale, comp_ptr, comp_item,
+                                                  dw, dsh, B, N, M, D, S, F, G, n_items,
+                                                  vec_units, blocks, st)
+              : launch_bwd_edge_l2<float>(x, sh, w, g, units, uscale, comp_ptr, comp_item, dw,
+                                          dsh, B, N, M, D, S, F, G, n_items, vec_units, blocks,
+                                          st);
+}
+
+// Bytes of shared memory a block of the dense 8-lane edge backward takes:
+// each lane's KM dsh sums and, dynamic, the component lists (with dsh).
+int dp_tp_scalar_bwd_edge_l2_dense_smem(int dsh, int S, int n_items) {
+  return (int)(sizeof(float) * (dsh ? E2_THREADS * KM : 1) + e2_bytes(dsh, S, n_items));
+}
+
+// Blocks of the dense 8-lane edge backward that one SM holds at once (dsh:
+// with dsh, S components and n_items list entries), or minus a cudaError_t.
+int dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(int dsh, int vec, int S, int n_items, int bf16) {
+  return bf16 ? (dsh ? e2_blocks_per_sm_t<__nv_bfloat16, true>(vec, S, n_items)
+                     : e2_blocks_per_sm_t<__nv_bfloat16, false>(vec, S, n_items))
+              : (dsh ? e2_blocks_per_sm_t<float, true>(vec, S, n_items)
+                     : e2_blocks_per_sm_t<float, false>(vec, S, n_items));
 }
 
 const char* dp_cuda_error_string(int code) {

@@ -27,14 +27,24 @@ f32; gradients come back in each operand's type.  CPU tensors run
 version.  ``FWD``, ``BWD_EDGE`` and ``BWD_X`` count the wrapper calls that
 launched.  A convolution whose irreps reach l = 2 (the layer-0 convolutions
 of ``use_second_order_repr``, whose ``0e x 2e -> 2e`` path has K = 5 and
-reads harmonic components 4-8) runs the kernels' 8-lane instantiations
-(``L = 2``: five sums a channel, the upstream gradient and the output
-(B, N, F, 8), the edge backward reading all nine components) and a dx of
-its own (``tp_scalar_bwd_x_l2_kernel``: thread = (channel, ``X2_Q``
-senders), each g row loaded once for the thread's senders; a block per
-(batch row, run of :func:`plan_run_l2` senders, chunk of receivers), the
-receivers split as :func:`plan_chunk_l2` says), counted by ``FWD_L2``,
-``BWD_EDGE_L2`` and ``BWD_X_L2``.
+reads harmonic components 4-8; the upstream gradient and the output (B, N,
+F, 8)) runs kernels of its own, counted by ``FWD_L2``, ``BWD_EDGE_L2`` and
+``BWD_X_L2``.  Their lane is a unit of :func:`units_l2`: up to four
+neighbouring channels of one path, so it loads its x and w as one access
+each (where every path is four channels wide at a multiple of four, else
+element by element) and only its path's K harmonic components.  The
+forward (``tp_scalar_fwd_l2_kernel``) gives a block whole receivers and all
+their senders, split over SL slices of the block's lanes and added in
+shared memory in order (:func:`plan_fwd_l2`): no partial sums in device
+memory, the output written once.  The edge backward
+(``tp_scalar_bwd_edge_l2_kernel``) holds each lane's coefficients c_p g[k]
+for its path's K components only, and adds dsh component s over the units
+whose path reads it (``comp_ptr`` / ``comp_item``).  dx
+(``tp_scalar_bwd_x_l2_kernel``: thread = (channel, ``X2_Q`` senders), each
+g row loaded once for the thread's senders; a block per (batch row, run of
+:func:`plan_run_l2` senders, chunk of receivers), the receivers split as
+:func:`plan_chunk_l2` says).  The sender-index mode at l = 2 runs the
+4-lane kernels' 8-lane instantiations (below).
 
 Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
 int32, x is (B, M_x, D), sh and w (B, N, K, .) and slot k of receiver n
@@ -69,8 +79,8 @@ from .wigner import wigner_3j
 FWD = _Kernel()       # tp_scalar_fwd_kernel (+ tp_scalar_sum_splits), one per convolution
 BWD_EDGE = _Kernel()  # tp_scalar_bwd_edge_kernel (dw, and dsh where asked), one per convolution
 BWD_X = _Kernel()     # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per convolution
-FWD_L2 = _Kernel()       # the same kernels' 8-lane instantiations (l = 2)
-BWD_EDGE_L2 = _Kernel()
+FWD_L2 = _Kernel()       # tp_scalar_fwd_l2_kernel, one per convolution (l = 2)
+BWD_EDGE_L2 = _Kernel()  # tp_scalar_bwd_edge_l2_kernel
 BWD_X_L2 = _Kernel()     # tp_scalar_bwd_x_l2_kernel (+ tp_scalar_sum_splits)
 FWD_IDX = _Kernel()       # the sender-index mode (l <= 1)
 BWD_EDGE_IDX = _Kernel()
@@ -87,6 +97,12 @@ X2_WAVES = 4         # the 8-lane dx's grid: blocks for this many of each block 
 EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
 EDGE_REACH = 4       # harmonic components the edge backward reads (0e and 1o first)
 EDGE_REACH_L2 = 9    # the 8-lane instantiation's: 0e, 1o and 2e
+KM = 5               # harmonic components of a channel at l = 2, at most
+F2_THREADS = 256     # threads of a dense 8-lane forward block at most: (receiver, slice, unit)
+F2_U = 4             # senders whose w a forward lane loads at once (the source's F2_U)
+F2_FIXED = 2         # a forward block's fixed cost in batches of F2_U senders (plan_fwd_l2's model)
+F2_STAGE = 8192      # floats of a forward block's staged harmonics and x at most (32 KB)
+E2_LANES = 32        # units of an edge the dense 8-lane edge backward takes at most (a warp)
 MIN_CHUNK = 8        # fewest entries of the summed axis one split takes
 MIN_SLOTS = 4        # fewest slots a chunk of the sender-index dx takes, where there are enough
 TARGET_BLOCKS = 2 * 132
@@ -208,6 +224,120 @@ def _conv_tables(tp: ChannelwiseTP, dtype: torch.dtype):
     d_ptr[1:] = np.cumsum([len(r) for r in readers])
     d_item = np.array([f for r in readers for f in sorted(r)] or [0], np.int32)
     return chan, scale, d_ptr, d_item
+
+
+class UnitTables(NamedTuple):
+    """The dense 8-lane kernels' lanes (:func:`units_l2`): ``units`` (G, 4)
+    int32 of (f0, d0, off, K + 8 cnt), a unit being channels f0 .. f0 + cnt
+    - 1 (cnt <= 4) of one path reading x elements d0 .. d0 + cnt - 1 and
+    harmonic components off .. off + K - 1; ``scale`` (G,) f32 its path's
+    c_p; per harmonic component s, the units whose path reads it, ``comp_ptr``
+    (S + 1) extents into ``comp_item`` (j * KM + s - off of unit j,
+    ascending j; one entry at least); ``vec``: every unit four channels at a
+    multiple of four reading four x elements at a multiple of four, F and D
+    multiples of four (then a lane reads x and w as one access each where
+    their bases are aligned)."""
+
+    units: np.ndarray
+    scale: np.ndarray
+    comp_ptr: np.ndarray
+    comp_item: np.ndarray
+    vec: bool
+
+
+@functools.lru_cache(maxsize=None)
+def units_l2(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32) -> UnitTables:
+    """Each path's channels cut into units of four from its first (its last
+    unit shorter where its width is not a multiple of four), in channel
+    order; c_p for operands of ``dtype``."""
+    in_slices, sh_slices = tp.irreps_in.slices(), tp.irreps_sh.slices()
+    rows, scales = [], []
+    for p in tp.paths:
+        f, d, off, K = (p.w_slice[0], in_slices[p.i_in].start, sh_slices[p.i_sh].start,
+                        2 * p.l_sh + 1)
+        for u in range(0, p.mul_in, 4):
+            cnt = min(4, p.mul_in - u)
+            rows.append((f + u, d + u, off, K + 8 * cnt))
+            scales.append(path_scale(p, dtype))
+    units = np.array(rows, np.int32).reshape(-1, 4)
+    readers = [[j * KM + s - off for j, (_, _, off, kc) in enumerate(rows)
+                if off <= s < off + (kc & 7)] for s in range(tp.irreps_sh.dim)]
+    comp_ptr = np.zeros(len(readers) + 1, np.int32)
+    comp_ptr[1:] = np.cumsum([len(r) for r in readers])
+    comp_item = np.array([i for r in readers for i in r] or [0], np.int32)
+    vec = (all(f0 % 4 == 0 and d0 % 4 == 0 and kc >> 3 == 4 for f0, d0, _, kc in rows)
+           and tp.weight_numel % 4 == 0 and tp.irreps_in.dim % 4 == 0)
+    return UnitTables(units, np.array(scales, np.float32), comp_ptr, comp_item, vec)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_units(tp: ChannelwiseTP, device: str, dtype: torch.dtype):
+    t = units_l2(tp, dtype)
+    return tuple(torch.as_tensor(a, device=device) for a in t[:4]) + (t.vec,)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fwd_l2(B: int, N: int, M: int, G: int, target: int = TARGET_BLOCKS
+                ) -> Tuple[int, int]:
+    """(R, SL) of the dense 8-lane forward: a block per (batch row, R
+    receivers), each receiver's senders split over SL slices of G lanes
+    (slice s takes senders s, s + SL, ...), at most ``F2_THREADS`` threads.
+    Of the SL that fill a block with as many receivers as fit (none past N),
+    the one whose grid, in waves of ``target`` blocks, costs least: waves x
+    (a slice's batches of ``F2_U`` senders + ``F2_FIXED``), the fewer slices
+    on a tie."""
+    best = None
+    for SL in range(1, max(1, min(M, F2_THREADS // G)) + 1):
+        R = max(1, min(N, F2_THREADS // (SL * G)))
+        cost = -(-B * -(-N // R) // target) * (-(-M // (SL * F2_U)) + F2_FIXED)
+        if best is None or cost < best[0]:
+            best = (cost, R, SL)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_fwd_l2(R: int, SL: int, M: int, S: int, D: int) -> int:
+    """MC, the senders the dense 8-lane forward stages at a time: a multiple
+    of SL, all M where their harmonics (R receivers) and rows of x fit
+    ``F2_STAGE`` floats, else as many as fit (SL at least)."""
+    fit = (F2_STAGE - 3) // (R * S + D) // SL * SL
+    return max(SL, min(-(-M // SL) * SL, fit))
+
+
+def launch_plan_fwd_l2(tp: ChannelwiseTP, B: int, N: int, M: int, device,
+                       dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """(R, SL, MC) of the dense 8-lane forward on the card
+    (:func:`plan_fwd_l2`, :func:`chunk_fwd_l2`): waves of every block slot
+    the card holds of its fullest block."""
+    t = units_l2(tp, dtype)
+    G, S, D = len(t.units), tp.irreps_sh.dim, tp.irreps_in.dim
+    target = max(TARGET_BLOCKS, _resident_blocks_f2(tp.weight_numel, G, S, D, t.vec,
+                                                    dtype == torch.bfloat16, str(device)))
+    R, SL = plan_fwd_l2(B, N, M, G, target)
+    return R, SL, chunk_fwd_l2(R, SL, M, S, D)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks_f2(F: int, G: int, S: int, D: int, vec: bool, bf16: bool,
+                        device: str) -> int:
+    """Blocks of the dense 8-lane forward the card holds at once, at its
+    fullest block (``F2_THREADS // G`` slices of one receiver, as many
+    senders staged as ``F2_STAGE`` holds)."""
+    SL = F2_THREADS // G
+    per_sm = _library().dp_tp_scalar_fwd_l2_dense_blocks_per_sm(
+        1, SL, G, F, chunk_fwd_l2(1, SL, F2_STAGE, S, D), S, D, int(vec), int(bf16))
+    _raise_on(max(0, -per_sm), "tp_scalar_fwd_l2 occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_blocks_l2(need_dsh: bool, vec: bool, S: int, n_items: int, bf16: bool,
+                    device: str) -> int:
+    """Blocks of the dense 8-lane edge backward the card holds at once."""
+    per_sm = _library().dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(
+        int(need_dsh), int(vec), S, n_items, int(bf16))
+    _raise_on(max(0, -per_sm), "tp_scalar_bwd_edge_l2 occupancy query")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,12 +516,22 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2.argtypes = [i] * 2
     lib.dp_tp_scalar_bwd_x_l2_smem.argtypes = [i] * 4
     lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm.argtypes = [i] * 5
+    lib.dp_tp_scalar_fwd_l2_dense.argtypes = [p] * 7 + [i] * 12 + [p]
+    lib.dp_tp_scalar_fwd_l2_dense_smem.argtypes = [i] * 6
+    lib.dp_tp_scalar_fwd_l2_dense_blocks_per_sm.argtypes = [i] * 9
+    lib.dp_tp_scalar_bwd_edge_l2_dense.argtypes = [p] * 10 + [i] * 11 + [p]
+    lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm.argtypes = [i] * 5
+    lib.dp_tp_scalar_bwd_edge_l2_dense_smem.argtypes = [i] * 3
     for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_edge, lib.dp_tp_scalar_bwd_x,
                lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm,
                lib.dp_tp_scalar_fwd_l2, lib.dp_tp_scalar_bwd_edge_l2, lib.dp_tp_scalar_bwd_x_l2,
                lib.dp_tp_scalar_blocks_per_sm_l2, lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2,
                lib.dp_tp_scalar_bwd_x_idx, lib.dp_tp_scalar_bwd_x_idx_l2,
-               lib.dp_tp_scalar_bwd_x_l2_smem, lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm):
+               lib.dp_tp_scalar_bwd_x_l2_smem, lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm,
+               lib.dp_tp_scalar_fwd_l2_dense, lib.dp_tp_scalar_fwd_l2_dense_smem,
+               lib.dp_tp_scalar_fwd_l2_dense_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_l2_dense,
+               lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm,
+               lib.dp_tp_scalar_bwd_edge_l2_dense_smem):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -454,14 +594,28 @@ def _check_conv(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.T
 
 def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                    w: torch.Tensor, sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Every path of the convolution in one forward launch -> (B, N, F, 4)
-    f32 (and the sum of the sender splits' partial sums where
-    :func:`launch_chunk` splits)."""
+    """Every path of the convolution in one forward launch -> (B, N, F,
+    lanes(tp)) f32 (and the sum of the sender splits' partial sums where
+    :func:`launch_chunk` splits).  The dense 8-lane forward is
+    ``tp_scalar_fwd_l2_kernel``: whole receivers a block, their senders
+    split over slices of the block's lanes (:func:`launch_plan_fwd_l2`), a
+    lane a unit of :func:`units_l2`, the output written once."""
     B, N, M, D, S, F = _check_conv(tp, x, sh, w, sender_index=sender_index)
     k_pad = lanes(tp)
     l2 = k_pad == K_PAD_L2
     chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
     out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
+    bf16 = int(x.dtype == torch.bfloat16)
+    if l2 and sender_index is None:
+        units, _, _, _, vec = _device_units(tp, str(x.device), x.dtype)
+        R, SL, MC = launch_plan_fwd_l2(tp, B, N, M, x.device, x.dtype)
+        rc = _library().dp_tp_scalar_fwd_l2_dense(
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), units.data_ptr(), chan.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), B, N, M, D, S, F, units.shape[0], R, SL, MC,
+            int(vec), bf16, _stream(x.device))
+        _raise_on(rc, "tp_scalar_fwd_l2")
+        FWD_L2.launches += 1
+        return out
     chunk, splits = launch_chunk(tp, B, N, M, False, x.device, x.dtype)
     part = (torch.empty((splits, B, N, F, k_pad), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
@@ -469,7 +623,7 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     rc = launch(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), chan.data_ptr(),
         scale.data_ptr(), out.data_ptr(), _ptr(part), B, N, M, x.shape[1], D, S, F, keep_of(F),
-        chunk, splits, int(x.dtype == torch.bfloat16), _stream(x.device))
+        chunk, splits, bf16, _stream(x.device))
     _raise_on(rc, "tp_scalar_fwd_l2" if l2 else "tp_scalar_fwd")
     counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index, l2).launches += 1
     return out
@@ -555,7 +709,9 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     sh's type: dw only with ``need_dw``, dsh (the full S-component row, zero
     in the components no path reads) only with ``need_dsh``.  g is the (B,
     N, F, lanes(tp)) f32 upstream gradient.  The sender-index mode computes
-    dw only and refuses ``need_dsh``."""
+    dw only and refuses ``need_dsh``.  The dense 8-lane edge backward is
+    ``tp_scalar_bwd_edge_l2_kernel``, a lane a unit of :func:`units_l2`
+    (at most ``E2_LANES`` units)."""
     if sender_index is not None and need_dsh:
         raise ValueError("tp_scalar: the sender-index mode computes no dsh (the KNN phore "
                          "grid's harmonics carry no gradient)")
@@ -570,12 +726,28 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     if reach > most:
         raise ValueError(f"tp_scalar: the paths read {reach} harmonic components, more than "
                          f"the edge backward's {most}")
+    dense_l2 = l2 and sender_index is None
+    if dense_l2 and len(units_l2(tp).units) > E2_LANES:
+        raise ValueError(f"tp_scalar: {len(units_l2(tp).units)} units of four channels, more "
+                         f"than the 8-lane edge backward's {E2_LANES} lanes an edge")
     if not (need_dw or need_dsh):
         return None, None
-    chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
     dw = torch.empty_like(w) if need_dw else None
     dsh = torch.empty_like(sh) if need_dsh else None
     bf16 = x.dtype == torch.bfloat16
+    if dense_l2:
+        units, uscale, comp_ptr, comp_item, vec = _device_units(tp, str(x.device), x.dtype)
+        n_items = int(units_l2(tp).comp_ptr[-1])
+        rc = _library().dp_tp_scalar_bwd_edge_l2_dense(
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), units.data_ptr(),
+            uscale.data_ptr(), comp_ptr.data_ptr(), comp_item.data_ptr(), _ptr(dw), _ptr(dsh), B,
+            N, M, D, S, F, units.shape[0], n_items, int(vec),
+            _edge_blocks_l2(need_dsh, vec, S, n_items, bf16, str(x.device)), int(bf16),
+            _stream(x.device))
+        _raise_on(rc, "tp_scalar_bwd_edge_l2")
+        BWD_EDGE_L2.launches += 1
+        return dw, dsh
+    chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
     launch = _library().dp_tp_scalar_bwd_edge_l2 if l2 else _library().dp_tp_scalar_bwd_edge
     rc = launch(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), g.data_ptr(),

@@ -1531,3 +1531,163 @@ def test_index_forward_and_k3_dx_layout_counts(cuda, sig):
         for bf16 in (0, 1):
             assert tp_scalar._library().dp_tp_scalar_bwd_x_l2_blocks_per_sm(
                 F, D, ni, run, bf16) >= 3
+
+
+# ---- the dense 8-lane K3 forward (tp_scalar_fwd_l2_kernel) and edge
+# backward (tp_scalar_bwd_edge_l2_kernel)
+
+#: (B, N, M): the layer-0 convs of a second-order step (24 x 24 x 24, 24 x 24
+#: x 96, 24 x 96 x 96, 24 x 96 x 24), N = 1, M = 1, and an M that the plan's
+#: slices do not divide
+K3_L2_SHAPES = [(24, 24, 24), (24, 24, 96), (24, 96, 96), (24, 96, 24), (2, 1, 24), (3, 17, 1),
+                (2, 13, 37)]
+#: the second-order layer-0 conv (four-channel units) and one whose paths
+#: are 6 and 3 channels wide (units of 2 and 3 channels, scalar loads)
+K3_L2_SIGNATURES = {"layer0": (SEQ2[0], SEQ2[1]),
+                    "odd": ("6x0e + 3x0o", "6x0e + 2x1o + 2x2e + 3x0o")}
+K3_OTHER_COUNTERS = (tp_scalar.FWD, tp_scalar.BWD_EDGE, tp_scalar.FWD_IDX, tp_scalar.BWD_EDGE_IDX,
+                     tp_scalar.FWD_IDX_L2, tp_scalar.BWD_EDGE_IDX_L2)
+
+
+def _k3_l2_case(cuda, sig, shape, dt, seed=1):
+    """tp, x, sh, w in ``dt``, g and the plain version's output and
+    gradients (dx, dsh, dw) under the lanes the paths define."""
+    tp = channelwise_tp(K3_L2_SIGNATURES[sig][0], SH, K3_L2_SIGNATURES[sig][1])
+    assert tp_scalar.all_scalar_paths(tp) and tp_fused.lanes(tp) == 8
+    x, sh, w = [v.to(dt) for v in _k3_conv_inputs(cuda, tp, *shape, seed=seed)]
+    B, N, M, _ = sh.shape
+    g = torch.randn((B, N, tp.weight_numel, 8), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(seed + 4))
+    leaves = [v.float().requires_grad_(True) for v in (x, sh, w)]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, *[v.to(dt) for v in leaves])
+    grads = torch.autograd.grad(ref, leaves, g * _lanes(tp, g))
+    return tp, x, sh, w, g, ref.detach(), grads
+
+
+def _k3_l2_runs(tp, x, sh, w, g):
+    """The forward, the edge backward with dw and dsh, with dw alone and
+    with dsh alone; asserts one launch each on FWD_L2 and BWD_EDGE_L2 and
+    none on K3's other counters."""
+    before = [tp_scalar.FWD_L2.launches, tp_scalar.BWD_EDGE_L2.launches] + [
+        k.launches for k in K3_OTHER_COUNTERS]
+    out = tp_scalar.launch_forward(tp, x, sh, w)
+    dw, dsh = tp_scalar.launch_backward_edge(tp, x, sh, w, g, True)
+    dw_only, none = tp_scalar.launch_backward_edge(tp, x, sh, w, g, False)
+    none_dw, dsh_only = tp_scalar.launch_backward_edge(tp, x, sh, w, g, True, need_dw=False)
+    assert none is None and none_dw is None
+    after = [tp_scalar.FWD_L2.launches, tp_scalar.BWD_EDGE_L2.launches] + [
+        k.launches for k in K3_OTHER_COUNTERS]
+    assert [a - b for a, b in zip(after, before)] == [1, 3] + [0] * len(K3_OTHER_COUNTERS)
+    return out, dw, dsh, dw_only, dsh_only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig", list(K3_L2_SIGNATURES))
+@pytest.mark.parametrize("shape", K3_L2_SHAPES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_l2_forward_and_edge_kernels(cuda, sig, shape, dtype):
+    """The dense 8-lane forward and edge backward (dsh on and off, dw on and
+    off) at the layer-0 convs' shapes, N = 1, M = 1 and an M the slices do
+    not divide, four-channel units and units of 2 and 3 channels: against
+    autograd through the plain version, f32 within 1e-4 of scale, bf16 the
+    output within 1e-5 of scale and gradients within one rounding step; the
+    pad lanes zero; dw and dsh alone equal to the bit to their launch
+    together; reruns equal to the bit."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tp, x, sh, w, g, ref, (_, ref_dsh, ref_dw) = _k3_l2_case(cuda, sig, shape, dt)
+    runs = [_k3_l2_runs(tp, x, sh, w, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dw, dsh, dw_only, dsh_only = runs[0]
+    assert torch.equal(dw, dw_only) and torch.equal(dsh, dsh_only)
+    assert out.shape == ref.shape and float((out * (1 - _lanes(tp, out))).abs().max()) == 0.0
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    _assert_grads(("dsh", "dw"), (dsh, dw), (ref_dsh, ref_dw), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_l2_dead_and_unaligned(cuda, dtype):
+    """All-dead w: the forward's output and dsh exactly zero, dw as the
+    plain version's.  x, sh and w as views one element into a larger buffer
+    (rows not aligned to four elements: the kernels' scalar loads): every
+    result equal to the bit to the aligned launch's."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tp, x, sh, w, g, _, _ = _k3_l2_case(cuda, "layer0", (24, 24, 96), dt)
+    dead = torch.zeros_like(w)
+    leaves = [v.float().requires_grad_(True) for v in (x, sh, dead)]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, *[v.to(dt) for v in leaves])
+    ref_dw = torch.autograd.grad(ref, leaves[2], g * _lanes(tp, g))[0]
+    out = tp_scalar.launch_forward(tp, x, sh, dead)
+    dw, dsh = tp_scalar.launch_backward_edge(tp, x, sh, dead, g, True)
+    torch.cuda.synchronize()
+    assert float(out.abs().max()) == 0.0 and float(dsh.abs().max()) == 0.0
+    _assert_grads(("dw",), (dw,), (ref_dw,), dt)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xs, shs, ws = shifted(x), shifted(sh), shifted(w)
+    esize = x.element_size()
+    assert all(v.data_ptr() % (4 * esize) != 0 for v in (xs, shs, ws))
+    aligned = [tp_scalar.launch_forward(tp, x, sh, w)] + list(
+        tp_scalar.launch_backward_edge(tp, x, sh, w, g, True))
+    offset = [tp_scalar.launch_forward(tp, xs, shs, ws)] + list(
+        tp_scalar.launch_backward_edge(tp, xs, shs, ws, g, True))
+    torch.cuda.synchronize()
+    for a, b in zip(aligned, offset):
+        assert torch.equal(a, b)
+
+
+def _f2_launch(tp, x, sh, w, R, SL, MC):
+    """The dense 8-lane forward on a plan of the caller's: (R, SL, MC)."""
+    B, N, M, S = sh.shape
+    chan, scale, _, _ = tp_scalar._device_conv_tables(tp, str(x.device), x.dtype)
+    units, _, _, _, vec = tp_scalar._device_units(tp, str(x.device), x.dtype)
+    out = torch.empty((B, N, tp.weight_numel, 8), device=x.device)
+    rc = tp_scalar._library().dp_tp_scalar_fwd_l2_dense(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), units.data_ptr(), chan.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), B, N, M, tp.irreps_in.dim, S, tp.weight_numel,
+        units.shape[0], R, SL, MC, int(vec), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    tp_scalar._raise_on(rc, "tp_scalar_fwd_l2")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_l2_forward_plans(cuda, dtype):
+    """The dense 8-lane forward at the widest layer-0 shape on plans of the
+    test's own (one slice, one receiver a block, slices that do not divide
+    M, the most a block holds; all 96 senders staged at once, or chunks of
+    them): against the plain version (f32 within 1e-4 of scale, bf16 within
+    1e-5), reruns equal to the bit; the library's shared-memory counts equal
+    the plain copies of the layouts, and the occupancy queries give two
+    blocks an SM or more."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tp, x, sh, w, _, ref, _ = _k3_l2_case(cuda, "layer0", (24, 96, 96), dt)
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    for R, SL, MC in ((1, 1, 96), (1, 1, 7), (17, 1, 20), (1, 17, 17), (1, 17, 102), (2, 7, 49),
+                      (5, 3, 96), (5, 3, 33)):
+        got, again = _f2_launch(tp, x, sh, w, R, SL, MC), _f2_launch(tp, x, sh, w, R, SL, MC)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (R, SL, MC)
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max()), (R, SL, MC)
+    lib = tp_scalar._library()
+    t = tp_scalar.units_l2(tp)
+    F, G, S, n = tp.weight_numel, len(t.units), tp.irreps_sh.dim, int(t.comp_ptr[-1])
+    D = tp.irreps_in.dim
+    bf16 = int(dt == torch.bfloat16)
+    for R, SL, MC in ((1, 1, 96), (5, 3, 96), (1, 256 // G, 102), (17, 1, 24)):
+        assert lib.dp_tp_scalar_fwd_l2_dense_smem(R, SL, F, MC, S, D) == \
+            layouts.k3_fwd_l2_smem(R, SL, F, MC, S, D)
+        assert lib.dp_tp_scalar_fwd_l2_dense_blocks_per_sm(R, SL, G, F, MC, S, D, 1, bf16) >= 2
+    for dsh in (0, 1):
+        assert lib.dp_tp_scalar_bwd_edge_l2_dense_smem(dsh, S, n) == \
+            layouts.k3_edge_l2_smem(bool(dsh), S, n)
+        assert lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(dsh, 1, S, n, bf16) >= 2

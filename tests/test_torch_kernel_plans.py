@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_kernel_layouts as layouts
+from torch_kernel_layouts import pad4
 from diffphore_torch.ops import tp_aggregate, tp_fused, tp_scalar
 from diffphore_torch.ops.tensor_product import channelwise_tp
 from diffphore_tpu.ops import tensor_product as jtp
@@ -1069,3 +1070,212 @@ def test_k3_dx_l2_reproduces_the_plain_and_jax_dx(B, N, M, run, chunk):
         tp, jt.aggregate(x_, jnp.asarray(sh), jnp.asarray(w)), 8) * g * mask).sum())(
             jnp.asarray(x)))
     assert float(np.abs(got.numpy() - jdx).max()) <= TOL * float(np.abs(jdx).max())
+
+
+# ---- the dense 8-lane K3 forward and edge backward: lane = a unit of one path
+
+#: (in irreps, out irreps) of all-l_in-0 convs at 8 lanes: the second-order
+#: layer-0 conv (three paths of 20 channels: four-channel units), one whose
+#: paths are 6 and 3 channels wide (units of 2 and 3 channels, two paths
+#: sharing the 0e harmonic), a wider one and a narrow one (one channel a path)
+K3_L2_SIGNATURES = {
+    "layer0": (SEQ2[0], SEQ2[1]),
+    "odd": ("6x0e + 3x0o", "6x0e + 2x1o + 2x2e + 3x0o"),
+    "wide": ("32x0e", "32x0e + 8x1o + 8x2e"),
+    "narrow": ("1x0e", "1x0e + 1x1o + 1x2e"),
+}
+#: (B, N, M) of the six layer-0 training convs at batch 24 and the edge cases
+K3_FWD_SHAPES = [(24, 24, 24), (24, 24, 96), (24, 96, 24), (24, 96, 96), (1, 1, 1), (24, 1, 24),
+                 (1, 96, 1), (3, 37, 29), (2, 9, 300)]
+
+
+def _k3_l2_tp(sig):
+    irr_in, irr_out = K3_L2_SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, SH, irr_out)
+    assert tp_fused.lanes(tp) == 8 and tp_scalar.all_scalar_paths(tp)
+    return tp
+
+
+@pytest.mark.parametrize("sig", list(K3_L2_SIGNATURES))
+def test_k3_l2_units_take_each_channel_once_within_a_path(sig):
+    """``units_l2``: units of at most four neighbouring channels that cover
+    every channel once, each within one path (one harmonic offset, K and
+    c_p; neighbouring x elements), in channel order; the four-channel check
+    holds where every path is four channels wide at a multiple of four (not
+    for widths 6 and 3 or 1); at most 32 units an edge; and the component
+    lists name, for each harmonic component, the units whose path reads it,
+    in unit order, with the component's place in the path."""
+    tp = _k3_l2_tp(sig)
+    chan, scale, _, _ = tp_scalar._conv_tables(tp, torch.float32)
+    t = tp_scalar.units_l2(tp)
+    F, S = tp.weight_numel, tp.irreps_sh.dim
+    seen = []
+    for (f0, d0, off, kc), c in zip(t.units.tolist(), t.scale.tolist()):
+        K, cnt = kc & 7, kc >> 3
+        assert 1 <= cnt <= 4 and 1 <= K <= tp_scalar.KM
+        for i in range(cnt):
+            assert tuple(chan[f0 + i][:3]) == (d0 + i, off, K) and scale[f0 + i] == c
+        seen += range(f0, f0 + cnt)
+    assert seen == list(range(F))
+    assert t.vec == (sig in ("layer0", "wide"))
+    assert len(t.units) <= tp_scalar.E2_LANES
+    for s in range(S):
+        want = [j * tp_scalar.KM + s - off for j, (_, _, off, kc) in enumerate(t.units.tolist())
+                if off <= s < off + (kc & 7)]
+        assert t.comp_item[t.comp_ptr[s]:t.comp_ptr[s + 1]].tolist() == want, s
+    if sig == "layer0":   # each component read by the five units of one path
+        assert t.comp_ptr.tolist() == list(range(0, 50, 5))
+
+
+@pytest.mark.parametrize("sig", ["layer0", "odd", "wide"])
+def test_k3_fwd_l2_plan_covers_the_senders_and_fills_the_card(sig):
+    """The dense 8-lane forward's plan (``plan_fwd_l2``): at most
+    ``F2_THREADS`` threads of (receiver, slice, unit), receivers that tile N
+    and slices that take every sender once (slice s the senders s, s + SL,
+    ...), blocks as full of receivers as N allows, the least cost of its
+    model over every slice count at ``TARGET_BLOCKS`` and at eight blocks an
+    SM, a grid of more than one wave only where every one-wave grid takes
+    more senders a slice, and shared memory for four blocks an SM."""
+    tp = _k3_l2_tp(sig)
+    F, G = tp.weight_numel, len(tp_scalar.units_l2(tp).units)
+    for B, N, M in K3_FWD_SHAPES:
+        for target in (tp_scalar.TARGET_BLOCKS, 8 * H100_SMS):
+            R, SL = tp_scalar.plan_fwd_l2(B, N, M, G, target)
+            assert 1 <= R <= N and 1 <= SL <= M and R * SL * G <= tp_scalar.F2_THREADS
+            taken = sorted(m for s in range(SL) for m in range(s, M, SL))
+            assert taken == list(range(M))
+            blocks = B * -(-N // R)
+
+            def cost(sl):
+                r = max(1, min(N, tp_scalar.F2_THREADS // (sl * G)))
+                return -(-B * -(-N // r) // target) * (-(-M // (sl * tp_scalar.F2_U))
+                                                        + tp_scalar.F2_FIXED)
+
+            assert cost(SL) == min(cost(sl) for sl in range(1, min(M, 256 // G) + 1))
+            assert R == N or R * SL * G > tp_scalar.F2_THREADS - SL * G    # blocks full
+            if blocks > target:                  # more waves only where they save steps
+                one_wave = [sl for sl in range(1, min(M, 256 // G) + 1)
+                            if B * -(-N // max(1, min(N, 256 // (sl * G)))) <= target]
+                assert all(-(-M // (sl * tp_scalar.F2_U)) > -(-M // (SL * tp_scalar.F2_U))
+                           for sl in one_wave)
+            S, D = tp.irreps_sh.dim, tp.irreps_in.dim
+            MC = tp_scalar.chunk_fwd_l2(R, SL, M, S, D)
+            assert MC % SL == 0 and (MC >= M or MC * (R * S + D) <= tp_scalar.F2_STAGE)
+            assert pad4(R * MC * S) + MC * D <= tp_scalar.F2_STAGE
+            smem = layouts.k3_fwd_l2_smem(R, SL, F, MC, S, D)
+            assert smem <= 48 * 1024 and layouts.blocks_per_sm(smem) >= 4
+
+
+def test_k3_l2_layouts_fit():
+    """The dense 8-lane forward's largest block (its sums, or a chunk of 24,
+    96 or 300 senders staged) and the edge backward's with dsh fit four
+    blocks an SM (the edge backward eight without dsh)."""
+    tp = _k3_l2_tp("layer0")
+    t = tp_scalar.units_l2(tp)
+    F, G, S = tp.weight_numel, len(t.units), tp.irreps_sh.dim
+    SL = tp_scalar.F2_THREADS // G
+    for M in (24, 96, 300):
+        MC = tp_scalar.chunk_fwd_l2(1, SL, M, S, tp.irreps_in.dim)
+        smem = layouts.k3_fwd_l2_smem(1, SL, F, MC, S, tp.irreps_in.dim)
+        assert layouts.blocks_per_sm(smem) >= 4
+    n_items = int(t.comp_ptr[-1])
+    assert n_items == 45
+    assert layouts.blocks_per_sm(layouts.k3_edge_l2_smem(True, S, n_items)) >= 4
+    assert layouts.blocks_per_sm(layouts.k3_edge_l2_smem(False, S, n_items)) >= 8
+
+
+def _k3_fwd_l2(tp, x, sh, w, SL):
+    """The dense 8-lane forward's f32 arithmetic in the kernel's grouping, in
+    plain PyTorch: per (receiver, unit), each slice s's chain over its
+    senders s, s + SL, ... in order of x w sh[off + k] (k < K), the slices
+    added in order, times c_p; lanes past K zero."""
+    t = tp_scalar.units_l2(tp)
+    B, N, M, _ = sh.shape
+    out = torch.zeros((B, N, tp.weight_numel, 8))
+    for (f0, d0, off, kc), c in zip(t.units.tolist(), t.scale.tolist()):
+        K, cnt = kc & 7, kc >> 3
+        xw = x[:, None, :, d0:d0 + cnt] * w[..., f0:f0 + cnt]          # (B, N, M, cnt)
+        term = xw[..., None] * sh[..., None, off:off + K]              # (B, N, M, cnt, K)
+        total = torch.zeros((B, N, cnt, K))
+        for s in range(SL):
+            acc = torch.zeros((B, N, cnt, K))
+            for m in range(s, M, SL):
+                acc = acc + term[:, :, m]
+            total = total + acc
+        out[:, :, f0:f0 + cnt, :K] = c * total
+    return out
+
+
+@pytest.mark.parametrize("sig", list(K3_L2_SIGNATURES))
+@pytest.mark.parametrize("B,N,M,SL", [(2, 5, 7, 3), (1, 1, 1, 1), (2, 3, 11, 11), (3, 4, 9, 2)])
+def test_k3_fwd_l2_reproduces_the_plain_and_jax_aggregate(sig, B, N, M, SL):
+    """The dense 8-lane forward's emulation (slices of the senders added in
+    order, a slice count that does not divide M, rows of w all zero)
+    against ``scalar_paths_aggregate_plain`` and the JAX package's
+    aggregate: to 1e-5 of the output's scale."""
+    tp = _k3_l2_tp(sig)
+    rng = np.random.default_rng(B * 100 + N * 10 + M)
+    x = rng.normal(size=(B, M, tp.irreps_in.dim)).astype(np.float32)
+    sh = rng.normal(size=(B, N, M, 9)).astype(np.float32)
+    w = (rng.normal(size=(B, N, M, tp.weight_numel))
+         * (rng.random((B, N, M, 1)) > 0.3)).astype(np.float32)
+    got = _k3_fwd_l2(tp, T(x), T(sh), T(w), SL)
+    want = tp_scalar.scalar_paths_aggregate_plain(tp, T(x), T(sh), T(w))
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    jt = jtp.channelwise_tp(*(K3_L2_SIGNATURES[sig][0], SH, K3_L2_SIGNATURES[sig][1]))
+    jout = np.asarray(_jax_padded(tp, jt.aggregate(jnp.asarray(x), jnp.asarray(sh),
+                                                   jnp.asarray(w)), 8))
+    assert float(np.abs(got.numpy() - jout).max()) <= TOL * float(np.abs(jout).max())
+
+
+def _k3_edge_l2(tp, x, sh, w, g):
+    """The dense 8-lane edge backward's f32 arithmetic in the kernel's
+    grouping, in plain PyTorch: per unit, coef = c_p g[k] (k < K); dw = x
+    sum_k sh[off + k] coef; each unit's sums sum_c x w coef[c][k]; dsh[s] the
+    sum of the units of its component list, in order (0 where none)."""
+    t = tp_scalar.units_l2(tp)
+    dw, dsh = torch.zeros_like(w), torch.zeros_like(sh)
+    parts = []
+    for (f0, d0, off, kc), c in zip(t.units.tolist(), t.scale.tolist()):
+        K, cnt = kc & 7, kc >> 3
+        coef = c * g[:, :, None, f0:f0 + cnt, :K]                     # (B, N, 1, cnt, K)
+        xs = x[:, None, :, d0:d0 + cnt]                               # (B, 1, M, cnt)
+        dw[..., f0:f0 + cnt] = xs * (sh[..., None, off:off + K] * coef).sum(-1)
+        parts.append(((xs * w[..., f0:f0 + cnt])[..., None] * coef).sum(-2))   # (B, N, M, K)
+    for s in range(sh.shape[-1]):
+        for item in t.comp_item[t.comp_ptr[s]:t.comp_ptr[s + 1]].tolist():
+            j, k = divmod(item, tp_scalar.KM)
+            dsh[..., s] = dsh[..., s] + parts[j][..., k]
+    return dw, dsh
+
+
+@pytest.mark.parametrize("sig", list(K3_L2_SIGNATURES))
+@pytest.mark.parametrize("B,N,M", [(2, 5, 7), (1, 1, 1), (3, 4, 9)])
+def test_k3_edge_l2_reproduces_the_plain_and_jax_dw_and_dsh(sig, B, N, M):
+    """The dense 8-lane edge backward's emulation (units, component lists,
+    the upstream gradient's pad lanes noise, rows of w all zero) against
+    ``scalar_paths_backward_edge_plain`` and the gradients in w and sh of
+    the JAX package's aggregate: to 1e-5 of each result's scale; dsh zero
+    in the components no path reads."""
+    tp = _k3_l2_tp(sig)
+    rng = np.random.default_rng(B * 100 + N * 10 + M + 7)
+    x = rng.normal(size=(B, M, tp.irreps_in.dim)).astype(np.float32)
+    sh = rng.normal(size=(B, N, M, 9)).astype(np.float32)
+    w = (rng.normal(size=(B, N, M, tp.weight_numel))
+         * (rng.random((B, N, M, 1)) > 0.3)).astype(np.float32)
+    g, mask = _upstream(tp, rng, B, N, 8)
+    dw, dsh = _k3_edge_l2(tp, T(x), T(sh), T(w), T(g))
+    want_dw, want_dsh = tp_scalar.scalar_paths_backward_edge_plain(tp, T(x), T(sh), T(w), T(g),
+                                                                   True)
+    for got, want in ((dw, want_dw), (dsh, want_dsh)):
+        assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    t = tp_scalar.units_l2(tp)
+    unread = [s for s in range(sh.shape[-1]) if t.comp_ptr[s] == t.comp_ptr[s + 1]]
+    assert float(dsh[..., unread].abs().sum()) == 0.0
+    irr_in, irr_out = K3_L2_SIGNATURES[sig]
+    jt = jtp.channelwise_tp(irr_in, SH, irr_out)
+    jdsh, jdw = jax.grad(lambda s_, w_: (_jax_padded(
+        tp, jt.aggregate(jnp.asarray(x), s_, w_), 8) * g * mask).sum(), argnums=(0, 1))(
+            jnp.asarray(sh), jnp.asarray(w))
+    for got, want in ((dw, np.asarray(jdw)), (dsh, np.asarray(jdsh))):
+        assert float(np.abs(got.numpy() - want).max()) <= TOL * float(np.abs(want).max())

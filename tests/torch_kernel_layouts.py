@@ -76,6 +76,22 @@ def idx_dx_l2_smem(D: int, F: int, n_paths: int, ts: int, gs: int, ni: int, esiz
     return 4 * (max(floats, pad4(5 * F)) + pad4(D + 1) + pad4(ni))
 
 
+def k3_fwd_l2_smem(R: int, SL: int, F: int, MC: int, S: int, D: int) -> int:
+    """Bytes of the dense 8-lane K3 forward's block (``f2_floats`` in
+    csrc/tp_scalar.cu): while it sums, MC senders' harmonics for each of R
+    receivers (R MC S floats, padded to four) and their rows of x (MC D); at
+    the end, over the same space, the five sums of each (receiver, slice,
+    channel); the larger of the two."""
+    return 4 * max(R * SL * F * 5, pad4(R * MC * S) + MC * D)
+
+
+def k3_edge_l2_smem(dsh: bool, S: int, n_items: int) -> int:
+    """Bytes of the dense 8-lane K3 edge backward's block: with dsh, each of
+    its 256 lanes' five sums, then the component lists (S + 1 extents,
+    n_items entries); without, a one-float placeholder."""
+    return 4 * (256 * 5 + S + 1 + n_items) if dsh else 4
+
+
 def blocks_per_sm(smem: int) -> int:
     """Blocks of ``smem`` bytes that an H100 SM's shared memory holds."""
     return H100_SM_SMEM // (smem + H100_BLOCK_RESERVED)
