@@ -5,6 +5,7 @@
     python3 chip_smoke.py --second_order_only   # phases 1, 2 and 16 (~2 min)
     python3 chip_smoke.py --knn_only            # phases 1, 2 and 17
     python3 chip_smoke.py --host_modules_only   # phases 1, 2 and 18
+    python3 chip_smoke.py --widths_only         # phases 1, 2 and 19
 
 Phases, each fatal on failure:
   1. card: require CUDA; print the card's name and power limit; full-f32
@@ -212,6 +213,17 @@ Phases, each fatal on failure:
      copies of example.phore; performance_analyze over (c)'s ranked poses;
      run_docking without vina and run_ifptarget without IFPTarget skipped
      cleanly), each driver's wall.
+  19. model widths past corpus2's (run before the report), from fresh
+     weights at bf16, 4 conv layers, at ns / nv = 32 / 16 (l <= 1: the
+     4-lane K1's wide kernel) and 48 / 10 (l = 2: the 8-lane wide K1, K2
+     past 384 channels, K3's edge backward at 36 units): K1 held against
+     its plain version on the 23 conv calls of one 40-pose forward (f32 and
+     bf16, reruns bit-equal, each timed once) and the forward against the
+     plain convs; K2 and K3 held on the 17 + 6 conv calls of one
+     training-mode forward (phase 5's check); one train step of 24 (K2 17 x
+     3, K3 6 x 3 exactly), its wall and busy time; one dispatch of one
+     complex x 40 poses x 20 steps (K1 exactly 460), its poses/s; a
+     ``widths`` summary line.
   14. report: the kernels' JSON line (each kernel's launches per path, phase
      18's as ``launches_synthetic_pretrain`` and ``launches_host_modules_screen``, and
      its errors and times at the recipe's bucket; the 8-lane kernels' as
@@ -785,12 +797,13 @@ def check_result(what, got, want, dtype, tol_f32):
     return err, scale
 
 
-def phase_k2_check(calls):
+def phase_k2_check(calls, timed=True):
     """Hold K2's kernels against the plain version on the captured inputs,
     in f32 and in bf16.  A call with a sender index runs the sender-index
     mode: dw without dsh (the phore convs' harmonics carry no gradient), dx
     by the index's inverse lists (built beforehand, as the autograd forward
-    builds them), and the gathered einsums as the library time."""
+    builds them), and the gathered einsums as the library time.  ``timed``
+    False: the checks alone, no times."""
     import torch
 
     from diffphore_torch.ops import tp_aggregate as k2
@@ -849,6 +862,9 @@ def phase_k2_check(calls):
             # times: the backward in the form the train step runs it (dsh only
             # where the harmonics carry gradient)
             case["errs" + tag] = errs
+            if not timed:
+                del ref, leaves, runs
+                continue
             dx_call = lambda: k2.launch_backward_x(tp, x, sh, w, g, **dx_kw)
             if idx is not None:   # the forward's live pass (timed in the forward), alone
                 case["live_ms" + tag] = device_ms(lambda: k2.live_rows_l2(w), 10)
@@ -892,6 +908,10 @@ def phase_k2_check(calls):
                 }
             del ref, leaves, runs
         cases.append(case)
+        if not timed:
+            print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F:3d} dsh={int(sh_grad)} "
+                  f"{errors_text(case)} (reruns bit-equal)", flush=True)
+            continue
         ms, ms_bf, plain, bound = case["ms"], case["ms_bf16"], case["plain_ms"], case["bound"]
         grid = case["grid"]
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} "
@@ -914,7 +934,7 @@ def phase_k2_check(calls):
                  f"{case['live_ms_bf16']:.4f})" if idx is not None else "")
               + f" | bwd_edge per call from Python {case['call_ms_bwd_edge']:.4f}", flush=True)
     by_name = {c["conv"]: c for c in cases}
-    for c in cases:
+    for c in cases if timed else ():
         twin = by_name.get(c["conv"].replace("_conv_", "_norm_conv_"))
         if c["dsh"] and twin is not None and twin is not c:
             a, b = c["ms"]["bwd_edge"], twin["ms"]["bwd_edge"]
@@ -1091,14 +1111,14 @@ def k3_work(tp, x, sh, w, with_dsh, idx=None):
     }
 
 
-def phase_k3_check(calls):
+def phase_k3_check(calls, timed=True):
     """Hold K3's kernels against the plain versions on each captured
     layer-0 conv, in f32 and in bf16: the forward and dx against autograd
     through ``scalar_paths_aggregate_plain``, the edge backward (dw and dsh
     in one launch) against ``scalar_paths_backward_edge_plain``.  A call
     with a sender index runs the sender-index mode as phase_k2_check does:
     dw without dsh, dx by the index's inverse lists, the gathered einsums
-    as the library time."""
+    as the library time.  ``timed`` False: the checks alone, no times."""
     import torch
 
     from diffphore_torch.ops import tp_scalar as k3
@@ -1164,6 +1184,9 @@ def phase_k3_check(calls):
                 errs[label] = check_result(f"{name} {dtype}: {label}", got, want.float(), dtype,
                                            TOL_K3)
             case["errs" + tag] = errs
+            if not timed:
+                del ref, leaves, runs
+                continue
             # times: the edge backward in the form the train step runs it (dsh
             # only where the harmonics carry gradient)
             case["ms" + tag] = {
@@ -1181,7 +1204,10 @@ def phase_k3_check(calls):
             else:
                 lists = dx_kw["lists"]
                 dx_grid = f"Q={lists.Q} x {int(lists.row_ptr[-1])} chunks, {lists.blocks} blocks"
-            if idx is None and n_lanes(tp) == 8:   # whole receivers a block, no splits
+            if idx is not None:                     # whole receivers a block, all slots
+                R, SL, MC = k3.plan_idx(tp, B, N, M)
+                fwd_grid = f"1 ({R} receivers x {SL} slices a block, {MC} slots staged)"
+            elif n_lanes(tp) == 8:                  # whole receivers a block, no splits
                 R, SL, MC = k3.launch_plan_fwd_l2(tp, B, N, M, x.device, dtype)
                 fwd_grid = f"1 ({R} receivers x {SL} slices a block, {MC} senders staged)"
             else:
@@ -1201,6 +1227,10 @@ def phase_k3_check(calls):
                 case["plain_ms"] = plain
             del ref, leaves, runs
         cases.append(case)
+        if not timed:
+            print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} F={F} dsh={int(sh_grad)} "
+                  f"{errors_text(case)} (reruns bit-equal)", flush=True)
+            continue
         ms, ms_bf, bound, lib = case["ms"], case["ms_bf16"], case["bound"], case["library_ms"]
         print(f"  {name:28s} B={B:2d} N={N:3d} M={M:3d} "
               + (f"(slots of M_x={M_x} senders; slots a sender: max "
@@ -3734,6 +3764,16 @@ K2_DEVICE_KERNELS_IDX = {
 }
 
 
+# ... and behind each sender-index K3 wrapper: the forward and dw one kernel
+# each (at both lane counts), dx three.
+K3_DEVICE_KERNELS_IDX = {
+    "fwd": ["tp_scalar_idx_kernel<T, LANES, VEC, DW = false>"],
+    "bwd_edge": ["tp_scalar_idx_kernel<T, LANES, VEC, DW = true>"],
+    "bwd_x": ["tp_scalar_bwd_x_idx_slots", "tp_scalar_bwd_x_idx_chunks",
+              "tp_scalar_bwd_x_idx_sum"],
+}
+
+
 def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
     """The report entries of the sender-index kernels (``l2``: the 8-lane
     instantiations): K1's over the phore convs of one 40-pose forward, K2's
@@ -3789,6 +3829,8 @@ def index_entries(k1_cases, k2_cases, k3_cases, serving, training, l2=False):
                 if k == "fwd":
                     entries[-1]["live_ms"] = sum(c["live_ms"] for c in cases)
                     entries[-1]["live_ms_bf16"] = sum(c["live_ms_bf16"] for c in cases)
+            else:
+                entries[-1]["device_kernels"] = K3_DEVICE_KERNELS_IDX[k]
     return entries
 
 
@@ -4548,6 +4590,197 @@ def phase_host_modules(card, device="cuda", poses=POSES, steps=STEPS, config_ove
     return counts
 
 
+# Phase 19: model widths past corpus2's on the kernels.  Fresh weights (a
+# seeded create_train_state) at bf16, 4 conv layers: ns / nv = 32 / 16 at l
+# <= 1 (E = H = 96: the 4-lane K1's wide kernel, hidden layer in chunks of
+# 64; F up to 256) and 48 / 10 at l = 2 (E = H = 144, F up to 528: the
+# 8-lane K1's wide kernel, K2's 8-lane kernels past 384 channels, K3's edge
+# backward at 36 units of four channels).
+WIDTH_CASES = (("32-16-l1", dict(ns=32, nv=16, use_second_order_repr=False)),
+               ("48-10-l2", dict(ns=48, nv=10, use_second_order_repr=True)))
+WIDTH_STEP_REPEATS = 1          # timed train steps a width (after the counted one)
+WIDTH_CALIBRATION = 40          # forwards that move fresh batch norms' statistics (8 rows each)
+
+
+def phase_widths(card, jobs, train_batch, draws):
+    """19: each model of ``WIDTH_CASES`` (its batch norms' statistics moved
+    by ``FitEngine.calibrate_batch_stats`` first): (a) K1 held against its plain
+    version on the 23 conv calls of one 40-pose forward (f32 and bf16,
+    reruns bit-equal; each call timed once at each type by graph replay), and the
+    forward kernel convs against plain convs; (b) K2 and K3 held against
+    their plain versions on the 17 + 6 conv calls of one training-mode
+    forward (phase 5's check); (c) one train step of 24, K2 17 x 3 and K3 6
+    x 3 launches exactly, its wall and busy time; (d) one FitEngine dispatch
+    of one cached complex x 40 poses x 20 steps, K1 exactly 460, its
+    poses/s.  Returns, by width, the cases, counts and times."""
+    import numpy as np
+    import torch
+
+    from diffphore_torch.cli.pipeline import FitEngine
+    from diffphore_torch.data.transforms import apply_noise
+    from diffphore_torch.ops import tp_fused
+    from diffphore_torch.sampler.sampling import SamplerSettings
+    from diffphore_torch.train.state import create_train_state, make_train_step
+    from diffphore_torch.utils.checkpoints import load_model_dir
+
+    base, _ = load_model_dir(MODEL_DIR, device="cpu")
+    out = {}
+    for tag, over in WIDTH_CASES:
+        t_phase = time.perf_counter()
+        cfg = dataclasses.replace(base, compute_dtype="bfloat16", **over)
+        l2 = cfg.use_second_order_repr
+        state = create_train_state(cfg, seed=SEED, device="cuda")
+        model = state.model
+        engine = FitEngine(cfg, model, samples_per_complex=POSES,
+                           settings=SamplerSettings(inference_steps=STEPS), seed=SEED,
+                           device="cuda")
+        # fresh weights' identity statistics let eval-mode activations
+        # overflow through the conv stack (NaN in tr and rot): move them
+        # toward those of randomized poses first, as a random-init serve does
+        engine.calibrate_batch_stats(jobs[0], iters=WIDTH_CALIBRATION)
+
+        # ---- (a) K1 on the 23 conv calls of one 40-pose forward
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        batch = posed_rows(jobs[0].batch.to("cuda"), POSES, cfg, gen)
+        k1_cases = []
+        for name, mod, args in capture_conv_calls(model, batch):
+            c = check_k1_call(tp_fused, name, mod, args)
+            B, N, M, _ = c["sh"].shape
+            pl = tp_fused.plan(c["tp"], B, N, M, len(c["attrs"]), *c["params"][0].shape, 2,
+                               False)
+            with torch.inference_mode():
+                ms = device_ms(lambda: tp_fused.tp_aggregate_fused(
+                    c["tp"], c["x"], c["sh"], c["attrs"], c["masks"], *c["params"]), 10,
+                    replays=1)
+                ms_bf = device_ms(lambda: tp_fused.tp_aggregate_fused(
+                    c["tp"], *c["low"], c["masks"], *c["params"]), 10, replays=1)
+            nbytes, mm_ops, vec_ops = k1_work(c["tp"], c["x"], c["sh"], c["attrs"], c["masks"],
+                                              c["params"][0], c["params"][2])
+            nbytes_bf, _, _ = k1_work(c["tp"], c["low"][0], c["low"][1], c["low"][2],
+                                      c["masks"], c["params"][0], c["params"][2])
+            k1_cases.append({
+                "conv": name, "B": B, "N": N, "M": M, "F": c["tp"].weight_numel,
+                "E": c["params"][0].shape[0], "wide": pl.wide, "channel_tiles": len(pl.tiles),
+                "max_abs_err": c["err"], "max_abs_err_bf16": c["err_bf"], "ms": ms,
+                "ms_bf16": ms_bf,
+                "bound_ms": max(nbytes / PEAK_BYTES, (mm_ops + vec_ops) / PEAK_F32) * 1e3,
+                "bound_ms_bf16": max(nbytes_bf / PEAK_BYTES, mm_ops / PEAK_BF16,
+                                     vec_ops / PEAK_F32) * 1e3})
+        check_forward(model, batch, cfg.compute_dtype, what=f"widths {tag} forward")
+        total = {k: sum(c[k] for c in k1_cases) for k in ("ms", "ms_bf16", "bound_ms",
+                                                          "bound_ms_bf16")}
+        print(f"widths {tag}: K1 held on the 23 conv calls of one forward (f32 and bf16, reruns "
+              f"bit-equal; {sum(c['wide'] for c in k1_cases)} on the wide kernel), max err "
+              f"{max(c['max_abs_err'] for c in k1_cases):.2e} (bf16 "
+              f"{max(c['max_abs_err_bf16'] for c in k1_cases):.2e}); kernel time over the 23 "
+              f"{total['ms']:.4f} ms f32, {total['ms_bf16']:.4f} ms bf16 on the card (bound "
+              f"{total['bound_ms']:.4f} / {total['bound_ms_bf16']:.4f}) ({card})", flush=True)
+        for c in k1_cases:
+            print(f"  {c['conv']:28s} E={c['E']:3d} F={c['F']:3d} "
+                  f"{'wide' if c['wide'] else 'narrow'} {c['channel_tiles']} tile(s) "
+                  f"err={c['max_abs_err']:.2e} bf16_err={c['max_abs_err_bf16']:.2e} "
+                  f"{c['ms']:.4f} / {c['ms_bf16']:.4f} ms (bound {c['bound_ms']:.4f} / "
+                  f"{c['bound_ms_bf16']:.4f})", flush=True)
+        t_k1 = time.perf_counter()
+
+        # ---- (b) K2 and K3 on the conv calls of one training-mode forward
+        with torch.no_grad():
+            noised, _ = apply_noise(train_batch, cfg.sigma_schedule, draws=draws)
+        k2_calls, k3_calls = capture_training_convs(state.model, noised)
+        print(f"widths {tag}, kernel check: tp_aggregate on the {K2_CONVS} conv calls it takes "
+              "of one training-mode forward", flush=True)
+        k2_cases = phase_k2_check(k2_calls, timed=False)
+        print(f"widths {tag}, kernel check: tp_scalar on the {K3_CONVS} layer-0 convs",
+              flush=True)
+        k3_cases = phase_k3_check(k3_calls, timed=False)
+        del noised, k2_calls, k3_calls
+        torch.cuda.empty_cache()
+        t_k23 = time.perf_counter()
+
+        # ---- (c) one train step of 24, launches exact, then timed
+        step = make_train_step(cfg)
+        drop = torch.Generator(device="cuda")
+        drop.manual_seed(SEED + 1)
+        state.model.train()
+        reset_kernel_counts()
+        state, metrics = step(state, train_batch, drop, draws=draws)
+        torch.cuda.synchronize()
+        step_counts = expect_counts(f"widths {tag} train step", steps=1, l2=l2)
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"widths {tag}: the train step's loss is not finite")
+        run_step = lambda: step(state, train_batch, drop, draws=draws)
+        step_ms, step_peak = timed_steps(run_step, WIDTH_STEP_REPEATS)
+        step_busy = profiled_busy_ms(run_step, repeats=1)
+        print(f"widths {tag}: train step at bf16, batch {train_batch.batch_size}: loss "
+              f"{float(metrics['loss']):.4f}; {step_ms:.1f} ms wall, {step_busy:.1f} ms busy on "
+              f"the card (torch.profiler), peak memory {step_peak:.2f} GiB; launches "
+              f"{nonzero(step_counts)} ({card})", flush=True)
+        t_step = time.perf_counter()
+
+        # ---- (d) one dispatch: one complex x 40 poses x 20 steps
+        model.eval()
+        engine.run_complexes(jobs[:1])          # warm-up
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        served = engine.run_complexes(jobs[:1])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serving = expect_counts(f"widths {tag} dispatch", k1=CONVS_PER_FORWARD * STEPS, l2=l2)
+        r = served[0]
+        if r["poses"].shape != (POSES, jobs[0].n_atoms, 3) or not np.isfinite(r["poses"]).all() \
+                or not np.isfinite(r["fitscore"]).all():
+            raise AssertionError(f"widths {tag}: poses or fitscores not finite")
+        poses_per_s = POSES / serve_s
+        k1_name = "k1_l2" if l2 else "k1"
+        print(f"widths {tag}: one dispatch of {jobs[0].name} x {POSES} poses x {STEPS} steps in "
+              f"{serve_s:.3f} s = {poses_per_s:.1f} poses/s; K1 launches {serving[k1_name]} "
+              f"({card})", flush=True)
+        t_end = time.perf_counter()
+        print(f"widths {tag}: phase {t_end - t_phase:.1f} s (K1 {t_k1 - t_phase:.1f}, K2/K3 "
+              f"{t_k23 - t_k1:.1f}, train step {t_step - t_k23:.1f}, dispatch "
+              f"{t_end - t_step:.1f})", flush=True)
+        out[tag] = {"k1_cases": k1_cases, "k2_cases": k2_cases, "k3_cases": k3_cases,
+                    "step_counts": step_counts, "serving": serving, "poses_per_s": poses_per_s,
+                    "step_ms": step_ms, "step_busy_ms": step_busy, "step_peak_gib": step_peak}
+        del state, model, engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def widths_summary(widths):
+    """Phase 19's numbers for the report, by width."""
+    return {tag: {"poses_per_s": w["poses_per_s"], "step_ms": w["step_ms"],
+                  "step_busy_ms": w["step_busy_ms"], "k1_launches_per_dispatch":
+                      max(w["serving"]["k1"], w["serving"]["k1_l2"]),
+                  "k1_ms_23_convs": sum(c["ms"] for c in w["k1_cases"]),
+                  "k1_ms_bf16_23_convs": sum(c["ms_bf16"] for c in w["k1_cases"]),
+                  "k1_bound_ms_23_convs": sum(c["bound_ms"] for c in w["k1_cases"]),
+                  "k1_bound_ms_bf16_23_convs": sum(c["bound_ms_bf16"] for c in w["k1_cases"])}
+            for tag, w in widths.items()}
+
+
+def widths_alone(card, kind):
+    """Phase 19 alone, after the card line and the build: its inputs made as
+    main() makes them, then a summary line, the card line and the result
+    line."""
+    import torch
+
+    from diffphore_torch.cli.pipeline import job_from_cached
+
+    jobs = [job_from_cached(b) for _, b in bucket_complexes(CACHE_DIR, 1)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    train_batch, draws = recipe_batch(gen)
+    widths = phase_widths(card, jobs, train_batch, draws)
+    print(json.dumps({"widths": widths_summary(widths)}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def nonzero(counts):
     """The counters a run moved (every other one is 0)."""
     return {k: n for k, n in counts.items() if n}
@@ -4592,6 +4825,9 @@ def main(argv=None) -> int:
     parser.add_argument("--host_modules_only", action="store_true",
                         help="after the card line and the build, run phase 18 (the host-only "
                              "modules) alone")
+    parser.add_argument("--widths_only", action="store_true",
+                        help="after the card line and the build, run phase 19 (model widths "
+                             "past corpus2's) alone")
     args = parser.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "diffphore_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4638,6 +4874,8 @@ def main(argv=None) -> int:
         return second_order_alone(card, kind)
     if args.knn_only:
         return knn_alone(card, kind)
+    if args.widths_only:
+        return widths_alone(card, kind)
     if args.host_modules_only:
         host = phase_host_modules(card)
         print(json.dumps({"host_modules_launches": host}))
@@ -4808,6 +5046,12 @@ def main(argv=None) -> int:
     host = phase_host_modules(card)
 
     mark("host modules")
+
+    # ---- 19. model widths past corpus2's (ahead of the report)
+    widths = phase_widths(card, jobs, train_batch, draws)
+    print(json.dumps({"widths": widths_summary(widths)}))
+
+    mark("widths")
 
     # ---- 14. report
     kernel = k1_entry("tp_fused", cases, launches)

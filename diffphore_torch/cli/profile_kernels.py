@@ -38,9 +38,10 @@ widths (F up to 360, 30 paths, D = 200, E = H = 60), at the serving shapes
 (40 poses of a 24 x 96 x 8 complex) and the step's (24 rows of that bucket),
 then in the sender-index mode on the 3 phore convs at K = 24; a summary line
 per (mode, rows, dtype) sums the 23 (or 3) calls.  ``--k3_index`` times K3's
-sender-index dx at 4 and 8 lanes on the layer-0 phore conv of a 24-row step
-at K = 24, on an index of nearest live phore points (uneven loads: some
-points are among the nearest of most receivers, padded ones of none).  Both
+sender-index forward, dw and dx at 4 and 8 lanes on the layer-0 phore conv
+of a 24-row step at K = 24, on an index of nearest live phore points (uneven
+loads: some points are among the nearest of most receivers, padded ones of
+none), the forward and dw beside their byte bound and the gathered einsum.  Both
 print ``graph_us`` beside the profiler's per-kernel times.  ``--k1_l2`` runs
 unchanged in a tree from before the 8-lane K1's redesign; in a tree from
 before the sender-index dx's, ``--k3_index`` needs ``lists`` to be that
@@ -296,35 +297,70 @@ def k1_l2_cases(randn, gen, card) -> list:
 
 
 def k3_index_cases(randn, gen, card) -> list:
-    """K3's sender-index dx on the layer-0 phore conv of a 24-row step at
-    K = 24, at 4 and 8 lanes, f32 and bf16: per-kernel device time and
-    graph_us, with the index's lists built beforehand (as the autograd
-    forward builds them)."""
+    """K3's sender-index forward, edge backward (dw) and dx on the layer-0
+    phore conv of a 24-row step at K = 24, at 4 and 8 lanes, f32 and bf16:
+    per-kernel device time and graph_us, dx with the index's lists built
+    beforehand (as the autograd forward builds them); beside the forward
+    and dw their byte bound (each operand read once, each result written
+    once, at 3.35 TB/s) and ``library_us``, the graph-replay time of the
+    gather of the senders and the gathered per-path torch.einsum of the
+    same function.  It calls only ``launch_forward``,
+    ``launch_backward_edge`` and ``launch_backward_x``, so it runs unchanged
+    in a tree from before the sender-index forward's and dw's redesign."""
     results = []
     B, P = 24, 96
     idx, live = knn_index(B, P, KNN_K, gen)
     count = torch.bincount((idx.long() + P * torch.arange(B, device="cuda")[:, None, None])
                            .flatten(), minlength=B * P)
+    rows = (idx.long() + P * torch.arange(B, device="cuda")[:, None, None]).reshape(B, P * KNN_K)
     for lanes_, seq in ((4, SEQ), (8, SEQ2)):
         tp = channelwise_tp(seq[0], SH, seq[1])
-        F = tp.weight_numel
+        F, D = tp.weight_numel, tp.irreps_in.dim
         for dtype in (torch.float32, torch.bfloat16):
-            x = randn(B, P, tp.irreps_in.dim).to(dtype)
+            x = randn(B, P, D).to(dtype)
             sh = randn(B, P, KNN_K, 9).to(dtype)
             w = (randn(B, P, KNN_K, F) * live[:, :, None, None]).to(dtype).contiguous()
             g = randn(B, P, F, lanes_)
             lists = tp_scalar.dx_lists(tp, idx, P, dtype)
-            call = lambda: tp_scalar.launch_backward_x(tp, x, sh, w, g, sender_index=idx,
-                                                       lists=lists)
-            times = kernel_times(call)
-            results.append({"kernel": "tp_scalar_bwd_x_idx", "lanes": lanes_,
-                            "dtype": str(dtype), "B": B, "N": P, "K": KNN_K, "M_x": P, "F": F,
-                            "slots_per_sender_max": int(count.max()),
-                            "slots_per_sender_mean": float(count.float().mean()),
-                            "senders_read": int((count > 0).sum()), "us": times,
-                            "us_total": sum(times.values()), "graph_us": graph_us(call),
-                            "card": card})
-            print(json.dumps(results[-1]), flush=True)
+            es = x.element_size()
+            io = {"x": B * P * D * es, "sh": B * P * KNN_K * 9 * es, "w": B * P * KNN_K * F * es,
+                  "idx": B * P * KNN_K * 4, "g": B * P * F * lanes_ * 4}
+
+            def gathered():                   # the senders' rows by slot, then the einsums
+                xg = x.reshape(B * P, D)[rows.reshape(-1)].reshape(B, P, KNN_K, D)
+                return [torch.einsum("bnku,bnkj,bnku->bnuj", xv, shv, wv)
+                        for xv, shv, wv in tp_scalar.path_views(tp, xg, sh, w)]
+
+            def gathered_dw():
+                xg = x.reshape(B * P, D)[rows.reshape(-1)].reshape(B, P, KNN_K, D)
+                gv = g.to(dtype)
+                return [torch.einsum("bnku,bnkj,bnuj->bnku", xv, shv,
+                                     gv[:, :, p.w_slice[0]:p.w_slice[1], :shv.shape[-1]])
+                        for p, (xv, shv, _) in zip(tp.paths,
+                                                   tp_scalar.path_views(tp, xg, sh, w))]
+
+            for kernel, call, nbytes, library in (
+                    ("tp_scalar_fwd_idx", lambda: tp_scalar.launch_forward(
+                        tp, x, sh, w, sender_index=idx),
+                     io["x"] + io["sh"] + io["w"] + io["idx"] + B * P * F * lanes_ * 4,
+                     gathered),
+                    ("tp_scalar_bwd_edge_idx", lambda: tp_scalar.launch_backward_edge(
+                        tp, x, sh, w, g, False, sender_index=idx),
+                     io["x"] + io["sh"] + io["idx"] + io["g"] + io["w"], gathered_dw),
+                    ("tp_scalar_bwd_x_idx", lambda: tp_scalar.launch_backward_x(
+                        tp, x, sh, w, g, sender_index=idx, lists=lists), None, None)):
+                times = kernel_times(call)
+                results.append({"kernel": kernel, "lanes": lanes_, "dtype": str(dtype), "B": B,
+                                "N": P, "K": KNN_K, "M_x": P, "F": F,
+                                "slots_per_sender_max": int(count.max()),
+                                "slots_per_sender_mean": float(count.float().mean()),
+                                "senders_read": int((count > 0).sum()), "us": times,
+                                "us_total": sum(times.values()), "graph_us": graph_us(call),
+                                "card": card})
+                if nbytes is not None:
+                    results[-1]["bound_us"] = nbytes / 3.35e12 * 1e6
+                    results[-1]["library_us"] = graph_us(library)
+                print(json.dumps(results[-1]), flush=True)
     return results
 
 
@@ -516,7 +552,8 @@ def k3_l2_plan(tp, B, N, M, dtype, dsh) -> dict:
                     F, len(t.units), S, D, t.vec, bf16, device) // sms,
                 "fwd_plan": list(tp_scalar.launch_plan_fwd_l2(tp, B, N, M, device, dtype)),
                 "edge_blocks_per_sm": tp_scalar._edge_blocks_l2(
-                    dsh, t.vec, S, n_items, bf16, device) // sms}
+                    dsh, t.vec, S, n_items, *(len(t.units),) * hasattr(tp_scalar, "E2_UNITS"),
+                    bf16, device) // sms}
     n_items = len(tp_scalar._conv_tables(tp, dtype)[3])
     return {"fwd_blocks_per_sm": tp_scalar._resident_blocks(0, F, D, n_items, bf16, device,
                                                            True) // sms,
@@ -577,7 +614,8 @@ def main(argv=None) -> list:
     parser.add_argument("--k1_l2", action="store_true",
                         help="only the 8-lane K1, dense and sender-index (to compare two trees)")
     parser.add_argument("--k3_index", action="store_true",
-                        help="only K3's sender-index dx at 4 and 8 lanes (to compare two trees)")
+                        help="only K3's sender-index forward, dw and dx at 4 and 8 lanes (to "
+                             "compare two trees)")
     parser.add_argument("--k2_l2", action="store_true",
                         help="only the dense 8-lane K2 forward and dx (to compare two trees)")
     parser.add_argument("--k2_edge_l2", action="store_true",

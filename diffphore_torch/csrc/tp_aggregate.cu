@@ -191,6 +191,19 @@
 //    orders, no atomics: reruns agree to the bit.
 //  Where they stand: PERF.md (chip_smoke.py phases 16 and 17,
 //  profile_kernels --k2_edge_l2 and --k2_index).
+//
+// Model widths past corpus2's (ns / nv up to 64 / 32: F up to 512 at 4 lanes,
+// 1,152 at 8).  The split forward and dx run a thread pair a channel, so a
+// 4-lane row wider than 256 channels takes the tiled forward and dx above at
+// LANES = 4 (tp_aggregate.tiled: the live pass, channel tiles on the grid,
+// dx's per-tile sums added by tp_aggregate_l2_dx_sum in a fixed order).  The
+// 4-lane dw kernel loops its threads over a wide row's channels; the dsh
+// kernel already walks every channel of its receiver's rows in one block (a
+// warp a path), so its sums stay in one block and in order.  At 8 lanes the
+// dense edge backward takes fewer senders a block (24, 16 or 8) where 32
+// senders' x and w rows would not fit beside P (tp_aggregate.edge_slots_l2);
+// the sender-index dw loops its threads over the channels, and the
+// sender-index dx gives a thread up to three channels (XC) past 384.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -286,7 +299,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // barrier after that.  It does not read w.
 constexpr int MT_MAX = 16;      // senders per block
 
-template <typename T>
+template <typename T, bool LOOP>
 __global__ void __launch_bounds__(MAX_THREADS, 3) tp_aggregate_bwd_edge_kernel(
     const T* __restrict__ x,         // (B, M, D)
     const T* __restrict__ sh,        // (B, N, M, S)
@@ -314,39 +327,42 @@ __global__ void __launch_bounds__(MAX_THREADS, 3) tp_aggregate_bwd_edge_kernel(
   }
   __syncthreads();
 
-  const int f = tid;
-  if (f >= F) return;
-  const int4 cm = chan[f];
-  const int d_out = ptab[cm.w].w;
-  const float* G = s_g + cm.w * G_SIZE;
-  float gk[TN][3];
-#pragma unroll
-  for (int nl = 0; nl < TN; ++nl) {
-    const int n = n0 + nl;
-    float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n < N) gv = reinterpret_cast<const float4*>(g)[((size_t)b * N + n) * F + f];
-    gk[nl][0] = d_out > 0 ? gv.x : 0.f;
-    gk[nl][1] = d_out > 1 ? gv.y : 0.f;
-    gk[nl][2] = d_out > 2 ? gv.z : 0.f;
-  }
-
-  for (int m = m0; m < m_end; ++m) {
-    const int ml = m - m0;
-    float z[J_MAX][3];
-    node_product(G, s_x + ml * D, cm.x, cm.y, z);
+  // thread = channel; a row wider than the block (LOOP) takes channels f,
+  // f + nt, ...
+  for (int f = tid; f < F; f += nt) {
+    const int4 cm = chan[f];
+    const int d_out = ptab[cm.w].w;
+    const float* G = s_g + cm.w * G_SIZE;
+    float gk[TN][3];
 #pragma unroll
     for (int nl = 0; nl < TN; ++nl) {
       const int n = n0 + nl;
-      if (n >= N) continue;
-      const float* sv = s_sh + (nl * mt + ml) * SH_STRIDE + cm.z;
-      float dwv = 0.f;
-#pragma unroll
-      for (int j = 0; j < J_MAX; ++j) {
-        const float t = z[j][0] * gk[nl][0] + z[j][1] * gk[nl][1] + z[j][2] * gk[nl][2];
-        dwv = fmaf(t, sv[j], dwv);
-      }
-      dw[(((size_t)b * N + n) * M + m) * F + f] = from_f<T>(dwv);
+      float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n < N) gv = reinterpret_cast<const float4*>(g)[((size_t)b * N + n) * F + f];
+      gk[nl][0] = d_out > 0 ? gv.x : 0.f;
+      gk[nl][1] = d_out > 1 ? gv.y : 0.f;
+      gk[nl][2] = d_out > 2 ? gv.z : 0.f;
     }
+
+    for (int m = m0; m < m_end; ++m) {
+      const int ml = m - m0;
+      float z[J_MAX][3];
+      node_product(G, s_x + ml * D, cm.x, cm.y, z);
+#pragma unroll
+      for (int nl = 0; nl < TN; ++nl) {
+        const int n = n0 + nl;
+        if (n >= N) continue;
+        const float* sv = s_sh + (nl * mt + ml) * SH_STRIDE + cm.z;
+        float dwv = 0.f;
+#pragma unroll
+        for (int j = 0; j < J_MAX; ++j) {
+          const float t = z[j][0] * gk[nl][0] + z[j][1] * gk[nl][1] + z[j][2] * gk[nl][2];
+          dwv = fmaf(t, sv[j], dwv);
+        }
+        dw[(((size_t)b * N + n) * M + m) * F + f] = from_f<T>(dwv);
+      }
+    }
+    if (!LOOP) break;
   }
 }
 
@@ -899,14 +915,16 @@ __global__ void tp_aggregate_sum_splits(const float* __restrict__ part, T* __res
   out[i] = from_f<T>(s);
 }
 
+// Threads of a dw-only block: a thread per channel, 128 to MAX_THREADS
+// (wider rows loop over their channels).
 int threads_for(int F) {
   const int t = ((F + 31) / 32) * 32;
-  return t < 128 ? 128 : t;
+  return t < 128 ? 128 : t > MAX_THREADS ? MAX_THREADS : t;
 }
 
 bool bad_shape(int B, int N, int M, int D, int S, int F, int n_paths) {
-  return B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 ||
-         F > MAX_THREADS || n_paths < 1 || B > 65535;
+  return B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 || n_paths < 1 ||
+         B > 65535;
 }
 
 template <typename Kernel>
@@ -934,7 +952,8 @@ template <bool DX, typename T>
 int plan_split(const float* part, int B, int N, int M, int D, int S, int F, int n_paths,
                int n_items, int splits, dim3& grid, int& threads, size_t& bytes) {
   const int n_keep = DX ? M : N;
-  if (bad_shape(B, N, M, D, S, F, n_paths) || n_paths > MAX_PATHS || n_items < 0 || splits < 1 ||
+  if (bad_shape(B, N, M, D, S, F, n_paths) || F > MAX_THREADS || n_paths > MAX_PATHS ||
+      n_items < 0 || splits < 1 ||
       splits > (DX ? N : M) || (splits > 1 && part == nullptr) ||
       (n_keep + KEEP - 1) / KEEP > 65535)
     return (int)cudaErrorInvalidValue;
@@ -1001,7 +1020,8 @@ int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g
   if (dw_bytes > MAX_SMEM || sh_bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
   static bool allowed = false;   // the attributes are set once per operand type
   if (!allowed) {
-    cudaError_t err = allow_shared(tp_aggregate_bwd_edge_kernel<T>, MAX_SMEM);
+    cudaError_t err = allow_shared(tp_aggregate_bwd_edge_kernel<T, false>, MAX_SMEM);
+    if (err == cudaSuccess) err = allow_shared(tp_aggregate_bwd_edge_kernel<T, true>, MAX_SMEM);
     if (err == cudaSuccess) err = allow_shared(tp_aggregate_bwd_edge_kernel_dsh<T>, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
@@ -1010,8 +1030,12 @@ int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g
   const T* sht = static_cast<const T*>(sh);
   if (dsh == nullptr) {
     const dim3 grid((M + mt - 1) / mt, (N + TN - 1) / TN, B);
-    tp_aggregate_bwd_edge_kernel<T><<<grid, threads_for(F), dw_bytes, st>>>(
-        xt, sht, g, chan4, ptab4, gtab, static_cast<T*>(dw), N, M, D, S, F, n_paths, mt);
+    if (F <= MAX_THREADS)   // a channel a thread
+      tp_aggregate_bwd_edge_kernel<T, false><<<grid, threads_for(F), dw_bytes, st>>>(
+          xt, sht, g, chan4, ptab4, gtab, static_cast<T*>(dw), N, M, D, S, F, n_paths, mt);
+    else
+      tp_aggregate_bwd_edge_kernel<T, true><<<grid, threads_for(F), dw_bytes, st>>>(
+          xt, sht, g, chan4, ptab4, gtab, static_cast<T*>(dw), N, M, D, S, F, n_paths, mt);
   } else {
     // one warp per path, between 8 and 16 warps
     const int threads = 32 * (n_paths < 8 ? 8 : n_paths > 16 ? 16 : n_paths);
@@ -1391,17 +1415,18 @@ __device__ __forceinline__ void tiled_body(
         if (mask >> (o * T2_KEEP) & 0xffu) {
           const int s = split + oo * splits;
           if (DX) {   // the receiver's upstream gradient, the tile's channels, lanes 0-4
-            const float* src = g + ((size_t)b * N + s) * F * 8 + (size_t)f0 * 8;
+            // (LANES 4: lanes 0-3; d_out <= 3, so lane 4 is never read)
+            const float* src = g + ((size_t)b * N + s) * F * LANES + (size_t)f0 * LANES;
             float* d4 = st + L.side + o * FTP * 4;
             float* d1 = st + L.side + T2_SUM * FTP * 4 + o * FTP;
             for (int c = lane; c < fc; c += 32) {
               if (vec) {
-                cp_async16(d4 + 4 * c, src + 8 * c);
+                cp_async16(d4 + 4 * c, src + LANES * c);
               } else {
 #pragma unroll
-                for (int k = 0; k < 4; ++k) cp_async4(d4 + 4 * c + k, src + 8 * c + k);
+                for (int k = 0; k < 4; ++k) cp_async4(d4 + 4 * c + k, src + LANES * c + k);
               }
-              cp_async4(d1 + c, src + 8 * c + 4);
+              if (LANES == 8) cp_async4(d1 + c, src + 8 * c + 4);
             }
           } else {    // the sender's x slice [x_lo, x_lo + xw)
             copy_slice(reinterpret_cast<T*>(st + L.side) + o * DXW,
@@ -1563,7 +1588,8 @@ __device__ __forceinline__ void tiled_body(
   }
 }
 
-template <typename T>
+// LANES 8, or 4 for a 4-lane forward wider than the split kernels take.
+template <typename T, int LANES>
 __global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_fwd_l2_tiled_kernel(
     const T* __restrict__ x,          // (B, M, D) sender features
     const T* __restrict__ sh,         // (B, N, M, S) edge harmonics
@@ -1574,19 +1600,19 @@ __global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_fwd_l2_tiled_kerne
     const int* __restrict__ ctab,     // (n_ct, 8): f0, fc, p0, pc, x_lo, xw, g0, gs
     const int* __restrict__ walk,     // (n_ct, 128): each walk slot's tile channel, or -1
     const unsigned* __restrict__ bits,   // bit e of the live pass: edge e's row of w not all zero
-    float* __restrict__ dst,          // out (B, N, F, 8), or the partial sums (splits, B, N, F, 8)
+    float* __restrict__ dst,          // out (B, N, F, LANES), or the partial sums (splits, ...)
     int B, int N, int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC,
     int wunit, int xvec, int shw) {
-  tiled_body<false, T>(x, sh, w, nullptr, chan, ptab, gflat, ctab, walk, bits, nullptr, nullptr,
-                       dst, nullptr, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, 0, wunit, xvec,
-                       shw);
+  tiled_body<false, T, LANES>(x, sh, w, nullptr, chan, ptab, gflat, ctab, walk, bits, nullptr,
+                              nullptr, dst, nullptr, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC,
+                              0, wunit, xvec, shw);
 }
 
-template <typename T>
+template <typename T, int LANES>
 __global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_bwd_x_l2_tiled_kernel(
     const T* __restrict__ sh,         // (B, N, M, S)
     const T* __restrict__ w,          // (B, N, M, F)
-    const float* __restrict__ g,      // (B, N, F, 8) upstream gradient
+    const float* __restrict__ g,      // (B, N, F, LANES) upstream gradient
     const int4* __restrict__ chan,    // as the forward's
     const int* __restrict__ ptab,
     const float* __restrict__ gflat,
@@ -1599,8 +1625,9 @@ __global__ void __launch_bounds__(T2_THREADS, 3) tp_aggregate_bwd_x_l2_tiled_ker
     T* __restrict__ dx,               // (B, M, D) when one split and one tile
     int B, int N, int M, int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS, int PC,
     int NI, int wunit, int gvec, int shw) {
-  tiled_body<true, T>(nullptr, sh, w, g, chan, ptab, gflat, ctab, walk, bits, dptr, ditem, part, dx,
-                      B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, NI, wunit, gvec, shw);
+  tiled_body<true, T, LANES>(nullptr, sh, w, g, chan, ptab, gflat, ctab, walk, bits, dptr, ditem,
+                             part, dx, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, NI, wunit,
+                             gvec, shw);
 }
 
 // The sender-index forward at LANES = 4 (l <= 1) or 8: the tiled forward
@@ -1727,14 +1754,14 @@ __global__ void __launch_bounds__(256) tp_aggregate_l2_live_kernel(
   }
 }
 
-// Allows the tiled forward (dx false) or dx kernel of operand type T all the
-// shared memory an SM has, once per kernel.
-template <typename T>
+// Allows the tiled forward (dx false) or dx kernel of operand type T and
+// LANES all the shared memory an SM has, once per kernel.
+template <typename T, int LANES>
 cudaError_t allow_tiled(bool dx) {
   static bool allowed[2] = {false, false};
   if (allowed[dx]) return cudaSuccess;
-  const cudaError_t err = dx ? allow_shared(tp_aggregate_bwd_x_l2_tiled_kernel<T>, MAX_SMEM)
-                             : allow_shared(tp_aggregate_fwd_l2_tiled_kernel<T>, MAX_SMEM);
+  const cudaError_t err = dx ? allow_shared(tp_aggregate_bwd_x_l2_tiled_kernel<T, LANES>, MAX_SMEM)
+                             : allow_shared(tp_aggregate_fwd_l2_tiled_kernel<T, LANES>, MAX_SMEM);
   if (err == cudaSuccess) allowed[dx] = true;
   return err;
 }
@@ -1776,7 +1803,7 @@ int launch_live(const void* w, unsigned* bits, long long rows, int F, int unit, 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int LANES>
 int launch_fwd_l2_tiled(const void* x, const void* sh, const void* w, const int* chan,
                         const int* ptab, const float* gflat, const int* ctab, const int* walk,
                         const unsigned* bits, float* out, float* part, int B, int N, int M, int D,
@@ -1789,16 +1816,16 @@ int launch_fwd_l2_tiled(const void* x, const void* sh, const void* w, const int*
     return (int)cudaErrorInvalidValue;
   const size_t bytes = tiled_bytes(false, FTP, DXW, TS, GS, PC, 0, sizeof(T));
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_tiled<T>(false);
+  const cudaError_t err = allow_tiled<T, LANES>(false);
   if (err != cudaSuccess) return (int)err;
   const int xvec = D % 4 == 0 && aligned(x, 4 * sizeof(T));
   const int shw = sizeof(T) == 2 && aligned(sh, 4);
-  tp_aggregate_fwd_l2_tiled_kernel<T><<<dim3(splits * n_ct, (N + T2_KEEP - 1) / T2_KEEP, B),
-                                        T2_THREADS, bytes, st>>>(
+  tp_aggregate_fwd_l2_tiled_kernel<T, LANES><<<dim3(splits * n_ct, (N + T2_KEEP - 1) / T2_KEEP, B),
+                                               T2_THREADS, bytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
       reinterpret_cast<const int4*>(chan), ptab, gflat, ctab, walk, bits, splits > 1 ? part : out,
       B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC, wunit, xvec, shw);
-  return sum_splits<float>(part, out, (long long)B * N * F * 8, splits, st);
+  return sum_splits<float>(part, out, (long long)B * N * F * LANES, splits, st);
 }
 
 template <typename T, int LANES>
@@ -1839,7 +1866,7 @@ int idx_fwd_blocks_per_sm(int FTP, int DXW, int TS, int GS, int PC) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-template <typename T>
+template <typename T, int LANES>
 int launch_bwd_x_l2_tiled(const void* sh, const void* w, const float* g, const int* chan,
                           const int* ptab, const float* gflat, const int* ctab, const int* walk,
                           const unsigned* bits, const int* dptr, const int* ditem, void* dx,
@@ -1853,11 +1880,11 @@ int launch_bwd_x_l2_tiled(const void* sh, const void* w, const float* g, const i
     return (int)cudaErrorInvalidValue;
   const size_t bytes = tiled_bytes(true, FTP, DXW, TS, GS, PC, NI, sizeof(T));
   if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_tiled<T>(true);
+  cudaError_t err = allow_tiled<T, LANES>(true);
   if (err != cudaSuccess) return (int)err;
   T* out = static_cast<T*>(dx);
-  tp_aggregate_bwd_x_l2_tiled_kernel<T><<<dim3(splits * n_ct, (M + T2_KEEP - 1) / T2_KEEP, B),
-                                          T2_THREADS, bytes, st>>>(
+  tp_aggregate_bwd_x_l2_tiled_kernel<T, LANES><<<dim3(splits * n_ct, (M + T2_KEEP - 1) / T2_KEEP, B),
+                                                 T2_THREADS, bytes, st>>>(
       static_cast<const T*>(sh), static_cast<const T*>(w), g, reinterpret_cast<const int4*>(chan),
       ptab, gflat, ctab, walk, bits, dptr, ditem, partial ? part : nullptr, out, B, N, M, D, S, F,
       n_ct,
@@ -1870,17 +1897,17 @@ int launch_bwd_x_l2_tiled(const void* sh, const void* w, const float* g, const i
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int LANES>
 int tiled_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, int PC, int NI) {
-  cudaError_t err = allow_tiled<T>(dx != 0);
+  cudaError_t err = allow_tiled<T, LANES>(dx != 0);
   if (err != cudaSuccess) return -(int)err;
   const size_t bytes = tiled_bytes(dx != 0, FTP, DXW, TS, GS, PC, NI, sizeof(T));
   if (bytes > MAX_SMEM) return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   err = dx ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &blocks, tp_aggregate_bwd_x_l2_tiled_kernel<T>, T2_THREADS, bytes)
+                 &blocks, tp_aggregate_bwd_x_l2_tiled_kernel<T, LANES>, T2_THREADS, bytes)
            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &blocks, tp_aggregate_fwd_l2_tiled_kernel<T>, T2_THREADS, bytes);
+                 &blocks, tp_aggregate_fwd_l2_tiled_kernel<T, LANES>, T2_THREADS, bytes);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -1919,21 +1946,24 @@ __global__ void __launch_bounds__(256) tp_aggregate_l2_p_kernel(
 
 // The edge backward's shared memory, in floats: the receiver's P (PT
 // floats: each channel's d_in x d_sh entries padded to float4s), the
-// block's senders' x rows (EB_SLOTS x (D | 1)), their rows of w and then of
-// dw (EB_SLOTS x (F | 1)), their harmonics (EB_SLOTS x EB_SHP) and, with
+// block's senders' x rows (slots x (D | 1)), their rows of w and then of
+// dw (slots x (F | 1)), their harmonics (slots x EB_SHP) and, with
 // dsh, each (path, component, sender)'s sum over the path's channels (PS
 // floats).
 struct EdgeLayout {
   int p, x, w, sh, part, total;
 };
 
-__host__ __device__ inline EdgeLayout edge_layout(bool dsh, int D, int F, int PT, int PS) {
+// `slots`: the senders a block takes, EB_SLOTS or, where their rows would
+// not fit, fewer (tp_aggregate.edge_slots_l2).
+__host__ __device__ inline EdgeLayout edge_layout(bool dsh, int D, int F, int PT, int PS,
+                                                  int slots = EB_SLOTS) {
   EdgeLayout L;
   int o = 0;
   L.p = o;    o += pad4(PT);
-  L.x = o;    o += EB_SLOTS * (D | 1);
-  L.w = o;    o += EB_SLOTS * (F | 1);
-  L.sh = o;   o += EB_SLOTS * EB_SHP;
+  L.x = o;    o += slots * (D | 1);
+  L.w = o;    o += slots * (F | 1);
+  L.sh = o;   o += slots * EB_SHP;
   L.part = o; o += dsh ? PS : 0;
   L.total = o;
   return L;
@@ -1983,7 +2013,7 @@ __device__ __forceinline__ void edge_path(const float* __restrict__ P, const flo
   }
 }
 
-// dw (and, with DSH, dsh) of the edges (b, n, m0 .. m0 + EB_SLOTS - 1) for
+// dw (and, with DSH, dsh) of the edges (b, n, m0 .. m0 + slots - 1) for
 // the receivers n of a block: a block per (sender chunk blockIdx.x, run of
 // `rn` receivers blockIdx.y, batch row blockIdx.z).  The chunk's x rows go
 // into shared memory once; per receiver its P row (tp_aggregate_l2_p_kernel)
@@ -2005,10 +2035,11 @@ __global__ void __launch_bounds__(EB_THREADS, 2) tp_aggregate_bwd_edge_l2_kernel
     const int2* __restrict__ seg,     // (path, j) of every path reaching the component
     T* __restrict__ dw,               // (B, N, M, F)
     T* __restrict__ dsh,              // (B, N, M, S)
-    int N, int M, int D, int S, int F, int PT, int PS, int plan_w, int rn, int xpair, int vec) {
+    int N, int M, int D, int S, int F, int PT, int PS, int plan_w, int rn, int xpair, int vec,
+    int slots) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool F32 = sizeof(T) == 4;
-  const EdgeLayout L = edge_layout(DSH, D, F, PT, PS);
+  const EdgeLayout L = edge_layout(DSH, D, F, PT, PS, slots);
   float* s_p = smem + L.p;
   float* s_x = smem + L.x;
   float* s_w = smem + L.w;
@@ -2016,9 +2047,9 @@ __global__ void __launch_bounds__(EB_THREADS, 2) tp_aggregate_bwd_edge_l2_kernel
   float* s_part = smem + L.part;
   const int XP = D | 1, WP = F | 1;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.x * EB_SLOTS, b = blockIdx.z;
+  const int m0 = blockIdx.x * slots, b = blockIdx.z;
   const int n0 = blockIdx.y * rn, n_end = min(N, n0 + rn);
-  const int count = min(EB_SLOTS, M - m0);
+  const int count = min(slots, M - m0);
 
   // the chunk's x rows as f32 (warp = row): cp.async at f32, two elements a
   // load at bf16 where x allows (xpair)
@@ -2150,44 +2181,45 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_edge_idx_kernel(
     int N, int M, int Mx, int D, int S, int F) {
   const int m0 = blockIdx.x * IDX_EDGE_SLOTS, n = blockIdx.y, b = blockIdx.z;
   const int count = min(IDX_EDGE_SLOTS, M - m0);
-  const int f = threadIdx.x;
-  if (f >= F) return;
-  const int4 cm = chan[f];
-  const int* pt = ptab + cm.w * 8;
-  const int sh_off = pt[0], d_sh = pt[2];
-  const float* G = gtab + cm.w * L2_G;
-  const float4* gr =
-      reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * (LANES / 4);
-  const float4 g0 = gr[0];
-  const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
-  float gk[L2_K];
+  // thread = channel (channels f, f + blockDim.x, ... where F > L2_THREADS)
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const int4 cm = chan[f];
+    const int* pt = ptab + cm.w * 8;
+    const int sh_off = pt[0], d_sh = pt[2];
+    const float* G = gtab + cm.w * L2_G;
+    const float4* gr =
+        reinterpret_cast<const float4*>(g) + (((size_t)b * N + n) * F + f) * (LANES / 4);
+    const float4 g0 = gr[0];
+    const float ga[L2_K] = {g0.x, g0.y, g0.z, g0.w, LANES == 8 ? gr[1].x : 0.f};
+    float gk[L2_K];
 #pragma unroll
-  for (int kk = 0; kk < L2_K; ++kk) gk[kk] = kk < cm.z ? ga[kk] : 0.f;   // pad lanes ignored
-  float P[L2_K][L2_K];
+    for (int kk = 0; kk < L2_K; ++kk) gk[kk] = kk < cm.z ? ga[kk] : 0.f;   // pad lanes ignored
+    float P[L2_K][L2_K];
 #pragma unroll
-  for (int i = 0; i < L2_K; ++i)
+    for (int i = 0; i < L2_K; ++i)
 #pragma unroll
-    for (int j = 0; j < L2_K; ++j) {
-      float v = 0.f;
+      for (int j = 0; j < L2_K; ++j) {
+        float v = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < L2_K; ++kk) v = fmaf(G[(i * L2_K + j) * L2_K + kk], gk[kk], v);
-      P[i][j] = v;
+        for (int kk = 0; kk < L2_K; ++kk) v = fmaf(G[(i * L2_K + j) * L2_K + kk], gk[kk], v);
+        P[i][j] = v;
+      }
+    for (int ml = 0; ml < count; ++ml) {
+      const size_t e = ((size_t)b * N + n) * M + m0 + ml;
+      const T* xr = x + ((size_t)b * Mx + idx[e]) * D + cm.x;
+      float xi[L2_K];
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) xi[i] = i < cm.y ? to_f(xr[i]) : 0.f;
+      float dwv = 0.f;
+#pragma unroll
+      for (int j = 0; j < L2_K; ++j) {
+        float v = 0.f;
+#pragma unroll
+        for (int i = 0; i < L2_K; ++i) v = fmaf(xi[i], P[i][j], v);
+        if (j < d_sh) dwv = fmaf(to_f(sh[e * S + sh_off + j]), v, dwv);
+      }
+      dw[e * F + f] = from_f<T>(dwv);
     }
-  for (int ml = 0; ml < count; ++ml) {
-    const size_t e = ((size_t)b * N + n) * M + m0 + ml;
-    const T* xr = x + ((size_t)b * Mx + idx[e]) * D + cm.x;
-    float xi[L2_K];
-#pragma unroll
-    for (int i = 0; i < L2_K; ++i) xi[i] = i < cm.y ? to_f(xr[i]) : 0.f;
-    float dwv = 0.f;
-#pragma unroll
-    for (int j = 0; j < L2_K; ++j) {
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < L2_K; ++i) v = fmaf(xi[i], P[i][j], v);
-      if (j < d_sh) dwv = fmaf(to_f(sh[e * S + sh_off + j]), v, dwv);
-    }
-    dw[e * F + f] = from_f<T>(dwv);
   }
 }
 
@@ -2256,8 +2288,10 @@ __device__ __forceinline__ void xi_walk(float (&acc)[L2_K], const T* wc, int FP,
 // (bits) are loaded: their rows of w, harmonics and receivers' g rows, a
 // tile of XI_ROWS on the ring at a time; per tile t of each (slot, path,
 // i), then each channel's walk; at the end the channels reading each x
-// element are added in the d list's order into part[c] (D floats).
-template <typename T, int LANES>
+// element are added in the d list's order into part[c] (D floats).  XC:
+// channels a thread takes (f, f + blockDim.x, ...: 1 up to L2_THREADS
+// channels, XI_XC up to XI_XC L2_THREADS).
+template <typename T, int LANES, int XC>
 __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_idx_l2_kernel(
     const T* __restrict__ sh,         // (B, N, K, S)
     const T* __restrict__ w,          // (B, N, K, F)
@@ -2290,10 +2324,14 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_idx_l2_kernel(
   for (int i = tid; i < n_pi; i += nt) s_pi[i] = pi_items[i];
   for (int i = tid; i <= D; i += nt) s_dptr[i] = d_ptr[i];
   for (int i = tid; i < n_items; i += nt) s_ditem[i] = d_item[i];
-  const int f = tid;
-  const bool active = f < F;
-  const int4 cm = active ? chan[f] : make_int4(0, 1, 1, 0);   // x_base, d_in, d_out, path
-  const int t_off = active ? ptab[cm.w * PT_W + 7] : 0;
+  int4 cm[XC];                                                // x_base, d_in, d_out, path
+  int t_off[XC];
+#pragma unroll
+  for (int q = 0; q < XC; ++q) {
+    const int f = tid + q * nt;
+    cm[q] = f < F ? chan[f] : make_int4(0, 1, 1, 0);
+    t_off[q] = f < F ? ptab[cm[q].w * PT_W + 7] : 0;
+  }
 
   {
     const int c = blockIdx.x;
@@ -2354,9 +2392,11 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_idx_l2_kernel(
 
 #pragma unroll 1
     for (int t = 0; t < XI_STAGES - 1; ++t) load_tile(t);
-    float acc[L2_K];
+    float acc[XC][L2_K];
 #pragma unroll
-    for (int i = 0; i < L2_K; ++i) acc[i] = 0.f;
+    for (int q = 0; q < XC; ++q)
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) acc[q][i] = 0.f;
 
     for (int t = 0; t < tiles; ++t) {
       cp_async_wait<XI_STAGES - 2>();
@@ -2382,33 +2422,40 @@ __global__ void __launch_bounds__(L2_THREADS) tp_aggregate_bwd_x_idx_l2_kernel(
         }
       }
       __syncthreads();
-      if (!active) continue;
-      const T* wc = reinterpret_cast<const T*>(st + L.w) + f;
-      const float* tq = s_t + t_off;
-      const float4* g4 = reinterpret_cast<const float4*>(st + L.g4) + f;
-      const float* g1 = st + L.g1 + f;
-#define XI_WALK(DI, DO) xi_walk<DI, DO>(acc, wc, FP, tq, TS, g4, g1, F, n)
-      switch (cm.y * 8 + cm.z) {
-        case 011: XI_WALK(1, 1); break;
-        case 013: XI_WALK(1, 3); break;
-        case 015: XI_WALK(1, 5); break;
-        case 031: XI_WALK(3, 1); break;
-        case 033: XI_WALK(3, 3); break;
-        case 035: XI_WALK(3, 5); break;
-        case 051: XI_WALK(5, 1); break;
-        case 053: XI_WALK(5, 3); break;
-        default: XI_WALK(5, 5); break;
-      }
+#pragma unroll
+      for (int q = 0; q < XC; ++q) {
+        const int f = tid + q * nt;
+        if (f >= F) continue;
+        const T* wc = reinterpret_cast<const T*>(st + L.w) + f;
+        const float* tq = s_t + t_off[q];
+        const float4* g4 = reinterpret_cast<const float4*>(st + L.g4) + f;
+        const float* g1 = st + L.g1 + f;
+#define XI_WALK(DI, DO) xi_walk<DI, DO>(acc[q], wc, FP, tq, TS, g4, g1, F, n)
+        switch (cm[q].y * 8 + cm[q].z) {
+          case 011: XI_WALK(1, 1); break;
+          case 013: XI_WALK(1, 3); break;
+          case 015: XI_WALK(1, 5); break;
+          case 031: XI_WALK(3, 1); break;
+          case 033: XI_WALK(3, 3); break;
+          case 035: XI_WALK(3, 5); break;
+          case 051: XI_WALK(5, 1); break;
+          case 053: XI_WALK(5, 3); break;
+          default: XI_WALK(5, 5); break;
+        }
 #undef XI_WALK
+      }
     }
     cp_async_wait<0>();
 
     // the channels that read one x element, added in the list's order
     __syncthreads();                   // the ring is free
     float* s_d = smem;                 // [i][f]
-    if (active) {
 #pragma unroll
-      for (int i = 0; i < L2_K; ++i) s_d[i * F + f] = acc[i];
+    for (int q = 0; q < XC; ++q) {
+      const int f = tid + q * nt;
+      if (f >= F) continue;
+#pragma unroll
+      for (int i = 0; i < L2_K; ++i) s_d[i * F + f] = acc[q][i];
     }
     __syncthreads();
     for (int d = tid; d < D; d += nt) {
@@ -2437,8 +2484,8 @@ __global__ void tp_aggregate_bwd_x_idx_sum(const float* __restrict__ part,
   dx[i] = from_f<T>(s);
 }
 bool bad_shape_l2(int B, int N, int M, int D, int S, int F, int n_paths) {
-  return B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 || F > L2_THREADS ||
-         n_paths < 1 || n_paths > L2_MAX_PATHS || B > 65535;
+  return B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || S > SH_STRIDE || F < 1 || n_paths < 1 ||
+         n_paths > L2_MAX_PATHS || B > 65535;
 }
 
 // The sender-index mode's arguments: idx null means dense (Mx = M, 8 lanes).
@@ -2449,8 +2496,8 @@ bool bad_mode(const void* idx, int M, int Mx, int lanes) {
 // Threads of an 8-lane block: one per channel.
 int threads_l2(int F) { return ((F + 31) / 32) * 32; }
 
-size_t edge_bytes(bool dsh, int D, int F, int PT, int PS) {
-  return (size_t)edge_layout(dsh, D, F, PT, PS).total * sizeof(float);
+size_t edge_bytes(bool dsh, int D, int F, int PT, int PS, int slots = EB_SLOTS) {
+  return (size_t)edge_layout(dsh, D, F, PT, PS, slots).total * sizeof(float);
 }
 
 size_t xi_bytes(int D, int F, int n_paths, int TS, int GS, int n_items, int esize, int lanes) {
@@ -2473,15 +2520,15 @@ int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const unsig
                        const float* g, const int* pent, const float* gflat, const int* ptab,
                        const int* plan, const int* seg_ptr, const int* seg, float* Pg, void* dw,
                        void* dsh, int B, int N, int M, int D, int S, int F, int PT, int PS,
-                       int plan_w, int rn, cudaStream_t st) {
+                       int plan_w, int rn, int slots, cudaStream_t st) {
   const bool with_dsh = dsh != nullptr;
-  const size_t bytes = edge_bytes(with_dsh, D, F, PT, PS);
+  const size_t bytes = edge_bytes(with_dsh, D, F, PT, PS, slots);
   if (bytes > MAX_SMEM || PT % 4 != 0 || !aligned(Pg, 16)) return (int)cudaErrorInvalidValue;
   tp_aggregate_l2_p_kernel<<<(unsigned)(B * N), 256, 0, st>>>(
       g, reinterpret_cast<const int4*>(pent), gflat, Pg, F, PT);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + EB_SLOTS - 1) / EB_SLOTS, (N + rn - 1) / rn, B);
+  const dim3 grid((M + slots - 1) / slots, (N + rn - 1) / rn, B);
   const T* xt = static_cast<const T*>(x);
   const T* sht = static_cast<const T*>(sh);
   const int xpair = D % 2 == 0 && aligned(x, 4);
@@ -2491,13 +2538,13 @@ int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const unsig
     if ((err = allow_edge<T, false>()) != cudaSuccess) return (int)err;
     tp_aggregate_bwd_edge_l2_kernel<T, false><<<grid, EB_THREADS, bytes, st>>>(
         xt, sht, nullptr, nullptr, Pg, ptab, plan, nullptr, nullptr, static_cast<T*>(dw),
-        nullptr, N, M, D, S, F, PT, PS, plan_w, rn, xpair, vec);
+        nullptr, N, M, D, S, F, PT, PS, plan_w, rn, xpair, vec, slots);
   } else {
     if ((err = allow_edge<T, true>()) != cudaSuccess) return (int)err;
     tp_aggregate_bwd_edge_l2_kernel<T, true><<<grid, EB_THREADS, bytes, st>>>(
         xt, sht, static_cast<const T*>(w), bits, Pg, ptab, plan, seg_ptr,
         reinterpret_cast<const int2*>(seg), static_cast<T*>(dw), static_cast<T*>(dsh), N, M, D,
-        S, F, PT, PS, plan_w, rn, xpair, vec);
+        S, F, PT, PS, plan_w, rn, xpair, vec, slots);
   }
   return (int)cudaGetLastError();
 }
@@ -2507,24 +2554,27 @@ int launch_bwd_edge_idx(const void* x, const void* sh, const int* idx, const flo
                         const int* chan, const int* ptab, const float* gtab, void* dw, int B,
                         int N, int M, int Mx, int D, int S, int F, cudaStream_t st) {
   const dim3 grid((M + IDX_EDGE_SLOTS - 1) / IDX_EDGE_SLOTS, N, B);
-  tp_aggregate_bwd_edge_idx_kernel<T, LANES><<<grid, threads_l2(F), 0, st>>>(
+  tp_aggregate_bwd_edge_idx_kernel<T, LANES><<<grid, min(threads_l2(F), L2_THREADS), 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(sh), idx, g,
       reinterpret_cast<const int4*>(chan), ptab, gtab, static_cast<T*>(dw), N, M, Mx, D, S, F);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int LANES>
+template <typename T, int LANES, int XC>
 cudaError_t allow_xi() {
   static bool allowed = false;
   if (allowed) return cudaSuccess;
-  const cudaError_t err = allow_shared(tp_aggregate_bwd_x_idx_l2_kernel<T, LANES>, MAX_SMEM);
+  const cudaError_t err = allow_shared(tp_aggregate_bwd_x_idx_l2_kernel<T, LANES, XC>, MAX_SMEM);
   if (err == cudaSuccess) allowed = true;
   return err;
 }
 
+constexpr int XI_XC = 3;   // channels a thread of the sender-index dx takes at most
+
 // Threads of a block of the sender-index dx: a thread per channel, four
-// warps at least (the tile's loads take a warp a row).
-int xi_threads(int F) { return max(128, threads_l2(F)); }
+// warps at least (the tile's loads take a warp a row), L2_THREADS at most
+// (wider rows: XI_XC channels a thread).
+int xi_threads(int F) { return min(L2_THREADS, max(128, threads_l2(F))); }
 
 template <typename T, int LANES>
 int launch_bwd_x_idx_l2(const void* sh, const void* w, const float* g, const unsigned* bits,
@@ -2534,16 +2584,25 @@ int launch_bwd_x_idx_l2(const void* sh, const void* w, const float* g, const uns
                         int D, int S, int F, int n_paths, int TS, int GS, int n_pi, int n_items,
                         int chunks, cudaStream_t st) {
   const size_t bytes = xi_bytes(D, F, n_paths, TS, GS, n_items, sizeof(T), LANES);
-  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_xi<T, LANES>();
+  if (bytes > MAX_SMEM || F > XI_XC * L2_THREADS) return (int)cudaErrorInvalidValue;
+  const bool one = F <= L2_THREADS;   // a channel a thread
+  cudaError_t err = one ? allow_xi<T, LANES, 1>() : allow_xi<T, LANES, XI_XC>();
   if (err != cudaSuccess) return (int)err;
   const long long sh_elems = (long long)B * N * K * S;
   if (chunks > 0) {
-    tp_aggregate_bwd_x_idx_l2_kernel<T, LANES><<<chunks, xi_threads(F), bytes, st>>>(
-        static_cast<const T*>(sh), static_cast<const T*>(w), g, bits,
-        reinterpret_cast<const int4*>(chan), ptab, gflat, pi_items, order, cuts, d_ptr, d_item,
-        part, K, D, S, F, n_paths, TS, GS, n_pi, n_items, chunks, row_unit(w, F, sizeof(T)),
-        sizeof(T) == 2 && aligned(sh, 4), aligned(g, 16), sh_elems);
+    const int wunit = row_unit(w, F, sizeof(T)), shw = sizeof(T) == 2 && aligned(sh, 4);
+    if (one)
+      tp_aggregate_bwd_x_idx_l2_kernel<T, LANES, 1><<<chunks, xi_threads(F), bytes, st>>>(
+          static_cast<const T*>(sh), static_cast<const T*>(w), g, bits,
+          reinterpret_cast<const int4*>(chan), ptab, gflat, pi_items, order, cuts, d_ptr, d_item,
+          part, K, D, S, F, n_paths, TS, GS, n_pi, n_items, chunks, wunit, shw, aligned(g, 16),
+          sh_elems);
+    else
+      tp_aggregate_bwd_x_idx_l2_kernel<T, LANES, XI_XC><<<chunks, xi_threads(F), bytes, st>>>(
+          static_cast<const T*>(sh), static_cast<const T*>(w), g, bits,
+          reinterpret_cast<const int4*>(chan), ptab, gflat, pi_items, order, cuts, d_ptr, d_item,
+          part, K, D, S, F, n_paths, TS, GS, n_pi, n_items, chunks, wunit, shw, aligned(g, 16),
+          sh_elems);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -2626,19 +2685,29 @@ int dp_tp_aggregate_blocks_per_sm(int dx, int D, int F, int n_paths, int n_items
 // 4 bytes; 0 for plain loads) that divides a row of w, each tile's first
 // channel and width, and w's address.
 
+// `lanes`: 8, or 4 for a 4-lane forward or dx wider than the split kernels
+// take (F > 256; out and g (B, N, F, 4)).
 int dp_tp_aggregate_fwd_l2_tiled(const void* x, const void* sh, const void* w, const int* chan,
                                  const int* ptab, const float* gflat, const int* ctab,
                                  const int* walk, const unsigned* bits, float* out, float* part,
                                  int B, int N, int M, int D, int S, int F, int n_ct, int FTP,
-                                 int DXW, int TS, int GS, int PC, int splits, int wunit, int bf16,
-                                 void* stream) {
+                                 int DXW, int TS, int GS, int PC, int splits, int wunit, int lanes,
+                                 int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd_l2_tiled<__nv_bfloat16>(x, sh, w, chan, ptab, gflat, ctab, walk, bits,
-                                                   out, part, B, N, M, D, S, F, n_ct, FTP, DXW, TS,
-                                                   GS, PC, splits, wunit, st)
-              : launch_fwd_l2_tiled<float>(x, sh, w, chan, ptab, gflat, ctab, walk, bits, out,
-                                           part, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC,
-                                           splits, wunit, st);
+  if (lanes == 4)
+    return bf16 ? launch_fwd_l2_tiled<__nv_bfloat16, 4>(x, sh, w, chan, ptab, gflat, ctab, walk,
+                                                        bits, out, part, B, N, M, D, S, F, n_ct,
+                                                        FTP, DXW, TS, GS, PC, splits, wunit, st)
+                : launch_fwd_l2_tiled<float, 4>(x, sh, w, chan, ptab, gflat, ctab, walk, bits, out,
+                                                part, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS,
+                                                PC, splits, wunit, st);
+  if (lanes != 8) return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_fwd_l2_tiled<__nv_bfloat16, 8>(x, sh, w, chan, ptab, gflat, ctab, walk,
+                                                      bits, out, part, B, N, M, D, S, F, n_ct, FTP,
+                                                      DXW, TS, GS, PC, splits, wunit, st)
+              : launch_fwd_l2_tiled<float, 8>(x, sh, w, chan, ptab, gflat, ctab, walk, bits, out,
+                                              part, B, N, M, D, S, F, n_ct, FTP, DXW, TS, GS, PC,
+                                              splits, wunit, st);
 }
 
 int dp_tp_aggregate_bwd_x_l2_tiled(const void* sh, const void* w, const float* g, const int* chan,
@@ -2646,14 +2715,25 @@ int dp_tp_aggregate_bwd_x_l2_tiled(const void* sh, const void* w, const float* g
                                    const int* walk, const unsigned* bits, const int* dptr,
                                    const int* ditem, void* dx, float* part, int B, int N, int M,
                                    int D, int S, int F, int n_ct, int FTP, int DXW, int TS, int GS,
-                                   int PC, int NI, int splits, int wunit, int bf16, void* stream) {
+                                   int PC, int NI, int splits, int wunit, int lanes, int bf16,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_x_l2_tiled<__nv_bfloat16>(sh, w, g, chan, ptab, gflat, ctab, walk, bits,
-                                                     dptr, ditem, dx, part, B, N, M, D, S, F, n_ct,
-                                                     FTP, DXW, TS, GS, PC, NI, splits, wunit, st)
-              : launch_bwd_x_l2_tiled<float>(sh, w, g, chan, ptab, gflat, ctab, walk, bits, dptr,
-                                             ditem, dx, part, B, N, M, D, S, F, n_ct, FTP, DXW, TS,
-                                             GS, PC, NI, splits, wunit, st);
+  if (lanes == 4)
+    return bf16 ? launch_bwd_x_l2_tiled<__nv_bfloat16, 4>(sh, w, g, chan, ptab, gflat, ctab, walk,
+                                                          bits, dptr, ditem, dx, part, B, N, M, D,
+                                                          S, F, n_ct, FTP, DXW, TS, GS, PC, NI,
+                                                          splits, wunit, st)
+                : launch_bwd_x_l2_tiled<float, 4>(sh, w, g, chan, ptab, gflat, ctab, walk, bits,
+                                                  dptr, ditem, dx, part, B, N, M, D, S, F, n_ct,
+                                                  FTP, DXW, TS, GS, PC, NI, splits, wunit, st);
+  if (lanes != 8) return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_bwd_x_l2_tiled<__nv_bfloat16, 8>(sh, w, g, chan, ptab, gflat, ctab, walk,
+                                                        bits, dptr, ditem, dx, part, B, N, M, D, S,
+                                                        F, n_ct, FTP, DXW, TS, GS, PC, NI, splits,
+                                                        wunit, st)
+              : launch_bwd_x_l2_tiled<float, 8>(sh, w, g, chan, ptab, gflat, ctab, walk, bits,
+                                                dptr, ditem, dx, part, B, N, M, D, S, F, n_ct, FTP,
+                                                DXW, TS, GS, PC, NI, splits, wunit, st);
 }
 
 // The live pass of w (rows of F elements, rows = B N M): bits (rows + 31) /
@@ -2675,9 +2755,12 @@ int dp_tp_aggregate_l2_smem(int dx, int FTP, int DXW, int TS, int GS, int PC, in
 // Blocks of the tiled forward (dx = 0) or dx that one SM holds at once at
 // these sizes and operand type, or minus a cudaError_t value.
 int dp_tp_aggregate_l2_blocks_per_sm(int dx, int FTP, int DXW, int TS, int GS, int PC, int NI,
-                                     int bf16) {
-  return bf16 ? tiled_blocks_per_sm<__nv_bfloat16>(dx, FTP, DXW, TS, GS, PC, NI)
-              : tiled_blocks_per_sm<float>(dx, FTP, DXW, TS, GS, PC, NI);
+                                     int lanes, int bf16) {
+  if (lanes == 4)
+    return bf16 ? tiled_blocks_per_sm<__nv_bfloat16, 4>(dx, FTP, DXW, TS, GS, PC, NI)
+                : tiled_blocks_per_sm<float, 4>(dx, FTP, DXW, TS, GS, PC, NI);
+  return bf16 ? tiled_blocks_per_sm<__nv_bfloat16, 8>(dx, FTP, DXW, TS, GS, PC, NI)
+              : tiled_blocks_per_sm<float, 8>(dx, FTP, DXW, TS, GS, PC, NI);
 }
 
 // The sender-index mode (idx, or the dx lists, never null; x and dx (B, Mx,
@@ -2733,26 +2816,28 @@ int dp_tp_aggregate_idx_fwd_blocks_per_sm(int FTP, int DXW, int TS, int GS, int 
 // floats (tp_aggregate_l2_p_kernel, from the host's entry table pent (PT,
 // 4) and gflat), then the edge kernel on tables from
 // tp_aggregate.path_tables_l2 (ptab (n_paths, 12), PT and PS), its warps'
-// paths (plan (8, plan_w)) and the receivers a block takes (rn).  dsh may
-// be null: then only dw is computed and w, bits, seg_ptr and seg are not
-// read.  bits: the live pass's bits of w, or null (every row of w read).
+// paths (plan (8, plan_w)), the receivers a block takes (rn) and its
+// senders (slots, 1 to 32).  dsh may be null: then only dw is computed and
+// w, bits, seg_ptr and seg are not read.  bits: the live pass's bits of w,
+// or null (every row of w read).
 int dp_tp_aggregate_bwd_edge_l2(const void* x, const void* sh, const void* w,
                                 const unsigned* bits, const float* g, const int* pent,
                                 const float* gflat, const int* ptab, const int* plan,
                                 const int* seg_ptr, const int* seg, float* Pg, void* dw,
                                 void* dsh, int B, int N, int M, int D, int S, int F, int n_paths,
-                                int PT, int PS, int plan_w, int rn, int bf16, void* stream) {
-  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || (M + EB_SLOTS - 1) / EB_SLOTS > 65535 ||
-      PT < 4 || PS < 0 || plan_w < 1 || rn < 1 || (N + rn - 1) / rn > 65535 ||
-      (long long)B * N > 0x7fffffffLL || Pg == nullptr)
+                                int PT, int PS, int plan_w, int rn, int slots, int bf16,
+                                void* stream) {
+  if (bad_shape_l2(B, N, M, D, S, F, n_paths) || slots < 1 || slots > EB_SLOTS ||
+      (M + slots - 1) / slots > 65535 || PT < 4 || PS < 0 || plan_w < 1 || rn < 1 ||
+      (N + rn - 1) / rn > 65535 || (long long)B * N > 0x7fffffffLL || Pg == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bwd_edge_l2<__nv_bfloat16>(x, sh, w, bits, g, pent, gflat, ptab, plan,
                                                   seg_ptr, seg, Pg, dw, dsh, B, N, M, D, S, F,
-                                                  PT, PS, plan_w, rn, st)
+                                                  PT, PS, plan_w, rn, slots, st)
               : launch_bwd_edge_l2<float>(x, sh, w, bits, g, pent, gflat, ptab, plan, seg_ptr,
                                           seg, Pg, dw, dsh, B, N, M, D, S, F, PT, PS, plan_w, rn,
-                                          st);
+                                          slots, st);
 }
 
 // The sender-index mode's dw (idx never null; x (B, Mx, D), sh and dw (B,
@@ -2820,8 +2905,8 @@ int dp_tp_aggregate_bwd_x_idx_l2(const void* sh, const void* w, const float* g,
 // Bytes of shared memory a block of the edge backward (dsh = 0 or 1) or of
 // the sender-index dx's chunk kernel (operands of esize bytes, 4 or 2, and
 // `lanes` floats of g a channel) takes at these sizes.
-int dp_tp_aggregate_edge_l2_smem(int dsh, int D, int F, int PT, int PS) {
-  return (int)edge_bytes(dsh != 0, D, F, PT, PS);
+int dp_tp_aggregate_edge_l2_smem(int dsh, int D, int F, int PT, int PS, int slots) {
+  return (int)edge_bytes(dsh != 0, D, F, PT, PS, slots);
 }
 
 int dp_tp_aggregate_idx_dx_l2_smem(int D, int F, int n_paths, int TS, int GS, int n_items,
@@ -2831,8 +2916,9 @@ int dp_tp_aggregate_idx_dx_l2_smem(int D, int F, int n_paths, int TS, int GS, in
 
 // Blocks of the edge backward (dsh = 0 or 1) that one SM holds at once at
 // these sizes and operand type, or minus a cudaError_t value.
-int dp_tp_aggregate_edge_l2_blocks_per_sm(int dsh, int D, int F, int PT, int PS, int bf16) {
-  const size_t bytes = edge_bytes(dsh != 0, D, F, PT, PS);
+int dp_tp_aggregate_edge_l2_blocks_per_sm(int dsh, int D, int F, int PT, int PS, int slots,
+                                          int bf16) {
+  const size_t bytes = edge_bytes(dsh != 0, D, F, PT, PS, slots);
   cudaError_t err = dsh ? (bf16 ? allow_edge<__nv_bfloat16, true>() : allow_edge<float, true>())
                         : (bf16 ? allow_edge<__nv_bfloat16, false>() : allow_edge<float, false>());
   if (err != cudaSuccess) return -(int)err;

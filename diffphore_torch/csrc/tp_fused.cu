@@ -141,6 +141,31 @@
 // dense instantiations are as they were) and tp_fused_l2_kernel (l = 2) at
 // run time: its rows' sender features ride the ring in either mode, so the
 // index only changes which sender row a tile row copies.
+//
+// The wide kernels (a template flag WIDE on both; the model widths past
+// corpus2's: ns up to 64, so E = H up to 192).  The narrow kernels above keep
+// W1 (E x 64) and W2 (H x F, or the tile's columns) in shared memory and form
+// the hidden layer a lane's two units at a time, so they take H <= 64 and E,
+// H multiples of four (4 lanes also F <= 160).  At E = H = 192 W1 and W2 take
+// 270 KB, more than a block has; so the wide kernels leave them in device
+// memory (read through the L1/L2 caches, every warp of a block reading the
+// same rows) and keep only b1 and the tile's b2.  The hidden layer runs in
+// chunks of 64 units: a warp forms its rows' chunk (lane = units hc + lane,
+// hc + lane + 32 at 4 lanes, hc + 2 lane, + 1 at 8), each unit whole over E,
+// so the bf16 rounding points stay where the narrow kernels and the JAX
+// package put them; the chunk goes to shared memory and the second product
+// adds it into the edge weights' f32 registers (at 8 lanes, bf16, the
+// mma.sync sums, W2's fragments converted from device memory), chunk after
+// chunk in order.  Attribute rows take a pitch of pad4(E), their pad zeroed,
+// and rows not 16-byte aligned are copied element by element.  At 4 lanes F
+// past 160 takes channel tiles of up to 160 cut at path boundaries
+// (tp_fused.channel_tiles(tp, MAX_F)), a factor of the grid as at 8 lanes,
+// and a block forms t of its tile's paths only.  The 8-lane wide kernel may
+// take all the shared memory of an SM (one block); the narrow 8-lane kernel
+// too is replaced by it where its weights and tiles do not fit 113 KB.  The
+// host's plan (tp_fused.plan) picks the kernel, the tiles and the senders a
+// block from the shapes alone, restating the layouts' sums.  Every shipped
+// convolution takes the narrow kernels, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,8 +186,9 @@ constexpr int T_SIZE = 12;       // t[i][k] of one (edge, path), k padded to 4
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int RT = ROWS / WARPS;  // rows per warp = rows per thread tile
-constexpr int NC_MAX = 5;         // F <= 160
+constexpr int NC_MAX = 5;         // F <= 160 (the wide kernel: a channel tile's width)
 constexpr int MAX_PATHS = 16;
+constexpr int WIDE_MAX = 192;     // the wide kernel's E and H (ns <= 64)
 constexpr int MAX_SMEM = 227 * 1024;
 
 static_assert(RT == 4, "the register tiles assume four rows per warp");
@@ -190,37 +216,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The shared-memory layout, in floats, the same on the host and the device.
+// The shared-memory layout, in floats, the same on the host and the device
+// (tp_fused.layout_bytes restates it).
 struct Layout {
-  int w1, b1, w2, b2, g, poff, x, mask, edges, a, wt, sh, t, total;
+  int w1, b1, w2, b2, g, poff, x, mask, edges, a, wt, sh, t, hid, total;
 };
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
 // `idx`: the sender-index mode, whose sender features ride in the ring (two
-// stages of ROWS rows) instead of the block's MS senders.
+// stages of ROWS rows) instead of the block's MS senders.  `wide`: the wide
+// kernel (head note), whose weights stay in device memory: no W1 or W2, b1
+// padded to whole hidden chunks, attribute rows at a pitch of pad4(E), and
+// each warp's rows of one hidden chunk; t of a channel tile's paths (at
+// most tpaths) only.
 __host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_paths, int MS,
-                                              int NC, bool idx) {
+                                              int NC, bool idx, bool wide = false,
+                                              int tpaths = 0) {
   Layout L;
   int o = 0;
-  L.w1 = o;    o += E * HP;
-  L.b1 = o;    o += HP;
-  L.w2 = o;    o += H * 32 * NC;
+  L.w1 = o;    o += wide ? 0 : E * HP;
+  L.b1 = o;    o += wide ? (H + HP - 1) / HP * HP : HP;
+  L.w2 = o;    o += wide ? 0 : H * 32 * NC;
   L.b2 = o;    o += 32 * NC;
   L.g = o;     o += pad4(n_paths * G_SIZE);
   L.poff = o;  o += MAX_PATHS;
   L.x = o;     o += (idx ? 2 * ROWS : MS) * pad4(D);
   L.mask = o;  o += C * TN * MS;
   L.edges = o; o += pad4(TN * MS / 2 + 1) + 12;   // the live edges (16 bits each), then 9 prefix counts
-  L.a = o;     o += 2 * C * ROWS * E;             // two stages
+  L.a = o;     o += 2 * C * ROWS * pad4(E);       // two stages
   L.wt = o;    o += ROWS * 32 * NC;
   L.sh = o;    o += 2 * ROWS * SH_STRIDE;         // two stages
-  L.t = o;     o += ROWS * n_paths * T_SIZE;
+  L.t = o;     o += ROWS * (wide ? tpaths : n_paths) * T_SIZE;
+  L.hid = o;   o += wide ? ROWS * HP : 0;
   L.total = o;
   return L;
 }
 
-template <typename T, int NC, bool IDX>
+template <typename T, int NC, bool IDX, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const T* __restrict__ x,         // (B, M, D) sender features; IDX: (B, Mx, D)
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
@@ -235,13 +268,15 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const float* __restrict__ b2,    // (F)
     const int4* __restrict__ chan,   // (F): x_base, d_in, sh_off, path
     const float* __restrict__ gtab,  // (n_paths, 3, J_MAX, 3)
+    const int* __restrict__ ctab,    // WIDE: (n_ct, 4) each channel tile's f0, fc, p0, pc
     float* __restrict__ dst,         // out (B, N, F, 4), or the partial sums (splits, B, N, F, 4)
     int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
-    int mask_is_f32) {
+    int mask_is_f32, int n_ct, int tpaths) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FP = 32 * NC;
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
-  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC, IDX);
+  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC, IDX, WIDE, tpaths);
+  const int EP = WIDE ? pad4(E) : E;       // the attribute rows' pitch
   float* s_w1 = smem + L.w1;
   float* s_b1 = smem + L.b1;
   float* s_w2 = smem + L.w2;
@@ -256,20 +291,31 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
   float* s_wt = smem + L.wt;                                    // [row][FP]
   float* s_sh = smem + L.sh;                                    // [stage][row][SH_STRIDE]
   float* s_t = smem + L.t;                                      // [row][path][i][4]
+  float* s_hid = smem + L.hid;                                  // WIDE: [row][HP]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.z;
   const int n0 = blockIdx.y * TN;
-  // the block's senders are m0, m0 + mstep, ...: interleaved with the other splits'
-  const int m0 = blockIdx.x, mstep = gridDim.x;
+  // the block's senders are m0, m0 + mstep, ...: interleaved with the other
+  // splits'; WIDE: its channel tile ct (channels f0 .. f0 + fc - 1)
+  const int ct = WIDE ? blockIdx.x % n_ct : 0;
+  const int m0 = WIDE ? blockIdx.x / n_ct : blockIdx.x, mstep = WIDE ? gridDim.x / n_ct : gridDim.x;
+  const int f0 = WIDE ? ctab[4 * ct] : 0, fc = WIDE ? ctab[4 * ct + 1] : F;
+  // the paths whose t the block forms: WIDE its tile's
+  const int p_lo = WIDE ? ctab[4 * ct + 2] : 0, n_tp = WIDE ? ctab[4 * ct + 3] : n_paths;
   const int ms = (M - m0 + mstep - 1) / mstep;   // senders of this block, <= MS
   const int DP = pad4(D);
 
   // ---- resident operands: the weights and sender features (asynchronously:
   // they are first needed by the first tile's products), tables, masks.
-  // Columns past H and F are never read back.
-  if (ROUND) {
+  // Columns past H and F are never read back.  WIDE: no weights.
+  if (WIDE) {
+    for (int i = tid; i < 2 * C * ROWS * (EP - E); i += THREADS) {   // the pad past E stays 0
+      const int r = i / (EP - E);
+      s_a[r * EP + E + i - r * (EP - E)] = 0.f;
+    }
+  } else if (ROUND) {
     for (int i = tid; i < E * H; i += THREADS) s_w1[(i / H) * HP + i % H] = bf16_round(w1[i]);
     for (int i = tid; i < H * F; i += THREADS) s_w2[(i / F) * FP + i % F] = bf16_round(w2[i]);
   } else if (F % 4 == 0) {
@@ -293,8 +339,10 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     }
   }
   cp_async_commit();
-  for (int i = tid; i < HP; i += THREADS) s_b1[i] = i < H ? (ROUND ? bf16_round(b1[i]) : b1[i]) : 0.f;
-  for (int i = tid; i < FP; i += THREADS) s_b2[i] = i < F ? (ROUND ? bf16_round(b2[i]) : b2[i]) : 0.f;
+  const int HB = WIDE ? (H + HP - 1) / HP * HP : HP;
+  for (int i = tid; i < HB; i += THREADS) s_b1[i] = i < H ? (ROUND ? bf16_round(b1[i]) : b1[i]) : 0.f;
+  for (int i = tid; i < FP; i += THREADS)
+    s_b2[i] = i < fc ? (ROUND ? bf16_round(b2[f0 + i]) : b2[f0 + i]) : 0.f;
   for (int i = tid; i < n_paths * G_SIZE; i += THREADS) s_g[i] = gtab[i];
   for (int i = tid; i < 2 * ROWS * SH_STRIDE; i += THREADS) s_sh[i] = 0.f;   // the pad lanes stay 0
   for (int i = tid; i < C * TN * MS; i += THREADS) {
@@ -312,9 +360,13 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     s_mask[i] = v;
   }
   const int f = tid;
-  const bool active = f < F;
-  const int4 cm = active ? chan[f] : make_int4(0, 0, 0, 0);
-  if (active) s_poff[cm.w] = cm.z;               // the same value from every channel of a path
+  const bool active = f < fc;
+  const int4 cm = active ? chan[f0 + f] : make_int4(0, 0, 0, 0);
+  if (WIDE) {   // every path's, also those of the other tiles (t is formed for all)
+    for (int i = tid; i < F; i += THREADS) s_poff[chan[i].w] = chan[i].z;
+  } else if (active) {
+    s_poff[cm.w] = cm.z;                         // the same value from every channel of a path
+  }
   __syncthreads();
 
   // ---- compaction: warp nl lists receiver nl's live senders, in order
@@ -354,9 +406,11 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const size_t edge = ((size_t)b * N + n0 + (e >> 8)) * M + m0 + (e & 255) * mstep;
     for (int c = 0; c < C; ++c) {
       const T* src = (c == 0 ? attr0 : attr1) + edge * E;
-      float* arow = s_a + ((size_t)(stage * C + c) * ROWS + row) * E;
-      if (sizeof(T) == 4) {
+      float* arow = s_a + ((size_t)(stage * C + c) * ROWS + row) * EP;
+      if (sizeof(T) == 4 && !(WIDE && E % 4)) {
         for (int q = sub; q < E / 4; q += 8) cp_async16(arow + 4 * q, src + 4 * q);
+      } else if (sizeof(T) == 4) {   // WIDE: rows not 16-byte aligned
+        for (int k = sub; k < E; k += 8) cp_async4(arow + k, src + k);
       } else {
         for (int k = sub; k < E; k += 8) arow[k] = to_f(src[k]);
       }
@@ -406,8 +460,8 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     __syncthreads();
 
     // ---- t[r, p][i, k] = sum_j G_p[i, j, k] sh[r, sh_off(p) + j]
-    for (int i = tid; i < rows * n_paths; i += THREADS) {
-      const int r = i / n_paths, p = i - r * n_paths;
+    for (int i = tid; i < rows * n_tp; i += THREADS) {
+      const int r = i / n_tp, p = p_lo + i - r * n_tp;
       const float* G = s_g + p * G_SIZE;
       const float* sv = s_sh + (stage * ROWS + r) * SH_STRIDE + s_poff[p];
       float svj[J_MAX];
@@ -436,7 +490,120 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
         mrow[0][i] = ok ? s_mask[at] : 0.f;
         mrow[1][i] = ok && C == 2 ? s_mask[TN * MS + at] : 0.f;
       }
-      if (ROUND) {
+      if constexpr (WIDE) {
+        // The hidden layer in chunks of HP units, each unit formed whole over
+        // E (so the bf16 rounding points stay where they are), W1 and W2 read
+        // from device memory (L2), the second product summed over the chunks
+        // in registers.  f32: hid = sum_c mask_c relu(A_c W1 + b1), w = hid W2
+        // + msum b2; bf16 channel by channel: w = bf16(sum_c bf16(bf16(h_c
+        // W2) + b2) mask_c), h_c = relu(bf16(bf16(A_c W1) + b1)).
+        float* hid = s_hid + r0 * HP;            // the warp's rows of one chunk
+        for (int c = 0; c < (ROUND ? C : 1); ++c) {
+          float wacc[RT][NC];
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int cc = 0; cc < NC; ++cc) wacc[i][cc] = 0.f;
+          for (int hc = 0; hc < H; hc += HP) {
+            const int ha = hc + lane, hb = hc + lane + 32;
+            float hs[RT][2];
+#pragma unroll
+            for (int i = 0; i < RT; ++i) hs[i][0] = hs[i][1] = 0.f;
+            for (int ch = ROUND ? c : 0; ch < (ROUND ? c + 1 : C); ++ch) {
+              const float* A = s_a + ((size_t)(stage * C + ch) * ROWS + r0) * EP;
+              float pre[RT][2];
+#pragma unroll
+              for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
+#pragma unroll 2
+              for (int k = 0; k < EP; k += 4) {
+                float4 av[RT];
+#pragma unroll
+                for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * EP + k);
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk) {
+                  const int kr = k + kk;
+                  float wa = 0.f, wb = 0.f;
+                  if (kr < E) {
+                    if (ha < H) wa = __ldg(w1 + (size_t)kr * H + ha);
+                    if (hb < H) wb = __ldg(w1 + (size_t)kr * H + hb);
+                  }
+                  if (ROUND) {
+                    wa = bf16_round(wa);
+                    wb = bf16_round(wb);
+                  }
+#pragma unroll
+                  for (int i = 0; i < RT; ++i) {
+                    const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+                    pre[i][0] = fmaf(a, wa, pre[i][0]);
+                    pre[i][1] = fmaf(a, wb, pre[i][1]);
+                  }
+                }
+              }
+#pragma unroll
+              for (int i = 0; i < RT; ++i) {
+                if (ROUND) {
+                  hs[i][0] = fmaxf(bf16_round(bf16_round(pre[i][0]) + s_b1[ha]), 0.f);
+                  hs[i][1] = fmaxf(bf16_round(bf16_round(pre[i][1]) + s_b1[hb]), 0.f);
+                } else {
+                  // rows past the tile's end: their mask is 0 and relu drops a NaN
+                  const float mc = ch == 0 ? mrow[0][i] : mrow[1][i];
+                  hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[ha], 0.f), hs[i][0]);
+                  hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[hb], 0.f), hs[i][1]);
+                }
+              }
+            }
+            __syncwarp();                        // the last chunk's rows are read
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+              const bool ok = r0 + i < rows;
+              hid[i * HP + lane] = ok && ha < H ? hs[i][0] : 0.f;
+              hid[i * HP + lane + 32] = ok && hb < H ? hs[i][1] : 0.f;
+            }
+            __syncwarp();
+            const int kn = min(HP, H - hc);
+#pragma unroll 2
+            for (int k = 0; k < kn; k += 4) {
+              float4 hv[RT];
+#pragma unroll
+              for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(hid + i * HP + k);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const int kr = hc + k + kk;
+                float wv[NC];
+#pragma unroll
+                for (int cc = 0; cc < NC; ++cc) {
+                  const int col = lane + 32 * cc;
+                  wv[cc] = kr < H && col < fc ? __ldg(w2 + (size_t)kr * F + f0 + col) : 0.f;
+                  if (ROUND) wv[cc] = bf16_round(wv[cc]);
+                }
+#pragma unroll
+                for (int i = 0; i < RT; ++i) {
+                  const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+                  for (int cc = 0; cc < NC; ++cc) wacc[i][cc] = fmaf(h, wv[cc], wacc[i][cc]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            if (ROUND) {   // channel 0's term stored, channel 1's added by the same thread
+              const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+#pragma unroll
+              for (int cc = 0; cc < NC; ++cc) {
+                float* wt = s_wt + (r0 + i) * FP + lane + 32 * cc;
+                const float v = bf16_round(bf16_round(wacc[i][cc]) + s_b2[lane + 32 * cc]) * mc;
+                *wt = c == 0 ? v : bf16_round(*wt + v);
+              }
+            } else {
+              const float msum = mrow[0][i] + mrow[1][i];
+#pragma unroll
+              for (int cc = 0; cc < NC; ++cc)
+                s_wt[(r0 + i) * FP + lane + 32 * cc] = fmaf(msum, s_b2[lane + 32 * cc], wacc[i][cc]);
+            }
+          }
+        }
+      } else if (ROUND) {
         // the JAX package's bf16 convolution, channel by channel:
         // h_c = relu(bf16(bf16(A_c W1) + b1)), in place of the warp's rows of A_c
         for (int c = 0; c < C; ++c) {
@@ -601,7 +768,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
         if ((e >> 8) != cur) flush(e >> 8);
         const float w = s_wt[r * FP + f];
         const float* xr = s_x + (IDX ? (stage * ROWS + r) : (e & 255)) * DP + cm.x;
-        const float* tp = s_t + (r * n_paths + cm.w) * T_SIZE;
+        const float* tp = s_t + (r * n_tp + cm.w - p_lo) * T_SIZE;
         const float4 t0 = *reinterpret_cast<const float4*>(tp);
         const float g0 = w * xr[0];
         r0s = fmaf(g0, t0.x, r0s);
@@ -623,7 +790,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
 
   if (active) {
     flush(0);
-    float4* o = reinterpret_cast<float4*>(dst) + (size_t)blockIdx.x * B * N * F;
+    float4* o = reinterpret_cast<float4*>(dst) + (size_t)m0 * B * N * F + f0;
 #pragma unroll
     for (int nl = 0; nl < TN; ++nl) {
       const int n = n0 + nl;
@@ -701,12 +868,14 @@ struct LayoutL2 {
 };
 
 __host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int DX, int TS, int GS,
-                                                   int PC, int MS, int FTP, int esize) {
+                                                   int PC, int MS, int FTP, int esize,
+                                                   bool wide = false) {
   LayoutL2 L;
   int o = 0;
-  L.w1 = o;    o += E * L2_HP;
-  L.b1 = o;    o += L2_HP;
-  L.w2 = o;    o += esize == 2 ? FTP * L2_KB / 2 : H * FTP;   // bf16: W2^T [n][L2_KB]
+  const int EP = wide ? pad4(E) : E;   // the wide kernel: no W1 or W2 (head note)
+  L.w1 = o;    o += wide ? 0 : E * L2_HP;
+  L.b1 = o;    o += wide ? (H + L2_HP - 1) / L2_HP * L2_HP : L2_HP;
+  L.w2 = o;    o += wide ? 0 : esize == 2 ? FTP * L2_KB / 2 : H * FTP;   // bf16: W2^T [n][L2_KB]
   L.b2 = o;    o += FTP;
   L.g = o;     o += pad4(GS);
   L.ptab = o;  o += pad4(PC * 8);                     // ints
@@ -715,7 +884,7 @@ __host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int DX, 
   L.edges = o; o += pad4(L2_TN * MS);                 // ints: nl * MS + ml of the live pairs
   L.wcnt = o;  o += 20;                               // ints: per-warp counts, then the total
   L.rn = o;    o += 2 * L2_ROWS;                      // ints: each staged row's receiver
-  L.a = o;     o += pad4((2 * C * L2_ROWS * E * esize + 3) / 4);    // two stages
+  L.a = o;     o += pad4((2 * C * L2_ROWS * EP * esize + 3) / 4);   // two stages
   L.sh = o;    o += 2 * L2_ROWS * SH_STRIDE;                       // two stages
   L.x = o;     o += pad4((2 * L2_ROWS * DX * esize + 3) / 4);      // two stages
   L.hid = o;   o += C * L2_ROWS * (esize == 2 ? L2_KB / 2 : L2_HP);   // bf16: [c][row][L2_KB]
@@ -794,8 +963,8 @@ __device__ __forceinline__ void t_entry(float* tq, const float* G, const float* 
 }
 
 // NCH: 64-channel groups of a tile (FTP = 64 NCH channels, lane = two
-// neighbouring channels of each group).
-template <typename T, int NCH>
+// neighbouring channels of each group).  WIDE: the wide kernel (head note).
+template <typename T, int NCH, bool WIDE>
 __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     const T* __restrict__ x,         // (B, Mx, D) sender features (Mx = M without idx)
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
@@ -820,7 +989,8 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
   constexpr int FTP = 64 * NCH;
   const bool indexed = idx != nullptr;
-  const LayoutL2 L = make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, sizeof(T));
+  const LayoutL2 L = make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, sizeof(T), WIDE);
+  const int EP = WIDE ? pad4(E) : E;       // the attribute rows' pitch
   float* s_w1 = smem + L.w1;                                    // [k][L2_HP]
   float* s_b1 = smem + L.b1;
   float* s_w2 = smem + L.w2;                                    // [k][FTP]: the tile's columns
@@ -920,8 +1090,14 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
 
   // ---- resident operands of a block with live pairs: W1, b1, the tile's W2
   // columns, b2, coupling entries and path rows (f32 weights asynchronously,
-  // with the first tile's rows).  Padding columns are zero.
-  if (ROUND) {
+  // with the first tile's rows).  Padding columns are zero.  WIDE: no
+  // weights; the attribute rows' pad past E is zero.
+  if (WIDE) {
+    for (int i = tid; i < 2 * C * L2_ROWS * (EP - E); i += L2_THREADS) {
+      const int r = i / (EP - E);
+      s_a[(size_t)r * EP + E + i - r * (EP - E)] = T(0.f);
+    }
+  } else if (ROUND) {
     for (int i = tid; i < E * L2_HP; i += L2_THREADS) {
       const int k = i / L2_HP, h = i - k * L2_HP;
       s_w1[i] = h < H ? bf16_round(w1[k * H + h]) : 0.f;
@@ -955,7 +1131,8 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     }
   }
   cp_async_commit();
-  for (int i = tid; i < L2_HP; i += L2_THREADS)
+  const int HB = WIDE ? (H + L2_HP - 1) / L2_HP * L2_HP : L2_HP;
+  for (int i = tid; i < HB; i += L2_THREADS)
     s_b1[i] = i < H ? (ROUND ? bf16_round(b1[i]) : b1[i]) : 0.f;
   for (int i = tid; i < FTP; i += L2_THREADS)
     s_b2[i] = i < fc ? (ROUND ? bf16_round(b2[f0 + i]) : b2[f0 + i]) : 0.f;
@@ -980,8 +1157,15 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     if (sub == 0) s_rn[stage * L2_ROWS + row] = nl;
     for (int c = 0; c < C; ++c) {
       const T* src = (c == 0 ? attr0 : attr1) + edge * E;
-      T* arow = s_a + ((size_t)(stage * C + c) * L2_ROWS + row) * E;
-      for (int q = sub; q < E / 4; q += 16) cp_async_quad(arow + 4 * q, src + 4 * q);
+      T* arow = s_a + ((size_t)(stage * C + c) * L2_ROWS + row) * EP;
+      if (WIDE && E % 4) {   // rows not aligned to four elements
+        for (int k = sub; k < E; k += 16) {
+          if (sizeof(T) == 4) cp_async4(arow + k, src + k);
+          else arow[k] = src[k];
+        }
+      } else {
+        for (int q = sub; q < E / 4; q += 16) cp_async_quad(arow + 4 * q, src + 4 * q);
+      }
     }
     float* srow = s_sh + (stage * L2_ROWS + row) * SH_STRIDE;
     for (int j = sub; j < S; j += 16) {
@@ -1031,82 +1215,104 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
       mrow[0][i] = ok ? s_mask[e] : 0.f;
       mrow[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
     }
-    if (r0 < rows) {
-      // hidden units 2 lane, 2 lane + 1 of both rows: pre = A_c W1
-      float hs[L2_RW][2] = {};
-      for (int c = 0; c < C; ++c) {
-        const T* A = s_a + ((size_t)(stage * C + c) * L2_ROWS + r0) * E;
-        float pre[L2_RW][2] = {};
-#pragma unroll 3
-        for (int k = 0; k < E; k += 4) {
+    if constexpr (WIDE) {
+      // The hidden layer in chunks of L2_HP units, each unit formed whole
+      // over E, W1 and W2 read from device memory (L2).  f32: per warp, its
+      // two rows' chunk of hid = sum_c mask_c relu(A_c W1 + b1) and their
+      // edge weights summed over the chunks in registers.  bf16: every
+      // warp's rows of each channel's chunk h_c = relu(bf16(bf16(A_c W1) +
+      // b1)), then w_c = h_c W2 over the chunk on the tensor cores, summed
+      // over the chunks in the mma's f32 registers.
+      const int G = NCH == 2 && fc > 64 ? 2 : 1;
+      auto hidden = [&](int c, int hc, float (&hs)[L2_RW][2]) {   // pre-activations of a chunk
+        const T* A = s_a + ((size_t)(stage * C + c) * L2_ROWS + r0) * EP;
+        const int u0 = hc + 2 * lane, u1 = u0 + 1;
+#pragma unroll
+        for (int i = 0; i < L2_RW; ++i) hs[i][0] = hs[i][1] = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < EP; k += 4) {
           float4 av[L2_RW];
 #pragma unroll
-          for (int i = 0; i < L2_RW; ++i) av[i] = ld4s(A + i * E + k);
+          for (int i = 0; i < L2_RW; ++i) av[i] = ld4s(A + i * EP + k);
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            const float2 wv = *reinterpret_cast<const float2*>(s_w1 + (k + kk) * L2_HP + 2 * lane);
+            const int kr = k + kk;
+            float wa = 0.f, wb = 0.f;
+            if (kr < E) {
+              if (u0 < H) wa = __ldg(w1 + (size_t)kr * H + u0);
+              if (u1 < H) wb = __ldg(w1 + (size_t)kr * H + u1);
+            }
+            if (ROUND) {
+              wa = bf16_round(wa);
+              wb = bf16_round(wb);
+            }
 #pragma unroll
             for (int i = 0; i < L2_RW; ++i) {
               const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
-              pre[i][0] = fmaf(a, wv.x, pre[i][0]);
-              pre[i][1] = fmaf(a, wv.y, pre[i][1]);
+              hs[i][0] = fmaf(a, wa, hs[i][0]);
+              hs[i][1] = fmaf(a, wb, hs[i][1]);
             }
           }
         }
-        const float2 bv = *reinterpret_cast<const float2*>(s_b1 + 2 * lane);
-#pragma unroll
-        for (int i = 0; i < L2_RW; ++i) {
-          // rows past the tile's end hold stale data: written as zeros
-          const bool ok = r0 + i < rows;
-          if (ROUND) {
-            // the JAX package's bf16 convolution, channel by channel:
-            // h_c = relu(bf16(bf16(A_c W1) + b1))
-            const float h0 = fmaxf(bf16_round(bf16_round(pre[i][0]) + bv.x), 0.f);
-            const float h1 = fmaxf(bf16_round(bf16_round(pre[i][1]) + bv.y), 0.f);
-            *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
-                __floats2bfloat162_rn(ok ? h0 : 0.f, ok ? h1 : 0.f);
-          } else {
-            // hid = sum_c mask_c relu(A_c W1 + b1)
-            const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
-            hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + bv.x, 0.f), hs[i][0]);
-            hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + bv.y, 0.f), hs[i][1]);
-          }
-        }
-      }
+      };
       if constexpr (!ROUND) {
+        if (r0 < rows) {
+          float* hr = s_hid + r0 * L2_HP;
+          float wacc[L2_RW][2][2];
 #pragma unroll
-        for (int i = 0; i < L2_RW; ++i) {
-          const bool ok = r0 + i < rows;
-          *reinterpret_cast<float2*>(s_hid + (r0 + i) * L2_HP + 2 * lane) =
-              ok ? make_float2(hs[i][0], hs[i][1]) : make_float2(0.f, 0.f);
-        }
-        __syncwarp();
-        // ---- w[r, f] = hid W2 + msum b2 of the tile's channels 2 lane + 64 j,
-        // + 1, j < G (register tile of two rows x 2 G channels; G = 1 for a
-        // tile of 64 or fewer)
-        auto product = [&](auto groups) {
-          constexpr int G = decltype(groups)::value;
-          const float* hr = s_hid + r0 * L2_HP;
-          float wacc[L2_RW][G][2] = {};
-#pragma unroll 3
-          for (int k = 0; k < H; k += 4) {
-            float4 hv[L2_RW];
+          for (int i = 0; i < L2_RW; ++i)
 #pragma unroll
-            for (int i = 0; i < L2_RW; ++i)
-              hv[i] = *reinterpret_cast<const float4*>(hr + i * L2_HP + k);
+            for (int j = 0; j < 2; ++j) wacc[i][j][0] = wacc[i][j][1] = 0.f;
+          for (int hc = 0; hc < H; hc += L2_HP) {
+            const int u0 = hc + 2 * lane, u1 = u0 + 1;
+            float hs[L2_RW][2];
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              float2 wv[G];
-#pragma unroll
-              for (int j = 0; j < G; ++j)
-                wv[j] = *reinterpret_cast<const float2*>(s_w2 + (k + kk) * FTP + 2 * lane + 64 * j);
+            for (int i = 0; i < L2_RW; ++i) hs[i][0] = hs[i][1] = 0.f;
+            for (int c = 0; c < C; ++c) {
+              float pre[L2_RW][2];
+              hidden(c, hc, pre);
 #pragma unroll
               for (int i = 0; i < L2_RW; ++i) {
-                const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+                const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+                hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[u0], 0.f), hs[i][0]);
+                hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[u1], 0.f), hs[i][1]);
+              }
+            }
+            __syncwarp();                        // the last chunk's rows are read
 #pragma unroll
-                for (int j = 0; j < G; ++j) {
-                  wacc[i][j][0] = fmaf(h, wv[j].x, wacc[i][j][0]);
-                  wacc[i][j][1] = fmaf(h, wv[j].y, wacc[i][j][1]);
+            for (int i = 0; i < L2_RW; ++i) {
+              const bool ok = r0 + i < rows;
+              *reinterpret_cast<float2*>(hr + i * L2_HP + 2 * lane) =
+                  make_float2(ok && u0 < H ? hs[i][0] : 0.f, ok && u1 < H ? hs[i][1] : 0.f);
+            }
+            __syncwarp();
+            const int kn = min(L2_HP, H - hc);
+#pragma unroll 2
+            for (int k = 0; k < kn; k += 4) {
+              float4 hv[L2_RW];
+#pragma unroll
+              for (int i = 0; i < L2_RW; ++i)
+                hv[i] = *reinterpret_cast<const float4*>(hr + i * L2_HP + k);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const int kr = hc + k + kk;
+                float2 wv[2];
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                  const int col = 2 * lane + 64 * j;
+                  const float* wr = w2 + (size_t)kr * F + f0 + col;
+                  const bool on = kr < H && j < G;
+                  wv[j].x = on && col < fc ? __ldg(wr) : 0.f;
+                  wv[j].y = on && col + 1 < fc ? __ldg(wr + 1) : 0.f;
+                }
+#pragma unroll
+                for (int i = 0; i < L2_RW; ++i) {
+                  const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+                  for (int j = 0; j < 2; ++j) {
+                    wacc[i][j][0] = fmaf(h, wv[j].x, wacc[i][j][0]);
+                    wacc[i][j][1] = fmaf(h, wv[j].y, wacc[i][j][1]);
+                  }
                 }
               }
             }
@@ -1114,7 +1320,6 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
 #pragma unroll
           for (int i = 0; i < L2_RW; ++i) {
             const float msum = mrow[0][i] + mrow[1][i];
-#pragma unroll
             for (int j = 0; j < G; ++j) {
               const int col = 2 * lane + 64 * j;
               const float2 bv = *reinterpret_cast<const float2*>(s_b2 + col);
@@ -1122,68 +1327,246 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
                   make_float2(fmaf(msum, bv.x, wacc[i][j][0]), fmaf(msum, bv.y, wacc[i][j][1]));
             }
           }
-        };
-        if (NCH == 2 && fc > 64) product(std::integral_constant<int, NCH>{});
-        else product(std::integral_constant<int, 1>{});
-      }
-    } else if (ROUND) {
-      for (int c = 0; c < C; ++c)   // rows past the tile's end: zeros for the product below
-        for (int i = 0; i < L2_RW; ++i)
-          *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
-              __floats2bfloat162_rn(0.f, 0.f);
-    }
-    if constexpr (ROUND) {
-      // ---- bf16: w = hid_c W2 on the tensor cores (mma.sync m16n8k16, f32
-      // sums; both operands are bf16 values), column tile warp + 8 j of the
-      // 16 rows; lane g = lane / 4 holds rows g and g + 8, tq = lane % 4
-      // their columns 2 tq, 2 tq + 1 (the fragment layout)
-      __syncthreads();
-      const int g = lane >> 2, tq = lane & 3;
-      float mr[2][2];                           // [c][row g, g + 8]
+        }
+      } else {
+        const int g = lane >> 2, tq = lane & 3;
+        float mr[2][2];                           // [c][row g, g + 8]
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = g + 8 * i;
-        const bool ok = r < rows;
-        const int e = ok ? s_edges[first + r] : 0;
-        mr[0][i] = ok ? s_mask[e] : 0.f;
-        mr[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
-      }
-      auto product = [&](auto groups) {
-        constexpr int G = decltype(groups)::value;
-        for (int c = 0; c < C; ++c) {
-          const __nv_bfloat16* hb = s_hidb + c * L2_ROWS * L2_KB;
-          float d[G][4] = {};
-          for (int k0 = 0; k0 < H; k0 += 16) {
-            unsigned a[4];
+        for (int i = 0; i < 2; ++i) {
+          const int r = g + 8 * i;
+          const bool ok = r < rows;
+          const int e = ok ? s_edges[first + r] : 0;
+          mr[0][i] = ok ? s_mask[e] : 0.f;
+          mr[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
+        }
+        float d[2][2][4];                         // [c][column group][fragment]
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-              a[q] = *reinterpret_cast<const unsigned*>(
-                  hb + (g + 8 * (q & 1)) * L2_KB + k0 + 2 * tq + 8 * (q >> 1));
+        for (int c = 0; c < 2; ++c)
 #pragma unroll
-            for (int j = 0; j < G; ++j) {
-              const __nv_bfloat16* wb = s_w2t + ((warp + 8 * j) * 8 + g) * L2_KB + k0 + 2 * tq;
-              const unsigned bb[2] = {*reinterpret_cast<const unsigned*>(wb),
-                                      *reinterpret_cast<const unsigned*>(wb + 8)};
-              mma_bf16(d[j], a, bb);
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) d[c][j][q] = 0.f;
+        for (int hc = 0; hc < H; hc += L2_HP) {
+          const int u0 = hc + 2 * lane, u1 = u0 + 1;
+          for (int c = 0; c < C; ++c) {
+            float h[L2_RW][2] = {};
+            if (r0 < rows) {
+              float pre[L2_RW][2];
+              hidden(c, hc, pre);
+#pragma unroll
+              for (int i = 0; i < L2_RW; ++i) {
+                h[i][0] = fmaxf(bf16_round(bf16_round(pre[i][0]) + s_b1[u0]), 0.f);
+                h[i][1] = fmaxf(bf16_round(bf16_round(pre[i][1]) + s_b1[u1]), 0.f);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < L2_RW; ++i) {   // rows past the tile's end and units past H: 0
+              const bool ok = r0 + i < rows;
+              *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
+                  __floats2bfloat162_rn(ok && u0 < H ? h[i][0] : 0.f, ok && u1 < H ? h[i][1] : 0.f);
             }
           }
-          // w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c): channel 0's term
-          // is stored, channel 1's added to it by the same thread and rounded
+          __syncthreads();
+          const int kn = min(L2_HP, H - hc);
+          for (int c = 0; c < C; ++c) {
+            const __nv_bfloat16* hb = s_hidb + c * L2_ROWS * L2_KB;
+            for (int k0 = 0; k0 < kn; k0 += 16) {
+              unsigned a[4];
 #pragma unroll
-          for (int j = 0; j < G; ++j) {
+              for (int q = 0; q < 4; ++q)
+                a[q] = *reinterpret_cast<const unsigned*>(
+                    hb + (g + 8 * (q & 1)) * L2_KB + k0 + 2 * tq + 8 * (q >> 1));
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                if (j >= G) break;
+                // W2[k][col] as bf16 pairs along k (the col-major B fragment), 0 past H and fc
+                const int col = (warp + 8 * j) * 8 + g;
+                auto w2b = [&](int kr) {
+                  return kr < H && col < fc ? __ldg(w2 + (size_t)kr * F + f0 + col) : 0.f;
+                };
+                const int kr = hc + k0 + 2 * tq;
+                const __nv_bfloat162 lo = __floats2bfloat162_rn(w2b(kr), w2b(kr + 1));
+                const __nv_bfloat162 hi = __floats2bfloat162_rn(w2b(kr + 8), w2b(kr + 9));
+                const unsigned bb[2] = {*reinterpret_cast<const unsigned*>(&lo),
+                                        *reinterpret_cast<const unsigned*>(&hi)};
+                mma_bf16(d[c][j], a, bb);
+              }
+            }
+          }
+          __syncthreads();                        // before the next chunk's hidden rows
+        }
+        // w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c): channel 0's term
+        // is stored, channel 1's added to it by the same thread and rounded
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (j >= G) break;
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               const int row = g + 8 * (q >> 1), col = (warp + 8 * j) * 8 + 2 * tq + (q & 1);
               const float mc = c == 0 ? mr[0][q >> 1] : mr[1][q >> 1];
-              const float v = bf16_round(bf16_round(d[j][q]) + s_b2[col]) * mc;
+              const float v = bf16_round(bf16_round(d[c][j][q]) + s_b2[col]) * mc;
               float* wt = s_wt + row * FTP + col;
               *wt = c == 0 ? v : bf16_round(*wt + v);
             }
           }
         }
-      };
-      if (NCH == 2 && fc > 64) product(std::integral_constant<int, NCH>{});
-      else product(std::integral_constant<int, 1>{});
+      }
+    } else {
+      if (r0 < rows) {
+        // hidden units 2 lane, 2 lane + 1 of both rows: pre = A_c W1
+        float hs[L2_RW][2] = {};
+        for (int c = 0; c < C; ++c) {
+          const T* A = s_a + ((size_t)(stage * C + c) * L2_ROWS + r0) * E;
+          float pre[L2_RW][2] = {};
+  #pragma unroll 3
+          for (int k = 0; k < E; k += 4) {
+            float4 av[L2_RW];
+  #pragma unroll
+            for (int i = 0; i < L2_RW; ++i) av[i] = ld4s(A + i * E + k);
+  #pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float2 wv = *reinterpret_cast<const float2*>(s_w1 + (k + kk) * L2_HP + 2 * lane);
+  #pragma unroll
+              for (int i = 0; i < L2_RW; ++i) {
+                const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+                pre[i][0] = fmaf(a, wv.x, pre[i][0]);
+                pre[i][1] = fmaf(a, wv.y, pre[i][1]);
+              }
+            }
+          }
+          const float2 bv = *reinterpret_cast<const float2*>(s_b1 + 2 * lane);
+  #pragma unroll
+          for (int i = 0; i < L2_RW; ++i) {
+            // rows past the tile's end hold stale data: written as zeros
+            const bool ok = r0 + i < rows;
+            if (ROUND) {
+              // the JAX package's bf16 convolution, channel by channel:
+              // h_c = relu(bf16(bf16(A_c W1) + b1))
+              const float h0 = fmaxf(bf16_round(bf16_round(pre[i][0]) + bv.x), 0.f);
+              const float h1 = fmaxf(bf16_round(bf16_round(pre[i][1]) + bv.y), 0.f);
+              *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
+                  __floats2bfloat162_rn(ok ? h0 : 0.f, ok ? h1 : 0.f);
+            } else {
+              // hid = sum_c mask_c relu(A_c W1 + b1)
+              const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+              hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + bv.x, 0.f), hs[i][0]);
+              hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + bv.y, 0.f), hs[i][1]);
+            }
+          }
+        }
+        if constexpr (!ROUND) {
+  #pragma unroll
+          for (int i = 0; i < L2_RW; ++i) {
+            const bool ok = r0 + i < rows;
+            *reinterpret_cast<float2*>(s_hid + (r0 + i) * L2_HP + 2 * lane) =
+                ok ? make_float2(hs[i][0], hs[i][1]) : make_float2(0.f, 0.f);
+          }
+          __syncwarp();
+          // ---- w[r, f] = hid W2 + msum b2 of the tile's channels 2 lane + 64 j,
+          // + 1, j < G (register tile of two rows x 2 G channels; G = 1 for a
+          // tile of 64 or fewer)
+          auto product = [&](auto groups) {
+            constexpr int G = decltype(groups)::value;
+            const float* hr = s_hid + r0 * L2_HP;
+            float wacc[L2_RW][G][2] = {};
+  #pragma unroll 3
+            for (int k = 0; k < H; k += 4) {
+              float4 hv[L2_RW];
+  #pragma unroll
+              for (int i = 0; i < L2_RW; ++i)
+                hv[i] = *reinterpret_cast<const float4*>(hr + i * L2_HP + k);
+  #pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                float2 wv[G];
+  #pragma unroll
+                for (int j = 0; j < G; ++j)
+                  wv[j] = *reinterpret_cast<const float2*>(s_w2 + (k + kk) * FTP + 2 * lane + 64 * j);
+  #pragma unroll
+                for (int i = 0; i < L2_RW; ++i) {
+                  const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+  #pragma unroll
+                  for (int j = 0; j < G; ++j) {
+                    wacc[i][j][0] = fmaf(h, wv[j].x, wacc[i][j][0]);
+                    wacc[i][j][1] = fmaf(h, wv[j].y, wacc[i][j][1]);
+                  }
+                }
+              }
+            }
+  #pragma unroll
+            for (int i = 0; i < L2_RW; ++i) {
+              const float msum = mrow[0][i] + mrow[1][i];
+  #pragma unroll
+              for (int j = 0; j < G; ++j) {
+                const int col = 2 * lane + 64 * j;
+                const float2 bv = *reinterpret_cast<const float2*>(s_b2 + col);
+                *reinterpret_cast<float2*>(s_wt + (r0 + i) * FTP + col) =
+                    make_float2(fmaf(msum, bv.x, wacc[i][j][0]), fmaf(msum, bv.y, wacc[i][j][1]));
+              }
+            }
+          };
+          if (NCH == 2 && fc > 64) product(std::integral_constant<int, NCH>{});
+          else product(std::integral_constant<int, 1>{});
+        }
+      } else if (ROUND) {
+        for (int c = 0; c < C; ++c)   // rows past the tile's end: zeros for the product below
+          for (int i = 0; i < L2_RW; ++i)
+            *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
+                __floats2bfloat162_rn(0.f, 0.f);
+      }
+      if constexpr (ROUND) {
+        // ---- bf16: w = hid_c W2 on the tensor cores (mma.sync m16n8k16, f32
+        // sums; both operands are bf16 values), column tile warp + 8 j of the
+        // 16 rows; lane g = lane / 4 holds rows g and g + 8, tq = lane % 4
+        // their columns 2 tq, 2 tq + 1 (the fragment layout)
+        __syncthreads();
+        const int g = lane >> 2, tq = lane & 3;
+        float mr[2][2];                           // [c][row g, g + 8]
+  #pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = g + 8 * i;
+          const bool ok = r < rows;
+          const int e = ok ? s_edges[first + r] : 0;
+          mr[0][i] = ok ? s_mask[e] : 0.f;
+          mr[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
+        }
+        auto product = [&](auto groups) {
+          constexpr int G = decltype(groups)::value;
+          for (int c = 0; c < C; ++c) {
+            const __nv_bfloat16* hb = s_hidb + c * L2_ROWS * L2_KB;
+            float d[G][4] = {};
+            for (int k0 = 0; k0 < H; k0 += 16) {
+              unsigned a[4];
+  #pragma unroll
+              for (int q = 0; q < 4; ++q)
+                a[q] = *reinterpret_cast<const unsigned*>(
+                    hb + (g + 8 * (q & 1)) * L2_KB + k0 + 2 * tq + 8 * (q >> 1));
+  #pragma unroll
+              for (int j = 0; j < G; ++j) {
+                const __nv_bfloat16* wb = s_w2t + ((warp + 8 * j) * 8 + g) * L2_KB + k0 + 2 * tq;
+                const unsigned bb[2] = {*reinterpret_cast<const unsigned*>(wb),
+                                        *reinterpret_cast<const unsigned*>(wb + 8)};
+                mma_bf16(d[j], a, bb);
+              }
+            }
+            // w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c): channel 0's term
+            // is stored, channel 1's added to it by the same thread and rounded
+  #pragma unroll
+            for (int j = 0; j < G; ++j) {
+  #pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int row = g + 8 * (q >> 1), col = (warp + 8 * j) * 8 + 2 * tq + (q & 1);
+                const float mc = c == 0 ? mr[0][q >> 1] : mr[1][q >> 1];
+                const float v = bf16_round(bf16_round(d[j][q]) + s_b2[col]) * mc;
+                float* wt = s_wt + row * FTP + col;
+                *wt = c == 0 ? v : bf16_round(*wt + v);
+              }
+            }
+          }
+        };
+        if (NCH == 2 && fc > 64) product(std::integral_constant<int, NCH>{});
+        else product(std::integral_constant<int, 1>{});
+      }
     }
     // ---- t of every (row, tile path, i): t[i][k] = sum_j G[i, j, k] sh[j]
     // (rows fastest, so a warp mostly shares one (path, i) and its shape)
@@ -1289,26 +1672,31 @@ struct ArgsL2 {
   int B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS, mask_is_f32;
 };
 
-template <typename T, int NCH>
+// The most shared memory a block of the 8-lane kernel takes: two blocks an
+// SM, or the wide kernel one.
+constexpr int smem_l2_limit(bool wide) { return wide ? MAX_SMEM : L2_SMEM; }
+
+template <typename T, int NCH, bool WIDE>
 int launch_l2(const ArgsL2& a, cudaStream_t stream) {
   static bool allowed = false;   // the attribute is set once per instantiation
   if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(tp_fused_l2_kernel<T, NCH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, L2_SMEM);
+    cudaError_t err = cudaFuncSetAttribute(tp_fused_l2_kernel<T, NCH, WIDE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem_l2_limit(WIDE));
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
   const LayoutL2 L = make_layout_l2(a.C, a.E, a.H, a.DX, a.TS, a.GS, a.PC, a.MS, 64 * NCH,
-                                    sizeof(T));
+                                    sizeof(T), WIDE);
   const size_t bytes = (size_t)L.total * sizeof(float);
-  if (bytes > (size_t)L2_SMEM) return (int)cudaErrorInvalidValue;
+  if (bytes > (size_t)smem_l2_limit(WIDE)) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
   const dim3 grid(splits * a.n_ct, (a.N + L2_TN - 1) / L2_TN, a.B);
   float* dst = splits > 1 ? a.part : a.out;
   // the sender rows' slices go four elements at a time where every row's
   // slice starts on such a boundary (x_lo is a multiple of four)
   const int xvec = a.D % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % (4 * sizeof(T)) == 0;
-  tp_fused_l2_kernel<T, NCH><<<grid, L2_THREADS, bytes, stream>>>(
+  tp_fused_l2_kernel<T, NCH, WIDE><<<grid, L2_THREADS, bytes, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
       static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
       reinterpret_cast<const int4*>(a.chan), a.ptab, a.gflat, a.ctab, a.walk, dst, a.B, a.N, a.M,
@@ -1323,8 +1711,9 @@ int launch_l2(const ArgsL2& a, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_l2_nch(const ArgsL2& a, cudaStream_t stream) {
-  return a.FTP == 64 ? launch_l2<T, 1>(a, stream) : launch_l2<T, 2>(a, stream);
+int launch_l2_nch(const ArgsL2& a, bool wide, cudaStream_t stream) {
+  if (wide) return a.FTP == 64 ? launch_l2<T, 1, true>(a, stream) : launch_l2<T, 2, true>(a, stream);
+  return a.FTP == 64 ? launch_l2<T, 1, false>(a, stream) : launch_l2<T, 2, false>(a, stream);
 }
 
 struct Args {
@@ -1333,30 +1722,31 @@ struct Args {
   const float *w1, *b1, *w2, *b2;
   const int* chan;
   const float* gtab;
+  const int* ctab;
   float *out, *part;
-  int B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32;
+  int B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32, n_ct, tpaths;
 };
 
-template <typename T, int NC, bool IDX>
+template <typename T, int NC, bool IDX, bool WIDE>
 int launch(const Args& a, cudaStream_t stream) {
   static bool allowed = false;   // the attribute is set once per instantiation
   if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(tp_fused_kernel<T, NC, IDX>,
+    cudaError_t err = cudaFuncSetAttribute(tp_fused_kernel<T, NC, IDX, WIDE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC, IDX);
+  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC, IDX, WIDE, a.tpaths);
   const size_t bytes = (size_t)L.total * sizeof(float);
   if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
-  const dim3 grid(splits, (a.N + TN - 1) / TN, a.B);
+  const dim3 grid(splits * a.n_ct, (a.N + TN - 1) / TN, a.B);
   float* dst = splits > 1 ? a.part : a.out;
-  tp_fused_kernel<T, NC, IDX><<<grid, THREADS, bytes, stream>>>(
+  tp_fused_kernel<T, NC, IDX, WIDE><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
       static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
-      reinterpret_cast<const int4*>(a.chan), a.gtab, dst, a.B, a.N, a.M, a.Mx, a.D, a.S, a.C, a.E,
-      a.H, a.F, a.n_paths, a.MS, a.mask_is_f32);
+      reinterpret_cast<const int4*>(a.chan), a.gtab, a.ctab, dst, a.B, a.N, a.M, a.Mx, a.D, a.S,
+      a.C, a.E, a.H, a.F, a.n_paths, a.MS, a.mask_is_f32, a.n_ct, a.tpaths);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int total = a.B * a.N * a.F;
@@ -1365,14 +1755,16 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The narrow kernel: NC from F; the wide one takes NC_MAX for any tile.
 template <typename T, bool IDX>
-int launch_nc(const Args& a, cudaStream_t stream) {
+int launch_nc(const Args& a, bool wide, cudaStream_t stream) {
+  if (wide) return launch<T, NC_MAX, IDX, true>(a, stream);
   switch ((a.F + 31) / 32) {
     case 1:
-    case 2: return launch<T, 2, IDX>(a, stream);
-    case 3: return launch<T, 3, IDX>(a, stream);
-    case 4: return launch<T, 4, IDX>(a, stream);
-    case 5: return launch<T, 5, IDX>(a, stream);
+    case 2: return launch<T, 2, IDX, false>(a, stream);
+    case 3: return launch<T, 3, IDX, false>(a, stream);
+    case 4: return launch<T, 4, IDX, false>(a, stream);
+    case 5: return launch<T, 5, IDX, false>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1384,26 +1776,40 @@ extern "C" {
 // Returns a cudaError_t value: 0 when the launch was accepted.  `part` holds
 // (ceil(M / MS), B, N, F, 4) floats when the senders are split (MS < M), else
 // it is not read.  Sender-index mode: idx (B, N, M) int32 the sender of each
-// slot, x (B, Mx, D); dense: idx null, Mx = M.
+// slot, x (B, Mx, D); dense: idx null, Mx = M.  ctab null: the narrow kernel
+// (E, H multiples of 4, H <= min(E, 64), F <= 160); else the wide kernel on
+// the n_ct channel tiles of ctab ((first channel, width, first path, paths)
+// each, width <= 160, at most tpaths paths), E and H <= WIDE_MAX.
 int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* attr1,
                 const void* mask0, const void* mask1, const int* idx, const float* w1,
                 const float* b1, const float* w2, const float* b2, const int* chan,
-                const float* gtab, float* out, float* part, int B, int N, int M, int Mx, int D,
-                int S, int C, int E, int H, int F, int n_paths, int MS, int mask_is_f32,
-                int bf16, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > HP || H > E ||
-      C < 1 ||
-      C > 2 || S < 1 || S > SH_STRIDE || F < 1 || F > 32 * NC_MAX || n_paths < 1 || n_paths > MAX_PATHS ||
-      B > 65535 ||
+                const float* gtab, const int* ctab, float* out, float* part, int B, int N, int M,
+                int Mx, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
+                int mask_is_f32, int n_ct, int tpaths, int bf16, void* stream) {
+  const bool wide = ctab != nullptr;
+  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 1 || H < 1 || C < 1 || C > 2 || S < 1 ||
+      S > SH_STRIDE || F < 1 || n_paths < 1 || n_paths > MAX_PATHS || B > 65535 ||
       (N + TN - 1) / TN > 65535 || MS < 1 || MS > MS_MAX || (MS < M && part == nullptr) ||
-      Mx < 1 || (idx == nullptr && Mx != M))
+      Mx < 1 || (idx == nullptr && Mx != M) ||
+      (wide ? (E > WIDE_MAX || H > WIDE_MAX || n_ct < 1 || tpaths < 1 || tpaths > n_paths ||
+               (long long)((M + MS - 1) / MS) * n_ct > INT_MAX)
+            : (E < 4 || E % 4 || H < 4 || H % 4 || H > HP || H > E || F > 32 * NC_MAX || n_ct != 1)))
     return (int)cudaErrorInvalidValue;
-  const Args a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, gtab, out, part,
-               B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32};
+  const Args a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, gtab, ctab, out, part,
+               B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32, n_ct, tpaths};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx != nullptr)
-    return bf16 ? launch_nc<__nv_bfloat16, true>(a, st) : launch_nc<float, true>(a, st);
-  return bf16 ? launch_nc<__nv_bfloat16, false>(a, st) : launch_nc<float, false>(a, st);
+    return bf16 ? launch_nc<__nv_bfloat16, true>(a, wide, st) : launch_nc<float, true>(a, wide, st);
+  return bf16 ? launch_nc<__nv_bfloat16, false>(a, wide, st) : launch_nc<float, false>(a, wide, st);
+}
+
+// Bytes of shared memory a block of the 4-lane kernel takes at these sizes
+// (the narrow kernel at NC = ceil(F / 32), the wide one at NC_MAX).
+int dp_tp_fused_smem(int C, int E, int H, int D, int n_paths, int MS, int F, int idx, int wide,
+                     int tpaths) {
+  const int nc = wide ? NC_MAX : ((F + 31) / 32 < 2 ? 2 : (F + 31) / 32);
+  return make_layout(C, E, H, D, n_paths, MS, nc, idx != 0, wide != 0, tpaths).total *
+         (int)sizeof(float);
 }
 
 // The 8-lane kernel (irreps up to l = 2): out (B, N, F, 8); tables from
@@ -1411,7 +1817,8 @@ int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* at
 // walk order and the layout's sizes DX, TS, GS, PC and FTP, 64 or 128); `part` holds
 // (ceil(M / MS), B, N, F, 8) floats when the senders (slots) are split (MS <
 // M).  Sender-index mode: idx (B, N, M) int32, x (B, Mx, D); dense: idx null,
-// Mx = M.  Returns a cudaError_t value.
+// Mx = M.  `wide`: the wide kernel (any E, H <= WIDE_MAX; else E and H
+// multiples of four, H <= 64).  Returns a cudaError_t value.
 int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void* attr1,
                    const void* mask0, const void* mask1, const int* idx, const float* w1,
                    const float* b1, const float* w2, const float* b2, const int* chan,
@@ -1419,8 +1826,9 @@ int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void*
                    float* out, float* part, int B, int N, int M, int Mx, int D, int S, int C,
                    int E, int H, int F,
                    int n_ct, int DX, int TS, int GS, int PC, int FTP, int MS, int mask_is_f32,
-                   int bf16, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HP ||
+                   int wide, int bf16, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || E < 1 || H < 1 ||
+      (wide ? (E > WIDE_MAX || H > WIDE_MAX) : (E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HP)) ||
       C < 1 || C > 2 || S < 1 || S > SH_STRIDE || F < 1 || n_ct < 1 || DX < 4 || DX % 4 ||
       TS < 1 || GS < 1 || PC < 1 || PC > L2_MAX_PATHS || (FTP != 64 && FTP != 128) ||
       B > 65535 || (N + L2_TN - 1) / L2_TN > 65535 || MS < 1 || MS > L2_MS_MAX ||
@@ -1431,15 +1839,17 @@ int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void*
                  walk, out, part, B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS,
                  mask_is_f32};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_l2_nch<__nv_bfloat16>(a, st) : launch_l2_nch<float>(a, st);
+  return bf16 ? launch_l2_nch<__nv_bfloat16>(a, wide != 0, st)
+              : launch_l2_nch<float>(a, wide != 0, st);
 }
 
 // Bytes of shared memory the 8-lane kernel takes at these sizes (the
 // arguments of dp_tp_fused_l2, esize the operands' bytes); a launch that
-// needs more than L2_SMEM is refused.
+// needs more than L2_SMEM (the wide kernel: MAX_SMEM) is refused.
 int dp_tp_fused_l2_smem(int C, int E, int H, int DX, int TS, int GS, int PC, int MS, int FTP,
-                        int esize) {
-  return make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, esize).total * (int)sizeof(float);
+                        int esize, int wide) {
+  return make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, esize, wide != 0).total *
+         (int)sizeof(float);
 }
 
 const char* dp_cuda_error_string(int code) {

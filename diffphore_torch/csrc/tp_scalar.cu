@@ -72,14 +72,13 @@
 //    (edge, component) adds the edge's G lanes in order and writes the full
 //    S-component row (0 where no path reads).  No atomics: two runs agree
 //    to the bit.
-// Lanes.  Every kernel above is a template on L, the largest l of the
-// convolution's irreps.  L = 1 is the 4-lane layout above (K <= 3, g and out
-// (B, N, F, 4), P = 4 components in the edge backward).  At L = 2 (K <= 5:
-// the 0e x 2e -> 2e path of the second-order layer-0 convolutions; g and out
-// (B, N, F, 8), lanes 5-7 zero, never read) the sender-index mode runs the
-// same code with five sums a channel and the edge backward reading all P =
-// 9 harmonic components (`if constexpr` keeps the L = 1 instantiations as
-// they were); the dense mode has three kernels of its own.
+// Lanes.  The forward and edge backward above take the dense 4-lane layout
+// (K <= 3, g and out (B, N, F, 4), P = 4 components in the edge backward);
+// dx is a template on L, the largest l of the convolution's irreps.  At L = 2
+// (K <= 5: the 0e x 2e -> 2e path of the second-order layer-0 convolutions; g
+// and out (B, N, F, 8), lanes 5-7 zero, never read) the dense mode has three
+// kernels of its own, and the sender-index mode's forward and dw one kernel
+// at both lane counts (below).
 // Their lane is a unit (tp_scalar.units_l2): up to four neighbouring channels
 // of one path, so it reads x and w as one 16-byte (f32) or 8-byte (bf16)
 // access where every path is four channels wide at a multiple of four and
@@ -153,11 +152,40 @@
 // eight senders a thread: 0.134-0.200 ms); registers capped for three
 // blocks an SM (0.22-0.24 ms); w loaded evict-first (f32 5% faster, bf16 2%
 // slower).
-// Sender-index mode (the KNN phore grid; a template flag IDX on the forward
-// and the edge backward, so the 4-lane dense instantiations stay as they were): an
-// int32 index (B, N, K) names the sender row of x (B, Mx, U) that slot k of
-// receiver n reads; sh, w and dw are (B, N, K, .).  The forward and the edge
-// backward read x at the index.
+//  * Past 32 units (ns = 48 and 64 at l = 2: 36 and 48 units) the edge
+//    backward's instantiation UG = 2 gives lane j units j and j + 32, a warp
+//    one edge at a time, and dsh adds the same component lists in the same
+//    order (registers uncapped).
+// Sender-index mode (the KNN phore grid): an int32 index (B, N, K) names the
+// sender row of x (B, Mx, U) that slot k of receiver n reads; sh, w and dw
+// are (B, N, K, .).  The forward and dw: tp_scalar_idx_kernel<T, LANES, VEC,
+// DW>, at 4 and 8 lanes.  What bounds them: the bytes of w (forward) or dw,
+// 3.2 us at 4 lanes and 5.2 at 8 over a 24-row KNN step's layer-0 phore conv
+// in f32, so a launch's own floor (~3 us) stands near the bound.  The
+// general kernels' sender-index instantiations (the first design: a thread
+// per (receiver, channel), the slots split across blocks and their partial
+// sums added by a second kernel, a chain of index-then-x loads a slot, at L
+// = 2 all five harmonic components a channel; the edge backward the general
+// body with coef for all 9 components) took 0.0098 / 0.0100 and 0.0178 /
+// 0.0158 ms (forward, f32 / bf16, 4 and 8 lanes) and 0.0067 / 0.0077 and
+// 0.0117 / 0.0144 (dw), 2.1-5.6x their bounds.  Here the dense 8-lane
+// forward's design takes the index: a block owns R whole receivers and all
+// their K slots (one chunk on the KNN shapes: no partial sums, no second
+// kernel) and stages the chunk's harmonics (f32 by cp.async, 16 bytes a
+// copy where the rows allow), which every unit of a path reads; thread =
+// (receiver, slice, unit), up to 16 slots a thread (dw 8), the unit's K
+// harmonic components only, each slot's index and the unit's x elements
+// read from device memory (no other thread reads those elements); the
+// forward reads w four slots at a time and adds the slices in order, dw
+// turns c_p g into coef once a receiver and writes each slot's units side
+// by side, once.  What the launch's fixed chain costs sets these kernels
+// (a few us of a launch, then index -> x, w and the harmonics' copy in
+// flight): staging the block's index rows once and the slots' x rows by
+// cp.async behind them, as a first version did, added a barrier and a
+// round trip and took 10.9 / 11.7 and 14.1 / 13.4 us (forward) and 8.5 /
+// 8.7 and 12.6 / 14.3 (dw); fewer slots a thread (more, smaller blocks)
+// took longer, and the forward, which adds its slices' sums at the end,
+// gains from fewer slices than dw (analysis/k3_idx_variants.py, PERF.md).
 // Sender-index dx: tp_scalar_bwd_x_idx_slots, _chunks and _sum.  What bounds
 // it: the bytes of the dense dx (each slot's w row and harmonics, each
 // receiver's g row once, dx once), about 3 us at 4 lanes and K = 24 on a
@@ -198,8 +226,6 @@ constexpr int EDGE_THREADS = 256;                // threads of an edge-backward 
 constexpr int EDGE_WARPS = EDGE_THREADS / 32;
 constexpr int EDGE_F_MAX = 128;  // channels of a row: four a lane
 constexpr int P = 4;             // harmonic components the edge backward reads
-constexpr int P_L1 = P;
-constexpr int P_L2 = 9;          // the same at L = 2: 0e, 1o and 2e
 constexpr int EB = 2;            // steps of the edge backward loaded before any is finished
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -218,16 +244,16 @@ __device__ __forceinline__ float ld(const T* p) { return to_f(__ldg(p)); }
 // ---- forward and dx: one launch per convolution (head note) ----
 
 // dst: out (B, N, F, 4) when one split, else the partial sums (splits, B, N, F, 4).
-template <typename T, int L, bool IDX>
+// The dense 4-lane forward (the 8-lane one and the sender-index mode have
+// kernels of their own).
+template <typename T>
 __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
-    const T* __restrict__ x,           // (B, Mx, D) sender scalars (Mx = M without IDX)
+    const T* __restrict__ x,           // (B, M, D) sender scalars
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
     const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights
-    const int* __restrict__ idx,       // (B, N, M) sender of each slot (IDX)
     const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
     const float* __restrict__ scale,   // (F): c_p of the channel's path
-    float* __restrict__ dst, int B, int N, int M, int Mx, int D, int S, int F, int keep,
-    int chunk) {
+    float* __restrict__ dst, int B, int N, int M, int D, int S, int F, int keep, int chunk) {
   const int tid = threadIdx.x;
   const int kl = tid / F, f = tid - kl * F;
   const int b = blockIdx.z, n = blockIdx.y * keep + kl;
@@ -235,35 +261,22 @@ __global__ void __launch_bounds__(THREADS) tp_scalar_fwd_kernel(
   const int m0 = blockIdx.x * chunk, m1 = min(M, m0 + chunk);
   const int4 c = chan[f];
   const int k1 = c.z > 1 ? 1 : 0, k2 = c.z > 2 ? 2 : 0;   // in range for any K
-  const int k3 = c.z > 3 ? 3 : 0, k4 = c.z > 4 ? 4 : 0;   // (L = 2)
-  const T* xp = x + (size_t)b * Mx * D + c.x;
+  const T* xp = x + (size_t)b * M * D + c.x;
   const T* wp = w + ((size_t)b * N + n) * M * F + f;
   const T* sp = sh + ((size_t)b * N + n) * M * S + c.y;
-  const int* ip = IDX ? idx + ((size_t)b * N + n) * M : nullptr;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
 #pragma unroll 8
   for (int m = m0; m < m1; ++m) {
-    const int row = IDX ? __ldg(ip + m) : m;
-    const float xw = ld(xp + (size_t)row * D) * ld(wp + (size_t)m * F);
+    const float xw = ld(xp + (size_t)m * D) * ld(wp + (size_t)m * F);
     const T* s = sp + (size_t)m * S;
     a0 = fmaf(xw, ld(s), a0);
     a1 = fmaf(xw, ld(s + k1), a1);
     a2 = fmaf(xw, ld(s + k2), a2);
-    if constexpr (L == 2) {
-      a3 = fmaf(xw, ld(s + k3), a3);
-      a4 = fmaf(xw, ld(s + k4), a4);
-    }
   }
   const float sc = scale[f];
   const size_t at = ((size_t)blockIdx.x * B * N + (size_t)b * N + n) * F + f;
-  if constexpr (L == 1) {
-    reinterpret_cast<float4*>(dst)[at] =
-        make_float4(sc * a0, k1 ? sc * a1 : 0.f, k2 ? sc * a2 : 0.f, 0.f);
-  } else {
-    float4* o = reinterpret_cast<float4*>(dst) + 2 * at;
-    o[0] = make_float4(sc * a0, k1 ? sc * a1 : 0.f, k2 ? sc * a2 : 0.f, k3 ? sc * a3 : 0.f);
-    o[1] = make_float4(k4 ? sc * a4 : 0.f, 0.f, 0.f, 0.f);
-  }
+  reinterpret_cast<float4*>(dst)[at] =
+      make_float4(sc * a0, k1 ? sc * a1 : 0.f, k2 ? sc * a2 : 0.f, 0.f);
 }
 
 // Writes dx (B, M, D) in T when one split, else f32 partial sums (splits, B, M, D).
@@ -558,20 +571,18 @@ __device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
 // VEC: F a multiple of four and the rows of dw (and of w with DSH) aligned
 // to four elements; xvec: each lane's four channels read four neighbouring,
 // aligned elements of x.  No channel reads a harmonic component past P.
-// IDX: x (B, Mx, D) read at idx (B, N, M), the sender of each slot.
-template <typename T, bool DSH, bool VEC, int L, bool IDX>
+// The dense 4-lane edge backward (the 8-lane one and the sender-index mode
+// have kernels of their own).
+template <typename T, bool DSH, bool VEC>
 __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
-    const T* __restrict__ x,           // (B, M, D) sender scalars; IDX: (B, Mx, D)
+    const T* __restrict__ x,           // (B, M, D) sender scalars
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
     const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights (DSH)
-    const int* __restrict__ idx,       // (B, N, M) (IDX)
-    const float* __restrict__ g,       // (B, N, F, 4 L) upstream gradient
+    const float* __restrict__ g,       // (B, N, F, 4) upstream gradient
     const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0
     const float* __restrict__ scale,   // (F): c_p of the channel's path
-    T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int Mx, int D, int S, int F,
-    int edges, int xvec) {
-  constexpr int P = L == 1 ? P_L1 : P_L2;   // harmonic components read
-  constexpr int KK = 2 * L + 1;            // components of a channel's output
+    T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int D, int S, int F, int edges,
+    int xvec) {
   __shared__ float s_red[DSH ? EDGE_THREADS * P : 1];   // each lane's dsh partial sums
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = (F + 3) / 4;                     // lanes of one edge
@@ -601,10 +612,9 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
     const int r = e / M;                              // receiver row b * N + n
     const int seg_end = min(e_end, (r + 1) * M);
     const int x_of = (r / N) * M - r * M;             // + edge: the sender row of an edge
-    const int x_base = (r / N) * Mx;                  // IDX: + idx[edge]
     // per channel, c_p g[k] at harmonic component offset + k, 0 elsewhere
     float coef[4][P];
-    if constexpr (L == 1) {
+    {
       const float* gr = g + (r * F + 4 * j) * 4;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -616,25 +626,6 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
         for (int s = 0; s < P; ++s) {
           const int k = s - co[c];
           coef[c][s] = k == 0 ? a[0] : (k == 1 ? a[1] : (k == 2 ? a[2] : 0.f));
-        }
-      }
-    } else {
-      const float* gr = g + (r * F + 4 * j) * 8;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float a[KK];
-#pragma unroll
-        for (int k = 0; k < KK; ++k) a[k] = 0.f;
-#pragma unroll
-        for (int k = 0; k < KK; ++k)
-          if (k < ck[c]) a[k] = cs[c] * gr[c * 8 + k];
-#pragma unroll
-        for (int s = 0; s < P; ++s) {
-          const int k = s - co[c];
-          float v = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < KK; ++kk) v = k == kk ? a[kk] : v;
-          coef[c][s] = v;
         }
       }
     }
@@ -650,7 +641,7 @@ __global__ void __launch_bounds__(EDGE_THREADS) tp_scalar_bwd_edge_kernel(
 #pragma unroll
         for (int s = 0; s < P; ++s) sv[i][s] = 0.f;
         if (!live) continue;
-        const T* xr = x + (IDX ? x_base + __ldg(idx + edge) : x_of + edge) * D;
+        const T* xr = x + (x_of + edge) * D;
         if (xvec) {
           ld4(xr + cd[0], xv[i]);
         } else {
@@ -739,6 +730,7 @@ constexpr int E2_THREADS = 256;    // threads of an 8-lane edge-backward block
 constexpr int E2_WARPS = E2_THREADS / 32;
 constexpr int E2_EB = 2;           // steps of edges loaded before any is finished
 constexpr int E2_MIN_BLOCKS = 3;   // registers for three blocks an SM (at most 85 a thread)
+constexpr int E2_UNITS = 64;       // units of an edge: two a lane past 32
 
 // A unit: up to four neighbouring channels f0 .. f0 + cnt - 1 of one path,
 // reading x elements d0 .. d0 + cnt - 1 and harmonic components off .. off +
@@ -800,10 +792,15 @@ struct Raw4<__nv_bfloat16, true> {
   }
 };
 
-// A 4-byte copy from device to shared memory in flight until cp_async_wait_all.
+// A 4-byte (16-byte) copy from device to shared memory in flight until
+// cp_async_wait_all.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -956,8 +953,11 @@ __global__ void __launch_bounds__(F2_THREADS) tp_scalar_fwd_l2_kernel(
 // sum_c x w coef[c][s - off]: each lane puts its KM sums in shared memory and
 // lane (edge, s) of the warp adds that list and writes the edge's dsh row
 // (0 where no path reads), coalesced.  No atomics: reruns agree to the bit.
-template <typename T, bool DSH, bool VEC>
-__global__ void __launch_bounds__(E2_THREADS, E2_MIN_BLOCKS) tp_scalar_bwd_edge_l2_kernel(
+// UG = 2 (G up to 64 units, ns up to 64): a warp takes one edge at a time,
+// lane j its units j and j + 32, and dsh adds the same lists in the same
+// order.
+template <typename T, bool DSH, bool VEC, int UG>
+__global__ void __launch_bounds__(E2_THREADS, UG == 1 ? E2_MIN_BLOCKS : 1) tp_scalar_bwd_edge_l2_kernel(
     const T* __restrict__ x,           // (B, M, D) sender scalars
     const T* __restrict__ sh,          // (B, N, M, S) harmonics
     const T* __restrict__ w,           // (B, N, M, F) pre-masked edge weights (DSH)
@@ -968,18 +968,25 @@ __global__ void __launch_bounds__(E2_THREADS, E2_MIN_BLOCKS) tp_scalar_bwd_edge_
     const int* __restrict__ comp_item, // unit j * KM + k of each component, ascending j
     T* __restrict__ dw, T* __restrict__ dsh, int N, int M, int D, int S, int F, int G,
     int n_items, int edges) {
-  __shared__ float s_red[DSH ? E2_THREADS * KM : 1];   // each lane's dsh sums
+  __shared__ float s_red[DSH ? E2_THREADS * KM * UG : 1];   // each unit's dsh sums
   extern __shared__ int s_comp[];                     // DSH: comp_ptr, then comp_item
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int step = 32 / G;                       // edges a warp takes at once
-  const int q = lane / G, j = lane - q * G;      // the lane's edge of a step, its unit
+  const int step = UG == 1 ? 32 / G : 1;         // edges a warp takes at once
+  const int q = UG == 1 ? lane / G : 0;          // the lane's edge of a step
+  const int j = UG == 1 ? lane - q * G : lane;   // its unit (and j + 32 where UG = 2)
   const bool active = q < step;
   const bool with_dw = dw != nullptr;
-  Unit u = {0, 0, 0, 0, 0};
-  float sc = 0.f;
-  if (active) {
-    u = unit_of(units[j]);
-    sc = uscale[j];
+  Unit u[UG];
+  float sc[UG];
+#pragma unroll
+  for (int ug = 0; ug < UG; ++ug) {
+    const int jj = j + 32 * ug;
+    u[ug] = {0, 0, 0, 0, 0};
+    sc[ug] = 0.f;
+    if (active && jj < G) {
+      u[ug] = unit_of(units[jj]);
+      sc[ug] = uscale[jj];
+    }
   }
   if constexpr (DSH) {
     for (int i = threadIdx.x; i <= S; i += E2_THREADS) s_comp[i] = comp_ptr[i];
@@ -990,69 +997,79 @@ __global__ void __launch_bounds__(E2_THREADS, E2_MIN_BLOCKS) tp_scalar_bwd_edge_
   const int per = ((edges + warps - 1) / warps + step - 1) / step * step;
   const int first = (blockIdx.x * E2_WARPS + warp) * per;
   const int e_end = min(edges, first + per);
-  float* red = s_red + (warp * 32) * KM;
+  float* red = s_red + (warp * 32) * KM * UG;
 
   for (int e = first; e < e_end;) {
     const int r = e / M;                              // receiver row b * N + n
     const int seg_end = min(e_end, (r + 1) * M);
     const int x_of = (r / N) * M - r * M;             // + edge: the sender row of an edge
-    float coef[4][KM];
-    {
-      const float* gr = g + ((size_t)r * F + u.f0) * 8;
+    float coef[UG][4][KM];
+#pragma unroll
+    for (int ug = 0; ug < UG; ++ug) {
+      const float* gr = g + ((size_t)r * F + u[ug].f0) * 8;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
         for (int k = 0; k < KM; ++k)
-          coef[c][k] = c < u.cnt && k < u.K ? sc * gr[c * 8 + k] : 0.f;
+          coef[ug][c][k] = c < u[ug].cnt && k < u[ug].K ? sc[ug] * gr[c * 8 + k] : 0.f;
     }
     for (; e < seg_end; e += E2_EB * step) {
       // E2_EB steps of `step` edges of one receiver: every load issued first
-      float xv[E2_EB][4], sv[E2_EB][KM], wv[E2_EB][4];
+      float xv[E2_EB][UG][4], sv[E2_EB][UG][KM], wv[E2_EB][UG][4];
 #pragma unroll
       for (int i = 0; i < E2_EB; ++i) {
         const int edge = e + i * step + q;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) xv[i][c] = wv[i][c] = 0.f;
+        for (int ug = 0; ug < UG; ++ug) {
 #pragma unroll
-        for (int k = 0; k < KM; ++k) sv[i][k] = 0.f;
-        if (!active || edge >= seg_end) continue;
-        ld_unit<VEC>(x + (size_t)(x_of + edge) * D + u.d0, u.cnt, xv[i]);
-        if (with_dw) {
+          for (int c = 0; c < 4; ++c) xv[i][ug][c] = wv[i][ug][c] = 0.f;
 #pragma unroll
-          for (int k = 0; k < KM; ++k)
-            if (k < u.K) sv[i][k] = ld(sh + (size_t)edge * S + u.off + k);
+          for (int k = 0; k < KM; ++k) sv[i][ug][k] = 0.f;
+          if (!active || edge >= seg_end || (UG > 1 && u[ug].cnt == 0)) continue;
+          ld_unit<VEC>(x + (size_t)(x_of + edge) * D + u[ug].d0, u[ug].cnt, xv[i][ug]);
+          if (with_dw) {
+#pragma unroll
+            for (int k = 0; k < KM; ++k)
+              if (k < u[ug].K) sv[i][ug][k] = ld(sh + (size_t)edge * S + u[ug].off + k);
+          }
+          if (DSH) ld_unit<VEC>(w + (size_t)edge * F + u[ug].f0, u[ug].cnt, wv[i][ug]);
         }
-        if (DSH) ld_unit<VEC>(w + (size_t)edge * F + u.f0, u.cnt, wv[i]);
       }
 #pragma unroll
       for (int i = 0; i < E2_EB; ++i) {
         const int edge = e + i * step + q;
         const bool live = active && edge < seg_end;
-        if (with_dw && live) {
+#pragma unroll
+        for (int ug = 0; ug < UG; ++ug) {
+          if (!(with_dw && live) || (UG > 1 && u[ug].cnt == 0)) continue;
           float o[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             float t = 0.f;
 #pragma unroll
-            for (int k = 0; k < KM; ++k) t = fmaf(sv[i][k], coef[c][k], t);
-            o[c] = xv[i][c] * t;
+            for (int k = 0; k < KM; ++k) t = fmaf(sv[i][ug][k], coef[ug][c][k], t);
+            o[c] = xv[i][ug][c] * t;
           }
-          T* dst = dw + (size_t)edge * F + u.f0;
+          T* dst = dw + (size_t)edge * F + u[ug].f0;
           if constexpr (VEC) {
             st4(dst, o);
           } else {
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-              if (c < u.cnt) dst[c] = from_f<T>(o[c]);
+              if (c < u[ug].cnt) dst[c] = from_f<T>(o[c]);
           }
         }
         if constexpr (DSH) {
 #pragma unroll
-          for (int k = 0; k < KM; ++k) {
-            float a = 0.f;
+          for (int ug = 0; ug < UG; ++ug) {
+            if (UG > 1 && j + 32 * ug >= G) break;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) a = fmaf(xv[i][c] * wv[i][c], coef[c][k], a);
-            red[lane * KM + k] = a;
+            for (int k = 0; k < KM; ++k) {
+              float a = 0.f;
+#pragma unroll
+              for (int c = 0; c < 4; ++c) a = fmaf(xv[i][ug][c] * wv[i][ug][c], coef[ug][c][k], a);
+              red[(UG == 1 ? lane : j + 32 * ug) * KM + k] = a;
+            }
           }
           __syncwarp();
           const int base = e + i * step;
@@ -1069,6 +1086,202 @@ __global__ void __launch_bounds__(E2_THREADS, E2_MIN_BLOCKS) tp_scalar_bwd_edge_
       }
     }
     e = seg_end;
+  }
+}
+
+// ---- the sender-index forward and dw, both lane counts (head note) ----
+
+// Floats of a sender-index block's shared memory: a chunk of MC slots' harmonics
+// of its R receivers (R MC S, as f32); the forward at the end each
+// (receiver, slice, channel)'s KM sums over the same space, and past it each
+// channel's K and c_p (2 F).
+__host__ __device__ inline int idx_work_floats(bool dw, int R, int SL, int F, int MC, int S) {
+  const int sums = dw ? 0 : R * SL * F * KM, stage = R * MC * S;
+  return pad4(sums > stage ? sums : stage);
+}
+__host__ __device__ inline int idx_floats(bool dw, int R, int SL, int F, int MC, int S) {
+  return idx_work_floats(dw, R, SL, F, MC, S) + (dw ? 0 : 2 * F);
+}
+
+// The sender-index mode (x (B, Mx, D) read at idx (B, N, K), sh, w and dw
+// (B, N, K, .)), LANES 4 or 8.  Block: batch row blockIdx.y, receivers
+// blockIdx.x * R .. + R, all their K slots in chunks of MC (a multiple of
+// SL; one chunk on the KNN shapes).  Per chunk the block stages its slots'
+// harmonics (f32 by cp.async, bf16 converted through registers: every unit
+// of a path reads them); thread = (receiver r, slice s of SL, unit j of G),
+// j fastest, takes slots s, s + SL, ... in order, each slot's index and its
+// sender's x elements read from device memory (a unit's own elements: no
+// other thread reads them).
+//  * forward (DW false): acc[c][k] += x[idx, d0 + c] w[n, m, f0 + c] sh[n, m,
+//    off + k], w from device memory F2_U slots at a time (one access each
+//    where VEC); then the slices' sums meet in shared memory, and each
+//    (receiver, channel) adds its SL slices in order, times c_p, and writes
+//    its LANES lanes once (lanes past K zero).
+//  * dw (DW true): per receiver each thread turns c_p and g into coef[c][k]
+//    once, then per slot dw = x sum_k sh[off + k] coef[k] from its unit's K
+//    components, written once (a receiver's units of one slot side by side).
+template <typename T, int LANES, bool VEC, bool DW>
+__global__ void __launch_bounds__(F2_THREADS) tp_scalar_idx_kernel(
+    const T* __restrict__ x,           // (B, Mx, D) sender scalars
+    const T* __restrict__ sh,          // (B, N, K, S) slot harmonics
+    const T* __restrict__ w,           // (B, N, K, F) pre-masked slot weights (forward)
+    const int* __restrict__ idx,       // (B, N, K) the sender row of each slot
+    const float* __restrict__ g,       // (B, N, F, LANES) upstream gradient (dw)
+    const int4* __restrict__ units,    // (G) the lanes' units
+    const float* __restrict__ uscale,  // (G): c_p of the unit's path
+    const int4* __restrict__ chan,     // (F): x element, sh offset, K, 0 (forward)
+    const float* __restrict__ scale,   // (F): c_p of the channel's path (forward)
+    float* __restrict__ out,           // (B, N, F, LANES) (forward)
+    T* __restrict__ dw,                // (B, N, K, F) (dw)
+    int N, int K, int Mx, int D, int S, int F, int G, int R, int SL, int MC, int shq) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_sh = smem;                                 // [R][MC][S]
+  // forward: each channel's K and c_p, past the sums
+  int* s_kf = reinterpret_cast<int*>(smem + idx_work_floats(DW, R, SL, F, MC, S));
+  float* s_sc = reinterpret_cast<float*>(s_kf + F);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int rs = tid / G, j = tid - rs * G;
+  const int r = rs / SL, s = rs - r * SL;
+  const int b = blockIdx.y, n0 = blockIdx.x * R, n = n0 + r;
+  const int rows = min(R, N - n0);                    // receivers of the block
+  Unit u = {0, 0, 0, 0, 0};
+  float sc = 0.f;
+  if (r < R) {
+    u = unit_of(units[j]);
+    sc = uscale[j];
+  }
+  const bool on = r < rows;
+  const size_t row0 = ((size_t)b * N + n) * K;        // the receiver's first slot
+  float acc[4][KM];                                   // forward: sums; dw: c_p g[k]
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int k = 0; k < KM; ++k) acc[c][k] = 0.f;
+  if (DW && on) {
+    const float* gr = g + (((size_t)b * N + n) * F + u.f0) * LANES;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < KM; ++k)
+        if (c < u.cnt && k < u.K) acc[c][k] = sc * __ldg(gr + c * LANES + k);
+  }
+  if (!DW) {
+    for (int f = tid; f < F; f += nt) {
+      s_kf[f] = chan[f].z;
+      s_sc[f] = scale[f];
+    }
+  }
+  // the staging's copies: shq (f32): a receiver's run of harmonics in
+  // 16-byte pieces (its length a multiple of four and its base aligned),
+  // else one element at a time
+  for (int c0 = 0; c0 < K; c0 += MC) {
+    const int cnt = min(MC, K - c0);
+    __syncthreads();                                  // the last chunk's readers are done
+    const int per = cnt * S, perq = shq ? per / 4 : per;
+    const T* shb = sh + (((size_t)b * N + n0) * K + c0) * S;
+    for (int i = tid; i < rows * perq; i += nt) {
+      const int rr = i / perq, e = i - rr * perq;
+      float* d = s_sh + rr * MC * S;
+      const T* src = shb + (size_t)rr * K * S;
+      if constexpr (sizeof(T) == 4) {
+        if (shq) cp_async16(d + 4 * e, src + 4 * e);
+        else cp_async4(d + e, src + e);
+      } else {
+        d[e] = ld(src + e);
+      }
+    }
+    if constexpr (sizeof(T) == 4) cp_async_wait_all();
+    __syncthreads();
+    if (!on) continue;
+    const float* sr = s_sh + r * MC * S + u.off;
+    // slot mm of the chunk: the unit's x elements (at the slot's index) and
+    // K harmonic components
+    auto x_of = [&](int mm, float (&xv)[4]) {
+      const T* xg = x + ((size_t)b * Mx + __ldg(idx + row0 + c0 + mm)) * D + u.d0;
+      if constexpr (VEC) {
+        ld4(xg, xv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xv[c] = c < u.cnt ? ld(xg + c) : 0.f;
+      }
+    };
+    auto sh_of = [&](int mm, float (&sv)[KM]) {
+#pragma unroll
+      for (int k = 0; k < KM; ++k) sv[k] = k < u.K ? sr[mm * S + k] : 0.f;
+    };
+    if constexpr (!DW) {
+      const T* wr = w + row0 * F + u.f0;
+      for (int m = s; m < cnt; m += F2_U * SL) {
+        Raw4<T, VEC> wv[F2_U];                        // every load issued before any is used
+#pragma unroll
+        for (int i = 0; i < F2_U; ++i)
+          if (m + i * SL < cnt) wv[i].load(wr + (size_t)(c0 + m + i * SL) * F, u.cnt);
+#pragma unroll
+        for (int i = 0; i < F2_U; ++i) {
+          const int mm = m + i * SL;
+          if (mm >= cnt) break;
+          float wf[4], xv[4], sv[KM];
+          wv[i].get(wf);
+          x_of(mm, xv);
+          sh_of(mm, sv);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float xw = xv[c] * wf[c];
+#pragma unroll
+            for (int k = 0; k < KM; ++k) acc[c][k] = fmaf(xw, sv[k], acc[c][k]);
+          }
+        }
+      }
+    } else {
+      for (int m = s; m < cnt; m += SL) {
+        float xv[4], sv[KM], o[4];
+        x_of(m, xv);
+        sh_of(m, sv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float t = 0.f;
+#pragma unroll
+          for (int k = 0; k < KM; ++k) t = fmaf(sv[k], acc[c][k], t);
+          o[c] = xv[c] * t;
+        }
+        T* dst = dw + (row0 + c0 + m) * F + u.f0;
+        if constexpr (VEC) {
+          st4(dst, o);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < u.cnt) dst[c] = from_f<T>(o[c]);
+        }
+      }
+    }
+  }
+  if constexpr (!DW) {
+    __syncthreads();                                  // the sums take the staging space
+    if (r < R) {
+      float* dst = smem + ((size_t)(r * SL + s) * F + u.f0) * KM;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c < u.cnt)
+#pragma unroll
+          for (int k = 0; k < KM; ++k) dst[c * KM + k] = acc[c][k];
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * F; i += nt) {
+      const int rr = i / F, f = i - rr * F, nn = n0 + rr;
+      const float* p = smem + (size_t)rr * SL * F * KM + f * KM;
+      float a[KM];
+#pragma unroll
+      for (int k = 0; k < KM; ++k) a[k] = p[k];
+      for (int sl = 1; sl < SL; ++sl)
+#pragma unroll
+        for (int k = 0; k < KM; ++k) a[k] += p[(size_t)sl * F * KM + k];
+      const int Kf = s_kf[f];
+      const float c = s_sc[f];
+      float4* o = reinterpret_cast<float4*>(out + (((size_t)b * N + nn) * F + f) * LANES);
+      o[0] = make_float4(c * a[0], Kf > 1 ? c * a[1] : 0.f, Kf > 2 ? c * a[2] : 0.f,
+                         Kf > 3 ? c * a[3] : 0.f);
+      if (LANES == 8) o[1] = make_float4(Kf > 4 ? c * a[4] : 0.f, 0.f, 0.f, 0.f);
+    }
   }
 }
 
@@ -1095,22 +1308,17 @@ int sum_splits(const float* part, T* out, long long total, int splits, cudaStrea
   return (int)cudaGetLastError();
 }
 
-template <typename T, int L>
-int launch_fwd(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
-               const float* scale, float* out, float* part, int B, int N, int M, int Mx, int D,
-               int S, int F, int keep, int chunk, int splits, cudaStream_t st) {
+template <typename T>
+int launch_fwd(const void* x, const void* sh, const void* w, const int* chan, const float* scale,
+               float* out, float* part, int B, int N, int M, int D, int S, int F, int keep,
+               int chunk, int splits, cudaStream_t st) {
   const dim3 grid(splits, (N + keep - 1) / keep, B);
   const int threads = round_up_32(keep * F);
   float* dst = splits > 1 ? part : out;
-  if (idx != nullptr)
-    tp_scalar_fwd_kernel<T, L, true><<<grid, threads, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), idx,
-        reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, Mx, D, S, F, keep, chunk);
-  else if constexpr (L == 1)   // the dense L = 2 forward is tp_scalar_fwd_l2_kernel
-    tp_scalar_fwd_kernel<T, L, false><<<grid, threads, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w), nullptr,
-        reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, M, D, S, F, keep, chunk);
-  return sum_splits<float>(part, out, (long long)B * N * F * 4 * L, splits, st);
+  tp_scalar_fwd_kernel<T><<<grid, threads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sh), static_cast<const T*>(w),
+      reinterpret_cast<const int4*>(chan), scale, dst, B, N, M, D, S, F, keep, chunk);
+  return sum_splits<float>(part, out, (long long)B * N * F * 4, splits, st);
 }
 
 template <typename T, int L>
@@ -1189,40 +1397,30 @@ bool quad_aligned(const void* p, int esize) {
   return reinterpret_cast<unsigned long long>(p) % (4 * esize) == 0;
 }
 
-template <typename T, bool DSH, int L>
-int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const int* idx,
-                      const float* g, const int* chan, const float* scale, void* dw, void* dsh,
-                      int N, int M, int Mx, int D, int S, int F, int edges, bool vec, int xvec,
-                      int blocks, cudaStream_t st) {
+template <typename T, bool DSH>
+int launch_bwd_edge_t(const void* x, const void* sh, const void* w, const float* g,
+                      const int* chan, const float* scale, void* dw, void* dsh, int N, int M,
+                      int D, int S, int F, int edges, bool vec, int xvec, int blocks,
+                      cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* sht = static_cast<const T*>(sh);
   const T* wt = static_cast<const T*>(w);
   const int4* ct = reinterpret_cast<const int4*>(chan);
   T* dwt = static_cast<T*>(dw);
   T* dsht = static_cast<T*>(dsh);
-  if (idx != nullptr) {   // the sender-index mode: dw only (the entry refuses dsh)
-    if (vec)
-      tp_scalar_bwd_edge_kernel<T, false, true, L, true><<<blocks, EDGE_THREADS, 0, st>>>(
-          xt, sht, wt, idx, g, ct, scale, dwt, dsht, N, M, Mx, D, S, F, edges, xvec);
-    else
-      tp_scalar_bwd_edge_kernel<T, false, false, L, true><<<blocks, EDGE_THREADS, 0, st>>>(
-          xt, sht, wt, idx, g, ct, scale, dwt, dsht, N, M, Mx, D, S, F, edges, xvec);
-  } else if constexpr (L == 1) {   // the dense L = 2 edge backward: tp_scalar_bwd_edge_l2_kernel
-    if (vec)
-      tp_scalar_bwd_edge_kernel<T, DSH, true, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
-          xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
-    else
-      tp_scalar_bwd_edge_kernel<T, DSH, false, L, false><<<blocks, EDGE_THREADS, 0, st>>>(
-          xt, sht, wt, nullptr, g, ct, scale, dwt, dsht, N, M, M, D, S, F, edges, xvec);
-  }
+  if (vec)
+    tp_scalar_bwd_edge_kernel<T, DSH, true><<<blocks, EDGE_THREADS, 0, st>>>(
+        xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
+  else
+    tp_scalar_bwd_edge_kernel<T, DSH, false><<<blocks, EDGE_THREADS, 0, st>>>(
+        xt, sht, wt, g, ct, scale, dwt, dsht, N, M, D, S, F, edges, xvec);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int L>
-int launch_bwd_edge(const void* x, const void* sh, const void* w, const int* idx, const float* g,
+template <typename T>
+int launch_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
                     const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
-                    int M, int Mx, int D, int S, int F, int x_quads, int blocks,
-                    cudaStream_t st) {
+                    int M, int D, int S, int F, int x_quads, int blocks, cudaStream_t st) {
   const int edges = B * N * M;
   const int esize = sizeof(T);
   const bool vec = F % 4 == 0 && (dw == nullptr || quad_aligned(dw, esize)) &&
@@ -1230,17 +1428,16 @@ int launch_bwd_edge(const void* x, const void* sh, const void* w, const int* idx
   const int xvec = x_quads && D % 4 == 0 && quad_aligned(x, esize);
   blocks = std::min(blocks, (edges + EDGE_WARPS - 1) / EDGE_WARPS);
   return dsh != nullptr
-             ? launch_bwd_edge_t<T, true, L>(x, sh, w, idx, g, chan, scale, dw, dsh, N, M, Mx, D,
-                                             S, F, edges, vec, xvec, blocks, st)
-             : launch_bwd_edge_t<T, false, L>(x, sh, w, idx, g, chan, scale, dw, dsh, N, M, Mx, D,
-                                              S, F, edges, vec, xvec, blocks, st);
+             ? launch_bwd_edge_t<T, true>(x, sh, w, g, chan, scale, dw, dsh, N, M, D, S, F, edges,
+                                          vec, xvec, blocks, st)
+             : launch_bwd_edge_t<T, false>(x, sh, w, g, chan, scale, dw, dsh, N, M, D, S, F,
+                                           edges, vec, xvec, blocks, st);
 }
 
-// At L = 2 the kernel runs only in the sender-index mode (dw alone).
-template <typename T, bool DSH, int L>
+template <typename T, bool DSH>
 cudaError_t edge_occupancy(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, tp_scalar_bwd_edge_kernel<T, DSH && L == 1, true, L, L == 2>, EDGE_THREADS, 0);
+      blocks, tp_scalar_bwd_edge_kernel<T, DSH, true>, EDGE_THREADS, 0);
 }
 
 // ---- the dense 8-lane forward and edge backward: launches ----
@@ -1312,14 +1509,17 @@ int launch_bwd_edge_l2_t(const void* x, const void* sh, const void* w, const flo
   const int4* ut = reinterpret_cast<const int4*>(units);
   T* dwt = static_cast<T*>(dw);
   T* dsht = static_cast<T*>(dsh);
-  if (vec)
-    tp_scalar_bwd_edge_l2_kernel<T, DSH, true><<<blocks, E2_THREADS, bytes, st>>>(
-        xt, sht, wt, g, ut, uscale, comp_ptr, comp_item, dwt, dsht, N, M, D, S, F, G, n_items,
-        edges);
-  else
-    tp_scalar_bwd_edge_l2_kernel<T, DSH, false><<<blocks, E2_THREADS, bytes, st>>>(
-        xt, sht, wt, g, ut, uscale, comp_ptr, comp_item, dwt, dsht, N, M, D, S, F, G, n_items,
-        edges);
+#define E2_LAUNCH(V, UG)                                                                       \
+  tp_scalar_bwd_edge_l2_kernel<T, DSH, V, UG><<<blocks, E2_THREADS, bytes, st>>>(              \
+      xt, sht, wt, g, ut, uscale, comp_ptr, comp_item, dwt, dsht, N, M, D, S, F, G, n_items, edges)
+  if (G <= 32) {
+    if (vec) E2_LAUNCH(true, 1);
+    else E2_LAUNCH(false, 1);
+  } else {
+    if (vec) E2_LAUNCH(true, 2);
+    else E2_LAUNCH(false, 2);
+  }
+#undef E2_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -1342,32 +1542,60 @@ int launch_bwd_edge_l2(const void* x, const void* sh, const void* w, const float
 }
 
 template <typename T, bool DSH>
-int e2_blocks_per_sm_t(int vec, int S, int n_items) {
+int e2_blocks_per_sm_t(int vec, int S, int n_items, int G) {
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks,
-      vec ? tp_scalar_bwd_edge_l2_kernel<T, DSH, true>
-          : tp_scalar_bwd_edge_l2_kernel<T, DSH, false>,
+      G <= 32 ? (vec ? tp_scalar_bwd_edge_l2_kernel<T, DSH, true, 1>
+                     : tp_scalar_bwd_edge_l2_kernel<T, DSH, false, 1>)
+              : (vec ? tp_scalar_bwd_edge_l2_kernel<T, DSH, true, 2>
+                     : tp_scalar_bwd_edge_l2_kernel<T, DSH, false, 2>),
       E2_THREADS, e2_bytes(DSH, S, n_items));
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// The extern "C" entry points of lane count L (below), shared by both.  A
-// null idx (or order and ptr) is the dense mode, Mx = M.
-template <int L>
-int fwd_entry(const void* x, const void* sh, const void* w, const int* idx, const int* chan,
-              const float* scale, float* out, float* part, int B, int N, int M, int Mx, int D,
-              int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
-  if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, M, part) ||
-      (N + keep - 1) / keep > 65535 || Mx < 1 || (idx == nullptr && Mx != M) ||
-      (L == 2 && idx == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<__nv_bfloat16, L>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx,
-                                             D, S, F, keep, chunk, splits, st)
-              : launch_fwd<float, L>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx, D, S, F,
-                                     keep, chunk, splits, st);
+// ---- the sender-index forward and dw: launches ----
+
+size_t idx_bytes(bool dw, int R, int SL, int F, int MC, int S) {
+  return sizeof(float) * (size_t)idx_floats(dw, R, SL, F, MC, S);
 }
+
+bool bad_idx(int lanes, int F, int G, int R, int SL, int MC, int S, int D, bool dw) {
+  return (lanes != 4 && lanes != 8) || F < 1 || G < 1 || G > F || R < 1 || SL < 1 ||
+         (long long)R * SL * G > F2_THREADS || MC < SL || MC % SL != 0 || S < 1 || D < 1 ||
+         idx_bytes(dw, R, SL, F, MC, S) > 48 * 1024;
+}
+
+template <typename T, int LANES, bool DW>
+int launch_idx(const void* x, const void* sh, const void* w, const int* idx, const float* g,
+               const int* units, const float* uscale, const int* chan, const float* scale,
+               float* out, void* dw, int B, int N, int K, int Mx, int D, int S, int F, int G,
+               int R, int SL, int MC, int vec_units, cudaStream_t st) {
+  const dim3 grid((N + R - 1) / R, B);
+  const int threads = f2_threads(R, SL, G);
+  const size_t bytes = idx_bytes(DW, R, SL, F, MC, S);
+  const T* xt = static_cast<const T*>(x);
+  const T* sht = static_cast<const T*>(sh);
+  const T* wt = static_cast<const T*>(w);
+  const int4* ut = reinterpret_cast<const int4*>(units);
+  const int4* ct = reinterpret_cast<const int4*>(chan);
+  T* dwt = static_cast<T*>(dw);
+  // f32 harmonics of a receiver (K S elements from a multiple of K S) in
+  // 16-byte pieces where every chunk's run allows
+  const int shq = sizeof(T) == 4 && (K * S) % 4 == 0 && (MC * S) % 4 == 0 &&
+                  quad_aligned(sh, sizeof(T));
+  if (unit_vec(vec_units, F, D, sizeof(T), DW ? dw : w, x, nullptr))
+    tp_scalar_idx_kernel<T, LANES, true, DW><<<grid, threads, bytes, st>>>(
+        xt, sht, wt, idx, g, ut, uscale, ct, scale, out, dwt, N, K, Mx, D, S, F, G, R, SL, MC,
+        shq);
+  else
+    tp_scalar_idx_kernel<T, LANES, false, DW><<<grid, threads, bytes, st>>>(
+        xt, sht, wt, idx, g, ut, uscale, ct, scale, out, dwt, N, K, Mx, D, S, F, G, R, SL, MC,
+        shq);
+  return (int)cudaGetLastError();
+}
+
+// The extern "C" entry points of lane count L (below), shared by both.
 
 template <int L>
 int bwd_x_entry(const void* sh, const void* w, const float* g, const int* chan,
@@ -1404,36 +1632,7 @@ int bwd_x_idx_entry(const void* sh, const void* w, const float* g, const int* ch
                                            keep, blocks, st);
 }
 
-template <int L>
-int bwd_edge_entry(const void* x, const void* sh, const void* w, const int* idx, const float* g,
-                   const int* chan, const float* scale, void* dw, void* dsh, int B, int N, int M,
-                   int Mx, int D, int S, int F, int reach, int x_quads, int blocks, int bf16,
-                   void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
-      reach > (L == 1 ? P_L1 : P_L2) || reach > S || blocks < 1 ||
-      (dw == nullptr && dsh == nullptr) || Mx < 1 || (idx == nullptr && Mx != M) ||
-      (idx != nullptr && dsh != nullptr) || (L == 2 && idx == nullptr) ||
-      (long long)B * N * M * std::max(F, S) + (long long)B * std::max(M, Mx) * D >= INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd_edge<__nv_bfloat16, L>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M,
-                                                  Mx, D, S, F, x_quads, blocks, st)
-              : launch_bwd_edge<float, L>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M, Mx, D,
-                                          S, F, x_quads, blocks, st);
-}
-
-template <int L>
-int edge_blocks_entry(int dsh, int bf16) {
-  if (L == 2 && dsh) return -(int)cudaErrorInvalidValue;
-  int blocks = 0;
-  const cudaError_t err = bf16 ? (dsh ? edge_occupancy<__nv_bfloat16, true, L>(&blocks)
-                                      : edge_occupancy<__nv_bfloat16, false, L>(&blocks))
-                               : (dsh ? edge_occupancy<float, true, L>(&blocks)
-                                      : edge_occupancy<float, false, L>(&blocks));
-  return err == cudaSuccess ? blocks : -(int)err;
-}
-
-// dx: 0 the forward, 1 the dense dx, 2 the sender-index dx (chunks).
+// dx: 0 the dense 4-lane forward, 1 the dense dx, 2 the sender-index dx (chunks).
 template <int L>
 int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
   if (F < 1 || F > THREADS) return -(int)cudaErrorInvalidValue;
@@ -1444,18 +1643,19 @@ int blocks_entry(int dx, int F, int D, int n_items, int bf16) {
   if (dx == 2) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tp_scalar_bwd_x_idx_chunks,
                                                         threads, 0);
-  } else if (dx) {   // L = 2 has a dx kernel of its own (dp_tp_scalar_bwd_x_l2_blocks_per_sm)
-    if constexpr (L != 1) return -(int)cudaErrorInvalidValue;
+  } else if constexpr (L != 1) {   // L = 2: forward and dx are kernels of their own
+    return -(int)cudaErrorInvalidValue;
+  } else if (dx) {
     const size_t bytes = bwd_x_smem(keep, F, D, n_items);
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &blocks, tp_scalar_bwd_x_kernel<__nv_bfloat16, 1>, threads, bytes)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &blocks, tp_scalar_bwd_x_kernel<float, 1>, threads, bytes);
-  } else {   // at L = 2 the sender-index forward's (the dense one is tp_scalar_fwd_l2_kernel)
+  } else {
     err = bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16, L, L == 2>, threads, 0)
+                     &blocks, tp_scalar_fwd_kernel<__nv_bfloat16>, threads, 0)
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &blocks, tp_scalar_fwd_kernel<float, L, L == 2>, threads, 0);
+                     &blocks, tp_scalar_fwd_kernel<float>, threads, 0);
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -1468,16 +1668,20 @@ extern "C" {
 // accepted.  `bf16` selects the operands' type (x, sh, w and the gradients
 // written in it): 0 f32, 1 bf16.
 
-// Every path of a convolution: out (B, N, F, 4) f32; `part` holds (splits, B,
-// N, F, 4) floats when the senders are split (splits > 1), else it is not
-// read.  Senders [k * chunk, (k + 1) * chunk) go to split k.  Sender-index
-// mode: idx (B, N, M) int32, x (B, Mx, D); dense: idx null, Mx = M.
-int dp_tp_scalar_fwd(const void* x, const void* sh, const void* w, const int* idx,
-                     const int* chan, const float* scale, float* out, float* part, int B, int N,
-                     int M, int Mx, int D, int S, int F, int keep, int chunk, int splits, int bf16,
-                     void* stream) {
-  return fwd_entry<1>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx, D, S, F, keep, chunk,
-                      splits, bf16, stream);
+// Every path of a dense 4-lane convolution: out (B, N, F, 4) f32; `part`
+// holds (splits, B, N, F, 4) floats when the senders are split (splits > 1),
+// else it is not read.  Senders [k * chunk, (k + 1) * chunk) go to split k.
+int dp_tp_scalar_fwd(const void* x, const void* sh, const void* w, const int* chan,
+                     const float* scale, float* out, float* part, int B, int N, int M, int D,
+                     int S, int F, int keep, int chunk, int splits, int bf16, void* stream) {
+  if (bad_conv_shape(B, N, M, D, S, F, keep, chunk, splits, M, part) ||
+      (N + keep - 1) / keep > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep,
+                                          chunk, splits, st)
+              : launch_fwd<float>(x, sh, w, chan, scale, out, part, B, N, M, D, S, F, keep, chunk,
+                                  splits, st);
 }
 
 // dx (B, M, D) of every path of a convolution, in the operands' type; `part`
@@ -1504,24 +1708,37 @@ int dp_tp_scalar_bwd_x_idx(const void* sh, const void* w, const float* g, const 
 }
 
 // dw (B, N, M, F) into `dw` (nullptr: none) and dsh (B, N, M, S) into `dsh`
-// (nullptr: none) of every path of a convolution, in the operands' type, in
-// one launch of at most `blocks` blocks.  `reach`: one past the last
-// harmonic component any channel reads, at most P; dsh's later components
-// are written as 0.  `x_quads`: channels 4i..4i+3 read elements d..d+3 of
-// x, d a multiple of four, for every i (then x is read four elements at a
-// time where its base allows).  Sender-index mode: idx (B, N, M) int32, x
-// (B, Mx, D), dw only.
-int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const int* idx,
-                          const float* g, const int* chan, const float* scale, void* dw,
-                          void* dsh, int B, int N, int M, int Mx, int D, int S, int F, int reach,
-                          int x_quads, int blocks, int bf16, void* stream) {
-  return bwd_edge_entry<1>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M, Mx, D, S, F, reach,
-                           x_quads, blocks, bf16, stream);
+// (nullptr: none) of every path of a dense 4-lane convolution, in the
+// operands' type, in one launch of at most `blocks` blocks.  `reach`: one
+// past the last harmonic component any channel reads, at most P; dsh's later
+// components are written as 0.  `x_quads`: channels 4i..4i+3 read elements
+// d..d+3 of x, d a multiple of four, for every i (then x is read four
+// elements at a time where its base allows).
+int dp_tp_scalar_bwd_edge(const void* x, const void* sh, const void* w, const float* g,
+                          const int* chan, const float* scale, void* dw, void* dsh, int B, int N,
+                          int M, int D, int S, int F, int reach, int x_quads, int blocks, int bf16,
+                          void* stream) {
+  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || reach < 1 ||
+      reach > P || reach > S || blocks < 1 || (dw == nullptr && dsh == nullptr) ||
+      (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd_edge<__nv_bfloat16>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F,
+                                               x_quads, blocks, st)
+              : launch_bwd_edge<float>(x, sh, w, g, chan, scale, dw, dsh, B, N, M, D, S, F,
+                                       x_quads, blocks, st);
 }
 
 // Blocks of the edge backward that one SM holds at once (dsh: with dsh), or
 // minus a cudaError_t value.
-int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) { return edge_blocks_entry<1>(dsh, bf16); }
+int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) {
+  int blocks = 0;
+  const cudaError_t err = bf16 ? (dsh ? edge_occupancy<__nv_bfloat16, true>(&blocks)
+                                      : edge_occupancy<__nv_bfloat16, false>(&blocks))
+                               : (dsh ? edge_occupancy<float, true>(&blocks)
+                                      : edge_occupancy<float, false>(&blocks));
+  return err == cudaSuccess ? blocks : -(int)err;
+}
 
 // Blocks of the forward (dx = 0), dense dx (1) or sender-index dx (2, its
 // chunk kernel) that one SM holds at once for a convolution of F
@@ -1529,15 +1746,6 @@ int dp_tp_scalar_bwd_edge_blocks_per_sm(int dsh, int bf16) { return edge_blocks_
 // (channel, element) pairs, or minus a cudaError_t value.
 int dp_tp_scalar_blocks_per_sm(int dx, int F, int D, int n_items, int bf16) {
   return blocks_entry<1>(dx, F, D, n_items, bf16);
-}
-
-// The same six functions at L = 2: g and out (B, N, F, 8), K <= 5, reach <= 9.
-int dp_tp_scalar_fwd_l2(const void* x, const void* sh, const void* w, const int* idx,
-                        const int* chan, const float* scale, float* out, float* part, int B,
-                        int N, int M, int Mx, int D, int S, int F, int keep, int chunk,
-                        int splits, int bf16, void* stream) {
-  return fwd_entry<2>(x, sh, w, idx, chan, scale, out, part, B, N, M, Mx, D, S, F, keep, chunk,
-                      splits, bf16, stream);
 }
 
 // The 8-lane dx: a block per (receiver split, run of `run` senders, batch
@@ -1576,18 +1784,6 @@ int dp_tp_scalar_bwd_x_idx_l2(const void* sh, const void* w, const float* g, con
                            int keep, int blocks, int bf16, void* stream) {
   return bwd_x_idx_entry<2>(sh, w, g, chan, scale, d_ptr, d_item, order, cuts, row_ptr, dx, y,
                             part, B, N, M, Mx, D, S, F, keep, blocks, bf16, stream);
-}
-
-int dp_tp_scalar_bwd_edge_l2(const void* x, const void* sh, const void* w, const int* idx,
-                             const float* g, const int* chan, const float* scale, void* dw,
-                             void* dsh, int B, int N, int M, int Mx, int D, int S, int F,
-                             int reach, int x_quads, int blocks, int bf16, void* stream) {
-  return bwd_edge_entry<2>(x, sh, w, idx, g, chan, scale, dw, dsh, B, N, M, Mx, D, S, F, reach,
-                           x_quads, blocks, bf16, stream);
-}
-
-int dp_tp_scalar_bwd_edge_blocks_per_sm_l2(int dsh, int bf16) {
-  return edge_blocks_entry<2>(dsh, bf16);
 }
 
 int dp_tp_scalar_blocks_per_sm_l2(int dx, int F, int D, int n_items, int bf16) {
@@ -1630,15 +1826,15 @@ int dp_tp_scalar_fwd_l2_dense_blocks_per_sm(int R, int SL, int G, int F, int MC,
 // The dense 8-lane edge backward (tp_scalar_bwd_edge_l2_kernel): dw into `dw`
 // (nullptr: none) and dsh (B, N, M, S) into `dsh` (nullptr: none), in the
 // operands' type, in one launch of at most `blocks` blocks of E2_THREADS;
-// lane = unit (G <= 32), `uscale` (G) its c_p; dsh component s sums the
+// lane = unit (G <= 32; up to 64, two a lane), `uscale` (G) its c_p; dsh component s sums the
 // units comp_item[comp_ptr[s] .. comp_ptr[s + 1]) (j * 5 + k each).
 int dp_tp_scalar_bwd_edge_l2_dense(const void* x, const void* sh, const void* w, const float* g,
                                    const int* units, const float* uscale, const int* comp_ptr,
                                    const int* comp_item, void* dw, void* dsh, int B, int N, int M,
                                    int D, int S, int F, int G, int n_items, int vec_units,
                                    int blocks, int bf16, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || F > EDGE_F_MAX || G < 1 || G > 32 ||
-      G > F || n_items < 0 || blocks < 1 || (dw == nullptr && dsh == nullptr) ||
+  if (B < 1 || N < 1 || M < 1 || D < 1 || S < 1 || F < 1 || G < 1 || G > E2_UNITS || G > F ||
+      n_items < 0 || blocks < 1 || (dw == nullptr && dsh == nullptr) ||
       (dsh != nullptr && (comp_ptr == nullptr || comp_item == nullptr)) ||
       (long long)B * N * M * std::max(F, S) + (long long)B * M * D >= INT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -1652,18 +1848,59 @@ int dp_tp_scalar_bwd_edge_l2_dense(const void* x, const void* sh, const void* w,
 }
 
 // Bytes of shared memory a block of the dense 8-lane edge backward takes:
-// each lane's KM dsh sums and, dynamic, the component lists (with dsh).
-int dp_tp_scalar_bwd_edge_l2_dense_smem(int dsh, int S, int n_items) {
-  return (int)(sizeof(float) * (dsh ? E2_THREADS * KM : 1) + e2_bytes(dsh, S, n_items));
+// each unit's KM dsh sums (two units a lane where G > 32) and, dynamic, the
+// component lists (with dsh).
+int dp_tp_scalar_bwd_edge_l2_dense_smem(int dsh, int S, int n_items, int G) {
+  return (int)(sizeof(float) * (dsh ? E2_THREADS * KM * (G > 32 ? 2 : 1) : 1) +
+               e2_bytes(dsh, S, n_items));
 }
 
-// Blocks of the dense 8-lane edge backward that one SM holds at once (dsh:
-// with dsh, S components and n_items list entries), or minus a cudaError_t.
-int dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(int dsh, int vec, int S, int n_items, int bf16) {
-  return bf16 ? (dsh ? e2_blocks_per_sm_t<__nv_bfloat16, true>(vec, S, n_items)
-                     : e2_blocks_per_sm_t<__nv_bfloat16, false>(vec, S, n_items))
-              : (dsh ? e2_blocks_per_sm_t<float, true>(vec, S, n_items)
-                     : e2_blocks_per_sm_t<float, false>(vec, S, n_items));
+// Blocks of the dense 8-lane edge backward of G units that one SM holds at
+// once (dsh: with dsh, S components and n_items list entries), or minus a
+// cudaError_t.
+int dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(int dsh, int vec, int S, int n_items, int G,
+                                                 int bf16) {
+  return bf16 ? (dsh ? e2_blocks_per_sm_t<__nv_bfloat16, true>(vec, S, n_items, G)
+                     : e2_blocks_per_sm_t<__nv_bfloat16, false>(vec, S, n_items, G))
+              : (dsh ? e2_blocks_per_sm_t<float, true>(vec, S, n_items, G)
+                     : e2_blocks_per_sm_t<float, false>(vec, S, n_items, G));
+}
+
+// The sender-index forward (dw = 0: out (B, N, F, lanes) f32) or dw (dw =
+// 1: dw (B, N, K, F) in the operands' type) of every path of a convolution,
+// lanes 4 or 8 (tp_scalar_idx_kernel): a block per (R receivers, batch row)
+// of round_up_32(R * SL * G) threads, each receiver's K slots split over SL
+// slices of G lanes and staged MC at a time (a multiple of SL).  `units` (G)
+// and `uscale` from tp_scalar.units_l2; chan and scale (the forward's) from
+// its conv tables; `vec_units`: the units' four-channel check held.
+int dp_tp_scalar_idx(const void* x, const void* sh, const void* w, const int* idx, const float* g,
+                     const int* units, const float* uscale, const int* chan, const float* scale,
+                     float* out, void* dw, int B, int N, int K, int Mx, int D, int S, int F,
+                     int G, int R, int SL, int MC, int vec_units, int lanes, int want_dw, int bf16,
+                     void* stream) {
+  const bool d = want_dw != 0;
+  if (B < 1 || B > 65535 || N < 1 || K < 1 || Mx < 1 || idx == nullptr ||
+      bad_idx(lanes, F, G, R, SL, MC, S, D, d) || (d ? (dw == nullptr || g == nullptr)
+                                                      : (w == nullptr || out == nullptr)) ||
+      (long long)B * N * K * std::max(F, S) + (long long)B * Mx * D >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define IDX_LAUNCH(TT, LN, DWF)                                                               \
+  launch_idx<TT, LN, DWF>(x, sh, w, idx, g, units, uscale, chan, scale, out, dw, B, N, K, Mx, D, \
+                          S, F, G, R, SL, MC, vec_units, st)
+  if (lanes == 4) {
+    if (d) return bf16 ? IDX_LAUNCH(__nv_bfloat16, 4, true) : IDX_LAUNCH(float, 4, true);
+    return bf16 ? IDX_LAUNCH(__nv_bfloat16, 4, false) : IDX_LAUNCH(float, 4, false);
+  }
+  if (d) return bf16 ? IDX_LAUNCH(__nv_bfloat16, 8, true) : IDX_LAUNCH(float, 8, true);
+  return bf16 ? IDX_LAUNCH(__nv_bfloat16, 8, false) : IDX_LAUNCH(float, 8, false);
+#undef IDX_LAUNCH
+}
+
+// Bytes of shared memory a block of the sender-index forward (dw 0) or dw
+// (1) takes.
+int dp_tp_scalar_idx_smem(int dw, int R, int SL, int F, int MC, int S) {
+  return (int)idx_bytes(dw != 0, R, SL, F, MC, S);
 }
 
 const char* dp_cuda_error_string(int code) {

@@ -53,6 +53,13 @@ built by the autograd forward), loads only the live ones (the forward's
 live bits), and a second kernel adds each sender's chunks in order.
 ``FWD_IDX``, ``BWD_EDGE_IDX`` and ``BWD_X_IDX`` count the 4-lane launches,
 the ``*_IDX_L2`` counters the 8-lane ones.
+
+Widths.  A 4-lane row wider than ``SPLIT_F_MAX`` channels takes the tiled
+forward and dx at 4 lanes (:func:`tiled`; counted by ``FWD`` and
+``BWD_X``); the dense 8-lane edge backward takes fewer senders a block
+where 32 would not fit (:func:`edge_slots_l2`).  :func:`check_shapes` gives
+what each launch of a convolution needs from its shapes alone (no card)
+and raises, naming the limit, on what the kernels do not take.
 """
 
 from __future__ import annotations
@@ -66,8 +73,8 @@ import torch
 
 from . import build
 from .tensor_product import ChannelwiseTP
-from .tp_fused import (K_PAD, K_PAD_L2, MAX_F_L2, MAX_PATHS_L2, TARGET_BLOCKS, TILE_N,
-                       _check_tp, _device_tables, _device_tables_tiled_l2, _Kernel, _ptr,
+from .tp_fused import (K_PAD, K_PAD_L2, MAX_PATHS_L2, SMEM, TARGET_BLOCKS, TILE_N, _check_tp,
+                       _device_tables, _device_tables_tiled_l2, _Kernel, _pad4, _ptr,
                        check_index, counter, coupling, device_tables_l2, lanes,
                        padded_from_blocks, sender_lists, tables_l2, tables_tiled_l2)
 from .tp_scalar import slot_chunks
@@ -87,6 +94,9 @@ BWD_EDGE_IDX_L2 = _Kernel()
 BWD_X_IDX_L2 = _Kernel()
 KEEP = 8               # receivers (forward) or senders (dx) one block keeps (both lane counts)
 TILE_SUM = 4           # entries of the summed axis in one tile of a block
+SPLIT_F_MAX = 256      # widest 4-lane row the split forward and dx take (a thread pair a channel)
+IDX_THREADS = 384      # most threads of a sender-index dw or dx block (a channel a thread)
+IDX_XC = 3             # channels a thread of the sender-index dx takes at most
 
 
 def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
@@ -98,6 +108,15 @@ def tp_aggregate_plain(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     and w.  ``sender_index``: the sender-index mode (module note)."""
     _check_tp(tp)
     return padded_from_blocks(tp, tp.aggregate(x, sh, w, sender_index))
+
+
+@functools.lru_cache(maxsize=None)
+def tiled(tp: ChannelwiseTP) -> bool:
+    """True when the dense forward and dx run the tiled kernels (by channel
+    tile of :func:`tp_fused.channel_tiles`, on the live pass's bits): at 8
+    lanes always, at 4 lanes where a row is wider than the split kernels'
+    ``SPLIT_F_MAX`` channels."""
+    return lanes(tp) == K_PAD_L2 or tp.weight_numel > SPLIT_F_MAX
 
 
 @functools.lru_cache(maxsize=None)
@@ -405,24 +424,47 @@ IDX_EDGE_SLOTS = 32  # slots a block of the sender-index dw takes: a receiver's 
 
 
 @functools.lru_cache(maxsize=None)
-def plan_edge_receivers(B: int, N: int, M: int, target: int = 2 * TARGET_BLOCKS) -> int:
+def plan_edge_receivers(B: int, N: int, M: int, target: int = 2 * TARGET_BLOCKS,
+                        slots: int = EDGE_SLOTS) -> int:
     """Receivers a block of the dense 8-lane edge backward takes, one after
     another: the most (up to ``EDGE_RN_MAX``) that still leave ``target``
-    blocks of (``EDGE_SLOTS`` senders, receivers, batch row), so that the
+    blocks of (``slots`` senders, receivers, batch row), so that the
     chunk's x rows are staged once for them."""
-    units = B * N * -(-M // EDGE_SLOTS)
+    units = B * N * -(-M // slots)
     return max(1, min(EDGE_RN_MAX, N, units // target))
 
 
-def edge_grid_l2(B: int, N: int, M: int, indexed: bool = False) -> Tuple[int, int]:
+def edge_smem_l2(need_dsh: bool, D: int, F: int, PT: int, PS: int, slots: int) -> int:
+    """Bytes of shared memory a block of the dense 8-lane edge backward
+    takes (``edge_layout`` in csrc/tp_aggregate.cu)."""
+    return 4 * (_pad4(PT) + slots * ((D | 1) + (F | 1) + 13) + (PS if need_dsh else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def edge_slots_l2(tp: ChannelwiseTP, need_dsh: bool) -> int:
+    """Senders a block of the dense 8-lane edge backward takes:
+    ``EDGE_SLOTS`` (lane = sender), or, where their x and w rows would not
+    fit the block's shared memory beside the receiver's P, the most of 24,
+    16 and 8 that do."""
+    _, _, _, (PT, PS, _, _) = path_tables_l2(tp)
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    for slots in (EDGE_SLOTS, 24, 16, 8):
+        if edge_smem_l2(need_dsh, D, F, PT, PS, slots) <= SMEM:
+            return slots
+    raise ValueError(f"tp_aggregate: D = {D}, F = {F}: the 8-lane edge backward's block needs "
+                     f"more than the {SMEM} bytes of shared memory it has")
+
+
+def edge_grid_l2(B: int, N: int, M: int, indexed: bool = False,
+                 slots: int = EDGE_SLOTS) -> Tuple[int, int]:
     """(blocks, receivers a block) of an edge-backward launch: dense at 8
-    lanes a block per (sender chunk of ``EDGE_SLOTS``, run of receivers,
-    batch row); in the sender-index mode a block per (``IDX_EDGE_SLOTS``
-    slots, receiver, batch row)."""
+    lanes a block per (sender chunk of ``slots``, run of receivers, batch
+    row); in the sender-index mode a block per (``IDX_EDGE_SLOTS`` slots,
+    receiver, batch row)."""
     if indexed:
         return -(-M // IDX_EDGE_SLOTS) * N * B, 1
-    rn = plan_edge_receivers(B, N, M)
-    return -(-M // EDGE_SLOTS) * -(-N // rn) * B, rn
+    rn = plan_edge_receivers(B, N, M, slots=slots)
+    return -(-M // slots) * -(-N // rn) * B, rn
 
 
 @functools.lru_cache(maxsize=None)
@@ -500,10 +542,10 @@ def layout_sizes_l2(tp: ChannelwiseTP, dx: bool) -> Tuple[int, ...]:
 
 @functools.lru_cache(maxsize=None)
 def _resident_blocks_l2(tp: ChannelwiseTP, dx: bool, device: str, bf16: bool) -> int:
-    """Blocks of the 8-lane tiled forward (or dx) the card holds at once at
-    this convolution's channel tiles and operand type."""
+    """Blocks of the tiled forward (or dx) the card holds at once at this
+    convolution's channel tiles, lanes and operand type."""
     per_sm = _library().dp_tp_aggregate_l2_blocks_per_sm(int(dx), *layout_sizes_l2(tp, dx),
-                                                         int(bf16))
+                                                         lanes(tp), int(bf16))
     _raise_on(max(0, -per_sm), "tp_aggregate_l2 occupancy query")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -579,6 +621,88 @@ def _w_unit_l2(tp: ChannelwiseTP, w: torch.Tensor) -> int:
     return unit if unit >= 4 else 0
 
 
+def split_smem(dx: bool, F: int, D: int, n_paths: int, n_items: int, esize: int) -> int:
+    """Bytes of shared memory a block of the 4-lane split forward (dx False)
+    or dx takes (``split_layout`` in csrc/tp_aggregate.cu)."""
+    per = 16 // esize
+    stage = _pad4(32 * (-(-F // per) * per) * esize // 4 + 32 * 12
+                  + (TILE_SUM * 4 * F if dx else TILE_SUM * _pad4(D)))
+    return 4 * (2 * stage + 32 * n_paths * 12 + _pad4(n_paths * 45) + 16 + 32
+                + (_pad4(D + 1) + _pad4(n_items) if dx else 0))
+
+
+def tiled_smem(dx: bool, FTP: int, DXW: int, TS: int, GS: int, PC: int, NI: int, esize: int,
+               idx: bool = False) -> int:
+    """Bytes of shared memory a block of the tiled forward (dx False, the
+    sender-index forward with ``idx``) or dx takes (``t2_layout``)."""
+    side = 4 * FTP * 5 if dx else (32 if idx else 4) * DXW * esize // 4
+    stage = _pad4(32 * FTP * esize // 4 + 32 * 13 + side)
+    floats = (2 * stage + _pad4(32 * TS) + _pad4(GS) + _pad4(PC * 8) + _pad4(PC * 5) + 8 * 32
+              + 256 + 260 + (_pad4(DXW + 1) + _pad4(NI) if dx else 0) + (8 * 64 if idx else 0))
+    return 4 * (max(floats, 8 * 5 * (FTP | 1)) if dx else floats)
+
+
+def idx_dx_smem(D: int, F: int, n_paths: int, TS: int, GS: int, n_items: int, esize: int,
+                k_pad: int) -> int:
+    """Bytes of shared memory a block of the sender-index dx's chunk kernel
+    takes (``xi_layout``)."""
+    per = 16 // esize
+    stage = _pad4(4 * (-(-F // per) * per) * esize // 4 + _pad4(4 * 13) + 4 * F * 4
+                  + (4 * F if k_pad == K_PAD_L2 else 0))
+    floats = 2 * stage + _pad4(4 * TS) + _pad4(GS) + _pad4(n_paths * 5) + 36
+    return 4 * (max(floats, _pad4(5 * F)) + _pad4(D + 1) + _pad4(n_items))
+
+
+def check_shapes(tp: ChannelwiseTP, esize: int, indexed: bool = False,
+                 need_dsh: bool = False) -> dict:
+    """What the K2 launches of a convolution need, from its shapes alone (no
+    card): the shared memory a block of each kernel takes, by kernel
+    (``fwd``, ``bwd_edge``, ``bwd_x``); raises where a kernel does not take
+    the convolution (the limit in the message).  ``indexed``: the
+    sender-index mode (dw only), else dense, with dsh where ``need_dsh``."""
+    _check_tp(tp)
+    k_pad, D, F, n_paths = lanes(tp), tp.irreps_in.dim, tp.weight_numel, len(tp.paths)
+    if k_pad == K_PAD_L2 and n_paths > MAX_PATHS_L2:
+        raise ValueError(f"tp_aggregate: at most {MAX_PATHS_L2} paths")
+    out = {}
+    if indexed or tiled(tp):
+        *_, dims = tables_tiled_l2(tp)
+        out["fwd"] = tiled_smem(False, dims[4], *dims[:4], 0, esize, indexed)
+    else:
+        if n_paths > 16:
+            raise ValueError("tp_aggregate: at most 16 paths")
+        out["fwd"] = split_smem(False, F, D, n_paths, len(_backward_tables(tp)[2]), esize)
+    if indexed:
+        if F > IDX_XC * IDX_THREADS:
+            raise ValueError(f"tp_aggregate: F = {F}: the sender-index dx takes at most "
+                             f"{IDX_XC * IDX_THREADS} channels")
+        _, _, _, (_, _, TS, GS) = path_tables_l2(tp)
+        out["bwd_edge"] = 0
+        out["bwd_x"] = idx_dx_smem(D, F, n_paths, TS, GS, len(_backward_tables(tp, 8)[2]), esize,
+                                   k_pad)
+    else:
+        if k_pad == K_PAD_L2:
+            _, _, _, (PT, PS, _, _) = path_tables_l2(tp)
+            out["bwd_edge"] = edge_smem_l2(need_dsh, D, F, PT, PS, edge_slots_l2(tp, need_dsh))
+        elif need_dsh:
+            n_seg = len(_dsh_segments(tp)[1])
+            S = tp.irreps_sh.dim
+            out["bwd_edge"] = 4 * (F * 16 + 32 * ((F | 1) + (D | 1) + 13) + n_paths * 32 * 5
+                                   + _pad4(S + 1) + n_seg * 2)
+        else:
+            out["bwd_edge"] = 4 * (n_paths * 45 + TILE_N * EDGE_SENDERS[0] * 12
+                                   + EDGE_SENDERS[0] * D)
+        if tiled(tp):
+            out["bwd_x"] = tiled_smem(True, *layout_sizes_l2(tp, True), esize)
+        else:
+            out["bwd_x"] = split_smem(True, F, D, n_paths, len(_backward_tables(tp)[2]), esize)
+    for kernel, smem in out.items():
+        if smem > SMEM:
+            raise ValueError(f"tp_aggregate: the {kernel} kernel's block needs {smem} bytes of "
+                             f"shared memory, more than the {SMEM} it has")
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_aggregate")
@@ -590,17 +714,17 @@ def _library() -> ctypes.CDLL:
     lib.dp_tp_aggregate_fwd_idx_tiled.argtypes = [p] * 12 + [i] * 17 + [p]
     lib.dp_tp_aggregate_idx_fwd_smem.argtypes = [i] * 6
     lib.dp_tp_aggregate_idx_fwd_blocks_per_sm.argtypes = [i] * 7
-    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 14 + [i] * 12 + [p]
+    lib.dp_tp_aggregate_bwd_edge_l2.argtypes = [p] * 14 + [i] * 13 + [p]
     lib.dp_tp_aggregate_bwd_edge_idx.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.dp_tp_aggregate_bwd_x_idx_l2.argtypes = [p] * 15 + [i] * 15 + [p]
-    lib.dp_tp_aggregate_fwd_l2_tiled.argtypes = [p] * 11 + [i] * 15 + [p]
-    lib.dp_tp_aggregate_bwd_x_l2_tiled.argtypes = [p] * 13 + [i] * 16 + [p]
+    lib.dp_tp_aggregate_fwd_l2_tiled.argtypes = [p] * 11 + [i] * 16 + [p]
+    lib.dp_tp_aggregate_bwd_x_l2_tiled.argtypes = [p] * 13 + [i] * 17 + [p]
     lib.dp_tp_aggregate_l2_smem.argtypes = [i] * 8
-    lib.dp_tp_aggregate_l2_blocks_per_sm.argtypes = [i] * 8
+    lib.dp_tp_aggregate_l2_blocks_per_sm.argtypes = [i] * 9
     lib.dp_tp_aggregate_l2_live.argtypes = [p, p, ctypes.c_longlong, i, i, i, p]
-    lib.dp_tp_aggregate_edge_l2_smem.argtypes = [i] * 5
+    lib.dp_tp_aggregate_edge_l2_smem.argtypes = [i] * 6
     lib.dp_tp_aggregate_idx_dx_l2_smem.argtypes = [i] * 8
-    lib.dp_tp_aggregate_edge_l2_blocks_per_sm.argtypes = [i] * 6
+    lib.dp_tp_aggregate_edge_l2_blocks_per_sm.argtypes = [i] * 7
     for fn in (lib.dp_tp_aggregate_fwd, lib.dp_tp_aggregate_bwd_edge, lib.dp_tp_aggregate_bwd_x,
                lib.dp_tp_aggregate_blocks_per_sm, lib.dp_tp_aggregate_fwd_idx_tiled,
                lib.dp_tp_aggregate_idx_fwd_smem, lib.dp_tp_aggregate_idx_fwd_blocks_per_sm,
@@ -655,8 +779,8 @@ def _check_inputs(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch
                              f"{tp.irreps_in!r} x {tp.irreps_sh!r}")
         if not t.is_contiguous():
             raise ValueError(f"tp_aggregate: {name} must be contiguous")
-    if k_pad == K_PAD_L2 and (F > MAX_F_L2 or len(tp.paths) > MAX_PATHS_L2):
-        raise ValueError(f"tp_aggregate: F = {F} <= {MAX_F_L2} and at most {MAX_PATHS_L2} paths")
+    if k_pad == K_PAD_L2 and len(tp.paths) > MAX_PATHS_L2:
+        raise ValueError(f"tp_aggregate: at most {MAX_PATHS_L2} paths")
     return B, N, M, D, S, F
 
 
@@ -683,27 +807,30 @@ def _check_live(live: Optional[torch.Tensor], w: torch.Tensor) -> torch.Tensor:
 
 def forward_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense 8-lane forward on CUDA tensors -> (out (B, N, F, 8) f32,
-    the live bits of w): the live pass (:func:`live_rows_l2`), the tiled
-    kernel on the live tiles and, when :func:`launch_splits_l2` splits, the
-    sum of the splits' partial sums; one ``FWD_L2`` launch.  dx reads the
-    same bits (the autograd forward keeps them)."""
+    """The dense tiled forward on CUDA tensors (:func:`tiled`: 8 lanes, or 4
+    lanes wider than ``SPLIT_F_MAX``) -> (out (B, N, F, lanes(tp)) f32, the
+    live bits of w): the live pass (:func:`live_rows_l2`), the tiled kernel
+    on the live tiles and, when :func:`launch_splits_l2` splits, the sum of
+    the splits' partial sums; one ``FWD_L2`` (4 lanes: ``FWD``) launch.  dx
+    reads the same bits (the autograd forward keeps them)."""
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
-    if lanes(tp) != K_PAD_L2:
-        raise ValueError("tp_aggregate: forward_l2 takes an 8-lane product (an irrep of l = 2)")
+    if not tiled(tp):
+        raise ValueError(f"tp_aggregate: forward_l2 takes an 8-lane product (an irrep of l = 2) "
+                         f"or a 4-lane one wider than {SPLIT_F_MAX} channels")
+    k_pad = lanes(tp)
     live = live_rows_l2(w)
     chan, ptab, gflat, ctab, _, _ = _device_tables_tiled_l2(tp, str(x.device), x.dtype)
     walk = _device_walk_l2(tp, str(x.device))
     splits = launch_splits_l2(tp, B, N, M, False, x.device, x.dtype)
-    out = torch.empty((B, N, F, K_PAD_L2), dtype=torch.float32, device=x.device)
-    part = _scratch(splits, (B, N, F, K_PAD_L2), x.device)
+    out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
+    part = _scratch(splits, (B, N, F, k_pad), x.device)
     rc = _library().dp_tp_aggregate_fwd_l2_tiled(
         x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
         gflat.data_ptr(), ctab.data_ptr(), walk.data_ptr(), live.data_ptr(), out.data_ptr(),
         _ptr(part), B, N, M, D, S, F, ctab.shape[0], *layout_sizes_l2(tp, False)[:5], splits,
-        _w_unit_l2(tp, w), int(x.dtype == torch.bfloat16), _stream(x.device))
+        _w_unit_l2(tp, w), k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(rc, "tp_aggregate_fwd_l2_tiled")
-    FWD_L2.launches += 1
+    (FWD_L2 if k_pad == K_PAD_L2 else FWD).launches += 1
     return out, live
 
 
@@ -747,7 +874,7 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     given)."""
     if sender_index is not None:
         return forward_idx(tp, x, sh, w, sender_index, live)[0]
-    if lanes(tp) == K_PAD_L2:
+    if tiled(tp):
         return forward_l2(tp, x, sh, w)[0]
     B, N, M, D, S, F = _check_inputs(tp, x, sh, w)
     dev = str(x.device)
@@ -809,13 +936,14 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
         _, ptab, gflat, (PT, PS, _, _) = _device_path_tables_l2(tp, dev, x.dtype)
         plan = _device_edge_plan_l2(tp, dev)
         pent = _device_p_entries_l2(tp, dev)
+        slots = edge_slots_l2(tp, need_dsh)
         P = torch.empty((B, N, PT), dtype=torch.float32, device=x.device)
         rc = _library().dp_tp_aggregate_bwd_edge_l2(
             x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(live) if need_dsh else None,
             g.data_ptr(), pent.data_ptr(), gflat.data_ptr(), ptab.data_ptr(), plan.data_ptr(),
             seg_ptr.data_ptr(), seg.data_ptr(), P.data_ptr(), dw.data_ptr(), _ptr(dsh), B, N, M,
-            D, S, F, ptab.shape[0], PT, PS, plan.shape[1], plan_edge_receivers(B, N, M), bf16,
-            _stream(x.device))
+            D, S, F, ptab.shape[0], PT, PS, plan.shape[1],
+            plan_edge_receivers(B, N, M, slots=slots), slots, bf16, _stream(x.device))
         _raise_on(rc, "tp_aggregate_bwd_edge_l2")
         BWD_EDGE_L2.launches += 1
         return dw, dsh
@@ -851,7 +979,7 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
     dev = str(x.device)
     dx = torch.empty_like(x)
     k_pad = lanes(tp)
-    if k_pad == K_PAD_L2 and sender_index is None:
+    if tiled(tp) and sender_index is None:
         live = _check_live(live, w)
         chan, ptab, gflat, ctab, _, _ = _device_tables_tiled_l2(tp, dev, x.dtype)
         walk = _device_walk_l2(tp, dev)
@@ -864,9 +992,9 @@ def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: t
             sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(), ptab.data_ptr(),
             gflat.data_ptr(), ctab.data_ptr(), walk.data_ptr(), live.data_ptr(), dptr.data_ptr(),
             ditem.data_ptr(), dx.data_ptr(), _ptr(part), B, N, M, D, S, F, n_ct, *sizes, splits,
-            _w_unit_l2(tp, w), int(x.dtype == torch.bfloat16), _stream(x.device))
+            _w_unit_l2(tp, w), k_pad, int(x.dtype == torch.bfloat16), _stream(x.device))
         _raise_on(rc, "tp_aggregate_bwd_x_l2_tiled")
-        BWD_X_L2.launches += 1
+        (BWD_X_L2 if k_pad == K_PAD_L2 else BWD_X).launches += 1
         return dx
     if sender_index is not None:
         m_x = x.shape[1]
@@ -921,7 +1049,7 @@ class TPAggregate(torch.autograd.Function):
                 ctx.lists = idx_dx_lists(sender_index, x.shape[1])
             out, ctx.live = forward_idx(tp, x, sh, w, sender_index)
             return out
-        if lanes(tp) == K_PAD_L2:
+        if tiled(tp):
             out, ctx.live = forward_l2(tp, x, sh, w)
             return out
         return launch_forward(tp, x, sh, w)

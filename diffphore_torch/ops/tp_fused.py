@@ -32,13 +32,24 @@ of x (B, M_x, D).  Each kernel takes it (``tp_fused_kernel`` for l <= 1, as a
 template flag, and ``tp_fused_l2_kernel`` for l = 2): a tile's rows bring
 their senders' features with their attributes instead of the block keeping
 its senders'.  ``KERNEL_IDX`` and ``KERNEL_IDX_L2`` count those launches.
+
+Widths.  Each kernel has a narrow form (W1 and W2 in shared memory: E and
+H multiples of four, H <= 64, at 4 lanes F <= 160) and a wide one (a
+template flag of the same kernel: W1 and W2 read from device memory, the
+hidden layer in chunks of 64 units, any E and H up to ``MAX_WIDE``, at 4
+lanes channel tiles of up to ``MAX_F`` from :func:`channel_tiles`).
+:func:`plan` picks the form, the tiles and the senders a block from the
+shapes alone (no card), restating the blocks' shared-memory sums
+(:func:`layout_bytes`, :func:`layout_bytes_l2`), and raises, naming the
+limit, on what neither takes.  Every shipped convolution takes the narrow
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +65,12 @@ _SH_STRIDE = 12   # the kernel's padded harmonics row
 TILE_N = 8        # receivers per block of the kernel
 MAX_SENDERS = 96  # most senders one block takes
 MIN_SENDERS = 4   # fewest, when the grid would otherwise leave SMs idle
-MAX_F = 160       # widest edge-weight row the kernel's register tiles hold
-MAX_H = 64        # widest hidden layer (and no wider than the edge attributes)
+MAX_F = 160       # widest edge-weight row (or channel tile) the kernel's register tiles hold
+MAX_H = 64        # widest hidden layer whose weights a block keeps (and no wider than E)
 MAX_PATHS = 16    # most tensor-product paths
+MAX_WIDE = 192    # widest edge attributes and hidden layer of the wide kernels (ns <= 64)
+ROWS = 32         # live edges per tile of the 4-lane kernel
+SMEM = 227 * 1024  # shared memory a block may take
 TARGET_BLOCKS = 2 * 132   # two blocks for each SM of an H100
 # the 8-lane kernel (l <= 2)
 TILE_N_L2 = 4         # receivers per block
@@ -296,21 +310,151 @@ def device_tables_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype = torch.
 
 
 @functools.lru_cache(maxsize=None)
-def channel_tiles(tp: ChannelwiseTP) -> Tuple[Tuple[int, int, int, int], ...]:
-    """The 8-lane kernel's channel tiles: (first channel, channels, first
-    path, paths) of each, cut at path boundaries, each filled with paths up
-    to ``TILE_F_L2`` channels.  A block takes one tile: its W2 columns, t
-    tables and coupling tensors only, and computes its product in 64-channel
-    groups (so a tile of 120 wastes 8 columns, one of 90 would waste 38)."""
-    if any(p.mul_in > TILE_F_L2 for p in tp.paths):
-        raise ValueError(f"tp_fused: a path of more than {TILE_F_L2} channels")
+def channel_tiles(tp: ChannelwiseTP, width: int = TILE_F_L2
+                  ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Channel tiles of at most ``width`` channels: (first channel, channels,
+    first path, paths) of each, cut at path boundaries, each filled with
+    paths up to ``width`` channels.  The 8-lane kernel's (``TILE_F_L2``): a
+    block takes one tile, its W2 columns, t tables and coupling tensors
+    only, and computes its product in 64-channel groups (so a tile of 120
+    wastes 8 columns, one of 90 would waste 38).  The 4-lane wide kernel's
+    (``MAX_F``): a block takes one tile's W2 columns and output channels."""
+    if any(p.mul_in > width for p in tp.paths):
+        raise ValueError(f"tp_fused: a path of more than {width} channels (the widest channel "
+                         f"tile)")
     tiles, f0, p0 = [], 0, 0
     for q, p in enumerate(tp.paths):
         end = p.w_slice[1]
-        if q + 1 == len(tp.paths) or tp.paths[q + 1].w_slice[1] - f0 > TILE_F_L2:
+        if q + 1 == len(tp.paths) or tp.paths[q + 1].w_slice[1] - f0 > width:
             tiles.append((f0, end - f0, p0, q + 1 - p0))
             f0, p0 = end, q + 1
     return tuple(tiles)
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def layout_bytes(C: int, E: int, H: int, D: int, n_paths: int, MS: int, NC: int, idx: bool,
+                 wide: bool, tpaths: int = 0) -> int:
+    """Bytes of shared memory a block of the 4-lane kernel takes
+    (``make_layout`` in csrc/tp_fused.cu, summed as it sums them; the wide
+    kernel forms t of at most ``tpaths`` paths, its tile's)."""
+    hp = 64
+    floats = ((0 if wide else E * hp) + (-(-H // hp) * hp if wide else hp)
+              + (0 if wide else H * 32 * NC) + 32 * NC + _pad4(n_paths * 45) + MAX_PATHS
+              + (2 * ROWS if idx else MS) * _pad4(D) + C * TILE_N * MS
+              + _pad4(TILE_N * MS // 2 + 1) + 12 + 2 * C * ROWS * _pad4(E) + ROWS * 32 * NC
+              + 2 * ROWS * _SH_STRIDE + ROWS * (tpaths if wide else n_paths) * 12
+              + (ROWS * hp if wide else 0))
+    return 4 * floats
+
+
+def layout_bytes_l2(C: int, E: int, H: int, DX: int, TS: int, GS: int, PC: int, MS: int,
+                    FTP: int, esize: int, wide: bool) -> int:
+    """Bytes of shared memory a block of the 8-lane kernel takes
+    (``make_layout_l2``)."""
+    hp, kb, rows = 64, 72, ROWS_L2
+    ep = _pad4(E) if wide else E
+    w2 = 0 if wide else (FTP * kb // 2 if esize == 2 else H * FTP)
+    floats = ((0 if wide else E * hp) + (-(-H // hp) * hp if wide else hp) + w2 + FTP
+              + _pad4(GS) + _pad4(PC * 8) + _pad4(PC * 5) + _pad4(C * TILE_N_L2 * MS)
+              + _pad4(TILE_N_L2 * MS) + 20 + 2 * rows
+              + _pad4((2 * C * rows * ep * esize + 3) // 4) + 2 * rows * _SH_STRIDE
+              + _pad4((2 * rows * DX * esize + 3) // 4)
+              + C * rows * (kb // 2 if esize == 2 else hp) + rows * FTP + _pad4(rows * TS))
+    return 4 * floats
+
+
+def narrow(E: int, H: int, F: int) -> bool:
+    """True when the 4-lane kernel keeps the weights in shared memory (the
+    narrow kernel, every shipped convolution): E and H multiples of four, H
+    <= min(E, ``MAX_H``), F <= ``MAX_F``; else the wide kernel runs."""
+    return E % 4 == 0 and H % 4 == 0 and 4 <= H <= min(E, MAX_H) and F <= MAX_F
+
+
+def narrow_l2(E: int, H: int) -> bool:
+    """The 8-lane kernel's counterpart of :func:`narrow` (its channel tiles
+    take any F)."""
+    return E % 4 == 0 and H % 4 == 0 and 4 <= H <= MAX_H and E >= 4
+
+
+class Plan(NamedTuple):
+    """A K1 launch: ``wide`` (the kernel that reads its weights from device
+    memory and takes any E and H up to ``MAX_WIDE``), the channel tiles
+    ((first channel, channels) each), senders per block and splits, and the
+    shared memory a block takes."""
+
+    wide: bool
+    tiles: Tuple[Tuple[int, int], ...]
+    per_block: int
+    splits: int
+    smem: int
+
+
+def _check_widths(tp: ChannelwiseTP, C: int, E: int, H: int) -> None:
+    if C not in (1, 2):
+        raise ValueError("tp_aggregate_fused: one or two edge channels")
+    if not (1 <= E <= MAX_WIDE and 1 <= H <= MAX_WIDE):
+        raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must lie in [1, {MAX_WIDE}] "
+                         f"(ns <= {MAX_WIDE // 3})")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(tp: ChannelwiseTP, B: int, N: int, M: int, C: int, E: int, H: int, esize: int,
+         indexed: bool) -> Plan:
+    """The launch of :func:`tp_aggregate_fused` on these shapes, from the
+    shapes alone (no card): raises where the kernels do not take them.  At
+    4 lanes the narrow kernel where :func:`narrow` holds (one tile, the
+    grid of :func:`plan_senders`), else the wide one on the channel tiles of
+    ``channel_tiles(tp, MAX_F)``, with at most as many senders a block as
+    its shared memory holds; at 8 lanes the tiles of :func:`channel_tiles`,
+    the narrow kernel where :func:`narrow_l2` holds and its block fits
+    ``SMEM_L2`` (two blocks an SM), else the wide one within ``SMEM``."""
+    _check_widths(tp, C, E, H)
+    F = tp.weight_numel
+    if lanes(tp) == K_PAD_L2:
+        if len(tp.paths) > MAX_PATHS_L2:
+            raise ValueError(f"tp_aggregate_fused: at most {MAX_PATHS_L2} paths")
+        *_, ctab, _, dims = tables_tiled_l2(tp)
+
+        def fits(wide: bool, limit: int) -> List[int]:
+            return [ms for ms in range(MAX_SENDERS_L2, MIN_SENDERS - 1, -1)
+                    if layout_bytes_l2(C, E, H, *dims[:4], ms, dims[4], esize, wide) <= limit]
+        # the narrow kernel where its weights fit beside two blocks an SM, else the wide one
+        wide, limit = False, SMEM_L2
+        ms = fits(False, SMEM_L2) if narrow_l2(E, H) else []
+        if not ms:
+            wide, limit = True, SMEM
+            ms = fits(True, SMEM)
+        if not ms:
+            raise ValueError(f"tp_aggregate_fused: E = {E}, H = {H} and the channel tiles' sizes "
+                             f"{dims} need more than the {limit} bytes of shared memory a block "
+                             f"has")
+        per_block, splits, _, _ = grid_l2(tp, B, N, M, ms[0])
+        smem = layout_bytes_l2(C, E, H, *dims[:4], per_block, dims[4], esize, wide)
+        return Plan(wide, tuple((int(r[0]), int(r[1])) for r in ctab), per_block, splits, smem)
+    if len(tp.paths) > MAX_PATHS:
+        raise ValueError(f"tp_aggregate_fused: at most {MAX_PATHS} paths")
+    D = tp.irreps_in.dim
+    if narrow(E, H, F):
+        per_block, splits = plan_senders(B, N, M)
+        smem = layout_bytes(C, E, H, D, len(tp.paths), per_block, max(2, -(-F // 32)),
+                            indexed, False)
+        if smem > SMEM:
+            raise ValueError(f"tp_aggregate_fused: {smem} bytes of shared memory, more than "
+                             f"the {SMEM} a block has")
+        return Plan(False, ((0, F),), per_block, splits, smem)
+    tiles = channel_tiles(tp, MAX_F)
+    nc, tpaths = MAX_F // 32, max(pc for _, _, _, pc in tiles)
+    fits = [ms for ms in range(MAX_SENDERS, MIN_SENDERS - 1, -1)
+            if layout_bytes(C, E, H, D, len(tp.paths), ms, nc, indexed, True, tpaths) <= SMEM]
+    if not fits:
+        raise ValueError(f"tp_aggregate_fused: E = {E}, H = {H}, D = {D}: the wide kernel's "
+                         f"block needs more than the {SMEM} bytes of shared memory it has")
+    per_block, splits = plan_senders(B, N, M, TILE_N, fits[0], len(tiles))
+    smem = layout_bytes(C, E, H, D, len(tp.paths), per_block, nc, indexed, True, tpaths)
+    return Plan(True, tuple((f0, fc) for f0, fc, _, _ in tiles), per_block, splits, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,16 +506,25 @@ def tables_tiled_l2(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32):
 
 
 @functools.lru_cache(maxsize=None)
+def _device_ctab(tp: ChannelwiseTP, device: str) -> torch.Tensor:
+    """The 4-lane wide kernel's channel tiles, (first channel, width, first
+    path, paths) int32."""
+    return torch.as_tensor(np.array(channel_tiles(tp, MAX_F), np.int32), device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _device_tables_tiled_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype):
     *tables, dims = tables_tiled_l2(tp, dtype)
     return tuple(torch.as_tensor(t, device=device) for t in tables) + (dims,)
 
 
-def grid_l2(tp: ChannelwiseTP, B: int, N: int, M: int) -> Tuple[int, int, int, int]:
+def grid_l2(tp: ChannelwiseTP, B: int, N: int, M: int, max_senders: int = MAX_SENDERS_L2
+            ) -> Tuple[int, int, int, int]:
     """(senders per block, sender splits, channel tiles, blocks) of an
-    8-lane K1 launch on (B, N, M)."""
+    8-lane K1 launch on (B, N, M), at most ``max_senders`` senders a block
+    (:func:`plan`: as many as its shared memory holds)."""
     tiles = len(channel_tiles(tp))
-    per_block, splits = plan_senders(B, N, M, TILE_N_L2, MAX_SENDERS_L2, tiles)
+    per_block, splits = plan_senders(B, N, M, TILE_N_L2, max_senders, tiles)
     return per_block, splits, tiles, B * -(-N // TILE_N_L2) * splits * tiles
 
 
@@ -399,11 +552,13 @@ def plan_senders(B: int, N: int, M: int, tile_n: int = TILE_N,
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_fused.argtypes = [p] * 15 + [i] * 14 + [p]
+    lib.dp_tp_fused.argtypes = [p] * 16 + [i] * 16 + [p]
     lib.dp_tp_fused.restype = i
-    lib.dp_tp_fused_l2.argtypes = [p] * 18 + [i] * 19 + [p]
+    lib.dp_tp_fused_smem.argtypes = [i] * 10
+    lib.dp_tp_fused_smem.restype = i
+    lib.dp_tp_fused_l2.argtypes = [p] * 18 + [i] * 20 + [p]
     lib.dp_tp_fused_l2.restype = i
-    lib.dp_tp_fused_l2_smem.argtypes = [i] * 10
+    lib.dp_tp_fused_l2_smem.argtypes = [i] * 11
     lib.dp_tp_fused_l2_smem.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -481,28 +636,30 @@ def tp_aggregate_fused(
         raise TypeError("tp_aggregate_fused: edge-MLP parameters must be f32")
     if sender_index is not None:
         check_index(sender_index, (B, N, M), dev, "tp_aggregate_fused")
+    pl = plan(tp, B, N, M, C, E, H, x.element_size(), sender_index is not None)
+    aligned = [] if pl.wide and E % 4 else list(attrs)   # the wide kernels read no W1, W2 rows
+    if any(t.data_ptr() % 16 for t in aligned + ([] if pl.wide else [w1, w2])):
+        raise ValueError("tp_aggregate_fused: attrs (and, narrow, w1 and w2) must be 16-byte "
+                         "aligned")
     if lanes(tp) == K_PAD_L2:
-        return _launch_l2(tp, x, sh, attrs, masks, w1, b1, w2, b2, sender_index)
-    if E % 4 or H % 4 or H > min(E, MAX_H) or F > MAX_F or len(tp.paths) > MAX_PATHS:
-        raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
-                         f"H <= min(E, {MAX_H}), F = {F} <= {MAX_F}, at most {MAX_PATHS} paths")
-    if any(t.data_ptr() % 16 for t in (*attrs, w1, w2)):
-        raise ValueError("tp_aggregate_fused: attrs, w1 and w2 must be 16-byte aligned")
+        return _launch_l2(tp, x, sh, attrs, masks, w1, b1, w2, b2, pl, sender_index)
 
     chan, gtab = _device_tables(tp, str(dev), dt)
+    ctab = _device_ctab(tp, str(dev)) if pl.wide else None
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=dev)
-    per_block, splits = plan_senders(B, N, M)
-    part = (torch.empty((splits, B, N, F, K_PAD), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    part = (torch.empty((pl.splits, B, N, F, K_PAD), dtype=torch.float32, device=dev)
+            if pl.splits > 1 else None)
     lib = _library()
     rc = lib.dp_tp_fused(
         x.data_ptr(), sh.data_ptr(), attrs[0].data_ptr(), attrs[-1].data_ptr(),
         masks[0].data_ptr(), masks[-1].data_ptr(),
         _ptr(sender_index),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), chan.data_ptr(),
-        gtab.data_ptr(), out.data_ptr(), _ptr(part),
-        B, N, M, x.shape[1], D, S, C, E, H, F, gtab.shape[0], per_block,
-        int(masks[0].dtype == torch.float32), int(dt == torch.bfloat16),
+        gtab.data_ptr(), _ptr(ctab), out.data_ptr(), _ptr(part),
+        B, N, M, x.shape[1], D, S, C, E, H, F, gtab.shape[0], pl.per_block,
+        int(masks[0].dtype == torch.float32), len(pl.tiles),
+        max(pc for _, _, _, pc in channel_tiles(tp, MAX_F)) if pl.wide else 1,
+        int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused launch failed: {lib.dp_cuda_error_string(rc).decode()}")
@@ -513,26 +670,18 @@ def tp_aggregate_fused(
 def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
                attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-               sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+               pl: Plan, sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``tp_fused_l2_kernel`` on inputs :func:`tp_aggregate_fused` has
-    checked: the 8-lane product, dense or in the sender-index mode, one
-    block a (batch row, receiver tile, sender split, channel tile)."""
+    checked, on :func:`plan`'s launch: the 8-lane product, dense or in the
+    sender-index mode, one block a (batch row, receiver tile, sender split,
+    channel tile)."""
     dev = x.device
     B, N, M, S = sh.shape
     E, H = w1.shape
     F = tp.weight_numel
-    if E % 4 or H % 4 or H > MAX_H or F > MAX_F_L2 or len(tp.paths) > MAX_PATHS_L2:
-        raise ValueError(f"tp_aggregate_fused: E = {E} and H = {H} must be multiples of 4, "
-                         f"H <= {MAX_H}, F = {F} <= {MAX_F_L2}, at most {MAX_PATHS_L2} paths")
-    if any(t.data_ptr() % 16 for t in (*attrs, w1, w2)):
-        raise ValueError("tp_aggregate_fused: attrs, w1 and w2 must be 16-byte aligned")
     chan, ptab, gflat, ctab, walk, dims = _device_tables_tiled_l2(tp, str(dev), x.dtype)
-    per_block, splits, n_ct, _ = grid_l2(tp, B, N, M)
+    per_block, splits, n_ct = pl.per_block, pl.splits, len(pl.tiles)
     lib = _library()
-    if lib.dp_tp_fused_l2_smem(len(attrs), E, H, *dims[:4], per_block, dims[4],
-                               x.element_size()) > SMEM_L2:
-        raise ValueError(f"tp_aggregate_fused: E = {E}, H = {H} and the channel tiles' sizes "
-                         f"{dims} need more than the {SMEM_L2} bytes of shared memory a block has")
     out = torch.empty((B, N, F, K_PAD_L2), dtype=torch.float32, device=dev)
     part = (torch.empty((splits, B, N, F, K_PAD_L2), dtype=torch.float32, device=dev)
             if splits > 1 else None)
@@ -543,7 +692,7 @@ def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
         ptab.data_ptr(), gflat.data_ptr(), ctab.data_ptr(), walk.data_ptr(), out.data_ptr(),
         _ptr(part),
         B, N, M, x.shape[1], x.shape[-1], S, len(attrs), E, H, F, n_ct, *dims, per_block,
-        int(masks[0].dtype == torch.float32), int(x.dtype == torch.bfloat16),
+        int(masks[0].dtype == torch.float32), int(pl.wide), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused_l2 launch failed: {lib.dp_cuda_error_string(rc).decode()}")

@@ -29,7 +29,8 @@ launched.  A convolution whose irreps reach l = 2 (the layer-0 convolutions
 of ``use_second_order_repr``, whose ``0e x 2e -> 2e`` path has K = 5 and
 reads harmonic components 4-8; the upstream gradient and the output (B, N,
 F, 8)) runs kernels of its own, counted by ``FWD_L2``, ``BWD_EDGE_L2`` and
-``BWD_X_L2``.  Their lane is a unit of :func:`units_l2`: up to four
+``BWD_X_L2``; past 32 units (ns = 48 and 64) the edge backward gives a lane
+two units.  Their lane is a unit of :func:`units_l2`: up to four
 neighbouring channels of one path, so it loads its x and w as one access
 each (where every path is four channels wide at a multiple of four, else
 element by element) and only its path's K harmonic components.  The
@@ -43,14 +44,17 @@ whose path reads it (``comp_ptr`` / ``comp_item``).  dx
 (``tp_scalar_bwd_x_l2_kernel``: thread = (channel, ``X2_Q`` senders), each
 g row loaded once for the thread's senders; a block per (batch row, run of
 :func:`plan_run_l2` senders, chunk of receivers), the receivers split as
-:func:`plan_chunk_l2` says).  The sender-index mode at l = 2 runs the
-4-lane kernels' 8-lane instantiations (below).
+:func:`plan_chunk_l2` says).
 
 Sender-index mode (the KNN phore grid): with ``sender_index`` (B, N, K)
 int32, x is (B, M_x, D), sh and w (B, N, K, .) and slot k of receiver n
 reads the sender row ``x[b, sender_index[b, n, k]]``.  The forward and the
-edge backward (dw only; the mode refuses dsh) read x at the index, the same
-kernels a template flag apart.  dx has kernels of its own: a first forms
+edge backward (dw only; the mode refuses dsh) are one kernel at both lane
+counts, ``tp_scalar_idx_kernel`` (:func:`plan_idx`): the dense 8-lane
+forward's design with x read at the index, whole receivers a block and all
+their K slots in one pass, the slots' harmonics staged once for the
+block's units, a lane a unit of :func:`units_l2`.
+dx has kernels of its own: a first forms
 each slot's term w * sum_k sh g (receiver by receiver, so each g row is read
 once), each sender's slots, in the order of :func:`tp_fused.sender_lists`,
 are cut into chunks of at most Q (:func:`slot_chunks`, Q from
@@ -82,8 +86,8 @@ BWD_X = _Kernel()     # tp_scalar_bwd_x_kernel (+ tp_scalar_sum_splits), one per
 FWD_L2 = _Kernel()       # tp_scalar_fwd_l2_kernel, one per convolution (l = 2)
 BWD_EDGE_L2 = _Kernel()  # tp_scalar_bwd_edge_l2_kernel
 BWD_X_L2 = _Kernel()     # tp_scalar_bwd_x_l2_kernel (+ tp_scalar_sum_splits)
-FWD_IDX = _Kernel()       # the sender-index mode (l <= 1)
-BWD_EDGE_IDX = _Kernel()
+FWD_IDX = _Kernel()       # the sender-index mode (l <= 1): tp_scalar_idx_kernel<T, 4, VEC, false>
+BWD_EDGE_IDX = _Kernel()  # tp_scalar_idx_kernel<T, 4, VEC, true> (dw)
 BWD_X_IDX = _Kernel()      # tp_scalar_bwd_x_idx_slots, _chunks and _sum
 FWD_IDX_L2 = _Kernel()    # the sender-index mode at l = 2
 BWD_EDGE_IDX_L2 = _Kernel()
@@ -96,13 +100,14 @@ X2_MIN_CHUNK = 4     # fewest receivers one split of the 8-lane dx takes
 X2_WAVES = 4         # the 8-lane dx's grid: blocks for this many of each block slot of the card
 EDGE_F_MAX = 128     # channels of a row the edge backward takes (four a lane)
 EDGE_REACH = 4       # harmonic components the edge backward reads (0e and 1o first)
-EDGE_REACH_L2 = 9    # the 8-lane instantiation's: 0e, 1o and 2e
 KM = 5               # harmonic components of a channel at l = 2, at most
 F2_THREADS = 256     # threads of a dense 8-lane forward block at most: (receiver, slice, unit)
 F2_U = 4             # senders whose w a forward lane loads at once (the source's F2_U)
 F2_FIXED = 2         # a forward block's fixed cost in batches of F2_U senders (plan_fwd_l2's model)
 F2_STAGE = 8192      # floats of a forward block's staged harmonics and x at most (32 KB)
-E2_LANES = 32        # units of an edge the dense 8-lane edge backward takes at most (a warp)
+E2_UNITS = 64        # units of an edge the dense 8-lane edge backward takes (two a lane past 32)
+IDX_SLOTS = 16       # slots a thread of the sender-index forward takes at most
+IDX_SLOTS_DW = 8     # ... of its dw
 MIN_CHUNK = 8        # fewest entries of the summed axis one split takes
 MIN_SLOTS = 4        # fewest slots a chunk of the sender-index dx takes, where there are enough
 TARGET_BLOCKS = 2 * 132
@@ -304,6 +309,47 @@ def chunk_fwd_l2(R: int, SL: int, M: int, S: int, D: int) -> int:
     return max(SL, min(-(-M // SL) * SL, fit))
 
 
+@functools.lru_cache(maxsize=None)
+def chunk_idx(R: int, SL: int, K: int, S: int) -> int:
+    """MC, the slots the sender-index forward and dw stage at a time: a
+    multiple of SL, all K where their harmonics (R receivers each) fit
+    ``F2_STAGE`` floats, else as many as fit (SL at least)."""
+    fit = F2_STAGE // (R * S) // SL * SL
+    return max(SL, min(-(-K // SL) * SL, fit))
+
+
+def idx_smem(dw: bool, R: int, SL: int, F: int, MC: int, S: int) -> int:
+    """Bytes of shared memory a block of the sender-index forward (or dw)
+    takes (``idx_floats`` in csrc/tp_scalar.cu): the staged harmonics (or
+    the forward's sums), then the forward's per-channel K and c_p."""
+    work = max(0 if dw else R * SL * F * KM, R * MC * S)
+    return 4 * (-(-work // 4) * 4 + (0 if dw else 2 * F))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_idx(tp: ChannelwiseTP, B: int, N: int, K: int, dw: bool = False
+             ) -> Tuple[int, int, int]:
+    """(R, SL, MC) of the sender-index forward (or, ``dw``, its dw) on (B,
+    N, K): a block of R receivers x SL slices x G units, the slices enough
+    that a thread takes at most ``IDX_SLOTS`` (``IDX_SLOTS_DW``) slots (fewer
+    slices where SL G would pass ``F2_THREADS``), as many receivers as fit,
+    and :func:`chunk_idx`; raises where the block would not fit (its
+    threads, or 48 KB of shared memory).  The forward adds its slices' sums
+    at the end, so it takes fewer slices than dw, whose slots are
+    independent (analysis/k3_idx_variants.py)."""
+    G, S = len(units_l2(tp).units), tp.irreps_sh.dim
+    if G > F2_THREADS:
+        raise ValueError(f"tp_scalar: {G} units of four channels, more than the sender-index "
+                         f"kernels' {F2_THREADS} threads")
+    SL = max(1, min(K, -(-K // (IDX_SLOTS_DW if dw else IDX_SLOTS)), F2_THREADS // G))
+    R = max(1, min(N, F2_THREADS // (SL * G)))
+    MC = chunk_idx(R, SL, K, S)
+    if idx_smem(False, R, SL, tp.weight_numel, MC, S) > 48 * 1024:
+        raise ValueError("tp_scalar: the sender-index block needs more than 48 KB of shared "
+                         "memory")
+    return R, SL, MC
+
+
 def launch_plan_fwd_l2(tp: ChannelwiseTP, B: int, N: int, M: int, device,
                        dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
     """(R, SL, MC) of the dense 8-lane forward on the card
@@ -331,11 +377,12 @@ def _resident_blocks_f2(F: int, G: int, S: int, D: int, vec: bool, bf16: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _edge_blocks_l2(need_dsh: bool, vec: bool, S: int, n_items: int, bf16: bool,
+def _edge_blocks_l2(need_dsh: bool, vec: bool, S: int, n_items: int, G: int, bf16: bool,
                     device: str) -> int:
-    """Blocks of the dense 8-lane edge backward the card holds at once."""
+    """Blocks of the dense 8-lane edge backward of G units the card holds
+    at once."""
     per_sm = _library().dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(
-        int(need_dsh), int(vec), S, n_items, int(bf16))
+        int(need_dsh), int(vec), S, n_items, G, int(bf16))
     _raise_on(max(0, -per_sm), "tp_scalar_bwd_edge_l2 occupancy query")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -489,11 +536,9 @@ def _resident_blocks_x2(F: int, D: int, n_items: int, run: int, bf16: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _edge_blocks(need_dsh: bool, bf16: bool, device: str, l2: bool = False) -> int:
-    """Blocks of the edge backward the card holds at once."""
-    query = (_library().dp_tp_scalar_bwd_edge_blocks_per_sm_l2 if l2
-             else _library().dp_tp_scalar_bwd_edge_blocks_per_sm)
-    per_sm = query(int(need_dsh), int(bf16))
+def _edge_blocks(need_dsh: bool, bf16: bool, device: str) -> int:
+    """Blocks of the dense 4-lane edge backward the card holds at once."""
+    per_sm = _library().dp_tp_scalar_bwd_edge_blocks_per_sm(int(need_dsh), int(bf16))
     _raise_on(max(0, -per_sm), "tp_scalar edge-backward occupancy query")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -502,36 +547,35 @@ def _edge_blocks(need_dsh: bool, bf16: bool, device: str, l2: bool = False) -> i
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_scalar")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_scalar_fwd.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.dp_tp_scalar_fwd.argtypes = [p] * 7 + [i] * 10 + [p]
     lib.dp_tp_scalar_bwd_x.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.dp_tp_scalar_bwd_x_idx.argtypes = [p] * 13 + [i] * 10 + [p]
-    lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 9 + [i] * 11 + [p]
+    lib.dp_tp_scalar_bwd_edge.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.dp_tp_scalar_blocks_per_sm.argtypes = [i] * 5
     lib.dp_tp_scalar_bwd_edge_blocks_per_sm.argtypes = [i] * 2
-    lib.dp_tp_scalar_fwd_l2.argtypes = lib.dp_tp_scalar_fwd.argtypes
     lib.dp_tp_scalar_bwd_x_l2.argtypes = lib.dp_tp_scalar_bwd_x.argtypes
     lib.dp_tp_scalar_bwd_x_idx_l2.argtypes = lib.dp_tp_scalar_bwd_x_idx.argtypes
-    lib.dp_tp_scalar_bwd_edge_l2.argtypes = lib.dp_tp_scalar_bwd_edge.argtypes
     lib.dp_tp_scalar_blocks_per_sm_l2.argtypes = [i] * 5
-    lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2.argtypes = [i] * 2
     lib.dp_tp_scalar_bwd_x_l2_smem.argtypes = [i] * 4
     lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm.argtypes = [i] * 5
     lib.dp_tp_scalar_fwd_l2_dense.argtypes = [p] * 7 + [i] * 12 + [p]
     lib.dp_tp_scalar_fwd_l2_dense_smem.argtypes = [i] * 6
     lib.dp_tp_scalar_fwd_l2_dense_blocks_per_sm.argtypes = [i] * 9
     lib.dp_tp_scalar_bwd_edge_l2_dense.argtypes = [p] * 10 + [i] * 11 + [p]
-    lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm.argtypes = [i] * 5
-    lib.dp_tp_scalar_bwd_edge_l2_dense_smem.argtypes = [i] * 3
+    lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm.argtypes = [i] * 6
+    lib.dp_tp_scalar_bwd_edge_l2_dense_smem.argtypes = [i] * 4
+    lib.dp_tp_scalar_idx.argtypes = [p] * 11 + [i] * 15 + [p]
+    lib.dp_tp_scalar_idx_smem.argtypes = [i] * 6
     for fn in (lib.dp_tp_scalar_fwd, lib.dp_tp_scalar_bwd_edge, lib.dp_tp_scalar_bwd_x,
                lib.dp_tp_scalar_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_blocks_per_sm,
-               lib.dp_tp_scalar_fwd_l2, lib.dp_tp_scalar_bwd_edge_l2, lib.dp_tp_scalar_bwd_x_l2,
-               lib.dp_tp_scalar_blocks_per_sm_l2, lib.dp_tp_scalar_bwd_edge_blocks_per_sm_l2,
+               lib.dp_tp_scalar_bwd_x_l2, lib.dp_tp_scalar_blocks_per_sm_l2,
                lib.dp_tp_scalar_bwd_x_idx, lib.dp_tp_scalar_bwd_x_idx_l2,
                lib.dp_tp_scalar_bwd_x_l2_smem, lib.dp_tp_scalar_bwd_x_l2_blocks_per_sm,
                lib.dp_tp_scalar_fwd_l2_dense, lib.dp_tp_scalar_fwd_l2_dense_smem,
                lib.dp_tp_scalar_fwd_l2_dense_blocks_per_sm, lib.dp_tp_scalar_bwd_edge_l2_dense,
                lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm,
-               lib.dp_tp_scalar_bwd_edge_l2_dense_smem):
+               lib.dp_tp_scalar_bwd_edge_l2_dense_smem, lib.dp_tp_scalar_idx,
+               lib.dp_tp_scalar_idx_smem):
         fn.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -606,7 +650,11 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
     out = torch.empty((B, N, F, k_pad), dtype=torch.float32, device=x.device)
     bf16 = int(x.dtype == torch.bfloat16)
-    if l2 and sender_index is None:
+    if sender_index is not None:
+        _launch_idx(tp, x, sh, w, sender_index, None, out, None)
+        counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index, l2).launches += 1
+        return out
+    if l2:
         units, _, _, _, vec = _device_units(tp, str(x.device), x.dtype)
         R, SL, MC = launch_plan_fwd_l2(tp, B, N, M, x.device, x.dtype)
         rc = _library().dp_tp_scalar_fwd_l2_dense(
@@ -619,14 +667,34 @@ def launch_forward(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
     chunk, splits = launch_chunk(tp, B, N, M, False, x.device, x.dtype)
     part = (torch.empty((splits, B, N, F, k_pad), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    launch = _library().dp_tp_scalar_fwd_l2 if l2 else _library().dp_tp_scalar_fwd
-    rc = launch(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), chan.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), _ptr(part), B, N, M, x.shape[1], D, S, F, keep_of(F),
-        chunk, splits, bf16, _stream(x.device))
-    _raise_on(rc, "tp_scalar_fwd_l2" if l2 else "tp_scalar_fwd")
-    counter(FWD, FWD_L2, FWD_IDX, FWD_IDX_L2, sender_index, l2).launches += 1
+    rc = _library().dp_tp_scalar_fwd(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), chan.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), _ptr(part), B, N, M, D, S, F, keep_of(F), chunk, splits, bf16,
+        _stream(x.device))
+    _raise_on(rc, "tp_scalar_fwd")
+    FWD.launches += 1
     return out
+
+
+def _launch_idx(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: Optional[torch.Tensor],
+                sender_index: torch.Tensor, g: Optional[torch.Tensor],
+                out: Optional[torch.Tensor], dw: Optional[torch.Tensor]) -> None:
+    """``tp_scalar_idx_kernel`` on checked inputs: the sender-index forward
+    into ``out`` (w read), or, given ``g``, dw into ``dw``; a block per
+    (:func:`plan_idx` receivers, batch row), whole receivers, all their
+    slots in one pass."""
+    B, N, K, S = sh.shape
+    D, F = tp.irreps_in.dim, tp.weight_numel
+    dev = str(x.device)
+    chan, scale, _, _ = _device_conv_tables(tp, dev, x.dtype)
+    units, uscale, _, _, vec = _device_units(tp, dev, x.dtype)
+    R, SL, MC = plan_idx(tp, B, N, K, g is not None)
+    rc = _library().dp_tp_scalar_idx(
+        x.data_ptr(), sh.data_ptr(), _ptr(w), sender_index.data_ptr(), _ptr(g),
+        units.data_ptr(), uscale.data_ptr(), chan.data_ptr(), scale.data_ptr(), _ptr(out),
+        _ptr(dw), B, N, K, x.shape[1], D, S, F, units.shape[0], R, SL, MC, int(vec), lanes(tp),
+        int(g is not None), int(x.dtype == torch.bfloat16), _stream(x.device))
+    _raise_on(rc, "tp_scalar_idx")
 
 
 def launch_backward_x(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
@@ -701,6 +769,69 @@ def launch_chunk(tp: ChannelwiseTP, B: int, N: int, M: int, dx: bool, device,
     return plan_chunk(B, M, N, F, target) if dx else plan_chunk(B, N, M, F, target)
 
 
+def check_edge(tp: ChannelwiseTP, indexed: bool) -> None:
+    """Raises where the edge backward does not take the convolution: the
+    dense 4-lane kernel at most ``EDGE_F_MAX`` channels reading the first
+    ``EDGE_REACH`` harmonic components, the dense 8-lane one at most
+    ``E2_UNITS`` units (the sender-index kernel: :func:`plan_idx`'s
+    limits)."""
+    if indexed:
+        return
+    if lanes(tp) == K_PAD_L2:
+        if len(units_l2(tp).units) > E2_UNITS:
+            raise ValueError(f"tp_scalar: {len(units_l2(tp).units)} units of four channels, "
+                             f"more than the 8-lane edge backward's {E2_UNITS} an edge")
+        return
+    F = tp.weight_numel
+    if F > EDGE_F_MAX:
+        raise ValueError(f"tp_scalar: F = {F} channels, more than the edge backward's "
+                         f"{EDGE_F_MAX}")
+    if sh_reach(tp) > EDGE_REACH:
+        raise ValueError(f"tp_scalar: the paths read {sh_reach(tp)} harmonic components, more "
+                         f"than the edge backward's {EDGE_REACH}")
+
+
+def check_shapes(tp: ChannelwiseTP, B: int, N: int, M: int, indexed: bool = False) -> dict:
+    """What the K3 launches of a convolution on (B, N, M) need, from the
+    shapes alone (no card): each kernel's plan (``fwd``, ``bwd_edge``,
+    ``bwd_x``); raises where a kernel does not take the convolution, the
+    limit in the message.  ``indexed``: the sender-index mode (M = K
+    slots)."""
+    _check_paths(tp)
+    F, D, S = tp.weight_numel, tp.irreps_in.dim, tp.irreps_sh.dim
+    if F > THREADS:
+        raise ValueError(f"tp_scalar: F = {F} channels, more than a block's {THREADS} threads")
+    l2 = lanes(tp) == K_PAD_L2
+    n_items = len(_conv_tables(tp, torch.float32)[3])
+    out = {}
+    if indexed:
+        out["fwd"], out["bwd_edge"] = plan_idx(tp, B, N, M), plan_idx(tp, B, N, M, True)
+        out["bwd_x"] = keep_of(F)
+        return out
+    check_edge(tp, False)
+    out["bwd_edge"] = len(units_l2(tp).units) if l2 else -(-F // 4)
+    if l2:
+        G = len(units_l2(tp).units)
+        R, SL = plan_fwd_l2(B, N, M, G)
+        MC = chunk_fwd_l2(R, SL, M, S, D)
+        if R * SL * G > F2_THREADS or 4 * max(R * SL * F * KM, -(-R * MC * S // 4) * 4 + MC * D) \
+                > 48 * 1024:
+            raise ValueError("tp_scalar: the 8-lane forward's block does not fit")
+        out["fwd"] = (R, SL, MC)
+        run, chunk, splits = plan_chunk_l2(B, N, M, F)
+        if -(-run // X2_Q) * F > X2_THREADS or 4 * (-(-run * F // 4) * 4 + -(-(D + 1) // 4) * 4
+                                                   + -(-n_items // 4) * 4) > 48 * 1024:
+            raise ValueError("tp_scalar: the 8-lane dx's block does not fit")
+        out["bwd_x"] = (run, chunk, splits)
+        return out
+    keep = keep_of(F)
+    out["fwd"] = plan_chunk(B, N, M, F)
+    if 4 * (keep * F + D + 1 + n_items) > 48 * 1024:
+        raise ValueError("tp_scalar: the dx block does not fit")
+    out["bwd_x"] = plan_chunk(B, M, N, F)
+    return out
+
+
 def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                          g: torch.Tensor, need_dsh: bool, need_dw: bool = True,
                          sender_index: Optional[torch.Tensor] = None
@@ -711,51 +842,46 @@ def launch_backward_edge(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor, w
     N, F, lanes(tp)) f32 upstream gradient.  The sender-index mode computes
     dw only and refuses ``need_dsh``.  The dense 8-lane edge backward is
     ``tp_scalar_bwd_edge_l2_kernel``, a lane a unit of :func:`units_l2`
-    (at most ``E2_LANES`` units)."""
+    (at most ``E2_UNITS`` units, two a lane past 32)."""
     if sender_index is not None and need_dsh:
         raise ValueError("tp_scalar: the sender-index mode computes no dsh (the KNN phore "
                          "grid's harmonics carry no gradient)")
     B, N, M, D, S, F = _check_conv(tp, x, sh, w, g, sender_index)
-    if F > EDGE_F_MAX:
-        raise ValueError(f"tp_scalar: F = {F} channels, more than the edge backward's "
-                         f"{EDGE_F_MAX}")
     if B * N * M * max(F, S) + B * x.shape[1] * D >= 2**31 - 1:
         raise ValueError("tp_scalar: the edge backward indexes its operands with 32-bit offsets")
     l2 = lanes(tp) == K_PAD_L2
-    reach, most = sh_reach(tp), (EDGE_REACH_L2 if l2 else EDGE_REACH)
-    if reach > most:
-        raise ValueError(f"tp_scalar: the paths read {reach} harmonic components, more than "
-                         f"the edge backward's {most}")
-    dense_l2 = l2 and sender_index is None
-    if dense_l2 and len(units_l2(tp).units) > E2_LANES:
-        raise ValueError(f"tp_scalar: {len(units_l2(tp).units)} units of four channels, more "
-                         f"than the 8-lane edge backward's {E2_LANES} lanes an edge")
+    check_edge(tp, sender_index is not None)
     if not (need_dw or need_dsh):
         return None, None
     dw = torch.empty_like(w) if need_dw else None
     dsh = torch.empty_like(sh) if need_dsh else None
     bf16 = x.dtype == torch.bfloat16
-    if dense_l2:
+    if sender_index is not None:
+        _launch_idx(tp, x, sh, None, sender_index, g, None, dw)
+        counter(BWD_EDGE, BWD_EDGE_L2, BWD_EDGE_IDX, BWD_EDGE_IDX_L2, sender_index,
+                l2).launches += 1
+        return dw, dsh
+    if l2:
         units, uscale, comp_ptr, comp_item, vec = _device_units(tp, str(x.device), x.dtype)
         n_items = int(units_l2(tp).comp_ptr[-1])
+        G = units.shape[0]
         rc = _library().dp_tp_scalar_bwd_edge_l2_dense(
             x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), units.data_ptr(),
             uscale.data_ptr(), comp_ptr.data_ptr(), comp_item.data_ptr(), _ptr(dw), _ptr(dsh), B,
-            N, M, D, S, F, units.shape[0], n_items, int(vec),
-            _edge_blocks_l2(need_dsh, vec, S, n_items, bf16, str(x.device)), int(bf16),
+            N, M, D, S, F, G, n_items, int(vec),
+            _edge_blocks_l2(need_dsh, vec, S, n_items, G, bf16, str(x.device)), int(bf16),
             _stream(x.device))
         _raise_on(rc, "tp_scalar_bwd_edge_l2")
         BWD_EDGE_L2.launches += 1
         return dw, dsh
     chan, scale, _, _ = _device_conv_tables(tp, str(x.device), x.dtype)
-    launch = _library().dp_tp_scalar_bwd_edge_l2 if l2 else _library().dp_tp_scalar_bwd_edge
-    rc = launch(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), _ptr(sender_index), g.data_ptr(),
-        chan.data_ptr(), scale.data_ptr(), _ptr(dw), _ptr(dsh), B, N, M, x.shape[1], D, S, F,
-        reach, int(x_quads(tp)), _edge_blocks(need_dsh, bf16, str(x.device), l2), int(bf16),
+    rc = _library().dp_tp_scalar_bwd_edge(
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), g.data_ptr(), chan.data_ptr(),
+        scale.data_ptr(), _ptr(dw), _ptr(dsh), B, N, M, D, S, F, sh_reach(tp),
+        int(x_quads(tp)), _edge_blocks(need_dsh, bf16, str(x.device)), int(bf16),
         _stream(x.device))
-    _raise_on(rc, "tp_scalar_bwd_edge_l2" if l2 else "tp_scalar_bwd_edge")
-    counter(BWD_EDGE, BWD_EDGE_L2, BWD_EDGE_IDX, BWD_EDGE_IDX_L2, sender_index, l2).launches += 1
+    _raise_on(rc, "tp_scalar_bwd_edge")
+    BWD_EDGE.launches += 1
     return dw, dsh
 
 

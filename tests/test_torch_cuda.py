@@ -745,7 +745,7 @@ def test_tp_fused_l2_layout_fits_two_blocks_an_sm(cuda, sig):
     for C in (1, 2):
         for esize in (4, 2):
             smem = lib.dp_tp_fused_l2_smem(C, E, E, *dims[:4], tp_fused.MAX_SENDERS_L2,
-                                           dims[4], esize)
+                                           dims[4], esize, 0)
             assert 0 < smem <= tp_fused.SMEM_L2, (C, esize, smem)
 
 
@@ -933,7 +933,7 @@ def test_tp_aggregate_l2_layout_count_matches_the_plain_count(cuda, sig):
         for esize in (4, 2):
             assert lib.dp_tp_aggregate_l2_smem(int(dx), *sizes, esize) == \
                 layouts.k2_l2_smem(dx, *sizes, esize), (dx, esize)
-            assert lib.dp_tp_aggregate_l2_blocks_per_sm(int(dx), *sizes, int(esize == 2)) >= 2
+            assert lib.dp_tp_aggregate_l2_blocks_per_sm(int(dx), *sizes, 8, int(esize == 2)) >= 2
 
 
 L2_K3_COUNTERS = (tp_scalar.FWD_L2, tp_scalar.BWD_EDGE_L2, tp_scalar.BWD_X_L2)
@@ -1297,10 +1297,10 @@ def test_tp_aggregate_edge_and_index_dx_layout_counts(cuda, sig):
     for dsh in (0, 1):
         if tp_fused.lanes(tp) != 8:       # the dense edge backward takes 8-lane products
             break
-        assert lib.dp_tp_aggregate_edge_l2_smem(dsh, D, F, PT, PS) == \
+        assert lib.dp_tp_aggregate_edge_l2_smem(dsh, D, F, PT, PS, 32) == \
             layouts.edge_l2_smem(bool(dsh), D, F, PT, PS)
         for bf16 in (0, 1):
-            assert lib.dp_tp_aggregate_edge_l2_blocks_per_sm(dsh, D, F, PT, PS, bf16) >= 2
+            assert lib.dp_tp_aggregate_edge_l2_blocks_per_sm(dsh, D, F, PT, PS, 32, bf16) >= 2
     lanes = tp_fused.lanes(tp)
     for esize in (4, 2):
         assert lib.dp_tp_aggregate_idx_dx_l2_smem(D, F, len(ptab), TS, GS, n_items, esize,
@@ -1688,6 +1688,210 @@ def test_tp_scalar_l2_forward_plans(cuda, dtype):
             layouts.k3_fwd_l2_smem(R, SL, F, MC, S, D)
         assert lib.dp_tp_scalar_fwd_l2_dense_blocks_per_sm(R, SL, G, F, MC, S, D, 1, bf16) >= 2
     for dsh in (0, 1):
-        assert lib.dp_tp_scalar_bwd_edge_l2_dense_smem(dsh, S, n) == \
+        assert lib.dp_tp_scalar_bwd_edge_l2_dense_smem(dsh, S, n, G) == \
             layouts.k3_edge_l2_smem(bool(dsh), S, n)
-        assert lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(dsh, 1, S, n, bf16) >= 2
+        assert lib.dp_tp_scalar_bwd_edge_l2_dense_blocks_per_sm(dsh, 1, S, n, G, bf16) >= 2
+
+
+# ---- model widths past corpus2's (ns / nv up to 64 / 32) ----
+
+#: (ns, nv) of the width cases: E = H = 3 ns not a multiple of four (22),
+#: H past 64 (24, 32), F past the 4-lane kernels' old 160 / 256 (32 / 16,
+#: 48 / 10), and the widest the kernels take (64 / 32)
+WIDTHS = [(22, 6), (24, 8), (32, 16), (48, 10), (64, 32)]
+
+
+def _width_convs(ns, nv, l2):
+    """(tp, E, H, sender-index) of each distinct convolution of the port's
+    ScoreModel at these widths (the phore-phore convs also in the
+    sender-index mode)."""
+    from diffphore_torch.models.layers import DenseTPConv
+    from diffphore_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    model = ScoreModel(ScoreModelConfig(ns=ns, nv=nv, use_second_order_repr=l2))
+    seen, out = set(), []
+    for name, m in model.named_modules():
+        if not (isinstance(m, DenseTPConv) and m.channelwise):
+            continue
+        E, H = m.fc_w1.shape
+        for indexed in (False, True) if name.startswith("encoder.phore_conv_") else (False,):
+            key = (repr(m.tp.irreps_in), repr(m.tp.irreps_sh), repr(m.tp.irreps_out), E, H,
+                   indexed)
+            if key not in seen:
+                seen.add(key)
+                out.append((m.tp, E, H, indexed))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])
+@pytest.mark.parametrize("widths", WIDTHS, ids=[f"{a}-{b}" for a, b in WIDTHS])
+def test_kernels_at_model_widths(cuda, widths, l2, dtype):
+    """Every distinct convolution of the model at these widths, dense and
+    (phore-phore) sender-index: K1 against its plain version (two edge
+    channels; f32 to 1e-4 of scale, bf16 the JAX package's bf16 conv to
+    3e-2), and the training aggregate (K3 where every path has l_in = 0,
+    else K2) forward, dw, dsh (dense) and dx against autograd through the
+    plain version (f32 1e-4 of scale; bf16: the forward to 1e-5, each
+    gradient element within a bf16 rounding step).  Each kernel launches
+    once (its counter moves, no plain route), and a rerun is bit-equal."""
+    ns, nv = widths
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(ns * 100 + nv)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    for tp, E, H, indexed in _width_convs(ns, nv, l2):
+        B, N, M, Mx = (2, 13, 11, 29) if indexed else (2, 13, 29, 29)
+        F, D = tp.weight_numel, tp.irreps_in.dim
+        x = t(rng.normal(size=(B, Mx, D)))
+        sh = t(rng.normal(size=(B, N, M, tp.irreps_sh.dim)))
+        idx = (torch.from_numpy(rng.integers(0, Mx, (B, N, M)).astype(np.int32)).to(cuda)
+               if indexed else None)
+        kw = {} if idx is None else {"sender_index": idx}
+        masks = [torch.from_numpy(rng.random((B, N, M)) > 0.3).to(cuda) for _ in range(2)]
+        attrs = [t(rng.normal(size=(B, N, M, E))) for _ in range(2)]
+        w1, b1 = t(rng.normal(size=(E, H)) / np.sqrt(E)), t(rng.normal(size=(H,)) * 0.1)
+        w2, b2 = t(rng.normal(size=(H, F)) / np.sqrt(H)), t(rng.normal(size=(F,)) * 0.1)
+        what = (repr(tp.irreps_in), repr(tp.irreps_out), E, indexed)
+
+        low = (x.to(dt), sh.to(dt), [a.to(dt) for a in attrs])
+        k1 = tp_fused.counter(tp_fused.KERNEL, tp_fused.KERNEL_L2, tp_fused.KERNEL_IDX,
+                              tp_fused.KERNEL_IDX_L2, idx, l2)
+        before = k1.launches
+        got = [tp_fused.tp_aggregate_fused(tp, *low, masks, w1, b1, w2, b2, **kw)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        assert k1.launches == before + 2, what
+        assert torch.equal(got[0], got[1]), what
+        ref = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, w1, b1, w2, b2, **kw)
+        tol = 1e-4 if dt == torch.float32 else 3e-2
+        assert float((got[0] - ref).abs().max()) <= tol * float(ref.abs().max()), what
+
+        w = (t(rng.normal(size=(B, N, M, F))) * masks[0][..., None]).to(dt)
+        g = t(rng.normal(size=(B, N, F, tp_fused.lanes(tp))))
+        scalar = tp_scalar.all_scalar_paths(tp)
+        mod = tp_scalar if scalar else tp_aggregate
+        plain = (tp_scalar.scalar_paths_aggregate_plain if scalar
+                 else tp_aggregate.tp_aggregate_plain)
+        op = tp_scalar.scalar_paths_aggregate if scalar else tp_aggregate.tp_aggregate
+        need_dsh = idx is None
+        leaves = [v.detach().float().clone().requires_grad_(True)
+                  for v in (x.to(dt), sh.to(dt), w)]
+        ref = plain(tp, *(v.to(dt) for v in leaves), **kw)
+        ref_grads = torch.autograd.grad(ref, leaves if need_dsh else [leaves[0], leaves[2]],
+                                        g * _lanes(tp, g))
+        counters = [tp_fused.counter(getattr(mod, k), getattr(mod, k + "_L2"),
+                                     getattr(mod, k + "_IDX"), getattr(mod, k + "_IDX_L2"), idx,
+                                     l2) for k in ("FWD", "BWD_EDGE", "BWD_X")]
+        runs = []
+        for _ in range(2):
+            before = [k.launches for k in counters]
+            mine = [v.detach().clone().requires_grad_(need)
+                    for v, need in ((x.to(dt), True), (sh.to(dt), need_dsh), (w, True))]
+            out = op(tp, *mine, **kw)
+            grads = torch.autograd.grad(out, [m for m in mine if m.requires_grad], g)
+            torch.cuda.synchronize()
+            assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 1], what
+            runs.append((out,) + tuple(grads))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), what
+        out, *grads = runs[0]
+        tol = 1e-4 if dt == torch.float32 else 1e-5
+        ref = ref.detach()
+        assert float((out - ref).abs().max()) <= tol * float(ref.abs().max()), what
+        names = ("dx", "dsh", "dw") if need_dsh else ("dx", "dw")
+        _assert_grads(names, grads, ref_grads, dt)
+
+
+def _odd_scalar_index_case(cuda, l2, dt, offset, seed=3):
+    """A layer-0 phore conv with odd widths (7 scalars in: units of four and
+    three channels, F and D not multiples of four), its operands at
+    ``offset`` elements past an aligned base, an uneven KNN index (a few
+    senders in most receivers' slots, some in none) and dead slots."""
+    tp = channelwise_tp("7x0e", SH, "7x0e + 3x1o + 3x2e" if l2 else "7x0e + 3x1o")
+    assert tp_scalar.all_scalar_paths(tp) and (tp_fused.lanes(tp) == 8) == l2
+    rng = np.random.default_rng(seed)
+    B, N, K, Mx = 3, 37, 24, 45
+    F, D, S = tp.weight_numel, tp.irreps_in.dim, tp.irreps_sh.dim
+
+    def at(a):
+        flat = torch.zeros(a.size + offset, dtype=dt, device=cuda)
+        flat[offset:] = torch.from_numpy(np.asarray(a, np.float32).ravel()).to(cuda).to(dt)
+        return flat[offset:].view(a.shape)
+
+    hot = rng.integers(0, Mx, 4)
+    idx = np.where(rng.random((B, N, K)) < 0.6, hot[rng.integers(0, 4, (B, N, K))],
+                   rng.integers(0, Mx // 2, (B, N, K))).astype(np.int32)
+    live = (rng.random((B, N, K)) > 0.25)[..., None]
+    x = at(rng.normal(size=(B, Mx, D)))
+    sh = at(rng.normal(size=(B, N, K, S)))
+    w = at(rng.normal(size=(B, N, K, F)) * live)
+    g = torch.from_numpy(rng.normal(size=(B, N, F, tp_fused.lanes(tp))).astype(np.float32))
+    return tp, x, sh, w, torch.from_numpy(idx).to(cuda), g.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tp_scalar_index_kernels_odd_widths_and_misaligned(cuda, offset, l2, dtype):
+    """The sender-index K3 forward and dw (tp_scalar_idx_kernel) at 4 and 8
+    lanes on odd widths, operands off their alignment and an uneven KNN
+    index: against the plain version (f32 1e-4 of scale; bf16 the forward
+    to 1e-5 and dw within a bf16 rounding step), one launch each on its
+    counters, bit-equal reruns."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    tp, x, sh, w, idx, g = _odd_scalar_index_case(cuda, l2, dt, offset)
+    counters = ((tp_scalar.FWD_IDX_L2, tp_scalar.BWD_EDGE_IDX_L2) if l2
+                else (tp_scalar.FWD_IDX, tp_scalar.BWD_EDGE_IDX))
+    runs = []
+    for _ in range(2):
+        before = [k.launches for k in counters]
+        out = tp_scalar.launch_forward(tp, x, sh, w, sender_index=idx)
+        dw, _ = tp_scalar.launch_backward_edge(tp, x, sh, w, g, False, sender_index=idx)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(counters, before)] == [1, 1]
+        runs.append((out, dw))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dw = runs[0]
+    leaves = [v.float().requires_grad_(True) for v in (x, w)]
+    ref = tp_scalar.scalar_paths_aggregate_plain(tp, leaves[0].to(dt), sh, leaves[1].to(dt),
+                                                 sender_index=idx)
+    ref_dw, = torch.autograd.grad(ref, [leaves[1]], g * _lanes(tp, g))
+    tol = 1e-4 if dt == torch.float32 else 1e-5
+    ref = ref.detach()
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    _assert_grads(("dw",), (dw,), (ref_dw,), dt)
+    F, S = tp.weight_numel, tp.irreps_sh.dim
+    for want_dw in (0, 1):      # the library's count of its shared memory, the plain one's
+        R, SL, MC = tp_scalar.plan_idx(tp, *idx.shape, bool(want_dw))
+        assert tp_scalar._library().dp_tp_scalar_idx_smem(want_dw, R, SL, F, MC, S) == \
+            tp_scalar.idx_smem(bool(want_dw), R, SL, F, MC, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", WIDTHS, ids=[f"{a}-{b}" for a, b in WIDTHS])
+def test_k1_plans_count_the_libraries_shared_memory(cuda, widths):
+    """``tp_fused.plan``'s count of a block's shared memory (the layouts'
+    sums restated in Python, which pick the form and the senders a block)
+    equals the library's own (``dp_tp_fused_smem``, ``dp_tp_fused_l2_smem``)
+    on every conv of the model at these widths, l <= 1 and l = 2, one and
+    two edge channels, f32 and bf16, dense and sender-index."""
+    lib = tp_fused._library()
+    for l2 in (False, True):
+        for tp, E, H, indexed in _width_convs(*widths, l2):
+            for C in (1, 2):
+                for esize in (4, 2):
+                    pl = tp_fused.plan(tp, 40, 24, 96, C, E, H, esize, indexed)
+                    if tp_fused.lanes(tp) == 8:
+                        *_, dims = tp_fused.tables_tiled_l2(tp)
+                        got = lib.dp_tp_fused_l2_smem(C, E, H, *dims[:4], pl.per_block,
+                                                      dims[4], esize, int(pl.wide))
+                    else:
+                        tiles = tp_fused.channel_tiles(tp, tp_fused.MAX_F)
+                        got = lib.dp_tp_fused_smem(C, E, H, tp.irreps_in.dim, len(tp.paths),
+                                                   pl.per_block, tp.weight_numel, int(indexed),
+                                                   int(pl.wide),
+                                                   max(pc for *_, pc in tiles) if pl.wide else 1)
+                    assert got == pl.smem, (repr(tp.irreps_in), C, esize, indexed)

@@ -15,6 +15,8 @@ numpy-seeded inputs: f32 to 1e-5 of the result's scale (the sides differ by
 summation order, as in tests/test_torch_knn.py).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -1118,7 +1120,7 @@ def test_k3_l2_units_take_each_channel_once_within_a_path(sig):
         seen += range(f0, f0 + cnt)
     assert seen == list(range(F))
     assert t.vec == (sig in ("layer0", "wide"))
-    assert len(t.units) <= tp_scalar.E2_LANES
+    assert len(t.units) <= tp_scalar.E2_UNITS
     for s in range(S):
         want = [j * tp_scalar.KM + s - off for j, (_, _, off, kc) in enumerate(t.units.tolist())
                 if off <= s < off + (kc & 7)]
@@ -1279,3 +1281,249 @@ def test_k3_edge_l2_reproduces_the_plain_and_jax_dw_and_dsh(sig, B, N, M):
             jnp.asarray(sh), jnp.asarray(w))
     for got, want in ((dw, np.asarray(jdw)), (dsh, np.asarray(jdsh))):
         assert float(np.abs(got.numpy() - want).max()) <= TOL * float(np.abs(want).max())
+
+
+# ---- model widths past corpus2's: the wide K1, the 4-lane tiled K2, the
+# 8-lane edge backward's slots, K3's two unit groups and its sender-index kernel
+
+def _seq(ns, nv, l2):
+    from diffphore_torch.models.encoder import irrep_seq
+    return irrep_seq(ns, nv, l2)
+
+
+#: (in irreps, out irreps) of wide convs at 4 lanes: F = 256, 272 and 512
+WIDE_SIGNATURES = {
+    "32-16-layer3": (_seq(32, 16, False)[3], _seq(32, 16, False)[3]),
+    "48-10-layer3": (_seq(48, 10, False)[3], _seq(48, 10, False)[3]),
+    "64-32-layer3": (_seq(64, 32, False)[3], _seq(64, 32, False)[3]),
+    "64-32-layer2": (_seq(64, 32, False)[2], _seq(64, 32, False)[3]),
+}
+
+
+@pytest.mark.parametrize("sig", list(WIDE_SIGNATURES))
+def test_k1_wide_channel_tiles_cover_every_channel_once_at_path_boundaries(sig):
+    """The 4-lane wide K1's channel tiles (``channel_tiles(tp, MAX_F)``):
+    consecutive, each starting at a path's first channel and holding whole
+    paths (p0 .. p0 + pc - 1), at most ``MAX_F`` channels, every channel of
+    the row once; the launch plan takes them."""
+    irr_in, irr_out = WIDE_SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, SH, irr_out)
+    tiles = tp_fused.channel_tiles(tp, tp_fused.MAX_F)
+    f_next, p_next = 0, 0
+    for f0, fc, p0, pc in tiles:
+        assert (f0, p0) == (f_next, p_next) and 1 <= fc <= tp_fused.MAX_F
+        assert tp.paths[p0].w_slice[0] == f0 and tp.paths[p0 + pc - 1].w_slice[1] == f0 + fc
+        f_next, p_next = f0 + fc, p0 + pc
+    assert (f_next, p_next) == (tp.weight_numel, len(tp.paths))
+    pl = tp_fused.plan(tp, 40, 24, 96, 2, 96, 96, 4, False)
+    assert pl.wide and pl.tiles == tuple((f0, fc) for f0, fc, _, _ in tiles)
+
+
+def _wide_edge_weights(attrs, masks, w1, b1, w2, b2, hp=64):
+    """The wide K1's f32 edge MLP in its grouping (``tp_fused_kernel`` with
+    WIDE): attributes padded with zeros to a multiple of four; the hidden
+    layer in chunks of ``hp`` units, lane l of a warp forming units hc + l
+    and hc + l + 32, each whole over E; the second product summed over the
+    chunks in order, then msum b2.  Returns w and the units each chunk
+    formed."""
+    E, H = w1.shape
+    ep = -(-E // 4) * 4
+    pad = lambda a: torch.nn.functional.pad(a, (0, ep - E))
+    w1p = torch.nn.functional.pad(w1, (0, 0, 0, ep - E))
+    wacc, formed = 0.0, []
+    msum = sum(m.float() for m in masks)
+    for hc in range(0, H, hp):
+        units = [u for lane in range(32) for u in (hc + lane, hc + lane + 32) if u < H]
+        formed += units
+        cols = torch.tensor(sorted(units))
+        hid = sum(m.float()[..., None] * torch.relu(pad(a) @ w1p[:, cols] + b1[cols])
+                  for a, m in zip(attrs, masks))
+        wacc = wacc + hid @ w2[cols]
+    return wacc + msum[..., None] * b2, formed
+
+
+@pytest.mark.parametrize("E,H", [(66, 66), (72, 72), (96, 96), (144, 144), (192, 192), (44, 44)])
+def test_k1_wide_hidden_chunks_cover_every_unit_once(E, H):
+    """The wide K1's hidden chunks form every hidden unit exactly once, and
+    its grouping of the edge MLP (E padded to a multiple of four, the second
+    product summed over the chunks) gives the plain version's edge weights
+    to 1e-5 of their scale (f32)."""
+    rng = np.random.default_rng(E + H)
+    B, N, M, F = 2, 3, 5, 40
+    f = lambda *shape: T(rng.normal(size=shape).astype(np.float32))
+    attrs = [f(B, N, M, E) for _ in range(2)]
+    masks = [T(rng.random((B, N, M)) > 0.3) for _ in range(2)]
+    w1, b1, w2, b2 = f(E, H) / np.sqrt(E), f(H) * 0.1, f(H, F) / np.sqrt(H), f(F) * 0.1
+    got, formed = _wide_edge_weights(attrs, masks, w1, b1, w2, b2)
+    assert sorted(formed) == list(range(H))
+    want = tp_fused.edge_weights(attrs, masks, w1, b1, w2, b2)
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    assert not tp_fused.narrow(E, H, F) or (E, H) == (44, 44)
+
+
+@pytest.mark.parametrize("sig,splits", [("48-10-layer3", 1), ("64-32-layer2", 2)])
+def test_tiled_k2_at_4_lanes_reproduces_the_plain_and_jax_aggregate_and_dx(sig, splits):
+    """A 4-lane row wider than the split kernels' ``SPLIT_F_MAX`` takes the
+    tiled forward and dx (``tp_aggregate.tiled``) at 4 lanes: read from their
+    tables as the kernels read them, on several channel tiles, against
+    ``tp_aggregate_plain`` and its gradient in x and the JAX package's
+    aggregate and gradient, to 1e-5 of each result's scale."""
+    irr_in, irr_out = WIDE_SIGNATURES[sig]
+    tp = channelwise_tp(irr_in, SH, irr_out)
+    assert tp_fused.lanes(tp) == 4 and tp_aggregate.tiled(tp)
+    assert len(tp_fused.channel_tiles(tp)) > 1
+    rng = np.random.default_rng(23)
+    B, N, M = 2, 3, 5
+    F, D = tp.weight_numel, tp.irreps_in.dim
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    x, sh = f(B, M, D), f(B, N, M, tp.irreps_sh.dim)
+    w = f(B, N, M, F) * (rng.random((B, N, M, 1)) > 0.4).astype(np.float32)
+    g, mask = _upstream(tp, rng, B, N, 4)
+    got_out, got_dx = _tiled_k2(tp, T(x), T(sh), T(w), T(np.pad(g, [(0, 0)] * 3 + [(0, 4)])),
+                                splits)
+    got_out = got_out[..., :4]
+    xl = T(x).requires_grad_(True)
+    want = tp_aggregate.tp_aggregate_plain(tp, xl, T(sh), T(w))
+    (want_dx,) = torch.autograd.grad(want, [xl], T(g * mask))
+    for got_, want_ in ((got_out, want.detach()), (got_dx, want_dx)):
+        assert float((got_ - want_).abs().max()) <= TOL * float(want_.abs().max())
+    jt = jtp.channelwise_tp(irr_in, SH, irr_out)
+
+    def jout(x_):
+        return _jax_padded(tp, jt.aggregate(x_, jnp.asarray(sh), jnp.asarray(w)), 4)
+
+    j_dx = np.asarray(jax.grad(lambda x_: (jout(x_) * g * mask).sum())(jnp.asarray(x)))
+    for got_, want_ in ((got_out.numpy(), np.asarray(jout(jnp.asarray(x)))),
+                        (got_dx.numpy(), j_dx)):
+        assert float(np.abs(got_ - want_).max()) <= TOL * float(np.abs(want_).max())
+
+
+@pytest.mark.parametrize("ns,nv", [(32, 16), (48, 10), (64, 32), (4, 32)])
+def test_edge_slots_l2_fit_and_cover_the_senders(ns, nv):
+    """The dense 8-lane edge backward's senders a block
+    (``edge_slots_l2``): 32 where the block's rows fit, else the most of 24,
+    16 and 8 that fit the shared memory beside P; the grid's blocks take
+    every sender once."""
+    for i in range(1, 4):
+        tp = channelwise_tp(_seq(ns, nv, True)[i], SH, _seq(ns, nv, True)[min(i + 1, 3)])
+        _, _, _, (PT, PS, _, _) = tp_aggregate.path_tables_l2(tp)
+        D, F = tp.irreps_in.dim, tp.weight_numel
+        for dsh in (False, True):
+            slots = tp_aggregate.edge_slots_l2(tp, dsh)
+            assert layouts.edge_l2_smem(dsh, D, F, PT, PS, slots) <= tp_fused.SMEM
+            bigger = [s for s in (32, 24, 16, 8) if s > slots]
+            assert all(layouts.edge_l2_smem(dsh, D, F, PT, PS, s) > tp_fused.SMEM
+                       for s in bigger)
+            for M in (1, 24, 96, 97):
+                blocks, rn = tp_aggregate.edge_grid_l2(24, 96, M, slots=slots)
+                taken = sorted(m for bx in range(-(-M // slots))
+                               for m in range(bx * slots, min(M, (bx + 1) * slots)))
+                assert taken == list(range(M)) and blocks == -(-M // slots) * -(-96 // rn) * 24
+    assert tp_aggregate.edge_slots_l2(
+        channelwise_tp(_seq(20, 10, True)[3], SH, _seq(20, 10, True)[3]), True) == 32
+
+
+@pytest.mark.parametrize("ns", [32, 48, 64])
+def test_k3_edge_l2_two_unit_groups_take_each_unit_once(ns):
+    """Past 32 units of four channels (ns = 48, 64 at l = 2) the dense
+    8-lane edge backward gives lane j units j and j + 32: every unit once;
+    at most ``E2_UNITS``; the emulation of its arithmetic (the same per unit
+    whatever its lane) against the plain version."""
+    tp = channelwise_tp(_seq(ns, 10, True)[0], SH, _seq(ns, 10, True)[1])
+    G = len(tp_scalar.units_l2(tp).units)
+    assert G <= tp_scalar.E2_UNITS and (G > 32) == (ns > 32)
+    lanes = [j + 32 * ug for j in range(32) for ug in range(2 if G > 32 else 1) if j + 32 * ug < G]
+    assert sorted(lanes) == list(range(G))
+    tp_scalar.check_edge(tp, False)
+    rng = np.random.default_rng(ns)
+    B, N, M = 2, 3, 4
+    x = rng.normal(size=(B, M, tp.irreps_in.dim)).astype(np.float32)
+    sh = rng.normal(size=(B, N, M, 9)).astype(np.float32)
+    w = rng.normal(size=(B, N, M, tp.weight_numel)).astype(np.float32)
+    g, _ = _upstream(tp, rng, B, N, 8)
+    dw, dsh = _k3_edge_l2(tp, T(x), T(sh), T(w), T(g))
+    want_dw, want_dsh = tp_scalar.scalar_paths_backward_edge_plain(tp, T(x), T(sh), T(w), T(g),
+                                                                   True)
+    for got, want in ((dw, want_dw), (dsh, want_dsh)):
+        assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+
+
+def _k3_idx(tp, x, sh, w, idx, g, SL, MC, lanes):
+    """The sender-index K3 forward's and dw's f32 arithmetic in the kernel's
+    grouping (``tp_scalar_idx_kernel``), in plain PyTorch: per receiver and
+    unit, its slots in chunks of MC, slice s taking slots s, s + SL, ... of
+    each chunk in order (x read at the index), the slices added in order,
+    times c_p; dw = x sum_k sh[off + k] c_p g[k] slot by slot."""
+    t = tp_scalar.units_l2(tp)
+    B, N, K, _ = sh.shape
+    xg = torch.stack([x[b][idx[b].long()] for b in range(B)])          # (B, N, K, D)
+    out = torch.zeros((B, N, tp.weight_numel, lanes))
+    dw = torch.zeros_like(w)
+    for (f0, d0, off, kc), c in zip(t.units.tolist(), t.scale.tolist()):
+        Kp, cnt = kc & 7, kc >> 3
+        term = (xg[..., d0:d0 + cnt] * w[..., f0:f0 + cnt])[..., None] * sh[..., None, off:off + Kp]
+        total = torch.zeros((B, N, cnt, Kp))
+        for s in range(SL):
+            acc = torch.zeros((B, N, cnt, Kp))
+            for c0 in range(0, K, MC):
+                for m in range(c0 + s, min(K, c0 + MC), SL):
+                    acc = acc + term[:, :, m]
+            total = total + acc
+        out[:, :, f0:f0 + cnt, :Kp] = c * total
+        coef = c * g[:, :, None, f0:f0 + cnt, :Kp]
+        dw[..., f0:f0 + cnt] = xg[..., d0:d0 + cnt] * (sh[..., None, off:off + Kp] * coef).sum(-1)
+    return out, dw
+
+
+@pytest.mark.parametrize("ns,l2", [(20, False), (48, False), (64, True), (7, True)],
+                         ids=["20-4-lanes", "48-4-lanes", "64-8-lanes", "7-8-lanes"])
+def test_k3_idx_plan_and_grouping_match_the_plain_and_jax(ns, l2):
+    """The sender-index K3 forward and dw (``tp_scalar_idx_kernel``): its
+    plan (``plan_idx``) keeps a block within ``F2_THREADS`` threads and 48
+    KB, its chunks (a multiple of the slices) and slices take every slot
+    once, and its grouping of the arithmetic gives the plain version's and
+    the JAX package's forward and dw on an uneven index (most slots on a few
+    senders) to 1e-5 of their scale; odd widths (ns = 7: units of three)
+    too."""
+    tp = channelwise_tp(_seq(ns, 4, l2)[0], SH, _seq(ns, 4, l2)[1])
+    lanes = 8 if l2 else 4
+    assert tp_fused.lanes(tp) == lanes and tp_scalar.all_scalar_paths(tp)
+    G = len(tp_scalar.units_l2(tp).units)
+    S, D, F = tp.irreps_sh.dim, tp.irreps_in.dim, tp.weight_numel
+    for (B, N, K), dw in itertools.product(((24, 96, 24), (40, 96, 24), (1, 1, 1), (3, 37, 50)),
+                                           (False, True)):
+        R, SL, MC = tp_scalar.plan_idx(tp, B, N, K, dw)
+        assert R * SL * G <= tp_scalar.F2_THREADS and MC % SL == 0 and R <= N
+        # a thread takes at most IDX_SLOTS (dw: IDX_SLOTS_DW) slots of a chunk, unless the
+        # block's threads forbid
+        most = tp_scalar.IDX_SLOTS_DW if dw else tp_scalar.IDX_SLOTS
+        assert -(-min(K, MC) // SL) <= most or (SL + 1) * G > tp_scalar.F2_THREADS
+        assert tp_scalar.idx_smem(dw, R, SL, F, MC, S) <= 48 * 1024
+        taken = sorted(m for c0 in range(0, K, MC) for s in range(SL)
+                       for m in range(c0 + s, min(K, c0 + MC), SL))
+        assert taken == list(range(K))
+    rng = np.random.default_rng(ns + lanes)
+    B, N, K, Mx = 2, 5, 7, 6
+    hot = rng.integers(0, Mx, 2)
+    idx = np.where(rng.random((B, N, K)) < 0.6, hot[rng.integers(0, 2, (B, N, K))],
+                   rng.integers(0, Mx, (B, N, K))).astype(np.int32)
+    x = rng.normal(size=(B, Mx, D)).astype(np.float32)
+    sh = rng.normal(size=(B, N, K, S)).astype(np.float32)
+    w = (rng.normal(size=(B, N, K, F)) * (rng.random((B, N, K, 1)) > 0.3)).astype(np.float32)
+    g, mask = _upstream(tp, rng, B, N, lanes)
+    for SL, MC in ((1, 7), (3, 3), (2, 4)):
+        out, dw = _k3_idx(tp, T(x), T(sh), T(w), T(idx), T(g), SL, MC, lanes)
+        want = tp_scalar.scalar_paths_aggregate_plain(tp, T(x), T(sh), T(w), T(idx))
+        want_dw, _ = tp_scalar.scalar_paths_backward_edge_plain(tp, T(x), T(sh), T(w), T(g),
+                                                                False, sender_index=T(idx))
+        for got, ref in ((out, want), (dw, want_dw)):
+            assert float((got - ref).abs().max()) <= TOL * float(ref.abs().max())
+    jt = jtp.channelwise_tp(_seq(ns, 4, l2)[0], SH, _seq(ns, 4, l2)[1])
+    xg = jnp.asarray(np.stack([x[b][idx[b]] for b in range(B)]))    # the senders by slot
+
+    def jout(w_):
+        return _jax_padded(tp, jt.aggregate(xg, jnp.asarray(sh), w_), lanes)
+
+    jdw = np.asarray(jax.grad(lambda w_: (jout(w_) * g * mask).sum())(jnp.asarray(w)))
+    for got, ref in ((out.numpy(), np.asarray(jout(jnp.asarray(w)))), (dw.numpy(), jdw)):
+        assert float(np.abs(got - ref).max()) <= TOL * float(np.abs(ref).max())

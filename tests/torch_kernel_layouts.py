@@ -51,12 +51,13 @@ def k3_dx_l2_smem(F: int, D: int, ni: int, run: int) -> int:
     return 4 * (pad4(run * F) + pad4(D + 1) + pad4(ni))
 
 
-def edge_l2_smem(dsh: bool, D: int, F: int, pt: int, ps: int) -> int:
+def edge_l2_smem(dsh: bool, D: int, F: int, pt: int, ps: int, slots: int = 32) -> int:
     """Bytes of the 8-lane edge backward's block (``edge_layout``): the
-    receiver's P (PT floats), 32 senders' x rows (D | 1 floats each), their
-    rows of w, then dw (F | 1 floats), their harmonics (13 floats) and, with
-    dsh, the paths' sums (PS floats)."""
-    return 4 * (pad4(pt) + 32 * (D | 1) + 32 * (F | 1) + 32 * 13 + (ps if dsh else 0))
+    receiver's P (PT floats), its senders' x rows (32, or fewer on the
+    widest rows: D | 1 floats each), their rows of w, then dw (F | 1
+    floats), their harmonics (13 floats) and, with dsh, the paths' sums (PS
+    floats)."""
+    return 4 * (pad4(pt) + slots * (D | 1) + slots * (F | 1) + slots * 13 + (ps if dsh else 0))
 
 
 def idx_dx_l2_smem(D: int, F: int, n_paths: int, ts: int, gs: int, ni: int, esize: int,
@@ -86,9 +87,10 @@ def k3_fwd_l2_smem(R: int, SL: int, F: int, MC: int, S: int, D: int) -> int:
 
 
 def k3_edge_l2_smem(dsh: bool, S: int, n_items: int) -> int:
-    """Bytes of the dense 8-lane K3 edge backward's block: with dsh, each of
-    its 256 lanes' five sums, then the component lists (S + 1 extents,
-    n_items entries); without, a one-float placeholder."""
+    """Bytes of the dense 8-lane K3 edge backward's block (at most 32 units
+    an edge): with dsh, each of its 256 lanes' five sums, then the component
+    lists (S + 1 extents, n_items entries); without, a one-float
+    placeholder."""
     return 4 * (256 * 5 + S + 1 + n_items) if dsh else 4
 
 
