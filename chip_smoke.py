@@ -110,16 +110,15 @@ Phases, each fatal on failure:
      validation batch, exactly; K2 and K3 held as in 5 on one training-mode
      forward of a recipe batch (24 rows, repeat-padded); three timed steps
      at the bucket (peak memory); the trainer again on the same CSVs
-     featurizes nothing; the same train records into fresh caches serially
-     and with the 4 processes, in turns (1, 4, 4, 1), the same files each
-     time; one record of each kind (SDF, SMILES, sub-phore, conformer)
+     featurizes nothing; the same train records into a fresh cache by one
+     process, the files the 4 processes wrote; one record of each kind (SDF, SMILES, sub-phore, conformer)
      featurized serially; ``cli.evaluate.main`` on three rows of
      test.csv and EX01.sdf with the corpus2 model and head, 40 poses x 20
      steps, ``--use_symmetry_rmsd true``: K1 exactly 481 launches per
      evaluated complex, the artifact set, finite metrics; K1 against its
      plain version on the 23 conv inputs of one forward at the bucket, as
      in 11.  Prints featurization ms per complex (serial and with the
-     workers, and the turns' walls), dispatch and RMSD ms per complex.
+     workers, and the one process's wall), dispatch and RMSD ms per complex.
   13. scale-out on the one card: a bf16 train step of phase 5's batch over
      NCCL at world size 1, bit-equal to the step without a process group;
      the same step over two gloo ranks sharing the card (12 rows each,
@@ -128,7 +127,7 @@ Phases, each fatal on failure:
      runs it at the recipe's bucket too, and times K1 over one evaluation
      forward there); 12 SDF complexes through one ``cli.inference`` process
      and through two striped ones at once, then rank 0's merge; phase 11's
-     six rows through ``main()`` with 0, 2, 2, 0 featurization processes,
+     six rows through ``main()`` with 0, then 2 featurization processes,
      the artifact sets equal but for ``run_time``, K1 exact.  Prints the
      walls, each process's start-up (launch to first dispatch) and poses/s
      over the wall and over the dispatch window the CLI logs.
@@ -222,7 +221,8 @@ Phases, each fatal on failure:
      plain convs; K2 and K3 held on the 17 + 6 conv calls of one
      training-mode forward (phase 5's check); one train step of 24 (K2 17 x
      3, K3 6 x 3 exactly), its wall and busy time; one dispatch of one
-     complex x 40 poses x 20 steps (K1 exactly 460), its poses/s; a
+     complex x 40 poses x 20 steps (K1 exactly 460), its poses/s, and a
+     dispatch of 2 steps traced (busy time on the card, K1's part); a
      ``widths`` summary line.
   14. report: the kernels' JSON line (each kernel's launches per path, phase
      18's as ``launches_synthetic_pretrain`` and ``launches_host_modules_screen``, and
@@ -2173,7 +2173,7 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
 
         # ---- featurization inline, as the CLI does it, against two threads
         # featurizing ahead of the dispatches, as a prefetch pool would: the
-        # six rows through the screen's engine, A-B-A, each timed end to end
+        # six rows through the screen's engine, once each, timed end to end
         from concurrent.futures import ThreadPoolExecutor
 
         def screen(threads):
@@ -2192,7 +2192,7 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
             return time.perf_counter() - t0
 
         walls = {"inline": [], "threads": []}
-        for label in ("inline", "threads", "inline", "threads"):
+        for label in ("inline", "threads"):
             walls[label].append(screen(label == "threads"))
 
         # ---- K1 against its plain version at the screen's own shapes: the
@@ -2260,8 +2260,7 @@ def phase_screening_cli(card, device="cuda", poses=POSES, steps=STEPS):
           f"({card})", flush=True)
     print(f"screening CLI ({device}): the six rows through its engine, featurization inline "
           f"as the CLI does it against two threads featurizing ahead of the dispatches, s in "
-          f"turns: inline {walls['inline'][0]:.3f}, threads {walls['threads'][0]:.3f}, inline "
-          f"{walls['inline'][1]:.3f}, threads {walls['threads'][1]:.3f}; "
+          f"turns: inline {walls['inline'][0]:.3f}, threads {walls['threads'][0]:.3f}; "
           f"K1 at the screen's shapes against its plain version: "
           + ("; ".join(k1_checks) or "not run on the CPU") + f" ({card})", flush=True)
     return counts["k1"]
@@ -2291,8 +2290,8 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
     model and head on three test rows and an SDF (symmetry RMSD): K1 exactly
     481 launches per evaluated complex, the artifact set and finite metrics,
     K1 against its plain version at the bucket; the train records'
-    featurization serially and with the workers, in turns, and one record
-    of each kind serially.  Returns the launch counts of
+    featurization again by one process (the same files as the trainer's
+    workers wrote), and one record of each kind serially.  Returns the launch counts of
     the training and the evaluation."""
     import contextlib
     import csv
@@ -2402,22 +2401,22 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
         if [d.featurized for d, _ in built] != [0, 0] or snapshot(cache) != before:
             raise AssertionError("the second run on the same CSVs featurized again")
 
-        # ---- the same train records into fresh caches, serially and with
-        # the workers, in turns
+        # ---- the same train records into a fresh cache serially: the files
+        # of the trainer's cache, which its workers wrote
         train_args = train_cli.parse_args(argv)
         settings = train_cli.dataset_settings(train_args)
         train_records = train_cli.augmented_records(ds.records_from_csv(paths["train"]),
                                                     train_args)
-        turns, turn_files = [], []
-        for i, n in enumerate((1, workers, workers, 1)):
-            turn_cache = os.path.join(tmp, f"turn{i}")
-            t0 = time.perf_counter()
-            d = ds.PhoreDataset(train_records, settings, turn_cache, n, name="train")
-            turns.append((n, time.perf_counter() - t0))
-            turn_files.append(sorted(os.listdir(d.cache_dir)))
-            if d.featurized != len(train_records) or turn_files[-1] != turn_files[0]:
-                raise AssertionError(f"turn {i} ({n} workers) featurized {d.featurized} of "
-                                     f"{len(train_records)} records into {turn_files[-1]}")
+        t0 = time.perf_counter()
+        d = ds.PhoreDataset(train_records, settings, os.path.join(tmp, "serial"), 1,
+                            name="train")
+        serial_s = time.perf_counter() - t0
+        serial_files = sorted(os.listdir(d.cache_dir))
+        if d.featurized != len(train_records) \
+                or serial_files != sorted(os.listdir(train_ds.cache_dir)):
+            raise AssertionError(f"one process featurized {d.featurized} of "
+                                 f"{len(train_records)} records into {serial_files}, the "
+                                 f"trainer's workers {sorted(os.listdir(train_ds.cache_dir))}")
 
         # ---- serial featurization of one record of each kind
         base = ds.records_from_csv(paths["train"])[-1]
@@ -2548,8 +2547,8 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
           f"-> {len(train_ds)} complexes + {len(skips)} skipped (bucket caps), featurized with "
           f"{workers} workers in {feat_train_s + feat_val_s:.3f} s = "
           f"{1e3 * (feat_train_s + feat_val_s) / n_train:.1f} ms per complex; the "
-          f"{len(train_records)} train records into fresh caches in turns: "
-          + ", ".join(f"{n} worker(s) {t:.3f} s" for n, t in turns)
+          f"{len(train_records)} train records into a fresh cache by one process "
+          f"{serial_s:.3f} s (the trainer's {workers} workers {feat_train_s:.3f} s)"
           + "; serial ms per complex: " + ", ".join(f"{k} {v:.1f}" for k, v in serial_ms.items())
           + f"; {n_steps} steps over {RAW_EPOCHS} epochs in {wall:.3f} s (featurization "
           f"included), losses " + " ".join(f"{r['loss']:.4f}" for r in train_rec)
@@ -2577,7 +2576,7 @@ def phase_raw_files(card, device="cuda", poses=POSES, steps=STEPS, workers=RAW_W
 SCALE_WORLD = 2
 SCALE_STEP_REPEATS = 3      # timed steps after the compared one
 SCALE_SDF_COPIES = 4        # copies of the examples' three SDFs: 12 complexes to stripe
-PREFETCH_TURNS = (0, 2, 2, 0)
+PREFETCH_TURNS = (0, 2)
 
 
 def scale_out_rank(batch_path, out_path):
@@ -2871,11 +2870,12 @@ TOL_ORACLE_RMSD = 1e-3
 TOL_TANK_RELOAD = 1e-5
 
 
-def profiled_busy_ms(fn, repeats=2):
+def profiled_busy_ms(fn, repeats=2, part=None):
     """The card's busy ms per call of ``fn``: the device time of every
     kernel ``torch.profiler`` sees in ``repeats`` calls (the optimizer's
     annotation range, which repeats its kernels' time, left out); 0 when the
-    profiler sees no device time."""
+    profiler sees no device time.  With ``part``, also the ms of the kernels
+    whose name holds it."""
     import torch
 
     from diffphore_torch.cli.profile_main_path import _device_us
@@ -2888,7 +2888,10 @@ def profiled_busy_ms(fn, repeats=2):
     kernels = [e for e in prof.key_averages()
                if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA
                and not e.key.startswith("Optimizer.")]
-    return sum(_device_us(e) for e in kernels) / 1e3 / repeats
+    busy = sum(_device_us(e) for e in kernels) / 1e3 / repeats
+    if part is None:
+        return busy
+    return busy, sum(_device_us(e) for e in kernels if part in e.key) / 1e3 / repeats
 
 
 def sync(device):
@@ -4600,19 +4603,22 @@ WIDTH_CASES = (("32-16-l1", dict(ns=32, nv=16, use_second_order_repr=False)),
                ("48-10-l2", dict(ns=48, nv=10, use_second_order_repr=True)))
 WIDTH_STEP_REPEATS = 1          # timed train steps a width (after the counted one)
 WIDTH_CALIBRATION = 40          # forwards that move fresh batch norms' statistics (8 rows each)
+WIDTH_PROFILED_STEPS = 2        # steps of the dispatch traced by torch.profiler
 
 
 def phase_widths(card, jobs, train_batch, draws):
     """19: each model of ``WIDTH_CASES`` (its batch norms' statistics moved
     by ``FitEngine.calibrate_batch_stats`` first): (a) K1 held against its plain
     version on the 23 conv calls of one 40-pose forward (f32 and bf16,
-    reruns bit-equal; each call timed once at each type by graph replay), and the
-    forward kernel convs against plain convs; (b) K2 and K3 held against
+    reruns bit-equal; each call timed once at each type by graph replay; each
+    wide call's weights resident or staged), and the forward kernel convs
+    against plain convs; (b) K2 and K3 held against
     their plain versions on the 17 + 6 conv calls of one training-mode
     forward (phase 5's check); (c) one train step of 24, K2 17 x 3 and K3 6
     x 3 launches exactly, its wall and busy time; (d) one FitEngine dispatch
     of one cached complex x 40 poses x 20 steps, K1 exactly 460, its
-    poses/s.  Returns, by width, the cases, counts and times."""
+    poses/s, and the busy time on the card of a dispatch of
+    ``WIDTH_PROFILED_STEPS`` steps and K1's part of it (torch.profiler).  Returns, by width, the cases, counts and times."""
     import numpy as np
     import torch
 
@@ -4649,6 +4655,8 @@ def phase_widths(card, jobs, train_batch, draws):
             B, N, M, _ = c["sh"].shape
             pl = tp_fused.plan(c["tp"], B, N, M, len(c["attrs"]), *c["params"][0].shape, 2,
                                False)
+            pl4 = tp_fused.plan(c["tp"], B, N, M, len(c["attrs"]), *c["params"][0].shape, 4,
+                                False)
             with torch.inference_mode():
                 ms = device_ms(lambda: tp_fused.tp_aggregate_fused(
                     c["tp"], c["x"], c["sh"], c["attrs"], c["masks"], *c["params"]), 10,
@@ -4661,7 +4669,8 @@ def phase_widths(card, jobs, train_batch, draws):
                                       c["masks"], c["params"][0], c["params"][2])
             k1_cases.append({
                 "conv": name, "B": B, "N": N, "M": M, "F": c["tp"].weight_numel,
-                "E": c["params"][0].shape[0], "wide": pl.wide, "channel_tiles": len(pl.tiles),
+                "E": c["params"][0].shape[0], "wide": pl.wide, "staged": (pl4.staged, pl.staged),
+                "channel_tiles": len(pl.tiles),
                 "max_abs_err": c["err"], "max_abs_err_bf16": c["err_bf"], "ms": ms,
                 "ms_bf16": ms_bf,
                 "bound_ms": max(nbytes / PEAK_BYTES, (mm_ops + vec_ops) / PEAK_F32) * 1e3,
@@ -4677,8 +4686,11 @@ def phase_widths(card, jobs, train_batch, draws):
               f"{total['ms']:.4f} ms f32, {total['ms_bf16']:.4f} ms bf16 on the card (bound "
               f"{total['bound_ms']:.4f} / {total['bound_ms_bf16']:.4f}) ({card})", flush=True)
         for c in k1_cases:
+            form = ("wide, weights f32 / bf16 " + " / ".join(
+                f"staged by {st}" if st else "resident" for st in c["staged"])
+                if c["wide"] else "narrow")
             print(f"  {c['conv']:28s} E={c['E']:3d} F={c['F']:3d} "
-                  f"{'wide' if c['wide'] else 'narrow'} {c['channel_tiles']} tile(s) "
+                  f"{form} {c['channel_tiles']} tile(s) "
                   f"err={c['max_abs_err']:.2e} bf16_err={c['max_abs_err_bf16']:.2e} "
                   f"{c['ms']:.4f} / {c['ms_bf16']:.4f} ms (bound {c['bound_ms']:.4f} / "
                   f"{c['bound_ms_bf16']:.4f})", flush=True)
@@ -4733,25 +4745,35 @@ def phase_widths(card, jobs, train_batch, draws):
                 or not np.isfinite(r["fitscore"]).all():
             raise AssertionError(f"widths {tag}: poses or fitscores not finite")
         poses_per_s = POSES / serve_s
+        short = FitEngine(cfg, model, samples_per_complex=POSES,
+                          settings=SamplerSettings(inference_steps=WIDTH_PROFILED_STEPS),
+                          seed=SEED, device="cuda")
+        short.run_complexes(jobs[:1])           # warm-up
+        serve_busy, serve_k1 = profiled_busy_ms(lambda: short.run_complexes(jobs[:1]),
+                                                repeats=1, part="tp_fused")
         k1_name = "k1_l2" if l2 else "k1"
         print(f"widths {tag}: one dispatch of {jobs[0].name} x {POSES} poses x {STEPS} steps in "
-              f"{serve_s:.3f} s = {poses_per_s:.1f} poses/s; K1 launches {serving[k1_name]} "
-              f"({card})", flush=True)
+              f"{serve_s:.3f} s = {poses_per_s:.1f} poses/s; K1 launches {serving[k1_name]}; "
+              f"a dispatch of {WIDTH_PROFILED_STEPS} steps {serve_busy:.2f} ms busy on the card, "
+              f"K1 {serve_k1:.2f} ms of it (torch.profiler) ({card})", flush=True)
         t_end = time.perf_counter()
         print(f"widths {tag}: phase {t_end - t_phase:.1f} s (K1 {t_k1 - t_phase:.1f}, K2/K3 "
               f"{t_k23 - t_k1:.1f}, train step {t_step - t_k23:.1f}, dispatch "
               f"{t_end - t_step:.1f})", flush=True)
         out[tag] = {"k1_cases": k1_cases, "k2_cases": k2_cases, "k3_cases": k3_cases,
                     "step_counts": step_counts, "serving": serving, "poses_per_s": poses_per_s,
+                    "dispatch_busy_ms": serve_busy, "dispatch_k1_ms": serve_k1,
                     "step_ms": step_ms, "step_busy_ms": step_busy, "step_peak_gib": step_peak}
-        del state, model, engine
+        del state, model, engine, short
         torch.cuda.empty_cache()
     return out
 
 
 def widths_summary(widths):
     """Phase 19's numbers for the report, by width."""
-    return {tag: {"poses_per_s": w["poses_per_s"], "step_ms": w["step_ms"],
+    return {tag: {"poses_per_s": w["poses_per_s"], "profiled_steps": WIDTH_PROFILED_STEPS,
+                  "profiled_busy_ms": w["dispatch_busy_ms"],
+                  "profiled_k1_ms": w["dispatch_k1_ms"], "step_ms": w["step_ms"],
                   "step_busy_ms": w["step_busy_ms"], "k1_launches_per_dispatch":
                       max(w["serving"]["k1"], w["serving"]["k1_l2"]),
                   "k1_ms_23_convs": sum(c["ms"] for c in w["k1_cases"]),

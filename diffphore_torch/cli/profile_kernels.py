@@ -19,7 +19,8 @@ convolution where the tree has that interface, else per path, as the
 first K3 did).  It needs a GPU and fails without one.
 
     python -m diffphore_torch.cli.profile_kernels [--k2_only | --k3_only | --k1_l2 | --k3_index |
-                                                   --k2_l2 | --k2_edge_l2 | --k2_index | --k3_l2]
+                                                   --k2_l2 | --k2_edge_l2 | --k2_index | --k3_l2 |
+                                                   --k1_wide]
 
 ``--k3_only`` times K3's forward, edge backward (``launch_backward_edge``
 as the train step calls it: dsh on the two convs whose harmonics carry a
@@ -78,6 +79,19 @@ and the edge backward's lines carry their blocks an SM and the forward's
 grid (``k3_l2_plan``).  Both call
 only ``launch_forward``, ``launch_backward_edge`` and ``launch_backward_x``,
 so they run unchanged in a tree from before these kernels' redesign.
+
+``--k1_wide`` times K1's wide forms on the 23 conv calls of one 40-pose
+forward of a fresh model wider than corpus2 (a 24 x 96 x 8 complex; the
+shapes of ``chip_smoke.py`` phase 19), f32 and bf16, by graph replay
+(``graph_us``), and the plain version on the same inputs (``event_us``):
+the 4-lane form at ns / nv = 32 / 16 (l <= 1; its
+final_conv, E = 64, takes the narrow kernel), dense and in the
+sender-index mode on the 3 phore convs at K = 24, and the 8-lane form at
+48 / 10, l = 2.  Each conv's line carries its plan (form, staged, senders a
+block, splits, channel tiles); a summary line per (form, mode, dtype) sums
+the calls, all and wide only.  It calls only ``tp_aggregate_fused``, its
+plain version and ``plan``, so it runs unchanged in a tree from before the wide forms'
+redesign (A B B A against ``git archive`` of the parent).
 """
 
 from __future__ import annotations
@@ -190,6 +204,19 @@ def graph_us(fn, iters: int = 20, replays: int = 3) -> float:
     return start.elapsed_time(end) * 1e3 / (iters * replays)
 
 
+def event_us(fn, iters: int = 3) -> float:
+    """us per call of ``fn`` between two CUDA events, after one call (for
+    code a graph may not capture: the plain versions)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / iters
+
+
 def k3_calls(tp, x, sh, w, g):
     """(forward, dx) of one convolution through this tree's K3: one call for
     the convolution, or, in a tree whose K3 takes one path per call, one
@@ -293,6 +320,98 @@ def k1_l2_cases(randn, gen, card) -> list:
                     total["graph_us"] += g_us
                 results.append(total)
                 print(json.dumps(total), flush=True)
+    return results
+
+
+#: (N, M, edge channels, live_n, live_m) of a conv of one 40-pose forward
+#: (24 ligand atoms, 96 phore points), by the conv's name
+K1_WIDE_SHAPES = {"lig_conv": (24, 24, 2, 20, 20), "phore_to_lig": (24, 96, 1, 20, 32),
+                  "phore_conv": (96, 96, 1, 32, 32), "lig_to_phore": (96, 24, 1, 32, 20),
+                  "final_conv": (1, 24, 1, 1, 20), "tor_bond_conv": (8, 24, 1, 4, 20)}
+#: (tag, ns, nv, l = 2, sender-index) of the wide forms' cases
+K1_WIDE_MODELS = (("4-lane 32-16", 32, 16, False, False), ("4-lane 32-16", 32, 16, False, True),
+                  ("8-lane 48-10 l2", 48, 10, True, False))
+
+
+def k1_wide_inputs(randn, gen):
+    """(tag, conv name, dtype, tp, x, sh, attrs, masks, params, kwargs) of
+    each call of K1_WIDE_MODELS' forwards, f32 then bf16 by model: the
+    inputs of ``--k1_wide`` (and of ``analysis/k1_wide_variants.py``)."""
+    from ..models.layers import DenseTPConv
+    from ..models.score_model import ScoreModel, ScoreModelConfig
+
+    for tag, ns, nv, l2, indexed in K1_WIDE_MODELS:
+        model = ScoreModel(ScoreModelConfig(ns=ns, nv=nv, use_second_order_repr=l2))
+        convs = [(n.split(".")[-1], m) for n, m in model.named_modules()
+                 if isinstance(m, DenseTPConv) and m.channelwise]
+        assert len(convs) == 23, len(convs)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, conv in convs:
+                if indexed and not name.startswith("phore_conv"):
+                    continue
+                N, M, C, live_n, live_m = next(v for k, v in K1_WIDE_SHAPES.items()
+                                               if name.startswith(k))
+                tp = conv.tp
+                E, H = conv.fc_w1.shape
+                F = tp.weight_numel
+                B = 1 if name == "phore_conv_0" and not indexed else 40
+                kw, m_x = {}, M
+                if indexed:
+                    idx, live = knn_index(B, M, KNN_K, gen)
+                    kw, M = {"sender_index": idx}, KNN_K
+                    masks = [(live[:, :, None] & torch.ones(B, N, M, dtype=torch.bool,
+                                                            device="cuda")).contiguous()]
+                else:
+                    masks = []
+                    for c in range(C):
+                        m = torch.zeros(B, N, M, dtype=torch.bool, device="cuda")
+                        m[:, :live_n, :live_m - 4 * c] = True
+                        masks.append(m)
+                x = randn(B, m_x, tp.irreps_in.dim).to(dtype)
+                sh = randn(B, N, M, tp.irreps_sh.dim).to(dtype)
+                attrs = [randn(B, N, M, E).to(dtype) for _ in range(len(masks))]
+                params = (randn(E, H) / E ** 0.5, randn(H) * 0.1, randn(H, F) / H ** 0.5,
+                          randn(F) * 0.1)
+                yield (tag, indexed), name, dtype, tp, x, sh, attrs, masks, params, kw
+
+
+def k1_wide_cases(randn, gen, card) -> list:
+    """K1's wide forms on the 23 conv calls of one forward of the fresh
+    models of K1_WIDE_MODELS (the sender-index mode on the phore convs),
+    f32 and bf16, by graph replay; the plain version
+    (``tp_aggregate_fused_plain``) on the same inputs between CUDA
+    events."""
+    results, totals = [], {}
+    for (tag, indexed), name, dtype, tp, x, sh, attrs, masks, params, kw in k1_wide_inputs(
+            randn, gen):
+        B, N, M, _ = sh.shape
+        E, H = params[0].shape
+        pl = tp_fused.plan(tp, B, N, M, len(masks), E, H, x.element_size(), indexed)
+        call = lambda: tp_fused.tp_aggregate_fused(tp, x, sh, attrs, masks, *params, **kw)
+        with torch.no_grad():
+            g_us = graph_us(call)
+            plain_us = event_us(lambda: tp_fused.tp_aggregate_fused_plain(
+                tp, x, sh, attrs, masks, *params, **kw))
+        results.append({"form": tag, "conv": name, "indexed": indexed, "dtype": str(dtype),
+                        "B": B, "N": N, "M": M, "C": len(masks), "E": E,
+                        "F": tp.weight_numel, "wide": pl.wide,
+                        "staged": getattr(pl, "staged", None), "per_block": pl.per_block,
+                        "splits": pl.splits, "tiles": len(pl.tiles), "smem": pl.smem,
+                        "live_edges": int(masks[0].sum()), "graph_us": g_us,
+                        "plain_us": plain_us, "card": card})
+        print(json.dumps(results[-1]), flush=True)
+        total = totals.setdefault((tag, indexed, str(dtype)), {
+            "form": tag, "indexed": indexed, "dtype": str(dtype), "calls": 0, "graph_us": 0.0,
+            "wide_calls": 0, "wide_graph_us": 0.0, "plain_us": 0.0, "card": card})
+        total["calls"] += 1
+        total["graph_us"] += g_us
+        total["plain_us"] += plain_us
+        if pl.wide:
+            total["wide_calls"] += 1
+            total["wide_graph_us"] += g_us
+    for total in totals.values():
+        results.append(total)
+        print(json.dumps(total), flush=True)
     return results
 
 
@@ -626,6 +745,9 @@ def main(argv=None) -> list:
     parser.add_argument("--k3_l2", action="store_true",
                         help="only K3's 8-lane forward, dx and edge backward on the layer-0 "
                              "convs (to compare two trees)")
+    parser.add_argument("--k1_wide", action="store_true",
+                        help="only K1's wide forms on the convs of 32 / 16 and 48 / 10 models (to "
+                             "compare two trees)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a GPU")
@@ -639,6 +761,8 @@ def main(argv=None) -> list:
 
     if args.k1_l2:
         return k1_l2_cases(randn, gen, card)
+    if args.k1_wide:
+        return k1_wide_cases(randn, gen, card)
     if args.k3_index:
         return k3_index_cases(randn, gen, card)
     if args.k2_l2:

@@ -143,29 +143,69 @@
 // index only changes which sender row a tile row copies.
 //
 // The wide kernels (a template flag WIDE on both; the model widths past
-// corpus2's: ns up to 64, so E = H up to 192).  The narrow kernels above keep
-// W1 (E x 64) and W2 (H x F, or the tile's columns) in shared memory and form
-// the hidden layer a lane's two units at a time, so they take H <= 64 and E,
-// H multiples of four (4 lanes also F <= 160).  At E = H = 192 W1 and W2 take
-// 270 KB, more than a block has; so the wide kernels leave them in device
-// memory (read through the L1/L2 caches, every warp of a block reading the
-// same rows) and keep only b1 and the tile's b2.  The hidden layer runs in
-// chunks of 64 units: a warp forms its rows' chunk (lane = units hc + lane,
-// hc + lane + 32 at 4 lanes, hc + 2 lane, + 1 at 8), each unit whole over E,
-// so the bf16 rounding points stay where the narrow kernels and the JAX
-// package put them; the chunk goes to shared memory and the second product
-// adds it into the edge weights' f32 registers (at 8 lanes, bf16, the
-// mma.sync sums, W2's fragments converted from device memory), chunk after
-// chunk in order.  Attribute rows take a pitch of pad4(E), their pad zeroed,
-// and rows not 16-byte aligned are copied element by element.  At 4 lanes F
-// past 160 takes channel tiles of up to 160 cut at path boundaries
-// (tp_fused.channel_tiles(tp, MAX_F)), a factor of the grid as at 8 lanes,
-// and a block forms t of its tile's paths only.  The 8-lane wide kernel may
-// take all the shared memory of an SM (one block); the narrow 8-lane kernel
-// too is replaced by it where its weights and tiles do not fit 113 KB.  The
-// host's plan (tp_fused.plan) picks the kernel, the tiles and the senders a
-// block from the shapes alone, restating the layouts' sums.  Every shipped
-// convolution takes the narrow kernels, unchanged.
+// corpus2's: ns up to 64, so E = H up to 192).  The narrow kernels above
+// keep W1 (E x 64) and W2 in shared memory and form the hidden layer a
+// lane's two units at a time, so they take H <= 64 and E, H multiples of
+// four (4 lanes also F <= 160).  The wide kernels take any E, H <= 192 and
+// share one edge MLP (wide_load, wide_chunk_f32 / _bf16, wide_finish_*).
+// Their first version read W1 and W2 from device memory (L2) in every warp
+// for the warp's own rows: eight times a tile, 32-136 times the tile's
+// attribute bytes, with 2-4 FMAs a load and each bf16 weight rounded at
+// every load.  So:
+//  * Weights in shared memory, read from device memory once a block.  A
+//    block keeps W1 and its channel tile's W2 columns for its life where
+//    they fit beside its tiles (resident); else a two-stage ring holds one
+//    chunk of hcw hidden units (W1[:, hc:hc+hcw], W2[hc:hc+hcw, tile]), the
+//    next chunk copied while this one computes: once a tile for the whole
+//    block.  tp_fused.plan picks resident, else the widest chunk (64, 32,
+//    16 or 8 units) that fits, from the shapes alone: bf16 weights stay
+//    resident on every conv of phase 19's models; f32 ones are staged with
+//    two edge channels at E = 144 and at E = 192.  A chunk narrower than 64
+//    keeps the 64-unit loop shape (lanes past the chunk compute nothing
+//    kept): it only serves the f32 convs of the widest models, 8 units only
+//    a 4-lane sender-index block of two edge channels, whose senders' rows
+//    take the room (test_k1_wide_plan_picks_every_weight_form lists them).
+//  * bf16 weights as bf16.  The ROUND path only ever uses bf16(w), so W1
+//    and W2 are rounded once, as they enter shared memory, and stored
+//    transposed (W^T [n][k] at a pitch of an odd number of 16-byte units:
+//    ldmatrix rows meet no bank conflict), the attribute rows kept bf16 at
+//    such a pitch.  Both products run on the tensor cores (mma.sync
+//    m16n8k16, f32 sums): per channel, warp w forms hidden units hc + 8 w ..
+//    + 7 of all the tile's rows, h_c = relu(bf16(bf16(A_c W1) + b1)) as bf16
+//    rows; after a barrier, column tiles w + 8 j of h_c W2, summed over the
+//    chunks in the mma's registers and rounded once; the rounding points
+//    stay the JAX package's (above).
+//  * f32 stays on FMA (3xTF32 was slower, above): per warp its rows (four
+//    at 4 lanes, two at 8), lane = units 2 lane, 2 lane + 1 of a chunk (a
+//    float2 of W1 and a float4 of each row's attributes a step), then
+//    channels 2 lane + 64 j, + 1 (a float2 of W2 a step): 0.2-0.3 shared
+//    loads an FMA, no block barrier while the weights are resident.
+//  * Tiles of 128 channels at both lane counts (tp_fused.channel_tiles),
+//    so a block's edge-weight rows are 64 or 128 wide; 32 live rows a tile
+//    at 4 lanes; at 8 lanes 32 in bf16 (two m-tiles a weight fragment) and
+//    16 in f32 (its weights and tiles fit beside each other).
+//  * The 4-lane walk: a tile of 64 (128) channels splits its rows over four
+//    (two) parts of the block's threads, the parts' sums added in order at
+//    the end, as at 8 lanes.  Blocks with no live edge load no weight.
+//  Kept from the first version: the live-edge compaction and the attribute
+//  ring, the t step and the receiver-major walk, fixed-order split sums and
+//  no float atomics (reruns agree to the bit), every unit formed whole over
+//  E, and the sender-index mode of the 4-lane form.  What the wide kernels
+//  do not take (E or H past 192, a path wider than a tile) raises.  Every
+//  shipped convolution takes the narrow kernels, unchanged.
+//  Where it stands (chip_smoke.py phase 19, the 23 convs of a 40-pose
+//  forward, f32 / bf16, one run; NVIDIA H100 80GB HBM3, 700 W): 2.94 / 2.23
+//  ms at ns / nv = 32 / 16 (6.7x / 14x the bound; the first version 7.05 /
+//  9.44) and 14.23 / 9.24 at 48 / 10, l = 2 (13x / 36x; 38.34 / 56.26).
+//  Kept because they measured faster (analysis/k1_wide_variants.py): both
+//  bf16 products on the tensor cores (the first on FMA ran 1.6-1.8x slower), 32-row bf16
+//  tiles at 8 lanes (16: 4% slower), the whole hidden layer in one pass
+//  where bf16 weights are resident (64-unit chunks: 4% slower at 8 lanes),
+//  one block an SM for the f32 4-lane form only (bf16: 8% slower; 8 lanes:
+//  no gain).  What is left: in bf16 the edge MLP's latency (a few mma a
+//  warp between barriers), the walk and each block's weight loads (at 8
+//  lanes a block of four receivers loads ~80 KB of bf16 weights, four times
+//  its attribute rows); in f32 the FMA products at one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,7 +226,7 @@ constexpr int T_SIZE = 12;       // t[i][k] of one (edge, path), k padded to 4
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int RT = ROWS / WARPS;  // rows per warp = rows per thread tile
-constexpr int NC_MAX = 5;         // F <= 160 (the wide kernel: a channel tile's width)
+constexpr int NC_MAX = 5;         // F <= 160
 constexpr int MAX_PATHS = 16;
 constexpr int WIDE_MAX = 192;     // the wide kernel's E and H (ns <= 64)
 constexpr int MAX_SMEM = 227 * 1024;
@@ -202,6 +242,8 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
@@ -216,27 +258,453 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+}
+// Four neighbouring elements of a staged row, as f32.
+__device__ __forceinline__ float4 ld4s(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4s(const __nv_bfloat16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+// A 16-byte (f32) or 8-byte (bf16) asynchronous copy of four elements.
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void cp_async_quad(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  cp_async8(dst, src);
+}
+
+// d += a b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (ldmatrix): lane l names row
+// l % 8 of matrix l / 8; r[i] is matrix i's fragment (the mma's A operand).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+// Two of them (lanes 0-15 name the rows): the mma's B operand from W^T rows.
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__host__ __device__ inline int pad_to(int n, int m) { return (n + m - 1) / m * m; }
+
+// ---- the wide kernels' edge MLP (head note), shared by both lane counts ----
+
+constexpr int WHC = 64;           // hidden units of a chunk (the most a staged one holds)
+constexpr int WKB = 72;           // bf16 pitch of the hidden rows (conflict-free ldmatrix rows)
+constexpr int WIDE_NT = 256;      // threads of a wide block (eight warps)
+
+// Floats of shared memory the wide kernels' weights take (tp_fused.wide_weights):
+// hcw = 0 resident (W1 and the tile's FTP W2 columns whole), else a
+// two-stage ring of chunks of hcw hidden units.  f32 weights as they come
+// (W1 [pad4(E)][pad4(H)], W2 [pad4(H)][FTP]; a chunk W1 [pad4(E)][hcw], W2
+// [hcw][FTP]); bf16 rounded once and stored transposed as bf16 (W1^T
+// [pad8(H)][pad16(E) + 8], W2^T [FTP][pad16(H) + 8]; a chunk W1^T
+// [hcw][pad16(E) + 8], W2^T [FTP][hcw + 8]): rows at a pitch of an odd
+// number of 16-byte units, so the fragment loads meet no bank conflict.
+__host__ __device__ inline int wide_weights(int E, int H, int FTP, int esize, int hcw) {
+  if (esize == 4)
+    return hcw ? 2 * (pad4(E) * hcw + hcw * FTP) : pad4(E) * pad4(H) + pad4(H) * FTP;
+  const int q1 = pad_to(E, 16) + 8;
+  return hcw ? hcw * q1 + FTP * (hcw + 8) : (pad_to(H, 8) * q1 + FTP * (pad_to(H, 16) + 8)) / 2;
+}
+// bf16 elements of a hidden row: a staged chunk's (at most WHC units), or,
+// with the weights resident, the whole hidden layer's (one chunk of H).
+__host__ __device__ inline int wide_hid_pitch(int H, int hcw) {
+  return hcw ? WKB : pad_to(H, 16) + 8;
+}
+// Elements of a staged attribute row: pad4(E) f32, pad16(E) + 8 bf16.
+__host__ __device__ inline int wide_a_pitch(int E, int esize) {
+  return esize == 4 ? pad4(E) : pad_to(E, 16) + 8;
+}
+
+// One hidden chunk's weights in shared memory: f32 W1[k][hc + u] at
+// w1[k * p1 + u], W2[hc + u][n] at w2[u * FTP + n]; bf16 W1[k][hc + u] at
+// w1t[u * q1 + k], W2[hc + u][n] at w2t[n * q2 + u].
+struct WideChunk {
+  const float* w1;
+  const float* w2;
+  const __nv_bfloat16* w1t;
+  const __nv_bfloat16* w2t;
+  int p1, q1, q2;
+};
+
+// Chunk hc of the resident weights (hcw = 0), or slot `slot` of the ring.
+__device__ __forceinline__ WideChunk wide_chunk(const float* s_w, int E, int H, int FTP, bool bf,
+                                                int hcw, int hc, int slot) {
+  WideChunk v{};
+  if (!bf) {
+    if (hcw == 0) {
+      v.w1 = s_w + hc;
+      v.p1 = pad4(H);
+      v.w2 = s_w + pad4(E) * pad4(H) + hc * FTP;
+    } else {
+      const float* base = s_w + slot * (pad4(E) * hcw + hcw * FTP);
+      v.w1 = base;
+      v.p1 = hcw;
+      v.w2 = base + pad4(E) * hcw;
+    }
+    return v;
+  }
+  const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(s_w);
+  v.q1 = pad_to(E, 16) + 8;
+  if (hcw == 0) {
+    v.w1t = sb + hc * v.q1;
+    v.w2t = sb + pad_to(H, 8) * v.q1 + hc;
+    v.q2 = pad_to(H, 16) + 8;
+  } else {
+    v.w1t = sb + slot * (hcw * v.q1 + FTP * (hcw + 8));
+    v.w2t = v.w1t + hcw * v.q1;
+    v.q2 = hcw + 8;
+  }
+  return v;
+}
+
+// The block's weights: all of them (hcw = 0), or chunk [hc, hc + hcw) into
+// slot `slot` of the ring; the tile's columns f0 .. f0 + fc - 1 of W2, zero
+// past H, E and fc where a product reads them.  f32 by cp.async (16-byte
+// copies where rows allow), bf16 rounded once and transposed, with plain
+// loads (they are then complete at the caller's next barrier).
+template <bool BF>
+__device__ void wide_load(float* s_w, const float* __restrict__ w1, const float* __restrict__ w2,
+                          int E, int H, int F, int f0, int fc, int FTP, int hcw, int hc, int slot,
+                          int tid) {
+  const int u_end = hcw ? min(hcw, H - hc) : H;   // units of this load
+  if constexpr (!BF) {
+    const int u_all = hcw ? hcw : pad4(H);        // W1's pitch
+    const int E4 = pad4(E);
+    float* W1 = s_w + (hcw ? slot * (E4 * hcw + hcw * FTP) : 0);
+    float* W2 = W1 + E4 * u_all;
+    if (H % 4 == 0) {   // then u_end is a multiple of four too
+      const int q = u_end / 4;
+      for (int i = tid; i < E * q; i += WIDE_NT) {
+        const int k = i / q, c = 4 * (i - k * q);
+        cp_async16(W1 + k * u_all + c, w1 + (size_t)k * H + hc + c);
+      }
+    } else {
+      for (int i = tid; i < E * u_end; i += WIDE_NT) {
+        const int k = i / u_end, c = i - k * u_end;
+        cp_async4(W1 + k * u_all + c, w1 + (size_t)k * H + hc + c);
+      }
+    }
+    for (int i = tid; i < E * (u_all - u_end); i += WIDE_NT) {   // units past H
+      const int k = i / (u_all - u_end);
+      W1[k * u_all + u_end + i - k * (u_all - u_end)] = 0.f;
+    }
+    for (int i = tid; i < (E4 - E) * u_all; i += WIDE_NT) W1[E * u_all + i] = 0.f;   // k past E
+    if (F % 4 == 0 && f0 % 4 == 0 && fc % 4 == 0) {
+      const int q = FTP / 4;
+      for (int i = tid; i < u_end * q; i += WIDE_NT) {
+        const int k = i / q, c = 4 * (i - k * q);
+        if (c < fc) cp_async16(W2 + k * FTP + c, w2 + (size_t)(hc + k) * F + f0 + c);
+        else *reinterpret_cast<float4*>(W2 + k * FTP + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int i = tid; i < u_end * FTP; i += WIDE_NT) {
+        const int k = i / FTP, c = i - k * FTP;
+        if (c < fc) cp_async4(W2 + i, w2 + (size_t)(hc + k) * F + f0 + c);
+        else W2[i] = 0.f;
+      }
+    }
+    // rows past H up to the next multiple of four (the product reads them)
+    for (int i = tid; i < (min(pad4(u_end), u_all) - u_end) * FTP; i += WIDE_NT)
+      W2[u_end * FTP + i] = 0.f;
+  } else {
+    const int q1 = pad_to(E, 16) + 8;
+    const int urows = hcw ? hcw : pad_to(H, 8);          // W1^T's rows
+    const int q2 = hcw ? hcw + 8 : pad_to(H, 16) + 8;
+    const int k2 = hcw ? min(hcw + 8, pad_to(u_end, 16)) : pad_to(H, 16);   // W2^T's columns read
+    __nv_bfloat16* W1 = reinterpret_cast<__nv_bfloat16*>(s_w) +
+                        (hcw ? slot * (hcw * q1 + FTP * (hcw + 8)) : 0);
+    __nv_bfloat16* W2 = W1 + urows * q1;
+    // a thread takes one row of W^T (consecutive threads, consecutive rows:
+    // each load a coalesced row of W) and eight k, one 16-byte store
+    auto put8 = [](__nv_bfloat16* dst, const float (&v)[8]) {
+      uint4 q;
+      unsigned* w = reinterpret_cast<unsigned*>(&q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        w[j] = *reinterpret_cast<const unsigned*>(&p);
+      }
+      *reinterpret_cast<uint4*>(dst) = q;
+    };
+    const int k8 = pad_to(E, 16) / 8;
+#pragma unroll 2
+    for (int i = tid; i < urows * k8; i += WIDE_NT) {
+      const int u = i % urows, k = 8 * (i / urows);
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = u < u_end && k + j < E ? w1[(size_t)(k + j) * H + hc + u] : 0.f;
+      put8(W1 + u * q1 + k, v);
+    }
+#pragma unroll 2
+    for (int i = tid; i < FTP * (k2 / 8); i += WIDE_NT) {
+      const int n = i % FTP, k = 8 * (i / FTP);
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = n < fc && k + j < u_end ? w2[(size_t)(hc + k + j) * F + f0 + n] : 0.f;
+      put8(W2 + n * q2 + k, v);
+    }
+  }
+}
+
+// f32, one hidden chunk (kn units from hc), per warp: its RT rows r0 .. r0 +
+// RT - 1 of the tile, lane = units 2 lane, 2 lane + 1 of the chunk, each
+// formed whole over E: hid = sum_c mask_c relu(A_c W1 + b1) into the warp's
+// rows of `hid` [RT][WHC], then wacc[i][j] (channels 2 lane + 64 j, + 1) +=
+// hid W2 over the chunk.  A_c's rows at a + c * cstride + r * AP (f32,
+// zero past E up to pad4(E)).
+template <int RT, int NCH>
+__device__ __forceinline__ void wide_chunk_f32(float (&wacc)[RT][NCH][2], const WideChunk& w,
+                                               const float* a, int cstride, int AP, int C, int E,
+                                               int kn, int hc, int r0, int rows, int groups,
+                                               const float (&mrow)[2][RT], const float* s_b1,
+                                               float* hid, int FTP, int lane) {
+  const int u0 = 2 * lane;
+  float hs[RT][2];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) hs[i][0] = hs[i][1] = 0.f;
+  const int E4 = pad4(E);
+  for (int c = 0; c < C; ++c) {
+    const float* A = a + c * cstride + r0 * AP;
+    float pre[RT][2];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < E4; k += 4) {
+      float4 av[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * AP + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float2 wv = *reinterpret_cast<const float2*>(w.w1 + (k + kk) * w.p1 + u0);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+          pre[i][0] = fmaf(x, wv.x, pre[i][0]);
+          pre[i][1] = fmaf(x, wv.y, pre[i][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      // rows past the tile's end: their mask is 0 and relu drops a NaN
+      const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
+      hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[hc + u0], 0.f), hs[i][0]);
+      hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[hc + u0 + 1], 0.f), hs[i][1]);
+    }
+  }
+  __syncwarp();                                  // the last chunk's rows are read
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const bool ok = r0 + i < rows;
+    *reinterpret_cast<float2*>(hid + i * WHC + u0) =
+        make_float2(ok && u0 < kn ? hs[i][0] : 0.f, ok && u0 + 1 < kn ? hs[i][1] : 0.f);
+  }
+  __syncwarp();
+#pragma unroll 2
+  for (int k = 0; k < kn; k += 4) {
+    float4 hv[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(hid + i * WHC + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float2 wv[NCH];
+#pragma unroll
+      for (int j = 0; j < NCH; ++j)
+        wv[j] = j < groups ? *reinterpret_cast<const float2*>(w.w2 + (k + kk) * FTP + u0 + 64 * j)
+                           : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) {
+          wacc[i][j][0] = fmaf(h, wv[j].x, wacc[i][j][0]);
+          wacc[i][j][1] = fmaf(h, wv[j].y, wacc[i][j][1]);
+        }
+      }
+    }
+  }
+}
+
+// f32: the warp's rows of the edge weights, w = wacc + msum b2.
+template <int RT, int NCH>
+__device__ __forceinline__ void wide_finish_f32(const float (&wacc)[RT][NCH][2],
+                                                const float (&mrow)[2][RT], int r0, int groups,
+                                                const float* s_b2, float* s_wt, int FTP,
+                                                int lane) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float msum = mrow[0][i] + mrow[1][i];
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      if (j >= groups) break;
+      const int col = 2 * lane + 64 * j;
+      const float2 bv = *reinterpret_cast<const float2*>(s_b2 + col);
+      *reinterpret_cast<float2*>(s_wt + (r0 + i) * FTP + col) =
+          make_float2(fmaf(msum, bv.x, wacc[i][j][0]), fmaf(msum, bv.y, wacc[i][j][1]));
+    }
+  }
+}
+
+// bf16, one hidden chunk (kn units from hc: a staged chunk, or the whole
+// hidden layer where the weights are resident), the whole block on the
+// tensor cores (mma.sync m16n8k16, f32 sums; every operand is a bf16 value):
+// for each channel c, warp w forms units hc + 8 w .. + 7 and every 64th
+// group after (two groups at a time) of the tile's MT x 16 rows, h_c =
+// relu(bf16(bf16(A_c W1) + b1)), into the hidden rows (bf16 [c][row][hp]);
+// after a barrier, warp w adds h_c W2 over the chunk into d[c][j][mt]
+// (column tile w + 8 j of the tile's channels, m-tile mt).  Ends on a
+// barrier: the hidden rows are free for the next chunk.
+template <int MT, int NCH>
+__device__ __forceinline__ void wide_chunk_bf16(float (&d)[2][NCH][MT][4], const WideChunk& w,
+                                                const __nv_bfloat16* a, int AP, int C, int E,
+                                                int kn, int hc, int rows, int groups,
+                                                const float* s_b1, __nv_bfloat16* s_hidb, int hp,
+                                                int lane, int warp) {
+  constexpr int R = 16 * MT;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ks1 = (E + 15) / 16;
+  for (int c = 0; c < C; ++c) {
+    // the warp's groups of eight units, two at a time (one A fragment for
+    // both, four independent mma chains); up to the product's depth, zeros
+    // past kn
+    for (int ub0 = 8 * warp; ub0 < pad_to(kn, 16); ub0 += 128) {
+      const bool on0 = ub0 < kn, on1 = ub0 + 64 < kn, in1 = ub0 + 64 < pad_to(kn, 16);
+      float pre[2][MT][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          pre[j][mt][0] = pre[j][mt][1] = pre[j][mt][2] = pre[j][mt][3] = 0.f;
+      if (on0) {
+        const __nv_bfloat16* bp = w.w1t + (ub0 + (lane & 7)) * w.q1 + 8 * ((lane >> 3) & 1);
+        const __nv_bfloat16* ap = a + ((size_t)c * R + (lane & 15)) * AP + 8 * (lane >> 4);
+#pragma unroll 2
+        for (int ks = 0; ks < ks1; ++ks) {
+          unsigned b0[2], b1[2];
+          ldsm_x2(b0, bp + 16 * ks);
+          if (on1) ldsm_x2(b1, bp + 64 * w.q1 + 16 * ks);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            unsigned af[4];
+            ldsm_x4(af, ap + 16 * mt * AP + 16 * ks);
+            mma_bf16(pre[0][mt], af, b0);
+            if (on1) mma_bf16(pre[1][mt], af, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j == 1 && !in1) break;
+        const int ub = ub0 + 64 * j;
+        const bool on = j == 0 ? on0 : on1;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {   // rows past the tile's end and units past H: 0
+            const int r = 16 * mt + g + 8 * i, u = ub + 2 * tq;
+            const bool ok = on && r < rows;
+            const float h0 =
+                ok && u < kn
+                    ? fmaxf(bf16_round(bf16_round(pre[j][mt][2 * i]) + s_b1[hc + u]), 0.f)
+                    : 0.f;
+            const float h1 =
+                ok && u + 1 < kn
+                    ? fmaxf(bf16_round(bf16_round(pre[j][mt][2 * i + 1]) + s_b1[hc + u + 1]), 0.f)
+                    : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * R + r) * hp + u) =
+                __floats2bfloat162_rn(h0, h1);
+          }
+      }
+    }
+  }
+  __syncthreads();
+  const int ks2 = (kn + 15) / 16;
+  for (int c = 0; c < C; ++c) {
+    for (int ks = 0; ks < ks2; ++ks) {
+      unsigned af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(af[mt], s_hidb + (c * R + 16 * mt + (lane & 15)) * hp + 16 * ks + 8 * (lane >> 4));
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        if (j >= groups) break;
+        unsigned b[2];
+        ldsm_x2(b, w.w2t + ((warp + 8 * j) * 8 + (lane & 7)) * w.q2 + 16 * ks +
+                       8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(d[c][j][mt], af[mt], b);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// bf16: the edge weights w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c),
+// channel 0's term stored, channel 1's added by the same thread and rounded;
+// maskf(c, r) the mask of row r (0 past the tile's end).
+template <int MT, int NCH, typename MaskF>
+__device__ __forceinline__ void wide_finish_bf16(const float (&d)[2][NCH][MT][4], int C, int groups,
+                                                 const float* s_b2, float* s_wt, int FTP,
+                                                 int lane, int warp, MaskF maskf) {
+  const int g = lane >> 2, tq = lane & 3;
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      if (j >= groups) break;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = 16 * mt + g + 8 * (q >> 1), col = (warp + 8 * j) * 8 + 2 * tq + (q & 1);
+          const float v = bf16_round(bf16_round(d[c][j][mt][q]) + s_b2[col]) * maskf(c, row);
+          float* wt = s_wt + row * FTP + col;
+          *wt = c == 0 ? v : bf16_round(*wt + v);
+        }
+    }
+  }
+}
+
 // The shared-memory layout, in floats, the same on the host and the device
 // (tp_fused.layout_bytes restates it).
 struct Layout {
   int w1, b1, w2, b2, g, poff, x, mask, edges, a, wt, sh, t, hid, total;
 };
 
-__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
-
 // `idx`: the sender-index mode, whose sender features ride in the ring (two
 // stages of ROWS rows) instead of the block's MS senders.  `wide`: the wide
-// kernel (head note), whose weights stay in device memory: no W1 or W2, b1
-// padded to whole hidden chunks, attribute rows at a pitch of pad4(E), and
-// each warp's rows of one hidden chunk; t of a channel tile's paths (at
-// most tpaths) only.
+// kernel (head note): NC = FTP / 32 (two or four: a channel tile pitch of 64
+// or 128), its weights (wide_weights: resident, or a ring of chunks of hcw
+// hidden units) instead of W1 and W2, b1 padded to whole chunks, attribute
+// rows in the operands' type (esize bytes) at wide_a_pitch(E), the hidden
+// rows of a chunk, and t of a channel tile's paths (at most tpaths) only.
 __host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_paths, int MS,
                                               int NC, bool idx, bool wide = false,
-                                              int tpaths = 0) {
+                                              int tpaths = 0, int esize = 4, int hcw = 0) {
   Layout L;
   int o = 0;
-  L.w1 = o;    o += wide ? 0 : E * HP;
-  L.b1 = o;    o += wide ? (H + HP - 1) / HP * HP : HP;
+  L.w1 = o;    o += wide ? wide_weights(E, H, 32 * NC, esize, hcw) : E * HP;
+  L.b1 = o;    o += wide ? pad_to(H, WHC) : HP;
   L.w2 = o;    o += wide ? 0 : H * 32 * NC;
   L.b2 = o;    o += 32 * NC;
   L.g = o;     o += pad4(n_paths * G_SIZE);
@@ -244,17 +712,20 @@ __host__ __device__ inline Layout make_layout(int C, int E, int H, int D, int n_
   L.x = o;     o += (idx ? 2 * ROWS : MS) * pad4(D);
   L.mask = o;  o += C * TN * MS;
   L.edges = o; o += pad4(TN * MS / 2 + 1) + 12;   // the live edges (16 bits each), then 9 prefix counts
-  L.a = o;     o += 2 * C * ROWS * pad4(E);       // two stages
+  L.a = o;     o += wide ? pad4((2 * C * ROWS * wide_a_pitch(E, esize) * esize + 3) / 4)
+                         : 2 * C * ROWS * E;       // two stages
   L.wt = o;    o += ROWS * 32 * NC;
   L.sh = o;    o += 2 * ROWS * SH_STRIDE;         // two stages
   L.t = o;     o += ROWS * (wide ? tpaths : n_paths) * T_SIZE;
-  L.hid = o;   o += wide ? ROWS * HP : 0;
+  L.hid = o;   o += wide ? (esize == 4 ? ROWS * WHC : C * ROWS * wide_hid_pitch(H, hcw) / 2) : 0;
   L.total = o;
   return L;
 }
 
+// (The f32 wide form asks for one block an SM: its block holds that much
+// shared memory, and the registers it gains ran it 5% faster.)
 template <typename T, int NC, bool IDX, bool WIDE>
-__global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
+__global__ void __launch_bounds__(THREADS, WIDE && sizeof(T) == 4 ? 1 : 2) tp_fused_kernel(
     const T* __restrict__ x,         // (B, M, D) sender features; IDX: (B, Mx, D)
     const T* __restrict__ sh,        // (B, N, M, S) edge harmonics
     const T* __restrict__ attr0,     // (B, N, M, E) edge attributes, channel 0
@@ -271,13 +742,14 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const int* __restrict__ ctab,    // WIDE: (n_ct, 4) each channel tile's f0, fc, p0, pc
     float* __restrict__ dst,         // out (B, N, F, 4), or the partial sums (splits, B, N, F, 4)
     int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
-    int mask_is_f32, int n_ct, int tpaths) {
+    int mask_is_f32, int n_ct, int tpaths, int hcw) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FP = 32 * NC;
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
-  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC, IDX, WIDE, tpaths);
-  const int EP = WIDE ? pad4(E) : E;       // the attribute rows' pitch
-  float* s_w1 = smem + L.w1;
+  constexpr int NCH = NC / 2;              // WIDE: 64-channel groups of the tile pitch
+  const Layout L = make_layout(C, E, H, D, n_paths, MS, NC, IDX, WIDE, tpaths, sizeof(T), hcw);
+  const int AP = WIDE ? wide_a_pitch(E, sizeof(T)) : E;   // the attribute rows' pitch
+  float* s_w1 = smem + L.w1;                                    // WIDE: the weights (wide_chunk)
   float* s_b1 = smem + L.b1;
   float* s_w2 = smem + L.w2;
   float* s_b2 = smem + L.b2;
@@ -288,10 +760,12 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
   uint16_t* s_edges = reinterpret_cast<uint16_t*>(smem + L.edges);   // nl << 8 | ml, receiver-major
   int* s_pref = reinterpret_cast<int*>(smem + L.edges + pad4(TN * MS / 2 + 1));  // live edges before nl
   float* s_a = smem + L.a;                                      // [stage][c][row][E]
+  T* s_at = reinterpret_cast<T*>(smem + L.a);                   // WIDE: [stage][c][row][AP]
   float* s_wt = smem + L.wt;                                    // [row][FP]
   float* s_sh = smem + L.sh;                                    // [stage][row][SH_STRIDE]
   float* s_t = smem + L.t;                                      // [row][path][i][4]
-  float* s_hid = smem + L.hid;                                  // WIDE: [row][HP]
+  float* s_hid = smem + L.hid;                                  // WIDE f32: [row][WHC]
+  __nv_bfloat16* s_hidb = reinterpret_cast<__nv_bfloat16*>(s_hid);   // WIDE bf16: [c][row][WKB]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -306,14 +780,19 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
   const int p_lo = WIDE ? ctab[4 * ct + 2] : 0, n_tp = WIDE ? ctab[4 * ct + 3] : n_paths;
   const int ms = (M - m0 + mstep - 1) / mstep;   // senders of this block, <= MS
   const int DP = pad4(D);
+  // WIDE: hidden units a chunk: staged, hcw; resident, all H (bf16) or WHC (f32)
+  const int hstep = hcw ? hcw : ROUND ? H : WHC;
 
   // ---- resident operands: the weights and sender features (asynchronously:
   // they are first needed by the first tile's products), tables, masks.
-  // Columns past H and F are never read back.  WIDE: no weights.
+  // Columns past H and F are never read back.  WIDE: the weights come after
+  // the compaction, in blocks with live edges only; the attribute rows' pad
+  // past E (to the products' depth) stays 0.
   if (WIDE) {
-    for (int i = tid; i < 2 * C * ROWS * (EP - E); i += THREADS) {   // the pad past E stays 0
-      const int r = i / (EP - E);
-      s_a[r * EP + E + i - r * (EP - E)] = 0.f;
+    const int ez = (ROUND ? pad_to(E, 16) : pad4(E)) - E;
+    for (int i = tid; i < 2 * C * ROWS * ez; i += THREADS) {
+      const int r = i / ez;
+      s_at[(size_t)r * AP + E + i - r * ez] = T(0.f);
     }
   } else if (ROUND) {
     for (int i = tid; i < E * H; i += THREADS) s_w1[(i / H) * HP + i % H] = bf16_round(w1[i]);
@@ -339,7 +818,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     }
   }
   cp_async_commit();
-  const int HB = WIDE ? (H + HP - 1) / HP * HP : HP;
+  const int HB = WIDE ? pad_to(H, WHC) : HP;
   for (int i = tid; i < HB; i += THREADS) s_b1[i] = i < H ? (ROUND ? bf16_round(b1[i]) : b1[i]) : 0.f;
   for (int i = tid; i < FP; i += THREADS)
     s_b2[i] = i < fc ? (ROUND ? bf16_round(b2[f0 + i]) : b2[f0 + i]) : 0.f;
@@ -359,7 +838,11 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     }
     s_mask[i] = v;
   }
-  const int f = tid;
+  // the walk's thread: channel f of the tile; WIDE, a tile of cw = 64 or 128
+  // channels takes THREADS / cw parts of its rows, f = tid % cw in part tid / cw
+  const int cw = WIDE ? (fc > 64 ? 128 : 64) : THREADS;
+  const int parts = THREADS / cw, part = tid / cw;
+  const int f = tid % cw;
   const bool active = f < fc;
   const int4 cm = active ? chan[f0 + f] : make_int4(0, 0, 0, 0);
   if (WIDE) {   // every path's, also those of the other tiles (t is formed for all)
@@ -398,7 +881,18 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
   const int total = s_pref[TN];
 
   // gather a tile's attribute rows and harmonics (asynchronously for f32
-  // inputs; bf16 inputs are converted on the way in); eight threads per row
+  // inputs; bf16 inputs are converted on the way in, WIDE: copied as bf16,
+  // the harmonics into registers that put_sh stores at the tile's start, so
+  // no thread waits on their loads); eight threads per row
+  float shv[2];                                  // WIDE bf16: harmonics sub, sub + 8 of a row
+  int sh_at = -1;                                // their row of s_sh, or none
+  auto put_sh = [&]() {
+    if (sh_at < 0) return;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      if ((tid & 7) + 8 * jj < S) s_sh[sh_at * SH_STRIDE + (tid & 7) + 8 * jj] = shv[jj];
+    sh_at = -1;
+  };
   auto gather_tile = [&](int stage, int first) {
     const int row = tid >> 3, sub = tid & 7;
     if (first + row >= total) return;
@@ -406,19 +900,36 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     const size_t edge = ((size_t)b * N + n0 + (e >> 8)) * M + m0 + (e & 255) * mstep;
     for (int c = 0; c < C; ++c) {
       const T* src = (c == 0 ? attr0 : attr1) + edge * E;
-      float* arow = s_a + ((size_t)(stage * C + c) * ROWS + row) * EP;
-      if (sizeof(T) == 4 && !(WIDE && E % 4)) {
+      if (WIDE) {
+        T* arow = s_at + ((size_t)(stage * C + c) * ROWS + row) * AP;
+        if (E % 4 == 0) {
+          for (int q = sub; q < E / 4; q += 8) cp_async_quad(arow + 4 * q, src + 4 * q);
+        } else {   // rows not aligned to four elements
+          for (int k = sub; k < E; k += 8) {
+            if (sizeof(T) == 4) cp_async4(arow + k, src + k);
+            else arow[k] = src[k];
+          }
+        }
+        continue;
+      }
+      float* arow = s_a + ((size_t)(stage * C + c) * ROWS + row) * E;
+      if (sizeof(T) == 4) {
         for (int q = sub; q < E / 4; q += 8) cp_async16(arow + 4 * q, src + 4 * q);
-      } else if (sizeof(T) == 4) {   // WIDE: rows not 16-byte aligned
-        for (int k = sub; k < E; k += 8) cp_async4(arow + k, src + k);
       } else {
         for (int k = sub; k < E; k += 8) arow[k] = to_f(src[k]);
       }
     }
     float* srow = s_sh + (stage * ROWS + row) * SH_STRIDE;
-    for (int j = sub; j < S; j += 8) {
-      if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
-      else srow[j] = to_f(sh[edge * S + j]);
+    if (WIDE && ROUND) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        shv[jj] = sub + 8 * jj < S ? to_f(sh[edge * S + sub + 8 * jj]) : 0.f;
+      sh_at = stage * ROWS + row;
+    } else {
+      for (int j = sub; j < S; j += 8) {
+        if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
+        else srow[j] = to_f(sh[edge * S + j]);
+      }
     }
     if (IDX) {   // the row's sender features
       const T* src = x + ((size_t)b * Mx + idx[edge]) * D;
@@ -450,37 +961,122 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
   };
 
   gather_tile(0, 0);
+  if (WIDE && total > 0)   // the weights, or the ring's first chunk, behind the first tile's rows
+    wide_load<ROUND>(s_w1, w1, w2, E, H, F, f0, fc, FP, hcw, 0, 0, tid);
   cp_async_commit();
 
-  for (int first = 0, stage = 0; first < total; first += ROWS, stage ^= 1) {
+  for (int first = 0, stage = 0, tile = 0; first < total; first += ROWS, stage ^= 1, ++tile) {
     const int rows = min(ROWS, total - first);
-    gather_tile(stage ^ 1, first + ROWS);        // the next tile's loads
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // ---- t[r, p][i, k] = sum_j G_p[i, j, k] sh[r, sh_off(p) + j]
-    for (int i = tid; i < rows * n_tp; i += THREADS) {
-      const int r = i / n_tp, p = p_lo + i - r * n_tp;
-      const float* G = s_g + p * G_SIZE;
-      const float* sv = s_sh + (stage * ROWS + r) * SH_STRIDE + s_poff[p];
-      float svj[J_MAX];
-#pragma unroll
-      for (int j = 0; j < J_MAX; ++j) svj[j] = sv[j];
-      float* tp = s_t + (size_t)i * T_SIZE;
-#pragma unroll
-      for (int ii = 0; ii < 3; ++ii) {
-        float tk[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < J_MAX; ++j)
-#pragma unroll
-          for (int k = 0; k < 3; ++k) tk[k] = fmaf(G[(ii * J_MAX + j) * 3 + k], svj[j], tk[k]);
-        *reinterpret_cast<float4*>(tp + 4 * ii) = make_float4(tk[0], tk[1], tk[2], 0.f);
-      }
+    if (!WIDE || hcw == 0) {   // the ring holds the tiles; WIDE staged: it steps by chunks below
+      put_sh();                                    // this tile's harmonics (WIDE bf16)
+      gather_tile(stage ^ 1, first + ROWS);        // the next tile's loads
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
     }
 
+    // ---- t[r, p][i, k] = sum_j G_p[i, j, k] sh[r, sh_off(p) + j]
+    auto t_step = [&]() {
+      for (int i = tid; i < rows * n_tp; i += THREADS) {
+        const int r = i / n_tp, p = p_lo + i - r * n_tp;
+        const float* G = s_g + p * G_SIZE;
+        const float* sv = s_sh + (stage * ROWS + r) * SH_STRIDE + s_poff[p];
+        float svj[J_MAX];
+#pragma unroll
+        for (int j = 0; j < J_MAX; ++j) svj[j] = sv[j];
+        float* tp = s_t + (size_t)i * T_SIZE;
+#pragma unroll
+        for (int ii = 0; ii < 3; ++ii) {
+          float tk[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < J_MAX; ++j)
+#pragma unroll
+            for (int k = 0; k < 3; ++k) tk[k] = fmaf(G[(ii * J_MAX + j) * 3 + k], svj[j], tk[k]);
+          *reinterpret_cast<float4*>(tp + 4 * ii) = make_float4(tk[0], tk[1], tk[2], 0.f);
+        }
+      }
+    };
+
     const int r0 = warp * RT;
-    if (r0 < rows) {
+    // the mask of the tile's row r in channel c (0 past the tile's end)
+    auto row_mask = [&](int c, int r) {
+      if (r >= rows || c >= C) return 0.f;
+      const int e = s_edges[first + r];
+      return s_mask[c * TN * MS + (e >> 8) * MS + (e & 255)];
+    };
+    if constexpr (WIDE) {
+      // The edge MLP chunk by chunk from weights in shared memory (head
+      // note), then t.  f32: hid = sum_c mask_c relu(A_c W1 + b1), w = hid W2
+      // + msum b2, per warp (its RT rows); bf16 on the tensor cores, channel
+      // by channel: w = bf16(sum_c bf16(bf16(h_c W2) + b2) mask_c), h_c =
+      // relu(bf16(bf16(A_c W1) + b1)).
+      const int groups = fc > 64 ? NCH : 1;
+      const T* a_t = s_at + (size_t)stage * C * ROWS * AP;
+      float mrow[2][RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        mrow[0][i] = row_mask(0, r0 + i);
+        mrow[1][i] = row_mask(1, r0 + i);
+      }
+      float wacc[RT][NCH][2];
+      float d[2][NCH][2][4];
+      if constexpr (ROUND) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int j = 0; j < NCH; ++j)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              d[c][j][mt][0] = d[c][j][mt][1] = d[c][j][mt][2] = d[c][j][mt][3] = 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < NCH; ++j) wacc[i][j][0] = wacc[i][j][1] = 0.f;
+      }
+      const int steps = (H + hstep - 1) / hstep;
+      for (int q = 0; q < steps; ++q) {
+        const int hc = q * hstep, slot = (tile * steps + q) & 1;
+        if (hcw) {
+          // the ring: the next step's chunk into the other slot (the next
+          // tile's first after this tile's last), the next tile's rows with
+          // this tile's first chunk; then this step's are complete
+          const bool last = q + 1 == steps;
+          if (!last || first + ROWS < total)
+            wide_load<ROUND>(s_w1, w1, w2, E, H, F, f0, fc, FP, hcw, last ? 0 : hc + hcw, slot ^ 1,
+                             tid);
+          if (q == 0) {
+            put_sh();
+            gather_tile(stage ^ 1, first + ROWS);
+          }
+          cp_async_commit();
+          cp_async_wait<1>();
+          __syncthreads();
+        }
+        const WideChunk wc = wide_chunk(s_w1, E, H, FP, ROUND, hcw, hc, slot);
+        const int kn = min(hstep, H - hc);
+        if constexpr (ROUND) {
+          wide_chunk_bf16<2, NCH>(d, wc, reinterpret_cast<const __nv_bfloat16*>(a_t), AP, C, E, kn,
+                                  hc, rows, groups, s_b1, s_hidb, wide_hid_pitch(H, hcw), lane,
+                                  warp);
+        } else {
+          if (r0 < rows)
+            wide_chunk_f32<RT, NCH>(wacc, wc, reinterpret_cast<const float*>(a_t), ROWS * AP, AP,
+                                    C, E, kn, hc, r0, rows, groups, mrow, s_b1, s_hid + r0 * WHC,
+                                    FP, lane);
+          if (hcw) __syncthreads();              // every warp is done with this slot
+        }
+      }
+      if constexpr (ROUND) {
+        wide_finish_bf16<2, NCH>(d, C, groups, s_b2, s_wt, FP, lane, warp, row_mask);
+      } else {
+        if (r0 < rows) wide_finish_f32<RT, NCH>(wacc, mrow, r0, groups, s_b2, s_wt, FP, lane);
+      }
+      t_step();
+    } else {
+      t_step();
+    }
+    if (!WIDE && r0 < rows) {
       float mrow[2][RT];                          // the rows' masks; 0 past the tile's end
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
@@ -490,120 +1086,7 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
         mrow[0][i] = ok ? s_mask[at] : 0.f;
         mrow[1][i] = ok && C == 2 ? s_mask[TN * MS + at] : 0.f;
       }
-      if constexpr (WIDE) {
-        // The hidden layer in chunks of HP units, each unit formed whole over
-        // E (so the bf16 rounding points stay where they are), W1 and W2 read
-        // from device memory (L2), the second product summed over the chunks
-        // in registers.  f32: hid = sum_c mask_c relu(A_c W1 + b1), w = hid W2
-        // + msum b2; bf16 channel by channel: w = bf16(sum_c bf16(bf16(h_c
-        // W2) + b2) mask_c), h_c = relu(bf16(bf16(A_c W1) + b1)).
-        float* hid = s_hid + r0 * HP;            // the warp's rows of one chunk
-        for (int c = 0; c < (ROUND ? C : 1); ++c) {
-          float wacc[RT][NC];
-#pragma unroll
-          for (int i = 0; i < RT; ++i)
-#pragma unroll
-            for (int cc = 0; cc < NC; ++cc) wacc[i][cc] = 0.f;
-          for (int hc = 0; hc < H; hc += HP) {
-            const int ha = hc + lane, hb = hc + lane + 32;
-            float hs[RT][2];
-#pragma unroll
-            for (int i = 0; i < RT; ++i) hs[i][0] = hs[i][1] = 0.f;
-            for (int ch = ROUND ? c : 0; ch < (ROUND ? c + 1 : C); ++ch) {
-              const float* A = s_a + ((size_t)(stage * C + ch) * ROWS + r0) * EP;
-              float pre[RT][2];
-#pragma unroll
-              for (int i = 0; i < RT; ++i) pre[i][0] = pre[i][1] = 0.f;
-#pragma unroll 2
-              for (int k = 0; k < EP; k += 4) {
-                float4 av[RT];
-#pragma unroll
-                for (int i = 0; i < RT; ++i) av[i] = *reinterpret_cast<const float4*>(A + i * EP + k);
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) {
-                  const int kr = k + kk;
-                  float wa = 0.f, wb = 0.f;
-                  if (kr < E) {
-                    if (ha < H) wa = __ldg(w1 + (size_t)kr * H + ha);
-                    if (hb < H) wb = __ldg(w1 + (size_t)kr * H + hb);
-                  }
-                  if (ROUND) {
-                    wa = bf16_round(wa);
-                    wb = bf16_round(wb);
-                  }
-#pragma unroll
-                  for (int i = 0; i < RT; ++i) {
-                    const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
-                    pre[i][0] = fmaf(a, wa, pre[i][0]);
-                    pre[i][1] = fmaf(a, wb, pre[i][1]);
-                  }
-                }
-              }
-#pragma unroll
-              for (int i = 0; i < RT; ++i) {
-                if (ROUND) {
-                  hs[i][0] = fmaxf(bf16_round(bf16_round(pre[i][0]) + s_b1[ha]), 0.f);
-                  hs[i][1] = fmaxf(bf16_round(bf16_round(pre[i][1]) + s_b1[hb]), 0.f);
-                } else {
-                  // rows past the tile's end: their mask is 0 and relu drops a NaN
-                  const float mc = ch == 0 ? mrow[0][i] : mrow[1][i];
-                  hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[ha], 0.f), hs[i][0]);
-                  hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[hb], 0.f), hs[i][1]);
-                }
-              }
-            }
-            __syncwarp();                        // the last chunk's rows are read
-#pragma unroll
-            for (int i = 0; i < RT; ++i) {
-              const bool ok = r0 + i < rows;
-              hid[i * HP + lane] = ok && ha < H ? hs[i][0] : 0.f;
-              hid[i * HP + lane + 32] = ok && hb < H ? hs[i][1] : 0.f;
-            }
-            __syncwarp();
-            const int kn = min(HP, H - hc);
-#pragma unroll 2
-            for (int k = 0; k < kn; k += 4) {
-              float4 hv[RT];
-#pragma unroll
-              for (int i = 0; i < RT; ++i) hv[i] = *reinterpret_cast<const float4*>(hid + i * HP + k);
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk) {
-                const int kr = hc + k + kk;
-                float wv[NC];
-#pragma unroll
-                for (int cc = 0; cc < NC; ++cc) {
-                  const int col = lane + 32 * cc;
-                  wv[cc] = kr < H && col < fc ? __ldg(w2 + (size_t)kr * F + f0 + col) : 0.f;
-                  if (ROUND) wv[cc] = bf16_round(wv[cc]);
-                }
-#pragma unroll
-                for (int i = 0; i < RT; ++i) {
-                  const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
-#pragma unroll
-                  for (int cc = 0; cc < NC; ++cc) wacc[i][cc] = fmaf(h, wv[cc], wacc[i][cc]);
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < RT; ++i) {
-            if (ROUND) {   // channel 0's term stored, channel 1's added by the same thread
-              const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
-#pragma unroll
-              for (int cc = 0; cc < NC; ++cc) {
-                float* wt = s_wt + (r0 + i) * FP + lane + 32 * cc;
-                const float v = bf16_round(bf16_round(wacc[i][cc]) + s_b2[lane + 32 * cc]) * mc;
-                *wt = c == 0 ? v : bf16_round(*wt + v);
-              }
-            } else {
-              const float msum = mrow[0][i] + mrow[1][i];
-#pragma unroll
-              for (int cc = 0; cc < NC; ++cc)
-                s_wt[(r0 + i) * FP + lane + 32 * cc] = fmaf(msum, s_b2[lane + 32 * cc], wacc[i][cc]);
-            }
-          }
-        }
-      } else if (ROUND) {
+      if constexpr (ROUND) {
         // the JAX package's bf16 convolution, channel by channel:
         // h_c = relu(bf16(bf16(A_c W1) + b1)), in place of the warp's rows of A_c
         for (int c = 0; c < C; ++c) {
@@ -760,10 +1243,11 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     }
     __syncthreads();
 
-    // ---- the channel's share of every row, summed receiver by receiver
+    // ---- the channel's share of its part of the rows, summed receiver by receiver
     if (active) {
+      const int rb = part * (ROWS / parts), re = min(rows, rb + ROWS / parts);
 #pragma unroll 4
-      for (int r = 0; r < rows; ++r) {
+      for (int r = rb; r < re; ++r) {
         const int e = s_edges[first + r];
         if ((e >> 8) != cur) flush(e >> 8);
         const float w = s_wt[r * FP + f];
@@ -787,9 +1271,28 @@ __global__ void __launch_bounds__(THREADS, 2) tp_fused_kernel(
     __syncthreads();
   }
   cp_async_wait<0>();
+  if (active) flush(0);
 
-  if (active) {
-    flush(0);
+  // WIDE: the other parts' sums, added to part 0's in order (over the
+  // attribute ring and the edge-weight tile, free now)
+  float* red = smem + L.a;                                      // [nl][cw][3]
+  for (int q = 1; q < parts; ++q) {
+    __syncthreads();
+    if (active && part == q) {
+#pragma unroll
+      for (int nl = 0; nl < TN; ++nl)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) red[(nl * cw + f) * 3 + k] = acc[nl][k];
+    }
+    __syncthreads();
+    if (active && part == 0) {
+#pragma unroll
+      for (int nl = 0; nl < TN; ++nl)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) acc[nl][k] += red[(nl * cw + f) * 3 + k];
+    }
+  }
+  if (active && part == 0) {
     float4* o = reinterpret_cast<float4*>(dst) + (size_t)m0 * B * N * F + f0;
 #pragma unroll
     for (int nl = 0; nl < TN; ++nl) {
@@ -828,37 +1331,16 @@ constexpr int L2_KB = 72;         // bf16 pitch of W2^T and the hidden rows (con
 constexpr int L2_K = 5;           // components of an l <= 2 irrep
 constexpr int L2_MAX_PATHS = 32;
 constexpr int L2_SMEM = 113 * 1024;   // two blocks an SM
+// live edges per tile of the wide kernel: f32 16 (its weights and tiles fit
+// beside each other), bf16 32 (two m-tiles a weight fragment)
+constexpr int L2_WIDE_ROWS_F32 = 16;
+constexpr int L2_WIDE_ROWS_BF16 = 32;
+__host__ __device__ constexpr int l2_rows(bool wide, int esize) {
+  return wide ? (esize == 2 ? L2_WIDE_ROWS_BF16 : L2_WIDE_ROWS_F32) : L2_ROWS;
+}
 
 static_assert(L2_RW == 2, "the hidden layer and the edge-weight product take two rows a warp");
 static_assert(L2_THREADS / 16 == L2_ROWS, "the gather gives each row sixteen threads");
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
-}
-// Four neighbouring elements of a staged row, as f32.
-__device__ __forceinline__ float4 ld4s(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 ld4s(const __nv_bfloat16* p) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-// A 16-byte (f32) or 8-byte (bf16) asynchronous copy of four elements.
-__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) { cp_async16(dst, src); }
-__device__ __forceinline__ void cp_async_quad(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  cp_async8(dst, src);
-}
-
-// d += a b on the tensor cores: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // The 8-lane kernel's shared memory, in floats (every piece 16-byte aligned);
 // `esize` the operands' bytes (the staged attribute and feature rows keep
@@ -869,12 +1351,14 @@ struct LayoutL2 {
 
 __host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int DX, int TS, int GS,
                                                    int PC, int MS, int FTP, int esize,
-                                                   bool wide = false) {
+                                                   bool wide = false, int hcw = 0) {
   LayoutL2 L;
   int o = 0;
-  const int EP = wide ? pad4(E) : E;   // the wide kernel: no W1 or W2 (head note)
-  L.w1 = o;    o += wide ? 0 : E * L2_HP;
-  L.b1 = o;    o += wide ? (H + L2_HP - 1) / L2_HP * L2_HP : L2_HP;
+  const int rows = l2_rows(wide, esize);
+  // the wide kernel: its weights (wide_weights) instead of W1 and W2 (head note)
+  const int EP = wide ? wide_a_pitch(E, esize) : E;
+  L.w1 = o;    o += wide ? wide_weights(E, H, FTP, esize, hcw) : E * L2_HP;
+  L.b1 = o;    o += wide ? pad_to(H, WHC) : L2_HP;
   L.w2 = o;    o += wide ? 0 : esize == 2 ? FTP * L2_KB / 2 : H * FTP;   // bf16: W2^T [n][L2_KB]
   L.b2 = o;    o += FTP;
   L.g = o;     o += pad4(GS);
@@ -883,13 +1367,14 @@ __host__ __device__ inline LayoutL2 make_layout_l2(int C, int E, int H, int DX, 
   L.mask = o;  o += pad4(C * L2_TN * MS);
   L.edges = o; o += pad4(L2_TN * MS);                 // ints: nl * MS + ml of the live pairs
   L.wcnt = o;  o += 20;                               // ints: per-warp counts, then the total
-  L.rn = o;    o += 2 * L2_ROWS;                      // ints: each staged row's receiver
-  L.a = o;     o += pad4((2 * C * L2_ROWS * EP * esize + 3) / 4);   // two stages
-  L.sh = o;    o += 2 * L2_ROWS * SH_STRIDE;                       // two stages
-  L.x = o;     o += pad4((2 * L2_ROWS * DX * esize + 3) / 4);      // two stages
-  L.hid = o;   o += C * L2_ROWS * (esize == 2 ? L2_KB / 2 : L2_HP);   // bf16: [c][row][L2_KB]
-  L.wt = o;    o += L2_ROWS * FTP;
-  L.t = o;     o += pad4(L2_ROWS * TS);
+  L.rn = o;    o += 2 * rows;                         // ints: each staged row's receiver
+  L.a = o;     o += pad4((2 * C * rows * EP * esize + 3) / 4);   // two stages
+  L.sh = o;    o += 2 * rows * SH_STRIDE;                        // two stages
+  L.x = o;     o += pad4((2 * rows * DX * esize + 3) / 4);       // two stages
+  L.hid = o;   o += wide ? (esize == 2 ? C * rows * wide_hid_pitch(H, hcw) / 2 : rows * WHC)
+                     : C * rows * (esize == 2 ? L2_KB / 2 : L2_HP);   // bf16: [c][row][L2_KB]
+  L.wt = o;    o += rows * FTP;
+  L.t = o;     o += pad4(rows * TS);
   L.total = o;
   return L;
 }
@@ -984,13 +1469,15 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     const int* __restrict__ walk,    // (F): each tile's channels in the walk's order
     float* __restrict__ dst,         // out (B, N, F, 8), or the partial sums (splits, B, N, F, 8)
     int B, int N, int M, int Mx, int D, int S, int C, int E, int H, int F, int n_ct, int DX,
-    int TS, int GS, int PC, int MS, int mask_is_f32, int xvec) {
+    int TS, int GS, int PC, int MS, int mask_is_f32, int xvec, int hcw) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool ROUND = sizeof(T) == 2;   // the JAX package's bf16 convolution
   constexpr int FTP = 64 * NCH;
+  constexpr int RWS = l2_rows(WIDE, sizeof(T));   // live edges a tile
+  constexpr int TPR = L2_THREADS / RWS;           // the gather's threads a row
   const bool indexed = idx != nullptr;
-  const LayoutL2 L = make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, sizeof(T), WIDE);
-  const int EP = WIDE ? pad4(E) : E;       // the attribute rows' pitch
+  const LayoutL2 L = make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, sizeof(T), WIDE, hcw);
+  const int EP = WIDE ? wide_a_pitch(E, sizeof(T)) : E;   // the attribute rows' pitch
   float* s_w1 = smem + L.w1;                                    // [k][L2_HP]
   float* s_b1 = smem + L.b1;
   float* s_w2 = smem + L.w2;                                    // [k][FTP]: the tile's columns
@@ -1022,7 +1509,7 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
   const int pc = ctab[ct * 8 + 3], x_lo = ctab[ct * 8 + 4], xw = ctab[ct * 8 + 5];
   const int g0 = ctab[ct * 8 + 6], gs = ctab[ct * 8 + 7];
 
-  for (int i = tid; i < 2 * L2_ROWS * SH_STRIDE; i += L2_THREADS) s_sh[i] = 0.f;   // pad lanes 0
+  for (int i = tid; i < 2 * RWS * SH_STRIDE; i += L2_THREADS) s_sh[i] = 0.f;   // pad lanes 0
   for (int i = tid; i < C * L2_TN * MS; i += L2_THREADS) {
     const int c = i / (L2_TN * MS);
     const int r = i - c * L2_TN * MS;
@@ -1090,12 +1577,14 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
 
   // ---- resident operands of a block with live pairs: W1, b1, the tile's W2
   // columns, b2, coupling entries and path rows (f32 weights asynchronously,
-  // with the first tile's rows).  Padding columns are zero.  WIDE: no
-  // weights; the attribute rows' pad past E is zero.
+  // with the first tile's rows).  Padding columns are zero.  WIDE: the
+  // weights, or the ring's first chunk (wide_load); the attribute rows' pad
+  // past E (to the products' depth) is zero.
   if (WIDE) {
-    for (int i = tid; i < 2 * C * L2_ROWS * (EP - E); i += L2_THREADS) {
-      const int r = i / (EP - E);
-      s_a[(size_t)r * EP + E + i - r * (EP - E)] = T(0.f);
+    const int ez = (ROUND ? pad_to(E, 16) : pad4(E)) - E;
+    for (int i = tid; i < 2 * C * RWS * ez; i += L2_THREADS) {
+      const int r = i / ez;
+      s_a[(size_t)r * EP + E + i - r * ez] = T(0.f);
     }
   } else if (ROUND) {
     for (int i = tid; i < E * L2_HP; i += L2_THREADS) {
@@ -1146,39 +1635,57 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
   }
 
   // gather a tile's attribute rows, harmonics and sender features into a
-  // stage of the ring, sixteen threads a row (asynchronously where the
-  // alignment allows; bf16 harmonics with plain loads)
+  // stage of the ring, TPR threads a row (asynchronously where the
+  // alignment allows; bf16 harmonics with plain loads, WIDE into registers
+  // that put_sh stores at the tile's start, so no thread waits on them)
+  float shv[2];                                  // WIDE bf16 (TPR = 8): harmonics sub, sub + 8
+  int sh_at = -1;                                // their row of s_sh, or none
+  auto put_sh = [&]() {
+    if (sh_at < 0) return;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+      if (tid % TPR + TPR * jj < S) s_sh[sh_at * SH_STRIDE + tid % TPR + TPR * jj] = shv[jj];
+    sh_at = -1;
+  };
   auto gather_tile = [&](int stage, int first) {
-    const int row = tid >> 4, sub = tid & 15;
+    const int row = tid / TPR, sub = tid % TPR;
     if (first + row >= total) return;
     const int e = s_edges[first + row];
     const int nl = e / MS, ml = e - nl * MS;
     const size_t edge = ((size_t)b * N + n0 + nl) * M + m0 + ml * mstep;
-    if (sub == 0) s_rn[stage * L2_ROWS + row] = nl;
+    if (sub == 0) s_rn[stage * RWS + row] = nl;
     for (int c = 0; c < C; ++c) {
       const T* src = (c == 0 ? attr0 : attr1) + edge * E;
-      T* arow = s_a + ((size_t)(stage * C + c) * L2_ROWS + row) * EP;
+      T* arow = s_a + ((size_t)(stage * C + c) * RWS + row) * EP;
       if (WIDE && E % 4) {   // rows not aligned to four elements
-        for (int k = sub; k < E; k += 16) {
+        for (int k = sub; k < E; k += TPR) {
           if (sizeof(T) == 4) cp_async4(arow + k, src + k);
           else arow[k] = src[k];
         }
       } else {
-        for (int q = sub; q < E / 4; q += 16) cp_async_quad(arow + 4 * q, src + 4 * q);
+        for (int q = sub; q < E / 4; q += TPR) cp_async_quad(arow + 4 * q, src + 4 * q);
       }
     }
-    float* srow = s_sh + (stage * L2_ROWS + row) * SH_STRIDE;
-    for (int j = sub; j < S; j += 16) {
-      if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
-      else srow[j] = to_f(sh[edge * S + j]);
+    float* srow = s_sh + (stage * RWS + row) * SH_STRIDE;
+    if (WIDE && ROUND) {
+      static_assert(!(WIDE && ROUND) || 2 * TPR >= SH_STRIDE, "two harmonics a thread");
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+        shv[jj] = sub + TPR * jj < S ? to_f(sh[edge * S + sub + TPR * jj]) : 0.f;
+      sh_at = stage * RWS + row;
+    } else {
+      for (int j = sub; j < S; j += TPR) {
+        if (sizeof(T) == 4) cp_async4(srow + j, sh + edge * S + j);
+        else srow[j] = to_f(sh[edge * S + j]);
+      }
     }
     const int m = indexed ? __ldg(idx + edge) : m0 + ml * mstep;
     const T* xs = x + ((size_t)b * Mx + m) * D + x_lo;
-    T* xrow = s_x + (size_t)(stage * L2_ROWS + row) * DX;
+    T* xrow = s_x + (size_t)(stage * RWS + row) * DX;
     if (xvec) {
-      for (int q = sub; q < xw / 4; q += 16) cp_async_quad(xrow + 4 * q, xs + 4 * q);
+      for (int q = sub; q < xw / 4; q += TPR) cp_async_quad(xrow + 4 * q, xs + 4 * q);
     } else {
-      for (int d = sub; d < xw && x_lo + d < D; d += 16) {
+      for (int d = sub; d < xw && x_lo + d < D; d += TPR) {
         if (sizeof(T) == 4) cp_async4(xrow + d, xs + d);
         else xrow[d] = xs[d];
       }
@@ -1196,223 +1703,106 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
   for (int k = 0; k < L2_K; ++k) run[k] = 0.f;
 
   gather_tile(0, 0);
+  if (WIDE)   // the weights, or the ring's first chunk, behind the first tile's rows
+    wide_load<ROUND>(s_w1, w1, w2, E, H, F, f0, fc, FTP, hcw, 0, 0, tid);
   cp_async_commit();
 
-  for (int first = 0, stage = 0; first < total; first += L2_ROWS, stage ^= 1) {
-    const int rows = min(L2_ROWS, total - first);
-    gather_tile(stage ^ 1, first + L2_ROWS);        // the next tile's loads
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // ---- per warp, its two rows: the hidden layer, then (f32) the edge weights
-    const int r0 = warp * L2_RW;
-    float mrow[2][L2_RW];                         // the rows' masks; 0 past the tile's end
-#pragma unroll
-    for (int i = 0; i < L2_RW; ++i) {
-      const bool ok = r0 + i < rows;
-      const int e = ok ? s_edges[first + r0 + i] : 0;
-      mrow[0][i] = ok ? s_mask[e] : 0.f;
-      mrow[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
+  for (int first = 0, stage = 0, tile = 0; first < total; first += RWS, stage ^= 1, ++tile) {
+    const int rows = min(RWS, total - first);
+    if (!WIDE || hcw == 0) {   // the ring holds the tiles; WIDE staged: it steps by chunks below
+      put_sh();                                   // this tile's harmonics (WIDE bf16)
+      gather_tile(stage ^ 1, first + RWS);        // the next tile's loads
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
     }
+
     if constexpr (WIDE) {
-      // The hidden layer in chunks of L2_HP units, each unit formed whole
-      // over E, W1 and W2 read from device memory (L2).  f32: per warp, its
-      // two rows' chunk of hid = sum_c mask_c relu(A_c W1 + b1) and their
-      // edge weights summed over the chunks in registers.  bf16: every
-      // warp's rows of each channel's chunk h_c = relu(bf16(bf16(A_c W1) +
-      // b1)), then w_c = h_c W2 over the chunk on the tensor cores, summed
-      // over the chunks in the mma's f32 registers.
-      const int G = NCH == 2 && fc > 64 ? 2 : 1;
-      auto hidden = [&](int c, int hc, float (&hs)[L2_RW][2]) {   // pre-activations of a chunk
-        const T* A = s_a + ((size_t)(stage * C + c) * L2_ROWS + r0) * EP;
-        const int u0 = hc + 2 * lane, u1 = u0 + 1;
-#pragma unroll
-        for (int i = 0; i < L2_RW; ++i) hs[i][0] = hs[i][1] = 0.f;
-#pragma unroll 2
-        for (int k = 0; k < EP; k += 4) {
-          float4 av[L2_RW];
-#pragma unroll
-          for (int i = 0; i < L2_RW; ++i) av[i] = ld4s(A + i * EP + k);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const int kr = k + kk;
-            float wa = 0.f, wb = 0.f;
-            if (kr < E) {
-              if (u0 < H) wa = __ldg(w1 + (size_t)kr * H + u0);
-              if (u1 < H) wb = __ldg(w1 + (size_t)kr * H + u1);
-            }
-            if (ROUND) {
-              wa = bf16_round(wa);
-              wb = bf16_round(wb);
-            }
-#pragma unroll
-            for (int i = 0; i < L2_RW; ++i) {
-              const float a = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
-              hs[i][0] = fmaf(a, wa, hs[i][0]);
-              hs[i][1] = fmaf(a, wb, hs[i][1]);
-            }
-          }
-        }
+      // The edge MLP chunk by chunk from weights in shared memory (head
+      // note).  f32, per warp (its RT rows): hid = sum_c mask_c relu(A_c W1
+      // + b1), w = hid W2 + msum b2; bf16, the block on the tensor cores,
+      // channel by channel: w = bf16(sum_c bf16(bf16(h_c W2) + b2) mask_c),
+      // h_c = relu(bf16(bf16(A_c W1) + b1)).
+      constexpr int RT = RWS / L2_WARPS, MT = RWS / 16;
+      const int groups = NCH == 2 && fc > 64 ? 2 : 1;
+      const int r0 = warp * RT;
+      const T* a_t = s_a + (size_t)stage * C * RWS * EP;
+      auto row_mask = [&](int c, int r) {
+        return r < rows && c < C ? s_mask[c * pairs + s_edges[first + r]] : 0.f;
       };
-      if constexpr (!ROUND) {
-        if (r0 < rows) {
-          float* hr = s_hid + r0 * L2_HP;
-          float wacc[L2_RW][2][2];
+      float mrow[2][RT];
 #pragma unroll
-          for (int i = 0; i < L2_RW; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wacc[i][j][0] = wacc[i][j][1] = 0.f;
-          for (int hc = 0; hc < H; hc += L2_HP) {
-            const int u0 = hc + 2 * lane, u1 = u0 + 1;
-            float hs[L2_RW][2];
-#pragma unroll
-            for (int i = 0; i < L2_RW; ++i) hs[i][0] = hs[i][1] = 0.f;
-            for (int c = 0; c < C; ++c) {
-              float pre[L2_RW][2];
-              hidden(c, hc, pre);
-#pragma unroll
-              for (int i = 0; i < L2_RW; ++i) {
-                const float mc = c == 0 ? mrow[0][i] : mrow[1][i];
-                hs[i][0] = fmaf(mc, fmaxf(pre[i][0] + s_b1[u0], 0.f), hs[i][0]);
-                hs[i][1] = fmaf(mc, fmaxf(pre[i][1] + s_b1[u1], 0.f), hs[i][1]);
-              }
-            }
-            __syncwarp();                        // the last chunk's rows are read
-#pragma unroll
-            for (int i = 0; i < L2_RW; ++i) {
-              const bool ok = r0 + i < rows;
-              *reinterpret_cast<float2*>(hr + i * L2_HP + 2 * lane) =
-                  make_float2(ok && u0 < H ? hs[i][0] : 0.f, ok && u1 < H ? hs[i][1] : 0.f);
-            }
-            __syncwarp();
-            const int kn = min(L2_HP, H - hc);
-#pragma unroll 2
-            for (int k = 0; k < kn; k += 4) {
-              float4 hv[L2_RW];
-#pragma unroll
-              for (int i = 0; i < L2_RW; ++i)
-                hv[i] = *reinterpret_cast<const float4*>(hr + i * L2_HP + k);
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk) {
-                const int kr = hc + k + kk;
-                float2 wv[2];
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                  const int col = 2 * lane + 64 * j;
-                  const float* wr = w2 + (size_t)kr * F + f0 + col;
-                  const bool on = kr < H && j < G;
-                  wv[j].x = on && col < fc ? __ldg(wr) : 0.f;
-                  wv[j].y = on && col + 1 < fc ? __ldg(wr + 1) : 0.f;
-                }
-#pragma unroll
-                for (int i = 0; i < L2_RW; ++i) {
-                  const float h = kk == 0 ? hv[i].x : kk == 1 ? hv[i].y : kk == 2 ? hv[i].z : hv[i].w;
-#pragma unroll
-                  for (int j = 0; j < 2; ++j) {
-                    wacc[i][j][0] = fmaf(h, wv[j].x, wacc[i][j][0]);
-                    wacc[i][j][1] = fmaf(h, wv[j].y, wacc[i][j][1]);
-                  }
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < L2_RW; ++i) {
-            const float msum = mrow[0][i] + mrow[1][i];
-            for (int j = 0; j < G; ++j) {
-              const int col = 2 * lane + 64 * j;
-              const float2 bv = *reinterpret_cast<const float2*>(s_b2 + col);
-              *reinterpret_cast<float2*>(s_wt + (r0 + i) * FTP + col) =
-                  make_float2(fmaf(msum, bv.x, wacc[i][j][0]), fmaf(msum, bv.y, wacc[i][j][1]));
-            }
-          }
-        }
-      } else {
-        const int g = lane >> 2, tq = lane & 3;
-        float mr[2][2];                           // [c][row g, g + 8]
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = g + 8 * i;
-          const bool ok = r < rows;
-          const int e = ok ? s_edges[first + r] : 0;
-          mr[0][i] = ok ? s_mask[e] : 0.f;
-          mr[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
-        }
-        float d[2][2][4];                         // [c][column group][fragment]
+      for (int i = 0; i < RT; ++i) {
+        mrow[0][i] = row_mask(0, r0 + i);
+        mrow[1][i] = row_mask(1, r0 + i);
+      }
+      float wacc[RT][NCH][2];
+      float d[2][NCH][MT][4];
+      if constexpr (ROUND) {
 #pragma unroll
         for (int c = 0; c < 2; ++c)
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < NCH; ++j)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) d[c][j][q] = 0.f;
-        for (int hc = 0; hc < H; hc += L2_HP) {
-          const int u0 = hc + 2 * lane, u1 = u0 + 1;
-          for (int c = 0; c < C; ++c) {
-            float h[L2_RW][2] = {};
-            if (r0 < rows) {
-              float pre[L2_RW][2];
-              hidden(c, hc, pre);
+            for (int mt = 0; mt < MT; ++mt)
+              d[c][j][mt][0] = d[c][j][mt][1] = d[c][j][mt][2] = d[c][j][mt][3] = 0.f;
+      } else {
 #pragma unroll
-              for (int i = 0; i < L2_RW; ++i) {
-                h[i][0] = fmaxf(bf16_round(bf16_round(pre[i][0]) + s_b1[u0]), 0.f);
-                h[i][1] = fmaxf(bf16_round(bf16_round(pre[i][1]) + s_b1[u1]), 0.f);
-              }
-            }
+        for (int i = 0; i < RT; ++i)
 #pragma unroll
-            for (int i = 0; i < L2_RW; ++i) {   // rows past the tile's end and units past H: 0
-              const bool ok = r0 + i < rows;
-              *reinterpret_cast<__nv_bfloat162*>(s_hidb + (c * L2_ROWS + r0 + i) * L2_KB + 2 * lane) =
-                  __floats2bfloat162_rn(ok && u0 < H ? h[i][0] : 0.f, ok && u1 < H ? h[i][1] : 0.f);
-            }
+          for (int j = 0; j < NCH; ++j) wacc[i][j][0] = wacc[i][j][1] = 0.f;
+      }
+      // hidden units a chunk: staged, hcw; resident, all H (bf16) or WHC (f32)
+      const int hstep = hcw ? hcw : ROUND ? H : WHC;
+      const int steps = (H + hstep - 1) / hstep;
+      for (int q = 0; q < steps; ++q) {
+        const int hc = q * hstep, slot = (tile * steps + q) & 1;
+        if (hcw) {
+          // the ring: the next step's chunk into the other slot (the next
+          // tile's first after this tile's last), the next tile's rows with
+          // this tile's first chunk; then this step's are complete
+          const bool last = q + 1 == steps;
+          if (!last || first + RWS < total)
+            wide_load<ROUND>(s_w1, w1, w2, E, H, F, f0, fc, FTP, hcw, last ? 0 : hc + hcw,
+                             slot ^ 1, tid);
+          if (q == 0) {
+            put_sh();
+            gather_tile(stage ^ 1, first + RWS);
           }
+          cp_async_commit();
+          cp_async_wait<1>();
           __syncthreads();
-          const int kn = min(L2_HP, H - hc);
-          for (int c = 0; c < C; ++c) {
-            const __nv_bfloat16* hb = s_hidb + c * L2_ROWS * L2_KB;
-            for (int k0 = 0; k0 < kn; k0 += 16) {
-              unsigned a[4];
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                a[q] = *reinterpret_cast<const unsigned*>(
-                    hb + (g + 8 * (q & 1)) * L2_KB + k0 + 2 * tq + 8 * (q >> 1));
-#pragma unroll
-              for (int j = 0; j < 2; ++j) {
-                if (j >= G) break;
-                // W2[k][col] as bf16 pairs along k (the col-major B fragment), 0 past H and fc
-                const int col = (warp + 8 * j) * 8 + g;
-                auto w2b = [&](int kr) {
-                  return kr < H && col < fc ? __ldg(w2 + (size_t)kr * F + f0 + col) : 0.f;
-                };
-                const int kr = hc + k0 + 2 * tq;
-                const __nv_bfloat162 lo = __floats2bfloat162_rn(w2b(kr), w2b(kr + 1));
-                const __nv_bfloat162 hi = __floats2bfloat162_rn(w2b(kr + 8), w2b(kr + 9));
-                const unsigned bb[2] = {*reinterpret_cast<const unsigned*>(&lo),
-                                        *reinterpret_cast<const unsigned*>(&hi)};
-                mma_bf16(d[c][j], a, bb);
-              }
-            }
-          }
-          __syncthreads();                        // before the next chunk's hidden rows
         }
-        // w = bf16(sum_c bf16(bf16(h_c W2) + b2) * mask_c): channel 0's term
-        // is stored, channel 1's added to it by the same thread and rounded
-        for (int c = 0; c < C; ++c) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            if (j >= G) break;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int row = g + 8 * (q >> 1), col = (warp + 8 * j) * 8 + 2 * tq + (q & 1);
-              const float mc = c == 0 ? mr[0][q >> 1] : mr[1][q >> 1];
-              const float v = bf16_round(bf16_round(d[c][j][q]) + s_b2[col]) * mc;
-              float* wt = s_wt + row * FTP + col;
-              *wt = c == 0 ? v : bf16_round(*wt + v);
-            }
-          }
+        const WideChunk wc = wide_chunk(s_w1, E, H, FTP, ROUND, hcw, hc, slot);
+        const int kn = min(hstep, H - hc);
+        if constexpr (ROUND) {
+          wide_chunk_bf16<MT, NCH>(d, wc, reinterpret_cast<const __nv_bfloat16*>(a_t), EP, C, E,
+                                   kn, hc, rows, groups, s_b1, s_hidb, wide_hid_pitch(H, hcw),
+                                   lane, warp);
+        } else {
+          if (r0 < rows)
+            wide_chunk_f32<RT, NCH>(wacc, wc, reinterpret_cast<const float*>(a_t), RWS * EP, EP,
+                                    C, E, kn, hc, r0, rows, groups, mrow, s_b1,
+                                    s_hid + r0 * WHC, FTP, lane);
+          if (hcw) __syncthreads();              // every warp is done with this slot
         }
       }
+      if constexpr (ROUND) {
+        wide_finish_bf16<MT, NCH>(d, C, groups, s_b2, s_wt, FTP, lane, warp, row_mask);
+      } else {
+        if (r0 < rows) wide_finish_f32<RT, NCH>(wacc, mrow, r0, groups, s_b2, s_wt, FTP, lane);
+      }
     } else {
+      // ---- per warp, its two rows: the hidden layer, then (f32) the edge weights
+      const int r0 = warp * L2_RW;
+      float mrow[2][L2_RW];                       // the rows' masks; 0 past the tile's end
+#pragma unroll
+      for (int i = 0; i < L2_RW; ++i) {
+        const bool ok = r0 + i < rows;
+        const int e = ok ? s_edges[first + r0 + i] : 0;
+        mrow[0][i] = ok ? s_mask[e] : 0.f;
+        mrow[1][i] = ok && C == 2 ? s_mask[pairs + e] : 0.f;
+      }
       if (r0 < rows) {
         // hidden units 2 lane, 2 lane + 1 of both rows: pre = A_c W1
         float hs[L2_RW][2] = {};
@@ -1570,14 +1960,14 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     }
     // ---- t of every (row, tile path, i): t[i][k] = sum_j G[i, j, k] sh[j]
     // (rows fastest, so a warp mostly shares one (path, i) and its shape)
-    for (int it = tid; it < L2_ROWS * n_pi; it += L2_THREADS) {
-      const int r = it % L2_ROWS, pi = s_pi[it / L2_ROWS];
+    for (int it = tid; it < RWS * n_pi; it += L2_THREADS) {
+      const int r = it % RWS, pi = s_pi[it / RWS];
       const int p = pi >> 3, i = pi & 7;
       const int* pt = s_ptab + p * 8;
       if (r >= rows) continue;
       const int d_sh = pt[2], d_out = pt[3];
       const float* G = s_g + pt[5] + i * d_sh * d_out;
-      const float* sv = s_sh + (stage * L2_ROWS + r) * SH_STRIDE + pt[0];
+      const float* sv = s_sh + (stage * RWS + r) * SH_STRIDE + pt[0];
       float* tq = s_t + r * TS + pt[4] + i * d_out;
       switch (d_sh * 8 + d_out) {
         case 9: t_entry<1, 1>(tq, G, sv); break;
@@ -1596,10 +1986,10 @@ __global__ void __launch_bounds__(L2_THREADS, 2) tp_fused_l2_kernel(
     // ---- the channel's share of its half of the rows, summed receiver by
     // receiver (the loops' bounds fixed by the channel's shape)
     if (walker) {
-      const int rb = part * (L2_ROWS / parts), re = min(rows, rb + L2_ROWS / parts);
-      const int* rn = s_rn + stage * L2_ROWS;
+      const int rb = part * (RWS / parts), re = min(rows, rb + RWS / parts);
+      const int* rn = s_rn + stage * RWS;
       const float* wt = s_wt + fw;
-      const T* xr = s_x + (size_t)stage * L2_ROWS * DX + cm.x;
+      const T* xr = s_x + (size_t)stage * RWS * DX + cm.x;
       const float* tq = s_t + t_off;
       switch (shape) {
         case 9: walk_rows<1, 1>(acc, run, cur, rb, re, rn, wt, FTP, xr, DX, tq, TS); break;
@@ -1669,7 +2059,7 @@ struct ArgsL2 {
   const float* gflat;
   const int *ctab, *walk;
   float *out, *part;
-  int B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS, mask_is_f32;
+  int B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS, mask_is_f32, hcw;
 };
 
 // The most shared memory a block of the 8-lane kernel takes: two blocks an
@@ -1687,12 +2077,13 @@ int launch_l2(const ArgsL2& a, cudaStream_t stream) {
     allowed = true;
   }
   const LayoutL2 L = make_layout_l2(a.C, a.E, a.H, a.DX, a.TS, a.GS, a.PC, a.MS, 64 * NCH,
-                                    sizeof(T), WIDE);
+                                    sizeof(T), WIDE, a.hcw);
   const size_t bytes = (size_t)L.total * sizeof(float);
   if (bytes > (size_t)smem_l2_limit(WIDE)) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
   const dim3 grid(splits * a.n_ct, (a.N + L2_TN - 1) / L2_TN, a.B);
   float* dst = splits > 1 ? a.part : a.out;
+  static_assert(L2_THREADS == WIDE_NT, "the wide helpers take eight warps");
   // the sender rows' slices go four elements at a time where every row's
   // slice starts on such a boundary (x_lo is a multiple of four)
   const int xvec = a.D % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % (4 * sizeof(T)) == 0;
@@ -1701,7 +2092,8 @@ int launch_l2(const ArgsL2& a, cudaStream_t stream) {
       static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
       reinterpret_cast<const int4*>(a.chan), a.ptab, a.gflat, a.ctab, a.walk, dst, a.B, a.N, a.M,
       a.Mx,
-      a.D, a.S, a.C, a.E, a.H, a.F, a.n_ct, a.DX, a.TS, a.GS, a.PC, a.MS, a.mask_is_f32, xvec);
+      a.D, a.S, a.C, a.E, a.H, a.F, a.n_ct, a.DX, a.TS, a.GS, a.PC, a.MS, a.mask_is_f32, xvec,
+      a.hcw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long total = (long long)a.B * a.N * a.F * 8;
@@ -1724,7 +2116,7 @@ struct Args {
   const float* gtab;
   const int* ctab;
   float *out, *part;
-  int B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32, n_ct, tpaths;
+  int B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32, n_ct, tpaths, hcw;
 };
 
 template <typename T, int NC, bool IDX, bool WIDE>
@@ -1736,7 +2128,9 @@ int launch(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     allowed = true;
   }
-  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC, IDX, WIDE, a.tpaths);
+  static_assert(THREADS == WIDE_NT, "the wide helpers take eight warps");
+  const Layout L = make_layout(a.C, a.E, a.H, a.D, a.n_paths, a.MS, NC, IDX, WIDE, a.tpaths,
+                               sizeof(T), a.hcw);
   const size_t bytes = (size_t)L.total * sizeof(float);
   if (bytes > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int splits = (a.M + a.MS - 1) / a.MS;
@@ -1746,7 +2140,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.x), static_cast<const T*>(a.sh), static_cast<const T*>(a.attr0),
       static_cast<const T*>(a.attr1), a.mask0, a.mask1, a.idx, a.w1, a.b1, a.w2, a.b2,
       reinterpret_cast<const int4*>(a.chan), a.gtab, a.ctab, dst, a.B, a.N, a.M, a.Mx, a.D, a.S,
-      a.C, a.E, a.H, a.F, a.n_paths, a.MS, a.mask_is_f32, a.n_ct, a.tpaths);
+      a.C, a.E, a.H, a.F, a.n_paths, a.MS, a.mask_is_f32, a.n_ct, a.tpaths, a.hcw);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int total = a.B * a.N * a.F;
@@ -1755,10 +2149,10 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The narrow kernel: NC from F; the wide one takes NC_MAX for any tile.
+// The narrow kernel: NC from F; the wide one NC = FTP / 32 (its tile pitch).
 template <typename T, bool IDX>
-int launch_nc(const Args& a, bool wide, cudaStream_t stream) {
-  if (wide) return launch<T, NC_MAX, IDX, true>(a, stream);
+int launch_nc(const Args& a, int ftp, cudaStream_t stream) {
+  if (ftp) return ftp == 64 ? launch<T, 2, IDX, true>(a, stream) : launch<T, 4, IDX, true>(a, stream);
   switch ((a.F + 31) / 32) {
     case 1:
     case 2: return launch<T, 2, IDX, false>(a, stream);
@@ -1779,36 +2173,42 @@ extern "C" {
 // slot, x (B, Mx, D); dense: idx null, Mx = M.  ctab null: the narrow kernel
 // (E, H multiples of 4, H <= min(E, 64), F <= 160); else the wide kernel on
 // the n_ct channel tiles of ctab ((first channel, width, first path, paths)
-// each, width <= 160, at most tpaths paths), E and H <= WIDE_MAX.
+// each, width <= ftp, at most tpaths paths), E and H <= WIDE_MAX, ftp 64 or
+// 128 the tiles' pitch, hcw 0 (weights resident) or the hidden units of a
+// staged chunk (64, 32, 16 or 8).
 int dp_tp_fused(const void* x, const void* sh, const void* attr0, const void* attr1,
                 const void* mask0, const void* mask1, const int* idx, const float* w1,
                 const float* b1, const float* w2, const float* b2, const int* chan,
                 const float* gtab, const int* ctab, float* out, float* part, int B, int N, int M,
                 int Mx, int D, int S, int C, int E, int H, int F, int n_paths, int MS,
-                int mask_is_f32, int n_ct, int tpaths, int bf16, void* stream) {
+                int mask_is_f32, int n_ct, int tpaths, int ftp, int hcw, int bf16, void* stream) {
   const bool wide = ctab != nullptr;
   if (B < 1 || N < 1 || M < 1 || D < 1 || E < 1 || H < 1 || C < 1 || C > 2 || S < 1 ||
       S > SH_STRIDE || F < 1 || n_paths < 1 || n_paths > MAX_PATHS || B > 65535 ||
       (N + TN - 1) / TN > 65535 || MS < 1 || MS > MS_MAX || (MS < M && part == nullptr) ||
       Mx < 1 || (idx == nullptr && Mx != M) ||
       (wide ? (E > WIDE_MAX || H > WIDE_MAX || n_ct < 1 || tpaths < 1 || tpaths > n_paths ||
+               (ftp != 64 && ftp != 128) || (hcw != 0 && hcw != 8 && hcw != 16 && hcw != 32 &&
+                                             hcw != 64) ||
                (long long)((M + MS - 1) / MS) * n_ct > INT_MAX)
-            : (E < 4 || E % 4 || H < 4 || H % 4 || H > HP || H > E || F > 32 * NC_MAX || n_ct != 1)))
+            : (E < 4 || E % 4 || H < 4 || H % 4 || H > HP || H > E || F > 32 * NC_MAX || n_ct != 1 ||
+               ftp != 0 || hcw != 0)))
     return (int)cudaErrorInvalidValue;
   const Args a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, gtab, ctab, out, part,
-               B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32, n_ct, tpaths};
+               B, N, M, Mx, D, S, C, E, H, F, n_paths, MS, mask_is_f32, n_ct, tpaths, hcw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx != nullptr)
-    return bf16 ? launch_nc<__nv_bfloat16, true>(a, wide, st) : launch_nc<float, true>(a, wide, st);
-  return bf16 ? launch_nc<__nv_bfloat16, false>(a, wide, st) : launch_nc<float, false>(a, wide, st);
+    return bf16 ? launch_nc<__nv_bfloat16, true>(a, ftp, st) : launch_nc<float, true>(a, ftp, st);
+  return bf16 ? launch_nc<__nv_bfloat16, false>(a, ftp, st) : launch_nc<float, false>(a, ftp, st);
 }
 
 // Bytes of shared memory a block of the 4-lane kernel takes at these sizes
-// (the narrow kernel at NC = ceil(F / 32), the wide one at NC_MAX).
-int dp_tp_fused_smem(int C, int E, int H, int D, int n_paths, int MS, int F, int idx, int wide,
-                     int tpaths) {
-  const int nc = wide ? NC_MAX : ((F + 31) / 32 < 2 ? 2 : (F + 31) / 32);
-  return make_layout(C, E, H, D, n_paths, MS, nc, idx != 0, wide != 0, tpaths).total *
+// (the narrow kernel at NC = ceil(F / 32), ftp 0; the wide one at its tile
+// pitch ftp, esize the operands' bytes, hcw as dp_tp_fused takes it).
+int dp_tp_fused_smem(int C, int E, int H, int D, int n_paths, int MS, int F, int idx, int ftp,
+                     int tpaths, int esize, int hcw) {
+  const int nc = ftp ? ftp / 32 : ((F + 31) / 32 < 2 ? 2 : (F + 31) / 32);
+  return make_layout(C, E, H, D, n_paths, MS, nc, idx != 0, ftp != 0, tpaths, esize, hcw).total *
          (int)sizeof(float);
 }
 
@@ -1818,7 +2218,8 @@ int dp_tp_fused_smem(int C, int E, int H, int D, int n_paths, int MS, int F, int
 // (ceil(M / MS), B, N, F, 8) floats when the senders (slots) are split (MS <
 // M).  Sender-index mode: idx (B, N, M) int32, x (B, Mx, D); dense: idx null,
 // Mx = M.  `wide`: the wide kernel (any E, H <= WIDE_MAX; else E and H
-// multiples of four, H <= 64).  Returns a cudaError_t value.
+// multiples of four, H <= 64), its weights resident (hcw 0) or staged in
+// chunks of hcw hidden units.  Returns a cudaError_t value.
 int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void* attr1,
                    const void* mask0, const void* mask1, const int* idx, const float* w1,
                    const float* b1, const float* w2, const float* b2, const int* chan,
@@ -1826,18 +2227,19 @@ int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void*
                    float* out, float* part, int B, int N, int M, int Mx, int D, int S, int C,
                    int E, int H, int F,
                    int n_ct, int DX, int TS, int GS, int PC, int FTP, int MS, int mask_is_f32,
-                   int wide, int bf16, void* stream) {
+                   int wide, int hcw, int bf16, void* stream) {
   if (B < 1 || N < 1 || M < 1 || D < 1 || E < 1 || H < 1 ||
       (wide ? (E > WIDE_MAX || H > WIDE_MAX) : (E < 4 || E % 4 || H < 4 || H % 4 || H > L2_HP)) ||
       C < 1 || C > 2 || S < 1 || S > SH_STRIDE || F < 1 || n_ct < 1 || DX < 4 || DX % 4 ||
       TS < 1 || GS < 1 || PC < 1 || PC > L2_MAX_PATHS || (FTP != 64 && FTP != 128) ||
       B > 65535 || (N + L2_TN - 1) / L2_TN > 65535 || MS < 1 || MS > L2_MS_MAX ||
       (MS < M && part == nullptr) || Mx < 1 || (idx == nullptr && Mx != M) ||
-      (long long)((M + MS - 1) / MS) * n_ct > INT_MAX)
+      (long long)((M + MS - 1) / MS) * n_ct > INT_MAX ||
+      (wide ? hcw != 0 && hcw != 8 && hcw != 16 && hcw != 32 && hcw != 64 : hcw != 0))
     return (int)cudaErrorInvalidValue;
   const ArgsL2 a{x, sh, attr0, attr1, mask0, mask1, idx, w1, b1, w2, b2, chan, ptab, gflat, ctab,
                  walk, out, part, B, N, M, Mx, D, S, C, E, H, F, n_ct, DX, TS, GS, PC, FTP, MS,
-                 mask_is_f32};
+                 mask_is_f32, hcw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_l2_nch<__nv_bfloat16>(a, wide != 0, st)
               : launch_l2_nch<float>(a, wide != 0, st);
@@ -1847,8 +2249,8 @@ int dp_tp_fused_l2(const void* x, const void* sh, const void* attr0, const void*
 // arguments of dp_tp_fused_l2, esize the operands' bytes); a launch that
 // needs more than L2_SMEM (the wide kernel: MAX_SMEM) is refused.
 int dp_tp_fused_l2_smem(int C, int E, int H, int DX, int TS, int GS, int PC, int MS, int FTP,
-                        int esize, int wide) {
-  return make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, esize, wide != 0).total *
+                        int esize, int wide, int hcw) {
+  return make_layout_l2(C, E, H, DX, TS, GS, PC, MS, FTP, esize, wide != 0, hcw).total *
          (int)sizeof(float);
 }
 

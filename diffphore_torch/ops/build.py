@@ -43,8 +43,11 @@ def library_path(name: str) -> str:
 
 
 def compile_command(name: str, out: str) -> List[str]:
+    # --split-compile=0: nvcc optimizes a source's kernels on all the cores,
+    # which halves the build of the heavily templated sources
+    # (chip_smoke.py prints the build's seconds)
     return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", out, os.path.join(CSRC, name + ".cu")]
+            "--split-compile=0", "-Xptxas", "-v", "-o", out, os.path.join(CSRC, name + ".cu")]
 
 
 def build(names: List[str]) -> Dict[str, Tuple[str, str]]:

@@ -35,14 +35,16 @@ its senders'.  ``KERNEL_IDX`` and ``KERNEL_IDX_L2`` count those launches.
 
 Widths.  Each kernel has a narrow form (W1 and W2 in shared memory: E and
 H multiples of four, H <= 64, at 4 lanes F <= 160) and a wide one (a
-template flag of the same kernel: W1 and W2 read from device memory, the
-hidden layer in chunks of 64 units, any E and H up to ``MAX_WIDE``, at 4
-lanes channel tiles of up to ``MAX_F`` from :func:`channel_tiles`).
-:func:`plan` picks the form, the tiles and the senders a block from the
-shapes alone (no card), restating the blocks' shared-memory sums
-(:func:`layout_bytes`, :func:`layout_bytes_l2`), and raises, naming the
-limit, on what neither takes.  Every shipped convolution takes the narrow
-kernels.
+template flag of the same kernel: any E and H up to ``MAX_WIDE``, channel
+tiles of up to ``TILE_F_L2`` from :func:`channel_tiles` at both lane
+counts).  The wide form keeps W1 and its tile's W2 columns in shared memory
+for the block's life where they fit (resident), else stages them one hidden
+chunk at a time through a two-stage ring (staged); bf16 weights are stored
+as bf16, rounded once.  :func:`plan` picks the form, resident or staged, the
+tiles and the senders a block from the shapes alone (no card), restating the
+blocks' shared-memory sums (:func:`layout_bytes`, :func:`layout_bytes_l2`),
+and raises, naming the limit, on what none takes.  Every shipped convolution
+takes the narrow kernels.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ MAX_F = 160       # widest edge-weight row (or channel tile) the kernel's regist
 MAX_H = 64        # widest hidden layer whose weights a block keeps (and no wider than E)
 MAX_PATHS = 16    # most tensor-product paths
 MAX_WIDE = 192    # widest edge attributes and hidden layer of the wide kernels (ns <= 64)
-ROWS = 32         # live edges per tile of the 4-lane kernel
+ROWS = 32         # live edges per tile of the 4-lane kernel (narrow and wide)
+WIDE_HC = 64      # hidden units of a wide kernel's chunk (resident f32, or staged at most)
 SMEM = 227 * 1024  # shared memory a block may take
 TARGET_BLOCKS = 2 * 132   # two blocks for each SM of an H100
 # the 8-lane kernel (l <= 2)
@@ -78,6 +81,7 @@ MAX_SENDERS_L2 = 96   # most senders one block takes (a 96-point phore in one sp
 MAX_F_L2 = 384        # widest edge-weight row
 MAX_PATHS_L2 = 32
 ROWS_L2 = 16          # live edges per tile
+ROWS_L2_WIDE = {4: 16, 2: 32}   # live edges per tile of the wide kernel, f32 and bf16
 TILE_F_L2 = 128       # widest channel tile of a block (two channels a lane, two lane groups)
 SMEM_L2 = 113 * 1024  # shared memory a block may take so that two fit on an SM
 
@@ -310,15 +314,14 @@ def device_tables_l2(tp: ChannelwiseTP, device: str, dtype: torch.dtype = torch.
 
 
 @functools.lru_cache(maxsize=None)
-def channel_tiles(tp: ChannelwiseTP, width: int = TILE_F_L2
-                  ) -> Tuple[Tuple[int, int, int, int], ...]:
-    """Channel tiles of at most ``width`` channels: (first channel, channels,
-    first path, paths) of each, cut at path boundaries, each filled with
-    paths up to ``width`` channels.  The 8-lane kernel's (``TILE_F_L2``): a
-    block takes one tile, its W2 columns, t tables and coupling tensors
-    only, and computes its product in 64-channel groups (so a tile of 120
-    wastes 8 columns, one of 90 would waste 38).  The 4-lane wide kernel's
-    (``MAX_F``): a block takes one tile's W2 columns and output channels."""
+def channel_tiles(tp: ChannelwiseTP) -> Tuple[Tuple[int, int, int, int], ...]:
+    """Channel tiles of at most ``TILE_F_L2`` channels: (first channel,
+    channels, first path, paths) of each, cut at path boundaries, each
+    filled with paths up to ``TILE_F_L2`` channels.  The 8-lane kernels' and
+    the 4-lane wide kernel's: a block takes one tile, its W2 columns, t
+    tables and coupling tensors only, and computes its product in 64-channel
+    groups (so a tile of 120 wastes 8 columns, one of 90 would waste 38)."""
+    width = TILE_F_L2
     if any(p.mul_in > width for p in tp.paths):
         raise ValueError(f"tp_fused: a path of more than {width} channels (the widest channel "
                          f"tile)")
@@ -335,34 +338,88 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def wide_weights(E: int, H: int, ftp: int, esize: int, staged: int) -> int:
+    """Floats of shared memory the wide kernels' weights take
+    (``wide_weights`` in csrc/tp_fused.cu): resident (``staged`` 0), W1 and
+    the tile's ``ftp`` W2 columns whole; staged, two hidden chunks of
+    ``staged`` units.  f32 weights keep their layout (W1 [pad4(E)][pad4(H)],
+    W2 [pad4(H)][ftp]; a chunk W1 [pad4(E)][hc], W2 [hc][ftp]); bf16 ones are
+    stored transposed as bf16 (W1^T [pad8(H)][pad16(E) + 8], W2^T
+    [ftp][pad16(H) + 8]; a chunk W1^T [hc][pad16(E) + 8], W2^T [ftp][hc +
+    8]), rows at a pitch the tensor cores' fragment loads read without bank
+    conflicts."""
+    hc = staged
+    if esize == 4:
+        if hc:
+            return 2 * (_pad4(E) * hc + hc * ftp)
+        return _pad4(E) * _pad4(H) + _pad4(H) * ftp
+    q1 = _pad(E, 16) + 8
+    if hc:
+        return hc * q1 + ftp * (hc + 8)
+    return (_pad(H, 8) * q1 + ftp * (_pad(H, 16) + 8)) // 2
+
+
+def _hid_pitch(H: int, staged: int) -> int:
+    """bf16 elements of a wide kernel's hidden row: a staged chunk's, or,
+    with the weights resident, the whole hidden layer's."""
+    return WIDE_HC + 8 if staged else _pad(H, 16) + 8
+
+
+def _a_pitch(E: int, esize: int) -> int:
+    """Elements a staged attribute row of the wide kernels takes: pad4(E)
+    f32, pad16(E) + 8 bf16 (the tensor cores' conflict-free pitch)."""
+    return _pad4(E) if esize == 4 else _pad(E, 16) + 8
+
+
 def layout_bytes(C: int, E: int, H: int, D: int, n_paths: int, MS: int, NC: int, idx: bool,
-                 wide: bool, tpaths: int = 0) -> int:
+                 wide: bool, tpaths: int = 0, esize: int = 4, staged: int = 0,
+                 ftp: int = TILE_F_L2) -> int:
     """Bytes of shared memory a block of the 4-lane kernel takes
-    (``make_layout`` in csrc/tp_fused.cu, summed as it sums them; the wide
-    kernel forms t of at most ``tpaths`` paths, its tile's)."""
-    hp = 64
-    floats = ((0 if wide else E * hp) + (-(-H // hp) * hp if wide else hp)
-              + (0 if wide else H * 32 * NC) + 32 * NC + _pad4(n_paths * 45) + MAX_PATHS
-              + (2 * ROWS if idx else MS) * _pad4(D) + C * TILE_N * MS
-              + _pad4(TILE_N * MS // 2 + 1) + 12 + 2 * C * ROWS * _pad4(E) + ROWS * 32 * NC
-              + 2 * ROWS * _SH_STRIDE + ROWS * (tpaths if wide else n_paths) * 12
-              + (ROWS * hp if wide else 0))
+    (``make_layout`` in csrc/tp_fused.cu, summed as it sums them).  The wide
+    kernel: its weights (:func:`wide_weights`, resident or ``staged`` in
+    chunks of that many hidden units) at a channel tile pitch of ``ftp`` (64
+    or 128), t of at most ``tpaths`` paths (its tile's), attribute rows in
+    the operands' type (``esize``)."""
+    hp = WIDE_HC
+    if not wide:
+        floats = (E * hp + hp + H * 32 * NC + 32 * NC + _pad4(n_paths * 45) + MAX_PATHS
+                  + (2 * ROWS if idx else MS) * _pad4(D) + C * TILE_N * MS
+                  + _pad4(TILE_N * MS // 2 + 1) + 12 + 2 * C * ROWS * E + ROWS * 32 * NC
+                  + 2 * ROWS * _SH_STRIDE + ROWS * n_paths * 12)
+        return 4 * floats
+    rows = ROWS
+    floats = (wide_weights(E, H, ftp, esize, staged) + _pad(H, hp) + ftp + _pad4(n_paths * 45)
+              + MAX_PATHS + (2 * rows if idx else MS) * _pad4(D) + C * TILE_N * MS
+              + _pad4(TILE_N * MS // 2 + 1) + 12
+              + _pad4((2 * C * rows * _a_pitch(E, esize) * esize + 3) // 4) + rows * ftp
+              + 2 * rows * _SH_STRIDE + rows * tpaths * 12
+              + (rows * hp if esize == 4 else C * rows * _hid_pitch(H, staged) // 2))
     return 4 * floats
 
 
 def layout_bytes_l2(C: int, E: int, H: int, DX: int, TS: int, GS: int, PC: int, MS: int,
-                    FTP: int, esize: int, wide: bool) -> int:
+                    FTP: int, esize: int, wide: bool, staged: int = 0) -> int:
     """Bytes of shared memory a block of the 8-lane kernel takes
-    (``make_layout_l2``)."""
-    hp, kb, rows = 64, 72, ROWS_L2
-    ep = _pad4(E) if wide else E
-    w2 = 0 if wide else (FTP * kb // 2 if esize == 2 else H * FTP)
-    floats = ((0 if wide else E * hp) + (-(-H // hp) * hp if wide else hp) + w2 + FTP
-              + _pad4(GS) + _pad4(PC * 8) + _pad4(PC * 5) + _pad4(C * TILE_N_L2 * MS)
+    (``make_layout_l2``); the wide kernel as :func:`layout_bytes` says, on
+    tiles of ``ROWS_L2_WIDE[esize]`` rows."""
+    hp, kb = WIDE_HC, 72
+    rows = ROWS_L2_WIDE[esize] if wide else ROWS_L2
+    if wide:
+        head = wide_weights(E, H, FTP, esize, staged) + _pad(H, hp)
+        ep = _a_pitch(E, esize)
+        hid = C * rows * _hid_pitch(H, staged) // 2 if esize == 2 else rows * hp
+    else:
+        head = E * hp + hp + (FTP * kb // 2 if esize == 2 else H * FTP)
+        ep = E
+        hid = C * rows * (kb // 2 if esize == 2 else hp)
+    floats = (head + FTP + _pad4(GS) + _pad4(PC * 8) + _pad4(PC * 5) + _pad4(C * TILE_N_L2 * MS)
               + _pad4(TILE_N_L2 * MS) + 20 + 2 * rows
               + _pad4((2 * C * rows * ep * esize + 3) // 4) + 2 * rows * _SH_STRIDE
-              + _pad4((2 * rows * DX * esize + 3) // 4)
-              + C * rows * (kb // 2 if esize == 2 else hp) + rows * FTP + _pad4(rows * TS))
+              + _pad4((2 * rows * DX * esize + 3) // 4) + hid + rows * FTP + _pad4(rows * TS))
     return 4 * floats
 
 
@@ -380,12 +437,14 @@ def narrow_l2(E: int, H: int) -> bool:
 
 
 class Plan(NamedTuple):
-    """A K1 launch: ``wide`` (the kernel that reads its weights from device
-    memory and takes any E and H up to ``MAX_WIDE``), the channel tiles
+    """A K1 launch: ``wide`` (the kernel that takes any E and H up to
+    ``MAX_WIDE``), ``staged`` (0: the wide kernel's weights resident; else
+    staged a chunk of that many hidden units at a time), the channel tiles
     ((first channel, channels) each), senders per block and splits, and the
     shared memory a block takes."""
 
     wide: bool
+    staged: int
     tiles: Tuple[Tuple[int, int], ...]
     per_block: int
     splits: int
@@ -400,17 +459,60 @@ def _check_widths(tp: ChannelwiseTP, C: int, E: int, H: int) -> None:
                          f"(ns <= {MAX_WIDE // 3})")
 
 
+def _senders(size, limit: int, most: int) -> List[int]:
+    """The senders a block may take, most first, where ``size(ms)`` bytes fit
+    ``limit``."""
+    return [ms for ms in range(most, MIN_SENDERS - 1, -1) if size(ms) <= limit]
+
+
+#: the wide kernels' weights, in order of preference: resident (0), else
+#: staged in chunks of 64, 32, 16 or 8 hidden units (the f32 weights of the
+#: widest convs, beside f32 tiles; 8 only where a 4-lane sender-index block
+#: of two edge channels holds its senders' rows too)
+WIDE_FORMS = (0, 64, 32, 16, 8)
+
+
+def _wide_form(size, most: int) -> Tuple[int, List[int]]:
+    """(staged, the senders a block may take) of the wide kernel: its weights
+    resident where they fit beside a block's tiles, else staged in the
+    widest chunks that fit; ``size(ms, staged)`` its bytes."""
+    for staged in WIDE_FORMS:
+        fits = _senders(lambda ms: size(ms, staged), SMEM, most)
+        if fits:
+            return staged, fits
+    return WIDE_FORMS[-1], []
+
+
+def wide_tile_pitch(tp: ChannelwiseTP) -> int:
+    """Channels a wide block's edge-weight rows hold: 64 where every tile of
+    :func:`channel_tiles` has at most 64, else 128."""
+    return 64 if max(fc for _, fc, _, _ in channel_tiles(tp)) <= 64 else 128
+
+
+def wide_layout_bytes(tp: ChannelwiseTP, C: int, E: int, H: int, esize: int, indexed: bool,
+                      MS: int, staged: int) -> int:
+    """Bytes of shared memory a block of the wide kernel takes on this
+    product (either lane count) with ``MS`` senders a block, its weights
+    resident (``staged`` 0) or staged in chunks of ``staged`` units."""
+    if lanes(tp) == K_PAD_L2:
+        *_, dims = tables_tiled_l2(tp)
+        return layout_bytes_l2(C, E, H, *dims[:4], MS, dims[4], esize, True, staged)
+    tpaths = max(pc for _, _, _, pc in channel_tiles(tp))
+    return layout_bytes(C, E, H, tp.irreps_in.dim, len(tp.paths), MS, 0, indexed, True, tpaths,
+                        esize, staged, wide_tile_pitch(tp))
+
+
 @functools.lru_cache(maxsize=None)
 def plan(tp: ChannelwiseTP, B: int, N: int, M: int, C: int, E: int, H: int, esize: int,
          indexed: bool) -> Plan:
     """The launch of :func:`tp_aggregate_fused` on these shapes, from the
     shapes alone (no card): raises where the kernels do not take them.  At
     4 lanes the narrow kernel where :func:`narrow` holds (one tile, the
-    grid of :func:`plan_senders`), else the wide one on the channel tiles of
-    ``channel_tiles(tp, MAX_F)``, with at most as many senders a block as
-    its shared memory holds; at 8 lanes the tiles of :func:`channel_tiles`,
-    the narrow kernel where :func:`narrow_l2` holds and its block fits
-    ``SMEM_L2`` (two blocks an SM), else the wide one within ``SMEM``."""
+    grid of :func:`plan_senders`), at 8 lanes where :func:`narrow_l2` holds
+    and its block fits ``SMEM_L2`` (two blocks an SM); else the wide one on
+    the channel tiles of :func:`channel_tiles`, its weights resident where
+    they fit ``SMEM`` beside the block's tiles, else staged, with at most as
+    many senders a block as its shared memory holds."""
     _check_widths(tp, C, E, H)
     F = tp.weight_numel
     if lanes(tp) == K_PAD_L2:
@@ -418,22 +520,24 @@ def plan(tp: ChannelwiseTP, B: int, N: int, M: int, C: int, E: int, H: int, esiz
             raise ValueError(f"tp_aggregate_fused: at most {MAX_PATHS_L2} paths")
         *_, ctab, _, dims = tables_tiled_l2(tp)
 
-        def fits(wide: bool, limit: int) -> List[int]:
-            return [ms for ms in range(MAX_SENDERS_L2, MIN_SENDERS - 1, -1)
-                    if layout_bytes_l2(C, E, H, *dims[:4], ms, dims[4], esize, wide) <= limit]
+        def size(ms: int, wide: bool, staged: int = 0) -> int:
+            if wide:
+                return wide_layout_bytes(tp, C, E, H, esize, indexed, ms, staged)
+            return layout_bytes_l2(C, E, H, *dims[:4], ms, dims[4], esize, False)
         # the narrow kernel where its weights fit beside two blocks an SM, else the wide one
-        wide, limit = False, SMEM_L2
-        ms = fits(False, SMEM_L2) if narrow_l2(E, H) else []
-        if not ms:
-            wide, limit = True, SMEM
-            ms = fits(True, SMEM)
-        if not ms:
+        wide, staged = False, 0
+        fits = (_senders(lambda ms: size(ms, False), SMEM_L2, MAX_SENDERS_L2)
+                if narrow_l2(E, H) else [])
+        if not fits:
+            wide = True
+            staged, fits = _wide_form(lambda ms, st: size(ms, True, st), MAX_SENDERS_L2)
+        if not fits:
             raise ValueError(f"tp_aggregate_fused: E = {E}, H = {H} and the channel tiles' sizes "
-                             f"{dims} need more than the {limit} bytes of shared memory a block "
+                             f"{dims} need more than the {SMEM} bytes of shared memory a block "
                              f"has")
-        per_block, splits, _, _ = grid_l2(tp, B, N, M, ms[0])
-        smem = layout_bytes_l2(C, E, H, *dims[:4], per_block, dims[4], esize, wide)
-        return Plan(wide, tuple((int(r[0]), int(r[1])) for r in ctab), per_block, splits, smem)
+        per_block, splits, _, _ = grid_l2(tp, B, N, M, fits[0])
+        return Plan(wide, staged, tuple((int(r[0]), int(r[1])) for r in ctab), per_block,
+                    splits, size(per_block, wide, staged))
     if len(tp.paths) > MAX_PATHS:
         raise ValueError(f"tp_aggregate_fused: at most {MAX_PATHS} paths")
     D = tp.irreps_in.dim
@@ -444,17 +548,18 @@ def plan(tp: ChannelwiseTP, B: int, N: int, M: int, C: int, E: int, H: int, esiz
         if smem > SMEM:
             raise ValueError(f"tp_aggregate_fused: {smem} bytes of shared memory, more than "
                              f"the {SMEM} a block has")
-        return Plan(False, ((0, F),), per_block, splits, smem)
-    tiles = channel_tiles(tp, MAX_F)
-    nc, tpaths = MAX_F // 32, max(pc for _, _, _, pc in tiles)
-    fits = [ms for ms in range(MAX_SENDERS, MIN_SENDERS - 1, -1)
-            if layout_bytes(C, E, H, D, len(tp.paths), ms, nc, indexed, True, tpaths) <= SMEM]
+        return Plan(False, 0, ((0, F),), per_block, splits, smem)
+    tiles = channel_tiles(tp)
+
+    def size4(ms: int, staged: int) -> int:
+        return wide_layout_bytes(tp, C, E, H, esize, indexed, ms, staged)
+    staged, fits = _wide_form(size4, MAX_SENDERS)
     if not fits:
         raise ValueError(f"tp_aggregate_fused: E = {E}, H = {H}, D = {D}: the wide kernel's "
                          f"block needs more than the {SMEM} bytes of shared memory it has")
     per_block, splits = plan_senders(B, N, M, TILE_N, fits[0], len(tiles))
-    smem = layout_bytes(C, E, H, D, len(tp.paths), per_block, nc, indexed, True, tpaths)
-    return Plan(True, tuple((f0, fc) for f0, fc, _, _ in tiles), per_block, splits, smem)
+    return Plan(True, staged, tuple((f0, fc) for f0, fc, _, _ in tiles), per_block, splits,
+                size4(per_block, staged))
 
 
 @functools.lru_cache(maxsize=None)
@@ -509,7 +614,7 @@ def tables_tiled_l2(tp: ChannelwiseTP, dtype: torch.dtype = torch.float32):
 def _device_ctab(tp: ChannelwiseTP, device: str) -> torch.Tensor:
     """The 4-lane wide kernel's channel tiles, (first channel, width, first
     path, paths) int32."""
-    return torch.as_tensor(np.array(channel_tiles(tp, MAX_F), np.int32), device=device)
+    return torch.as_tensor(np.array(channel_tiles(tp), np.int32), device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -552,13 +657,13 @@ def plan_senders(B: int, N: int, M: int, tile_n: int = TILE_N,
 def _library() -> ctypes.CDLL:
     lib = build.load("tp_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dp_tp_fused.argtypes = [p] * 16 + [i] * 16 + [p]
+    lib.dp_tp_fused.argtypes = [p] * 16 + [i] * 18 + [p]
     lib.dp_tp_fused.restype = i
-    lib.dp_tp_fused_smem.argtypes = [i] * 10
+    lib.dp_tp_fused_smem.argtypes = [i] * 12
     lib.dp_tp_fused_smem.restype = i
-    lib.dp_tp_fused_l2.argtypes = [p] * 18 + [i] * 20 + [p]
+    lib.dp_tp_fused_l2.argtypes = [p] * 18 + [i] * 21 + [p]
     lib.dp_tp_fused_l2.restype = i
-    lib.dp_tp_fused_l2_smem.argtypes = [i] * 11
+    lib.dp_tp_fused_l2_smem.argtypes = [i] * 12
     lib.dp_tp_fused_l2_smem.restype = i
     lib.dp_cuda_error_string.argtypes = [i]
     lib.dp_cuda_error_string.restype = ctypes.c_char_p
@@ -637,13 +742,31 @@ def tp_aggregate_fused(
     if sender_index is not None:
         check_index(sender_index, (B, N, M), dev, "tp_aggregate_fused")
     pl = plan(tp, B, N, M, C, E, H, x.element_size(), sender_index is not None)
-    aligned = [] if pl.wide and E % 4 else list(attrs)   # the wide kernels read no W1, W2 rows
-    if any(t.data_ptr() % 16 for t in aligned + ([] if pl.wide else [w1, w2])):
-        raise ValueError("tp_aggregate_fused: attrs (and, narrow, w1 and w2) must be 16-byte "
-                         "aligned")
+    return _launch_planned(tp, x, sh, attrs, masks, w1, b1, w2, b2, pl, sender_index)
+
+
+def _launch_planned(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
+                   attrs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                   pl: Plan, sender_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on inputs :func:`tp_aggregate_fused` has checked, on the
+    launch ``pl`` (:func:`plan`'s, or another form of it that the card
+    tests choose: the staged weights where the resident ones fit)."""
+    E = w1.shape[0]
+    aligned = [] if pl.wide and E % 4 else list(attrs)   # rows the kernels copy in 16 bytes
+    if any(t.data_ptr() % 16 for t in aligned + [w1, w2]):
+        raise ValueError("tp_aggregate_fused: attrs (where E is a multiple of four), w1 and w2 "
+                         "must be 16-byte aligned")
     if lanes(tp) == K_PAD_L2:
         return _launch_l2(tp, x, sh, attrs, masks, w1, b1, w2, b2, pl, sender_index)
 
+    dev = x.device
+    B, N, M, S = sh.shape
+    D = x.shape[-1]
+    C = len(attrs)
+    H = w1.shape[1]
+    F = tp.weight_numel
+    dt = x.dtype
     chan, gtab = _device_tables(tp, str(dev), dt)
     ctab = _device_ctab(tp, str(dev)) if pl.wide else None
     out = torch.empty((B, N, F, K_PAD), dtype=torch.float32, device=dev)
@@ -658,8 +781,8 @@ def tp_aggregate_fused(
         gtab.data_ptr(), _ptr(ctab), out.data_ptr(), _ptr(part),
         B, N, M, x.shape[1], D, S, C, E, H, F, gtab.shape[0], pl.per_block,
         int(masks[0].dtype == torch.float32), len(pl.tiles),
-        max(pc for _, _, _, pc in channel_tiles(tp, MAX_F)) if pl.wide else 1,
-        int(dt == torch.bfloat16),
+        max(pc for _, _, _, pc in channel_tiles(tp)) if pl.wide else 1,
+        wide_tile_pitch(tp) if pl.wide else 0, pl.staged, int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused launch failed: {lib.dp_cuda_error_string(rc).decode()}")
@@ -692,8 +815,8 @@ def _launch_l2(tp: ChannelwiseTP, x: torch.Tensor, sh: torch.Tensor,
         ptab.data_ptr(), gflat.data_ptr(), ctab.data_ptr(), walk.data_ptr(), out.data_ptr(),
         _ptr(part),
         B, N, M, x.shape[1], x.shape[-1], S, len(attrs), E, H, F, n_ct, *dims, per_block,
-        int(masks[0].dtype == torch.float32), int(pl.wide), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(masks[0].dtype == torch.float32), int(pl.wide), pl.staged,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tp_fused_l2 launch failed: {lib.dp_cuda_error_string(rc).decode()}")
     counter(KERNEL, KERNEL_L2, KERNEL_IDX, KERNEL_IDX_L2, sender_index, True).launches += 1

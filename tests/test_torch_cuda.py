@@ -745,7 +745,7 @@ def test_tp_fused_l2_layout_fits_two_blocks_an_sm(cuda, sig):
     for C in (1, 2):
         for esize in (4, 2):
             smem = lib.dp_tp_fused_l2_smem(C, E, E, *dims[:4], tp_fused.MAX_SENDERS_L2,
-                                           dims[4], esize, 0)
+                                           dims[4], esize, 0, 0)
             assert 0 < smem <= tp_fused.SMEM_L2, (C, esize, smem)
 
 
@@ -1803,6 +1803,67 @@ def test_kernels_at_model_widths(cuda, widths, l2, dtype):
         _assert_grads(names, grads, ref_grads, dt)
 
 
+#: widths whose wide convs the staged-weights test takes (E = 66, 96, 144)
+STAGED_WIDTHS = [(22, 6), (32, 16), (48, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])
+@pytest.mark.parametrize("widths", STAGED_WIDTHS, ids=[f"{a}-{b}" for a, b in STAGED_WIDTHS])
+def test_k1_wide_staged_weights_match_the_resident_ones(cuda, widths, l2, dtype):
+    """Every wide conv of the model at these widths, dense and (phore-phore)
+    sender-index, two edge channels: K1's wide kernel with its weights
+    resident and staged a hidden chunk at a time (chunks of 64, 32, 16 and 8
+    units: the forms ``plan`` takes where the resident weights do not fit),
+    each form whose block fits (the first is plan's): against the plain
+    version (f32 1e-4 of scale, bf16 the JAX package's bf16 conv to 3e-2),
+    reruns bit-equal, and the forms bit-equal to each other where the chunks
+    cut the hidden layer at the products' steps (f32 every chunk: the sums
+    run over the units in order; bf16 chunks of 16 units or more: the mma's
+    steps of 16)."""
+    ns, nv = widths
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    esize = 4 if dt == torch.float32 else 2
+    rng = np.random.default_rng(ns * 10 + nv)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    checked = 0
+    for tp, E, H, indexed in _width_convs(ns, nv, l2):
+        B, N, M, Mx = (2, 13, 11, 29) if indexed else (2, 13, 29, 29)
+        pl = tp_fused.plan(tp, B, N, M, 2, E, H, esize, indexed)
+        if not pl.wide:
+            continue
+        F, D = tp.weight_numel, tp.irreps_in.dim
+        idx = (torch.from_numpy(rng.integers(0, Mx, (B, N, M)).astype(np.int32)).to(cuda)
+               if indexed else None)
+        masks = [torch.from_numpy(rng.random((B, N, M)) > 0.3).to(cuda) for _ in range(2)]
+        low = (t(rng.normal(size=(B, Mx, D))).to(dt),
+               t(rng.normal(size=(B, N, M, tp.irreps_sh.dim))).to(dt),
+               [t(rng.normal(size=(B, N, M, E))).to(dt) for _ in range(2)])
+        params = (t(rng.normal(size=(E, H)) / np.sqrt(E)), t(rng.normal(size=(H,)) * 0.1),
+                  t(rng.normal(size=(H, F)) / np.sqrt(H)), t(rng.normal(size=(F,)) * 0.1))
+        what = (repr(tp.irreps_in), repr(tp.irreps_out), E, indexed)
+        ref = tp_fused.tp_aggregate_fused_plain(tp, *low, masks, *params, sender_index=idx)
+        tol = 1e-4 if dt == torch.float32 else 3e-2
+        forms = [st for st in tp_fused.WIDE_FORMS if tp_fused.wide_layout_bytes(
+            tp, 2, E, H, esize, indexed, pl.per_block, st) <= tp_fused.SMEM]
+        assert pl.staged == forms[0], what
+        first = None
+        for staged in forms:
+            got = [tp_fused._launch_planned(tp, *low, masks, *params, pl._replace(staged=staged),
+                                            idx) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], got[1]), what + (staged,)
+            assert float((got[0] - ref).abs().max()) <= tol * float(ref.abs().max()), \
+                what + (staged,)
+            if dt == torch.float32 or staged == 0 or staged >= 16:
+                if first is None:
+                    first = got[0]
+                assert torch.equal(got[0], first), what + (staged,)
+        checked += 1
+    assert checked
+
+
 def _odd_scalar_index_case(cuda, l2, dt, offset, seed=3):
     """A layer-0 phore conv with odd widths (7 scalars in: units of four and
     three channels, F and D not multiples of four), its operands at
@@ -1874,10 +1935,12 @@ def test_tp_scalar_index_kernels_odd_widths_and_misaligned(cuda, offset, l2, dty
 @pytest.mark.parametrize("widths", WIDTHS, ids=[f"{a}-{b}" for a, b in WIDTHS])
 def test_k1_plans_count_the_libraries_shared_memory(cuda, widths):
     """``tp_fused.plan``'s count of a block's shared memory (the layouts'
-    sums restated in Python, which pick the form and the senders a block)
-    equals the library's own (``dp_tp_fused_smem``, ``dp_tp_fused_l2_smem``)
-    on every conv of the model at these widths, l <= 1 and l = 2, one and
-    two edge channels, f32 and bf16, dense and sender-index."""
+    sums restated in Python, which pick the form, resident or staged
+    weights and the senders a block) equals the library's own
+    (``dp_tp_fused_smem``, ``dp_tp_fused_l2_smem``) on every conv of the
+    model at these widths, l <= 1 and l = 2, one and two edge channels, f32
+    and bf16, dense and sender-index; for a wide conv also in each of the
+    wide kernels' forms (``WIDE_FORMS``: resident, staged chunks)."""
     lib = tp_fused._library()
     for l2 in (False, True):
         for tp, E, H, indexed in _width_convs(*widths, l2):
@@ -1886,12 +1949,30 @@ def test_k1_plans_count_the_libraries_shared_memory(cuda, widths):
                     pl = tp_fused.plan(tp, 40, 24, 96, C, E, H, esize, indexed)
                     if tp_fused.lanes(tp) == 8:
                         *_, dims = tp_fused.tables_tiled_l2(tp)
-                        got = lib.dp_tp_fused_l2_smem(C, E, H, *dims[:4], pl.per_block,
-                                                      dims[4], esize, int(pl.wide))
+
+                        def count(staged):
+                            return lib.dp_tp_fused_l2_smem(C, E, H, *dims[:4], pl.per_block,
+                                                           dims[4], esize, int(pl.wide), staged)
+
+                        def restated(staged):
+                            return tp_fused.layout_bytes_l2(C, E, H, *dims[:4], pl.per_block,
+                                                            dims[4], esize, pl.wide, staged)
                     else:
-                        tiles = tp_fused.channel_tiles(tp, tp_fused.MAX_F)
-                        got = lib.dp_tp_fused_smem(C, E, H, tp.irreps_in.dim, len(tp.paths),
-                                                   pl.per_block, tp.weight_numel, int(indexed),
-                                                   int(pl.wide),
-                                                   max(pc for *_, pc in tiles) if pl.wide else 1)
-                    assert got == pl.smem, (repr(tp.irreps_in), C, esize, indexed)
+                        tiles = tp_fused.channel_tiles(tp)
+                        ftp = tp_fused.wide_tile_pitch(tp) if pl.wide else 0
+                        tpaths = max(pc for *_, pc in tiles) if pl.wide else 1
+
+                        def count(staged):
+                            return lib.dp_tp_fused_smem(C, E, H, tp.irreps_in.dim, len(tp.paths),
+                                                        pl.per_block, tp.weight_numel,
+                                                        int(indexed), ftp, tpaths, esize, staged)
+
+                        def restated(staged):
+                            return tp_fused.layout_bytes(
+                                C, E, H, tp.irreps_in.dim, len(tp.paths), pl.per_block,
+                                max(2, -(-tp.weight_numel // 32)), indexed, pl.wide, tpaths,
+                                esize, staged, ftp or tp_fused.TILE_F_L2)
+                    what = (repr(tp.irreps_in), C, esize, indexed)
+                    assert count(pl.staged) == pl.smem, what
+                    for staged in tp_fused.WIDE_FORMS if pl.wide else ():
+                        assert count(staged) == restated(staged), what + (staged,)

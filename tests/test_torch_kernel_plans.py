@@ -1302,16 +1302,16 @@ WIDE_SIGNATURES = {
 
 @pytest.mark.parametrize("sig", list(WIDE_SIGNATURES))
 def test_k1_wide_channel_tiles_cover_every_channel_once_at_path_boundaries(sig):
-    """The 4-lane wide K1's channel tiles (``channel_tiles(tp, MAX_F)``):
-    consecutive, each starting at a path's first channel and holding whole
-    paths (p0 .. p0 + pc - 1), at most ``MAX_F`` channels, every channel of
-    the row once; the launch plan takes them."""
+    """The 4-lane wide K1's channel tiles (``channel_tiles(tp)``, as at 8
+    lanes): consecutive, each starting at a path's first channel and holding
+    whole paths (p0 .. p0 + pc - 1), at most ``TILE_F_L2`` channels, every
+    channel of the row once; the launch plan takes them."""
     irr_in, irr_out = WIDE_SIGNATURES[sig]
     tp = channelwise_tp(irr_in, SH, irr_out)
-    tiles = tp_fused.channel_tiles(tp, tp_fused.MAX_F)
+    tiles = tp_fused.channel_tiles(tp)
     f_next, p_next = 0, 0
     for f0, fc, p0, pc in tiles:
-        assert (f0, p0) == (f_next, p_next) and 1 <= fc <= tp_fused.MAX_F
+        assert (f0, p0) == (f_next, p_next) and 1 <= fc <= tp_fused.TILE_F_L2
         assert tp.paths[p0].w_slice[0] == f0 and tp.paths[p0 + pc - 1].w_slice[1] == f0 + fc
         f_next, p_next = f0 + fc, p0 + pc
     assert (f_next, p_next) == (tp.weight_numel, len(tp.paths))
@@ -1359,6 +1359,205 @@ def test_k1_wide_hidden_chunks_cover_every_unit_once(E, H):
     want = tp_fused.edge_weights(attrs, masks, w1, b1, w2, b2)
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
     assert not tp_fused.narrow(E, H, F) or (E, H) == (44, 44)
+
+
+def _bf16(a):
+    """a rounded to the nearest bf16, as f32."""
+    return torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _chunked_edge_weights(attrs, masks, w1, b1, w2, b2, hcw, bf16=False):
+    """The redesigned wide K1's edge MLP in its order, in numpy: the rows of
+    a tile, the hidden layer a chunk at a time from the staged weights
+    (hcw units a chunk; 0: resident, f32 in chunks of 64, bf16 all H units
+    in one pass; W1's rows zero-padded past E, its columns and W2's rows
+    zero past H), each unit formed whole over E; f32: hid = sum_c mask_c relu(A_c
+    W1 + b1), w += hid W2 over the chunks in order, then msum b2; bf16 (the
+    weights rounded once, as they enter shared memory): channel by channel,
+    h_c = relu(bf16(bf16(A_c W1) + b1)), w_c = bf16(bf16(h_c W2) + b2) mask_c
+    (h_c W2 summed in f32 over the chunks), w = bf16(w_0 + w_1).  Returns w
+    (rows, F) and the units the chunks formed, in order."""
+    E, H = w1.shape
+    hc_w = hcw or (H if bf16 else 64)
+    ep = -(-E // (16 if bf16 else 4)) * (16 if bf16 else 4)
+    if bf16:
+        w1, b1, w2, b2 = (_bf16(v) for v in (w1, b1, w2, b2))
+        attrs = [_bf16(a) for a in attrs]
+    w1p = np.zeros((ep, -(-H // hc_w) * hc_w), np.float32)
+    w1p[:E, :H] = w1
+    w2p = np.zeros((w1p.shape[1], w2.shape[1]), np.float32)
+    w2p[:H] = w2
+    b1p = np.zeros(w1p.shape[1], np.float32)
+    b1p[:H] = b1
+    ap = [np.pad(a, ((0, 0), (0, ep - E))).astype(np.float32) for a in attrs]
+    rows, F = ap[0].shape[0], w2.shape[1]
+    acc = np.zeros((len(attrs) if bf16 else 1, rows, F), np.float32)
+    formed = []
+    for hc in range(0, H, hc_w):
+        kn = min(hc_w, H - hc)
+        formed += list(range(hc, hc + kn))
+        w1c, w2c, b1c = w1p[:, hc:hc + hc_w], w2p[hc:hc + hc_w], b1p[hc:hc + hc_w]
+        if bf16:
+            for c, a in enumerate(ap):
+                h = np.maximum(_bf16(_bf16(a @ w1c) + b1c), 0.0)
+                h[:, kn:] = 0.0
+                acc[c] += _bf16(h) @ w2c
+        else:
+            hid = sum(m[:, None] * np.maximum(a @ w1c + b1c, 0.0) for a, m in zip(ap, masks))
+            hid[:, kn:] = 0.0
+            acc[0] += hid @ w2c
+    if not bf16:
+        return acc[0] + sum(masks)[:, None] * b2, formed
+    w = None
+    for c, m in enumerate(masks):
+        v = _bf16(_bf16(acc[c]) + b2) * m[:, None]
+        w = v if w is None else _bf16(w + v)
+    return w, formed
+
+
+@pytest.mark.parametrize("hcw", [0, 64, 32, 16, 8])
+@pytest.mark.parametrize("E,H", [(66, 66), (96, 96), (144, 144), (192, 192)])
+def test_k1_wide_chunked_weights_reproduce_the_edge_mlp(E, H, hcw):
+    """The redesigned wide K1's edge-MLP order (``_chunked_edge_weights``: a
+    tile's rows, each hidden chunk from staged weights, or the resident
+    ones) forms every hidden unit once and gives the parent
+    wide kernel's grouping (``_wide_edge_weights``) to 1e-6 of scale in f32;
+    in bf16, with the weights rounded once, it keeps the bf16 rounding points
+    of the JAX package's conv: within 1e-2 of scale of ``edge_weights`` at
+    bf16 (the JAX package's bf16 conv), most entries equal to the bit, and
+    every entry a bf16 value."""
+    rng = np.random.default_rng(E * 7 + hcw)
+    rows, F = 32, 72
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    attrs = [f(rows, E) for _ in range(2)]
+    masks = [(rng.random(rows) > 0.3).astype(np.float32) for _ in range(2)]
+    w1, b1, w2, b2 = (v.astype(np.float32) for v in (f(E, H) / np.sqrt(E), f(H) * 0.1,
+                                                     f(H, F) / np.sqrt(H), f(F) * 0.1))
+    got, formed = _chunked_edge_weights(attrs, masks, w1, b1, w2, b2, hcw)
+    assert formed == list(range(H))
+    want, _ = _wide_edge_weights([T(a) for a in attrs], [T(m) for m in masks], T(w1), T(b1),
+                                 T(w2), T(b2))
+    assert float(np.abs(got - want.numpy()).max()) <= 1e-6 * float(want.abs().max())
+    got_bf, _ = _chunked_edge_weights(attrs, masks, w1, b1, w2, b2, hcw, bf16=True)
+    want_bf = tp_fused.edge_weights([T(a) for a in attrs], [T(m) for m in masks], T(w1), T(b1),
+                                    T(w2), T(b2), torch.bfloat16).float().numpy()
+    assert np.array_equal(got_bf, _bf16(got_bf))
+    assert float(np.abs(got_bf - want_bf).max()) <= 1e-2 * float(np.abs(want_bf).max())
+    assert float(np.mean(got_bf == want_bf)) >= 0.95
+
+
+#: the model widths whose convs the K1 plans are checked at, l <= 1 and l = 2
+PLAN_WIDTHS = [(22, 6), (24, 8), (32, 16), (48, 10), (64, 32)]
+
+
+@pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])
+@pytest.mark.parametrize("widths", PLAN_WIDTHS, ids=[f"{a}-{b}" for a, b in PLAN_WIDTHS])
+def test_k1_wide_plan_keeps_weights_resident_where_they_fit(widths, l2):
+    """On every conv of the model at these widths, one and two edge
+    channels, f32 and bf16, dense and (phore-phore) sender-index, at the
+    serving shapes: a wide launch's block fits 227 KB; its weights are
+    resident where a block of MIN_SENDERS senders holds them, else staged in
+    the widest chunks that fit (``WIDE_FORMS``); the forms' layouts differ
+    by their weights (``wide_weights``: f32 W1 and the tile's W2 columns at
+    their pitch, bf16 transposed at a conflict-free pitch, or two chunks)
+    and, bf16, by the hidden rows (a chunk's, or the whole layer's where the
+    weights are resident); and the convs of the two wide models phase 19
+    serves (32 / 16, 48 / 10 at l = 2) keep their bf16 weights resident."""
+    from diffphore_torch.models.layers import DenseTPConv
+    from diffphore_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    ns, nv = widths
+    model = ScoreModel(ScoreModelConfig(ns=ns, nv=nv, use_second_order_repr=l2))
+    pad = lambda n, m: -(-n // m) * m
+    for name, conv in model.named_modules():
+        if not (isinstance(conv, DenseTPConv) and conv.channelwise):
+            continue
+        tp = conv.tp
+        E, H = conv.fc_w1.shape
+        for indexed in (False, True) if ".phore_conv_" in name else (False,):
+            for C in (1, 2):
+                for esize in (4, 2):
+                    B, N, M = (40, 96, 24) if indexed else (40, 24, 96)
+                    pl = tp_fused.plan(tp, B, N, M, C, E, H, esize, indexed)
+                    assert pl.smem <= tp_fused.SMEM == 227 * 1024, name
+                    if not pl.wide:
+                        assert pl.staged == 0
+                        continue
+                    size = lambda st, ms=tp_fused.MIN_SENDERS: tp_fused.wide_layout_bytes(
+                        tp, C, E, H, esize, indexed, ms, st)
+                    fit = [st for st in tp_fused.WIDE_FORMS if size(st) <= tp_fused.SMEM]
+                    assert pl.staged == fit[0], (name, C, esize, indexed)
+                    assert pl.smem == size(pl.staged, pl.per_block)
+                    ftp = (tp_fused.wide_tile_pitch(tp) if tp_fused.lanes(tp) == 4
+                           else tables_tiled_l2_ftp(tp))
+                    rows = (tp_fused.ROWS if tp_fused.lanes(tp) == 4
+                            else tp_fused.ROWS_L2_WIDE[esize])
+                    for st in tp_fused.WIDE_FORMS:
+                        hid = (0 if esize == 4 else 2 * C * rows * (
+                            tp_fused._hid_pitch(H, st) - tp_fused._hid_pitch(H, 0)))
+                        assert size(st) - size(0) == 4 * (
+                            tp_fused.wide_weights(E, H, ftp, esize, st)
+                            - tp_fused.wide_weights(E, H, ftp, esize, 0)) + hid
+                    if esize == 4:
+                        assert tp_fused.wide_weights(E, H, ftp, 4, 0) == (
+                            pad(E, 4) * pad(H, 4) + pad(H, 4) * ftp)
+                    else:
+                        q1 = pad(E, 16) + 8
+                        assert 2 * tp_fused.wide_weights(E, H, ftp, 2, 0) == (
+                            pad(H, 8) * q1 + ftp * (pad(H, 16) + 8))
+                        assert (q1 // 8) % 2 == 1 and ((pad(H, 16) + 8) // 8) % 2 == 1
+                    if (ns, nv, l2) in ((32, 16, False), (48, 10, True)) and esize == 2:
+                        assert pl.staged == 0, name
+
+
+#: (lanes, operand bytes) -> the weight forms plan picks for the wide K1 on
+#: FORM_GRID's convs: resident (0), else staged in chunks of that many units
+FORMS_PICKED = {(4, 4): {0, 64, 32, 16, 8}, (4, 2): {0, 64, 32}, (8, 4): {0, 64, 32},
+                (8, 2): {0, 64, 32}}
+#: ns and nv of the models whose convs FORMS_PICKED lists, up to the kernels' ns <= 64
+FORM_GRID = [(ns, nv) for ns in (22, 32, 40, 48, 56, 64) for nv in (2, 6, 10, 16, 24, 32)]
+
+
+@pytest.mark.parametrize("l2", [False, True], ids=["l1", "l2"])
+def test_k1_wide_plan_picks_every_weight_form(l2):
+    """The weight forms :func:`tp_fused.plan` picks for the wide kernel on
+    every conv of the models of ``FORM_GRID`` (ns <= 64; a conv from each
+    step of the irreps sequence to the next, one and two edge channels,
+    dense and sender-index, f32 and bf16, at the serving shapes), by lane
+    count and operand type, are those of ``FORMS_PICKED``: every form of
+    ``WIDE_FORMS`` is picked somewhere.  The 8-unit chunk is picked only by
+    f32 two-channel sender-index convs at 4 lanes (their sender rows of D
+    floats take the room); the bf16 weights and the 8-lane ones never need
+    chunks narrower than 32.  A shape that no form fits raises, naming the
+    shared memory."""
+    picked, by_eight = {}, set()
+    for ns, nv in FORM_GRID:
+        seq = _seq(ns, nv, l2)
+        for i in range(len(seq)):
+            tp = channelwise_tp(seq[i], SH, seq[min(i + 1, len(seq) - 1)])
+            E = H = 3 * ns
+            for C, indexed, esize in itertools.product((1, 2), (False, True), (4, 2)):
+                B, N, M = (40, 96, 24) if indexed else (40, 24, 96)
+                try:
+                    pl = tp_fused.plan(tp, B, N, M, C, E, H, esize, indexed)
+                except ValueError as e:
+                    assert "shared memory" in str(e), e
+                    continue
+                if pl.wide:
+                    picked.setdefault((tp_fused.lanes(tp), esize), set()).add(pl.staged)
+                    if pl.staged == 8:
+                        by_eight.add((tp_fused.lanes(tp), esize, C, indexed))
+    want = {k: v for k, v in FORMS_PICKED.items() if k[0] == (8 if l2 else 4)}
+    assert picked == want
+    assert set().union(*picked.values()) <= set(tp_fused.WIDE_FORMS)
+    assert by_eight == (set() if l2 else {(4, 4, 2, True)})
+    if not l2:
+        assert set().union(*FORMS_PICKED.values()) == set(tp_fused.WIDE_FORMS)
+
+
+def tables_tiled_l2_ftp(tp):
+    """The 8-lane K1's channel tile pitch (64 or 128)."""
+    return tp_fused.tables_tiled_l2(tp)[-1][4]
 
 
 @pytest.mark.parametrize("sig,splits", [("48-10-layer3", 1), ("64-32-layer2", 2)])
